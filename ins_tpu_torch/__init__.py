@@ -1,0 +1,43 @@
+"""ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
+
+The JAX package `ins_tpu` is the reference; this package runs its main
+path — 3-D decaying turbulence on a uniform periodic box, explicit RK
+with the spectral projection — in PyTorch, with the four TPU kernels of
+that path rewritten as hand-written CUDA for `sm_90a` (`csrc/`, built at
+first use by `_build.py`).  Every tensor of a run lives on
+`Setup(device=...)`; on the CPU each kernel wrapper runs its plain
+PyTorch version.  It imports torch and never jax.
+"""
+
+from . import processors  # noqa: F401
+from .boundary_conditions import (  # noqa: F401
+    DirichletBC,
+    PeriodicBC,
+    PressureBC,
+    SymmetricBC,
+)
+from .grid import (  # noqa: F401
+    cosine_grid,
+    make_grid,
+    max_size,
+    stretched_grid,
+    tanh_grid,
+)
+from .ops import *  # noqa: F401,F403
+from .processors import (  # noqa: F401
+    Processor,
+    fieldsaver,
+    processor,
+    timelogger,
+    total_kinetic_energy,
+)
+from .setup import Setup  # noqa: F401
+from .solver import SolverDivergedError, get_state, solve_unsteady  # noqa: F401
+from .time_steppers import (  # noqa: F401
+    LMWray3,
+    RKMethods,
+    create_stepper,
+    runge_kutta_method,
+)
+
+__version__ = "0.1.0"

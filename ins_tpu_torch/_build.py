@@ -1,0 +1,160 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
+one shared library with a plain C interface, loaded with `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library lands in `build/ins_tpu_torch/` beside the package (listed in
+`.gitignore`), named by a hash of the sources and flags, so an edited
+source is rebuilt at first use and an unchanged one is loaded as is.
+The build happens on first use, never at import.  A failed build raises
+`KernelBuildError` with the compiler's output; `ptxas` register and
+spill counts of a successful build are kept in `build.log` beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["KernelBuildError", "build", "load", "check", "build_seconds"]
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG.parent / "build" / "ins_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_f32 = ctypes.c_float
+_c_i64 = ctypes.c_longlong
+
+# C signatures of the exported entry points: (argtypes, restype)
+_SIGNATURES = {
+    "ins_gemm_f32": (
+        [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_i64] * 3 + [_c_int, _c_ptr],
+        _c_int,
+    ),
+    "ins_stage_f32": (
+        [_c_ptr, _c_ptr, _c_ptr, ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_f32),
+         _c_int, _c_f32, _c_ptr, _c_f32, _c_int,
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+         _c_f32, _c_f32, _c_f32, _c_f32, _c_f32, _c_ptr],
+        _c_int,
+    ),
+    "ins_eigen_scale_f32": (
+        [_c_ptr, _c_int] + [_c_f32] * 5 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_correct_f32": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_f32, _c_f32, _c_f32, _c_ptr],
+        _c_int,
+    ),
+    "ins_error_string": ([_c_int], ctypes.c_char_p),
+}
+
+_lib = None
+# wall seconds of the last compile in this process (None: loaded a
+# library that was already built, or nothing loaded yet)
+build_seconds = None
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA sources could not be compiled or loaded."""
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _find_nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise KernelBuildError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
+        "CUDA kernels are built from ins_tpu_torch/csrc at first use"
+    )
+
+
+def build():
+    """Compile the kernels if the library for the current sources is
+    missing; return its path."""
+    global build_seconds
+    lib_path = BUILD_DIR / f"libins_tpu_torch_{_source_hash()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():  # another process built it meanwhile
+                return lib_path
+            tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            elapsed = time.perf_counter() - t0
+            log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            (BUILD_DIR / "build.log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(
+                    f"nvcc failed with exit code {proc.returncode}:\n{log}"
+                )
+            os.replace(tmp, lib_path)
+            build_seconds = elapsed
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
+def load():
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def check(err, what):
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = load().ins_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")

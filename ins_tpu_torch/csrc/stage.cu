@@ -1,0 +1,259 @@
+// Stage stencil kernel: conv-diff + RK tableau accumulation + divergence
+//
+// For every cell I of the periodic cube:
+//
+//   u     = ut_prev - grad(q)   (REBUILD: q physical, forward differences)
+//         | u                   (no rebuild: u is an input)
+//   f     = convdiff(u)(I)                      (-> k_out if requested)
+//   ut    = base + sum_j ck_j k_j + cnew f      (base = u when null: RECON)
+//   usnew = (usnew_base or base) + cusnew f     (the b-row accumulator)
+//   u_out = u                                   (emit_u, REBUILD only)
+//   div   = vol * sum_a (ut_a(I) - ut_a(I - e_a)) / dx_a
+//
+// Replaces: the stencil part of `_pcmsd_hat_kernel`
+// (ins_tpu/ops/pallas_kernels.py:2341, wrapper `pcmsd_hat_3d` :2694) and
+// of `_msd_hat_kernel` / `_stage_tail` (:692, :972, wrapper
+// `momentum_stage_divhat_3d` :1264).  The conv-diff is
+// `_convdiff_window` (:129) / `convdiff_roll` term for term.  The TPU
+// kernels apply the z/y eigen-transforms of q and div in the same pass;
+// here the wrappers run them as plane-transform GEMMs (transforms.cu)
+// before (q) and after (div) this kernel, so q and div each make one
+// extra scalar round trip through device memory.  Removing those round
+// trips (a block-level fused transform) is later work (ROADMAP queue 2).
+//
+// What bounds it on an H100: device-memory bytes.  With REBUILD and a
+// stream base it reads ut_prev, q and the tableau streams and writes ut,
+// usnew (and u) and div: 14-17 floats per cell, 0.9-1.1 GB per call at
+// 256^3 (0.28-0.34 ms at 3.35 TB/s).  The stencil reads each velocity
+// about a hundred times per cell (the conv-diff at I and, for the
+// backward divergence, at I - e_a), so those reads must not go to global
+// memory: a block owns a TZ x TY tile of (y, z) and walks XB x-planes,
+// keeping a ring of four x-planes of the (rebuilt) velocity, with a halo
+// of two cells below and one above in y and z, in shared memory.  Each
+// velocity element is rebuilt once per block from three loads (ut_prev
+// and two q values); the stencil then reads only shared memory, z fastest
+// across a warp (conflict-free).  The backward divergence needs ut at
+// I - e_a, which a neighbouring thread also computes; each thread
+// recomputes that one component from the shared tile rather than
+// exchanging it, since the tableau streams at I - e_a are single loads.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAXK = 4;
+constexpr int TZ = 32;             // tile extent in z (one warp)
+constexpr int TY = 8;              // tile extent in y
+constexpr int XB = 8;              // x-planes walked per block
+constexpr int HZ = TZ + 3;         // halo: 2 below, 1 above
+constexpr int HY = TY + 3;
+constexpr int RING = 4;            // x-planes x-2 .. x+1
+
+struct StageParams {
+    const float* u;           // velocity, or ut_prev when REBUILD
+    const float* q;           // physical pressure (REBUILD only)
+    const float* base;        // tableau base; null: the (rebuilt) velocity
+    const float* k[MAXK];     // earlier-stage k streams
+    float ck[MAXK];
+    int m;
+    float cnew;
+    const float* usnew_base;  // null: base
+    float cusnew;
+    int with_usnew;
+    float* k_out;             // may be null
+    float* ut_out;
+    float* usnew_out;         // may be null
+    float* u_out;             // may be null (REBUILD only)
+    float* div_out;
+    int n;
+    float visc;
+    float dx[3];
+    float vol;
+};
+
+using Ring = float[RING][3][HY][HZ];
+
+__device__ __forceinline__ int wrap(int v, int n) {
+    v %= n;
+    return v < 0 ? v + n : v;
+}
+
+// Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
+// the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
+template <bool REBUILD>
+__device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int slot,
+                                           int xp, int y0, int z0) {
+    const int n = p.n;
+    const size_t n3 = (size_t)n * n * n;
+    const int x = wrap(xp, n);
+    const int xn = x + 1 == n ? 0 : x + 1;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y;
+    for (int e = tid; e < HY * HZ; e += nthreads) {
+        const int ly = e / HZ, lz = e - ly * HZ;
+        const int y = wrap(y0 - 2 + ly, n), z = wrap(z0 - 2 + lz, n);
+        const size_t i = ((size_t)x * n + y) * n + z;
+        float u0 = __ldg(p.u + i), u1 = __ldg(p.u + n3 + i), u2 = __ldg(p.u + 2 * n3 + i);
+        if constexpr (REBUILD) {
+            const float qc = __ldg(p.q + i);
+            const int yn = y + 1 == n ? 0 : y + 1, zn = z + 1 == n ? 0 : z + 1;
+            u0 -= (__ldg(p.q + ((size_t)xn * n + y) * n + z) - qc) / p.dx[0];
+            u1 -= (__ldg(p.q + ((size_t)x * n + yn) * n + z) - qc) / p.dx[1];
+            u2 -= (__ldg(p.q + ((size_t)x * n + y) * n + zn) - qc) / p.dx[2];
+        }
+        s[slot][0][ly][lz] = u0;
+        s[slot][1][ly][lz] = u1;
+        s[slot][2][ly][lz] = u2;
+    }
+}
+
+// The thread's view of the ring at step i: u(c, I + (ox, oy, oz)).
+struct View {
+    const Ring* s;
+    int i, ly, lz;
+    __device__ __forceinline__ float operator()(int c, int ox, int oy, int oz) const {
+        return (*s)[(i + 2 + ox) & 3][c][ly + oy][lz + oz];
+    }
+};
+
+// Conv-diff of component A at I + (OX, OY, OZ), as convdiff_roll.
+template <int A, int OX, int OY, int OZ>
+__device__ __forceinline__ float convdiff(const StageParams& p, const View& u) {
+    const float ua = u(A, OX, OY, OZ);
+    float f = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        const int ex = b == 0, ey = b == 1, ez = b == 2;
+        const float dxb = p.dx[b];
+        const float upb = u(A, OX + ex, OY + ey, OZ + ez);
+        const float umb = u(A, OX - ex, OY - ey, OZ - ez);
+        const float fd = (p.visc / (dxb * dxb)) * (upb - 2.0f * ua + umb);
+        const float uab1 = 0.5f * (umb + ua);
+        const float uab2 = 0.5f * (ua + upb);
+        float uba1, uba2;
+        if (A == b) {
+            uba1 = uab1;
+            uba2 = uab2;
+        } else {
+            const int ax = A == 0, ay = A == 1, az = A == 2;
+            const float ub = u(b, OX, OY, OZ);
+            const float ub_pa = u(b, OX + ax, OY + ay, OZ + az);
+            const float ub_mb = u(b, OX - ex, OY - ey, OZ - ez);
+            const float ub_pa_mb = u(b, OX + ax - ex, OY + ay - ey, OZ + az - ez);
+            uba1 = 0.5f * (ub_mb + ub_pa_mb);
+            uba2 = 0.5f * (ub + ub_pa);
+        }
+        f = f + (fd - (uab2 * uba2 - uab1 * uba1) / dxb);
+    }
+    return f;
+}
+
+// Tableau value base + sum_j ck_j k_j + cnew f at flat index idx.
+__device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float b0, float f) {
+    float ut = b0;
+#pragma unroll
+    for (int j = 0; j < MAXK; ++j)
+        if (j < p.m) ut = ut + p.ck[j] * __ldg(p.k[j] + idx);
+    return ut + p.cnew * f;
+}
+
+// Outputs of component A at I; returns its term of the divergence.
+template <bool REBUILD, int A>
+__device__ __forceinline__ float component(const StageParams& p, const View& u,
+                                           int x, int y, int z) {
+    const int n = p.n;
+    const size_t n3 = (size_t)n * n * n;
+    const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
+    const float f = convdiff<A, 0, 0, 0>(p, u);
+    const float ua = u(A, 0, 0, 0);
+    const float b0 = p.base ? __ldg(p.base + idx) : ua;
+    const float ut = tableau(p, idx, b0, f);
+    if (p.k_out) p.k_out[idx] = f;
+    p.ut_out[idx] = ut;
+    if (p.with_usnew) {
+        const float ub = p.usnew_base ? __ldg(p.usnew_base + idx) : b0;
+        p.usnew_out[idx] = ub + p.cusnew * f;
+    }
+    if (REBUILD && p.u_out) p.u_out[idx] = ua;
+    // ut_A at I - e_A (owned by a neighbour; recomputed from the tile)
+    constexpr int MX = -(A == 0), MY = -(A == 1), MZ = -(A == 2);
+    const int xm = A == 0 ? (x == 0 ? n - 1 : x - 1) : x;
+    const int ym = A == 1 ? (y == 0 ? n - 1 : y - 1) : y;
+    const int zm = A == 2 ? (z == 0 ? n - 1 : z - 1) : z;
+    const size_t idxm = A * n3 + ((size_t)xm * n + ym) * n + zm;
+    const float fm = convdiff<A, MX, MY, MZ>(p, u);
+    const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
+    const float utm = tableau(p, idxm, bm, fm);
+    return (ut - utm) / p.dx[A];
+}
+
+template <bool REBUILD>
+__global__ void __launch_bounds__(TZ * TY)
+stage_kernel(const __grid_constant__ StageParams p) {
+    __shared__ Ring s;
+    const int n = p.n;
+    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * XB;
+    const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
+    const bool active = z < n && y < n;  // ragged tiles still load and sync
+    const int nx = min(XB, n - x0);
+    for (int r = 0; r < 3; ++r) load_plane<REBUILD>(p, s, r, x0 - 2 + r, y0, z0);
+    const View u{&s, 0, (int)threadIdx.y + 2, (int)threadIdx.x + 2};
+    for (int i = 0; i < nx; ++i) {
+        // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
+        load_plane<REBUILD>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
+        __syncthreads();
+        if (active) {
+            View v = u;
+            v.i = i;
+            const int x = x0 + i;
+            float d = component<REBUILD, 0>(p, v, x, y, z);
+            d += component<REBUILD, 1>(p, v, x, y, z);
+            d += component<REBUILD, 2>(p, v, x, y, z);
+            p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
+        }
+        __syncthreads();  // plane x-2's slot is refilled next step
+    }
+}
+
+}  // namespace
+
+extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
+                             const void* const* kptrs, const float* kcoef, int m,
+                             float cnew, const float* usnew_base, float cusnew,
+                             int with_usnew, float* k_out, float* ut_out,
+                             float* usnew_out, float* u_out, float* div_out, int n,
+                             float visc, float dx0, float dx1, float dx2, float vol,
+                             void* stream) {
+    if (m < 0 || m > MAXK) return (int)cudaErrorInvalidValue;
+    StageParams p{};
+    p.u = u;
+    p.q = q;
+    p.base = base;
+    for (int j = 0; j < m; ++j) {
+        p.k[j] = static_cast<const float*>(kptrs[j]);
+        p.ck[j] = kcoef[j];
+    }
+    p.m = m;
+    p.cnew = cnew;
+    p.usnew_base = usnew_base;
+    p.cusnew = cusnew;
+    p.with_usnew = with_usnew;
+    p.k_out = k_out;
+    p.ut_out = ut_out;
+    p.usnew_out = usnew_out;
+    p.u_out = u_out;
+    p.div_out = div_out;
+    p.n = n;
+    p.visc = visc;
+    p.dx[0] = dx0;
+    p.dx[1] = dx1;
+    p.dx[2] = dx2;
+    p.vol = vol;
+    const dim3 block(TZ, TY);
+    const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (n + XB - 1) / XB);
+    if (q)
+        stage_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    else
+        stage_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}

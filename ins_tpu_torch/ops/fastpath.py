@@ -1,0 +1,262 @@
+"""Ghost-free fast path for uniform periodic grids.
+
+Port of `ins_tpu/ops/fastpath.py` for explicit RK tableaus without
+temperature, closure or body force.  Fields are carried without ghost
+cells (every stencil shift is a periodic roll); `strip_*`/`reghost*`
+cross to and from the public ghosted layout.
+
+Two chains:
+
+- **The hat chain** (3-D cubes, classic-row tableaus such as RK44): the
+  carry is a `HatState` ``(ut, qhat)`` — the uncorrected velocity and
+  the pressure in the z/y eigen-basis — and u is only materialised at
+  chunk ends (`from_hat`).  Every RK stage is one stage kernel
+  (`pcmsd_hat_3d`, which rebuilds ``u = ut − ∇q`` inside) and pass B.
+  A chunk's first stage starts from a materialised u (`to_hat` sets
+  ``qhat=None``), so it runs `momentum_stage_divhat_3d`, the same stage
+  without the rebuild.  On CUDA tensors these are the hand-written
+  kernels; on CPU tensors their plain versions.
+- **The roll twin** (2-D, non-cubes, other tableaus): conv-diff as a
+  roll graph and the projection through `torch.fft`, as the JAX package
+  runs on the CPU.
+
+LMWray3, temperature, Smagorinsky, body force, bf16 streams and the
+per-op chain are ROADMAP queue 1 item 6.
+"""
+
+from __future__ import annotations
+
+import types
+from typing import Any, NamedTuple
+
+import torch
+
+from ..time_steppers.methods import ExplicitRungeKuttaMethod
+from ..time_steppers.step import StepperState
+from . import stage_kernels as sk
+from .diffkernels import convdiff_roll
+from .poisson_kernels import make_fused_projection, passB, passB_plain
+from .pressure import project_periodic, psolver_spectral, uniform_dxs
+
+__all__ = [
+    "fastpath_applicable",
+    "strip_ghosts",
+    "reghost",
+    "strip_state",
+    "reghost_state",
+    "make_fast_timestep",
+    "make_fast_timestep_hat",
+    "HatState",
+    "hat_chain_applicable",
+]
+
+
+class HatState(NamedTuple):
+    """Carry of the step-boundary-merged chain: ``u = ut − ∇q`` with
+    ``q = V_y·qhat·V_zᵀ``.  ``qhat=None`` means ``ut`` already is the
+    corrected velocity (the state `to_hat` makes)."""
+
+    ut: Any
+    qhat: Any
+    temp: Any
+    t: float
+    n: int
+
+
+def fastpath_applicable(setup, method, psolver):
+    """The port's fast path: 2-D/3-D uniform periodic grid, an explicit
+    RK tableau and the spectral pressure solver."""
+    g = setup.grid
+    return (
+        all(g.periodic)
+        and all(g.uniform)
+        and isinstance(method, ExplicitRungeKuttaMethod)
+        and getattr(psolver, "is_spectral", False)
+    )
+
+
+def strip_ghosts(u):
+    D = u.dim() - 1
+    return u[(slice(None),) + (slice(1, -1),) * D].contiguous()
+
+
+def reghost(u_int):
+    """Periodic wrap pad == the periodic ghost fill."""
+    D = u_int.dim() - 1
+    for d in range(1, D + 1):
+        n = u_int.shape[d]
+        u_int = torch.cat(
+            [u_int.narrow(d, n - 1, 1), u_int, u_int.narrow(d, 0, 1)], dim=d
+        )
+    return u_int
+
+
+def strip_state(state):
+    """Public (ghosted) -> fast-path (interior) state layout."""
+    return state._replace(u=strip_ghosts(state.u))
+
+
+def reghost_state(state):
+    """Fast-path (interior) -> public (ghosted) state layout."""
+    return state._replace(u=reghost(state.u))
+
+
+def _classic_lowstorage_rows(method):
+    """True when every intermediate (shifted-tableau) row's only nonzero
+    is its own stage's k (classic RK44 and friends)."""
+    A, ns = method.A, method.nstage
+    return ns >= 2 and all(A[i][j] == 0.0 for i in range(ns - 1) for j in range(i))
+
+
+def hat_chain_applicable(setup, method):
+    """Whether the fused hat chain (the four kernels) runs this setup."""
+    g = setup.grid
+    return (
+        g.dim == 3
+        and g.Np[0] == g.Np[1] == g.Np[2]
+        and isinstance(method, ExplicitRungeKuttaMethod)
+        and _classic_lowstorage_rows(method)
+    )
+
+
+def _kernel_ops(plain):
+    """The four kernels of the hat chain: the wrappers (CUDA kernels on
+    CUDA tensors, plain versions on CPU tensors) or, with ``plain``, the
+    plain versions on any device (the reference chain a card's kernels
+    are held against)."""
+    if plain:
+        return types.SimpleNamespace(
+            msd=sk.momentum_stage_divhat_3d_plain, pcmsd=sk.pcmsd_hat_3d_plain,
+            passB=passB_plain, correct=sk.pressure_correct_qhat_3d_plain,
+        )
+    return types.SimpleNamespace(
+        msd=sk.momentum_stage_divhat_3d, pcmsd=sk.pcmsd_hat_3d,
+        passB=passB, correct=sk.pressure_correct_qhat_3d,
+    )
+
+
+def _check_method(method):
+    if not isinstance(method, ExplicitRungeKuttaMethod):
+        raise NotImplementedError(
+            f"{type(method).__name__} is not ported yet: the port's fast "
+            "path steps explicit RK tableaus (LMWray3 is ROADMAP queue 1 item 6)"
+        )
+
+
+def _make_hat_fns(setup, method, projection_precision, plain):
+    g = setup.grid
+    dxs = uniform_dxs(setup)
+    visc = 1.0 / setup.Re
+    ops = _kernel_ops(plain)
+    proj = make_fused_projection(
+        g.Np, dxs, setup.dtype, precision=projection_precision, device=setup.device
+    )
+    A, ns = method.A, method.nstage
+
+    def stage0(ut, qhat, coeff, unc):
+        """Stage 0: from a materialised u (``qhat is None``) without the
+        rebuild, else the step-boundary merge with the rebuilt u as base.
+        Returns (ut, divhat, usnew, ustart)."""
+        if qhat is None:
+            res = ops.msd(
+                ut, (ut,), (coeff,), visc, dxs, proj["Vinv"], proj["VinvT"],
+                precision=projection_precision, emit_k=False, usnew_coeff=unc,
+            )
+            ustart = ut
+        else:
+            res = ops.pcmsd(
+                ut, qhat, (sk.RECON,), (coeff,), visc, dxs, proj,
+                precision=projection_precision, emit_k=False, usnew_coeff=unc,
+                emit_u=ns > 1,
+            )
+            ustart = res[-1] if ns > 1 else None
+        usnew = res[2] if unc is not None else None
+        return res[0], res[1], usnew, ustart
+
+    def step_hat(h, dt):
+        """One RK step on the hat carry; the final pressure correction is
+        deferred to the next step's stage 0 (or `from_hat`)."""
+        ut, qhat, _, t, n = h
+        for i in range(ns):
+            last = i == ns - 1
+            bcoef = A[ns - 1][i]
+            unc = dt * bcoef if (bcoef != 0.0 and not last) else None
+            if i == 0:
+                ut, divhat, usnew, ustart = stage0(ut, qhat, dt * A[0][0], unc)
+                acc = usnew if unc is not None else ustart
+            else:
+                ub = None if (unc is None or acc is ustart) else acc
+                res = ops.pcmsd(
+                    ut, qhat, ((acc,) if last else (ustart,)), (dt * A[i][i],),
+                    visc, dxs, proj, precision=projection_precision,
+                    emit_k=False, usnew_coeff=unc, usnew_base=ub,
+                )
+                ut, divhat = res[0], res[1]
+                if unc is not None:
+                    acc = res[2]
+            qhat = ops.passB(divhat, proj)
+        return HatState(ut=ut, qhat=qhat, temp=None, t=t + dt, n=n + 1)
+
+    def to_hat(state):
+        # qhat=None: ut is the corrected velocity (no rebuild needed)
+        return HatState(ut=state.u, qhat=None, temp=None, t=state.t, n=state.n)
+
+    def from_hat(h):
+        u = h.ut if h.qhat is None else ops.correct(
+            h.ut, h.qhat, dxs, proj["V"], proj["VT"], precision=projection_precision
+        )
+        return StepperState(u=u, temp=None, t=h.t, n=h.n)
+
+    return to_hat, step_hat, from_hat
+
+
+def make_fast_timestep_hat(setup, method, *, projection_precision="manualhigh",
+                           plain=False):
+    """``(to_hat, step_hat, from_hat)`` of the step-boundary-merged chain,
+    or None where it does not apply (then use `make_fast_timestep`).
+    ``plain=True`` builds it from the kernels' plain versions."""
+    _check_method(method)
+    if not hat_chain_applicable(setup, method):
+        return None
+    return _make_hat_fns(setup, method, projection_precision, plain)
+
+
+def make_fast_timestep(setup, method, *, projection_precision="manualhigh"):
+    """``step(state, dt) -> state`` on the interior layout: the hat chain
+    materialised every step where it applies, else the roll twin."""
+    _check_method(method)
+    if hat_chain_applicable(setup, method):
+        to_hat, step_hat, from_hat = _make_hat_fns(
+            setup, method, projection_precision, plain=False
+        )
+
+        def step(state, dt):
+            return from_hat(step_hat(to_hat(state), dt))
+
+        return step
+
+    dxs = uniform_dxs(setup)
+    visc = 1.0 / setup.Re
+    solve = psolver_spectral(setup)
+    A, c, ns = method.A, method.c, method.nstage
+
+    def step(state, dt):
+        """Roll twin of the JAX package's unfused ERK stage loop."""
+        u, _, tstart, n = state
+        ustart = u
+        ku = []
+        t = tstart
+        for i in range(ns):
+            base = ustart
+            for j in range(i):
+                if A[i][j] != 0.0:
+                    base = base + (dt * A[i][j]) * ku[j]
+            ku.append(convdiff_roll(u, visc, dxs))
+            t = tstart + c[i] * dt
+            if A[i][i] != 0.0:
+                u = project_periodic(base + (dt * A[i][i]) * ku[i], dxs, solve)
+            else:
+                u = project_periodic(base, dxs, solve)
+        return StepperState(u=u, temp=None, t=t, n=n + 1)
+
+    return step

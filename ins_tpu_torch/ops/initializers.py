@@ -1,0 +1,121 @@
+"""Synthetic-turbulence initial fields on uniform periodic grids.
+
+Port of `create_spectrum` and `random_field` from
+`ins_tpu/ops/initializers.py`: the Orlandi-style energy spectrum peaked
+at `kp`, random phases and unit vectors, a spectral Leray projection,
+an inverse FFT and a final discrete projection.  Randomness comes from
+an explicit `torch.Generator`; a test passes the JAX package's uniform
+draws through `uniforms=` to compare the two field for field.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fastpath import reghost
+from .pressure import project_periodic, psolver_spectral, uniform_dxs
+
+__all__ = ["create_spectrum", "random_field", "spectrum_draw_shapes"]
+
+
+def spectrum_draw_shapes(setup):
+    """Shapes of the uniform draws `create_spectrum` makes, in order:
+    one phase array of shape K per dimension, then the unit-vector
+    angles (one array of shape 2K in 2-D, two in 3-D)."""
+    D = setup.grid.dim
+    K = tuple((n - 2) // 2 for n in setup.grid.N)
+    KK = tuple(2 * k for k in K)
+    return [K] * D + [KK] * (1 if D == 2 else 2)
+
+
+def create_spectrum(setup, *, kp, generator=None, uniforms=None):
+    """Spectral velocity amplitudes with prescribed energy profile, random
+    phases, and spectral Leray projection.  Returns complex `uhat` of
+    shape `(D, *(N - 2))`."""
+    g = setup.grid
+    D = g.dim
+    dtype, device = setup.dtype, setup.device
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    tau = 2 * np.pi
+    N = g.N
+    if not all(n % 2 == 0 for n in N):
+        raise ValueError("Spectrum requires even N")
+    K = tuple((n - 2) // 2 for n in N)
+    shapes = spectrum_draw_shapes(setup)
+    if uniforms is None:
+        uniforms = [
+            torch.rand(s, generator=generator, dtype=dtype, device=device)
+            for s in shapes
+        ]
+    else:
+        if [tuple(np.shape(v)) for v in uniforms] != [tuple(s) for s in shapes]:
+            raise ValueError(f"uniforms must have shapes {shapes}")
+        uniforms = [torch.as_tensor(np.array(v), dtype=dtype, device=device)
+                    for v in uniforms]
+
+    def bshape(arr, d):
+        return arr.reshape(tuple(-1 if i == d else 1 for i in range(D)))
+
+    k2 = sum(bshape(torch.arange(K[d], dtype=dtype, device=device) ** 2, d)
+             for d in range(D))
+    k = torch.sqrt(k2)
+
+    A = (8 * tau / 3) / kp**5
+    a = torch.sqrt(A * k**4 * torch.exp(-tau * (k / kp) ** 2)).to(dtype)
+    a = a * float(np.prod(N))
+    a = a.to(cdtype)
+
+    xi = list(uniforms[:D])
+    for d in range(D):
+        a = torch.cat([a, torch.flip(a, dims=(d,))], dim=d)
+        xi = [
+            torch.cat([x, torch.flip(-x if b == d else x, dims=(d,))], dim=d)
+            for b, x in enumerate(xi)
+        ]
+    phase = sum(xi)
+    a = torch.exp(1j * tau * phase) * a
+
+    KK = tuple(2 * kd for kd in K)
+    kk = [bshape(torch.arange(KK[d], dtype=dtype, device=device), d) for d in range(D)]
+    knorm2 = sum(kd**2 for kd in kk)
+    knorm2[(0,) * D] = 1.0  # origin: zero wavevector, no projection
+
+    if D == 2:
+        theta = uniforms[D]
+        e = [torch.cos(tau * theta), torch.sin(tau * theta)]
+    else:
+        theta, phi = uniforms[D], uniforms[D + 1]
+        e = [
+            torch.sin(np.pi * theta) * torch.cos(tau * phi),
+            torch.sin(np.pi * theta) * torch.sin(tau * phi),
+            torch.cos(np.pi * theta),
+        ]
+
+    ke = sum(e[d] * kk[d] for d in range(D))
+    e = [e[d] - kk[d] * ke / knorm2 for d in range(D)]
+    enorm = torch.sqrt(sum(ed**2 for ed in e))
+    e = [ed / enorm for ed in e]
+
+    return torch.stack([a * ed for ed in e])
+
+
+def random_field(setup, t=0.0, *, A=1.0, kp=10, psolver=None, generator=None,
+                 uniforms=None):
+    """Random turbulent velocity field (Orlandi2000 spectrum) on a
+    uniform periodic grid, returned in the public ghosted layout
+    `(D, *N)`.  ``generator`` is a `torch.Generator` on the setup's
+    device (None: the global generator); ``uniforms`` replaces its draws
+    (see `spectrum_draw_shapes`).  ``t`` is accepted for parity with the
+    JAX signature; a periodic field does not depend on it."""
+    g = setup.grid
+    D = g.dim
+    if not (all(g.periodic) and all(g.uniform)):
+        raise ValueError("random_field requires a uniform periodic grid")
+    if psolver is None:
+        psolver = psolver_spectral(setup)
+    uhat = create_spectrum(setup, kp=kp, generator=generator, uniforms=uniforms)
+    u = torch.fft.ifftn(uhat, dim=tuple(range(1, D + 1)))
+    u = A * u.real.to(setup.dtype)
+    u = project_periodic(u, uniform_dxs(setup), psolver)
+    return reghost(u)

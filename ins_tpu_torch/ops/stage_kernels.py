@@ -1,0 +1,303 @@
+"""The fused stage and correction kernels of the periodic-cube fast path.
+
+Port of `RECON`, `momentum_stage_divhat_3d`, `pcmsd_hat_3d` and
+`pressure_correct_qhat_3d` from `ins_tpu/ops/pallas_kernels.py`, with the
+JAX functions' signatures and layouts (component-first interior
+velocity ``(3, n, n, n)``, scalars ``(n, n, n)``, eigen-basis ``qhat``):
+
+    momentum_stage_divhat_3d   k = convdiff(u); ut = base + Σ c_j k_j + c·k;
+                               optional usnew; divhat = Vinv_y·(vol·div ut)·Vinv_zᵀ
+    pcmsd_hat_3d               the same stage on u = ut_prev − ∇(V_y·qhat·V_zᵀ),
+                               rebuilt in the kernel (``RECON`` base, ``emit_u``)
+    pressure_correct_qhat_3d   u = ut − ∇(V_y·qhat·V_zᵀ)
+
+Each wrapper runs its hand-written CUDA kernel for CUDA tensors
+(`csrc/stage.cu`, `csrc/correct.cu`, with the z/y transforms as GEMMs of
+`csrc/transforms.cu`) and its plain PyTorch version, beside it here, for
+CPU tensors.  A CUDA call either launches the kernel or raises: there is
+no fallback.  Options off the port's path (``bodyforce``, ``smag``,
+``temperature`` and a bf16 ``compute_dtype``) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from .diffkernels import convdiff_roll, roll_m, roll_p
+from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain, ptr
+from .transforms import yz_transform, yz_transform_plain
+
+__all__ = [
+    "RECON",
+    "momentum_stage_divhat_3d",
+    "momentum_stage_divhat_3d_plain",
+    "pcmsd_hat_3d",
+    "pcmsd_hat_3d_plain",
+    "pressure_correct_qhat_3d",
+    "pressure_correct_qhat_3d_plain",
+]
+
+
+class _Recon:
+    def __repr__(self):
+        return "RECON"
+
+
+# Sentinel for `pcmsd_hat_3d(streams=(RECON,))`: the tableau base is the
+# kernel's own rebuilt velocity (the step-boundary merge).
+RECON = _Recon()
+
+_MAXK = 4  # k streams the CUDA stage kernel takes (csrc/stage.cu MAXK)
+
+
+def _reject_unported(bodyforce=None, smag=None, temperature=None, compute_dtype=None):
+    for name, val, item in (
+        ("bodyforce", bodyforce, "body force stream"),
+        ("smag", smag, "fused Smagorinsky"),
+        ("temperature", temperature, "Boussinesq temperature"),
+    ):
+        if val is not None:
+            raise NotImplementedError(
+                f"{name}= is not ported yet ({item}, ROADMAP queue 1 item 6)"
+            )
+    if compute_dtype is not None and compute_dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            "bf16 stream storage (compute_dtype) is not ported yet "
+            "(ROADMAP queue 1 item 6)"
+        )
+
+
+def _split_streams(streams, coeffs):
+    streams = tuple(streams)
+    coeffs = tuple(float(c) for c in coeffs)
+    if len(coeffs) != len(streams):
+        raise ValueError(
+            f"{len(streams)} streams need {len(streams)} coefficients, got {len(coeffs)}"
+        )
+    return streams[0], streams[1:], coeffs[:-1], coeffs[-1]
+
+
+def _check_cube(name, *tensors):
+    n = tensors[0].shape[-1]
+    for t in tensors:
+        if t is not None and (t.dim() < 3 or tuple(t.shape[-3:]) != (n, n, n)):
+            raise ValueError(f"{name}: expected cube fields, got shape {tuple(t.shape)}")
+    return n
+
+
+def _grad(q, dxs):
+    return torch.stack([(roll_p(q, a) - q) / dxs[a] for a in range(3)])
+
+
+def _stage_plain(u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base):
+    """The stage-tail math (`_stage_tail`, pallas_kernels.py:972)."""
+    f = convdiff_roll(u, visc, dxs)
+    ut = base
+    for c, k in zip(cks, ks):
+        ut = ut + c * k
+    ut = ut + cnew * f
+    usnew = None
+    if usnew_coeff is not None:
+        b0 = usnew_base if usnew_base is not None else base
+        usnew = b0 + float(usnew_coeff) * f
+    vol = float(np.prod(dxs))
+    div = sum((ut[a] - roll_m(ut[a], a)) / dxs[a] for a in range(3)) * vol
+    return f, ut, div, usnew
+
+
+def _pack(emit_k, k, ut, divhat, usnew, u=None):
+    out = ([k] if emit_k else []) + [ut, divhat]
+    if usnew is not None:
+        out.append(usnew)
+    if u is not None:
+        out.append(u)
+    return tuple(out)
+
+
+def momentum_stage_divhat_3d_plain(
+    u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    usnew_base=None, smag=None, temperature=None, compute_dtype=None,
+):
+    """Plain PyTorch version of `momentum_stage_divhat_3d`."""
+    _reject_unported(bodyforce, smag, temperature, compute_dtype)
+    note_plain("momentum_stage_divhat_3d", u_int)
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    _check_cube("momentum_stage_divhat_3d", u_int, base, *ks)
+    f, ut, div, usnew = _stage_plain(
+        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base
+    )
+    divhat = yz_transform_plain(div, vinvy, vinvzT)
+    return _pack(emit_k, f, ut, divhat, usnew)
+
+
+def pcmsd_hat_3d_plain(
+    ut_prev, qhat, streams, coeffs, visc, dxs, proj,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    usnew_base=None, smag=None, emit_u=False, temperature=None,
+):
+    """Plain PyTorch version of `pcmsd_hat_3d`."""
+    _reject_unported(bodyforce, smag, temperature)
+    note_plain("pcmsd_hat_3d", ut_prev)
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    q = yz_transform_plain(qhat, proj["V"], proj["VT"])
+    u = ut_prev - _grad(q, dxs)
+    if base is RECON:
+        if ks:
+            raise ValueError("RECON base allows no k streams")
+        base = u
+    _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks)
+    f, ut, div, usnew = _stage_plain(
+        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base
+    )
+    divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"])
+    return _pack(emit_k, f, ut, divhat, usnew, u if emit_u else None)
+
+
+def pressure_correct_qhat_3d_plain(
+    ut_int, qhat, dxs, vy, vzT, *, precision="manualhigh", out_dtype=None
+):
+    """Plain PyTorch version of `pressure_correct_qhat_3d`."""
+    note_plain("pressure_correct_qhat_3d", ut_int)
+    _check_cube("pressure_correct_qhat_3d", ut_int, qhat)
+    q = yz_transform_plain(qhat, vy, vzT)
+    u = ut_int - _grad(q, dxs)
+    return u if out_dtype is None else u.to(out_dtype)
+
+
+def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
+                  usnew_coeff, usnew_base, emit_u):
+    """One launch of the stage kernel; returns (k, ut, div, usnew, u)."""
+    n = u.shape[1]
+    if len(ks) > _MAXK:
+        raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
+    operands = dict(u=(u, "vec"), q=(q, "sca"), usnew_base=(usnew_base, "vec"))
+    if base is not None:
+        operands["base"] = (base, "vec")
+    for j, k in enumerate(ks):
+        operands[f"k{j + 1}"] = (k, "vec")
+    device = check_cuda_operands(name, n, **operands)
+    with torch.cuda.device(device):
+        ut = torch.empty_like(u)
+        div = torch.empty((n, n, n), dtype=u.dtype, device=device)
+        k_out = torch.empty_like(u) if emit_k else None
+        usnew = torch.empty_like(u) if usnew_coeff is not None else None
+        u_out = torch.empty_like(u) if emit_u else None
+        kptrs = (ctypes.c_void_p * _MAXK)(*[k.data_ptr() for k in ks])
+        kcoef = (ctypes.c_float * _MAXK)(*cks)
+        err = _build.load().ins_stage_f32(
+            u.data_ptr(), ptr(q), ptr(base), kptrs, kcoef, len(ks), cnew,
+            ptr(usnew_base), 0.0 if usnew_coeff is None else float(usnew_coeff),
+            int(usnew_coeff is not None), ptr(k_out), ut.data_ptr(), ptr(usnew),
+            ptr(u_out), div.data_ptr(), n, float(visc),
+            float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
+            current_stream(device),
+        )
+        _build.check(err, name)
+        LAUNCHES[name] += 1
+    return k_out, ut, div, usnew, u_out
+
+
+def momentum_stage_divhat_3d(
+    u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    usnew_base=None, smag=None, temperature=None, compute_dtype=None,
+):
+    """Fused momentum + RK tableau accumulation + divergence + z/y-forward
+    eigen-transform.  ``streams`` is (ustart, k_1, ..., k_m) and
+    ``coeffs`` their m + 1 coefficients, the new k's last.  Returns
+    ``(k, ut, divhat)``, without k when ``emit_k=False``, plus
+    ``usnew = (usnew_base or ustart) + usnew_coeff·k`` when
+    ``usnew_coeff`` is given."""
+    if u_int.device.type == "cpu":
+        return momentum_stage_divhat_3d_plain(
+            u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
+            precision=precision, emit_k=emit_k, usnew_coeff=usnew_coeff,
+            bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
+            temperature=temperature, compute_dtype=compute_dtype,
+        )
+    _reject_unported(bodyforce, smag, temperature, compute_dtype)
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    n = u_int.shape[1]
+    check_cuda_operands(
+        "momentum_stage_divhat_3d", n, vinvy=(vinvy, "mat"), vinvzT=(vinvzT, "mat")
+    )
+    k, ut, div, usnew, _ = _launch_stage(
+        "momentum_stage_divhat_3d", u_int, None, base, ks, cks, cnew, visc, dxs,
+        emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
+        emit_u=False,
+    )
+    divhat = yz_transform(div, vinvy, vinvzT)
+    return _pack(emit_k, k, ut, divhat, usnew)
+
+
+def pcmsd_hat_3d(
+    ut_prev, qhat, streams, coeffs, visc, dxs, proj,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    usnew_base=None, smag=None, emit_u=False, temperature=None,
+):
+    """Merged pressure correction + momentum + stage + divergence: the
+    stage of `momentum_stage_divhat_3d` evaluated on
+    ``u = ut_prev − ∇q``, ``q = V_y·qhat·V_zᵀ``, rebuilt inside the stage
+    kernel.  ``streams[0] is RECON`` makes the rebuilt u the tableau
+    base; ``emit_u`` appends it to the outputs.  ``proj`` is a
+    `make_fused_projection` dict."""
+    if ut_prev.device.type == "cpu":
+        return pcmsd_hat_3d_plain(
+            ut_prev, qhat, streams, coeffs, visc, dxs, proj,
+            precision=precision, emit_k=emit_k, usnew_coeff=usnew_coeff,
+            bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
+            emit_u=emit_u, temperature=temperature,
+        )
+    _reject_unported(bodyforce, smag, temperature)
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    if base is RECON:
+        if ks:
+            raise ValueError("RECON base allows no k streams")
+        base = None
+    n = ut_prev.shape[1]
+    check_cuda_operands("pcmsd_hat_3d", n, qhat=(qhat, "sca"))
+    # q and div each make one scalar round trip through device memory
+    # here (the TPU kernel transforms them in the same pass)
+    q = yz_transform(qhat, proj["V"], proj["VT"])
+    k, ut, div, usnew, u = _launch_stage(
+        "pcmsd_hat_3d", ut_prev, q, base, ks, cks, cnew, visc, dxs,
+        emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
+        emit_u=emit_u,
+    )
+    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
+    return _pack(emit_k, k, ut, divhat, usnew, u)
+
+
+def pressure_correct_qhat_3d(
+    ut_int, qhat, dxs, vy, vzT, *, precision="manualhigh", out_dtype=None
+):
+    """u = ut − ∇q with q given in the z/y eigen-basis (``qhat``)."""
+    if ut_int.device.type == "cpu":
+        return pressure_correct_qhat_3d_plain(
+            ut_int, qhat, dxs, vy, vzT, precision=precision, out_dtype=out_dtype
+        )
+    if out_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            "bf16 stream storage (out_dtype) is not ported yet "
+            "(ROADMAP queue 1 item 6)"
+        )
+    n = ut_int.shape[1]
+    device = check_cuda_operands(
+        "pressure_correct_qhat_3d", n, ut=(ut_int, "vec"), qhat=(qhat, "sca"),
+        vy=(vy, "mat"), vzT=(vzT, "mat"),
+    )
+    with torch.cuda.device(device):
+        q = yz_transform(qhat, vy, vzT)
+        u = torch.empty_like(ut_int)
+        err = _build.load().ins_correct_f32(
+            ut_int.data_ptr(), q.data_ptr(), u.data_ptr(), n,
+            float(dxs[0]), float(dxs[1]), float(dxs[2]), current_stream(device),
+        )
+        _build.check(err, "pressure_correct_qhat_3d")
+        LAUNCHES["pressure_correct_qhat_3d"] += 1
+    return u

@@ -1,0 +1,77 @@
+"""Plane eigen-transforms of the fused projection.
+
+`yz_transform(f, my, mzT)` computes ``my @ f[x] @ mzT`` for every x-plane
+of an (n, n, n) field (the z/y eigen-transforms that the TPU stage and
+correction kernels run in their own bodies); `x_transform(mx, h)`
+computes ``mx @ h`` over the leading axis (pass B's x-transform).  On a
+CUDA tensor each product is one launch of the hand-written FP32 GEMM in
+`csrc/transforms.cu` (counted under ``"plane_transform"``); on a CPU
+tensor the plain `torch.einsum` version runs.  FP32 accumulation meets
+the "highest" accuracy class, so both `projection_precision` names map
+to it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain
+
+__all__ = [
+    "yz_transform",
+    "yz_transform_plain",
+    "x_transform",
+    "x_transform_plain",
+]
+
+
+def yz_transform_plain(f, my, mzT):
+    note_plain("plane_transform", f)
+    t = torch.einsum("xjk,kl->xjl", f, mzT)
+    return torch.einsum("yj,xjl->xyl", my, t)
+
+
+def x_transform_plain(mx, h):
+    note_plain("plane_transform", h)
+    return torch.einsum("ix,xyz->iyz", mx, h)
+
+
+def _gemm(A, B, C, M, N, K, lda, ldb, ldc, sA, sB, sC, batch):
+    """C[b] = A[b] @ B[b] (row-major, strided batch) on the current stream."""
+    err = _build.load().ins_gemm_f32(
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), M, N, K, lda, ldb, ldc,
+        sA, sB, sC, batch, current_stream(C.device),
+    )
+    _build.check(err, "plane_transform")
+    LAUNCHES["plane_transform"] += 1
+
+
+def yz_transform(f, my, mzT):
+    """``my @ f[x] @ mzT`` for every x-plane: two GEMM launches."""
+    if f.device.type == "cpu":
+        return yz_transform_plain(f, my, mzT)
+    n = f.shape[0]
+    device = check_cuda_operands(
+        "yz_transform", n, f=(f, "sca"), my=(my, "mat"), mzT=(mzT, "mat")
+    )
+    with torch.cuda.device(device):
+        t = torch.empty_like(f)
+        # . mzT: one (n^2 x n) @ (n x n) product
+        _gemm(f, mzT, t, n * n, n, n, n, n, n, 0, 0, 0, 1)
+        out = torch.empty_like(f)
+        # my . : batched over the x-planes, my broadcast (stride 0)
+        _gemm(my, t, out, n, n, n, n, n, n, 0, n * n, n * n, n)
+    return out
+
+
+def x_transform(mx, h):
+    """``mx @ h`` over the leading axis: one (n x n) @ (n x n^2) GEMM."""
+    if h.device.type == "cpu":
+        return x_transform_plain(mx, h)
+    n = h.shape[0]
+    device = check_cuda_operands("x_transform", n, h=(h, "sca"), mx=(mx, "mat"))
+    with torch.cuda.device(device):
+        out = torch.empty_like(h)
+        _gemm(mx, h, out, n, n * n, n, n, n * n, n * n, 0, 0, 0, 1)
+    return out

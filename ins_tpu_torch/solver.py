@@ -1,0 +1,161 @@
+"""Unsteady solve loop.
+
+Port of the fixed-dt loop of `ins_tpu/solver.py`.  The run advances in
+chunks of steps; processors (observability) run between chunks at their
+`nupdate` decimation, and a NaN guard checks each chunk's result.  Where
+the fused hat chain applies (3-D periodic cube, classic-row RK tableau)
+a chunk carries `HatState(ut, qhat)` and materialises u only at its end;
+otherwise it steps the roll twin.  The step is an eager Python loop of
+kernel launches; dt and the tableau coefficients reach the kernels as
+Python floats, so a chunk syncs with the device only in the NaN guard
+and the processors.
+
+Adaptive (CFL) stepping, the ghosted general path, meshes and halos wait
+for ROADMAP queue 1 items 6, 7 and 11.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ops.fastpath import (
+    fastpath_applicable,
+    make_fast_timestep,
+    make_fast_timestep_hat,
+    reghost_state,
+    strip_state,
+)
+from .ops.pressure import default_psolver
+from .time_steppers.rk_methods import RK44
+from .time_steppers.step import StepperState, create_stepper
+
+__all__ = ["solve_unsteady", "get_state", "SolverDivergedError"]
+
+
+class SolverDivergedError(RuntimeError):
+    """A run produced non-finite fields.  Carries the last finite state
+    (`state`, a dict like `get_state`'s, or None)."""
+
+    def __init__(self, msg, state=None):
+        super().__init__(msg)
+        self.state = state
+
+
+def get_state(stepper: StepperState):
+    return dict(u=stepper.u, temp=stepper.temp, t=stepper.t, n=stepper.n)
+
+
+def _chunk_sizes(nstep: int, chunk: int):
+    out = []
+    left = nstep
+    while left > 0:
+        c = min(chunk, left)
+        out.append(c)
+        left -= c
+    return out
+
+
+def solve_unsteady(
+    *,
+    setup,
+    ustart,
+    tlims,
+    tempstart=None,
+    method=None,
+    psolver=None,
+    dt=None,
+    processors=None,
+    max_chunk=256,
+    nan_guard=True,
+    projection_precision=None,
+):
+    """Solve the unsteady problem on `tlims` with a fixed `dt`, rounded
+    so that `(tend - tstart)/dt` is an integer.  `ustart` is a ghosted
+    velocity field on `setup.device`; `processors` is a dict
+    name -> Processor.  Returns `(state, outputs)` with the state in the
+    public ghosted layout.  `projection_precision` ("manualhigh" or
+    "highest") is accepted for parity; both run at FP32 here."""
+    if dt is None:
+        raise NotImplementedError(
+            "adaptive (CFL) time stepping is not ported yet (ROADMAP queue 1 item 6)"
+        )
+    if tempstart is not None:
+        raise NotImplementedError("temperature is not ported yet (ROADMAP queue 1 item 6)")
+    if method is None:
+        method = RK44()
+    if psolver is None:
+        psolver = default_psolver(setup)
+    if not fastpath_applicable(setup, method, psolver):
+        raise NotImplementedError(
+            "the port runs the periodic fast path only (explicit RK, spectral "
+            "solver, uniform periodic grid); the general ghosted path is "
+            "ROADMAP queue 1 item 7 and LMWray3 item 6"
+        )
+    processors = dict(processors or {})
+    # the chain never writes into its inputs, so the caller's field needs
+    # no defensive copy
+    ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=setup.device)
+    precision = projection_precision or "manualhigh"
+
+    hat_fns = make_fast_timestep_hat(setup, method, projection_precision=precision)
+    step = None if hat_fns is not None else make_fast_timestep(
+        setup, method, projection_precision=precision
+    )
+
+    def run_chunk(s, nsteps):
+        if hat_fns is not None:
+            to_hat, step_hat, from_hat = hat_fns
+            h = to_hat(s)
+            for _ in range(nsteps):
+                h = step_hat(h, dt)
+            return from_hat(h)
+        for _ in range(nsteps):
+            s = step(s, dt)
+        return s
+
+    tstart, tend = tlims
+    state = strip_state(create_stepper(method, setup=setup, u=ustart, t=tstart))
+
+    initialized = {
+        k: p.initialize(get_state(reghost_state(state))) for k, p in processors.items()
+    }
+
+    def update_processors(s):
+        st = None
+        for k, p in processors.items():
+            if s.n % getattr(p, "nupdate", 1) == 0:
+                if st is None:
+                    st = get_state(reghost_state(s))
+                initialized[k] = p.update(initialized[k], st)
+
+    def finite(s):
+        return bool(torch.isfinite(s.u).all())
+
+    nstep = int(round((tend - tstart) / dt))
+    dt = (tend - tstart) / nstep
+    nupdates = [getattr(p, "nupdate", 1) for p in processors.values()]
+    chunk = math.gcd(*nupdates) if nupdates else max_chunk
+    chunk = max(1, min(chunk, max_chunk, nstep))
+
+    last_good = state
+    for c in _chunk_sizes(nstep, chunk):
+        state = run_chunk(state, c)
+        if nan_guard:
+            if not finite(state):
+                st = get_state(reghost_state(last_good))
+                raise SolverDivergedError(
+                    f"solver produced non-finite fields (last finite state: "
+                    f"n={st['n']}, t={st['t']:g})",
+                    state=st,
+                )
+            last_good = state
+        if processors:
+            update_processors(state)
+
+    state = reghost_state(state)
+    outputs = {
+        k: p.finalize(initialized[k], get_state(state)) for k, p in processors.items()
+    }
+    return state, outputs

@@ -1,0 +1,40 @@
+"""Stepper state.
+
+Port of the state half of `ins_tpu/time_steppers/step.py`.  The ghosted
+per-method `timestep` waits for the general path (ROADMAP queue 1 item
+7); the port steps through `ops/fastpath.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+from .methods import ExplicitRungeKuttaMethod
+
+__all__ = ["StepperState", "create_stepper"]
+
+
+class StepperState(NamedTuple):
+    """Carried simulation state.  ``u`` is a tensor; ``t`` is a Python
+    float and ``n`` a Python int, so the loop never reads them back from
+    the device."""
+
+    u: Any
+    temp: Any  # scalar field or None
+    t: float
+    n: int
+
+
+def create_stepper(method, *, setup, u, temp=None, t=0.0, n=0):
+    """Initial state for an explicit RK method."""
+    if not isinstance(method, ExplicitRungeKuttaMethod):
+        raise NotImplementedError(
+            f"{type(method).__name__} is not ported yet: the port steps "
+            "explicit RK tableaus only (LMWray3 is ROADMAP queue 1 item 6, "
+            "IMEX/implicit steppers item 7)"
+        )
+    if temp is not None:
+        raise NotImplementedError(
+            "temperature is not ported yet (ROADMAP queue 1 item 6)"
+        )
+    return StepperState(u=u, temp=None, t=float(t), n=int(n))
