@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a Hopper card (H100):
 
     python3 chip_smoke.py             # the full check (one card)
-    python3 chip_smoke.py --profile   # also print a kernel-time breakdown
+    python3 chip_smoke.py --profile   # also print kernel-time breakdowns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -19,6 +19,11 @@ Phases, each raising on failure (exit code != 0, no result line):
    transforms.  Bound: max relative error <= 1e-4 (FP32 on both sides,
    sums taken in another order).  At 256³ each is timed against its
    plain version (CUDA events).
+   The per-op and conv kernels of the training path are held against
+   their plain versions at 64³ and 128³ the same way (float32, and the
+   convolutions also with bf16 operands and a float32 output, which
+   differ from the plain version only in summation order), and timed at
+   128³.
 2. The main path: `solve_unsteady` on 256³ decaying turbulence (RK44,
    f32, Re = 4000, `random_field(kp=10)`, dt = 1e-3·128/256) for 20
    steps in chunks of 10, with a timelogger.  Checks: finite; every
@@ -26,7 +31,21 @@ Phases, each raising on failure (exit code != 0, no result line):
    max|div u| <= 1e-4·max|u|/dx; kinetic energy not increasing; the
    same run through the plain chain on the card agrees to <= 1e-4
    relative.  Then ms/step for both chains after a warm-up.
-3. Print the kernel table (JSON) and, last, the result line
+3. The training path: the gradient of the a-posteriori loss
+   (`bench.py`'s grad-step case: 128³ unit cube, Re = 2000, RK44,
+   `random_field(kp=5)`, a CNN closure with radii (2, 2, 2), channels
+   (24, 24, 3), tanh/tanh/identity, 5 unrolled steps with remat) with
+   respect to the CNN parameters.  With float32 convs the kernel run's
+   loss and gradient agree with the plain run on the card (loss
+   relative <= 1e-5, each leaf's gradient relative L2 <= 1e-3); with
+   the default bf16 convs the run is finite, launches every training
+   kernel and no plain version on the card, and its gradient agrees
+   with the plain bf16 run to relative L2 <= 1e-2.  Then seconds per
+   gradient step (kernels and plain in turns) and peak memory, three
+   Adam `train` iterations (finite losses) and a 10-step
+   `solve_unsteady` with the closure attached (finite, divergence-free
+   under phase 2's bounds).
+4. Print the kernel table (JSON) and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,6 +64,11 @@ import numpy as np
 REL_TOL = 1e-4
 SEED = 20261016
 DEVICE = "cuda"
+# phase 3 bounds (float32 convs: summation order only; bf16 convs: one
+# bf16 ulp where a stored activation rounds the other way)
+LOSS_TOL_F32 = 1e-5
+GRAD_TOL_F32 = 1e-3
+GRAD_TOL_BF16 = 1e-2
 
 
 def fail(msg):
@@ -59,6 +83,10 @@ def rel_err(got, ref):
 
 def abs_err(got, ref):
     return (got - ref).abs().max().item()
+
+
+def rel_l2(got, ref):
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -166,36 +194,156 @@ def kernel_cases(n):
     }
 
 
-def phase_kernels(sizes):
+def training_kernel_cases(n):
+    """{kernel name: [(label, kernel_fn, plain_fn[, reference_fn]), ...]}
+    for the per-op and conv kernels of the training path at size n
+    (first case: the main path's shapes and types; the conv cases take a
+    float32 output, see the module docstring).  A reference_fn, where
+    given, is what the error is measured against; plain_fn is timed."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+    from ins_tpu_torch.ops import perop_kernels as pk
+
+    rng = np.random.default_rng(SEED + 7 * n)
+    dev = torch.device(DEVICE)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev)
+
+    dxs = (1.0 / n,) * 3
+    visc = 1.0 / 2000.0
+    dt = 5e-4
+    u, k1 = field(3, n, n, n), field(3, n, n, n)
+    q = field(n, n, n, scale=1e-3)
+    # a non-cube box with ragged tiles in y and z
+    box = (n // 2, n - 24, n + 8)
+    ub, kb, qb = field(3, *box), field(3, *box), field(*box, scale=1e-3)
+    dxb = (1.0 / box[0], 1.0 / box[1], 1.0 / box[2])
+    cases = {
+        "convdiff_interior_3d": [
+            ("u", lambda: (pk.convdiff_interior_3d(u, visc, dxs),),
+             lambda: (pk.convdiff_interior_3d_plain(u, visc, dxs),)),
+            (f"box {box}", lambda: (pk.convdiff_interior_3d(ub, visc, dxb),),
+             lambda: (pk.convdiff_interior_3d_plain(ub, visc, dxb),)),
+        ],
+        "stage_div_3d": [
+            ("base + dt/2 k", lambda: pk.stage_div_3d(u, k1, dt / 2, dxs),
+             lambda: pk.stage_div_3d_plain(u, k1, dt / 2, dxs)),
+            (f"box {box}", lambda: pk.stage_div_3d(ub, kb, dt, dxb),
+             lambda: pk.stage_div_3d_plain(ub, kb, dt, dxb)),
+        ],
+        "pressure_correct_3d": [
+            ("ut, q", lambda: (pk.pressure_correct_3d(u, q, dxs),),
+             lambda: (pk.pressure_correct_3d_plain(u, q, dxs),)),
+            (f"box {box}", lambda: (pk.pressure_correct_3d(ub, qb, dxb),),
+             lambda: (pk.pressure_correct_3d_plain(ub, qb, dxb),)),
+        ],
+        "fusedconv_3d": [],
+        "fusedconv_wgrad_3d": [],
+    }
+    # the closure's layers: (cin, cout, act, bias); k = 5
+    layers = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for cin, cout, act, has_bias in layers:
+            h = field(n, n, n, cin).to(dtype)
+            w = field(5, 5, 5, cin, cout, scale=(125 * cin) ** -0.5)
+            b = field(cout, scale=0.1) if has_bias else None
+            d = field(n, n, n, cout).to(dtype)
+
+            def fwd(impl, h=h, w=w, b=b, act=act):
+                return lambda: (impl(h, w, b, act, out_dtype=torch.float32),)
+
+            def dh(impl, d=d, w=w):
+                return lambda: (impl(d, ck.flip_taps(w), None, None, out_dtype=torch.float32),)
+
+            def wgrad(impl, h=h, d=d, exact=False):
+                if exact:  # the plain version on the same values in float64
+                    return lambda: (impl(h.double(), d.double(), 5),)
+                return lambda: (impl(h, d, 5),)
+
+            cases["fusedconv_3d"] += [
+                (f"{cin}->{cout} {act}{'+bias' if has_bias else ''} {tag}",
+                 fwd(ck.fusedconv_3d), fwd(ck.fusedconv_3d_plain)),
+            ]
+            if cin == 24:  # the input gradients the backward pass takes
+                cases["fusedconv_3d"] += [
+                    (f"dh {cout}->{cin} flipped taps {tag}",
+                     dh(ck.fusedconv_3d), dh(ck.fusedconv_3d_plain)),
+                ]
+            # cuDNN's float32 weight gradient (the plain version's) is itself
+            # ~7e-5 off the float64 sum at 128³, so the kernel is held
+            # against the plain version evaluated in float64
+            cases["fusedconv_wgrad_3d"] += [
+                (f"dw {cin}x{cout} {tag}", wgrad(ck.fusedconv_wgrad_3d),
+                 wgrad(ck.fusedconv_wgrad_3d_plain),
+                 wgrad(ck.fusedconv_wgrad_3d_plain, exact=True)),
+            ]
+    return cases
+
+
+def conv_gflop(label, n):
+    """GFLOP of a conv case (2 per multiply-add, k = 5) from its label."""
+    dims = label.split()[1 if label.startswith("d") else 0]
+    sep = "x" if label.startswith("dw") else "->"
+    cin, cout = (int(v) for v in dims.split(sep))
+    return 2 * 125 * cin * cout * n**3 / 1e9
+
+
+def phase_kernels(cases_fn, sizes, time_all=()):
+    """Hold every case of `cases_fn(n)` against its plain version at each
+    size; time the first case of each kernel (every case of the kernels
+    in `time_all`) at the largest size, kernel and plain in turns."""
     import torch
 
     results = {}
     for n in sizes:
-        for name, cases in kernel_cases(n).items():
+        for name, cases in cases_fn(n).items():
             r = results.setdefault(name, {"max_abs_err": 0.0})
-            for label, kfn, pfn in cases:
-                got, ref = kfn(), pfn()
+            for label, kfn, pfn, *reffn in cases:
+                got, ref = kfn(), (reffn[0] if reffn else pfn)()
                 torch.cuda.synchronize()
                 if len(got) != len(ref):
                     fail(f"{name} [{label}]: {len(got)} outputs, plain gives {len(ref)}")
-                errs = [rel_err(g, p) for g, p in zip(got, ref)]
+                errs = [rel_err(g.to(p.dtype), p) for g, p in zip(got, ref)]
                 r["max_abs_err"] = max(
-                    r["max_abs_err"], *(abs_err(g, p) for g, p in zip(got, ref))
+                    r["max_abs_err"], *(abs_err(g.to(p.dtype), p) for g, p in zip(got, ref))
                 )
+                extra = ""
+                if reffn:
+                    plain = pfn()
+                    extra = ("; the float32 plain version is off that reference by "
+                             + ", ".join(f"{rel_err(q.to(p.dtype), p):.3e}"
+                                         for q, p in zip(plain, ref))
+                             + ", the kernel off it by "
+                             + ", ".join(f"{rel_err(g, q):.3e}" for g, q in zip(got, plain)))
                 print(f"[kernels] n={n} {name} [{label}]: max rel err per output "
-                      + ", ".join(f"{e:.3e}" for e in errs))
+                      + ", ".join(f"{e:.3e}" for e in errs)
+                      + (" (against the plain version in float64)" if reffn else "") + extra)
                 if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
                     fail(f"{name} [{label}] at n={n}: rel err {max(errs):.3e} > {REL_TOL}")
-            if n == max(sizes):
-                _, kfn, pfn = cases[0]
+            if n != max(sizes):
+                continue
+            for i, (label, kfn, pfn, *_) in enumerate(cases):
+                if i and name not in time_all:
+                    break
                 p1 = cuda_ms(pfn)
                 k1 = cuda_ms(kfn)
                 k2 = cuda_ms(kfn)
                 p2 = cuda_ms(pfn)
-                r["ms"] = (k1 + k2) / 2
-                r["plain_ms"] = (p1 + p2) / 2
-                print(f"[kernels] n={n} {name} [{cases[0][0]}]: kernel {r['ms']:.4f} ms "
-                      f"({k1:.4f}, {k2:.4f}), plain {r['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f})")
+                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                if i == 0:
+                    r["ms"], r["plain_ms"] = ms, plain_ms
+                rate = ""
+                if name.startswith("fusedconv"):
+                    gf = conv_gflop(label, n)
+                    rate = (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
+                            f"{gf / plain_ms:.2f} plain")
+                print(f"[kernels] n={n} {name} [{label}]: kernel {ms:.4f} ms "
+                      f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})"
+                      + rate)
         torch.cuda.empty_cache()
     return results
 
@@ -214,6 +362,24 @@ def headline_setup(n):
     bc = ((it.PeriodicBC(), it.PeriodicBC()),) * 3
     return it.Setup(x=x, boundary_conditions=bc, Re=4000.0, dtype=torch.float32,
                     device=DEVICE)
+
+
+def check_divergence(u, dx, tag):
+    """Volume-scaled max|div u| <= 1e-4·max|u|/dx and the unscaled
+    residual max|div u|·dx/max|u| <= 1e-3 (uniform periodic cube)."""
+    import torch
+
+    vol = dx**3
+    div = sum((u[a] - torch.roll(u[a], 1, dims=a)) / dx for a in range(3)) * vol
+    umax = u.abs().max().item()
+    divmax = div.abs().max().item()
+    print(f"[{tag}] max|div u| (volume-scaled) = {divmax:.3e}, bound 1e-4*max|u|/dx = "
+          f"{1e-4 * umax / dx:.3e}; unscaled max|div u|*dx/max|u| = "
+          f"{divmax / vol * dx / umax:.3e}")
+    if not divmax <= 1e-4 * umax / dx:
+        fail(f"{tag}: the result is not divergence-free")
+    if not divmax / vol * dx / umax <= 1e-3:
+        fail(f"{tag}: the unscaled divergence residual exceeds 1e-3")
 
 
 def phase_main_path(n, nsteps, chunk):
@@ -249,24 +415,13 @@ def phase_main_path(n, nsteps, chunk):
     u = strip_ghosts(state.u)
     if not bool(torch.isfinite(u).all()):
         fail("non-finite velocity after the run")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in HAT_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if any(plain.values()):
         fail(f"plain versions ran on CUDA tensors in the kernel run: {plain}")
 
-    dx = float(setup.grid.delta[0][0])
-    vol = dx**3
-    div = sum((u[a] - torch.roll(u[a], 1, dims=a)) / dx for a in range(3)) * vol
-    umax = u.abs().max().item()
-    divmax = div.abs().max().item()
-    print(f"[main] max|div u| (volume-scaled) = {divmax:.3e}, bound 1e-4*max|u|/dx = "
-          f"{1e-4 * umax / dx:.3e}; unscaled max|div u|*dx/max|u| = "
-          f"{divmax / vol * dx / umax:.3e}")
-    if not divmax <= 1e-4 * umax / dx:
-        fail("the result is not divergence-free")
-    if not divmax / vol * dx / umax <= 1e-3:
-        fail("the unscaled divergence residual exceeds 1e-3")
+    check_divergence(u, float(setup.grid.delta[0][0]), "main")
 
     e0 = it.total_kinetic_energy(u0, setup).item()
     e1 = it.total_kinetic_energy(state.u, setup).item()
@@ -338,10 +493,218 @@ def phase_profile(setup, u0, dt):
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
 
 
+# --------------------------------------------------------------------------
+# phase 3: the training path
+# --------------------------------------------------------------------------
+
+
+def training_setup(n, closure_model=None):
+    import torch
+
+    import ins_tpu_torch as it
+
+    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
+    return it.Setup(x=x, Re=2000.0, dtype=torch.float32, device=DEVICE,
+                    closure_model=closure_model)
+
+
+def build_training(setup, *, compute_dtype=None, plain=False):
+    """(closure model, theta, loss) of `bench.py`'s grad-step case, the
+    CNN's weights drawn from a fixed seed."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch import models as nc
+
+    closure, theta = nc.cnn(
+        setup=setup, radii=[2, 2, 2], channels=[24, 24, 3],
+        activations=[torch.tanh, torch.tanh, lambda v: v], use_bias=[True, True, False],
+        generator=torch.Generator().manual_seed(0), compute_dtype=compute_dtype,
+        plain=plain,
+    )
+    m = nc.wrappedclosure(closure, setup)
+    loss = nc.create_loss_post(
+        setup=setup, method=it.RKMethods.RK44(), psolver=it.psolver_spectral(setup),
+        closure_model=m, nsubstep=1, remat=True, plain=plain,
+    )
+    return m, theta, loss
+
+
+def value_and_grad(loss, data, theta):
+    import torch
+
+    value = loss(data, theta)
+    grads = torch.autograd.grad(value, list(theta.values()))
+    torch.cuda.synchronize()
+    return value.detach(), dict(zip(theta, grads))
+
+
+def phase_training(n, nunroll):
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import strip_ghosts
+
+    setup = training_setup(n)
+    u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
+    data = [{"u": torch.stack([u0 * (1.0 - 0.01 * i) for i in range(nunroll + 1)]),
+             "t": torch.arange(nunroll + 1, dtype=torch.float64) * 5e-4}]
+    print(f"[train] {n}^3 RK44 Re=2000, CNN (2,2,2)/(24,24,3), {nunroll} unrolled "
+          f"steps with remat")
+
+    # 1. float32 convs: kernel run against the plain run on the card
+    runs = {}
+    for plain in (False, True):
+        _, theta, loss = build_training(setup, compute_dtype=torch.float32, plain=plain)
+        t0 = time.perf_counter()
+        runs[plain] = value_and_grad(loss, data, theta)
+        print(f"[train] f32 convs, {'plain' if plain else 'kernels'}: loss "
+              f"{runs[plain][0].item():.9e} ({time.perf_counter() - t0:.3f} s)")
+    (lk, gk), (lp, gp) = runs[False], runs[True]
+    lrel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grel = {k: rel_l2(gk[k], gp[k]) for k in gk}
+    print(f"[train] f32 kernels vs plain: loss rel {lrel:.3e} (bound {LOSS_TOL_F32}); "
+          "grad rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in grel.items())
+          + f" (bound {GRAD_TOL_F32})")
+    if not (math.isfinite(lk.item()) and lrel <= LOSS_TOL_F32):
+        fail(f"f32 loss: kernels vs plain {lrel:.3e} > {LOSS_TOL_F32}")
+    if not all(math.isfinite(v) and v <= GRAD_TOL_F32 for v in grel.values()):
+        fail(f"f32 gradient: kernels vs plain {grel} > {GRAD_TOL_F32}")
+
+    # 2. the default bf16 convs: the slice's main path
+    _, theta, loss = build_training(setup)
+    launches.reset_counts()
+    lb, gb = value_and_grad(loss, data, theta)
+    counts = dict(launches.LAUNCHES)
+    plain_calls = dict(launches.PLAIN_ON_CUDA)
+    print(f"[train] bf16 convs, kernels: loss {lb.item():.9e}; launches {counts}; "
+          f"plain calls on CUDA {plain_calls}")
+    finite = math.isfinite(lb.item()) and all(bool(torch.isfinite(g).all()) for g in gb.values())
+    if not finite:
+        fail("non-finite bf16 loss or gradient")
+    missing = [k for k in TRAINING_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"training kernels never launched: {missing}")
+    if any(plain_calls.values()):
+        fail(f"plain versions ran on CUDA tensors in the kernel run: {plain_calls}")
+    _, theta_p, loss_p = build_training(setup, plain=True)
+    lbp, gbp = value_and_grad(loss_p, data, theta_p)
+    grel = {k: rel_l2(gb[k], gbp[k]) for k in gb}
+    print(f"[train] bf16 kernels vs plain: loss {lb.item():.9e} vs {lbp.item():.9e} "
+          f"(rel {abs(lb.item() - lbp.item()) / abs(lbp.item()):.3e}); grad rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grel.items()) + f" (bound {GRAD_TOL_BF16})")
+    if not all(math.isfinite(v) and v <= GRAD_TOL_BF16 for v in grel.values()):
+        fail(f"bf16 gradient: kernels vs plain {grel} > {GRAD_TOL_BF16}")
+
+    # 3. seconds per gradient step, in turns, and peak memory
+    times = {"plain": [], "kernels": []}
+    peak = {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        lo, th = (loss_p, theta_p) if which == "plain" else (loss, theta)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value_and_grad(lo, data, th)
+        times[which].append(time.perf_counter() - t0)
+        peak[which] = torch.cuda.max_memory_allocated() / 2**30
+    sk = sum(times["kernels"]) / 2
+    sp = sum(times["plain"]) / 2
+    print(f"[train] s/gradient step, bf16 convs: kernels {sk:.4f} "
+          f"({times['kernels'][0]:.4f}, {times['kernels'][1]:.4f}), plain {sp:.4f} "
+          f"({times['plain'][0]:.4f}, {times['plain'][1]:.4f}); peak memory kernels "
+          f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
+
+    # 4. three Adam iterations
+    dataloader = nc.create_dataloader_post(data, ntrajectory=1, nunroll=nunroll)
+    state = nc.create_trainstate(theta, lr=1e-3, rng=np.random.default_rng(SEED))
+    losses = []
+    for _ in range(3):
+        state = nc.train(dataloader=dataloader, loss=loss, trainstate=state, niter=1)["trainstate"]
+        losses.append(state["loss"].item())
+    print(f"[train] 3 Adam iterations (lr 1e-3): losses "
+          + ", ".join(f"{v:.9e}" for v in losses))
+    if not all(math.isfinite(v) for v in losses):
+        fail("non-finite loss in train")
+
+    # 5. solve_unsteady with the trained closure attached
+    m, _, _ = build_training(setup)
+    csetup = training_setup(n, closure_model=m)
+    nsteps, dt = 10, 5e-4
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    out, _ = it.solve_unsteady(setup=csetup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt,
+                               method=it.RKMethods.RK44(), psolver=it.psolver_spectral(csetup),
+                               theta=state["theta"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fcounts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    print(f"[train] solve_unsteady with the closure, {nsteps} steps: {wall:.3f} s wall; "
+          f"launches {fcounts}; plain calls on CUDA "
+          f"{ {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v} }")
+    u = strip_ghosts(out.u)
+    if out.n != nsteps or not bool(torch.isfinite(u).all()):
+        fail("the closure run did not finish with finite fields")
+    if any(launches.PLAIN_ON_CUDA.values()):
+        fail("plain versions ran on CUDA tensors in the closure run")
+    check_divergence(u, float(csetup.grid.delta[0][0]), "closure run")
+    return counts
+
+
+def phase_profile_training(n, nunroll):
+    """Kernel-time breakdown of one bf16 gradient step (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ins_tpu_torch as it
+
+    setup = training_setup(n)
+    u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
+    data = [{"u": torch.stack([u0 * (1.0 - 0.01 * i) for i in range(nunroll + 1)]),
+             "t": torch.arange(nunroll + 1, dtype=torch.float64) * 5e-4}]
+    _, theta, loss = build_training(setup)
+    value_and_grad(loss, data, theta)
+    t0 = time.perf_counter()
+    value_and_grad(loss, data, theta)
+    wall = time.perf_counter() - t0  # without the profiler's host overhead
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        value_and_grad(loss, data, theta)
+    events = prof.key_averages()
+    dev = sum(e.self_device_time_total for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    print(f"[profile] one bf16 gradient step: {wall:.3f} s wall (unprofiled), "
+          f"{dev:.3f} s of kernel time (profiled); idle share {max(0.0, 1 - dev / wall):.3f}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=20))
+
+
+HAT_KERNELS = (
+    "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB",
+    "pressure_correct_qhat_3d",
+)
+TRAINING_KERNELS = (
+    "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
+    "fusedconv_3d", "fusedconv_wgrad_3d",
+)
+
+
+KERNEL_META = {  # name: (source, the TPU kernel it replaces)
+    "plane_transform": ("ins_tpu_torch/csrc/transforms.cu", "ins_tpu/ops/pallas_kernels.py:87"),
+    "pcmsd_hat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
+    "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
+    "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:411"),
+    "pressure_correct_qhat_3d": ("ins_tpu_torch/csrc/correct.cu", "ins_tpu/ops/pallas_kernels.py:3422"),
+    "convdiff_interior_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:312"),
+    "stage_div_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:458"),
+    "pressure_correct_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:3546"),
+    "fusedconv_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:780"),
+    "fusedconv_wgrad_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:918"),
+}
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler kernel breakdown of 3 hat steps")
+                    help="print torch.profiler kernel breakdowns of 3 hat steps "
+                         "and of one gradient step")
     args = ap.parse_args()
 
     import torch
@@ -362,20 +725,22 @@ def main():
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s); "
           f"ptxas report in {_build.BUILD_DIR / 'build.log'}")
 
-    results = phase_kernels((64, 256))
-    counts, setup, u0, dt = phase_main_path(256, nsteps=20, chunk=10)
+    results = phase_kernels(kernel_cases, (64, 256))
+    hat_counts, setup, u0, dt = phase_main_path(256, nsteps=20, chunk=10)
     if args.profile:
         phase_profile(setup, u0, dt)
+    del setup, u0
+    torch.cuda.empty_cache()
+    results.update(phase_kernels(training_kernel_cases, (64, 128),
+                                 time_all=("fusedconv_3d", "fusedconv_wgrad_3d")))
+    train_counts = phase_training(128, nunroll=5)
+    if args.profile:
+        phase_profile_training(128, nunroll=5)
+    counts = {**{k: hat_counts[k] for k in HAT_KERNELS},
+              **{k: train_counts[k] for k in TRAINING_KERNELS}}
 
     table = {"kernels": []}
-    meta = {
-        "plane_transform": ("ins_tpu_torch/csrc/transforms.cu", "ins_tpu/ops/pallas_kernels.py:87"),
-        "pcmsd_hat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
-        "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
-        "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:411"),
-        "pressure_correct_qhat_3d": ("ins_tpu_torch/csrc/correct.cu", "ins_tpu/ops/pallas_kernels.py:3422"),
-    }
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
         table["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

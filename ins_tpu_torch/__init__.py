@@ -1,12 +1,14 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs its main
-path — 3-D decaying turbulence on a uniform periodic box, explicit RK
-with the spectral projection — in PyTorch, with the four TPU kernels of
-that path rewritten as hand-written CUDA for `sm_90a` (`csrc/`, built at
-first use by `_build.py`).  Every tensor of a run lives on
-`Setup(device=...)`; on the CPU each kernel wrapper runs its plain
-PyTorch version.  It imports torch and never jax.
+The JAX package `ins_tpu` is the reference; this package runs two of its
+paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
+(explicit RK, spectral projection, optionally with a closure model) and
+a-posteriori training of a CNN closure through the unrolled solver
+(`ins_tpu_torch.models`) — with the TPU kernels of those paths rewritten
+as hand-written CUDA for `sm_90a` (`csrc/`, built at first use by
+`_build.py`).  Every tensor of a run lives on `Setup(device=...)`; on the
+CPU each kernel wrapper runs its plain PyTorch version.  It imports torch
+and never jax.
 """
 
 from . import processors  # noqa: F401

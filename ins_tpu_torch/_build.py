@@ -1,17 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface, loaded with `ctypes`:
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<file>.cu   (each)
+    nvcc -shared -o <lib> <objs>
 
 The library lands in `build/ins_tpu_torch/` beside the package (listed in
-`.gitignore`), named by a hash of the sources and flags, so an edited
-source is rebuilt at first use and an unchanged one is loaded as is.
-The build happens on first use, never at import.  A failed build raises
-`KernelBuildError` with the compiler's output; `ptxas` register and
-spill counts of a successful build are kept in `build.log` beside it.
+`.gitignore`), named by a hash of the sources, the headers and the flags,
+so an edited source is rebuilt at first use and an unchanged one is
+loaded as is.  The build happens on first use, never at import.  A failed
+build raises `KernelBuildError` with the compiler's output; `ptxas`
+register and spill counts of a successful build are kept in `build.log`
+beside it.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "ins_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _c_ptr = ctypes.c_void_p
@@ -61,6 +65,27 @@ _SIGNATURES = {
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_f32, _c_f32, _c_f32, _c_ptr],
         _c_int,
     ),
+    "ins_convdiff_f32": (
+        [_c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_stage_div_f32": (
+        [_c_ptr, _c_ptr, _c_f32, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_pressure_correct_f32": (
+        [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 3 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_conv_fwd": (
+        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 6 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_conv_wgrad_chunks": ([_c_int] * 3, _c_int),
+    "ins_conv_wgrad": (
+        [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr],
+        _c_int,
+    ),
     "ins_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -80,7 +105,7 @@ def _sources():
 
 def _source_hash():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -103,11 +128,22 @@ def _find_nvcc():
     )
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; returns [(cmd, returncode, output)]."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    outs = [(cmd, p.communicate()[0]) for cmd, p in procs]
+    return [(cmd, p.returncode, out) for (cmd, out), (_, p) in zip(outs, procs)]
+
+
 def build():
     """Compile the kernels if the library for the current sources is
     missing; return its path."""
     global build_seconds
-    lib_path = BUILD_DIR / f"libins_tpu_torch_{_source_hash()}.so"
+    tag = _source_hash()
+    lib_path = BUILD_DIR / f"libins_tpu_torch_{tag}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -118,17 +154,22 @@ def build():
             if lib_path.exists():  # another process built it meanwhile
                 return lib_path
             tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            objs = [BUILD_DIR / f"{p.stem}_{tag}.o" for p in _sources()]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            runs = _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                for p, o in zip(_sources(), objs)
+            ])
+            if all(rc == 0 for _, rc, _ in runs):
+                runs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
             elapsed = time.perf_counter() - t0
-            log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in runs)
             (BUILD_DIR / "build.log").write_text(log)
-            if proc.returncode != 0:
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if any(rc != 0 for _, rc, _ in runs):
                 tmp.unlink(missing_ok=True)
-                raise KernelBuildError(
-                    f"nvcc failed with exit code {proc.returncode}:\n{log}"
-                )
+                raise KernelBuildError(f"nvcc failed:\n{log}")
             os.replace(tmp, lib_path)
             build_seconds = elapsed
         finally:

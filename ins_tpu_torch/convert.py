@@ -9,7 +9,11 @@ field dict from which the caller rebuilds the JAX NamedTuple
 (``ins_tpu.time_steppers.step.StepperState(**d)``).  This module never
 imports JAX.  `check_setup_constants` holds the port's fused-projection
 constants (the V/Vinv eigen-matrices and the grid spacings) equal to the
-JAX package's.
+JAX package's.  `cnn_params_from_numpy` / `cnn_params_to_numpy` carry a
+CNN closure's parameters (flax's ``params`` dict, e.g. the ``theta`` of
+`ins_tpu.models.cnn`) to the port's ``theta`` and back; both use
+canonical ``(k, k, k, cin, cout)`` kernels, so the two packages then
+compute the same closure.
 """
 
 from __future__ import annotations
@@ -22,7 +26,13 @@ from .ops.poisson_kernels import make_fused_projection
 from .ops.pressure import uniform_dxs
 from .time_steppers.step import StepperState
 
-__all__ = ["state_from_numpy", "state_to_numpy", "check_setup_constants"]
+__all__ = [
+    "state_from_numpy",
+    "state_to_numpy",
+    "check_setup_constants",
+    "cnn_params_from_numpy",
+    "cnn_params_to_numpy",
+]
 
 
 def _tensor(a, dtype, device):
@@ -87,3 +97,18 @@ def check_setup_constants(setup, jax_consts, *, rtol=None):
     if worst > rtol:
         raise ValueError(f"projection constants differ from the JAX package's by {worst:g}")
     return worst
+
+
+def cnn_params_from_numpy(theta, *, device="cpu"):
+    """A flax CNN ``params`` mapping (``conv{i}_kernel``, ``conv{i}_bias``
+    -> arrays) as the port's ``theta``: a dict of leaf tensors on
+    `device`, in the arrays' dtypes, that require grad."""
+    return {
+        name: torch.as_tensor(np.array(a), device=device).requires_grad_(True)
+        for name, a in dict(theta).items()
+    }
+
+
+def cnn_params_to_numpy(theta):
+    """The port's ``theta`` as a dict of numpy arrays (flax's layout)."""
+    return {name: t.detach().cpu().numpy() for name, t in theta.items()}

@@ -14,7 +14,8 @@
 // (ins_tpu/ops/pallas_kernels.py:2341, wrapper `pcmsd_hat_3d` :2694) and
 // of `_msd_hat_kernel` / `_stage_tail` (:692, :972, wrapper
 // `momentum_stage_divhat_3d` :1264).  The conv-diff is
-// `_convdiff_window` (:129) / `convdiff_roll` term for term.  The TPU
+// `_convdiff_window` (:129) / `convdiff_roll` term for term (`convdiff`
+// of stencil.cuh, which perop.cu shares).  The TPU
 // kernels apply the z/y eigen-transforms of q and div in the same pass;
 // here the wrappers run them as plane-transform GEMMs (transforms.cu)
 // before (q) and after (div) this kernel, so q and div each make one
@@ -37,7 +38,7 @@
 // recomputes that one component from the shared tile rather than
 // exchanging it, since the tableau streams at I - e_a are single loads.
 
-#include <cuda_runtime.h>
+#include "stencil.cuh"
 
 namespace {
 
@@ -72,11 +73,6 @@ struct StageParams {
 };
 
 using Ring = float[RING][3][HY][HZ];
-
-__device__ __forceinline__ int wrap(int v, int n) {
-    v %= n;
-    return v < 0 ? v + n : v;
-}
 
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
@@ -116,38 +112,6 @@ struct View {
     }
 };
 
-// Conv-diff of component A at I + (OX, OY, OZ), as convdiff_roll.
-template <int A, int OX, int OY, int OZ>
-__device__ __forceinline__ float convdiff(const StageParams& p, const View& u) {
-    const float ua = u(A, OX, OY, OZ);
-    float f = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-        const int ex = b == 0, ey = b == 1, ez = b == 2;
-        const float dxb = p.dx[b];
-        const float upb = u(A, OX + ex, OY + ey, OZ + ez);
-        const float umb = u(A, OX - ex, OY - ey, OZ - ez);
-        const float fd = (p.visc / (dxb * dxb)) * (upb - 2.0f * ua + umb);
-        const float uab1 = 0.5f * (umb + ua);
-        const float uab2 = 0.5f * (ua + upb);
-        float uba1, uba2;
-        if (A == b) {
-            uba1 = uab1;
-            uba2 = uab2;
-        } else {
-            const int ax = A == 0, ay = A == 1, az = A == 2;
-            const float ub = u(b, OX, OY, OZ);
-            const float ub_pa = u(b, OX + ax, OY + ay, OZ + az);
-            const float ub_mb = u(b, OX - ex, OY - ey, OZ - ez);
-            const float ub_pa_mb = u(b, OX + ax - ex, OY + ay - ey, OZ + az - ez);
-            uba1 = 0.5f * (ub_mb + ub_pa_mb);
-            uba2 = 0.5f * (ub + ub_pa);
-        }
-        f = f + (fd - (uab2 * uba2 - uab1 * uba1) / dxb);
-    }
-    return f;
-}
-
 // Tableau value base + sum_j ck_j k_j + cnew f at flat index idx.
 __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float b0, float f) {
     float ut = b0;
@@ -164,7 +128,7 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     const int n = p.n;
     const size_t n3 = (size_t)n * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
-    const float f = convdiff<A, 0, 0, 0>(p, u);
+    const float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
     const float ua = u(A, 0, 0, 0);
     const float b0 = p.base ? __ldg(p.base + idx) : ua;
     const float ut = tableau(p, idx, b0, f);
@@ -181,7 +145,7 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     const int ym = A == 1 ? (y == 0 ? n - 1 : y - 1) : y;
     const int zm = A == 2 ? (z == 0 ? n - 1 : z - 1) : z;
     const size_t idxm = A * n3 + ((size_t)xm * n + ym) * n + zm;
-    const float fm = convdiff<A, MX, MY, MZ>(p, u);
+    const float fm = convdiff<A, MX, MY, MZ>(p.visc, p.dx, u);
     const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
     const float utm = tableau(p, idxm, bm, fm);
     return (ut - utm) / p.dx[A];

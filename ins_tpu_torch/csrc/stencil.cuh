@@ -1,0 +1,86 @@
+// Periodic staggered-grid stencils shared by the stage, per-op and
+// correction kernels (stage.cu, perop.cu, correct.cu).
+//
+// The conv-diff is `convdiff_roll` (ins_tpu/ops/diffkernels.py) term for
+// term: second-order diffusion plus the energy-conserving face-averaged
+// convection, all interpolation weights 1/2.  A kernel hands it a view
+// `u(c, ox, oy, oz)` that reads velocity component c at I + (ox, oy, oz)
+// from wherever it staged the field (a shared-memory ring, in both
+// kernels that use it); the arithmetic and its order are the same for
+// every caller.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ int wrap(int v, int n) {
+    v %= n;
+    return v < 0 ? v + n : v;
+}
+
+// Conv-diff of component A at I + (OX, OY, OZ).
+template <int A, int OX, int OY, int OZ, class View>
+__device__ __forceinline__ float convdiff(float visc, const float (&dx)[3], const View& u) {
+    const float ua = u(A, OX, OY, OZ);
+    float f = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        const int ex = b == 0, ey = b == 1, ez = b == 2;
+        const float dxb = dx[b];
+        const float upb = u(A, OX + ex, OY + ey, OZ + ez);
+        const float umb = u(A, OX - ex, OY - ey, OZ - ez);
+        const float fd = (visc / (dxb * dxb)) * (upb - 2.0f * ua + umb);
+        const float uab1 = 0.5f * (umb + ua);
+        const float uab2 = 0.5f * (ua + upb);
+        float uba1, uba2;
+        if (A == b) {
+            uba1 = uab1;
+            uba2 = uab2;
+        } else {
+            const int ax = A == 0, ay = A == 1, az = A == 2;
+            const float ub = u(b, OX, OY, OZ);
+            const float ub_pa = u(b, OX + ax, OY + ay, OZ + az);
+            const float ub_mb = u(b, OX - ex, OY - ey, OZ - ez);
+            const float ub_pa_mb = u(b, OX + ax - ex, OY + ay - ey, OZ + az - ez);
+            uba1 = 0.5f * (ub_mb + ub_pa_mb);
+            uba2 = 0.5f * (ub + ub_pa);
+        }
+        f = f + (fd - (uab2 * uba2 - uab1 * uba1) / dxb);
+    }
+    return f;
+}
+
+// u_a(I) = ut_a(I) - (q(I + e_a) - q(I)) / dx_a on a periodic
+// (nx, ny, nz) box: one thread per cell, z fastest across a warp (every
+// access coalesced; the +e_a neighbours of q come from L1/L2).  Launch
+// with blocks of (32, 8) and a grid of (ceil(nz/32), ceil(ny/8), nx).
+__global__ void __launch_bounds__(256)
+correct_kernel(const float* __restrict__ ut, const float* __restrict__ q,
+               float* __restrict__ u, int nx, int ny, int nz,
+               float dx0, float dx1, float dx2) {
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    const int x = blockIdx.z;
+    if (z >= nz || y >= ny) return;
+    const size_t n3 = (size_t)nx * ny * nz;
+    const size_t i = ((size_t)x * ny + y) * nz + z;
+    const int xn = x + 1 == nx ? 0 : x + 1, yn = y + 1 == ny ? 0 : y + 1;
+    const int zn = z + 1 == nz ? 0 : z + 1;
+    const float qc = __ldg(q + i);
+    u[i] = __ldg(ut + i) - (__ldg(q + ((size_t)xn * ny + y) * nz + z) - qc) / dx0;
+    u[n3 + i] = __ldg(ut + n3 + i) - (__ldg(q + ((size_t)x * ny + yn) * nz + z) - qc) / dx1;
+    u[2 * n3 + i] = __ldg(ut + 2 * n3 + i) - (__ldg(q + ((size_t)x * ny + y) * nz + zn) - qc) / dx2;
+}
+
+inline cudaError_t launch_correct(const float* ut, const float* q, float* u, int nx,
+                                  int ny, int nz, float dx0, float dx1, float dx2,
+                                  cudaStream_t stream) {
+    const dim3 block(32, 8);
+    const dim3 grid((nz + 31) / 32, (ny + 7) / 8, nx);
+    correct_kernel<<<grid, block, 0, stream>>>(ut, q, u, nx, ny, nz, dx0, dx1, dx2);
+    return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,11 +1,11 @@
 """Ghost-free fast path for uniform periodic grids.
 
 Port of `ins_tpu/ops/fastpath.py` for explicit RK tableaus without
-temperature, closure or body force.  Fields are carried without ghost
-cells (every stencil shift is a periodic roll); `strip_*`/`reghost*`
-cross to and from the public ghosted layout.
+temperature or body force.  Fields are carried without ghost cells
+(every stencil shift is a periodic roll); `strip_*`/`reghost*` cross to
+and from the public ghosted layout.
 
-Two chains:
+Three chains:
 
 - **The hat chain** (3-D cubes, classic-row tableaus such as RK44): the
   carry is a `HatState` ``(ut, qhat)`` — the uncorrected velocity and
@@ -16,12 +16,20 @@ Two chains:
   ``qhat=None``), so it runs `momentum_stage_divhat_3d`, the same stage
   without the rebuild.  On CUDA tensors these are the hand-written
   kernels; on CPU tensors their plain versions.
-- **The roll twin** (2-D, non-cubes, other tableaus): conv-diff as a
-  roll graph and the projection through `torch.fft`, as the JAX package
-  runs on the CPU.
+- **The per-op chain** (3-D with a closure model, or
+  ``differentiable=True``: the training unroll): `step_unmerged`'s
+  per-op branch.  Each stage is the conv-diff kernel plus the closure
+  force, then stage-div, the Poisson solve and the pressure correction,
+  through the custom-VJP wrappers of `ops/diffkernels.py` (kernel
+  forward, roll-graph adjoint backward).  The Poisson solve is the
+  eigen-matmul `make_poisson_mm` on the card and `torch.fft` on the CPU,
+  as the JAX package picks it; both differentiate natively.
+- **The roll twin** (2-D, non-cubes, other tableaus, and 2-D with a
+  closure): the same stage loop with conv-diff as a roll graph and the
+  projection as roll-graph divergence and gradient around the solve.
 
-LMWray3, temperature, Smagorinsky, body force, bf16 streams and the
-per-op chain are ROADMAP queue 1 item 6.
+LMWray3, temperature, Smagorinsky, body force and bf16 streams are
+ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -34,9 +42,15 @@ import torch
 from ..time_steppers.methods import ExplicitRungeKuttaMethod
 from ..time_steppers.step import StepperState
 from . import stage_kernels as sk
-from .diffkernels import convdiff_roll
+from .dft import make_poisson_mm
+from .diffkernels import (
+    convdiff_roll,
+    make_convdiff_vjp,
+    make_pressure_correct_vjp,
+    make_stage_div_vjp,
+)
 from .poisson_kernels import make_fused_projection, passB, passB_plain
-from .pressure import project_periodic, psolver_spectral, uniform_dxs
+from .pressure import _spectral_solve, project_periodic, uniform_dxs
 
 __all__ = [
     "fastpath_applicable",
@@ -109,13 +123,16 @@ def _classic_lowstorage_rows(method):
 
 
 def hat_chain_applicable(setup, method):
-    """Whether the fused hat chain (the four kernels) runs this setup."""
+    """Whether the fused hat chain (the four kernels) runs this setup:
+    3-D cube, classic-row tableau and no closure model (a closure rides
+    the per-op chain, as in the JAX package's `use_fused_stage`)."""
     g = setup.grid
     return (
         g.dim == 3
         and g.Np[0] == g.Np[1] == g.Np[2]
         and isinstance(method, ExplicitRungeKuttaMethod)
         and _classic_lowstorage_rows(method)
+        and setup.closure_model is None
     )
 
 
@@ -221,27 +238,58 @@ def make_fast_timestep_hat(setup, method, *, projection_precision="manualhigh",
     return _make_hat_fns(setup, method, projection_precision, plain)
 
 
-def make_fast_timestep(setup, method, *, projection_precision="manualhigh"):
-    """``step(state, dt) -> state`` on the interior layout: the hat chain
-    materialised every step where it applies, else the roll twin."""
+def make_fast_timestep(setup, method, *, differentiable=False,
+                       projection_precision="manualhigh", plain=False):
+    """``step(state, dt, theta=None) -> state`` on the interior layout.
+
+    With a closure model or ``differentiable=True`` a 3-D setup runs the
+    per-op chain (``theta`` goes to the closure); otherwise the hat chain
+    materialised every step where it applies, else the roll twin.
+    ``plain=True`` builds the per-op chain from the kernels' plain
+    versions (the reference chain on the card)."""
     _check_method(method)
-    if hat_chain_applicable(setup, method):
+    per_op = setup.closure_model is not None or differentiable
+    if not per_op and hat_chain_applicable(setup, method):
         to_hat, step_hat, from_hat = _make_hat_fns(
             setup, method, projection_precision, plain=False
         )
 
-        def step(state, dt):
+        def step(state, dt, theta=None):
             return from_hat(step_hat(to_hat(state), dt))
 
         return step
 
+    D = setup.grid.dim
     dxs = uniform_dxs(setup)
     visc = 1.0 / setup.Re
-    solve = psolver_spectral(setup)
+    if setup.device.type == "cuda":
+        solve_p = make_poisson_mm(setup.grid.Np, dxs, setup.dtype, setup.device)
+    else:
+        solve_p = _spectral_solve(setup.grid.Np, dxs, setup.dtype, setup.device)
+    closure = setup.closure_model
+    kernels = per_op and D == 3
+    if kernels:
+        convdiff = make_convdiff_vjp(visc, dxs, plain=plain)
+        stage_div = make_stage_div_vjp(dxs, plain=plain)
+        correct = make_pressure_correct_vjp(dxs, plain=plain)
     A, c, ns = method.A, method.c, method.nstage
 
-    def step(state, dt):
-        """Roll twin of the JAX package's unfused ERK stage loop."""
+    def momentum(u, theta):
+        F = convdiff(u) if kernels else convdiff_roll(u, visc, dxs)
+        if closure is not None:
+            # closures take the ghosted solver layout
+            F = F + strip_ghosts(closure(reghost(u), theta))
+        return F
+
+    def stage_project(base, k, coeff):
+        """Projected stage update P(base + coeff·k)."""
+        if kernels:
+            ut, div = stage_div(base, k, coeff)
+            return correct(ut, solve_p(div))
+        return project_periodic(base + coeff * k, dxs, solve_p)
+
+    def step(state, dt, theta=None):
+        """The JAX package's `step_unmerged` per-op branch."""
         u, _, tstart, n = state
         ustart = u
         ku = []
@@ -251,12 +299,12 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh"):
             for j in range(i):
                 if A[i][j] != 0.0:
                     base = base + (dt * A[i][j]) * ku[j]
-            ku.append(convdiff_roll(u, visc, dxs))
+            ku.append(momentum(u, theta))
             t = tstart + c[i] * dt
             if A[i][i] != 0.0:
-                u = project_periodic(base + (dt * A[i][i]) * ku[i], dxs, solve)
-            else:
-                u = project_periodic(base, dxs, solve)
+                u = stage_project(base, ku[i], dt * A[i][i])
+            else:  # degenerate diagonal entry: nothing new to add
+                u = project_periodic(base, dxs, solve_p)
         return StepperState(u=u, temp=None, t=t, n=n + 1)
 
     return step

@@ -19,16 +19,25 @@ __all__ = [
     "reset_counts",
     "note_plain",
     "check_cuda_operands",
+    "check_cuda_tensors",
     "ptr",
     "current_stream",
 ]
 
 KERNELS = (
+    # the hat chain (ops/stage_kernels.py, poisson_kernels.py, transforms.py)
     "plane_transform",
     "pcmsd_hat_3d",
     "momentum_stage_divhat_3d",
     "passB",
     "pressure_correct_qhat_3d",
+    # the per-op chain (ops/perop_kernels.py)
+    "convdiff_interior_3d",
+    "stage_div_3d",
+    "pressure_correct_3d",
+    # the closure convolutions (ops/conv_kernels.py)
+    "fusedconv_3d",
+    "fusedconv_wgrad_3d",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
@@ -46,14 +55,13 @@ def note_plain(name, t):
         PLAIN_ON_CUDA[name] += 1
 
 
-def check_cuda_operands(name, n, **operands):
-    """Raise unless every operand is a contiguous float32 CUDA tensor on
-    one device with its expected shape.  Each value is ``(tensor, kind)``
-    with kind ``"vec"`` (3, n, n, n), ``"sca"`` (n, n, n) or ``"mat"``
-    (n, n); None tensors are skipped."""
-    shapes = {"vec": (3, n, n, n), "sca": (n, n, n), "mat": (n, n)}
+def check_cuda_tensors(name, dtypes, **operands):
+    """Raise unless every operand is a contiguous CUDA tensor on one
+    device with a dtype in ``dtypes`` and its expected shape.  Each value
+    is ``(tensor, shape)``; None tensors are skipped.  Returns the
+    device."""
     device = None
-    for label, (t, kind) in operands.items():
+    for label, (t, shape) in operands.items():
         if t is None:
             continue
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -62,18 +70,28 @@ def check_cuda_operands(name, n, **operands):
             device = t.device
         elif t.device != device:
             raise ValueError(f"{name}: {label} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
             raise TypeError(
-                f"{name}: {label} has dtype {t.dtype}; the CUDA kernels take "
-                "float32 (bf16 streams are ROADMAP queue 1 item 6)"
+                f"{name}: {label} has dtype {t.dtype}; the CUDA kernel takes "
+                + " or ".join(str(d) for d in dtypes)
             )
-        if tuple(t.shape) != shapes[kind]:
+        if tuple(t.shape) != tuple(shape):
             raise ValueError(
-                f"{name}: {label} has shape {tuple(t.shape)}, expected {shapes[kind]}"
+                f"{name}: {label} has shape {tuple(t.shape)}, expected {tuple(shape)}"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
     return device
+
+
+def check_cuda_operands(name, n, **operands):
+    """`check_cuda_tensors` for the float32 cube kernels: each value is
+    ``(tensor, kind)`` with kind ``"vec"`` (3, n, n, n), ``"sca"``
+    (n, n, n) or ``"mat"`` (n, n)."""
+    shapes = {"vec": (3, n, n, n), "sca": (n, n, n), "mat": (n, n)}
+    return check_cuda_tensors(
+        name, (torch.float32,), **{k: (t, shapes[kind]) for k, (t, kind) in operands.items()}
+    )
 
 
 def ptr(t):

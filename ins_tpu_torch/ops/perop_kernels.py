@@ -1,0 +1,128 @@
+"""The per-op kernels of the differentiable fast path.
+
+Port of `convdiff_interior_3d`, `stage_div_3d` and `pressure_correct_3d`
+from `ins_tpu/ops/pallas_kernels.py`, with the JAX functions' signatures
+and layouts (component-first interior velocity ``(3, nx, ny, nz)`` on any
+periodic box, scalars ``(nx, ny, nz)``, physical pressure):
+
+    convdiff_interior_3d   F = convdiff_roll(u)
+    stage_div_3d           ut = base + coeff·k;
+                           div = vol·Σ_a (ut_a − ut_a[I − e_a]) / dx_a
+    pressure_correct_3d    u = ut − ∇q   (forward differences)
+
+Each wrapper runs its hand-written CUDA kernel (`csrc/perop.cu`) for
+float32 CUDA tensors and raises on anything else on the card; for CPU
+tensors it runs its plain PyTorch version, beside it here.  The
+differentiable wrappers around them are in `ops/diffkernels.py`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .diffkernels import convdiff_roll, roll_m, roll_p
+from .launches import LAUNCHES, check_cuda_tensors, current_stream, note_plain
+
+__all__ = [
+    "convdiff_interior_3d",
+    "convdiff_interior_3d_plain",
+    "stage_div_3d",
+    "stage_div_3d_plain",
+    "pressure_correct_3d",
+    "pressure_correct_3d_plain",
+]
+
+_F32 = (torch.float32,)
+
+
+def _box(name, u):
+    if u.dim() != 4 or u.shape[0] != 3:
+        raise ValueError(f"{name}: expected a (3, nx, ny, nz) field, got {tuple(u.shape)}")
+    return tuple(u.shape[1:])
+
+
+def convdiff_interior_3d_plain(u_int, visc, dx):
+    """Plain PyTorch version of `convdiff_interior_3d`."""
+    note_plain("convdiff_interior_3d", u_int)
+    _box("convdiff_interior_3d", u_int)
+    return convdiff_roll(u_int, visc, dx)
+
+
+def stage_div_3d_plain(base_int, k_int, coeff, dxs):
+    """Plain PyTorch version of `stage_div_3d`."""
+    note_plain("stage_div_3d", base_int)
+    _box("stage_div_3d", base_int)
+    ut = base_int + coeff * k_int
+    vol = float(np.prod(dxs))
+    div = sum((ut[a] - roll_m(ut[a], a)) / dxs[a] for a in range(3)) * vol
+    return ut, div
+
+
+def pressure_correct_3d_plain(ut_int, q_int, dxs):
+    """Plain PyTorch version of `pressure_correct_3d`."""
+    note_plain("pressure_correct_3d", ut_int)
+    _box("pressure_correct_3d", ut_int)
+    return ut_int - torch.stack([(roll_p(q_int, a) - q_int) / dxs[a] for a in range(3)])
+
+
+def convdiff_interior_3d(u_int, visc, dx):
+    """Convection + diffusion on the ghost-free periodic interior field
+    ``(3, nx, ny, nz)``; returns F of the same shape."""
+    if u_int.device.type == "cpu":
+        return convdiff_interior_3d_plain(u_int, visc, dx)
+    box = _box("convdiff_interior_3d", u_int)
+    device = check_cuda_tensors("convdiff_interior_3d", _F32, u=(u_int, (3, *box)))
+    with torch.cuda.device(device):
+        f = torch.empty_like(u_int)
+        err = _build.load().ins_convdiff_f32(
+            u_int.data_ptr(), f.data_ptr(), *box, float(visc),
+            float(dx[0]), float(dx[1]), float(dx[2]), current_stream(device),
+        )
+        _build.check(err, "convdiff_interior_3d")
+        LAUNCHES["convdiff_interior_3d"] += 1
+    return f
+
+
+def stage_div_3d(base_int, k_int, coeff, dxs):
+    """RK stage update and volume-scaled divergence in one pass:
+    ``ut = base + coeff·k``, ``div = vol·div(ut)``.  ``coeff`` is a
+    number (a tensor is read back to the host once)."""
+    if base_int.device.type == "cpu":
+        return stage_div_3d_plain(base_int, k_int, coeff, dxs)
+    box = _box("stage_div_3d", base_int)
+    device = check_cuda_tensors(
+        "stage_div_3d", _F32, base=(base_int, (3, *box)), k=(k_int, (3, *box))
+    )
+    with torch.cuda.device(device):
+        ut = torch.empty_like(base_int)
+        div = torch.empty(box, dtype=base_int.dtype, device=device)
+        err = _build.load().ins_stage_div_f32(
+            base_int.data_ptr(), k_int.data_ptr(), float(coeff), ut.data_ptr(),
+            div.data_ptr(), *box, float(dxs[0]), float(dxs[1]), float(dxs[2]),
+            float(np.prod(dxs)), current_stream(device),
+        )
+        _build.check(err, "stage_div_3d")
+        LAUNCHES["stage_div_3d"] += 1
+    return ut, div
+
+
+def pressure_correct_3d(ut_int, q_int, dxs):
+    """Pressure correction ``u = ut − ∇q`` on the interior layout, q
+    physical."""
+    if ut_int.device.type == "cpu":
+        return pressure_correct_3d_plain(ut_int, q_int, dxs)
+    box = _box("pressure_correct_3d", ut_int)
+    device = check_cuda_tensors(
+        "pressure_correct_3d", _F32, ut=(ut_int, (3, *box)), q=(q_int, box)
+    )
+    with torch.cuda.device(device):
+        u = torch.empty_like(ut_int)
+        err = _build.load().ins_pressure_correct_f32(
+            ut_int.data_ptr(), q_int.data_ptr(), u.data_ptr(), *box,
+            float(dxs[0]), float(dxs[1]), float(dxs[2]), current_stream(device),
+        )
+        _build.check(err, "pressure_correct_3d")
+        LAUNCHES["pressure_correct_3d"] += 1
+    return u

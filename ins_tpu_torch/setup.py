@@ -1,9 +1,12 @@
 """Problem setup.
 
 Port of `ins_tpu/setup.py` for the configurations the port runs: a grid,
-boundary conditions, a Reynolds number, a working dtype and the device
-every tensor of the run is made on.  Temperature, closures and body
-forces wait for ROADMAP queue 1 item 6 and raise until then.
+boundary conditions, a Reynolds number, a closure model, a working dtype
+and the device every tensor of the run is made on.  A closure model is a
+callable ``closure(u, theta)`` on the ghosted ``(D, *N)`` velocity (for
+example `models.wrappedclosure` around a CNN); the natural-form
+Smagorinsky closure, temperature and body forces wait for ROADMAP queue
+1 item 6 and raise until then.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ class SetupData:
     boundary_conditions: tuple
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
+    closure_model: object = None
 
     @property
     def dim(self):
@@ -48,11 +52,13 @@ def Setup(
         raise NotImplementedError(
             "temperature is not ported yet (ROADMAP queue 1 item 6)"
         )
-    if closure_model is not None:
+    if getattr(closure_model, "kind", None) == "smagorinsky_natural":
         raise NotImplementedError(
-            "closure models are not ported yet (ROADMAP queue 1 item 6: "
-            "fused Smagorinsky)"
+            "the natural-form Smagorinsky closure is not ported yet "
+            "(ROADMAP queue 1 item 6: fused Smagorinsky)"
         )
+    if closure_model is not None and not callable(closure_model):
+        raise TypeError("closure_model must be a callable closure(u, theta)")
     if bodyforce is not None:
         raise NotImplementedError(
             "body forces are not ported yet (ROADMAP queue 1 item 6)"
@@ -72,4 +78,5 @@ def Setup(
         boundary_conditions=boundary_conditions,
         dtype=dtype,
         device=torch.device(device),
+        closure_model=closure_model,
     )

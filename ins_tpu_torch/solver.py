@@ -5,7 +5,10 @@ chunks of steps; processors (observability) run between chunks at their
 `nupdate` decimation, and a NaN guard checks each chunk's result.  Where
 the fused hat chain applies (3-D periodic cube, classic-row RK tableau)
 a chunk carries `HatState(ut, qhat)` and materialises u only at its end;
-otherwise it steps the roll twin.  The step is an eager Python loop of
+with a closure model it steps the per-op chain (``theta`` goes to the
+closure), otherwise the roll twin.  The run is not differentiated (it
+runs under `torch.no_grad`; training unrolls go through
+`models.training`).  The step is an eager Python loop of
 kernel launches; dt and the tableau coefficients reach the kernels as
 Python floats, so a chunk syncs with the device only in the NaN guard
 and the processors.
@@ -67,6 +70,7 @@ def solve_unsteady(
     psolver=None,
     dt=None,
     processors=None,
+    theta=None,
     max_chunk=256,
     nan_guard=True,
     projection_precision=None,
@@ -75,8 +79,9 @@ def solve_unsteady(
     so that `(tend - tstart)/dt` is an integer.  `ustart` is a ghosted
     velocity field on `setup.device`; `processors` is a dict
     name -> Processor.  Returns `(state, outputs)` with the state in the
-    public ghosted layout.  `projection_precision` ("manualhigh" or
-    "highest") is accepted for parity; both run at FP32 here."""
+    public ghosted layout.  `theta` holds the closure model's parameters.
+    `projection_precision` ("manualhigh" or "highest") is accepted for
+    parity; both run at FP32 here."""
     if dt is None:
         raise NotImplementedError(
             "adaptive (CFL) time stepping is not ported yet (ROADMAP queue 1 item 6)"
@@ -112,7 +117,7 @@ def solve_unsteady(
                 h = step_hat(h, dt)
             return from_hat(h)
         for _ in range(nsteps):
-            s = step(s, dt)
+            s = step(s, dt, theta)
         return s
 
     tstart, tend = tlims
@@ -141,7 +146,8 @@ def solve_unsteady(
 
     last_good = state
     for c in _chunk_sizes(nstep, chunk):
-        state = run_chunk(state, c)
+        with torch.no_grad():
+            state = run_chunk(state, c)
         if nan_guard:
             if not finite(state):
                 st = get_state(reghost_state(last_good))

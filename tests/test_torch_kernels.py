@@ -234,7 +234,7 @@ def test_kernel_sources_carry_their_notes():
     it on the card; the build hashes every source."""
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {
-        "transforms.cu", "stage.cu", "poisson.cu", "correct.cu"
+        "transforms.cu", "stage.cu", "poisson.cu", "correct.cu", "perop.cu", "conv.cu"
     }
     for p in srcs:
         text = p.read_text()

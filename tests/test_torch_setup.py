@@ -87,8 +87,15 @@ def test_setup_matches_jax_and_keeps_its_device():
     assert u.device == st.device and u.dtype == torch.float32
 
 
+def _smagorinsky_closure(u, theta):  # tagged like ins_tpu's natural-form closure
+    return u
+
+
+_smagorinsky_closure.kind = "smagorinsky_natural"
+
+
 @pytest.mark.parametrize(
-    "kw", [dict(temperature=object()), dict(closure_model=object()),
+    "kw", [dict(temperature=object()), dict(closure_model=_smagorinsky_closure),
            dict(bodyforce=lambda *a: 0.0)],
     ids=["temperature", "closure", "bodyforce"],
 )
