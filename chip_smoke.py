@@ -45,7 +45,27 @@ Phases, each raising on failure (exit code != 0, no result line):
    Adam `train` iterations (finite losses) and a 10-step
    `solve_unsteady` with the closure attached (finite, divergence-free
    under phase 2's bounds).
-4. Print the kernel table (JSON) and, last, the result line
+4. The wall-bounded channel: both channel kernels against their plain
+   versions at a ragged (40, 26, 20) box and at 256×128×128, in every
+   `channel_msd_3d` mode the per-stage step and the hat chain use (with
+   and without the force) and the correction, each timed against its
+   plain version beside its byte bound.  Then `bench.py`'s `make_channel`
+   case through the port's entry points: 256×128×128, x in [0, 4π],
+   y in [0, 2π], z = `tanh_grid(0, 2, 128, 1.2)`, no-slip z walls,
+   Re = 1e3, steady body force (1, 0, 0), f32, RK44, dt = 1e-3,
+   `default_psolver` (the FDM solve), u0 = `velocityfield` of the
+   parabola plus a 0.02 sin-sin-sin perturbation; `solve_unsteady` for 20
+   steps in chunks of 10 with a timelogger.  Checks: finite; both kernels
+   launched (`channel_msd_3d` 4 per step, the correction at each chunk
+   end) and no plain version on the card; w exactly 0 on both walls;
+   max|div u| <= 1e-4·max|u|/min Δz; the plain chain on the card agrees
+   to <= 1e-4 relative.  Then ms/step of both chains in turns, the FDM
+   solve's time alone and peak memory.
+5. Print the kernel table (JSON: per kernel its launches on the main
+   path, error, ms, plain ms, the bound — the larger of the bytes it
+   moves at 3.35 TB/s and the operations it does at the dense peak of
+   their type — and the time of one PyTorch library call computing the
+   same function where there is one) and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -58,12 +78,26 @@ import os
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 
 REL_TOL = 1e-4
 SEED = 20261016
 DEVICE = "cuda"
+# the card's published peaks (H100 SXM data sheet, dense): device-memory
+# bytes/s and operations/s by operand type
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
+# operations per cell of the stencil kernels, counted from their arithmetic
+# (each add, multiply and divide one): the conv-diff of three components,
+# the stage kernels' conv-diff at I and I - e_a plus the tableau and the
+# divergence, the channel stage's stretched conv-diff plus rebuild,
+# tableau and divergence, and the elementwise passes
+OPS_PER_CELL = {
+    "convdiff": 168, "stage": 373, "stage_norebuild": 364, "stage_div": 22,
+    "correct": 9, "eigen_scale": 15, "channel_msd": 215,
+}
 # phase 3 bounds (float32 convs: summation order only; bf16 convs: one
 # bf16 ulp where a stored activation rounds the other way)
 LOSS_TOL_F32 = 1e-5
@@ -106,9 +140,38 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def card_line():
+class Case(NamedTuple):
+    """One check of a kernel against its plain version.  ``ref``, where
+    given, is what the error is measured against (``pfn`` is timed);
+    ``inputs`` are the tensors the function reads and ``ops`` the
+    operations it does (of type ``peak``), for its bound; ``library`` is
+    one PyTorch call computing the same function, timed as a yardstick."""
+
+    label: str
+    kfn: Any
+    pfn: Any
+    ref: Any = None
+    inputs: tuple = ()
+    ops: float = 0.0
+    peak: str = "fp32"
+    library: Any = None
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(case, out_bytes):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each input read once and each output written once."""
+    t_bytes = (nbytes(case.inputs) + out_bytes) / PEAK_BYTES * 1e3
+    t_ops = case.ops / PEAK_OPS[case.peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -155,41 +218,54 @@ def kernel_cases(n):
 
     recon = dict(emit_k=False, usnew_coeff=dt / 6, emit_u=True)
     based = dict(emit_k=False, usnew_coeff=dt / 3, usnew_base=accb)
+    cells, gemm = n**3, 2.0 * n**4  # one plane-transform GEMM pass: 2 n^4
+    mats = (Vinv, VinvT, proj["V"], proj["VT"])
     return {
         "pcmsd_hat_3d": [
-            ("stream base + usnew_base",
-             pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), **based),
-             pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,), **based)),
-            ("RECON + emit_u + usnew",
-             pcmsd(sk.pcmsd_hat_3d, (sk.RECON,), (dt / 2,), **recon),
-             pcmsd(sk.pcmsd_hat_3d_plain, (sk.RECON,), (dt / 2,), **recon)),
+            Case("stream base + usnew_base",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), **based),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,), **based),
+                 inputs=(ut_prev, qhat, ustart, accb, *mats),
+                 ops=OPS_PER_CELL["stage"] * cells + 4 * gemm),
+            Case("RECON + emit_u + usnew",
+                 pcmsd(sk.pcmsd_hat_3d, (sk.RECON,), (dt / 2,), **recon),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (sk.RECON,), (dt / 2,), **recon)),
         ],
         "momentum_stage_divhat_3d": [
-            ("stage 0 (u base) + usnew",
-             msd(sk.momentum_stage_divhat_3d, (ut_prev,), (dt / 2,),
-                 emit_k=False, usnew_coeff=dt / 6),
-             msd(sk.momentum_stage_divhat_3d_plain, (ut_prev,), (dt / 2,),
-                 emit_k=False, usnew_coeff=dt / 6)),
-            ("k stream + emit_k",
-             msd(sk.momentum_stage_divhat_3d, (ustart, k1), (0.3 * dt, dt / 2)),
-             msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2))),
+            Case("stage 0 (u base) + usnew",
+                 msd(sk.momentum_stage_divhat_3d, (ut_prev,), (dt / 2,),
+                     emit_k=False, usnew_coeff=dt / 6),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ut_prev,), (dt / 2,),
+                     emit_k=False, usnew_coeff=dt / 6),
+                 inputs=(ut_prev, Vinv, VinvT),
+                 ops=OPS_PER_CELL["stage_norebuild"] * cells + 2 * gemm),
+            Case("k stream + emit_k",
+                 msd(sk.momentum_stage_divhat_3d, (ustart, k1), (0.3 * dt, dt / 2)),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2))),
         ],
         "passB": [
-            ("divhat -> qhat",
-             lambda: (passB(divhat, proj),), lambda: (passB_plain(divhat, proj),)),
+            Case("divhat -> qhat",
+                 lambda: (passB(divhat, proj),), lambda: (passB_plain(divhat, proj),),
+                 inputs=(divhat, proj["Vinv"], proj["V"]),
+                 ops=OPS_PER_CELL["eigen_scale"] * cells + 2 * gemm),
         ],
         "pressure_correct_qhat_3d": [
-            ("ut, qhat -> u",
-             lambda: (sk.pressure_correct_qhat_3d(ut_prev, qhat, dxs, proj["V"], proj["VT"]),),
-             lambda: (sk.pressure_correct_qhat_3d_plain(ut_prev, qhat, dxs, proj["V"], proj["VT"]),)),
+            Case("ut, qhat -> u",
+                 lambda: (sk.pressure_correct_qhat_3d(ut_prev, qhat, dxs, proj["V"], proj["VT"]),),
+                 lambda: (sk.pressure_correct_qhat_3d_plain(ut_prev, qhat, dxs, proj["V"],
+                                                            proj["VT"]),),
+                 inputs=(ut_prev, qhat, proj["V"], proj["VT"]),
+                 ops=OPS_PER_CELL["correct"] * cells + 2 * gemm),
         ],
         "plane_transform": [
-            ("Vinv_y . f . Vinv_z^T",
-             lambda: (yz_transform(divhat, Vinv, VinvT),),
-             lambda: (yz_transform_plain(divhat, Vinv, VinvT),)),
-            ("V_x . f",
-             lambda: (x_transform(proj["V"], divhat),),
-             lambda: (x_transform_plain(proj["V"], divhat),)),
+            Case("Vinv_y . f . Vinv_z^T",
+                 lambda: (yz_transform(divhat, Vinv, VinvT),),
+                 lambda: (yz_transform_plain(divhat, Vinv, VinvT),),
+                 inputs=(divhat, Vinv, VinvT), ops=2 * gemm,
+                 library=lambda: torch.einsum("yj,xjk,kl->xyl", Vinv, divhat, VinvT)),
+            Case("V_x . f",
+                 lambda: (x_transform(proj["V"], divhat),),
+                 lambda: (x_transform_plain(proj["V"], divhat),)),
         ],
     }
 
@@ -201,6 +277,7 @@ def training_kernel_cases(n):
     float32 output, see the module docstring).  A reference_fn, where
     given, is what the error is measured against; plain_fn is timed."""
     import torch
+    import torch.nn.functional as F
 
     from ins_tpu_torch.ops import conv_kernels as ck
     from ins_tpu_torch.ops import perop_kernels as pk
@@ -221,24 +298,28 @@ def training_kernel_cases(n):
     box = (n // 2, n - 24, n + 8)
     ub, kb, qb = field(3, *box), field(3, *box), field(*box, scale=1e-3)
     dxb = (1.0 / box[0], 1.0 / box[1], 1.0 / box[2])
+    cells = n**3
     cases = {
         "convdiff_interior_3d": [
-            ("u", lambda: (pk.convdiff_interior_3d(u, visc, dxs),),
-             lambda: (pk.convdiff_interior_3d_plain(u, visc, dxs),)),
-            (f"box {box}", lambda: (pk.convdiff_interior_3d(ub, visc, dxb),),
-             lambda: (pk.convdiff_interior_3d_plain(ub, visc, dxb),)),
+            Case("u", lambda: (pk.convdiff_interior_3d(u, visc, dxs),),
+                 lambda: (pk.convdiff_interior_3d_plain(u, visc, dxs),),
+                 inputs=(u,), ops=OPS_PER_CELL["convdiff"] * cells),
+            Case(f"box {box}", lambda: (pk.convdiff_interior_3d(ub, visc, dxb),),
+                 lambda: (pk.convdiff_interior_3d_plain(ub, visc, dxb),)),
         ],
         "stage_div_3d": [
-            ("base + dt/2 k", lambda: pk.stage_div_3d(u, k1, dt / 2, dxs),
-             lambda: pk.stage_div_3d_plain(u, k1, dt / 2, dxs)),
-            (f"box {box}", lambda: pk.stage_div_3d(ub, kb, dt, dxb),
-             lambda: pk.stage_div_3d_plain(ub, kb, dt, dxb)),
+            Case("base + dt/2 k", lambda: pk.stage_div_3d(u, k1, dt / 2, dxs),
+                 lambda: pk.stage_div_3d_plain(u, k1, dt / 2, dxs),
+                 inputs=(u, k1), ops=OPS_PER_CELL["stage_div"] * cells),
+            Case(f"box {box}", lambda: pk.stage_div_3d(ub, kb, dt, dxb),
+                 lambda: pk.stage_div_3d_plain(ub, kb, dt, dxb)),
         ],
         "pressure_correct_3d": [
-            ("ut, q", lambda: (pk.pressure_correct_3d(u, q, dxs),),
-             lambda: (pk.pressure_correct_3d_plain(u, q, dxs),)),
-            (f"box {box}", lambda: (pk.pressure_correct_3d(ub, qb, dxb),),
-             lambda: (pk.pressure_correct_3d_plain(ub, qb, dxb),)),
+            Case("ut, q", lambda: (pk.pressure_correct_3d(u, q, dxs),),
+                 lambda: (pk.pressure_correct_3d_plain(u, q, dxs),),
+                 inputs=(u, q), ops=OPS_PER_CELL["correct"] * cells),
+            Case(f"box {box}", lambda: (pk.pressure_correct_3d(ub, qb, dxb),),
+                 lambda: (pk.pressure_correct_3d_plain(ub, qb, dxb),)),
         ],
         "fusedconv_3d": [],
         "fusedconv_wgrad_3d": [],
@@ -247,11 +328,13 @@ def training_kernel_cases(n):
     layers = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        peak = "bf16" if dtype == torch.bfloat16 else "fp32"
         for cin, cout, act, has_bias in layers:
             h = field(n, n, n, cin).to(dtype)
             w = field(5, 5, 5, cin, cout, scale=(125 * cin) ** -0.5)
             b = field(cout, scale=0.1) if has_bias else None
             d = field(n, n, n, cout).to(dtype)
+            conv_ops = 2 * 125 * cin * cout * cells
 
             def fwd(impl, h=h, w=w, b=b, act=act):
                 return lambda: (impl(h, w, b, act, out_dtype=torch.float32),)
@@ -264,22 +347,34 @@ def training_kernel_cases(n):
                     return lambda: (impl(h.double(), d.double(), 5),)
                 return lambda: (impl(h, d, 5),)
 
+            # the library yardsticks: cuDNN on the circularly padded input in
+            # the operands' dtype (the pad made once, outside the timing)
+            hp = F.pad(h.permute(3, 0, 1, 2).unsqueeze(0), (2,) * 6, mode="circular")
+            wt = w.permute(4, 3, 0, 1, 2).to(dtype).contiguous()
+            bt = None if b is None else b.to(dtype)
+            dt_ = d.permute(3, 0, 1, 2).unsqueeze(0)
+
             cases["fusedconv_3d"] += [
-                (f"{cin}->{cout} {act}{'+bias' if has_bias else ''} {tag}",
-                 fwd(ck.fusedconv_3d), fwd(ck.fusedconv_3d_plain)),
+                Case(f"{cin}->{cout} {act}{'+bias' if has_bias else ''} {tag}",
+                     fwd(ck.fusedconv_3d), fwd(ck.fusedconv_3d_plain),
+                     inputs=(h, w, b), ops=conv_ops, peak=peak,
+                     library=lambda hp=hp, wt=wt, bt=bt: F.conv3d(hp, wt, bt)),
             ]
             if cin == 24:  # the input gradients the backward pass takes
                 cases["fusedconv_3d"] += [
-                    (f"dh {cout}->{cin} flipped taps {tag}",
-                     dh(ck.fusedconv_3d), dh(ck.fusedconv_3d_plain)),
+                    Case(f"dh {cout}->{cin} flipped taps {tag}",
+                         dh(ck.fusedconv_3d), dh(ck.fusedconv_3d_plain)),
                 ]
             # cuDNN's float32 weight gradient (the plain version's) is itself
             # ~7e-5 off the float64 sum at 128³, so the kernel is held
             # against the plain version evaluated in float64
             cases["fusedconv_wgrad_3d"] += [
-                (f"dw {cin}x{cout} {tag}", wgrad(ck.fusedconv_wgrad_3d),
-                 wgrad(ck.fusedconv_wgrad_3d_plain),
-                 wgrad(ck.fusedconv_wgrad_3d_plain, exact=True)),
+                Case(f"dw {cin}x{cout} {tag}", wgrad(ck.fusedconv_wgrad_3d),
+                     wgrad(ck.fusedconv_wgrad_3d_plain),
+                     ref=wgrad(ck.fusedconv_wgrad_3d_plain, exact=True),
+                     inputs=(h, d), ops=conv_ops, peak=peak,
+                     library=lambda hp=hp, dt_=dt_, cin=cin, cout=cout:
+                         torch.nn.grad.conv3d_weight(hp, (cout, cin, 5, 5, 5), dt_)),
             ]
     return cases
 
@@ -295,55 +390,70 @@ def conv_gflop(label, n):
 def phase_kernels(cases_fn, sizes, time_all=()):
     """Hold every case of `cases_fn(n)` against its plain version at each
     size; time the first case of each kernel (every case of the kernels
-    in `time_all`) at the largest size, kernel and plain in turns."""
+    in `time_all`) at the largest size, kernel and plain in turns, beside
+    its bound and its library yardstick where it has them."""
     import torch
 
     results = {}
     for n in sizes:
         for name, cases in cases_fn(n).items():
             r = results.setdefault(name, {"max_abs_err": 0.0})
-            for label, kfn, pfn, *reffn in cases:
-                got, ref = kfn(), (reffn[0] if reffn else pfn)()
+            out_bytes = {}
+            for c in cases:
+                got, ref = c.kfn(), (c.ref or c.pfn)()
                 torch.cuda.synchronize()
                 if len(got) != len(ref):
-                    fail(f"{name} [{label}]: {len(got)} outputs, plain gives {len(ref)}")
+                    fail(f"{name} [{c.label}]: {len(got)} outputs, plain gives {len(ref)}")
+                out_bytes[c.label] = nbytes(got)
                 errs = [rel_err(g.to(p.dtype), p) for g, p in zip(got, ref)]
                 r["max_abs_err"] = max(
                     r["max_abs_err"], *(abs_err(g.to(p.dtype), p) for g, p in zip(got, ref))
                 )
                 extra = ""
-                if reffn:
-                    plain = pfn()
+                if c.ref:
+                    plain = c.pfn()
                     extra = ("; the float32 plain version is off that reference by "
                              + ", ".join(f"{rel_err(q.to(p.dtype), p):.3e}"
                                          for q, p in zip(plain, ref))
                              + ", the kernel off it by "
                              + ", ".join(f"{rel_err(g, q):.3e}" for g, q in zip(got, plain)))
-                print(f"[kernels] n={n} {name} [{label}]: max rel err per output "
+                print(f"[kernels] n={n} {name} [{c.label}]: max rel err per output "
                       + ", ".join(f"{e:.3e}" for e in errs)
-                      + (" (against the plain version in float64)" if reffn else "") + extra)
+                      + (" (against the plain version in float64)" if c.ref else "") + extra)
                 if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
-                    fail(f"{name} [{label}] at n={n}: rel err {max(errs):.3e} > {REL_TOL}")
+                    fail(f"{name} [{c.label}] at n={n}: rel err {max(errs):.3e} > {REL_TOL}")
+                del got, ref
             if n != max(sizes):
                 continue
-            for i, (label, kfn, pfn, *_) in enumerate(cases):
+            for i, c in enumerate(cases):
                 if i and name not in time_all:
                     break
-                p1 = cuda_ms(pfn)
-                k1 = cuda_ms(kfn)
-                k2 = cuda_ms(kfn)
-                p2 = cuda_ms(pfn)
+                p1 = cuda_ms(c.pfn)
+                k1 = cuda_ms(c.kfn)
+                k2 = cuda_ms(c.kfn)
+                p2 = cuda_ms(c.pfn)
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                extra = ""
+                if c.inputs:
+                    bms, by = bound(c, out_bytes[c.label])
+                    lib = None
+                    if c.library is not None:
+                        lib = (cuda_ms(c.library) + cuda_ms(c.library)) / 2
+                    extra = (f"; bound {bms:.4f} ms ({by}, "
+                             f"{(nbytes(c.inputs) + out_bytes[c.label]) / 1e6:.1f} MB, "
+                             f"{c.ops / 1e9:.2f} GOP {c.peak}), library "
+                             + ("none" if lib is None else f"{lib:.4f} ms"))
+                    if i == 0:
+                        r.update(bound_ms=bms, bound_by=by, library_ms=lib)
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
-                rate = ""
                 if name.startswith("fusedconv"):
-                    gf = conv_gflop(label, n)
-                    rate = (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
-                            f"{gf / plain_ms:.2f} plain")
-                print(f"[kernels] n={n} {name} [{label}]: kernel {ms:.4f} ms "
+                    gf = conv_gflop(c.label, n)
+                    extra += (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
+                              f"{gf / plain_ms:.2f} plain")
+                print(f"[kernels] n={n} {name} [{c.label}]: kernel {ms:.4f} ms "
                       f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})"
-                      + rate)
+                      + extra)
         torch.cuda.empty_cache()
     return results
 
@@ -677,6 +787,271 @@ def phase_profile_training(n, nunroll):
     print(events.table(sort_by="self_cuda_time_total", row_limit=20))
 
 
+# --------------------------------------------------------------------------
+# phase 4: the wall-bounded channel
+# --------------------------------------------------------------------------
+
+CHANNEL_BOX = (256, 128, 128)
+
+
+def channel_setup(box):
+    """`bench.py`'s `make_channel` configuration on `box`, through the
+    port's `Setup`: x/y periodic, no-slip z walls on a tanh(1.2) grid,
+    Re = 1e3, steady body force (1, 0, 0), f32."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    nx, ny, nz = box
+    x = (np.linspace(0.0, 4 * np.pi, nx + 1), np.linspace(0.0, 2 * np.pi, ny + 1),
+         it.tanh_grid(0.0, 2.0, nz, 1.2))
+    wall = it.DirichletBC()
+    bc = ((it.PeriodicBC(), it.PeriodicBC()), (it.PeriodicBC(), it.PeriodicBC()), (wall, wall))
+    return it.Setup(
+        x=x, boundary_conditions=bc, Re=1e3, dtype=torch.float32, device=DEVICE,
+        bodyforce=lambda dim, xx, yy, zz, t: (1.0 if dim == 0 else 0.0) + 0.0 * xx,
+    )
+
+
+def channel_kernel_cases(box):
+    """{kernel name: [Case, ...]} of the two channel kernels on `box`: every
+    `channel_msd_3d` mode of the hat chain and of the per-stage step (the
+    first, which feeds the kernels line, is the hat chain's stages 1-2:
+    half of the main path's launches, and its heaviest in bytes), and the
+    correction; every case carries its bound."""
+    import torch
+
+    from ins_tpu_torch.ops import channel_kernels as ck
+    from ins_tpu_torch.ops.channelpath import make_channel_metrics
+
+    met = make_channel_metrics(channel_setup(box))
+    rng = np.random.default_rng(SEED + sum(box))
+    dev = torch.device(DEVICE)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        if len(shape) == 4:
+            a[2, ..., -1] = 0.0  # w's pinned wall slot
+        return torch.from_numpy(a).to(dev)
+
+    vec = (3, *box)
+    t, ustart, acc, force = (field(*vec) for _ in range(4))
+    q = field(*box, scale=1e-2)
+    cells = int(np.prod(box))
+
+    def msd(impl, us_, acc_, kw):
+        def run():
+            res = impl(t, us_, acc_, met, visc=1e-3, dt=1e-3, **kw)
+            return tuple(r for r in res if r is not None)
+
+        return run
+
+    def case(label, us_, acc_, **kw):
+        if kw.get("div_of_acc") and acc_ is not None:
+            reads_base = None  # the base is not read on the final stage
+        else:
+            reads_base = us_
+        reads = (t, kw.get("qrecon"), reads_base, acc_, kw.get("force"), met.zmet)
+        return Case(label, msd(ck.channel_msd_3d, us_, acc_, kw),
+                    msd(ck.channel_msd_3d_plain, us_, acc_, kw),
+                    inputs=reads, ops=OPS_PER_CELL["channel_msd"] * cells)
+
+    last = dict(ca=0.0, cb=1 / 6, div_of_acc=True)
+    return {
+        "channel_msd_3d": [
+            case("hat stages 1-2: recon, ustart, acc, force", ustart, acc, qrecon=q,
+                 force=force, ca=0.5, cb=1 / 3),
+            case("hat stage 0: recon, emit_urec, force", None, None, qrecon=q,
+                 emit_urec=True, force=force, ca=0.5, cb=1 / 6),
+            case("hat stage 3: recon, acc, div_of_acc, force", ustart, acc, qrecon=q,
+                 force=force, **last),
+            case("hat single stage: recon, div_of_acc", None, None, qrecon=q, ca=0.0,
+                 cb=1.0, div_of_acc=True),
+            case("per-stage 0: ustart, force", ustart, None, force=force, ca=0.5, cb=1 / 6),
+            case("per-stage 1-2: ustart, acc", ustart, acc, ca=0.5, cb=1 / 3),
+            case("per-stage 3: acc, div_of_acc", ustart, acc, **last),
+            case("cb = 0, force", ustart, None, force=force, ca=0.5, cb=0.0),
+        ],
+        "channel_pressure_correct_3d": [
+            Case("target, q -> u", lambda: (ck.channel_pressure_correct_3d(t, q, met),),
+                 lambda: (ck.channel_pressure_correct_3d_plain(t, q, met),),
+                 inputs=(t, q, met.zmet[3]), ops=OPS_PER_CELL["correct"] * cells),
+        ],
+    }
+
+
+def channel_u0(setup, psolver):
+    """u0 of `make_channel`: the parabola plus the 0.02 sin-sin-sin
+    perturbation, projected (`velocityfield`)."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    def ufunc(dim, xx, yy, zz):
+        base = 6.0 * zz * (2.0 - zz) / 4.0 if dim == 0 else 0.0 * zz
+        return base + 0.02 * torch.sin(2 * xx) * torch.sin(2 * yy) * torch.sin(np.pi * zz)
+
+    return it.velocityfield(setup, ufunc, psolver=psolver)
+
+
+def phase_channel(nsteps, chunk):
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.channelpath import (
+        channel_divergence_roll,
+        make_channel_metrics,
+        make_channel_timestep_hat,
+        strip_channel,
+    )
+    from ins_tpu_torch.ops.fdm import fdm_solve_box, fdm_transform_roundoff, om_box
+
+    setup = channel_setup(CHANNEL_BOX)
+    psolver = it.default_psolver(setup)
+    if not getattr(psolver, "is_fdm", False):
+        fail("default_psolver did not give the FDM solve on the channel")
+    u0 = channel_u0(setup, psolver)
+    roundoff = fdm_transform_roundoff(setup)
+    print(f"[channel] {CHANNEL_BOX} RK44 f32, Re=1e3, force (1, 0, 0), tanh(1.2) walls; "
+          f"FDM transform roundoff {roundoff:.3e} -> nrefine {1 if roundoff > 1e-4 else 0}")
+    dt = 1e-3
+    method = it.RKMethods.RK44()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, _ = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
+        psolver=psolver, processors={"log": it.timelogger(nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[channel] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s "
+          f"wall (first call included); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; plain calls on CUDA "
+          f"{ {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the channel ran {state.n} steps, expected {nsteps}")
+    expect = {"channel_msd_3d": 4 * nsteps, "channel_pressure_correct_3d": nsteps // chunk}
+    if {k: v for k, v in counts.items() if v} != expect:
+        fail(f"channel launches {counts}, expected {expect}")
+    if any(plain.values()):
+        fail(f"plain versions ran on CUDA tensors in the channel run: {plain}")
+    u = state.u
+    if not bool(torch.isfinite(u).all()):
+        fail("non-finite velocity after the channel run")
+    w_walls = u[2][..., [0, -2, -1]]
+    print(f"[channel] w on the walls (bottom face, top face, top ghost): max "
+          f"{w_walls.abs().max().item():.3e}")
+    if bool(w_walls.any()):
+        fail("w is not exactly 0 on the walls")
+
+    met = make_channel_metrics(setup)
+    ui = strip_channel(u)
+    div = channel_divergence_roll(ui, met)
+    dz_min = float(np.min(np.diff(np.asarray(setup.grid.x[2][1:-1], np.float64))))
+    umax, divmax = ui.abs().max().item(), div.abs().max().item()
+    print(f"[channel] max|div u| = {divmax:.3e}, bound 1e-4*max|u|/min dz = "
+          f"{1e-4 * umax / dz_min:.3e} (max|u| {umax:.4f}, min dz {dz_min:.4e}); "
+          f"kinetic energy {it.total_kinetic_energy(u0, setup).item():.9e} -> "
+          f"{it.total_kinetic_energy(u, setup).item():.9e}")
+    if not divmax <= 1e-4 * umax / dz_min:
+        fail("the channel result is not divergence-free")
+
+    # the same run through the plain chain on the card
+    hp = make_channel_timestep_hat(setup, method, plain=True)
+    s0 = it.create_stepper(method, setup=setup, u=strip_channel(u0))
+    s, left = s0, nsteps
+    while left:
+        c = min(chunk, left)
+        h = hp[0](s)
+        for _ in range(c):
+            h = hp[1](h, dt)
+        s = hp[2](h)
+        left -= c
+    agree = rel_err(ui, s.u)
+    print(f"[channel] kernel chain vs plain chain after {nsteps} steps: max rel diff "
+          f"{agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"channel kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
+
+    # ms/step of the hat chain, kernels and plain, after a warm-up
+    hk = make_channel_timestep_hat(setup, method)
+
+    def ms_per_step(fns, steps=20):
+        to_h, step_h, _ = fns
+        h = step_h(step_h(to_h(s0), dt), dt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        times[which].append(ms_per_step(hk if which == "kernels" else hp))
+    ms_k, ms_p = sum(times["kernels"]) / 2, sum(times["plain"]) / 2
+    cells = int(np.prod(CHANNEL_BOX))
+    # the projection's FDM solve alone: 6 contractions of 2 n_d N operations
+    solve = fdm_solve_box(setup)
+    f = om_box(setup) * div
+    solve_ms = (cuda_ms(lambda: solve(f)) + cuda_ms(lambda: solve(f))) / 2
+    gop = 2 * 2 * cells * sum(CHANNEL_BOX) / 1e9
+    print(f"[channel] hat chain {CHANNEL_BOX} RK44 f32: kernels {ms_k:.3f} ms/step "
+          f"({times['kernels'][0]:.3f}, {times['kernels'][1]:.3f}; "
+          f"{cells / (ms_k * 1e-3):.4e} cell-updates/s), plain {ms_p:.3f} ms/step "
+          f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}); FDM solve {solve_ms:.4f} ms "
+          f"per projection ({gop:.2f} GOP: {gop / solve_ms:.2f} TFLOP/s FP32, 4 per step); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card after "
+          f"the timing (SM clock, power draw, temperature): "
+          f"{card_line('clocks.sm,power.draw,temperature.gpu')}")
+    return counts, setup, u0, dt
+
+
+def phase_profile_channel(setup, u0, dt):
+    """Kernel / FDM-GEMM / glue split of 3 channel hat steps (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.channelpath import make_channel_timestep_hat, strip_channel
+
+    method = it.RKMethods.RK44()
+    to_h, step_h, _ = make_channel_timestep_hat(setup, method)
+    h = step_h(to_h(it.create_stepper(method, setup=setup, u=strip_channel(u0))), dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        h = step_h(h, dt)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3  # unprofiled
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            h = step_h(h, dt)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    split = {"kernels": 0.0, "FDM GEMM": 0.0, "glue": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("kernels" if "channel_" in e.key else
+               "FDM GEMM" if "gemm" in e.key.lower() else "glue")
+        split[key] += e.self_device_time_total / 1e3 / 3
+    dev = sum(split.values())
+    if dev <= 0.0:
+        print("[profile] the trace holds no device time; no split")
+        return
+    print(f"[profile] channel step: {wall:.3f} ms wall (unprofiled), {dev:.3f} ms of "
+          f"device time: " + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
+          + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+
+
 HAT_KERNELS = (
     "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB",
     "pressure_correct_qhat_3d",
@@ -685,6 +1060,7 @@ TRAINING_KERNELS = (
     "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
     "fusedconv_3d", "fusedconv_wgrad_3d",
 )
+CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -698,13 +1074,17 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pressure_correct_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:3546"),
     "fusedconv_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:780"),
     "fusedconv_wgrad_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:918"),
+    "channel_msd_3d": ("ins_tpu_torch/csrc/channel.cu", "ins_tpu/ops/channel_kernels.py:333"),
+    "channel_pressure_correct_3d": ("ins_tpu_torch/csrc/channel.cu",
+                                    "ins_tpu/ops/channel_kernels.py:503"),
 }
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="print torch.profiler kernel breakdowns of 3 hat steps "
-                         "and of one gradient step")
+                    help="print torch.profiler kernel breakdowns of 3 hat steps, "
+                         "of one gradient step and of 3 channel steps")
     args = ap.parse_args()
 
     import torch
@@ -736,8 +1116,15 @@ def main():
     train_counts = phase_training(128, nunroll=5)
     if args.profile:
         phase_profile_training(128, nunroll=5)
+    torch.cuda.empty_cache()
+    results.update(phase_kernels(channel_kernel_cases, ((40, 26, 20), CHANNEL_BOX),
+                                 time_all=CHANNEL_KERNELS))
+    channel_counts, setup, u0, dt = phase_channel(nsteps=20, chunk=10)
+    if args.profile:
+        phase_profile_channel(setup, u0, dt)
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS},
-              **{k: train_counts[k] for k in TRAINING_KERNELS}}
+              **{k: train_counts[k] for k in TRAINING_KERNELS},
+              **{k: channel_counts[k] for k in CHANNEL_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():
@@ -745,7 +1132,8 @@ def main():
         table["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(card)
     print(json.dumps(table))

@@ -1,14 +1,16 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs two of its
-paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
-(explicit RK, spectral projection, optionally with a closure model) and
+The JAX package `ins_tpu` is the reference; this package runs three of
+its paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
+(explicit RK, spectral projection, optionally with a closure model),
 a-posteriori training of a CNN closure through the unrolled solver
-(`ins_tpu_torch.models`) — with the TPU kernels of those paths rewritten
-as hand-written CUDA for `sm_90a` (`csrc/`, built at first use by
-`_build.py`).  Every tensor of a run lives on `Setup(device=...)`; on the
-CPU each kernel wrapper runs its plain PyTorch version.  It imports torch
-and never jax.
+(`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
+periodic, stretched no-slip z walls, steady body force, FDM projection)
+— with the TPU kernels of those paths rewritten as hand-written CUDA for
+`sm_90a` (`csrc/`, built at first use by `_build.py`).  Every tensor of
+a run lives on `Setup(device=...)`, the card by default; with
+``device="cpu"`` each kernel wrapper runs its plain PyTorch version.  It
+imports torch and never jax.
 """
 
 from . import processors  # noqa: F401

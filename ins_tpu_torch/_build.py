@@ -86,6 +86,14 @@ _SIGNATURES = {
         [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr],
         _c_int,
     ),
+    "ins_channel_msd_f32": (
+        [_c_ptr] * 10 + [_c_int] * 3 + [_c_f32] * 9 + [_c_int] * 2 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_channel_correct_f32": (
+        [_c_ptr] * 4 + [_c_int] * 3 + [_c_f32] * 2 + [_c_ptr],
+        _c_int,
+    ),
     "ins_error_string": ([_c_int], ctypes.c_char_p),
 }
 

@@ -3,7 +3,9 @@
 Port of the type half of `ins_tpu/boundary_conditions.py` (the four BC
 families and the ghost-coordinate / DOF-offset rules `grid.py` needs).
 The ghost-cell fills wait for the general ghosted path (ROADMAP queue 1
-item 7): the port's fast path carries periodic fields without ghosts.
+item 7): the port's fast paths carry fields without ghosts, and the
+channel path fills its static wall ghosts itself
+(`ops/channelpath.reghost_channel`, from `_const_wall_values`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,18 @@ class SymmetricBC:
 @dataclasses.dataclass(frozen=True)
 class PressureBC:
     """Pressure (outflow) BC: p = 0 on the boundary, zero-Neumann velocity."""
+
+
+def _const_wall_values(bc, D):
+    """Per-component wall velocity of a static DirichletBC, or None
+    (`ins_tpu/ops/channelpath.py` `_const_wall_values`)."""
+    if not isinstance(bc, DirichletBC):
+        return None
+    if bc.u is None:
+        return (0.0,) * D
+    if isinstance(bc.u, tuple) and all(isinstance(v, (int, float)) for v in bc.u):
+        return tuple(float(v) for v in bc.u)
+    return None  # time/space-dependent walls stay on the ghosted path
 
 
 def padghost(bc, x: np.ndarray, isright: bool) -> np.ndarray:

@@ -1,16 +1,20 @@
 """Carry solver state between the JAX package and the port.
 
 Both sides use the same layouts (component-first velocity, eigen-basis
-``qhat``), so a state crosses as numpy arrays: `state_from_numpy` takes
-anything with the fields of `ins_tpu`'s `StepperState` (u, temp, t, n)
-or `HatState` (ut, qhat, temp, t, n) — JAX arrays convert through
-``numpy.asarray`` — and returns the port's; `state_to_numpy` returns the
-field dict from which the caller rebuilds the JAX NamedTuple
-(``ins_tpu.time_steppers.step.StepperState(**d)``).  This module never
-imports JAX.  `check_setup_constants` holds the port's fused-projection
-constants (the V/Vinv eigen-matrices and the grid spacings) equal to the
-JAX package's.  `cnn_params_from_numpy` / `cnn_params_to_numpy` carry a
-CNN closure's parameters (flax's ``params`` dict, e.g. the ``theta`` of
+``qhat``, the interior channel layout), so a state crosses as numpy
+arrays: `state_from_numpy` takes anything with the fields of `ins_tpu`'s
+`StepperState` (u, temp, t, n), `HatState` (ut, qhat, temp, t, n) or the
+channel path's `ChannelHat` (state, q) — JAX arrays convert through
+``numpy.asarray`` — and returns the port's on `device` (the card by
+default); `state_to_numpy` returns the field dict from which the caller
+rebuilds the JAX NamedTuple (``ins_tpu.time_steppers.step.StepperState(**d)``;
+for a `ChannelHat`, ``ChannelHat(state=StepperState(**d["state"]),
+q=d["q"])``).  This module never imports JAX.  `check_setup_constants`
+holds the port's setup-time constants — the fused projection's
+eigen-matrices and grid spacings, the channel's z-metric vectors and the
+steady body force — equal to the JAX package's.
+`cnn_params_from_numpy` / `cnn_params_to_numpy` carry a CNN closure's
+parameters (flax's ``params`` dict, e.g. the ``theta`` of
 `ins_tpu.models.cnn`) to the port's ``theta`` and back; both use
 canonical ``(k, k, k, cin, cout)`` kernels, so the two packages then
 compute the same closure.
@@ -21,9 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.channel_kernels import _ZVECS
+from .ops.channelpath import ChannelHat, make_channel_metrics
 from .ops.fastpath import HatState
 from .ops.poisson_kernels import make_fused_projection
 from .ops.pressure import uniform_dxs
+from .setup import resolve_device
 from .time_steppers.step import StepperState
 
 __all__ = [
@@ -34,6 +41,10 @@ __all__ = [
     "cnn_params_to_numpy",
 ]
 
+# the channel metric vectors `check_setup_constants` compares
+_CHANNEL_VECS = (*_ZVECS, "om_z")
+_KNOWN_CONSTS = ("dxs", "V", "Vinv", "VT", "VinvT", *_CHANNEL_VECS, "bodyforce_field")
+
 
 def _tensor(a, dtype, device):
     if a is None:
@@ -41,10 +52,16 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def state_from_numpy(state, *, dtype=torch.float32, device="cpu"):
-    """A JAX `StepperState`/`HatState` (or any object with its fields)
-    as the port's state on `device`."""
+def state_from_numpy(state, *, dtype=torch.float32, device="cuda"):
+    """A JAX `StepperState`/`HatState`/`ChannelHat` (or any object with its
+    fields) as the port's state on `device`."""
+    device = resolve_device(device)
     fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    if "q" in fields:
+        return ChannelHat(
+            state=state_from_numpy(fields["state"], dtype=dtype, device=device),
+            q=_tensor(fields["q"], dtype, device),
+        )
     t = float(np.asarray(fields["t"]))
     n = int(np.asarray(fields["n"]))
     if "qhat" in fields:
@@ -58,51 +75,78 @@ def state_from_numpy(state, *, dtype=torch.float32, device="cpu"):
     return StepperState(u=_tensor(fields["u"], dtype, device), temp=None, t=t, n=n)
 
 
+def _arr(x):
+    return None if x is None else x.detach().cpu().numpy()
+
+
 def state_to_numpy(state):
     """The port's state as a dict of numpy fields named as in the JAX
     NamedTuple.  A `HatState` whose ``qhat`` is None (u materialised)
     gets ``qhat = 0``, the JAX package's identity carry."""
-    def arr(x):
-        return None if x is None else x.detach().cpu().numpy()
-
+    if isinstance(state, ChannelHat):
+        return dict(state=state_to_numpy(state.state), q=_arr(state.q))
     if isinstance(state, HatState):
-        ut = arr(state.ut)
-        qhat = arr(state.qhat)
+        ut = _arr(state.ut)
+        qhat = _arr(state.qhat)
         if qhat is None:
             qhat = np.zeros(ut.shape[1:], ut.dtype)
         return dict(ut=ut, qhat=qhat, temp=None, t=state.t, n=state.n)
-    return dict(u=arr(state.u), temp=None, t=state.t, n=state.n)
+    return dict(u=_arr(state.u), temp=None, t=state.t, n=state.n)
+
+
+def _rel_diff(name, mine, theirs):
+    theirs = np.asarray(theirs, dtype=np.float64)
+    mine = np.asarray(mine, dtype=np.float64)
+    if mine.shape != theirs.shape:
+        raise ValueError(f"{name}: shape {mine.shape} != {theirs.shape}")
+    scale = max(float(np.max(np.abs(theirs))), 1e-300)
+    return float(np.max(np.abs(mine - theirs))) / scale
 
 
 def check_setup_constants(setup, jax_consts, *, rtol=None):
-    """Compare the port's projection constants for `setup` with the JAX
-    package's: ``jax_consts`` maps "V", "Vinv", "VT", "VinvT" (numpy,
-    e.g. from `ins_tpu.ops.poisson_pallas.make_fused_projection`) and
-    "dxs" (sequence), built in the setup's dtype.  Returns the largest
+    """Compare the port's setup-time constants with the JAX package's,
+    built in the setup's dtype.  ``jax_consts`` maps any of: "V", "Vinv",
+    "VT", "VinvT" (numpy, e.g. from
+    `ins_tpu.ops.poisson_pallas.make_fused_projection`) and "dxs"
+    (sequence) for a periodic setup; the channel metric vectors by name
+    (`ins_tpu.ops.channelpath.make_channel_metrics`) for a channel setup;
+    "bodyforce_field" (`ins_tpu` setup's field).  Returns the largest
     relative difference; raises ValueError above ``rtol`` (default 1e-12
-    in float64, 1e-6 in float32)."""
+    in float64, 1e-6 in float32), and on a key it does not know or a
+    mapping with no key at all."""
+    unknown = sorted(set(jax_consts) - set(_KNOWN_CONSTS))
+    if unknown or not jax_consts:
+        raise ValueError(f"unknown setup constants {unknown}; known: {_KNOWN_CONSTS}")
     if rtol is None:
         rtol = 1e-12 if setup.dtype == torch.float64 else 1e-6
-    dxs = uniform_dxs(setup)
-    proj = make_fused_projection(setup.grid.Np, dxs, setup.dtype)
-    worst = float(np.max(np.abs(np.asarray(dxs) - np.asarray(jax_consts["dxs"], float))
-                         / np.abs(np.asarray(dxs))))
-    for key in ("V", "Vinv", "VT", "VinvT"):
-        mine = proj[key].double().numpy()
-        theirs = np.asarray(jax_consts[key], dtype=np.float64)
-        if mine.shape != theirs.shape:
-            raise ValueError(f"{key}: shape {mine.shape} != {theirs.shape}")
-        scale = max(float(np.max(np.abs(theirs))), 1e-300)
-        worst = max(worst, float(np.max(np.abs(mine - theirs))) / scale)
+    worst = 0.0
+    if "dxs" in jax_consts:
+        dxs = uniform_dxs(setup)
+        theirs = np.asarray(jax_consts["dxs"], float)
+        worst = max(worst, float(np.max(np.abs(np.asarray(dxs) - theirs) / np.abs(np.asarray(dxs)))))
+    keys = [k for k in ("V", "Vinv", "VT", "VinvT") if k in jax_consts]
+    if keys:
+        proj = make_fused_projection(setup.grid.Np, uniform_dxs(setup), setup.dtype, device="cpu")
+        for key in keys:
+            worst = max(worst, _rel_diff(key, proj[key].double().numpy(), jax_consts[key]))
+    vecs = [k for k in _CHANNEL_VECS if k in jax_consts]
+    if vecs:
+        met = make_channel_metrics(setup)
+        for key in vecs:
+            worst = max(worst, _rel_diff(key, _arr(getattr(met, key)), jax_consts[key]))
+    if "bodyforce_field" in jax_consts:
+        worst = max(worst, _rel_diff("bodyforce_field", _arr(setup.bodyforce_field),
+                                     jax_consts["bodyforce_field"]))
     if worst > rtol:
-        raise ValueError(f"projection constants differ from the JAX package's by {worst:g}")
+        raise ValueError(f"setup constants differ from the JAX package's by {worst:g}")
     return worst
 
 
-def cnn_params_from_numpy(theta, *, device="cpu"):
+def cnn_params_from_numpy(theta, *, device="cuda"):
     """A flax CNN ``params`` mapping (``conv{i}_kernel``, ``conv{i}_bias``
     -> arrays) as the port's ``theta``: a dict of leaf tensors on
     `device`, in the arrays' dtypes, that require grad."""
+    device = resolve_device(device)
     return {
         name: torch.as_tensor(np.array(a), device=device).requires_grad_(True)
         for name, a in dict(theta).items()

@@ -1,4 +1,5 @@
 from .diffkernels import convdiff_roll  # noqa: F401
-from .initializers import create_spectrum, random_field  # noqa: F401
+from .fdm import psolver_fdm  # noqa: F401
+from .initializers import create_spectrum, random_field, velocityfield  # noqa: F401
 from .poisson_kernels import make_fused_projection  # noqa: F401
 from .pressure import default_psolver, psolver_spectral  # noqa: F401

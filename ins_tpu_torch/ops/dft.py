@@ -44,7 +44,7 @@ def fourier_eigenbasis(n, dx):
     return V, Vinv, np.asarray(lams)
 
 
-def make_poisson_mm(Np, dxs, dtype, device="cpu"):
+def make_poisson_mm(Np, dxs, dtype, device="cuda"):
     """Solve L p = f on a uniform periodic box by fast diagonalization in
     the real Fourier basis, as 2·D tensor contractions: L is the
     volume-scaled Laplacian (row: Σ_d (p[+d] − 2p + p[−d])·vol/dx_d²)

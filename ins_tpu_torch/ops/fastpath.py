@@ -28,8 +28,10 @@ Three chains:
   closure): the same stage loop with conv-diff as a roll graph and the
   projection as roll-graph divergence and gradient around the solve.
 
-LMWray3, temperature, Smagorinsky, body force and bf16 streams are
-ROADMAP queue 1 item 6.
+LMWray3, temperature, Smagorinsky and bf16 streams are ROADMAP queue 1
+item 6.  A setup with a body force raises here (the stage kernels' force
+stream is queue 2 item 5); the channel path (`ops/channelpath.py`)
+carries a steady force.
 """
 
 from __future__ import annotations
@@ -152,11 +154,16 @@ def _kernel_ops(plain):
     )
 
 
-def _check_method(method):
+def _check_method(setup, method):
     if not isinstance(method, ExplicitRungeKuttaMethod):
         raise NotImplementedError(
             f"{type(method).__name__} is not ported yet: the port's fast "
             "path steps explicit RK tableaus (LMWray3 is ROADMAP queue 1 item 6)"
+        )
+    if setup.bodyforce_field is not None:
+        raise NotImplementedError(
+            "the periodic fast path has no body-force stream yet (ROADMAP "
+            "queue 2 item 5); the channel path carries a steady force"
         )
 
 
@@ -232,7 +239,7 @@ def make_fast_timestep_hat(setup, method, *, projection_precision="manualhigh",
     """``(to_hat, step_hat, from_hat)`` of the step-boundary-merged chain,
     or None where it does not apply (then use `make_fast_timestep`).
     ``plain=True`` builds it from the kernels' plain versions."""
-    _check_method(method)
+    _check_method(setup, method)
     if not hat_chain_applicable(setup, method):
         return None
     return _make_hat_fns(setup, method, projection_precision, plain)
@@ -247,7 +254,7 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     materialised every step where it applies, else the roll twin.
     ``plain=True`` builds the per-op chain from the kernels' plain
     versions (the reference chain on the card)."""
-    _check_method(method)
+    _check_method(setup, method)
     per_op = setup.closure_model is not None or differentiable
     if not per_op and hat_chain_applicable(setup, method):
         to_hat, step_hat, from_hat = _make_hat_fns(

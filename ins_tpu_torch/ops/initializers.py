@@ -1,11 +1,14 @@
-"""Synthetic-turbulence initial fields on uniform periodic grids.
+"""Initial fields.
 
-Port of `create_spectrum` and `random_field` from
-`ins_tpu/ops/initializers.py`: the Orlandi-style energy spectrum peaked
-at `kp`, random phases and unit vectors, a spectral Leray projection,
-an inverse FFT and a final discrete projection.  Randomness comes from
-an explicit `torch.Generator`; a test passes the JAX package's uniform
-draws through `uniforms=` to compare the two field for field.
+Port of `velocityfield`, `create_spectrum` and `random_field` from
+`ins_tpu/ops/initializers.py`.  `velocityfield` evaluates a function at
+the staggered velocity points and projects it, on a uniform periodic
+grid or a channel.  `random_field` builds synthetic turbulence on a
+uniform periodic grid: the Orlandi-style energy spectrum peaked at `kp`,
+random phases and unit vectors, a spectral Leray projection, an inverse
+FFT and a final discrete projection.  Randomness comes from an explicit
+`torch.Generator`; a test passes the JAX package's uniform draws through
+`uniforms=` to compare the two field for field.
 """
 
 from __future__ import annotations
@@ -13,10 +16,55 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._stencil import seg
+from .channelpath import (
+    channel_correct_roll,
+    channel_divergence_roll,
+    channelpath_applicable,
+    make_channel_metrics,
+    reghost_channel,
+)
 from .fastpath import reghost
-from .pressure import project_periodic, psolver_spectral, uniform_dxs
+from .fdm import om_box
+from .pressure import default_psolver, project_periodic, psolver_spectral, uniform_dxs
 
-__all__ = ["create_spectrum", "random_field", "spectrum_draw_shapes"]
+__all__ = ["velocityfield", "create_spectrum", "random_field", "spectrum_draw_shapes"]
+
+
+def velocityfield(setup, ufunc, t=0.0, *, psolver=None, doproject=True):
+    """Velocity field from ``ufunc(alpha, *x)`` (a torch function; ``alpha``
+    a Python int, the coordinates broadcastable tensors) at the staggered
+    velocity points, projected onto its divergence-free part with the
+    path's own projection, in the public ghosted layout on
+    `setup.device`.  Uniform periodic grids and channels (static z walls;
+    w's top-wall slot stays 0); ``t`` is accepted for parity (static walls
+    do not depend on it)."""
+    g = setup.grid
+    D = g.dim
+    periodic = all(g.periodic) and all(g.uniform)
+    if not (periodic or channelpath_applicable(setup)):
+        raise NotImplementedError(
+            "velocityfield is ported for uniform periodic grids and channels; "
+            "other boundaries need the ghost fills (ROADMAP queue 1 item 7)"
+        )
+    dtype, device = setup.dtype, setup.device
+    u = torch.zeros((D, *(n - 2 for n in g.N)), dtype=dtype, device=device)
+    for a in range(D):
+        box = g.Iu[a]
+        coords = [seg(g.xu[a][b], box, b, device=device) for b in range(D)]
+        val = ufunc(a, *coords) * torch.ones(tuple(e - s for s, e in box), dtype=dtype,
+                                             device=device)
+        u[(a,) + tuple(slice(s - 1, e - 1) for s, e in box)] = val
+    if doproject:
+        if psolver is None:
+            psolver = default_psolver(setup)
+        if periodic:
+            u = project_periodic(u, uniform_dxs(setup), psolver)
+        else:
+            met = make_channel_metrics(setup)
+            q = psolver(om_box(setup) * channel_divergence_roll(u, met))
+            u = channel_correct_roll(u, q, met)
+    return reghost(u) if periodic else reghost_channel(u, setup)
 
 
 def spectrum_draw_shapes(setup):

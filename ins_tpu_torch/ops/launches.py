@@ -38,6 +38,9 @@ KERNELS = (
     # the closure convolutions (ops/conv_kernels.py)
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
+    # the wall-bounded channel (ops/channel_kernels.py)
+    "channel_msd_3d",
+    "channel_pressure_correct_3d",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)

@@ -37,7 +37,7 @@ __all__ = [
 ]
 
 
-def poisson_eigen_consts(Np, dxs, dtype, device="cpu"):
+def poisson_eigen_consts(Np, dxs, dtype, device="cuda"):
     """(V, Vinv, eps) for the cube fast-diagonalization solve; `eps` is
     the nullspace pin threshold (the k = 0 mode, den == 0, maps to 0)."""
     V, Vinv, _ = fourier_eigenbasis(Np[0], dxs[0])
@@ -104,7 +104,7 @@ def passB(h, proj):
         return x_transform(proj["V"], g)
 
 
-def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cpu"):
+def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cuda"):
     """Pieces of the fused pressure projection: ``passB(h) -> qhat`` and
     the transform matrices (Vinv, VinvT, V, VT) the stage and correction
     kernels take.  ``precision`` is accepted for parity with the JAX

@@ -6,7 +6,8 @@ interior array) and of the periodic projection the fast path's roll twin
 and `random_field` use.  The solve is the
 volume-scaled periodic Laplacian, diagonal in Fourier space with
 eigenvalues ``-4 vol sin²(πk/N)/Δx²`` summed over dimensions; the k = 0
-mode (zero-mean pressure) is pinned to 0.  CG, direct and FDM solvers
+mode (zero-mean pressure) is pinned to 0.  `default_psolver` picks the
+FDM solve (`ops/fdm.py`) on other grids; CG and the host direct solver
 wait for ROADMAP queue 1 item 7.
 """
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .diffkernels import roll_m, roll_p
+from .fdm import psolver_fdm
 
 __all__ = ["psolver_spectral", "default_psolver", "project_periodic", "uniform_dxs"]
 
@@ -58,15 +60,12 @@ def psolver_spectral(setup):
 
 
 def default_psolver(setup):
-    """Spectral on uniform periodic grids; the other solvers are not
-    ported yet."""
+    """Spectral on uniform periodic grids, the fast-diagonalization direct
+    solve (`ops/fdm.psolver_fdm`) otherwise, as in the JAX package."""
     g = setup.grid
     if all(g.periodic) and all(g.uniform):
         return psolver_spectral(setup)
-    raise NotImplementedError(
-        "only the spectral solver on uniform periodic grids is ported "
-        "(CG/direct/FDM: ROADMAP queue 1 item 7)"
-    )
+    return psolver_fdm(setup)
 
 
 def project_periodic(u, dxs, solve):

@@ -1,8 +1,8 @@
 """Processors: in-loop observability.
 
 Port of the protocol, `timelogger` and `fieldsaver` of
-`ins_tpu/processors.py`, plus `total_kinetic_energy` in its periodic
-form.  A processor is ``(initialize, update, finalize)`` over snapshots
+`ins_tpu/processors.py`, plus `total_kinetic_energy` on periodic grids
+and channels.  A processor is ``(initialize, update, finalize)`` over snapshots
 of the solver state taken at chunk boundaries; ``nupdate`` decimation
 also sets the chunk size, so no step forces a device-to-host sync.  The
 other observers wait for ROADMAP queue 1 items 3 and 10.
@@ -14,8 +14,10 @@ import dataclasses
 import time
 from typing import Any, Callable
 
-import numpy as np
 import torch
+
+from .ops._stencil import seg
+from .ops.channelpath import channelpath_applicable
 
 __all__ = [
     "Processor",
@@ -84,21 +86,26 @@ def fieldsaver(nupdate=1):
 
 
 def total_kinetic_energy(u, setup):
-    """Volume-integrated kinetic energy of a ghosted periodic velocity
-    field: at each pressure point the mean of the squared face
-    velocities on both sides, summed and scaled by the cell volume (the
-    periodic-uniform form of `ins_tpu.ops.operators.total_kinetic_energy`).
-    Returns a 0-d tensor on the field's device."""
+    """Volume-integrated kinetic energy of a ghosted velocity field: at
+    each pressure point the mean of the squared face velocities on both
+    sides, scaled by the cell volume and summed
+    (`ins_tpu.ops.operators.total_kinetic_energy`).  Uniform periodic
+    grids and channels (whose ghosts hold the walls).  Returns a 0-d
+    tensor on the field's device."""
     g = setup.grid
-    if not (all(g.periodic) and all(g.uniform)):
+    if not ((all(g.periodic) and all(g.uniform)) or channelpath_applicable(setup)):
         raise NotImplementedError(
-            "total_kinetic_energy is ported for uniform periodic grids only "
-            "(ROADMAP queue 1 item 3)"
+            "total_kinetic_energy is ported for uniform periodic grids and "
+            "channels (ROADMAP queue 1 item 3)"
         )
     D = g.dim
-    ui = u[(slice(None),) + (slice(1, -1),) * D]
+    box = g.Ip
     acc = 0.0
     for a in range(D):
-        acc = acc + ui[a] ** 2 + torch.roll(ui[a], 1, dims=a) ** 2
-    vol = float(np.prod([g.delta[d][0] for d in range(D)]))
-    return torch.sum(acc / 4) * vol
+        here = tuple(slice(s, e) for s, e in box)
+        left = tuple(slice(s - (d == a), e - (d == a)) for d, (s, e) in enumerate(box))
+        acc = acc + u[a][here] ** 2 + u[a][left] ** 2
+    k = acc / 4
+    for d in range(D):
+        k = k * seg(g.delta[d], box, d, device=u.device).to(u.dtype)
+    return torch.sum(k)

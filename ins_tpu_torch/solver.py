@@ -6,7 +6,11 @@ chunks of steps; processors (observability) run between chunks at their
 the fused hat chain applies (3-D periodic cube, classic-row RK tableau)
 a chunk carries `HatState(ut, qhat)` and materialises u only at its end;
 with a closure model it steps the per-op chain (``theta`` goes to the
-closure), otherwise the roll twin.  The run is not differentiated (it
+closure), otherwise the roll twin.  On a wall-bounded channel (x/y
+periodic, static z walls, the FDM solver) a chunk carries a `ChannelHat`
+of the channel path (`ops/channelpath.py`) the same way, crossing to and
+from the public ghosted layout with `strip_channel`/`reghost_channel`.
+The run is not differentiated (it
 runs under `torch.no_grad`; training unrolls go through
 `models.training`).  The step is an eager Python loop of
 kernel launches; dt and the tableau coefficients reach the kernels as
@@ -23,6 +27,12 @@ import math
 
 import torch
 
+from .ops.channelpath import (
+    channelpath_applicable,
+    make_channel_timestep_hat,
+    reghost_channel,
+    strip_channel,
+)
 from .ops.fastpath import (
     fastpath_applicable,
     make_fast_timestep,
@@ -92,11 +102,20 @@ def solve_unsteady(
         method = RK44()
     if psolver is None:
         psolver = default_psolver(setup)
-    if not fastpath_applicable(setup, method, psolver):
+    use_fast = fastpath_applicable(setup, method, psolver)
+    # the channel path's projection is the FDM solve, so it runs where the
+    # chosen solver is that solve (as in the JAX package)
+    use_channel = (
+        not use_fast
+        and getattr(psolver, "is_fdm", False)
+        and channelpath_applicable(setup, method)
+    )
+    if not (use_fast or use_channel):
         raise NotImplementedError(
-            "the port runs the periodic fast path only (explicit RK, spectral "
-            "solver, uniform periodic grid); the general ghosted path is "
-            "ROADMAP queue 1 item 7 and LMWray3 item 6"
+            "the port runs the periodic fast path (explicit RK, spectral solver, "
+            "uniform periodic grid) and the channel path (classic-row explicit RK, "
+            "psolver_fdm, x/y periodic uniform with static z walls); the general "
+            "ghosted path is ROADMAP queue 1 item 7 and LMWray3 item 6"
         )
     processors = dict(processors or {})
     # the chain never writes into its inputs, so the caller's field needs
@@ -104,10 +123,20 @@ def solve_unsteady(
     ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=setup.device)
     precision = projection_precision or "manualhigh"
 
-    hat_fns = make_fast_timestep_hat(setup, method, projection_precision=precision)
-    step = None if hat_fns is not None else make_fast_timestep(
-        setup, method, projection_precision=precision
-    )
+    step = None
+    if use_channel:
+        hat_fns = make_channel_timestep_hat(setup, method)
+
+        def strip(s):
+            return s._replace(u=strip_channel(s.u))
+
+        def reghost_s(s):
+            return s._replace(u=reghost_channel(s.u, setup))
+    else:
+        hat_fns = make_fast_timestep_hat(setup, method, projection_precision=precision)
+        if hat_fns is None:
+            step = make_fast_timestep(setup, method, projection_precision=precision)
+        strip, reghost_s = strip_state, reghost_state
 
     def run_chunk(s, nsteps):
         if hat_fns is not None:
@@ -121,10 +150,10 @@ def solve_unsteady(
         return s
 
     tstart, tend = tlims
-    state = strip_state(create_stepper(method, setup=setup, u=ustart, t=tstart))
+    state = strip(create_stepper(method, setup=setup, u=ustart, t=tstart))
 
     initialized = {
-        k: p.initialize(get_state(reghost_state(state))) for k, p in processors.items()
+        k: p.initialize(get_state(reghost_s(state))) for k, p in processors.items()
     }
 
     def update_processors(s):
@@ -132,7 +161,7 @@ def solve_unsteady(
         for k, p in processors.items():
             if s.n % getattr(p, "nupdate", 1) == 0:
                 if st is None:
-                    st = get_state(reghost_state(s))
+                    st = get_state(reghost_s(s))
                 initialized[k] = p.update(initialized[k], st)
 
     def finite(s):
@@ -150,7 +179,7 @@ def solve_unsteady(
             state = run_chunk(state, c)
         if nan_guard:
             if not finite(state):
-                st = get_state(reghost_state(last_good))
+                st = get_state(reghost_s(last_good))
                 raise SolverDivergedError(
                     f"solver produced non-finite fields (last finite state: "
                     f"n={st['n']}, t={st['t']:g})",
@@ -160,7 +189,7 @@ def solve_unsteady(
         if processors:
             update_processors(state)
 
-    state = reghost_state(state)
+    state = reghost_s(state)
     outputs = {
         k: p.finalize(initialized[k], get_state(state)) for k, p in processors.items()
     }

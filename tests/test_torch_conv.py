@@ -124,7 +124,7 @@ def test_fused_layer_skips_dh_for_inputs_without_grad():
 def _setups(n, dtype):
     x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
     jt = {torch.float64: jnp.float64, torch.float32: jnp.float32}[dtype]
-    return ins.Setup(x=x, Re=2000.0, dtype=jt), it.Setup(x=x, Re=2000.0, dtype=dtype)
+    return ins.Setup(x=x, Re=2000.0, dtype=jt), it.Setup(device="cpu", x=x, Re=2000.0, dtype=dtype)
 
 
 @pytest.fixture(scope="module", params=["f64", "bf16"])
@@ -141,7 +141,7 @@ def cnns(request):
     tcl, _ = nc.cnn(setup=ts, activations=[torch.tanh, lambda v: v],
                     compute_dtype=torch.float64 if f64 else None, **kw)
     return types.SimpleNamespace(prec=request.param, jcl=jcl, jth=jth, tcl=tcl,
-                                 tth=cnn_params_from_numpy(jth))
+                                 tth=cnn_params_from_numpy(jth, device="cpu"))
 
 
 def test_cnn_matches_jax(cnns):

@@ -43,7 +43,7 @@ def _x(n, D):
 
 def _setups(n, D, Re=1e3):
     jset = ins.Setup(x=_x(n, D), Re=Re, dtype=jnp.float64)
-    tset = it.Setup(x=_x(n, D), Re=Re, dtype=torch.float64)
+    tset = it.Setup(device="cpu", x=_x(n, D), Re=Re, dtype=torch.float64)
     return jset, tset
 
 
@@ -135,7 +135,7 @@ def test_roll_twin_matches_jax(case):
         x = (np.linspace(0, 2 * np.pi, 9), np.linspace(0, 2 * np.pi, 9),
              np.linspace(0, np.pi, 5))
         jset = ins.Setup(x=x, Re=1e3, dtype=jnp.float64)
-        tset = it.Setup(x=x, Re=1e3, dtype=torch.float64)
+        tset = it.Setup(device="cpu", x=x, Re=1e3, dtype=torch.float64)
         mj, mt = ins.RKMethods.RK44(), it.RKMethods.RK44()
     assert not hat_chain_applicable(tset, mt)
     assert make_fast_timestep_hat(tset, mt) is None
@@ -228,7 +228,7 @@ def test_unported_paths_raise(what):
     elif what == "tempstart":
         kw["tempstart"] = u0[0]
     else:
-        s2 = it.Setup(x=(it.tanh_grid(0, 1, 8),) * 2,
+        s2 = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 8),) * 2,
                       boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
         kw.update(setup=s2, ustart=torch.zeros(2, 10, 10), psolver=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

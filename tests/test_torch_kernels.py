@@ -47,7 +47,7 @@ def projs():
     jp = jax_fused_projection(
         (N,) * 3, DXS, jnp.float64, precision="highest", interpret=True
     )
-    tp = make_fused_projection((N,) * 3, DXS, torch.float64, precision="highest")
+    tp = make_fused_projection((N,) * 3, DXS, torch.float64, precision="highest", device="cpu")
     return jp, tp
 
 
@@ -234,7 +234,8 @@ def test_kernel_sources_carry_their_notes():
     it on the card; the build hashes every source."""
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {
-        "transforms.cu", "stage.cu", "poisson.cu", "correct.cu", "perop.cu", "conv.cu"
+        "transforms.cu", "stage.cu", "poisson.cu", "correct.cu", "perop.cu", "conv.cu",
+        "channel.cu",
     }
     for p in srcs:
         text = p.read_text()

@@ -160,7 +160,7 @@ def test_poisson_mm_matches_jax():
     (f,) = _fields(10, SCA)
     f = f - f.mean()
     ref = jax_make_poisson_mm(BOX, DXS, jnp.float64)(jnp.asarray(f))
-    got = make_poisson_mm(BOX, DXS, torch.float64)(_t(f))
+    got = make_poisson_mm(BOX, DXS, torch.float64, device="cpu")(_t(f))
     assert _rel(got.numpy(), ref) < TOL_F64
 
 
@@ -169,7 +169,7 @@ def test_poisson_mm_inverts_the_laplacian_and_differentiates():
     and autograd through the solve gives its (self-adjoint) transpose."""
     f, w = _fields(11, SCA, SCA)
     f, w = f - f.mean(), w - w.mean()
-    solve = make_poisson_mm(BOX, DXS, torch.float64)
+    solve = make_poisson_mm(BOX, DXS, torch.float64, device="cpu")
     ft = _t(f, True)
     p = solve(ft)
     vol = float(np.prod(DXS))

@@ -76,7 +76,7 @@ def test_grid_matches_jax(name, dtype):
 def test_setup_matches_jax_and_keeps_its_device():
     x = (np.linspace(0, 2 * np.pi, 9),) * 3
     sj = ins.Setup(x=x, Re=4000.0, dtype=jnp.float32)
-    st = it.Setup(x=x, Re=4000.0, dtype=torch.float32)
+    st = it.Setup(device="cpu", x=x, Re=4000.0, dtype=torch.float32)
     assert st.dim == sj.dim == 3
     assert st.Re == float(sj.Re)
     assert st.device == torch.device("cpu")
@@ -96,12 +96,26 @@ _smagorinsky_closure.kind = "smagorinsky_natural"
 
 @pytest.mark.parametrize(
     "kw", [dict(temperature=object()), dict(closure_model=_smagorinsky_closure),
-           dict(bodyforce=lambda *a: 0.0)],
+           dict(bodyforce=lambda *a: 0.0, issteadybodyforce=False)],
     ids=["temperature", "closure", "bodyforce"],
 )
 def test_setup_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        it.Setup(x=(np.linspace(0, 1, 5),) * 2, **kw)
+        it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
+
+
+def test_setup_defaults_to_the_card(monkeypatch):
+    """Without `device` a setup targets cuda; without a card it raises and
+    names the way out, as the convert functions do."""
+    x = (np.linspace(0, 1, 5),) * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert it.Setup(x=x).device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    js = JaxStepperState(u=np.zeros((2, 4, 4)), temp=None, t=0.0, n=0)
+    for make in (lambda: it.Setup(x=x), lambda: convert.state_from_numpy(js),
+                 lambda: convert.cnn_params_from_numpy({"w": np.zeros(2)})):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
 
 
 def test_tableaus_match_jax():
@@ -137,7 +151,7 @@ def _jax_draws(jset, key):
 def test_random_field_matches_jax_draws(D, n):
     x = (np.linspace(0, 2 * np.pi, n + 1),) * D
     jset = ins.Setup(x=x, dtype=jnp.float64)
-    tset = it.Setup(x=x, dtype=torch.float64)
+    tset = it.Setup(device="cpu", x=x, dtype=torch.float64)
     key = jax.random.PRNGKey(7)
     ref = np.asarray(jax.jit(lambda k: ins.random_field(jset, kp=4, rng=k))(key))
     draws = _jax_draws(jset, key)
@@ -149,7 +163,7 @@ def test_random_field_matches_jax_draws(D, n):
 
 def test_random_field_generator_is_reproducible_and_divergence_free():
     x = (np.linspace(0, 2 * np.pi, 17),) * 3
-    tset = it.Setup(x=x, dtype=torch.float64)
+    tset = it.Setup(device="cpu", x=x, dtype=torch.float64)
     a = it.random_field(tset, kp=4, generator=torch.Generator().manual_seed(11))
     b = it.random_field(tset, kp=4, generator=torch.Generator().manual_seed(11))
     assert torch.equal(a, b)
@@ -163,7 +177,7 @@ def test_convert_round_trip():
     rng = np.random.default_rng(0)
     u = rng.standard_normal((3, 8, 8, 8))
     js = JaxStepperState(u=jnp.asarray(u), temp=None, t=jnp.asarray(0.25), n=jnp.asarray(3))
-    ts = convert.state_from_numpy(js, dtype=torch.float64)
+    ts = convert.state_from_numpy(js, dtype=torch.float64, device="cpu")
     assert isinstance(ts, it.time_steppers.StepperState)
     assert ts.t == 0.25 and ts.n == 3 and np.array_equal(ts.u.numpy(), u)
     back = JaxStepperState(**convert.state_to_numpy(ts))
@@ -174,7 +188,7 @@ def test_convert_round_trip():
     q = rng.standard_normal((8, 8, 8))
     jh = JaxHatState(ut=jnp.asarray(u), qhat=jnp.asarray(q), temp=None,
                      t=jnp.asarray(0.5), n=jnp.asarray(4))
-    th = convert.state_from_numpy(jh, dtype=torch.float64)
+    th = convert.state_from_numpy(jh, dtype=torch.float64, device="cpu")
     assert isinstance(th, HatState) and np.array_equal(th.qhat.numpy(), q)
     back = JaxHatState(**convert.state_to_numpy(th))
     assert np.array_equal(np.asarray(back.qhat), q) and back.t == 0.5
@@ -187,7 +201,7 @@ def test_convert_round_trip():
 def test_setup_constants_match_jax(dtype):
     n = 16
     x = (np.linspace(0, 2 * np.pi, n + 1),) * 3
-    tset = it.Setup(x=x, dtype=getattr(torch, dtype))
+    tset = it.Setup(device="cpu", x=x, dtype=getattr(torch, dtype))
     jset = ins.Setup(x=x, dtype=getattr(jnp, dtype))
     dxs = tuple(float(np.asarray(jset.grid.delta[d])[0]) for d in range(3))
     jp = jax_fused_projection((n,) * 3, dxs, getattr(jnp, dtype))
@@ -220,6 +234,6 @@ def test_port_imports_without_jax():
 
 
 def test_create_stepper_rejects_unported_methods():
-    tset = it.Setup(x=(np.linspace(0, 1, 5),) * 2)
+    tset = it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2)
     with pytest.raises(NotImplementedError, match="LMWray3"):
         it.create_stepper(it.LMWray3(), setup=tset, u=torch.zeros(2, 6, 6))

@@ -49,7 +49,7 @@ def _rel(a, b):
 def case():
     x = tuple(np.linspace(0.0, 1.0, N + 1) for _ in range(3))
     js = ins.Setup(x=x, Re=2000.0, dtype=jnp.float64)
-    ts = it.Setup(x=x, Re=2000.0, dtype=torch.float64)
+    ts = it.Setup(device="cpu", x=x, Re=2000.0, dtype=torch.float64)
     kw = dict(radii=[1, 1], channels=[4, 3], use_bias=[True, False])
     jcl, jth = jnc.cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
                        rng=jax.random.PRNGKey(0), compute_dtype=jnp.float64, **kw)
@@ -79,7 +79,7 @@ def test_loss_post_and_gradient_match_jax(case, remat):
     jl, tl = _losses(case, remat)
     f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
     jv, jg = f(case.jth, jnp.asarray(case.us), jnp.asarray(case.tt))
-    theta = cnn_params_from_numpy(case.jth)
+    theta = cnn_params_from_numpy(case.jth, device="cpu")
     launches.reset_counts()
     tv = tl([{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}], theta)
     tg = torch.autograd.grad(tv, list(theta.values()))
@@ -98,7 +98,7 @@ def test_train_matches_optax_adam(case):
         dataloader=jnc.create_dataloader_post(jtraj, ntrajectory=1, nunroll=NUNROLL),
         loss=jl, trainstate=jnc.create_trainstate(case.jth, lr=1e-3), niter=2, lam=lam,
     )
-    theta = cnn_params_from_numpy(case.jth)
+    theta = cnn_params_from_numpy(case.jth, device="cpu")
     theta0 = {k: v.detach().clone() for k, v in theta.items()}
     ttraj = [{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}]
     tout = nc.train(
@@ -124,20 +124,20 @@ def test_relerr_post_matches_jax(case):
         data={"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)},
         setup=case.ts, method=it.RKMethods.RK44(), psolver=it.psolver_spectral(case.ts),
         closure_model=case.tm,
-    )(cnn_params_from_numpy(case.jth))
+    )(cnn_params_from_numpy(case.jth, device="cpu"))
     assert not got.requires_grad
     assert abs(got.item() - float(jref)) < TOL * abs(float(jref))
 
 
 def test_solve_unsteady_with_closure_matches_jax(case):
     jsc = ins.Setup(x=case.x, Re=2000.0, dtype=jnp.float64, closure_model=case.jm)
-    tsc = it.Setup(x=case.x, Re=2000.0, dtype=torch.float64, closure_model=case.tm)
+    tsc = it.Setup(device="cpu", x=case.x, Re=2000.0, dtype=torch.float64, closure_model=case.tm)
     kw = dict(tlims=(0.0, 3 * DT), dt=DT)
     ref, _ = ins.solve_unsteady(setup=jsc, ustart=jnp.asarray(case.u0), theta=case.jth,
                                 psolver=ins.psolver_spectral(jsc), **kw)
     assert not hat_chain_applicable(tsc, it.RKMethods.RK44())
     assert make_fast_timestep_hat(tsc, it.RKMethods.RK44()) is None
-    theta = cnn_params_from_numpy(case.jth)
+    theta = cnn_params_from_numpy(case.jth, device="cpu")
     got, _ = it.solve_unsteady(setup=tsc, ustart=torch.from_numpy(case.u0), theta=theta, **kw)
     assert got.n == 3 and not got.u.requires_grad
     assert _rel(got.u.numpy(), ref.u) < TOL
@@ -157,8 +157,8 @@ def test_differentiable_chain_equals_hat_chain_without_closure(case):
 def test_two_d_closure_steps_the_roll_twin():
     """2-D setups keep the roll twin; a zero closure changes nothing."""
     x = (np.linspace(0, 2 * np.pi, 17),) * 2
-    plain = it.Setup(x=x, Re=1e3, dtype=torch.float64)
-    closed = it.Setup(x=x, Re=1e3, dtype=torch.float64,
+    plain = it.Setup(device="cpu", x=x, Re=1e3, dtype=torch.float64)
+    closed = it.Setup(device="cpu", x=x, Re=1e3, dtype=torch.float64,
                       closure_model=lambda u, theta: theta * u)
     u0 = strip_ghosts(it.random_field(plain, kp=2, generator=torch.Generator().manual_seed(5)))
     method = it.RKMethods.RK44()
@@ -210,4 +210,4 @@ def test_training_off_the_fast_path_raises(case):
                               psolver=it.psolver_spectral(case.ts), closure_model=case.tm)
     with pytest.raises(NotImplementedError):
         lmw([{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}],
-            cnn_params_from_numpy(case.jth))
+            cnn_params_from_numpy(case.jth, device="cpu"))
