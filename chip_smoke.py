@@ -15,8 +15,9 @@ Phases, each raising on failure (exit code != 0, no result line):
 1. Hold every kernel of the main path against its plain PyTorch version
    at 64³ and 256³ on inputs made by numpy from a seed: the RECON stage
    with emit_u and usnew, a stream-base stage, the unmerged stage (with
-   and without k streams), pass B, the correction and the plane
-   transforms.  Bound: max relative error <= 1e-4 (FP32 on both sides,
+   and without k streams), each also with the Smagorinsky force and a
+   body force, pass B dense and folded (one level, and two), the
+   correction and the plane transforms.  Bound: max relative error <= 1e-4 (FP32 on both sides,
    sums taken in another order).  At 256³ each is timed against its
    plain version (CUDA events).
    The per-op and conv kernels of the training path are held against
@@ -61,12 +62,30 @@ Phases, each raising on failure (exit code != 0, no result line):
    max|div u| <= 1e-4·max|u|/min Δz; the plain chain on the card agrees
    to <= 1e-4 relative.  Then ms/step of both chains in turns, the FDM
    solve's time alone and peak memory.
-5. Print the kernel table (JSON: per kernel its launches on the main
+5. The Smagorinsky LES (`bench.py`'s `run_case(256, les=True)`): the
+   force kernel against its plain version at a ragged (40, 26, 20) box
+   and at 256³, on u and on the rebuilt u = ut − ∇q, with and without a
+   body force (the stage kernels with ``smag=``/``bodyforce=`` and the
+   folded pass B, one and two levels, are phase 1 cases), each timed
+   against its plain version beside its byte bound.  Then
+   `Setup(closure_model=smagorinsky_closure_natural(base))` at 256³,
+   RK44, f32, Re = 4000, phase 2's `random_field(kp=10)`, dt =
+   1e-3·128/256, θ = 0.17, `solve_unsteady` for 20 steps in chunks of 10
+   with a timelogger, `observespectrum` and `observefield`.  Checks:
+   finite; divergence as in phase 2; kinetic energy not increasing and at
+   step 20 below phase 2's run without the closure; the force kernel,
+   the stage kernel and the folded pass B launched exactly 4 times per
+   step and no plain version on the card; the plain chain on the card
+   agrees to <= 1e-4 relative; every spectrum finite with len(kappa)
+   bins.  Then ms/step of both chains in turns and peak memory.
+6. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
    same function where there is one) and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``.  The dense pass B stays in the
+   table; no main path runs it (every cube here has n % 4 == 0, where
+   the projection folds, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -97,6 +116,11 @@ PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
 OPS_PER_CELL = {
     "convdiff": 168, "stage": 373, "stage_norebuild": 364, "stage_div": 22,
     "correct": 9, "eigen_scale": 15, "channel_msd": 215,
+    # the Smagorinsky force as the JAX package's `_smag_body` forms it, each
+    # quantity once per cell: 6 strains (24), the eddy viscosity from their
+    # squares, the four-edge sums and the sqrt (23), the stress with ν
+    # averaged to the edges (21) and its divergence (24)
+    "smag": 92, "fold_split": 2,
 }
 # phase 3 bounds (float32 convs: summation order only; bf16 convs: one
 # bf16 ulp where a stored activation rounds the other way)
@@ -189,7 +213,10 @@ def kernel_cases(n):
     import torch
 
     from ins_tpu_torch.ops import stage_kernels as sk
-    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, passB, passB_plain
+    from ins_tpu_torch.ops.poisson_kernels import (
+        make_fused_projection, passB, passB_fold, passB_fold_plain, passB_plain,
+        poisson_fold_consts,
+    )
     from ins_tpu_torch.ops.transforms import (
         x_transform, x_transform_plain, yz_transform, yz_transform_plain,
     )
@@ -220,6 +247,19 @@ def kernel_cases(n):
     based = dict(emit_k=False, usnew_coeff=dt / 3, usnew_base=accb)
     cells, gemm = n**3, 2.0 * n**4  # one plane-transform GEMM pass: 2 n^4
     mats = (Vinv, VinvT, proj["V"], proj["VT"])
+    # the LES stage: the force of a theta on the card, and a body force
+    theta = torch.full((1,), LES_THETA, device=dev)
+    smag = (theta, 3 * dxs[0] ** 2)
+    bf = field(3, n, n, n)
+    les = dict(based, smag=smag)
+    mats2, levels2, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=2, device=dev)
+    proj2 = dict(proj, fold_mats=mats2, fold_levels=levels2)
+    # the folded pass B: (n / 2^l)^2 n^2 for level l's two half GEMMs, the
+    # leaf's two GEMMs 4 (n / 2^L)^2 n^2, the scale, split and combine
+    # elementwise (2 n^4 in all at one level, half the dense 4 n^4)
+    fold_ops = lambda L: (sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2
+                          + OPS_PER_CELL["eigen_scale"] * cells
+                          + L * 2 * OPS_PER_CELL["fold_split"] * cells)
     return {
         "pcmsd_hat_3d": [
             Case("stream base + usnew_base",
@@ -230,6 +270,30 @@ def kernel_cases(n):
             Case("RECON + emit_u + usnew",
                  pcmsd(sk.pcmsd_hat_3d, (sk.RECON,), (dt / 2,), **recon),
                  pcmsd(sk.pcmsd_hat_3d_plain, (sk.RECON,), (dt / 2,), **recon)),
+        ],
+        # the LES stages (the main path's stages 1-2 first): the force
+        # kernel on the rebuilt u, then the stage with its force stream.
+        # The bound is the JAX package's fused kernel's, which forms the
+        # force inside the stage (the same bytes as without it).
+        "pcmsd_hat_3d+smag": [
+            Case("stream base + usnew_base + smag",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), **les),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,), **les),
+                 inputs=(ut_prev, qhat, ustart, accb, *mats),
+                 ops=(OPS_PER_CELL["stage"] + OPS_PER_CELL["smag"]) * cells + 4 * gemm),
+            Case("RECON + emit_u + usnew + smag + bodyforce",
+                 pcmsd(sk.pcmsd_hat_3d, (sk.RECON,), (dt / 2,), smag=smag, bodyforce=bf,
+                       **recon),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (sk.RECON,), (dt / 2,), smag=smag,
+                       bodyforce=bf, **recon)),
+            Case("stream base + usnew_base + bodyforce",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), bodyforce=bf, **based),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,), bodyforce=bf, **based)),
+            # k = f carries the force at full weight (elsewhere it enters
+            # through coefficients of dt/6 to dt/2 only)
+            Case("stream base + emit_k + bodyforce",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), bodyforce=bf),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,), bodyforce=bf)),
         ],
         "momentum_stage_divhat_3d": [
             Case("stage 0 (u base) + usnew",
@@ -242,12 +306,36 @@ def kernel_cases(n):
             Case("k stream + emit_k",
                  msd(sk.momentum_stage_divhat_3d, (ustart, k1), (0.3 * dt, dt / 2)),
                  msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2))),
+            Case("stage 0 + usnew + smag + bodyforce",
+                 msd(sk.momentum_stage_divhat_3d, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, smag=smag, bodyforce=bf),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, smag=smag, bodyforce=bf)),
+            Case("k stream + emit_k + smag",
+                 msd(sk.momentum_stage_divhat_3d, (ustart, k1), (0.3 * dt, dt / 2), smag=smag),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2),
+                     smag=smag)),
+            Case("k stream + emit_k + bodyforce",
+                 msd(sk.momentum_stage_divhat_3d, (ustart, k1), (0.3 * dt, dt / 2),
+                     bodyforce=bf),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2),
+                     bodyforce=bf)),
         ],
         "passB": [
             Case("divhat -> qhat",
                  lambda: (passB(divhat, proj),), lambda: (passB_plain(divhat, proj),),
                  inputs=(divhat, proj["Vinv"], proj["V"]),
                  ops=OPS_PER_CELL["eigen_scale"] * cells + 2 * gemm),
+        ],
+        "passB_fold": [
+            Case(f"divhat -> qhat, {proj['fold_levels']} level",
+                 lambda: (passB_fold(divhat, proj),),
+                 lambda: (passB_fold_plain(divhat, proj),),
+                 inputs=(divhat, *proj["fold_mats"]), ops=fold_ops(proj["fold_levels"])),
+            Case("divhat -> qhat, 2 levels",
+                 lambda: (passB_fold(divhat, proj2),),
+                 lambda: (passB_fold_plain(divhat, proj2),),
+                 inputs=(divhat, *mats2), ops=fold_ops(2)),
         ],
         "pressure_correct_qhat_3d": [
             Case("ut, qhat -> u",
@@ -581,7 +669,7 @@ def phase_main_path(n, nsteps, chunk):
           f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}; "
           f"{n**3 / (ms_p * 1e-3):.4e} cell-updates/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, setup, u0, dt
+    return counts, setup, u0, dt, e1
 
 
 def phase_profile(setup, u0, dt):
@@ -1052,10 +1140,229 @@ def phase_profile_channel(setup, u0, dt):
     print(events.table(sort_by="self_cuda_time_total", row_limit=15))
 
 
+# --------------------------------------------------------------------------
+# phase 5: the Smagorinsky LES
+# --------------------------------------------------------------------------
+
+LES_THETA = 0.17
+LES_BOX = (256, 256, 256)
+
+
+def les_kernel_cases(box):
+    """{"smagorinsky_force_3d": [Case, ...]} on `box`: the force on the
+    rebuilt u (the hat chain's stages, the main path's shape, first), on
+    u (the chunk's first stage), and both with a body force."""
+    import torch
+
+    from ins_tpu_torch.ops import smag_kernels as smk
+
+    rng = np.random.default_rng(SEED + 3 * sum(box))
+    dev = torch.device(DEVICE)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev)
+
+    u, bf = field(3, *box), field(3, *box)
+    q = field(*box, scale=1e-2)
+    theta = torch.full((1,), LES_THETA, device=dev)
+    dxs = tuple(2 * np.pi / n for n in box)
+
+    def case(label, **kw):
+        # the force, plus the rebuild u - grad q and the body force's add
+        ops = (OPS_PER_CELL["smag"] + OPS_PER_CELL["correct"] * ("rebuild_q" in kw)
+               + 3 * ("bodyforce" in kw)) * int(np.prod(box))
+        return Case(label, lambda: (smk.smagorinsky_force_3d(u, theta, dxs, **kw),),
+                    lambda: (smk.smagorinsky_force_3d_plain(u, theta, dxs, **kw),),
+                    inputs=(u, kw.get("rebuild_q"), kw.get("bodyforce"), theta), ops=ops)
+
+    return {"smagorinsky_force_3d": [
+        case("rebuild (ut_prev, q)", rebuild_q=q),
+        case("u"),
+        case("rebuild + bodyforce", rebuild_q=q, bodyforce=bf),
+        case("u + bodyforce", bodyforce=bf),
+    ]}
+
+
+def les_setup(n):
+    """`bench.py`'s LES case: phase 2's setup with the natural-form
+    Smagorinsky closure."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    base = headline_setup(n)
+    x = tuple(np.linspace(0.0, 2 * np.pi, n + 1) for _ in range(3))
+    return it.Setup(x=x, boundary_conditions=base.boundary_conditions, Re=4000.0,
+                    dtype=torch.float32, device=DEVICE,
+                    closure_model=it.smagorinsky_closure_natural(base))
+
+
+def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_ghosts, strip_state
+
+    setup = les_setup(n)
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    if not torch.equal(u0, u0_ref):
+        fail("random_field on the LES setup did not give phase 2's u0")
+    dt = 1e-3 * 128 / n
+    method = it.RKMethods.RK44()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, outs = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
+        psolver=it.psolver_spectral(setup), theta=LES_THETA,
+        processors={"log": it.timelogger(nupdate=chunk),
+                    "spec": it.observespectrum(setup, nupdate=chunk),
+                    "energy": it.observefield(
+                        lambda s: it.total_kinetic_energy(s["u"], setup), nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[les] solve_unsteady {n}^3 RK44 f32 Re=4000, Smagorinsky theta={LES_THETA}: "
+          f"{nsteps} steps in chunks of {chunk}, {wall:.3f} s wall (first call included); "
+          f"launches { {k: v for k, v in counts.items() if v} }; plain calls on CUDA "
+          f"{ {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the LES ran {state.n} steps, expected {nsteps}")
+    per_step = {"smagorinsky_force_3d": counts["smagorinsky_force_3d"],
+                "stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
+                "passB_fold": counts["passB_fold"]}
+    if any(v != 4 * nsteps for v in per_step.values()):
+        fail(f"LES launches {per_step}, expected {4 * nsteps} each (4 per step)")
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+        fail(f"LES launches {counts}: one correction per chunk, no dense pass B expected")
+    if any(plain.values()):
+        fail(f"plain versions ran on CUDA tensors in the LES run: {plain}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail("non-finite velocity after the LES run")
+    check_divergence(u, float(setup.grid.delta[0][0]), "les")
+    e0 = it.total_kinetic_energy(u0, setup).item()
+    e1 = it.total_kinetic_energy(state.u, setup).item()
+    hist = [float(v) for v in outs["energy"]]
+    print(f"[les] kinetic energy {e0:.9e} -> {e1:.9e} (at the chunk ends "
+          + ", ".join(f"{v:.9e}" for v in hist) + f"); without the closure {e_no_closure:.9e}")
+    if not (e1 <= e0 and all(b <= a for a, b in zip([e0] + hist, hist))):
+        fail("LES kinetic energy increased")
+    if not e1 < e_no_closure:
+        fail("the eddy viscosity did not dissipate: LES energy not below the run without it")
+    spec = outs["spec"]
+    nk = len(spec["kappa"])
+    if len(spec["ehat"]) != nsteps // chunk or not all(
+            e.shape == (nk,) and np.isfinite(e).all() for e in spec["ehat"]):
+        fail(f"spectrum records {[e.shape for e in spec['ehat']]}, expected "
+             f"{nsteps // chunk} finite ({nk},) arrays")
+    print(f"[les] spectrum: {nk} bins (kappa {int(spec['kappa'][0])}..{int(spec['kappa'][-1])}), "
+          f"E(kappa) at t = {spec['t'][-1]:.4f}: first bins "
+          + ", ".join(f"{v:.4e}" for v in spec["ehat"][-1][:4]))
+
+    # the same run through the plain chain on the card
+    to_hat, step_hat, from_hat = make_fast_timestep_hat(setup, method, plain=True)
+    s = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    left = nsteps
+    while left:
+        c = min(chunk, left)
+        h = to_hat(s)
+        for _ in range(c):
+            h = step_hat(h, dt, LES_THETA)
+        s = from_hat(h)
+        left -= c
+    agree = rel_err(u, s.u)
+    print(f"[les] kernel chain vs plain chain after {nsteps} steps: max rel diff {agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"LES kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
+    del s, h
+
+    # ms/step of the LES hat chain, kernels and plain, after a warm-up
+    hk = make_fast_timestep_hat(setup, method)
+    hp = make_fast_timestep_hat(setup, method, plain=True)
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    theta = torch.full((), LES_THETA, device=DEVICE)
+
+    def ms_per_step(fns, steps=10):
+        to_h, step_h, _ = fns
+        h = step_h(step_h(to_h(s0), dt, theta), dt, theta)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt, theta)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        times[which].append(ms_per_step(hk if which == "kernels" else hp))
+    ms_k, ms_p = sum(times["kernels"]) / 2, sum(times["plain"]) / 2
+    print(f"[les] hat chain {n}^3 RK44 f32 + Smagorinsky: kernels {ms_k:.3f} ms/step "
+          f"({times['kernels'][0]:.3f}, {times['kernels'][1]:.3f}; "
+          f"{n**3 / (ms_k * 1e-3):.4e} cell-updates/s), plain {ms_p:.3f} ms/step "
+          f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card after the timing "
+          f"(SM clock, power draw, temperature): "
+          f"{card_line('clocks.sm,power.draw,temperature.gpu')}")
+    return counts, setup, u0, dt
+
+
+def phase_profile_les(setup, u0, dt):
+    """Device-time split of 3 LES hat steps (torch.profiler) and the idle
+    share against the unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
+
+    method = it.RKMethods.RK44()
+    theta = torch.full((), LES_THETA, device=DEVICE)
+    to_h, step_h, _ = make_fast_timestep_hat(setup, method)
+    h = step_h(to_h(strip_state(it.create_stepper(method, setup=setup, u=u0))), dt, theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        h = step_h(h, dt, theta)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            h = step_h(h, dt, theta)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    split = {"smag": 0.0, "stage": 0.0, "GEMM": 0.0, "pass B": 0.0, "correct": 0.0,
+             "glue": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("smag" if "smag_kernel" in e.key else
+               "stage" if "stage_kernel" in e.key else
+               "GEMM" if "gemm" in e.key.lower() else
+               "pass B" if ("eigen_scale" in e.key or "fold_" in e.key) else
+               "correct" if "correct" in e.key else "glue")
+        split[key] += e.self_device_time_total / 1e3 / 3
+    dev = sum(split.values())
+    if dev <= 0.0:
+        print("[profile] the trace holds no device time; no split")
+        return
+    print(f"[profile] LES step: {wall:.3f} ms wall (unprofiled), {dev:.3f} ms of device "
+          f"time: " + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
+          + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+
+
 HAT_KERNELS = (
-    "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB",
+    "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
     "pressure_correct_qhat_3d",
 )
+LES_KERNELS = ("smagorinsky_force_3d", "pcmsd_hat_3d+smag")
 TRAINING_KERNELS = (
     "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
     "fusedconv_3d", "fusedconv_wgrad_3d",
@@ -1067,7 +1374,10 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "plane_transform": ("ins_tpu_torch/csrc/transforms.cu", "ins_tpu/ops/pallas_kernels.py:87"),
     "pcmsd_hat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
     "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
-    "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:411"),
+    "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:451"),
+    "passB_fold": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:432"),
+    "smagorinsky_force_3d": ("ins_tpu_torch/csrc/smag.cu", "ins_tpu/ops/pallas_kernels.py:2292"),
+    "pcmsd_hat_3d+smag": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2639"),
     "pressure_correct_qhat_3d": ("ins_tpu_torch/csrc/correct.cu", "ins_tpu/ops/pallas_kernels.py:3422"),
     "convdiff_interior_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:312"),
     "stage_div_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:458"),
@@ -1084,7 +1394,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
-                         "of one gradient step and of 3 channel steps")
+                         "of one gradient step, of 3 channel steps and of 3 LES steps")
     args = ap.parse_args()
 
     import torch
@@ -1105,11 +1415,13 @@ def main():
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s); "
           f"ptxas report in {_build.BUILD_DIR / 'build.log'}")
 
-    results = phase_kernels(kernel_cases, (64, 256))
-    hat_counts, setup, u0, dt = phase_main_path(256, nsteps=20, chunk=10)
+    results = phase_kernels(kernel_cases, (64, 256),
+                            time_all=("passB_fold", "pcmsd_hat_3d+smag"))
+    hat_counts, setup, u0, dt, e_hat = phase_main_path(256, nsteps=20, chunk=10)
     if args.profile:
         phase_profile(setup, u0, dt)
-    del setup, u0
+    u0_hat = u0
+    del setup
     torch.cuda.empty_cache()
     results.update(phase_kernels(training_kernel_cases, (64, 128),
                                  time_all=("fusedconv_3d", "fusedconv_wgrad_3d")))
@@ -1122,9 +1434,18 @@ def main():
     channel_counts, setup, u0, dt = phase_channel(nsteps=20, chunk=10)
     if args.profile:
         phase_profile_channel(setup, u0, dt)
-    counts = {**{k: hat_counts[k] for k in HAT_KERNELS},
+    del setup, u0
+    torch.cuda.empty_cache()
+    results.update(phase_kernels(les_kernel_cases, ((40, 26, 20), LES_BOX),
+                                 time_all=("smagorinsky_force_3d",)))
+    les_counts, setup, u0, dt = phase_les(LES_BOX[0], 20, 10, u0_hat, e_hat)
+    if args.profile:
+        phase_profile_les(setup, u0, dt)
+    les_counts["pcmsd_hat_3d+smag"] = les_counts["pcmsd_hat_3d"]
+    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
-              **{k: channel_counts[k] for k in CHANNEL_KERNELS}}
+              **{k: channel_counts[k] for k in CHANNEL_KERNELS},
+              **{k: les_counts[k] for k in LES_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

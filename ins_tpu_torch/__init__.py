@@ -1,8 +1,10 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs three of
+The JAX package `ins_tpu` is the reference; this package runs four of
 its paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
-(explicit RK, spectral projection, optionally with a closure model),
+(explicit RK, spectral projection, optionally with a closure model), its
+Smagorinsky LES (`smagorinsky_closure_natural`, optionally with a steady
+body force),
 a-posteriori training of a CNN closure through the unrolled solver
 (`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
 periodic, stretched no-slip z walls, steady body force, FDM projection)
@@ -31,6 +33,8 @@ from .ops import *  # noqa: F401,F403
 from .processors import (  # noqa: F401
     Processor,
     fieldsaver,
+    observefield,
+    observespectrum,
     processor,
     timelogger,
     total_kinetic_energy,

@@ -52,13 +52,19 @@ _SIGNATURES = {
     ),
     "ins_stage_f32": (
         [_c_ptr, _c_ptr, _c_ptr, ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_f32),
-         _c_int, _c_f32, _c_ptr, _c_f32, _c_int,
+         _c_int, _c_f32, _c_ptr, _c_ptr, _c_f32, _c_int,
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
          _c_f32, _c_f32, _c_f32, _c_f32, _c_f32, _c_ptr],
         _c_int,
     ),
     "ins_eigen_scale_f32": (
-        [_c_ptr, _c_int] + [_c_f32] * 5 + [_c_ptr],
+        [_c_ptr] + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
+    "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
+    "ins_smag_f32": (
+        [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
         _c_int,
     ),
     "ins_correct_f32": (

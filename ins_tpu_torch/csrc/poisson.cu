@@ -1,54 +1,115 @@
-// Pass B eigen-scale: g(i, y, z) *= 1 / den(i, y, z)
+// Pass B of the fused projection: the x-direction solve divhat -> qhat,
+// dense or radix-2 folded, as GEMMs (transforms.cu) around the kernels
+// here.
 //
-//   den = vol * (lam_x(i) + lam_y(y) + lam_z(z)),
-//   lam_d(k) = -4 sin^2(pi * ceil(k / 2) / n) / dx_d^2,
+// Eigen-scale: g(r, y, z) *= 1 / den(r, y, z) on an (nr, n, n) block,
+//
+//   den = vol * (lam_x(k(r)) + lam_y(y) + lam_z(z)),
+//   lam_x(k) = -4 sin^2(pi k / n) / dx_0^2,
+//   lam_d(i) = -4 sin^2(pi ceil(i / 2) / n) / dx_d^2   (d = y, z),
 //
 // zero where |den| < eps (the k = 0 nullspace mode: zero-mean pressure).
-// The wrapper brackets it with the x-forward and x-inverse plane-transform
-// GEMMs (transforms.cu), so pass B = GEMM, this kernel, GEMM.
+// The row -> x-frequency map is k = kmul * ceil(r / 2) for the dense
+// transform and the fold's leaf, and k = kmul * (2 floor(r / 2) + 1) for
+// a fold level's odd-frequency half.
 //
-// Replaces: the scale of `_passB_body` (ins_tpu/ops/poisson_pallas.py:110,
-// kernel `_passB_kernel` :198, called from `make_fused_projection` :411),
-// with `den` from the closed form `_lam` (:101) generated in-kernel as
-// there, never read from memory.  The TPU path at n % 4 == 0 runs the
-// radix-2 folded form (`_passB_fold_kernel` :214), which computes the same
-// q with fewer MXU passes; the dense form here is the reference, and the
-// fold is a later speed-up (ROADMAP queue 2).
+// Fold split and combine (one fold level on an (nn, n, n) block, h = the
+// two x-halves [h0; h1]):
 //
-// What bounds it on an H100: device-memory bytes (one read and one write
-// of an (n, n, n) float field; 134 MB at 256^3, ~0.04 ms at 3.35 TB/s).
-// One thread per element, z fastest across a warp; the three eigenvalues
-// are recomputed per element with sinpif (cheaper than a table load).
+//   e = h0 + h1,  o = h0 - h1                       (split)
+//   out = [qe / 2 + qo; qe / 2 - qo]                (combine)
+//
+// between which the wrapper runs g_o = R_o . o, the odd eigen-scale,
+// q_o = S_o . g_o (GEMMs) and the recursion on e (kmul doubled).
+//
+// Replaces: `_passB_kernel` / `_passB_body` (dense,
+// ins_tpu/ops/poisson_pallas.py:198, :110) and `_passB_fold_kernel` /
+// `_passB_fold_body` (radix-2 folded, :214, :136), both called from
+// `make_fused_projection` (:411; the fold wherever n % 4 == 0, :429-449),
+// with `den` generated in-kernel from the closed form `_lam` (:101) as
+// there, never read from memory.
+//
+// What bounds it on an H100: the x-transform GEMMs' FP32 operations (dense
+// 4 n^4, folded 2 n^4 at one level: 17.2 and 8.6 GFLOP at 256^3, 0.257 and
+// 0.128 ms at 67 TFLOP/s).  The kernels here are device-memory bound: the
+// eigen-scale reads and writes the block once, the split and the combine
+// each read two half-blocks and write two (about 256 MB per fold level at
+// 256^3).  One thread per element, z fastest across a warp (scale) or a
+// flat grid-stride loop (split, combine); the eigenvalues are recomputed
+// per element with sinpif, cheaper than a table load.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ float lam(int idx, int n, float dx) {
-    const float s = sinpif((float)((idx + 1) / 2) / (float)n);
+__device__ __forceinline__ float lam_k(int k, int n, float dx) {
+    const float s = sinpif((float)k / (float)n);
     return (-4.0f / (dx * dx)) * s * s;
 }
 
 __global__ void __launch_bounds__(256)
-eigen_scale_kernel(float* __restrict__ g, int n, float dx0, float dx1, float dx2,
-                   float vol, float eps) {
+eigen_scale_kernel(float* __restrict__ g, int n, int kmul, int odd, float dx0,
+                   float dx1, float dx2, float vol, float eps) {
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    const int i = blockIdx.z;
+    const int r = blockIdx.z;
     if (z >= n || y >= n) return;
-    const float den = vol * (lam(i, n, dx0) + lam(y, n, dx1) + lam(z, n, dx2));
+    const int kx = kmul * (odd ? 2 * (r / 2) + 1 : (r + 1) / 2);
+    const float den = vol * (lam_k(kx, n, dx0) + lam_k((y + 1) / 2, n, dx1) +
+                             lam_k((z + 1) / 2, n, dx2));
     const float inv = fabsf(den) < eps ? 0.0f : 1.0f / den;
-    const size_t k = ((size_t)i * n + y) * n + z;
-    g[k] = g[k] * inv;
+    const size_t i = ((size_t)r * n + y) * n + z;
+    g[i] = g[i] * inv;
+}
+
+__global__ void __launch_bounds__(256)
+fold_split_kernel(const float* __restrict__ h, float* __restrict__ e,
+                  float* __restrict__ o, long long half) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < half;
+         i += (long long)gridDim.x * blockDim.x) {
+        const float a = __ldg(h + i), b = __ldg(h + half + i);
+        e[i] = a + b;
+        o[i] = a - b;
+    }
+}
+
+__global__ void __launch_bounds__(256)
+fold_combine_kernel(const float* __restrict__ qe, const float* __restrict__ qo,
+                    float* __restrict__ out, long long half) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < half;
+         i += (long long)gridDim.x * blockDim.x) {
+        const float a = 0.5f * __ldg(qe + i), b = __ldg(qo + i);
+        out[i] = a + b;
+        out[half + i] = a - b;
+    }
+}
+
+unsigned flat_blocks(long long count) {
+    const long long b = (count + 255) / 256;
+    return (unsigned)(b < 65536 ? b : 65536);
 }
 
 }  // namespace
 
-extern "C" int ins_eigen_scale_f32(float* g, int n, float dx0, float dx1, float dx2,
-                                   float vol, float eps, void* stream) {
+extern "C" int ins_eigen_scale_f32(float* g, int nr, int n, int kmul, int odd, float dx0,
+                                   float dx1, float dx2, float vol, float eps,
+                                   void* stream) {
     const dim3 block(32, 8);
-    const dim3 grid((n + 31) / 32, (n + 7) / 8, n);
-    eigen_scale_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(g, n, dx0, dx1, dx2,
-                                                                 vol, eps);
+    const dim3 grid((n + 31) / 32, (n + 7) / 8, nr);
+    eigen_scale_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(g, n, kmul, odd, dx0,
+                                                                 dx1, dx2, vol, eps);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ins_fold_split_f32(const float* h, float* e, float* o, long long half,
+                                  void* stream) {
+    fold_split_kernel<<<flat_blocks(half), 256, 0, (cudaStream_t)stream>>>(h, e, o, half);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ins_fold_combine_f32(const float* qe, const float* qo, float* out,
+                                    long long half, void* stream) {
+    fold_combine_kernel<<<flat_blocks(half), 256, 0, (cudaStream_t)stream>>>(qe, qo, out,
+                                                                             half);
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,7 @@
 //
 //   u     = ut_prev - grad(q)   (REBUILD: q physical, forward differences)
 //         | u                   (no rebuild: u is an input)
-//   f     = convdiff(u)(I)                      (-> k_out if requested)
+//   f     = convdiff(u)(I) + force(I)           (-> k_out if requested)
 //   ut    = base + sum_j ck_j k_j + cnew f      (base = u when null: RECON)
 //   usnew = (usnew_base or base) + cusnew f     (the b-row accumulator)
 //   u_out = u                                   (emit_u, REBUILD only)
@@ -13,7 +13,8 @@
 // Replaces: the stencil part of `_pcmsd_hat_kernel`
 // (ins_tpu/ops/pallas_kernels.py:2341, wrapper `pcmsd_hat_3d` :2694) and
 // of `_msd_hat_kernel` / `_stage_tail` (:692, :972, wrapper
-// `momentum_stage_divhat_3d` :1264).  The conv-diff is
+// `momentum_stage_divhat_3d` :1264), with their steady body-force stream
+// (`bf(a)`, :1037).  The conv-diff is
 // `_convdiff_window` (:129) / `convdiff_roll` term for term (`convdiff`
 // of stencil.cuh, which perop.cu shares).  The TPU
 // kernels apply the z/y eigen-transforms of q and div in the same pass;
@@ -21,6 +22,12 @@
 // before (q) and after (div) this kernel, so q and div each make one
 // extra scalar round trip through device memory.  Removing those round
 // trips (a block-level fused transform) is later work (ROADMAP queue 2).
+// The force stream carries a steady body force or, with the JAX
+// kernels' `smag=` option, the Smagorinsky force (+ body force) that
+// smag.cu computed in a pass of its own just before: the TPU kernels form
+// it inside the stage (`_stage_tail` :1011-1034), so the force makes one
+// extra round trip through device memory here (fusing it is later work,
+// ROADMAP queue 2).
 //
 // What bounds it on an H100: device-memory bytes.  With REBUILD and a
 // stream base it reads ut_prev, q and the tableau streams and writes ut,
@@ -59,6 +66,7 @@ struct StageParams {
     int m;
     float cnew;
     const float* usnew_base;  // null: base
+    const float* force;       // added to f; may be null
     float cusnew;
     int with_usnew;
     float* k_out;             // may be null
@@ -122,13 +130,14 @@ __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float
 }
 
 // Outputs of component A at I; returns its term of the divergence.
-template <bool REBUILD, int A>
+template <bool REBUILD, bool FORCE, int A>
 __device__ __forceinline__ float component(const StageParams& p, const View& u,
                                            int x, int y, int z) {
     const int n = p.n;
     const size_t n3 = (size_t)n * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
-    const float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
+    float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
+    if constexpr (FORCE) f = f + __ldg(p.force + idx);
     const float ua = u(A, 0, 0, 0);
     const float b0 = p.base ? __ldg(p.base + idx) : ua;
     const float ut = tableau(p, idx, b0, f);
@@ -145,13 +154,14 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     const int ym = A == 1 ? (y == 0 ? n - 1 : y - 1) : y;
     const int zm = A == 2 ? (z == 0 ? n - 1 : z - 1) : z;
     const size_t idxm = A * n3 + ((size_t)xm * n + ym) * n + zm;
-    const float fm = convdiff<A, MX, MY, MZ>(p.visc, p.dx, u);
+    float fm = convdiff<A, MX, MY, MZ>(p.visc, p.dx, u);
+    if constexpr (FORCE) fm = fm + __ldg(p.force + idxm);
     const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
     const float utm = tableau(p, idxm, bm, fm);
     return (ut - utm) / p.dx[A];
 }
 
-template <bool REBUILD>
+template <bool REBUILD, bool FORCE>
 __global__ void __launch_bounds__(TZ * TY)
 stage_kernel(const __grid_constant__ StageParams p) {
     __shared__ Ring s;
@@ -170,9 +180,9 @@ stage_kernel(const __grid_constant__ StageParams p) {
             View v = u;
             v.i = i;
             const int x = x0 + i;
-            float d = component<REBUILD, 0>(p, v, x, y, z);
-            d += component<REBUILD, 1>(p, v, x, y, z);
-            d += component<REBUILD, 2>(p, v, x, y, z);
+            float d = component<REBUILD, FORCE, 0>(p, v, x, y, z);
+            d += component<REBUILD, FORCE, 1>(p, v, x, y, z);
+            d += component<REBUILD, FORCE, 2>(p, v, x, y, z);
             p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
         }
         __syncthreads();  // plane x-2's slot is refilled next step
@@ -183,8 +193,8 @@ stage_kernel(const __grid_constant__ StageParams p) {
 
 extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
                              const void* const* kptrs, const float* kcoef, int m,
-                             float cnew, const float* usnew_base, float cusnew,
-                             int with_usnew, float* k_out, float* ut_out,
+                             float cnew, const float* usnew_base, const float* force,
+                             float cusnew, int with_usnew, float* k_out, float* ut_out,
                              float* usnew_out, float* u_out, float* div_out, int n,
                              float visc, float dx0, float dx1, float dx2, float vol,
                              void* stream) {
@@ -200,6 +210,7 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
     p.m = m;
     p.cnew = cnew;
     p.usnew_base = usnew_base;
+    p.force = force;
     p.cusnew = cusnew;
     p.with_usnew = with_usnew;
     p.k_out = k_out;
@@ -215,9 +226,10 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
     p.vol = vol;
     const dim3 block(TZ, TY);
     const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (n + XB - 1) / XB);
-    if (q)
-        stage_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
-    else
-        stage_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    // the force stream is a template flag, so the stage without one
+    // compiles exactly as before it existed
+    auto* kernel = q ? (force ? stage_kernel<true, true> : stage_kernel<true, false>)
+                     : (force ? stage_kernel<false, true> : stage_kernel<false, false>);
+    kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,8 @@
 from .diffkernels import convdiff_roll  # noqa: F401
+from .eddyviscosity import (  # noqa: F401
+    smagorinsky_closure_natural,
+    smagorinsky_natural_interior,
+)
 from .fdm import psolver_fdm  # noqa: F401
 from .initializers import create_spectrum, random_field, velocityfield  # noqa: F401
 from .poisson_kernels import make_fused_projection  # noqa: F401

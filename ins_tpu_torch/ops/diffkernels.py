@@ -11,13 +11,14 @@ the kernel wrapper and whose backward is the JAX package's adjoint:
 - ``convdiff_interior_3d``: the VJP of `convdiff_roll`, linearised at the
   saved input (autograd of the roll graph);
 - ``stage_div_3d``, ``pressure_correct_3d`` (linear): the hand-derived
-  adjoints, themselves small roll graphs (D = −Gᵀ).
+  adjoints, themselves small roll graphs (D = −Gᵀ);
+- ``smagorinsky_force_3d`` (`ops/smag_kernels.py`): autograd of the roll
+  twin `smagorinsky_natural_interior` in u and θ, linearised at the saved
+  inputs (an additive body force drops out).
 
 The backwards are roll graphs in the JAX package too, not Pallas
 kernels, so they stay plain PyTorch here.  ``plain=True`` puts the plain
 versions in the forward (the reference chain on the card).
-`make_smag_force_vjp` waits for the Smagorinsky force kernel (ROADMAP
-queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ __all__ = [
     "make_convdiff_vjp",
     "make_stage_div_vjp",
     "make_pressure_correct_vjp",
+    "make_smag_force_vjp",
 ]
 
 
@@ -127,6 +129,30 @@ class _PressureCorrectFn(torch.autograd.Function):
         return ct, ct_q, None, None
 
 
+class _SmagForceFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, theta, dxs, bodyforce, fwd):
+        th_t = theta if torch.is_tensor(theta) else None
+        ctx.save_for_backward(u, th_t)
+        ctx.theta, ctx.dxs = theta, dxs
+        return fwd(u.contiguous(), theta, dxs, bodyforce=bodyforce)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from .eddyviscosity import smagorinsky_natural_interior
+
+        u, th_t = ctx.saved_tensors
+        want_theta = th_t is not None and ctx.needs_input_grad[1]
+        with torch.enable_grad():
+            v = u.detach().requires_grad_(True)
+            th = th_t.detach().requires_grad_(True) if want_theta else ctx.theta
+            inputs = [v, th] if want_theta else [v]
+            grads = torch.autograd.grad(
+                smagorinsky_natural_interior(v, th, ctx.dxs), inputs, ct
+            )
+        return grads[0], (grads[1] if want_theta else None), None, None, None
+
+
 def make_convdiff_vjp(visc, dxs, *, plain=False):
     """`convdiff_interior_3d` with a custom VJP: kernel forward,
     roll-twin adjoint backward (linearised at the saved input)."""
@@ -165,5 +191,21 @@ def make_pressure_correct_vjp(dxs, *, plain=False):
 
     def f(ut, q):
         return _PressureCorrectFn.apply(ut, q, dxs, fwd)
+
+    return f
+
+
+def make_smag_force_vjp(dxs, *, bodyforce=None, plain=False):
+    """`smagorinsky_force_3d` (with an optional steady body force folded
+    in) with a custom VJP: kernel forward, backward the autograd of the
+    roll twin `smagorinsky_natural_interior`, differentiable in u and in a
+    tensor θ (the constant that a-posteriori training fits)."""
+    from . import smag_kernels
+
+    dxs = tuple(map(float, dxs))
+    fwd = smag_kernels.smagorinsky_force_3d_plain if plain else smag_kernels.smagorinsky_force_3d
+
+    def f(u, theta):
+        return _SmagForceFn.apply(u, theta, dxs, bodyforce, fwd)
 
     return f

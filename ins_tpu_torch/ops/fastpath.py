@@ -1,7 +1,7 @@
 """Ghost-free fast path for uniform periodic grids.
 
 Port of `ins_tpu/ops/fastpath.py` for explicit RK tableaus without
-temperature or body force.  Fields are carried without ghost cells
+temperature.  Fields are carried without ghost cells
 (every stencil shift is a periodic roll); `strip_*`/`reghost*` cross to
 and from the public ghosted layout.
 
@@ -15,23 +15,27 @@ Three chains:
   A chunk's first stage starts from a materialised u (`to_hat` sets
   ``qhat=None``), so it runs `momentum_stage_divhat_3d`, the same stage
   without the rebuild.  On CUDA tensors these are the hand-written
-  kernels; on CPU tensors their plain versions.
-- **The per-op chain** (3-D with a closure model, or
+  kernels; on CPU tensors their plain versions.  A steady body force and
+  the natural-form Smagorinsky closure (`smagorinsky_closure_natural`,
+  recognised by its tag) ride every stage kernel's force stream; the
+  Smagorinsky force is its own kernel, run on the rebuilt u just before
+  each stage.
+- **The per-op chain** (3-D with an untagged closure model, or
   ``differentiable=True``: the training unroll): `step_unmerged`'s
   per-op branch.  Each stage is the conv-diff kernel plus the closure
   force, then stage-div, the Poisson solve and the pressure correction,
   through the custom-VJP wrappers of `ops/diffkernels.py` (kernel
-  forward, roll-graph adjoint backward).  The Poisson solve is the
-  eigen-matmul `make_poisson_mm` on the card and `torch.fft` on the CPU,
-  as the JAX package picks it; both differentiate natively.
+  forward, roll-graph adjoint backward); the Smagorinsky force goes
+  through `make_smag_force_vjp`, differentiable in u and θ.  The Poisson
+  solve is the eigen-matmul `make_poisson_mm` on the card and `torch.fft`
+  on the CPU, as the JAX package picks it; both differentiate natively.
 - **The roll twin** (2-D, non-cubes, other tableaus, and 2-D with a
   closure): the same stage loop with conv-diff as a roll graph and the
-  projection as roll-graph divergence and gradient around the solve.
+  projection as roll-graph divergence and gradient around the solve; the
+  Smagorinsky force as `smagorinsky_natural_interior`.
 
-LMWray3, temperature, Smagorinsky and bf16 streams are ROADMAP queue 1
-item 6.  A setup with a body force raises here (the stage kernels' force
-stream is queue 2 item 5); the channel path (`ops/channelpath.py`)
-carries a steady force.
+Every chain adds a steady body force to the momentum.  LMWray3,
+temperature and bf16 streams are ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ from .diffkernels import (
     convdiff_roll,
     make_convdiff_vjp,
     make_pressure_correct_vjp,
+    make_smag_force_vjp,
     make_stage_div_vjp,
 )
-from .poisson_kernels import make_fused_projection, passB, passB_plain
+from .eddyviscosity import smagorinsky_natural_interior, theta_tensor
+from .poisson_kernels import make_fused_projection
 from .pressure import _spectral_solve, project_periodic, uniform_dxs
 
 __all__ = [
@@ -124,33 +130,40 @@ def _classic_lowstorage_rows(method):
     return ns >= 2 and all(A[i][j] == 0.0 for i in range(ns - 1) for j in range(i))
 
 
+def _is_smag(setup):
+    """A natural-form Smagorinsky closure, recognised by its tag."""
+    return getattr(setup.closure_model, "kind", None) == "smagorinsky_natural"
+
+
 def hat_chain_applicable(setup, method):
-    """Whether the fused hat chain (the four kernels) runs this setup:
-    3-D cube, classic-row tableau and no closure model (a closure rides
-    the per-op chain, as in the JAX package's `use_fused_stage`)."""
+    """Whether the fused hat chain runs this setup: 3-D cube,
+    classic-row tableau and no closure model but the natural-form
+    Smagorinsky one (another closure rides the per-op chain, as in the
+    JAX package's `use_fused_stage`)."""
     g = setup.grid
     return (
         g.dim == 3
         and g.Np[0] == g.Np[1] == g.Np[2]
         and isinstance(method, ExplicitRungeKuttaMethod)
         and _classic_lowstorage_rows(method)
-        and setup.closure_model is None
+        and (setup.closure_model is None or _is_smag(setup))
     )
 
 
 def _kernel_ops(plain):
-    """The four kernels of the hat chain: the wrappers (CUDA kernels on
-    CUDA tensors, plain versions on CPU tensors) or, with ``plain``, the
-    plain versions on any device (the reference chain a card's kernels
-    are held against)."""
+    """The kernels of the hat chain: the wrappers (CUDA kernels on CUDA
+    tensors, plain versions on CPU tensors) or, with ``plain``, the plain
+    versions on any device (the reference chain a card's kernels are held
+    against).  Pass B comes from the projection, which picks it (folded
+    or dense)."""
     if plain:
         return types.SimpleNamespace(
             msd=sk.momentum_stage_divhat_3d_plain, pcmsd=sk.pcmsd_hat_3d_plain,
-            passB=passB_plain, correct=sk.pressure_correct_qhat_3d_plain,
+            correct=sk.pressure_correct_qhat_3d_plain,
         )
     return types.SimpleNamespace(
         msd=sk.momentum_stage_divhat_3d, pcmsd=sk.pcmsd_hat_3d,
-        passB=passB, correct=sk.pressure_correct_qhat_3d,
+        correct=sk.pressure_correct_qhat_3d,
     )
 
 
@@ -160,11 +173,11 @@ def _check_method(setup, method):
             f"{type(method).__name__} is not ported yet: the port's fast "
             "path steps explicit RK tableaus (LMWray3 is ROADMAP queue 1 item 6)"
         )
-    if setup.bodyforce_field is not None:
-        raise NotImplementedError(
-            "the periodic fast path has no body-force stream yet (ROADMAP "
-            "queue 2 item 5); the channel path carries a steady force"
-        )
+
+
+def _bodyforce_interior(setup):
+    f = setup.bodyforce_field
+    return None if f is None else strip_ghosts(f)
 
 
 def _make_hat_fns(setup, method, projection_precision, plain):
@@ -175,9 +188,12 @@ def _make_hat_fns(setup, method, projection_precision, plain):
     proj = make_fused_projection(
         g.Np, dxs, setup.dtype, precision=projection_precision, device=setup.device
     )
+    passB = proj["passB_plain" if plain else "passB"]
     A, ns = method.A, method.nstage
+    force = _bodyforce_interior(setup)
+    d2 = float(sum(d * d for d in dxs))
 
-    def stage0(ut, qhat, coeff, unc):
+    def stage0(ut, qhat, coeff, unc, smag):
         """Stage 0: from a materialised u (``qhat is None``) without the
         rebuild, else the step-boundary merge with the rebuilt u as base.
         Returns (ut, divhat, usnew, ustart)."""
@@ -185,28 +201,34 @@ def _make_hat_fns(setup, method, projection_precision, plain):
             res = ops.msd(
                 ut, (ut,), (coeff,), visc, dxs, proj["Vinv"], proj["VinvT"],
                 precision=projection_precision, emit_k=False, usnew_coeff=unc,
+                bodyforce=force, smag=smag,
             )
             ustart = ut
         else:
             res = ops.pcmsd(
                 ut, qhat, (sk.RECON,), (coeff,), visc, dxs, proj,
                 precision=projection_precision, emit_k=False, usnew_coeff=unc,
-                emit_u=ns > 1,
+                bodyforce=force, smag=smag, emit_u=ns > 1,
             )
             ustart = res[-1] if ns > 1 else None
         usnew = res[2] if unc is not None else None
         return res[0], res[1], usnew, ustart
 
-    def step_hat(h, dt):
+    def step_hat(h, dt, theta=None):
         """One RK step on the hat carry; the final pressure correction is
-        deferred to the next step's stage 0 (or `from_hat`)."""
+        deferred to the next step's stage 0 (or `from_hat`).  ``theta``
+        is the Smagorinsky constant where the setup has that closure (made
+        a tensor once per step, not once per launch)."""
+        smag = None
+        if _is_smag(setup):
+            smag = (theta_tensor(theta, setup.dtype, setup.device), d2)
         ut, qhat, _, t, n = h
         for i in range(ns):
             last = i == ns - 1
             bcoef = A[ns - 1][i]
             unc = dt * bcoef if (bcoef != 0.0 and not last) else None
             if i == 0:
-                ut, divhat, usnew, ustart = stage0(ut, qhat, dt * A[0][0], unc)
+                ut, divhat, usnew, ustart = stage0(ut, qhat, dt * A[0][0], unc, smag)
                 acc = usnew if unc is not None else ustart
             else:
                 ub = None if (unc is None or acc is ustart) else acc
@@ -214,11 +236,12 @@ def _make_hat_fns(setup, method, projection_precision, plain):
                     ut, qhat, ((acc,) if last else (ustart,)), (dt * A[i][i],),
                     visc, dxs, proj, precision=projection_precision,
                     emit_k=False, usnew_coeff=unc, usnew_base=ub,
+                    bodyforce=force, smag=smag,
                 )
                 ut, divhat = res[0], res[1]
                 if unc is not None:
                     acc = res[2]
-            qhat = ops.passB(divhat, proj)
+            qhat = passB(divhat)
         return HatState(ut=ut, qhat=qhat, temp=None, t=t + dt, n=n + 1)
 
     def to_hat(state):
@@ -238,7 +261,8 @@ def make_fast_timestep_hat(setup, method, *, projection_precision="manualhigh",
                            plain=False):
     """``(to_hat, step_hat, from_hat)`` of the step-boundary-merged chain,
     or None where it does not apply (then use `make_fast_timestep`).
-    ``plain=True`` builds it from the kernels' plain versions."""
+    ``plain=True`` builds it from the kernels' plain versions.
+    ``step_hat(h, dt, theta=None)`` takes the Smagorinsky constant."""
     _check_method(setup, method)
     if not hat_chain_applicable(setup, method):
         return None
@@ -249,20 +273,21 @@ def make_fast_timestep(setup, method, *, differentiable=False,
                        projection_precision="manualhigh", plain=False):
     """``step(state, dt, theta=None) -> state`` on the interior layout.
 
-    With a closure model or ``differentiable=True`` a 3-D setup runs the
-    per-op chain (``theta`` goes to the closure); otherwise the hat chain
-    materialised every step where it applies, else the roll twin.
-    ``plain=True`` builds the per-op chain from the kernels' plain
+    With an untagged closure model or ``differentiable=True`` a 3-D setup
+    runs the per-op chain (``theta`` goes to the closure); otherwise the
+    hat chain materialised every step where it applies, else the roll
+    twin.  ``plain=True`` builds the per-op chain from the kernels' plain
     versions (the reference chain on the card)."""
     _check_method(setup, method)
-    per_op = setup.closure_model is not None or differentiable
+    smag = _is_smag(setup)
+    per_op = (setup.closure_model is not None and not smag) or differentiable
     if not per_op and hat_chain_applicable(setup, method):
         to_hat, step_hat, from_hat = _make_hat_fns(
             setup, method, projection_precision, plain=False
         )
 
         def step(state, dt, theta=None):
-            return from_hat(step_hat(to_hat(state), dt))
+            return from_hat(step_hat(to_hat(state), dt, theta))
 
         return step
 
@@ -274,16 +299,24 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     else:
         solve_p = _spectral_solve(setup.grid.Np, dxs, setup.dtype, setup.device)
     closure = setup.closure_model
+    force = _bodyforce_interior(setup)
     kernels = per_op and D == 3
     if kernels:
         convdiff = make_convdiff_vjp(visc, dxs, plain=plain)
         stage_div = make_stage_div_vjp(dxs, plain=plain)
         correct = make_pressure_correct_vjp(dxs, plain=plain)
+        if smag:
+            smag_force = make_smag_force_vjp(dxs, plain=plain)
     A, c, ns = method.A, method.c, method.nstage
 
     def momentum(u, theta):
         F = convdiff(u) if kernels else convdiff_roll(u, visc, dxs)
-        if closure is not None:
+        if force is not None:
+            F = F + force
+        if smag:
+            F = F + (smag_force(u, theta) if kernels
+                     else smagorinsky_natural_interior(u, theta, dxs))
+        elif closure is not None:
             # closures take the ghosted solver layout
             F = F + strip_ghosts(closure(reghost(u), theta))
         return F
@@ -298,6 +331,8 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     def step(state, dt, theta=None):
         """The JAX package's `step_unmerged` per-op branch."""
         u, _, tstart, n = state
+        if smag:
+            theta = theta_tensor(theta, setup.dtype, setup.device)
         ustart = u
         ku = []
         t = tstart

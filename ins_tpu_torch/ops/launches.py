@@ -30,7 +30,10 @@ KERNELS = (
     "pcmsd_hat_3d",
     "momentum_stage_divhat_3d",
     "passB",
+    "passB_fold",
     "pressure_correct_qhat_3d",
+    # the Smagorinsky force (ops/smag_kernels.py)
+    "smagorinsky_force_3d",
     # the per-op chain (ops/perop_kernels.py)
     "convdiff_interior_3d",
     "stage_div_3d",

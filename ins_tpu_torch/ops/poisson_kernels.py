@@ -1,20 +1,27 @@
 """Pass B of the fused pressure projection on a periodic cube.
 
-Port of `poisson_eigen_consts` and `make_fused_projection` from
+Port of `poisson_eigen_consts`, `fold_levels_default`,
+`poisson_fold_consts` and `make_fused_projection` from
 `ins_tpu/ops/poisson_pallas.py`.  The fused projection splits the
 fast-diagonalization Poisson solve across three kernels: the stage
 kernel emits ``divhat = Vinv_y · (vol·div) · Vinv_zᵀ`` per x-plane, pass
 B here solves in x, and the correction consumes ``qhat`` with the z/y
-inverse transform.  Pass B is
+inverse transform.  The dense pass B is
 
     g    = Vinv_x · divhat                     (x-forward)
     g   *= 1 / (vol·(λx + λy + λz))            (0 where |den| < eps)
     qhat = V_x · g                             (x-inverse)
 
-On CUDA tensors it runs as GEMM (`csrc/transforms.cu`), eigen-scale
-kernel (`csrc/poisson.cu`), GEMM; on CPU tensors as its plain version
-`passB_plain`.  The dense form computes the same qhat as the JAX
-package's radix-2 folded pass B; the fold is a later speed-up.
+and the radix-2 folded one (`make_fused_projection` takes it wherever
+n % 4 == 0, as the JAX package does) splits each level's transform into
+half-size ones: with e = h[:n/2] + h[n/2:] and o = h[:n/2] − h[n/2:],
+the odd frequencies solve as ``S_o · scale(R_o · o)`` and the even ones
+recurse on e (the even half-basis is the n/2-point basis scaled by
+1/√2), then ``qhat = [q_e/2 + q_o; q_e/2 − q_o]``; the leaf is dense.
+
+On CUDA tensors each runs as GEMMs (`csrc/transforms.cu`) around the
+eigen-scale, split and combine kernels of `csrc/poisson.cu`; on CPU
+tensors as the plain versions `passB_plain` and `passB_fold_plain`.
 """
 
 from __future__ import annotations
@@ -31,84 +38,211 @@ from .transforms import x_transform, x_transform_plain
 
 __all__ = [
     "poisson_eigen_consts",
+    "fold_levels_default",
+    "poisson_fold_consts",
     "make_fused_projection",
     "passB",
     "passB_plain",
+    "passB_fold",
+    "passB_fold_plain",
 ]
+
+
+def _pin_eps(Np, dxs):
+    """The nullspace pin threshold: 1e-12 of the largest |den|."""
+    vol = float(np.prod(dxs))
+    maxden = 0.0
+    for d in range(3):
+        _, _, lam_d = fourier_eigenbasis(Np[d], dxs[d])
+        maxden += np.max(np.abs(lam_d)) * vol
+    return float(1e-12 * maxden)
+
+
+def _const(a, dtype, device):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
 def poisson_eigen_consts(Np, dxs, dtype, device="cuda"):
     """(V, Vinv, eps) for the cube fast-diagonalization solve; `eps` is
     the nullspace pin threshold (the k = 0 mode, den == 0, maps to 0)."""
     V, Vinv, _ = fourier_eigenbasis(Np[0], dxs[0])
-    vol = float(np.prod(dxs))
-    maxden = 0.0
-    for d in range(3):
-        _, _, lam_d = fourier_eigenbasis(Np[d], dxs[d])
-        maxden += np.max(np.abs(lam_d)) * vol
-    eps = float(1e-12 * maxden)
+    return _const(V, dtype, device), _const(Vinv, dtype, device), _pin_eps(Np, dxs)
 
-    def c(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    return c(V), c(Vinv), eps
+def fold_levels_default(n):
+    """Recursion depth of the folded pass B: halve while the leaf stays
+    >= 128 wide, at most twice (1 level at 64-256, 2 at 512); one fold
+    for smaller n % 4 == 0.  Every folded size keeps n_d % 4 == 0, so the
+    Nyquist mode stays an even frequency."""
+    levels = 0
+    n_d = n
+    while n_d % 4 == 0 and n_d // 2 >= 128 and levels < 2:
+        levels += 1
+        n_d //= 2
+    if levels == 0 and n % 4 == 0:
+        levels = 1
+    return levels
+
+
+def poisson_fold_consts(Np, dxs, dtype, levels=None, device="cuda"):
+    """(mats, levels, eps) of the folded pass B: per level the
+    odd-frequency rows of the level's x eigenbasis restricted to the first
+    half of its domain (R_o) and the matching inverse columns (S_o), then
+    the leaf basis pair: ``[R_o^0, S_o^0, ..., Vinv_L, V_L]``."""
+    n = Np[0]
+    if levels is None:
+        levels = fold_levels_default(n)
+    mats = []
+    n_d = n
+    for _ in range(levels):
+        if n_d % 4:
+            raise ValueError(f"{levels} fold levels need n % {2 ** (levels + 1)} == 0, got {n}")
+        V, Vinv, _ = fourier_eigenbasis(n_d, dxs[0])
+        n2 = n_d // 2
+        odd_idx = []
+        for k in range(1, n2, 2):
+            odd_idx += [2 * k - 1, 2 * k]
+        mats += [_const(Vinv[odd_idx][:, :n2], dtype, device),
+                 _const(V[:n2][:, odd_idx], dtype, device)]
+        n_d = n2
+    V, Vinv, _ = fourier_eigenbasis(n_d, dxs[0])
+    mats += [_const(Vinv, dtype, device), _const(V, dtype, device)]
+    return mats, levels, _pin_eps(Np, dxs)
 
 
 def _lam(idx, dx, n):
-    """Second-difference eigenvalue -4 sin^2(pi k / n) / dx^2 at
-    frequency k = ceil(idx / 2) (eigenbasis order const, cos_1, sin_1,
-    ..., Nyquist)."""
-    kk = torch.div(idx + 1, 2, rounding_mode="floor")
-    s = torch.sin((math.pi / n) * kk)
+    """Second-difference eigenvalue -4 sin^2(pi k / n) / dx^2 at frequency
+    k = ceil(idx / 2) (eigenbasis order const, cos_1, sin_1, ...,
+    Nyquist)."""
+    return _lam_k(torch.div(idx + 1, 2, rounding_mode="floor"), dx, n)
+
+
+def _lam_k(k, dx, n):
+    """-4 sin^2(pi k / n) / dx^2 at frequency k."""
+    s = torch.sin((math.pi / n) * k)
     return (-4.0 / (dx * dx)) * s * s
 
 
-def _inv_den(n, dxs, eps, dtype, device):
-    idx = torch.arange(n, dtype=dtype, device=device)
-    vol = float(np.prod(dxs))
-    den = vol * (
-        _lam(idx, dxs[0], n)[:, None, None]
-        + _lam(idx, dxs[1], n)[None, :, None]
-        + _lam(idx, dxs[2], n)[None, None, :]
-    )
+def _scale_plain(g, kx, proj):
+    """g *= 1/den, den = vol·(λx(kx) + λy + λz), with the x-frequencies
+    ``kx`` of g's rows; 0 where |den| < eps (the nullspace pin)."""
+    n = g.shape[-1]
+    dxs, vol = proj["dxs"], proj["vol"]
+    idx = torch.arange(n, dtype=g.dtype, device=g.device)
+    lam_yz = _lam(idx, dxs[1], n)[:, None] + _lam(idx, dxs[2], n)[None, :]
+    den = vol * (_lam_k(kx.to(g.dtype), dxs[0], n)[:, None, None] + lam_yz)
     safe = torch.where(den == 0.0, torch.ones_like(den), den)
-    return torch.where(den.abs() < eps, torch.zeros_like(den), 1.0 / safe)
+    return g * torch.where(den.abs() < proj["eps"], torch.zeros_like(den), 1.0 / safe)
+
+
+def _ceil_half(r):
+    return torch.div(r + 1, 2, rounding_mode="floor")
 
 
 def passB_plain(h, proj):
     """Plain PyTorch pass B: einsum x-transforms and the closed-form scale."""
     note_plain("passB", h)
-    n = h.shape[0]
-    g = x_transform_plain(proj["Vinv"], h)
-    g = g * _inv_den(n, proj["dxs"], proj["eps"], h.dtype, h.device)
+    r = torch.arange(h.shape[0], device=h.device)
+    g = _scale_plain(x_transform_plain(proj["Vinv"], h), _ceil_half(r), proj)
     return x_transform_plain(proj["V"], g)
 
 
+def _fold_plain(hb, proj, lvl, kmul):
+    """The recursion of `_passB_fold_body` (poisson_pallas.py:136)."""
+    mats, levels = proj["fold_mats"], proj["fold_levels"]
+    nn = hb.shape[0]
+    r = torch.arange(nn, device=hb.device)
+    if lvl == levels:
+        g = _scale_plain(x_transform_plain(mats[2 * levels], hb), kmul * _ceil_half(r), proj)
+        return x_transform_plain(mats[2 * levels + 1], g)
+    n2 = nn // 2
+    e = hb[:n2] + hb[n2:]
+    o = hb[:n2] - hb[n2:]
+    ro = r[:n2]
+    go = _scale_plain(x_transform_plain(mats[2 * lvl], o),
+                      kmul * (2 * torch.div(ro, 2, rounding_mode="floor") + 1), proj)
+    qo = x_transform_plain(mats[2 * lvl + 1], go)
+    qe = 0.5 * _fold_plain(e, proj, lvl + 1, 2 * kmul)
+    return torch.cat([qe + qo, qe - qo], dim=0)
+
+
+def passB_fold_plain(h, proj):
+    """Plain PyTorch folded pass B (the same qhat as `passB_plain`)."""
+    note_plain("passB_fold", h)
+    return _fold_plain(h, proj, 0, 1)
+
+
+def _scale(g, kmul, odd, proj):
+    n = g.shape[-1]
+    dx0, dx1, dx2 = proj["dxs"]
+    err = _build.load().ins_eigen_scale_f32(
+        g.data_ptr(), g.shape[0], n, kmul, int(odd), dx0, dx1, dx2, proj["vol"],
+        proj["eps"], current_stream(g.device),
+    )
+    _build.check(err, "pass B eigen-scale")
+
+
+def _fold(hb, proj, lvl, kmul):
+    mats, levels = proj["fold_mats"], proj["fold_levels"]
+    if lvl == levels:
+        g = x_transform(mats[2 * levels], hb)
+        _scale(g, kmul, False, proj)
+        return x_transform(mats[2 * levels + 1], g)
+    lib = _build.load()
+    stream = current_stream(hb.device)
+    n2 = hb.shape[0] // 2
+    half = hb[:n2].numel()
+    e, o = torch.empty_like(hb[:n2]), torch.empty_like(hb[:n2])
+    _build.check(lib.ins_fold_split_f32(hb.data_ptr(), e.data_ptr(), o.data_ptr(), half,
+                                        stream), "passB_fold")
+    go = x_transform(mats[2 * lvl], o)
+    _scale(go, kmul, True, proj)
+    qo = x_transform(mats[2 * lvl + 1], go)
+    qe = _fold(e, proj, lvl + 1, 2 * kmul)
+    out = torch.empty_like(hb)
+    _build.check(lib.ins_fold_combine_f32(qe.data_ptr(), qo.data_ptr(), out.data_ptr(),
+                                          half, stream), "passB_fold")
+    return out
+
+
 def passB(h, proj):
-    """Pass B: ``divhat -> qhat`` on an (n, n, n) field."""
+    """Dense pass B: ``divhat -> qhat`` on an (n, n, n) field."""
     if h.device.type == "cpu":
         return passB_plain(h, proj)
     n = h.shape[0]
     device = check_cuda_operands(
         "passB", n, h=(h, "sca"), Vinv=(proj["Vinv"], "mat"), V=(proj["V"], "mat")
     )
-    dx0, dx1, dx2 = proj["dxs"]
     with torch.cuda.device(device):
         g = x_transform(proj["Vinv"], h)
-        err = _build.load().ins_eigen_scale_f32(
-            g.data_ptr(), n, dx0, dx1, dx2, proj["vol"], proj["eps"],
-            current_stream(device),
-        )
-        _build.check(err, "passB")
+        _scale(g, 1, False, proj)
         LAUNCHES["passB"] += 1
         return x_transform(proj["V"], g)
 
 
+def passB_fold(h, proj):
+    """Radix-2 folded pass B (``proj["fold_levels"]`` levels, matrices
+    ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field."""
+    if h.device.type == "cpu":
+        return passB_fold_plain(h, proj)
+    n = h.shape[0]
+    levels = proj["fold_levels"]
+    if levels is None or n % 2 ** (levels + 1):
+        raise ValueError(f"passB_fold: no {levels}-level fold at n = {n}")
+    device = check_cuda_operands("passB_fold", n, h=(h, "sca"))
+    with torch.cuda.device(device):
+        out = _fold(h, proj, 0, 1)
+        LAUNCHES["passB_fold"] += 1
+    return out
+
+
 def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cuda"):
-    """Pieces of the fused pressure projection: ``passB(h) -> qhat`` and
-    the transform matrices (Vinv, VinvT, V, VT) the stage and correction
-    kernels take.  ``precision`` is accepted for parity with the JAX
-    package; both names run at FP32 ("highest" class) here."""
+    """Pieces of the fused pressure projection: ``passB(h) -> qhat`` (the
+    folded pass B where n % 4 == 0, else the dense one; ``passB_plain``
+    the same choice's plain version) and the transform matrices (Vinv,
+    VinvT, V, VT) the stage and correction kernels take.  ``precision``
+    is accepted for parity with the JAX package; both names run at FP32
+    ("highest" class) here."""
     if precision not in ("manualhigh", "highest"):
         raise ValueError(f"unknown projection precision {precision!r}")
     if not (len(Np) == 3 and Np[0] == Np[1] == Np[2]):
@@ -123,5 +257,13 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
         "dxs": tuple(float(d) for d in dxs),
         "vol": float(np.prod(dxs)),
     }
-    proj["passB"] = lambda h: passB(h, proj)
+    if Np[0] % 4 == 0:
+        mats, levels, _ = poisson_fold_consts(Np, dxs, dtype, device=device)
+        proj.update(fold_mats=mats, fold_levels=levels)
+        proj["passB"] = lambda h: passB_fold(h, proj)
+        proj["passB_plain"] = lambda h: passB_fold_plain(h, proj)
+    else:
+        proj.update(fold_mats=None, fold_levels=None)
+        proj["passB"] = lambda h: passB(h, proj)
+        proj["passB_plain"] = lambda h: passB_plain(h, proj)
     return proj

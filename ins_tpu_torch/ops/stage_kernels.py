@@ -15,8 +15,13 @@ Each wrapper runs its hand-written CUDA kernel for CUDA tensors
 (`csrc/stage.cu`, `csrc/correct.cu`, with the z/y transforms as GEMMs of
 `csrc/transforms.cu`) and its plain PyTorch version, beside it here, for
 CPU tensors.  A CUDA call either launches the kernel or raises: there is
-no fallback.  Options off the port's path (``bodyforce``, ``smag``,
-``temperature`` and a bf16 ``compute_dtype``) raise NotImplementedError.
+no fallback.  ``bodyforce`` (a steady force, interior layout) rides the
+stage kernel's force stream; ``smag=(theta, d2)`` runs the Smagorinsky
+force kernel (`ops/smag_kernels.py`, on the rebuilt u for `pcmsd_hat_3d`)
+with the body force folded in and feeds its output to the same stream.
+The plain versions add both where the JAX package's `_stage_tail` does:
+f = convdiff + smag + bodyforce.  ``temperature`` and a bf16
+``compute_dtype`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 from .. import _build
 from .diffkernels import convdiff_roll, roll_m, roll_p
 from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain, ptr
+from .smag_kernels import _force as smag_force
+from .smag_kernels import _force_plain as smag_force_plain
 from .transforms import yz_transform, yz_transform_plain
 
 __all__ = [
@@ -54,16 +61,12 @@ RECON = _Recon()
 _MAXK = 4  # k streams the CUDA stage kernel takes (csrc/stage.cu MAXK)
 
 
-def _reject_unported(bodyforce=None, smag=None, temperature=None, compute_dtype=None):
-    for name, val, item in (
-        ("bodyforce", bodyforce, "body force stream"),
-        ("smag", smag, "fused Smagorinsky"),
-        ("temperature", temperature, "Boussinesq temperature"),
-    ):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet ({item}, ROADMAP queue 1 item 6)"
-            )
+def _reject_unported(temperature=None, compute_dtype=None):
+    if temperature is not None:
+        raise NotImplementedError(
+            "temperature= is not ported yet (Boussinesq temperature, ROADMAP "
+            "queue 1 item 6)"
+        )
     if compute_dtype is not None and compute_dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             "bf16 stream storage (compute_dtype) is not ported yet "
@@ -93,9 +96,15 @@ def _grad(q, dxs):
     return torch.stack([(roll_p(q, a) - q) / dxs[a] for a in range(3)])
 
 
-def _stage_plain(u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base):
+def _stage_plain(u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base,
+                 bodyforce, smag):
     """The stage-tail math (`_stage_tail`, pallas_kernels.py:972)."""
     f = convdiff_roll(u, visc, dxs)
+    if smag is not None:
+        theta, d2 = smag
+        f = f + smag_force_plain(u, theta, dxs, d2)
+    if bodyforce is not None:
+        f = f + bodyforce
     ut = base
     for c, k in zip(cks, ks):
         ut = ut + c * k
@@ -124,12 +133,12 @@ def momentum_stage_divhat_3d_plain(
     usnew_base=None, smag=None, temperature=None, compute_dtype=None,
 ):
     """Plain PyTorch version of `momentum_stage_divhat_3d`."""
-    _reject_unported(bodyforce, smag, temperature, compute_dtype)
+    _reject_unported(temperature, compute_dtype)
     note_plain("momentum_stage_divhat_3d", u_int)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
-    _check_cube("momentum_stage_divhat_3d", u_int, base, *ks)
+    _check_cube("momentum_stage_divhat_3d", u_int, base, *ks, bodyforce)
     f, ut, div, usnew = _stage_plain(
-        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base
+        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag
     )
     divhat = yz_transform_plain(div, vinvy, vinvzT)
     return _pack(emit_k, f, ut, divhat, usnew)
@@ -141,7 +150,7 @@ def pcmsd_hat_3d_plain(
     usnew_base=None, smag=None, emit_u=False, temperature=None,
 ):
     """Plain PyTorch version of `pcmsd_hat_3d`."""
-    _reject_unported(bodyforce, smag, temperature)
+    _reject_unported(temperature)
     note_plain("pcmsd_hat_3d", ut_prev)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     q = yz_transform_plain(qhat, proj["V"], proj["VT"])
@@ -150,9 +159,9 @@ def pcmsd_hat_3d_plain(
         if ks:
             raise ValueError("RECON base allows no k streams")
         base = u
-    _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks)
+    _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks, bodyforce)
     f, ut, div, usnew = _stage_plain(
-        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base
+        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag
     )
     divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"])
     return _pack(emit_k, f, ut, divhat, usnew, u if emit_u else None)
@@ -169,13 +178,24 @@ def pressure_correct_qhat_3d_plain(
     return u if out_dtype is None else u.to(out_dtype)
 
 
+def _stage_force(u, q, dxs, bodyforce, smag):
+    """The stage kernel's force stream: the body force, or the Smagorinsky
+    kernel's output on u (rebuilt from ``q`` when given) with the body
+    force folded in."""
+    if smag is None:
+        return bodyforce
+    theta, d2 = smag
+    return smag_force(u, theta, dxs, d2, bodyforce=bodyforce, rebuild_q=q)
+
+
 def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
-                  usnew_coeff, usnew_base, emit_u):
+                  usnew_coeff, usnew_base, emit_u, force):
     """One launch of the stage kernel; returns (k, ut, div, usnew, u)."""
     n = u.shape[1]
     if len(ks) > _MAXK:
         raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
-    operands = dict(u=(u, "vec"), q=(q, "sca"), usnew_base=(usnew_base, "vec"))
+    operands = dict(u=(u, "vec"), q=(q, "sca"), usnew_base=(usnew_base, "vec"),
+                    force=(force, "vec"))
     if base is not None:
         operands["base"] = (base, "vec")
     for j, k in enumerate(ks):
@@ -191,7 +211,7 @@ def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
         kcoef = (ctypes.c_float * _MAXK)(*cks)
         err = _build.load().ins_stage_f32(
             u.data_ptr(), ptr(q), ptr(base), kptrs, kcoef, len(ks), cnew,
-            ptr(usnew_base), 0.0 if usnew_coeff is None else float(usnew_coeff),
+            ptr(usnew_base), ptr(force), 0.0 if usnew_coeff is None else float(usnew_coeff),
             int(usnew_coeff is not None), ptr(k_out), ut.data_ptr(), ptr(usnew),
             ptr(u_out), div.data_ptr(), n, float(visc),
             float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
@@ -212,7 +232,8 @@ def momentum_stage_divhat_3d(
     ``coeffs`` their m + 1 coefficients, the new k's last.  Returns
     ``(k, ut, divhat)``, without k when ``emit_k=False``, plus
     ``usnew = (usnew_base or ustart) + usnew_coeff·k`` when
-    ``usnew_coeff`` is given."""
+    ``usnew_coeff`` is given.  ``bodyforce`` (steady) and ``smag=(theta,
+    d2)`` (the Smagorinsky force) join the momentum, so k includes them."""
     if u_int.device.type == "cpu":
         return momentum_stage_divhat_3d_plain(
             u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
@@ -220,16 +241,17 @@ def momentum_stage_divhat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             temperature=temperature, compute_dtype=compute_dtype,
         )
-    _reject_unported(bodyforce, smag, temperature, compute_dtype)
+    _reject_unported(temperature, compute_dtype)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     n = u_int.shape[1]
     check_cuda_operands(
-        "momentum_stage_divhat_3d", n, vinvy=(vinvy, "mat"), vinvzT=(vinvzT, "mat")
+        "momentum_stage_divhat_3d", n, u=(u_int, "vec"), vinvy=(vinvy, "mat"),
+        vinvzT=(vinvzT, "mat"), bodyforce=(bodyforce, "vec"),
     )
     k, ut, div, usnew, _ = _launch_stage(
         "momentum_stage_divhat_3d", u_int, None, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
-        emit_u=False,
+        emit_u=False, force=_stage_force(u_int, None, dxs, bodyforce, smag),
     )
     divhat = yz_transform(div, vinvy, vinvzT)
     return _pack(emit_k, k, ut, divhat, usnew)
@@ -253,21 +275,24 @@ def pcmsd_hat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             emit_u=emit_u, temperature=temperature,
         )
-    _reject_unported(bodyforce, smag, temperature)
+    _reject_unported(temperature)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     if base is RECON:
         if ks:
             raise ValueError("RECON base allows no k streams")
         base = None
     n = ut_prev.shape[1]
-    check_cuda_operands("pcmsd_hat_3d", n, qhat=(qhat, "sca"))
+    check_cuda_operands(
+        "pcmsd_hat_3d", n, ut_prev=(ut_prev, "vec"), qhat=(qhat, "sca"),
+        bodyforce=(bodyforce, "vec"),
+    )
     # q and div each make one scalar round trip through device memory
     # here (the TPU kernel transforms them in the same pass)
     q = yz_transform(qhat, proj["V"], proj["VT"])
     k, ut, div, usnew, u = _launch_stage(
         "pcmsd_hat_3d", ut_prev, q, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
-        emit_u=emit_u,
+        emit_u=emit_u, force=_stage_force(ut_prev, q, dxs, bodyforce, smag),
     )
     divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
     return _pack(emit_k, k, ut, divhat, usnew, u)

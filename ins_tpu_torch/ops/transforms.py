@@ -16,7 +16,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain
+from .launches import (
+    LAUNCHES,
+    check_cuda_operands,
+    check_cuda_tensors,
+    current_stream,
+    note_plain,
+)
 
 __all__ = [
     "yz_transform",
@@ -66,12 +72,17 @@ def yz_transform(f, my, mzT):
 
 
 def x_transform(mx, h):
-    """``mx @ h`` over the leading axis: one (n x n) @ (n x n^2) GEMM."""
+    """``mx @ h`` over the leading axis: one (m x r) @ (r x n^2) GEMM for
+    an (r, n, n) block (r = n for pass B, a fold level's half for the
+    folded pass B)."""
     if h.device.type == "cpu":
         return x_transform_plain(mx, h)
-    n = h.shape[0]
-    device = check_cuda_operands("x_transform", n, h=(h, "sca"), mx=(mx, "mat"))
+    r, n = h.shape[0], h.shape[-1]
+    m = mx.shape[0]
+    device = check_cuda_tensors(
+        "x_transform", (torch.float32,), h=(h, (r, n, n)), mx=(mx, (m, r))
+    )
     with torch.cuda.device(device):
-        out = torch.empty_like(h)
-        _gemm(mx, h, out, n, n * n, n, n, n * n, n * n, 0, 0, 0, 1)
+        out = torch.empty((m, n, n), dtype=h.dtype, device=device)
+        _gemm(mx, h, out, m, n * n, r, r, n * n, n * n, 0, 0, 0, 1)
     return out

@@ -1,11 +1,12 @@
 """Processors: in-loop observability.
 
-Port of the protocol, `timelogger` and `fieldsaver` of
-`ins_tpu/processors.py`, plus `total_kinetic_energy` on periodic grids
-and channels.  A processor is ``(initialize, update, finalize)`` over snapshots
-of the solver state taken at chunk boundaries; ``nupdate`` decimation
-also sets the chunk size, so no step forces a device-to-host sync.  The
-other observers wait for ROADMAP queue 1 items 3 and 10.
+Port of the protocol, `timelogger`, `fieldsaver`, `observefield` and
+`observespectrum` of `ins_tpu/processors.py`, plus `total_kinetic_energy`
+on periodic grids and channels.  A processor is ``(initialize, update,
+finalize)`` over snapshots of the solver state taken at chunk
+boundaries; ``nupdate`` decimation also sets the chunk size, so no step
+forces a device-to-host sync.  The other observers wait for ROADMAP
+queue 1 items 3 and 10.
 """
 
 from __future__ import annotations
@@ -14,16 +15,20 @@ import dataclasses
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from .ops._stencil import seg
 from .ops.channelpath import channelpath_applicable
+from .utils.spectrum import observe_spectrum, spectral_stuff
 
 __all__ = [
     "Processor",
     "processor",
     "timelogger",
     "fieldsaver",
+    "observefield",
+    "observespectrum",
     "total_kinetic_energy",
 ]
 
@@ -83,6 +88,63 @@ def fieldsaver(nupdate=1):
         return fields
 
     return Processor(initialize, update, lambda fields, s: fields, nupdate)
+
+
+def _to_host(v):
+    """Tensors (also inside lists, tuples and dicts) as numpy arrays."""
+    if torch.is_tensor(v):
+        return v.detach().cpu().numpy()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_host(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _to_host(x) for k, x in v.items()}
+    return v
+
+
+def observefield(func, *, nupdate=1):
+    """Record a derived quantity `func(state) -> value` every `nupdate`
+    steps, tensors copied to the host as numpy arrays."""
+
+    def initialize(state):
+        return []
+
+    def update(vals, state):
+        vals.append(_to_host(func(state)))
+        return vals
+
+    return Processor(initialize, update, lambda vals, s: vals, nupdate)
+
+
+def observespectrum(setup, *, nupdate=1, npoint=100):
+    """Processor recording the binned kinetic-energy spectrum: per velocity
+    component the FFT of the interior, cropped to the first K wavenumbers
+    per dimension, |û|²/(2·prod(Np)²) summed and binned by
+    `utils.spectrum.observe_spectrum`.  Returns dict(kappa, ehat, t)."""
+    g = setup.grid
+    D = g.dim
+    st = spectral_stuff(setup, npoint=npoint)
+    K = st["K"]
+    ip = tuple(slice(s, e) for s, e in g.Ip)
+    scale = 2 * float(np.prod(g.Np)) ** 2
+
+    def ehat_of(u):
+        e = 0.0
+        for a in range(D):
+            uhat = u[a][ip]
+            for d in range(D):  # per axis, cropped as it goes
+                uhat = torch.fft.fft(uhat, dim=d).narrow(d, 0, K[d])
+            e = e + uhat.abs() ** 2 / scale
+        return observe_spectrum(e.to(u.dtype), st)
+
+    def initialize(state):
+        return dict(kappa=st["kappa"].cpu().numpy(), ehat=[], t=[])
+
+    def update(ps, state):
+        ps["ehat"].append(ehat_of(state["u"]).cpu().numpy())
+        ps["t"].append(float(state["t"]))
+        return ps
+
+    return Processor(initialize, update, lambda ps, s: ps, nupdate)
 
 
 def total_kinetic_energy(u, setup):

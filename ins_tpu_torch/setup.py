@@ -6,12 +6,13 @@ model, a working dtype and the device every tensor of the run is made
 on.  The device defaults to the card (``"cuda"``); without one, `Setup`
 raises unless the caller passes ``device="cpu"``.  A closure model is a
 callable ``closure(u, theta)`` on the ghosted ``(D, *N)`` velocity (for
-example `models.wrappedclosure` around a CNN).  A steady body force is a
-torch function ``bodyforce(dim, *x, t)`` (``dim`` a Python int, the
-coordinates broadcastable tensors), evaluated once here on the full
-staggered coordinates as `bodyforce_field`.  Unsteady body forces, the
-natural-form Smagorinsky closure and temperature wait for ROADMAP queue
-1 item 6 and raise until then.
+example `models.wrappedclosure` around a CNN, or the natural-form
+Smagorinsky closure `smagorinsky_closure_natural`, which the periodic
+fast path recognises by its tag).  A steady body force is a torch
+function ``bodyforce(dim, *x, t)`` (``dim`` a Python int, the coordinates
+broadcastable tensors), evaluated once here on the full staggered
+coordinates as `bodyforce_field`.  Unsteady body forces and temperature
+wait for ROADMAP queue 1 item 6 and raise until then.
 """
 
 from __future__ import annotations
@@ -85,11 +86,6 @@ def Setup(
     if temperature is not None:
         raise NotImplementedError(
             "temperature is not ported yet (ROADMAP queue 1 item 6)"
-        )
-    if getattr(closure_model, "kind", None) == "smagorinsky_natural":
-        raise NotImplementedError(
-            "the natural-form Smagorinsky closure is not ported yet "
-            "(ROADMAP queue 1 item 6: fused Smagorinsky)"
         )
     if closure_model is not None and not callable(closure_model):
         raise TypeError("closure_model must be a callable closure(u, theta)")

@@ -4,9 +4,11 @@ Port of the fixed-dt loop of `ins_tpu/solver.py`.  The run advances in
 chunks of steps; processors (observability) run between chunks at their
 `nupdate` decimation, and a NaN guard checks each chunk's result.  Where
 the fused hat chain applies (3-D periodic cube, classic-row RK tableau)
-a chunk carries `HatState(ut, qhat)` and materialises u only at its end;
-with a closure model it steps the per-op chain (``theta`` goes to the
-closure), otherwise the roll twin.  On a wall-bounded channel (x/y
+a chunk carries `HatState(ut, qhat)` and materialises u only at its end,
+with the natural-form Smagorinsky closure (``theta`` its constant) and a
+steady body force on its stage kernels; with another closure model it
+steps the per-op chain (``theta`` goes to the closure), otherwise the
+roll twin.  On a wall-bounded channel (x/y
 periodic, static z walls, the FDM solver) a chunk carries a `ChannelHat`
 of the channel path (`ops/channelpath.py`) the same way, crossing to and
 from the public ghosted layout with `strip_channel`/`reghost_channel`.
@@ -142,8 +144,10 @@ def solve_unsteady(
         if hat_fns is not None:
             to_hat, step_hat, from_hat = hat_fns
             h = to_hat(s)
+            # theta reaches the periodic chain's Smagorinsky force
+            extra = () if use_channel else (theta,)
             for _ in range(nsteps):
-                h = step_hat(h, dt)
+                h = step_hat(h, dt, *extra)
             return from_hat(h)
         for _ in range(nsteps):
             s = step(s, dt, theta)

@@ -87,20 +87,25 @@ def test_setup_matches_jax_and_keeps_its_device():
     assert u.device == st.device and u.dtype == torch.float32
 
 
-def _smagorinsky_closure(u, theta):  # tagged like ins_tpu's natural-form closure
-    return u
-
-
-_smagorinsky_closure.kind = "smagorinsky_natural"
+def _nonperiodic_smagorinsky():
+    """The natural-form Smagorinsky closure of a wall-bounded setup: its
+    ghosted pipeline is not ported."""
+    s = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 4),) * 2,
+                 boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
+    return it.smagorinsky_closure_natural(s)
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(temperature=object()), dict(closure_model=_smagorinsky_closure),
+    "kw", [dict(temperature=object()), _nonperiodic_smagorinsky,
            dict(bodyforce=lambda *a: 0.0, issteadybodyforce=False)],
     ids=["temperature", "closure", "bodyforce"],
 )
 def test_setup_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    """Temperature and unsteady forces (ROADMAP queue 1 item 6), and the
+    Smagorinsky closure off uniform periodic grids (item 7), raise."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [67]"):
+        if callable(kw):
+            kw = dict(closure_model=kw())
         it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
 
 
