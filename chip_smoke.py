@@ -17,14 +17,21 @@ Phases, each raising on failure (exit code != 0, no result line):
    with emit_u and usnew, a stream-base stage, the unmerged stage (with
    and without k streams), each also with the Smagorinsky force and a
    body force, pass B dense and folded (one level, and two), the
-   correction and the plane transforms.  Bound: max relative error <= 1e-4 (FP32 on both sides,
-   sums taken in another order).  At 256³ each is timed against its
-   plain version (CUDA events).
-   The per-op and conv kernels of the training path are held against
+   correction and the plane transforms; the stage kernels' temperature
+   stream (`momentum_stage_divhat_3d` with T elided, usnew, gdir 0 and
+   the dissipation; `pcmsd_hat_3d` as on the Boussinesq path's stages 1-2,
+   with a RECON base, emit_u, usnew and T elided, and with a stream base,
+   tstart and tacc, gdir 1, no dissipation; each wrapper also with the
+   force stream beside it), where the update kt itself, recovered from
+   temp_next and tempnew, is held to the same bound.  Bound: max relative
+   error <= 1e-4 (FP32 on both sides, sums taken in another order).  At
+   256³ each is timed against its plain version (CUDA events).
+   The per-op and conv kernels of the training path and the closure
+   run's 3-pass Poisson solve `make_poisson_pallas` are held against
    their plain versions at 64³ and 128³ the same way (float32, and the
    convolutions also with bf16 operands and a float32 output, which
    differ from the plain version only in summation order), and timed at
-   128³.
+   128³, the solve also against `make_poisson_mm`'s contractions.
 2. The main path: `solve_unsteady` on 256³ decaying turbulence (RK44,
    f32, Re = 4000, `random_field(kp=10)`, dt = 1e-3·128/256) for 20
    steps in chunks of 10, with a timelogger.  Checks: finite; every
@@ -45,7 +52,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    gradient step (kernels and plain in turns) and peak memory, three
    Adam `train` iterations (finite losses) and a 10-step
    `solve_unsteady` with the closure attached (finite, divergence-free
-   under phase 2's bounds).
+   under phase 2's bounds, the 3-pass Poisson solve launched 4 times a
+   step).
 4. The wall-bounded channel: both channel kernels against their plain
    versions at a ragged (40, 26, 20) box and at 256×128×128, in every
    `channel_msd_3d` mode the per-stage step and the hat chain use (with
@@ -78,14 +86,32 @@ Phases, each raising on failure (exit code != 0, no result line):
    step and no plain version on the card; the plain chain on the card
    agrees to <= 1e-4 relative; every spectrum finite with len(kappa)
    bins.  Then ms/step of both chains in turns and peak memory.
-6. Print the kernel table (JSON: per kernel its launches on the main
+6. Boussinesq convection (`bench.py`'s `run_temp_case`): the unit cube at
+   256³, periodic, `temperature_equation(Pr=0.71, Ra=1e7, Ge=1.0,
+   dodissipation=True, gdir=2)` (Re = 1/alpha1), f32, RK44, dt =
+   2e-4·128/256, u0 = `random_field(kp=10)` from phase 2's seed, T0 =
+   `temperaturefield(0.5 + 0.1 sin 2πx)`; `solve_unsteady(tempstart=)` for
+   20 steps in chunks of 10 with a timelogger and `observe_nusselt`.
+   Checks: u and T finite; the stage kernels (with their temperature
+   stream) and the folded pass B launched 4 times a step and no plain
+   version on the card; divergence as in phase 2; the plain chain on the
+   card agrees to <= 1e-4 relative in u and T, and every Nusselt number
+   to 1e-4·max(1, |Nu|).  Then ms/step of both chains in turns and peak
+   memory.
+7. LMWray3 (`bench.py`'s `256_lmwray3`): phase 2's setup and u0 with
+   `method=LMWray3()`, 20 steps in chunks of 10.  Checks: finite;
+   divergence as in phase 2; kinetic energy not increasing; 3 stage
+   launches and 3 pass B a step; the plain chain agrees to <= 1e-4.  Then
+   ms/step of both chains in turns.
+8. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
    same function where there is one) and, last, the result line
    ``{"ok": true, "device": {...}}``.  The dense pass B stays in the
    table; no main path runs it (every cube here has n % 4 == 0, where
-   the projection folds, as the JAX package does).
+   the projection folds, as the JAX package does).  Each phase prints
+   its seconds.
 """
 
 from __future__ import annotations
@@ -121,7 +147,16 @@ OPS_PER_CELL = {
     # squares, the four-edge sums and the sqrt (23), the stress with ν
     # averaged to the edges (21) and its divergence (24)
     "smag": 92, "fold_split": 2,
+    # the temperature stream as `_stage_tail` forms it, each face quantity
+    # once per cell: the buoyancy (4), per direction the face average,
+    # flux, gradient and their differences (12, x3), the dissipation's
+    # Laplacian, viscous product and face average per component (19, x3,
+    # + 2) and the two tableau updates (4)
+    "stage_temp": 103,
 }
+# the Boussinesq cell's coefficients (Pr 0.71, Ra 1e7, Ge 1, nondim 1):
+# alpha2 = 1, alpha4 = 1/sqrt(Pr Ra), dissipation Re alpha1/gamma = 1
+TEMP_ALPHA4 = 1.0 / math.sqrt(0.71e7)
 # phase 3 bounds (float32 convs: summation order only; bf16 convs: one
 # bf16 ulp where a stored activation rounds the other way)
 LOSS_TOL_F32 = 1e-5
@@ -169,7 +204,9 @@ class Case(NamedTuple):
     given, is what the error is measured against (``pfn`` is timed);
     ``inputs`` are the tensors the function reads and ``ops`` the
     operations it does (of type ``peak``), for its bound; ``library`` is
-    one PyTorch call computing the same function, timed as a yardstick."""
+    one PyTorch call computing the same function, timed as a yardstick;
+    ``derived``, where given, maps either side's outputs to further
+    tensors held to the same bound (an update a small step size hides)."""
 
     label: str
     kfn: Any
@@ -179,6 +216,7 @@ class Case(NamedTuple):
     ops: float = 0.0
     peak: str = "fp32"
     library: Any = None
+    derived: Any = None
 
 
 def nbytes(tensors):
@@ -191,6 +229,16 @@ def bound(case, out_bytes):
     t_bytes = (nbytes(case.inputs) + out_bytes) / PEAK_BYTES * 1e3
     t_ops = case.ops / PEAK_OPS[case.peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fold_ops(n, L):
+    """Operations of the folded pass B at n³ with L levels: (n / 2^l)^2 n^2
+    for level l's two half GEMMs, the leaf's two GEMMs 4 (n / 2^L)^2 n^2,
+    the scale, split and combine elementwise (2 n^4 in all at one level,
+    half the dense 4 n^4)."""
+    cells = n**3
+    return (sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2
+            + OPS_PER_CELL["eigen_scale"] * cells + L * 2 * OPS_PER_CELL["fold_split"] * cells)
 
 
 def card_line(query="name,power.limit"):
@@ -254,13 +302,72 @@ def kernel_cases(n):
     les = dict(based, smag=smag)
     mats2, levels2, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=2, device=dev)
     proj2 = dict(proj, fold_mats=mats2, fold_levels=levels2)
-    # the folded pass B: (n / 2^l)^2 n^2 for level l's two half GEMMs, the
-    # leaf's two GEMMs 4 (n / 2^L)^2 n^2, the scale, split and combine
-    # elementwise (2 n^4 in all at one level, half the dense 4 n^4)
-    fold_ops = lambda L: (sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2
-                          + OPS_PER_CELL["eigen_scale"] * cells
-                          + L * 2 * OPS_PER_CELL["fold_split"] * cells)
+    # the temperature stream: T, its tableau base and accumulator
+    T, Ts, Ta = field(n, n, n), field(n, n, n), field(n, n, n)
+
+    def temp(gdir, tstart=None, tacc=None, dis=1.0):
+        return (T, tstart, tacc, gdir, 1.0, TEMP_ALPHA4, dis)
+
+    temp_ops = OPS_PER_CELL["stage_temp"] * cells
+
+    def kt(cnew, cu, tb, tab):
+        """The temperature update itself, kt, from temp_next and tempnew
+        (the last two outputs): c·kt is ~1e-2 of T, so the outputs alone
+        would hide an error of a few percent in kt."""
+        return lambda o: ((o[-2] - tb) / cnew, (o[-1] - tab) / cu)
     return {
+        # the Boussinesq stages (the main path's stages 1-2 first)
+        "pcmsd_hat_3d+temp": [
+            Case("stream base + usnew_base + tstart + tacc, gdir 2, dissipation",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), temperature=temp(2, Ts, Ta),
+                       **based),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,),
+                       temperature=temp(2, Ts, Ta), **based),
+                 inputs=(ut_prev, qhat, ustart, accb, T, Ts, Ta, *mats),
+                 ops=(OPS_PER_CELL["stage"] * cells + temp_ops + 4 * gemm),
+                 derived=kt(dt / 2, dt / 3, Ts, Ta)),
+            Case("RECON + emit_u + usnew, T elided, gdir 2, dissipation",
+                 pcmsd(sk.pcmsd_hat_3d, (sk.RECON,), (dt / 2,), temperature=temp(2), **recon),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (sk.RECON,), (dt / 2,), temperature=temp(2),
+                       **recon),
+                 inputs=(ut_prev, qhat, T, *mats),
+                 ops=(OPS_PER_CELL["stage"] * cells + temp_ops + 4 * gemm),
+                 derived=kt(dt / 2, dt / 6, T, T)),
+            Case("stream base + usnew_base + tstart + tacc, gdir 1, no dissipation",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,),
+                       temperature=temp(1, Ts, Ta, None), **based),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,),
+                       temperature=temp(1, Ts, Ta, None), **based),
+                 inputs=(ut_prev, qhat, ustart, accb, T, Ts, Ta, *mats),
+                 ops=(OPS_PER_CELL["stage"] * cells + temp_ops + 4 * gemm),
+                 derived=kt(dt / 2, dt / 3, Ts, Ta)),
+            # the force and temperature streams together (no main path here)
+            Case("stream base + usnew_base + tstart + tacc + bodyforce, gdir 1, dissipation",
+                 pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), temperature=temp(1, Ts, Ta),
+                       bodyforce=bf, **based),
+                 pcmsd(sk.pcmsd_hat_3d_plain, (ustart,), (dt / 2,),
+                       temperature=temp(1, Ts, Ta), bodyforce=bf, **based),
+                 inputs=(ut_prev, qhat, ustart, accb, bf, T, Ts, Ta, *mats),
+                 ops=(OPS_PER_CELL["stage"] * cells + temp_ops + 4 * gemm),
+                 derived=kt(dt / 2, dt / 3, Ts, Ta)),
+        ],
+        "momentum_stage_divhat_3d+temp": [
+            Case("stage 0: T elided + usnew, gdir 0, dissipation",
+                 msd(sk.momentum_stage_divhat_3d, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, temperature=temp(0)),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, temperature=temp(0)),
+                 inputs=(ut_prev, T, Vinv, VinvT),
+                 ops=OPS_PER_CELL["stage_norebuild"] * cells + temp_ops + 2 * gemm,
+                 derived=kt(dt / 2, dt / 6, T, T)),
+            # the no-REBUILD FORCE + TEMP variant (no main path here)
+            Case("stage 0: T elided + usnew + smag + bodyforce, gdir 2, dissipation",
+                 msd(sk.momentum_stage_divhat_3d, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, temperature=temp(2), smag=smag, bodyforce=bf),
+                 msd(sk.momentum_stage_divhat_3d_plain, (ut_prev,), (dt / 2,), emit_k=False,
+                     usnew_coeff=dt / 6, temperature=temp(2), smag=smag, bodyforce=bf),
+                 derived=kt(dt / 2, dt / 6, T, T)),
+        ],
         "pcmsd_hat_3d": [
             Case("stream base + usnew_base",
                  pcmsd(sk.pcmsd_hat_3d, (ustart,), (dt / 2,), **based),
@@ -331,11 +438,11 @@ def kernel_cases(n):
             Case(f"divhat -> qhat, {proj['fold_levels']} level",
                  lambda: (passB_fold(divhat, proj),),
                  lambda: (passB_fold_plain(divhat, proj),),
-                 inputs=(divhat, *proj["fold_mats"]), ops=fold_ops(proj["fold_levels"])),
+                 inputs=(divhat, *proj["fold_mats"]), ops=fold_ops(n, proj["fold_levels"])),
             Case("divhat -> qhat, 2 levels",
                  lambda: (passB_fold(divhat, proj2),),
                  lambda: (passB_fold_plain(divhat, proj2),),
-                 inputs=(divhat, *mats2), ops=fold_ops(2)),
+                 inputs=(divhat, *mats2), ops=fold_ops(n, 2)),
         ],
         "pressure_correct_qhat_3d": [
             Case("ut, qhat -> u",
@@ -360,15 +467,18 @@ def kernel_cases(n):
 
 def training_kernel_cases(n):
     """{kernel name: [(label, kernel_fn, plain_fn[, reference_fn]), ...]}
-    for the per-op and conv kernels of the training path at size n
-    (first case: the main path's shapes and types; the conv cases take a
-    float32 output, see the module docstring).  A reference_fn, where
-    given, is what the error is measured against; plain_fn is timed."""
+    for the per-op and conv kernels of the training path and the closure
+    run's 3-pass solve at size n (unit cube; first case: the main path's
+    shapes and types; the conv cases take a float32 output, see the
+    module docstring).  A reference_fn, where given, is what the error
+    is measured against; plain_fn is timed."""
     import torch
     import torch.nn.functional as F
 
     from ins_tpu_torch.ops import conv_kernels as ck
     from ins_tpu_torch.ops import perop_kernels as pk
+    from ins_tpu_torch.ops.dft import make_poisson_mm
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_poisson_pallas
 
     rng = np.random.default_rng(SEED + 7 * n)
     dev = torch.device(DEVICE)
@@ -412,6 +522,21 @@ def training_kernel_cases(n):
         "fusedconv_3d": [],
         "fusedconv_wgrad_3d": [],
     }
+    # the closure run's 3-pass solve: passes A and C (two plane GEMMs of
+    # 2 n^4 each) and the folded pass B
+    proj = make_fused_projection((n,) * 3, dxs, torch.float32, device=dev)
+    solve = {k: make_poisson_pallas((n,) * 3, dxs, torch.float32, device=dev, plain=k)
+             for k in (False, True)}
+    solve_mm = make_poisson_mm((n,) * 3, dxs, torch.float32, dev)
+    f = field(n, n, n)
+    cases["make_poisson_pallas"] = [
+        Case(f"f -> p, pass B folded {proj['fold_levels']} level",
+             lambda: (solve[False](f),), lambda: (solve[True](f),),
+             inputs=(f, proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"],
+                     *proj["fold_mats"]),
+             ops=4 * 2.0 * n**4 + fold_ops(n, proj["fold_levels"]),
+             library=lambda: solve_mm(f)),
+    ]
     # the closure's layers: (cin, cout, act, bias); k = 5
     layers = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
     for dtype in (torch.bfloat16, torch.float32):
@@ -494,6 +619,8 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                     fail(f"{name} [{c.label}]: {len(got)} outputs, plain gives {len(ref)}")
                 out_bytes[c.label] = nbytes(got)
                 errs = [rel_err(g.to(p.dtype), p) for g, p in zip(got, ref)]
+                if c.derived:
+                    errs += [rel_err(g, p) for g, p in zip(c.derived(got), c.derived(ref))]
                 r["max_abs_err"] = max(
                     r["max_abs_err"], *(abs_err(g.to(p.dtype), p) for g, p in zip(got, ref))
                 )
@@ -507,7 +634,8 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                              + ", ".join(f"{rel_err(g, q):.3e}" for g, q in zip(got, plain)))
                 print(f"[kernels] n={n} {name} [{c.label}]: max rel err per output "
                       + ", ".join(f"{e:.3e}" for e in errs)
-                      + (" (against the plain version in float64)" if c.ref else "") + extra)
+                      + (" (against the plain version in float64)" if c.ref else "")
+                      + (" (the last: the update from each)" if c.derived else "") + extra)
                 if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
                     fail(f"{name} [{c.label}] at n={n}: rel err {max(errs):.3e} > {REL_TOL}")
                 del got, ref
@@ -580,12 +708,69 @@ def check_divergence(u, dx, tag):
         fail(f"{tag}: the unscaled divergence residual exceeds 1e-3")
 
 
+def run_plain_chain(setup, method, state, dt, nsteps, chunk, at_chunk_end=None, theta=None):
+    """The hat chain of the plain versions on the card, chunk by chunk
+    as `solve_unsteady` runs it; ``at_chunk_end(state)`` sees each chunk's
+    interior state."""
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
+
+    to_hat, step_hat, from_hat = make_fast_timestep_hat(setup, method, plain=True)
+    left = nsteps
+    while left:
+        c = min(chunk, left)
+        h = to_hat(state)
+        for _ in range(c):
+            h = step_hat(h, dt, theta)
+        state = from_hat(h)
+        left -= c
+        if at_chunk_end is not None:
+            at_chunk_end(state)
+    return state
+
+
+def hat_ms_per_step(setup, method, s0, dt, steps=10, theta=None):
+    """ms/step of the kernel and the plain hat chains, in turns (plain,
+    kernels, kernels, plain), each after a warm-up of two steps (the
+    second one on a rebuilding carry)."""
+    import torch
+
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
+
+    chains = {k: make_fast_timestep_hat(setup, method, plain=k == "plain")
+              for k in ("kernels", "plain")}
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        to_h, step_h, _ = chains[which]
+        h = step_h(step_h(to_h(s0), dt, theta), dt, theta)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt, theta)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t) * 1e3 / steps)
+        del h
+    return times
+
+
+def print_ms_per_step(tag, label, n, times):
+    import torch
+
+    ms_k, ms_p = sum(times["kernels"]) / 2, sum(times["plain"]) / 2
+    print(f"[{tag}] hat chain {label}: kernels {ms_k:.3f} ms/step "
+          f"({times['kernels'][0]:.3f}, {times['kernels'][1]:.3f}; "
+          f"{n**3 / (ms_k * 1e-3):.4e} cell-updates/s), plain {ms_p:.3f} ms/step "
+          f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card after the timing "
+          f"(SM clock, power draw, temperature): "
+          f"{card_line('clocks.sm,power.draw,temperature.gpu')}")
+
+
 def phase_main_path(n, nsteps, chunk):
     import torch
 
     import ins_tpu_torch as it
     from ins_tpu_torch.ops import launches
-    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_ghosts, strip_state
+    from ins_tpu_torch.ops.fastpath import strip_ghosts, strip_state
 
     setup = headline_setup(n)
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -628,47 +813,15 @@ def phase_main_path(n, nsteps, chunk):
         fail("kinetic energy increased")
 
     # the same run through the plain chain on the card
-    to_hat, step_hat, from_hat = make_fast_timestep_hat(setup, method, plain=True)
-    s = strip_state(it.create_stepper(method, setup=setup, u=u0))
-    left = nsteps
-    while left:
-        c = min(chunk, left)
-        h = to_hat(s)
-        for _ in range(c):
-            h = step_hat(h, dt)
-        s = from_hat(h)
-        left -= c
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk)
     agree = rel_err(u, s.u)
     print(f"[main] kernel chain vs plain chain after {nsteps} steps: max rel diff {agree:.3e}")
     if not agree <= REL_TOL:
         fail(f"kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
+    del s
 
-    # ms/step of the hat chain, kernels and plain, after a warm-up
-    hk = make_fast_timestep_hat(setup, method)
-    hp = make_fast_timestep_hat(setup, method, plain=True)
-    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
-
-    def ms_per_step(fns, steps=10):
-        to_h, step_h, from_h = fns
-        h = step_h(step_h(to_h(s0), dt), dt)  # warm-up, and a rebuilding carry
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(steps):
-            h = step_h(h, dt)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / steps
-
-    times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        times[which].append(ms_per_step(hk if which == "kernels" else hp))
-    ms_k = sum(times["kernels"]) / 2
-    ms_p = sum(times["plain"]) / 2
-    print(f"[main] hat chain {n}^3 RK44 f32: kernels {ms_k:.3f} ms/step "
-          f"({times['kernels'][0]:.3f}, {times['kernels'][1]:.3f}; "
-          f"{n**3 / (ms_k * 1e-3):.4e} cell-updates/s), plain {ms_p:.3f} ms/step "
-          f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}; "
-          f"{n**3 / (ms_p * 1e-3):.4e} cell-updates/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print_ms_per_step("main", f"{n}^3 RK44 f32", n, hat_ms_per_step(setup, method, s0, dt))
     return counts, setup, u0, dt, e1
 
 
@@ -845,7 +998,11 @@ def phase_training(n, nunroll):
         fail("the closure run did not finish with finite fields")
     if any(launches.PLAIN_ON_CUDA.values()):
         fail("plain versions ran on CUDA tensors in the closure run")
+    if launches.LAUNCHES["poisson_pallas"] != 4 * nsteps:
+        fail(f"the closure run solved Poisson {launches.LAUNCHES['poisson_pallas']} times "
+             f"with the 3-pass kernels, expected {4 * nsteps}")
     check_divergence(u, float(csetup.grid.delta[0][0]), "closure run")
+    counts["poisson_pallas"] = launches.LAUNCHES["poisson_pallas"]
     return counts
 
 
@@ -1203,7 +1360,7 @@ def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
 
     import ins_tpu_torch as it
     from ins_tpu_torch.ops import launches
-    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_ghosts, strip_state
+    from ins_tpu_torch.ops.fastpath import strip_ghosts, strip_state
 
     setup = les_setup(n)
     u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
@@ -1267,54 +1424,22 @@ def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
           + ", ".join(f"{v:.4e}" for v in spec["ehat"][-1][:4]))
 
     # the same run through the plain chain on the card
-    to_hat, step_hat, from_hat = make_fast_timestep_hat(setup, method, plain=True)
-    s = strip_state(it.create_stepper(method, setup=setup, u=u0))
-    left = nsteps
-    while left:
-        c = min(chunk, left)
-        h = to_hat(s)
-        for _ in range(c):
-            h = step_hat(h, dt, LES_THETA)
-        s = from_hat(h)
-        left -= c
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk, theta=LES_THETA)
     agree = rel_err(u, s.u)
     print(f"[les] kernel chain vs plain chain after {nsteps} steps: max rel diff {agree:.3e}")
     if not agree <= REL_TOL:
         fail(f"LES kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
-    del s, h
+    del s
 
-    # ms/step of the LES hat chain, kernels and plain, after a warm-up
-    hk = make_fast_timestep_hat(setup, method)
-    hp = make_fast_timestep_hat(setup, method, plain=True)
-    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
     theta = torch.full((), LES_THETA, device=DEVICE)
-
-    def ms_per_step(fns, steps=10):
-        to_h, step_h, _ = fns
-        h = step_h(step_h(to_h(s0), dt, theta), dt, theta)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(steps):
-            h = step_h(h, dt, theta)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / steps
-
-    times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        times[which].append(ms_per_step(hk if which == "kernels" else hp))
-    ms_k, ms_p = sum(times["kernels"]) / 2, sum(times["plain"]) / 2
-    print(f"[les] hat chain {n}^3 RK44 f32 + Smagorinsky: kernels {ms_k:.3f} ms/step "
-          f"({times['kernels'][0]:.3f}, {times['kernels'][1]:.3f}; "
-          f"{n**3 / (ms_k * 1e-3):.4e} cell-updates/s), plain {ms_p:.3f} ms/step "
-          f"({times['plain'][0]:.3f}, {times['plain'][1]:.3f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card after the timing "
-          f"(SM clock, power draw, temperature): "
-          f"{card_line('clocks.sm,power.draw,temperature.gpu')}")
+    print_ms_per_step("les", f"{n}^3 RK44 f32 + Smagorinsky", n,
+                      hat_ms_per_step(setup, method, s0, dt, theta=theta))
     return counts, setup, u0, dt
 
 
-def phase_profile_les(setup, u0, dt):
-    """Device-time split of 3 LES hat steps (torch.profiler) and the idle
+def phase_profile_split(tag, setup, method, u0, dt, theta=None, temp0=None):
+    """Device-time split of 3 hat steps (torch.profiler) and the idle
     share against the unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1322,10 +1447,9 @@ def phase_profile_les(setup, u0, dt):
     import ins_tpu_torch as it
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
 
-    method = it.RKMethods.RK44()
-    theta = torch.full((), LES_THETA, device=DEVICE)
     to_h, step_h, _ = make_fast_timestep_hat(setup, method)
-    h = step_h(to_h(strip_state(it.create_stepper(method, setup=setup, u=u0))), dt, theta)
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0, temp=temp0))
+    h = step_h(to_h(s0), dt, theta)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1352,10 +1476,185 @@ def phase_profile_les(setup, u0, dt):
     if dev <= 0.0:
         print("[profile] the trace holds no device time; no split")
         return
-    print(f"[profile] LES step: {wall:.3f} ms wall (unprofiled), {dev:.3f} ms of device "
+    print(f"[profile] {tag}: {wall:.3f} ms wall (unprofiled), {dev:.3f} ms of device "
           f"time: " + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
           + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
     print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+
+
+# --------------------------------------------------------------------------
+# phase 6: Boussinesq convection
+# --------------------------------------------------------------------------
+
+
+def boussinesq_setup(n):
+    """`bench.py`'s `run_temp_case`: the periodic unit cube with
+    `temperature_equation(Pr=0.71, Ra=1e7, Ge=1.0, dodissipation=True,
+    gdir=2)`, Re = 1/alpha1, f32."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
+    bc = ((it.PeriodicBC(), it.PeriodicBC()),) * 3
+    te = it.temperature_equation(Pr=0.71, Ra=1e7, Ge=1.0, dodissipation=True,
+                                 boundary_conditions=bc, gdir=2, dtype=torch.float32)
+    return it.Setup(x=x, boundary_conditions=bc, temperature=te, dtype=torch.float32,
+                    device=DEVICE)
+
+
+def phase_boussinesq(n, nsteps, chunk):
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import (
+        reghost, reghost_scalar, strip_ghosts, strip_scalar, strip_state,
+    )
+
+    setup = boussinesq_setup(n)
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    T0 = it.temperaturefield(setup, lambda xx, yy, zz: 0.5 + 0.1 * torch.sin(2 * np.pi * xx))
+    dt = 2e-4 * 128 / n
+    method = it.RKMethods.RK44()
+    te = setup.temperature
+    print(f"[boussinesq] {n}^3 RK44 f32, Pr=0.71 Ra=1e7 Ge=1 gdir=2 with dissipation: "
+          f"Re = 1/alpha1 = {setup.Re:.6f}, alpha4 = {te.alpha4:.6e}, dt = {dt:g}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, outs = it.solve_unsteady(
+        setup=setup, ustart=u0, tempstart=T0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
+        psolver=it.psolver_spectral(setup),
+        processors={"log": it.timelogger(nupdate=chunk),
+                    "nu": it.observe_nusselt(setup, nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[boussinesq] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s "
+          f"wall (first call included); launches { {k: v for k, v in counts.items() if v} }; "
+          f"plain calls on CUDA { {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the Boussinesq run ran {state.n} steps, expected {nsteps}")
+    per_step = {"stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
+                "passB_fold": counts["passB_fold"]}
+    if any(v != 4 * nsteps for v in per_step.values()):
+        fail(f"Boussinesq launches {per_step}, expected {4 * nsteps} each (4 per step)")
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+        fail(f"Boussinesq launches {counts}: one correction per chunk, no dense pass B")
+    if any(plain.values()):
+        fail(f"plain versions ran on CUDA tensors in the Boussinesq run: {plain}")
+    u, T = strip_ghosts(state.u), strip_scalar(state.temp)
+    if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(T).all())):
+        fail("non-finite velocity or temperature after the Boussinesq run")
+    check_divergence(u, float(setup.grid.delta[0][0]), "boussinesq")
+    nu = outs["nu"]["Nu"]
+    print(f"[boussinesq] T in [{T.min().item():.6f}, {T.max().item():.6f}], mean "
+          f"{T.mean().item():.9f} (T0 mean {strip_scalar(T0).mean().item():.9f}); Nu at t = "
+          + ", ".join(f"{t:.4f}: {v:.9f}" for t, v in zip(outs["nu"]["t"], nu)))
+    if len(nu) != nsteps // chunk + 1 or not all(math.isfinite(v) for v in nu):
+        fail(f"Nusselt record {nu}: expected {nsteps // chunk + 1} finite values")
+
+    # the same run through the plain chain on the card, with its Nusselt
+    # numbers from the same processor
+    nu_plain = it.observe_nusselt(setup)
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0, temp=T0))
+    ps = nu_plain.initialize(dict(u=u0, temp=T0, t=0.0, n=0))
+
+    def observe(st):
+        nonlocal ps
+        ps = nu_plain.update(ps, dict(u=reghost(st.u), temp=reghost_scalar(st.temp), t=st.t,
+                                      n=st.n))
+
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk, observe)
+    agree_u, agree_t = rel_err(u, s.u), rel_err(T, s.temp)
+    nu_diff = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(nu, ps["Nu"])]
+    print(f"[boussinesq] kernel chain vs plain chain after {nsteps} steps: max rel diff u "
+          f"{agree_u:.3e}, T {agree_t:.3e}; Nu diff / max(1, |Nu|) "
+          + ", ".join(f"{v:.3e}" for v in nu_diff))
+    if not (agree_u <= REL_TOL and agree_t <= REL_TOL):
+        fail(f"Boussinesq kernel and plain chains disagree by {agree_u:.3e} (u), "
+             f"{agree_t:.3e} (T) > {REL_TOL}")
+    if len(nu_diff) != len(nu) or not all(v <= REL_TOL for v in nu_diff):
+        fail(f"Nusselt numbers of the kernel and plain chains differ: {nu} vs {ps['Nu']}")
+    del s, state
+
+    print_ms_per_step("boussinesq", f"{n}^3 RK44 f32 + temperature", n,
+                      hat_ms_per_step(setup, method, s0, dt))
+    return counts, setup, u0, T0, dt
+
+
+# --------------------------------------------------------------------------
+# phase 7: LMWray3
+# --------------------------------------------------------------------------
+
+
+def phase_lmwray3(n, nsteps, chunk, u0):
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import strip_ghosts, strip_state
+
+    setup = headline_setup(n)
+    dt = 1e-3 * 128 / n
+    method = it.LMWray3()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, outs = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
+        psolver=it.psolver_spectral(setup),
+        processors={"log": it.timelogger(nupdate=chunk),
+                    "energy": it.observefield(
+                        lambda s: it.total_kinetic_energy(s["u"], setup), nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[lmwray3] solve_unsteady {n}^3 LMWray3 f32 Re=4000: {nsteps} steps in chunks of "
+          f"{chunk}, {wall:.3f} s wall (first call included); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; plain calls on CUDA "
+          f"{ {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the LMWray3 run ran {state.n} steps, expected {nsteps}")
+    per_step = {"stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
+                "passB_fold": counts["passB_fold"]}
+    if any(v != 3 * nsteps for v in per_step.values()):
+        fail(f"LMWray3 launches {per_step}, expected {3 * nsteps} each (3 per step)")
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+        fail(f"LMWray3 launches {counts}: one correction per chunk, no dense pass B")
+    if any(plain.values()):
+        fail(f"plain versions ran on CUDA tensors in the LMWray3 run: {plain}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail("non-finite velocity after the LMWray3 run")
+    check_divergence(u, float(setup.grid.delta[0][0]), "lmwray3")
+    e0 = it.total_kinetic_energy(u0, setup).item()
+    hist = [float(v) for v in outs["energy"]]
+    print(f"[lmwray3] kinetic energy {e0:.9e} -> " + ", ".join(f"{v:.9e}" for v in hist)
+          + " (chunk ends)")
+    if not all(b <= a for a, b in zip([e0] + hist, hist)):
+        fail("LMWray3 kinetic energy increased")
+
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk)
+    agree = rel_err(u, s.u)
+    print(f"[lmwray3] kernel chain vs plain chain after {nsteps} steps: max rel diff "
+          f"{agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"LMWray3 kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
+    del s, state
+
+    print_ms_per_step("lmwray3", f"{n}^3 LMWray3 f32", n, hat_ms_per_step(setup, method, s0, dt))
+    return counts, setup, dt
 
 
 HAT_KERNELS = (
@@ -1368,6 +1667,7 @@ TRAINING_KERNELS = (
     "fusedconv_3d", "fusedconv_wgrad_3d",
 )
 CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
+TEMP_KERNELS = ("pcmsd_hat_3d+temp", "momentum_stage_divhat_3d+temp")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -1378,6 +1678,11 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "passB_fold": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:432"),
     "smagorinsky_force_3d": ("ins_tpu_torch/csrc/smag.cu", "ins_tpu/ops/pallas_kernels.py:2292"),
     "pcmsd_hat_3d+smag": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2639"),
+    "pcmsd_hat_3d+temp": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2645"),
+    "momentum_stage_divhat_3d+temp": ("ins_tpu_torch/csrc/stage.cu",
+                                      "ins_tpu/ops/pallas_kernels.py:960"),
+    "make_poisson_pallas": ("ins_tpu_torch/csrc/transforms.cu",
+                            "ins_tpu/ops/poisson_pallas.py:308"),
     "pressure_correct_qhat_3d": ("ins_tpu_torch/csrc/correct.cu", "ins_tpu/ops/pallas_kernels.py:3422"),
     "convdiff_interior_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:312"),
     "stage_div_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:458"),
@@ -1394,7 +1699,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
-                         "of one gradient step, of 3 channel steps and of 3 LES steps")
+                         "of one gradient step, of 3 channel steps and of 3 LES, "
+                         "Boussinesq and LMWray3 steps")
     args = ap.parse_args()
 
     import torch
@@ -1415,20 +1721,30 @@ def main():
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s); "
           f"ptxas report in {_build.BUILD_DIR / 'build.log'}")
 
+    clock = {"t": time.perf_counter()}
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock['t']:.1f} s")
+        clock["t"] = now
+
     results = phase_kernels(kernel_cases, (64, 256),
-                            time_all=("passB_fold", "pcmsd_hat_3d+smag"))
+                            time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp"))
+    phase_done("phase 1 (hat kernels)")
     hat_counts, setup, u0, dt, e_hat = phase_main_path(256, nsteps=20, chunk=10)
     if args.profile:
         phase_profile(setup, u0, dt)
     u0_hat = u0
     del setup
     torch.cuda.empty_cache()
+    phase_done("phase 2 (main path)")
     results.update(phase_kernels(training_kernel_cases, (64, 128),
                                  time_all=("fusedconv_3d", "fusedconv_wgrad_3d")))
     train_counts = phase_training(128, nunroll=5)
     if args.profile:
         phase_profile_training(128, nunroll=5)
     torch.cuda.empty_cache()
+    phase_done("phase 3 (training)")
     results.update(phase_kernels(channel_kernel_cases, ((40, 26, 20), CHANNEL_BOX),
                                  time_all=CHANNEL_KERNELS))
     channel_counts, setup, u0, dt = phase_channel(nsteps=20, chunk=10)
@@ -1436,16 +1752,37 @@ def main():
         phase_profile_channel(setup, u0, dt)
     del setup, u0
     torch.cuda.empty_cache()
+    phase_done("phase 4 (channel)")
     results.update(phase_kernels(les_kernel_cases, ((40, 26, 20), LES_BOX),
                                  time_all=("smagorinsky_force_3d",)))
     les_counts, setup, u0, dt = phase_les(LES_BOX[0], 20, 10, u0_hat, e_hat)
     if args.profile:
-        phase_profile_les(setup, u0, dt)
+        phase_profile_split("LES step", setup, ins_tpu_torch.RKMethods.RK44(), u0, dt,
+                            theta=torch.full((), LES_THETA, device=DEVICE))
     les_counts["pcmsd_hat_3d+smag"] = les_counts["pcmsd_hat_3d"]
+    del setup, u0
+    torch.cuda.empty_cache()
+    phase_done("phase 5 (LES)")
+    bous_counts, setup, u0, T0, dt = phase_boussinesq(256, 20, 10)
+    if args.profile:
+        phase_profile_split("Boussinesq step", setup, ins_tpu_torch.RKMethods.RK44(), u0, dt,
+                            temp0=T0)
+    bous_counts["pcmsd_hat_3d+temp"] = bous_counts["pcmsd_hat_3d"]
+    bous_counts["momentum_stage_divhat_3d+temp"] = bous_counts["momentum_stage_divhat_3d"]
+    del setup, u0, T0
+    torch.cuda.empty_cache()
+    phase_done("phase 6 (Boussinesq)")
+    _, setup, dt = phase_lmwray3(256, 20, 10, u0_hat)
+    if args.profile:
+        phase_profile_split("LMWray3 step", setup, ins_tpu_torch.LMWray3(), u0_hat, dt)
+    del setup
+    phase_done("phase 7 (LMWray3)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
+              "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},
-              **{k: les_counts[k] for k in LES_KERNELS}}
+              **{k: les_counts[k] for k in LES_KERNELS},
+              **{k: bous_counts[k] for k in TEMP_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

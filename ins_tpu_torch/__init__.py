@@ -1,10 +1,11 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs four of
+The JAX package `ins_tpu` is the reference; this package runs five of
 its paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
-(explicit RK, spectral projection, optionally with a closure model), its
-Smagorinsky LES (`smagorinsky_closure_natural`, optionally with a steady
-body force),
+(explicit RK or LMWray3, spectral projection, optionally with a closure
+model), its Smagorinsky LES (`smagorinsky_closure_natural`, optionally
+with a steady body force), periodic Boussinesq convection
+(`temperature_equation`, `temperaturefield`, `observe_nusselt`),
 a-posteriori training of a CNN closure through the unrolled solver
 (`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
 periodic, stretched no-slip z walls, steady body force, FDM projection)
@@ -33,13 +34,14 @@ from .ops import *  # noqa: F401,F403
 from .processors import (  # noqa: F401
     Processor,
     fieldsaver,
+    observe_nusselt,
     observefield,
     observespectrum,
     processor,
     timelogger,
     total_kinetic_energy,
 )
-from .setup import Setup  # noqa: F401
+from .setup import Setup, Temperature, temperature_equation  # noqa: F401
 from .solver import SolverDivergedError, get_state, solve_unsteady  # noqa: F401
 from .time_steppers import (  # noqa: F401
     LMWray3,

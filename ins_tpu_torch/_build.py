@@ -54,7 +54,8 @@ _SIGNATURES = {
         [_c_ptr, _c_ptr, _c_ptr, ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_f32),
          _c_int, _c_f32, _c_ptr, _c_ptr, _c_f32, _c_int,
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
-         _c_f32, _c_f32, _c_f32, _c_f32, _c_f32, _c_ptr],
+         _c_f32, _c_f32, _c_f32, _c_f32, _c_f32]
+        + [_c_ptr] * 5 + [_c_int] + [_c_f32] * 3 + [_c_int, _c_ptr],
         _c_int,
     ),
     "ins_eigen_scale_f32": (

@@ -11,8 +11,9 @@ rebuilds the JAX NamedTuple (``ins_tpu.time_steppers.step.StepperState(**d)``;
 for a `ChannelHat`, ``ChannelHat(state=StepperState(**d["state"]),
 q=d["q"])``).  This module never imports JAX.  `check_setup_constants`
 holds the port's setup-time constants — the fused projection's
-eigen-matrices and grid spacings, the channel's z-metric vectors and the
-steady body force — equal to the JAX package's.
+eigen-matrices and grid spacings, the channel's z-metric vectors, the
+steady body force, Re and the temperature coefficients — equal to the
+JAX package's.
 `cnn_params_from_numpy` / `cnn_params_to_numpy` carry a CNN closure's
 parameters (flax's ``params`` dict, e.g. the ``theta`` of
 `ins_tpu.models.cnn`) to the port's ``theta`` and back; both use
@@ -43,7 +44,10 @@ __all__ = [
 
 # the channel metric vectors `check_setup_constants` compares
 _CHANNEL_VECS = (*_ZVECS, "om_z")
-_KNOWN_CONSTS = ("dxs", "V", "Vinv", "VT", "VinvT", *_CHANNEL_VECS, "bodyforce_field")
+# the scalar constants: Re and the temperature equation's coefficients
+_TEMP_SCALARS = ("alpha1", "alpha2", "alpha3", "alpha4", "gamma")
+_KNOWN_CONSTS = ("dxs", "V", "Vinv", "VT", "VinvT", *_CHANNEL_VECS, "bodyforce_field", "Re",
+                 *_TEMP_SCALARS, "gdir")
 
 
 def _tensor(a, dtype, device):
@@ -64,15 +68,14 @@ def state_from_numpy(state, *, dtype=torch.float32, device="cuda"):
         )
     t = float(np.asarray(fields["t"]))
     n = int(np.asarray(fields["n"]))
+    temp = _tensor(fields.get("temp"), dtype, device)
     if "qhat" in fields:
         return HatState(
             ut=_tensor(fields["ut"], dtype, device),
             qhat=_tensor(fields["qhat"], dtype, device),
-            temp=None, t=t, n=n,
+            temp=temp, t=t, n=n,
         )
-    if fields.get("temp") is not None:
-        raise NotImplementedError("temperature is not ported yet (ROADMAP queue 1 item 6)")
-    return StepperState(u=_tensor(fields["u"], dtype, device), temp=None, t=t, n=n)
+    return StepperState(u=_tensor(fields["u"], dtype, device), temp=temp, t=t, n=n)
 
 
 def _arr(x):
@@ -90,8 +93,8 @@ def state_to_numpy(state):
         qhat = _arr(state.qhat)
         if qhat is None:
             qhat = np.zeros(ut.shape[1:], ut.dtype)
-        return dict(ut=ut, qhat=qhat, temp=None, t=state.t, n=state.n)
-    return dict(u=_arr(state.u), temp=None, t=state.t, n=state.n)
+        return dict(ut=ut, qhat=qhat, temp=_arr(state.temp), t=state.t, n=state.n)
+    return dict(u=_arr(state.u), temp=_arr(state.temp), t=state.t, n=state.n)
 
 
 def _rel_diff(name, mine, theirs):
@@ -110,10 +113,11 @@ def check_setup_constants(setup, jax_consts, *, rtol=None):
     `ins_tpu.ops.poisson_pallas.make_fused_projection`) and "dxs"
     (sequence) for a periodic setup; the channel metric vectors by name
     (`ins_tpu.ops.channelpath.make_channel_metrics`) for a channel setup;
-    "bodyforce_field" (`ins_tpu` setup's field).  Returns the largest
-    relative difference; raises ValueError above ``rtol`` (default 1e-12
-    in float64, 1e-6 in float32), and on a key it does not know or a
-    mapping with no key at all."""
+    "bodyforce_field" (`ins_tpu` setup's field); "Re", and "alpha1" to
+    "alpha4", "gamma" and "gdir" of the temperature equation (`gdir` must
+    be equal).  Returns the largest relative difference; raises
+    ValueError above ``rtol`` (default 1e-12 in float64, 1e-6 in float32),
+    and on a key it does not know or a mapping with no key at all."""
     unknown = sorted(set(jax_consts) - set(_KNOWN_CONSTS))
     if unknown or not jax_consts:
         raise ValueError(f"unknown setup constants {unknown}; known: {_KNOWN_CONSTS}")
@@ -137,6 +141,16 @@ def check_setup_constants(setup, jax_consts, *, rtol=None):
     if "bodyforce_field" in jax_consts:
         worst = max(worst, _rel_diff("bodyforce_field", _arr(setup.bodyforce_field),
                                      jax_consts["bodyforce_field"]))
+    scalars = {"Re": setup.Re}
+    tq = setup.temperature
+    if tq is not None:
+        scalars.update({k: getattr(tq, k) for k in _TEMP_SCALARS})
+        if "gdir" in jax_consts and int(jax_consts["gdir"]) != tq.gdir:
+            raise ValueError(f"gdir {tq.gdir} != the JAX package's {int(jax_consts['gdir'])}")
+    elif any(k in jax_consts for k in (*_TEMP_SCALARS, "gdir")):
+        raise ValueError("temperature constants given for a setup without a temperature equation")
+    for key in [k for k in scalars if k in jax_consts]:
+        worst = max(worst, _rel_diff(key, np.asarray(scalars[key]), np.asarray(jax_consts[key])))
     if worst > rtol:
         raise ValueError(f"setup constants differ from the JAX package's by {worst:g}")
     return worst

@@ -4,11 +4,24 @@
 //
 //   u     = ut_prev - grad(q)   (REBUILD: q physical, forward differences)
 //         | u                   (no rebuild: u is an input)
-//   f     = convdiff(u)(I) + force(I)           (-> k_out if requested)
+//   f     = convdiff(u)(I) + buoy(I) + force(I) (-> k_out if requested)
 //   ut    = base + sum_j ck_j k_j + cnew f      (base = u when null: RECON)
 //   usnew = (usnew_base or base) + cusnew f     (the b-row accumulator)
 //   u_out = u                                   (emit_u, REBUILD only)
 //   div   = vol * sum_a (ut_a(I) - ut_a(I - e_a)) / dx_a
+//
+// and, with the Boussinesq temperature stream (TEMP), the buoyancy
+// buoy_g = alpha2 (T(I) + T(I + e_g)) / 2 in component g = gdir only, and
+//
+//   kt       = sum_b [-(u_b Tb(I) - u_b Tb(I - e_b))
+//                     + alpha4 (dT_b(I) - dT_b(I - e_b))] / dx_b
+//              + dis * sum_b (g_b(I) + g_b(I - e_b)) / 2   (with_dis)
+//   temp_out = (tstart or T) + cnew kt
+//   tempnew  = (tacc or tstart or T) + cusnew kt            (with usnew)
+//
+// with Tb(I) = (T(I) + T(I + e_b)) / 2, dT_b(I) = (T(I + e_b) - T(I)) / dx_b
+// and g_b = u_b * visc * Laplacian(u_b): `_stage_tail`'s temperature half
+// (ins_tpu/ops/pallas_kernels.py:1018-1036, 1066-1117).
 //
 // Replaces: the stencil part of `_pcmsd_hat_kernel`
 // (ins_tpu/ops/pallas_kernels.py:2341, wrapper `pcmsd_hat_3d` :2694) and
@@ -27,7 +40,8 @@
 // smag.cu computed in a pass of its own just before: the TPU kernels form
 // it inside the stage (`_stage_tail` :1011-1034), so the force makes one
 // extra round trip through device memory here (fusing it is later work,
-// ROADMAP queue 2).
+// ROADMAP queue 2).  The temperature stream (`tparams` of both TPU
+// kernels, :724-757 and :2372-2406) is the TEMP template flag.
 //
 // What bounds it on an H100: device-memory bytes.  With REBUILD and a
 // stream base it reads ut_prev, q and the tableau streams and writes ut,
@@ -44,6 +58,15 @@
 // I - e_a, which a neighbouring thread also computes; each thread
 // recomputes that one component from the shared tile rather than
 // exchanging it, since the tableau streams at I - e_a are single loads.
+// TEMP adds a second ring, of T, over x-planes x-1 .. x+1 with a one-cell
+// (y, z) halo (5.4 KB beside the velocity ring's 18.5 KB; residency is
+// still bounded by the 2048 threads of an SM), loaded once per block.  The
+// velocity ring already holds what the temperature RHS reads: u_b at I and
+// I - e_b, and for the dissipation the Laplacian of u_b there, which
+// reaches I - 2 e_b, inside the ring's (2, 1) halo.  T, tstart and tacc
+// add one to three floats a cell and temp_out/tempnew one or two (19-22 in
+// all with the velocity streams).  Without TEMP (and without FORCE) the
+// kernel compiles exactly as it did before those streams existed.
 
 #include "stencil.cuh"
 
@@ -56,6 +79,8 @@ constexpr int XB = 8;              // x-planes walked per block
 constexpr int HZ = TZ + 3;         // halo: 2 below, 1 above
 constexpr int HY = TY + 3;
 constexpr int RING = 4;            // x-planes x-2 .. x+1
+constexpr int TY2 = TY + 2;        // T halo: one cell each side in y, z
+constexpr int TZ2 = TZ + 2;
 
 struct StageParams {
     const float* u;           // velocity, or ut_prev when REBUILD
@@ -78,9 +103,19 @@ struct StageParams {
     float visc;
     float dx[3];
     float vol;
+    // the temperature stream (TEMP only)
+    const float* T;           // the stage's temperature
+    const float* tstart;      // its tableau base; null: T
+    const float* tacc;        // the tempnew base; null: tstart or T
+    float* temp_out;
+    float* tempnew_out;       // written when with_usnew
+    int gdir;
+    float alpha2, alpha4, dis;
+    int with_dis;
 };
 
 using Ring = float[RING][3][HY][HZ];
+using TRing = float[RING][TY2][TZ2];  // slot pattern of Ring; x-2 unused
 
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
@@ -111,12 +146,36 @@ __device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int sl
     }
 }
 
+// Fill T-ring slot `slot` with x-plane `xp` of T over the tile's haloed
+// (y, z) window starting at (y0 - 1, z0 - 1).
+__device__ __forceinline__ void load_tplane(const StageParams& p, TRing& s, int slot,
+                                            int xp, int y0, int z0) {
+    const int n = p.n;
+    const int x = wrap(xp, n);
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y;
+    for (int e = tid; e < TY2 * TZ2; e += nthreads) {
+        const int ly = e / TZ2, lz = e - ly * TZ2;
+        const int y = wrap(y0 - 1 + ly, n), z = wrap(z0 - 1 + lz, n);
+        s[slot][ly][lz] = __ldg(p.T + ((size_t)x * n + y) * n + z);
+    }
+}
+
 // The thread's view of the ring at step i: u(c, I + (ox, oy, oz)).
 struct View {
     const Ring* s;
     int i, ly, lz;
     __device__ __forceinline__ float operator()(int c, int ox, int oy, int oz) const {
         return (*s)[(i + 2 + ox) & 3][c][ly + oy][lz + oz];
+    }
+};
+
+// The thread's view of the T ring at step i: T(I + (ox, oy, oz)).
+struct TView {
+    const TRing* s;
+    int i, ly, lz;
+    __device__ __forceinline__ float operator()(int ox, int oy, int oz) const {
+        return (*s)[(i + 2 + ox) & 3][ly + oy][lz + oz];
     }
 };
 
@@ -130,13 +189,16 @@ __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float
 }
 
 // Outputs of component A at I; returns its term of the divergence.
-template <bool REBUILD, bool FORCE, int A>
+template <bool REBUILD, bool FORCE, bool TEMP, int A>
 __device__ __forceinline__ float component(const StageParams& p, const View& u,
-                                           int x, int y, int z) {
+                                           const TView& T, int x, int y, int z) {
     const int n = p.n;
     const size_t n3 = (size_t)n * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
     float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
+    if constexpr (TEMP) {
+        if (A == p.gdir) f = f + p.alpha2 * (0.5f * (T(0, 0, 0) + T(A == 0, A == 1, A == 2)));
+    }
     if constexpr (FORCE) f = f + __ldg(p.force + idx);
     const float ua = u(A, 0, 0, 0);
     const float b0 = p.base ? __ldg(p.base + idx) : ua;
@@ -155,35 +217,105 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     const int zm = A == 2 ? (z == 0 ? n - 1 : z - 1) : z;
     const size_t idxm = A * n3 + ((size_t)xm * n + ym) * n + zm;
     float fm = convdiff<A, MX, MY, MZ>(p.visc, p.dx, u);
+    // the buoyancy at I - e_A too, or the backward divergence misses it
+    if constexpr (TEMP) {
+        if (A == p.gdir) fm = fm + p.alpha2 * (0.5f * (T(MX, MY, MZ) + T(0, 0, 0)));
+    }
     if constexpr (FORCE) fm = fm + __ldg(p.force + idxm);
     const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
     const float utm = tableau(p, idxm, bm, fm);
     return (ut - utm) / p.dx[A];
 }
 
-template <bool REBUILD, bool FORCE>
+// visc-free Laplacian of u_b at I + (ox, oy, oz)
+__device__ __forceinline__ float laplacian(const StageParams& p, const View& u, int b,
+                                           int ox, int oy, int oz) {
+    const float c = u(b, ox, oy, oz);
+    float l = (u(b, ox + 1, oy, oz) - 2.0f * c + u(b, ox - 1, oy, oz)) / (p.dx[0] * p.dx[0]);
+    l = l + (u(b, ox, oy + 1, oz) - 2.0f * c + u(b, ox, oy - 1, oz)) / (p.dx[1] * p.dx[1]);
+    l = l + (u(b, ox, oy, oz + 1) - 2.0f * c + u(b, ox, oy, oz - 1)) / (p.dx[2] * p.dx[2]);
+    return l;
+}
+
+// The temperature outputs at I (TEMP).
+__device__ __forceinline__ void temperature(const StageParams& p, const View& u,
+                                            const TView& T, int x, int y, int z) {
+    const int n = p.n;
+    const size_t idx = ((size_t)x * n + y) * n + z;
+    const float tc = T(0, 0, 0);
+    float kt = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        const int ex = b == 0, ey = b == 1, ez = b == 2;
+        const float tp = T(ex, ey, ez), tm = T(-ex, -ey, -ez);
+        const float uT2 = u(b, 0, 0, 0) * (0.5f * (tc + tp));
+        const float uT1 = u(b, -ex, -ey, -ez) * (0.5f * (tm + tc));
+        const float dT2 = (tp - tc) / p.dx[b];
+        const float dT1 = (tc - tm) / p.dx[b];
+        kt = kt + (-(uT2 - uT1) + p.alpha4 * (dT2 - dT1)) / p.dx[b];
+    }
+    if (p.with_dis) {
+        float dacc = 0.0f;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            const int ex = b == 0, ey = b == 1, ez = b == 2;
+            const float g2 = u(b, 0, 0, 0) * (p.visc * laplacian(p, u, b, 0, 0, 0));
+            const float g1 = u(b, -ex, -ey, -ez) * (p.visc * laplacian(p, u, b, -ex, -ey, -ez));
+            dacc = dacc + 0.5f * (g2 + g1);
+        }
+        kt = kt + p.dis * dacc;
+    }
+    const float tb = p.tstart ? __ldg(p.tstart + idx) : tc;
+    p.temp_out[idx] = tb + p.cnew * kt;
+    if (p.with_usnew) {
+        const float ta = p.tacc ? __ldg(p.tacc + idx) : tb;
+        p.tempnew_out[idx] = ta + p.cusnew * kt;
+    }
+}
+
+// The T ring, which exists only in the TEMP kernels.
+template <bool TEMP>
+__device__ __forceinline__ TRing* temp_ring() {
+    if constexpr (TEMP) {
+        __shared__ TRing ts;
+        return &ts;
+    } else {
+        return nullptr;
+    }
+}
+
+template <bool REBUILD, bool FORCE, bool TEMP>
 __global__ void __launch_bounds__(TZ * TY)
 stage_kernel(const __grid_constant__ StageParams p) {
     __shared__ Ring s;
+    TRing* const ts = temp_ring<TEMP>();
     const int n = p.n;
     const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * XB;
     const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
     const bool active = z < n && y < n;  // ragged tiles still load and sync
     const int nx = min(XB, n - x0);
     for (int r = 0; r < 3; ++r) load_plane<REBUILD>(p, s, r, x0 - 2 + r, y0, z0);
+    if constexpr (TEMP) {
+        for (int r = 1; r < 3; ++r) load_tplane(p, *ts, r, x0 - 2 + r, y0, z0);
+    }
     const View u{&s, 0, (int)threadIdx.y + 2, (int)threadIdx.x + 2};
+    const TView tv{ts, 0, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
     for (int i = 0; i < nx; ++i) {
         // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
         load_plane<REBUILD>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
+        if constexpr (TEMP) load_tplane(p, *ts, (i + 3) & 3, x0 + i + 1, y0, z0);
         __syncthreads();
         if (active) {
             View v = u;
             v.i = i;
+            TView t = tv;
+            t.i = i;
             const int x = x0 + i;
-            float d = component<REBUILD, FORCE, 0>(p, v, x, y, z);
-            d += component<REBUILD, FORCE, 1>(p, v, x, y, z);
-            d += component<REBUILD, FORCE, 2>(p, v, x, y, z);
+            float d = component<REBUILD, FORCE, TEMP, 0>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, 1>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, 2>(p, v, t, x, y, z);
             p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
+            if constexpr (TEMP) temperature(p, v, t, x, y, z);
         }
         __syncthreads();  // plane x-2's slot is refilled next step
     }
@@ -197,8 +329,12 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
                              float cusnew, int with_usnew, float* k_out, float* ut_out,
                              float* usnew_out, float* u_out, float* div_out, int n,
                              float visc, float dx0, float dx1, float dx2, float vol,
-                             void* stream) {
+                             const float* T, const float* tstart, const float* tacc,
+                             float* temp_out, float* tempnew_out, int gdir, float alpha2,
+                             float alpha4, float dis, int with_dis, void* stream) {
     if (m < 0 || m > MAXK) return (int)cudaErrorInvalidValue;
+    if (T && (gdir < 0 || gdir > 2 || !temp_out || (with_usnew && !tempnew_out) || m != 0))
+        return (int)cudaErrorInvalidValue;
     StageParams p{};
     p.u = u;
     p.q = q;
@@ -224,12 +360,28 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
     p.dx[1] = dx1;
     p.dx[2] = dx2;
     p.vol = vol;
+    p.T = T;
+    p.tstart = tstart;
+    p.tacc = tacc;
+    p.temp_out = temp_out;
+    p.tempnew_out = tempnew_out;
+    p.gdir = gdir;
+    p.alpha2 = alpha2;
+    p.alpha4 = alpha4;
+    p.dis = dis;
+    p.with_dis = with_dis;
     const dim3 block(TZ, TY);
     const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (n + XB - 1) / XB);
-    // the force stream is a template flag, so the stage without one
-    // compiles exactly as before it existed
-    auto* kernel = q ? (force ? stage_kernel<true, true> : stage_kernel<true, false>)
-                     : (force ? stage_kernel<false, true> : stage_kernel<false, false>);
+    // the force and temperature streams are template flags, so the stage
+    // without them compiles exactly as before they existed
+    using Kernel = void (*)(const StageParams);
+    const Kernel kernels[2][2][2] = {
+        {{stage_kernel<false, false, false>, stage_kernel<false, false, true>},
+         {stage_kernel<false, true, false>, stage_kernel<false, true, true>}},
+        {{stage_kernel<true, false, false>, stage_kernel<true, false, true>},
+         {stage_kernel<true, true, false>, stage_kernel<true, true, true>}},
+    };
+    const Kernel kernel = kernels[q != nullptr][force != nullptr][T != nullptr];
     kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }

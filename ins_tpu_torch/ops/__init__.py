@@ -4,6 +4,12 @@ from .eddyviscosity import (  # noqa: F401
     smagorinsky_natural_interior,
 )
 from .fdm import psolver_fdm  # noqa: F401
-from .initializers import create_spectrum, random_field, velocityfield  # noqa: F401
+from .initializers import (  # noqa: F401
+    create_spectrum,
+    random_field,
+    scalarfield,
+    temperaturefield,
+    velocityfield,
+)
 from .poisson_kernels import make_fused_projection  # noqa: F401
 from .pressure import default_psolver, psolver_spectral  # noqa: F401

@@ -66,11 +66,11 @@ __all__ = [
 
 def channelpath_applicable(setup, method=None):
     """Channel topology: 3-D, x/y periodic uniform, z Dirichlet walls with
-    static wall velocities whose normal component is zero, no closure,
-    steady (or no) body force; with `method`, an explicit RK tableau with
-    classic rows (or one stage)."""
+    static wall velocities whose normal component is zero, no closure, no
+    temperature, steady (or no) body force; with `method`, an explicit RK
+    tableau with classic rows (or one stage)."""
     g = setup.grid
-    if g.dim != 3 or setup.closure_model is not None:
+    if g.dim != 3 or setup.closure_model is not None or setup.temperature is not None:
         return False
     for d in (0, 1):
         if not (g.periodic[d] and g.uniform[d]):

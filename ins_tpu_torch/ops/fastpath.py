@@ -1,41 +1,46 @@
 """Ghost-free fast path for uniform periodic grids.
 
-Port of `ins_tpu/ops/fastpath.py` for explicit RK tableaus without
-temperature.  Fields are carried without ghost cells
-(every stencil shift is a periodic roll); `strip_*`/`reghost*` cross to
-and from the public ghosted layout.
+Port of `ins_tpu/ops/fastpath.py` for explicit RK tableaus and LMWray3,
+with or without the Boussinesq temperature.  Fields are carried without
+ghost cells (every stencil shift is a periodic roll); `strip_*`/`reghost*`
+cross to and from the public ghosted layout.
 
 Three chains:
 
-- **The hat chain** (3-D cubes, classic-row tableaus such as RK44): the
-  carry is a `HatState` ``(ut, qhat)`` — the uncorrected velocity and
-  the pressure in the z/y eigen-basis — and u is only materialised at
-  chunk ends (`from_hat`).  Every RK stage is one stage kernel
-  (`pcmsd_hat_3d`, which rebuilds ``u = ut − ∇q`` inside) and pass B.
-  A chunk's first stage starts from a materialised u (`to_hat` sets
-  ``qhat=None``), so it runs `momentum_stage_divhat_3d`, the same stage
-  without the rebuild.  On CUDA tensors these are the hand-written
-  kernels; on CPU tensors their plain versions.  A steady body force and
-  the natural-form Smagorinsky closure (`smagorinsky_closure_natural`,
-  recognised by its tag) ride every stage kernel's force stream; the
-  Smagorinsky force is its own kernel, run on the rebuilt u just before
-  each stage.
+- **The hat chain** (3-D cubes; classic-row tableaus such as RK44, and
+  LMWray3): the carry is a `HatState` ``(ut, qhat, temp)`` — the
+  uncorrected velocity, the pressure in the z/y eigen-basis and the
+  temperature — and u is only materialised at chunk ends (`from_hat`).
+  Every stage is one stage kernel (`pcmsd_hat_3d`, which rebuilds
+  ``u = ut − ∇q`` inside) and pass B.  A chunk's first stage starts from
+  a materialised u (`to_hat` sets ``qhat=None``), so it runs
+  `momentum_stage_divhat_3d`, the same stage without the rebuild.  On
+  CUDA tensors these are the hand-written kernels; on CPU tensors their
+  plain versions.  A steady body force and the natural-form Smagorinsky
+  closure (`smagorinsky_closure_natural`, recognised by its tag) ride
+  every stage kernel's force stream; the Smagorinsky force is its own
+  kernel, run on the rebuilt u just before each stage.  The temperature
+  rides the stage kernels' temperature stream with the stage's own
+  coefficients, mirroring the velocity's tableau streams: RK44's b-row
+  accumulator, LMWray3's accumulator base.
 - **The per-op chain** (3-D with an untagged closure model, or
   ``differentiable=True``: the training unroll): `step_unmerged`'s
   per-op branch.  Each stage is the conv-diff kernel plus the closure
   force, then stage-div, the Poisson solve and the pressure correction,
   through the custom-VJP wrappers of `ops/diffkernels.py` (kernel
   forward, roll-graph adjoint backward); the Smagorinsky force goes
-  through `make_smag_force_vjp`, differentiable in u and θ.  The Poisson
-  solve is the eigen-matmul `make_poisson_mm` on the card and `torch.fft`
-  on the CPU, as the JAX package picks it; both differentiate natively.
+  through `make_smag_force_vjp`, differentiable in u and θ.  On the card
+  the Poisson solve is the 3-pass `make_poisson_pallas` on a cube when
+  the chain is not differentiated, else the eigen-matmul `make_poisson_mm`
+  (autograd differentiates it natively); on the CPU it is `torch.fft`.
 - **The roll twin** (2-D, non-cubes, other tableaus, and 2-D with a
   closure): the same stage loop with conv-diff as a roll graph and the
   projection as roll-graph divergence and gradient around the solve; the
   Smagorinsky force as `smagorinsky_natural_interior`.
 
-Every chain adds a steady body force to the momentum.  LMWray3,
-temperature and bf16 streams are ROADMAP queue 1 item 6.
+Every chain adds a steady body force to the momentum.  The per-op chain
+and the roll twin carry the temperature as roll graphs
+(`ops/temperature.py`).  bf16 streams are ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..time_steppers.methods import ExplicitRungeKuttaMethod
+from ..time_steppers.methods import ExplicitRungeKuttaMethod, LMWray3
 from ..time_steppers.step import StepperState
 from . import stage_kernels as sk
 from .dft import make_poisson_mm
@@ -57,13 +62,16 @@ from .diffkernels import (
     make_stage_div_vjp,
 )
 from .eddyviscosity import smagorinsky_natural_interior, theta_tensor
-from .poisson_kernels import make_fused_projection
+from .poisson_kernels import make_fused_projection, make_poisson_pallas
 from .pressure import _spectral_solve, project_periodic, uniform_dxs
+from .temperature import add_buoyancy, temp_rhs_roll
 
 __all__ = [
     "fastpath_applicable",
     "strip_ghosts",
     "reghost",
+    "strip_scalar",
+    "reghost_scalar",
     "strip_state",
     "reghost_state",
     "make_fast_timestep",
@@ -76,7 +84,8 @@ __all__ = [
 class HatState(NamedTuple):
     """Carry of the step-boundary-merged chain: ``u = ut − ∇q`` with
     ``q = V_y·qhat·V_zᵀ``.  ``qhat=None`` means ``ut`` already is the
-    corrected velocity (the state `to_hat` makes)."""
+    corrected velocity (the state `to_hat` makes); ``temp`` is the
+    interior temperature or None."""
 
     ut: Any
     qhat: Any
@@ -87,12 +96,13 @@ class HatState(NamedTuple):
 
 def fastpath_applicable(setup, method, psolver):
     """The port's fast path: 2-D/3-D uniform periodic grid, an explicit
-    RK tableau and the spectral pressure solver."""
+    RK tableau or LMWray3 and the spectral pressure solver (`Setup`
+    accepts periodic temperature BCs only)."""
     g = setup.grid
     return (
         all(g.periodic)
         and all(g.uniform)
-        and isinstance(method, ExplicitRungeKuttaMethod)
+        and isinstance(method, (ExplicitRungeKuttaMethod, LMWray3))
         and getattr(psolver, "is_spectral", False)
     )
 
@@ -113,19 +123,37 @@ def reghost(u_int):
     return u_int
 
 
+def strip_scalar(s):
+    return s[(slice(1, -1),) * s.dim()].contiguous()
+
+
+def reghost_scalar(s_int):
+    """`reghost` of a scalar field."""
+    return reghost(s_int[None])[0]
+
+
 def strip_state(state):
     """Public (ghosted) -> fast-path (interior) state layout."""
-    return state._replace(u=strip_ghosts(state.u))
+    state = state._replace(u=strip_ghosts(state.u))
+    if state.temp is not None:
+        state = state._replace(temp=strip_scalar(state.temp))
+    return state
 
 
 def reghost_state(state):
     """Fast-path (interior) -> public (ghosted) state layout."""
-    return state._replace(u=reghost(state.u))
+    state = state._replace(u=reghost(state.u))
+    if state.temp is not None:
+        state = state._replace(temp=reghost_scalar(state.temp))
+    return state
 
 
 def _classic_lowstorage_rows(method):
     """True when every intermediate (shifted-tableau) row's only nonzero
-    is its own stage's k (classic RK44 and friends)."""
+    is its own stage's k (classic RK44 and friends), and for LMWray3 by
+    construction."""
+    if isinstance(method, LMWray3):
+        return True
     A, ns = method.A, method.nstage
     return ns >= 2 and all(A[i][j] == 0.0 for i in range(ns - 1) for j in range(i))
 
@@ -136,15 +164,16 @@ def _is_smag(setup):
 
 
 def hat_chain_applicable(setup, method):
-    """Whether the fused hat chain runs this setup: 3-D cube,
-    classic-row tableau and no closure model but the natural-form
-    Smagorinsky one (another closure rides the per-op chain, as in the
-    JAX package's `use_fused_stage`)."""
+    """Whether the fused hat chain runs this setup: 3-D cube, a
+    classic-row tableau or LMWray3 (so the stage kernels' single tableau
+    and accumulator streams hold each field, temperature included) and no
+    closure model but the natural-form Smagorinsky one (another closure
+    rides the per-op chain, as in the JAX package's `use_fused_stage`)."""
     g = setup.grid
     return (
         g.dim == 3
         and g.Np[0] == g.Np[1] == g.Np[2]
-        and isinstance(method, ExplicitRungeKuttaMethod)
+        and isinstance(method, (ExplicitRungeKuttaMethod, LMWray3))
         and _classic_lowstorage_rows(method)
         and (setup.closure_model is None or _is_smag(setup))
     )
@@ -168,16 +197,27 @@ def _kernel_ops(plain):
 
 
 def _check_method(setup, method):
-    if not isinstance(method, ExplicitRungeKuttaMethod):
+    if not isinstance(method, (ExplicitRungeKuttaMethod, LMWray3)):
         raise NotImplementedError(
             f"{type(method).__name__} is not ported yet: the port's fast "
-            "path steps explicit RK tableaus (LMWray3 is ROADMAP queue 1 item 6)"
+            "path steps explicit RK tableaus and LMWray3 (IMEX/implicit "
+            "steppers are ROADMAP queue 1 item 7)"
         )
 
 
 def _bodyforce_interior(setup):
     f = setup.bodyforce_field
     return None if f is None else strip_ghosts(f)
+
+
+def _temp_consts(setup):
+    """(gdir, alpha2, alpha4, dis) of the setup's temperature equation
+    (``dis`` = Re·alpha1/gamma with dissipation, else None), or None."""
+    tq = setup.temperature
+    if tq is None:
+        return None
+    dis = setup.Re * tq.alpha1 / tq.gamma if tq.dodissipation else None
+    return types.SimpleNamespace(gdir=tq.gdir, alpha2=tq.alpha2, alpha4=tq.alpha4, dis=dis)
 
 
 def _make_hat_fns(setup, method, projection_precision, plain):
@@ -189,70 +229,131 @@ def _make_hat_fns(setup, method, projection_precision, plain):
         g.Np, dxs, setup.dtype, precision=projection_precision, device=setup.device
     )
     passB = proj["passB_plain" if plain else "passB"]
-    A, ns = method.A, method.nstage
     force = _bodyforce_interior(setup)
     d2 = float(sum(d * d for d in dxs))
+    tc = _temp_consts(setup)
 
-    def stage0(ut, qhat, coeff, unc, smag):
-        """Stage 0: from a materialised u (``qhat is None``) without the
-        rebuild, else the step-boundary merge with the rebuilt u as base.
-        Returns (ut, divhat, usnew, ustart)."""
+    def temp_arg(T, tstart=None, tacc=None):
+        """The stage kernels' ``temperature`` tuple: the stage's T, the
+        tableau base (None: T itself) and the b-row accumulator base."""
+        if T is None:
+            return None
+        return (T, tstart, tacc, tc.gdir, tc.alpha2, tc.alpha4, tc.dis)
+
+    def stage(ut, qhat, base, coeff, *, unc=None, ub=None, smag=None, temp=None,
+              emit_u=False):
+        """One stage kernel, then pass B.  The merged stage rebuilds u from
+        the carry's (ut, qhat); where ``qhat is None`` (ut is the corrected
+        u) the stage without the rebuild runs, with the RECON base as its
+        only stream.  Returns (ut, qhat, usnew, u, temp_next, tempnew):
+        u the velocity (emitted with ``emit_u``), the last three None where
+        not asked for."""
+        kw = dict(precision=projection_precision, emit_k=False, usnew_coeff=unc,
+                  usnew_base=ub, bodyforce=force, smag=smag, temperature=temp)
         if qhat is None:
-            res = ops.msd(
-                ut, (ut,), (coeff,), visc, dxs, proj["Vinv"], proj["VinvT"],
-                precision=projection_precision, emit_k=False, usnew_coeff=unc,
-                bodyforce=force, smag=smag,
-            )
-            ustart = ut
+            res = list(ops.msd(ut, (ut,), (coeff,), visc, dxs, proj["Vinv"], proj["VinvT"],
+                               **kw))
+            u = ut
         else:
-            res = ops.pcmsd(
-                ut, qhat, (sk.RECON,), (coeff,), visc, dxs, proj,
-                precision=projection_precision, emit_k=False, usnew_coeff=unc,
-                bodyforce=force, smag=smag, emit_u=ns > 1,
-            )
-            ustart = res[-1] if ns > 1 else None
-        usnew = res[2] if unc is not None else None
-        return res[0], res[1], usnew, ustart
+            res = list(ops.pcmsd(ut, qhat, (base,), (coeff,), visc, dxs, proj,
+                                 emit_u=emit_u, **kw))
+            u = None
+        ut, divhat = res.pop(0), res.pop(0)
+        usnew = res.pop(0) if unc is not None else None
+        if emit_u and qhat is not None:
+            u = res.pop(0)
+        tnext = res.pop(0) if temp is not None else None
+        tnew = res.pop(0) if temp is not None and unc is not None else None
+        return ut, passB(divhat), usnew, u, tnext, tnew
 
-    def step_hat(h, dt, theta=None):
-        """One RK step on the hat carry; the final pressure correction is
-        deferred to the next step's stage 0 (or `from_hat`).  ``theta``
-        is the Smagorinsky constant where the setup has that closure (made
-        a tensor once per step, not once per launch)."""
-        smag = None
-        if _is_smag(setup):
-            smag = (theta_tensor(theta, setup.dtype, setup.device), d2)
-        ut, qhat, _, t, n = h
-        for i in range(ns):
-            last = i == ns - 1
-            bcoef = A[ns - 1][i]
-            unc = dt * bcoef if (bcoef != 0.0 and not last) else None
-            if i == 0:
-                ut, divhat, usnew, ustart = stage0(ut, qhat, dt * A[0][0], unc, smag)
-                acc = usnew if unc is not None else ustart
-            else:
-                ub = None if (unc is None or acc is ustart) else acc
-                res = ops.pcmsd(
-                    ut, qhat, ((acc,) if last else (ustart,)), (dt * A[i][i],),
-                    visc, dxs, proj, precision=projection_precision,
-                    emit_k=False, usnew_coeff=unc, usnew_base=ub,
-                    bodyforce=force, smag=smag,
-                )
-                ut, divhat = res[0], res[1]
+    def smag_arg(theta):
+        # a tensor once per step, not once per launch
+        if not _is_smag(setup):
+            return None
+        return (theta_tensor(theta, setup.dtype, setup.device), d2)
+
+    if isinstance(method, ExplicitRungeKuttaMethod):
+        A, ns = method.A, method.nstage
+
+        def step_hat(h, dt, theta=None):
+            """One RK step on the hat carry (the JAX `step_merged_hat`);
+            the final pressure correction is deferred to the next step's
+            stage 0 (or `from_hat`).  ``theta`` is the Smagorinsky
+            constant where the setup has that closure.  The temperature
+            mirrors the velocity's streams: base tempstart (the
+            accumulator at the last stage), elided at stage 0 where T is
+            the base."""
+            smag = smag_arg(theta)
+            ut, qhat, temp, t, n = h
+            tempstart = tacc = temp
+            for i in range(ns):
+                last = i == ns - 1
+                bcoef = A[ns - 1][i]
+                unc = dt * bcoef if (bcoef != 0.0 and not last) else None
+                tb = None if (unc is None or tacc is tempstart) else tacc
+                if i == 0:
+                    ut, qhat, usnew, ustart, tnext, tnew = stage(
+                        ut, qhat, sk.RECON, dt * A[0][0], unc=unc, smag=smag,
+                        temp=temp_arg(temp, None, tb), emit_u=ns > 1,
+                    )
+                    acc = usnew if unc is not None else ustart
+                else:
+                    ub = None if (unc is None or acc is ustart) else acc
+                    ut, qhat, usnew, _, tnext, tnew = stage(
+                        ut, qhat, acc if last else ustart, dt * A[i][i], unc=unc, ub=ub,
+                        smag=smag, temp=temp_arg(temp, tacc if last else tempstart, tb),
+                    )
+                    if unc is not None:
+                        acc = usnew
+                if temp is not None:
+                    temp = tnext
+                    if unc is not None:
+                        tacc = tnew
+            return HatState(ut=ut, qhat=qhat, temp=temp, t=t + dt, n=n + 1)
+
+    else:
+        a, b = method.a, method.b
+        ns = len(a)
+
+        def step_hat(h, dt, theta=None):
+            """One LMWray3 step on the hat carry (the JAX
+            `step_merged_hat`): stage 0 takes the rebuilt u as its base
+            and writes only the accumulator ``ustart + dt·b_0·f`` (later
+            stages never read ustart itself); stage i takes that
+            accumulator as its base.  A b_i of 0 leaves the accumulator as
+            it is, so its (unchanged) copy is not written.  The
+            temperature follows with its own accumulator."""
+            smag = smag_arg(theta)
+            ut, qhat, temp, t, n = h
+            ustart = tempstart = None
+            for i in range(ns):
+                unc = None
+                if i < ns - 1 and (i == 0 or b[i] != 0.0):
+                    unc = dt * b[i]
+                if i == 0:
+                    ut, qhat, usnew, _, tnext, tnew = stage(
+                        ut, qhat, sk.RECON, dt * a[0], unc=unc, smag=smag,
+                        temp=temp_arg(temp),
+                    )
+                else:
+                    ut, qhat, usnew, _, tnext, tnew = stage(
+                        ut, qhat, ustart, dt * a[i], unc=unc, smag=smag,
+                        temp=temp_arg(temp, tempstart),
+                    )
+                temp = tnext
                 if unc is not None:
-                    acc = res[2]
-            qhat = passB(divhat)
-        return HatState(ut=ut, qhat=qhat, temp=None, t=t + dt, n=n + 1)
+                    ustart, tempstart = usnew, tnew
+            return HatState(ut=ut, qhat=qhat, temp=temp, t=t + dt, n=n + 1)
 
     def to_hat(state):
         # qhat=None: ut is the corrected velocity (no rebuild needed)
-        return HatState(ut=state.u, qhat=None, temp=None, t=state.t, n=state.n)
+        return HatState(ut=state.u, qhat=None, temp=state.temp, t=state.t, n=state.n)
 
     def from_hat(h):
         u = h.ut if h.qhat is None else ops.correct(
             h.ut, h.qhat, dxs, proj["V"], proj["VT"], precision=projection_precision
         )
-        return StepperState(u=u, temp=None, t=h.t, n=h.n)
+        return StepperState(u=u, temp=h.temp, t=h.t, n=h.n)
 
     return to_hat, step_hat, from_hat
 
@@ -291,15 +392,23 @@ def make_fast_timestep(setup, method, *, differentiable=False,
 
         return step
 
-    D = setup.grid.dim
+    g = setup.grid
+    D = g.dim
     dxs = uniform_dxs(setup)
     visc = 1.0 / setup.Re
     if setup.device.type == "cuda":
-        solve_p = make_poisson_mm(setup.grid.Np, dxs, setup.dtype, setup.device)
+        # the 3-pass solve of hand kernels has no adjoint: a differentiated
+        # chain contracts with the eigen-matrices, as the JAX package does
+        if D == 3 and len(set(g.Np)) == 1 and not differentiable:
+            solve_p = make_poisson_pallas(g.Np, dxs, setup.dtype, precision=projection_precision,
+                                          device=setup.device, plain=plain)
+        else:
+            solve_p = make_poisson_mm(g.Np, dxs, setup.dtype, setup.device)
     else:
-        solve_p = _spectral_solve(setup.grid.Np, dxs, setup.dtype, setup.device)
+        solve_p = _spectral_solve(g.Np, dxs, setup.dtype, setup.device)
     closure = setup.closure_model
     force = _bodyforce_interior(setup)
+    tc = _temp_consts(setup)
     kernels = per_op and D == 3
     if kernels:
         convdiff = make_convdiff_vjp(visc, dxs, plain=plain)
@@ -307,10 +416,11 @@ def make_fast_timestep(setup, method, *, differentiable=False,
         correct = make_pressure_correct_vjp(dxs, plain=plain)
         if smag:
             smag_force = make_smag_force_vjp(dxs, plain=plain)
-    A, c, ns = method.A, method.c, method.nstage
 
-    def momentum(u, theta):
+    def momentum(u, temp, theta):
         F = convdiff(u) if kernels else convdiff_roll(u, visc, dxs)
+        if temp is not None:
+            F = add_buoyancy(F, temp, tc.gdir, tc.alpha2)
         if force is not None:
             F = F + force
         if smag:
@@ -321,6 +431,9 @@ def make_fast_timestep(setup, method, *, differentiable=False,
             F = F + strip_ghosts(closure(reghost(u), theta))
         return F
 
+    def temp_rhs(u, temp):
+        return temp_rhs_roll(u, temp, dxs, tc.alpha4, visc, tc.dis)
+
     def stage_project(base, k, coeff):
         """Projected stage update P(base + coeff·k)."""
         if kernels:
@@ -328,25 +441,57 @@ def make_fast_timestep(setup, method, *, differentiable=False,
             return correct(ut, solve_p(div))
         return project_periodic(base + coeff * k, dxs, solve_p)
 
+    if isinstance(method, LMWray3):
+        a, b = method.a, method.b
+
+        def step(state, dt, theta=None):
+            """The JAX package's LMWray3 `step_unmerged` per-op branch."""
+            u, temp, tstart, n = state
+            if smag:
+                theta = theta_tensor(theta, setup.dtype, setup.device)
+            ustart, tempstart = u, temp
+            for i in range(len(a)):
+                du = momentum(u, temp, theta)
+                dtemp = temp_rhs(u, temp) if temp is not None else None
+                u = stage_project(ustart, du, dt * a[i])
+                if temp is not None:
+                    temp = tempstart + dt * a[i] * dtemp
+                if i < len(a) - 1:
+                    ustart = ustart + dt * b[i] * du
+                    if temp is not None:
+                        tempstart = tempstart + dt * b[i] * dtemp
+            return StepperState(u=u, temp=temp, t=tstart + dt, n=n + 1)
+
+        return step
+
+    A, c, ns = method.A, method.c, method.nstage
+
     def step(state, dt, theta=None):
         """The JAX package's `step_unmerged` per-op branch."""
-        u, _, tstart, n = state
+        u, temp, tstart, n = state
         if smag:
             theta = theta_tensor(theta, setup.dtype, setup.device)
-        ustart = u
-        ku = []
+        ustart, tempstart = u, temp
+        ku, kt = [], []
         t = tstart
         for i in range(ns):
             base = ustart
             for j in range(i):
                 if A[i][j] != 0.0:
                     base = base + (dt * A[i][j]) * ku[j]
-            ku.append(momentum(u, theta))
+            ku.append(momentum(u, temp, theta))
+            if temp is not None:
+                kt.append(temp_rhs(u, temp))
             t = tstart + c[i] * dt
             if A[i][i] != 0.0:
                 u = stage_project(base, ku[i], dt * A[i][i])
             else:  # degenerate diagonal entry: nothing new to add
                 u = project_periodic(base, dxs, solve_p)
-        return StepperState(u=u, temp=None, t=t, n=n + 1)
+            if temp is not None:
+                temp = tempstart
+                for j in range(i + 1):
+                    if A[i][j] != 0.0:
+                        temp = temp + (dt * A[i][j]) * kt[j]
+        return StepperState(u=u, temp=temp, t=t, n=n + 1)
 
     return step

@@ -1,9 +1,11 @@
 """Initial fields.
 
-Port of `velocityfield`, `create_spectrum` and `random_field` from
-`ins_tpu/ops/initializers.py`.  `velocityfield` evaluates a function at
-the staggered velocity points and projects it, on a uniform periodic
-grid or a channel.  `random_field` builds synthetic turbulence on a
+Port of `scalarfield`, `velocityfield`, `temperaturefield`,
+`create_spectrum` and `random_field` from `ins_tpu/ops/initializers.py`.
+`velocityfield` evaluates a function at the staggered velocity points and
+projects it, on a uniform periodic grid or a channel; `temperaturefield`
+evaluates one at the pressure points and fills the ghosts by the
+periodic wrap (the only temperature BC the port takes).  `random_field` builds synthetic turbulence on a
 uniform periodic grid: the Orlandi-style energy spectrum peaked at `kp`,
 random phases and unit vectors, a spectral Leray projection, an inverse
 FFT and a final discrete projection.  Randomness comes from an explicit
@@ -24,11 +26,23 @@ from .channelpath import (
     make_channel_metrics,
     reghost_channel,
 )
-from .fastpath import reghost
+from .fastpath import reghost, reghost_scalar
 from .fdm import om_box
 from .pressure import default_psolver, project_periodic, psolver_spectral, uniform_dxs
 
-__all__ = ["velocityfield", "create_spectrum", "random_field", "spectrum_draw_shapes"]
+__all__ = [
+    "scalarfield",
+    "velocityfield",
+    "temperaturefield",
+    "create_spectrum",
+    "random_field",
+    "spectrum_draw_shapes",
+]
+
+
+def scalarfield(setup):
+    """Empty scalar field (ghosts included) on `setup.device`."""
+    return torch.zeros(setup.grid.N, dtype=setup.dtype, device=setup.device)
 
 
 def velocityfield(setup, ufunc, t=0.0, *, psolver=None, doproject=True):
@@ -65,6 +79,22 @@ def velocityfield(setup, ufunc, t=0.0, *, psolver=None, doproject=True):
             q = psolver(om_box(setup) * channel_divergence_roll(u, met))
             u = channel_correct_roll(u, q, met)
     return reghost(u) if periodic else reghost_channel(u, setup)
+
+
+def temperaturefield(setup, tempfunc, t=0.0):
+    """Temperature field from ``tempfunc(*x)`` (a torch function of
+    broadcastable coordinate tensors) at the pressure points, in the
+    public ghosted layout with the periodic ghost wrap.  ``t`` is accepted
+    for parity (periodic BCs do not depend on it)."""
+    if setup.temperature is None:
+        raise ValueError("temperaturefield requires a setup with a temperature equation")
+    g = setup.grid
+    box = g.Ip
+    coords = [seg(g.xp[d], box, d, device=setup.device) for d in range(g.dim)]
+    val = tempfunc(*coords) * torch.ones(
+        tuple(e - s for s, e in box), dtype=setup.dtype, device=setup.device
+    )
+    return reghost_scalar(val.to(setup.dtype))
 
 
 def spectrum_draw_shapes(setup):

@@ -32,6 +32,8 @@ KERNELS = (
     "passB",
     "passB_fold",
     "pressure_correct_qhat_3d",
+    # the per-op chain's 3-pass Poisson solve (ops/poisson_kernels.py)
+    "poisson_pallas",
     # the Smagorinsky force (ops/smag_kernels.py)
     "smagorinsky_force_3d",
     # the per-op chain (ops/perop_kernels.py)

@@ -22,6 +22,12 @@ recurse on e (the even half-basis is the n/2-point basis scaled by
 On CUDA tensors each runs as GEMMs (`csrc/transforms.cu`) around the
 eigen-scale, split and combine kernels of `csrc/poisson.cu`; on CPU
 tensors as the plain versions `passB_plain` and `passB_fold_plain`.
+
+`make_poisson_pallas` is the port of the JAX package's standalone 3-pass
+solve of the same name: pass A is the z/y forward transform
+(`yz_transform(f, Vinv, VinvT)`), pass B the fused projection's (folded
+where n % 4 == 0), pass C the z/y inverse transform; the per-op chain
+solves with it on the card when it is not differentiated.
 """
 
 from __future__ import annotations
@@ -34,13 +40,14 @@ import torch
 from .. import _build
 from .dft import fourier_eigenbasis
 from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain
-from .transforms import x_transform, x_transform_plain
+from .transforms import x_transform, x_transform_plain, yz_transform, yz_transform_plain
 
 __all__ = [
     "poisson_eigen_consts",
     "fold_levels_default",
     "poisson_fold_consts",
     "make_fused_projection",
+    "make_poisson_pallas",
     "passB",
     "passB_plain",
     "passB_fold",
@@ -267,3 +274,27 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
         proj["passB"] = lambda h: passB(h, proj)
         proj["passB_plain"] = lambda h: passB_plain(h, proj)
     return proj
+
+
+def make_poisson_pallas(Np, dxs, dtype, *, precision="manualhigh", device="cuda",
+                        plain=False):
+    """``solve(f) -> p`` of the volume-scaled periodic Laplacian on a cube
+    (the zero-mean mode pinned to 0): the same solve as `make_poisson_mm`
+    in three passes, ``V_y·(passB(Vinv_y·f·Vinv_zᵀ))·V_zᵀ``.  On CUDA
+    tensors each pass is its hand-written kernels (counted once per solve
+    under ``"poisson_pallas"``); on CPU tensors, or with ``plain=True`` on
+    any device, the plain versions."""
+    proj = make_fused_projection(Np, dxs, dtype, precision=precision, device=device)
+    passB_fn = proj["passB_plain" if plain else "passB"]
+    Vinv, VinvT, V, VT = proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"]
+
+    def solve(f):
+        if plain or f.device.type == "cpu":
+            h = passB_fn(yz_transform_plain(f, Vinv, VinvT))
+            return yz_transform_plain(h, V, VT)
+        with torch.cuda.device(f.device):
+            p = yz_transform(passB_fn(yz_transform(f, Vinv, VinvT)), V, VT)
+            LAUNCHES["poisson_pallas"] += 1
+        return p
+
+    return solve

@@ -20,8 +20,19 @@ stage kernel's force stream; ``smag=(theta, d2)`` runs the Smagorinsky
 force kernel (`ops/smag_kernels.py`, on the rebuilt u for `pcmsd_hat_3d`)
 with the body force folded in and feeds its output to the same stream.
 The plain versions add both where the JAX package's `_stage_tail` does:
-f = convdiff + smag + bodyforce.  ``temperature`` and a bf16
-``compute_dtype`` raise NotImplementedError.
+f = convdiff + smag + buoyancy + bodyforce.
+
+``temperature=(T, tstart, tacc, gdir, alpha2, alpha4, dis)`` rides the
+Boussinesq temperature on the same pass, as in the JAX wrappers: the
+buoyancy ``alpha2·½(T + T[I + e_gdir])`` joins component gdir of the
+momentum (so k and the divergence include it), and the temperature RHS
+kt (`ops/temperature.temp_rhs_roll` of the stage's velocity, the rebuilt
+one for `pcmsd_hat_3d`) advances with the stage's own coefficients:
+``temp_next = (tstart or T) + coeffs[-1]·kt`` and, with ``usnew_coeff``,
+``tempnew = (tacc or tstart or T) + usnew_coeff·kt``, appended to the
+outputs in that order.  The stage then takes no k streams, and ``tacc``
+needs ``tstart`` and ``usnew_coeff``.  A bf16 ``compute_dtype`` raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from .diffkernels import convdiff_roll, roll_m, roll_p
 from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain, ptr
 from .smag_kernels import _force as smag_force
 from .smag_kernels import _force_plain as smag_force_plain
+from .temperature import add_buoyancy, temp_rhs_roll
 from .transforms import yz_transform, yz_transform_plain
 
 __all__ = [
@@ -61,17 +73,41 @@ RECON = _Recon()
 _MAXK = 4  # k streams the CUDA stage kernel takes (csrc/stage.cu MAXK)
 
 
-def _reject_unported(temperature=None, compute_dtype=None):
-    if temperature is not None:
-        raise NotImplementedError(
-            "temperature= is not ported yet (Boussinesq temperature, ROADMAP "
-            "queue 1 item 6)"
-        )
+def _reject_unported(compute_dtype=None):
     if compute_dtype is not None and compute_dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             "bf16 stream storage (compute_dtype) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
+            "(ROADMAP queue 2 item 5)"
         )
+
+
+def _split_temperature(temperature, streams, usnew_coeff):
+    """The ``temperature`` tuple with the JAX wrappers' rules checked,
+    gdir an int and the coefficients floats (``dis`` None: off)."""
+    if temperature is None:
+        return None
+    T, tstart, tacc, gdir, alpha2, alpha4, dis = temperature
+    if tacc is not None and tstart is None:
+        raise ValueError("temperature: tempacc needs tempstart")
+    if tacc is not None and usnew_coeff is None:
+        raise ValueError("temperature: tempacc needs usnew_coeff")
+    if len(tuple(streams)) != 1:
+        raise ValueError("temperature: the stage takes no k streams (m == 0)")
+    if int(gdir) not in (0, 1, 2):
+        raise ValueError(f"temperature: gdir must be 0, 1 or 2, got {gdir}")
+    return (T, tstart, tacc, int(gdir), float(alpha2), float(alpha4),
+            None if dis is None else float(dis))
+
+
+def _temp_plain(u, temp, cnew, usnew_coeff, visc, dxs):
+    """(temp_next, tempnew | None) of the stage's temperature stream."""
+    T, tstart, tacc, _, _, alpha4, dis = temp
+    kt = temp_rhs_roll(u, T, dxs, alpha4, visc, dis)
+    tb = tstart if tstart is not None else T
+    tnew = None
+    if usnew_coeff is not None:
+        tnew = (tacc if tacc is not None else tb) + float(usnew_coeff) * kt
+    return tb + cnew * kt, tnew
 
 
 def _split_streams(streams, coeffs):
@@ -97,12 +133,14 @@ def _grad(q, dxs):
 
 
 def _stage_plain(u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base,
-                 bodyforce, smag):
+                 bodyforce, smag, temp=None):
     """The stage-tail math (`_stage_tail`, pallas_kernels.py:972)."""
     f = convdiff_roll(u, visc, dxs)
     if smag is not None:
         theta, d2 = smag
         f = f + smag_force_plain(u, theta, dxs, d2)
+    if temp is not None:
+        f = add_buoyancy(f, temp[0], temp[3], temp[4])
     if bodyforce is not None:
         f = f + bodyforce
     ut = base
@@ -118,12 +156,16 @@ def _stage_plain(u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base,
     return f, ut, div, usnew
 
 
-def _pack(emit_k, k, ut, divhat, usnew, u=None):
+def _pack(emit_k, k, ut, divhat, usnew, u=None, temps=None):
+    """(k?, ut, divhat, usnew?, u?, temp_next, tempnew?): the JAX
+    wrappers' output order."""
     out = ([k] if emit_k else []) + [ut, divhat]
     if usnew is not None:
         out.append(usnew)
     if u is not None:
         out.append(u)
+    if temps is not None:
+        out += [t for t in temps if t is not None]
     return tuple(out)
 
 
@@ -133,15 +175,18 @@ def momentum_stage_divhat_3d_plain(
     usnew_base=None, smag=None, temperature=None, compute_dtype=None,
 ):
     """Plain PyTorch version of `momentum_stage_divhat_3d`."""
-    _reject_unported(temperature, compute_dtype)
+    _reject_unported(compute_dtype)
+    temp = _split_temperature(temperature, streams, usnew_coeff)
     note_plain("momentum_stage_divhat_3d", u_int)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
-    _check_cube("momentum_stage_divhat_3d", u_int, base, *ks, bodyforce)
+    _check_cube("momentum_stage_divhat_3d", u_int, base, *ks, bodyforce,
+                *(temp[:3] if temp else ()))
     f, ut, div, usnew = _stage_plain(
-        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag
+        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag, temp
     )
     divhat = yz_transform_plain(div, vinvy, vinvzT)
-    return _pack(emit_k, f, ut, divhat, usnew)
+    temps = _temp_plain(u_int, temp, cnew, usnew_coeff, visc, dxs) if temp else None
+    return _pack(emit_k, f, ut, divhat, usnew, temps=temps)
 
 
 def pcmsd_hat_3d_plain(
@@ -150,7 +195,7 @@ def pcmsd_hat_3d_plain(
     usnew_base=None, smag=None, emit_u=False, temperature=None,
 ):
     """Plain PyTorch version of `pcmsd_hat_3d`."""
-    _reject_unported(temperature)
+    temp = _split_temperature(temperature, streams, usnew_coeff)
     note_plain("pcmsd_hat_3d", ut_prev)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     q = yz_transform_plain(qhat, proj["V"], proj["VT"])
@@ -159,12 +204,14 @@ def pcmsd_hat_3d_plain(
         if ks:
             raise ValueError("RECON base allows no k streams")
         base = u
-    _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks, bodyforce)
+    _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks, bodyforce,
+                *(temp[:3] if temp else ()))
     f, ut, div, usnew = _stage_plain(
-        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag
+        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag, temp
     )
     divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"])
-    return _pack(emit_k, f, ut, divhat, usnew, u if emit_u else None)
+    temps = _temp_plain(u, temp, cnew, usnew_coeff, visc, dxs) if temp else None
+    return _pack(emit_k, f, ut, divhat, usnew, u if emit_u else None, temps)
 
 
 def pressure_correct_qhat_3d_plain(
@@ -189,13 +236,18 @@ def _stage_force(u, q, dxs, bodyforce, smag):
 
 
 def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
-                  usnew_coeff, usnew_base, emit_u, force):
-    """One launch of the stage kernel; returns (k, ut, div, usnew, u)."""
+                  usnew_coeff, usnew_base, emit_u, force, temp):
+    """One launch of the stage kernel; returns (k, ut, div, usnew, u,
+    (temp_next, tempnew) or None)."""
     n = u.shape[1]
     if len(ks) > _MAXK:
         raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
+    T, tstart, tacc, gdir, alpha2, alpha4, dis = (
+        temp if temp else (None, None, None, 0, 0.0, 0.0, None)
+    )
     operands = dict(u=(u, "vec"), q=(q, "sca"), usnew_base=(usnew_base, "vec"),
-                    force=(force, "vec"))
+                    force=(force, "vec"), T=(T, "sca"), tstart=(tstart, "sca"),
+                    tacc=(tacc, "sca"))
     if base is not None:
         operands["base"] = (base, "vec")
     for j, k in enumerate(ks):
@@ -207,6 +259,8 @@ def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
         k_out = torch.empty_like(u) if emit_k else None
         usnew = torch.empty_like(u) if usnew_coeff is not None else None
         u_out = torch.empty_like(u) if emit_u else None
+        temp_out = torch.empty_like(div) if temp else None
+        tempnew = torch.empty_like(div) if temp and usnew_coeff is not None else None
         kptrs = (ctypes.c_void_p * _MAXK)(*[k.data_ptr() for k in ks])
         kcoef = (ctypes.c_float * _MAXK)(*cks)
         err = _build.load().ins_stage_f32(
@@ -215,11 +269,13 @@ def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
             int(usnew_coeff is not None), ptr(k_out), ut.data_ptr(), ptr(usnew),
             ptr(u_out), div.data_ptr(), n, float(visc),
             float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
+            ptr(T), ptr(tstart), ptr(tacc), ptr(temp_out), ptr(tempnew), gdir, alpha2,
+            alpha4, 0.0 if dis is None else dis, int(dis is not None),
             current_stream(device),
         )
         _build.check(err, name)
         LAUNCHES[name] += 1
-    return k_out, ut, div, usnew, u_out
+    return k_out, ut, div, usnew, u_out, (temp_out, tempnew) if temp else None
 
 
 def momentum_stage_divhat_3d(
@@ -233,7 +289,8 @@ def momentum_stage_divhat_3d(
     ``(k, ut, divhat)``, without k when ``emit_k=False``, plus
     ``usnew = (usnew_base or ustart) + usnew_coeff·k`` when
     ``usnew_coeff`` is given.  ``bodyforce`` (steady) and ``smag=(theta,
-    d2)`` (the Smagorinsky force) join the momentum, so k includes them."""
+    d2)`` (the Smagorinsky force) join the momentum, so k includes them;
+    ``temperature`` rides the temperature stream (module docstring)."""
     if u_int.device.type == "cpu":
         return momentum_stage_divhat_3d_plain(
             u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
@@ -241,20 +298,21 @@ def momentum_stage_divhat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             temperature=temperature, compute_dtype=compute_dtype,
         )
-    _reject_unported(temperature, compute_dtype)
+    _reject_unported(compute_dtype)
+    temp = _split_temperature(temperature, streams, usnew_coeff)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     n = u_int.shape[1]
     check_cuda_operands(
         "momentum_stage_divhat_3d", n, u=(u_int, "vec"), vinvy=(vinvy, "mat"),
         vinvzT=(vinvzT, "mat"), bodyforce=(bodyforce, "vec"),
     )
-    k, ut, div, usnew, _ = _launch_stage(
+    k, ut, div, usnew, _, temps = _launch_stage(
         "momentum_stage_divhat_3d", u_int, None, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
-        emit_u=False, force=_stage_force(u_int, None, dxs, bodyforce, smag),
+        emit_u=False, force=_stage_force(u_int, None, dxs, bodyforce, smag), temp=temp,
     )
     divhat = yz_transform(div, vinvy, vinvzT)
-    return _pack(emit_k, k, ut, divhat, usnew)
+    return _pack(emit_k, k, ut, divhat, usnew, temps=temps)
 
 
 def pcmsd_hat_3d(
@@ -267,7 +325,8 @@ def pcmsd_hat_3d(
     ``u = ut_prev − ∇q``, ``q = V_y·qhat·V_zᵀ``, rebuilt inside the stage
     kernel.  ``streams[0] is RECON`` makes the rebuilt u the tableau
     base; ``emit_u`` appends it to the outputs.  ``proj`` is a
-    `make_fused_projection` dict."""
+    `make_fused_projection` dict.  ``temperature`` rides the temperature
+    stream on the rebuilt u (module docstring)."""
     if ut_prev.device.type == "cpu":
         return pcmsd_hat_3d_plain(
             ut_prev, qhat, streams, coeffs, visc, dxs, proj,
@@ -275,7 +334,7 @@ def pcmsd_hat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             emit_u=emit_u, temperature=temperature,
         )
-    _reject_unported(temperature)
+    temp = _split_temperature(temperature, streams, usnew_coeff)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     if base is RECON:
         if ks:
@@ -289,13 +348,13 @@ def pcmsd_hat_3d(
     # q and div each make one scalar round trip through device memory
     # here (the TPU kernel transforms them in the same pass)
     q = yz_transform(qhat, proj["V"], proj["VT"])
-    k, ut, div, usnew, u = _launch_stage(
+    k, ut, div, usnew, u, temps = _launch_stage(
         "pcmsd_hat_3d", ut_prev, q, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
-        emit_u=emit_u, force=_stage_force(ut_prev, q, dxs, bodyforce, smag),
+        emit_u=emit_u, force=_stage_force(ut_prev, q, dxs, bodyforce, smag), temp=temp,
     )
     divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
-    return _pack(emit_k, k, ut, divhat, usnew, u)
+    return _pack(emit_k, k, ut, divhat, usnew, u, temps)
 
 
 def pressure_correct_qhat_3d(
@@ -309,7 +368,7 @@ def pressure_correct_qhat_3d(
     if out_dtype not in (None, torch.float32):
         raise NotImplementedError(
             "bf16 stream storage (out_dtype) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
+            "(ROADMAP queue 2 item 5)"
         )
     n = ut_int.shape[1]
     device = check_cuda_operands(

@@ -1,8 +1,9 @@
 """Processors: in-loop observability.
 
-Port of the protocol, `timelogger`, `fieldsaver`, `observefield` and
-`observespectrum` of `ins_tpu/processors.py`, plus `total_kinetic_energy`
-on periodic grids and channels.  A processor is ``(initialize, update,
+Port of the protocol, `timelogger`, `fieldsaver`, `observefield`,
+`observespectrum` and `observe_nusselt` (uniform periodic grids) of
+`ins_tpu/processors.py`, plus `total_kinetic_energy` on periodic grids
+and channels.  A processor is ``(initialize, update,
 finalize)`` over snapshots of the solver state taken at chunk
 boundaries; ``nupdate`` decimation also sets the chunk size, so no step
 forces a device-to-host sync.  The other observers wait for ROADMAP
@@ -29,6 +30,7 @@ __all__ = [
     "fieldsaver",
     "observefield",
     "observespectrum",
+    "observe_nusselt",
     "total_kinetic_energy",
 ]
 
@@ -78,10 +80,11 @@ def fieldsaver(nupdate=1):
         return []
 
     def update(fields, state):
+        temp = state.get("temp")
         fields.append(
             dict(
                 u=state["u"].detach().cpu().numpy(),
-                temp=None,
+                temp=None if temp is None else temp.detach().cpu().numpy(),
                 t=float(state["t"]),
             )
         )
@@ -143,6 +146,44 @@ def observespectrum(setup, *, nupdate=1, npoint=100):
         ps["ehat"].append(ehat_of(state["u"]).cpu().numpy())
         ps["t"].append(float(state["t"]))
         return ps
+
+    return Processor(initialize, update, lambda ps, s: ps, nupdate)
+
+
+def observe_nusselt(setup, *, nupdate=1):
+    """Processor recording the volume-averaged Nusselt number
+    ``Nu = 1 + <u_g θ>/α4`` (`ins_tpu.processors.observe_nusselt`): u_g,
+    the velocity in the gravity direction averaged to the pressure points
+    from I and I − e_g, times the temperature, volume-weighted over the
+    interior.  Uniform periodic grids (other grids need the ghosted
+    operators, ROADMAP queue 1 item 7).  Returns dict(t, Nu)."""
+    te = setup.temperature
+    if te is None:
+        raise ValueError("observe_nusselt requires a temperature equation")
+    g = setup.grid
+    if not (all(g.periodic) and all(g.uniform)):
+        raise NotImplementedError(
+            "observe_nusselt is ported for uniform periodic grids (ROADMAP queue 1 item 7)"
+        )
+    gdir = te.gdir
+    ip = tuple(slice(s, e) for s, e in g.Ip)
+    left = tuple(slice(s - (d == gdir), e - (d == gdir)) for d, (s, e) in enumerate(g.Ip))
+    w = torch.ones(tuple(e - s for s, e in g.Ip), dtype=setup.dtype, device=setup.device)
+    for d in range(g.dim):
+        w = w * seg(g.delta[d], g.Ip, d, device=setup.device).to(setup.dtype)
+    wsum = torch.sum(w)
+
+    def nu_of(u, temp):
+        up = (u[gdir][left] + u[gdir][ip]) / 2
+        return 1.0 + torch.sum(w * up * temp[ip]) / wsum / te.alpha4
+
+    def update(ps, state):
+        ps["t"].append(float(state["t"]))
+        ps["Nu"].append(float(nu_of(state["u"], state["temp"])))
+        return ps
+
+    def initialize(state):
+        return update(dict(t=[], Nu=[]), state)
 
     return Processor(initialize, update, lambda ps, s: ps, nupdate)
 

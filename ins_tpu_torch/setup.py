@@ -2,8 +2,8 @@
 
 Port of `ins_tpu/setup.py` for the configurations the port runs: a grid,
 boundary conditions, a Reynolds number, a steady body force, a closure
-model, a working dtype and the device every tensor of the run is made
-on.  The device defaults to the card (``"cuda"``); without one, `Setup`
+model, a Boussinesq temperature equation, a working dtype and the device
+every tensor of the run is made on.  The device defaults to the card (``"cuda"``); without one, `Setup`
 raises unless the caller passes ``device="cpu"``.  A closure model is a
 callable ``closure(u, theta)`` on the ghosted ``(D, *N)`` velocity (for
 example `models.wrappedclosure` around a CNN, or the natural-form
@@ -11,21 +11,80 @@ Smagorinsky closure `smagorinsky_closure_natural`, which the periodic
 fast path recognises by its tag).  A steady body force is a torch
 function ``bodyforce(dim, *x, t)`` (``dim`` a Python int, the coordinates
 broadcastable tensors), evaluated once here on the full staggered
-coordinates as `bodyforce_field`.  Unsteady body forces and temperature
-wait for ROADMAP queue 1 item 6 and raise until then.
+coordinates as `bodyforce_field`.  `temperature_equation` gives the
+temperature coefficients of the three non-dimensionalisations; the port
+steps temperature with periodic boundary conditions only (the JAX fast
+path's rule), and raises for any other until the ghosted path (ROADMAP
+queue 1 item 7).  Unsteady body forces wait for item 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from .boundary_conditions import PeriodicBC
 from .grid import Grid, make_grid
 from .ops._stencil import seg
 
-__all__ = ["Setup", "SetupData", "resolve_device"]
+__all__ = ["Setup", "SetupData", "Temperature", "temperature_equation", "resolve_device"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Temperature:
+    """Boussinesq temperature-equation coefficients (the JAX package's
+    `Temperature`): Python floats rounded to the working dtype, as the
+    JAX package stores them in arrays of that dtype."""
+
+    alpha1: float
+    alpha2: float
+    alpha3: float
+    alpha4: float
+    gamma: float
+    dodissipation: bool
+    boundary_conditions: tuple
+    gdir: int
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def temperature_equation(*, Pr, Ra, Ge, boundary_conditions, dodissipation=True, gdir=1,
+                         nondim_type=1, dtype=torch.float32):
+    """Temperature-equation coefficients of one of three
+    non-dimensionalisations (`ins_tpu.temperature_equation`): 1 the
+    free-fall velocity sqrt(βgΔT·H), 2 the conduction scale κ/H, 3
+    sqrt(cΔT).  `gdir` is the 0-based gravity direction."""
+    if nondim_type == 1:
+        a1 = math.sqrt(Pr / Ra)
+        a2 = 1.0
+        a3 = Ge * math.sqrt(Pr / Ra)
+        a4 = 1 / math.sqrt(Pr * Ra)
+    elif nondim_type == 2:
+        a1 = Pr
+        a2 = Pr * Ra
+        a3 = Ge / Ra
+        a4 = 1.0
+    elif nondim_type == 3:
+        a1 = math.sqrt(Pr * Ge / Ra)
+        a2 = Ge
+        a3 = math.sqrt(Pr * Ge / Ra)
+        a4 = math.sqrt(Ge / (Pr * Ra))
+    else:
+        raise ValueError(f"Unknown nondim_type {nondim_type}")
+    if dtype not in _NP_DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    cast = _NP_DTYPES[dtype]
+    a1, a2, a3, a4, gamma = (float(cast(v)) for v in (a1, a2, a3, a4, a1 / a3))
+    return Temperature(
+        alpha1=a1, alpha2=a2, alpha3=a3, alpha4=a4, gamma=gamma,
+        dodissipation=bool(dodissipation),
+        boundary_conditions=tuple(tuple(bc) for bc in boundary_conditions),
+        gdir=int(gdir),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +96,7 @@ class SetupData:
     device: torch.device = torch.device("cuda")
     closure_model: object = None
     bodyforce_field: object = None  # steady force (D, *N) on `device`, or None
+    temperature: Temperature | None = None
 
     @property
     def dim(self):
@@ -82,10 +142,14 @@ def Setup(
     device="cuda",
 ):
     """Build a problem setup (keyword-compatible with `ins_tpu.Setup`,
-    plus `device`)."""
-    if temperature is not None:
+    plus `device`).  With a temperature equation Re defaults to
+    1/alpha1."""
+    if temperature is not None and not all(
+        isinstance(b, PeriodicBC) for bcs in temperature.boundary_conditions for b in bcs
+    ):
         raise NotImplementedError(
-            "temperature is not ported yet (ROADMAP queue 1 item 6)"
+            "temperature is ported with periodic boundary conditions only; "
+            "other temperature BCs need the ghosted path (ROADMAP queue 1 item 7)"
         )
     if closure_model is not None and not callable(closure_model):
         raise TypeError("closure_model must be a callable closure(u, theta)")
@@ -101,7 +165,7 @@ def Setup(
         boundary_conditions = tuple((PeriodicBC(), PeriodicBC()) for _ in range(D))
     boundary_conditions = tuple(tuple(bc) for bc in boundary_conditions)
     if Re is None:
-        Re = 1000.0
+        Re = 1000.0 if temperature is None else 1.0 / temperature.alpha1
     grid = make_grid(x=x, boundary_conditions=boundary_conditions, dtype=dtype)
     field = None
     if bodyforce is not None:
@@ -114,4 +178,5 @@ def Setup(
         device=device,
         closure_model=closure_model,
         bodyforce_field=field,
+        temperature=temperature,
     )

@@ -2,13 +2,14 @@
 
 Port of the fixed-dt loop of `ins_tpu/solver.py`.  The run advances in
 chunks of steps; processors (observability) run between chunks at their
-`nupdate` decimation, and a NaN guard checks each chunk's result.  Where
-the fused hat chain applies (3-D periodic cube, classic-row RK tableau)
-a chunk carries `HatState(ut, qhat)` and materialises u only at its end,
-with the natural-form Smagorinsky closure (``theta`` its constant) and a
-steady body force on its stage kernels; with another closure model it
-steps the per-op chain (``theta`` goes to the closure), otherwise the
-roll twin.  On a wall-bounded channel (x/y
+`nupdate` decimation, and a NaN guard checks each chunk's velocity and
+temperature.  Where the fused hat chain applies (3-D periodic cube,
+classic-row RK tableau or LMWray3) a chunk carries
+`HatState(ut, qhat, temp)` and materialises u only at its end, with the
+natural-form Smagorinsky closure (``theta`` its constant), a steady body
+force and the Boussinesq temperature (``tempstart``) on its stage
+kernels; with another closure model it steps the per-op chain (``theta``
+goes to the closure), otherwise the roll twin.  On a wall-bounded channel (x/y
 periodic, static z walls, the FDM solver) a chunk carries a `ChannelHat`
 of the channel path (`ops/channelpath.py`) the same way, crossing to and
 from the public ghosted layout with `strip_channel`/`reghost_channel`.
@@ -89,17 +90,18 @@ def solve_unsteady(
 ):
     """Solve the unsteady problem on `tlims` with a fixed `dt`, rounded
     so that `(tend - tstart)/dt` is an integer.  `ustart` is a ghosted
-    velocity field on `setup.device`; `processors` is a dict
-    name -> Processor.  Returns `(state, outputs)` with the state in the
-    public ghosted layout.  `theta` holds the closure model's parameters.
-    `projection_precision` ("manualhigh" or "highest") is accepted for
-    parity; both run at FP32 here."""
+    velocity field on `setup.device`, `tempstart` a ghosted temperature
+    (`temperaturefield`) where the setup has a temperature equation;
+    `processors` is a dict name -> Processor.  Returns `(state, outputs)`
+    with the state in the public ghosted layout.  `theta` holds the
+    closure model's parameters.  `projection_precision` ("manualhigh" or
+    "highest") is accepted for parity; both run at FP32 here."""
     if dt is None:
         raise NotImplementedError(
             "adaptive (CFL) time stepping is not ported yet (ROADMAP queue 1 item 6)"
         )
-    if tempstart is not None:
-        raise NotImplementedError("temperature is not ported yet (ROADMAP queue 1 item 6)")
+    if tempstart is not None and setup.temperature is None:
+        raise ValueError("tempstart needs a setup with a temperature equation")
     if method is None:
         method = RK44()
     if psolver is None:
@@ -114,15 +116,18 @@ def solve_unsteady(
     )
     if not (use_fast or use_channel):
         raise NotImplementedError(
-            "the port runs the periodic fast path (explicit RK, spectral solver, "
-            "uniform periodic grid) and the channel path (classic-row explicit RK, "
-            "psolver_fdm, x/y periodic uniform with static z walls); the general "
-            "ghosted path is ROADMAP queue 1 item 7 and LMWray3 item 6"
+            "the port runs the periodic fast path (explicit RK or LMWray3, spectral "
+            "solver, uniform periodic grid) and the channel path (classic-row "
+            "explicit RK, psolver_fdm, x/y periodic uniform with static z walls, "
+            "no temperature); the general ghosted path, which runs the rest, is "
+            "ROADMAP queue 1 item 7"
         )
     processors = dict(processors or {})
     # the chain never writes into its inputs, so the caller's field needs
     # no defensive copy
     ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=setup.device)
+    if tempstart is not None:
+        tempstart = torch.as_tensor(tempstart, dtype=setup.dtype, device=setup.device)
     precision = projection_precision or "manualhigh"
 
     step = None
@@ -154,7 +159,7 @@ def solve_unsteady(
         return s
 
     tstart, tend = tlims
-    state = strip(create_stepper(method, setup=setup, u=ustart, t=tstart))
+    state = strip(create_stepper(method, setup=setup, u=ustart, temp=tempstart, t=tstart))
 
     initialized = {
         k: p.initialize(get_state(reghost_s(state))) for k, p in processors.items()
@@ -169,7 +174,10 @@ def solve_unsteady(
                 initialized[k] = p.update(initialized[k], st)
 
     def finite(s):
-        return bool(torch.isfinite(s.u).all())
+        ok = bool(torch.isfinite(s.u).all())
+        if ok and s.temp is not None:
+            ok = bool(torch.isfinite(s.temp).all())
+        return ok
 
     nstep = int(round((tend - tstart) / dt))
     dt = (tend - tstart) / nstep

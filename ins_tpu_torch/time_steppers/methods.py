@@ -57,8 +57,9 @@ class ImplicitRungeKuttaMethod:
 
 @dataclasses.dataclass(frozen=True)
 class LMWray3:
-    """Low-storage 3-stage Wray RK3 (data only: its fused chain is
-    ROADMAP queue 1 item 6)."""
+    """Low-storage 3-stage Wray RK3: stage i sets u = P(ustart + dt·a_i·f)
+    and, before the last, ustart += dt·b_i·f.  The periodic fast path
+    steps it (hat chain, per-op chain and roll twin)."""
 
     a: tuple = (8 / 15, 5 / 12, 3 / 4)
     b: tuple = (1 / 4, 0.0)

@@ -9,15 +9,16 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from .methods import ExplicitRungeKuttaMethod
+from .methods import ExplicitRungeKuttaMethod, LMWray3
 
 __all__ = ["StepperState", "create_stepper"]
 
 
 class StepperState(NamedTuple):
-    """Carried simulation state.  ``u`` is a tensor; ``t`` is a Python
-    float and ``n`` a Python int, so the loop never reads them back from
-    the device."""
+    """Carried simulation state.  ``u`` and ``temp`` are tensors (``temp``
+    None without a temperature equation); ``t`` is a Python float and
+    ``n`` a Python int, so the loop never reads them back from the
+    device."""
 
     u: Any
     temp: Any  # scalar field or None
@@ -26,15 +27,11 @@ class StepperState(NamedTuple):
 
 
 def create_stepper(method, *, setup, u, temp=None, t=0.0, n=0):
-    """Initial state for an explicit RK method."""
-    if not isinstance(method, ExplicitRungeKuttaMethod):
+    """Initial state for an explicit RK method or LMWray3."""
+    if not isinstance(method, (ExplicitRungeKuttaMethod, LMWray3)):
         raise NotImplementedError(
             f"{type(method).__name__} is not ported yet: the port steps "
-            "explicit RK tableaus only (LMWray3 is ROADMAP queue 1 item 6, "
-            "IMEX/implicit steppers item 7)"
+            "explicit RK tableaus and LMWray3 (IMEX/implicit steppers are "
+            "ROADMAP queue 1 item 7)"
         )
-    if temp is not None:
-        raise NotImplementedError(
-            "temperature is not ported yet (ROADMAP queue 1 item 6)"
-        )
-    return StepperState(u=u, temp=None, t=float(t), n=int(n))
+    return StepperState(u=u, temp=temp, t=float(t), n=int(n))

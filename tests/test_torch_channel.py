@@ -23,6 +23,7 @@ import ins_tpu as ins
 from ins_tpu.ops import channel_kernels as jck
 from ins_tpu.ops import channelpath as jcp
 from ins_tpu.ops import fdm as jfdm
+from ins_tpu.ops.fastpath import make_fast_timestep as jax_make_fast_timestep
 from ins_tpu.ops.operators import total_kinetic_energy as jax_total_kinetic_energy
 from ins_tpu.time_steppers.step import StepperState as JaxStepperState
 
@@ -346,15 +347,34 @@ def test_unported_cases_raise(what):
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             fdm.psolver_fdm(s)
         return
-    # the periodic path carries a steady force now (tests/test_torch_les.py);
-    # with a method it does not step, every entry point still raises
-    s = _periodic_with_force()
+    # the periodic path steps LMWray3 with a steady force now (its hat
+    # chain and its per-step chain, held here against the JAX roll twin);
+    # the channel path, as in the JAX package, still raises for it
     method = it.LMWray3()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        if what == "fast_timestep_hat":
-            make_fast_timestep_hat(s, method)
-        elif what == "fast_timestep":
-            make_fast_timestep(s, method)
-        else:
-            it.solve_unsteady(setup=s, ustart=torch.zeros(3, 10, 10, 10, dtype=torch.float64),
+    if what == "solve_unsteady":
+        _, tset = _setups(force=True)
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            it.solve_unsteady(setup=tset, ustart=torch.zeros(3, 14, 12, 10, dtype=torch.float64),
                               tlims=(0.0, 0.02), dt=1e-2, method=method)
+        return
+    s = _periodic_with_force()
+    jset = ins.Setup(x=(np.linspace(0, 2 * np.pi, 9),) * 3, bodyforce=_jforce,
+                     issteadybodyforce=True, dtype=jnp.float64)
+    (u,) = _fields(11, (8, 8, 8), "sca")
+    u = np.stack([u, 0.5 * u[::-1], u.transpose(1, 0, 2)])
+    jstep = jax.jit(jax_make_fast_timestep(jset, ins.LMWray3(), _force_roll=True))
+    ref = JaxStepperState(u=jnp.asarray(u), temp=None, t=jnp.float64(0.0), n=0)
+    state = it.create_stepper(method, setup=s, u=_t(u))
+    if what == "fast_timestep_hat":
+        to_hat, step_hat, from_hat = make_fast_timestep_hat(s, method)
+        h = to_hat(state)
+        for _ in range(2):
+            h = step_hat(h, 1e-2)
+        state = from_hat(h)
+    else:
+        step = make_fast_timestep(s, method)
+        for _ in range(2):
+            state = step(state, 1e-2)
+    for _ in range(2):
+        ref = jstep(ref, jnp.asarray(1e-2), None)
+    assert state.n == 2 and _rel(state.u.numpy(), ref.u) < TOL_SOLVE

@@ -218,18 +218,28 @@ def test_reghost_is_periodic_wrap():
     "what", ["lmwray3", "adaptive", "tempstart", "stretched"],
 )
 def test_unported_paths_raise(what):
+    """What the port still does not run: LMWray3 off the periodic fast
+    path (here a channel), adaptive dt, temperature with wall BCs and
+    stretched wall-bounded grids."""
     _, tset = _setups(8, 3)
     u0 = it.random_field(tset, kp=2, generator=torch.Generator().manual_seed(7))
     kw = dict(setup=tset, ustart=u0, tlims=(0.0, 0.02), dt=1e-2)
-    if what == "lmwray3":
-        kw["method"] = it.LMWray3()
-    elif what == "adaptive":
-        kw["dt"] = None
-    elif what == "tempstart":
-        kw["tempstart"] = u0[0]
-    else:
-        s2 = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 8),) * 2,
-                      boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
-        kw.update(setup=s2, ustart=torch.zeros(2, 10, 10), psolver=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "lmwray3":
+            wall = it.DirichletBC()
+            channel = it.Setup(device="cpu", x=(*_x(4, 2), it.tanh_grid(0, 1, 4)),
+                               boundary_conditions=((it.PeriodicBC(), it.PeriodicBC()),) * 2
+                               + ((wall, wall),))
+            kw.update(setup=channel, ustart=torch.zeros(3, 6, 6, 6), method=it.LMWray3())
+        elif what == "adaptive":
+            kw["dt"] = None
+        elif what == "tempstart":
+            walls = ((it.DirichletBC(), it.DirichletBC()),) * 3
+            te = it.temperature_equation(Pr=0.71, Ra=1e6, Ge=1.0, boundary_conditions=walls)
+            kw["setup"] = it.Setup(device="cpu", x=_x(8, 3), temperature=te)
+            kw["tempstart"] = u0[0]
+        else:
+            s2 = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 8),) * 2,
+                          boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
+            kw.update(setup=s2, ustart=torch.zeros(2, 10, 10), psolver=None)
         it.solve_unsteady(**kw)

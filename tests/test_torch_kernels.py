@@ -191,13 +191,14 @@ def test_wrappers_run_plain_on_cpu(projs):
     ids=["bodyforce", "smag", "temperature"],
 )
 def test_unported_options_raise(projs, kw):
-    """The temperature stream is not ported (NotImplementedError); the
-    body force and Smagorinsky options are (tests/test_torch_les.py) and
-    raise only on a malformed value: a force that is not a vector field
-    of the cube, a ``smag`` that is not ``(theta, d2)``."""
+    """The body force, Smagorinsky and temperature options are ported
+    (tests/test_torch_les.py, tests/test_torch_boussinesq.py) and raise
+    only on a malformed value: a force that is not a vector field of the
+    cube, a ``smag`` that is not ``(theta, d2)``, a temperature tuple whose
+    accumulator base has no usnew output."""
     _, tp = projs
     ut, qhat = _fields(9, VEC, SCA)
-    err = (NotImplementedError, "ROADMAP") if "temperature" in kw else (ValueError, None)
+    err = (ValueError, "temperature" if "temperature" in kw else None)
     with pytest.raises(err[0], match=err[1]):
         sk.pcmsd_hat_3d(_t(ut), _t(qhat), (sk.RECON,), (0.2,), VISC, DXS, tp, **kw)
     with pytest.raises(err[0], match=err[1]):

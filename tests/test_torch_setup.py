@@ -95,17 +95,26 @@ def _nonperiodic_smagorinsky():
     return it.smagorinsky_closure_natural(s)
 
 
+def _nonperiodic_temperature():
+    """A temperature equation with wall BCs: the port steps periodic
+    temperature only."""
+    walls = ((it.DirichletBC(), it.DirichletBC()),) * 2
+    return it.temperature_equation(Pr=0.71, Ra=1e6, Ge=1.0, boundary_conditions=walls)
+
+
 @pytest.mark.parametrize(
-    "kw", [dict(temperature=object()), _nonperiodic_smagorinsky,
+    "kw", [lambda: dict(temperature=_nonperiodic_temperature()), _nonperiodic_smagorinsky,
            dict(bodyforce=lambda *a: 0.0, issteadybodyforce=False)],
     ids=["temperature", "closure", "bodyforce"],
 )
 def test_setup_unported_options_raise(kw):
-    """Temperature and unsteady forces (ROADMAP queue 1 item 6), and the
-    Smagorinsky closure off uniform periodic grids (item 7), raise."""
+    """Unsteady forces (ROADMAP queue 1 item 6), and temperature with
+    non-periodic BCs and the Smagorinsky closure off uniform periodic
+    grids (item 7), raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [67]"):
         if callable(kw):
-            kw = dict(closure_model=kw())
+            made = kw()
+            kw = made if isinstance(made, dict) else dict(closure_model=made)
         it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
 
 
@@ -239,6 +248,11 @@ def test_port_imports_without_jax():
 
 
 def test_create_stepper_rejects_unported_methods():
+    """Explicit RK and LMWray3 (with a temperature) make a state; the
+    implicit tableaus wait for the general path (ROADMAP queue 1 item 7)."""
     tset = it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2)
-    with pytest.raises(NotImplementedError, match="LMWray3"):
-        it.create_stepper(it.LMWray3(), setup=tset, u=torch.zeros(2, 6, 6))
+    u, T = torch.zeros(2, 6, 6), torch.ones(6, 6)
+    s = it.create_stepper(it.LMWray3(), setup=tset, u=u, temp=T, t=0.5)
+    assert s.temp is T and s.t == 0.5 and s.n == 0
+    with pytest.raises(NotImplementedError, match="ImplicitRungeKuttaMethod.*item 7"):
+        it.create_stepper(it.RKMethods.GL1(), setup=tset, u=u)

@@ -206,8 +206,34 @@ def test_prior_losses():
 
 
 def test_training_off_the_fast_path_raises(case):
-    lmw = nc.create_loss_post(setup=case.ts, method=it.LMWray3(),
-                              psolver=it.psolver_spectral(case.ts), closure_model=case.tm)
-    with pytest.raises(NotImplementedError):
-        lmw([{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}],
-            cnn_params_from_numpy(case.jth, device="cpu"))
+    """LMWray3 trains through the per-op chain (loss and gradient equal
+    `jax.grad`'s, 8³); off the periodic fast path (here without the
+    spectral solver) training still raises."""
+    n = 8
+    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
+    js = ins.Setup(x=x, Re=2000.0, dtype=jnp.float64)
+    ts = it.Setup(device="cpu", x=x, Re=2000.0, dtype=torch.float64)
+    kw = dict(radii=[1, 1], channels=[4, 3], use_bias=[True, False])
+    jcl, jth = jnc.cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
+                       rng=jax.random.PRNGKey(1), compute_dtype=jnp.float64, **kw)
+    tcl, _ = nc.cnn(setup=ts, activations=[torch.tanh, lambda v: v],
+                    compute_dtype=torch.float64, **kw)
+    u0 = np.array(jax.jit(lambda k: ins.random_field(js, kp=2, rng=k))(jax.random.PRNGKey(4)))
+    us = np.stack([u0 * (1.0 - 0.01 * i) for i in range(NUNROLL + 1)])
+    tt = np.arange(NUNROLL + 1) * DT
+    jl = jnc.create_loss_post(setup=js, method=ins.LMWray3(), psolver=ins.psolver_spectral(js),
+                              closure_model=jnc.wrappedclosure(jcl, js))
+    f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
+    jv, jg = f(jth, jnp.asarray(us), jnp.asarray(tt))
+    tm = nc.wrappedclosure(tcl, ts)
+    data = [{"u": torch.from_numpy(us), "t": torch.from_numpy(tt)}]
+    theta = cnn_params_from_numpy(jth, device="cpu")
+    tv = nc.create_loss_post(setup=ts, method=it.LMWray3(), psolver=it.psolver_spectral(ts),
+                             closure_model=tm)(data, theta)
+    tg = torch.autograd.grad(tv, list(theta.values()))
+    assert abs(tv.item() - float(jv)) < TOL * abs(float(jv))
+    for name, g in zip(theta, tg):
+        assert _rel(g.numpy(), jg[name]) < TOL, name
+    off = nc.create_loss_post(setup=ts, method=it.LMWray3(), psolver=None, closure_model=tm)
+    with pytest.raises(NotImplementedError, match="fast path"):
+        off(data, theta)
