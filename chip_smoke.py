@@ -31,7 +31,11 @@ Phases, each raising on failure (exit code != 0, no result line):
    their plain versions at 64³ and 128³ the same way (float32, and the
    convolutions also with bf16 operands and a float32 output, which
    differ from the plain version only in summation order), and timed at
-   128³, the solve also against `make_poisson_mm`'s contractions.
+   128³, the solve also against `make_poisson_mm`'s contractions.  The
+   solve gate: `make_poisson_pallas` against `make_poisson_mm` at 64³,
+   128³ and 256³ (held against each other; wall ms per solve in turns and
+   device ms per solve from torch.profiler), printed beside the solve the
+   per-op chain's gate (`fastpath.POISSON_PALLAS_MIN_N`) picks there.
 2. The main path: `solve_unsteady` on 256³ decaying turbulence (RK44,
    f32, Re = 4000, `random_field(kp=10)`, dt = 1e-3·128/256) for 20
    steps in chunks of 10, with a timelogger.  Checks: finite; every
@@ -53,7 +57,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    Adam `train` iterations (finite losses) and a 10-step
    `solve_unsteady` with the closure attached (finite, divergence-free
    under phase 2's bounds, the 3-pass Poisson solve launched 4 times a
-   step).
+   step where the gate picks it, else never: at 128³ the chain solves
+   with `make_poisson_mm`).
 4. The wall-bounded channel: both channel kernels against their plain
    versions at a ragged (40, 26, 20) box and at 256×128×128, in every
    `channel_msd_3d` mode the per-stage step and the hat chain use (with
@@ -103,7 +108,25 @@ Phases, each raising on failure (exit code != 0, no result line):
    divergence as in phase 2; kinetic energy not increasing; 3 stage
    launches and 3 pass B a step; the plain chain agrees to <= 1e-4.  Then
    ms/step of both chains in turns.
-8. Print the kernel table (JSON: per kernel its launches on the main
+8. The x-slab halo chain: the four halo kernels (the stage kernels'
+   `HALO` flag as `momentum_stage_divhat_halo_3d` and
+   `pcmsd_hat_halo_3d`, `pressure_correct_qhat_halo_3d`, the sharded
+   pass B) at the shard shapes of a 4-way x-slab of 64³ and 256³ (lx =
+   n/4, ghost planes cut from the neighbours' planes of the global field)
+   against their plain versions, timed at 256³; then on every one of the
+   four slabs against the matching x-rows of the single-device kernels on
+   the whole cube, and the sharded pass B on y-columns [ly·r, ly·r + ly)
+   of the full-x divhat at yoff = ly·r against the same columns of the
+   single-device pass B (all <= 1e-4 relative).  Then
+   `solve_unsteady(mesh=make_mesh(), halo=True)` on a one-rank NCCL group
+   at phase 2's setup and u0, 20 steps in chunks of 10: finite,
+   divergence-free, launches (the stage kernel once a chunk, the merged
+   stage 4 a step less one a chunk, pass B 4 a step, the correction once
+   a chunk; no single-device kernel, no plain version), within 1e-4 of
+   the single-device hat chain; ms/step of both in turns beside the card's
+   name and power limit (`--profile`: the halo step's device-time split
+   and each halo kernel's split by kernel).
+9. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -896,7 +919,7 @@ def phase_training(n, nunroll):
     import ins_tpu_torch as it
     from ins_tpu_torch import models as nc
     from ins_tpu_torch.ops import launches
-    from ins_tpu_torch.ops.fastpath import strip_ghosts
+    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N, strip_ghosts
 
     setup = training_setup(n)
     u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
@@ -998,9 +1021,11 @@ def phase_training(n, nunroll):
         fail("the closure run did not finish with finite fields")
     if any(launches.PLAIN_ON_CUDA.values()):
         fail("plain versions ran on CUDA tensors in the closure run")
-    if launches.LAUNCHES["poisson_pallas"] != 4 * nsteps:
+    expect = 4 * nsteps if n >= POISSON_PALLAS_MIN_N else 0
+    if launches.LAUNCHES["poisson_pallas"] != expect:
         fail(f"the closure run solved Poisson {launches.LAUNCHES['poisson_pallas']} times "
-             f"with the 3-pass kernels, expected {4 * nsteps}")
+             f"with the 3-pass kernels, expected {expect} (the gate: n >= "
+             f"{POISSON_PALLAS_MIN_N})")
     check_divergence(u, float(csetup.grid.delta[0][0]), "closure run")
     counts["poisson_pallas"] = launches.LAUNCHES["poisson_pallas"]
     return counts
@@ -1438,17 +1463,22 @@ def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
     return counts, setup, u0, dt
 
 
-def phase_profile_split(tag, setup, method, u0, dt, theta=None, temp0=None):
+def phase_profile_split(tag, setup, method, u0, dt, theta=None, temp0=None, chain=None):
     """Device-time split of 3 hat steps (torch.profiler) and the idle
-    share against the unprofiled wall."""
+    share against the unprofiled wall; ``chain=(to_hat, step_hat, state)``
+    profiles that chain (the halo chain's) instead of the single-device
+    one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import ins_tpu_torch as it
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
 
-    to_h, step_h, _ = make_fast_timestep_hat(setup, method)
-    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0, temp=temp0))
+    if chain is None:
+        to_h, step_h, _ = make_fast_timestep_hat(setup, method)
+        s0 = strip_state(it.create_stepper(method, setup=setup, u=u0, temp=temp0))
+    else:
+        to_h, step_h, s0 = chain
     h = step_h(to_h(s0), dt, theta)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1462,11 +1492,12 @@ def phase_profile_split(tag, setup, method, u0, dt, theta=None, temp0=None):
         torch.cuda.synchronize()
     events = prof.key_averages()
     split = {"smag": 0.0, "stage": 0.0, "GEMM": 0.0, "pass B": 0.0, "correct": 0.0,
-             "glue": 0.0}
+             "collectives": 0.0, "glue": 0.0}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        key = ("smag" if "smag_kernel" in e.key else
+        key = ("collectives" if "nccl" in e.key.lower() else
+               "smag" if "smag_kernel" in e.key else
                "stage" if "stage_kernel" in e.key else
                "GEMM" if "gemm" in e.key.lower() else
                "pass B" if ("eigen_scale" in e.key or "fold_" in e.key) else
@@ -1657,6 +1688,370 @@ def phase_lmwray3(n, nsteps, chunk, u0):
     return counts, setup, dt
 
 
+# --------------------------------------------------------------------------
+# phase 8: the x-slab halo chain
+# --------------------------------------------------------------------------
+
+HALO_SHARDS = 4  # the kernels run at a 4-way x-slab's shard shapes
+
+
+def device_ms(fn, reps=10):
+    """Device milliseconds per fn() call: the CUDA time of every kernel
+    and copy it launches (torch.profiler), over `reps` calls after a
+    warm-up; None where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def solve_gate_times(sizes=(64, 128, 256)):
+    """The 3-pass solve `make_poisson_pallas` against `make_poisson_mm`'s
+    contractions at each n, held against each other: wall ms per solve
+    (CUDA events around 20 solves, turns pallas, mm, mm, pallas) and
+    device ms per solve (torch.profiler).  On the per-op chain the solve
+    sits behind the closure's convolutions in the device queue, so its
+    device time is what the gate (`fastpath.POISSON_PALLAS_MIN_N`)
+    follows; prints which solve the gate picks."""
+    import torch
+
+    from ins_tpu_torch.ops.dft import make_poisson_mm
+    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N
+    from ins_tpu_torch.ops.poisson_kernels import make_poisson_pallas
+
+    out = {}
+    for n in sizes:
+        dxs = (1.0 / n,) * 3
+        f = torch.from_numpy(np.random.default_rng(SEED + n).standard_normal(
+            (n, n, n), dtype=np.float32)).to(DEVICE)
+        pallas = make_poisson_pallas((n,) * 3, dxs, torch.float32, device=DEVICE)
+        mm = make_poisson_mm((n,) * 3, dxs, torch.float32, DEVICE)
+        err = rel_err(pallas(f), mm(f))
+        if not err <= REL_TOL:
+            fail(f"make_poisson_pallas vs make_poisson_mm at n={n}: {err:.3e} > {REL_TOL}")
+        fns = {"pallas": lambda: pallas(f), "mm": lambda: mm(f)}
+        wall = {"pallas": [], "mm": []}
+        for which in ("pallas", "mm", "mm", "pallas"):
+            wall[which].append(cuda_ms(fns[which], reps=20))
+        dev = {k: device_ms(fn) for k, fn in fns.items()}
+        out[n] = {"wall": {k: sum(v) / 2 for k, v in wall.items()}, "device": dev}
+        pick = "make_poisson_pallas" if n >= POISSON_PALLAS_MIN_N else "make_poisson_mm"
+        print(f"[solve gate] n={n}: wall per solve make_poisson_pallas "
+              f"{out[n]['wall']['pallas']:.4f} ms ({wall['pallas'][0]:.4f}, "
+              f"{wall['pallas'][1]:.4f}), make_poisson_mm {out[n]['wall']['mm']:.4f} ms "
+              f"({wall['mm'][0]:.4f}, {wall['mm'][1]:.4f}); device per solve "
+              + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                          for k, v in dev.items())
+              + f"; rel diff {err:.3e}; the gate (n >= {POISSON_PALLAS_MIN_N}) picks {pick}")
+        del f
+    torch.cuda.empty_cache()
+    return out
+
+
+def halo_kernel_inputs(n, P, rank):
+    """Global fields from a seed and the x-slab ``rank`` of ``P`` cut from
+    them, ghost planes from the neighbours: {name: tensor}."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 17 * n)
+    dev = torch.device(DEVICE)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev)
+
+    g = {"u": field(3, n, n, n), "ustart": field(3, n, n, n), "accb": field(3, n, n, n),
+         "qhat": field(n, n, n, scale=1e-3), "divhat": field(n, n, n)}
+    lx = n // P
+    x0 = rank * lx
+
+    def planes(v, lo, k):
+        idx = torch.arange(lo, lo + k, device=dev) % n
+        return v.index_select(v.dim() - 3, idx).contiguous()
+
+    loc = {}
+    for k, v in g.items():
+        if k == "divhat":
+            continue
+        loc[k] = planes(v, x0, lx)
+        loc[k + "_lo2"] = planes(v, x0 - 2, 2)
+        loc[k + "_lo1"] = planes(v, x0 - 1, 1)
+        loc[k + "_hi1"] = planes(v, x0 + lx, 1)
+        loc[k + "_hi2"] = planes(v, x0 + lx, 2)
+    ly = n // P
+    loc["h"] = g["divhat"][:, rank * ly:(rank + 1) * ly].contiguous()
+    return g, loc
+
+
+def halo_kernel_cases(n, rank=1):
+    """{kernel name: [Case, ...]} of the halo kernels on x-slab ``rank``
+    of a HALO_SHARDS-way cut of an n³ cube (first case: the shapes and
+    options the halo path gives it)."""
+    import torch
+
+    from ins_tpu_torch.ops import stage_kernels as sk
+    from ins_tpu_torch.ops.poisson_kernels import make_passB_sharded
+
+    P = HALO_SHARDS
+    lx = ly = n // P
+    dxs = (2 * np.pi / n,) * 3
+    visc = 1.0 / 4000.0
+    dt = 1e-3 * 128 / n
+    proj = make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=DEVICE)
+    _, L = halo_kernel_inputs(n, P, rank)
+    cells = lx * n * n
+    mats = (proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"])
+
+    def gemm(k):  # one plane-transform product over k planes
+        return 2.0 * k * n**3
+
+    def msd(impl, **kw):
+        return lambda: impl(L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],),
+                            (dt / 2,), visc, dxs, proj["Vinv"], proj["VinvT"],
+                            emit_k=False, **kw)
+
+    def pcmsd(impl, base, base_lo, **kw):
+        return lambda: impl(L["u"], L["u_lo2"], L["u_hi1"], L["qhat"], L["qhat_lo2"],
+                            L["qhat_hi2"], (base,), (base_lo,), (dt / 2,), visc, dxs, proj,
+                            emit_k=False, **kw)
+
+    def corr(impl):
+        return lambda: (impl(L["u"], L["qhat"], L["qhat_hi1"], dxs, proj["V"], proj["VT"]),)
+
+    based = dict(usnew_coeff=dt / 3, usnew_base=L["accb"])
+    recon = dict(usnew_coeff=dt / 6, emit_u=True)
+    return {
+        "momentum_stage_divhat_halo_3d": [
+            Case("stage 0: u base + usnew",
+                 msd(sk.momentum_stage_divhat_halo_3d, usnew_coeff=dt / 6),
+                 msd(sk.momentum_stage_divhat_halo_3d_plain, usnew_coeff=dt / 6),
+                 inputs=(L["u"], L["u_lo2"], L["u_hi1"], proj["Vinv"], proj["VinvT"]),
+                 ops=OPS_PER_CELL["stage_norebuild"] * cells + 2 * gemm(lx)),
+        ],
+        "pcmsd_hat_halo_3d": [
+            Case("stream base + usnew_base",
+                 pcmsd(sk.pcmsd_hat_halo_3d, L["ustart"], L["ustart_lo1"], **based),
+                 pcmsd(sk.pcmsd_hat_halo_3d_plain, L["ustart"], L["ustart_lo1"], **based),
+                 inputs=(L["u"], L["u_lo2"], L["u_hi1"], L["qhat"], L["qhat_lo2"],
+                         L["qhat_hi2"], L["ustart"], L["ustart_lo1"], L["accb"], *mats),
+                 ops=OPS_PER_CELL["stage"] * cells + 4 * gemm(lx) + 2 * gemm(4)),
+            Case("RECON + emit_u + usnew",
+                 pcmsd(sk.pcmsd_hat_halo_3d, sk.RECON, sk.RECON, **recon),
+                 pcmsd(sk.pcmsd_hat_halo_3d_plain, sk.RECON, sk.RECON, **recon)),
+        ],
+        "pressure_correct_qhat_halo_3d": [
+            Case("ut, qhat, qhat_hi -> u", corr(sk.pressure_correct_qhat_halo_3d),
+                 corr(sk.pressure_correct_qhat_halo_3d_plain),
+                 inputs=(L["u"], L["qhat"], L["qhat_hi1"], proj["V"], proj["VT"]),
+                 ops=OPS_PER_CELL["correct"] * cells + 2 * gemm(lx) + 2 * gemm(1)),
+        ],
+        "passB_sharded": [
+            Case(f"(n, ly, n) y-slice at yoff {rank * ly} -> qhat, "
+                 f"{proj['fold_levels']} fold level",
+                 lambda: (proj["passB"](L["h"], rank * ly),),
+                 lambda: (proj["passB_plain"](L["h"], rank * ly),),
+                 inputs=(L["h"], *proj["fold_mats"]),
+                 ops=fold_ops(n, proj["fold_levels"]) * ly / n),
+        ],
+    }
+
+
+def profile_cases(cases):
+    """Device-time split by kernel of 10 calls of each kernel's first case
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, cs in cases.items():
+        fn = cs[0].kfn
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+                split[e.key[:48]] = e.self_device_time_total / 1e3 / 10
+        print(f"[profile] {name} [{cs[0].label}]: {sum(split.values()):.4f} ms of device "
+              "time a call: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         sorted(split.items(), key=lambda kv: -kv[1])))
+
+
+def halo_vs_single_device(n):
+    """Every x-slab of a HALO_SHARDS-way cut: each halo kernel against the
+    matching x-rows of the single-device kernel on the whole cube, and the
+    sharded pass B on y-columns [ly·r, ly·r + ly) of the full-x divhat at
+    yoff = ly·r against the same columns of the single-device pass B."""
+    import torch
+
+    from ins_tpu_torch.ops import stage_kernels as sk
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_passB_sharded
+
+    P = HALO_SHARDS
+    lx = ly = n // P
+    dxs = (2 * np.pi / n,) * 3
+    visc = 1.0 / 4000.0
+    dt = 1e-3 * 128 / n
+    cube = make_fused_projection((n,) * 3, dxs, torch.float32, device=DEVICE)
+    proj = make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=DEVICE)
+    worst = 0.0
+    for r in range(P):
+        G, L = halo_kernel_inputs(n, P, r)
+        xs = slice(r * lx, (r + 1) * lx)
+        ys = slice(r * ly, (r + 1) * ly)
+        pairs = {
+            "momentum_stage_divhat_halo_3d": (
+                sk.momentum_stage_divhat_halo_3d(
+                    L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],), (dt / 2,),
+                    visc, dxs, proj["Vinv"], proj["VinvT"], emit_k=False,
+                    usnew_coeff=dt / 6),
+                sk.momentum_stage_divhat_3d(
+                    G["u"], (G["u"],), (dt / 2,), visc, dxs, cube["Vinv"], cube["VinvT"],
+                    emit_k=False, usnew_coeff=dt / 6)),
+            "pcmsd_hat_halo_3d": (
+                sk.pcmsd_hat_halo_3d(
+                    L["u"], L["u_lo2"], L["u_hi1"], L["qhat"], L["qhat_lo2"], L["qhat_hi2"],
+                    (L["ustart"],), (L["ustart_lo1"],), (dt / 2,), visc, dxs, proj,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=L["accb"]),
+                sk.pcmsd_hat_3d(
+                    G["u"], G["qhat"], (G["ustart"],), (dt / 2,), visc, dxs, cube,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=G["accb"])),
+            "pcmsd_hat_halo_3d (RECON)": (
+                sk.pcmsd_hat_halo_3d(
+                    L["u"], L["u_lo2"], L["u_hi1"], L["qhat"], L["qhat_lo2"], L["qhat_hi2"],
+                    (sk.RECON,), (sk.RECON,), (dt / 2,), visc, dxs, proj, emit_k=False,
+                    usnew_coeff=dt / 6, emit_u=True),
+                sk.pcmsd_hat_3d(
+                    G["u"], G["qhat"], (sk.RECON,), (dt / 2,), visc, dxs, cube,
+                    emit_k=False, usnew_coeff=dt / 6, emit_u=True)),
+            "pressure_correct_qhat_halo_3d": (
+                (sk.pressure_correct_qhat_halo_3d(L["u"], L["qhat"], L["qhat_hi1"], dxs,
+                                                  proj["V"], proj["VT"]),),
+                (sk.pressure_correct_qhat_3d(G["u"], G["qhat"], dxs, cube["V"],
+                                             cube["VT"]),)),
+        }
+        errs = {}
+        for name, (got, ref) in pairs.items():
+            # vectors (3, n, n, n) keep x-rows xs; scalars (n, n, n) too
+            errs[name] = max(rel_err(g, (p[:, xs] if p.dim() == 4 else p[xs]))
+                             for g, p in zip(got, ref))
+        got = proj["passB"](L["h"], r * ly)
+        ref = cube["passB"](G["divhat"])[:, ys]
+        errs["passB_sharded"] = rel_err(got, ref)
+        torch.cuda.synchronize()
+        print(f"[halo kernels] n={n}, x-slab {r} of {P} (lx = {lx}; pass B y-columns "
+              f"[{r * ly}, {(r + 1) * ly}), yoff {r * ly}): max rel err against the "
+              "single-device kernels' rows " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        worst = max(worst, *errs.values())
+        if not all(math.isfinite(v) and v <= REL_TOL for v in errs.values()):
+            fail(f"halo kernels on x-slab {r} disagree with the single-device kernels: {errs}")
+        del G, L, pairs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_halo(n, nsteps, chunk, u0, profile=False):
+    """`solve_unsteady(mesh=make_mesh(), halo=True)` on a one-rank NCCL
+    group: checks, agreement with the single-device hat chain, launches,
+    ms/step of both in turns."""
+    import torch
+    import torch.distributed as dist
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_ghosts, strip_state
+    from ins_tpu_torch.parallel import make_halo_fast_step, make_mesh, shard_interior
+
+    setup = headline_setup(n)
+    dt = 1e-3 * 128 / n
+    method = it.RKMethods.RK44()
+    mesh = make_mesh()
+    print(f"[halo] mesh: {mesh.size} rank(s) along x, backend "
+          f"{dist.get_backend(mesh.group)}, device {mesh.device}")
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, outs = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method, mesh=mesh,
+        halo=True, processors={"log": it.timelogger(nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[halo] solve_unsteady(mesh=make_mesh(), halo=True) {n}^3 RK44 f32: {nsteps} "
+          f"steps in chunks of {chunk}, {wall:.3f} s wall (first call included); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; plain calls on CUDA "
+          f"{ {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the halo run ran {state.n} steps, expected {nsteps}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail("non-finite velocity after the halo run")
+    nchunk = nsteps // chunk
+    expect = {"momentum_stage_divhat_halo_3d": nchunk, "pcmsd_hat_halo_3d": 4 * nsteps - nchunk,
+              "passB_sharded": 4 * nsteps, "pressure_correct_qhat_halo_3d": nchunk}
+    got = {k: counts[k] for k in expect}
+    if got != expect:
+        fail(f"halo launches {got}, expected {expect}")
+    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
+                          "pressure_correct_qhat_3d") if counts[k]]
+    if single or any(plain.values()):
+        fail(f"the halo run launched single-device kernels {single} or plain versions {plain}")
+    check_divergence(u, float(setup.grid.delta[0][0]), "halo")
+
+    # the single-device hat chain (kernels) from the same u0
+    launches.reset_counts()
+    ref, _ = it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt,
+                               method=method, psolver=it.psolver_spectral(setup),
+                               processors={"log": it.timelogger(nupdate=chunk)})
+    agree = rel_err(u, strip_ghosts(ref.u))
+    print(f"[halo] halo chain vs single-device hat chain after {nsteps} steps: max rel diff "
+          f"{agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"the halo chain and the single-device hat chain disagree by {agree:.3e}")
+    del ref, state
+
+    # ms/step in turns (halo, single, single, halo), each after two warm-up steps
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    halo_hat = make_halo_fast_step(setup, method, mesh).hat
+    chains = {"halo": (halo_hat, s0._replace(u=shard_interior(mesh, s0.u))),
+              "single": (make_fast_timestep_hat(setup, method), s0)}
+    times = {"halo": [], "single": []}
+    for which in ("halo", "single", "single", "halo"):
+        (to_h, step_h, _), st = chains[which]
+        h = step_h(step_h(to_h(st), dt), dt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            h = step_h(h, dt)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t) * 1e3 / 10)
+        del h
+    mh, ms = sum(times["halo"]) / 2, sum(times["single"]) / 2
+    print(f"[halo] {n}^3 RK44 f32 on {mesh.size} rank: halo chain {mh:.3f} ms/step "
+          f"({times['halo'][0]:.3f}, {times['halo'][1]:.3f}), single-device hat chain "
+          f"{ms:.3f} ms/step ({times['single'][0]:.3f}, {times['single'][1]:.3f}); card "
+          f"{card_line()}; after the timing (SM clock, power draw, temperature): "
+          f"{card_line('clocks.sm,power.draw,temperature.gpu')}")
+    if profile:
+        to_h, step_h, _ = halo_hat
+        phase_profile_split("halo step", setup, method, u0, dt,
+                            chain=(to_h, step_h, chains["halo"][1]))
+    dist.destroy_process_group()
+    return counts
+
+
 HAT_KERNELS = (
     "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
     "pressure_correct_qhat_3d",
@@ -1668,6 +2063,8 @@ TRAINING_KERNELS = (
 )
 CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
 TEMP_KERNELS = ("pcmsd_hat_3d+temp", "momentum_stage_divhat_3d+temp")
+HALO_KERNELS = ("momentum_stage_divhat_halo_3d", "pcmsd_hat_halo_3d",
+                "pressure_correct_qhat_halo_3d", "passB_sharded")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -1692,6 +2089,12 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "channel_msd_3d": ("ins_tpu_torch/csrc/channel.cu", "ins_tpu/ops/channel_kernels.py:333"),
     "channel_pressure_correct_3d": ("ins_tpu_torch/csrc/channel.cu",
                                     "ins_tpu/ops/channel_kernels.py:503"),
+    "momentum_stage_divhat_halo_3d": ("ins_tpu_torch/csrc/stage.cu",
+                                      "ins_tpu/ops/pallas_kernels.py:1730"),
+    "pcmsd_hat_halo_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:3183"),
+    "pressure_correct_qhat_halo_3d": ("ins_tpu_torch/csrc/correct.cu",
+                                      "ins_tpu/ops/pallas_kernels.py:1937"),
+    "passB_sharded": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:480"),
 }
 
 
@@ -1699,8 +2102,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
-                         "of one gradient step, of 3 channel steps and of 3 LES, "
-                         "Boussinesq and LMWray3 steps")
+                         "of one gradient step, of 3 channel steps, of 3 LES, "
+                         "Boussinesq, LMWray3 and halo steps, and of the halo "
+                         "kernels at the 4-shard shapes")
     args = ap.parse_args()
 
     import torch
@@ -1730,6 +2134,7 @@ def main():
 
     results = phase_kernels(kernel_cases, (64, 256),
                             time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp"))
+    solve_gate_times()
     phase_done("phase 1 (hat kernels)")
     hat_counts, setup, u0, dt, e_hat = phase_main_path(256, nsteps=20, chunk=10)
     if args.profile:
@@ -1777,12 +2182,20 @@ def main():
         phase_profile_split("LMWray3 step", setup, ins_tpu_torch.LMWray3(), u0_hat, dt)
     del setup
     phase_done("phase 7 (LMWray3)")
+    results.update(phase_kernels(halo_kernel_cases, (64, 256), time_all=("pcmsd_hat_halo_3d",)))
+    if args.profile:
+        profile_cases(halo_kernel_cases(256))
+    for n in (64, 256):
+        halo_vs_single_device(n)
+    halo_counts = phase_halo(256, 20, 10, u0_hat, profile=args.profile)
+    phase_done("phase 8 (halo)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
-              **{k: bous_counts[k] for k in TEMP_KERNELS}}
+              **{k: bous_counts[k] for k in TEMP_KERNELS},
+              **{k: halo_counts[k] for k in HALO_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

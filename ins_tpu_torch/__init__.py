@@ -1,6 +1,6 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs five of
+The JAX package `ins_tpu` is the reference; this package runs six of
 its paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
 (explicit RK or LMWray3, spectral projection, optionally with a closure
 model), its Smagorinsky LES (`smagorinsky_closure_natural`, optionally
@@ -9,14 +9,17 @@ with a steady body force), periodic Boussinesq convection
 a-posteriori training of a CNN closure through the unrolled solver
 (`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
 periodic, stretched no-slip z walls, steady body force, FDM projection)
-— with the TPU kernels of those paths rewritten as hand-written CUDA for
+— and the 3-D periodic cube on an x-slab mesh of devices
+(`parallel`: `solve_unsteady(mesh=make_mesh(), halo=True)` over
+`torch.distributed`), with the TPU kernels of those paths rewritten as
+hand-written CUDA for
 `sm_90a` (`csrc/`, built at first use by `_build.py`).  Every tensor of
 a run lives on `Setup(device=...)`, the card by default; with
 ``device="cpu"`` each kernel wrapper runs its plain PyTorch version.  It
 imports torch and never jax.
 """
 
-from . import processors  # noqa: F401
+from . import parallel, processors  # noqa: F401
 from .boundary_conditions import (  # noqa: F401
     DirichletBC,
     PeriodicBC,

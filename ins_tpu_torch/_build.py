@@ -58,8 +58,14 @@ _SIGNATURES = {
         + [_c_ptr] * 5 + [_c_int] + [_c_f32] * 3 + [_c_int, _c_ptr],
         _c_int,
     ),
+    "ins_stage_halo_f32": (
+        [_c_ptr] * 8 + [ctypes.POINTER(_c_ptr)] * 2 + [ctypes.POINTER(_c_f32), _c_int,
+                                                      _c_f32, _c_ptr, _c_f32, _c_int]
+        + [_c_ptr] * 5 + [_c_int] * 2 + [_c_f32] * 5 + [_c_ptr],
+        _c_int,
+    ),
     "ins_eigen_scale_f32": (
-        [_c_ptr] + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr],
+        [_c_ptr] + [_c_int] * 6 + [_c_f32] * 5 + [_c_ptr],
         _c_int,
     ),
     "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
@@ -70,6 +76,10 @@ _SIGNATURES = {
     ),
     "ins_correct_f32": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_f32, _c_f32, _c_f32, _c_ptr],
+        _c_int,
+    ),
+    "ins_correct_halo_f32": (
+        [_c_ptr] * 4 + [_c_int] * 2 + [_c_f32] * 3 + [_c_ptr],
         _c_int,
     ),
     "ins_convdiff_f32": (

@@ -13,10 +13,28 @@
 // write 3 per cell; 0.47 GB at 256^3, ~0.14 ms at 3.35 TB/s) with ~6
 // operations per cell.  The kernel is `correct_kernel` of stencil.cuh,
 // which the per-op `pressure_correct_3d` (perop.cu) launches too.
+//
+// `ins_correct_halo_f32` is the same correction on an x-slab shard block
+// (3, lx, n, n): `_pc_qhat_halo_kernel` (ins_tpu/ops/pallas_kernels.py
+// :1873, wrapper `pressure_correct_qhat_halo_3d` :1937).  The forward
+// x-difference at the block's last plane reads q's plane lx, the right
+// ring neighbour's plane 0, which the wrapper hands in as the ghost plane
+// q_hi (exchanged in the eigen-basis and transformed with the block's
+// planes; the transform is per plane, so the two orders agree).  Bound at
+// the 4-shard shape (lx = 64, n = 256): 7 floats a cell over 4.2M cells,
+// 0.12 GB, 0.035 ms at 3.35 TB/s.
 
 #include "stencil.cuh"
 
 extern "C" int ins_correct_f32(const float* ut, const float* q, float* u, int n,
                                float dx0, float dx1, float dx2, void* stream) {
     return (int)launch_correct(ut, q, u, n, n, n, dx0, dx1, dx2, (cudaStream_t)stream);
+}
+
+extern "C" int ins_correct_halo_f32(const float* ut, const float* q, const float* q_hi,
+                                    float* u, int lx, int n, float dx0, float dx1,
+                                    float dx2, void* stream) {
+    if (!q_hi) return (int)cudaErrorInvalidValue;
+    return (int)launch_correct(ut, q, u, lx, n, n, dx0, dx1, dx2, (cudaStream_t)stream,
+                               q_hi);
 }

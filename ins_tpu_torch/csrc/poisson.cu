@@ -27,7 +27,14 @@
 // `_passB_fold_body` (radix-2 folded, :214, :136), both called from
 // `make_fused_projection` (:411; the fold wherever n % 4 == 0, :429-449),
 // with `den` generated in-kernel from the closed form `_lam` (:101) as
-// there, never read from memory.
+// there, never read from memory.  The sharded pass B of an x-slab mesh,
+// `make_passB_sharded` (:480; fold `_passB_fold_yoff_kernel` :223, dense
+// `_passB_yoff_kernel` :205), runs the same kernels on a shard's
+// (n, ly, n) y-slice with full x after the x<->y all-to-all: only the
+// eigen-scale changes, taking the slice's y extent ly and the global
+// offset yoff of its first y-mode (the shard's rank times ly).  Bound at
+// the 4-shard shape (n = 256, ly = 64): the x-transform GEMMs, 2.1 GFLOP
+// folded (one level), 0.032 ms at 67 TFLOP/s.
 //
 // What bounds it on an H100: the x-transform GEMMs' FP32 operations (dense
 // 4 n^4, folded 2 n^4 at one level: 17.2 and 8.6 GFLOP at 256^3, 0.257 and
@@ -48,17 +55,17 @@ __device__ __forceinline__ float lam_k(int k, int n, float dx) {
 }
 
 __global__ void __launch_bounds__(256)
-eigen_scale_kernel(float* __restrict__ g, int n, int kmul, int odd, float dx0,
-                   float dx1, float dx2, float vol, float eps) {
+eigen_scale_kernel(float* __restrict__ g, int n, int ly, int yoff, int kmul, int odd,
+                   float dx0, float dx1, float dx2, float vol, float eps) {
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     const int r = blockIdx.z;
-    if (z >= n || y >= n) return;
+    if (z >= n || y >= ly) return;
     const int kx = kmul * (odd ? 2 * (r / 2) + 1 : (r + 1) / 2);
-    const float den = vol * (lam_k(kx, n, dx0) + lam_k((y + 1) / 2, n, dx1) +
+    const float den = vol * (lam_k(kx, n, dx0) + lam_k((y + yoff + 1) / 2, n, dx1) +
                              lam_k((z + 1) / 2, n, dx2));
     const float inv = fabsf(den) < eps ? 0.0f : 1.0f / den;
-    const size_t i = ((size_t)r * n + y) * n + z;
+    const size_t i = ((size_t)r * ly + y) * n + z;
     g[i] = g[i] * inv;
 }
 
@@ -91,13 +98,17 @@ unsigned flat_blocks(long long count) {
 
 }  // namespace
 
-extern "C" int ins_eigen_scale_f32(float* g, int nr, int n, int kmul, int odd, float dx0,
-                                   float dx1, float dx2, float vol, float eps,
-                                   void* stream) {
+// g: an (nr, ly, n) block whose rows y are the global y-modes yoff + y
+// (ly = n, yoff = 0 on one device; a shard's y-slice after the x<->y
+// transpose of the sharded pass B).
+extern "C" int ins_eigen_scale_f32(float* g, int nr, int n, int ly, int yoff, int kmul,
+                                   int odd, float dx0, float dx1, float dx2, float vol,
+                                   float eps, void* stream) {
+    if (ly < 1 || yoff < 0 || yoff + ly > n) return (int)cudaErrorInvalidValue;
     const dim3 block(32, 8);
-    const dim3 grid((n + 31) / 32, (n + 7) / 8, nr);
-    eigen_scale_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(g, n, kmul, odd, dx0,
-                                                                 dx1, dx2, vol, eps);
+    const dim3 grid((n + 31) / 32, (ly + 7) / 8, nr);
+    eigen_scale_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(g, n, ly, yoff, kmul, odd,
+                                                                 dx0, dx1, dx2, vol, eps);
     return (int)cudaGetLastError();
 }
 

@@ -67,6 +67,24 @@
 // add one to three floats a cell and temp_out/tempnew one or two (19-22 in
 // all with the velocity streams).  Without TEMP (and without FORCE) the
 // kernel compiles exactly as it did before those streams existed.
+//
+// HALO runs the stage on an x-slab shard block of a 1-D mesh: the port of
+// `_msd_hat_halo_kernel` (:1542, wrapper `momentum_stage_divhat_halo_3d`
+// :1730) and `_pcmsd_hat_halo_kernel` (:2877, wrapper `pcmsd_hat_halo_3d`
+// :3183).  The block is (3, lx, n, n); its x-neighbours arrive as separate
+// ghost arrays from the ring exchange (`parallel/halo.py`): 2 lower and 1
+// upper plane of u (ut_prev), 2 and 2 of q (the rebuild's forward
+// x-difference reaches plane lx + 1) and plane -1 of each tableau stream
+// (the backward divergence reads its component 0 there).  `load_plane`
+// reads plane x from the lower ghosts when x < 0, from the upper one when
+// x >= lx and from the block otherwise; y and z still wrap.  The TPU
+// kernels' segmented window DMAs (`_seg_window_copy` :1497) and their
+// slab-size pick have no counterpart: a block reads a ghost plane where it
+// needs it.  The shard stage has no force or temperature stream (the LES
+// and convection halo paths are ROADMAP queue 1 item 11).  Bound at the
+// 4-shard shape (lx = 64, n = 256): the same 14-17 floats a cell over 4.2M
+// cells, 0.23-0.29 GB, 0.07-0.09 ms at 3.35 TB/s; the ghost planes add
+// 3-5 %.  Without HALO the kernels compile as before.
 
 #include "stencil.cuh"
 
@@ -112,16 +130,80 @@ struct StageParams {
     int gdir;
     float alpha2, alpha4, dis;
     int with_dis;
+    // the x-slab shard block (HALO only; appended, so the cube kernels'
+    // parameter offsets are as before)
+    int lx;                   // x extent of the block (n: the cube)
+    const float* u_lo;        // (3, 2, n, n): planes -2, -1 of u (ut_prev)
+    const float* u_hi;        // (3, 1, n, n): plane lx
+    const float* q_lo;        // (2, n, n): q planes -2, -1 (REBUILD)
+    const float* q_hi;        // (2, n, n): q planes lx, lx + 1 (REBUILD)
+    const float* base_lo;     // (3, 1, n, n): plane -1 of base (with base)
+    const float* k_lo[MAXK];  // (3, 1, n, n): plane -1 of each k stream
 };
 
 using Ring = float[RING][3][HY][HZ];
 using TRing = float[RING][TY2][TZ2];  // slot pattern of Ring; x-2 unused
 
+// Plane x (-2 <= x <= lx + 1) of q on a shard block: the lower ghosts,
+// the block or the upper ghosts (HALO).
+__device__ __forceinline__ const float* halo_qplane(const StageParams& p, int x) {
+    const size_t n2 = (size_t)p.n * p.n;
+    if (x < 0) return p.q_lo + (size_t)(x + 2) * n2;
+    if (x >= p.lx) return p.q_hi + (size_t)(x - p.lx) * n2;
+    return p.q + (size_t)x * n2;
+}
+
+// `load_plane` on a shard block: plane xp (-2 <= xp <= lx) comes from the
+// lower ghosts, the block or the upper ghost, and q's planes xp and xp + 1
+// likewise (lx + 1 is the second upper q ghost).
+template <bool REBUILD>
+__device__ __forceinline__ void load_plane_halo(const StageParams& p, Ring& s, int slot,
+                                                int xp, int y0, int z0) {
+    const int n = p.n;
+    const size_t n2 = (size_t)n * n;
+    const float* up;  // component 0 of plane xp; the components lie cs apart
+    size_t cs;
+    if (xp < 0) {
+        up = p.u_lo + (size_t)(xp + 2) * n2;
+        cs = 2 * n2;
+    } else if (xp >= p.lx) {
+        up = p.u_hi + (size_t)(xp - p.lx) * n2;
+        cs = n2;
+    } else {
+        up = p.u + (size_t)xp * n2;
+        cs = (size_t)p.lx * n2;
+    }
+    const float* qp = REBUILD ? halo_qplane(p, xp) : nullptr;
+    const float* qn = REBUILD ? halo_qplane(p, xp + 1) : nullptr;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y;
+    for (int e = tid; e < HY * HZ; e += nthreads) {
+        const int ly = e / HZ, lz = e - ly * HZ;
+        const int y = wrap(y0 - 2 + ly, n), z = wrap(z0 - 2 + lz, n);
+        const size_t i = (size_t)y * n + z;
+        float u0 = __ldg(up + i), u1 = __ldg(up + cs + i), u2 = __ldg(up + 2 * cs + i);
+        if constexpr (REBUILD) {
+            const float qc = __ldg(qp + i);
+            const int yn = y + 1 == n ? 0 : y + 1, zn = z + 1 == n ? 0 : z + 1;
+            u0 -= (__ldg(qn + i) - qc) / p.dx[0];
+            u1 -= (__ldg(qp + (size_t)yn * n + z) - qc) / p.dx[1];
+            u2 -= (__ldg(qp + (size_t)y * n + zn) - qc) / p.dx[2];
+        }
+        s[slot][0][ly][lz] = u0;
+        s[slot][1][ly][lz] = u1;
+        s[slot][2][ly][lz] = u2;
+    }
+}
+
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
-template <bool REBUILD>
+template <bool REBUILD, bool HALO>
 __device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int slot,
                                            int xp, int y0, int z0) {
+    if constexpr (HALO) {
+        load_plane_halo<REBUILD>(p, s, slot, xp, y0, z0);
+        return;
+    }
     const int n = p.n;
     const size_t n3 = (size_t)n * n * n;
     const int x = wrap(xp, n);
@@ -188,12 +270,24 @@ __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float
     return ut + p.cnew * f;
 }
 
+// `tableau` at plane -1 of a shard block (HALO): the streams' lower
+// ghosts, offset il in their component-0 plane.
+__device__ __forceinline__ float tableau_lo(const StageParams& p, size_t il, float b0,
+                                            float f) {
+    float ut = b0;
+#pragma unroll
+    for (int j = 0; j < MAXK; ++j)
+        if (j < p.m) ut = ut + p.ck[j] * __ldg(p.k_lo[j] + il);
+    return ut + p.cnew * f;
+}
+
 // Outputs of component A at I; returns its term of the divergence.
-template <bool REBUILD, bool FORCE, bool TEMP, int A>
+template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, int A>
 __device__ __forceinline__ float component(const StageParams& p, const View& u,
                                            const TView& T, int x, int y, int z) {
+    static_assert(!(HALO && (FORCE || TEMP)), "the shard stage has no force or T stream");
     const int n = p.n;
-    const size_t n3 = (size_t)n * n * n;
+    const size_t n3 = (size_t)(HALO ? p.lx : n) * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
     float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
     if constexpr (TEMP) {
@@ -222,6 +316,13 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
         if (A == p.gdir) fm = fm + p.alpha2 * (0.5f * (T(MX, MY, MZ) + T(0, 0, 0)));
     }
     if constexpr (FORCE) fm = fm + __ldg(p.force + idxm);
+    if constexpr (HALO) {
+        if (A == 0 && x == 0) {  // plane -1: the tableau streams' lower ghosts
+            const size_t il = (size_t)y * n + z;
+            const float bl = p.base ? __ldg(p.base_lo + il) : u(A, MX, MY, MZ);
+            return (ut - tableau_lo(p, il, bl, fm)) / p.dx[A];
+        }
+    }
     const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
     const float utm = tableau(p, idxm, bm, fm);
     return (ut - utm) / p.dx[A];
@@ -284,7 +385,7 @@ __device__ __forceinline__ TRing* temp_ring() {
     }
 }
 
-template <bool REBUILD, bool FORCE, bool TEMP>
+template <bool REBUILD, bool FORCE, bool TEMP, bool HALO>
 __global__ void __launch_bounds__(TZ * TY)
 stage_kernel(const __grid_constant__ StageParams p) {
     __shared__ Ring s;
@@ -293,8 +394,8 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * XB;
     const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
     const bool active = z < n && y < n;  // ragged tiles still load and sync
-    const int nx = min(XB, n - x0);
-    for (int r = 0; r < 3; ++r) load_plane<REBUILD>(p, s, r, x0 - 2 + r, y0, z0);
+    const int nx = min(XB, (HALO ? p.lx : n) - x0);
+    for (int r = 0; r < 3; ++r) load_plane<REBUILD, HALO>(p, s, r, x0 - 2 + r, y0, z0);
     if constexpr (TEMP) {
         for (int r = 1; r < 3; ++r) load_tplane(p, *ts, r, x0 - 2 + r, y0, z0);
     }
@@ -302,7 +403,7 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const TView tv{ts, 0, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
     for (int i = 0; i < nx; ++i) {
         // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
-        load_plane<REBUILD>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
+        load_plane<REBUILD, HALO>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
         if constexpr (TEMP) load_tplane(p, *ts, (i + 3) & 3, x0 + i + 1, y0, z0);
         __syncthreads();
         if (active) {
@@ -311,9 +412,9 @@ stage_kernel(const __grid_constant__ StageParams p) {
             TView t = tv;
             t.i = i;
             const int x = x0 + i;
-            float d = component<REBUILD, FORCE, TEMP, 0>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, 1>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, 2>(p, v, t, x, y, z);
+            float d = component<REBUILD, FORCE, TEMP, HALO, 0>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, HALO, 1>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, HALO, 2>(p, v, t, x, y, z);
             p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
             if constexpr (TEMP) temperature(p, v, t, x, y, z);
         }
@@ -376,12 +477,70 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
     // without them compiles exactly as before they existed
     using Kernel = void (*)(const StageParams);
     const Kernel kernels[2][2][2] = {
-        {{stage_kernel<false, false, false>, stage_kernel<false, false, true>},
-         {stage_kernel<false, true, false>, stage_kernel<false, true, true>}},
-        {{stage_kernel<true, false, false>, stage_kernel<true, false, true>},
-         {stage_kernel<true, true, false>, stage_kernel<true, true, true>}},
+        {{stage_kernel<false, false, false, false>, stage_kernel<false, false, true, false>},
+         {stage_kernel<false, true, false, false>, stage_kernel<false, true, true, false>}},
+        {{stage_kernel<true, false, false, false>, stage_kernel<true, false, true, false>},
+         {stage_kernel<true, true, false, false>, stage_kernel<true, true, true, false>}},
     };
     const Kernel kernel = kernels[q != nullptr][force != nullptr][T != nullptr];
     kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// The stage on an x-slab shard block (HALO): u (ut_prev with q) is the
+// (3, lx, n, n) block, u_lo/u_hi its ring neighbours' 2 lower / 1 upper
+// planes, q_lo/q_hi the 2 lower / 2 upper planes of q, base_lo and
+// klo_ptrs each tableau stream's plane -1 (the backward divergence reads
+// its component 0 at x = -1).  The outputs have the block's extent.
+extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float* u_hi,
+                                  const float* q, const float* q_lo, const float* q_hi,
+                                  const float* base, const float* base_lo,
+                                  const void* const* kptrs, const void* const* klo_ptrs,
+                                  const float* kcoef, int m, float cnew,
+                                  const float* usnew_base, float cusnew, int with_usnew,
+                                  float* k_out, float* ut_out, float* usnew_out, float* u_out,
+                                  float* div_out, int lx, int n, float visc, float dx0,
+                                  float dx1, float dx2, float vol, void* stream) {
+    if (m < 0 || m > MAXK || lx < 1 || !u_lo || !u_hi) return (int)cudaErrorInvalidValue;
+    if (q && (!q_lo || !q_hi)) return (int)cudaErrorInvalidValue;
+    if (base && !base_lo) return (int)cudaErrorInvalidValue;
+    StageParams p{};
+    p.u = u;
+    p.q = q;
+    p.base = base;
+    for (int j = 0; j < m; ++j) {
+        p.k[j] = static_cast<const float*>(kptrs[j]);
+        p.k_lo[j] = static_cast<const float*>(klo_ptrs[j]);
+        if (!p.k_lo[j]) return (int)cudaErrorInvalidValue;
+        p.ck[j] = kcoef[j];
+    }
+    p.m = m;
+    p.cnew = cnew;
+    p.usnew_base = usnew_base;
+    p.cusnew = cusnew;
+    p.with_usnew = with_usnew;
+    p.k_out = k_out;
+    p.ut_out = ut_out;
+    p.usnew_out = usnew_out;
+    p.u_out = u_out;
+    p.div_out = div_out;
+    p.n = n;
+    p.visc = visc;
+    p.dx[0] = dx0;
+    p.dx[1] = dx1;
+    p.dx[2] = dx2;
+    p.vol = vol;
+    p.lx = lx;
+    p.u_lo = u_lo;
+    p.u_hi = u_hi;
+    p.q_lo = q_lo;
+    p.q_hi = q_hi;
+    p.base_lo = base_lo;
+    const dim3 block(TZ, TY);
+    const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (lx + XB - 1) / XB);
+    if (q)
+        stage_kernel<true, false, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    else
+        stage_kernel<false, false, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }

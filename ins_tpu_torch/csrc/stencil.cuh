@@ -56,10 +56,14 @@ __device__ __forceinline__ float convdiff(float visc, const float (&dx)[3], cons
 // (nx, ny, nz) box: one thread per cell, z fastest across a warp (every
 // access coalesced; the +e_a neighbours of q come from L1/L2).  Launch
 // with blocks of (32, 8) and a grid of (ceil(nz/32), ceil(ny/8), nx).
+// With HALO the box is an x-slab shard block: plane nx of q is the
+// (ny, nz) ghost plane q_hi (the right ring neighbour's plane 0) instead
+// of the wrapped plane 0.
+template <bool HALO>
 __global__ void __launch_bounds__(256)
 correct_kernel(const float* __restrict__ ut, const float* __restrict__ q,
-               float* __restrict__ u, int nx, int ny, int nz,
-               float dx0, float dx1, float dx2) {
+               float* __restrict__ u, int nx, int ny, int nz, float dx0, float dx1,
+               float dx2, const float* __restrict__ q_hi) {
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     const int x = blockIdx.z;
@@ -69,17 +73,29 @@ correct_kernel(const float* __restrict__ ut, const float* __restrict__ q,
     const int xn = x + 1 == nx ? 0 : x + 1, yn = y + 1 == ny ? 0 : y + 1;
     const int zn = z + 1 == nz ? 0 : z + 1;
     const float qc = __ldg(q + i);
-    u[i] = __ldg(ut + i) - (__ldg(q + ((size_t)xn * ny + y) * nz + z) - qc) / dx0;
+    float qx;
+    if constexpr (HALO) {
+        qx = x + 1 == nx ? __ldg(q_hi + (size_t)y * nz + z) : __ldg(q + i + (size_t)ny * nz);
+    } else {
+        qx = __ldg(q + ((size_t)xn * ny + y) * nz + z);
+    }
+    u[i] = __ldg(ut + i) - (qx - qc) / dx0;
     u[n3 + i] = __ldg(ut + n3 + i) - (__ldg(q + ((size_t)x * ny + yn) * nz + z) - qc) / dx1;
     u[2 * n3 + i] = __ldg(ut + 2 * n3 + i) - (__ldg(q + ((size_t)x * ny + y) * nz + zn) - qc) / dx2;
 }
 
+// The correction on a periodic box, or (q_hi given) on a shard block.
 inline cudaError_t launch_correct(const float* ut, const float* q, float* u, int nx,
                                   int ny, int nz, float dx0, float dx1, float dx2,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, const float* q_hi = nullptr) {
     const dim3 block(32, 8);
     const dim3 grid((nz + 31) / 32, (ny + 7) / 8, nx);
-    correct_kernel<<<grid, block, 0, stream>>>(ut, q, u, nx, ny, nz, dx0, dx1, dx2);
+    if (q_hi)
+        correct_kernel<true><<<grid, block, 0, stream>>>(ut, q, u, nx, ny, nz, dx0, dx1,
+                                                         dx2, q_hi);
+    else
+        correct_kernel<false><<<grid, block, 0, stream>>>(ut, q, u, nx, ny, nz, dx0, dx1,
+                                                          dx2, nullptr);
     return cudaGetLastError();
 }
 

@@ -30,9 +30,10 @@ Three chains:
   through the custom-VJP wrappers of `ops/diffkernels.py` (kernel
   forward, roll-graph adjoint backward); the Smagorinsky force goes
   through `make_smag_force_vjp`, differentiable in u and θ.  On the card
-  the Poisson solve is the 3-pass `make_poisson_pallas` on a cube when
-  the chain is not differentiated, else the eigen-matmul `make_poisson_mm`
-  (autograd differentiates it natively); on the CPU it is `torch.fft`.
+  the Poisson solve is the 3-pass `make_poisson_pallas` on a cube of at
+  least `POISSON_PALLAS_MIN_N` cells a side when the chain is not
+  differentiated, else the eigen-matmul `make_poisson_mm` (autograd
+  differentiates it natively); on the CPU it is `torch.fft`.
 - **The roll twin** (2-D, non-cubes, other tableaus, and 2-D with a
   closure): the same stage loop with conv-diff as a roll graph and the
   projection as roll-graph divergence and gradient around the solve; the
@@ -92,6 +93,15 @@ class HatState(NamedTuple):
     temp: Any
     t: float
     n: int
+
+
+# The per-op chain's Poisson solve on the card: the 3-pass kernels
+# (`make_poisson_pallas`) on cubes from this extent up, `make_poisson_mm`'s
+# contractions below it.  `chip_smoke.py`'s `solve_gate_times` measured the
+# device time per solve on an H100 (PERF.md §6): the contractions faster
+# at 64³ and 128³ (0.044 against 0.087 ms, 0.189 against 0.213), the
+# 3-pass kernels at 256³ (1.820 against 1.830).
+POISSON_PALLAS_MIN_N = 256
 
 
 def fastpath_applicable(setup, method, psolver):
@@ -399,7 +409,8 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     if setup.device.type == "cuda":
         # the 3-pass solve of hand kernels has no adjoint: a differentiated
         # chain contracts with the eigen-matrices, as the JAX package does
-        if D == 3 and len(set(g.Np)) == 1 and not differentiable:
+        if (D == 3 and len(set(g.Np)) == 1 and g.Np[0] >= POISSON_PALLAS_MIN_N
+                and not differentiable):
             solve_p = make_poisson_pallas(g.Np, dxs, setup.dtype, precision=projection_precision,
                                           device=setup.device, plain=plain)
         else:

@@ -32,6 +32,11 @@ KERNELS = (
     "passB",
     "passB_fold",
     "pressure_correct_qhat_3d",
+    # the x-slab halo chain (ops/stage_kernels.py, poisson_kernels.py)
+    "momentum_stage_divhat_halo_3d",
+    "pcmsd_hat_halo_3d",
+    "pressure_correct_qhat_halo_3d",
+    "passB_sharded",
     # the per-op chain's 3-pass Poisson solve (ops/poisson_kernels.py)
     "poisson_pallas",
     # the Smagorinsky force (ops/smag_kernels.py)

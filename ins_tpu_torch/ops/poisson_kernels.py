@@ -23,6 +23,10 @@ On CUDA tensors each runs as GEMMs (`csrc/transforms.cu`) around the
 eigen-scale, split and combine kernels of `csrc/poisson.cu`; on CPU
 tensors as the plain versions `passB_plain` and `passB_fold_plain`.
 
+`make_passB_sharded` is the same pass B on a shard's (n, ly, n) y-slice
+of an x-slab mesh (`parallel/halo.py`), whose eigen-scale takes the
+slice's global y offset.
+
 `make_poisson_pallas` is the port of the JAX package's standalone 3-pass
 solve of the same name: pass A is the z/y forward transform
 (`yz_transform(f, Vinv, VinvT)`), pass B the fused projection's (folded
@@ -39,7 +43,13 @@ import torch
 
 from .. import _build
 from .dft import fourier_eigenbasis
-from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain
+from .launches import (
+    LAUNCHES,
+    check_cuda_operands,
+    check_cuda_tensors,
+    current_stream,
+    note_plain,
+)
 from .transforms import x_transform, x_transform_plain, yz_transform, yz_transform_plain
 
 __all__ = [
@@ -52,6 +62,9 @@ __all__ = [
     "passB_plain",
     "passB_fold",
     "passB_fold_plain",
+    "make_passB_sharded",
+    "passB_sharded",
+    "passB_sharded_plain",
 ]
 
 
@@ -130,13 +143,14 @@ def _lam_k(k, dx, n):
     return (-4.0 / (dx * dx)) * s * s
 
 
-def _scale_plain(g, kx, proj):
+def _scale_plain(g, kx, proj, yoff=0):
     """g *= 1/den, den = vol·(λx(kx) + λy + λz), with the x-frequencies
-    ``kx`` of g's rows; 0 where |den| < eps (the nullspace pin)."""
-    n = g.shape[-1]
+    ``kx`` of g's rows and the y-modes ``yoff + y`` of its columns; 0
+    where |den| < eps (the nullspace pin)."""
+    n, ly = g.shape[-1], g.shape[1]
     dxs, vol = proj["dxs"], proj["vol"]
     idx = torch.arange(n, dtype=g.dtype, device=g.device)
-    lam_yz = _lam(idx, dxs[1], n)[:, None] + _lam(idx, dxs[2], n)[None, :]
+    lam_yz = _lam(idx[yoff:yoff + ly], dxs[1], n)[:, None] + _lam(idx, dxs[2], n)[None, :]
     den = vol * (_lam_k(kx.to(g.dtype), dxs[0], n)[:, None, None] + lam_yz)
     safe = torch.where(den == 0.0, torch.ones_like(den), den)
     return g * torch.where(den.abs() < proj["eps"], torch.zeros_like(den), 1.0 / safe)
@@ -146,30 +160,35 @@ def _ceil_half(r):
     return torch.div(r + 1, 2, rounding_mode="floor")
 
 
-def passB_plain(h, proj):
-    """Plain PyTorch pass B: einsum x-transforms and the closed-form scale."""
-    note_plain("passB", h)
+def _dense_plain(h, proj, yoff=0):
     r = torch.arange(h.shape[0], device=h.device)
-    g = _scale_plain(x_transform_plain(proj["Vinv"], h), _ceil_half(r), proj)
+    g = _scale_plain(x_transform_plain(proj["Vinv"], h), _ceil_half(r), proj, yoff)
     return x_transform_plain(proj["V"], g)
 
 
-def _fold_plain(hb, proj, lvl, kmul):
+def passB_plain(h, proj):
+    """Plain PyTorch pass B: einsum x-transforms and the closed-form scale."""
+    note_plain("passB", h)
+    return _dense_plain(h, proj)
+
+
+def _fold_plain(hb, proj, lvl, kmul, yoff=0):
     """The recursion of `_passB_fold_body` (poisson_pallas.py:136)."""
     mats, levels = proj["fold_mats"], proj["fold_levels"]
     nn = hb.shape[0]
     r = torch.arange(nn, device=hb.device)
     if lvl == levels:
-        g = _scale_plain(x_transform_plain(mats[2 * levels], hb), kmul * _ceil_half(r), proj)
+        g = _scale_plain(x_transform_plain(mats[2 * levels], hb), kmul * _ceil_half(r), proj,
+                         yoff)
         return x_transform_plain(mats[2 * levels + 1], g)
     n2 = nn // 2
     e = hb[:n2] + hb[n2:]
     o = hb[:n2] - hb[n2:]
     ro = r[:n2]
     go = _scale_plain(x_transform_plain(mats[2 * lvl], o),
-                      kmul * (2 * torch.div(ro, 2, rounding_mode="floor") + 1), proj)
+                      kmul * (2 * torch.div(ro, 2, rounding_mode="floor") + 1), proj, yoff)
     qo = x_transform_plain(mats[2 * lvl + 1], go)
-    qe = 0.5 * _fold_plain(e, proj, lvl + 1, 2 * kmul)
+    qe = 0.5 * _fold_plain(e, proj, lvl + 1, 2 * kmul, yoff)
     return torch.cat([qe + qo, qe - qo], dim=0)
 
 
@@ -179,21 +198,26 @@ def passB_fold_plain(h, proj):
     return _fold_plain(h, proj, 0, 1)
 
 
-def _scale(g, kmul, odd, proj):
-    n = g.shape[-1]
+def _scale(g, kmul, odd, proj, yoff=0):
     dx0, dx1, dx2 = proj["dxs"]
     err = _build.load().ins_eigen_scale_f32(
-        g.data_ptr(), g.shape[0], n, kmul, int(odd), dx0, dx1, dx2, proj["vol"],
-        proj["eps"], current_stream(g.device),
+        g.data_ptr(), g.shape[0], g.shape[2], g.shape[1], yoff, kmul, int(odd), dx0, dx1,
+        dx2, proj["vol"], proj["eps"], current_stream(g.device),
     )
     _build.check(err, "pass B eigen-scale")
 
 
-def _fold(hb, proj, lvl, kmul):
+def _dense(h, proj, yoff=0):
+    g = x_transform(proj["Vinv"], h)
+    _scale(g, 1, False, proj, yoff)
+    return x_transform(proj["V"], g)
+
+
+def _fold(hb, proj, lvl, kmul, yoff=0):
     mats, levels = proj["fold_mats"], proj["fold_levels"]
     if lvl == levels:
         g = x_transform(mats[2 * levels], hb)
-        _scale(g, kmul, False, proj)
+        _scale(g, kmul, False, proj, yoff)
         return x_transform(mats[2 * levels + 1], g)
     lib = _build.load()
     stream = current_stream(hb.device)
@@ -203,9 +227,9 @@ def _fold(hb, proj, lvl, kmul):
     _build.check(lib.ins_fold_split_f32(hb.data_ptr(), e.data_ptr(), o.data_ptr(), half,
                                         stream), "passB_fold")
     go = x_transform(mats[2 * lvl], o)
-    _scale(go, kmul, True, proj)
+    _scale(go, kmul, True, proj, yoff)
     qo = x_transform(mats[2 * lvl + 1], go)
-    qe = _fold(e, proj, lvl + 1, 2 * kmul)
+    qe = _fold(e, proj, lvl + 1, 2 * kmul, yoff)
     out = torch.empty_like(hb)
     _build.check(lib.ins_fold_combine_f32(qe.data_ptr(), qo.data_ptr(), out.data_ptr(),
                                           half, stream), "passB_fold")
@@ -221,10 +245,9 @@ def passB(h, proj):
         "passB", n, h=(h, "sca"), Vinv=(proj["Vinv"], "mat"), V=(proj["V"], "mat")
     )
     with torch.cuda.device(device):
-        g = x_transform(proj["Vinv"], h)
-        _scale(g, 1, False, proj)
+        out = _dense(h, proj)
         LAUNCHES["passB"] += 1
-        return x_transform(proj["V"], g)
+    return out
 
 
 def passB_fold(h, proj):
@@ -298,3 +321,50 @@ def make_poisson_pallas(Np, dxs, dtype, *, precision="manualhigh", device="cuda"
         return p
 
     return solve
+
+
+def passB_sharded_plain(h, proj, yoff):
+    """Plain PyTorch version of `passB_sharded`."""
+    note_plain("passB_sharded", h)
+    if proj["fold_levels"]:
+        return _fold_plain(h, proj, 0, 1, int(yoff))
+    return _dense_plain(h, proj, int(yoff))
+
+
+def passB_sharded(h, proj, yoff):
+    """Pass B of an x-slab-sharded projection on a shard's (n, ly, n)
+    y-slice with full x, whose first y-mode is ``yoff``: the folded pass B
+    where n % 4 == 0, else the dense one (the projection's choice)."""
+    if h.device.type == "cpu":
+        return passB_sharded_plain(h, proj, yoff)
+    n, ly = proj["V"].shape[0], proj["ly"]
+    yoff = int(yoff)
+    if not 0 <= yoff <= n - ly:
+        raise ValueError(f"passB_sharded: yoff {yoff} outside [0, {n - ly}]")
+    device = check_cuda_tensors("passB_sharded", (torch.float32,), h=(h, (n, ly, n)))
+    with torch.cuda.device(device):
+        if proj["fold_levels"]:
+            out = _fold(h, proj, 0, 1, yoff)
+        else:
+            out = _dense(h, proj, yoff)
+        LAUNCHES["passB_sharded"] += 1
+    return out
+
+
+def make_passB_sharded(Np, dxs, dtype, ly, *, precision="manualhigh", device="cuda"):
+    """Pass B of an x-slab-sharded fused projection (the port of
+    `make_passB_sharded`, poisson_pallas.py:480): after the x<->y
+    all-to-all each shard holds an (n, ly, n) y-slice of divhat with full
+    x, so the x-forward / eigen-scale / x-inverse runs on it alone; only
+    the eigen-scale's y-modes depend on the shard, through ``yoff`` (the
+    rank times ly).  Returns `make_fused_projection`'s dict with
+    ``passB(h_local, yoff) -> qhat_local`` and ``passB_plain`` replaced
+    by the sharded forms."""
+    n = Np[0]
+    if not 1 <= ly <= n or n % ly:
+        raise ValueError(f"make_passB_sharded: ly = {ly} must divide n = {n}")
+    proj = make_fused_projection(Np, dxs, dtype, precision=precision, device=device)
+    proj["ly"] = ly
+    proj["passB"] = lambda h, yoff: passB_sharded(h, proj, yoff)
+    proj["passB_plain"] = lambda h, yoff: passB_sharded_plain(h, proj, yoff)
+    return proj

@@ -33,6 +33,23 @@ one for `pcmsd_hat_3d`) advances with the stage's own coefficients:
 outputs in that order.  The stage then takes no k streams, and ``tacc``
 needs ``tstart`` and ``usnew_coeff``.  A bf16 ``compute_dtype`` raises
 NotImplementedError.
+
+The ``*_halo_3d`` wrappers (`momentum_stage_divhat_halo_3d`,
+`pcmsd_hat_halo_3d`, `pressure_correct_qhat_halo_3d`, ports of the JAX
+functions of those names) run the same stages and correction on an
+x-slab shard block ``(3, lx, n, n)`` of a 1-D mesh (`parallel/halo.py`),
+with the JAX signatures: the ring neighbours' boundary planes come as
+separate ghost arrays (2 lower and 1 upper of u or ut, 2 and 2 of qhat,
+1 upper of qhat for the correction) and each tableau stream brings its
+plane −1 in ``streams_lo``.  The CUDA side is the ``HALO`` flag of
+`csrc/stage.cu` and `ins_correct_halo_f32` of `csrc/correct.cu`.  The
+exchanged qhat ghost planes are transformed to q beside the block's (the
+JAX order; the transform is per plane, so transforming the block first
+and exchanging q planes would give the same q).  The plain versions
+concatenate the ghosts around the block and run the cube's plain stage on
+it, keeping the planes whose stencils the ghosts cover.  The body force
+and the Smagorinsky force raise NotImplementedError on a shard block
+(ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -44,7 +61,14 @@ import torch
 
 from .. import _build
 from .diffkernels import convdiff_roll, roll_m, roll_p
-from .launches import LAUNCHES, check_cuda_operands, current_stream, note_plain, ptr
+from .launches import (
+    LAUNCHES,
+    check_cuda_operands,
+    check_cuda_tensors,
+    current_stream,
+    note_plain,
+    ptr,
+)
 from .smag_kernels import _force as smag_force
 from .smag_kernels import _force_plain as smag_force_plain
 from .temperature import add_buoyancy, temp_rhs_roll
@@ -58,6 +82,12 @@ __all__ = [
     "pcmsd_hat_3d_plain",
     "pressure_correct_qhat_3d",
     "pressure_correct_qhat_3d_plain",
+    "momentum_stage_divhat_halo_3d",
+    "momentum_stage_divhat_halo_3d_plain",
+    "pcmsd_hat_halo_3d",
+    "pcmsd_hat_halo_3d_plain",
+    "pressure_correct_qhat_halo_3d",
+    "pressure_correct_qhat_halo_3d_plain",
 ]
 
 
@@ -384,4 +414,257 @@ def pressure_correct_qhat_3d(
         )
         _build.check(err, "pressure_correct_qhat_3d")
         LAUNCHES["pressure_correct_qhat_3d"] += 1
+    return u
+
+
+# ----------------------------------------------------------------------
+# the x-slab shard block (parallel/halo.py)
+# ----------------------------------------------------------------------
+
+
+def _reject_halo_unported(bodyforce, smag):
+    if bodyforce is not None or smag is not None:
+        raise NotImplementedError(
+            "a body force and the Smagorinsky force on the halo path are not ported "
+            "yet (ROADMAP queue 1 item 11)"
+        )
+
+
+def _xcat(*parts):
+    """Concatenate blocks along x (dim -3 of vectors and scalars)."""
+    return torch.cat(parts, dim=-3)
+
+
+def _ext_stream(v, v_lo):
+    """A tableau stream on the ghost-extended x range -2 .. lx: its plane
+    −1 from ``v_lo``; planes −2 and lx, which no kept stencil reads, 0."""
+    z = torch.zeros_like(v[:, :1])
+    return _xcat(z, v_lo, v, z)
+
+
+def _stage_halo_plain(u_ext, lx, streams, streams_lo, coeffs, visc, dxs, vinvy,
+                      vinvzT, emit_k, usnew_coeff, usnew_base, base_is_u):
+    """The cube's plain stage on the ghost-extended block u_ext (x planes
+    −2 .. lx); returns the outputs on planes 0 .. lx − 1."""
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    ks_lo = streams_lo[1:]
+    base_ext = u_ext if base_is_u else _ext_stream(base, streams_lo[0])
+    ks_ext = [_ext_stream(k, k_lo) for k, k_lo in zip(ks, ks_lo)]
+    ub_ext = None
+    if usnew_base is not None:
+        z = torch.zeros_like(usnew_base[:, :1])
+        ub_ext = _xcat(z, z, usnew_base, z)
+    f, ut, div, usnew = _stage_plain(u_ext, base_ext, ks_ext, cks, cnew, visc, dxs,
+                                     usnew_coeff, ub_ext, None, None)
+    keep = slice(2, 2 + lx)
+    divhat = yz_transform_plain(div[keep], vinvy, vinvzT)
+    usnew = None if usnew is None else usnew[:, keep]
+    return f[:, keep], ut[:, keep], divhat, usnew
+
+
+def _halo_streams(name, streams, streams_lo):
+    streams, streams_lo = tuple(streams), tuple(streams_lo)
+    if len(streams_lo) != len(streams):
+        raise ValueError(f"{name}: {len(streams)} streams need as many lower ghost planes")
+    return streams, streams_lo
+
+
+def momentum_stage_divhat_halo_3d_plain(
+    u_loc, u_lo, u_hi, streams, streams_lo, coeffs, visc, dxs, vinvy, vinvzT,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    bodyforce_lo=None, usnew_base=None, smag=None,
+):
+    """Plain PyTorch version of `momentum_stage_divhat_halo_3d`."""
+    _reject_halo_unported(bodyforce, smag)
+    note_plain("momentum_stage_divhat_halo_3d", u_loc)
+    streams, streams_lo = _halo_streams("momentum_stage_divhat_halo_3d", streams, streams_lo)
+    lx = u_loc.shape[1]
+    u_ext = _xcat(u_lo, u_loc, u_hi)
+    k, ut, divhat, usnew = _stage_halo_plain(
+        u_ext, lx, streams, streams_lo, coeffs, visc, dxs,
+        vinvy, vinvzT, emit_k, usnew_coeff, usnew_base,
+        base_is_u=len(streams) == 1 and streams[0] is u_loc,
+    )
+    return _pack(emit_k, k, ut, divhat, usnew)
+
+
+def pcmsd_hat_halo_3d_plain(
+    ut_loc, ut_lo, ut_hi, qhat_loc, qhat_lo, qhat_hi, streams, streams_lo, coeffs, visc,
+    dxs, proj, *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    bodyforce_lo=None, usnew_base=None, smag=None, emit_u=False,
+):
+    """Plain PyTorch version of `pcmsd_hat_halo_3d`."""
+    _reject_halo_unported(bodyforce, smag)
+    note_plain("pcmsd_hat_halo_3d", ut_loc)
+    streams, streams_lo = _halo_streams("pcmsd_hat_halo_3d", streams, streams_lo)
+    recon = streams[0] is RECON
+    if recon and (len(streams) != 1 or streams_lo[0] is not RECON):
+        raise ValueError("RECON base allows no k streams, and its lower plane is RECON too")
+    lx = ut_loc.shape[1]
+    # q on planes -2 .. lx + 1; u = ut - grad q on planes -2 .. lx (the
+    # x-roll's wrap at the last q plane falls on the dropped plane lx + 1)
+    q_ext = yz_transform_plain(_xcat(qhat_lo, qhat_loc, qhat_hi), proj["V"], proj["VT"])
+    u_ext = _xcat(ut_lo, ut_loc, ut_hi) - _grad(q_ext, dxs)[:, : lx + 3]
+    k, ut, divhat, usnew = _stage_halo_plain(
+        u_ext, lx, streams, streams_lo, coeffs, visc, dxs,
+        proj["Vinv"], proj["VinvT"], emit_k, usnew_coeff, usnew_base, base_is_u=recon,
+    )
+    return _pack(emit_k, k, ut, divhat, usnew, u_ext[:, 2:2 + lx] if emit_u else None)
+
+
+def pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
+                                        *, precision="manualhigh"):
+    """Plain PyTorch version of `pressure_correct_qhat_halo_3d`."""
+    note_plain("pressure_correct_qhat_halo_3d", ut_loc)
+    lx = ut_loc.shape[1]
+    q_ext = yz_transform_plain(_xcat(qhat_loc, qhat_hi), vy, vzT)
+    return ut_loc - _grad(q_ext, dxs)[:, :lx]
+
+
+def _halo_shapes(n, lx):
+    return {"vec": (3, lx, n, n), "sca": (lx, n, n), "ulo": (3, 2, n, n),
+            "uhi": (3, 1, n, n), "slo": (3, 1, n, n), "qlo": (2, n, n), "qhi": (2, n, n),
+            "qhi1": (1, n, n), "mat": (n, n)}
+
+
+def _check_halo(name, n, lx, **operands):
+    """`check_cuda_tensors` (float32) for a shard block: each value is
+    ``(tensor, kind)`` with the kinds of `_halo_shapes`."""
+    shapes = _halo_shapes(n, lx)
+    return check_cuda_tensors(
+        name, (torch.float32,), **{k: (t, shapes[kind]) for k, (t, kind) in operands.items()}
+    )
+
+
+def _launch_stage_halo(name, u, u_lo, u_hi, q, q_lo, q_hi, streams, streams_lo, coeffs,
+                       visc, dxs, *, base_is_u, emit_k, usnew_coeff, usnew_base, emit_u):
+    """One launch of the HALO stage kernel; returns (k, ut, div, usnew, u)."""
+    _, lx, n, _ = u.shape
+    base, ks, cks, cnew = _split_streams(streams, coeffs)
+    base_lo, ks_lo = streams_lo[0], streams_lo[1:]
+    if base_is_u:
+        base = base_lo = None
+    if len(ks) > _MAXK:
+        raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
+    operands = dict(u=(u, "vec"), u_lo=(u_lo, "ulo"), u_hi=(u_hi, "uhi"), q=(q, "sca"),
+                    q_lo=(q_lo, "qlo"), q_hi=(q_hi, "qhi"), base=(base, "vec"),
+                    base_lo=(base_lo, "slo"), usnew_base=(usnew_base, "vec"))
+    for j, (k, k_lo) in enumerate(zip(ks, ks_lo)):
+        operands[f"k{j + 1}"] = (k, "vec")
+        operands[f"k{j + 1}_lo"] = (k_lo, "slo")
+    device = _check_halo(name, n, lx, **operands)
+    with torch.cuda.device(device):
+        ut = torch.empty_like(u)
+        div = torch.empty((lx, n, n), dtype=u.dtype, device=device)
+        k_out = torch.empty_like(u) if emit_k else None
+        usnew = torch.empty_like(u) if usnew_coeff is not None else None
+        u_out = torch.empty_like(u) if emit_u else None
+        kptrs = (ctypes.c_void_p * _MAXK)(*[k.data_ptr() for k in ks])
+        klo = (ctypes.c_void_p * _MAXK)(*[k.data_ptr() for k in ks_lo])
+        kcoef = (ctypes.c_float * _MAXK)(*cks)
+        err = _build.load().ins_stage_halo_f32(
+            u.data_ptr(), u_lo.data_ptr(), u_hi.data_ptr(), ptr(q), ptr(q_lo), ptr(q_hi),
+            ptr(base), ptr(base_lo), kptrs, klo, kcoef, len(ks), cnew, ptr(usnew_base),
+            0.0 if usnew_coeff is None else float(usnew_coeff), int(usnew_coeff is not None),
+            ptr(k_out), ut.data_ptr(), ptr(usnew), ptr(u_out), div.data_ptr(), lx, n,
+            float(visc), float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
+            current_stream(device),
+        )
+        _build.check(err, name)
+        LAUNCHES[name] += 1
+    return k_out, ut, div, usnew, u_out
+
+
+def momentum_stage_divhat_halo_3d(
+    u_loc, u_lo, u_hi, streams, streams_lo, coeffs, visc, dxs, vinvy, vinvzT,
+    *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    bodyforce_lo=None, usnew_base=None, smag=None,
+):
+    """`momentum_stage_divhat_3d` on an x-slab shard block: ``u_loc``
+    (3, lx, n, n), ``u_lo`` (3, 2, n, n) and ``u_hi`` (3, 1, n, n) the ring
+    neighbours' boundary planes, each stream (3, lx, n, n) with its plane
+    −1 (3, 1, n, n) in ``streams_lo``.  A stream base that is ``u_loc``
+    itself (and no k streams) is read from the stage's own velocity.
+    Outputs have the block's extent; ``divhat`` is (lx, n, n)."""
+    if u_loc.device.type == "cpu":
+        return momentum_stage_divhat_halo_3d_plain(
+            u_loc, u_lo, u_hi, streams, streams_lo, coeffs, visc, dxs, vinvy, vinvzT,
+            precision=precision, emit_k=emit_k, usnew_coeff=usnew_coeff,
+            bodyforce=bodyforce, bodyforce_lo=bodyforce_lo, usnew_base=usnew_base,
+            smag=smag,
+        )
+    _reject_halo_unported(bodyforce, smag)
+    name = "momentum_stage_divhat_halo_3d"
+    streams, streams_lo = _halo_streams(name, streams, streams_lo)
+    _, lx, n, _ = u_loc.shape
+    _check_halo(name, n, lx, vinvy=(vinvy, "mat"), vinvzT=(vinvzT, "mat"))
+    k, ut, div, usnew, _ = _launch_stage_halo(
+        name, u_loc, u_lo, u_hi, None, None, None, streams, streams_lo, coeffs, visc, dxs,
+        base_is_u=len(streams) == 1 and streams[0] is u_loc, emit_k=emit_k,
+        usnew_coeff=usnew_coeff, usnew_base=usnew_base, emit_u=False,
+    )
+    return _pack(emit_k, k, ut, yz_transform(div, vinvy, vinvzT), usnew)
+
+
+def pcmsd_hat_halo_3d(
+    ut_loc, ut_lo, ut_hi, qhat_loc, qhat_lo, qhat_hi, streams, streams_lo, coeffs, visc,
+    dxs, proj, *, precision="manualhigh", emit_k=True, usnew_coeff=None, bodyforce=None,
+    bodyforce_lo=None, usnew_base=None, smag=None, emit_u=False,
+):
+    """`pcmsd_hat_3d` on an x-slab shard block: ``ut_loc`` (3, lx, n, n)
+    and ``qhat_loc`` (lx, n, n), ``ut_lo``/``ut_hi`` the ring neighbours'
+    2 lower / 1 upper planes of ut, ``qhat_lo``/``qhat_hi`` their 2 / 2
+    planes of qhat (the rebuild's x-gradient reads one q plane above the
+    velocity's).  ``streams[0] is RECON`` (with ``streams_lo[0]`` RECON
+    too) makes the rebuilt u the tableau base; ``emit_u`` appends it."""
+    if ut_loc.device.type == "cpu":
+        return pcmsd_hat_halo_3d_plain(
+            ut_loc, ut_lo, ut_hi, qhat_loc, qhat_lo, qhat_hi, streams, streams_lo, coeffs,
+            visc, dxs, proj, precision=precision, emit_k=emit_k, usnew_coeff=usnew_coeff,
+            bodyforce=bodyforce, bodyforce_lo=bodyforce_lo, usnew_base=usnew_base,
+            smag=smag, emit_u=emit_u,
+        )
+    _reject_halo_unported(bodyforce, smag)
+    name = "pcmsd_hat_halo_3d"
+    streams, streams_lo = _halo_streams(name, streams, streams_lo)
+    recon = streams[0] is RECON
+    if recon and (len(streams) != 1 or streams_lo[0] is not RECON):
+        raise ValueError("RECON base allows no k streams, and its lower plane is RECON too")
+    _, lx, n, _ = ut_loc.shape
+    _check_halo(name, n, lx, qhat=(qhat_loc, "sca"), qhat_lo=(qhat_lo, "qlo"),
+                qhat_hi=(qhat_hi, "qhi"))
+    # q of the block and of its four exchanged ghost planes (one transform)
+    q = yz_transform(qhat_loc, proj["V"], proj["VT"])
+    q_g = yz_transform(torch.cat([qhat_lo, qhat_hi]), proj["V"], proj["VT"])
+    k, ut, div, usnew, u = _launch_stage_halo(
+        name, ut_loc, ut_lo, ut_hi, q, q_g[:2], q_g[2:], streams, streams_lo, coeffs, visc,
+        dxs, base_is_u=recon, emit_k=emit_k, usnew_coeff=usnew_coeff,
+        usnew_base=usnew_base, emit_u=emit_u,
+    )
+    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
+    return _pack(emit_k, k, ut, divhat, usnew, u)
+
+
+def pressure_correct_qhat_halo_3d(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
+                                  *, precision="manualhigh"):
+    """`pressure_correct_qhat_3d` on an x-slab shard block: ``ut_loc``
+    (3, lx, n, n), ``qhat_loc`` (lx, n, n) and ``qhat_hi`` (1, n, n), the
+    right ring neighbour's first qhat plane."""
+    if ut_loc.device.type == "cpu":
+        return pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
+                                                   precision=precision)
+    name = "pressure_correct_qhat_halo_3d"
+    _, lx, n, _ = ut_loc.shape
+    device = _check_halo(name, n, lx, ut=(ut_loc, "vec"), qhat=(qhat_loc, "sca"),
+                         qhat_hi=(qhat_hi, "qhi1"), vy=(vy, "mat"), vzT=(vzT, "mat"))
+    with torch.cuda.device(device):
+        q = yz_transform(qhat_loc, vy, vzT)
+        q_hi = yz_transform(qhat_hi, vy, vzT)
+        u = torch.empty_like(ut_loc)
+        err = _build.load().ins_correct_halo_f32(
+            ut_loc.data_ptr(), q.data_ptr(), q_hi.data_ptr(), u.data_ptr(), lx, n,
+            float(dxs[0]), float(dxs[1]), float(dxs[2]), current_stream(device),
+        )
+        _build.check(err, name)
+        LAUNCHES[name] += 1
     return u

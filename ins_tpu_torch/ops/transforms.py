@@ -1,7 +1,7 @@
 """Plane eigen-transforms of the fused projection.
 
 `yz_transform(f, my, mzT)` computes ``my @ f[x] @ mzT`` for every x-plane
-of an (n, n, n) field (the z/y eigen-transforms that the TPU stage and
+of an (r, n, n) block (the z/y eigen-transforms that the TPU stage and
 correction kernels run in their own bodies); `x_transform(mx, h)`
 computes ``mx @ h`` over the leading axis (pass B's x-transform).  On a
 CUDA tensor each product is one launch of the hand-written FP32 GEMM in
@@ -54,35 +54,38 @@ def _gemm(A, B, C, M, N, K, lda, ldb, ldc, sA, sB, sC, batch):
 
 
 def yz_transform(f, my, mzT):
-    """``my @ f[x] @ mzT`` for every x-plane: two GEMM launches."""
+    """``my @ f[x] @ mzT`` for every x-plane of an (r, n, n) block (r = n
+    on a cube, a shard's x extent or its ghost planes on an x-slab mesh):
+    two GEMM launches."""
     if f.device.type == "cpu":
         return yz_transform_plain(f, my, mzT)
-    n = f.shape[0]
-    device = check_cuda_operands(
-        "yz_transform", n, f=(f, "sca"), my=(my, "mat"), mzT=(mzT, "mat")
-    )
+    r, n = f.shape[0], f.shape[-1]
+    device = check_cuda_operands("yz_transform", n, my=(my, "mat"), mzT=(mzT, "mat"))
+    check_cuda_tensors("yz_transform", (torch.float32,), f=(f, (r, n, n)))
     with torch.cuda.device(device):
         t = torch.empty_like(f)
-        # . mzT: one (n^2 x n) @ (n x n) product
-        _gemm(f, mzT, t, n * n, n, n, n, n, n, 0, 0, 0, 1)
+        # . mzT: one (r n x n) @ (n x n) product
+        _gemm(f, mzT, t, r * n, n, n, n, n, n, 0, 0, 0, 1)
         out = torch.empty_like(f)
         # my . : batched over the x-planes, my broadcast (stride 0)
-        _gemm(my, t, out, n, n, n, n, n, n, 0, n * n, n * n, n)
+        _gemm(my, t, out, n, n, n, n, n, n, 0, n * n, n * n, r)
     return out
 
 
 def x_transform(mx, h):
-    """``mx @ h`` over the leading axis: one (m x r) @ (r x n^2) GEMM for
-    an (r, n, n) block (r = n for pass B, a fold level's half for the
-    folded pass B)."""
+    """``mx @ h`` over the leading axis: one (m x r) @ (r x a b) GEMM for
+    an (r, a, b) block (r = n for pass B, a fold level's half for the
+    folded pass B; a = b = n on a cube, a shard's y-slice a = ly)."""
     if h.device.type == "cpu":
         return x_transform_plain(mx, h)
-    r, n = h.shape[0], h.shape[-1]
+    if h.dim() != 3:
+        raise ValueError(f"x_transform: expected an (r, a, b) block, got {tuple(h.shape)}")
+    r, a, b = h.shape
     m = mx.shape[0]
     device = check_cuda_tensors(
-        "x_transform", (torch.float32,), h=(h, (r, n, n)), mx=(mx, (m, r))
+        "x_transform", (torch.float32,), h=(h, (r, a, b)), mx=(mx, (m, r))
     )
     with torch.cuda.device(device):
-        out = torch.empty((m, n, n), dtype=h.dtype, device=device)
-        _gemm(mx, h, out, m, n * n, r, r, n * n, n * n, 0, 0, 0, 1)
+        out = torch.empty((m, a, b), dtype=h.dtype, device=device)
+        _gemm(mx, h, out, m, a * b, r, r, a * b, a * b, 0, 0, 0, 1)
     return out

@@ -20,8 +20,14 @@ kernel launches; dt and the tableau coefficients reach the kernels as
 Python floats, so a chunk syncs with the device only in the NaN guard
 and the processors.
 
-Adaptive (CFL) stepping, the ghosted general path, meshes and halos wait
-for ROADMAP queue 1 items 6, 7 and 11.
+With ``mesh=make_mesh()`` and ``halo=True`` every rank of the mesh's
+process group calls `solve_unsteady` with the same global ghosted
+``ustart``; each steps its x-slab through the halo chain's hat carry
+(`parallel/halo.py`), and at chunk ends the NaN guard and the processors
+see the global field (`all_gather`), which is also what every rank
+returns.  Adaptive (CFL) stepping, the ghosted general path, the GSPMD
+mesh path (``mesh`` without ``halo``) and the halo path's other options
+wait for ROADMAP queue 1 items 6, 7 and 11.
 """
 
 from __future__ import annotations
@@ -87,6 +93,9 @@ def solve_unsteady(
     max_chunk=256,
     nan_guard=True,
     projection_precision=None,
+    mesh=None,
+    halo=False,
+    halo_psolver="pencil",
 ):
     """Solve the unsteady problem on `tlims` with a fixed `dt`, rounded
     so that `(tend - tstart)/dt` is an integer.  `ustart` is a ghosted
@@ -95,7 +104,10 @@ def solve_unsteady(
     `processors` is a dict name -> Processor.  Returns `(state, outputs)`
     with the state in the public ghosted layout.  `theta` holds the
     closure model's parameters.  `projection_precision` ("manualhigh" or
-    "highest") is accepted for parity; both run at FP32 here."""
+    "highest") is accepted for parity; both run at FP32 here.  ``mesh``
+    (`parallel.make_mesh`) with ``halo=True`` steps the x-slab halo chain
+    on every rank of the mesh (``halo_psolver="pencil"``: the fused eigen
+    projection); see the module docstring."""
     if dt is None:
         raise NotImplementedError(
             "adaptive (CFL) time stepping is not ported yet (ROADMAP queue 1 item 6)"
@@ -104,6 +116,16 @@ def solve_unsteady(
         raise ValueError("tempstart needs a setup with a temperature equation")
     if method is None:
         method = RK44()
+    if halo and mesh is None:
+        raise ValueError("halo=True requires a mesh")
+    if mesh is not None and not halo:
+        raise NotImplementedError(
+            "the GSPMD mesh path (mesh without halo=True) is not ported yet (ROADMAP "
+            "queue 1 item 11); pass halo=True for the x-slab halo chain"
+        )
+    if halo:
+        return _solve_halo(setup, ustart, tlims, method, mesh, dt, processors, max_chunk,
+                           nan_guard, projection_precision or "manualhigh", halo_psolver)
     if psolver is None:
         psolver = default_psolver(setup)
     use_fast = fastpath_applicable(setup, method, psolver)
@@ -122,7 +144,6 @@ def solve_unsteady(
             "no temperature); the general ghosted path, which runs the rest, is "
             "ROADMAP queue 1 item 7"
         )
-    processors = dict(processors or {})
     # the chain never writes into its inputs, so the caller's field needs
     # no defensive copy
     ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=setup.device)
@@ -145,7 +166,7 @@ def solve_unsteady(
             step = make_fast_timestep(setup, method, projection_precision=precision)
         strip, reghost_s = strip_state, reghost_state
 
-    def run_chunk(s, nsteps):
+    def run_chunk(s, nsteps, dt):
         if hat_fns is not None:
             to_hat, step_hat, from_hat = hat_fns
             h = to_hat(s)
@@ -158,9 +179,21 @@ def solve_unsteady(
             s = step(s, dt, theta)
         return s
 
-    tstart, tend = tlims
-    state = strip(create_stepper(method, setup=setup, u=ustart, temp=tempstart, t=tstart))
+    state = strip(create_stepper(method, setup=setup, u=ustart, temp=tempstart, t=tlims[0]))
+    return _drive(state, run_chunk, reghost_s, tlims, dt, processors, max_chunk, nan_guard)
 
+
+def _same(s):
+    return s
+
+
+def _drive(state, run_chunk, reghost_s, tlims, dt, processors, max_chunk, nan_guard,
+           local=_same, to_global=_same):
+    """The chunk loop: ``state`` is the interior state, ``run_chunk`` steps
+    it, ``reghost_s`` crosses to the public layout.  On a mesh ``local``
+    cuts the rank's slab from the global state and ``to_global`` gathers
+    it back; the NaN guard and the processors see the global state."""
+    processors = dict(processors or {})
     initialized = {
         k: p.initialize(get_state(reghost_s(state))) for k, p in processors.items()
     }
@@ -179,6 +212,7 @@ def solve_unsteady(
             ok = bool(torch.isfinite(s.temp).all())
         return ok
 
+    tstart, tend = tlims
     nstep = int(round((tend - tstart) / dt))
     dt = (tend - tstart) / nstep
     nupdates = [getattr(p, "nupdate", 1) for p in processors.values()]
@@ -186,23 +220,49 @@ def solve_unsteady(
     chunk = max(1, min(chunk, max_chunk, nstep))
 
     last_good = state
+    state = local(state)
     for c in _chunk_sizes(nstep, chunk):
         with torch.no_grad():
-            state = run_chunk(state, c)
+            state = run_chunk(state, c, dt)
+        glob = to_global(state) if (nan_guard or processors) else None
         if nan_guard:
-            if not finite(state):
+            if not finite(glob):
                 st = get_state(reghost_s(last_good))
                 raise SolverDivergedError(
                     f"solver produced non-finite fields (last finite state: "
                     f"n={st['n']}, t={st['t']:g})",
                     state=st,
                 )
-            last_good = state
+            last_good = glob
         if processors:
-            update_processors(state)
+            update_processors(glob)
 
-    state = reghost_s(state)
+    state = reghost_s(to_global(state))
     outputs = {
         k: p.finalize(initialized[k], get_state(state)) for k, p in processors.items()
     }
     return state, outputs
+
+
+def _solve_halo(setup, ustart, tlims, method, mesh, dt, processors, max_chunk, nan_guard,
+                precision, halo_psolver):
+    """`solve_unsteady` on the x-slab halo chain (every rank calls it)."""
+    from .parallel.halo import gather_interior, make_halo_fast_step, shard_interior
+
+    step = make_halo_fast_step(setup, method, mesh, psolver=halo_psolver,
+                               projection_precision=precision)
+    to_hat, step_hat, from_hat = step.hat
+
+    def run_chunk(s, nsteps, dt):
+        h = to_hat(s)
+        for _ in range(nsteps):
+            h = step_hat(h, dt)
+        return from_hat(h)
+
+    ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=mesh.device)
+    state = strip_state(create_stepper(method, setup=setup, u=ustart, t=tlims[0]))
+    return _drive(
+        state, run_chunk, reghost_state, tlims, dt, processors, max_chunk, nan_guard,
+        local=lambda s: s._replace(u=shard_interior(mesh, s.u)),
+        to_global=lambda s: s._replace(u=gather_interior(mesh, s.u)),
+    )
