@@ -125,8 +125,30 @@ Phases, each raising on failure (exit code != 0, no result line):
    a chunk; no single-device kernel, no plain version), within 1e-4 of
    the single-device hat chain; ms/step of both in turns beside the card's
    name and power limit (`--profile`: the halo step's device-time split
-   and each halo kernel's split by kernel).
-9. Print the kernel table (JSON: per kernel its launches on the main
+   and each halo kernel's split by kernel).  Phase 8's kernel cases also
+   hold the LES kernels of phase 9 at the same shard shapes against their
+   plain versions, timed at 256³: `smagorinsky_force_halo_3d` (the
+   `HALO` flag of `csrc/smag.cu`) on u and on the rebuilt u, with and
+   without a body force, in the chain's form (3 + 2 ghosts, the force on
+   planes −1 .. lx − 1) and the JAX contract's (2 + 2 ghosts), and the
+   two halo stage kernels with the force stream (`HALO` with `FORCE`),
+   with ``smag=`` and with a body force alone (2 + 1 ghosts); and each
+   on all four slabs against the single-device `smagorinsky_force_3d`
+   and stage kernels' x-rows (<= 1e-4).
+9. The Smagorinsky LES on the halo chain: phase 5's setup and phase 2's
+   u0, `solve_unsteady(mesh=make_mesh(), halo=True, theta=0.17)` on a
+   one-rank NCCL group, 20 steps in chunks of 10, with `observespectrum`
+   and `observefield`.  Checks: finite, divergence as in phase 2, kinetic
+   energy not increasing and at step 20 below phase 8's halo run; the
+   halo force kernel 4 launches a step, the halo stage kernels with their
+   force stream as phase 8's (and none without it), pass B 4 a step, the
+   correction once a chunk, no single-device kernel and no plain version;
+   within 1e-4 of phase 5's single-device LES chain; ms/step of both in
+   turns beside the card's name and power limit (`--profile`: the halo
+   LES step's device-time split).  Then 64³ halo runs with a steady body
+   force, with the LES and alone (no force kernel), each against its
+   single-device chain (<= 1e-4) with its launches counted.
+10. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -702,7 +724,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
 # --------------------------------------------------------------------------
 
 
-def headline_setup(n):
+def headline_setup(n, bodyforce=None):
     import torch
 
     import ins_tpu_torch as it
@@ -710,7 +732,7 @@ def headline_setup(n):
     x = tuple(np.linspace(0.0, 2 * np.pi, n + 1) for _ in range(3))
     bc = ((it.PeriodicBC(), it.PeriodicBC()),) * 3
     return it.Setup(x=x, boundary_conditions=bc, Re=4000.0, dtype=torch.float32,
-                    device=DEVICE)
+                    device=DEVICE, bodyforce=bodyforce)
 
 
 def check_divergence(u, dx, tag):
@@ -1366,9 +1388,9 @@ def les_kernel_cases(box):
     ]}
 
 
-def les_setup(n):
+def les_setup(n, bodyforce=None):
     """`bench.py`'s LES case: phase 2's setup with the natural-form
-    Smagorinsky closure."""
+    Smagorinsky closure (and a steady body force)."""
     import torch
 
     import ins_tpu_torch as it
@@ -1376,7 +1398,7 @@ def les_setup(n):
     base = headline_setup(n)
     x = tuple(np.linspace(0.0, 2 * np.pi, n + 1) for _ in range(3))
     return it.Setup(x=x, boundary_conditions=base.boundary_conditions, Re=4000.0,
-                    dtype=torch.float32, device=DEVICE,
+                    dtype=torch.float32, device=DEVICE, bodyforce=bodyforce,
                     closure_model=it.smagorinsky_closure_natural(base))
 
 
@@ -1769,7 +1791,8 @@ def halo_kernel_inputs(n, P, rank):
         return torch.from_numpy(a).to(dev)
 
     g = {"u": field(3, n, n, n), "ustart": field(3, n, n, n), "accb": field(3, n, n, n),
-         "qhat": field(n, n, n, scale=1e-3), "divhat": field(n, n, n)}
+         "qhat": field(n, n, n, scale=1e-3), "divhat": field(n, n, n),
+         "bf": field(3, n, n, n), "q": field(n, n, n, scale=1e-2)}
     lx = n // P
     x0 = rank * lx
 
@@ -1782,10 +1805,9 @@ def halo_kernel_inputs(n, P, rank):
         if k == "divhat":
             continue
         loc[k] = planes(v, x0, lx)
-        loc[k + "_lo2"] = planes(v, x0 - 2, 2)
-        loc[k + "_lo1"] = planes(v, x0 - 1, 1)
-        loc[k + "_hi1"] = planes(v, x0 + lx, 1)
-        loc[k + "_hi2"] = planes(v, x0 + lx, 2)
+        for j in (1, 2, 3):  # ghost planes: the halo path's widths
+            loc[f"{k}_lo{j}"] = planes(v, x0 - j, j)
+            loc[f"{k}_hi{j}"] = planes(v, x0 + lx, j)
     ly = n // P
     loc["h"] = g["divhat"][:, rank * ly:(rank + 1) * ly].contiguous()
     return g, loc
@@ -1797,6 +1819,7 @@ def halo_kernel_cases(n, rank=1):
     options the halo path gives it)."""
     import torch
 
+    from ins_tpu_torch.ops import smag_kernels as smk
     from ins_tpu_torch.ops import stage_kernels as sk
     from ins_tpu_torch.ops.poisson_kernels import make_passB_sharded
 
@@ -1807,6 +1830,9 @@ def halo_kernel_cases(n, rank=1):
     dt = 1e-3 * 128 / n
     proj = make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=DEVICE)
     _, L = halo_kernel_inputs(n, P, rank)
+    theta = torch.full((1,), LES_THETA, device=DEVICE)
+    d2 = float(sum(d * d for d in dxs))
+    smag = (theta, d2)
     cells = lx * n * n
     mats = (proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"])
 
@@ -1828,7 +1854,92 @@ def halo_kernel_cases(n, rank=1):
 
     based = dict(usnew_coeff=dt / 3, usnew_base=L["accb"])
     recon = dict(usnew_coeff=dt / 6, emit_u=True)
+    bfk = dict(bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"])
+    cells1 = (lx + 1) * n * n  # the force's planes -1 .. lx - 1
+
+    def force(impl, x_first, rebuild=False, bf=False):
+        # the chain's form (x_first = -1: 3 + 2 ghosts, the force at plane
+        # -1 too) or the JAX contract (2 + 2 ghosts, lx planes)
+        glo = 2 - x_first
+        q3 = (L["q"], L[f"q_lo{glo}"], L["q_hi3"]) if rebuild else None
+        kw = dict(bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"]) if bf else {}
+        return lambda: tuple(t for t in impl(L["u"], L[f"u_lo{glo}"], L["u_hi2"], theta, dxs,
+                                              d2, rebuild_q=q3, x_first=x_first, **kw)
+                             if t is not None)
+
+    def msd_smag(impl, **kw):
+        glo, ghi = (3, 2) if "smag" in kw else (2, 1)
+        return lambda: impl(L["u"], L[f"u_lo{glo}"], L[f"u_hi{ghi}"], (L["u"],), (L["u_lo1"],),
+                            (dt / 2,), visc, dxs, proj["Vinv"], proj["VinvT"],
+                            emit_k=False, usnew_coeff=dt / 6, **kw)
+
+    def pcmsd_smag(impl, base, base_lo, **kw):
+        glo, ghi = (3, 2) if "smag" in kw else (2, 1)
+        return lambda: impl(L["u"], L[f"u_lo{glo}"], L[f"u_hi{ghi}"], L["qhat"],
+                            L[f"qhat_lo{glo}"], L[f"qhat_hi{ghi + 1}"], (base,), (base_lo,),
+                            (dt / 2,), visc, dxs, proj, emit_k=False, **kw)
+
     return {
+        "smagorinsky_force_halo_3d": [
+            Case("chain form: rebuild (ut, q), 3 + 2 ghosts, planes -1 .. lx-1",
+                 force(smk._force_halo, -1, rebuild=True),
+                 force(smk._force_halo_plain, -1, rebuild=True),
+                 inputs=(L["u"], L["u_lo3"], L["u_hi2"], L["q"], L["q_lo3"], L["q_hi3"],
+                         theta),
+                 ops=(OPS_PER_CELL["smag"] + OPS_PER_CELL["correct"]) * cells1),
+            Case("u (the JAX contract)", force(smk._force_halo, 0),
+                 force(smk._force_halo_plain, 0)),
+            Case("u + bodyforce", force(smk._force_halo, 0, bf=True),
+                 force(smk._force_halo_plain, 0, bf=True)),
+            Case("rebuild + bodyforce, planes -1 .. lx-1",
+                 force(smk._force_halo, -1, rebuild=True, bf=True),
+                 force(smk._force_halo_plain, -1, rebuild=True, bf=True)),
+            Case("rebuild (the JAX contract's ghosts)", force(smk._force_halo, 0, rebuild=True),
+                 force(smk._force_halo_plain, 0, rebuild=True)),
+        ],
+        "momentum_stage_divhat_halo_3d+smag": [
+            Case("stage 0: u base + usnew + smag",
+                 msd_smag(sk.momentum_stage_divhat_halo_3d, smag=smag),
+                 msd_smag(sk.momentum_stage_divhat_halo_3d_plain, smag=smag),
+                 inputs=(L["u"], L["u_lo3"], L["u_hi2"], proj["Vinv"], proj["VinvT"],
+                         theta),
+                 ops=(OPS_PER_CELL["stage_norebuild"] * cells + OPS_PER_CELL["smag"] * cells1
+                      + 2 * gemm(lx))),
+            Case("+ smag + bodyforce", msd_smag(sk.momentum_stage_divhat_halo_3d, smag=smag,
+                                                **bfk),
+                 msd_smag(sk.momentum_stage_divhat_halo_3d_plain, smag=smag, **bfk)),
+            Case("u base + usnew + bodyforce (the force stream alone)",
+                 msd_smag(sk.momentum_stage_divhat_halo_3d, **bfk),
+                 msd_smag(sk.momentum_stage_divhat_halo_3d_plain, **bfk)),
+        ],
+        "pcmsd_hat_halo_3d+smag": [
+            Case("stream base + usnew_base + smag",
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d, L["ustart"], L["ustart_lo1"], smag=smag,
+                            **based),
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d_plain, L["ustart"], L["ustart_lo1"],
+                            smag=smag, **based),
+                 inputs=(L["u"], L["u_lo3"], L["u_hi2"], L["qhat"], L["qhat_lo3"],
+                         L["qhat_hi3"], L["ustart"], L["ustart_lo1"], L["accb"], *mats,
+                         theta),
+                 # "stage" already holds the rebuild of u (the cube's
+                 # `smag=` row counts it once too)
+                 ops=(OPS_PER_CELL["stage"] * cells + OPS_PER_CELL["smag"] * cells1
+                      + 4 * gemm(lx) + 2 * gemm(6))),
+            Case("RECON + emit_u + usnew + smag",
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d, sk.RECON, sk.RECON, smag=smag, **recon),
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d_plain, sk.RECON, sk.RECON, smag=smag,
+                            **recon)),
+            Case("stream base + smag + bodyforce",
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d, L["ustart"], L["ustart_lo1"], smag=smag,
+                            **based, **bfk),
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d_plain, L["ustart"], L["ustart_lo1"],
+                            smag=smag, **based, **bfk)),
+            Case("stream base + bodyforce (the force stream alone)",
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d, L["ustart"], L["ustart_lo1"], **based,
+                            **bfk),
+                 pcmsd_smag(sk.pcmsd_hat_halo_3d_plain, L["ustart"], L["ustart_lo1"],
+                            **based, **bfk)),
+        ],
         "momentum_stage_divhat_halo_3d": [
             Case("stage 0: u base + usnew",
                  msd(sk.momentum_stage_divhat_halo_3d, usnew_coeff=dt / 6),
@@ -1894,6 +2005,7 @@ def halo_vs_single_device(n):
     yoff = ly·r against the same columns of the single-device pass B."""
     import torch
 
+    from ins_tpu_torch.ops import smag_kernels as smk
     from ins_tpu_torch.ops import stage_kernels as sk
     from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_passB_sharded
 
@@ -1904,12 +2016,70 @@ def halo_vs_single_device(n):
     dt = 1e-3 * 128 / n
     cube = make_fused_projection((n,) * 3, dxs, torch.float32, device=DEVICE)
     proj = make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=DEVICE)
+    theta = torch.full((1,), LES_THETA, device=DEVICE)
+    d2 = float(sum(d * d for d in dxs))
+    smag = (theta, d2)
     worst = 0.0
     for r in range(P):
         G, L = halo_kernel_inputs(n, P, r)
         xs = slice(r * lx, (r + 1) * lx)
         ys = slice(r * ly, (r + 1) * ly)
+        # the force on planes -1 .. lx - 1 (rows r·lx - 1 .. r·lx + lx - 1)
+        f, f_lo = smk._force_halo(L["u"], L["u_lo3"], L["u_hi2"], theta, dxs, d2,
+                                  bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"],
+                                  rebuild_q=(L["q"], L["q_lo3"], L["q_hi3"]), x_first=-1)
+        f_ref = smk.smagorinsky_force_3d(G["u"], theta, dxs, bodyforce=G["bf"],
+                                         rebuild_q=G["q"])
+        rows_m1 = torch.arange(r * lx - 1, (r + 1) * lx, device=DEVICE) % n
         pairs = {
+            "smagorinsky_force_halo_3d": (
+                (smk.smagorinsky_force_halo_3d(L["u"], L["u_lo2"], L["u_hi2"], theta, dxs),),
+                (smk.smagorinsky_force_3d(G["u"], theta, dxs),)),
+            "momentum_stage_divhat_halo_3d+smag": (
+                sk.momentum_stage_divhat_halo_3d(
+                    L["u"], L["u_lo3"], L["u_hi2"], (L["u"],), (L["u_lo1"],), (dt / 2,),
+                    visc, dxs, proj["Vinv"], proj["VinvT"], emit_k=False,
+                    usnew_coeff=dt / 6, smag=smag, bodyforce=L["bf"],
+                    bodyforce_lo=L["bf_lo1"]),
+                sk.momentum_stage_divhat_3d(
+                    G["u"], (G["u"],), (dt / 2,), visc, dxs, cube["Vinv"], cube["VinvT"],
+                    emit_k=False, usnew_coeff=dt / 6, smag=smag, bodyforce=G["bf"])),
+            "pcmsd_hat_halo_3d+smag": (
+                sk.pcmsd_hat_halo_3d(
+                    L["u"], L["u_lo3"], L["u_hi2"], L["qhat"], L["qhat_lo3"], L["qhat_hi3"],
+                    (L["ustart"],), (L["ustart_lo1"],), (dt / 2,), visc, dxs, proj,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=L["accb"], smag=smag,
+                    bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"]),
+                sk.pcmsd_hat_3d(
+                    G["u"], G["qhat"], (G["ustart"],), (dt / 2,), visc, dxs, cube,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=G["accb"], smag=smag,
+                    bodyforce=G["bf"])),
+            "momentum_stage_divhat_halo_3d+bodyforce": (
+                sk.momentum_stage_divhat_halo_3d(
+                    L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],), (dt / 2,),
+                    visc, dxs, proj["Vinv"], proj["VinvT"], emit_k=False,
+                    usnew_coeff=dt / 6, bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"]),
+                sk.momentum_stage_divhat_3d(
+                    G["u"], (G["u"],), (dt / 2,), visc, dxs, cube["Vinv"], cube["VinvT"],
+                    emit_k=False, usnew_coeff=dt / 6, bodyforce=G["bf"])),
+            "pcmsd_hat_halo_3d+bodyforce": (
+                sk.pcmsd_hat_halo_3d(
+                    L["u"], L["u_lo2"], L["u_hi1"], L["qhat"], L["qhat_lo2"], L["qhat_hi2"],
+                    (L["ustart"],), (L["ustart_lo1"],), (dt / 2,), visc, dxs, proj,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=L["accb"],
+                    bodyforce=L["bf"], bodyforce_lo=L["bf_lo1"]),
+                sk.pcmsd_hat_3d(
+                    G["u"], G["qhat"], (G["ustart"],), (dt / 2,), visc, dxs, cube,
+                    emit_k=False, usnew_coeff=dt / 3, usnew_base=G["accb"],
+                    bodyforce=G["bf"])),
+            "pcmsd_hat_halo_3d+smag (RECON)": (
+                sk.pcmsd_hat_halo_3d(
+                    L["u"], L["u_lo3"], L["u_hi2"], L["qhat"], L["qhat_lo3"], L["qhat_hi3"],
+                    (sk.RECON,), (sk.RECON,), (dt / 2,), visc, dxs, proj, emit_k=False,
+                    usnew_coeff=dt / 6, emit_u=True, smag=smag),
+                sk.pcmsd_hat_3d(
+                    G["u"], G["qhat"], (sk.RECON,), (dt / 2,), visc, dxs, cube,
+                    emit_k=False, usnew_coeff=dt / 6, emit_u=True, smag=smag)),
             "momentum_stage_divhat_halo_3d": (
                 sk.momentum_stage_divhat_halo_3d(
                     L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],), (dt / 2,),
@@ -1945,6 +2115,9 @@ def halo_vs_single_device(n):
             # vectors (3, n, n, n) keep x-rows xs; scalars (n, n, n) too
             errs[name] = max(rel_err(g, (p[:, xs] if p.dim() == 4 else p[xs]))
                              for g, p in zip(got, ref))
+        # the chain's force: rows r·lx - 1 .. r·lx + lx - 1, plane -1 included
+        errs["smagorinsky_force_halo_3d (rebuild, bodyforce, plane -1)"] = rel_err(
+            torch.cat([f_lo, f], dim=1), f_ref.index_select(1, rows_m1))
         got = proj["passB"](L["h"], r * ly)
         ref = cube["passB"](G["divhat"])[:, ys]
         errs["passB_sharded"] = rel_err(got, ref)
@@ -1955,9 +2128,30 @@ def halo_vs_single_device(n):
         worst = max(worst, *errs.values())
         if not all(math.isfinite(v) and v <= REL_TOL for v in errs.values()):
             fail(f"halo kernels on x-slab {r} disagree with the single-device kernels: {errs}")
-        del G, L, pairs
+        del G, L, pairs, f, f_lo, f_ref
     torch.cuda.empty_cache()
     return worst
+
+
+def halo_ms_per_step(chains, dt, theta, steps=10):
+    """ms/step of each ``{name: ((to_hat, step_hat, from_hat), state)}``
+    chain, in turns (first, second, second, first), each after two
+    warm-up steps."""
+    import torch
+
+    a, b = chains
+    times = {a: [], b: []}
+    for which in (a, b, b, a):
+        (to_h, step_h, _), st = chains[which]
+        h = step_h(step_h(to_h(st), dt, theta), dt, theta)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt, theta)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t) * 1e3 / steps)
+        del h
+    return times
 
 
 def phase_halo(n, nsteps, chunk, u0, profile=False):
@@ -2020,24 +2214,14 @@ def phase_halo(n, nsteps, chunk, u0, profile=False):
           f"{agree:.3e}")
     if not agree <= REL_TOL:
         fail(f"the halo chain and the single-device hat chain disagree by {agree:.3e}")
+    e_end = it.total_kinetic_energy(state.u, setup).item()
     del ref, state
 
-    # ms/step in turns (halo, single, single, halo), each after two warm-up steps
     s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
     halo_hat = make_halo_fast_step(setup, method, mesh).hat
     chains = {"halo": (halo_hat, s0._replace(u=shard_interior(mesh, s0.u))),
               "single": (make_fast_timestep_hat(setup, method), s0)}
-    times = {"halo": [], "single": []}
-    for which in ("halo", "single", "single", "halo"):
-        (to_h, step_h, _), st = chains[which]
-        h = step_h(step_h(to_h(st), dt), dt)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(10):
-            h = step_h(h, dt)
-        torch.cuda.synchronize()
-        times[which].append((time.perf_counter() - t) * 1e3 / 10)
-        del h
+    times = halo_ms_per_step(chains, dt, None)
     mh, ms = sum(times["halo"]) / 2, sum(times["single"]) / 2
     print(f"[halo] {n}^3 RK44 f32 on {mesh.size} rank: halo chain {mh:.3f} ms/step "
           f"({times['halo'][0]:.3f}, {times['halo'][1]:.3f}), single-device hat chain "
@@ -2049,6 +2233,165 @@ def phase_halo(n, nsteps, chunk, u0, profile=False):
         phase_profile_split("halo step", setup, method, u0, dt,
                             chain=(to_h, step_h, chains["halo"][1]))
     dist.destroy_process_group()
+    return counts, e_end
+
+
+# --------------------------------------------------------------------------
+# phase 9: the Smagorinsky LES on the x-slab halo chain
+# --------------------------------------------------------------------------
+
+
+def halo_bodyforce(dim, *xt):
+    """A steady force: (0.5 sin y, 0.25 cos x, 0)."""
+    import torch
+
+    return (dim == 0) * 0.5 * torch.sin(xt[1]) + (dim == 1) * 0.25 * torch.cos(xt[0])
+
+
+def phase_halo_les(n, nsteps, chunk, u0, e_halo, profile=False):
+    """`solve_unsteady(mesh=make_mesh(), halo=True, theta=)` of phase 5's
+    LES on a one-rank NCCL group: checks, launches, agreement with the
+    single-device LES chain, ms/step of both in turns; then 64³ halo runs
+    with a steady body force, with the LES and alone, each against its
+    single-device chain."""
+    import torch
+    import torch.distributed as dist
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_ghosts, strip_state
+    from ins_tpu_torch.parallel import make_halo_fast_step, make_mesh, shard_interior
+
+    setup = les_setup(n)
+    dt = 1e-3 * 128 / n
+    method = it.RKMethods.RK44()
+    mesh = make_mesh()
+    print(f"[halo les] mesh: {mesh.size} rank(s) along x, backend "
+          f"{dist.get_backend(mesh.group)}, device {mesh.device}")
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    state, outs = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method, mesh=mesh,
+        halo=True, theta=LES_THETA,
+        processors={"log": it.timelogger(nupdate=chunk),
+                    "spec": it.observespectrum(setup, nupdate=chunk),
+                    "energy": it.observefield(
+                        lambda s: it.total_kinetic_energy(s["u"], setup), nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[halo les] solve_unsteady(mesh=make_mesh(), halo=True, theta={LES_THETA}) {n}^3 "
+          f"RK44 f32 Re=4000: {nsteps} steps in chunks of {chunk}, {wall:.3f} s wall (first "
+          f"call included); launches { {k: v for k, v in counts.items() if v} }; plain calls "
+          f"on CUDA { {k: v for k, v in plain.items() if v} }")
+    if state.n != nsteps:
+        fail(f"the halo LES ran {state.n} steps, expected {nsteps}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail("non-finite velocity after the halo LES run")
+    nchunk = nsteps // chunk
+    expect = {"smagorinsky_force_halo_3d": 4 * nsteps,
+              "momentum_stage_divhat_halo_3d+force": nchunk,
+              "pcmsd_hat_halo_3d+force": 4 * nsteps - nchunk,
+              "passB_sharded": 4 * nsteps, "pressure_correct_qhat_halo_3d": nchunk,
+              "momentum_stage_divhat_halo_3d": 0, "pcmsd_hat_halo_3d": 0}
+    got = {k: counts[k] for k in expect}
+    if got != expect:
+        fail(f"halo LES launches {got}, expected {expect}")
+    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
+                          "pressure_correct_qhat_3d", "smagorinsky_force_3d") if counts[k]]
+    if single or any(plain.values()):
+        fail(f"the halo LES launched single-device kernels {single} or plain versions {plain}")
+    check_divergence(u, float(setup.grid.delta[0][0]), "halo les")
+    e0 = it.total_kinetic_energy(u0, setup).item()
+    e1 = it.total_kinetic_energy(state.u, setup).item()
+    hist = [float(v) for v in outs["energy"]]
+    print(f"[halo les] kinetic energy {e0:.9e} -> {e1:.9e} (at the chunk ends "
+          + ", ".join(f"{v:.9e}" for v in hist) + f"); phase 8's halo run without the "
+          f"closure {e_halo:.9e}")
+    if not (e1 <= e0 and all(b <= a for a, b in zip([e0] + hist, hist))):
+        fail("halo LES kinetic energy increased")
+    if not e1 < e_halo:
+        fail("the halo LES did not dissipate: its energy is not below phase 8's halo run")
+    spec = outs["spec"]
+    nk = len(spec["kappa"])
+    if len(spec["ehat"]) != nchunk or not all(
+            e.shape == (nk,) and np.isfinite(e).all() for e in spec["ehat"]):
+        fail(f"halo LES spectrum records {[e.shape for e in spec['ehat']]}, expected "
+             f"{nchunk} finite ({nk},) arrays")
+
+    # phase 5's single-device LES chain (kernels) from the same u0
+    ref, _ = it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt,
+                               method=method, psolver=it.psolver_spectral(setup),
+                               theta=LES_THETA)
+    agree = rel_err(u, strip_ghosts(ref.u))
+    print(f"[halo les] halo LES chain vs single-device LES chain after {nsteps} steps: max "
+          f"rel diff {agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"the halo LES and the single-device LES chains disagree by {agree:.3e}")
+    del ref, state
+
+    theta = torch.full((), LES_THETA, device=DEVICE)
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    halo_hat = make_halo_fast_step(setup, method, mesh).hat
+    chains = {"halo": (halo_hat, s0._replace(u=shard_interior(mesh, s0.u))),
+              "single": (make_fast_timestep_hat(setup, method), s0)}
+    times = halo_ms_per_step(chains, dt, theta)
+    mh, ms = sum(times["halo"]) / 2, sum(times["single"]) / 2
+    print(f"[halo les] {n}^3 RK44 f32 + Smagorinsky on {mesh.size} rank: halo chain "
+          f"{mh:.3f} ms/step ({times['halo'][0]:.3f}, {times['halo'][1]:.3f}), "
+          f"single-device LES chain {ms:.3f} ms/step ({times['single'][0]:.3f}, "
+          f"{times['single'][1]:.3f}); card {card_line()}; after the timing (SM clock, "
+          f"power draw, temperature): {card_line('clocks.sm,power.draw,temperature.gpu')}")
+    if profile:
+        to_h, step_h, _ = halo_hat
+        phase_profile_split("halo LES step", setup, method, u0, dt, theta=theta,
+                            chain=(to_h, step_h, chains["halo"][1]))
+    del chains, s0
+
+    # 64^3: a steady body force with the LES and alone (the FORCE stages
+    # without the force kernel, 2 + 1 ghosts), halo against single-device
+    m = 64
+    bdt = 1e-3 * 128 / m
+    nch = nsteps // chunk
+    for tag, bsetup, th, nforce in (
+            ("LES + steady body force", les_setup(m, bodyforce=halo_bodyforce), LES_THETA,
+             4 * nsteps),
+            ("steady body force alone", headline_setup(m, bodyforce=halo_bodyforce), None, 0)):
+        bu0 = it.random_field(bsetup, kp=4,
+                              generator=torch.Generator(device=DEVICE).manual_seed(2))
+        kw = dict(setup=bsetup, ustart=bu0, tlims=(0.0, nsteps * bdt), dt=bdt,
+                  method=method, theta=th, processors={"log": it.timelogger(nupdate=chunk)})
+        launches.reset_counts()
+        hs, _ = it.solve_unsteady(mesh=mesh, halo=True, **kw)
+        bcounts = dict(launches.LAUNCHES)
+        bplain = dict(launches.PLAIN_ON_CUDA)
+        ss, _ = it.solve_unsteady(psolver=it.psolver_spectral(bsetup), **kw)
+        bu = strip_ghosts(hs.u)
+        if not bool(torch.isfinite(bu).all()):
+            fail(f"non-finite velocity after the {m}^3 halo run, {tag}")
+        check_divergence(bu, float(bsetup.grid.delta[0][0]), f"halo {tag}")
+        bagree = rel_err(bu, strip_ghosts(ss.u))
+        print(f"[halo les] {m}^3 {tag}, {nsteps} steps: halo vs single-device chain max rel "
+              f"diff {bagree:.3e}; halo launches { {k: v for k, v in bcounts.items() if v} }")
+        bexpect = {"smagorinsky_force_halo_3d": nforce,
+                   "momentum_stage_divhat_halo_3d+force": nch,
+                   "pcmsd_hat_halo_3d+force": 4 * nsteps - nch,
+                   "momentum_stage_divhat_halo_3d": 0, "pcmsd_hat_halo_3d": 0}
+        bgot = {k: bcounts[k] for k in bexpect}
+        if bgot != bexpect or any(bplain.values()):
+            fail(f"the {m}^3 halo run ({tag}) launched {bgot}, expected {bexpect}; plain "
+                 f"versions {bplain}")
+        if not bagree <= REL_TOL:
+            fail(f"the {m}^3 halo run ({tag}) disagrees with its single-device chain by "
+                 f"{bagree:.3e}")
+        del hs, ss, bu, bu0
+    dist.destroy_process_group()
+    counts["momentum_stage_divhat_halo_3d+smag"] = counts["momentum_stage_divhat_halo_3d+force"]
+    counts["pcmsd_hat_halo_3d+smag"] = counts["pcmsd_hat_halo_3d+force"]
     return counts
 
 
@@ -2065,6 +2408,8 @@ CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
 TEMP_KERNELS = ("pcmsd_hat_3d+temp", "momentum_stage_divhat_3d+temp")
 HALO_KERNELS = ("momentum_stage_divhat_halo_3d", "pcmsd_hat_halo_3d",
                 "pressure_correct_qhat_halo_3d", "passB_sharded")
+HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+smag",
+                    "pcmsd_hat_halo_3d+smag")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -2095,6 +2440,12 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pressure_correct_qhat_halo_3d": ("ins_tpu_torch/csrc/correct.cu",
                                       "ins_tpu/ops/pallas_kernels.py:1937"),
     "passB_sharded": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:480"),
+    "smagorinsky_force_halo_3d": ("ins_tpu_torch/csrc/smag.cu",
+                                  "ins_tpu/ops/pallas_kernels.py:2243"),
+    "momentum_stage_divhat_halo_3d+smag": ("ins_tpu_torch/csrc/stage.cu",
+                                           "ins_tpu/ops/pallas_kernels.py:1759"),
+    "pcmsd_hat_halo_3d+smag": ("ins_tpu_torch/csrc/stage.cu",
+                               "ins_tpu/ops/pallas_kernels.py:3207"),
 }
 
 
@@ -2103,8 +2454,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step, of 3 channel steps, of 3 LES, "
-                         "Boussinesq, LMWray3 and halo steps, and of the halo "
-                         "kernels at the 4-shard shapes")
+                         "Boussinesq, LMWray3, halo and halo LES steps, and of the "
+                         "halo kernels at the 4-shard shapes")
     args = ap.parse_args()
 
     import torch
@@ -2182,20 +2533,24 @@ def main():
         phase_profile_split("LMWray3 step", setup, ins_tpu_torch.LMWray3(), u0_hat, dt)
     del setup
     phase_done("phase 7 (LMWray3)")
-    results.update(phase_kernels(halo_kernel_cases, (64, 256), time_all=("pcmsd_hat_halo_3d",)))
+    results.update(phase_kernels(halo_kernel_cases, (64, 256),
+                                 time_all=("pcmsd_hat_halo_3d",) + HALO_LES_KERNELS))
     if args.profile:
         profile_cases(halo_kernel_cases(256))
     for n in (64, 256):
         halo_vs_single_device(n)
-    halo_counts = phase_halo(256, 20, 10, u0_hat, profile=args.profile)
+    halo_counts, e_halo = phase_halo(256, 20, 10, u0_hat, profile=args.profile)
     phase_done("phase 8 (halo)")
+    halo_les_counts = phase_halo_les(256, 20, 10, u0_hat, e_halo, profile=args.profile)
+    phase_done("phase 9 (halo LES)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
-              **{k: halo_counts[k] for k in HALO_KERNELS}}
+              **{k: halo_counts[k] for k in HALO_KERNELS},
+              **{k: halo_les_counts[k] for k in HALO_LES_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

@@ -9,10 +9,10 @@ with a steady body force), periodic Boussinesq convection
 a-posteriori training of a CNN closure through the unrolled solver
 (`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
 periodic, stretched no-slip z walls, steady body force, FDM projection)
-— and the 3-D periodic cube on an x-slab mesh of devices
-(`parallel`: `solve_unsteady(mesh=make_mesh(), halo=True)` over
-`torch.distributed`), with the TPU kernels of those paths rewritten as
-hand-written CUDA for
+— and the 3-D periodic cube, its Smagorinsky LES and a steady body
+force on an x-slab mesh of devices (`parallel`:
+`solve_unsteady(mesh=make_mesh(), halo=True)` over `torch.distributed`),
+with the TPU kernels of those paths rewritten as hand-written CUDA for
 `sm_90a` (`csrc/`, built at first use by `_build.py`).  Every tensor of
 a run lives on `Setup(device=...)`, the card by default; with
 ``device="cpu"`` each kernel wrapper runs its plain PyTorch version.  It

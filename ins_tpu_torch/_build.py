@@ -61,7 +61,8 @@ _SIGNATURES = {
     "ins_stage_halo_f32": (
         [_c_ptr] * 8 + [ctypes.POINTER(_c_ptr)] * 2 + [ctypes.POINTER(_c_f32), _c_int,
                                                       _c_f32, _c_ptr, _c_f32, _c_int]
-        + [_c_ptr] * 5 + [_c_int] * 2 + [_c_f32] * 5 + [_c_ptr],
+        + [_c_ptr] * 5 + [_c_int] * 2 + [_c_f32] * 5 + [_c_ptr] * 2 + [_c_int] * 2
+        + [_c_ptr],
         _c_int,
     ),
     "ins_eigen_scale_f32": (
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_smag_f32": (
         [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_smag_halo_f32": (
+        [_c_ptr] * 11 + [_c_int] * 5 + [_c_f32] * 4 + [_c_ptr],
         _c_int,
     ),
     "ins_correct_f32": (

@@ -38,6 +38,24 @@
 // (simple first; staging it is later work), and every 1/dx is a multiply
 // by a reciprocal computed once (an IEEE division costs ~10 instructions,
 // and the stencil has ~75 of them per cell).
+//
+// HALO is `smagorinsky_force_halo_3d` (`_smag_force_halo_kernel`,
+// ins_tpu/ops/pallas_kernels.py:2176, wrapper :2243): the force on an
+// x-slab shard block (3, lx, ny, nz) of a 1-D mesh, whose x-neighbours
+// arrive as separate ghost arrays from the ring exchange
+// (`parallel/halo.py`): glo lower and 2 upper planes of u (ut_prev), and
+// under REBUILD glo lower and 3 upper planes of q.  `load_plane_halo`
+// reads plane x from the lower ghosts when x < 0, from the upper ones when
+// x >= lx and from the block otherwise, so nothing is concatenated in
+// device memory; y and z still wrap.  The output starts at plane x_first:
+// 0 with the JAX contract (2 + 2 ghosts -> lx planes), or -1 for the halo
+// stage kernels' force stream (3 + 2 ghosts, the JAX kernels' `smag=`
+// widths), whose backward divergence at x = 0 reads the force at plane -1;
+// that plane goes to out_lo (3, 1, ny, nz), with bf_lo the body force
+// there.  Bound at the 4-shard shape (lx = 64, n = 256) with REBUILD and
+// x_first = -1: 7 floats a cell over lx + 1 planes, 0.12 GB, 0.035 ms at
+// 3.35 TB/s.  Without HALO the kernel compiles as before (its parameters
+// are appended to the struct).
 
 #include "stencil.cuh"
 
@@ -63,16 +81,74 @@ struct SmagParams {
     float dx[3];
     float rdx[3];        // 1 / dx: the stencil multiplies, never divides
     float d2;
+    // the x-slab shard block (HALO only)
+    int lx;              // x extent of the block (nx is unused)
+    int glo;             // lower ghost planes of u and q (2 or 3)
+    int x_first;         // first output plane (0 or -1, 2 - glo at the least)
+    const float* u_lo;   // (3, glo, ny, nz): planes -glo .. -1 of u
+    const float* u_hi;   // (3, 2, ny, nz): planes lx, lx + 1
+    const float* q_lo;   // (glo, ny, nz) (REBUILD)
+    const float* q_hi;   // (3, ny, nz): planes lx .. lx + 2 (REBUILD)
+    const float* bf_lo;  // (3, 1, ny, nz): the body force at plane -1
+    float* out_lo;       // (3, 1, ny, nz): the output at plane -1
 };
 
 using URing = float[UR][3][UY][UZ];
 using VRing = float[VR][VY][VZ];
 
+// Plane x (-glo <= x <= lx + 2) of a scalar on a shard block: the lower
+// ghosts, the block or the upper ghosts (HALO).
+__device__ __forceinline__ const float* halo_plane(const SmagParams& p, const float* lo,
+                                                   const float* blk, const float* hi,
+                                                   int x) {
+    const size_t n2 = (size_t)p.ny * p.nz;
+    if (x < 0) return lo + (size_t)(x + p.glo) * n2;
+    if (x >= p.lx) return hi + (size_t)(x - p.lx) * n2;
+    return blk + (size_t)x * n2;
+}
+
+// `load_plane` on a shard block: plane xp (x_first - 2 <= xp <= lx + 1) of
+// u from the lower ghosts, the block or the upper ghosts, and q's planes
+// xp and xp + 1 likewise (REBUILD).
+template <bool REBUILD>
+__device__ __forceinline__ void load_plane_halo(const SmagParams& p, URing& s, int slot,
+                                                int xp, int y0, int z0) {
+    const int ny = p.ny, nz = p.nz;
+    const size_t n2 = (size_t)ny * nz;
+    // component 0 of plane xp; the components lie cs apart
+    const float* up = halo_plane(p, p.u_lo, p.u, p.u_hi, xp);
+    const size_t cs = (size_t)(xp < 0 ? p.glo : xp >= p.lx ? 2 : p.lx) * n2;
+    const float* qp = REBUILD ? halo_plane(p, p.q_lo, p.q, p.q_hi, xp) : nullptr;
+    const float* qn = REBUILD ? halo_plane(p, p.q_lo, p.q, p.q_hi, xp + 1) : nullptr;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y;
+    for (int e = tid; e < UY * UZ; e += nthreads) {
+        const int ly = e / UZ, lz = e - ly * UZ;
+        const int y = wrap(y0 - 2 + ly, ny), z = wrap(z0 - 2 + lz, nz);
+        const size_t i = (size_t)y * nz + z;
+        float u0 = __ldg(up + i), u1 = __ldg(up + cs + i), u2 = __ldg(up + 2 * cs + i);
+        if constexpr (REBUILD) {
+            const float qc = __ldg(qp + i);
+            const int yn = y + 1 == ny ? 0 : y + 1, zn = z + 1 == nz ? 0 : z + 1;
+            u0 -= (__ldg(qn + i) - qc) / p.dx[0];
+            u1 -= (__ldg(qp + (size_t)yn * nz + z) - qc) / p.dx[1];
+            u2 -= (__ldg(qp + (size_t)y * nz + zn) - qc) / p.dx[2];
+        }
+        s[slot][0][ly][lz] = u0;
+        s[slot][1][ly][lz] = u1;
+        s[slot][2][ly][lz] = u2;
+    }
+}
+
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
-template <bool REBUILD>
+template <bool REBUILD, bool HALO>
 __device__ __forceinline__ void load_plane(const SmagParams& p, URing& s, int slot,
                                            int xp, int y0, int z0) {
+    if constexpr (HALO) {
+        load_plane_halo<REBUILD>(p, s, slot, xp, y0, z0);
+        return;
+    }
     const int nx = p.nx, ny = p.ny, nz = p.nz;
     const size_t n3 = (size_t)nx * ny * nz;
     const int x = wrap(xp, nx);
@@ -177,16 +253,39 @@ __device__ __forceinline__ float sig_off(const UView& u, const VView& nu,
     return 0.5f * nue * soff(u, rdx, a, b, ox, oy, oz);
 }
 
-template <bool REBUILD>
+// The output of one cell (F + bf) on a shard block: planes 0 .. lx - 1,
+// and out_lo at x = -1 (HALO).
+__device__ __forceinline__ void store_halo(const SmagParams& p, int x, int y, int z,
+                                           float cx, float cy, float cz) {
+    const int ny = p.ny, nz = p.nz;
+    const bool lo = x < 0;
+    const size_t cs = (size_t)(lo ? 1 : p.lx) * ny * nz;
+    const size_t idx = ((size_t)(lo ? 0 : x) * ny + y) * nz + z;
+    const float* bf = lo ? p.bf_lo : p.bf;
+    float* out = lo ? p.out_lo : p.out;
+    if (bf) {
+        cx = cx + __ldg(bf + idx);
+        cy = cy + __ldg(bf + cs + idx);
+        cz = cz + __ldg(bf + 2 * cs + idx);
+    }
+    out[idx] = cx;
+    out[cs + idx] = cy;
+    out[2 * cs + idx] = cz;
+}
+
+template <bool REBUILD, bool HALO>
 __global__ void __launch_bounds__(TZ * TY)
 smag_kernel(const __grid_constant__ SmagParams p) {
     __shared__ URing su;
     __shared__ VRing sv;
     const int nx = p.nx, ny = p.ny, nz = p.nz;
-    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * XB;
+    // output planes x_first .. lx - 1 on a shard block (HALO), 0 .. nx - 1
+    // of the periodic box
+    const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY,
+              x0 = (HALO ? p.x_first : 0) + blockIdx.z * XB;
     const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
     const bool active = z < nz && y < ny;  // ragged tiles still load and sync
-    const int nxb = min(XB, nx - x0);
+    const int nxb = min(XB, (HALO ? p.lx : nx) - x0);
     const float th = __ldg(p.theta);
     const float cnu = th * th * p.d2;
     const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -205,14 +304,14 @@ smag_kernel(const __grid_constant__ SmagParams p) {
         }
     };
 
-    for (int k = 0; k < 4; ++k) load_plane<REBUILD>(p, su, k, x0 - 2 + k, y0, z0);
+    for (int k = 0; k < 4; ++k) load_plane<REBUILD, HALO>(p, su, k, x0 - 2 + k, y0, z0);
     __syncthreads();
     nu_plane(1);  // plane x0 - 1
     nu_plane(2);  // plane x0
     for (int i = 0; i < nxb; ++i) {
         const int x = x0 + i;
         // plane x + 2 (index i + 4) replaces x - 3, which nothing reads now
-        load_plane<REBUILD>(p, su, (i + 4) % UR, x + 2, y0, z0);
+        load_plane<REBUILD, HALO>(p, su, (i + 4) % UR, x + 2, y0, z0);
         __syncthreads();
         nu_plane(i + 3);  // plane x + 1 replaces x - 2 (read before the sync)
         __syncthreads();
@@ -234,16 +333,20 @@ smag_kernel(const __grid_constant__ SmagParams p) {
             float cz = (sxz - sig_off(u, nu, rdx, 0, 2, -1, 0, 0)) * rdx[0];
             cz += (syz - sig_off(u, nu, rdx, 1, 2, 0, -1, 0)) * rdx[1];
             cz += (sig_diag(u, nu, rdx, 2, 0, 0, 1) - sig_diag(u, nu, rdx, 2, 0, 0, 0)) * rdx[2];
-            const size_t n3 = (size_t)nx * ny * nz;
-            const size_t idx = ((size_t)x * ny + y) * nz + z;
-            if (p.bf) {
-                cx = cx + __ldg(p.bf + idx);
-                cy = cy + __ldg(p.bf + n3 + idx);
-                cz = cz + __ldg(p.bf + 2 * n3 + idx);
+            if constexpr (HALO) {
+                store_halo(p, x, y, z, cx, cy, cz);
+            } else {
+                const size_t n3 = (size_t)nx * ny * nz;
+                const size_t idx = ((size_t)x * ny + y) * nz + z;
+                if (p.bf) {
+                    cx = cx + __ldg(p.bf + idx);
+                    cy = cy + __ldg(p.bf + n3 + idx);
+                    cz = cz + __ldg(p.bf + 2 * n3 + idx);
+                }
+                p.out[idx] = cx;
+                p.out[n3 + idx] = cy;
+                p.out[2 * n3 + idx] = cz;
             }
-            p.out[idx] = cx;
-            p.out[n3 + idx] = cy;
-            p.out[2 * n3 + idx] = cz;
         }
     }
 }
@@ -270,8 +373,56 @@ extern "C" int ins_smag_f32(const float* u, const float* q, const float* bf,
     const dim3 block(TZ, TY);
     const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + XB - 1) / XB);
     if (q)
-        smag_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+        smag_kernel<true, false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
     else
-        smag_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+        smag_kernel<false, false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// The force on an x-slab shard block (HALO): u (ut_prev with q) is the
+// (3, lx, ny, nz) block, u_lo/u_hi its ring neighbours' glo lower / 2
+// upper planes, q_lo/q_hi the glo lower / 3 upper planes of q (with q),
+// bf the body force on the block and bf_lo at plane -1 (with bf when
+// x_first = -1).  Writes planes 0 .. lx - 1 to out and, when x_first =
+// -1, plane -1 to out_lo.
+extern "C" int ins_smag_halo_f32(const float* u, const float* u_lo, const float* u_hi,
+                                 const float* q, const float* q_lo, const float* q_hi,
+                                 const float* bf, const float* bf_lo, const float* theta,
+                                 float* out, float* out_lo, int lx, int ny, int nz, int glo,
+                                 int x_first, float dx0, float dx1, float dx2, float d2,
+                                 void* stream) {
+    if (lx < 1 || !u_lo || !u_hi || (glo != 2 && glo != 3)) return (int)cudaErrorInvalidValue;
+    if ((x_first != 0 && x_first != -1) || x_first - 2 < -glo) return (int)cudaErrorInvalidValue;
+    if (q && (!q_lo || !q_hi)) return (int)cudaErrorInvalidValue;
+    if (x_first < 0 && (!out_lo || (bf && !bf_lo))) return (int)cudaErrorInvalidValue;
+    SmagParams p{};
+    p.u = u;
+    p.q = q;
+    p.bf = bf;
+    p.theta = theta;
+    p.out = out;
+    p.ny = ny;
+    p.nz = nz;
+    p.dx[0] = dx0;
+    p.dx[1] = dx1;
+    p.dx[2] = dx2;
+    for (int a = 0; a < 3; ++a) p.rdx[a] = 1.0f / p.dx[a];
+    p.d2 = d2;
+    p.lx = lx;
+    p.glo = glo;
+    p.x_first = x_first;
+    p.u_lo = u_lo;
+    p.u_hi = u_hi;
+    p.q_lo = q_lo;
+    p.q_hi = q_hi;
+    p.bf_lo = bf_lo;
+    p.out_lo = out_lo;
+    const int nout = lx - x_first;
+    const dim3 block(TZ, TY);
+    const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nout + XB - 1) / XB);
+    if (q)
+        smag_kernel<true, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    else
+        smag_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }

@@ -80,11 +80,23 @@
 // x >= lx and from the block otherwise; y and z still wrap.  The TPU
 // kernels' segmented window DMAs (`_seg_window_copy` :1497) and their
 // slab-size pick have no counterpart: a block reads a ghost plane where it
-// needs it.  The shard stage has no force or temperature stream (the LES
-// and convection halo paths are ROADMAP queue 1 item 11).  Bound at the
-// 4-shard shape (lx = 64, n = 256): the same 14-17 floats a cell over 4.2M
-// cells, 0.23-0.29 GB, 0.07-0.09 ms at 3.35 TB/s; the ghost planes add
-// 3-5 %.  Without HALO the kernels compile as before.
+// needs it.  Bound at the 4-shard shape (lx = 64, n = 256): the same 14-17
+// floats a cell over 4.2M cells, 0.23-0.29 GB, 0.07-0.09 ms at 3.35 TB/s;
+// the ghost planes add 3-5 %.  Without HALO the kernels compile as before.
+//
+// HALO with FORCE is the shard stage's force stream: a steady body force
+// (`bodyforce=` of the JAX halo kernels) or, with their `smag=` option,
+// the Smagorinsky force (+ body force) that smag.cu's HALO kernel computed
+// just before on planes -1 .. lx - 1.  The force arrives as the block
+// (3, lx, n, n) and its plane -1 (3, 1, n, n), which the backward
+// divergence at x = 0 reads, like the tableau streams' lower planes.  With
+// `smag=` the JAX kernels widen the ghosts of u (ut_prev) to 3 lower and 2
+// upper planes and those of q to 3 and 3 (the force kernel reads them; the
+// stage still reads planes -2 .. lx of u and -2 .. lx + 1 of q), so the
+// FORCE variants take the lower and upper ghost counts as parameters
+// (glo, ghi); the FORCE-less ones keep (2, 1) as constants and compile as
+// before.  The shard stage has no temperature stream (the JAX halo kernels
+// have none).
 
 #include "stencil.cuh"
 
@@ -139,42 +151,48 @@ struct StageParams {
     const float* q_hi;        // (2, n, n): q planes lx, lx + 1 (REBUILD)
     const float* base_lo;     // (3, 1, n, n): plane -1 of base (with base)
     const float* k_lo[MAXK];  // (3, 1, n, n): plane -1 of each k stream
+    // the shard stage's force stream (HALO with FORCE only)
+    const float* force_lo;    // (3, 1, n, n): plane -1 of the force
+    int glo;                  // lower ghost planes of u and q: 2, or 3 (smag=)
+    int ghi;                  // upper ghost planes of u: 1, or 2 (smag=)
 };
 
 using Ring = float[RING][3][HY][HZ];
 using TRing = float[RING][TY2][TZ2];  // slot pattern of Ring; x-2 unused
 
-// Plane x (-2 <= x <= lx + 1) of q on a shard block: the lower ghosts,
-// the block or the upper ghosts (HALO).
-__device__ __forceinline__ const float* halo_qplane(const StageParams& p, int x) {
+// Plane x (-2 <= x <= lx + 1) of q on a shard block: the lower ghosts
+// (glo of them), the block or the upper ghosts (HALO).
+__device__ __forceinline__ const float* halo_qplane(const StageParams& p, int x, int glo) {
     const size_t n2 = (size_t)p.n * p.n;
-    if (x < 0) return p.q_lo + (size_t)(x + 2) * n2;
+    if (x < 0) return p.q_lo + (size_t)(x + glo) * n2;
     if (x >= p.lx) return p.q_hi + (size_t)(x - p.lx) * n2;
     return p.q + (size_t)x * n2;
 }
 
 // `load_plane` on a shard block: plane xp (-2 <= xp <= lx) comes from the
-// lower ghosts, the block or the upper ghost, and q's planes xp and xp + 1
-// likewise (lx + 1 is the second upper q ghost).
-template <bool REBUILD>
+// lower ghosts, the block or the upper ghosts, and q's planes xp and
+// xp + 1 likewise (lx + 1 is the second upper q ghost).  The ghost counts
+// are (2, 1) without FORCE and parameters with it.
+template <bool REBUILD, bool FORCE>
 __device__ __forceinline__ void load_plane_halo(const StageParams& p, Ring& s, int slot,
                                                 int xp, int y0, int z0) {
     const int n = p.n;
     const size_t n2 = (size_t)n * n;
+    const int glo = FORCE ? p.glo : 2, ghi = FORCE ? p.ghi : 1;
     const float* up;  // component 0 of plane xp; the components lie cs apart
     size_t cs;
     if (xp < 0) {
-        up = p.u_lo + (size_t)(xp + 2) * n2;
-        cs = 2 * n2;
+        up = p.u_lo + (size_t)(xp + glo) * n2;
+        cs = (size_t)glo * n2;
     } else if (xp >= p.lx) {
         up = p.u_hi + (size_t)(xp - p.lx) * n2;
-        cs = n2;
+        cs = (size_t)ghi * n2;
     } else {
         up = p.u + (size_t)xp * n2;
         cs = (size_t)p.lx * n2;
     }
-    const float* qp = REBUILD ? halo_qplane(p, xp) : nullptr;
-    const float* qn = REBUILD ? halo_qplane(p, xp + 1) : nullptr;
+    const float* qp = REBUILD ? halo_qplane(p, xp, glo) : nullptr;
+    const float* qn = REBUILD ? halo_qplane(p, xp + 1, glo) : nullptr;
     const int tid = threadIdx.y * blockDim.x + threadIdx.x;
     const int nthreads = blockDim.x * blockDim.y;
     for (int e = tid; e < HY * HZ; e += nthreads) {
@@ -197,11 +215,11 @@ __device__ __forceinline__ void load_plane_halo(const StageParams& p, Ring& s, i
 
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
-template <bool REBUILD, bool HALO>
+template <bool REBUILD, bool FORCE, bool HALO>
 __device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int slot,
                                            int xp, int y0, int z0) {
     if constexpr (HALO) {
-        load_plane_halo<REBUILD>(p, s, slot, xp, y0, z0);
+        load_plane_halo<REBUILD, FORCE>(p, s, slot, xp, y0, z0);
         return;
     }
     const int n = p.n;
@@ -285,7 +303,7 @@ __device__ __forceinline__ float tableau_lo(const StageParams& p, size_t il, flo
 template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, int A>
 __device__ __forceinline__ float component(const StageParams& p, const View& u,
                                            const TView& T, int x, int y, int z) {
-    static_assert(!(HALO && (FORCE || TEMP)), "the shard stage has no force or T stream");
+    static_assert(!(HALO && TEMP), "the shard stage has no T stream");
     const int n = p.n;
     const size_t n3 = (size_t)(HALO ? p.lx : n) * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
@@ -315,7 +333,12 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     if constexpr (TEMP) {
         if (A == p.gdir) fm = fm + p.alpha2 * (0.5f * (T(MX, MY, MZ) + T(0, 0, 0)));
     }
-    if constexpr (FORCE) fm = fm + __ldg(p.force + idxm);
+    if constexpr (FORCE) {
+        if (HALO && A == 0 && x == 0)  // plane -1: the force's lower plane
+            fm = fm + __ldg(p.force_lo + (size_t)y * n + z);
+        else
+            fm = fm + __ldg(p.force + idxm);
+    }
     if constexpr (HALO) {
         if (A == 0 && x == 0) {  // plane -1: the tableau streams' lower ghosts
             const size_t il = (size_t)y * n + z;
@@ -395,7 +418,7 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
     const bool active = z < n && y < n;  // ragged tiles still load and sync
     const int nx = min(XB, (HALO ? p.lx : n) - x0);
-    for (int r = 0; r < 3; ++r) load_plane<REBUILD, HALO>(p, s, r, x0 - 2 + r, y0, z0);
+    for (int r = 0; r < 3; ++r) load_plane<REBUILD, FORCE, HALO>(p, s, r, x0 - 2 + r, y0, z0);
     if constexpr (TEMP) {
         for (int r = 1; r < 3; ++r) load_tplane(p, *ts, r, x0 - 2 + r, y0, z0);
     }
@@ -403,7 +426,7 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const TView tv{ts, 0, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
     for (int i = 0; i < nx; ++i) {
         // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
-        load_plane<REBUILD, HALO>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
+        load_plane<REBUILD, FORCE, HALO>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
         if constexpr (TEMP) load_tplane(p, *ts, (i + 3) & 3, x0 + i + 1, y0, z0);
         __syncthreads();
         if (active) {
@@ -488,10 +511,13 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
 }
 
 // The stage on an x-slab shard block (HALO): u (ut_prev with q) is the
-// (3, lx, n, n) block, u_lo/u_hi its ring neighbours' 2 lower / 1 upper
-// planes, q_lo/q_hi the 2 lower / 2 upper planes of q, base_lo and
-// klo_ptrs each tableau stream's plane -1 (the backward divergence reads
-// its component 0 at x = -1).  The outputs have the block's extent.
+// (3, lx, n, n) block, u_lo/u_hi its ring neighbours' glo lower / ghi
+// upper planes, q_lo/q_hi the glo lower / ghi + 1 upper planes of q,
+// base_lo and klo_ptrs each tableau stream's plane -1 (the backward
+// divergence reads its component 0 at x = -1), force/force_lo the force
+// stream on the block and at plane -1 (both or neither).  (glo, ghi) is
+// (2, 1), or (3, 2) with a force (the JAX kernels' `smag=` ghosts).  The
+// outputs have the block's extent.
 extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float* u_hi,
                                   const float* q, const float* q_lo, const float* q_hi,
                                   const float* base, const float* base_lo,
@@ -500,10 +526,14 @@ extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float
                                   const float* usnew_base, float cusnew, int with_usnew,
                                   float* k_out, float* ut_out, float* usnew_out, float* u_out,
                                   float* div_out, int lx, int n, float visc, float dx0,
-                                  float dx1, float dx2, float vol, void* stream) {
+                                  float dx1, float dx2, float vol, const float* force,
+                                  const float* force_lo, int glo, int ghi, void* stream) {
     if (m < 0 || m > MAXK || lx < 1 || !u_lo || !u_hi) return (int)cudaErrorInvalidValue;
     if (q && (!q_lo || !q_hi)) return (int)cudaErrorInvalidValue;
     if (base && !base_lo) return (int)cudaErrorInvalidValue;
+    if (!force != !force_lo) return (int)cudaErrorInvalidValue;
+    const bool ghosts_ok = (glo == 2 && ghi == 1) || (force && glo == 3 && ghi == 2);
+    if (!ghosts_ok) return (int)cudaErrorInvalidValue;
     StageParams p{};
     p.u = u;
     p.q = q;
@@ -536,11 +566,17 @@ extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float
     p.q_lo = q_lo;
     p.q_hi = q_hi;
     p.base_lo = base_lo;
+    p.force = force;
+    p.force_lo = force_lo;
+    p.glo = glo;
+    p.ghi = ghi;
     const dim3 block(TZ, TY);
     const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (lx + XB - 1) / XB);
-    if (q)
-        stage_kernel<true, false, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
-    else
-        stage_kernel<false, false, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    using Kernel = void (*)(const StageParams);
+    const Kernel kernels[2][2] = {
+        {stage_kernel<false, false, false, true>, stage_kernel<false, true, false, true>},
+        {stage_kernel<true, false, false, true>, stage_kernel<true, true, false, true>},
+    };
+    kernels[q != nullptr][force != nullptr]<<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }

@@ -13,3 +13,4 @@ from .initializers import (  # noqa: F401
 )
 from .poisson_kernels import make_fused_projection  # noqa: F401
 from .pressure import default_psolver, psolver_spectral  # noqa: F401
+from .smag_kernels import smagorinsky_force_3d, smagorinsky_force_halo_3d  # noqa: F401

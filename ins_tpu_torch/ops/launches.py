@@ -32,11 +32,15 @@ KERNELS = (
     "passB",
     "passB_fold",
     "pressure_correct_qhat_3d",
-    # the x-slab halo chain (ops/stage_kernels.py, poisson_kernels.py)
+    # the x-slab halo chain (ops/stage_kernels.py, poisson_kernels.py,
+    # smag_kernels.py); "+force": the halo stage with its force stream
     "momentum_stage_divhat_halo_3d",
     "pcmsd_hat_halo_3d",
+    "momentum_stage_divhat_halo_3d+force",
+    "pcmsd_hat_halo_3d+force",
     "pressure_correct_qhat_halo_3d",
     "passB_sharded",
+    "smagorinsky_force_halo_3d",
     # the per-op chain's 3-pass Poisson solve (ops/poisson_kernels.py)
     "poisson_pallas",
     # the Smagorinsky force (ops/smag_kernels.py)

@@ -47,9 +47,13 @@ exchanged qhat ghost planes are transformed to q beside the block's (the
 JAX order; the transform is per plane, so transforming the block first
 and exchanging q planes would give the same q).  The plain versions
 concatenate the ghosts around the block and run the cube's plain stage on
-it, keeping the planes whose stencils the ghosts cover.  The body force
-and the Smagorinsky force raise NotImplementedError on a shard block
-(ROADMAP queue 1 item 11).
+it, keeping the planes whose stencils the ghosts cover.  On a shard block
+``bodyforce`` comes with its plane −1 in ``bodyforce_lo`` and rides the
+HALO stage's force stream; ``smag=(theta, d2)`` widens the ghosts as the
+JAX kernels do (3 lower and 2 upper planes of u or ut, 3 and 3 of qhat)
+and runs the halo force kernel (`smag_kernels._force_halo`, on the
+rebuilt u for `pcmsd_hat_halo_3d`) on planes −1 .. lx − 1 first, with the
+body force folded in; the stage takes its output as the force stream.
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ from .launches import (
     ptr,
 )
 from .smag_kernels import _force as smag_force
+from .smag_kernels import _force_halo as smag_force_halo
+from .smag_kernels import _force_halo_plain as smag_force_halo_plain
 from .smag_kernels import _force_plain as smag_force_plain
 from .temperature import add_buoyancy, temp_rhs_roll
 from .transforms import yz_transform, yz_transform_plain
@@ -422,30 +428,54 @@ def pressure_correct_qhat_3d(
 # ----------------------------------------------------------------------
 
 
-def _reject_halo_unported(bodyforce, smag):
-    if bodyforce is not None or smag is not None:
-        raise NotImplementedError(
-            "a body force and the Smagorinsky force on the halo path are not ported "
-            "yet (ROADMAP queue 1 item 11)"
-        )
-
-
 def _xcat(*parts):
     """Concatenate blocks along x (dim -3 of vectors and scalars)."""
     return torch.cat(parts, dim=-3)
 
 
 def _ext_stream(v, v_lo):
-    """A tableau stream on the ghost-extended x range -2 .. lx: its plane
-    −1 from ``v_lo``; planes −2 and lx, which no kept stencil reads, 0."""
+    """A stream on the ghost-extended x range -2 .. lx: its plane −1 from
+    ``v_lo``; planes −2 and lx, which no kept stencil reads, 0."""
     z = torch.zeros_like(v[:, :1])
     return _xcat(z, v_lo, v, z)
 
 
+def _halo_ghosts(name, smag, bodyforce, bodyforce_lo, u_lo, u_hi, qhat_lo=None,
+                 qhat_hi=None):
+    """(glo, ghi), the JAX kernels' ghost counts: 3 lower and 2 upper
+    planes of u (ut) with ``smag``, else 2 and 1; qhat has glo and ghi + 1.
+    Raises where the ghosts or the body force's plane −1 disagree."""
+    glo, ghi = (3, 2) if smag is not None else (2, 1)
+    for label, t, k in (("lower ghosts of u", u_lo, glo), ("upper ghosts of u", u_hi, ghi),
+                        ("qhat_lo", qhat_lo, glo), ("qhat_hi", qhat_hi, ghi + 1)):
+        if t is not None and t.shape[-3] != k:
+            raise ValueError(
+                f"{name}: {label} has {t.shape[-3]} x-planes, expected {k} "
+                f"({'with' if smag is not None else 'without'} smag=)"
+            )
+    if (bodyforce is None) != (bodyforce_lo is None):
+        raise ValueError(f"{name}: bodyforce and bodyforce_lo (its plane -1) go together")
+    return glo, ghi
+
+
+def _halo_force(u, u_lo, u_hi, dxs, bodyforce, bodyforce_lo, smag, rebuild_q=None,
+                plain=False):
+    """The shard stage's force stream (block, plane −1): the body force,
+    or the halo force kernel's output on planes −1 .. lx − 1 (on u rebuilt
+    from ``rebuild_q``) with the body force folded in; (None, None)
+    without either."""
+    if smag is None:
+        return bodyforce, bodyforce_lo
+    theta, d2 = smag
+    fn = smag_force_halo_plain if plain else smag_force_halo
+    return fn(u, u_lo, u_hi, theta, dxs, d2, bodyforce, bodyforce_lo, rebuild_q, x_first=-1)
+
+
 def _stage_halo_plain(u_ext, lx, streams, streams_lo, coeffs, visc, dxs, vinvy,
-                      vinvzT, emit_k, usnew_coeff, usnew_base, base_is_u):
+                      vinvzT, emit_k, usnew_coeff, usnew_base, base_is_u, force, force_lo):
     """The cube's plain stage on the ghost-extended block u_ext (x planes
-    −2 .. lx); returns the outputs on planes 0 .. lx − 1."""
+    −2 .. lx) with the force stream on planes −1 .. lx − 1; returns the
+    outputs on planes 0 .. lx − 1."""
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     ks_lo = streams_lo[1:]
     base_ext = u_ext if base_is_u else _ext_stream(base, streams_lo[0])
@@ -454,8 +484,9 @@ def _stage_halo_plain(u_ext, lx, streams, streams_lo, coeffs, visc, dxs, vinvy,
     if usnew_base is not None:
         z = torch.zeros_like(usnew_base[:, :1])
         ub_ext = _xcat(z, z, usnew_base, z)
+    f_ext = None if force is None else _ext_stream(force, force_lo)
     f, ut, div, usnew = _stage_plain(u_ext, base_ext, ks_ext, cks, cnew, visc, dxs,
-                                     usnew_coeff, ub_ext, None, None)
+                                     usnew_coeff, ub_ext, f_ext, None)
     keep = slice(2, 2 + lx)
     divhat = yz_transform_plain(div[keep], vinvy, vinvzT)
     usnew = None if usnew is None else usnew[:, keep]
@@ -475,15 +506,18 @@ def momentum_stage_divhat_halo_3d_plain(
     bodyforce_lo=None, usnew_base=None, smag=None,
 ):
     """Plain PyTorch version of `momentum_stage_divhat_halo_3d`."""
-    _reject_halo_unported(bodyforce, smag)
-    note_plain("momentum_stage_divhat_halo_3d", u_loc)
-    streams, streams_lo = _halo_streams("momentum_stage_divhat_halo_3d", streams, streams_lo)
+    name = "momentum_stage_divhat_halo_3d"
+    note_plain(name, u_loc)
+    streams, streams_lo = _halo_streams(name, streams, streams_lo)
+    glo, _ = _halo_ghosts(name, smag, bodyforce, bodyforce_lo, u_lo, u_hi)
     lx = u_loc.shape[1]
-    u_ext = _xcat(u_lo, u_loc, u_hi)
+    force, force_lo = _halo_force(u_loc, u_lo, u_hi, dxs, bodyforce, bodyforce_lo, smag,
+                                  plain=True)
+    u_ext = _xcat(u_lo[:, glo - 2:], u_loc, u_hi[:, :1])
     k, ut, divhat, usnew = _stage_halo_plain(
         u_ext, lx, streams, streams_lo, coeffs, visc, dxs,
         vinvy, vinvzT, emit_k, usnew_coeff, usnew_base,
-        base_is_u=len(streams) == 1 and streams[0] is u_loc,
+        len(streams) == 1 and streams[0] is u_loc, force, force_lo,
     )
     return _pack(emit_k, k, ut, divhat, usnew)
 
@@ -494,22 +528,28 @@ def pcmsd_hat_halo_3d_plain(
     bodyforce_lo=None, usnew_base=None, smag=None, emit_u=False,
 ):
     """Plain PyTorch version of `pcmsd_hat_halo_3d`."""
-    _reject_halo_unported(bodyforce, smag)
-    note_plain("pcmsd_hat_halo_3d", ut_loc)
-    streams, streams_lo = _halo_streams("pcmsd_hat_halo_3d", streams, streams_lo)
+    name = "pcmsd_hat_halo_3d"
+    note_plain(name, ut_loc)
+    streams, streams_lo = _halo_streams(name, streams, streams_lo)
     recon = streams[0] is RECON
     if recon and (len(streams) != 1 or streams_lo[0] is not RECON):
         raise ValueError("RECON base allows no k streams, and its lower plane is RECON too")
+    glo, ghi = _halo_ghosts(name, smag, bodyforce, bodyforce_lo, ut_lo, ut_hi, qhat_lo,
+                            qhat_hi)
     lx = ut_loc.shape[1]
-    # q on planes -2 .. lx + 1; u = ut - grad q on planes -2 .. lx (the
-    # x-roll's wrap at the last q plane falls on the dropped plane lx + 1)
+    # q on planes -glo .. lx + ghi; u = ut - grad q on planes -glo .. lx + ghi
+    # - 1 (the x-roll's wrap at the last q plane falls on the dropped plane)
     q_ext = yz_transform_plain(_xcat(qhat_lo, qhat_loc, qhat_hi), proj["V"], proj["VT"])
-    u_ext = _xcat(ut_lo, ut_loc, ut_hi) - _grad(q_ext, dxs)[:, : lx + 3]
+    u_full = _xcat(ut_lo, ut_loc, ut_hi) - _grad(q_ext, dxs)[:, : lx + glo + ghi]
+    q3 = (q_ext[glo:glo + lx], q_ext[:glo], q_ext[glo + lx:])
+    force, force_lo = _halo_force(ut_loc, ut_lo, ut_hi, dxs, bodyforce, bodyforce_lo, smag,
+                                  rebuild_q=q3, plain=True)
     k, ut, divhat, usnew = _stage_halo_plain(
-        u_ext, lx, streams, streams_lo, coeffs, visc, dxs,
-        proj["Vinv"], proj["VinvT"], emit_k, usnew_coeff, usnew_base, base_is_u=recon,
+        u_full[:, glo - 2: glo + lx + 1], lx, streams, streams_lo, coeffs, visc, dxs,
+        proj["Vinv"], proj["VinvT"], emit_k, usnew_coeff, usnew_base, recon, force,
+        force_lo,
     )
-    return _pack(emit_k, k, ut, divhat, usnew, u_ext[:, 2:2 + lx] if emit_u else None)
+    return _pack(emit_k, k, ut, divhat, usnew, u_full[:, glo:glo + lx] if emit_u else None)
 
 
 def pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
@@ -521,24 +561,26 @@ def pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
     return ut_loc - _grad(q_ext, dxs)[:, :lx]
 
 
-def _halo_shapes(n, lx):
-    return {"vec": (3, lx, n, n), "sca": (lx, n, n), "ulo": (3, 2, n, n),
-            "uhi": (3, 1, n, n), "slo": (3, 1, n, n), "qlo": (2, n, n), "qhi": (2, n, n),
-            "qhi1": (1, n, n), "mat": (n, n)}
+def _halo_shapes(n, lx, glo, ghi):
+    return {"vec": (3, lx, n, n), "sca": (lx, n, n), "ulo": (3, glo, n, n),
+            "uhi": (3, ghi, n, n), "slo": (3, 1, n, n), "qlo": (glo, n, n),
+            "qhi": (ghi + 1, n, n), "qhi1": (1, n, n), "mat": (n, n)}
 
 
-def _check_halo(name, n, lx, **operands):
+def _check_halo(name, n, lx, glo=2, ghi=1, **operands):
     """`check_cuda_tensors` (float32) for a shard block: each value is
     ``(tensor, kind)`` with the kinds of `_halo_shapes`."""
-    shapes = _halo_shapes(n, lx)
+    shapes = _halo_shapes(n, lx, glo, ghi)
     return check_cuda_tensors(
         name, (torch.float32,), **{k: (t, shapes[kind]) for k, (t, kind) in operands.items()}
     )
 
 
 def _launch_stage_halo(name, u, u_lo, u_hi, q, q_lo, q_hi, streams, streams_lo, coeffs,
-                       visc, dxs, *, base_is_u, emit_k, usnew_coeff, usnew_base, emit_u):
-    """One launch of the HALO stage kernel; returns (k, ut, div, usnew, u)."""
+                       visc, dxs, *, base_is_u, emit_k, usnew_coeff, usnew_base, emit_u,
+                       force, force_lo, glo, ghi):
+    """One launch of the HALO stage kernel (with its force stream where
+    ``force`` is given); returns (k, ut, div, usnew, u)."""
     _, lx, n, _ = u.shape
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     base_lo, ks_lo = streams_lo[0], streams_lo[1:]
@@ -548,11 +590,12 @@ def _launch_stage_halo(name, u, u_lo, u_hi, q, q_lo, q_hi, streams, streams_lo, 
         raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
     operands = dict(u=(u, "vec"), u_lo=(u_lo, "ulo"), u_hi=(u_hi, "uhi"), q=(q, "sca"),
                     q_lo=(q_lo, "qlo"), q_hi=(q_hi, "qhi"), base=(base, "vec"),
-                    base_lo=(base_lo, "slo"), usnew_base=(usnew_base, "vec"))
+                    base_lo=(base_lo, "slo"), usnew_base=(usnew_base, "vec"),
+                    force=(force, "vec"), force_lo=(force_lo, "slo"))
     for j, (k, k_lo) in enumerate(zip(ks, ks_lo)):
         operands[f"k{j + 1}"] = (k, "vec")
         operands[f"k{j + 1}_lo"] = (k_lo, "slo")
-    device = _check_halo(name, n, lx, **operands)
+    device = _check_halo(name, n, lx, glo, ghi, **operands)
     with torch.cuda.device(device):
         ut = torch.empty_like(u)
         div = torch.empty((lx, n, n), dtype=u.dtype, device=device)
@@ -568,10 +611,10 @@ def _launch_stage_halo(name, u, u_lo, u_hi, q, q_lo, q_hi, streams, streams_lo, 
             0.0 if usnew_coeff is None else float(usnew_coeff), int(usnew_coeff is not None),
             ptr(k_out), ut.data_ptr(), ptr(usnew), ptr(u_out), div.data_ptr(), lx, n,
             float(visc), float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
-            current_stream(device),
+            ptr(force), ptr(force_lo), glo, ghi, current_stream(device),
         )
         _build.check(err, name)
-        LAUNCHES[name] += 1
+        LAUNCHES[name if force is None else name + "+force"] += 1
     return k_out, ut, div, usnew, u_out
 
 
@@ -582,10 +625,12 @@ def momentum_stage_divhat_halo_3d(
 ):
     """`momentum_stage_divhat_3d` on an x-slab shard block: ``u_loc``
     (3, lx, n, n), ``u_lo`` (3, 2, n, n) and ``u_hi`` (3, 1, n, n) the ring
-    neighbours' boundary planes, each stream (3, lx, n, n) with its plane
-    −1 (3, 1, n, n) in ``streams_lo``.  A stream base that is ``u_loc``
-    itself (and no k streams) is read from the stage's own velocity.
-    Outputs have the block's extent; ``divhat`` is (lx, n, n)."""
+    neighbours' boundary planes ((3, 3, n, n) and (3, 2, n, n) with
+    ``smag``), each stream (3, lx, n, n) with its plane −1 (3, 1, n, n) in
+    ``streams_lo``, ``bodyforce`` likewise with ``bodyforce_lo``.  A
+    stream base that is ``u_loc`` itself (and no k streams) is read from
+    the stage's own velocity.  Outputs have the block's extent;
+    ``divhat`` is (lx, n, n)."""
     if u_loc.device.type == "cpu":
         return momentum_stage_divhat_halo_3d_plain(
             u_loc, u_lo, u_hi, streams, streams_lo, coeffs, visc, dxs, vinvy, vinvzT,
@@ -593,15 +638,17 @@ def momentum_stage_divhat_halo_3d(
             bodyforce=bodyforce, bodyforce_lo=bodyforce_lo, usnew_base=usnew_base,
             smag=smag,
         )
-    _reject_halo_unported(bodyforce, smag)
     name = "momentum_stage_divhat_halo_3d"
     streams, streams_lo = _halo_streams(name, streams, streams_lo)
+    glo, ghi = _halo_ghosts(name, smag, bodyforce, bodyforce_lo, u_lo, u_hi)
     _, lx, n, _ = u_loc.shape
     _check_halo(name, n, lx, vinvy=(vinvy, "mat"), vinvzT=(vinvzT, "mat"))
+    force, force_lo = _halo_force(u_loc, u_lo, u_hi, dxs, bodyforce, bodyforce_lo, smag)
     k, ut, div, usnew, _ = _launch_stage_halo(
         name, u_loc, u_lo, u_hi, None, None, None, streams, streams_lo, coeffs, visc, dxs,
         base_is_u=len(streams) == 1 and streams[0] is u_loc, emit_k=emit_k,
-        usnew_coeff=usnew_coeff, usnew_base=usnew_base, emit_u=False,
+        usnew_coeff=usnew_coeff, usnew_base=usnew_base, emit_u=False, force=force,
+        force_lo=force_lo, glo=glo, ghi=ghi,
     )
     return _pack(emit_k, k, ut, yz_transform(div, vinvy, vinvzT), usnew)
 
@@ -615,8 +662,9 @@ def pcmsd_hat_halo_3d(
     and ``qhat_loc`` (lx, n, n), ``ut_lo``/``ut_hi`` the ring neighbours'
     2 lower / 1 upper planes of ut, ``qhat_lo``/``qhat_hi`` their 2 / 2
     planes of qhat (the rebuild's x-gradient reads one q plane above the
-    velocity's).  ``streams[0] is RECON`` (with ``streams_lo[0]`` RECON
-    too) makes the rebuilt u the tableau base; ``emit_u`` appends it."""
+    velocity's); with ``smag`` 3 / 2 and 3 / 3.  ``streams[0] is RECON``
+    (with ``streams_lo[0]`` RECON too) makes the rebuilt u the tableau
+    base; ``emit_u`` appends it."""
     if ut_loc.device.type == "cpu":
         return pcmsd_hat_halo_3d_plain(
             ut_loc, ut_lo, ut_hi, qhat_loc, qhat_lo, qhat_hi, streams, streams_lo, coeffs,
@@ -624,22 +672,27 @@ def pcmsd_hat_halo_3d(
             bodyforce=bodyforce, bodyforce_lo=bodyforce_lo, usnew_base=usnew_base,
             smag=smag, emit_u=emit_u,
         )
-    _reject_halo_unported(bodyforce, smag)
     name = "pcmsd_hat_halo_3d"
     streams, streams_lo = _halo_streams(name, streams, streams_lo)
     recon = streams[0] is RECON
     if recon and (len(streams) != 1 or streams_lo[0] is not RECON):
         raise ValueError("RECON base allows no k streams, and its lower plane is RECON too")
+    glo, ghi = _halo_ghosts(name, smag, bodyforce, bodyforce_lo, ut_lo, ut_hi, qhat_lo,
+                            qhat_hi)
     _, lx, n, _ = ut_loc.shape
-    _check_halo(name, n, lx, qhat=(qhat_loc, "sca"), qhat_lo=(qhat_lo, "qlo"),
+    _check_halo(name, n, lx, glo, ghi, qhat=(qhat_loc, "sca"), qhat_lo=(qhat_lo, "qlo"),
                 qhat_hi=(qhat_hi, "qhi"))
-    # q of the block and of its four exchanged ghost planes (one transform)
+    # q of the block and of its exchanged ghost planes (one transform)
     q = yz_transform(qhat_loc, proj["V"], proj["VT"])
     q_g = yz_transform(torch.cat([qhat_lo, qhat_hi]), proj["V"], proj["VT"])
+    q_lo, q_hi = q_g[:glo], q_g[glo:]
+    force, force_lo = _halo_force(ut_loc, ut_lo, ut_hi, dxs, bodyforce, bodyforce_lo, smag,
+                                  rebuild_q=(q, q_lo, q_hi))
     k, ut, div, usnew, u = _launch_stage_halo(
-        name, ut_loc, ut_lo, ut_hi, q, q_g[:2], q_g[2:], streams, streams_lo, coeffs, visc,
+        name, ut_loc, ut_lo, ut_hi, q, q_lo, q_hi, streams, streams_lo, coeffs, visc,
         dxs, base_is_u=recon, emit_k=emit_k, usnew_coeff=usnew_coeff,
-        usnew_base=usnew_base, emit_u=emit_u,
+        usnew_base=usnew_base, emit_u=emit_u, force=force, force_lo=force_lo, glo=glo,
+        ghi=ghi,
     )
     divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
     return _pack(emit_k, k, ut, divhat, usnew, u)

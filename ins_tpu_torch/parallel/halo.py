@@ -29,9 +29,20 @@ hat carry (`step.hat`: the correction deferred to the next step's stage
 hat chain, `to_hat` marks u as corrected (``qhat=None``) and a chunk's
 first stage runs the stage kernel on u, where the JAX package starts from
 ``qhat = 0``: the same numbers.  The classic-row RK tableaus (RK44) and
-LMWray3 run here; 2-D pencil meshes, the CG and pencil-FFT solvers, the
-modular (non-fused) kernels, other tableaus, temperature, body forces
-and closures raise NotImplementedError (ROADMAP queue 1 item 11).
+LMWray3 run here.
+
+The natural-form Smagorinsky LES (`smagorinsky_closure_natural`, θ
+through ``step(state, dt, theta)``, 0.17 where None) and a steady body
+force ride the stage kernels' force stream, as in the JAX package's fused
+chain (:751-789): with the closure the ghost exchanges widen to 3 lower
+and 2 upper planes of u/ut and 3 and 3 of qhat, and each stage runs the
+halo force kernel on planes −1 .. lx − 1 before the stage kernel (so the
+closure needs x-slabs of at least 3 planes).  The body force is sharded
+once and its plane −1 exchanged once, when the step is built: it is
+steady.  An unsteady callable force raises ValueError, as in the JAX
+package; 2-D pencil meshes, the CG and pencil-FFT solvers, the modular
+(non-fused) kernels, the unmerged chain, other tableaus and temperature
+raise NotImplementedError (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import stage_kernels as sk
-from ..ops.fastpath import HatState, _classic_lowstorage_rows
+from ..ops.eddyviscosity import theta_tensor
+from ..ops.fastpath import HatState, _classic_lowstorage_rows, _is_smag, strip_ghosts
 from ..ops.poisson_kernels import make_passB_sharded
 from ..ops.pressure import uniform_dxs
 from ..time_steppers.methods import ExplicitRungeKuttaMethod, LMWray3
@@ -137,13 +149,12 @@ def _check(setup, method, mesh, psolver, merge, fused):
         )
     if setup.temperature is not None:
         raise NotImplementedError(f"temperature on the halo path is not ported yet ({_ITEM})")
-    if setup.bodyforce_field is not None:
-        raise NotImplementedError(f"a body force on the halo path is not ported yet ({_ITEM})")
-    if getattr(setup.closure_model, "kind", None) == "smagorinsky_natural":
-        raise NotImplementedError(
-            f"the Smagorinsky closure on the halo path is not ported yet ({_ITEM})"
+    if setup.bodyforce_field is not None and not torch.is_tensor(setup.bodyforce_field):
+        raise ValueError(
+            "halo fast path: unsteady callable body forces are not supported; "
+            "precompute a steady field (issteadybodyforce)"
         )
-    if setup.closure_model is not None:
+    if setup.closure_model is not None and not _is_smag(setup):
         raise ValueError(
             "halo fast path: only the tagged natural-form Smagorinsky closure is "
             "supported (smagorinsky_closure_natural)"
@@ -154,9 +165,13 @@ def _check(setup, method, mesh, psolver, merge, fused):
             f"the halo path's pencil FFT (non-cube grids, here {tuple(g.Np)}) is not "
             f"ported yet ({_ITEM})"
         )
-    if n % mesh.size or n // mesh.size < 2:
+    # the Smagorinsky force's lower ghosts are the left neighbour's last 3
+    # planes
+    least = 3 if _is_smag(setup) else 2
+    if n % mesh.size or n // mesh.size < least:
         raise ValueError(
-            f"n = {n} must split into {mesh.size} x-slabs of at least 2 planes"
+            f"n = {n} must split into {mesh.size} x-slabs of at least {least} planes"
+            + (" (the Smagorinsky closure's ghosts)" if least == 3 else "")
         )
 
 
@@ -169,7 +184,8 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
     `HatState` of this rank's slab; ``qhat=None``: ``ut`` is corrected);
     ``step.fused`` and ``step.merged`` are True (the only chain ported).
     ``merge="auto"`` takes the merged chain (the JAX package's VMEM gate
-    `pcmsd_halo_profitable` has no counterpart here)."""
+    `pcmsd_halo_profitable` has no counterpart here).  ``theta`` is the
+    Smagorinsky constant where the setup has that closure."""
     _check(setup, method, mesh, psolver, merge, fused)
     n = setup.grid.Np[0]
     P = mesh.size
@@ -179,12 +195,28 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
     prec = projection_precision
     proj = make_passB_sharded(setup.grid.Np, dxs, setup.dtype, ly, precision=prec,
                               device=mesh.device)
+    smag_on = _is_smag(setup)
+    d2 = float(sum(d * d for d in dxs))
+    # the ghost planes of u/ut (lower, upper); qhat takes one more above
+    glo, ghi = (3, 2) if smag_on else (2, 1)
 
     def x_lo(v, k):
         return _x_lo(mesh, v, k)
 
     def x_hi(v, k):
         return _x_hi(mesh, v, k)
+
+    # the steady body force: this rank's slab and its plane -1, once
+    bf = bf_lo = None
+    if setup.bodyforce_field is not None:
+        bf = shard_interior(mesh, strip_ghosts(setup.bodyforce_field))
+        bf_lo = x_lo(bf, 1)
+
+    def smag_arg(theta):
+        # a tensor once per step, not once per launch
+        if not smag_on:
+            return None
+        return (theta_tensor(0.17 if theta is None else theta, setup.dtype, mesh.device), d2)
 
     def passB_dist(divhat):
         """(lx, n, n) divhat -> (lx, n, n) qhat: y chunked into P pieces,
@@ -200,22 +232,24 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
         dist.all_to_all_single(back, qh, group=mesh.group)
         return back.view(P, lx, ly, n).permute(1, 0, 2, 3).reshape(lx, n, n).contiguous()
 
-    def stage_u(u, u_lo, u_lo1, coeff, unc):
+    def stage_u(u, u_lo, u_lo1, coeff, unc, smag):
         """Stage 0 on a corrected u (its own tableau base; ``u_lo1`` is
         its plane −1)."""
         ut, divhat, *rest = sk.momentum_stage_divhat_halo_3d(
-            u, u_lo, x_hi(u, 1), (u,), (u_lo1,), (coeff,), visc, dxs, proj["Vinv"],
-            proj["VinvT"], precision=prec, emit_k=False, usnew_coeff=unc,
+            u, u_lo, x_hi(u, ghi), (u,), (u_lo1,), (coeff,), visc, dxs, proj["Vinv"],
+            proj["VinvT"], precision=prec, emit_k=False, usnew_coeff=unc, bodyforce=bf,
+            bodyforce_lo=bf_lo, smag=smag,
         )
         return ut, passB_dist(divhat), rest[0] if rest else None
 
-    def merged(ut, qhat, base, base_lo, coeff, unc, ub=None, emit_u=False):
+    def merged(ut, qhat, base, base_lo, coeff, unc, smag, ub=None, emit_u=False):
         """The merged stage on the previous stage's (ut, qhat); returns
         (ut, qhat, usnew or None, u or None)."""
         res = list(sk.pcmsd_hat_halo_3d(
-            ut, x_lo(ut, 2), x_hi(ut, 1), qhat, x_lo(qhat, 2), x_hi(qhat, 2), (base,),
-            (base_lo,), (coeff,), visc, dxs, proj, precision=prec, emit_k=False,
-            usnew_coeff=unc, usnew_base=ub, emit_u=emit_u,
+            ut, x_lo(ut, glo), x_hi(ut, ghi), qhat, x_lo(qhat, glo), x_hi(qhat, ghi + 1),
+            (base,), (base_lo,), (coeff,), visc, dxs, proj, precision=prec, emit_k=False,
+            usnew_coeff=unc, bodyforce=bf, bodyforce_lo=bf_lo, usnew_base=ub, smag=smag,
+            emit_u=emit_u,
         ))
         ut, divhat = res.pop(0), res.pop(0)
         usnew = res.pop(0) if unc is not None else None
@@ -226,16 +260,16 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
         return sk.pressure_correct_qhat_halo_3d(ut, qhat, x_hi(qhat, 1), dxs, proj["V"],
                                                 proj["VT"], precision=prec)
 
-    def first_stage(ut, qhat, coeff, unc, emit_u):
+    def first_stage(ut, qhat, coeff, unc, smag, emit_u):
         """Stage 0 of a step: on the corrected u (``qhat is None``) or on
         the carry, rebuilt with a RECON base.  Returns (ut, qhat, usnew,
         u, u's plane −1), u and its plane only where ``emit_u``."""
         if qhat is None:
-            u_lo = x_lo(ut, 2)
-            u_lo1 = u_lo[:, 1:].contiguous()  # plane -1 rides the 2-plane exchange
-            nut, nqhat, usnew = stage_u(ut, u_lo, u_lo1, coeff, unc)
+            u_lo = x_lo(ut, glo)
+            u_lo1 = u_lo[:, -1:].contiguous()  # plane -1 rides the ghost exchange
+            nut, nqhat, usnew = stage_u(ut, u_lo, u_lo1, coeff, unc, smag)
             return nut, nqhat, usnew, ut, u_lo1
-        nut, nqhat, usnew, u = merged(ut, qhat, sk.RECON, sk.RECON, coeff, unc,
+        nut, nqhat, usnew, u = merged(ut, qhat, sk.RECON, sk.RECON, coeff, unc, smag,
                                       emit_u=emit_u)
         return nut, nqhat, usnew, u, x_lo(u, 1) if emit_u else None
 
@@ -246,6 +280,7 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
             """One RK step (the JAX `step_hat_local`): the b-row
             accumulator rides usnew, the last stage takes it as its base;
             the final correction is left to the next step or `from_hat`."""
+            smag = smag_arg(theta)
             ut, qhat = h.ut, h.qhat
             for i in range(ns):
                 last = i == ns - 1
@@ -253,14 +288,14 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
                 unc = dt * bcoef if (bcoef != 0.0 and not last) else None
                 if i == 0:
                     ut, qhat, usnew, ustart, ustart_lo = first_stage(
-                        ut, qhat, dt * A[0][0], unc, emit_u=ns > 1
+                        ut, qhat, dt * A[0][0], unc, smag, emit_u=ns > 1
                     )
                     acc = usnew if unc is not None else ustart
                 else:
                     ub = None if (unc is None or acc is ustart) else acc
                     base, base_lo = (acc, x_lo(acc, 1)) if last else (ustart, ustart_lo)
                     ut, qhat, usnew, _ = merged(ut, qhat, base, base_lo, dt * A[i][i], unc,
-                                                ub)
+                                                smag, ub)
                     if unc is not None:
                         acc = usnew
             return HatState(ut=ut, qhat=qhat, temp=None, t=h.t + dt, n=h.n + 1)
@@ -273,6 +308,7 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
             """One LMWray3 step (the JAX `step_hat_local`): stage 0 writes
             only the accumulator ``u + dt·b_0·f``, stage i takes it as its
             base; a b_i of 0 leaves it as it is (no copy written)."""
+            smag = smag_arg(theta)
             ut, qhat = h.ut, h.qhat
             ustart = None
             for i in range(ns):
@@ -280,10 +316,11 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
                 if i < ns - 1 and (i == 0 or b[i] != 0.0):
                     unc = dt * b[i]
                 if i == 0:
-                    ut, qhat, usnew, *_ = first_stage(ut, qhat, dt * a[0], unc, emit_u=False)
+                    ut, qhat, usnew, *_ = first_stage(ut, qhat, dt * a[0], unc, smag,
+                                                      emit_u=False)
                 else:
                     ut, qhat, usnew, _ = merged(ut, qhat, ustart, x_lo(ustart, 1), dt * a[i],
-                                                unc)
+                                                unc, smag)
                 if unc is not None:
                     ustart = usnew
             return HatState(ut=ut, qhat=qhat, temp=None, t=h.t + dt, n=h.n + 1)

@@ -23,11 +23,13 @@ and the processors.
 With ``mesh=make_mesh()`` and ``halo=True`` every rank of the mesh's
 process group calls `solve_unsteady` with the same global ghosted
 ``ustart``; each steps its x-slab through the halo chain's hat carry
-(`parallel/halo.py`), and at chunk ends the NaN guard and the processors
-see the global field (`all_gather`), which is also what every rank
-returns.  Adaptive (CFL) stepping, the ghosted general path, the GSPMD
-mesh path (``mesh`` without ``halo``) and the halo path's other options
-wait for ROADMAP queue 1 items 6, 7 and 11.
+(`parallel/halo.py`; the natural-form Smagorinsky closure, ``theta``
+its constant, and a steady body force ride its stage kernels' force
+stream), and at chunk ends the NaN guard and the processors see the
+global field (`all_gather`), which is also what every rank returns.
+Adaptive (CFL) stepping, the ghosted general path, the GSPMD mesh path
+(``mesh`` without ``halo``) and the halo path's other options wait for
+ROADMAP queue 1 items 6, 7 and 11.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def solve_unsteady(
         )
     if halo:
         return _solve_halo(setup, ustart, tlims, method, mesh, dt, processors, max_chunk,
-                           nan_guard, projection_precision or "manualhigh", halo_psolver)
+                           nan_guard, projection_precision or "manualhigh", halo_psolver, theta)
     if psolver is None:
         psolver = default_psolver(setup)
     use_fast = fastpath_applicable(setup, method, psolver)
@@ -245,8 +247,9 @@ def _drive(state, run_chunk, reghost_s, tlims, dt, processors, max_chunk, nan_gu
 
 
 def _solve_halo(setup, ustart, tlims, method, mesh, dt, processors, max_chunk, nan_guard,
-                precision, halo_psolver):
-    """`solve_unsteady` on the x-slab halo chain (every rank calls it)."""
+                precision, halo_psolver, theta):
+    """`solve_unsteady` on the x-slab halo chain (every rank calls it);
+    ``theta`` reaches the Smagorinsky force (0.17 where None)."""
     from .parallel.halo import gather_interior, make_halo_fast_step, shard_interior
 
     step = make_halo_fast_step(setup, method, mesh, psolver=halo_psolver,
@@ -256,7 +259,7 @@ def _solve_halo(setup, ustart, tlims, method, mesh, dt, processors, max_chunk, n
     def run_chunk(s, nsteps, dt):
         h = to_hat(s)
         for _ in range(nsteps):
-            h = step_hat(h, dt)
+            h = step_hat(h, dt, theta)
         return from_hat(h)
 
     ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=mesh.device)

@@ -18,7 +18,8 @@
 - `solve_unsteady(halo=True)` on a one-rank group in this process
   against the port's single-device `solve_unsteady`: the same plain
   arithmetic, 1e-12.
-- The options the port does not run raise NotImplementedError.
+- The options the port does not run raise NotImplementedError (the LES
+  and the body force on this chain: `tests/test_torch_halo_les.py`).
 """
 
 import functools
@@ -28,7 +29,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import ins_tpu as ins
@@ -40,11 +40,13 @@ from ins_tpu.ops.poisson_pallas import make_passB_sharded as jax_make_passB_shar
 from ins_tpu.time_steppers.step import StepperState as JaxStepperState
 
 import ins_tpu_torch as it
+import torch_halo_helpers as hp
 import torch_halo_worker as worker
 from ins_tpu_torch.ops import launches
 from ins_tpu_torch.ops import stage_kernels as sk
 from ins_tpu_torch.ops.poisson_kernels import make_passB_sharded
 from ins_tpu_torch.parallel import make_halo_fast_step, make_mesh
+from torch_halo_helpers import one_rank  # noqa: F401  (a fixture)
 
 TOL_KERNEL = 1e-10
 TOL_CHAIN = 1e-9
@@ -52,31 +54,11 @@ TOL_SAME = 1e-12
 N, LX, X0 = 16, 8, 8  # the second of two x-slabs
 DXS = (2 * np.pi / N,) * 3
 VISC = 1e-3
-
-
-def _rel(a, b):
-    a, b = np.asarray(a), np.asarray(b)
-    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
-
-
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _j(a):
-    return jnp.asarray(a, jnp.float64)
-
-
-def _blk(a, x0=X0, lx=LX):
-    return np.take(a, range(x0, x0 + lx), axis=-3)
-
-
-def _lo(a, k, x0=X0):
-    return np.take(a, range(x0 - k, x0), axis=-3, mode="wrap")
-
-
-def _hi(a, k, x0=X0, lx=LX):
-    return np.take(a, range(x0 + lx, x0 + lx + k), axis=-3, mode="wrap")
+U0_KEY = 3
+_rel, _t, _j = hp.rel, hp.t, hp.j
+_blk = functools.partial(hp.blk, x0=X0, lx=LX)
+_lo = functools.partial(hp.lo, x0=X0)
+_hi = functools.partial(hp.hi, x0=X0, lx=LX)
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,19 +186,11 @@ def test_halo_wrappers_run_plain_on_cpu():
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _u0():
-    x = (np.linspace(0, 2 * np.pi, worker.N + 1),) * 3
-    jset = ins.Setup(x=x, Re=1e3, dtype=jnp.float64)
-    return np.array(jax.jit(lambda k: ins.random_field(jset, kp=4, rng=k))(
-        jax.random.PRNGKey(3)))
-
-
 def _jax_steps(method, nsteps):
     x = (np.linspace(0, 2 * np.pi, worker.N + 1),) * 3
     jset = ins.Setup(x=x, Re=1e3, dtype=jnp.float64)
     step = jax.jit(jax_make_fast_timestep(jset, method))
-    s = JaxStepperState(u=jax_strip_ghosts(jnp.asarray(_u0())), temp=None,
+    s = JaxStepperState(u=jax_strip_ghosts(jnp.asarray(hp.u0(U0_KEY))), temp=None,
                         t=jnp.asarray(0.0), n=jnp.asarray(0))
     for _ in range(nsteps):
         s = step(s, jnp.asarray(worker.DT), None)
@@ -225,15 +199,15 @@ def _jax_steps(method, nsteps):
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
 def ranks(request, tmp_path_factory):
-    """Run `torch_halo_worker.run` on 2 (and 4) spawned gloo ranks; the
-    world size and the directory of their results.  With 2 ranks the left
-    and right ring neighbours are one rank, so only 4 tell the ring's two
-    directions apart."""
+    """Run `torch_halo_worker.run` (the "dns" setup) on 2 (and 4) spawned
+    gloo ranks; the world size and the directory of their results.  With
+    2 ranks the left and right ring neighbours are one rank, so only 4
+    tell the ring's two directions apart."""
     world = request.param
     data = tmp_path_factory.mktemp(f"halo{world}")
-    np.save(data / "u0.npy", _u0())
-    mp.spawn(worker.run, args=(world, str(data / "store"), str(data)), nprocs=world,
-             join=True)
+    np.save(data / "u0.npy", hp.u0(U0_KEY))
+    mp.spawn(worker.run, args=(world, str(data / "store"), str(data), ("dns",), "dns"),
+             nprocs=world, join=True)
     return world, data
 
 
@@ -246,7 +220,7 @@ def test_halo_chain_on_gloo_ranks_matches_jax_fast_path(ranks, method, form):
     m = ins.RKMethods.RK44() if method == "rk44" else ins.LMWray3()
     ref = _jax_steps(m, worker.NSTEPS)
     for rank in range(world):
-        got = np.load(data / f"{method}_{form}_r{rank}.npy")
+        got = np.load(data / f"dns_{method}_{form}_r{rank}.npy")
         assert got.shape == ref.shape
         assert _rel(got, ref) < TOL_CHAIN
 
@@ -254,7 +228,7 @@ def test_halo_chain_on_gloo_ranks_matches_jax_fast_path(ranks, method, form):
 def _single_device_solve(nsteps, chunk):
     setup = worker.setup_f64()
     return it.solve_unsteady(
-        setup=setup, ustart=_t(_u0()), tlims=(0.0, nsteps * worker.DT), dt=worker.DT,
+        setup=setup, ustart=_t(hp.u0(U0_KEY)), tlims=(0.0, nsteps * worker.DT), dt=worker.DT,
         processors={"e": it.observefield(
             lambda st: it.total_kinetic_energy(st["u"], setup), nupdate=chunk)},
     )
@@ -277,24 +251,12 @@ def test_solve_unsteady_on_gloo_ranks_matches_single_device(ranks):
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture
-def one_rank():
-    """A one-rank gloo mesh that `make_mesh` makes itself (in-memory
-    store), torn down afterwards."""
-    assert not dist.is_initialized()
-    mesh = make_mesh(device="cpu")
-    try:
-        yield mesh
-    finally:
-        dist.destroy_process_group()
-
-
 def test_one_rank_solve_unsteady_halo_matches_single_device(one_rank):
     assert (one_rank.rank, one_rank.size) == (0, 1)
     setup = worker.setup_f64()
     ref, outs = _single_device_solve(4, 2)
     state, got = it.solve_unsteady(
-        setup=setup, ustart=_t(_u0()), tlims=(0.0, 4 * worker.DT), dt=worker.DT,
+        setup=setup, ustart=_t(hp.u0(U0_KEY)), tlims=(0.0, 4 * worker.DT), dt=worker.DT,
         mesh=one_rank, halo=True,
         processors={"e": it.observefield(
             lambda st: it.total_kinetic_energy(st["u"], setup), nupdate=2)},
@@ -314,9 +276,6 @@ UNPORTED = {
     "modular": (dict(fused=False), {}, NotImplementedError, "modular"),
     "unmerged": (dict(merge=False), {}, NotImplementedError, "unmerged"),
     "wray3": (dict(method="wray3"), {}, NotImplementedError, "classic-row"),
-    "bodyforce": ({}, dict(bodyforce=lambda d, x, y, z, t: 0 * x, issteadybodyforce=True),
-                  NotImplementedError, "body force"),
-    "smagorinsky": ({}, dict(closure="smag"), NotImplementedError, "Smagorinsky"),
     "temperature": ({}, dict(temperature=True), NotImplementedError, "temperature"),
     "non_cube": ({}, dict(x=(np.linspace(0, 1, 17), np.linspace(0, 1, 9),
                              np.linspace(0, 1, 9))), NotImplementedError, "pencil FFT"),
@@ -328,8 +287,6 @@ def test_unported_halo_options_raise(one_rank, case):
     kw, setup_kw, err, match = UNPORTED[case]
     kw = dict(kw)
     method = it.RKMethods.Wray3() if kw.pop("method", None) else it.RKMethods.RK44()
-    if setup_kw.get("closure") == "smag":
-        setup_kw = dict(closure_model=it.smagorinsky_closure_natural(_cube()))
     if setup_kw.get("temperature"):
         bc = ((it.PeriodicBC(), it.PeriodicBC()),) * 3
         setup_kw = dict(temperature=it.temperature_equation(
@@ -351,9 +308,3 @@ def test_unported_meshes_and_solver_options_raise(one_rank):
         it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, 0.1), dt=0.1, mesh=one_rank)
     with pytest.raises(ValueError, match="requires a mesh"):
         it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, 0.1), dt=0.1, halo=True)
-    u, q, *_ = _fields()
-    _, tp = _projs()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sk.pcmsd_hat_halo_3d(_t(_blk(u)), _t(_lo(u, 2)), _t(_hi(u, 1)), _t(_blk(q)),
-                             _t(_lo(q, 2)), _t(_hi(q, 2)), (sk.RECON,), (sk.RECON,), (0.3,),
-                             VISC, DXS, tp, smag=(0.17, 1.0))
