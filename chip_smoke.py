@@ -148,7 +148,33 @@ Phases, each raising on failure (exit code != 0, no result line):
    LES step's device-time split).  Then 64³ halo runs with a steady body
    force, with the LES and alone (no force kernel), each against its
    single-device chain (<= 1e-4) with its launches counted.
-10. Print the kernel table (JSON: per kernel its launches on the main
+10. The fused unmerged chain and bf16 stream storage.  The stage and
+   correction kernels with bf16 storage (`momentum_stage_divhat_3d+bf16`:
+   k streams with emit_k, stage 0 with usnew, a stream base with
+   usnew_base and a body force, two k streams; `pcmsd_hat_3d+bf16`: a
+   stream base with usnew_base, RECON with emit_u and usnew, and with a
+   body force; `pressure_correct_qhat_3d+bf16`: bf16 -> bf16 and bf16 ->
+   float32) and the stage with more than four k streams
+   (`momentum_stage_divhat_3d+streams`: 9 and 5 k streams, with usnew and
+   a body force, and 9 in bf16) against their plain versions at 64³ and
+   256³ (float32 outputs within 1e-4 relative, bf16 ones within one bf16
+   ulp elementwise, |Δ| <= 2^-7·|ref| + 1e-6·max|ref|), each timed at
+   256³ beside its bound.  Then, at phase 2's setup and u0 through
+   `solve_unsteady`: (A) SSP33 on the fused unmerged chain, 20 steps in
+   chunks of 10 (finite, divergence as in phase 2, energy not
+   increasing, 3 stage, pass B and correction launches a step, <= 1e-4 of
+   the plain chain; ms/step beside the roll twin's); (B)
+   ``stream_dtype=torch.bfloat16`` on RK44 (the hat chain) and on SSP33
+   (the unmerged chain), 20 steps each (finite float32 results, the bf16
+   kernels launched as the chain runs them and no float32 stage, the
+   divergence to two bf16 roundings; each kernel step within 1e-2 of
+   max|u| of the plain step on the same carry, and over the 20 steps the
+   kinetic energy within 1e-4 of the bf16 plain chain's and the relative
+   L2 distance to it no larger than that chain's from the float32 chain;
+   the deviation from the float32 chain, ms/step beside it and both
+   chains' energy balance |dE/dt + 2νZ|/(2νZ) over 10 steps, printed); (C) SSP104, 4 steps in chunks of 2 (5 stages a step on the
+   many-stream kernel; <= 1e-4 of the plain chain).
+11. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -198,6 +224,9 @@ OPS_PER_CELL = {
     # Laplacian, viscous product and face average per component (19, x3,
     # + 2) and the two tableau updates (4)
     "stage_temp": 103,
+    # each k stream of a stage beyond the first: a multiply-add per
+    # component at I and at I - e_a
+    "tableau_stream": 12,
 }
 # the Boussinesq cell's coefficients (Pr 0.71, Ra 1e7, Ge 1, nondim 1):
 # alpha2 = 1, alpha4 = 1/sqrt(Pr Ra), dissipation Re alpha1/gamma = 1
@@ -207,6 +236,22 @@ TEMP_ALPHA4 = 1.0 / math.sqrt(0.71e7)
 LOSS_TOL_F32 = 1e-5
 GRAD_TOL_F32 = 1e-3
 GRAD_TOL_BF16 = 1e-2
+# bf16 stream storage (phase 10): a bf16 kernel output is held to one bf16
+# ulp of its plain version elementwise (8 significant bits), |Δ| <=
+# 2^-7·|ref| + 1e-6·max|ref|; each step of a bf16 kernel chain to 1e-2 of
+# max|u| of the plain step on the same carry (a rounding that falls the
+# other way is one ulp, 2^-7·max|u| at most).  Over a run, two bf16 chains
+# whose float32 sums differ drift apart by cascades of such roundings (a
+# neighbour that differs by a float32 ulp rounds the other way in turn):
+# after 20 steps at 256³ their kinetic energies are held to 1e-4 and their
+# relative L2 distance to the plain bf16 chain's own distance from the
+# float32 chain.  The divergence, unscaled, to two roundings (2^-8
+# relative each: the stored ut, then the stored u) of each component at I
+# and I - e_a: max|div u|·dx/max|u| <= 3·2·2·2^-8
+BF16_ULP = 2.0**-7
+BF16_CHAIN_TOL = 1e-2
+BF16_ENERGY_TOL = 1e-4
+BF16_DIV_TOL = 12 * 2.0**-8
 
 
 def fail(msg):
@@ -221,6 +266,14 @@ def rel_err(got, ref):
 
 def abs_err(got, ref):
     return (got - ref).abs().max().item()
+
+
+def ulp_ratio(got, ref):
+    """max |got - ref| / (2^-7·|ref| + 1e-6·max|ref|) elementwise: <= 1
+    where a bf16 output is within one bf16 ulp of its reference."""
+    ref = ref.float()
+    bound = BF16_ULP * ref.abs() + 1e-6 * ref.abs().max()
+    return ((got.float() - ref).abs() / bound.clamp_min(1e-30)).max().item()
 
 
 def rel_l2(got, ref):
@@ -663,9 +716,17 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                 if len(got) != len(ref):
                     fail(f"{name} [{c.label}]: {len(got)} outputs, plain gives {len(ref)}")
                 out_bytes[c.label] = nbytes(got)
-                errs = [rel_err(g.to(p.dtype), p) for g, p in zip(got, ref)]
+                if not c.ref and any(g.dtype != p.dtype for g, p in zip(got, ref)):
+                    fail(f"{name} [{c.label}]: output dtypes {[g.dtype for g in got]}, plain "
+                         f"gives {[p.dtype for p in ref]}")
+                # a bf16 output: within one bf16 ulp elementwise (ratio to it <= 1)
+                bf = [g.dtype == torch.bfloat16 for g in got]
+                errs = [ulp_ratio(g, p) if b else rel_err(g.to(p.dtype), p)
+                        for g, p, b in zip(got, ref, bf)]
                 if c.derived:
                     errs += [rel_err(g, p) for g, p in zip(c.derived(got), c.derived(ref))]
+                    bf += [False] * (len(errs) - len(bf))
+                bounds = [1.0 if b else REL_TOL for b in bf]
                 r["max_abs_err"] = max(
                     r["max_abs_err"], *(abs_err(g.to(p.dtype), p) for g, p in zip(got, ref))
                 )
@@ -678,11 +739,12 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                              + ", the kernel off it by "
                              + ", ".join(f"{rel_err(g, q):.3e}" for g, q in zip(got, plain)))
                 print(f"[kernels] n={n} {name} [{c.label}]: max rel err per output "
-                      + ", ".join(f"{e:.3e}" for e in errs)
+                      + ", ".join(f"{e:.3f} bf16 ulp" if b else f"{e:.3e}"
+                                  for e, b in zip(errs, bf))
                       + (" (against the plain version in float64)" if c.ref else "")
                       + (" (the last: the update from each)" if c.derived else "") + extra)
-                if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
-                    fail(f"{name} [{c.label}] at n={n}: rel err {max(errs):.3e} > {REL_TOL}")
+                if not all(math.isfinite(e) and e <= b for e, b in zip(errs, bounds)):
+                    fail(f"{name} [{c.label}] at n={n}: errors {errs} above {bounds}")
                 del got, ref
             if n != max(sizes):
                 continue
@@ -735,9 +797,10 @@ def headline_setup(n, bodyforce=None):
                     device=DEVICE, bodyforce=bodyforce)
 
 
-def check_divergence(u, dx, tag):
+def check_divergence(u, dx, tag, unscaled_tol=1e-3):
     """Volume-scaled max|div u| <= 1e-4·max|u|/dx and the unscaled
-    residual max|div u|·dx/max|u| <= 1e-3 (uniform periodic cube)."""
+    residual max|div u|·dx/max|u| <= 1e-3 (uniform periodic cube;
+    ``unscaled_tol`` for a u stored in bf16)."""
     import torch
 
     vol = dx**3
@@ -746,20 +809,22 @@ def check_divergence(u, dx, tag):
     divmax = div.abs().max().item()
     print(f"[{tag}] max|div u| (volume-scaled) = {divmax:.3e}, bound 1e-4*max|u|/dx = "
           f"{1e-4 * umax / dx:.3e}; unscaled max|div u|*dx/max|u| = "
-          f"{divmax / vol * dx / umax:.3e}")
+          f"{divmax / vol * dx / umax:.3e} (bound {unscaled_tol:.3e})")
     if not divmax <= 1e-4 * umax / dx:
         fail(f"{tag}: the result is not divergence-free")
-    if not divmax / vol * dx / umax <= 1e-3:
-        fail(f"{tag}: the unscaled divergence residual exceeds 1e-3")
+    if not divmax / vol * dx / umax <= unscaled_tol:
+        fail(f"{tag}: the unscaled divergence residual exceeds {unscaled_tol:.3e}")
 
 
-def run_plain_chain(setup, method, state, dt, nsteps, chunk, at_chunk_end=None, theta=None):
-    """The hat chain of the plain versions on the card, chunk by chunk
-    as `solve_unsteady` runs it; ``at_chunk_end(state)`` sees each chunk's
+def run_plain_chain(setup, method, state, dt, nsteps, chunk, at_chunk_end=None, theta=None,
+                    fns=None):
+    """The hat chain of the plain versions on the card (or the chain
+    ``fns``, a (to, step, from) triple), chunk by chunk as
+    `solve_unsteady` runs it; ``at_chunk_end(state)`` sees each chunk's
     interior state."""
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
 
-    to_hat, step_hat, from_hat = make_fast_timestep_hat(setup, method, plain=True)
+    to_hat, step_hat, from_hat = fns or make_fast_timestep_hat(setup, method, plain=True)
     left = nsteps
     while left:
         c = min(chunk, left)
@@ -777,20 +842,26 @@ def hat_ms_per_step(setup, method, s0, dt, steps=10, theta=None):
     """ms/step of the kernel and the plain hat chains, in turns (plain,
     kernels, kernels, plain), each after a warm-up of two steps (the
     second one on a rebuilding carry)."""
-    import torch
-
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
 
-    chains = {k: make_fast_timestep_hat(setup, method, plain=k == "plain")
-              for k in ("kernels", "plain")}
-    times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        to_h, step_h, _ = chains[which]
-        h = step_h(step_h(to_h(s0), dt, theta), dt, theta)
+    return chains_ms_per_step({k: make_fast_timestep_hat(setup, method, plain=k == "plain")
+                               for k in ("plain", "kernels")}, s0, dt, steps, theta)
+
+
+def chains_ms_per_step(chains, s0, dt, steps=10, theta=None):
+    """ms/step of two (to, step, from) chains in turns (a, b, b, a), each
+    after a warm-up of two steps (the second one on a rebuilding carry)."""
+    import torch
+
+    a, b = chains
+    times = {a: [], b: []}
+    for which in (a, b, b, a):
+        to, step, _ = chains[which]
+        h = step(step(to(s0), dt, theta), dt, theta)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(steps):
-            h = step_h(h, dt, theta)
+            h = step(h, dt, theta)
         torch.cuda.synchronize()
         times[which].append((time.perf_counter() - t) * 1e3 / steps)
         del h
@@ -2395,6 +2466,325 @@ def phase_halo_les(n, nsteps, chunk, u0, e_halo, profile=False):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: the fused unmerged chain and bf16 stream storage
+# --------------------------------------------------------------------------
+
+
+def unmerged_kernel_cases(n):
+    """The stage and correction kernels with bf16 stream storage and the
+    stage with more than four k streams at size n, against their plain
+    versions; the first case of each has the shapes and options phase
+    10's runs give it."""
+    import torch
+
+    from ins_tpu_torch.ops import stage_kernels as sk
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection
+
+    rng = np.random.default_rng(SEED + 10 + n)
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+
+    def field(*shape, scale=1.0, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    dxs = (2 * np.pi / n,) * 3
+    visc = 1.0 / 4000.0
+    dt = 1e-3 * 128 / n
+    proj = make_fused_projection((n,) * 3, dxs, torch.float32, device=dev)
+    Vinv, VinvT, V, VT = proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"]
+    mats = (Vinv, VinvT, V, VT)
+    cells, gemm = n**3, 2.0 * n**4
+    qhat = field(n, n, n, scale=1e-3)
+    bf = field(3, n, n, n)  # a float32 body force: the wrappers round it
+    # bf16 storage: u (ut_prev), the base, the accumulator, k streams
+    u, ustart, accb = (field(3, n, n, n, dtype=bf16) for _ in range(3))
+    kb = [field(3, n, n, n, dtype=bf16) for _ in range(2)]
+    # float32 storage with 9 k streams (SSP104's last stage)
+    u32, ustart32 = field(3, n, n, n), field(3, n, n, n)
+    k32 = [field(3, n, n, n) for _ in range(9)]
+    c9 = tuple(dt * (0.05 + 0.01 * j) for j in range(9)) + (dt / 10,)
+
+    def msd(impl, uu, streams, coeffs, **kw):
+        return lambda: impl(uu, streams, coeffs, visc, dxs, Vinv, VinvT,
+                            compute_dtype=torch.float32, **kw)
+
+    def pcmsd(impl, streams, coeffs, **kw):
+        return lambda: impl(u, qhat, streams, coeffs, visc, dxs, proj, **kw)
+
+    def correct(impl, out_dtype):
+        return lambda: (impl(u, qhat, dxs, V, VT, out_dtype=out_dtype),)
+
+    def stage_ops(m, rebuild=False):
+        key = "stage" if rebuild else "stage_norebuild"
+        return ((OPS_PER_CELL[key] + m * OPS_PER_CELL["tableau_stream"]) * cells
+                + (4 if rebuild else 2) * gemm)
+
+    based = dict(emit_k=False, usnew_coeff=dt / 3, usnew_base=accb)
+    M, MP = sk.momentum_stage_divhat_3d, sk.momentum_stage_divhat_3d_plain
+    P, PP = sk.pcmsd_hat_3d, sk.pcmsd_hat_3d_plain
+    return {
+        "momentum_stage_divhat_3d+bf16": [
+            Case("k streams (ustart, k1) + emit_k (SSP33 stage 1)",
+                 msd(M, u, (ustart, kb[0]), (dt / 4, dt / 4)),
+                 msd(MP, u, (ustart, kb[0]), (dt / 4, dt / 4)),
+                 inputs=(u, ustart, kb[0], Vinv, VinvT), ops=stage_ops(1)),
+            Case("stage 0 (u base) + usnew (RK44 stage 0)",
+                 msd(M, u, (u,), (dt / 2,), emit_k=False, usnew_coeff=dt / 6),
+                 msd(MP, u, (u,), (dt / 2,), emit_k=False, usnew_coeff=dt / 6),
+                 inputs=(u, Vinv, VinvT), ops=stage_ops(0)),
+            Case("stream base + usnew_base + bodyforce",
+                 msd(M, u, (ustart,), (dt / 2,), bodyforce=bf, **based),
+                 msd(MP, u, (ustart,), (dt / 2,), bodyforce=bf, **based),
+                 inputs=(u, ustart, accb, bf.to(bf16), Vinv, VinvT), ops=stage_ops(0)),
+            Case("2 k streams, the last stage (SSP33 stage 2)",
+                 msd(M, u, (ustart, *kb), (dt / 6, dt / 6, 2 * dt / 3), emit_k=False),
+                 msd(MP, u, (ustart, *kb), (dt / 6, dt / 6, 2 * dt / 3), emit_k=False),
+                 inputs=(u, ustart, *kb, Vinv, VinvT), ops=stage_ops(2)),
+        ],
+        "pcmsd_hat_3d+bf16": [
+            Case("stream base + usnew_base (RK44 stages 1-2)",
+                 pcmsd(P, (ustart,), (dt / 2,), **based),
+                 pcmsd(PP, (ustart,), (dt / 2,), **based),
+                 inputs=(u, qhat, ustart, accb, *mats), ops=stage_ops(0, rebuild=True)),
+            Case("RECON + emit_u + usnew (RK44 stage 0)",
+                 pcmsd(P, (sk.RECON,), (dt / 2,), emit_k=False, usnew_coeff=dt / 6,
+                       emit_u=True),
+                 pcmsd(PP, (sk.RECON,), (dt / 2,), emit_k=False, usnew_coeff=dt / 6,
+                       emit_u=True),
+                 inputs=(u, qhat, *mats), ops=stage_ops(0, rebuild=True)),
+            Case("stream base + usnew_base + bodyforce",
+                 pcmsd(P, (ustart,), (dt / 2,), bodyforce=bf, **based),
+                 pcmsd(PP, (ustart,), (dt / 2,), bodyforce=bf, **based),
+                 inputs=(u, qhat, ustart, accb, bf.to(bf16), *mats),
+                 ops=stage_ops(0, rebuild=True)),
+        ],
+        "pressure_correct_qhat_3d+bf16": [
+            Case("ut bf16 -> u bf16 (the unmerged chain's stages)",
+                 correct(sk.pressure_correct_qhat_3d, bf16),
+                 correct(sk.pressure_correct_qhat_3d_plain, bf16),
+                 inputs=(u, qhat, V, VT), ops=OPS_PER_CELL["correct"] * cells + 2 * gemm),
+            Case("ut bf16 -> u float32 (the hat chain's chunk ends)",
+                 correct(sk.pressure_correct_qhat_3d, None),
+                 correct(sk.pressure_correct_qhat_3d_plain, None),
+                 inputs=(u, qhat, V, VT), ops=OPS_PER_CELL["correct"] * cells + 2 * gemm),
+        ],
+        "momentum_stage_divhat_3d+streams": [
+            Case("9 k streams (SSP104's last stage)",
+                 msd(M, u32, (ustart32, *k32), c9, emit_k=False),
+                 msd(MP, u32, (ustart32, *k32), c9, emit_k=False),
+                 inputs=(u32, ustart32, *k32, Vinv, VinvT), ops=stage_ops(9)),
+            Case("5 k streams + emit_k (SSP104 stage 5)",
+                 msd(M, u32, (ustart32, *k32[:5]), c9[:5] + (dt / 10,)),
+                 msd(MP, u32, (ustart32, *k32[:5]), c9[:5] + (dt / 10,)),
+                 inputs=(u32, ustart32, *k32[:5], Vinv, VinvT), ops=stage_ops(5)),
+            Case("9 k streams + emit_k + usnew + bodyforce",
+                 msd(M, u32, (ustart32, *k32), c9, usnew_coeff=dt / 3, bodyforce=bf),
+                 msd(MP, u32, (ustart32, *k32), c9, usnew_coeff=dt / 3, bodyforce=bf),
+                 inputs=(u32, ustart32, *k32, bf, Vinv, VinvT), ops=stage_ops(9)),
+            Case("9 k streams, bf16 storage",
+                 msd(M, u, (ustart, *kb, *kb, *kb, *kb, kb[0]), c9, emit_k=False),
+                 msd(MP, u, (ustart, *kb, *kb, *kb, *kb, kb[0]), c9, emit_k=False)),
+        ],
+    }
+
+
+def _same(s):
+    return s
+
+
+def print_chains_ms(tag, label, times):
+    (a, ta), (b, tb) = times.items()
+    ma, mb = sum(ta) / 2, sum(tb) / 2
+    print(f"[{tag}] {label}: {a} {ma:.3f} ms/step ({ta[0]:.3f}, {ta[1]:.3f}), {b} "
+          f"{mb:.3f} ms/step ({tb[0]:.3f}, {tb[1]:.3f}), {a}/{b} {ma / mb:.3f}; card "
+          f"{card_line()}, after the timing {card_line('clocks.sm,power.draw,temperature.gpu')}")
+
+
+def energy_balance(setup, fns, s0, dt, nsteps=10):
+    """max over steps of |dE/dt + 2νZ| / (2νZ) along a chain whose u is
+    read every step (`benchmarks/bf16_stream_probe.py`'s measure): E =
+    ½Σu²·vol, Z = ½Σ_ab (D⁺_b u_a)²·vol, dE/dt by centred differences."""
+    import torch
+
+    dx = float(setup.grid.delta[0][0])
+    vol, nu = dx**3, 1.0 / float(setup.Re)
+    to, step, frm = fns
+    h = to(s0)
+    E, Z = [], []
+    for k in range(nsteps + 1):
+        u = frm(h).u.double()
+        E.append(0.5 * u.pow(2).sum().item() * vol)
+        Z.append(0.5 * vol * sum(((torch.roll(u[a], -1, dims=b) - u[a]) / dx).pow(2).sum().item()
+                                 for a in range(3) for b in range(3)))
+        del u
+        if k < nsteps:
+            h = step(h, dt)
+    return max(abs((E[k + 1] - E[k - 1]) / (2 * dt) + 2 * nu * Z[k]) / (2 * nu * Z[k])
+               for k in range(1, nsteps))
+
+
+def phase_unmerged(n, nsteps, chunk, u0, profile=False):
+    """Paths A (SSP33 on the fused unmerged chain), B (bf16 stream storage
+    on the RK44 hat chain and the SSP33 unmerged chain) and C (SSP104, the
+    many-stream stage) at n³ through `solve_unsteady`; returns the launch
+    counts of the new kernels."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import (
+        make_fast_timestep, make_fast_timestep_hat, reghost, strip_ghosts, strip_state,
+    )
+
+    setup = headline_setup(n)
+    dx = float(setup.grid.delta[0][0])
+    dt = 1e-3 * 128 / n
+    bf16 = torch.bfloat16
+    rk44, ssp33, ssp104 = it.RKMethods.RK44(), it.RKMethods.SSP33(), it.RKMethods.SSP104()
+
+    def solve(tag, method, steps, ck, want=None, **kw):
+        """`solve_unsteady` from u0 with a timelogger and the energy at chunk
+        ends; holds the launches (other than the plane transforms) to
+        ``want``.  Returns (u, launches, energies)."""
+        torch.cuda.synchronize()
+        launches.reset_counts()
+        t0 = time.perf_counter()
+        state, outs = it.solve_unsteady(
+            setup=setup, ustart=u0, tlims=(0.0, steps * dt), dt=dt, method=method,
+            psolver=it.psolver_spectral(setup),
+            processors={"log": it.timelogger(nupdate=ck),
+                        "energy": it.observefield(
+                            lambda s: it.total_kinetic_energy(s["u"], setup), nupdate=ck)},
+            **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+        plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+        print(f"[{tag}] solve_unsteady {n}^3: {steps} steps in chunks of {ck}, {wall:.3f} s "
+              f"wall (first call included); launches {counts}; plain calls on CUDA {plain}")
+        if state.n != steps:
+            fail(f"{tag}: ran {state.n} steps, expected {steps}")
+        if plain:
+            fail(f"{tag}: plain versions ran on CUDA tensors: {plain}")
+        got = {k: v for k, v in counts.items() if k != "plane_transform"}
+        if want is not None and (got != want or not counts.get("plane_transform")):
+            fail(f"{tag}: launches {counts}, expected {want} and the plane transforms")
+        u = strip_ghosts(state.u)
+        if u.dtype != torch.float32 or not bool(torch.isfinite(u).all()):
+            fail(f"{tag}: the result is not a finite float32 field ({u.dtype})")
+        return u, counts, [float(v) for v in outs["energy"]]
+
+    def energies(tag, hist):
+        e0 = it.total_kinetic_energy(u0, setup).item()
+        print(f"[{tag}] kinetic energy {e0:.9e} -> " + ", ".join(f"{v:.9e}" for v in hist)
+              + " (chunk ends)")
+        return all(b <= a for a, b in zip([e0] + hist, hist))
+
+    def agree(tag, u, fns, steps, ck, tol):
+        s = run_plain_chain(setup, None, s0, dt, steps, ck, fns=fns)
+        err = rel_err(u, s.u.float())
+        print(f"[{tag}] kernel chain vs plain chain after {steps} steps: max|Δu|/max|u| "
+              f"{err:.3e} (bound {tol:.0e})")
+        if not err <= tol:
+            fail(f"{tag}: kernel and plain chains disagree by {err:.3e} > {tol:.0e}")
+
+    def energy(u):
+        return it.total_kinetic_energy(reghost(u), setup).item()
+
+    def agree_bf16(tag, u, method, u32):
+        """Each step of the bf16 kernel chain against the plain step on the
+        same carry, then the two chains over the run (module constants)."""
+        fk = make_fast_timestep_hat(setup, method, stream_dtype=bf16)
+        fp = make_fast_timestep_hat(setup, method, stream_dtype=bf16, plain=True)
+        worst, s = 0.0, s0
+        for k in range(nsteps):
+            if k % chunk == 0:
+                h = fk[0](s)
+            hk = fk[1](h, dt)
+            worst = max(worst, rel_err(fk[2](hk).u, fp[2](fp[1](h, dt)).u))
+            h = hk
+            if (k + 1) % chunk == 0:
+                s = fk[2](h)
+        up = run_plain_chain(setup, None, s0, dt, nsteps, chunk, fns=fp).u
+        dmax, dl2, l2_32 = rel_err(u, up), rel_l2(u, up), rel_l2(up, u32)
+        de = abs(energy(u) - energy(up)) / energy(up)
+        print(f"[{tag}] each step vs the plain step on the same carry: max|Δu|/max|u| <= "
+              f"{worst:.3e} (bound {BF16_CHAIN_TOL:.0e}); after {nsteps} steps vs the plain "
+              f"chain: max|Δu|/max|u| {dmax:.3e}, relative L2 {dl2:.3e} (bound: the plain "
+              f"chain's from the float32 chain, {l2_32:.3e}), kinetic energy {de:.3e} "
+              f"(bound {BF16_ENERGY_TOL:.0e})")
+        if not worst <= BF16_CHAIN_TOL:
+            fail(f"{tag}: a kernel step and the plain step disagree by {worst:.3e}")
+        if not (dl2 <= l2_32 and de <= BF16_ENERGY_TOL):
+            fail(f"{tag}: the kernel and plain bf16 chains drift apart (L2 {dl2:.3e}, "
+                 f"energy {de:.3e})")
+
+    s0 = strip_state(it.create_stepper(ssp33, setup=setup, u=u0))
+    per = nsteps // chunk
+    # path A: SSP33 on the fused unmerged chain
+    u_a, _, hist = solve("unmerged", ssp33, nsteps, chunk, want={
+        "momentum_stage_divhat_3d": 3 * nsteps, "passB_fold": 3 * nsteps,
+        "pressure_correct_qhat_3d": 3 * nsteps})
+    check_divergence(u_a, dx, "unmerged")
+    if not energies("unmerged", hist):
+        fail("SSP33 kinetic energy increased")
+    agree("unmerged", u_a, (_same, make_fast_timestep(setup, ssp33, plain=True), _same),
+          nsteps, chunk, REL_TOL)
+    print_chains_ms("unmerged", f"{n}^3 SSP33 f32", chains_ms_per_step({
+        "kernels": (_same, make_fast_timestep(setup, ssp33), _same),
+        "roll twin": (_same, make_fast_timestep(setup, ssp33, _force_roll=True), _same)},
+        s0, dt))
+    if profile:
+        phase_profile_split("SSP33 unmerged step", setup, ssp33, u0, dt,
+                            chain=(_same, make_fast_timestep(setup, ssp33), s0))
+
+    # path B: bf16 stream storage on the RK44 hat chain and the SSP33 unmerged chain
+    u_rk, _, _ = solve("bf16", rk44, nsteps, chunk)  # the float32 hat chain
+    bf_counts = {}
+    for name, method, u32, want in (
+        ("RK44 hat chain", rk44, u_rk, {
+            "momentum_stage_divhat_3d+bf16": per, "pcmsd_hat_3d+bf16": 4 * nsteps - per,
+            "passB_fold": 4 * nsteps, "pressure_correct_qhat_3d+bf16": per}),
+        ("SSP33 unmerged chain", ssp33, u_a, {
+            "momentum_stage_divhat_3d+bf16": 3 * nsteps, "passB_fold": 3 * nsteps,
+            "pressure_correct_qhat_3d+bf16": 3 * nsteps}),
+    ):
+        tag = f"bf16 {name}"
+        u, counts, hist = solve(tag, method, nsteps, chunk, want=want, stream_dtype=bf16)
+        for k, v in counts.items():
+            bf_counts[k] = bf_counts.get(k, 0) + v
+        check_divergence(u, dx, tag, unscaled_tol=BF16_DIV_TOL)
+        energies(tag, hist)
+        print(f"[{tag}] bf16 vs float32 chain after {nsteps} steps: max|Δu|/max|u| "
+              f"{rel_err(u, u32):.3e}, relative L2 {rel_l2(u, u32):.3e}, kinetic energy "
+              f"{energy(u):.9e} vs {energy(u32):.9e}")
+        agree_bf16(tag, u, method, u32)
+        f32 = (make_fast_timestep_hat(setup, method) if method is rk44
+               else (_same, make_fast_timestep(setup, method), _same))
+        bfc = make_fast_timestep_hat(setup, method, stream_dtype=bf16)
+        print_chains_ms(tag, f"{n}^3 {name}", chains_ms_per_step(
+            {"bf16": bfc, "float32": f32}, s0, dt))
+        e32, ebf = energy_balance(setup, f32, s0, dt), energy_balance(setup, bfc, s0, dt)
+        print(f"[{tag}] energy balance max|dE/dt + 2 nu Z|/(2 nu Z) over 10 steps: float32 "
+              f"{e32:.3e}, bf16 {ebf:.3e}")
+        if profile:
+            phase_profile_split(f"{name} step, bf16 streams", setup, method, u0, dt,
+                                chain=(bfc[0], bfc[1], s0))
+
+    # path C: SSP104, 5 of its 10 stages with more than 4 k streams
+    u_c, c_counts, _ = solve("streams", ssp104, 4, 2, want={
+        "momentum_stage_divhat_3d": 20, "momentum_stage_divhat_3d+streams": 20,
+        "passB_fold": 40, "pressure_correct_qhat_3d": 40})
+    check_divergence(u_c, dx, "streams")
+    agree("streams", u_c, (_same, make_fast_timestep(setup, ssp104, plain=True), _same), 4, 2,
+          REL_TOL)
+    return {**{k: bf_counts.get(k, 0) for k in UNMERGED_KERNELS[:3]},
+            "momentum_stage_divhat_3d+streams": c_counts.get("momentum_stage_divhat_3d+streams",
+                                                             0)}
+
+
 HAT_KERNELS = (
     "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
     "pressure_correct_qhat_3d",
@@ -2410,6 +2800,8 @@ HALO_KERNELS = ("momentum_stage_divhat_halo_3d", "pcmsd_hat_halo_3d",
                 "pressure_correct_qhat_halo_3d", "passB_sharded")
 HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+smag",
                     "pcmsd_hat_halo_3d+smag")
+UNMERGED_KERNELS = ("momentum_stage_divhat_3d+bf16", "pcmsd_hat_3d+bf16",
+                    "pressure_correct_qhat_3d+bf16", "momentum_stage_divhat_3d+streams")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -2446,6 +2838,13 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
                                            "ins_tpu/ops/pallas_kernels.py:1759"),
     "pcmsd_hat_halo_3d+smag": ("ins_tpu_torch/csrc/stage.cu",
                                "ins_tpu/ops/pallas_kernels.py:3207"),
+    "momentum_stage_divhat_3d+bf16": ("ins_tpu_torch/csrc/stage.cu",
+                                      "ins_tpu/ops/pallas_kernels.py:1264"),
+    "pcmsd_hat_3d+bf16": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
+    "pressure_correct_qhat_3d+bf16": ("ins_tpu_torch/csrc/correct.cu",
+                                      "ins_tpu/ops/pallas_kernels.py:3422"),
+    "momentum_stage_divhat_3d+streams": ("ins_tpu_torch/csrc/stage.cu",
+                                         "ins_tpu/ops/pallas_kernels.py:1126"),
 }
 
 
@@ -2454,8 +2853,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step, of 3 channel steps, of 3 LES, "
-                         "Boussinesq, LMWray3, halo and halo LES steps, and of the "
-                         "halo kernels at the 4-shard shapes")
+                         "Boussinesq, LMWray3, halo and halo LES steps, of the "
+                         "halo kernels at the 4-shard shapes, and of 3 SSP33 "
+                         "unmerged steps and 3 bf16-stream steps")
     args = ap.parse_args()
 
     import torch
@@ -2543,6 +2943,11 @@ def main():
     phase_done("phase 8 (halo)")
     halo_les_counts = phase_halo_les(256, 20, 10, u0_hat, e_halo, profile=args.profile)
     phase_done("phase 9 (halo LES)")
+    torch.cuda.empty_cache()
+    results.update(phase_kernels(unmerged_kernel_cases, (64, 256), time_all=UNMERGED_KERNELS))
+    torch.cuda.empty_cache()
+    unmerged_counts = phase_unmerged(256, 20, 10, u0_hat, profile=args.profile)
+    phase_done("phase 10 (unmerged chain and bf16 streams)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
@@ -2550,7 +2955,8 @@ def main():
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
               **{k: halo_counts[k] for k in HALO_KERNELS},
-              **{k: halo_les_counts[k] for k in HALO_LES_KERNELS}}
+              **{k: halo_les_counts[k] for k in HALO_LES_KERNELS},
+              **{k: unmerged_counts[k] for k in UNMERGED_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

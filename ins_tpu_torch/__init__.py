@@ -1,22 +1,22 @@
 """ins_tpu_torch: the PyTorch/CUDA port of ins_tpu for NVIDIA Hopper.
 
-The JAX package `ins_tpu` is the reference; this package runs six of
-its paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
+The JAX package `ins_tpu` is the reference; this package runs six of its
+paths in PyTorch — 3-D decaying turbulence on a uniform periodic box
 (explicit RK or LMWray3, spectral projection, optionally with a closure
-model), its Smagorinsky LES (`smagorinsky_closure_natural`, optionally
-with a steady body force), periodic Boussinesq convection
-(`temperature_equation`, `temperaturefield`, `observe_nusselt`),
-a-posteriori training of a CNN closure through the unrolled solver
-(`ins_tpu_torch.models`) and the wall-bounded turbulent channel (x/y
-periodic, stretched no-slip z walls, steady body force, FDM projection)
-— and the 3-D periodic cube, its Smagorinsky LES and a steady body
-force on an x-slab mesh of devices (`parallel`:
-`solve_unsteady(mesh=make_mesh(), halo=True)` over `torch.distributed`),
-with the TPU kernels of those paths rewritten as hand-written CUDA for
-`sm_90a` (`csrc/`, built at first use by `_build.py`).  Every tensor of
-a run lives on `Setup(device=...)`, the card by default; with
-``device="cpu"`` each kernel wrapper runs its plain PyTorch version.  It
-imports torch and never jax.
+model and with opt-in bf16 stream storage), its Smagorinsky LES
+(`smagorinsky_closure_natural`, optionally with a steady body force),
+periodic Boussinesq convection (`temperature_equation`,
+`temperaturefield`, `observe_nusselt`), a-posteriori training of a CNN
+closure through the unrolled solver (`ins_tpu_torch.models`) and the
+wall-bounded turbulent channel (x/y periodic, stretched no-slip z walls,
+steady body force, FDM projection) — and the 3-D periodic cube, its
+Smagorinsky LES and a steady body force on an x-slab mesh of devices
+(`parallel`: `solve_unsteady(mesh=make_mesh(), halo=True)` over
+`torch.distributed`), with the TPU kernels of those paths rewritten as
+hand-written CUDA for `sm_90a` (`csrc/`, built at first use by
+`_build.py`). Every tensor of a run lives on `Setup(device=...)`, the
+card by default; with ``device="cpu"`` each kernel wrapper runs its
+plain PyTorch version. It imports torch and never jax.
 """
 
 from . import parallel, processors  # noqa: F401

@@ -44,20 +44,24 @@ _c_int = ctypes.c_int
 _c_f32 = ctypes.c_float
 _c_i64 = ctypes.c_longlong
 
+# the cube stage (float and bf16 stream storage share it)
+_STAGE = (
+    [_c_ptr, _c_ptr, _c_ptr, ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_f32),
+     _c_int, _c_f32, _c_ptr, _c_ptr, _c_f32, _c_int,
+     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+     _c_f32, _c_f32, _c_f32, _c_f32, _c_f32]
+    + [_c_ptr] * 5 + [_c_int] + [_c_f32] * 3 + [_c_int, _c_ptr, _c_ptr],
+    _c_int,
+)
+
 # C signatures of the exported entry points: (argtypes, restype)
 _SIGNATURES = {
     "ins_gemm_f32": (
         [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_i64] * 3 + [_c_int, _c_ptr],
         _c_int,
     ),
-    "ins_stage_f32": (
-        [_c_ptr, _c_ptr, _c_ptr, ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_f32),
-         _c_int, _c_f32, _c_ptr, _c_ptr, _c_f32, _c_int,
-         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
-         _c_f32, _c_f32, _c_f32, _c_f32, _c_f32]
-        + [_c_ptr] * 5 + [_c_int] + [_c_f32] * 3 + [_c_int, _c_ptr],
-        _c_int,
-    ),
+    "ins_stage_f32": _STAGE,
+    "ins_stage_bf16": _STAGE,
     "ins_stage_halo_f32": (
         [_c_ptr] * 8 + [ctypes.POINTER(_c_ptr)] * 2 + [ctypes.POINTER(_c_f32), _c_int,
                                                       _c_f32, _c_ptr, _c_f32, _c_int]
@@ -81,6 +85,10 @@ _SIGNATURES = {
     ),
     "ins_correct_f32": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_f32, _c_f32, _c_f32, _c_ptr],
+        _c_int,
+    ),
+    "ins_correct_bf16": (
+        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32, _c_f32, _c_f32, _c_ptr],
         _c_int,
     ),
     "ins_correct_halo_f32": (

@@ -97,6 +97,32 @@
 // (glo, ghi); the FORCE-less ones keep (2, 1) as constants and compile as
 // before.  The shard stage has no temperature stream (the JAX halo kernels
 // have none).
+//
+// S is the storage type of the velocity-like streams: float, or bf16 for
+// the opt-in bf16 stream storage (`compute_dtype` of
+// `momentum_stage_divhat_3d` :1264, bf16 `ut_prev` of `pcmsd_hat_3d`
+// :2694, the dtype rules at :2802-2808).  u (ut_prev), base, the k streams,
+// usnew_base and the force are read as S and widened; k, ut, usnew and u
+// are rounded to S on the store.  q, div and all arithmetic stay float,
+// so the divergence is that of the float ut, as in the JAX kernels.  The
+// pointers of StageParams stay float* (the float kernels' parameter
+// layout); `ld`/`st` read them as S.  The bf16 variants are the non-HALO
+// ones without TEMP (the JAX halo kernels have no stream dtype).  At 256^3
+// a bf16 REBUILD stage with a stream base moves 8 float and 8 bf16 values
+// a cell where the float one moves 16: 0.40 against 0.54 GB a call.
+//
+// STREAMS is the stage with more than MAXK k streams, the port of
+// `_msd_hat_stream_kernel` (:1126, chosen at :1386-1392): their pointers
+// and coefficients come from a small device table (ktab, kctab) and the
+// tableau loops over p.m at run time.  The TPU kernel folds the streams
+// through one buffer to keep VMEM flat in their count; here each stream
+// is a single load a cell (and one more at I - e_a), so nothing is staged.
+// It runs without REBUILD and TEMP (the JAX kernel is `_msd_hat_kernel`'s
+// twin); at 256^3 with m = 9 it reads 11 vector fields and writes 3: 2.8
+// GB, 0.84 ms at 3.35 TB/s.  The m <= MAXK kernels keep their unrolled
+// loop.
+
+#include <type_traits>
 
 #include "stencil.cuh"
 
@@ -155,7 +181,21 @@ struct StageParams {
     const float* force_lo;    // (3, 1, n, n): plane -1 of the force
     int glo;                  // lower ghost planes of u and q: 2, or 3 (smag=)
     int ghi;                  // upper ghost planes of u: 1, or 2 (smag=)
+    // the k-stream table (STREAMS only): m pointers, then m coefficients
+    const unsigned long long* ktab;
+    const float* kctab;
 };
+
+// A velocity-like stream stored as S, read and written through the
+// float* fields of StageParams.
+template <class S>
+__device__ __forceinline__ float ld(const float* p, size_t i) {
+    return ldg_f(reinterpret_cast<const S*>(p), i);
+}
+template <class S>
+__device__ __forceinline__ void st(float* p, size_t i, float v) {
+    st_f(reinterpret_cast<S*>(p), i, v);
+}
 
 using Ring = float[RING][3][HY][HZ];
 using TRing = float[RING][TY2][TZ2];  // slot pattern of Ring; x-2 unused
@@ -215,7 +255,7 @@ __device__ __forceinline__ void load_plane_halo(const StageParams& p, Ring& s, i
 
 // Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
 // the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
-template <bool REBUILD, bool FORCE, bool HALO>
+template <bool REBUILD, bool FORCE, bool HALO, class S>
 __device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int slot,
                                            int xp, int y0, int z0) {
     if constexpr (HALO) {
@@ -232,7 +272,8 @@ __device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int sl
         const int ly = e / HZ, lz = e - ly * HZ;
         const int y = wrap(y0 - 2 + ly, n), z = wrap(z0 - 2 + lz, n);
         const size_t i = ((size_t)x * n + y) * n + z;
-        float u0 = __ldg(p.u + i), u1 = __ldg(p.u + n3 + i), u2 = __ldg(p.u + 2 * n3 + i);
+        const S* up = reinterpret_cast<const S*>(p.u);
+        float u0 = ldg_f(up, i), u1 = ldg_f(up + n3, i), u2 = ldg_f(up + 2 * n3, i);
         if constexpr (REBUILD) {
             const float qc = __ldg(p.q + i);
             const int yn = y + 1 == n ? 0 : y + 1, zn = z + 1 == n ? 0 : z + 1;
@@ -280,11 +321,19 @@ struct TView {
 };
 
 // Tableau value base + sum_j ck_j k_j + cnew f at flat index idx.
+template <class S, bool STREAMS>
 __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float b0, float f) {
     float ut = b0;
+    if constexpr (STREAMS) {
+        for (int j = 0; j < p.m; ++j) {
+            const float* k = reinterpret_cast<const float*>(__ldg(p.ktab + j));
+            ut = ut + __ldg(p.kctab + j) * ld<S>(k, idx);
+        }
+    } else {
 #pragma unroll
-    for (int j = 0; j < MAXK; ++j)
-        if (j < p.m) ut = ut + p.ck[j] * __ldg(p.k[j] + idx);
+        for (int j = 0; j < MAXK; ++j)
+            if (j < p.m) ut = ut + p.ck[j] * ld<S>(p.k[j], idx);
+    }
     return ut + p.cnew * f;
 }
 
@@ -300,10 +349,12 @@ __device__ __forceinline__ float tableau_lo(const StageParams& p, size_t il, flo
 }
 
 // Outputs of component A at I; returns its term of the divergence.
-template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, int A>
+template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, class S, bool STREAMS, int A>
 __device__ __forceinline__ float component(const StageParams& p, const View& u,
                                            const TView& T, int x, int y, int z) {
     static_assert(!(HALO && TEMP), "the shard stage has no T stream");
+    static_assert(!HALO || (std::is_same<S, float>::value && !STREAMS),
+                  "the shard stage stores float and takes at most MAXK k streams");
     const int n = p.n;
     const size_t n3 = (size_t)(HALO ? p.lx : n) * n * n;
     const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
@@ -311,17 +362,31 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
     if constexpr (TEMP) {
         if (A == p.gdir) f = f + p.alpha2 * (0.5f * (T(0, 0, 0) + T(A == 0, A == 1, A == 2)));
     }
-    if constexpr (FORCE) f = f + __ldg(p.force + idx);
+    // the float stage reads and stores as it did before S existed: its
+    // stores through `st` compile to other SASS in the stages without the
+    // rebuild (sass_diff.py against the parent)
+    constexpr bool F32 = std::is_same<S, float>::value;
+    if constexpr (FORCE) f = f + (F32 ? __ldg(p.force + idx) : ld<S>(p.force, idx));
     const float ua = u(A, 0, 0, 0);
-    const float b0 = p.base ? __ldg(p.base + idx) : ua;
-    const float ut = tableau(p, idx, b0, f);
-    if (p.k_out) p.k_out[idx] = f;
-    p.ut_out[idx] = ut;
-    if (p.with_usnew) {
-        const float ub = p.usnew_base ? __ldg(p.usnew_base + idx) : b0;
-        p.usnew_out[idx] = ub + p.cusnew * f;
+    const float b0 = p.base ? (F32 ? __ldg(p.base + idx) : ld<S>(p.base, idx)) : ua;
+    const float ut = tableau<S, STREAMS>(p, idx, b0, f);
+    if constexpr (F32) {
+        if (p.k_out) p.k_out[idx] = f;
+        p.ut_out[idx] = ut;
+        if (p.with_usnew) {
+            const float ub = p.usnew_base ? __ldg(p.usnew_base + idx) : b0;
+            p.usnew_out[idx] = ub + p.cusnew * f;
+        }
+        if (REBUILD && p.u_out) p.u_out[idx] = ua;
+    } else {
+        if (p.k_out) st<S>(p.k_out, idx, f);
+        st<S>(p.ut_out, idx, ut);
+        if (p.with_usnew) {
+            const float ub = p.usnew_base ? ld<S>(p.usnew_base, idx) : b0;
+            st<S>(p.usnew_out, idx, ub + p.cusnew * f);
+        }
+        if (REBUILD && p.u_out) st<S>(p.u_out, idx, ua);
     }
-    if (REBUILD && p.u_out) p.u_out[idx] = ua;
     // ut_A at I - e_A (owned by a neighbour; recomputed from the tile)
     constexpr int MX = -(A == 0), MY = -(A == 1), MZ = -(A == 2);
     const int xm = A == 0 ? (x == 0 ? n - 1 : x - 1) : x;
@@ -337,7 +402,7 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
         if (HALO && A == 0 && x == 0)  // plane -1: the force's lower plane
             fm = fm + __ldg(p.force_lo + (size_t)y * n + z);
         else
-            fm = fm + __ldg(p.force + idxm);
+            fm = fm + (F32 ? __ldg(p.force + idxm) : ld<S>(p.force, idxm));
     }
     if constexpr (HALO) {
         if (A == 0 && x == 0) {  // plane -1: the tableau streams' lower ghosts
@@ -346,8 +411,9 @@ __device__ __forceinline__ float component(const StageParams& p, const View& u,
             return (ut - tableau_lo(p, il, bl, fm)) / p.dx[A];
         }
     }
-    const float bm = p.base ? __ldg(p.base + idxm) : u(A, MX, MY, MZ);
-    const float utm = tableau(p, idxm, bm, fm);
+    const float bm = p.base ? (F32 ? __ldg(p.base + idxm) : ld<S>(p.base, idxm))
+                            : u(A, MX, MY, MZ);
+    const float utm = tableau<S, STREAMS>(p, idxm, bm, fm);
     return (ut - utm) / p.dx[A];
 }
 
@@ -408,7 +474,8 @@ __device__ __forceinline__ TRing* temp_ring() {
     }
 }
 
-template <bool REBUILD, bool FORCE, bool TEMP, bool HALO>
+template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, class S = float,
+          bool STREAMS = false>
 __global__ void __launch_bounds__(TZ * TY)
 stage_kernel(const __grid_constant__ StageParams p) {
     __shared__ Ring s;
@@ -418,7 +485,8 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
     const bool active = z < n && y < n;  // ragged tiles still load and sync
     const int nx = min(XB, (HALO ? p.lx : n) - x0);
-    for (int r = 0; r < 3; ++r) load_plane<REBUILD, FORCE, HALO>(p, s, r, x0 - 2 + r, y0, z0);
+    for (int r = 0; r < 3; ++r)
+        load_plane<REBUILD, FORCE, HALO, S>(p, s, r, x0 - 2 + r, y0, z0);
     if constexpr (TEMP) {
         for (int r = 1; r < 3; ++r) load_tplane(p, *ts, r, x0 - 2 + r, y0, z0);
     }
@@ -426,7 +494,7 @@ stage_kernel(const __grid_constant__ StageParams p) {
     const TView tv{ts, 0, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
     for (int i = 0; i < nx; ++i) {
         // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
-        load_plane<REBUILD, FORCE, HALO>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
+        load_plane<REBUILD, FORCE, HALO, S>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
         if constexpr (TEMP) load_tplane(p, *ts, (i + 3) & 3, x0 + i + 1, y0, z0);
         __syncthreads();
         if (active) {
@@ -435,9 +503,9 @@ stage_kernel(const __grid_constant__ StageParams p) {
             TView t = tv;
             t.i = i;
             const int x = x0 + i;
-            float d = component<REBUILD, FORCE, TEMP, HALO, 0>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, HALO, 1>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, HALO, 2>(p, v, t, x, y, z);
+            float d = component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 0>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 1>(p, v, t, x, y, z);
+            d += component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 2>(p, v, t, x, y, z);
             p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
             if constexpr (TEMP) temperature(p, v, t, x, y, z);
         }
@@ -447,25 +515,38 @@ stage_kernel(const __grid_constant__ StageParams p) {
 
 }  // namespace
 
-extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
-                             const void* const* kptrs, const float* kcoef, int m,
-                             float cnew, const float* usnew_base, const float* force,
-                             float cusnew, int with_usnew, float* k_out, float* ut_out,
-                             float* usnew_out, float* u_out, float* div_out, int n,
-                             float visc, float dx0, float dx1, float dx2, float vol,
-                             const float* T, const float* tstart, const float* tacc,
-                             float* temp_out, float* tempnew_out, int gdir, float alpha2,
-                             float alpha4, float dis, int with_dis, void* stream) {
-    if (m < 0 || m > MAXK) return (int)cudaErrorInvalidValue;
-    if (T && (gdir < 0 || gdir > 2 || !temp_out || (with_usnew && !tempnew_out) || m != 0))
+// The cube stage with the velocity-like streams stored as S.  With m >
+// MAXK k streams, ktable is a device array of their m pointers (64-bit)
+// followed by their m float coefficients (kptrs and kcoef unused), and
+// the STREAMS kernel runs (no rebuild, no temperature).
+template <class S>
+static int launch_stage(const float* u, const float* q, const float* base,
+                        const void* const* kptrs, const float* kcoef, int m, float cnew,
+                        const float* usnew_base, const float* force, float cusnew,
+                        int with_usnew, float* k_out, float* ut_out, float* usnew_out,
+                        float* u_out, float* div_out, int n, float visc, float dx0, float dx1,
+                        float dx2, float vol, const float* T, const float* tstart,
+                        const float* tacc, float* temp_out, float* tempnew_out, int gdir,
+                        float alpha2, float alpha4, float dis, int with_dis,
+                        const void* ktable, cudaStream_t stream) {
+    constexpr bool F32 = std::is_same<S, float>::value;
+    const bool many = m > MAXK;
+    if (m < 0 || (many && (!ktable || q || T))) return (int)cudaErrorInvalidValue;
+    if (T && (!F32 || gdir < 0 || gdir > 2 || !temp_out || (with_usnew && !tempnew_out) ||
+              m != 0))
         return (int)cudaErrorInvalidValue;
     StageParams p{};
     p.u = u;
     p.q = q;
     p.base = base;
-    for (int j = 0; j < m; ++j) {
-        p.k[j] = static_cast<const float*>(kptrs[j]);
-        p.ck[j] = kcoef[j];
+    if (many) {
+        p.ktab = static_cast<const unsigned long long*>(ktable);
+        p.kctab = reinterpret_cast<const float*>(p.ktab + m);
+    } else {
+        for (int j = 0; j < m; ++j) {
+            p.k[j] = static_cast<const float*>(kptrs[j]);
+            p.ck[j] = kcoef[j];
+        }
     }
     p.m = m;
     p.cnew = cnew;
@@ -496,18 +577,55 @@ extern "C" int ins_stage_f32(const float* u, const float* q, const float* base,
     p.with_dis = with_dis;
     const dim3 block(TZ, TY);
     const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (n + XB - 1) / XB);
-    // the force and temperature streams are template flags, so the stage
-    // without them compiles exactly as before they existed
+    // the force and temperature streams, the storage type and the many
+    // streams are template flags, so the float stage without them
+    // compiles exactly as before they existed
     using Kernel = void (*)(const StageParams);
-    const Kernel kernels[2][2][2] = {
-        {{stage_kernel<false, false, false, false>, stage_kernel<false, false, true, false>},
-         {stage_kernel<false, true, false, false>, stage_kernel<false, true, true, false>}},
-        {{stage_kernel<true, false, false, false>, stage_kernel<true, false, true, false>},
-         {stage_kernel<true, true, false, false>, stage_kernel<true, true, true, false>}},
-    };
-    const Kernel kernel = kernels[q != nullptr][force != nullptr][T != nullptr];
-    kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    Kernel kernel;
+    if (many) {
+        kernel = force ? stage_kernel<false, true, false, false, S, true>
+                       : stage_kernel<false, false, false, false, S, true>;
+    } else if constexpr (F32) {
+        const Kernel kernels[2][2][2] = {
+            {{stage_kernel<false, false, false, false>, stage_kernel<false, false, true, false>},
+             {stage_kernel<false, true, false, false>, stage_kernel<false, true, true, false>}},
+            {{stage_kernel<true, false, false, false>, stage_kernel<true, false, true, false>},
+             {stage_kernel<true, true, false, false>, stage_kernel<true, true, true, false>}},
+        };
+        kernel = kernels[q != nullptr][force != nullptr][T != nullptr];
+    } else {
+        const Kernel kernels[2][2] = {
+            {stage_kernel<false, false, false, false, S>,
+             stage_kernel<false, true, false, false, S>},
+            {stage_kernel<true, false, false, false, S>,
+             stage_kernel<true, true, false, false, S>},
+        };
+        kernel = kernels[q != nullptr][force != nullptr];
+    }
+    kernel<<<grid, block, 0, stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+#define INS_STAGE_ARGS                                                                      \
+    const float *u, const float *q, const float *base, const void *const *kptrs,            \
+        const float *kcoef, int m, float cnew, const float *usnew_base, const float *force, \
+        float cusnew, int with_usnew, float *k_out, float *ut_out, float *usnew_out,        \
+        float *u_out, float *div_out, int n, float visc, float dx0, float dx1, float dx2,   \
+        float vol, const float *T, const float *tstart, const float *tacc, float *temp_out, \
+        float *tempnew_out, int gdir, float alpha2, float alpha4, float dis, int with_dis,  \
+        const void *ktable, void *stream
+#define INS_STAGE_FORWARD                                                                  \
+    u, q, base, kptrs, kcoef, m, cnew, usnew_base, force, cusnew, with_usnew, k_out, ut_out, \
+        usnew_out, u_out, div_out, n, visc, dx0, dx1, dx2, vol, T, tstart, tacc, temp_out,  \
+        tempnew_out, gdir, alpha2, alpha4, dis, with_dis, ktable, (cudaStream_t)stream
+
+extern "C" int ins_stage_f32(INS_STAGE_ARGS) { return launch_stage<float>(INS_STAGE_FORWARD); }
+
+// The same stage with u (ut_prev), base, the k streams, usnew_base, the
+// force and the k, ut, usnew and u outputs holding bf16 (their pointers
+// typed float* as above); q, div and the temperature pointers float.
+extern "C" int ins_stage_bf16(INS_STAGE_ARGS) {
+    return launch_stage<__nv_bfloat16>(INS_STAGE_FORWARD);
 }
 
 // The stage on an x-slab shard block (HALO): u (ut_prev with q) is the

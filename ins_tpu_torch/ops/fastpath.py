@@ -5,7 +5,7 @@ with or without the Boussinesq temperature.  Fields are carried without
 ghost cells (every stencil shift is a periodic roll); `strip_*`/`reghost*`
 cross to and from the public ghosted layout.
 
-Three chains:
+Four chains:
 
 - **The hat chain** (3-D cubes; classic-row tableaus such as RK44, and
   LMWray3): the carry is a `HatState` ``(ut, qhat, temp)`` — the
@@ -23,6 +23,16 @@ Three chains:
   rides the stage kernels' temperature stream with the stage's own
   coefficients, mirroring the velocity's tableau streams: RK44's b-row
   accumulator, LMWray3's accumulator base.
+- **The fused unmerged chain** (3-D cubes; explicit RK tableaus whose
+  intermediate rows read earlier k's — SSP33, SSP42/43, SSP104, rSSPs3,
+  RK56, DOPRI6, HEM3/5, RK44C2, Wray3 and the like — with no closure or
+  the natural-form Smagorinsky one, a steady body force or none, no
+  temperature): the JAX `step_unmerged`'s fused branch.  Each stage is
+  one stage kernel (`momentum_stage_divhat_3d` on the stage's u with
+  the streams ``[ustart, k_j for A[i][j] != 0]``, k emitted but at the
+  last stage), pass B and the correction `pressure_correct_qhat_3d`; the
+  Smagorinsky force rides the stage's force stream.  More than four k
+  streams take the stage's many-stream kernel.
 - **The per-op chain** (3-D with an untagged closure model, or
   ``differentiable=True``: the training unroll): `step_unmerged`'s
   per-op branch.  Each stage is the conv-diff kernel plus the closure
@@ -34,14 +44,26 @@ Three chains:
   least `POISSON_PALLAS_MIN_N` cells a side when the chain is not
   differentiated, else the eigen-matmul `make_poisson_mm` (autograd
   differentiates it natively); on the CPU it is `torch.fft`.
-- **The roll twin** (2-D, non-cubes, other tableaus, and 2-D with a
-  closure): the same stage loop with conv-diff as a roll graph and the
-  projection as roll-graph divergence and gradient around the solve; the
-  Smagorinsky force as `smagorinsky_natural_interior`.
+- **The roll twin** (2-D, non-cubes, 2-D with a closure, and a tableau
+  the two fused chains do not take: one whose rows read earlier k's, with
+  the temperature): the same stage loop with conv-diff as a roll graph
+  and the projection as roll-graph divergence and gradient around the
+  solve; the Smagorinsky force as `smagorinsky_natural_interior`.
 
 Every chain adds a steady body force to the momentum.  The per-op chain
 and the roll twin carry the temperature as roll graphs
-(`ops/temperature.py`).  bf16 streams are ROADMAP queue 1 item 6.
+(`ops/temperature.py`).
+
+Opt-in bf16 stream storage (``make_fast_timestep_hat(stream_dtype=
+torch.bfloat16)``, as in the JAX package): the hat chain stores its ``ut``
+carry, the emitted ustart and the b-row accumulator in bf16; a tableau
+the hat chain does not take, on the fused unmerged chain, steps a bf16 u
+(the stage's k streams and the correction's output bf16 too).  qhat, the
+pass-B solve and all arithmetic stay at the setup's dtype, and the chunk
+ends materialise u at it.  The steady body force is rounded to bf16 once.
+With the temperature or the Smagorinsky closure the hat chain raises
+NotImplementedError (ROADMAP queue 2 item 5); the unmerged chain then
+has no bf16 form (None, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -79,6 +101,7 @@ __all__ = [
     "make_fast_timestep_hat",
     "HatState",
     "hat_chain_applicable",
+    "unmerged_chain_applicable",
 ]
 
 
@@ -189,6 +212,22 @@ def hat_chain_applicable(setup, method):
     )
 
 
+def unmerged_chain_applicable(setup, method):
+    """Whether the fused unmerged chain runs this setup: 3-D cube, an
+    explicit RK tableau the hat chain does not take, no temperature and no
+    closure model but the natural-form Smagorinsky one (the JAX package's
+    `use_fused_stage` on such a tableau)."""
+    g = setup.grid
+    return (
+        g.dim == 3
+        and g.Np[0] == g.Np[1] == g.Np[2]
+        and isinstance(method, ExplicitRungeKuttaMethod)
+        and not _classic_lowstorage_rows(method)
+        and setup.temperature is None
+        and (setup.closure_model is None or _is_smag(setup))
+    )
+
+
 def _kernel_ops(plain):
     """The kernels of the hat chain: the wrappers (CUDA kernels on CUDA
     tensors, plain versions on CPU tensors) or, with ``plain``, the plain
@@ -230,7 +269,14 @@ def _temp_consts(setup):
     return types.SimpleNamespace(gdir=tq.gdir, alpha2=tq.alpha2, alpha4=tq.alpha4, dis=dis)
 
 
-def _make_hat_fns(setup, method, projection_precision, plain):
+def _stored_force(setup, sd):
+    """The steady body force as the stage kernels read it: rounded to the
+    stream storage dtype ``sd`` once (None: the setup's dtype)."""
+    force = _bodyforce_interior(setup)
+    return force if force is None or sd is None else force.to(sd)
+
+
+def _make_hat_fns(setup, method, projection_precision, plain, sd=None):
     g = setup.grid
     dxs = uniform_dxs(setup)
     visc = 1.0 / setup.Re
@@ -239,7 +285,7 @@ def _make_hat_fns(setup, method, projection_precision, plain):
         g.Np, dxs, setup.dtype, precision=projection_precision, device=setup.device
     )
     passB = proj["passB_plain" if plain else "passB"]
-    force = _bodyforce_interior(setup)
+    force = _stored_force(setup, sd)
     d2 = float(sum(d * d for d in dxs))
     tc = _temp_consts(setup)
 
@@ -262,7 +308,7 @@ def _make_hat_fns(setup, method, projection_precision, plain):
                   usnew_base=ub, bodyforce=force, smag=smag, temperature=temp)
         if qhat is None:
             res = list(ops.msd(ut, (ut,), (coeff,), visc, dxs, proj["Vinv"], proj["VinvT"],
-                               **kw))
+                               compute_dtype=setup.dtype, **kw))
             u = ut
         else:
             res = list(ops.pcmsd(ut, qhat, (base,), (coeff,), visc, dxs, proj,
@@ -357,10 +403,11 @@ def _make_hat_fns(setup, method, projection_precision, plain):
 
     def to_hat(state):
         # qhat=None: ut is the corrected velocity (no rebuild needed)
-        return HatState(ut=state.u, qhat=None, temp=state.temp, t=state.t, n=state.n)
+        ut = state.u if sd is None else state.u.to(sd)
+        return HatState(ut=ut, qhat=None, temp=state.temp, t=state.t, n=state.n)
 
     def from_hat(h):
-        u = h.ut if h.qhat is None else ops.correct(
+        u = h.ut.to(setup.dtype) if h.qhat is None else ops.correct(
             h.ut, h.qhat, dxs, proj["V"], proj["VT"], precision=projection_precision
         )
         return StepperState(u=u, temp=h.temp, t=h.t, n=h.n)
@@ -368,31 +415,107 @@ def _make_hat_fns(setup, method, projection_precision, plain):
     return to_hat, step_hat, from_hat
 
 
+def _make_unmerged_step(setup, method, projection_precision, plain, sd=None):
+    """The fused unmerged chain: the JAX package's `step_unmerged` fused
+    branch (``ins_tpu/ops/fastpath.py`` :755-771).  Stage i runs the stage
+    kernel on its u with the streams ``[ustart, k_j for A[i][j] != 0]``
+    and the coefficients ``dt·A[i][j]``, then ``dt·A[i][i]`` for its own k
+    (emitted but at the last stage), pass B, and the correction, which
+    emits the storage dtype.  ``sd`` (bf16) stores u, the k streams and
+    the outputs in it; the arithmetic stays at the setup's dtype."""
+    dxs = uniform_dxs(setup)
+    visc = 1.0 / setup.Re
+    ops = _kernel_ops(plain)
+    proj = make_fused_projection(
+        setup.grid.Np, dxs, setup.dtype, precision=projection_precision, device=setup.device
+    )
+    passB = proj["passB_plain" if plain else "passB"]
+    force = _stored_force(setup, sd)
+    smag = _is_smag(setup)
+    d2 = float(sum(d * d for d in dxs))
+    A, c, ns = method.A, method.c, method.nstage
+
+    def step(state, dt, theta=None):
+        """One RK step; ``theta`` is the Smagorinsky constant where the
+        setup has that closure."""
+        u, temp, tstart, n = state
+        sm = (theta_tensor(theta, setup.dtype, setup.device), d2) if smag else None
+        ustart, ku, t = u, [], tstart
+        for i in range(ns):
+            t = tstart + c[i] * dt
+            streams, coeffs = [ustart], []
+            for j in range(i):
+                if A[i][j] != 0.0:
+                    streams.append(ku[j])
+                    coeffs.append(dt * A[i][j])
+            coeffs.append(dt * A[i][i])
+            emit_k = i < ns - 1
+            res = ops.msd(u, streams, coeffs, visc, dxs, proj["Vinv"], proj["VinvT"],
+                          precision=projection_precision, emit_k=emit_k, bodyforce=force,
+                          smag=sm, compute_dtype=setup.dtype)
+            if emit_k:
+                ku.append(res[0])
+            ut, divhat = res[-2:]
+            u = ops.correct(ut, passB(divhat), dxs, proj["V"], proj["VT"],
+                            precision=projection_precision, out_dtype=ut.dtype)
+        return StepperState(u=u, temp=temp, t=t, n=n + 1)
+
+    return step
+
+
 def make_fast_timestep_hat(setup, method, *, projection_precision="manualhigh",
-                           plain=False):
+                           plain=False, stream_dtype=None):
     """``(to_hat, step_hat, from_hat)`` of the step-boundary-merged chain,
     or None where it does not apply (then use `make_fast_timestep`).
     ``plain=True`` builds it from the kernels' plain versions.
-    ``step_hat(h, dt, theta=None)`` takes the Smagorinsky constant."""
+    ``step_hat(h, dt, theta=None)`` takes the Smagorinsky constant.
+
+    ``stream_dtype`` (``torch.bfloat16``; None: the setup's dtype) stores
+    the hat carry's ``ut``, the emitted ustart and the b-row accumulator
+    in it; qhat, pass B and the arithmetic stay at the setup's dtype and
+    `from_hat` returns u at it.  Where the hat chain does not apply but
+    the fused unmerged chain does (a tableau whose rows read earlier k's,
+    no Smagorinsky closure), the triple is ``(to_sd, step, from_sd)``: the
+    unmerged chain on a u stored in ``stream_dtype``; elsewhere None, as
+    in the JAX package."""
     _check_method(setup, method)
-    if not hat_chain_applicable(setup, method):
+    sd = None if stream_dtype in (None, setup.dtype) else stream_dtype
+    if hat_chain_applicable(setup, method):
+        if sd is not None and (setup.temperature is not None or _is_smag(setup)):
+            raise NotImplementedError(
+                f"{sd} stream storage with the temperature or the Smagorinsky closure "
+                "is not ported yet (ROADMAP queue 2 item 5)"
+            )
+        return _make_hat_fns(setup, method, projection_precision, plain, sd)
+    if sd is None or not unmerged_chain_applicable(setup, method) or _is_smag(setup):
         return None
-    return _make_hat_fns(setup, method, projection_precision, plain)
+    step = _make_unmerged_step(setup, method, projection_precision, plain, sd)
+
+    def to_sd(state):
+        return state._replace(u=state.u.to(sd))
+
+    def from_sd(state):
+        return state._replace(u=state.u.to(setup.dtype))
+
+    return to_sd, step, from_sd
 
 
 def make_fast_timestep(setup, method, *, differentiable=False,
-                       projection_precision="manualhigh", plain=False):
+                       projection_precision="manualhigh", plain=False, _force_roll=False):
     """``step(state, dt, theta=None) -> state`` on the interior layout.
 
     With an untagged closure model or ``differentiable=True`` a 3-D setup
     runs the per-op chain (``theta`` goes to the closure); otherwise the
-    hat chain materialised every step where it applies, else the roll
-    twin.  ``plain=True`` builds the per-op chain from the kernels' plain
-    versions (the reference chain on the card)."""
+    hat chain materialised every step where it applies, else the fused
+    unmerged chain where that applies, else the roll twin.
+    ``plain=True`` builds the per-op and the unmerged chains from the
+    kernels' plain versions (the reference chains on the card).
+    ``_force_roll`` builds the roll twin whatever applies (the JAX
+    package's hook of that name: a yardstick for the fused chains)."""
     _check_method(setup, method)
     smag = _is_smag(setup)
     per_op = (setup.closure_model is not None and not smag) or differentiable
-    if not per_op and hat_chain_applicable(setup, method):
+    if not per_op and not _force_roll and hat_chain_applicable(setup, method):
         to_hat, step_hat, from_hat = _make_hat_fns(
             setup, method, projection_precision, plain=False
         )
@@ -401,6 +524,8 @@ def make_fast_timestep(setup, method, *, differentiable=False,
             return from_hat(step_hat(to_hat(state), dt, theta))
 
         return step
+    if not per_op and not _force_roll and unmerged_chain_applicable(setup, method):
+        return _make_unmerged_step(setup, method, projection_precision, plain)
 
     g = setup.grid
     D = g.dim

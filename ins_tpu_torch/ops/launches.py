@@ -32,6 +32,12 @@ KERNELS = (
     "passB",
     "passB_fold",
     "pressure_correct_qhat_3d",
+    # the same with bf16 stream storage, and the stage with more than 4 k
+    # streams (the unmerged chain's deep tableau rows)
+    "pcmsd_hat_3d+bf16",
+    "momentum_stage_divhat_3d+bf16",
+    "momentum_stage_divhat_3d+streams",
+    "pressure_correct_qhat_3d+bf16",
     # the x-slab halo chain (ops/stage_kernels.py, poisson_kernels.py,
     # smag_kernels.py); "+force": the halo stage with its force stream
     "momentum_stage_divhat_halo_3d",
@@ -75,10 +81,11 @@ def note_plain(name, t):
 def check_cuda_tensors(name, dtypes, **operands):
     """Raise unless every operand is a contiguous CUDA tensor on one
     device with a dtype in ``dtypes`` and its expected shape.  Each value
-    is ``(tensor, shape)``; None tensors are skipped.  Returns the
-    device."""
+    is ``(tensor, shape)``, or ``(tensor, shape, dtypes)`` for an operand
+    of other dtypes; None tensors are skipped.  Returns the device."""
     device = None
-    for label, (t, shape) in operands.items():
+    for label, (t, shape, *own) in operands.items():
+        ok = own[0] if own else dtypes
         if t is None:
             continue
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -87,10 +94,10 @@ def check_cuda_tensors(name, dtypes, **operands):
             device = t.device
         elif t.device != device:
             raise ValueError(f"{name}: {label} is on {t.device}, expected {device}")
-        if t.dtype not in dtypes:
+        if t.dtype not in ok:
             raise TypeError(
                 f"{name}: {label} has dtype {t.dtype}; the CUDA kernel takes "
-                + " or ".join(str(d) for d in dtypes)
+                + " or ".join(str(d) for d in ok)
             )
         if tuple(t.shape) != tuple(shape):
             raise ValueError(
@@ -101,13 +108,17 @@ def check_cuda_tensors(name, dtypes, **operands):
     return device
 
 
-def check_cuda_operands(name, n, **operands):
-    """`check_cuda_tensors` for the float32 cube kernels: each value is
+def check_cuda_operands(name, n, vec_dtype=torch.float32, **operands):
+    """`check_cuda_tensors` for the cube kernels: each value is
     ``(tensor, kind)`` with kind ``"vec"`` (3, n, n, n), ``"sca"``
-    (n, n, n) or ``"mat"`` (n, n)."""
+    (n, n, n) or ``"mat"`` (n, n).  The vector fields (velocity-like
+    streams) are of ``vec_dtype`` (float32, or bfloat16 for bf16 stream
+    storage), the others float32."""
     shapes = {"vec": (3, n, n, n), "sca": (n, n, n), "mat": (n, n)}
     return check_cuda_tensors(
-        name, (torch.float32,), **{k: (t, shapes[kind]) for k, (t, kind) in operands.items()}
+        name, (torch.float32,),
+        **{k: (t, shapes[kind]) + (((vec_dtype,),) if kind == "vec" else ())
+           for k, (t, kind) in operands.items()},
     )
 
 

@@ -31,8 +31,24 @@ one for `pcmsd_hat_3d`) advances with the stage's own coefficients:
 ``temp_next = (tstart or T) + coeffs[-1]·kt`` and, with ``usnew_coeff``,
 ``tempnew = (tacc or tstart or T) + usnew_coeff·kt``, appended to the
 outputs in that order.  The stage then takes no k streams, and ``tacc``
-needs ``tstart`` and ``usnew_coeff``.  A bf16 ``compute_dtype`` raises
-NotImplementedError.
+needs ``tstart`` and ``usnew_coeff``.
+
+Stream storage, as in the JAX wrappers: the velocity-like arrays (u or
+``ut_prev``, the tableau streams, ``usnew_base``, and the k, ut, usnew
+and emitted-u outputs) may be stored in bf16 while everything else (qhat,
+divhat, the temperature) and all arithmetic stay at the compute dtype:
+``compute_dtype`` for `momentum_stage_divhat_3d`, qhat's dtype for
+`pcmsd_hat_3d` and `pressure_correct_qhat_3d`.  Inputs are widened before
+any arithmetic, the divergence is that of the unrounded ut, and outputs are
+rounded to the storage dtype; the correction emits ``out_dtype``, else
+qhat's dtype.  The steady body force is rounded to the storage dtype
+first (the JAX kernels carry it in the streams' scratch).  On the card
+the storage is float32 or bfloat16 and the arithmetic float32 (the
+kernels' S template type, `csrc/stage.cu`, `csrc/correct.cu`); bf16
+storage with ``smag`` or ``temperature`` raises NotImplementedError
+(ROADMAP queue 2 item 5), as does a bf16 compute dtype.  A stage with
+more than four k streams runs the STREAMS kernel (the port of
+`_msd_hat_stream_kernel`), which reads them from a device table.
 
 The ``*_halo_3d`` wrappers (`momentum_stage_divhat_halo_3d`,
 `pcmsd_hat_halo_3d`, `pressure_correct_qhat_halo_3d`, ports of the JAX
@@ -106,15 +122,61 @@ class _Recon:
 # kernel's own rebuilt velocity (the step-boundary merge).
 RECON = _Recon()
 
-_MAXK = 4  # k streams the CUDA stage kernel takes (csrc/stage.cu MAXK)
+_MAXK = 4  # k streams of the unrolled CUDA stage (csrc/stage.cu MAXK); more: STREAMS
 
 
-def _reject_unported(compute_dtype=None):
-    if compute_dtype is not None and compute_dtype not in (torch.float32, torch.float64):
+def _compute_dtype(u, compute_dtype):
+    """The stage's arithmetic dtype: ``compute_dtype``, else u's own."""
+    cdt = u.dtype if compute_dtype is None else compute_dtype
+    if cdt not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            "bf16 stream storage (compute_dtype) is not ported yet "
+            f"bf16 arithmetic (compute dtype {cdt}) is not ported: the stage computes in "
+            "float32 or float64 (ROADMAP queue 2 item 5)"
+        )
+    return cdt
+
+
+def _reject_unported(sdt, cdt, smag=None, temperature=None):
+    """Narrow stream storage is ported without the force kernel and the
+    temperature stream."""
+    if sdt != cdt and (smag is not None or temperature is not None):
+        raise NotImplementedError(
+            f"{sdt} stream storage with smag= or temperature= is not ported yet "
             "(ROADMAP queue 2 item 5)"
         )
+
+
+def _reject_halo_bf16(u):
+    """The shard blocks store float (the JAX halo kernels have no stream
+    dtype)."""
+    if u.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bf16 stream storage on a shard block is not ported yet (ROADMAP queue 2 item 5)"
+        )
+
+
+def _as(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+def _stored(t, sdt, cdt):
+    """A stream as the kernels read it: stored as ``sdt``, widened to
+    ``cdt`` (no copy where both are its own dtype)."""
+    return None if t is None else t.to(sdt).to(cdt)
+
+
+def _vec_dtype(sdt):
+    """The storage dtype the CUDA kernels take for ``sdt`` (float32 unless
+    bf16; a float64 tensor then fails the operand check)."""
+    return torch.bfloat16 if sdt == torch.bfloat16 else torch.float32
+
+
+def _stage_key(name, sdt, m):
+    """The launch-count key of a stage: bf16 storage, or the many-stream
+    kernel, or the stage itself."""
+    if sdt == torch.bfloat16:
+        return name + "+bf16"
+    return name + "+streams" if m > _MAXK else name
 
 
 def _split_temperature(temperature, streams, usnew_coeff):
@@ -211,18 +273,21 @@ def momentum_stage_divhat_3d_plain(
     usnew_base=None, smag=None, temperature=None, compute_dtype=None,
 ):
     """Plain PyTorch version of `momentum_stage_divhat_3d`."""
-    _reject_unported(compute_dtype)
+    sdt, cdt = u_int.dtype, _compute_dtype(u_int, compute_dtype)
+    _reject_unported(sdt, cdt, smag, temperature)
     temp = _split_temperature(temperature, streams, usnew_coeff)
-    note_plain("momentum_stage_divhat_3d", u_int)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
+    note_plain(_stage_key("momentum_stage_divhat_3d", sdt, len(ks)), u_int)
     _check_cube("momentum_stage_divhat_3d", u_int, base, *ks, bodyforce,
                 *(temp[:3] if temp else ()))
     f, ut, div, usnew = _stage_plain(
-        u_int, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag, temp
+        u_int.to(cdt), _stored(base, sdt, cdt), [_stored(k, sdt, cdt) for k in ks], cks,
+        cnew, visc, dxs, usnew_coeff, _stored(usnew_base, sdt, cdt),
+        _stored(bodyforce, sdt, cdt), smag, temp,
     )
     divhat = yz_transform_plain(div, vinvy, vinvzT)
     temps = _temp_plain(u_int, temp, cnew, usnew_coeff, visc, dxs) if temp else None
-    return _pack(emit_k, f, ut, divhat, usnew, temps=temps)
+    return _pack(emit_k, f.to(sdt), ut.to(sdt), divhat, _as(usnew, sdt), temps=temps)
 
 
 def pcmsd_hat_3d_plain(
@@ -231,34 +296,45 @@ def pcmsd_hat_3d_plain(
     usnew_base=None, smag=None, emit_u=False, temperature=None,
 ):
     """Plain PyTorch version of `pcmsd_hat_3d`."""
+    sdt, cdt = ut_prev.dtype, qhat.dtype
+    _reject_unported(sdt, cdt, smag, temperature)
     temp = _split_temperature(temperature, streams, usnew_coeff)
-    note_plain("pcmsd_hat_3d", ut_prev)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
+    note_plain(_stage_key("pcmsd_hat_3d", sdt, 0), ut_prev)
     q = yz_transform_plain(qhat, proj["V"], proj["VT"])
-    u = ut_prev - _grad(q, dxs)
+    u = ut_prev.to(cdt) - _grad(q, dxs)
     if base is RECON:
         if ks:
             raise ValueError("RECON base allows no k streams")
-        base = u
+        base = u  # the rebuilt u itself, not rounded
+    else:
+        base = _stored(base, sdt, cdt)
     _check_cube("pcmsd_hat_3d", ut_prev, qhat, base, *ks, bodyforce,
                 *(temp[:3] if temp else ()))
     f, ut, div, usnew = _stage_plain(
-        u, base, ks, cks, cnew, visc, dxs, usnew_coeff, usnew_base, bodyforce, smag, temp
+        u, base, [_stored(k, sdt, cdt) for k in ks], cks, cnew, visc, dxs, usnew_coeff,
+        _stored(usnew_base, sdt, cdt), _stored(bodyforce, sdt, cdt), smag, temp,
     )
     divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"])
     temps = _temp_plain(u, temp, cnew, usnew_coeff, visc, dxs) if temp else None
-    return _pack(emit_k, f, ut, divhat, usnew, u if emit_u else None, temps)
+    return _pack(emit_k, f.to(sdt), ut.to(sdt), divhat, _as(usnew, sdt),
+                 u.to(sdt) if emit_u else None, temps)
 
 
 def pressure_correct_qhat_3d_plain(
     ut_int, qhat, dxs, vy, vzT, *, precision="manualhigh", out_dtype=None
 ):
     """Plain PyTorch version of `pressure_correct_qhat_3d`."""
-    note_plain("pressure_correct_qhat_3d", ut_int)
+    note_plain(_correct_key(ut_int.dtype, out_dtype), ut_int)
     _check_cube("pressure_correct_qhat_3d", ut_int, qhat)
     q = yz_transform_plain(qhat, vy, vzT)
-    u = ut_int - _grad(q, dxs)
+    u = ut_int.to(qhat.dtype) - _grad(q, dxs)
     return u if out_dtype is None else u.to(out_dtype)
+
+
+def _correct_key(sdt, out_dtype):
+    bf16 = torch.bfloat16 in (sdt, out_dtype)
+    return "pressure_correct_qhat_3d" + ("+bf16" if bf16 else "")
 
 
 def _stage_force(u, q, dxs, bodyforce, smag):
@@ -271,13 +347,23 @@ def _stage_force(u, q, dxs, bodyforce, smag):
     return smag_force(u, theta, dxs, d2, bodyforce=bodyforce, rebuild_q=q)
 
 
+def _stream_table(ks, cks, device):
+    """The STREAMS kernel's device table: the k streams' m pointers
+    (64-bit), then their m float32 coefficients."""
+    ptrs = np.array([k.data_ptr() for k in ks], dtype=np.uint64).tobytes()
+    coefs = np.array(cks, dtype=np.float32).tobytes()
+    return torch.frombuffer(bytearray(ptrs + coefs), dtype=torch.uint8).to(device)
+
+
 def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
                   usnew_coeff, usnew_base, emit_u, force, temp):
-    """One launch of the stage kernel; returns (k, ut, div, usnew, u,
+    """One launch of the stage kernel, storing the velocity-like streams
+    as u's dtype (float32 or bfloat16); returns (k, ut, div, usnew, u,
     (temp_next, tempnew) or None)."""
     n = u.shape[1]
-    if len(ks) > _MAXK:
-        raise ValueError(f"{name}: at most {_MAXK} k streams, got {len(ks)}")
+    many = len(ks) > _MAXK
+    if many and q is not None:
+        raise ValueError(f"{name}: at most {_MAXK} k streams with the rebuild, got {len(ks)}")
     T, tstart, tacc, gdir, alpha2, alpha4, dis = (
         temp if temp else (None, None, None, 0, 0.0, 0.0, None)
     )
@@ -288,29 +374,31 @@ def _launch_stage(name, u, q, base, ks, cks, cnew, visc, dxs, *, emit_k,
         operands["base"] = (base, "vec")
     for j, k in enumerate(ks):
         operands[f"k{j + 1}"] = (k, "vec")
-    device = check_cuda_operands(name, n, **operands)
+    device = check_cuda_operands(name, n, vec_dtype=_vec_dtype(u.dtype), **operands)
     with torch.cuda.device(device):
         ut = torch.empty_like(u)
-        div = torch.empty((n, n, n), dtype=u.dtype, device=device)
+        div = torch.empty((n, n, n), dtype=torch.float32, device=device)
         k_out = torch.empty_like(u) if emit_k else None
         usnew = torch.empty_like(u) if usnew_coeff is not None else None
         u_out = torch.empty_like(u) if emit_u else None
         temp_out = torch.empty_like(div) if temp else None
         tempnew = torch.empty_like(div) if temp and usnew_coeff is not None else None
-        kptrs = (ctypes.c_void_p * _MAXK)(*[k.data_ptr() for k in ks])
-        kcoef = (ctypes.c_float * _MAXK)(*cks)
-        err = _build.load().ins_stage_f32(
+        table = _stream_table(ks, cks, device) if many else None
+        kptrs = (ctypes.c_void_p * _MAXK)(*([] if many else [k.data_ptr() for k in ks]))
+        kcoef = (ctypes.c_float * _MAXK)(*([] if many else cks))
+        lib = _build.load()
+        err = (lib.ins_stage_bf16 if u.dtype == torch.bfloat16 else lib.ins_stage_f32)(
             u.data_ptr(), ptr(q), ptr(base), kptrs, kcoef, len(ks), cnew,
             ptr(usnew_base), ptr(force), 0.0 if usnew_coeff is None else float(usnew_coeff),
             int(usnew_coeff is not None), ptr(k_out), ut.data_ptr(), ptr(usnew),
             ptr(u_out), div.data_ptr(), n, float(visc),
             float(dxs[0]), float(dxs[1]), float(dxs[2]), float(np.prod(dxs)),
             ptr(T), ptr(tstart), ptr(tacc), ptr(temp_out), ptr(tempnew), gdir, alpha2,
-            alpha4, 0.0 if dis is None else dis, int(dis is not None),
+            alpha4, 0.0 if dis is None else dis, int(dis is not None), ptr(table),
             current_stream(device),
         )
         _build.check(err, name)
-        LAUNCHES[name] += 1
+        LAUNCHES[_stage_key(name, u.dtype, len(ks))] += 1
     return k_out, ut, div, usnew, u_out, (temp_out, tempnew) if temp else None
 
 
@@ -326,7 +414,9 @@ def momentum_stage_divhat_3d(
     ``usnew = (usnew_base or ustart) + usnew_coeff·k`` when
     ``usnew_coeff`` is given.  ``bodyforce`` (steady) and ``smag=(theta,
     d2)`` (the Smagorinsky force) join the momentum, so k includes them;
-    ``temperature`` rides the temperature stream (module docstring)."""
+    ``temperature`` rides the temperature stream (module docstring).  u,
+    the streams and the vector outputs are stored as u's dtype, the
+    arithmetic is ``compute_dtype`` (float32 on the card)."""
     if u_int.device.type == "cpu":
         return momentum_stage_divhat_3d_plain(
             u_int, streams, coeffs, visc, dxs, vinvy, vinvzT,
@@ -334,14 +424,19 @@ def momentum_stage_divhat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             temperature=temperature, compute_dtype=compute_dtype,
         )
-    _reject_unported(compute_dtype)
+    sdt, cdt = u_int.dtype, _compute_dtype(u_int, compute_dtype)
+    _reject_unported(sdt, cdt, smag, temperature)
     temp = _split_temperature(temperature, streams, usnew_coeff)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     n = u_int.shape[1]
+    bodyforce = _as(bodyforce, sdt)
     check_cuda_operands(
-        "momentum_stage_divhat_3d", n, u=(u_int, "vec"), vinvy=(vinvy, "mat"),
-        vinvzT=(vinvzT, "mat"), bodyforce=(bodyforce, "vec"),
+        "momentum_stage_divhat_3d", n, vec_dtype=_vec_dtype(sdt), u=(u_int, "vec"),
+        vinvy=(vinvy, "mat"), vinvzT=(vinvzT, "mat"), bodyforce=(bodyforce, "vec"),
     )
+    if cdt != torch.float32:
+        raise TypeError(f"momentum_stage_divhat_3d: the CUDA kernel computes in float32, "
+                        f"not {cdt}")
     k, ut, div, usnew, _, temps = _launch_stage(
         "momentum_stage_divhat_3d", u_int, None, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
@@ -362,7 +457,9 @@ def pcmsd_hat_3d(
     kernel.  ``streams[0] is RECON`` makes the rebuilt u the tableau
     base; ``emit_u`` appends it to the outputs.  ``proj`` is a
     `make_fused_projection` dict.  ``temperature`` rides the temperature
-    stream on the rebuilt u (module docstring)."""
+    stream on the rebuilt u (module docstring).  ``ut_prev``, the streams
+    and the vector outputs are stored as ut_prev's dtype, the arithmetic is
+    qhat's."""
     if ut_prev.device.type == "cpu":
         return pcmsd_hat_3d_plain(
             ut_prev, qhat, streams, coeffs, visc, dxs, proj,
@@ -370,6 +467,7 @@ def pcmsd_hat_3d(
             bodyforce=bodyforce, usnew_base=usnew_base, smag=smag,
             emit_u=emit_u, temperature=temperature,
         )
+    _reject_unported(ut_prev.dtype, qhat.dtype, smag, temperature)
     temp = _split_temperature(temperature, streams, usnew_coeff)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     if base is RECON:
@@ -377,9 +475,10 @@ def pcmsd_hat_3d(
             raise ValueError("RECON base allows no k streams")
         base = None
     n = ut_prev.shape[1]
+    bodyforce = _as(bodyforce, ut_prev.dtype)
     check_cuda_operands(
-        "pcmsd_hat_3d", n, ut_prev=(ut_prev, "vec"), qhat=(qhat, "sca"),
-        bodyforce=(bodyforce, "vec"),
+        "pcmsd_hat_3d", n, vec_dtype=_vec_dtype(ut_prev.dtype), ut_prev=(ut_prev, "vec"),
+        qhat=(qhat, "sca"), bodyforce=(bodyforce, "vec"),
     )
     # q and div each make one scalar round trip through device memory
     # here (the TPU kernel transforms them in the same pass)
@@ -396,30 +495,37 @@ def pcmsd_hat_3d(
 def pressure_correct_qhat_3d(
     ut_int, qhat, dxs, vy, vzT, *, precision="manualhigh", out_dtype=None
 ):
-    """u = ut − ∇q with q given in the z/y eigen-basis (``qhat``)."""
+    """u = ut − ∇q with q given in the z/y eigen-basis (``qhat``).  ``ut_int``
+    may be stored in bf16; u is computed at qhat's dtype and emitted as
+    ``out_dtype`` (float32 or bfloat16 on the card), else qhat's dtype."""
     if ut_int.device.type == "cpu":
         return pressure_correct_qhat_3d_plain(
             ut_int, qhat, dxs, vy, vzT, precision=precision, out_dtype=out_dtype
         )
-    if out_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "bf16 stream storage (out_dtype) is not ported yet "
-            "(ROADMAP queue 2 item 5)"
-        )
     n = ut_int.shape[1]
+    sdt = ut_int.dtype
+    odt = qhat.dtype if out_dtype is None else out_dtype
     device = check_cuda_operands(
-        "pressure_correct_qhat_3d", n, ut=(ut_int, "vec"), qhat=(qhat, "sca"),
-        vy=(vy, "mat"), vzT=(vzT, "mat"),
+        "pressure_correct_qhat_3d", n, vec_dtype=_vec_dtype(sdt), ut=(ut_int, "vec"),
+        qhat=(qhat, "sca"), vy=(vy, "mat"), vzT=(vzT, "mat"),
     )
+    if odt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pressure_correct_qhat_3d: the CUDA kernel emits float32 or "
+                        f"bfloat16, not {odt}")
+    key = _correct_key(sdt, odt)
     with torch.cuda.device(device):
         q = yz_transform(qhat, vy, vzT)
-        u = torch.empty_like(ut_int)
-        err = _build.load().ins_correct_f32(
-            ut_int.data_ptr(), q.data_ptr(), u.data_ptr(), n,
-            float(dxs[0]), float(dxs[1]), float(dxs[2]), current_stream(device),
-        )
+        u = torch.empty(ut_int.shape, dtype=odt, device=device)
+        lib, dx = _build.load(), (float(dxs[0]), float(dxs[1]), float(dxs[2]))
+        if key == "pressure_correct_qhat_3d":
+            err = lib.ins_correct_f32(ut_int.data_ptr(), q.data_ptr(), u.data_ptr(), n, *dx,
+                                      current_stream(device))
+        else:
+            err = lib.ins_correct_bf16(ut_int.data_ptr(), int(sdt == torch.bfloat16),
+                                       q.data_ptr(), u.data_ptr(), int(odt == torch.bfloat16),
+                                       n, *dx, current_stream(device))
         _build.check(err, "pressure_correct_qhat_3d")
-        LAUNCHES["pressure_correct_qhat_3d"] += 1
+        LAUNCHES[key] += 1
     return u
 
 
@@ -631,6 +737,7 @@ def momentum_stage_divhat_halo_3d(
     stream base that is ``u_loc`` itself (and no k streams) is read from
     the stage's own velocity.  Outputs have the block's extent;
     ``divhat`` is (lx, n, n)."""
+    _reject_halo_bf16(u_loc)
     if u_loc.device.type == "cpu":
         return momentum_stage_divhat_halo_3d_plain(
             u_loc, u_lo, u_hi, streams, streams_lo, coeffs, visc, dxs, vinvy, vinvzT,
@@ -665,6 +772,7 @@ def pcmsd_hat_halo_3d(
     velocity's); with ``smag`` 3 / 2 and 3 / 3.  ``streams[0] is RECON``
     (with ``streams_lo[0]`` RECON too) makes the rebuilt u the tableau
     base; ``emit_u`` appends it."""
+    _reject_halo_bf16(ut_loc)
     if ut_loc.device.type == "cpu":
         return pcmsd_hat_halo_3d_plain(
             ut_loc, ut_lo, ut_hi, qhat_loc, qhat_lo, qhat_hi, streams, streams_lo, coeffs,
@@ -703,6 +811,7 @@ def pressure_correct_qhat_halo_3d(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
     """`pressure_correct_qhat_3d` on an x-slab shard block: ``ut_loc``
     (3, lx, n, n), ``qhat_loc`` (lx, n, n) and ``qhat_hi`` (1, n, n), the
     right ring neighbour's first qhat plane."""
+    _reject_halo_bf16(ut_loc)
     if ut_loc.device.type == "cpu":
         return pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
                                                    precision=precision)

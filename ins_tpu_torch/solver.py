@@ -8,8 +8,14 @@ classic-row RK tableau or LMWray3) a chunk carries
 `HatState(ut, qhat, temp)` and materialises u only at its end, with the
 natural-form Smagorinsky closure (``theta`` its constant), a steady body
 force and the Boussinesq temperature (``tempstart``) on its stage
-kernels; with another closure model it steps the per-op chain (``theta``
-goes to the closure), otherwise the roll twin.  On a wall-bounded channel (x/y
+kernels; a tableau whose rows read earlier k's (SSP33, SSP104, RK56, ...)
+steps the fused unmerged chain, with the Smagorinsky closure and a steady
+body force too; with another closure model it steps the per-op chain
+(``theta`` goes to the closure), otherwise the roll twin.
+``stream_dtype=torch.bfloat16`` (opt-in, off by default, as in the JAX
+package) stores the fused chains' velocity-like streams in bf16
+(`make_fast_timestep_hat`); processors and the NaN guard see u at the
+setup's dtype.  On a wall-bounded channel (x/y
 periodic, static z walls, the FDM solver) a chunk carries a `ChannelHat`
 of the channel path (`ops/channelpath.py`) the same way, crossing to and
 from the public ghosted layout with `strip_channel`/`reghost_channel`.
@@ -98,6 +104,7 @@ def solve_unsteady(
     mesh=None,
     halo=False,
     halo_psolver="pencil",
+    stream_dtype=None,
 ):
     """Solve the unsteady problem on `tlims` with a fixed `dt`, rounded
     so that `(tend - tstart)/dt` is an integer.  `ustart` is a ghosted
@@ -109,7 +116,11 @@ def solve_unsteady(
     "highest") is accepted for parity; both run at FP32 here.  ``mesh``
     (`parallel.make_mesh`) with ``halo=True`` steps the x-slab halo chain
     on every rank of the mesh (``halo_psolver="pencil"``: the fused eigen
-    projection); see the module docstring."""
+    projection); see the module docstring.  ``stream_dtype``
+    (``torch.bfloat16``) stores the periodic fast path's velocity-like
+    streams in bf16 (`make_fast_timestep_hat`); where that has no bf16 form
+    the run steps at the setup's dtype, and the channel and halo paths do
+    not read it (as in the JAX package)."""
     if dt is None:
         raise NotImplementedError(
             "adaptive (CFL) time stepping is not ported yet (ROADMAP queue 1 item 6)"
@@ -163,7 +174,8 @@ def solve_unsteady(
         def reghost_s(s):
             return s._replace(u=reghost_channel(s.u, setup))
     else:
-        hat_fns = make_fast_timestep_hat(setup, method, projection_precision=precision)
+        hat_fns = make_fast_timestep_hat(setup, method, projection_precision=precision,
+                                         stream_dtype=stream_dtype)
         if hat_fns is None:
             step = make_fast_timestep(setup, method, projection_precision=precision)
         strip, reghost_s = strip_state, reghost_state

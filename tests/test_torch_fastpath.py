@@ -124,7 +124,10 @@ def test_solve_unsteady_matches_jax():
 )
 def test_roll_twin_matches_jax(case):
     """Where the hat chain does not apply — 2-D, non-classic tableau rows,
-    non-cube boxes — the port steps its roll twin."""
+    non-cube boxes — the port steps its roll twin, but a tableau with
+    non-classic rows on a cube (``3d_ssp33``), which steps the fused
+    unmerged chain (`tests/test_torch_unmerged.py`); on CPU tensors both
+    match the JAX roll twin."""
     if case == "2d_rk44":
         jset, tset = _setups(32, 2)
         mj, mt = ins.RKMethods.RK44(), it.RKMethods.RK44()
