@@ -174,7 +174,33 @@ Phases, each raising on failure (exit code != 0, no result line):
    the deviation from the float32 chain, ms/step beside it and both
    chains' energy balance |dE/dt + 2νZ|/(2νZ) over 10 steps, printed); (C) SSP104, 4 steps in chunks of 2 (5 stages a step on the
    many-stream kernel; <= 1e-4 of the plain chain).
-11. Print the kernel table (JSON: per kernel its launches on the main
+11. The tap-matmul / pack-tile conv layer and the unfused stage.  (a)
+   `tapconv_3d` and `packconv_3d` on the 24 -> 24 closure layer's z-folded
+   g (132, 132, 128, 120) bf16 with tanh and a bias, `packconv_3d` on the
+   24 -> 3 identity layer (all 25 taps packed), `tapconv_3d` at the input
+   gradient's shape (the cotangent padded to (136, 136, 128, 24), taps
+   (5, 5, 24, 120)) and `tapconv_wgrad_3d` on (g, dpre (128³, 24)), at
+   36³ and 128³ (float32 outputs within 1e-4 relative of the plain
+   version; the weight gradient of the plain one in float64), each timed
+   beside its bound and cuDNN's conv3d / conv3d_weight with a (5, 5, 1)
+   kernel; `momentum_stage_div_3d` (stage.cu's float32 stage) at 64³ and
+   256³.  (b) The closure stack (3 -> 24 -> 24 -> 3, radius 2,
+   tanh/tanh/identity, phase 3's CNN weights) through
+   `models.cnn._pallas_conv_layer` at 128³: forward and the gradient of
+   sum(out²) with respect to the weights, the biases and the input, with
+   the default forward (pack) and with pack=False, bf16 and float32
+   convs, against the plain stack and the fused layers of phase 3 (bf16:
+   output 1e-2 max relative, gradients 1e-2 relative L2; float32: 1e-4 and
+   1e-3); launches: 3 `packconv_3d` (pack) or 3 `tapconv_3d` (tap) a
+   forward, 3 `tapconv_3d` and 3 `tapconv_wgrad_3d` a backward; ms per
+   forward and per forward + backward of the tap, pack and fused stacks
+   in turns, with peak memory.  (c) The unfused projection step at 256³
+   (`momentum_stage_div_3d` -> the per-op chain's 3-pass solve ->
+   `pressure_correct_3d`, one launch each) against the fused hat step
+   (`momentum_stage_divhat_3d` -> pass B -> `pressure_correct_qhat_3d`) on
+   the same u, base and coeff: k and ut within 1e-4 relative, u_new within
+   1e-4 of max|u_new|; ms of both in turns.
+12. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -770,8 +796,8 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                         r.update(bound_ms=bms, bound_by=by, library_ms=lib)
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
-                if name.startswith("fusedconv"):
-                    gf = conv_gflop(c.label, n)
+                if name.startswith("fusedconv") or ("conv" in name and c.ops):
+                    gf = conv_gflop(c.label, n) if name.startswith("fusedconv") else c.ops / 1e9
                     extra += (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
                               f"{gf / plain_ms:.2f} plain")
                 print(f"[kernels] n={n} {name} [{c.label}]: kernel {ms:.4f} ms "
@@ -2785,6 +2811,291 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
                                                              0)}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the tap-matmul / pack-tile conv layer and the unfused stage
+# --------------------------------------------------------------------------
+
+# `benchmarks/conv_probe.py`'s closure stack (phase 3's CNN): per layer
+# (cin, cout, activation, bias), radius 2
+TAP_LAYERS = ((3, 24, "tanh", True), (24, 24, "tanh", True), (24, 3, "id", False))
+TAP_OUT_TOL_F32 = 1e-4
+
+
+def tap_kernel_cases(n):
+    """{kernel name: [Case, ...]} for the tap-matmul / pack-tile kernels at
+    n (128: the closure stack's full width): the 24 -> 24 layer's z-folded
+    g (n + 4, n + 4, n, 120) in bf16 through both forwards, the 24 -> 3
+    identity layer (all 25 taps pack), the input gradient's shape (the
+    cotangent padded to (n + 8, n + 8, n, 24), taps (5, 5, 24, 120)) and
+    the weight gradient on (g, dpre (n, n, n, 24)); float32 outputs, the
+    weight gradient held against the plain version in float64.  The
+    library yardsticks are cuDNN's conv3d with a (5, 5, 1) kernel and its
+    conv3d_weight on the same bf16 operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+
+    rng = np.random.default_rng(SEED + 11 * n)
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+
+    def field(*shape, scale=1.0, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    kc = 5 * 24
+    g = field(n + 4, n + 4, n, kc, dtype=bf)
+    w24, w3 = field(5, 5, kc, 24, scale=(125 * 24) ** -0.5), field(5, 5, kc, 3, scale=0.02)
+    b24 = field(24, scale=0.1)
+    ctp = field(n + 8, n + 8, n, 24, dtype=bf)
+    wback = field(5, 5, 24, kc, scale=(25 * 24) ** -0.5)
+    dpre = field(n, n, n, 24, dtype=bf)
+    f32 = torch.float32
+
+    def fwd(impl, g, w, b, act):
+        return lambda: (impl(g, w, b, act, out_dtype=f32),)
+
+    def conv_ops(nx, ny, nz, kc, cout):
+        return 2.0 * nx * ny * nz * 25 * kc * cout
+
+    def planes(t):  # (nx, ny, nz, c) -> (1, c, nx, ny, nz)
+        return t.permute(3, 0, 1, 2).unsqueeze(0)
+
+    def taps(w):  # (5, 5, kc, cout) -> (cout, kc, 5, 5, 1) in bf16
+        return w.permute(3, 2, 0, 1).unsqueeze(-1).to(bf).contiguous()
+
+    gp, ctpp, dpp = planes(g), planes(ctp), planes(dpre)
+    t24, t3, tb = taps(w24), taps(w3), taps(wback)
+    b24b = b24.to(bf)
+    ops24 = conv_ops(n, n, n, kc, 24)
+    return {
+        "tapconv_3d": [
+            Case("24->24 tanh+bias bf16", fwd(ck.tapconv_3d, g, w24, b24, "tanh"),
+                 fwd(ck.tapconv_3d_plain, g, w24, b24, "tanh"), inputs=(g, w24, b24),
+                 ops=ops24, peak="bf16", library=lambda: F.conv3d(gp, t24, b24b)),
+            Case("dG 24->120 flipped taps bf16", fwd(ck.tapconv_3d, ctp, wback, None, None),
+                 fwd(ck.tapconv_3d_plain, ctp, wback, None, None), inputs=(ctp, wback),
+                 ops=conv_ops(n + 4, n + 4, n, 24, kc), peak="bf16",
+                 library=lambda: F.conv3d(ctpp, tb)),
+        ],
+        "packconv_3d": [
+            Case("24->24 tanh+bias bf16", fwd(ck.packconv_3d, g, w24, b24, "tanh"),
+                 fwd(ck.packconv_3d_plain, g, w24, b24, "tanh"), inputs=(g, w24, b24),
+                 ops=ops24, peak="bf16", library=lambda: F.conv3d(gp, t24, b24b)),
+            Case("24->3 id, all 25 taps packed bf16", fwd(ck.packconv_3d, g, w3, None, None),
+                 fwd(ck.packconv_3d_plain, g, w3, None, None), inputs=(g, w3),
+                 ops=conv_ops(n, n, n, kc, 3), peak="bf16", library=lambda: F.conv3d(gp, t3)),
+        ],
+        "tapconv_wgrad_3d": [
+            Case("dw 120x24 bf16", lambda: (ck.tapconv_wgrad_3d(g, dpre, 5, 5),),
+                 lambda: (ck.tapconv_wgrad_3d_plain(g, dpre, 5, 5),),
+                 ref=lambda: (ck.tapconv_wgrad_3d_plain(g.double(), dpre.double(), 5, 5),),
+                 inputs=(g, dpre), ops=ops24, peak="bf16",
+                 library=lambda: torch.nn.grad.conv3d_weight(gp, (24, kc, 5, 5, 1), dpp)),
+        ],
+    }
+
+
+def stage_div_kernel_cases(n):
+    """`momentum_stage_div_3d` (stage.cu's float32 stage with a stream
+    base and k emitted) against its plain version at n (256: the main
+    path's cube); no library call computes it."""
+    import torch
+
+    from ins_tpu_torch.ops import perop_kernels as pk
+
+    rng = np.random.default_rng(SEED + 13 * n)
+    u, base = (torch.from_numpy(rng.standard_normal((3, n, n, n), dtype=np.float32)).to(DEVICE)
+               for _ in range(2))
+    dxs = (2 * np.pi / n,) * 3
+    visc, coeff = 1.0 / 4000.0, 0.13
+    return {
+        "momentum_stage_div_3d": [
+            Case("base + 0.13 k", lambda: pk.momentum_stage_div_3d(u, base, coeff, visc, dxs),
+                 lambda: pk.momentum_stage_div_3d_plain(u, base, coeff, visc, dxs),
+                 inputs=(u, base), ops=OPS_PER_CELL["stage_norebuild"] * n**3),
+        ],
+    }
+
+
+def tap_stack(theta, h0, cdt, *, form, pack=None):
+    """The closure stack on one sample h0 (n, n, n, 3): ``form`` "tap"
+    (`_pallas_conv_layer`, the tap layer with `pack`), "plain" (the same
+    through the plain versions) or "fused" (`make_fused_layer`, the
+    production layers; stored in ``cdt`` between layers as `CNN` does)."""
+    from ins_tpu_torch.models.cnn import _pallas_conv_layer
+    from ins_tpu_torch.ops.conv_kernels import make_fused_layer
+
+    h = h0.to(cdt) if form == "fused" else h0
+    for i, (cin, cout, act, _) in enumerate(TAP_LAYERS):
+        w, b = theta[f"conv{i}_kernel"], theta.get(f"conv{i}_bias")
+        if form == "fused":
+            h = make_fused_layer(act, b is not None, cin=cin, cout=cout, k=5)(h, w, b)
+        else:
+            h = _pallas_conv_layer(h, w, b, 2, True, act, cdt, plain=form == "plain", pack=pack)
+    return h.float()
+
+
+def tap_value_and_grad(theta, h0, cdt, **kw):
+    """(out, {name: gradient}) of sum(out²) with respect to the weights,
+    the biases and the input."""
+    import torch
+
+    leaves = {"input": h0, **theta}
+    out = tap_stack(theta, h0, cdt, **kw)
+    grads = torch.autograd.grad((out * out).sum(), list(leaves.values()))
+    torch.cuda.synchronize()
+    return out.detach(), dict(zip(leaves, grads))
+
+
+def phase_tapconv(n):
+    """11b: the closure stack through `_pallas_conv_layer` at n³ against
+    the plain stack and the fused layers, its launches, and the ms of the
+    tap, pack and fused stacks."""
+    import torch
+
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.ops import launches
+
+    setup = training_setup(n)
+    _, theta0 = nc.cnn(
+        setup=setup, radii=[2, 2, 2], channels=[c[1] for c in TAP_LAYERS],
+        activations=[torch.tanh, torch.tanh, lambda v: v], use_bias=[c[3] for c in TAP_LAYERS],
+        generator=torch.Generator().manual_seed(0),
+    )
+    rng = np.random.default_rng(SEED + 17)
+    h0 = torch.from_numpy(rng.standard_normal((n, n, n, 3), dtype=np.float32)).to(DEVICE)
+    h0.requires_grad_(True)
+    theta = {k: v.detach().requires_grad_(True) for k, v in theta0.items()}
+    print(f"[tapconv] {n}^3 closure stack (3->24->24->3, radius 2, tanh/tanh/id) through "
+          "_pallas_conv_layer")
+    counts = {}
+    for cdt, out_tol, grad_tol in ((torch.bfloat16, GRAD_TOL_BF16, GRAD_TOL_BF16),
+                                   (torch.float32, TAP_OUT_TOL_F32, GRAD_TOL_F32)):
+        tag = "bf16" if cdt == torch.bfloat16 else "f32"
+        refs = {form: tap_value_and_grad(theta, h0, cdt, form=form)
+                for form in ("plain", "fused")}
+        for pack in (None, False):
+            sel = "pack" if pack is None else "tap"
+            launches.reset_counts()
+            out = tap_stack(theta, h0, cdt, form="tap", pack=pack)
+            torch.cuda.synchronize()
+            fwd = dict(launches.LAUNCHES)
+            launches.reset_counts()
+            grads = dict(zip(["input", *theta],
+                             torch.autograd.grad((out * out).sum(), [h0, *theta.values()])))
+            torch.cuda.synchronize()
+            bwd = dict(launches.LAUNCHES)
+            want_fwd = {"packconv_3d": 3 if pack is None else 0,
+                        "tapconv_3d": 0 if pack is None else 3, "tapconv_wgrad_3d": 0}
+            want_bwd = {"packconv_3d": 0, "tapconv_3d": 3, "tapconv_wgrad_3d": 3}
+            got_fwd = {k: fwd[k] for k in want_fwd}
+            got_bwd = {k: bwd[k] for k in want_bwd}
+            print(f"[tapconv] {tag} {sel}: launches forward {got_fwd}, backward {got_bwd}")
+            if got_fwd != want_fwd or got_bwd != want_bwd:
+                fail(f"tap stack {tag} {sel}: launches forward {got_fwd}, backward {got_bwd}; "
+                     f"expected {want_fwd}, {want_bwd}")
+            if any(launches.PLAIN_ON_CUDA.values()):
+                fail(f"tap stack {tag} {sel}: plain versions ran on CUDA tensors")
+            if pack is None and cdt == torch.bfloat16:
+                counts = {**got_fwd, "tapconv_3d": got_bwd["tapconv_3d"],
+                          "tapconv_wgrad_3d": got_bwd["tapconv_wgrad_3d"]}
+            out = out.detach()
+            if not (bool(torch.isfinite(out).all()) and out.shape == (n, n, n, 3)):
+                fail(f"tap stack {tag} {sel}: output not finite or of shape {tuple(out.shape)}")
+            for form, (rout, rgrads) in refs.items():
+                oerr = rel_err(out, rout)
+                gerr = {k: rel_l2(grads[k], rgrads[k]) for k in grads}
+                print(f"[tapconv] {tag} {sel} vs {form}: output max rel {oerr:.3e} (bound "
+                      f"{out_tol}); grad rel L2 "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items()) + f" (bound {grad_tol})")
+                if not (oerr <= out_tol and all(math.isfinite(v) and v <= grad_tol
+                                                for v in gerr.values())):
+                    fail(f"tap stack {tag} {sel} vs {form}: output {oerr:.3e}, gradients {gerr}")
+        del refs, out, grads
+        torch.cuda.empty_cache()
+
+    # ms per forward and per forward + backward (bf16), in turns, and peak memory
+    forms = {"tap": dict(form="tap", pack=False), "pack": dict(form="tap"),
+             "fused": dict(form="fused")}
+    times = {k: {"fwd": [], "fwd+bwd": []} for k in forms}
+    peak = {}
+    for name in ("tap", "pack", "fused", "fused", "pack", "tap"):
+        kw = forms[name]
+        with torch.no_grad():
+            times[name]["fwd"].append(
+                cuda_ms(lambda: tap_stack(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+        torch.cuda.reset_peak_memory_stats()
+        times[name]["fwd+bwd"].append(
+            cuda_ms(lambda: tap_value_and_grad(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[tapconv] {card_line()}: bf16 stack ms per forward / forward + backward: "
+          + "; ".join(f"{k} {sum(v['fwd']) / 2:.3f} ({v['fwd'][0]:.3f}, {v['fwd'][1]:.3f}) / "
+                      f"{sum(v['fwd+bwd']) / 2:.3f} ({v['fwd+bwd'][0]:.3f}, "
+                      f"{v['fwd+bwd'][1]:.3f}), peak {peak[k]:.2f} GiB"
+                      for k, v in times.items()))
+    return counts
+
+
+def phase_unfused_step(n):
+    """11c: the unfused projection step (`momentum_stage_div_3d` -> the
+    per-op chain's solve -> `pressure_correct_3d`) against the fused hat
+    step (`momentum_stage_divhat_3d` -> pass B -> `pressure_correct_qhat_3d`)
+    on the same u, base and coeff at n³ (the port of the JAX package's
+    `test_fused_projection_chain_matches_unfused`)."""
+    import torch
+
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops import perop_kernels as pk
+    from ins_tpu_torch.ops import stage_kernels as sk
+    from ins_tpu_torch.ops.dft import make_poisson_mm
+    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_poisson_pallas
+
+    rng = np.random.default_rng(SEED + 19)
+    u, base = (torch.from_numpy(rng.standard_normal((3, n, n, n), dtype=np.float32)).to(DEVICE)
+               for _ in range(2))
+    dxs = (2 * np.pi / n,) * 3
+    visc, coeff = 1.0 / 4000.0, 0.13
+    f32 = torch.float32
+    proj = make_fused_projection((n,) * 3, dxs, f32, device=DEVICE)
+    solve = (make_poisson_pallas((n,) * 3, dxs, f32, device=DEVICE) if n >= POISSON_PALLAS_MIN_N
+             else make_poisson_mm((n,) * 3, dxs, f32, DEVICE))
+
+    def unfused():
+        k, ut, div = pk.momentum_stage_div_3d(u, base, coeff, visc, dxs)
+        return k, ut, pk.pressure_correct_3d(ut, solve(div), dxs)
+
+    def fused():
+        k, ut, divhat = sk.momentum_stage_divhat_3d(u, (base,), (coeff,), visc, dxs,
+                                                    proj["Vinv"], proj["VinvT"])
+        qhat = proj["passB"](divhat)
+        return k, ut, sk.pressure_correct_qhat_3d(ut, qhat, dxs, proj["V"], proj["VT"])
+
+    launches.reset_counts()
+    got = unfused()
+    torch.cuda.synchronize()
+    print(f"[unfused] {n}^3: launches {({k: v for k, v in launches.LAUNCHES.items() if v})}")
+    want = {"momentum_stage_div_3d": 1, "pressure_correct_3d": 1,
+            "poisson_pallas": int(n >= POISSON_PALLAS_MIN_N)}
+    counts = {k: launches.LAUNCHES[k] for k in want}
+    if counts != want or any(launches.PLAIN_ON_CUDA.values()):
+        fail(f"unfused step launches {counts} (plain on CUDA "
+             f"{ {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v} }), expected {want}")
+    ref = fused()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    print(f"[unfused] {n}^3 unfused vs fused step: k {errs[0]:.3e}, ut {errs[1]:.3e} (max rel), "
+          f"u_new {errs[2]:.3e} of max|u_new| (bounds {REL_TOL})")
+    if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
+        fail(f"unfused vs fused step at {n}^3: {errs} above {REL_TOL}")
+    tu1, tf1 = cuda_ms(unfused), cuda_ms(fused)
+    tf2, tu2 = cuda_ms(fused), cuda_ms(unfused)
+    print(f"[unfused] {card_line()}: {n}^3 unfused step {(tu1 + tu2) / 2:.4f} ms ({tu1:.4f}, "
+          f"{tu2:.4f}), fused hat step {(tf1 + tf2) / 2:.4f} ms ({tf1:.4f}, {tf2:.4f})")
+    return counts["momentum_stage_div_3d"]
+
+
 HAT_KERNELS = (
     "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
     "pressure_correct_qhat_3d",
@@ -2802,6 +3113,7 @@ HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+
                     "pcmsd_hat_halo_3d+smag")
 UNMERGED_KERNELS = ("momentum_stage_divhat_3d+bf16", "pcmsd_hat_3d+bf16",
                     "pressure_correct_qhat_3d+bf16", "momentum_stage_divhat_3d+streams")
+TAP_KERNELS = ("tapconv_3d", "packconv_3d", "tapconv_wgrad_3d", "momentum_stage_div_3d")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -2814,7 +3126,7 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pcmsd_hat_3d+smag": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2639"),
     "pcmsd_hat_3d+temp": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2645"),
     "momentum_stage_divhat_3d+temp": ("ins_tpu_torch/csrc/stage.cu",
-                                      "ins_tpu/ops/pallas_kernels.py:960"),
+                                      "ins_tpu/ops/pallas_kernels.py:1264"),
     "make_poisson_pallas": ("ins_tpu_torch/csrc/transforms.cu",
                             "ins_tpu/ops/poisson_pallas.py:308"),
     "pressure_correct_qhat_3d": ("ins_tpu_torch/csrc/correct.cu", "ins_tpu/ops/pallas_kernels.py:3422"),
@@ -2845,6 +3157,10 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
                                       "ins_tpu/ops/pallas_kernels.py:3422"),
     "momentum_stage_divhat_3d+streams": ("ins_tpu_torch/csrc/stage.cu",
                                          "ins_tpu/ops/pallas_kernels.py:1126"),
+    "tapconv_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:130"),
+    "packconv_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
+    "tapconv_wgrad_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:249"),
+    "momentum_stage_div_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:631"),
 }
 
 
@@ -2948,6 +3264,13 @@ def main():
     torch.cuda.empty_cache()
     unmerged_counts = phase_unmerged(256, 20, 10, u0_hat, profile=args.profile)
     phase_done("phase 10 (unmerged chain and bf16 streams)")
+    results.update(phase_kernels(tap_kernel_cases, (36, 128),
+                                 time_all=("tapconv_3d", "packconv_3d")))
+    results.update(phase_kernels(stage_div_kernel_cases, (64, 256)))
+    torch.cuda.empty_cache()
+    tap_counts = phase_tapconv(128)
+    tap_counts["momentum_stage_div_3d"] = phase_unfused_step(256)
+    phase_done("phase 11 (tap conv layer and unfused stage)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
               **{k: train_counts[k] for k in TRAINING_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
@@ -2956,7 +3279,8 @@ def main():
               **{k: bous_counts[k] for k in TEMP_KERNELS},
               **{k: halo_counts[k] for k in HALO_KERNELS},
               **{k: halo_les_counts[k] for k in HALO_LES_KERNELS},
-              **{k: unmerged_counts[k] for k in UNMERGED_KERNELS}}
+              **{k: unmerged_counts[k] for k in UNMERGED_KERNELS},
+              **{k: tap_counts[k] for k in TAP_KERNELS}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

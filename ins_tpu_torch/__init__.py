@@ -14,7 +14,10 @@ Smagorinsky LES and a steady body force on an x-slab mesh of devices
 (`parallel`: `solve_unsteady(mesh=make_mesh(), halo=True)` over
 `torch.distributed`), with the TPU kernels of those paths rewritten as
 hand-written CUDA for `sm_90a` (`csrc/`, built at first use by
-`_build.py`). Every tensor of a run lives on `Setup(device=...)`, the
+`_build.py`); so are the JAX package's remaining kernels: the CNN
+layer's tap-matmul / pack-tile form (`make_conv_layer`, `tapconv_3d`,
+`packconv_3d`, `tapconv_wgrad_3d`) and the unfused projection step's
+stage (`momentum_stage_div_3d`). Every tensor of a run lives on `Setup(device=...)`, the
 card by default; with ``device="cpu"`` each kernel wrapper runs its
 plain PyTorch version. It imports torch and never jax.
 """

@@ -116,6 +116,20 @@ _SIGNATURES = {
         [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr],
         _c_int,
     ),
+    "ins_tapconv_fwd": (
+        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 7 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_tapconv_wgrad_chunks": ([_c_int] * 3, _c_int),
+    "ins_tapconv_wgrad": (
+        [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 7 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_packconv": (
+        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
+        + [_c_int] * 7 + [_c_ptr],
+        _c_int,
+    ),
     "ins_channel_msd_f32": (
         [_c_ptr] * 10 + [_c_int] * 3 + [_c_f32] * 9 + [_c_int] * 2 + [_c_ptr],
         _c_int,

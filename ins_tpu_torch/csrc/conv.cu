@@ -42,8 +42,7 @@
 //   its partial sums; a second kernel adds the partials of every weight in
 //   a fixed order, so the result is the same on every run (no atomics).
 
-#include <cuda_bf16.h>
-
+#include "convio.cuh"   // load_val, load_vec, reduce_partials_kernel
 #include "stencil.cuh"  // wrap
 
 namespace {
@@ -58,23 +57,6 @@ constexpr int WTZ = 16;        // wgrad: cell tile extent in z
 constexpr int RPT = 8;         // wgrad: dw rows per thread
 constexpr int WCHUNKS = 256;   // wgrad: target number of cell chunks
 constexpr int WMAXT = 256;     // wgrad: most threads per block
-
-__device__ __forceinline__ float load_val(const void* p, size_t i, int bf16) {
-    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                : static_cast<const float*>(p)[i];
-}
-
-template <int COT>
-__device__ __forceinline__ void load_vec(const float* s, float (&v)[COT]) {
-#pragma unroll
-    for (int o = 0; o < COT; o += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(s + o);
-        v[o] = q.x;
-        v[o + 1] = q.y;
-        v[o + 2] = q.z;
-        v[o + 3] = q.w;
-    }
-}
 
 struct ConvParams {
     const void* h;
@@ -287,17 +269,6 @@ wgrad_kernel(const __grid_constant__ WgradParams p) {
         for (int o = 0; o < COT; ++o)
             if (co0 + o < cout) part[base + co0 + o] = acc[j][o];
     }
-}
-
-// dw[i] = sum over chunks of partial[chunk, i], chunks in order.
-__global__ void __launch_bounds__(256)
-reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ dw,
-                       int nchunk, size_t nw) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= nw) return;
-    float s = 0.0f;
-    for (int c = 0; c < nchunk; ++c) s += __ldg(partial + (size_t)c * nw + i);
-    dw[i] = s;
 }
 
 template <int K, int COT>

@@ -1,0 +1,582 @@
+// Tap-matmul and pack-tile convolution of the CNN closure's z-folded
+// layer, forward (with bias and tanh/identity fused in) and weight
+// gradient:
+//
+//   out[x, y, z, o] = act(b[o] + sum_{dx<kx, dy<ky, c<kc} g[x+dx, y+dy, z, c]
+//                                                         * w2[dx, dy, c, o])
+//   dW[dx, dy, c, o] = sum_{x, y, z} g[x+dx, y+dy, z, c] * ct[x, y, z, o]
+//
+// g is (nxp, nyp, nz, kc) channels last with the z taps already folded
+// into kc and x, y padded by kx-1, ky-1: a VALID correlation over (x, y)
+// with z a batch axis; out is (nxp-kx+1, nyp-ky+1, nz, cout), ct likewise.
+// g and ct are float32 or bfloat16, w2 float32 (the wrapper rounds it to
+// g's type first), out float32 or bfloat16, dW float32.  Every sum is
+// taken in float32; bf16 operands are widened exactly, so a kernel differs
+// from a float32 reference on the same rounded operands only in the order
+// of its sums.  The layer's input gradient is the tap forward on the
+// cotangent zero-padded by (kx-1, ky-1) with the taps flipped and
+// transposed.
+//
+// Replaces: `_tapconv_kernel` (ins_tpu/ops/convkernels.py:78, wrapper
+// `tapconv_3d` :130), `_wgrad_kernel` (:191, wrapper `tapconv_wgrad_3d`
+// :249) and `_packconv_kernel` (:387, wrapper `packconv_3d` :471).  The
+// TPU kernels need kc and nz in 128-lane multiples, emit lane-padded
+// outputs, carry a ring of g planes (and, for the pack form, of product
+// planes) across the sequential x grid and collapse the packed tap lanes
+// with a block-sum matmul; none of that carries over: these kernels take
+// any kc, nz and cout and emit cout channels.
+//
+// What bounds it on an H100: FP32 FMA issue, as in conv.cu (no tensor
+// cores yet).  The 24 -> 24 layer at 128^3 is 2 * 25 * 120 * 24 * 128^3 =
+// 302 GFLOP against 0.3 GB of compulsory traffic.
+//
+// - tap forward: conv.cu's forward without z taps and without wrapping: a
+//   block of 32 (z) x 4 (y) threads owns a 32 x 16 output tile of one
+//   x-plane and COT output channels; for each dx and each chunk of 8
+//   channels it stages the g window (tile plus ky-1 rows) and that dx's
+//   weights in shared memory; a thread holds 4 y-rows x COT channels of
+//   sums and reuses a column of 4 + ky - 1 inputs across the ky taps.
+// - pack forward, weight-first as the TPU kernel: phase 1 forms every
+//   input plane's products with all taps once, P[p, (y, z), (dx, dy, o)] =
+//   sum_c g[p, y, z, c] w2[dx, dy, c, o], a dense product (M = nyp nz rows,
+//   K = kc, N = kx ky cout) by a 128 x 128 shared-memory tiled FP32 GEMM
+//   into a float32 scratch ring of S planes (the TPU kernel keeps its
+//   partials in float32 too: bf16 ones measured 5e-2 off); phase 2 forms
+//   out[x, y] = act(b + sum_{dx,dy} P[x+dx, (y+dy, z), (dx, dy, o)]), a
+//   plane's products serving the kx output planes that read it.  The host
+//   walks x in chunks of S - kx + 1 output planes, two launches each; the
+//   ring slot of plane p is p % S, so the kx - 1 planes a chunk shares
+//   with the next are kept, not recomputed.
+// - weight gradient: a block owns one dx, COT output channels and a chunk
+//   of cells (4 y x 16 z over a run of x-planes) split between two groups
+//   of threads; each thread owns RPT = 8 rows (dy, c) of dW for those
+//   channels and walks its group's staged cells.  Each group writes its
+//   partial sums and a second kernel adds them in a fixed order (no
+//   atomics), as in conv.cu: the same result every run.
+// Where kc % 8 == 0 (and g is 16-byte aligned), g is staged eight values
+// a load; the scalar loads of the other shapes cost several times more.
+
+#include <cstdint>
+
+#include "convio.cuh"  // load_val, load_vec, reduce_partials_kernel
+
+namespace {
+
+constexpr int BZ = 32;           // tap forward: threads along z (one warp)
+constexpr int BY = 4;            // tap forward: threads along y
+constexpr int CY = 4;            // tap forward: y-rows per thread
+constexpr int TYO = BY * CY;     // tap forward: output tile extent in y
+constexpr int CC = 8;            // tap forward: channels staged per pass
+constexpr int WTY = 4;           // wgrad: cell tile extent in y
+constexpr int WTZ = 16;          // wgrad: cell tile extent in z
+constexpr int RPT = 8;           // wgrad: dW rows per thread
+constexpr int WG = 2;            // wgrad: cell groups per block (each its own partial)
+constexpr int WCHUNKS = 256;     // wgrad: target number of cell chunks
+constexpr int WMAXT = 128;       // wgrad: most threads of a cell group
+constexpr int PM = 128;          // pack products: rows per block
+constexpr int PN = 128;          // pack products: columns per block
+constexpr int PK = 8;            // pack products: depth staged per pass
+constexpr int PPAD = PM + 4;     // its shared row stride (conflict-free stores)
+constexpr int SMEM_MAX = 232448; // shared memory a block may use
+
+// p[i .. i + 8) widened; i a multiple of 8 and p 16-byte aligned
+__device__ __forceinline__ void load8(const void* p, size_t i, int bf16, float (&v)[8]) {
+    if (bf16) {
+        const uint4 q = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p) + i);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(h[k]);
+            v[2 * k] = f.x;
+            v[2 * k + 1] = f.y;
+        }
+    } else {
+        const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+        const float4 a = q[0], b = q[1];
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+}
+
+__device__ __forceinline__ void store_val(void* p, size_t i, float v, int bf16) {
+    if (bf16)
+        static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+    else
+        static_cast<float*>(p)[i] = v;
+}
+
+struct TapParams {
+    const void* g;
+    int g_bf16;
+    int vec;            // 8-value loads of g: kc % 8 == 0 and g 16-byte aligned
+    const float* w;     // (kx, ky, kc, cout)
+    const float* bias;  // may be null
+    int act;            // 0 identity, 1 tanh
+    void* out;
+    int out_bf16;
+    int nxp, nyp, nz, kc, kx, cout;
+};
+
+template <int KY>
+__host__ __device__ constexpr int tap_stride() {  // channel stride of the staged window (odd)
+    return (TYO + KY - 1) * BZ + 1;
+}
+
+template <int KY, int COT>
+constexpr size_t tap_smem() {
+    return sizeof(float) * (CC * tap_stride<KY>() + KY * CC * COT);
+}
+
+template <int KY, int COT>
+__global__ void __launch_bounds__(BZ * BY)
+tap_fwd_kernel(const __grid_constant__ TapParams p) {
+    extern __shared__ float4 smem4[];
+    constexpr int TYH = TYO + KY - 1;
+    constexpr int CS = tap_stride<KY>();
+    float* s_in = reinterpret_cast<float*>(smem4);
+    float* s_w = s_in + CC * CS;  // 16-byte aligned: CC * CS * 4 = 32 * CS
+    const int nyp = p.nyp, nz = p.nz, kc = p.kc, cout = p.cout;
+    const int ny = nyp - KY + 1;
+    const int ncot = (cout + COT - 1) / COT;
+    const int x = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
+    const int z0 = blockIdx.x * BZ, y0 = blockIdx.y * TYO;
+    const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * BZ + tz;
+
+    float acc[CY][COT];
+#pragma unroll
+    for (int j = 0; j < CY; ++j)
+#pragma unroll
+        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
+
+    for (int dx = 0; dx < p.kx; ++dx) {
+        const size_t plane = (size_t)(x + dx) * nyp;
+        for (int c0 = 0; c0 < kc; c0 += CC) {
+            const int cc = min(CC, kc - c0);
+            __syncthreads();  // the previous pass is done with shared memory
+            if (p.vec) {  // a cell's CC channels in one 16-byte load
+                for (int e = tid; e < TYH * BZ; e += BZ * BY) {
+                    const int lz = e % BZ, ly = e / BZ;
+                    const int yy = y0 + ly, zz = z0 + lz;
+                    float v[CC] = {};  // rows past the padded field and z past nz add 0
+                    if (yy < nyp && zz < nz)
+                        load8(p.g, ((plane + yy) * nz + zz) * kc + c0, p.g_bf16, v);
+#pragma unroll
+                    for (int c = 0; c < CC; ++c) s_in[c * CS + ly * BZ + lz] = v[c];
+                }
+            } else {  // (ly, lz, c) from powers of two: no division by a run-time count
+                for (int e = tid; e < TYH * BZ * CC; e += BZ * BY) {
+                    const int c = e % CC, lz = (e / CC) % BZ, ly = e / (CC * BZ);
+                    const int yy = y0 + ly, zz = z0 + lz;
+                    float v = 0.0f;
+                    if (c < cc && yy < nyp && zz < nz)
+                        v = load_val(p.g, ((plane + yy) * nz + zz) * kc + c0 + c, p.g_bf16);
+                    s_in[c * CS + ly * BZ + lz] = v;
+                }
+            }
+            for (int e = tid; e < KY * CC * COT; e += BZ * BY) {
+                const int o = e % COT, rest = e / COT;
+                const int ci = rest % CC, dy = rest / CC;
+                float v = 0.0f;
+                if (ci < cc && co0 + o < cout)
+                    v = __ldg(p.w + ((size_t)(dx * KY + dy) * kc + c0 + ci) * cout + co0 + o);
+                s_w[e] = v;
+            }
+            __syncthreads();
+            for (int ci = 0; ci < cc; ++ci) {
+                const float* src = s_in + ci * CS + ty * CY * BZ + tz;
+                float col[CY + KY - 1];
+#pragma unroll
+                for (int j = 0; j < CY + KY - 1; ++j) col[j] = src[j * BZ];
+#pragma unroll
+                for (int dy = 0; dy < KY; ++dy) {
+                    float wr[COT];
+                    load_vec<COT>(s_w + (dy * CC + ci) * COT, wr);
+#pragma unroll
+                    for (int j = 0; j < CY; ++j)
+#pragma unroll
+                        for (int o = 0; o < COT; ++o)
+                            acc[j][o] = fmaf(col[j + dy], wr[o], acc[j][o]);
+                }
+            }
+        }
+    }
+
+    const int z = z0 + tz;
+    if (z >= nz) return;
+#pragma unroll
+    for (int j = 0; j < CY; ++j) {
+        const int y = y0 + ty * CY + j;
+        if (y >= ny) continue;
+        const size_t cell = (((size_t)x * ny + y) * nz + z) * cout;
+#pragma unroll
+        for (int o = 0; o < COT; ++o) {
+            const int co = co0 + o;
+            if (co >= cout) break;
+            float v = acc[j][o];
+            if (p.bias) v += __ldg(p.bias + co);
+            if (p.act == 1) v = tanhf(v);
+            store_val(p.out, cell + co, v, p.out_bf16);
+        }
+    }
+}
+
+struct WgradParams {
+    const void* g;
+    int g_bf16;
+    int vec;         // 8-value loads of g, as TapParams::vec
+    const void* d;   // (nx, ny, nz, cout)
+    int d_bf16;
+    float* partial;  // (nchunk * WG, kx * ky * kc * cout)
+    int nxp, nyp, nz, kc, kx, cout;
+    int xb;          // x-planes per cell chunk
+};
+
+__host__ __device__ inline void wgrad_chunks(int nx, int ny, int nz, int* xb, int* nchunk) {
+    const int yz = ((ny + WTY - 1) / WTY) * ((nz + WTZ - 1) / WTZ);
+    int groups = (WCHUNKS + yz - 1) / yz;
+    groups = groups < 1 ? 1 : (groups > nx ? nx : groups);
+    *xb = (nx + groups - 1) / groups;
+    *nchunk = ((nx + *xb - 1) / *xb) * yz;  // cell chunks of WG groups each
+}
+
+template <int KY>
+size_t wgrad_smem(int kc, int cot) {
+    return sizeof(float) * ((size_t)WTY * WTZ * cot + (size_t)(WTY + KY - 1) * WTZ * kc);
+}
+
+template <int KY, int COT>
+__global__ void __launch_bounds__(WMAXT * WG)
+tap_wgrad_kernel(const __grid_constant__ WgradParams p) {
+    extern __shared__ float4 smem4[];
+    constexpr int TYH = WTY + KY - 1;
+    const int nyp = p.nyp, nz = p.nz, kc = p.kc, cout = p.cout;
+    const int nx = p.nxp - p.kx + 1, ny = nyp - KY + 1;
+    float* s_d = reinterpret_cast<float*>(smem4);  // (WTY, WTZ, COT)
+    float* s_g = s_d + WTY * WTZ * COT;             // (TYH, WTZ, kc)
+    const int nrow = KY * kc;                       // rows (dy, c) of one dx
+    const int ncot = (cout + COT - 1) / COT;
+    const int dx = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
+    const int ytiles = (ny + WTY - 1) / WTY, ztiles = (nz + WTZ - 1) / WTZ;
+    const int chunk = blockIdx.x;
+    const int zt = chunk % ztiles, yt = (chunk / ztiles) % ytiles, xg = chunk / (ztiles * ytiles);
+    const int y0 = yt * WTY, z0 = zt * WTZ;
+    const int x0 = xg * p.xb, x1 = min(nx, x0 + p.xb);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int grp = threadIdx.y, btid = grp * nthr + tid, bthr = WG * nthr;
+    const int row0 = blockIdx.y * nthr * RPT + tid;
+
+    int off[RPT];  // offset of row j's input relative to the cell, in s_g
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+        const int r = row0 + j * nthr;
+        off[j] = r < nrow ? (r / kc) * WTZ * kc + r % kc : 0;  // else computed and discarded
+    }
+    float acc[RPT][COT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+#pragma unroll
+        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
+
+    for (int x = x0; x < x1; ++x) {
+        const size_t gplane = (size_t)(x + dx) * nyp;
+        __syncthreads();
+        // a row of the window, (z0 .. z0 + WTZ) x kc, is contiguous in g
+        for (int ly = 0; ly < TYH; ++ly) {
+            const int yy = y0 + ly;
+            const int len = yy < nyp ? min(WTZ, nz - z0) * kc : 0;  // the rest adds 0
+            const size_t row = ((gplane + yy) * nz + z0) * kc;
+            float* dst = s_g + ly * WTZ * kc;
+            if (p.vec) {
+                for (int i = btid * 8; i < WTZ * kc; i += bthr * 8) {
+                    float v[8] = {};
+                    if (i < len) load8(p.g, row + i, p.g_bf16, v);
+                    *reinterpret_cast<float4*>(dst + i) = make_float4(v[0], v[1], v[2], v[3]);
+                    *reinterpret_cast<float4*>(dst + i + 4) = make_float4(v[4], v[5], v[6], v[7]);
+                }
+            } else {
+                for (int i = btid; i < WTZ * kc; i += bthr)
+                    dst[i] = i < len ? load_val(p.g, row + i, p.g_bf16) : 0.0f;
+            }
+        }
+        for (int e = btid; e < WTY * WTZ * COT; e += bthr) {
+            const int o = e % COT, rest = e / COT;
+            const int lz = rest % WTZ, ly = rest / WTZ;
+            const int y = y0 + ly, z = z0 + lz, co = co0 + o;
+            float v = 0.0f;  // cells outside the box and channels past cout add 0
+            if (y < ny && z < nz && co < cout)
+                v = load_val(p.d, (((size_t)x * ny + y) * nz + z) * cout + co, p.d_bf16);
+            s_d[e] = v;
+        }
+        __syncthreads();
+        for (int ly = grp * (WTY / WG); ly < (grp + 1) * (WTY / WG); ++ly) {
+            for (int lz = 0; lz < WTZ; ++lz) {
+                float dv[COT];
+                load_vec<COT>(s_d + (ly * WTZ + lz) * COT, dv);
+                const float* gc = s_g + (ly * WTZ + lz) * kc;
+#pragma unroll
+                for (int j = 0; j < RPT; ++j) {
+                    const float gv = gc[off[j]];
+#pragma unroll
+                    for (int o = 0; o < COT; ++o) acc[j][o] = fmaf(gv, dv[o], acc[j][o]);
+                }
+            }
+        }
+    }
+
+    const size_t nw = (size_t)p.kx * nrow * cout;
+    float* part = p.partial + ((size_t)chunk * WG + grp) * nw;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+        const int r = row0 + j * nthr;
+        if (r >= nrow) continue;
+        const size_t base = ((size_t)dx * nrow + r) * cout;
+#pragma unroll
+        for (int o = 0; o < COT; ++o)
+            if (co0 + o < cout) part[base + co0 + o] = acc[j][o];
+    }
+}
+
+struct PackParams {
+    const void* g;
+    int g_bf16;
+    int vec;            // 8-value loads of g, as TapParams::vec
+    const float* ws;    // (kc, N): ws[c, (dx * ky + dy) * cout + o] = w2[dx, dy, c, o]
+    const float* bias;  // may be null
+    int act;
+    float* P;           // (slots, nyp * nz, N) float32 ring of plane products
+    int slots;
+    void* out;
+    int out_bf16;
+    int nxp, nyp, nz, kc, kx, ky, cout;
+};
+
+// Phase 1: rows [row0, row0 + nrows) of g (row = (plane, y, z)) times ws
+// into the ring: row (p, r) lands at P[p % slots, r].  A 256-thread block
+// owns a 128 x 128 tile of P; each thread 8 x 8 of it, as rows
+// {ty*4 + i, 64 + ty*4 + i} and columns {tx*4 + j, 64 + tx*4 + j} so that
+// its float4 reads of shared memory are broadcasts or contiguous.
+__global__ void __launch_bounds__(256)
+pack_products_kernel(const __grid_constant__ PackParams p, long long row0, long long nrows) {
+    __shared__ __align__(16) float sa[PK][PPAD];  // sa[k][m]
+    __shared__ __align__(16) float sb[PK][PPAD];  // sb[k][n]
+    const int kc = p.kc, N = p.kx * p.ky * p.cout;
+    const long long R = (long long)p.nyp * p.nz;
+    const long long m0 = (long long)blockIdx.x * PM;
+    const int n0 = blockIdx.y * PN;
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+    for (int k0 = 0; k0 < kc; k0 += PK) {
+        __syncthreads();
+        if (p.vec) {  // a row's PK values in one 16-byte load
+            if (tid < PM) {
+                float v[PK] = {};
+                if (m0 + tid < nrows) load8(p.g, (size_t)(row0 + m0 + tid) * kc + k0, p.g_bf16, v);
+#pragma unroll
+                for (int kk = 0; kk < PK; ++kk) sa[kk][tid] = v[kk];
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < PM * PK / 256; ++i) {
+                const int e = tid + i * 256;
+                const int kk = e % PK, mm = e / PK;
+                const long long m = m0 + mm;
+                const int k = k0 + kk;
+                float v = 0.0f;
+                if (m < nrows && k < kc) v = load_val(p.g, (size_t)(row0 + m) * kc + k, p.g_bf16);
+                sa[kk][mm] = v;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < PN * PK / 256; ++i) {
+            const int e = tid + i * 256;
+            const int nn = e % PN, kk = e / PN;
+            const int n = n0 + nn, k = k0 + kk;
+            sb[kk][nn] = (n < N && k < kc) ? __ldg(p.ws + (size_t)k * N + n) : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < PK; ++kk) {
+            float a[8], b[8];
+            const float4 a0 = *reinterpret_cast<const float4*>(&sa[kk][ty * 4]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&sa[kk][64 + ty * 4]);
+            const float4 b0 = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&sb[kk][64 + tx * 4]);
+            a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+            a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+            b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+            b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+        if (m >= nrows) continue;
+        const long long gm = row0 + m;
+        const long long dst = ((gm / R) % p.slots * R + gm % R) * N;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+            if (n < N) p.P[dst + n] = acc[i][j];
+        }
+    }
+}
+
+// Phase 2: output planes [x0, x1), one thread per output value; the taps
+// are added in the order (dx, dy).
+__global__ void __launch_bounds__(256)
+pack_combine_kernel(const __grid_constant__ PackParams p, int x0, int x1) {
+    const int nz = p.nz, ky = p.ky, cout = p.cout;
+    const int ny = p.nyp - ky + 1, N = p.kx * ky * cout;
+    const size_t R = (size_t)p.nyp * nz;
+    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= (size_t)(x1 - x0) * ny * nz * cout) return;
+    const int co = (int)(idx % cout);
+    const size_t cell = idx / cout;
+    const int z = (int)(cell % nz);
+    const size_t rest = cell / nz;
+    const int y = (int)(rest % ny), x = x0 + (int)(rest / ny);
+    float s = 0.0f;
+    for (int dx = 0; dx < p.kx; ++dx) {
+        const float* P = p.P + (size_t)((x + dx) % p.slots) * R * N;
+        for (int dy = 0; dy < ky; ++dy)
+            s += P[((size_t)(y + dy) * nz + z) * N + (dx * ky + dy) * cout + co];
+    }
+    if (p.bias) s += __ldg(p.bias + co);
+    if (p.act == 1) s = tanhf(s);
+    store_val(p.out, (size_t)x0 * ny * nz * cout + idx, s, p.out_bf16);
+}
+
+// Whether every cell's channels start 16-byte aligned, in chunks of 8.
+int aligned8(const void* g, int kc) {
+    return kc % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+}
+
+template <int KY, int COT>
+cudaError_t launch_tap(const TapParams& p, cudaStream_t stream) {
+    const int ncot = (p.cout + COT - 1) / COT;
+    const int nx = p.nxp - p.kx + 1, ny = p.nyp - KY + 1;
+    const dim3 block(BZ, BY);
+    const dim3 grid((p.nz + BZ - 1) / BZ, (ny + TYO - 1) / TYO, nx * ncot);
+    tap_fwd_kernel<KY, COT><<<grid, block, tap_smem<KY, COT>(), stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int KY, int COT>
+cudaError_t launch_wgrad(const WgradParams& p, int nchunk, cudaStream_t stream) {
+    const int nrow = KY * p.kc;
+    int nthr = (nrow + RPT - 1) / RPT;
+    nthr = nthr > WMAXT ? WMAXT : ((nthr + 31) / 32) * 32;
+    const int nrowchunk = (nrow + nthr * RPT - 1) / (nthr * RPT);
+    const size_t smem = wgrad_smem<KY>(p.kc, COT);
+    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            tap_wgrad_kernel<KY, COT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    const int ncot = (p.cout + COT - 1) / COT;
+    const dim3 grid(nchunk, nrowchunk, p.kx * ncot);
+    tap_wgrad_kernel<KY, COT><<<grid, dim3(nthr, WG), smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// The tap forward: out (nxp-kx+1, nyp-ky+1, nz, cout); ky in (1, 3, 5, 7).
+extern "C" int ins_tapconv_fwd(const void* g, int g_bf16, const float* w, const float* bias,
+                               int act, void* out, int out_bf16, int nxp, int nyp, int nz,
+                               int kc, int kx, int ky, int cout, void* stream) {
+    if (kx < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1) return (int)cudaErrorInvalidValue;
+    const TapParams p{g, g_bf16, aligned8(g, kc), w, bias, act, out, out_bf16,
+                      nxp, nyp, nz, kc, kx, cout};
+    const cudaStream_t s = (cudaStream_t)stream;
+    const bool small = cout <= 4;
+    switch (ky) {
+        case 1: return (int)(small ? launch_tap<1, 4>(p, s) : launch_tap<1, 8>(p, s));
+        case 3: return (int)(small ? launch_tap<3, 4>(p, s) : launch_tap<3, 8>(p, s));
+        case 5: return (int)(small ? launch_tap<5, 4>(p, s) : launch_tap<5, 8>(p, s));
+        case 7: return (int)(small ? launch_tap<7, 4>(p, s) : launch_tap<7, 8>(p, s));
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Number of cell chunks (rows of the partial-sum buffer) of a wgrad call
+// on a cotangent of (nx, ny, nz) cells.
+extern "C" int ins_tapconv_wgrad_chunks(int nx, int ny, int nz) {
+    int xb, nchunk;
+    wgrad_chunks(nx, ny, nz, &xb, &nchunk);
+    return nchunk * WG;
+}
+
+// dW (kx, ky, kc, cout) float32 of g (nxp, nyp, nz, kc) and ct (nxp-kx+1,
+// nyp-ky+1, nz, cout); partial holds ins_tapconv_wgrad_chunks rows of
+// kx * ky * kc * cout floats.  ky in (1, 3, 5, 7); the staged g window
+// bounds kc (about 290 channels at ky = 5).
+extern "C" int ins_tapconv_wgrad(const void* g, int g_bf16, const void* d, int d_bf16,
+                                 float* partial, float* dw, int nxp, int nyp, int nz, int kc,
+                                 int kx, int ky, int cout, void* stream) {
+    if (kx < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1) return (int)cudaErrorInvalidValue;
+    int xb, nchunk;
+    wgrad_chunks(nxp - kx + 1, nyp - ky + 1, nz, &xb, &nchunk);
+    const WgradParams p{g, g_bf16, aligned8(g, kc), d, d_bf16, partial,
+                        nxp, nyp, nz, kc, kx, cout, xb};
+    const cudaStream_t s = (cudaStream_t)stream;
+    const bool small = cout <= 4;
+    cudaError_t e;
+    switch (ky) {
+        case 1: e = small ? launch_wgrad<1, 4>(p, nchunk, s) : launch_wgrad<1, 8>(p, nchunk, s); break;
+        case 3: e = small ? launch_wgrad<3, 4>(p, nchunk, s) : launch_wgrad<3, 8>(p, nchunk, s); break;
+        case 5: e = small ? launch_wgrad<5, 4>(p, nchunk, s) : launch_wgrad<5, 8>(p, nchunk, s); break;
+        case 7: e = small ? launch_wgrad<7, 4>(p, nchunk, s) : launch_wgrad<7, 8>(p, nchunk, s); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess) return (int)e;
+    const size_t nw = (size_t)kx * ky * kc * cout;
+    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, s>>>(partial, dw, nchunk * WG,
+                                                                      nw);
+    return (int)cudaGetLastError();
+}
+
+// The pack forward: out (nxp-kx+1, nyp-ky+1, nz, cout); ws the packed
+// weights (kc, kx * ky * cout); P a float32 scratch of `slots` planes of
+// nyp * nz * kx * ky * cout (slots >= kx).  Walks x in chunks of
+// slots - kx + 1 output planes: phase 1 on the chunk's new input planes,
+// then phase 2, two launches each.
+extern "C" int ins_packconv(const void* g, int g_bf16, const float* ws, const float* bias,
+                            int act, float* P, int slots, void* out, int out_bf16, int nxp,
+                            int nyp, int nz, int kc, int kx, int ky, int cout, void* stream) {
+    if (kx < 1 || ky < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1 || slots < kx)
+        return (int)cudaErrorInvalidValue;
+    const PackParams p{g, g_bf16, aligned8(g, kc), ws, bias, act, P, slots, out, out_bf16,
+                       nxp, nyp, nz, kc, kx, ky, cout};
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int nx = nxp - kx + 1, ny = nyp - ky + 1, xc = slots - kx + 1;
+    const int N = kx * ky * cout;
+    const long long R = (long long)nyp * nz;
+    int done = 0;  // input planes whose products are in the ring
+    for (int x0 = 0; x0 < nx; x0 += xc) {
+        const int x1 = x0 + xc < nx ? x0 + xc : nx, hi = x1 + kx - 1;
+        const long long nrows = (hi - done) * R;
+        const dim3 grid((unsigned)((nrows + PM - 1) / PM), (N + PN - 1) / PN);
+        pack_products_kernel<<<grid, 256, 0, s>>>(p, done * R, nrows);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        done = hi;
+        const size_t total = (size_t)(x1 - x0) * ny * nz * cout;
+        pack_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p, x0, x1);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}

@@ -15,6 +15,12 @@ Parameters live in a plain dict ``theta`` of leaf tensors named as
 flax names them (``conv{i}_kernel`` with canonical shape
 ``(k, k, k, cin, cout)``, ``conv{i}_bias``), so `convert` carries them
 between the two packages.
+
+`_pallas_conv_layer` is the JAX package's other form of one layer (its
+probe path; `CNN` calls it in neither package): the z taps folded into
+channels (`_zfold`), x/y wrap pads and the tap layer of
+`ops/conv_kernels.py` (`make_conv_layer`: the pack-tile or tap-matmul
+kernels) on the same canonical weights (`_fold_w`).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv_kernels import make_fused_layer
+from ..ops.conv_kernels import make_conv_layer, make_fused_layer
 from .closure import collocate, create_closure, decollocate
 
 __all__ = ["cnn", "CNN"]
@@ -54,6 +60,43 @@ def lecun_normal_(w, generator=None):
     fan_in = math.prod(w.shape[:-1])
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def _zfold(h, r):
+    """Fold the z taps into channels: wrap-pad z by r and concatenate the
+    k = 2r + 1 z-shifted slices on channels, dz major (the JAX glue
+    without its zero pad to 128 lanes)."""
+    nz = h.shape[2]
+    hz = torch.cat([h[:, :, nz - r:], h, h[:, :, :r]], dim=2)
+    return torch.cat([hz[:, :, dz:dz + nz] for dz in range(2 * r + 1)], dim=-1)
+
+
+def _fold_w(w, dtype):
+    """Canonical (kx, ky, kz, cin, cout) weights -> z-folded (kx, ky,
+    kz·cin, cout) in ``dtype`` (dz major, as `_zfold` concatenates)."""
+    kx, ky, kz, cin, cout = w.shape
+    return w.reshape(kx, ky, kz * cin, cout).to(dtype)
+
+
+def _wrap_pad(g, r, dim):
+    n = g.shape[dim]
+    return torch.cat([g.narrow(dim, n - r, r), g, g.narrow(dim, 0, r)], dim=dim)
+
+
+def _pallas_conv_layer(h, w, b, r, pad_x, actname, compute_dtype, *, plain=False, pack=None):
+    """One closure conv layer through the tap layer: ``h`` per sample
+    (nx, ny, nz, cin), ``w`` canonical (k, k, k, cin, cout), ``b`` (cout,)
+    or None, ``actname`` "tanh" or "id".  Without ``pad_x`` the caller
+    supplies the x halo and the output has nx − 2r planes.  The operands
+    are rounded to ``compute_dtype``, the sums float32; returns (nx, ny,
+    nz, cout) in h's dtype.  ``plain=True`` runs the plain versions;
+    ``pack`` overrides `make_conv_layer`'s choice of forward."""
+    g = _zfold(h.to(compute_dtype), r)
+    if pad_x:
+        g = _wrap_pad(g, r, 0)
+    g = _wrap_pad(g, r, 1).contiguous()
+    layer = make_conv_layer(actname, b is not None, pack=pack, plain=plain)
+    return layer(g, _fold_w(w, compute_dtype), b).to(h.dtype)
 
 
 class CNN(nn.Module):

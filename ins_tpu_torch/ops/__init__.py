@@ -1,3 +1,9 @@
+from .conv_kernels import (  # noqa: F401
+    make_conv_layer,
+    packconv_3d,
+    tapconv_3d,
+    tapconv_wgrad_3d,
+)
 from .diffkernels import convdiff_roll  # noqa: F401
 from .eddyviscosity import (  # noqa: F401
     smagorinsky_closure_natural,
@@ -10,6 +16,10 @@ from .initializers import (  # noqa: F401
     scalarfield,
     temperaturefield,
     velocityfield,
+)
+from .perop_kernels import (  # noqa: F401
+    convdiff_periodic_uniform_3d,
+    momentum_stage_div_3d,
 )
 from .poisson_kernels import make_fused_projection  # noqa: F401
 from .pressure import default_psolver, psolver_spectral  # noqa: F401

@@ -27,6 +27,33 @@ dpre for the bias and the forward kernel on dpre with flipped,
 transposed taps for dh.  On the card the plain convolution goes through
 cuDNN: set ``torch.backends.cudnn.allow_tf32 = False`` for a float32
 reference (cuDNN defaults to TF32).
+
+The tap-matmul / pack-tile layer is the port of the rest of that file
+(`tapconv_3d`, `packconv_3d`, `tapconv_wgrad_3d`, `make_conv_layer`): a
+VALID correlation over (x, y) on a field whose z taps are already folded
+into its channels (`models.cnn._zfold`) and whose x and y are padded by
+kx − 1 and ky − 1, z a batch axis:
+
+    tapconv_3d(g, w2, bias, act)   g (nxp, nyp, nz, kc), w2 (kx, ky, kc, cout)
+                                   -> act(Σ_{dx,dy} g[x+dx, y+dy] @ w2[dx, dy] + bias)
+                                      (nxp − kx + 1, nyp − ky + 1, nz, cout)
+    packconv_3d(...)               the same function computed weight-first:
+                                   each input plane's products with every tap
+                                   once (float32), then the shifted tap sums
+    tapconv_wgrad_3d(g, ct, kx, ky) -> dW (kx, ky, kc, cout), float32
+
+with the rounding and sums of the fused layer (ct rounded to g's dtype
+first).  The JAX kernels' 128-lane contract (kc and nz multiples of 128,
+outputs lane-padded to `lanes(cout)` channels) is TPU plumbing: these
+take any kc, nz and cout (ky in 1, 3, 5 or 7 on the card) and return
+cout channels, so a g zero-padded to 128 lanes is still a valid input.
+The CUDA kernels are `csrc/tapconv.cu`; the plain versions are
+``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
+``conv3d_weight``.  `make_conv_layer` selects `packconv_3d` where
+``ky·cout <= 128`` (the JAX rule, so both packages run the same
+formulation on the same layers), else `tapconv_3d`; its backward is the
+JAX one: the wgrad kernel for dW and the tap kernel on the zero-padded
+cotangent with flipped, transposed taps for dG.
 """
 
 from __future__ import annotations
@@ -35,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .launches import LAUNCHES, check_cuda_tensors, current_stream, note_plain
+from .launches import LAUNCHES, check_cuda_tensors, current_stream, note_plain, ptr
 
 __all__ = [
     "ACTIVATIONS",
@@ -45,6 +72,14 @@ __all__ = [
     "fusedconv_wgrad_3d_plain",
     "flip_taps",
     "make_fused_layer",
+    "lanes",
+    "tapconv_3d",
+    "tapconv_3d_plain",
+    "packconv_3d",
+    "packconv_3d_plain",
+    "tapconv_wgrad_3d",
+    "tapconv_wgrad_3d_plain",
+    "make_conv_layer",
 ]
 
 # name -> (activation, d(act) from the activation's output y and the
@@ -80,8 +115,13 @@ def _check_shapes(name, h, k, c):
 def _padded(h, k, dtype):
     """(1, c, nx + k − 1, ...) circularly padded, in `dtype`."""
     r = k // 2
-    x = h.to(dtype).permute(3, 0, 1, 2).unsqueeze(0)
+    x = _channels_first(h, dtype)
     return F.pad(x, (r,) * 6, mode="circular") if r else x
+
+
+def _channels_first(t, dtype):
+    """(nx, ny, nz, c) -> (1, c, nx, ny, nz) in ``dtype``."""
+    return t.to(dtype).permute(3, 0, 1, 2).unsqueeze(0)
 
 
 def flip_taps(w):
@@ -99,11 +139,16 @@ def fusedconv_3d_plain(h, w, bias=None, act=None, *, out_dtype=None):
     acc = _acc_dtype(h.dtype)
     wt = w.to(h.dtype).to(acc).permute(4, 3, 0, 1, 2)  # (cout, cin, kx, ky, kz)
     y = F.conv3d(_padded(h, k, acc), wt)[0].permute(1, 2, 3, 0)
+    return _epilogue(y, bias, act_fn, out_dtype or h.dtype)
+
+
+def _epilogue(y, bias, act_fn, out_dtype):
+    """Bias and activation on the summed ``y``, stored as ``out_dtype``."""
     if bias is not None:
-        y = y + bias.to(acc)
+        y = y + bias.to(y.dtype)
     if act_fn is not None:
         y = act_fn(y)
-    return y.to(out_dtype or h.dtype)
+    return y.to(out_dtype)
 
 
 def fusedconv_wgrad_3d_plain(h, d, k):
@@ -113,7 +158,7 @@ def fusedconv_wgrad_3d_plain(h, d, k):
     acc = _acc_dtype(h.dtype)
     cin, cout = h.shape[-1], d.shape[-1]
     dw = torch.nn.grad.conv3d_weight(
-        _padded(h, k, acc), (cout, cin, k, k, k), d.to(acc).permute(3, 0, 1, 2).unsqueeze(0)
+        _padded(h, k, acc), (cout, cin, k, k, k), _channels_first(d, acc)
     )
     return dw.permute(2, 3, 4, 1, 0).to(torch.promote_types(acc, torch.float32))
 
@@ -226,5 +271,257 @@ def make_fused_layer(actname, has_bias, *, cin, cout, k, plain=False):
                 f"layer ({cin} -> {cout}, k={k}) got h {tuple(h.shape)}, w {tuple(w.shape)}"
             )
         return _FusedLayerFn.apply(h, w, bias if has_bias else None, actname, ops)
+
+    return layer
+
+
+# --------------------------------------------------------------------------
+# The tap-matmul / pack-tile layer on z-folded channels
+# --------------------------------------------------------------------------
+
+_TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into csrc/tapconv.cu
+# bytes of the pack kernel's float32 ring of plane products (at least kx
+# planes whatever this says): the kernel walks x in chunks that fit it
+_PACK_SCRATCH_BYTES = 1 << 30
+
+
+def lanes(c):
+    """``c`` rounded up to the JAX kernels' 128-lane tile (the shapes of
+    the JAX glue; the port's kernels take any channel count)."""
+    return -(-c // 128) * 128
+
+
+def _tap_shapes(name, g, w2):
+    """(kx, ky, kc, cout) of a tap layer, its operands checked."""
+    if g.dim() != 4 or w2.dim() != 4:
+        raise ValueError(f"{name}: expected g (nxp, nyp, nz, kc) and w2 (kx, ky, kc, cout), "
+                         f"got {tuple(g.shape)} and {tuple(w2.shape)}")
+    kx, ky, kc, cout = w2.shape
+    if g.shape[-1] != kc:
+        raise ValueError(f"{name}: g has {g.shape[-1]} channels, the weights take {kc}")
+    if g.shape[0] < kx or g.shape[1] < ky:
+        raise ValueError(f"{name}: g {tuple(g.shape)} is smaller than the taps ({kx}, {ky})")
+    return kx, ky, kc, cout
+
+
+def _ct_shape(name, g, ct, kx, ky):
+    """The cotangent's (nx, ny, nz), checked against g and the taps."""
+    if g.dim() != 4 or ct.dim() != 4:
+        raise ValueError(f"{name}: expected 4-D g and ct, got {tuple(g.shape)}, {tuple(ct.shape)}")
+    box = (g.shape[0] - kx + 1, g.shape[1] - ky + 1, g.shape[2])
+    if tuple(ct.shape[:3]) != box:
+        raise ValueError(f"{name}: ct of shape {tuple(ct.shape)}, expected {box} cells")
+    return box
+
+
+def _strip_height(ny, nys):
+    nys = ny if nys is None else int(nys)
+    if nys < 1 or ny % nys:
+        raise ValueError(f"packconv_3d: the strip height {nys} must divide ny = {ny}")
+    return nys
+
+
+def _pack_weights(w2):
+    """(kc, kx·ky·cout): every tap's weights side by side, column
+    (dx·ky + dy)·cout + o."""
+    kx, ky, kc, cout = w2.shape
+    return w2.permute(2, 0, 1, 3).reshape(kc, kx * ky * cout)
+
+
+def tapconv_3d_plain(g, w2, bias=None, act=None, *, out_dtype=None):
+    """Plain PyTorch version of `tapconv_3d`."""
+    note_plain("tapconv_3d", g)
+    _tap_shapes("tapconv_3d", g, w2)
+    acc = _acc_dtype(g.dtype)
+    wt = w2.to(g.dtype).to(acc).permute(3, 2, 0, 1).unsqueeze(-1)  # (cout, kc, kx, ky, 1)
+    y = F.conv3d(_channels_first(g, acc), wt)[0].permute(1, 2, 3, 0)
+    return _epilogue(y, bias, ACTIVATIONS[_actname(act)][0], out_dtype or g.dtype)
+
+
+def packconv_3d_plain(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
+    """Plain PyTorch version of `packconv_3d`, weight-first as the JAX
+    kernel: per y strip of ``nys`` rows (ky − 1 rows recomputed), every
+    input plane's products with all taps, then the shifted tap sums."""
+    note_plain("packconv_3d", g)
+    kx, ky, _, cout = _tap_shapes("packconv_3d", g, w2)
+    nx, ny = g.shape[0] - kx + 1, g.shape[1] - ky + 1
+    nys = _strip_height(ny, nys)
+    acc = _acc_dtype(g.dtype)
+    ws = _pack_weights(w2.to(g.dtype).to(acc))
+    strips = []
+    for y0 in range(0, ny, nys):
+        P = torch.einsum("xyzc,cn->xyzn", g[:, y0:y0 + nys + ky - 1].to(acc), ws)
+        P = P.reshape(*P.shape[:3], kx, ky, cout)
+        strips.append(sum(P[dx:dx + nx, dy:dy + nys, :, dx, dy]
+                          for dx in range(kx) for dy in range(ky)))
+    return _epilogue(torch.cat(strips, dim=1), bias, ACTIVATIONS[_actname(act)][0],
+                     out_dtype or g.dtype)
+
+
+def tapconv_wgrad_3d_plain(g, ct, kx, ky):
+    """Plain PyTorch version of `tapconv_wgrad_3d`."""
+    note_plain("tapconv_wgrad_3d", g)
+    _ct_shape("tapconv_wgrad_3d", g, ct, kx, ky)
+    acc = _acc_dtype(g.dtype)
+    kc, cout = g.shape[-1], ct.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(
+        _channels_first(g, acc), (cout, kc, kx, ky, 1), _channels_first(ct.to(g.dtype), acc)
+    )
+    return dw[..., 0].permute(2, 3, 1, 0).contiguous()
+
+
+def _tap_kernel_prep(name, g, w2, bias, out_dtype):
+    """Checks shared by the forward kernels; returns (device, (kx, ky, kc,
+    cout), the float32 bias or None, the empty output)."""
+    kx, ky, kc, cout = _tap_shapes(name, g, w2)
+    if ky not in _TAP_KY:
+        raise NotImplementedError(f"{name}: the CUDA kernel is built for ky in {_TAP_KY}")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: out_dtype {out_dtype} is not float32 or bfloat16")
+    device = check_cuda_tensors(name, _KERNEL_DTYPES, g=(g, tuple(g.shape)))
+    bk = None if bias is None else bias.detach().to(device, torch.float32).contiguous()
+    if bk is not None and bk.shape != (cout,):
+        raise ValueError(f"{name}: bias of shape {tuple(bk.shape)}")
+    out = torch.empty((g.shape[0] - kx + 1, g.shape[1] - ky + 1, g.shape[2], cout),
+                      dtype=out_dtype, device=device)
+    return device, (kx, ky, kc, cout), bk, out
+
+
+def tapconv_3d(g, w2, bias=None, act=None, *, out_dtype=None):
+    """Tap-matmul conv: ``out[x, y, z] = act(Σ_{dx,dy} g[x+dx, y+dy, z]
+    @ w2[dx, dy] + bias)`` for ``g (nxp, nyp, nz, kc)`` (z taps folded
+    into kc, x/y padded by kx − 1 / ky − 1), ``w2 (kx, ky, kc, cout)``,
+    ``bias (cout,)`` or None, ``act`` "tanh" or "id"/None.  Returns
+    ``(nxp − kx + 1, nyp − ky + 1, nz, cout)`` in ``out_dtype`` (default
+    g's dtype)."""
+    if g.device.type == "cpu":
+        return tapconv_3d_plain(g, w2, bias, act, out_dtype=out_dtype)
+    act, out_dtype = _actname(act), out_dtype or g.dtype
+    device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("tapconv_3d", g, w2, bias, out_dtype)
+    with torch.cuda.device(device):
+        wk = w2.detach().to(device=device, dtype=g.dtype).float().contiguous()
+        err = _build.load().ins_tapconv_fwd(
+            g.data_ptr(), int(g.dtype == torch.bfloat16), wk.data_ptr(), ptr(bk),
+            int(act == "tanh"), out.data_ptr(), int(out_dtype == torch.bfloat16), *g.shape,
+            kx, ky, cout, current_stream(device),
+        )
+        _build.check(err, "tapconv_3d")
+        LAUNCHES["tapconv_3d"] += 1
+    return out
+
+
+def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
+    """`tapconv_3d`'s function computed weight-first: each input plane's
+    products with every tap once, in float32, then the shifted tap sums.
+    ``nys`` (dividing ny) is the y-strip height of the plain version, as
+    in the JAX kernel; the result does not depend on it, and the CUDA
+    kernel walks x-chunks instead (a float32 ring of plane products of at
+    most ~1 GiB, one call of two launches a chunk)."""
+    if g.device.type == "cpu":
+        return packconv_3d_plain(g, w2, bias, act, out_dtype=out_dtype, nys=nys)
+    act, out_dtype = _actname(act), out_dtype or g.dtype
+    device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("packconv_3d", g, w2, bias, out_dtype)
+    _strip_height(out.shape[1], nys)
+    nxp, nyp, nz, _ = g.shape
+    plane = nyp * nz * kx * ky * cout
+    slots = min(nxp, max(kx, _PACK_SCRATCH_BYTES // (4 * plane)))
+    with torch.cuda.device(device):
+        ws = _pack_weights(w2.detach().to(device=device, dtype=g.dtype)).float().contiguous()
+        ring = torch.empty((slots, plane), dtype=torch.float32, device=device)
+        err = _build.load().ins_packconv(
+            g.data_ptr(), int(g.dtype == torch.bfloat16), ws.data_ptr(), ptr(bk),
+            int(act == "tanh"), ring.data_ptr(), slots, out.data_ptr(),
+            int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout, current_stream(device),
+        )
+        _build.check(err, "packconv_3d")
+        LAUNCHES["packconv_3d"] += 1
+    return out
+
+
+def tapconv_wgrad_3d(g, ct, kx, ky):
+    """Weight gradient of the tap layer: ``dW[dx, dy, c, o] =
+    Σ_{x,y,z} g[x+dx, y+dy, z, c]·ct[x, y, z, o]`` with ct rounded to g's
+    dtype first; float32 ``(kx, ky, kc, cout)``, the same on every run.
+    On the card the staged g window bounds kc (about 290 channels at
+    ky = 5; the kernel refuses more)."""
+    if g.device.type == "cpu":
+        return tapconv_wgrad_3d_plain(g, ct, kx, ky)
+    box = _ct_shape("tapconv_wgrad_3d", g, ct, kx, ky)
+    if ky not in _TAP_KY:
+        raise NotImplementedError(f"tapconv_wgrad_3d: the CUDA kernel is built for ky in {_TAP_KY}")
+    kc, cout = g.shape[-1], ct.shape[-1]
+    device = check_cuda_tensors("tapconv_wgrad_3d", _KERNEL_DTYPES, g=(g, tuple(g.shape)),
+                                ct=(ct, (*box, cout)))
+    with torch.cuda.device(device):
+        ctk = ct.to(g.dtype)
+        lib = _build.load()
+        nchunk = lib.ins_tapconv_wgrad_chunks(*box)
+        partial = torch.empty((nchunk, kx, ky, kc, cout), dtype=torch.float32, device=device)
+        dw = torch.empty((kx, ky, kc, cout), dtype=torch.float32, device=device)
+        err = lib.ins_tapconv_wgrad(
+            g.data_ptr(), int(g.dtype == torch.bfloat16), ctk.data_ptr(),
+            int(ctk.dtype == torch.bfloat16), partial.data_ptr(), dw.data_ptr(), *g.shape,
+            kx, ky, cout, current_stream(device),
+        )
+        _build.check(err, "tapconv_wgrad_3d")
+        LAUNCHES["tapconv_wgrad_3d"] += 1
+    return dw
+
+
+class _ConvLayerFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, w2, bias, actname, has_bias, usepack, ops):
+        tap, pack, _ = ops
+        y = (pack if usepack else tap)(g, w2, bias if has_bias else None, actname,
+                                       out_dtype=g.dtype)
+        ctx.save_for_backward(g, w2, y)
+        ctx.actname, ctx.ops, ctx.has_bias = actname, ops, has_bias
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        g, w2, y = ctx.saved_tensors
+        tap, _, wgrad = ctx.ops
+        kx, ky = w2.shape[:2]
+        acc = _acc_dtype(g.dtype)
+        dpre32 = ACTIVATIONS[ctx.actname][1](y.to(acc), ct.to(acc))
+        dpre = dpre32.to(g.dtype).contiguous()
+        dw = wgrad(g, dpre, kx, ky).to(w2.dtype) if ctx.needs_input_grad[1] else None
+        db = None
+        if ctx.needs_input_grad[2]:
+            db = dpre32.sum(dim=(0, 1, 2)) if ctx.has_bias else dpre32.new_zeros(w2.shape[3])
+            db = db.to(w2.dtype).to(ctx.bias_dtype)
+        dg = None
+        if ctx.needs_input_grad[0]:
+            # the full correlation:
+            # dg[x', y'] = Σ_{dx,dy} dpre[x' − dx, y' − dy] @ w2[dx, dy]ᵀ
+            ctp = F.pad(dpre, (0, 0, 0, 0, ky - 1, ky - 1, kx - 1, kx - 1))
+            dg = tap(ctp, w2.flip(0, 1).transpose(2, 3), None, "id", out_dtype=g.dtype)
+        return dg, dw, db, None, None, None, None
+
+
+def make_conv_layer(actname, has_bias, *, pack=None, plain=False):
+    """Differentiable tap layer ``layer(g, w2, bias) -> act(conv(g, w2) +
+    bias)`` on z-folded channels (see `tapconv_3d`), the port of the JAX
+    ``make_conv_layer``'s custom VJP.  Forward: `packconv_3d` where
+    ``ky·cout <= 128``, else `tapconv_3d` (``pack=True/False`` overrides).
+    Backward from the saved (g, w2, y), no pre-activation stored:
+    ``dpre = dact(y, ct)`` in float32, cast to g's dtype; dW by
+    `tapconv_wgrad_3d`, cast to w2's dtype; db the float32 sum of dpre
+    (cast to w2's dtype, zeros without a bias); dG by `tapconv_3d` on
+    dpre zero-padded by (kx − 1, ky − 1) with flipped, transposed taps.
+    ``bias`` is read only when ``has_bias``.  ``plain=True`` puts the
+    plain versions in both passes."""
+    actname = _actname(actname)
+    ops = ((tapconv_3d_plain, packconv_3d_plain, tapconv_wgrad_3d_plain) if plain
+           else (tapconv_3d, packconv_3d, tapconv_wgrad_3d))
+
+    def layer(g, w2, bias=None):
+        if has_bias and bias is None:
+            raise ValueError("the layer has a bias: pass it")
+        ky, cout = w2.shape[1], w2.shape[3]
+        usepack = pack if pack is not None else ky * cout <= 128
+        return _ConvLayerFn.apply(g, w2, bias, actname, has_bias, usepack, ops)
 
     return layer

@@ -55,9 +55,15 @@ KERNELS = (
     "convdiff_interior_3d",
     "stage_div_3d",
     "pressure_correct_3d",
-    # the closure convolutions (ops/conv_kernels.py)
+    # the unfused projection step's stage (ops/perop_kernels.py)
+    "momentum_stage_div_3d",
+    # the closure convolutions (ops/conv_kernels.py): the fused layer and
+    # the tap-matmul / pack-tile layer on z-folded channels
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
+    "tapconv_3d",
+    "packconv_3d",
+    "tapconv_wgrad_3d",
     # the wall-bounded channel (ops/channel_kernels.py)
     "channel_msd_3d",
     "channel_pressure_correct_3d",

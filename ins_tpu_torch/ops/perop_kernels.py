@@ -14,6 +14,20 @@ Each wrapper runs its hand-written CUDA kernel (`csrc/perop.cu`) for
 float32 CUDA tensors and raises on anything else on the card; for CPU
 tensors it runs its plain PyTorch version, beside it here.  The
 differentiable wrappers around them are in `ops/diffkernels.py`.
+
+The stage of the unfused projection step (`momentum_stage_div_3d` →
+Poisson solve → `pressure_correct_3d`, which the fused hat step
+replaces) and the ghosted form of the conv-diff are here too:
+
+    momentum_stage_div_3d          k = convdiff(u); ut = base + coeff·k;
+                                   div = vol·div(ut)   (a cube)
+    convdiff_periodic_uniform_3d   convdiff_interior_3d on the interior of
+                                   a ghosted (3, nx+2, ny+2, nz+2) field,
+                                   the ghost entries zero
+
+On the card `momentum_stage_div_3d` is `csrc/stage.cu`'s float32 stage
+with a stream base, no k streams, ``cnew = coeff``, k emitted and no
+transform after it (launch key ``"momentum_stage_div_3d"``).
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import torch
 from .. import _build
 from .diffkernels import convdiff_roll, roll_m, roll_p
 from .launches import LAUNCHES, check_cuda_tensors, current_stream, note_plain
+from .stage_kernels import _check_cube, _launch_stage, _stage_plain
 
 __all__ = [
     "convdiff_interior_3d",
@@ -32,6 +47,10 @@ __all__ = [
     "stage_div_3d_plain",
     "pressure_correct_3d",
     "pressure_correct_3d_plain",
+    "momentum_stage_div_3d",
+    "momentum_stage_div_3d_plain",
+    "convdiff_periodic_uniform_3d",
+    "convdiff_periodic_uniform_3d_plain",
 ]
 
 _F32 = (torch.float32,)
@@ -126,3 +145,48 @@ def pressure_correct_3d(ut_int, q_int, dxs):
         _build.check(err, "pressure_correct_3d")
         LAUNCHES["pressure_correct_3d"] += 1
     return u
+
+
+def momentum_stage_div_3d_plain(u_int, base_int, coeff, visc, dxs):
+    """Plain PyTorch version of `momentum_stage_div_3d`."""
+    note_plain("momentum_stage_div_3d", u_int)
+    _check_cube("momentum_stage_div_3d", u_int, base_int)
+    k, ut, div, _ = _stage_plain(u_int, base_int, [], [], coeff, visc, dxs, None, None, None,
+                                 None)
+    return k, ut, div
+
+
+def momentum_stage_div_3d(u_int, base_int, coeff, visc, dxs):
+    """Momentum, RK stage update and volume-scaled divergence in one pass
+    on the interior layout of a cube: ``k = convdiff(u)``, ``ut = base +
+    coeff·k``, ``div = vol·div(ut)``; returns ``(k, ut, div)``.
+    ``coeff`` is a number or a 0-d tensor (on the card the kernel takes
+    it as a float: a tensor there costs one host read)."""
+    if u_int.device.type == "cpu":
+        return momentum_stage_div_3d_plain(u_int, base_int, coeff, visc, dxs)
+    n = _check_cube("momentum_stage_div_3d", u_int, base_int)
+    check_cuda_tensors("momentum_stage_div_3d", _F32, u=(u_int, (3, n, n, n)),
+                       base=(base_int, (3, n, n, n)))
+    k, ut, div, *_ = _launch_stage(
+        "momentum_stage_div_3d", u_int, None, base_int, (), (), float(coeff), visc, dxs,
+        emit_k=True, usnew_coeff=None, usnew_base=None, emit_u=False, force=None, temp=None,
+    )
+    return k, ut, div
+
+
+def _ghost_pad(f):
+    return torch.nn.functional.pad(f, (1,) * 6)
+
+
+def convdiff_periodic_uniform_3d_plain(u, visc, dx):
+    """Plain PyTorch version of `convdiff_periodic_uniform_3d`."""
+    return _ghost_pad(convdiff_interior_3d_plain(u[:, 1:-1, 1:-1, 1:-1], visc, dx))
+
+
+def convdiff_periodic_uniform_3d(u, visc, dx):
+    """Convection + diffusion of a ghosted periodic field ``(3, nx+2,
+    ny+2, nz+2)`` (its ghosts are not read: the interior wraps); returns
+    F of the same shape with zero ghost entries."""
+    if u.device.type == "cpu":
+        return convdiff_periodic_uniform_3d_plain(u, visc, dx)
+    return _ghost_pad(convdiff_interior_3d(u[:, 1:-1, 1:-1, 1:-1].contiguous(), visc, dx))
