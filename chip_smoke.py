@@ -28,10 +28,20 @@ Phases, each raising on failure (exit code != 0, no result line):
    256³ each is timed against its plain version (CUDA events).
    The per-op and conv kernels of the training path and the closure
    run's 3-pass Poisson solve `make_poisson_pallas` are held against
-   their plain versions at 64³ and 128³ the same way (float32, and the
-   convolutions also with bf16 operands and a float32 output, which
-   differ from the plain version only in summation order), and timed at
+   their plain versions at 64³ and 128³ the same way, and timed at
    128³, the solve also against `make_poisson_mm`'s contractions.  The
+   fused conv layer runs on the tensor cores for bf16 operands
+   (`fusedconv_3d`, `fusedconv_wgrad_3d`) and on the FP32 FMA kernels for
+   float32 ones (`+f32`): the closure's three layers and the three
+   input-gradient forms (flipped, transposed taps) at k = 5 on the cube
+   in both routes, and on the tensor cores also at k = 3, 5 and 7 on the
+   ragged box (n/2, n - 24, n + 8), with two wider layers there (40 -> 40
+   at k = 3: two input chunks and two output blocks; 16 -> 13 at k = 5),
+   each with a bf16 and a float32 output, against the plain version in
+   float64 (the kernels differ from the plain version on the same
+   rounded operands only in summation order: 1e-4 relative, one bf16 ulp
+   for a bf16 output); the weight gradients against the plain version in
+   float64, and two calls of the bf16 one bit-identical.  The
    solve gate: `make_poisson_pallas` against `make_poisson_mm` at 64³,
    128³ and 256³ (held against each other; wall ms per solve in turns and
    device ms per solve from torch.profiler), printed beside the solve the
@@ -49,10 +59,12 @@ Phases, each raising on failure (exit code != 0, no result line):
    (24, 24, 3), tanh/tanh/identity, 5 unrolled steps with remat) with
    respect to the CNN parameters.  With float32 convs the kernel run's
    loss and gradient agree with the plain run on the card (loss
-   relative <= 1e-5, each leaf's gradient relative L2 <= 1e-3); with
-   the default bf16 convs the run is finite, launches every training
-   kernel and no plain version on the card, and its gradient agrees
-   with the plain bf16 run to relative L2 <= 1e-2.  Then seconds per
+   relative <= 1e-5, each leaf's gradient relative L2 <= 1e-3) and its
+   convolutions take the FMA kernels alone (`fusedconv_3d+f32`,
+   `fusedconv_wgrad_3d+f32`); with the default bf16 convs the run is
+   finite, launches every training kernel (the tensor-core convs, none
+   of the `+f32` ones) and no plain version on the card, and its
+   gradient agrees with the plain bf16 run to relative L2 <= 1e-2.  Then seconds per
    gradient step (kernels and plain in turns) and peak memory, three
    Adam `train` iterations (finite losses) and a 10-step
    `solve_unsteady` with the closure attached (finite, divergence-free
@@ -330,7 +342,8 @@ class Case(NamedTuple):
     operations it does (of type ``peak``), for its bound; ``library`` is
     one PyTorch call computing the same function, timed as a yardstick;
     ``derived``, where given, maps either side's outputs to further
-    tensors held to the same bound (an update a small step size hides)."""
+    tensors held to the same bound (an update a small step size hides);
+    ``time=False`` leaves the case out of the timings."""
 
     label: str
     kfn: Any
@@ -341,6 +354,7 @@ class Case(NamedTuple):
     peak: str = "fp32"
     library: Any = None
     derived: Any = None
+    time: bool = True
 
 
 def nbytes(tensors):
@@ -645,6 +659,8 @@ def training_kernel_cases(n):
         ],
         "fusedconv_3d": [],
         "fusedconv_wgrad_3d": [],
+        "fusedconv_3d+f32": [],
+        "fusedconv_wgrad_3d+f32": [],
     }
     # the closure run's 3-pass solve: passes A and C (two plane GEMMs of
     # 2 n^4 each) and the folded pass B
@@ -661,28 +677,18 @@ def training_kernel_cases(n):
              ops=4 * 2.0 * n**4 + fold_ops(n, proj["fold_levels"]),
              library=lambda: solve_mm(f)),
     ]
-    # the closure's layers: (cin, cout, act, bias); k = 5
-    layers = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
+    # the closure's layers: (cin, cout, act, bias); k = 5.  bf16 operands
+    # run the tensor-core kernels, float32 ones the FMA kernels ("+f32")
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         peak = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for cin, cout, act, has_bias in layers:
+        sfx = "" if dtype == torch.bfloat16 else "+f32"
+        for cin, cout, act, has_bias in CONV_LAYERS:
             h = field(n, n, n, cin).to(dtype)
             w = field(5, 5, 5, cin, cout, scale=(125 * cin) ** -0.5)
             b = field(cout, scale=0.1) if has_bias else None
             d = field(n, n, n, cout).to(dtype)
             conv_ops = 2 * 125 * cin * cout * cells
-
-            def fwd(impl, h=h, w=w, b=b, act=act):
-                return lambda: (impl(h, w, b, act, out_dtype=torch.float32),)
-
-            def dh(impl, d=d, w=w):
-                return lambda: (impl(d, ck.flip_taps(w), None, None, out_dtype=torch.float32),)
-
-            def wgrad(impl, h=h, d=d, exact=False):
-                if exact:  # the plain version on the same values in float64
-                    return lambda: (impl(h.double(), d.double(), 5),)
-                return lambda: (impl(h, d, 5),)
 
             # the library yardsticks: cuDNN on the circularly padded input in
             # the operands' dtype (the pad made once, outside the timing)
@@ -691,29 +697,124 @@ def training_kernel_cases(n):
             bt = None if b is None else b.to(dtype)
             dt_ = d.permute(3, 0, 1, 2).unsqueeze(0)
 
-            cases["fusedconv_3d"] += [
+            cases["fusedconv_3d" + sfx] += [
                 Case(f"{cin}->{cout} {act}{'+bias' if has_bias else ''} {tag}",
-                     fwd(ck.fusedconv_3d), fwd(ck.fusedconv_3d_plain),
+                     conv_fwd(ck.fusedconv_3d, h, w, b, act),
+                     conv_fwd(ck.fusedconv_3d_plain, h, w, b, act),
                      inputs=(h, w, b), ops=conv_ops, peak=peak,
                      library=lambda hp=hp, wt=wt, bt=bt: F.conv3d(hp, wt, bt)),
+                # the input gradient the backward pass takes
+                Case(f"dh {cout}->{cin} flipped taps {tag}",
+                     conv_fwd(ck.fusedconv_3d, d, ck.flip_taps(w)),
+                     conv_fwd(ck.fusedconv_3d_plain, d, ck.flip_taps(w))),
             ]
-            if cin == 24:  # the input gradients the backward pass takes
-                cases["fusedconv_3d"] += [
-                    Case(f"dh {cout}->{cin} flipped taps {tag}",
-                         dh(ck.fusedconv_3d), dh(ck.fusedconv_3d_plain)),
-                ]
             # cuDNN's float32 weight gradient (the plain version's) is itself
             # ~7e-5 off the float64 sum at 128³, so the kernel is held
             # against the plain version evaluated in float64
-            cases["fusedconv_wgrad_3d"] += [
-                Case(f"dw {cin}x{cout} {tag}", wgrad(ck.fusedconv_wgrad_3d),
-                     wgrad(ck.fusedconv_wgrad_3d_plain),
-                     ref=wgrad(ck.fusedconv_wgrad_3d_plain, exact=True),
+            cases["fusedconv_wgrad_3d" + sfx] += [
+                Case(f"dw {cin}x{cout} {tag}", conv_wgrad(ck.fusedconv_wgrad_3d, h, d, 5),
+                     conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, 5),
+                     ref=conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, 5, exact=True),
                      inputs=(h, d), ops=conv_ops, peak=peak,
                      library=lambda hp=hp, dt_=dt_, cin=cin, cout=cout:
                          torch.nn.grad.conv3d_weight(hp, (cout, cin, 5, 5, 5), dt_)),
             ]
+    # the tensor-core kernels at every k on the ragged box, the three layers
+    # and their input-gradient forms (and wider layers: two input chunks and
+    # two output blocks; 16-channel chunks and two n8 tiles), with a bf16 and
+    # a float32 output, held against the plain version in float64 (rounded
+    # to the output's dtype): cuDNN's float32 sum is itself off by more than
+    # a bf16 ulp of the small outputs at k = 5 and 7
+    ragged = [(k, layer) for k in (3, 5, 7) for layer in CONV_LAYERS] + [
+        (3, (40, 40, "tanh", True)), (5, (16, 13, "id", False))]
+    for k, (cin, cout, act, has_bias) in ragged:
+        h, w, b, d = conv_operands(field, box, cin, cout, k, has_bias)
+        wf = ck.flip_taps(w)
+        for odt in (torch.bfloat16, torch.float32):
+            otag = "bf16" if odt == torch.bfloat16 else "f32"
+            cases["fusedconv_3d"] += [
+                Case(f"{cin}->{cout} k={k} box {box} out {otag}",
+                     conv_fwd(ck.fusedconv_3d, h, w, b, act, odt),
+                     conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt),
+                     ref=conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt, exact=True),
+                     time=False),
+                Case(f"dh {cout}->{cin} k={k} box {box} out {otag}",
+                     conv_fwd(ck.fusedconv_3d, d, wf, out_dtype=odt),
+                     conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt),
+                     ref=conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt, exact=True),
+                     time=False),
+            ]
+        cases["fusedconv_wgrad_3d"] += [
+            Case(f"dw {cin}x{cout} k={k} box {box}",
+                 conv_wgrad(ck.fusedconv_wgrad_3d, h, d, k),
+                 conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k),
+                 ref=conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k, exact=True),
+                 time=False),
+        ]
     return cases
+
+
+# the closure's conv layers: (cin, cout, act, bias)
+CONV_LAYERS = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
+
+
+def conv_operands(field, box, cin, cout, k, has_bias):
+    """(h, w, b, d) of a (cin -> cout, k) layer on `box`: h and d bf16, w
+    and b float32, w scaled by 1/sqrt(fan-in)."""
+    import torch
+
+    h = field(*box, cin).to(torch.bfloat16)
+    w = field(k, k, k, cin, cout, scale=(k**3 * cin) ** -0.5)
+    b = field(cout, scale=0.1) if has_bias else None
+    return h, w, b, field(*box, cout).to(torch.bfloat16)
+
+
+def conv_fwd(impl, h, w, b=None, act=None, out_dtype=None, exact=False):
+    """A case function: the fused conv layer ``impl`` (kernel or plain
+    version) with a float32 output unless `out_dtype` says otherwise;
+    `exact`: the plain version on the same rounded values in float64."""
+    import torch
+
+    odt = out_dtype or torch.float32
+    if exact:
+        return lambda: (impl(h.double(), w.to(h.dtype).double(), b, act, out_dtype=odt),)
+    return lambda: (impl(h, w, b, act, out_dtype=odt),)
+
+
+def conv_wgrad(impl, h, d, k, exact=False):
+    """A case function: the weight gradient ``impl``; `exact`: the plain
+    version on the same values in float64."""
+    if exact:
+        return lambda: (impl(h.double(), d.double(), k),)
+    return lambda: (impl(h, d, k),)
+
+
+def check_wgrad_repeatable(n):
+    """Two calls of the bf16 weight-gradient kernel give the same bits, on
+    the cube at k = 5 and on the ragged box at k = 3, 5 and 7."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+
+    rng = np.random.default_rng(SEED + 11 * n)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(DEVICE)
+
+    box = (n // 2, n - 24, n + 8)
+    for shape, ks in (((n, n, n), (5,)), (box, (3, 5, 7))):
+        for k in ks:
+            for cin, cout, _, _ in CONV_LAYERS:
+                h, _, _, d = conv_operands(field, shape, cin, cout, k, False)
+                first = ck.fusedconv_wgrad_3d(h, d, k)
+                second = ck.fusedconv_wgrad_3d(h, d, k)
+                if not torch.equal(first, second):
+                    diff = (first - second).abs().max().item()
+                    fail(f"fusedconv_wgrad_3d {cin}x{cout} k={k} on {shape}: two calls differ "
+                         f"by {diff:.3e}")
+    print(f"[kernels] n={n} fusedconv_wgrad_3d: two calls bit-identical on {(n,) * 3} (k=5) "
+          f"and on {box} (k=3, 5, 7), each layer")
 
 
 def conv_gflop(label, n):
@@ -759,11 +860,16 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                 extra = ""
                 if c.ref:
                     plain = c.pfn()
+
+                    def off(a, p):  # bf16 ulps for a bf16 output, else relative
+                        if p.dtype == torch.bfloat16:
+                            return f"{ulp_ratio(a, p):.3f} bf16 ulp"
+                        return f"{rel_err(a.to(p.dtype), p):.3e}"
+
                     extra = ("; the float32 plain version is off that reference by "
-                             + ", ".join(f"{rel_err(q.to(p.dtype), p):.3e}"
-                                         for q, p in zip(plain, ref))
+                             + ", ".join(off(q, p) for q, p in zip(plain, ref))
                              + ", the kernel off it by "
-                             + ", ".join(f"{rel_err(g, q):.3e}" for g, q in zip(got, plain)))
+                             + ", ".join(off(g, q) for g, q in zip(got, plain)))
                 print(f"[kernels] n={n} {name} [{c.label}]: max rel err per output "
                       + ", ".join(f"{e:.3f} bf16 ulp" if b else f"{e:.3e}"
                                   for e, b in zip(errs, bf))
@@ -777,6 +883,8 @@ def phase_kernels(cases_fn, sizes, time_all=()):
             for i, c in enumerate(cases):
                 if i and name not in time_all:
                     break
+                if not c.time:
+                    continue
                 p1 = cuda_ms(c.pfn)
                 k1 = cuda_ms(c.kfn)
                 k2 = cuda_ms(c.kfn)
@@ -1047,14 +1155,22 @@ def phase_training(n, nunroll):
     print(f"[train] {n}^3 RK44 Re=2000, CNN (2,2,2)/(24,24,3), {nunroll} unrolled "
           f"steps with remat")
 
-    # 1. float32 convs: kernel run against the plain run on the card
+    # 1. float32 convs (the FMA kernels, "+f32"): kernel run against the
+    # plain run on the card
     runs = {}
     for plain in (False, True):
         _, theta, loss = build_training(setup, compute_dtype=torch.float32, plain=plain)
+        launches.reset_counts()
         t0 = time.perf_counter()
         runs[plain] = value_and_grad(loss, data, theta)
+        if not plain:
+            f32_counts = {k: launches.LAUNCHES[k] for k in CONV_KEYS}
         print(f"[train] f32 convs, {'plain' if plain else 'kernels'}: loss "
               f"{runs[plain][0].item():.9e} ({time.perf_counter() - t0:.3f} s)")
+    print(f"[train] f32 convs, kernels: conv launches {f32_counts}")
+    if any(f32_counts[k] <= 0 for k in F32_CONV_KERNELS) or any(
+            f32_counts[k] for k in CONV_KEYS if k not in F32_CONV_KERNELS):
+        fail(f"the float32 run did not take the FMA conv kernels alone: {f32_counts}")
     (lk, gk), (lp, gp) = runs[False], runs[True]
     lrel = abs(lk.item() - lp.item()) / abs(lp.item())
     grel = {k: rel_l2(gk[k], gp[k]) for k in gk}
@@ -1080,6 +1196,9 @@ def phase_training(n, nunroll):
     missing = [k for k in TRAINING_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"training kernels never launched: {missing}")
+    if any(counts[k] for k in F32_CONV_KERNELS):
+        fail(f"the bf16 run launched the float32 conv kernels: "
+             f"{ {k: counts[k] for k in F32_CONV_KERNELS} }")
     if any(plain_calls.values()):
         fail(f"plain versions ran on CUDA tensors in the kernel run: {plain_calls}")
     _, theta_p, loss_p = build_training(setup, plain=True)
@@ -1147,6 +1266,7 @@ def phase_training(n, nunroll):
              f"{POISSON_PALLAS_MIN_N})")
     check_divergence(u, float(csetup.grid.delta[0][0]), "closure run")
     counts["poisson_pallas"] = launches.LAUNCHES["poisson_pallas"]
+    counts.update({k: f32_counts[k] for k in F32_CONV_KERNELS})
     return counts
 
 
@@ -1169,10 +1289,16 @@ def phase_profile_training(n, nunroll):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         value_and_grad(loss, data, theta)
     events = prof.key_averages()
-    dev = sum(e.self_device_time_total for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in cuda) / 1e6
+    # the fused conv layer's kernels: forward (also dh), weight gradient and
+    # its fixed-order sum of partials
+    conv = sum(e.self_device_time_total for e in cuda
+               if any(s in e.key for s in ("conv_fwd", "wgrad_kernel", "wgrad_mma",
+                                           "reduce_partials"))) / 1e6
     print(f"[profile] one bf16 gradient step: {wall:.3f} s wall (unprofiled), "
-          f"{dev:.3f} s of kernel time (profiled); idle share {max(0.0, 1 - dev / wall):.3f}")
+          f"{dev:.3f} s of kernel time (profiled); idle share {max(0.0, 1 - dev / wall):.3f}; "
+          f"fused conv kernels {conv:.3f} s ({conv / dev:.3f} of the kernel time)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=20))
 
 
@@ -3105,6 +3231,9 @@ TRAINING_KERNELS = (
     "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
     "fusedconv_3d", "fusedconv_wgrad_3d",
 )
+# the fused conv layer's float32 route (phase 3's float32 run)
+F32_CONV_KERNELS = ("fusedconv_3d+f32", "fusedconv_wgrad_3d+f32")
+CONV_KEYS = ("fusedconv_3d", "fusedconv_wgrad_3d") + F32_CONV_KERNELS
 CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
 TEMP_KERNELS = ("pcmsd_hat_3d+temp", "momentum_stage_divhat_3d+temp")
 HALO_KERNELS = ("momentum_stage_divhat_halo_3d", "pcmsd_hat_halo_3d",
@@ -3135,6 +3264,8 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pressure_correct_3d": ("ins_tpu_torch/csrc/perop.cu", "ins_tpu/ops/pallas_kernels.py:3546"),
     "fusedconv_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:780"),
     "fusedconv_wgrad_3d": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:918"),
+    "fusedconv_3d+f32": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:780"),
+    "fusedconv_wgrad_3d+f32": ("ins_tpu_torch/csrc/conv.cu", "ins_tpu/ops/convkernels.py:918"),
     "channel_msd_3d": ("ins_tpu_torch/csrc/channel.cu", "ins_tpu/ops/channel_kernels.py:333"),
     "channel_pressure_correct_3d": ("ins_tpu_torch/csrc/channel.cu",
                                     "ins_tpu/ops/channel_kernels.py:503"),
@@ -3210,8 +3341,9 @@ def main():
     del setup
     torch.cuda.empty_cache()
     phase_done("phase 2 (main path)")
-    results.update(phase_kernels(training_kernel_cases, (64, 128),
-                                 time_all=("fusedconv_3d", "fusedconv_wgrad_3d")))
+    results.update(phase_kernels(training_kernel_cases, (64, 128), time_all=CONV_KEYS))
+    for n in (64, 128):
+        check_wgrad_repeatable(n)
     train_counts = phase_training(128, nunroll=5)
     if args.profile:
         phase_profile_training(128, nunroll=5)
@@ -3272,7 +3404,7 @@ def main():
     tap_counts["momentum_stage_div_3d"] = phase_unfused_step(256)
     phase_done("phase 11 (tap conv layer and unfused stage)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
-              **{k: train_counts[k] for k in TRAINING_KERNELS},
+              **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},

@@ -116,6 +116,15 @@ _SIGNATURES = {
         [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr],
         _c_int,
     ),
+    "ins_conv_fwd_mma": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 11 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_conv_wgrad_mma_chunks": ([_c_int] * 6, _c_int),
+    "ins_conv_wgrad_mma": (
+        [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
+        _c_int,
+    ),
     "ins_tapconv_fwd": (
         [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 7 + [_c_ptr],
         _c_int,

@@ -20,7 +20,14 @@ card), tanh or identity, float32 or bfloat16.
 Each wrapper runs its hand-written CUDA kernel (`csrc/conv.cu`) for CUDA
 tensors and raises on what the kernel does not take; for CPU tensors it
 runs its plain version beside it (circular pad and ``F.conv3d`` on the
-rounded operands).  `make_fused_layer` wraps both kernels as a
+rounded operands).  On the card the operands' dtype picks the kernel:
+bfloat16 operands (the CNN's default ``compute_dtype``) run the
+tensor-core kernels, whose z taps fold into the contraction over the
+packed weights of `pack_conv_weights` (`mma_geometry` gives the shapes;
+the weight gradient comes back packed and `unpack_conv_wgrad` restores
+the canonical layout); float32 operands run the FP32 FMA kernels (launch
+keys ``"fusedconv_3d+f32"``, ``"fusedconv_wgrad_3d+f32"``).  Nothing
+falls back from one to the other.  `make_fused_layer` wraps both kernels as a
 `torch.autograd.Function`: forward kernel; backward ``dpre = dact(y, ct)``
 in float32 cast to h's dtype, the wgrad kernel for dw, the float32 sum of
 dpre for the bias and the forward kernel on dpre with flipped,
@@ -58,6 +65,8 @@ cotangent with flipped, transposed taps for dG.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -71,6 +80,9 @@ __all__ = [
     "fusedconv_wgrad_3d",
     "fusedconv_wgrad_3d_plain",
     "flip_taps",
+    "mma_geometry",
+    "pack_conv_weights",
+    "unpack_conv_wgrad",
     "make_fused_layer",
     "lanes",
     "tapconv_3d",
@@ -130,6 +142,69 @@ def flip_taps(w):
     return w.flip(0, 1, 2).transpose(3, 4)
 
 
+class MmaGeometry(NamedTuple):
+    """Shapes of the tensor-core route for a (cin -> cout, k) layer: input
+    channels in ``nch`` chunks of ``cw`` (a multiple of 8, at most 24;
+    channels past cin are zero), a chunk's z-folded contraction ``k·cw``
+    padded to ``kp`` (a multiple of 16), output channels padded to ``np``
+    in blocks of ``nt`` n8 tiles (``nt <= 3``)."""
+
+    cw: int
+    nch: int
+    kp: int
+    nt: int
+    np: int
+
+
+def mma_geometry(cin, cout, k):
+    """`MmaGeometry` of a (cin -> cout, k) layer: (24, 1, 128, 3, 24) for
+    24 -> 24 at k = 5, (8, 1, 48, 3, 24) for 3 -> 24, (24, 1, 128, 1, 8)
+    for 24 -> 3."""
+    c8 = -(-cin // 8)
+    nch = -(-c8 // 3)
+    cw = 8 * -(-c8 // nch)
+    n8 = -(-cout // 8)
+    nblk = -(-n8 // 3)
+    nt = -(-n8 // nblk)
+    return MmaGeometry(cw, nch, -(-k * cw // 16) * 16, nt, nblk * nt * 8)
+
+
+def pack_conv_weights(w):
+    """Canonical ``(k, k, k, cin, cout)`` weights -> the tensor-core
+    kernels' ``(k, k, nch·kp, np)``: row ``ch·kp + dz·cw + c`` of tap
+    (dx, dy) holds ``w[dx, dy, dz, ch·cw + c]``, zero past cin, past
+    ``k·cw`` rows of a chunk and past cout columns (`mma_geometry`).  The
+    forward over it is, for each (dx, dy, chunk), the window
+    ``row[z·cw : z·cw + kp]`` of the wrap-padded, channel-padded input row
+    (x + dx − r, y + dy − r) times that tap's (kp, np) block."""
+    k, cin, cout = w.shape[0], w.shape[3], w.shape[4]
+    g = mma_geometry(cin, cout, k)
+    wc = F.pad(w, (0, g.np - cout, 0, g.nch * g.cw - cin))
+    wc = wc.reshape(k, k, k, g.nch, g.cw, g.np).permute(0, 1, 3, 2, 4, 5)
+    wc = wc.reshape(k, k, g.nch, k * g.cw, g.np)
+    return F.pad(wc, (0, 0, 0, g.kp - k * g.cw)).reshape(k, k, g.nch * g.kp, g.np)
+
+
+def _stageable(t):
+    """A channels-last bf16 field as the tensor-core kernels stage it, 16
+    bytes a copy: its channels padded with zeros to a multiple of 8, its
+    data 16-byte aligned."""
+    pad = -t.shape[-1] % 8
+    if pad:
+        return F.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def unpack_conv_wgrad(dwp, k, cin, cout):
+    """The packed ``(k, k, nch·kp, np)`` weight gradient -> canonical
+    ``(k, k, k, cin, cout)`` (the inverse of `pack_conv_weights` on the
+    rows and columns it fills)."""
+    g = mma_geometry(cin, cout, k)
+    d = dwp.reshape(k, k, g.nch, g.kp, g.np)[:, :, :, : k * g.cw, :cout]
+    d = d.reshape(k, k, g.nch, k, g.cw, cout).permute(0, 1, 3, 2, 4, 5)
+    return d.reshape(k, k, k, g.nch * g.cw, cout)[..., :cin, :].contiguous()
+
+
 def fusedconv_3d_plain(h, w, bias=None, act=None, *, out_dtype=None):
     """Plain PyTorch version of `fusedconv_3d`."""
     note_plain("fusedconv_3d", h)
@@ -187,18 +262,26 @@ def fusedconv_3d(h, w, bias=None, act=None, *, out_dtype=None):
     box = tuple(h.shape[:3])
     device = _check_kernel_operands("fusedconv_3d", k, h=(h, (*box, cin)))
     with torch.cuda.device(device):
-        wk = w.detach().to(device=device, dtype=h.dtype).float().contiguous()
         bk = None if bias is None else bias.detach().to(device, torch.float32).contiguous()
         if bk is not None and bk.shape != (cout,):
             raise ValueError(f"fusedconv_3d: bias of shape {tuple(bk.shape)}")
         out = torch.empty((*box, cout), dtype=out_dtype, device=device)
-        err = _build.load().ins_conv_fwd(
-            h.data_ptr(), int(h.dtype == torch.bfloat16), wk.data_ptr(),
-            None if bk is None else bk.data_ptr(), int(act == "tanh"), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), *box, cin, cout, k, current_stream(device),
-        )
-        _build.check(err, "fusedconv_3d")
-        LAUNCHES["fusedconv_3d"] += 1
+        lib = _build.load()
+        common = (int(act == "tanh"), out.data_ptr(), int(out_dtype == torch.bfloat16), *box)
+        stream = current_stream(device)
+        if h.dtype == torch.bfloat16:
+            wp = pack_conv_weights(w.detach().to(device=device, dtype=h.dtype)).contiguous()
+            hs = _stageable(h)
+            err = lib.ins_conv_fwd_mma(hs.data_ptr(), wp.data_ptr(), ptr(bk), *common,
+                                       hs.shape[-1], cout, k, *mma_geometry(cin, cout, k), stream)
+            key = "fusedconv_3d"
+        else:
+            wk = w.detach().to(device=device, dtype=h.dtype).contiguous()
+            err = lib.ins_conv_fwd(h.data_ptr(), 0, wk.data_ptr(), ptr(bk), *common, cin, cout,
+                                   k, stream)
+            key = "fusedconv_3d+f32"
+        _build.check(err, key)
+        LAUNCHES[key] += 1
     return out
 
 
@@ -207,26 +290,37 @@ def fusedconv_wgrad_3d(h, d, k):
     ``dw[dx, dy, dz, c, o] = Σ_cells h[x+dx−r, y+dy−r, z+dz−r, c]·d[x, y, z, o]``
     for ``h (nx, ny, nz, cin)`` and the pre-activation cotangent
     ``d (nx, ny, nz, cout)``; float32 ``(k, k, k, cin, cout)``, the same
-    on every run."""
+    on every run.  On the card h and d share one dtype (bfloat16: the
+    tensor-core kernel; float32: the FMA kernel)."""
     if h.device.type == "cpu":
         return fusedconv_wgrad_3d_plain(h, d, k)
     _check_shapes("fusedconv_wgrad_3d", h, k, h.shape[-1])
     box, cin, cout = tuple(h.shape[:3]), h.shape[-1], d.shape[-1]
     device = _check_kernel_operands(
-        "fusedconv_wgrad_3d", k, h=(h, (*box, cin)), d=(d, (*box, cout))
+        "fusedconv_wgrad_3d", k, h=(h, (*box, cin)), d=(d, (*box, cout), (h.dtype,))
     )
     with torch.cuda.device(device):
         lib = _build.load()
+        if h.dtype == torch.bfloat16:
+            g = mma_geometry(cin, cout, k)
+            nchunk = lib.ins_conv_wgrad_mma_chunks(*box, k, g.nch, g.np // (8 * g.nt))
+            shape = (k, k, g.nch * g.kp, g.np)
+            partial = torch.empty((nchunk, *shape), dtype=torch.float32, device=device)
+            dwp = torch.empty(shape, dtype=torch.float32, device=device)
+            hs, ds = _stageable(h), _stageable(d)
+            err = lib.ins_conv_wgrad_mma(hs.data_ptr(), ds.data_ptr(), partial.data_ptr(),
+                                         dwp.data_ptr(), *box, hs.shape[-1], ds.shape[-1], k,
+                                         *g, current_stream(device))
+            _build.check(err, "fusedconv_wgrad_3d")
+            LAUNCHES["fusedconv_wgrad_3d"] += 1
+            return unpack_conv_wgrad(dwp, k, cin, cout)
         nchunk = lib.ins_conv_wgrad_chunks(*box)
         partial = torch.empty((nchunk, k, k, k, cin, cout), dtype=torch.float32, device=device)
         dw = torch.empty((k, k, k, cin, cout), dtype=torch.float32, device=device)
-        err = lib.ins_conv_wgrad(
-            h.data_ptr(), int(h.dtype == torch.bfloat16), d.data_ptr(),
-            int(d.dtype == torch.bfloat16), partial.data_ptr(), dw.data_ptr(), *box,
-            cin, cout, k, current_stream(device),
-        )
-        _build.check(err, "fusedconv_wgrad_3d")
-        LAUNCHES["fusedconv_wgrad_3d"] += 1
+        err = lib.ins_conv_wgrad(h.data_ptr(), 0, d.data_ptr(), 0, partial.data_ptr(),
+                                 dw.data_ptr(), *box, cin, cout, k, current_stream(device))
+        _build.check(err, "fusedconv_wgrad_3d+f32")
+        LAUNCHES["fusedconv_wgrad_3d+f32"] += 1
     return dw
 
 

@@ -57,10 +57,13 @@ KERNELS = (
     "pressure_correct_3d",
     # the unfused projection step's stage (ops/perop_kernels.py)
     "momentum_stage_div_3d",
-    # the closure convolutions (ops/conv_kernels.py): the fused layer and
-    # the tap-matmul / pack-tile layer on z-folded channels
+    # the closure convolutions (ops/conv_kernels.py): the fused layer (bf16
+    # operands on the tensor cores; "+f32": float32 operands on the FMA
+    # kernels) and the tap-matmul / pack-tile layer on z-folded channels
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
+    "fusedconv_3d+f32",
+    "fusedconv_wgrad_3d+f32",
     "tapconv_3d",
     "packconv_3d",
     "tapconv_wgrad_3d",

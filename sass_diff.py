@@ -1,6 +1,7 @@
 """Compare the SASS of the port's CUDA sources between two trees.
 
     python3 sass_diff.py OLD_CSRC NEW_CSRC stage.cu smag.cu ...
+    python3 sass_diff.py --opcode HMMA OLD_CSRC NEW_CSRC conv.cu
 
 (from the root of the repository, beside `chip_smoke.py`)
 
@@ -12,8 +13,10 @@ disassembles it with `cuobjdump -sass` and compares every kernel
 instruction by instruction (addresses and encodings stripped). Prints
 one line per kernel: its instruction count in each tree and whether the
 two are identical (a kernel renamed by a new template flag is matched by
-its code), or that it is new. Exits 1 if a kernel of the old tree
-changed or went.
+its code), or that it is new; with ``--opcode OP``, also how many of each
+new-tree kernel's instructions have an opcode starting with OP, and their
+forms (e.g. ``HMMA.16816.F32.BF16``: the tensor cores). Exits 1 if a
+kernel of the old tree changed or went.
 It needs `nvcc` and `cuobjdump` (the CUDA toolkit), so it runs on the
 machine with the card.
 """
@@ -74,6 +77,9 @@ def sass(csrc: Path, name: str, work: Path) -> dict:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    opcode = None
+    if args[:1] == ["--opcode"] and len(args) > 1:
+        opcode, args = args[1], args[2:]
     if len(args) < 3:
         print(__doc__)
         return 2
@@ -102,6 +108,12 @@ def main(argv=None) -> int:
                           f"{twins[k]}")
             for t in sorted(set(added) - set(twins.values())):
                 print(f"[sass] {name} {t}: new, {len(new[t])} instructions")
+            if opcode:
+                for k in sorted(new):
+                    ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in new[k]]
+                    hits = [o for o in ops if o.startswith(opcode)]
+                    print(f"[sass] {name} {k}: {len(hits)} {opcode} instructions "
+                          f"({', '.join(sorted(set(hits))) or 'none'})")
     return 0 if ok else 1
 
 
