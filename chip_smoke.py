@@ -5,6 +5,9 @@ Run from the repository root on a machine with a Hopper card (H100):
 
     python3 chip_smoke.py             # the full check (one card)
     python3 chip_smoke.py --profile   # also print kernel-time breakdowns
+    python3 chip_smoke.py --stack-turns DIR   # only phase 11's bf16 stack
+                                      # times: the package of the tree DIR
+                                      # and this one's, in turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -195,8 +198,14 @@ Phases, each raising on failure (exit code != 0, no result line):
    36³ and 128³ (float32 outputs within 1e-4 relative of the plain
    version; the weight gradient of the plain one in float64), each timed
    beside its bound and cuDNN's conv3d / conv3d_weight with a (5, 5, 1)
-   kernel; `momentum_stage_div_3d` (stage.cu's float32 stage) at 64³ and
-   256³.  (b) The closure stack (3 -> 24 -> 24 -> 3, radius 2,
+   kernel; the forwards on bf16 operands run the tensor-core kernels, the
+   same on float32 operands (`+f32`) the FMA kernels; at 36³ also the
+   tensor-core kernels on the ragged box (8, 37, 67) at ky = kx = 3, 5, 7
+   for the stack's three forwards (the first with kc = 15), a 120 -> 13
+   layer and the input-gradient shapes (24 -> 120, 24 -> 16, 3 -> 120),
+   bf16 and float32 outputs, against the plain version in float64 (one
+   bf16 ulp; 1e-4); `momentum_stage_div_3d` (stage.cu's float32 stage)
+   at 64³ and 256³.  (b) The closure stack (3 -> 24 -> 24 -> 3, radius 2,
    tanh/tanh/identity, phase 3's CNN weights) through
    `models.cnn._pallas_conv_layer` at 128³: forward and the gradient of
    sum(out²) with respect to the weights, the biases and the input, with
@@ -204,7 +213,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    convs, against the plain stack and the fused layers of phase 3 (bf16:
    output 1e-2 max relative, gradients 1e-2 relative L2; float32: 1e-4 and
    1e-3); launches: 3 `packconv_3d` (pack) or 3 `tapconv_3d` (tap) a
-   forward, 3 `tapconv_3d` and 3 `tapconv_wgrad_3d` a backward; ms per
+   forward, 3 `tapconv_3d` and 3 `tapconv_wgrad_3d` a backward (float32
+   convs: the `+f32` keys, and none of the other route's); ms per
    forward and per forward + backward of the tap, pack and fused stacks
    in turns, with peak memory.  (c) The unfused projection step at 256³
    (`momentum_stage_div_3d` -> the per-op chain's 3-pass solve ->
@@ -2945,18 +2955,33 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
 # (cin, cout, activation, bias), radius 2
 TAP_LAYERS = ((3, 24, "tanh", True), (24, 24, "tanh", True), (24, 3, "id", False))
 TAP_OUT_TOL_F32 = 1e-4
+# the ragged box of the tensor-core cases (nx, ny, nz): odd ny and nz, a
+# partial tile in y and z
+TAP_RAGGED_BOX = (8, 37, 67)
+# (kc, cout, act, label) of the ragged cases: the stack's three forwards
+# (the first layer's kc = 15, which the wrapper pads to 16), a 13-channel
+# output (two n8 tiles), and the input-gradient shapes (kc = the
+# cotangent's channels, cout = the layer's kc: 120 in three blocks of five
+# n8 tiles, 16, and a 3-channel cotangent padded to 8)
+TAP_RAGGED = ((15, 24, "tanh", "3->24"), (120, 24, "tanh", "24->24"), (120, 3, "id", "24->3"),
+              (120, 13, "tanh", "120->13"), (24, 120, "id", "dG 24->120"),
+              (24, 16, "id", "dG 24->16"), (3, 120, "id", "dG 3->120"))
 
 
 def tap_kernel_cases(n):
     """{kernel name: [Case, ...]} for the tap-matmul / pack-tile kernels at
     n (128: the closure stack's full width): the 24 -> 24 layer's z-folded
-    g (n + 4, n + 4, n, 120) in bf16 through both forwards, the 24 -> 3
-    identity layer (all 25 taps pack), the input gradient's shape (the
-    cotangent padded to (n + 8, n + 8, n, 24), taps (5, 5, 24, 120)) and
-    the weight gradient on (g, dpre (n, n, n, 24)); float32 outputs, the
-    weight gradient held against the plain version in float64.  The
-    library yardsticks are cuDNN's conv3d with a (5, 5, 1) kernel and its
-    conv3d_weight on the same bf16 operands."""
+    g (n + 4, n + 4, n, 120) in bf16 through both forwards (the tensor-core
+    kernels), the 24 -> 3 identity layer (all 25 taps pack), the input
+    gradient's shape (the cotangent padded to (n + 8, n + 8, n, 24), taps
+    (5, 5, 24, 120)) and the weight gradient on (g, dpre (n, n, n, 24));
+    float32 outputs, the weight gradient held against the plain version in
+    float64; the same forwards on float32 operands (the FMA kernels,
+    ``+f32``).  Then the tensor-core kernels on `TAP_RAGGED_BOX` for each of
+    `TAP_RAGGED` at ky = kx = 3, 5 and 7, bf16 and float32 outputs, against
+    the plain version in float64.  The library yardsticks are cuDNN's
+    conv3d with a (5, 5, 1) kernel and its conv3d_weight on the same
+    operands."""
     import torch
     import torch.nn.functional as F
 
@@ -2995,7 +3020,9 @@ def tap_kernel_cases(n):
     t24, t3, tb = taps(w24), taps(w3), taps(wback)
     b24b = b24.to(bf)
     ops24 = conv_ops(n, n, n, kc, 24)
-    return {
+    g32, ctp32 = g.float(), ctp.float()
+    gp32, ctpp32 = planes(g32), planes(ctp32)
+    cases = {
         "tapconv_3d": [
             Case("24->24 tanh+bias bf16", fwd(ck.tapconv_3d, g, w24, b24, "tanh"),
                  fwd(ck.tapconv_3d_plain, g, w24, b24, "tanh"), inputs=(g, w24, b24),
@@ -3020,7 +3047,53 @@ def tap_kernel_cases(n):
                  inputs=(g, dpre), ops=ops24, peak="bf16",
                  library=lambda: torch.nn.grad.conv3d_weight(gp, (24, kc, 5, 5, 1), dpp)),
         ],
+        "tapconv_3d+f32": [
+            Case("24->24 tanh+bias f32", fwd(ck.tapconv_3d, g32, w24, b24, "tanh"),
+                 fwd(ck.tapconv_3d_plain, g32, w24, b24, "tanh"), inputs=(g32, w24, b24),
+                 ops=ops24, library=lambda: F.conv3d(gp32, taps(w24).float(), b24)),
+            Case("dG 24->120 flipped taps f32", fwd(ck.tapconv_3d, ctp32, wback, None, None),
+                 fwd(ck.tapconv_3d_plain, ctp32, wback, None, None), inputs=(ctp32, wback),
+                 ops=conv_ops(n + 4, n + 4, n, 24, kc), library=lambda: F.conv3d(ctpp32, tb.float())),
+        ],
+        "packconv_3d+f32": [
+            Case("24->24 tanh+bias f32", fwd(ck.packconv_3d, g32, w24, b24, "tanh"),
+                 fwd(ck.packconv_3d_plain, g32, w24, b24, "tanh"), inputs=(g32, w24, b24),
+                 ops=ops24, library=lambda: F.conv3d(gp32, taps(w24).float(), b24)),
+            Case("24->3 id, all 25 taps packed f32", fwd(ck.packconv_3d, g32, w3, None, None),
+                 fwd(ck.packconv_3d_plain, g32, w3, None, None), inputs=(g32, w3),
+                 ops=conv_ops(n, n, n, kc, 3), library=lambda: F.conv3d(gp32, t3.float())),
+        ],
     }
+    del g32, ctp32
+    # the tensor-core kernels on the ragged box (once: at the small size),
+    # held against the plain version in float64 (rounded to the output's
+    # dtype): cuDNN's float32 sum is itself off by more than a bf16 ulp of
+    # small outputs
+    for k in (3, 5, 7) if n < 64 else ():
+        for kcr, cout, act, label in TAP_RAGGED:
+            nx, ny, nz = TAP_RAGGED_BOX
+            gr = field(nx + k - 1, ny + k - 1, nz, kcr, dtype=bf)
+            wr = field(k, k, kcr, cout, scale=(k * k * kcr) ** -0.5)
+            br = field(cout, scale=0.1) if act == "tanh" else None
+            for odt in (bf, f32):
+                otag = "bf16" if odt == bf else "f32"
+                for name, impl, plain in (("tapconv_3d", ck.tapconv_3d, ck.tapconv_3d_plain),
+                                          ("packconv_3d", ck.packconv_3d, ck.packconv_3d_plain)):
+                    if name == "packconv_3d" and label.startswith("dG"):
+                        continue  # the input gradient runs the tap form only
+                    route = ("" if name == "tapconv_3d" else
+                             " (pack kernel)" if ck.pack_mma_takes(k, k, -(-kcr // 8) * 8, cout)
+                             else " (tap kernel)")
+                    cases[name].append(Case(
+                        f"{label} k={k} box {TAP_RAGGED_BOX} out {otag}{route}",
+                        lambda impl=impl, gr=gr, wr=wr, br=br, act=act, odt=odt:
+                            (impl(gr, wr, br, act, out_dtype=odt),),
+                        lambda plain=plain, gr=gr, wr=wr, br=br, act=act, odt=odt:
+                            (plain(gr, wr, br, act, out_dtype=odt),),
+                        ref=lambda plain=plain, gr=gr, wr=wr, br=br, act=act, odt=odt:
+                            (plain(gr.double(), wr.to(bf).double(), br, act, out_dtype=odt),),
+                        time=False))
+    return cases
 
 
 def stage_div_kernel_cases(n):
@@ -3075,14 +3148,12 @@ def tap_value_and_grad(theta, h0, cdt, **kw):
     return out.detach(), dict(zip(leaves, grads))
 
 
-def phase_tapconv(n):
-    """11b: the closure stack through `_pallas_conv_layer` at n³ against
-    the plain stack and the fused layers, its launches, and the ms of the
-    tap, pack and fused stacks."""
+def tap_stack_inputs(n):
+    """(theta, h0): phase 3's CNN weights (seed 0) for the stack and one
+    sample h0 (n, n, n, 3), all with gradients."""
     import torch
 
     from ins_tpu_torch import models as nc
-    from ins_tpu_torch.ops import launches
 
     setup = training_setup(n)
     _, theta0 = nc.cnn(
@@ -3093,7 +3164,50 @@ def phase_tapconv(n):
     rng = np.random.default_rng(SEED + 17)
     h0 = torch.from_numpy(rng.standard_normal((n, n, n, 3), dtype=np.float32)).to(DEVICE)
     h0.requires_grad_(True)
-    theta = {k: v.detach().requires_grad_(True) for k, v in theta0.items()}
+    return {k: v.detach().requires_grad_(True) for k, v in theta0.items()}, h0
+
+
+TAP_STACK_FORMS = {"tap": dict(form="tap", pack=False), "pack": dict(form="tap"),
+                   "fused": dict(form="fused")}
+
+
+def tap_stack_times(theta, h0, order):
+    """{form: {"fwd": [ms, ...], "fwd+bwd": [ms, ...], "peak": GiB}} of the
+    bf16 stack's forms (`TAP_STACK_FORMS`) timed in the given order (3 runs
+    after a warm-up each); the peak device memory of forward + backward."""
+    import torch
+
+    times = {k: {"fwd": [], "fwd+bwd": []} for k in dict.fromkeys(order)}
+    for name in order:
+        kw = TAP_STACK_FORMS[name]
+        with torch.no_grad():
+            times[name]["fwd"].append(
+                cuda_ms(lambda: tap_stack(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+        torch.cuda.reset_peak_memory_stats()
+        times[name]["fwd+bwd"].append(
+            cuda_ms(lambda: tap_value_and_grad(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+        times[name]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    return times
+
+
+def print_stack_times(tag, times):
+    print(f"[tapconv] {tag}{card_line()}: bf16 stack ms per forward / forward + backward: "
+          + "; ".join(f"{k} {sum(v['fwd']) / len(v['fwd']):.3f} ("
+                      + ", ".join(f"{t:.3f}" for t in v["fwd"]) + ") / "
+                      f"{sum(v['fwd+bwd']) / len(v['fwd+bwd']):.3f} ("
+                      + ", ".join(f"{t:.3f}" for t in v["fwd+bwd"])
+                      + f"), peak {v['peak']:.2f} GiB" for k, v in times.items()))
+
+
+def phase_tapconv(n):
+    """11b: the closure stack through `_pallas_conv_layer` at n³ against
+    the plain stack and the fused layers, its launches, and the ms of the
+    tap, pack and fused stacks."""
+    import torch
+
+    from ins_tpu_torch.ops import launches
+
+    theta, h0 = tap_stack_inputs(n)
     print(f"[tapconv] {n}^3 closure stack (3->24->24->3, radius 2, tanh/tanh/id) through "
           "_pallas_conv_layer")
     counts = {}
@@ -3113,9 +3227,15 @@ def phase_tapconv(n):
                              torch.autograd.grad((out * out).sum(), [h0, *theta.values()])))
             torch.cuda.synchronize()
             bwd = dict(launches.LAUNCHES)
-            want_fwd = {"packconv_3d": 3 if pack is None else 0,
-                        "tapconv_3d": 0 if pack is None else 3, "tapconv_wgrad_3d": 0}
-            want_bwd = {"packconv_3d": 0, "tapconv_3d": 3, "tapconv_wgrad_3d": 3}
+            # bf16 convs run the tensor-core forwards, float32 ones the FMA
+            # kernels ("+f32"); the weight gradient is one kernel for both
+            sfx = "" if cdt == torch.bfloat16 else "+f32"
+            other = "+f32" if cdt == torch.bfloat16 else ""
+            want_fwd = {"packconv_3d" + sfx: 3 if pack is None else 0,
+                        "tapconv_3d" + sfx: 0 if pack is None else 3, "tapconv_wgrad_3d": 0,
+                        "packconv_3d" + other: 0, "tapconv_3d" + other: 0}
+            want_bwd = {"packconv_3d" + sfx: 0, "tapconv_3d" + sfx: 3, "tapconv_wgrad_3d": 3,
+                        "packconv_3d" + other: 0, "tapconv_3d" + other: 0}
             got_fwd = {k: fwd[k] for k in want_fwd}
             got_bwd = {k: bwd[k] for k in want_bwd}
             print(f"[tapconv] {tag} {sel}: launches forward {got_fwd}, backward {got_bwd}")
@@ -3124,9 +3244,11 @@ def phase_tapconv(n):
                      f"expected {want_fwd}, {want_bwd}")
             if any(launches.PLAIN_ON_CUDA.values()):
                 fail(f"tap stack {tag} {sel}: plain versions ran on CUDA tensors")
-            if pack is None and cdt == torch.bfloat16:
-                counts = {**got_fwd, "tapconv_3d": got_bwd["tapconv_3d"],
-                          "tapconv_wgrad_3d": got_bwd["tapconv_wgrad_3d"]}
+            if pack is None:
+                counts.update({"packconv_3d" + sfx: got_fwd["packconv_3d" + sfx],
+                               "tapconv_3d" + sfx: got_bwd["tapconv_3d" + sfx]})
+                if cdt == torch.bfloat16:
+                    counts["tapconv_wgrad_3d"] = got_bwd["tapconv_wgrad_3d"]
             out = out.detach()
             if not (bool(torch.isfinite(out).all()) and out.shape == (n, n, n, 3)):
                 fail(f"tap stack {tag} {sel}: output not finite or of shape {tuple(out.shape)}")
@@ -3143,25 +3265,23 @@ def phase_tapconv(n):
         torch.cuda.empty_cache()
 
     # ms per forward and per forward + backward (bf16), in turns, and peak memory
-    forms = {"tap": dict(form="tap", pack=False), "pack": dict(form="tap"),
-             "fused": dict(form="fused")}
-    times = {k: {"fwd": [], "fwd+bwd": []} for k in forms}
-    peak = {}
-    for name in ("tap", "pack", "fused", "fused", "pack", "tap"):
-        kw = forms[name]
-        with torch.no_grad():
-            times[name]["fwd"].append(
-                cuda_ms(lambda: tap_stack(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
-        torch.cuda.reset_peak_memory_stats()
-        times[name]["fwd+bwd"].append(
-            cuda_ms(lambda: tap_value_and_grad(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
-        peak[name] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[tapconv] {card_line()}: bf16 stack ms per forward / forward + backward: "
-          + "; ".join(f"{k} {sum(v['fwd']) / 2:.3f} ({v['fwd'][0]:.3f}, {v['fwd'][1]:.3f}) / "
-                      f"{sum(v['fwd+bwd']) / 2:.3f} ({v['fwd+bwd'][0]:.3f}, "
-                      f"{v['fwd+bwd'][1]:.3f}), peak {peak[k]:.2f} GiB"
-                      for k, v in times.items()))
+    print_stack_times("", tap_stack_times(theta, h0, ("tap", "pack", "fused", "fused", "pack",
+                                                      "tap")))
     return counts
+
+
+def stack_turns(parent):
+    """The bf16 stack's ms and peak memory (`tap_stack_times`, pack and tap
+    forms at 128³) of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--stack-time", root],
+                             capture_output=True, text=True, timeout=900)
+        lines = out.stdout.strip().splitlines()
+        print(f"[turns] {os.path.abspath(root)}: " + (lines[-1] if lines else "no output"))
+        if out.returncode:
+            fail(f"--stack-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
 
 
 def phase_unfused_step(n):
@@ -3242,7 +3362,8 @@ HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+
                     "pcmsd_hat_halo_3d+smag")
 UNMERGED_KERNELS = ("momentum_stage_divhat_3d+bf16", "pcmsd_hat_3d+bf16",
                     "pressure_correct_qhat_3d+bf16", "momentum_stage_divhat_3d+streams")
-TAP_KERNELS = ("tapconv_3d", "packconv_3d", "tapconv_wgrad_3d", "momentum_stage_div_3d")
+TAP_KERNELS = ("tapconv_3d", "packconv_3d", "tapconv_wgrad_3d", "momentum_stage_div_3d",
+               "tapconv_3d+f32", "packconv_3d+f32")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -3288,15 +3409,21 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
                                       "ins_tpu/ops/pallas_kernels.py:3422"),
     "momentum_stage_divhat_3d+streams": ("ins_tpu_torch/csrc/stage.cu",
                                          "ins_tpu/ops/pallas_kernels.py:1126"),
-    "tapconv_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:130"),
-    "packconv_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
+    "tapconv_3d": ("ins_tpu_torch/csrc/tapconv_mma.cu", "ins_tpu/ops/convkernels.py:130"),
+    "packconv_3d": ("ins_tpu_torch/csrc/tapconv_mma.cu", "ins_tpu/ops/convkernels.py:471"),
     "tapconv_wgrad_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:249"),
     "momentum_stage_div_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:631"),
+    "tapconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:130"),
+    "packconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
 }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--stack-turns", metavar="PARENT",
+                    help="only time the 128³ bf16 tap stack (pack and tap forms) of the "
+                         "package in the tree PARENT and of this tree's, in turns")
+    ap.add_argument("--stack-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step, of 3 channel steps, of 3 LES, "
@@ -3309,9 +3436,21 @@ def main():
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs on the GPU only")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.stack_turns:
+        stack_turns(args.stack_turns)
+        return
+    sys.path.insert(0, os.path.abspath(args.stack_time) if args.stack_time
+                    else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
     from ins_tpu_torch import _build
+
+    if args.stack_time:  # one turn of --stack-turns
+        torch.backends.cudnn.allow_tf32 = False
+        times = tap_stack_times(*tap_stack_inputs(128), ("pack", "tap", "tap", "pack"))
+        print_stack_times(f"{os.path.abspath(args.stack_time)} ", times)
+        print(json.dumps({k: [sum(v["fwd"]) / len(v["fwd"]), sum(v["fwd+bwd"]) / len(v["fwd+bwd"]),
+                              v["peak"]] for k, v in times.items()}))
+        return
 
     card = card_line()
     print(card)
@@ -3397,7 +3536,8 @@ def main():
     unmerged_counts = phase_unmerged(256, 20, 10, u0_hat, profile=args.profile)
     phase_done("phase 10 (unmerged chain and bf16 streams)")
     results.update(phase_kernels(tap_kernel_cases, (36, 128),
-                                 time_all=("tapconv_3d", "packconv_3d")))
+                                 time_all=("tapconv_3d", "packconv_3d", "tapconv_3d+f32",
+                                           "packconv_3d+f32")))
     results.update(phase_kernels(stage_div_kernel_cases, (64, 256)))
     torch.cuda.empty_cache()
     tap_counts = phase_tapconv(128)

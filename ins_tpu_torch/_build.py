@@ -139,6 +139,14 @@ _SIGNATURES = {
         + [_c_int] * 7 + [_c_ptr],
         _c_int,
     ),
+    "ins_tapconv_fwd_mma": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 10 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_packconv_mma": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 9 + [_c_ptr],
+        _c_int,
+    ),
     "ins_channel_msd_f32": (
         [_c_ptr] * 10 + [_c_int] * 3 + [_c_f32] * 9 + [_c_int] * 2 + [_c_ptr],
         _c_int,

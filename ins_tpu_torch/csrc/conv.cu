@@ -395,8 +395,6 @@ extern "C" int ins_conv_wgrad(const void* h, int h_bf16, const void* d, int d_bf
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int MMA_THREADS = 256;  // 8 warps
 constexpr int MMA_WARPS = MMA_THREADS / 32;
 constexpr int FWD_THREADS = 512;  // forward: 16 warps
@@ -407,7 +405,6 @@ static_assert(FTY * FTZ == FWD_THREADS / 32 * FRW * 16, "the warps tile the bloc
 constexpr int GTY = 8;            // wgrad: cell rows (y) a block
 constexpr int GTZ = 32;           // wgrad: cells (z) a row
 constexpr int MAXNT = 3;          // n8 tiles of output channels a block, at most
-constexpr int CHAIN = 8;          // forward: mma chained in the tensor cores, at most
 constexpr int MMA_WBLOCKS = 1024; // wgrad: target number of blocks
 
 // contraction depth of one (dx, dy, chunk): k*CW rounded up to 16
@@ -419,10 +416,6 @@ __host__ __device__ constexpr int mma_rowlen(int k, int cw, int cells) {
     return cells * cw + mma_kp(k, cw) - k * cw;
 }
 
-// shared-memory pitch (elements) of an (rows, 8*nt) bf16 tile: an odd number
-// of 16-byte units, so the 8 rows of an ldmatrix hit distinct banks
-__host__ __device__ constexpr int mma_pitch(int nt) { return nt % 2 ? 8 * nt : 8 * nt + 8; }
-
 template <int K, int CW>
 __host__ __device__ constexpr int fwd_mma_in_elems() {
     return (FTY + K - 1) * mma_rowlen(K, CW, FTZ + K - 1);
@@ -431,49 +424,6 @@ __host__ __device__ constexpr int fwd_mma_in_elems() {
 template <int K, int CW>
 __host__ __device__ constexpr int wgrad_mma_in_elems() {
     return (GTY + K - 1) * mma_rowlen(K, CW, GTZ + K - 1);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // v mod n for v at most a few periods outside [0, n)
@@ -532,18 +482,6 @@ __device__ __forceinline__ void zero_row_tails(bf16* s, int tid) {
     if (TAIL == 0) return;
     for (int r = tid; r < ROWS; r += blockDim.x)
         *reinterpret_cast<uint4*>(s + r * ROWLEN + CELLS * CW) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Stages go through a ring of nbuf (2 or 3) shared-memory buffers: the
-// copies of the next nbuf - 1 stages are in flight while one is computed.
-// Every step commits one cp.async group (empty past the last stage), so
-// waiting for all but the newest nbuf - 1 groups waits for this stage.
-__device__ __forceinline__ void ring_wait(int nbuf) {
-    if (nbuf == 3)
-        cp_async_wait<2>();
-    else
-        cp_async_wait<1>();
-    __syncthreads();
 }
 
 struct MmaConvParams {
@@ -828,20 +766,6 @@ bool mma_geometry_ok(int cin, int cout, int k, int cw, int nch, int kp, int nt, 
            np % (8 * nt) == 0 && np >= cout && np - 8 * nt < cout;
 }
 
-// Shared memory of a ring of stages of `stage_elems` bf16 each: three
-// buffers where `blocks` blocks of them fit an SM, else two.
-size_t ring_smem(size_t stage_elems, int blocks, int* nbuf) {
-    constexpr size_t SM_BYTES = 227 * 1024;  // an SM's shared memory for blocks
-    const size_t stage = sizeof(bf16) * stage_elems;
-    *nbuf = 3 * stage * blocks <= SM_BYTES ? 3 : 2;
-    return *nbuf * stage;
-}
-
-cudaError_t set_smem(const void* kernel, size_t smem) {
-    if (smem <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int K, int CW, int NT>
 cudaError_t launch_fwd_mma(MmaConvParams p, cudaStream_t stream) {
     const size_t smem = ring_smem(
@@ -897,9 +821,6 @@ cudaError_t wgrad_mma(int k, int cw, int nt, const MmaWgradParams& p, int nchunk
 
 #undef INS_MMA_DISPATCH
 #undef INS_MMA_NT
-
-// a channels-last bf16 field the kernels stage 16 bytes a copy
-bool stageable(const void* p, int c) { return c % 8 == 0 && ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 

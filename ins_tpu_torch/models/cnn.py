@@ -28,9 +28,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_kernels import make_conv_layer, make_fused_layer
+from ..ops.conv_kernels import make_conv_layer, make_fused_layer, stage_channels
 from .closure import collocate, create_closure, decollocate
 
 __all__ = ["cnn", "CNN"]
@@ -64,23 +65,71 @@ def lecun_normal_(w, generator=None):
 
 def _zfold(h, r):
     """Fold the z taps into channels: wrap-pad z by r and concatenate the
-    k = 2r + 1 z-shifted slices on channels, dz major (the JAX glue
-    without its zero pad to 128 lanes)."""
-    nz = h.shape[2]
+    k = 2r + 1 z-shifted slices on channels, dz major, then zero channels
+    up to `stage_channels` (a multiple of 8 for bfloat16, which the
+    card's tensor-core kernels stage 8 channels a copy; the JAX glue pads
+    to 128 lanes)."""
+    nz, cin = h.shape[2], h.shape[3]
     hz = torch.cat([h[:, :, nz - r:], h, h[:, :, :r]], dim=2)
-    return torch.cat([hz[:, :, dz:dz + nz] for dz in range(2 * r + 1)], dim=-1)
+    parts = [hz[:, :, dz:dz + nz] for dz in range(2 * r + 1)]
+    pad = stage_channels((2 * r + 1) * cin, h.dtype) - (2 * r + 1) * cin
+    if pad:
+        parts.append(h.new_zeros((*h.shape[:3], pad)))
+    return torch.cat(parts, dim=-1)
 
 
 def _fold_w(w, dtype):
     """Canonical (kx, ky, kz, cin, cout) weights -> z-folded (kx, ky,
-    kz·cin, cout) in ``dtype`` (dz major, as `_zfold` concatenates)."""
+    kz·cin, cout) in ``dtype`` (dz major, as `_zfold` concatenates), with
+    zero rows for `_zfold`'s zero channels."""
     kx, ky, kz, cin, cout = w.shape
-    return w.reshape(kx, ky, kz * cin, cout).to(dtype)
+    wf = w.reshape(kx, ky, kz * cin, cout).to(dtype)
+    return F.pad(wf, (0, 0, 0, stage_channels(kz * cin, dtype) - kz * cin))
 
 
 def _wrap_pad(g, r, dim):
     n = g.shape[dim]
     return torch.cat([g.narrow(dim, n - r, r), g, g.narrow(dim, 0, r)], dim=dim)
+
+
+def _unwrap(t, r, dim):
+    """The adjoint of `_wrap_pad`: the halo rows added back onto the rows
+    they copy."""
+    n = t.shape[dim] - 2 * r
+    out = t.narrow(dim, r, n).clone()
+    out.narrow(dim, n - r, r).add_(t.narrow(dim, 0, r))
+    out.narrow(dim, 0, r).add_(t.narrow(dim, n + r, r))
+    return out
+
+
+class _FoldPadFn(torch.autograd.Function):
+    """`_zfold` of h in ``dtype``, then the y (and, with ``pad_x``, x)
+    wrap pads.  The backward adds the gradient's z-shifted slices and
+    wrapped halo rows in float32 (float64 for float64) and rounds once,
+    to h's dtype; autograd of the copies would add them in ``dtype``,
+    in bf16 several roundings a cell."""
+
+    @staticmethod
+    def forward(ctx, h, r, pad_x, dtype):
+        ctx.r, ctx.pad_x, ctx.cin = r, pad_x, h.shape[-1]
+        g = _zfold(h.to(dtype), r)
+        if pad_x:
+            g = _wrap_pad(g, r, 0)
+        return _wrap_pad(g, r, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, gg):
+        r, cin = ctx.r, ctx.cin
+        acc = torch.promote_types(gg.dtype, torch.float32)
+        dh = None
+        for dz in range(2 * r + 1):
+            d = _unwrap(gg[..., dz * cin:(dz + 1) * cin].to(acc), r, 1)
+            if ctx.pad_x:
+                d = _unwrap(d, r, 0)
+            # slice dz of cell z copies h at z + dz − r (wrapped)
+            d = torch.roll(d, dz - r, dims=2)
+            dh = d if dh is None else dh + d
+        return dh, None, None, None
 
 
 def _pallas_conv_layer(h, w, b, r, pad_x, actname, compute_dtype, *, plain=False, pack=None):
@@ -90,11 +139,10 @@ def _pallas_conv_layer(h, w, b, r, pad_x, actname, compute_dtype, *, plain=False
     supplies the x halo and the output has nx − 2r planes.  The operands
     are rounded to ``compute_dtype``, the sums float32; returns (nx, ny,
     nz, cout) in h's dtype.  ``plain=True`` runs the plain versions;
-    ``pack`` overrides `make_conv_layer`'s choice of forward."""
-    g = _zfold(h.to(compute_dtype), r)
-    if pad_x:
-        g = _wrap_pad(g, r, 0)
-    g = _wrap_pad(g, r, 1).contiguous()
+    ``pack`` overrides `make_conv_layer`'s choice of forward.  The input
+    gradient's z-fold and wrap contributions are added in float32
+    (`_FoldPadFn`)."""
+    g = _FoldPadFn.apply(h, r, pad_x, compute_dtype)
     layer = make_conv_layer(actname, b is not None, pack=pack, plain=plain)
     return layer(g, _fold_w(w, compute_dtype), b).to(h.dtype)
 

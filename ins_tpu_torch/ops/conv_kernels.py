@@ -54,7 +54,15 @@ first).  The JAX kernels' 128-lane contract (kc and nz multiples of 128,
 outputs lane-padded to `lanes(cout)` channels) is TPU plumbing: these
 take any kc, nz and cout (ky in 1, 3, 5 or 7 on the card) and return
 cout channels, so a g zero-padded to 128 lanes is still a valid input.
-The CUDA kernels are `csrc/tapconv.cu`; the plain versions are
+On the card the operands' dtype picks the forward kernels, with no
+fallback between them: bfloat16 g runs the tensor-core kernels of
+`csrc/tapconv_mma.cu` (the output-first tap kernel over
+`pack_tap_weights`; for `packconv_3d` the weight-first pack kernel over
+`pack_all_taps` where `pack_mma_takes`, else the tap kernel), on g's
+channels padded to a multiple of 8 (`stage_channels`; `models.cnn`
+makes them so); float32 g the FMA kernels of `csrc/tapconv.cu` (launch
+keys ``"tapconv_3d+f32"``, ``"packconv_3d+f32"``).  The weight gradient
+is `csrc/tapconv.cu`'s FMA kernel for both.  The plain versions are
 ``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
 ``conv3d_weight``.  `make_conv_layer` selects `packconv_3d` where
 ``ky·cout <= 128`` (the JAX rule, so both packages run the same
@@ -85,6 +93,11 @@ __all__ = [
     "unpack_conv_wgrad",
     "make_fused_layer",
     "lanes",
+    "stage_channels",
+    "tap_mma_geometry",
+    "pack_tap_weights",
+    "pack_all_taps",
+    "pack_mma_takes",
     "tapconv_3d",
     "tapconv_3d_plain",
     "packconv_3d",
@@ -232,8 +245,10 @@ def fusedconv_wgrad_3d_plain(h, d, k):
     _check_shapes("fusedconv_wgrad_3d", h, k, h.shape[-1])
     acc = _acc_dtype(h.dtype)
     cin, cout = h.shape[-1], d.shape[-1]
+    # the cotangent rounded to h's dtype first, as the JAX kernel's
+    # `ct.astype(h.dtype)`
     dw = torch.nn.grad.conv3d_weight(
-        _padded(h, k, acc), (cout, cin, k, k, k), _channels_first(d, acc)
+        _padded(h, k, acc), (cout, cin, k, k, k), _channels_first(d.to(h.dtype), acc)
     )
     return dw.permute(2, 3, 4, 1, 0).to(torch.promote_types(acc, torch.float32))
 
@@ -289,16 +304,18 @@ def fusedconv_wgrad_3d(h, d, k):
     """Weight gradient of the periodic k³ convolution:
     ``dw[dx, dy, dz, c, o] = Σ_cells h[x+dx−r, y+dy−r, z+dz−r, c]·d[x, y, z, o]``
     for ``h (nx, ny, nz, cin)`` and the pre-activation cotangent
-    ``d (nx, ny, nz, cout)``; float32 ``(k, k, k, cin, cout)``, the same
-    on every run.  On the card h and d share one dtype (bfloat16: the
-    tensor-core kernel; float32: the FMA kernel)."""
+    ``d (nx, ny, nz, cout)``, d rounded to h's dtype first (as the JAX
+    kernel does); float32 ``(k, k, k, cin, cout)``, the same on every run.
+    On the card h's dtype picks the kernel (bfloat16: the tensor-core
+    kernel; float32: the FMA kernel)."""
     if h.device.type == "cpu":
         return fusedconv_wgrad_3d_plain(h, d, k)
     _check_shapes("fusedconv_wgrad_3d", h, k, h.shape[-1])
     box, cin, cout = tuple(h.shape[:3]), h.shape[-1], d.shape[-1]
     device = _check_kernel_operands(
-        "fusedconv_wgrad_3d", k, h=(h, (*box, cin)), d=(d, (*box, cout), (h.dtype,))
+        "fusedconv_wgrad_3d", k, h=(h, (*box, cin)), d=(d, (*box, cout))
     )
+    d = d.to(h.dtype)
     with torch.cuda.device(device):
         lib = _build.load()
         if h.dtype == torch.bfloat16:
@@ -373,16 +390,98 @@ def make_fused_layer(actname, has_bias, *, cin, cout, k, plain=False):
 # The tap-matmul / pack-tile layer on z-folded channels
 # --------------------------------------------------------------------------
 
-_TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into csrc/tapconv.cu
-# bytes of the pack kernel's float32 ring of plane products (at least kx
+_TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into csrc/tapconv.cu, tapconv_mma.cu
+# bytes of the float32 pack kernel's ring of plane products (at least kx
 # planes whatever this says): the kernel walks x in chunks that fit it
 _PACK_SCRATCH_BYTES = 1 << 30
+_TAP_MMA_MAXNT = 5  # n8 tiles of output channels a tap-kernel block, at most
+_PACK_MMA_MAXN = 128  # packed columns of the pack kernel (every tap), at most
+_PACK_MMA_MAXKP = 128  # its contraction: one chain of 8 k16 steps, at most
+_SMEM_MAX = 232448  # shared memory a block may use on the H100
 
 
 def lanes(c):
     """``c`` rounded up to the JAX kernels' 128-lane tile (the shapes of
     the JAX glue; the port's kernels take any channel count)."""
     return -(-c // 128) * 128
+
+
+def _round16(c):
+    return -(-c // 16) * 16
+
+
+def stage_channels(c, dtype):
+    """Channels a field of ``c`` channels carries to the card's conv
+    kernels: ``c`` rounded up to a multiple of 8 for bfloat16 (the
+    tensor-core kernels stage 16-byte units of 8 channels; the extra
+    channels are zeros, their weights zero rows), ``c`` otherwise."""
+    return -(-c // 8) * 8 if dtype == torch.bfloat16 else c
+
+
+class TapMmaGeometry(NamedTuple):
+    """Shapes of the tap kernel's tensor-core route for kc input and cout
+    output channels: the contraction ``kc`` padded to ``kp`` (a multiple
+    of 16), the output channels padded to ``np`` in blocks of ``nt``
+    n8 tiles (``nt <= 5``)."""
+
+    kp: int
+    nt: int
+    np: int
+
+
+def tap_mma_geometry(kc, cout):
+    """`TapMmaGeometry`: (128, 3, 24) for the 24 -> 24 layer (kc = 120),
+    (32, 5, 120) for its input gradient (kc = 24, 120 outputs), (128, 1,
+    8) for 24 -> 3."""
+    n8 = -(-cout // 8)
+    nblk = -(-n8 // _TAP_MMA_MAXNT)
+    nt = -(-n8 // nblk)
+    return TapMmaGeometry(_round16(kc), nt, nblk * nt * 8)
+
+
+def pack_tap_weights(w2):
+    """``(kx, ky, kc, cout)`` taps -> the tap kernel's ``(kx, ky, kp,
+    np)`` (`tap_mma_geometry`): zero rows past kc, zero columns past cout.
+    The forward over it is, for each (dx, dy), the (cells, kp) block of
+    the channel-padded g at (x + dx, y + dy) times that tap's (kp, np)
+    block."""
+    kx, ky, kc, cout = w2.shape
+    geo = tap_mma_geometry(kc, cout)
+    return F.pad(w2, (0, geo.np - cout, 0, geo.kp - kc))
+
+
+def _mma_pitch(nt):  # csrc/convio.cuh mma_pitch
+    return 8 * nt if nt % 2 else 8 * nt + 8
+
+
+def _pack_mma_smem(kx, ky, kp, cout, nbuf=2):
+    """Shared memory of the pack kernel (csrc/tapconv_mma.cu `pack_smem`):
+    the staging ring, the packed weights, one plane's float32 products of
+    16 rows x 16 cells and the kx output-plane accumulators."""
+    nt = -(-kx * ky * cout // 8)
+    return (2 * (nbuf * 16 * 16 * 72 + kp * _mma_pitch(nt))
+            + 4 * (16 * 16 * (8 * nt + 4) + kx * (17 - ky) * 16 * cout))
+
+
+def pack_mma_takes(kx, ky, kc, cout):
+    """Whether `packconv_3d` on bfloat16 runs the weight-first pack kernel
+    (every tap packs into one tile of at most 128 columns, the JAX
+    kernel's ``pack_dx`` plan, and the contraction into one chain of at
+    most 8 k16 steps; the 24 -> 3 layer) rather than the output-first tap
+    kernel (the 3 -> 24 and 24 -> 24 layers)."""
+    kp = _round16(kc)
+    return (kx * ky * cout <= _PACK_MMA_MAXN and kp <= _PACK_MMA_MAXKP and ky <= 8
+            and _pack_mma_smem(kx, ky, kp, cout) <= _SMEM_MAX)
+
+
+def pack_all_taps(w2):
+    """``(kx, ky, kc, cout)`` taps -> the pack kernel's ``(kp, np)``:
+    every tap's weights side by side (column ``(dx·ky + dy)·cout + o``),
+    zero rows past kc and zero columns past ``kx·ky·cout`` (np a multiple
+    of 8)."""
+    ws = _pack_weights(w2)
+    kc, n = ws.shape
+    return F.pad(ws, (0, -n % 8, 0, _round16(kc) - kc))
 
 
 def _tap_shapes(name, g, w2):
@@ -493,43 +592,91 @@ def tapconv_3d(g, w2, bias=None, act=None, *, out_dtype=None):
     act, out_dtype = _actname(act), out_dtype or g.dtype
     device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("tapconv_3d", g, w2, bias, out_dtype)
     with torch.cuda.device(device):
-        wk = w2.detach().to(device=device, dtype=g.dtype).float().contiguous()
-        err = _build.load().ins_tapconv_fwd(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), wk.data_ptr(), ptr(bk),
-            int(act == "tanh"), out.data_ptr(), int(out_dtype == torch.bfloat16), *g.shape,
-            kx, ky, cout, current_stream(device),
-        )
-        _build.check(err, "tapconv_3d")
-        LAUNCHES["tapconv_3d"] += 1
+        if g.dtype == torch.bfloat16:
+            err, key = _launch_tap_mma(g, w2, bk, act, out, device), "tapconv_3d"
+        else:
+            wk = w2.detach().to(device=device, dtype=g.dtype).contiguous()
+            err = _build.load().ins_tapconv_fwd(
+                g.data_ptr(), 0, wk.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
+                int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout, current_stream(device),
+            )
+            key = "tapconv_3d+f32"
+        _build.check(err, key)
+        LAUNCHES[key] += 1
     return out
+
+
+def _bf16_operands(g, w2, device):
+    """g as the tensor-core kernels stage it (`_stageable`: channels a
+    multiple of 8, 16-byte aligned) and w2 in bfloat16 with zero rows for
+    g's added channels."""
+    gs = _stageable(g)
+    wk = w2.detach().to(device=device, dtype=torch.bfloat16)
+    return gs, F.pad(wk, (0, 0, 0, gs.shape[-1] - wk.shape[2]))
+
+
+def _launch_tap_mma(g, w2, bk, act, out, device):
+    """The tap kernel on the tensor cores (bf16 g); returns its error code."""
+    gs, wk = _bf16_operands(g, w2, device)
+    kx, ky, kc, cout = wk.shape
+    geo = tap_mma_geometry(kc, cout)
+    wp = pack_tap_weights(wk).contiguous()
+    return _build.load().ins_tapconv_fwd_mma(
+        gs.data_ptr(), wp.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), *gs.shape[:3], kc, kx, ky, cout, *geo,
+        current_stream(device),
+    )
 
 
 def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
     """`tapconv_3d`'s function computed weight-first: each input plane's
     products with every tap once, in float32, then the shifted tap sums.
     ``nys`` (dividing ny) is the y-strip height of the plain version, as
-    in the JAX kernel; the result does not depend on it, and the CUDA
-    kernel walks x-chunks instead (a float32 ring of plane products of at
-    most ~1 GiB, one call of two launches a chunk)."""
+    in the JAX kernel; the result does not depend on it.  On the card
+    bfloat16 g runs the tensor-core pack kernel where `pack_mma_takes`
+    (the products of a plane's 16-row strip kept in shared memory, the
+    tap sums into a ring of kx output planes), else the tensor-core tap
+    kernel, whose y-tap reuse of each A fragment is the per-dx pack's;
+    float32 g runs the FMA kernels (a float32 ring of plane products in
+    device memory of at most ~1 GiB, two launches an x-chunk; launch key
+    ``"packconv_3d+f32"``)."""
     if g.device.type == "cpu":
         return packconv_3d_plain(g, w2, bias, act, out_dtype=out_dtype, nys=nys)
     act, out_dtype = _actname(act), out_dtype or g.dtype
     device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("packconv_3d", g, w2, bias, out_dtype)
     _strip_height(out.shape[1], nys)
-    nxp, nyp, nz, _ = g.shape
-    plane = nyp * nz * kx * ky * cout
-    slots = min(nxp, max(kx, _PACK_SCRATCH_BYTES // (4 * plane)))
     with torch.cuda.device(device):
-        ws = _pack_weights(w2.detach().to(device=device, dtype=g.dtype)).float().contiguous()
-        ring = torch.empty((slots, plane), dtype=torch.float32, device=device)
-        err = _build.load().ins_packconv(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), ws.data_ptr(), ptr(bk),
-            int(act == "tanh"), ring.data_ptr(), slots, out.data_ptr(),
-            int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout, current_stream(device),
-        )
-        _build.check(err, "packconv_3d")
-        LAUNCHES["packconv_3d"] += 1
+        if g.dtype == torch.bfloat16:
+            err, key = _launch_pack_mma(g, w2, bk, act, out, device), "packconv_3d"
+        else:
+            nxp, nyp, nz, _ = g.shape
+            plane = nyp * nz * kx * ky * cout
+            slots = min(nxp, max(kx, _PACK_SCRATCH_BYTES // (4 * plane)))
+            ws = _pack_weights(w2.detach().to(device=device, dtype=g.dtype)).contiguous()
+            ring = torch.empty((slots, plane), dtype=torch.float32, device=device)
+            err = _build.load().ins_packconv(
+                g.data_ptr(), 0, ws.data_ptr(), ptr(bk), int(act == "tanh"), ring.data_ptr(),
+                slots, out.data_ptr(), int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout,
+                current_stream(device),
+            )
+            key = "packconv_3d+f32"
+        _build.check(err, key)
+        LAUNCHES[key] += 1
     return out
+
+
+def _launch_pack_mma(g, w2, bk, act, out, device):
+    """`packconv_3d` on the tensor cores (bf16 g); returns the error code."""
+    gs, wk = _bf16_operands(g, w2, device)
+    kx, ky, kc, cout = wk.shape
+    if not pack_mma_takes(kx, ky, kc, cout):
+        return _launch_tap_mma(gs, wk, bk, act, out, device)
+    ws = pack_all_taps(wk).contiguous()
+    return _build.load().ins_packconv_mma(
+        gs.data_ptr(), ws.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), *gs.shape[:3], kc, kx, ky, cout, _round16(kc),
+        ws.shape[1] // 8, current_stream(device),
+    )
 
 
 def tapconv_wgrad_3d(g, ct, kx, ky):
@@ -589,9 +736,12 @@ class _ConvLayerFn(torch.autograd.Function):
         dg = None
         if ctx.needs_input_grad[0]:
             # the full correlation:
-            # dg[x', y'] = Σ_{dx,dy} dpre[x' − dx, y' − dy] @ w2[dx, dy]ᵀ
-            ctp = F.pad(dpre, (0, 0, 0, 0, ky - 1, ky - 1, kx - 1, kx - 1))
-            dg = tap(ctp, w2.flip(0, 1).transpose(2, 3), None, "id", out_dtype=g.dtype)
+            # dg[x', y'] = Σ_{dx,dy} dpre[x' − dx, y' − dy] @ w2[dx, dy]ᵀ,
+            # dpre's channels padded for the card's kernels with zero taps
+            cpad = stage_channels(dpre.shape[-1], g.dtype) - dpre.shape[-1]
+            ctp = F.pad(dpre, (0, cpad, 0, 0, ky - 1, ky - 1, kx - 1, kx - 1))
+            wf = F.pad(w2.flip(0, 1).transpose(2, 3), (0, 0, 0, cpad))
+            dg = tap(ctp, wf, None, "id", out_dtype=g.dtype)
         return dg, dw, db, None, None, None, None
 
 

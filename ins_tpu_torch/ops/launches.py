@@ -60,12 +60,15 @@ KERNELS = (
     # the closure convolutions (ops/conv_kernels.py): the fused layer (bf16
     # operands on the tensor cores; "+f32": float32 operands on the FMA
     # kernels) and the tap-matmul / pack-tile layer on z-folded channels
+    # (likewise: bf16 on the tensor cores, "+f32" on the FMA kernels)
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
     "fusedconv_3d+f32",
     "fusedconv_wgrad_3d+f32",
     "tapconv_3d",
     "packconv_3d",
+    "tapconv_3d+f32",
+    "packconv_3d+f32",
     "tapconv_wgrad_3d",
     # the wall-bounded channel (ops/channel_kernels.py)
     "channel_msd_3d",

@@ -15,7 +15,8 @@ one line per kernel: its instruction count in each tree and whether the
 two are identical (a kernel renamed by a new template flag is matched by
 its code), or that it is new; with ``--opcode OP``, also how many of each
 new-tree kernel's instructions have an opcode starting with OP, and their
-forms (e.g. ``HMMA.16816.F32.BF16``: the tensor cores). Exits 1 if a
+forms (e.g. ``HMMA.16816.F32.BF16``: the tensor cores). A source the
+old tree lacks counts as empty there (all its kernels new). Exits 1 if a
 kernel of the old tree changed or went.
 It needs `nvcc` and `cuobjdump` (the CUDA toolkit), so it runs on the
 machine with the card.
@@ -87,7 +88,8 @@ def main(argv=None) -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
-            old = sass(old_dir, name, Path(tmp))
+            # a source the old tree lacks: every kernel of it is new
+            old = sass(old_dir, name, Path(tmp)) if (old_dir / name).exists() else {}
             new = sass(new_dir, name, Path(tmp))
             # a kernel that gained a template flag keeps its code under a
             # new name: match it by its instructions
