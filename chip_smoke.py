@@ -5,9 +5,9 @@ Run from the repository root on a machine with a Hopper card (H100):
 
     python3 chip_smoke.py             # the full check (one card)
     python3 chip_smoke.py --profile   # also print kernel-time breakdowns
-    python3 chip_smoke.py --stack-turns DIR   # only phase 11's bf16 stack
-                                      # times: the package of the tree DIR
-                                      # and this one's, in turns
+    python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
+                                      # timings: the package of the tree
+                                      # DIR and this one's, in turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -194,16 +194,20 @@ Phases, each raising on failure (exit code != 0, no result line):
    g (132, 132, 128, 120) bf16 with tanh and a bias, `packconv_3d` on the
    24 -> 3 identity layer (all 25 taps packed), `tapconv_3d` at the input
    gradient's shape (the cotangent padded to (136, 136, 128, 24), taps
-   (5, 5, 24, 120)) and `tapconv_wgrad_3d` on (g, dpre (128³, 24)), at
-   36³ and 128³ (float32 outputs within 1e-4 relative of the plain
-   version; the weight gradient of the plain one in float64), each timed
+   (5, 5, 24, 120)) and `tapconv_wgrad_3d` on the stack's three shapes
+   (g and dpre (128³, 24): 120 x 24; the 3 -> 24 layer's 16 x 24; 120 x 3),
+   at 36³ and 128³ (float32 outputs within 1e-4 relative of the plain
+   version; the weight gradients of the plain one in float64), each timed
    beside its bound and cuDNN's conv3d / conv3d_weight with a (5, 5, 1)
-   kernel; the forwards on bf16 operands run the tensor-core kernels, the
-   same on float32 operands (`+f32`) the FMA kernels; at 36³ also the
-   tensor-core kernels on the ragged box (8, 37, 67) at ky = kx = 3, 5, 7
-   for the stack's three forwards (the first with kc = 15), a 120 -> 13
-   layer and the input-gradient shapes (24 -> 120, 24 -> 16, 3 -> 120),
-   bf16 and float32 outputs, against the plain version in float64 (one
+   kernel; bf16 operands run the bf16 tensor-core kernels, float32
+   operands the `+f32` ones (the tap forward in 3xTF32 on the tensor
+   cores, bound by three TF32 products a multiply-add; the pack forward
+   and the 120 x 24 weight gradient on the FMA units); at 36³ also, on the
+   ragged box (8, 37, 67) at ky = kx = 3, 5, 7, the bf16 forwards and the
+   3xTF32 tap forward for the stack's three forwards (the first with kc =
+   15), a 120 -> 13 layer and the input-gradient shapes (24 -> 120, 24 ->
+   16, 3 -> 120), bf16 and float32 outputs, and the bf16 weight gradients
+   of the stack's three layers, against the plain version in float64 (one
    bf16 ulp; 1e-4); `momentum_stage_div_3d` (stage.cu's float32 stage)
    at 64³ and 256³.  (b) The closure stack (3 -> 24 -> 24 -> 3, radius 2,
    tanh/tanh/identity, phase 3's CNN weights) through
@@ -216,7 +220,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    forward, 3 `tapconv_3d` and 3 `tapconv_wgrad_3d` a backward (float32
    convs: the `+f32` keys, and none of the other route's); ms per
    forward and per forward + backward of the tap, pack and fused stacks
-   in turns, with peak memory.  (c) The unfused projection step at 256³
+   (bf16) and the tap and pack stacks (float32 convs) in turns, with peak
+   memory.  (c) The unfused projection step at 256³
    (`momentum_stage_div_3d` -> the per-op chain's 3-pass solve ->
    `pressure_correct_3d`, one launch each) against the fused hat step
    (`momentum_stage_divhat_3d` -> pass B -> `pressure_correct_qhat_3d`) on
@@ -252,7 +257,7 @@ DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
 # bytes/s and operations/s by operand type
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # operations per cell of the stencil kernels, counted from their arithmetic
 # (each add, multiply and divide one): the conv-diff of three components,
 # the stage kernels' conv-diff at I and I - e_a plus the tableau and the
@@ -915,7 +920,10 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
                 if name.startswith("fusedconv") or ("conv" in name and c.ops):
-                    gf = conv_gflop(c.label, n) if name.startswith("fusedconv") else c.ops / 1e9
+                    # GFLOP of the convolution (3xTF32 does three TF32 products a
+                    # multiply-add: its ops count them)
+                    gf = (conv_gflop(c.label, n) if name.startswith("fusedconv")
+                          else c.ops / (3e9 if c.peak == "tf32" else 1e9))
                     extra += (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
                               f"{gf / plain_ms:.2f} plain")
                 print(f"[kernels] n={n} {name} [{c.label}]: kernel {ms:.4f} ms "
@@ -2997,11 +3005,12 @@ def tap_kernel_cases(n):
 
     kc = 5 * 24
     g = field(n + 4, n + 4, n, kc, dtype=bf)
+    g16 = field(n + 4, n + 4, n, 16, dtype=bf)  # the 3 -> 24 layer's g (15 channels, padded)
     w24, w3 = field(5, 5, kc, 24, scale=(125 * 24) ** -0.5), field(5, 5, kc, 3, scale=0.02)
     b24 = field(24, scale=0.1)
     ctp = field(n + 8, n + 8, n, 24, dtype=bf)
     wback = field(5, 5, 24, kc, scale=(25 * 24) ** -0.5)
-    dpre = field(n, n, n, 24, dtype=bf)
+    dpre, dpre3 = field(n, n, n, 24, dtype=bf), field(n, n, n, 3, dtype=bf)
     f32 = torch.float32
 
     def fwd(impl, g, w, b, act):
@@ -3010,13 +3019,21 @@ def tap_kernel_cases(n):
     def conv_ops(nx, ny, nz, kc, cout):
         return 2.0 * nx * ny * nz * 25 * kc * cout
 
+    def wgrad(gg, dd, label, peak="bf16"):  # the weight gradient against float64
+        return Case(label, lambda: (ck.tapconv_wgrad_3d(gg, dd, 5, 5),),
+                    lambda: (ck.tapconv_wgrad_3d_plain(gg, dd, 5, 5),),
+                    ref=lambda: (ck.tapconv_wgrad_3d_plain(gg.double(), dd.double(), 5, 5),),
+                    inputs=(gg, dd), ops=conv_ops(n, n, n, gg.shape[-1], dd.shape[-1]), peak=peak,
+                    library=lambda: torch.nn.grad.conv3d_weight(
+                        planes(gg), (dd.shape[-1], gg.shape[-1], 5, 5, 1), planes(dd)))
+
     def planes(t):  # (nx, ny, nz, c) -> (1, c, nx, ny, nz)
         return t.permute(3, 0, 1, 2).unsqueeze(0)
 
     def taps(w):  # (5, 5, kc, cout) -> (cout, kc, 5, 5, 1) in bf16
         return w.permute(3, 2, 0, 1).unsqueeze(-1).to(bf).contiguous()
 
-    gp, ctpp, dpp = planes(g), planes(ctp), planes(dpre)
+    gp, ctpp = planes(g), planes(ctp)
     t24, t3, tb = taps(w24), taps(w3), taps(wback)
     b24b = b24.to(bf)
     ops24 = conv_ops(n, n, n, kc, 24)
@@ -3040,20 +3057,20 @@ def tap_kernel_cases(n):
                  fwd(ck.packconv_3d_plain, g, w3, None, None), inputs=(g, w3),
                  ops=conv_ops(n, n, n, kc, 3), peak="bf16", library=lambda: F.conv3d(gp, t3)),
         ],
-        "tapconv_wgrad_3d": [
-            Case("dw 120x24 bf16", lambda: (ck.tapconv_wgrad_3d(g, dpre, 5, 5),),
-                 lambda: (ck.tapconv_wgrad_3d_plain(g, dpre, 5, 5),),
-                 ref=lambda: (ck.tapconv_wgrad_3d_plain(g.double(), dpre.double(), 5, 5),),
-                 inputs=(g, dpre), ops=ops24, peak="bf16",
-                 library=lambda: torch.nn.grad.conv3d_weight(gp, (24, kc, 5, 5, 1), dpp)),
-        ],
+        # the stack's three weight gradients (tensor cores, bf16)
+        "tapconv_wgrad_3d": [wgrad(g, dpre, "dw 120x24 bf16"), wgrad(g16, dpre, "dw 16x24 bf16"),
+                             wgrad(g, dpre3, "dw 120x3 bf16")],
+        "tapconv_wgrad_3d+f32": [wgrad(g.float(), dpre.float(), "dw 120x24 f32", peak="fp32")],
+        # 3xTF32: three TF32 products a multiply-add, bound at the TF32 peak
         "tapconv_3d+f32": [
             Case("24->24 tanh+bias f32", fwd(ck.tapconv_3d, g32, w24, b24, "tanh"),
                  fwd(ck.tapconv_3d_plain, g32, w24, b24, "tanh"), inputs=(g32, w24, b24),
-                 ops=ops24, library=lambda: F.conv3d(gp32, taps(w24).float(), b24)),
+                 ops=3 * ops24, peak="tf32",
+                 library=lambda: F.conv3d(gp32, taps(w24).float(), b24)),
             Case("dG 24->120 flipped taps f32", fwd(ck.tapconv_3d, ctp32, wback, None, None),
                  fwd(ck.tapconv_3d_plain, ctp32, wback, None, None), inputs=(ctp32, wback),
-                 ops=conv_ops(n + 4, n + 4, n, 24, kc), library=lambda: F.conv3d(ctpp32, tb.float())),
+                 ops=3 * conv_ops(n + 4, n + 4, n, 24, kc), peak="tf32",
+                 library=lambda: F.conv3d(ctpp32, tb.float())),
         ],
         "packconv_3d+f32": [
             Case("24->24 tanh+bias f32", fwd(ck.packconv_3d, g32, w24, b24, "tanh"),
@@ -3068,31 +3085,45 @@ def tap_kernel_cases(n):
     # the tensor-core kernels on the ragged box (once: at the small size),
     # held against the plain version in float64 (rounded to the output's
     # dtype): cuDNN's float32 sum is itself off by more than a bf16 ulp of
-    # small outputs
+    # small outputs.  The forwards in bf16 and (the tap form) in 3xTF32,
+    # the weight gradients of the stack's three layers in bf16.
+    nx, ny, nz = TAP_RAGGED_BOX
     for k in (3, 5, 7) if n < 64 else ():
         for kcr, cout, act, label in TAP_RAGGED:
-            nx, ny, nz = TAP_RAGGED_BOX
             gr = field(nx + k - 1, ny + k - 1, nz, kcr, dtype=bf)
             wr = field(k, k, kcr, cout, scale=(k * k * kcr) ** -0.5)
             br = field(cout, scale=0.1) if act == "tanh" else None
+            g32r = field(nx + k - 1, ny + k - 1, nz, kcr)  # full float32 mantissas
             for odt in (bf, f32):
                 otag = "bf16" if odt == bf else "f32"
-                for name, impl, plain in (("tapconv_3d", ck.tapconv_3d, ck.tapconv_3d_plain),
-                                          ("packconv_3d", ck.packconv_3d, ck.packconv_3d_plain)):
+                for name, impl, plain, gg, ww in (
+                        ("tapconv_3d", ck.tapconv_3d, ck.tapconv_3d_plain, gr, wr),
+                        ("packconv_3d", ck.packconv_3d, ck.packconv_3d_plain, gr, wr),
+                        ("tapconv_3d+f32", ck.tapconv_3d, ck.tapconv_3d_plain, g32r, wr)):
                     if name == "packconv_3d" and label.startswith("dG"):
                         continue  # the input gradient runs the tap form only
-                    route = ("" if name == "tapconv_3d" else
-                             " (pack kernel)" if ck.pack_mma_takes(k, k, -(-kcr // 8) * 8, cout)
-                             else " (tap kernel)")
+                    route = (" (pack kernel)" if ck.pack_mma_takes(k, k, -(-kcr // 8) * 8, cout)
+                             else " (tap kernel)") if name == "packconv_3d" else ""
                     cases[name].append(Case(
                         f"{label} k={k} box {TAP_RAGGED_BOX} out {otag}{route}",
-                        lambda impl=impl, gr=gr, wr=wr, br=br, act=act, odt=odt:
-                            (impl(gr, wr, br, act, out_dtype=odt),),
-                        lambda plain=plain, gr=gr, wr=wr, br=br, act=act, odt=odt:
-                            (plain(gr, wr, br, act, out_dtype=odt),),
-                        ref=lambda plain=plain, gr=gr, wr=wr, br=br, act=act, odt=odt:
-                            (plain(gr.double(), wr.to(bf).double(), br, act, out_dtype=odt),),
+                        lambda impl=impl, gg=gg, ww=ww, br=br, act=act, odt=odt:
+                            (impl(gg, ww, br, act, out_dtype=odt),),
+                        lambda plain=plain, gg=gg, ww=ww, br=br, act=act, odt=odt:
+                            (plain(gg, ww, br, act, out_dtype=odt),),
+                        ref=lambda plain=plain, gg=gg, ww=ww, br=br, act=act, odt=odt:
+                            (plain(gg.double(), ww.to(gg.dtype).double(), br, act,
+                                   out_dtype=odt),),
                         time=False))
+            if label.startswith("dG") or label == "120->13":
+                continue
+            dr = field(nx, ny, nz, cout, dtype=bf)
+            cases["tapconv_wgrad_3d"].append(Case(
+                f"dw {label} k={k} box {TAP_RAGGED_BOX}",
+                lambda gr=gr, dr=dr, k=k: (ck.tapconv_wgrad_3d(gr, dr, k, k),),
+                lambda gr=gr, dr=dr, k=k: (ck.tapconv_wgrad_3d_plain(gr, dr, k, k),),
+                ref=lambda gr=gr, dr=dr, k=k: (
+                    ck.tapconv_wgrad_3d_plain(gr.double(), dr.double(), k, k),),
+                time=False))
     return cases
 
 
@@ -3167,31 +3198,35 @@ def tap_stack_inputs(n):
     return {k: v.detach().requires_grad_(True) for k, v in theta0.items()}, h0
 
 
-TAP_STACK_FORMS = {"tap": dict(form="tap", pack=False), "pack": dict(form="tap"),
-                   "fused": dict(form="fused")}
+# the stack's forms: (compute dtype, tap_stack keywords); "f32": float32 convs
+TAP_STACK_FORMS = {"tap": ("bf16", dict(form="tap", pack=False)),
+                   "pack": ("bf16", dict(form="tap")), "fused": ("bf16", dict(form="fused")),
+                   "tap f32": ("f32", dict(form="tap", pack=False)),
+                   "pack f32": ("f32", dict(form="tap"))}
 
 
 def tap_stack_times(theta, h0, order):
     """{form: {"fwd": [ms, ...], "fwd+bwd": [ms, ...], "peak": GiB}} of the
-    bf16 stack's forms (`TAP_STACK_FORMS`) timed in the given order (3 runs
+    stack's forms (`TAP_STACK_FORMS`) timed in the given order (3 runs
     after a warm-up each); the peak device memory of forward + backward."""
     import torch
 
     times = {k: {"fwd": [], "fwd+bwd": []} for k in dict.fromkeys(order)}
     for name in order:
-        kw = TAP_STACK_FORMS[name]
+        dt, kw = TAP_STACK_FORMS[name]
+        cdt = torch.bfloat16 if dt == "bf16" else torch.float32
         with torch.no_grad():
             times[name]["fwd"].append(
-                cuda_ms(lambda: tap_stack(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+                cuda_ms(lambda: tap_stack(theta, h0, cdt, **kw), reps=3, warmup=1))
         torch.cuda.reset_peak_memory_stats()
         times[name]["fwd+bwd"].append(
-            cuda_ms(lambda: tap_value_and_grad(theta, h0, torch.bfloat16, **kw), reps=3, warmup=1))
+            cuda_ms(lambda: tap_value_and_grad(theta, h0, cdt, **kw), reps=3, warmup=1))
         times[name]["peak"] = torch.cuda.max_memory_allocated() / 2**30
     return times
 
 
 def print_stack_times(tag, times):
-    print(f"[tapconv] {tag}{card_line()}: bf16 stack ms per forward / forward + backward: "
+    print(f"[tapconv] {tag}{card_line()}: stack ms per forward / forward + backward: "
           + "; ".join(f"{k} {sum(v['fwd']) / len(v['fwd']):.3f} ("
                       + ", ".join(f"{t:.3f}" for t in v["fwd"]) + ") / "
                       f"{sum(v['fwd+bwd']) / len(v['fwd+bwd']):.3f} ("
@@ -3227,15 +3262,19 @@ def phase_tapconv(n):
                              torch.autograd.grad((out * out).sum(), [h0, *theta.values()])))
             torch.cuda.synchronize()
             bwd = dict(launches.LAUNCHES)
-            # bf16 convs run the tensor-core forwards, float32 ones the FMA
-            # kernels ("+f32"); the weight gradient is one kernel for both
+            # bf16 convs run the bf16 tensor-core kernels, float32 ones the
+            # "+f32" kernels (the tap forward in 3xTF32, the pack forward and
+            # the weight gradient on the FMA units), never the other route's
             sfx = "" if cdt == torch.bfloat16 else "+f32"
             other = "+f32" if cdt == torch.bfloat16 else ""
             want_fwd = {"packconv_3d" + sfx: 3 if pack is None else 0,
-                        "tapconv_3d" + sfx: 0 if pack is None else 3, "tapconv_wgrad_3d": 0,
-                        "packconv_3d" + other: 0, "tapconv_3d" + other: 0}
-            want_bwd = {"packconv_3d" + sfx: 0, "tapconv_3d" + sfx: 3, "tapconv_wgrad_3d": 3,
-                        "packconv_3d" + other: 0, "tapconv_3d" + other: 0}
+                        "tapconv_3d" + sfx: 0 if pack is None else 3,
+                        "tapconv_wgrad_3d" + sfx: 0}
+            want_bwd = {"packconv_3d" + sfx: 0, "tapconv_3d" + sfx: 3,
+                        "tapconv_wgrad_3d" + sfx: 3}
+            for want in (want_fwd, want_bwd):
+                want.update({k + other: 0 for k in ("packconv_3d", "tapconv_3d",
+                                                    "tapconv_wgrad_3d")})
             got_fwd = {k: fwd[k] for k in want_fwd}
             got_bwd = {k: bwd[k] for k in want_bwd}
             print(f"[tapconv] {tag} {sel}: launches forward {got_fwd}, backward {got_bwd}")
@@ -3246,9 +3285,8 @@ def phase_tapconv(n):
                 fail(f"tap stack {tag} {sel}: plain versions ran on CUDA tensors")
             if pack is None:
                 counts.update({"packconv_3d" + sfx: got_fwd["packconv_3d" + sfx],
-                               "tapconv_3d" + sfx: got_bwd["tapconv_3d" + sfx]})
-                if cdt == torch.bfloat16:
-                    counts["tapconv_wgrad_3d"] = got_bwd["tapconv_wgrad_3d"]
+                               "tapconv_3d" + sfx: got_bwd["tapconv_3d" + sfx],
+                               "tapconv_wgrad_3d" + sfx: got_bwd["tapconv_wgrad_3d" + sfx]})
             out = out.detach()
             if not (bool(torch.isfinite(out).all()) and out.shape == (n, n, n, 3)):
                 fail(f"tap stack {tag} {sel}: output not finite or of shape {tuple(out.shape)}")
@@ -3264,15 +3302,17 @@ def phase_tapconv(n):
         del refs, out, grads
         torch.cuda.empty_cache()
 
-    # ms per forward and per forward + backward (bf16), in turns, and peak memory
-    print_stack_times("", tap_stack_times(theta, h0, ("tap", "pack", "fused", "fused", "pack",
+    # ms per forward and per forward + backward (bf16 and float32 convs), in
+    # turns, and peak memory
+    print_stack_times("", tap_stack_times(theta, h0, ("tap", "pack", "fused", "pack f32", "tap f32",
+                                                      "tap f32", "pack f32", "fused", "pack",
                                                       "tap")))
     return counts
 
 
 def stack_turns(parent):
-    """The bf16 stack's ms and peak memory (`tap_stack_times`, pack and tap
-    forms at 128³) of the package in the tree `parent` and of this tree's,
+    """The stack's ms and peak memory (`tap_stack_times`, pack and tap
+    forms, bf16 and float32 convs, at 128³) of the package in the tree `parent` and of this tree's,
     each in its own process, in turns: parent, this, this, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
     for root in (parent, here, here, parent):
@@ -3363,7 +3403,7 @@ HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+
 UNMERGED_KERNELS = ("momentum_stage_divhat_3d+bf16", "pcmsd_hat_3d+bf16",
                     "pressure_correct_qhat_3d+bf16", "momentum_stage_divhat_3d+streams")
 TAP_KERNELS = ("tapconv_3d", "packconv_3d", "tapconv_wgrad_3d", "momentum_stage_div_3d",
-               "tapconv_3d+f32", "packconv_3d+f32")
+               "tapconv_3d+f32", "packconv_3d+f32", "tapconv_wgrad_3d+f32")
 
 
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
@@ -3411,17 +3451,19 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
                                          "ins_tpu/ops/pallas_kernels.py:1126"),
     "tapconv_3d": ("ins_tpu_torch/csrc/tapconv_mma.cu", "ins_tpu/ops/convkernels.py:130"),
     "packconv_3d": ("ins_tpu_torch/csrc/tapconv_mma.cu", "ins_tpu/ops/convkernels.py:471"),
-    "tapconv_wgrad_3d": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:249"),
+    "tapconv_wgrad_3d": ("ins_tpu_torch/csrc/tapwgrad_mma.cu", "ins_tpu/ops/convkernels.py:249"),
     "momentum_stage_div_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:631"),
-    "tapconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:130"),
+    "tapconv_3d+f32": ("ins_tpu_torch/csrc/tapconv_tf32.cu", "ins_tpu/ops/convkernels.py:130"),
     "packconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
+    "tapconv_wgrad_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:249"),
 }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stack-turns", metavar="PARENT",
-                    help="only time the 128³ bf16 tap stack (pack and tap forms) of the "
+                    help="only time the 128³ tap stack (pack and tap forms, bf16 and "
+                         "float32 convs) of the "
                          "package in the tree PARENT and of this tree's, in turns")
     ap.add_argument("--stack-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
@@ -3446,7 +3488,8 @@ def main():
 
     if args.stack_time:  # one turn of --stack-turns
         torch.backends.cudnn.allow_tf32 = False
-        times = tap_stack_times(*tap_stack_inputs(128), ("pack", "tap", "tap", "pack"))
+        times = tap_stack_times(*tap_stack_inputs(128), ("pack", "tap", "pack f32", "tap f32",
+                                                          "tap f32", "pack f32", "tap", "pack"))
         print_stack_times(f"{os.path.abspath(args.stack_time)} ", times)
         print(json.dumps({k: [sum(v["fwd"]) / len(v["fwd"]), sum(v["fwd+bwd"]) / len(v["fwd+bwd"]),
                               v["peak"]] for k, v in times.items()}))
@@ -3537,7 +3580,7 @@ def main():
     phase_done("phase 10 (unmerged chain and bf16 streams)")
     results.update(phase_kernels(tap_kernel_cases, (36, 128),
                                  time_all=("tapconv_3d", "packconv_3d", "tapconv_3d+f32",
-                                           "packconv_3d+f32")))
+                                           "packconv_3d+f32", "tapconv_wgrad_3d")))
     results.update(phase_kernels(stage_div_kernel_cases, (64, 256)))
     torch.cuda.empty_cache()
     tap_counts = phase_tapconv(128)

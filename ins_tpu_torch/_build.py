@@ -125,15 +125,8 @@ _SIGNATURES = {
         [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
         _c_int,
     ),
-    "ins_tapconv_fwd": (
-        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 7 + [_c_ptr],
-        _c_int,
-    ),
     "ins_tapconv_wgrad_chunks": ([_c_int] * 3, _c_int),
-    "ins_tapconv_wgrad": (
-        [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 7 + [_c_ptr],
-        _c_int,
-    ),
+    "ins_tapconv_wgrad": ([_c_ptr] * 4 + [_c_int] * 7 + [_c_ptr], _c_int),
     "ins_packconv": (
         [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
         + [_c_int] * 7 + [_c_ptr],
@@ -141,6 +134,14 @@ _SIGNATURES = {
     ),
     "ins_tapconv_fwd_mma": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 10 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_tapconv_fwd_tf32": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 10 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_tapconv_wgrad_mma": (
+        [_c_ptr] * 4 + [_c_int] * 14 + [_c_ptr],
         _c_int,
     ),
     "ins_packconv_mma": (

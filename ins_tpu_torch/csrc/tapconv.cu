@@ -1,6 +1,6 @@
-// Tap-matmul and pack-tile convolution of the CNN closure's z-folded
-// layer, forward (with bias and tanh/identity fused in) and weight
-// gradient:
+// The pack-tile convolution of the CNN closure's z-folded layer on
+// float32 operands, forward (with bias and tanh/identity fused in), and the
+// layer's weight gradient on float32 operands:
 //
 //   out[x, y, z, o] = act(b[o] + sum_{dx<kx, dy<ky, c<kc} g[x+dx, y+dy, z, c]
 //                                                         * w2[dx, dy, c, o])
@@ -9,33 +9,26 @@
 // g is (nxp, nyp, nz, kc) channels last with the z taps already folded
 // into kc and x, y padded by kx-1, ky-1: a VALID correlation over (x, y)
 // with z a batch axis; out is (nxp-kx+1, nyp-ky+1, nz, cout), ct likewise.
-// g and ct are float32 or bfloat16, w2 float32 (the wrapper rounds it to
-// g's type first), out float32 or bfloat16, dW float32.  Every sum is
-// taken in float32; bf16 operands are widened exactly, so a kernel differs
-// from a float32 reference on the same rounded operands only in the order
-// of its sums.  The layer's input gradient is the tap forward on the
-// cotangent zero-padded by (kx-1, ky-1) with the taps flipped and
-// transposed.
+// g, ct, w2 and dW are float32 (the pack forward's loads also widen a bf16
+// g exactly), out float32 or bfloat16.  Every sum is taken in float32.
+// The other routes: the tap forward on float32 operands is tapconv_tf32.cu
+// (3xTF32 on the tensor cores); bf16 operands run tapconv_mma.cu
+// (forwards) and tapwgrad_mma.cu (weight gradient).
 //
-// Replaces: `_tapconv_kernel` (ins_tpu/ops/convkernels.py:78, wrapper
-// `tapconv_3d` :130), `_wgrad_kernel` (:191, wrapper `tapconv_wgrad_3d`
-// :249) and `_packconv_kernel` (:387, wrapper `packconv_3d` :471).  The
-// TPU kernels need kc and nz in 128-lane multiples, emit lane-padded
-// outputs, carry a ring of g planes (and, for the pack form, of product
-// planes) across the sequential x grid and collapse the packed tap lanes
-// with a block-sum matmul; none of that carries over: these kernels take
-// any kc, nz and cout and emit cout channels.
+// Replaces: for float32 operands, `_wgrad_kernel`
+// (ins_tpu/ops/convkernels.py:191, wrapper `tapconv_wgrad_3d` :249) and
+// `_packconv_kernel` (:387, wrapper `packconv_3d` :471).  The TPU kernels
+// need kc and nz in 128-lane multiples, emit lane-padded outputs, carry a
+// ring of g planes (and, for the pack form, of product planes) across the
+// sequential x grid and collapse the packed tap lanes with a block-sum
+// matmul; none of that carries over: these kernels take any kc, nz and
+// cout and emit cout channels.
 //
-// What bounds it on an H100: FP32 FMA issue, as in conv.cu (no tensor
-// cores yet).  The 24 -> 24 layer at 128^3 is 2 * 25 * 120 * 24 * 128^3 =
-// 302 GFLOP against 0.3 GB of compulsory traffic.
+// What bounds it on an H100: FP32 FMA issue, as in conv.cu's float32
+// route.  The 24 -> 24 layer at 128^3 is 2 * 25 * 120 * 24 * 128^3 = 302
+// GFLOP (4.5 ms at the 67 TFLOP/s FP32 peak) against 0.3 GB of compulsory
+// traffic.
 //
-// - tap forward: conv.cu's forward without z taps and without wrapping: a
-//   block of 32 (z) x 4 (y) threads owns a 32 x 16 output tile of one
-//   x-plane and COT output channels; for each dx and each chunk of 8
-//   channels it stages the g window (tile plus ky-1 rows) and that dx's
-//   weights in shared memory; a thread holds 4 y-rows x COT channels of
-//   sums and reuses a column of 4 + ky - 1 inputs across the ky taps.
 // - pack forward, weight-first as the TPU kernel: phase 1 forms every
 //   input plane's products with all taps once, P[p, (y, z), (dx, dy, o)] =
 //   sum_c g[p, y, z, c] w2[dx, dy, c, o], a dense product (M = nyp nz rows,
@@ -62,11 +55,6 @@
 
 namespace {
 
-constexpr int BZ = 32;           // tap forward: threads along z (one warp)
-constexpr int BY = 4;            // tap forward: threads along y
-constexpr int CY = 4;            // tap forward: y-rows per thread
-constexpr int TYO = BY * CY;     // tap forward: output tile extent in y
-constexpr int CC = 8;            // tap forward: channels staged per pass
 constexpr int WTY = 4;           // wgrad: cell tile extent in y
 constexpr int WTZ = 16;          // wgrad: cell tile extent in z
 constexpr int RPT = 8;           // wgrad: dW rows per thread
@@ -105,127 +93,10 @@ __device__ __forceinline__ void store_val(void* p, size_t i, float v, int bf16) 
         static_cast<float*>(p)[i] = v;
 }
 
-struct TapParams {
-    const void* g;
-    int g_bf16;
-    int vec;            // 8-value loads of g: kc % 8 == 0 and g 16-byte aligned
-    const float* w;     // (kx, ky, kc, cout)
-    const float* bias;  // may be null
-    int act;            // 0 identity, 1 tanh
-    void* out;
-    int out_bf16;
-    int nxp, nyp, nz, kc, kx, cout;
-};
-
-template <int KY>
-__host__ __device__ constexpr int tap_stride() {  // channel stride of the staged window (odd)
-    return (TYO + KY - 1) * BZ + 1;
-}
-
-template <int KY, int COT>
-constexpr size_t tap_smem() {
-    return sizeof(float) * (CC * tap_stride<KY>() + KY * CC * COT);
-}
-
-template <int KY, int COT>
-__global__ void __launch_bounds__(BZ * BY)
-tap_fwd_kernel(const __grid_constant__ TapParams p) {
-    extern __shared__ float4 smem4[];
-    constexpr int TYH = TYO + KY - 1;
-    constexpr int CS = tap_stride<KY>();
-    float* s_in = reinterpret_cast<float*>(smem4);
-    float* s_w = s_in + CC * CS;  // 16-byte aligned: CC * CS * 4 = 32 * CS
-    const int nyp = p.nyp, nz = p.nz, kc = p.kc, cout = p.cout;
-    const int ny = nyp - KY + 1;
-    const int ncot = (cout + COT - 1) / COT;
-    const int x = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
-    const int z0 = blockIdx.x * BZ, y0 = blockIdx.y * TYO;
-    const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * BZ + tz;
-
-    float acc[CY][COT];
-#pragma unroll
-    for (int j = 0; j < CY; ++j)
-#pragma unroll
-        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
-
-    for (int dx = 0; dx < p.kx; ++dx) {
-        const size_t plane = (size_t)(x + dx) * nyp;
-        for (int c0 = 0; c0 < kc; c0 += CC) {
-            const int cc = min(CC, kc - c0);
-            __syncthreads();  // the previous pass is done with shared memory
-            if (p.vec) {  // a cell's CC channels in one 16-byte load
-                for (int e = tid; e < TYH * BZ; e += BZ * BY) {
-                    const int lz = e % BZ, ly = e / BZ;
-                    const int yy = y0 + ly, zz = z0 + lz;
-                    float v[CC] = {};  // rows past the padded field and z past nz add 0
-                    if (yy < nyp && zz < nz)
-                        load8(p.g, ((plane + yy) * nz + zz) * kc + c0, p.g_bf16, v);
-#pragma unroll
-                    for (int c = 0; c < CC; ++c) s_in[c * CS + ly * BZ + lz] = v[c];
-                }
-            } else {  // (ly, lz, c) from powers of two: no division by a run-time count
-                for (int e = tid; e < TYH * BZ * CC; e += BZ * BY) {
-                    const int c = e % CC, lz = (e / CC) % BZ, ly = e / (CC * BZ);
-                    const int yy = y0 + ly, zz = z0 + lz;
-                    float v = 0.0f;
-                    if (c < cc && yy < nyp && zz < nz)
-                        v = load_val(p.g, ((plane + yy) * nz + zz) * kc + c0 + c, p.g_bf16);
-                    s_in[c * CS + ly * BZ + lz] = v;
-                }
-            }
-            for (int e = tid; e < KY * CC * COT; e += BZ * BY) {
-                const int o = e % COT, rest = e / COT;
-                const int ci = rest % CC, dy = rest / CC;
-                float v = 0.0f;
-                if (ci < cc && co0 + o < cout)
-                    v = __ldg(p.w + ((size_t)(dx * KY + dy) * kc + c0 + ci) * cout + co0 + o);
-                s_w[e] = v;
-            }
-            __syncthreads();
-            for (int ci = 0; ci < cc; ++ci) {
-                const float* src = s_in + ci * CS + ty * CY * BZ + tz;
-                float col[CY + KY - 1];
-#pragma unroll
-                for (int j = 0; j < CY + KY - 1; ++j) col[j] = src[j * BZ];
-#pragma unroll
-                for (int dy = 0; dy < KY; ++dy) {
-                    float wr[COT];
-                    load_vec<COT>(s_w + (dy * CC + ci) * COT, wr);
-#pragma unroll
-                    for (int j = 0; j < CY; ++j)
-#pragma unroll
-                        for (int o = 0; o < COT; ++o)
-                            acc[j][o] = fmaf(col[j + dy], wr[o], acc[j][o]);
-                }
-            }
-        }
-    }
-
-    const int z = z0 + tz;
-    if (z >= nz) return;
-#pragma unroll
-    for (int j = 0; j < CY; ++j) {
-        const int y = y0 + ty * CY + j;
-        if (y >= ny) continue;
-        const size_t cell = (((size_t)x * ny + y) * nz + z) * cout;
-#pragma unroll
-        for (int o = 0; o < COT; ++o) {
-            const int co = co0 + o;
-            if (co >= cout) break;
-            float v = acc[j][o];
-            if (p.bias) v += __ldg(p.bias + co);
-            if (p.act == 1) v = tanhf(v);
-            store_val(p.out, cell + co, v, p.out_bf16);
-        }
-    }
-}
-
 struct WgradParams {
-    const void* g;
-    int g_bf16;
-    int vec;         // 8-value loads of g, as TapParams::vec
-    const void* d;   // (nx, ny, nz, cout)
-    int d_bf16;
+    const float* g;
+    int vec;         // 8-value loads of g: kc % 8 == 0 and g 16-byte aligned
+    const float* d;  // (nx, ny, nz, cout)
     float* partial;  // (nchunk * WG, kx * ky * kc * cout)
     int nxp, nyp, nz, kc, kx, cout;
     int xb;          // x-planes per cell chunk
@@ -289,13 +160,13 @@ tap_wgrad_kernel(const __grid_constant__ WgradParams p) {
             if (p.vec) {
                 for (int i = btid * 8; i < WTZ * kc; i += bthr * 8) {
                     float v[8] = {};
-                    if (i < len) load8(p.g, row + i, p.g_bf16, v);
+                    if (i < len) load8(p.g, row + i, 0, v);
                     *reinterpret_cast<float4*>(dst + i) = make_float4(v[0], v[1], v[2], v[3]);
                     *reinterpret_cast<float4*>(dst + i + 4) = make_float4(v[4], v[5], v[6], v[7]);
                 }
             } else {
                 for (int i = btid; i < WTZ * kc; i += bthr)
-                    dst[i] = i < len ? load_val(p.g, row + i, p.g_bf16) : 0.0f;
+                    dst[i] = i < len ? p.g[row + i] : 0.0f;
             }
         }
         for (int e = btid; e < WTY * WTZ * COT; e += bthr) {
@@ -304,7 +175,7 @@ tap_wgrad_kernel(const __grid_constant__ WgradParams p) {
             const int y = y0 + ly, z = z0 + lz, co = co0 + o;
             float v = 0.0f;  // cells outside the box and channels past cout add 0
             if (y < ny && z < nz && co < cout)
-                v = load_val(p.d, (((size_t)x * ny + y) * nz + z) * cout + co, p.d_bf16);
+                v = p.d[(((size_t)x * ny + y) * nz + z) * cout + co];
             s_d[e] = v;
         }
         __syncthreads();
@@ -339,7 +210,7 @@ tap_wgrad_kernel(const __grid_constant__ WgradParams p) {
 struct PackParams {
     const void* g;
     int g_bf16;
-    int vec;            // 8-value loads of g, as TapParams::vec
+    int vec;            // 8-value loads of g, as WgradParams::vec
     const float* ws;    // (kc, N): ws[c, (dx * ky + dy) * cout + o] = w2[dx, dy, c, o]
     const float* bias;  // may be null
     int act;
@@ -463,16 +334,6 @@ int aligned8(const void* g, int kc) {
 }
 
 template <int KY, int COT>
-cudaError_t launch_tap(const TapParams& p, cudaStream_t stream) {
-    const int ncot = (p.cout + COT - 1) / COT;
-    const int nx = p.nxp - p.kx + 1, ny = p.nyp - KY + 1;
-    const dim3 block(BZ, BY);
-    const dim3 grid((p.nz + BZ - 1) / BZ, (ny + TYO - 1) / TYO, nx * ncot);
-    tap_fwd_kernel<KY, COT><<<grid, block, tap_smem<KY, COT>(), stream>>>(p);
-    return cudaGetLastError();
-}
-
-template <int KY, int COT>
 cudaError_t launch_wgrad(const WgradParams& p, int nchunk, cudaStream_t stream) {
     const int nrow = KY * p.kc;
     int nthr = (nrow + RPT - 1) / RPT;
@@ -493,24 +354,6 @@ cudaError_t launch_wgrad(const WgradParams& p, int nchunk, cudaStream_t stream) 
 
 }  // namespace
 
-// The tap forward: out (nxp-kx+1, nyp-ky+1, nz, cout); ky in (1, 3, 5, 7).
-extern "C" int ins_tapconv_fwd(const void* g, int g_bf16, const float* w, const float* bias,
-                               int act, void* out, int out_bf16, int nxp, int nyp, int nz,
-                               int kc, int kx, int ky, int cout, void* stream) {
-    if (kx < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1) return (int)cudaErrorInvalidValue;
-    const TapParams p{g, g_bf16, aligned8(g, kc), w, bias, act, out, out_bf16,
-                      nxp, nyp, nz, kc, kx, cout};
-    const cudaStream_t s = (cudaStream_t)stream;
-    const bool small = cout <= 4;
-    switch (ky) {
-        case 1: return (int)(small ? launch_tap<1, 4>(p, s) : launch_tap<1, 8>(p, s));
-        case 3: return (int)(small ? launch_tap<3, 4>(p, s) : launch_tap<3, 8>(p, s));
-        case 5: return (int)(small ? launch_tap<5, 4>(p, s) : launch_tap<5, 8>(p, s));
-        case 7: return (int)(small ? launch_tap<7, 4>(p, s) : launch_tap<7, 8>(p, s));
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
 // Number of cell chunks (rows of the partial-sum buffer) of a wgrad call
 // on a cotangent of (nx, ny, nz) cells.
 extern "C" int ins_tapconv_wgrad_chunks(int nx, int ny, int nz) {
@@ -519,17 +362,17 @@ extern "C" int ins_tapconv_wgrad_chunks(int nx, int ny, int nz) {
     return nchunk * WG;
 }
 
-// dW (kx, ky, kc, cout) float32 of g (nxp, nyp, nz, kc) and ct (nxp-kx+1,
-// nyp-ky+1, nz, cout); partial holds ins_tapconv_wgrad_chunks rows of
+// dW (kx, ky, kc, cout) of g (nxp, nyp, nz, kc) and ct (nxp-kx+1, nyp-ky+1,
+// nz, cout), all float32; partial holds ins_tapconv_wgrad_chunks rows of
 // kx * ky * kc * cout floats.  ky in (1, 3, 5, 7); the staged g window
 // bounds kc (about 290 channels at ky = 5).
-extern "C" int ins_tapconv_wgrad(const void* g, int g_bf16, const void* d, int d_bf16,
-                                 float* partial, float* dw, int nxp, int nyp, int nz, int kc,
-                                 int kx, int ky, int cout, void* stream) {
+extern "C" int ins_tapconv_wgrad(const float* g, const float* d, float* partial, float* dw,
+                                 int nxp, int nyp, int nz, int kc, int kx, int ky, int cout,
+                                 void* stream) {
     if (kx < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1) return (int)cudaErrorInvalidValue;
     int xb, nchunk;
     wgrad_chunks(nxp - kx + 1, nyp - ky + 1, nz, &xb, &nchunk);
-    const WgradParams p{g, g_bf16, aligned8(g, kc), d, d_bf16, partial,
+    const WgradParams p{g, aligned8(g, kc), d, partial,
                         nxp, nyp, nz, kc, kx, cout, xb};
     const cudaStream_t s = (cudaStream_t)stream;
     const bool small = cout <= 4;

@@ -9,8 +9,10 @@
 // into kc (a multiple of 8: the wrapper pads with zero channels) and x, y
 // padded by kx-1, ky-1; out is (nxp-kx+1, nyp-ky+1, nz, cout) in float32
 // or bf16.  The layer's input gradient is the same function on the
-// zero-padded cotangent with flipped, transposed taps.  The float32 route
-// (FP32 FMA on float32 operands) is tapconv.cu, unchanged.
+// zero-padded cotangent with flipped, transposed taps.  The float32 routes
+// are tapconv_tf32.cu (the tap forward, 3xTF32 on the tensor cores) and
+// tapconv.cu (the pack forward, FP32 FMA); the weight gradient is
+// tapwgrad_mma.cu (bf16) and tapconv.cu (float32).
 //
 // Replaces: for bf16 operands, `_tapconv_kernel` (ins_tpu/ops/convkernels.py:78,
 // wrapper `tapconv_3d` :130) and `_packconv_kernel` (:387, wrapper
@@ -20,7 +22,10 @@
 // against 0.74 GB of compulsory traffic (0.31 ms at the 989 TFLOP/s bf16
 // peak), so the tensor cores and the shared-memory reads that feed them;
 // the input gradient (120 output channels) writes 0.5-1.1 GB, so there the
-// stores.
+// stores.  Measured (H100 80GB HBM3, 700 W; PERF.md): the tap kernel at
+// 160 TFLOP/s, 6.2x its bound, held by the restaging of each (dx, chunk)
+// stage from L2 (below); the pack kernel at 4.9x its byte bound, held by
+// the tap sums between its mma phases.
 //
 // * tap kernel (output-first, `tapconv_3d`, and `packconv_3d` where the taps
 //   do not all pack into one tile): an implicit GEMM with M = the cells of

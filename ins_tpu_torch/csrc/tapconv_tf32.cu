@@ -1,0 +1,414 @@
+// The tap-matmul convolution of the CNN closure's z-folded layer on
+// float32 operands, on the tensor cores in 3xTF32 (`mma.sync.m16n8k8`,
+// TF32 operands, float32 sums), forward with bias and tanh/identity
+// fused in:
+//
+//   out[x, y, z, o] = act(b[o] + sum_{dx<kx, dy<ky} sum_c g[x+dx, y+dy, z, c]
+//                                                         * w2[dx, dy, c, o])
+//
+// g is (nxp, nyp, nz, kc) float32, channels last, the z taps already
+// folded into kc (a multiple of 4: the wrapper pads with zero channels)
+// and x, y padded by kx-1, ky-1; out is (nxp-kx+1, nyp-ky+1, nz, cout) in
+// float32 or bf16.  The layer's input gradient is the same function on the
+// zero-padded cotangent with flipped, transposed taps.  The bf16 route is
+// tapconv_mma.cu.
+//
+// Replaces: for float32 operands, `_tapconv_kernel`
+// (ins_tpu/ops/convkernels.py:78, wrapper `tapconv_3d` :130).
+//
+// Accuracy: each operand is split into a TF32 big part and a TF32 small
+// part, big = rna(x) and small = rna(x - big) (round to nearest, ties away,
+// 10-bit mantissa), and a product is small*big + big*small + big*big, the
+// small*small term dropped (CUTLASS's "3xTF32"): about 2^-21 relative a
+// product against 2^-11 for one TF32 pass, so the kernel stays in the
+// float32 class.  The tensor cores' float32 sums truncate, so a chain
+// holds at most CHAIN mma (two taps' three products) before it is added to
+// a float32 accumulator.
+//
+// What bounds it on an H100: the 24 -> 24 layer at 128^3 is 302 GFLOP, so
+// 906 GFLOP of TF32 mma (1.83 ms at the 495 TFLOP/s dense TF32 peak)
+// against 1.2 GB of compulsory traffic; the input gradient (24 -> 120) 963
+// GFLOP (1.95 ms).  mma.sync reaches a fraction of that peak, and the
+// window and weights are restaged from L2 for every (dx, chunk) stage
+// (~13 GB at 24 -> 24 by the shapes' count), so the tensor cores' issue
+// rate and L2 hold it; two blocks an SM (16 warps) hide the latencies, so
+// registers (128 a thread) bound the design.
+//
+// Design: tapconv_mma.cu's output-first `tap_mma_kernel` with float32
+// stages: an implicit GEMM with M = the cells of an output row, K = kc and
+// N = cout in blocks of 8*NT columns (NT <= 3 n8 tiles: a warp's
+// accumulators and its tensor-core chains, 16*NT registers, then fit two
+// blocks an SM without spilling; the input gradient's 120 columns are
+// five blocks).  A block of 8 warps owns one x-plane's 8 (y) x 32 (z)
+// cells and one block of output channels, a warp 2 rows of one m16 tile
+// of cells; the block walks stages (dx, 16-channel chunk) through a ring
+// of 16-byte cp.async copies: the input plane's (8 + ky - 1) x 32-cell
+// window (pitch 20 floats: 5 16-byte units, so an ldmatrix's 8 rows hit
+// distinct banks) and that dx's ky weight tiles.  The A fragment of a k8
+// step is one `ldmatrix.x4` (a float32 is two b16 values of one row, so
+// the b16 layout hands each thread the TF32 fragment's element) split in
+// registers; the B fragments come split and in fragment order from the
+// host (`pack_tap_weights_tf32`: per (dx, dy, k8 step, n8 tile) 32 lanes
+// x (big b0, big b1, small b0, small b1)), one 16-byte shared load a
+// lane.  Tap dy feeds output row ro from window row dy + ro: a warp walks
+// the taps (unrolled by two: fully unrolled, the scheduler's look-ahead
+// spilled registers) with its 2 current window rows split in registers
+// (one new row a tap, so each row is loaded and split once), and each B
+// fragment feeds both rows as it is loaded, so an A fragment feeds up to
+// 3*2*NT mma and one B fragment is live.
+
+#include <cstdint>
+
+#include "convio.cuh"  // bf16, CHAIN, cp.async, ldmatrix, ring_wait, set_smem
+
+namespace {
+
+constexpr int TF_THREADS = 256;  // 8 warps
+constexpr int TTY = 8;           // output rows (y) a block
+constexpr int TTZ = 32;          // output cells (z) a row
+constexpr int TRW = 2;           // output rows a warp (one m16 tile of cells)
+static_assert(TTY * TTZ == TF_THREADS / 32 * TRW * 16, "the warps tile the block's cells");
+constexpr int TMAXNT = 3;        // n8 tiles of output channels a block, at most
+constexpr int FCH = 16;          // channels a stage (two k8 steps)
+constexpr int FKS = FCH / 8;     // k8 steps a stage
+constexpr int FCHP = FCH + 4;    // their staged pitch in floats: 5 16-byte units (odd)
+constexpr int FRAG = 128;        // floats of one packed B fragment: 32 lanes x 4
+constexpr int TF_SM_BLOCKS = 2;  // blocks an SM the launch bounds ask for (128 registers)
+constexpr int TAPS_CHAINED = CHAIN / 3;  // taps in one tensor-core chain (3 mma a tap)
+static_assert(TAPS_CHAINED >= 1, "a chain holds one tap's three products");
+
+// floats of one stage: the window, then the ky taps' fragments of its two k8 steps
+template <int KY, int NT>
+__host__ __device__ constexpr int tf32_stage_floats() {
+    return (TTY + KY - 1) * TTZ * FCHP + KY * FKS * NT * FRAG;
+}
+
+// Stage channels c .. c+3 of g's cell (plane, y, z) into 16 bytes of shared
+// memory: one cp.async, or zeros past the field (rows y >= nyp, cells z >=
+// nz, channels c >= kc).
+__device__ __forceinline__ void stage_g4(float* dst, const float* g, int plane, int y, int z,
+                                         int c, int nyp, int nz, int kc) {
+    if (y < nyp && z < nz && c < kc)
+        cp_async16(dst, g + (((size_t)plane * nyp + y) * nz + z) * kc + c);
+    else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// an A fragment (float32 bits) as its TF32 big and small parts
+__device__ __forceinline__ void split_tf32(const uint32_t (&a)[4], uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float f = __uint_as_float(a[i]);
+        big[i] = tf32_rna(f);
+        small[i] = tf32_rna(f - __uint_as_float(big[i]));
+    }
+}
+
+// c += a (16x8, row) * b (8x8, col), TF32 operands, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b: the first product of a chain
+__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// The A fragment of one k8 step at this lane's ldmatrix row address p,
+// split into its TF32 parts
+__device__ __forceinline__ void load_split(const float* p, uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+    uint32_t a[4];
+    ldsm_x4(a, reinterpret_cast<const bf16*>(p));
+    split_tf32(a, big, small);
+}
+
+// One tap's products for a warp's two output rows (lo: row 0's window
+// row, hi: row 1's): per n8 tile the lane's split B fragment (big b0, big
+// b1, small b0, small b1; b: this lane's at tile 0) and small*big +
+// big*small + big*big into part, FIRST starting a chain.
+template <int NT, bool FIRST>
+__device__ __forceinline__ void tap_products(float (&part)[2][NT][4], const uint32_t (&lo_b)[4],
+                                             const uint32_t (&lo_s)[4], const uint32_t (&hi_b)[4],
+                                             const uint32_t (&hi_s)[4], const float* b) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+        const uint4 v = *reinterpret_cast<const uint4*>(b + t * FRAG);
+        if (FIRST) {
+            mma_tf32_first(part[0][t], lo_s, v.x, v.y);
+            mma_tf32_first(part[1][t], hi_s, v.x, v.y);
+        } else {
+            mma_tf32(part[0][t], lo_s, v.x, v.y);
+            mma_tf32(part[1][t], hi_s, v.x, v.y);
+        }
+        mma_tf32(part[0][t], lo_b, v.z, v.w);
+        mma_tf32(part[1][t], hi_b, v.z, v.w);
+        mma_tf32(part[0][t], lo_b, v.x, v.y);
+        mma_tf32(part[1][t], hi_b, v.x, v.y);
+    }
+}
+
+__device__ __forceinline__ float epilogue(float v, const float* bias, int co, int act) {
+    if (bias) v += __ldg(bias + co);
+    return act == 1 ? tanhf(v) : v;
+}
+
+// (lo, hi) rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+struct TapTf32Params {
+    const float* g;     // (nxp, nyp, nz, kc)
+    const float* w;     // packed (kx, ky, kp/8, np/8, 32, 4): split B fragments
+    const float* bias;  // may be null
+    int act;            // 0 identity, 1 tanh
+    void* out;
+    int out_bf16;
+    int vec_out;        // cout % 8 == 0 and out 16-byte aligned: 16-byte stores
+    int nxp, nyp, nz, kc, kx, cout;
+    int kp, np;         // kc rounded up to 8; output channels padded to nblk * 8*NT
+    int nbuf;           // stages in the ring
+};
+
+template <int KY, int NT>
+__global__ void __launch_bounds__(TF_THREADS, TF_SM_BLOCKS)
+tap_tf32_kernel(const __grid_constant__ TapTf32Params p) {
+    constexpr int ROWS = TTY + KY - 1;
+    constexpr int IN = ROWS * TTZ * FCHP;
+    constexpr int STAGE = tf32_stage_floats<KY, NT>();
+    extern __shared__ float4 smem_f4[];
+    float* smem = reinterpret_cast<float*>(smem_f4);
+    const int nbuf = p.nbuf;
+    const int ny = p.nyp - KY + 1;
+    const int nblk = p.np / (8 * NT), ntiles = p.np / 8, nks = p.kp / 8;
+    const int x = blockIdx.z / nblk, blk = blockIdx.z % nblk, n0 = blk * 8 * NT;
+    const int y0 = blockIdx.y * TTY, z0 = blockIdx.x * TTZ;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // warp: output rows wy0 .. wy0 + TRW - 1, cells 16 * wm .. 16 * wm + 15
+    const int wy0 = (warp / (TTZ / 16)) * TRW, wm = warp % (TTZ / 16);
+    const int nchunk = (p.kp + FCH - 1) / FCH;
+    const int nstage = p.kx * nchunk;  // (dx, chunk)
+
+    auto issue = [&](int s) {
+        if (s < nstage) {
+            const int dx = s / nchunk, c0 = (s % nchunk) * FCH;
+            float* s_in = smem + (s % nbuf) * STAGE;
+            float* s_w = s_in + IN;
+            for (int u = tid; u < ROWS * TTZ * (FCH / 4); u += TF_THREADS) {
+                const int q = u % (FCH / 4), cell = (u / (FCH / 4)) % TTZ;
+                const int r = u / (FCH / 4 * TTZ);
+                stage_g4(s_in + (r * TTZ + cell) * FCHP + 4 * q, p.g, x + dx, y0 + r, z0 + cell,
+                         c0 + 4 * q, p.nyp, p.nz, p.kc);
+            }
+            // k8 steps (dy, j) of tap (dx, dy): this block's NT fragments,
+            // contiguous in the packed weights
+            const int ks0 = c0 / 8;
+            for (int u = tid; u < KY * FKS * NT * 32; u += TF_THREADS) {
+                const int l = u % (NT * 32), j = (u / (NT * 32)) % FKS, dy = u / (NT * 32 * FKS);
+                if (ks0 + j < nks)
+                    cp_async16(s_w + (dy * FKS + j) * NT * FRAG + 4 * l,
+                               p.w + ((((size_t)dx * KY + dy) * nks + ks0 + j) * ntiles +
+                                      blk * NT) * FRAG + 4 * l);
+            }
+        }
+        cp_async_commit();
+    };
+
+    // acc: the sum (float32 adds); part: a chain of at most TAPS_CHAINED
+    // taps' products in the tensor cores
+    float acc[TRW][NT][4], part[TRW][NT][4];
+#pragma unroll
+    for (int r = 0; r < TRW; ++r)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][t][e] = 0.0f;
+
+    // ldmatrix row addresses: rows are cells (lanes 0-15: channels 0-3,
+    // 16-31: channels 4-7 of the k8 step)
+    const int a_lane = (wy0 * TTZ + 16 * wm + (lane & 15)) * FCHP + (lane >> 4) * 4;
+    for (int s = 0; s < nbuf - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+        issue(s + nbuf - 1);
+        ring_wait(nbuf);
+        const int c0 = (s % nchunk) * FCH;
+        const int nsteps = min(FCH, p.kp - c0) / 8;
+        const float* s_in = smem + (s % nbuf) * STAGE + a_lane;
+        const float* s_w = smem + (s % nbuf) * STAGE + IN + 4 * lane;
+#pragma unroll 1
+        for (int ks = 0; ks < nsteps; ++ks) {
+            const float* arow = s_in + ks * 8;
+            const float* brow = s_w + ks * NT * FRAG;
+            uint32_t lo_b[4], lo_s[4], hi_b[4], hi_s[4];
+            load_split(arow, lo_b, lo_s);
+#pragma unroll 2
+            for (int dy = 0; dy < KY; ++dy) {
+                load_split(arow + (dy + 1) * TTZ * FCHP, hi_b, hi_s);
+                const float* b = brow + dy * FKS * NT * FRAG;
+                if (dy % TAPS_CHAINED == 0)
+                    tap_products<NT, true>(part, lo_b, lo_s, hi_b, hi_s, b);
+                else
+                    tap_products<NT, false>(part, lo_b, lo_s, hi_b, hi_s, b);
+                if ((dy + 1) % TAPS_CHAINED == 0 || dy == KY - 1) {
+#pragma unroll
+                    for (int ro = 0; ro < TRW; ++ro)
+#pragma unroll
+                        for (int t = 0; t < NT; ++t)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) acc[ro][t][e] += part[ro][t][e];
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    lo_b[i] = hi_b[i];
+                    lo_s[i] = hi_s[i];
+                }
+            }
+        }
+        __syncthreads();  // the buffer is refilled nbuf - 1 stages on
+    }
+
+    if (p.vec_out) {
+        // the warp's 2 x 16 cells x 8*NT channels through shared memory (the
+        // ring is free), then out as 16-byte units of 8 channels
+        constexpr int EP = 8 * NT + 4;
+        float* so = smem + warp * (TRW * 16 * EP);
+#pragma unroll
+        for (int r = 0; r < TRW; ++r)
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int cell = (lane >> 2) + 8 * (e >> 1);
+                    const int col = 8 * t + 2 * (lane & 3) + (e & 1);
+                    const int co = n0 + col;
+                    so[(r * 16 + cell) * EP + col] =
+                        co < p.cout ? epilogue(acc[r][t][e], p.bias, co, p.act) : 0.0f;
+                }
+        __syncwarp();
+        for (int u = lane; u < TRW * 16 * NT; u += 32) {
+            const int t = u % NT, cell = (u / NT) % 16, r = u / (NT * 16);
+            const int y = y0 + wy0 + r, z = z0 + 16 * wm + cell, co = n0 + 8 * t;
+            if (y >= ny || z >= p.nz || co >= p.cout) continue;
+            const float* src = so + (r * 16 + cell) * EP + 8 * t;
+            const size_t off = (((size_t)x * ny + y) * p.nz + z) * p.cout + co;
+            const float4 v0 = *reinterpret_cast<const float4*>(src);
+            const float4 v1 = *reinterpret_cast<const float4*>(src + 4);
+            if (p.out_bf16) {
+                *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + off) =
+                    make_uint4(bf16x2(v0.x, v0.y), bf16x2(v0.z, v0.w), bf16x2(v1.x, v1.y),
+                               bf16x2(v1.z, v1.w));
+            } else {
+                float4* dst = reinterpret_cast<float4*>(static_cast<float*>(p.out) + off);
+                dst[0] = v0;
+                dst[1] = v1;
+            }
+        }
+        return;
+    }
+#pragma unroll
+    for (int r = 0; r < TRW; ++r) {
+        const int y = y0 + wy0 + r;
+        if (y >= ny) break;
+        const size_t row = ((size_t)x * ny + y) * p.nz;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int z = z0 + 16 * wm + (lane >> 2) + 8 * half;
+            if (z >= p.nz) continue;
+            const size_t cell = (row + z) * p.cout;
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int co = n0 + 8 * t + 2 * (lane & 3) + e;
+                    if (co >= p.cout) continue;
+                    const float v = epilogue(acc[r][t][2 * half + e], p.bias, co, p.act);
+                    if (p.out_bf16)
+                        static_cast<bf16*>(p.out)[cell + co] = __float2bfloat16(v);
+                    else
+                        static_cast<float*>(p.out)[cell + co] = v;
+                }
+        }
+    }
+}
+
+// kc rounded up to 8 and the padded output columns, as the wrapper packs them
+bool tf32_geometry_ok(int kc, int cout, int kp, int nt, int np) {
+    return kc >= 4 && kc % 4 == 0 && kp == (kc + 7) / 8 * 8 && nt >= 1 && nt <= TMAXNT &&
+           np % (8 * nt) == 0 && np >= cout && np - 8 * nt < cout;
+}
+
+template <int KY, int NT>
+cudaError_t launch_tap_tf32(TapTf32Params p, cudaStream_t stream) {
+    constexpr size_t SM_BYTES = 227 * 1024;  // an SM's shared memory for blocks
+    const size_t stage = sizeof(float) * tf32_stage_floats<KY, NT>();
+    p.nbuf = 3 * stage * TF_SM_BLOCKS <= SM_BYTES ? 3 : 2;
+    size_t smem = p.nbuf * stage;
+    const size_t epilogue_bytes = sizeof(float) * (TF_THREADS / 32) * TRW * 16 * (8 * NT + 4);
+    smem = smem > epilogue_bytes ? smem : epilogue_bytes;
+    const cudaError_t e = set_smem((const void*)tap_tf32_kernel<KY, NT>, smem);
+    if (e != cudaSuccess) return e;
+    const int nx = p.nxp - p.kx + 1, ny = p.nyp - KY + 1;
+    const dim3 grid((p.nz + TTZ - 1) / TTZ, (ny + TTY - 1) / TTY, nx * (p.np / (8 * NT)));
+    tap_tf32_kernel<KY, NT><<<grid, TF_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+#define INS_TF32_NT(KY)                                         \
+    switch (nt) {                                               \
+        case 1: return launch_tap_tf32<KY, 1>(p, s);            \
+        case 2: return launch_tap_tf32<KY, 2>(p, s);            \
+        case 3: return launch_tap_tf32<KY, 3>(p, s);            \
+        default: return cudaErrorInvalidValue;                  \
+    }
+
+cudaError_t tap_tf32(int ky, int nt, const TapTf32Params& p, cudaStream_t s) {
+    switch (ky) {
+        case 1: INS_TF32_NT(1)
+        case 3: INS_TF32_NT(3)
+        case 5: INS_TF32_NT(5)
+        case 7: INS_TF32_NT(7)
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+#undef INS_TF32_NT
+
+}  // namespace
+
+// The tap forward on float32 operands, 3xTF32 on the tensor cores: g (nxp,
+// nyp, nz, kc) float32 (kc a multiple of 4, 16-byte aligned), wp the split
+// B fragments (kx, ky, kp/8, np/8, 32, 4) float32, out (nxp-kx+1, nyp-ky+1,
+// nz, cout) float32 or bf16; ky in (1, 3, 5, 7); kp = kc rounded up to 8,
+// np = cout padded to a multiple of 8*nt (nt <= 3), as `ops/conv_kernels.py`
+// `tap_tf32_geometry` computes them.
+extern "C" int ins_tapconv_fwd_tf32(const void* g, const void* wp, const float* bias, int act,
+                                    void* out, int out_bf16, int nxp, int nyp, int nz, int kc,
+                                    int kx, int ky, int cout, int kp, int nt, int np,
+                                    void* stream) {
+    if (kx < 1 || nxp < kx || nyp < ky || nz < 1 || cout < 1 ||
+        !tf32_geometry_ok(kc, cout, kp, nt, np) || ((uintptr_t)g & 15) || ((uintptr_t)wp & 15))
+        return (int)cudaErrorInvalidValue;
+    const TapTf32Params p{static_cast<const float*>(g), static_cast<const float*>(wp), bias, act,
+                          out, out_bf16, cout % 8 == 0 && ((uintptr_t)out & 15) == 0,
+                          nxp, nyp, nz, kc, kx, cout, kp, np};
+    return (int)tap_tf32(ky, nt, p, (cudaStream_t)stream);
+}

@@ -54,16 +54,19 @@ first).  The JAX kernels' 128-lane contract (kc and nz multiples of 128,
 outputs lane-padded to `lanes(cout)` channels) is TPU plumbing: these
 take any kc, nz and cout (ky in 1, 3, 5 or 7 on the card) and return
 cout channels, so a g zero-padded to 128 lanes is still a valid input.
-On the card the operands' dtype picks the forward kernels, with no
-fallback between them: bfloat16 g runs the tensor-core kernels of
-`csrc/tapconv_mma.cu` (the output-first tap kernel over
+On the card g's dtype picks each kernel, with no fallback between the
+routes: bfloat16 g runs the tensor-core kernels of `csrc/tapconv_mma.cu`
+(the output-first tap kernel over
 `pack_tap_weights`; for `packconv_3d` the weight-first pack kernel over
-`pack_all_taps` where `pack_mma_takes`, else the tap kernel), on g's
-channels padded to a multiple of 8 (`stage_channels`; `models.cnn`
-makes them so); float32 g the FMA kernels of `csrc/tapconv.cu` (launch
-keys ``"tapconv_3d+f32"``, ``"packconv_3d+f32"``).  The weight gradient
-is `csrc/tapconv.cu`'s FMA kernel for both.  The plain versions are
-``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
+`pack_all_taps` where `pack_mma_takes`, else the tap kernel) and, for the
+weight gradient, of `csrc/tapwgrad_mma.cu` (`tap_wgrad_plan`), on g's and
+the cotangent's channels padded to a multiple of 8 (`stage_channels`;
+`models.cnn` makes them so); float32 g runs the tap forward in 3xTF32 on
+the tensor cores (`csrc/tapconv_tf32.cu` over `pack_tap_weights_tf32`,
+launch key ``"tapconv_3d+f32"``) and the FMA kernels of
+`csrc/tapconv.cu` for the pack forward and the weight gradient (launch
+keys ``"packconv_3d+f32"``, ``"tapconv_wgrad_3d+f32"``).  The plain
+versions are ``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
 ``conv3d_weight``.  `make_conv_layer` selects `packconv_3d` where
 ``ky·cout <= 128`` (the JAX rule, so both packages run the same
 formulation on the same layers), else `tapconv_3d`; its backward is the
@@ -96,6 +99,10 @@ __all__ = [
     "stage_channels",
     "tap_mma_geometry",
     "pack_tap_weights",
+    "tf32_round",
+    "tap_tf32_geometry",
+    "pack_tap_weights_tf32",
+    "tap_wgrad_plan",
     "pack_all_taps",
     "pack_mma_takes",
     "tapconv_3d",
@@ -176,10 +183,16 @@ def mma_geometry(cin, cout, k):
     c8 = -(-cin // 8)
     nch = -(-c8 // 3)
     cw = 8 * -(-c8 // nch)
-    n8 = -(-cout // 8)
-    nblk = -(-n8 // 3)
-    nt = -(-n8 // nblk)
+    nblk, nt = _col_blocks(cout, 3)
     return MmaGeometry(cw, nch, -(-k * cw // 16) * 16, nt, nblk * nt * 8)
+
+
+def _col_blocks(cout, maxnt):
+    """(blocks, n8 tiles a block) of cout output columns in the fewest
+    blocks of at most ``maxnt`` n8 tiles, balanced."""
+    n8 = -(-cout // 8)
+    nblk = -(-n8 // maxnt)
+    return nblk, -(-n8 // nblk)
 
 
 def pack_conv_weights(w):
@@ -198,11 +211,11 @@ def pack_conv_weights(w):
     return F.pad(wc, (0, 0, 0, g.kp - k * g.cw)).reshape(k, k, g.nch * g.kp, g.np)
 
 
-def _stageable(t):
-    """A channels-last bf16 field as the tensor-core kernels stage it, 16
-    bytes a copy: its channels padded with zeros to a multiple of 8, its
-    data 16-byte aligned."""
-    pad = -t.shape[-1] % 8
+def _stageable(t, mult=8):
+    """A channels-last field as the tensor-core kernels stage it, 16 bytes
+    a copy: its channels padded with zeros to a multiple of ``mult`` (8
+    bf16 or 4 float32 values), its data 16-byte aligned."""
+    pad = -t.shape[-1] % mult
     if pad:
         return F.pad(t, (0, pad))
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -390,14 +403,25 @@ def make_fused_layer(actname, has_bias, *, cin, cout, k, plain=False):
 # The tap-matmul / pack-tile layer on z-folded channels
 # --------------------------------------------------------------------------
 
-_TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into csrc/tapconv.cu, tapconv_mma.cu
+_TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into the tap layer's kernels
 # bytes of the float32 pack kernel's ring of plane products (at least kx
 # planes whatever this says): the kernel walks x in chunks that fit it
 _PACK_SCRATCH_BYTES = 1 << 30
 _TAP_MMA_MAXNT = 5  # n8 tiles of output channels a tap-kernel block, at most
+_TAP_TF32_MAXNT = 3  # the float32 tap kernel's (its registers fit two blocks an SM)
 _PACK_MMA_MAXN = 128  # packed columns of the pack kernel (every tap), at most
 _PACK_MMA_MAXKP = 128  # its contraction: one chain of 8 k16 steps, at most
 _SMEM_MAX = 232448  # shared memory a block may use on the H100
+_SM_SMEM = 227 * 1024  # an SM's shared memory for blocks (csrc/convio.cuh ring_smem)
+# the bf16 weight gradient (csrc/tapwgrad_mma.cu): a block's 8 (y) x 16
+# (z) cells, its (dx, dy, m16 tile) items (8 warps of at most 7), its m16
+# channel tiles at most, n8 tiles of output columns at most, and the
+# blocks a call aims at (four waves of 132 SMs at two blocks an SM)
+_WGRAD_TILE = (8, 16)
+_WGRAD_ITEMS = 8 * 7
+_WGRAD_MAXMC = 8
+_WGRAD_MAXNT = 3
+_WGRAD_BLOCKS = 528
 
 
 def lanes(c):
@@ -433,9 +457,7 @@ def tap_mma_geometry(kc, cout):
     """`TapMmaGeometry`: (128, 3, 24) for the 24 -> 24 layer (kc = 120),
     (32, 5, 120) for its input gradient (kc = 24, 120 outputs), (128, 1,
     8) for 24 -> 3."""
-    n8 = -(-cout // 8)
-    nblk = -(-n8 // _TAP_MMA_MAXNT)
-    nt = -(-n8 // nblk)
+    nblk, nt = _col_blocks(cout, _TAP_MMA_MAXNT)
     return TapMmaGeometry(_round16(kc), nt, nblk * nt * 8)
 
 
@@ -448,6 +470,103 @@ def pack_tap_weights(w2):
     kx, ky, kc, cout = w2.shape
     geo = tap_mma_geometry(kc, cout)
     return F.pad(w2, (0, geo.np - cout, 0, geo.kp - kc))
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (a 10-bit mantissa), to nearest with
+    ties away from zero, as the card's ``cvt.rna.tf32.f32`` (finite
+    values): the low 13 bits of the float32 pattern rounded off."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tap_tf32_geometry(kc, cout):
+    """`TapMmaGeometry` of the float32 tap kernel (3xTF32, k8 steps): kc (a
+    multiple of 4, as the wrapper stages g) padded to ``kp``, a multiple
+    of 8; the output channels in blocks of at most ``_TAP_TF32_MAXNT`` n8
+    tiles."""
+    nblk, nt = _col_blocks(cout, _TAP_TF32_MAXNT)
+    return TapMmaGeometry(-(-kc // 8) * 8, nt, nblk * nt * 8)
+
+
+def pack_tap_weights_tf32(w2):
+    """``(kx, ky, kc, cout)`` float32 taps -> the TF32 tap kernel's ``(kx,
+    ky, kp/8, np/8, 32, 4)`` (`tap_tf32_geometry`; zero past kc rows and
+    cout columns): per k8 step and n8 tile, the 32 lanes' B fragments of
+    ``mma.m16n8k8`` in TF32 (lane 4·g + t holds rows t and t + 4 of
+    column g), each value split into ``big = tf32_round(w)`` and ``small =
+    tf32_round(w − big)``: (big b0, big b1, small b0, small b1)."""
+    kx, ky, kc, cout = w2.shape
+    geo = tap_tf32_geometry(kc, cout)
+    w = F.pad(w2.to(torch.float32), (0, geo.np - cout, 0, geo.kp - kc))
+    # row 8·step + 4·j + t, column 8·tile + g -> (step, tile, lane 4·g + t, j)
+    w = w.reshape(kx, ky, geo.kp // 8, 2, 4, geo.np // 8, 8).permute(0, 1, 2, 5, 6, 4, 3)
+    w = w.reshape(kx, ky, geo.kp // 8, geo.np // 8, 32, 2)
+    big = tf32_round(w)
+    return torch.cat([big, tf32_round(w - big)], dim=-1).contiguous()
+
+
+class TapWgradPlan(NamedTuple):
+    """How the bf16 weight-gradient kernel tiles a call: the channels kc
+    padded to ``kp`` (m16 tiles, ``mc`` of them a block), the cotangent's
+    columns padded to ``np`` in blocks of ``nt`` n8 tiles (``nt <= 3``),
+    ``nbuf`` cotangent planes in its ring, ``xb`` output planes a cell
+    chunk of 8 (y) x 16 (z) cells, ``nchunk`` cell chunks (rows of the
+    partial sums)."""
+
+    kp: int
+    nt: int
+    np: int
+    mc: int
+    nbuf: int
+    xb: int
+    nchunk: int
+
+
+def _wgrad_mma_smem(kx, ky, mc, nt, nbuf):
+    """Shared memory of a wgrad block (csrc/tapwgrad_mma.cu
+    `wgrad_mma_smem`): a ring of kx + nbuf − 1 g planes of (8 + ky − 1) x
+    16 cells, 16·mc + 8 channels a cell, and nbuf cotangent planes."""
+    ty, tz = _WGRAD_TILE
+    return 2 * ((kx + nbuf - 1) * (ty + ky - 1) * tz * (16 * mc + 8)
+                + nbuf * ty * tz * _mma_pitch(nt))
+
+
+def _wgrad_sm_blocks(ky, nt):
+    """Blocks an SM of the wgrad kernel (csrc/tapwgrad_mma.cu
+    `wgrad_sm_blocks`): two, one where its registers would spill."""
+    return 1 if nt == 2 or (ky == 1 and nt > 1) else 2
+
+
+def tap_wgrad_plan(box, kc, cout, kx, ky):
+    """`TapWgradPlan` of the bf16 weight gradient on a cotangent of
+    ``box = (nx, ny, nz)`` cells, kc (a multiple of 8) and cout (likewise)
+    channels.  The channel chunk is the largest that keeps a block's
+    ``kx·ky·mc`` items within its 8 warps' 7 each (balanced over the
+    chunks) and its shared memory within a block's; three cotangent
+    buffers where the kernel's blocks an SM (`_wgrad_sm_blocks`) still
+    fit.  The 24 -> 24 layer at 128³: (128, 3, 24, 2, 2, 64, 256)."""
+    nx, ny, nz = box
+    kp = _round16(kc)
+    nblk, nt = _col_blocks(cout, _WGRAD_MAXNT)
+    mt = kp // 16
+    mcmax = min(mt, _WGRAD_MAXMC, _WGRAD_ITEMS // (kx * ky))
+    if mcmax < 1:
+        raise NotImplementedError(
+            f"tapconv_wgrad_3d: the bf16 kernel takes at most {_WGRAD_ITEMS} taps (kx·ky), "
+            f"got {kx}·{ky}")
+    for nch in range(-(-mt // mcmax), mt + 1):
+        mc = -(-mt // nch)
+        fit3 = _wgrad_sm_blocks(ky, nt) * _wgrad_mma_smem(kx, ky, mc, nt, 3) <= _SM_SMEM
+        nbuf = 3 if fit3 else 2
+        if _wgrad_mma_smem(kx, ky, mc, nt, nbuf) <= _SMEM_MAX:
+            break
+    else:
+        raise NotImplementedError(f"tapconv_wgrad_3d: {kx}·{ky} taps do not fit shared memory")
+    yz = -(-ny // _WGRAD_TILE[0]) * -(-nz // _WGRAD_TILE[1])
+    groups = min(nx, max(1, -(-_WGRAD_BLOCKS // (yz * -(-mt // mc) * nblk))))
+    xb = -(-nx // groups)
+    return TapWgradPlan(kp, nt, nblk * nt * 8, mc, nbuf, xb, -(-nx // xb) * yz)
 
 
 def _mma_pitch(nt):  # csrc/convio.cuh mma_pitch
@@ -586,21 +705,18 @@ def tapconv_3d(g, w2, bias=None, act=None, *, out_dtype=None):
     into kc, x/y padded by kx − 1 / ky − 1), ``w2 (kx, ky, kc, cout)``,
     ``bias (cout,)`` or None, ``act`` "tanh" or "id"/None.  Returns
     ``(nxp − kx + 1, nyp − ky + 1, nz, cout)`` in ``out_dtype`` (default
-    g's dtype)."""
+    g's dtype).  On the card bfloat16 g runs the tensor-core kernel in
+    bf16, float32 g the tensor-core kernel in 3xTF32 (split operands,
+    float32 class; launch key ``"tapconv_3d+f32"``)."""
     if g.device.type == "cpu":
         return tapconv_3d_plain(g, w2, bias, act, out_dtype=out_dtype)
     act, out_dtype = _actname(act), out_dtype or g.dtype
-    device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("tapconv_3d", g, w2, bias, out_dtype)
+    device, _, bk, out = _tap_kernel_prep("tapconv_3d", g, w2, bias, out_dtype)
+    bf16 = g.dtype == torch.bfloat16
+    key = "tapconv_3d" if bf16 else "tapconv_3d+f32"
+    launch = _launch_tap_mma if bf16 else _launch_tap_tf32
     with torch.cuda.device(device):
-        if g.dtype == torch.bfloat16:
-            err, key = _launch_tap_mma(g, w2, bk, act, out, device), "tapconv_3d"
-        else:
-            wk = w2.detach().to(device=device, dtype=g.dtype).contiguous()
-            err = _build.load().ins_tapconv_fwd(
-                g.data_ptr(), 0, wk.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
-                int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout, current_stream(device),
-            )
-            key = "tapconv_3d+f32"
+        err = launch(g, w2, bk, act, out, device)
         _build.check(err, key)
         LAUNCHES[key] += 1
     return out
@@ -628,6 +744,21 @@ def _launch_tap_mma(g, w2, bk, act, out, device):
     )
 
 
+def _launch_tap_tf32(g, w2, bk, act, out, device):
+    """The tap kernel in 3xTF32 on the tensor cores (float32 g, its
+    channels padded to a multiple of 4); returns its error code."""
+    gs = _stageable(g, 4)
+    wk = w2.detach().to(device=device, dtype=torch.float32)
+    wk = F.pad(wk, (0, 0, 0, gs.shape[-1] - wk.shape[2]))
+    kx, ky, kc, cout = wk.shape
+    wp = pack_tap_weights_tf32(wk)
+    return _build.load().ins_tapconv_fwd_tf32(
+        gs.data_ptr(), wp.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), *gs.shape[:3], kc, kx, ky, cout,
+        *tap_tf32_geometry(kc, cout), current_stream(device),
+    )
+
+
 def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
     """`tapconv_3d`'s function computed weight-first: each input plane's
     products with every tap once, in float32, then the shifted tap sums.
@@ -645,9 +776,10 @@ def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
     act, out_dtype = _actname(act), out_dtype or g.dtype
     device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("packconv_3d", g, w2, bias, out_dtype)
     _strip_height(out.shape[1], nys)
+    key = "packconv_3d" if g.dtype == torch.bfloat16 else "packconv_3d+f32"
     with torch.cuda.device(device):
-        if g.dtype == torch.bfloat16:
-            err, key = _launch_pack_mma(g, w2, bk, act, out, device), "packconv_3d"
+        if key == "packconv_3d":
+            err = _launch_pack_mma(g, w2, bk, act, out, device)
         else:
             nxp, nyp, nz, _ = g.shape
             plane = nyp * nz * kx * ky * cout
@@ -659,7 +791,6 @@ def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
                 slots, out.data_ptr(), int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout,
                 current_stream(device),
             )
-            key = "packconv_3d+f32"
         _build.check(err, key)
         LAUNCHES[key] += 1
     return out
@@ -683,8 +814,10 @@ def tapconv_wgrad_3d(g, ct, kx, ky):
     """Weight gradient of the tap layer: ``dW[dx, dy, c, o] =
     Σ_{x,y,z} g[x+dx, y+dy, z, c]·ct[x, y, z, o]`` with ct rounded to g's
     dtype first; float32 ``(kx, ky, kc, cout)``, the same on every run.
-    On the card the staged g window bounds kc (about 290 channels at
-    ky = 5; the kernel refuses more)."""
+    On the card bfloat16 g runs the tensor-core kernel (`tap_wgrad_plan`;
+    at most 56 taps kx·ky), float32 g the FMA kernel (launch key
+    ``"tapconv_wgrad_3d+f32"``; its staged g window bounds kc, about 290
+    channels at ky = 5)."""
     if g.device.type == "cpu":
         return tapconv_wgrad_3d_plain(g, ct, kx, ky)
     box = _ct_shape("tapconv_wgrad_3d", g, ct, kx, ky)
@@ -693,20 +826,43 @@ def tapconv_wgrad_3d(g, ct, kx, ky):
     kc, cout = g.shape[-1], ct.shape[-1]
     device = check_cuda_tensors("tapconv_wgrad_3d", _KERNEL_DTYPES, g=(g, tuple(g.shape)),
                                 ct=(ct, (*box, cout)))
+    bf16 = g.dtype == torch.bfloat16
+    key = "tapconv_wgrad_3d" if bf16 else "tapconv_wgrad_3d+f32"
+    launch = _launch_wgrad_mma if bf16 else _launch_wgrad_fma
     with torch.cuda.device(device):
-        ctk = ct.to(g.dtype)
-        lib = _build.load()
-        nchunk = lib.ins_tapconv_wgrad_chunks(*box)
-        partial = torch.empty((nchunk, kx, ky, kc, cout), dtype=torch.float32, device=device)
-        dw = torch.empty((kx, ky, kc, cout), dtype=torch.float32, device=device)
-        err = lib.ins_tapconv_wgrad(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), ctk.data_ptr(),
-            int(ctk.dtype == torch.bfloat16), partial.data_ptr(), dw.data_ptr(), *g.shape,
-            kx, ky, cout, current_stream(device),
-        )
-        _build.check(err, "tapconv_wgrad_3d")
-        LAUNCHES["tapconv_wgrad_3d"] += 1
-    return dw
+        err, dw = launch(g, ct.to(g.dtype), kx, ky, box, device)
+        _build.check(err, key)
+        LAUNCHES[key] += 1
+    return dw[:, :, :kc, :cout].contiguous()
+
+
+def _launch_wgrad_mma(g, ct, kx, ky, box, device):
+    """The weight gradient on the tensor cores (bf16 g and ct, their
+    channels padded to multiples of 8); returns (its error code, dW with
+    the plan's padded rows and columns)."""
+    gs, cs = _stageable(g), _stageable(ct)
+    plan = tap_wgrad_plan(box, gs.shape[-1], cs.shape[-1], kx, ky)
+    shape = (kx, ky, plan.kp, plan.np)
+    partial = torch.empty((plan.nchunk, *shape), dtype=torch.float32, device=device)
+    dw = torch.empty(shape, dtype=torch.float32, device=device)
+    err = _build.load().ins_tapconv_wgrad_mma(
+        gs.data_ptr(), cs.data_ptr(), partial.data_ptr(), dw.data_ptr(), *gs.shape,
+        cs.shape[-1], kx, ky, *plan, current_stream(device),
+    )
+    return err, dw
+
+
+def _launch_wgrad_fma(g, ct, kx, ky, box, device):
+    """The weight gradient's FP32 FMA kernel (float32 g and ct); returns
+    (its error code, dW)."""
+    kc, cout = g.shape[-1], ct.shape[-1]
+    lib = _build.load()
+    partial = torch.empty((lib.ins_tapconv_wgrad_chunks(*box), kx, ky, kc, cout),
+                          dtype=torch.float32, device=device)
+    dw = torch.empty((kx, ky, kc, cout), dtype=torch.float32, device=device)
+    err = lib.ins_tapconv_wgrad(g.data_ptr(), ct.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                                *g.shape, kx, ky, cout, current_stream(device))
+    return err, dw
 
 
 class _ConvLayerFn(torch.autograd.Function):

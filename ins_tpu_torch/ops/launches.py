@@ -60,7 +60,9 @@ KERNELS = (
     # the closure convolutions (ops/conv_kernels.py): the fused layer (bf16
     # operands on the tensor cores; "+f32": float32 operands on the FMA
     # kernels) and the tap-matmul / pack-tile layer on z-folded channels
-    # (likewise: bf16 on the tensor cores, "+f32" on the FMA kernels)
+    # (likewise: bf16 on the tensor cores; "+f32" on float32 operands: the
+    # tap forward in 3xTF32 on the tensor cores, the pack forward and the
+    # weight gradient on the FMA kernels)
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
     "fusedconv_3d+f32",
@@ -70,6 +72,7 @@ KERNELS = (
     "tapconv_3d+f32",
     "packconv_3d+f32",
     "tapconv_wgrad_3d",
+    "tapconv_wgrad_3d+f32",
     # the wall-bounded channel (ops/channel_kernels.py)
     "channel_msd_3d",
     "channel_pressure_correct_3d",
