@@ -8,6 +8,10 @@ Run from the repository root on a machine with a Hopper card (H100):
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
+    python3 chip_smoke.py --chain-turns DIR   # only the 256³ RK44 hat
+                                      # chain's ms/step, the package of
+                                      # the tree DIR and this one's, in
+                                      # turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -27,8 +31,16 @@ Phases, each raising on failure (exit code != 0, no result line):
    tstart and tacc, gdir 1, no dissipation; each wrapper also with the
    force stream beside it), where the update kt itself, recovered from
    temp_next and tempnew, is held to the same bound.  Bound: max relative
-   error <= 1e-4 (FP32 on both sides, sums taken in another order).  At
-   256³ each is timed against its plain version (CUDA events).
+   error <= 1e-4 (FP32 on both sides, sums taken in another order).  The
+   plane transform (3xTF32 on the tensor cores) is held at the shapes the
+   paths give it: z+y and x on the cube, on a 4-way shard's block (r =
+   n/4) and its pass B's (n, n/4, n) y-slice, at the first fold level and
+   at a ragged n - 6, each within 1e-6 relative of the float64 product
+   (the float32 class) and 1e-4 of its plain version, and timed beside one
+   FP32 einsum/matmul and the same call with TF32 allowed.  At 256³ each
+   is timed against its plain version (CUDA events); with --profile each
+   stage and correction wrapper's device time is split into its
+   plane-transform GEMMs and the rest (against the rest's bytes bound).
    The per-op and conv kernels of the training path and the closure
    run's 3-pass Poisson solve `make_poisson_pallas` are held against
    their plain versions at 64³ and 128³ the same way, and timed at
@@ -252,12 +264,19 @@ from typing import Any, NamedTuple
 import numpy as np
 
 REL_TOL = 1e-4
+# the plane transform (3xTF32) against the float64 product: the float32
+# class, max|Δ| <= 1e-6·max|ref| (one TF32 pass is ~3e-4 off)
+TF32_CLASS_TOL = 1e-6
 SEED = 20261016
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
 # bytes/s and operations/s by operand type
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
+# the plane-transform GEMMs' FLOP in a kernel's "fp32" operation count:
+# they run three TF32 products a multiply-add at the TF32 peak, so F FLOP
+# take 3 F / 495e12 s at the bound, the time of 3·67/495 F FP32 operations
+GEMM_AS_FP32 = 3 * PEAK_OPS["fp32"] / PEAK_OPS["tf32"]
 # operations per cell of the stencil kernels, counted from their arithmetic
 # (each add, multiply and divide one): the conv-diff of three components,
 # the stage kernels' conv-diff at I and I - e_a plus the tableau and the
@@ -358,7 +377,11 @@ class Case(NamedTuple):
     one PyTorch call computing the same function, timed as a yardstick;
     ``derived``, where given, maps either side's outputs to further
     tensors held to the same bound (an update a small step size hides);
-    ``time=False`` leaves the case out of the timings."""
+    ``time=False`` leaves the case out of the timings.  ``tol`` bounds a
+    float output's relative error against ``ref`` (or the plain version);
+    ``plain_tol``, where given with ``ref``, also bounds the kernel against
+    the plain version; ``library_tf32`` is ``library`` with TF32 matmuls
+    allowed (PyTorch's "high" precision), timed beside it."""
 
     label: str
     kfn: Any
@@ -370,6 +393,9 @@ class Case(NamedTuple):
     library: Any = None
     derived: Any = None
     time: bool = True
+    tol: float = REL_TOL
+    plain_tol: Any = None
+    library_tf32: Any = None
 
 
 def nbytes(tensors):
@@ -386,11 +412,11 @@ def bound(case, out_bytes):
 
 def fold_ops(n, L):
     """Operations of the folded pass B at n³ with L levels: (n / 2^l)^2 n^2
-    for level l's two half GEMMs, the leaf's two GEMMs 4 (n / 2^L)^2 n^2,
-    the scale, split and combine elementwise (2 n^4 in all at one level,
-    half the dense 4 n^4)."""
+    for level l's two half GEMMs, the leaf's two GEMMs 4 (n / 2^L)^2 n^2
+    (2 n^4 in all at one level, half the dense 4 n^4; as `GEMM_AS_FP32`
+    counts them), the scale, split and combine elementwise."""
     cells = n**3
-    return (sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2
+    return ((sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2) * GEMM_AS_FP32
             + OPS_PER_CELL["eigen_scale"] * cells + L * 2 * OPS_PER_CELL["fold_split"] * cells)
 
 
@@ -418,9 +444,6 @@ def kernel_cases(n):
         make_fused_projection, passB, passB_fold, passB_fold_plain, passB_plain,
         poisson_fold_consts,
     )
-    from ins_tpu_torch.ops.transforms import (
-        x_transform, x_transform_plain, yz_transform, yz_transform_plain,
-    )
 
     rng = np.random.default_rng(SEED + n)
     dev = torch.device(DEVICE)
@@ -446,7 +469,8 @@ def kernel_cases(n):
 
     recon = dict(emit_k=False, usnew_coeff=dt / 6, emit_u=True)
     based = dict(emit_k=False, usnew_coeff=dt / 3, usnew_base=accb)
-    cells, gemm = n**3, 2.0 * n**4  # one plane-transform GEMM pass: 2 n^4
+    # one plane-transform GEMM pass: 2 n^4 FLOP (as `GEMM_AS_FP32` counts them)
+    cells, gemm = n**3, 2.0 * n**4 * GEMM_AS_FP32
     mats = (Vinv, VinvT, proj["V"], proj["VT"])
     # the LES stage: the force of a theta on the card, and a body force
     theta = torch.full((1,), LES_THETA, device=dev)
@@ -605,17 +629,78 @@ def kernel_cases(n):
                  inputs=(ut_prev, qhat, proj["V"], proj["VT"]),
                  ops=OPS_PER_CELL["correct"] * cells + 2 * gemm),
         ],
-        "plane_transform": [
-            Case("Vinv_y . f . Vinv_z^T",
-                 lambda: (yz_transform(divhat, Vinv, VinvT),),
-                 lambda: (yz_transform_plain(divhat, Vinv, VinvT),),
-                 inputs=(divhat, Vinv, VinvT), ops=2 * gemm,
-                 library=lambda: torch.einsum("yj,xjk,kl->xyl", Vinv, divhat, VinvT)),
-            Case("V_x . f",
-                 lambda: (x_transform(proj["V"], divhat),),
-                 lambda: (x_transform_plain(proj["V"], divhat),)),
-        ],
+        "plane_transform": transform_cases(n, divhat, proj),
     }
+
+
+def with_tf32(fn):
+    """fn with TF32 matmuls allowed (PyTorch's "high" float32 precision)."""
+    import torch
+
+    def run():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    return run
+
+
+def transform_cases(n, f, proj):
+    """The plane transform (3xTF32 on the tensor cores) at the shapes the
+    paths give it: the z+y and x products on the cube (f, the projection
+    proj), on a 4-way x-slab shard's block (r = n/4) and its pass B's
+    (n, n/4, n) y-slice, at the first fold level (R_o, n/2 x n/2, on an
+    (n/2, n, n) block) and at a ragged n - 6 (n % 4 = 2: 4-byte staging).
+    Each is held against the float64 product (the float32 class, 1e-6)
+    and its plain version (1e-4), beside one FP32 einsum/matmul and the
+    same call with TF32 allowed."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection
+    from ins_tpu_torch.ops.transforms import (
+        x_transform, x_transform_plain, yz_transform, yz_transform_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 7 * n)
+
+    def field(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(f.device)
+
+    def yz(label, g, my, mzT):
+        r, m = g.shape[0], g.shape[-1]
+        lib = lambda: torch.einsum("yj,xjk,kl->xyl", my, g, mzT)  # noqa: E731
+        return Case(label, lambda: (yz_transform(g, my, mzT),),
+                    lambda: (yz_transform_plain(g, my, mzT),),
+                    ref=lambda: (yz_transform_plain(g.double(), my.double(), mzT.double()),),
+                    inputs=(g, my, mzT), ops=3 * 4.0 * r * m**3, peak="tf32",
+                    tol=TF32_CLASS_TOL, plain_tol=REL_TOL, library=lib,
+                    library_tf32=with_tf32(lib))
+
+    def x(label, mx, h):
+        r, a, b = h.shape
+        lib = lambda: torch.matmul(mx, h.view(r, a * b))  # noqa: E731
+        return Case(label, lambda: (x_transform(mx, h),), lambda: (x_transform_plain(mx, h),),
+                    ref=lambda: (x_transform_plain(mx.double(), h.double()),),
+                    inputs=(mx, h), ops=3 * 2.0 * mx.shape[0] * r * a * b, peak="tf32",
+                    tol=TF32_CLASS_TOL, plain_tol=REL_TOL, library=lib,
+                    library_tf32=with_tf32(lib))
+
+    m = n - 6
+    ragged = make_fused_projection((m,) * 3, (2 * np.pi / m,) * 3, torch.float32,
+                                   device=f.device)
+    fr = field(m, m, m)
+    return [
+        yz("Vinv_y . f . Vinv_z^T", f, proj["Vinv"], proj["VinvT"]),
+        x("V_x . f", proj["V"], f),
+        yz(f"shard block (r = {n // 4})", f[:n // 4], proj["V"], proj["VT"]),
+        x(f"shard y-slice ({n}, {n // 4}, {n})", proj["Vinv"], field(n, n // 4, n)),
+        x(f"fold level 0: R_o ({n // 2} x {n // 2}) on ({n // 2}, {n}, {n})",
+          proj["fold_mats"][0], field(n // 2, n, n)),
+        yz(f"ragged n = {m}", fr, ragged["Vinv"], ragged["VinvT"]),
+        x(f"ragged n = {m}: V_x . f", ragged["Vinv"], fr),
+    ]
 
 
 def training_kernel_cases(n):
@@ -689,7 +774,7 @@ def training_kernel_cases(n):
              lambda: (solve[False](f),), lambda: (solve[True](f),),
              inputs=(f, proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"],
                      *proj["fold_mats"]),
-             ops=4 * 2.0 * n**4 + fold_ops(n, proj["fold_levels"]),
+             ops=4 * 2.0 * n**4 * GEMM_AS_FP32 + fold_ops(n, proj["fold_levels"]),
              library=lambda: solve_mm(f)),
     ]
     # the closure's layers: (cin, cout, act, bias); k = 5.  bf16 operands
@@ -868,7 +953,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                 if c.derived:
                     errs += [rel_err(g, p) for g, p in zip(c.derived(got), c.derived(ref))]
                     bf += [False] * (len(errs) - len(bf))
-                bounds = [1.0 if b else REL_TOL for b in bf]
+                bounds = [1.0 if b else c.tol for b in bf]
                 r["max_abs_err"] = max(
                     r["max_abs_err"], *(abs_err(g.to(p.dtype), p) for g, p in zip(got, ref))
                 )
@@ -885,6 +970,11 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                              + ", ".join(off(q, p) for q, p in zip(plain, ref))
                              + ", the kernel off it by "
                              + ", ".join(off(g, q) for g, q in zip(got, plain)))
+                    if c.plain_tol is not None:
+                        perr = [rel_err(g, q) for g, q in zip(got, plain)]
+                        if not all(math.isfinite(e) and e <= c.plain_tol for e in perr):
+                            fail(f"{name} [{c.label}] at n={n}: {perr} from the plain version, "
+                                 f"above {c.plain_tol}")
                 print(f"[kernels] n={n} {name} [{c.label}]: max rel err per output "
                       + ", ".join(f"{e:.3f} bf16 ulp" if b else f"{e:.3e}"
                                   for e, b in zip(errs, bf))
@@ -915,10 +1005,18 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                              f"{(nbytes(c.inputs) + out_bytes[c.label]) / 1e6:.1f} MB, "
                              f"{c.ops / 1e9:.2f} GOP {c.peak}), library "
                              + ("none" if lib is None else f"{lib:.4f} ms"))
+                    if c.library_tf32 is not None:
+                        lib_tf32 = (cuda_ms(c.library_tf32) + cuda_ms(c.library_tf32)) / 2
+                        extra += f", with TF32 allowed {lib_tf32:.4f} ms"
+                        if i == 0:
+                            r["library_tf32_ms"] = lib_tf32
                     if i == 0:
                         r.update(bound_ms=bms, bound_by=by, library_ms=lib)
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
+                if name == "plane_transform":
+                    gf = c.ops / 3e9  # the GEMMs' FLOP (three TF32 products each)
+                    extra += f"; {gf:.2f} GFLOP: {gf / ms:.2f} TFLOP/s"
                 if name.startswith("fusedconv") or ("conv" in name and c.ops):
                     # GFLOP of the convolution (3xTF32 does three TF32 products a
                     # multiply-add: its ops count them)
@@ -2077,8 +2175,8 @@ def halo_kernel_cases(n, rank=1):
     cells = lx * n * n
     mats = (proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"])
 
-    def gemm(k):  # one plane-transform product over k planes
-        return 2.0 * k * n**3
+    def gemm(k):  # one plane-transform product over k planes (`GEMM_AS_FP32`)
+        return 2.0 * k * n**3 * GEMM_AS_FP32
 
     def msd(impl, **kw):
         return lambda: impl(L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],),
@@ -2216,15 +2314,22 @@ def halo_kernel_cases(n, rank=1):
     }
 
 
-def profile_cases(cases):
+def profile_cases(cases, names=None):
     """Device-time split by kernel of 10 calls of each kernel's first case
-    (torch.profiler)."""
+    (torch.profiler; ``names``: only those kernels), and for a wrapper
+    that runs plane-transform GEMMs the split into the GEMMs and the rest
+    (its stage or correction kernel and glue), the rest beside the bytes
+    bound of the wrapper's inputs and outputs (the stage kernel reads q and
+    writes div where the wrapper reads qhat and writes divhat: the same
+    bytes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for name, cs in cases.items():
+        if names is not None and name not in names:
+            continue
         fn = cs[0].kfn
-        fn()
+        out_bytes = nbytes(fn())
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
@@ -2237,6 +2342,12 @@ def profile_cases(cases):
         print(f"[profile] {name} [{cs[0].label}]: {sum(split.values()):.4f} ms of device "
               "time a call: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                          sorted(split.items(), key=lambda kv: -kv[1])))
+        gemm = sum(v for k, v in split.items() if "gemm" in k.lower())
+        if gemm and name != "plane_transform":
+            rest = sum(split.values()) - gemm
+            t_bytes = (nbytes(cs[0].inputs) + out_bytes) / PEAK_BYTES * 1e3
+            print(f"[profile] {name} split: plane-transform GEMMs {gemm:.4f} ms, the rest "
+                  f"{rest:.4f} ms against its bytes bound {t_bytes:.4f} ms ({rest / t_bytes:.1f}x)")
 
 
 def halo_vs_single_device(n):
@@ -2665,7 +2776,7 @@ def unmerged_kernel_cases(n):
     proj = make_fused_projection((n,) * 3, dxs, torch.float32, device=dev)
     Vinv, VinvT, V, VT = proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"]
     mats = (Vinv, VinvT, V, VT)
-    cells, gemm = n**3, 2.0 * n**4
+    cells, gemm = n**3, 2.0 * n**4 * GEMM_AS_FP32
     qhat = field(n, n, n, scale=1e-3)
     bf = field(3, n, n, n)  # a float32 body force: the wrappers round it
     # bf16 storage: u (ut_prev), the base, the accumulator, k streams
@@ -3324,6 +3435,48 @@ def stack_turns(parent):
             fail(f"--stack-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
 
 
+def chain_time(n=256, steps=10):
+    """One turn of `chain_turns`: ms/step of the n³ RK44 hat chain (phase
+    2's setup and u0) in this process, two runs of `steps` steps after a
+    warm-up of two."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
+
+    setup = headline_setup(n)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    u0 = it.random_field(setup, kp=10, generator=gen)
+    dt = 1e-3 * 128 / n
+    method = it.RKMethods.RK44()
+    to_h, step_h, _ = make_fast_timestep_hat(setup, method)
+    h = step_h(step_h(to_h(strip_state(it.create_stepper(method, setup=setup, u=u0))), dt), dt)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3 / steps)
+    return times
+
+
+def chain_turns(parent):
+    """ms/step of the 256³ RK44 hat chain (`chain_time`) of the package in
+    the tree `parent` and of this tree's, each in its own process, in
+    turns: parent, this, this, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(card_line())
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--chain-time", root],
+                             capture_output=True, text=True, timeout=900)
+        lines = out.stdout.strip().splitlines()
+        print(f"[turns] {os.path.abspath(root)}: " + (lines[-1] if lines else "no output"))
+        if out.returncode:
+            fail(f"--chain-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+
+
 def phase_unfused_step(n):
     """11c: the unfused projection step (`momentum_stage_div_3d` -> the
     per-op chain's solve -> `pressure_correct_3d`) against the fused hat
@@ -3387,6 +3540,11 @@ HAT_KERNELS = (
     "pressure_correct_qhat_3d",
 )
 LES_KERNELS = ("smagorinsky_force_3d", "pcmsd_hat_3d+smag")
+# the cube wrappers that run plane-transform GEMMs around a stage or
+# correction kernel (split by `profile_cases` under --profile)
+STAGE_WRAPPERS = ("pcmsd_hat_3d", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
+                  "momentum_stage_divhat_3d", "momentum_stage_divhat_3d+temp",
+                  "pressure_correct_qhat_3d", "passB_fold")
 TRAINING_KERNELS = (
     "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
     "fusedconv_3d", "fusedconv_wgrad_3d",
@@ -3466,12 +3624,17 @@ def main():
                          "float32 convs) of the "
                          "package in the tree PARENT and of this tree's, in turns")
     ap.add_argument("--stack-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--chain-turns", metavar="PARENT",
+                    help="only time the 256³ RK44 hat chain (ms/step) of the package in "
+                         "the tree PARENT and of this tree's, in turns")
+    ap.add_argument("--chain-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step, of 3 channel steps, of 3 LES, "
                          "Boussinesq, LMWray3, halo and halo LES steps, of the "
                          "halo kernels at the 4-shard shapes, and of 3 SSP33 "
-                         "unmerged steps and 3 bf16-stream steps")
+                         "unmerged steps and 3 bf16-stream steps; and split each "
+                         "stage wrapper into its plane-transform GEMMs and the rest")
     args = ap.parse_args()
 
     import torch
@@ -3481,11 +3644,20 @@ def main():
     if args.stack_turns:
         stack_turns(args.stack_turns)
         return
-    sys.path.insert(0, os.path.abspath(args.stack_time) if args.stack_time
+    if args.chain_turns:
+        chain_turns(args.chain_turns)
+        return
+    root = args.stack_time or args.chain_time
+    sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
     from ins_tpu_torch import _build
 
+    if args.chain_time:  # one turn of --chain-turns
+        torch.backends.cuda.matmul.allow_tf32 = False
+        times = chain_time()
+        print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
+        return
     if args.stack_time:  # one turn of --stack-turns
         torch.backends.cudnn.allow_tf32 = False
         times = tap_stack_times(*tap_stack_inputs(128), ("pack", "tap", "pack f32", "tap f32",
@@ -3513,8 +3685,11 @@ def main():
         clock["t"] = now
 
     results = phase_kernels(kernel_cases, (64, 256),
-                            time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp"))
+                            time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
+                                      "plane_transform"))
     solve_gate_times()
+    if args.profile:
+        profile_cases(kernel_cases(256), names=STAGE_WRAPPERS)
     phase_done("phase 1 (hat kernels)")
     hat_counts, setup, u0, dt, e_hat = phase_main_path(256, nsteps=20, chunk=10)
     if args.profile:
@@ -3575,6 +3750,8 @@ def main():
     phase_done("phase 9 (halo LES)")
     torch.cuda.empty_cache()
     results.update(phase_kernels(unmerged_kernel_cases, (64, 256), time_all=UNMERGED_KERNELS))
+    if args.profile:
+        profile_cases(unmerged_kernel_cases(256), names=UNMERGED_KERNELS)
     torch.cuda.empty_cache()
     unmerged_counts = phase_unmerged(256, 20, 10, u0_hat, profile=args.profile)
     phase_done("phase 10 (unmerged chain and bf16 streams)")

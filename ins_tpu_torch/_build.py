@@ -56,8 +56,8 @@ _STAGE = (
 
 # C signatures of the exported entry points: (argtypes, restype)
 _SIGNATURES = {
-    "ins_gemm_f32": (
-        [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_i64] * 3 + [_c_int, _c_ptr],
+    "ins_plane_gemm_tf32": (
+        [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_i64] + [_c_int] * 5 + [_c_ptr],
         _c_int,
     ),
     "ins_stage_f32": _STAGE,

@@ -59,7 +59,8 @@
 
 #include <cstdint>
 
-#include "convio.cuh"  // bf16, CHAIN, cp.async, ldmatrix, ring_wait, set_smem
+#include "convio.cuh"  // bf16, CHAIN, cp.async, ring_wait, set_smem
+#include "tf32.cuh"    // split_tf32, mma_tf32, mma_tf32_first, load_split
 
 namespace {
 
@@ -92,52 +93,6 @@ __device__ __forceinline__ void stage_g4(float* dst, const float* g, int plane, 
         cp_async16(dst, g + (((size_t)plane * nyp + y) * nz + z) * kc + c);
     else
         *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
-}
-
-// an A fragment (float32 bits) as its TF32 big and small parts
-__device__ __forceinline__ void split_tf32(const uint32_t (&a)[4], uint32_t (&big)[4],
-                                           uint32_t (&small)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float f = __uint_as_float(a[i]);
-        big[i] = tf32_rna(f);
-        small[i] = tf32_rna(f - __uint_as_float(big[i]));
-    }
-}
-
-// c += a (16x8, row) * b (8x8, col), TF32 operands, float32 sums
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a * b: the first product of a chain
-__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
-}
-
-// The A fragment of one k8 step at this lane's ldmatrix row address p,
-// split into its TF32 parts
-__device__ __forceinline__ void load_split(const float* p, uint32_t (&big)[4],
-                                           uint32_t (&small)[4]) {
-    uint32_t a[4];
-    ldsm_x4(a, reinterpret_cast<const bf16*>(p));
-    split_tf32(a, big, small);
 }
 
 // One tap's products for a warp's two output rows (lo: row 0's window

@@ -1,120 +1,339 @@
-// Plane-transform GEMM: one strided, batched FP32 matrix product
+// Plane-transform GEMM: one strided, batched float32 matrix product on the
+// tensor cores in 3xTF32 (`mma.sync.m16n8k8`, TF32 operands, float32
+// sums), between a field and an eigen-basis matrix:
 //
-//     C[b] = A[b] @ B[b]      (row-major; A: M x K, B: K x N, C: M x N)
+//     field as A:   C[b] = F[b] @ W    (F: M x K, W: K x N)
+//     field as B:   C[b] = W @ F[b]    (W: M x K, F: K x N)
 //
-// with a batch stride per operand (0 broadcasts one operand).  Every
+// row-major, F and C with a batch stride, W broadcast.  Every
 // eigen-transform of the fused projection is one call of it:
 //
-//   . V_z^T  along z      one (n^2 x n) @ (n x n) product
-//   V_y .    along y      batched over the n x-planes, A stride 0, B/C stride n^2
-//   V_x .    along x      (pass B) one (n x n) @ (n x n^2) product
+//   . V_z^T  along z      field as A: one (r n x n) @ (n x n) product
+//   V_y .    along y      field as B, batched over the r x-planes
+//   V_x .    along x      field as B (pass B): one (m x r) @ (r x a b) product
 //
 // Replaces: the in-kernel transform products of the TPU kernels
 // (`_mm_h` / `_mm_h_left`, ins_tpu/ops/pallas_kernels.py:87,106, and
 // `_dot_h`, ins_tpu/ops/poisson_pallas.py:68) that `pcmsd_hat_3d`,
 // `momentum_stage_divhat_3d`, `pressure_correct_qhat_3d` and pass B run
 // on the MXU.  There "highest" is f32 via six bf16 passes and
-// "manualhigh" three; here the FP32 FMA pipe with an FP32 accumulator
-// gives the "highest" accuracy class for both precision names.
+// "manualhigh" three; here both precision names get the float32 class.
 //
-// What bounds it on an H100: FP32 FMA throughput.  At n = 256 each
-// transform is 2 n^4 = 8.6 GFLOP over 0.5 MB of operands per plane, far
-// above the card's bytes-per-flop line, so the design is a classic
-// register-blocked SGEMM: a 128 x 128 output tile per 256-thread block,
-// an 8 x 8 register micro-tile per thread split into two 4-wide halves
-// (conflict-free float4 shared-memory reads), K stepped in slabs of 8
-// staged through shared memory (A stored transposed).  Loads are bounds
-// checked, so any n works.  Not yet: double buffering, vectorised
-// global loads, TF32/3xTF32 on the tensor cores with wgmma (ROADMAP
-// queue 2).
+// Accuracy: each operand is split into a TF32 big and small part and a
+// product is small*big + big*small + big*big (tf32.cuh).  The basis is
+// constant per projection, so it comes split from the host, in fragment
+// order (`ops/transforms.py` `pack_basis_a` / `pack_basis_b`); the field
+// is split in registers after its fragments are read.  The tensor cores'
+// float32 sums truncate, so a chain holds one stage's four k8 steps
+// (twelve mma, 32 of K) before it is added to a float32 accumulator (a CPU
+// emulation of truncating chains, tests/test_torch_transforms_tf32.py,
+// keeps that within the float32 class at K = 256; one chain over all of
+// K is not).  Every output element sums its K in the same order whatever
+// M, N or the batch (no split-K), so a shard's rows come out as the
+// cube's.
+//
+// What bounds it on an H100: at n = 256 each transform is 2 n^4 = 8.6
+// GFLOP, so 25.8 GFLOP of TF32 mma (0.052 ms at the 495 TFLOP/s dense TF32
+// peak) against 134 MB of compulsory traffic (0.040 ms).  mma.sync
+// reaches only part of that peak, the split basis doubles what a block
+// stages from L2 (48 KB a 128 x 128 x 32 step), and the staging, fragment
+// loads, splits and chain adds are instructions beside each mma: issue
+// and staging, not the tensor cores' peak, hold it (PERF.md).
+//
+// Design: a 128 x 128 output tile per block of 8 warps, one block an SM
+// (the accumulators, a chain's partial sums and a chain's fragments take
+// up to ~240 registers a thread; at two blocks an SM the 128-register
+// budget spilled and ran no faster); K in stages of 32 through a ring of
+// four shared buffers filled by cp.async (16 bytes a copy where the
+// field's rows allow it, else 4; each thread's source and destination
+// offsets computed once a stage), ragged tiles zero-filled in staging, so
+// any M, N, K.  A stage holds the field tile and the basis's split
+// fragments of its four k8 steps.  The
+// field's fragments are read from shared memory in either orientation:
+// as A (K contiguous) with one ldmatrix.x4 an m16 tile (rows 36 floats
+// apart: an ldmatrix's 8 rows hit distinct banks); as B (N contiguous,
+// what wgmma's TF32 form cannot read) with two 32-bit loads an n8 tile
+// (rows 136 floats apart: the 32 lanes hit distinct banks).  A warp's
+// tile is 32 field rows x 64 basis columns (field as A) or 64 basis rows
+// x 32 field columns (field as B), so a warp splits 8 field values a k8
+// step against 48 mma, and each split basis fragment is one 16-byte
+// shared load.
 
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "convio.cuh"  // cp.async, set_smem
+#include "tf32.cuh"    // tf32_rna, mma_tf32, mma_tf32_first, load_split
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
+constexpr int PT_THREADS = 256;      // 8 warps
+constexpr int PT_BM = 128;           // output rows a block
+constexpr int PT_BN = 128;           // output columns a block
+constexpr int PT_BK = 32;            // contraction a stage
+constexpr int PT_KS = PT_BK / 8;     // k8 steps a stage
+constexpr int PT_NBUF = 4;           // stages in the ring (205 KB at the field as A)
+constexpr int FA_PITCH = PT_BK + 4;  // field as A: (128 rows, 32 k), rows 36 floats apart
+constexpr int FB_PITCH = PT_BN + 8;  // field as B: (32 k, 128 columns), rows 136 floats apart
+// a stage's split basis fragments: as B, 4 k8 steps x 16 n8 tiles x 32
+// lanes x (big b0, b1, small b0, b1); as A, 4 k8 steps x 8 m16 tiles x
+// (32 lanes x big a0..a3, 32 lanes x small a0..a3)
+constexpr int B_TILE = 128;          // floats of a split B fragment
+constexpr int A_TILE = 256;          // floats of a split A fragment
+constexpr int BASIS_KS = PT_BN / 8 * B_TILE;  // floats a k8 step
+static_assert(BASIS_KS == PT_BM / 16 * A_TILE, "both forms stage as many basis floats");
 
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ C, int M, int N, int K, int lda, int ldb,
-                int ldc, long long sA, long long sB, long long sC) {
-    A += (long long)blockIdx.z * sA;
-    B += (long long)blockIdx.z * sB;
-    C += (long long)blockIdx.z * sC;
+template <bool FA>
+__host__ __device__ constexpr int pt_field_floats() {
+    return FA ? PT_BM * FA_PITCH : PT_BK * FB_PITCH;
+}
 
-    __shared__ __align__(16) float As[BK][BM];
-    __shared__ __align__(16) float Bs[BK][BN];
+template <bool FA>
+__host__ __device__ constexpr int pt_stage_floats() {
+    return pt_field_floats<FA>() + PT_KS * BASIS_KS;
+}
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;   // output columns tx*4 .. and 64 + tx*4 ..
-    const int ty = tid >> 4;   // output rows    ty*4 .. and 64 + ty*4 ..
-    const int row0 = blockIdx.y * BM;
-    const int col0 = blockIdx.x * BN;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
 
-    // global -> shared load assignment: 4 consecutive elements each
-    const int a_r = tid >> 1, a_k = (tid & 1) * 4;   // A tile: 128 rows x 8 k
-    const int b_k = tid >> 5, b_c = (tid & 31) * 4;  // B tile: 8 k x 128 cols
+struct PlaneGemmParams {
+    const float* field;  // field as A: (M, K); as B: (K, N); batch stride sf
+    const float* basis;  // split fragments: as B (Kp/8, Np/8, 32, 4), as A (Kp/8, Mp/16, 2, 32, 4)
+    float* c;            // (M, N), batch stride sc
+    long long sf, sc;
+    int M, N, K;
+    int tiles;           // basis tiles a k8 step: Np/8 (field as A) or Mp/16 (as B)
+    int vec2;            // C's rows take 8-byte stores
+};
 
-    float acc[8][8];
+// part (+)= a_small*b_big + a_big*b_small + a_big*b_big, FIRST starting a chain
+template <bool FIRST>
+__device__ __forceinline__ void products(float (&part)[4], const uint32_t (&a_big)[4],
+                                         const uint32_t (&a_small)[4], uint32_t bb0, uint32_t bb1,
+                                         uint32_t bs0, uint32_t bs1) {
+    if (FIRST)
+        mma_tf32_first(part, a_small, bb0, bb1);
+    else
+        mma_tf32(part, a_small, bb0, bb1);
+    mma_tf32(part, a_big, bs0, bs1);
+    mma_tf32(part, a_big, bb0, bb1);
+}
+
+template <bool FA, bool VEC>
+__global__ void __launch_bounds__(PT_THREADS, 1)
+plane_gemm_tf32_kernel(const __grid_constant__ PlaneGemmParams p) {
+    constexpr int FIELD = pt_field_floats<FA>();
+    constexpr int STAGE = pt_stage_floats<FA>();
+    constexpr int MT = FA ? 2 : 4;  // m16 tiles a warp
+    constexpr int NT = FA ? 8 : 4;  // n8 tiles a warp
+    extern __shared__ float4 smem_f4[];
+    float* smem = reinterpret_cast<float*>(smem_f4);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int m0 = blockIdx.y * PT_BM, n0 = blockIdx.x * PT_BN;
+    const float* field = p.field + (long long)blockIdx.z * p.sf;
+    float* c = p.c + (long long)blockIdx.z * p.sc;
+    const int nstage = (p.K + PT_BK - 1) / PT_BK;
+    // the block's first basis tile of a k8 step: as B its n8 tiles from
+    // n0, as A its m16 tiles from m0 (contiguous in the packed basis)
+    const size_t tile0 = FA ? n0 / 8 : m0 / 16;
+    constexpr int TILE = FA ? B_TILE : A_TILE;
+
+    auto issue = [&](int s) {
+        if (s < nstage) {
+            const int k0 = s * PT_BK;
+            float* s_f = smem + (s % PT_NBUF) * STAGE;
+            float* s_b = s_f + FIELD;
+            // the field tile: as A rows m0.. x k0..k0+31, as B rows k0.. x n0..n0+127
+            constexpr int ROWS = FA ? PT_BM : PT_BK, COLS = FA ? PT_BK : PT_BN;
+            constexpr int PITCH = FA ? FA_PITCH : FB_PITCH;
+            const int r_lim = FA ? p.M : p.K, c_lim = FA ? p.K : p.N;
+            const int r0 = FA ? m0 : k0, c0 = FA ? k0 : n0;
+            const int ld = FA ? p.K : p.N;
+            // this thread's copies: W floats at columns q.., rows rb + i RSTEP
+            constexpr int W = VEC ? 4 : 1, UPR = COLS / W, RSTEP = PT_THREADS / UPR;
+            const int rb = tid / UPR, q = W * (tid % UPR);
+            const float* src = field + (size_t)(r0 + rb) * ld + c0 + q;
+            float* dst = s_f + rb * PITCH + q;
+            const bool col_ok = c0 + q < c_lim;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < ROWS / RSTEP; ++i) {
+                float* d = dst + i * RSTEP * PITCH;
+                if (col_ok && r0 + rb + i * RSTEP < r_lim) {
+                    if (VEC)
+                        cp_async16(d, src + (size_t)i * RSTEP * ld);
+                    else
+                        cp_async4(d, src + (size_t)i * RSTEP * ld);
+                } else if (VEC) {
+                    *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                } else {
+                    *d = 0.0f;
+                }
+            }
+            // the basis fragments of the stage's k8 steps (zero-padded on
+            // the host): per step the block's tiles, contiguous
+            constexpr int PER = BASIS_KS / 4 / PT_THREADS;  // 16-byte copies a step a thread
+            const float* b = p.basis + ((size_t)s * PT_KS * p.tiles + tile0) * TILE + 4 * tid;
+            const size_t kstep = (size_t)p.tiles * TILE;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        const int ar = row0 + a_r;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int k = k0 + a_k + i;
-            As[a_k + i][a_r] = (ar < M && k < K) ? A[(size_t)ar * lda + k] : 0.f;
+            for (int i = 0; i < PT_KS * PER; ++i)
+                cp_async16(s_b + (i / PER) * BASIS_KS + (i % PER) * 4 * PT_THREADS + 4 * tid,
+                           b + (i / PER) * kstep + (i % PER) * 4 * PT_THREADS);
         }
-        const int bk = k0 + b_k;
+        cp_async_commit();
+    };
+
+    // acc: the sum (float32 adds) of the chains
+    float acc[MT][NT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int c = col0 + b_c + i;
-            Bs[b_k][b_c + i] = (bk < K && c < N) ? B[(size_t)bk * ldb + c] : 0.f;
-        }
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+    // field as A: 4 warps down M (32 rows each) x 2 across N (64 columns);
+    // as B: 2 down M (64 rows) x 4 across N (32 columns)
+    const int wm = FA ? warp % 4 : warp / 4, wn = FA ? warp / 4 : warp % 4;
+    for (int s = 0; s < PT_NBUF - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+        issue(s + PT_NBUF - 1);
+        cp_async_wait<PT_NBUF - 1>();  // this stage's copies have landed
         __syncthreads();
+        const float* s_f = smem + (s % PT_NBUF) * STAGE;
+        const float* s_b = s_f + FIELD;
+        // a chain: one tile's products over the stage's PT_KS k8 steps,
+        // then one float32 add into its accumulator
+        if (FA) {
+            // the field's A fragments of every step, split
+            uint32_t ab[MT][PT_KS][4], as[MT][PT_KS][4];
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-            const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-            const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+            for (int i = 0; i < MT; ++i)
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
+                for (int ks = 0; ks < PT_KS; ++ks)
+                    load_split(s_f + (wm * 32 + i * 16 + (lane & 15)) * FA_PITCH + ks * 8 +
+                                   (lane >> 4) * 4,
+                               ab[i][ks], as[i][ks]);
 #pragma unroll
-                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+            for (int j = 0; j < NT; ++j) {
+                uint4 v[PT_KS];
+#pragma unroll
+                for (int ks = 0; ks < PT_KS; ++ks)
+                    v[ks] = *reinterpret_cast<const uint4*>(
+                        s_b + ks * BASIS_KS + (wn * NT + j) * B_TILE + 4 * lane);
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    float part[4];
+                    products<true>(part, ab[i][0], as[i][0], v[0].x, v[0].y, v[0].z, v[0].w);
+#pragma unroll
+                    for (int ks = 1; ks < PT_KS; ++ks)
+                        products<false>(part, ab[i][ks], as[i][ks], v[ks].x, v[ks].y, v[ks].z,
+                                        v[ks].w);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+                }
+            }
+        } else {
+            // the field's B fragments of every step, split: (big b0, b1,
+            // small b0, b1) per n8 tile and step
+            uint32_t bf[NT][PT_KS][4];
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int ks = 0; ks < PT_KS; ++ks) {
+                    const float* b = s_f + (ks * 8 + t) * FB_PITCH + wn * 32 + j * 8 + g;
+                    const float b0 = b[0], b1 = b[4 * FB_PITCH];
+                    bf[j][ks][0] = tf32_rna(b0);
+                    bf[j][ks][1] = tf32_rna(b1);
+                    bf[j][ks][2] = tf32_rna(b0 - __uint_as_float(bf[j][ks][0]));
+                    bf[j][ks][3] = tf32_rna(b1 - __uint_as_float(bf[j][ks][1]));
+                }
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                uint32_t ab[PT_KS][4], as[PT_KS][4];
+#pragma unroll
+                for (int ks = 0; ks < PT_KS; ++ks) {
+                    const float* a = s_b + ks * BASIS_KS + (wm * MT + i) * A_TILE + 4 * lane;
+                    const uint4 big = *reinterpret_cast<const uint4*>(a);
+                    const uint4 small = *reinterpret_cast<const uint4*>(a + A_TILE / 2);
+                    ab[ks][0] = big.x, ab[ks][1] = big.y, ab[ks][2] = big.z, ab[ks][3] = big.w;
+                    as[ks][0] = small.x, as[ks][1] = small.y, as[ks][2] = small.z,
+                    as[ks][3] = small.w;
+                }
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    float part[4];
+                    products<true>(part, ab[0], as[0], bf[j][0][0], bf[j][0][1], bf[j][0][2],
+                                   bf[j][0][3]);
+#pragma unroll
+                    for (int ks = 1; ks < PT_KS; ++ks)
+                        products<false>(part, ab[ks], as[ks], bf[j][ks][0], bf[j][ks][1],
+                                        bf[j][ks][2], bf[j][ks][3]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+                }
+            }
         }
-        __syncthreads();
+        __syncthreads();  // the buffer is refilled PT_NBUF - 1 stages on
     }
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-        if (r >= M) continue;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-            if (c < N) C[(size_t)r * ldc + c] = acc[i][j];
+        for (int h = 0; h < 2; ++h) {
+            const int row = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
+            if (row >= p.M) continue;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                const int col = n0 + wn * NT * 8 + j * 8 + 2 * t;
+                float* dst = c + (size_t)row * p.N + col;
+                const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+                if (p.vec2 && col + 1 < p.N) {
+                    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                } else {
+                    if (col < p.N) dst[0] = v0;
+                    if (col + 1 < p.N) dst[1] = v1;
+                }
+            }
         }
-    }
+}
+
+template <bool FA, bool VEC>
+cudaError_t launch_plane_gemm(const PlaneGemmParams& p, int batch, cudaStream_t stream) {
+    const size_t smem = sizeof(float) * PT_NBUF * pt_stage_floats<FA>();
+    const cudaError_t e = set_smem((const void*)plane_gemm_tf32_kernel<FA, VEC>, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((p.N + PT_BN - 1) / PT_BN, (p.M + PT_BM - 1) / PT_BM, batch);
+    plane_gemm_tf32_kernel<FA, VEC><<<grid, PT_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ins_gemm_f32(const float* A, const float* B, float* C, int M,
-                            int N, int K, int lda, int ldb, int ldc,
-                            long long sA, long long sB, long long sC,
-                            int batch, void* stream) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-    gemm_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        A, B, C, M, N, K, lda, ldb, ldc, sA, sB, sC);
-    return (int)cudaGetLastError();
+// C[b] = field[b] @ W (field_is_a) or W @ field[b] (else), b < batch:
+// field (M, K) or (K, N) float32 rows with batch stride sf, C (M, N) with
+// batch stride sc, W split into TF32 fragments as `ops/transforms.py`
+// `pack_basis_b` (field as A: (Kp/8, Np/8, 32, 4)) or `pack_basis_a`
+// (field as B: (Kp/8, Mp/16, 2, 32, 4)) lays it out, Kp = K rounded up to
+// 32, Np = N and Mp = M rounded up to 128; W 16-byte aligned.
+extern "C" int ins_plane_gemm_tf32(const float* field, long long sf, const float* basis,
+                                   float* c, long long sc, int M, int N, int K, int field_is_a,
+                                   int batch, void* stream) {
+    if (M < 1 || N < 1 || K < 1 || batch < 1 || batch > 65535 ||
+        (M + PT_BM - 1) / PT_BM > 65535 || ((uintptr_t)basis & 15))
+        return (int)cudaErrorInvalidValue;
+    const PlaneGemmParams p{
+        field, basis, c, sf, sc, M, N, K,
+        field_is_a ? (N + PT_BN - 1) / PT_BN * (PT_BN / 8) : (M + PT_BM - 1) / PT_BM * (PT_BM / 16),
+        N % 2 == 0 && sc % 2 == 0 && ((uintptr_t)c & 7) == 0};
+    // 16-byte copies where every row of the field starts 16-byte aligned
+    const bool vec = (field_is_a ? K : N) % 4 == 0 && sf % 4 == 0 && ((uintptr_t)field & 15) == 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (field_is_a)
+        return (int)(vec ? launch_plane_gemm<true, true>(p, batch, s)
+                         : launch_plane_gemm<true, false>(p, batch, s));
+    return (int)(vec ? launch_plane_gemm<false, true>(p, batch, s)
+                     : launch_plane_gemm<false, false>(p, batch, s));
 }
 
 extern "C" const char* ins_error_string(int err) {

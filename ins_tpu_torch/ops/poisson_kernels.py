@@ -50,7 +50,9 @@ from .launches import (
     current_stream,
     note_plain,
 )
-from .transforms import x_transform, x_transform_plain, yz_transform, yz_transform_plain
+from .transforms import (
+    split_basis, x_transform, x_transform_plain, yz_transform, yz_transform_plain,
+)
 
 __all__ = [
     "poisson_eigen_consts",
@@ -270,9 +272,13 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
     """Pieces of the fused pressure projection: ``passB(h) -> qhat`` (the
     folded pass B where n % 4 == 0, else the dense one; ``passB_plain``
     the same choice's plain version) and the transform matrices (Vinv,
-    VinvT, V, VT) the stage and correction kernels take.  ``precision``
-    is accepted for parity with the JAX package; both names run at FP32
-    ("highest" class) here."""
+    VinvT, V, VT) the stage and correction kernels take, each split once
+    here into the TF32 fragments the plane-transform kernel reads
+    (`transforms.split_basis`).  ``precision`` is accepted for parity with
+    the JAX package; both names run in the float32 class here (3xTF32 on
+    the card, within ~1e-6 of float64: the JAX "highest" class), and the
+    JAX package's 3-pass bf16 "manualhigh" class waits in ROADMAP queue 1
+    item 6."""
     if precision not in ("manualhigh", "highest"):
         raise ValueError(f"unknown projection precision {precision!r}")
     if not (len(Np) == 3 and Np[0] == Np[1] == Np[2]):
@@ -296,6 +302,12 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
         proj.update(fold_mats=None, fold_levels=None)
         proj["passB"] = lambda h: passB(h, proj)
         proj["passB_plain"] = lambda h: passB_plain(h, proj)
+    # the basis operands of the transforms: V_z^T as B (the field as A),
+    # V_y and every x matrix as A (the field as B)
+    for w in (proj["VT"], proj["VinvT"]):
+        split_basis(w, "b")
+    for w in (proj["V"], proj["Vinv"], *(proj["fold_mats"] or ())):
+        split_basis(w, "a")
     return proj
 
 
