@@ -8,10 +8,10 @@ Run from the repository root on a machine with a Hopper card (H100):
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
-    python3 chip_smoke.py --chain-turns DIR   # only the 256³ RK44 hat
-                                      # chain's ms/step, the package of
-                                      # the tree DIR and this one's, in
-                                      # turns
+    python3 chip_smoke.py --chain-turns DIR   # only the 256³ RK44 hat,
+                                      # LES and Boussinesq chains'
+                                      # ms/step, the package of the tree
+                                      # DIR and this one's, in turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -264,6 +264,12 @@ from typing import Any, NamedTuple
 import numpy as np
 
 REL_TOL = 1e-4
+# a cube extent that is no multiple of the stencil kernels' tiles (stage.cu:
+# 32 x 16 cells of (z, y) and 16 x-planes a block; smag.cu: 32 x 8 and 16)
+# and no multiple of 4: the stage kernels' ragged tiles at every edge
+RAGGED_N = 50
+# the halo kernels' ragged cube: 4 shards of 13 planes
+HALO_RAGGED_N = 52
 # the plane transform (3xTF32) against the float64 product: the float32
 # class, max|Δ| <= 1e-6·max|ref| (one TF32 pass is ~3e-4 off)
 TF32_CLASS_TOL = 1e-6
@@ -436,7 +442,8 @@ def card_line(query="name,power.limit"):
 def kernel_cases(n):
     """{kernel name: [(label, kernel_fn, plain_fn), ...]} at size n; each
     fn returns a tuple of output tensors.  The first case of each kernel
-    has the shapes and options the main path gives it."""
+    has the shapes and options the main path gives it.  At an n that is
+    no multiple of 4 (RAGGED_N) only the stage kernels' cases."""
     import torch
 
     from ins_tpu_torch.ops import stage_kernels as sk
@@ -477,8 +484,6 @@ def kernel_cases(n):
     smag = (theta, 3 * dxs[0] ** 2)
     bf = field(3, n, n, n)
     les = dict(based, smag=smag)
-    mats2, levels2, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=2, device=dev)
-    proj2 = dict(proj, fold_mats=mats2, fold_levels=levels2)
     # the temperature stream: T, its tableau base and accumulator
     T, Ts, Ta = field(n, n, n), field(n, n, n), field(n, n, n)
 
@@ -492,7 +497,7 @@ def kernel_cases(n):
         (the last two outputs): c·kt is ~1e-2 of T, so the outputs alone
         would hide an error of a few percent in kt."""
         return lambda o: ((o[-2] - tb) / cnew, (o[-1] - tab) / cu)
-    return {
+    cases = {
         # the Boussinesq stages (the main path's stages 1-2 first)
         "pcmsd_hat_3d+temp": [
             Case("stream base + usnew_base + tstart + tacc, gdir 2, dissipation",
@@ -605,6 +610,13 @@ def kernel_cases(n):
                  msd(sk.momentum_stage_divhat_3d_plain, (ustart, k1), (0.3 * dt, dt / 2),
                      bodyforce=bf)),
         ],
+    }
+    if n % 4:  # a ragged cube (RAGGED_N): the stage cases only
+        return cases
+    mats2, levels2, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=2, device=dev)
+    proj2 = dict(proj, fold_mats=mats2, fold_levels=levels2)
+    return {
+        **cases,
         "passB": [
             Case("divhat -> qhat",
                  lambda: (passB(divhat, proj),), lambda: (passB_plain(divhat, proj),),
@@ -3436,36 +3448,60 @@ def stack_turns(parent):
 
 
 def chain_time(n=256, steps=10):
-    """One turn of `chain_turns`: ms/step of the n³ RK44 hat chain (phase
-    2's setup and u0) in this process, two runs of `steps` steps after a
-    warm-up of two."""
+    """One turn of `chain_turns`: ms/step of three n³ RK44 hat chains in
+    this process, each two runs of `steps` steps after a warm-up of two:
+    the main path (phase 2's setup and u0), the LES (phase 5's: the
+    Smagorinsky closure at theta = LES_THETA) and the Boussinesq chain
+    (phase 6's setup, u0 and T0).  {chain: [ms, ms]}."""
     import torch
 
     import ins_tpu_torch as it
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
 
-    setup = headline_setup(n)
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    u0 = it.random_field(setup, kp=10, generator=gen)
-    dt = 1e-3 * 128 / n
     method = it.RKMethods.RK44()
-    to_h, step_h, _ = make_fast_timestep_hat(setup, method)
-    h = step_h(step_h(to_h(strip_state(it.create_stepper(method, setup=setup, u=u0))), dt), dt)
-    times = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(steps):
-            h = step_h(h, dt)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3 / steps)
-    return times
+
+    def u0(setup):
+        return it.random_field(setup, kp=10,
+                               generator=torch.Generator(device=DEVICE).manual_seed(1))
+
+    def hat():
+        setup = headline_setup(n)
+        return setup, dict(u=u0(setup)), 1e-3 * 128 / n, None
+
+    def les():
+        setup = les_setup(n)
+        return setup, dict(u=u0(setup)), 1e-3 * 128 / n, torch.full((), LES_THETA,
+                                                                       device=DEVICE)
+
+    def boussinesq():
+        setup = boussinesq_setup(n)
+        temp = it.temperaturefield(setup, lambda xx, yy, zz: 0.5 + 0.1 * torch.sin(2 * np.pi * xx))
+        return setup, dict(u=u0(setup), temp=temp), 2e-4 * 128 / n, None
+
+    out = {}
+    for name, make in (("hat", hat), ("les", les), ("boussinesq", boussinesq)):
+        setup, state, dt, theta = make()
+        to_h, step_h, _ = make_fast_timestep_hat(setup, method)
+        h = to_h(strip_state(it.create_stepper(method, setup=setup, **state)))
+        h = step_h(step_h(h, dt, theta), dt, theta)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                h = step_h(h, dt, theta)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / steps)
+        out[name] = times
+        del setup, state, h
+        torch.cuda.empty_cache()
+    return out
 
 
 def chain_turns(parent):
-    """ms/step of the 256³ RK44 hat chain (`chain_time`) of the package in
-    the tree `parent` and of this tree's, each in its own process, in
-    turns: parent, this, this, parent."""
+    """ms/step of the 256³ RK44 hat, LES and Boussinesq chains
+    (`chain_time`) of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(card_line())
     for root in (parent, here, here, parent):
@@ -3625,8 +3661,9 @@ def main():
                          "package in the tree PARENT and of this tree's, in turns")
     ap.add_argument("--stack-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--chain-turns", metavar="PARENT",
-                    help="only time the 256³ RK44 hat chain (ms/step) of the package in "
-                         "the tree PARENT and of this tree's, in turns")
+                    help="only time the 256³ RK44 hat, LES and Boussinesq chains "
+                         "(ms/step) of the package in the tree PARENT and of this tree's, "
+                         "in turns")
     ap.add_argument("--chain-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
@@ -3684,7 +3721,7 @@ def main():
         print(f"[time] {name}: {now - clock['t']:.1f} s")
         clock["t"] = now
 
-    results = phase_kernels(kernel_cases, (64, 256),
+    results = phase_kernels(kernel_cases, (RAGGED_N, 64, 256),
                             time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
                                       "plane_transform"))
     solve_gate_times()
@@ -3738,7 +3775,7 @@ def main():
         phase_profile_split("LMWray3 step", setup, ins_tpu_torch.LMWray3(), u0_hat, dt)
     del setup
     phase_done("phase 7 (LMWray3)")
-    results.update(phase_kernels(halo_kernel_cases, (64, 256),
+    results.update(phase_kernels(halo_kernel_cases, (HALO_RAGGED_N, 64, 256),
                                  time_all=("pcmsd_hat_halo_3d",) + HALO_LES_KERNELS))
     if args.profile:
         profile_cases(halo_kernel_cases(256))
@@ -3749,7 +3786,7 @@ def main():
     halo_les_counts = phase_halo_les(256, 20, 10, u0_hat, e_halo, profile=args.profile)
     phase_done("phase 9 (halo LES)")
     torch.cuda.empty_cache()
-    results.update(phase_kernels(unmerged_kernel_cases, (64, 256), time_all=UNMERGED_KERNELS))
+    results.update(phase_kernels(unmerged_kernel_cases, (RAGGED_N, 64, 256), time_all=UNMERGED_KERNELS))
     if args.profile:
         profile_cases(unmerged_kernel_cases(256), names=UNMERGED_KERNELS)
     torch.cuda.empty_cache()
@@ -3758,7 +3795,7 @@ def main():
     results.update(phase_kernels(tap_kernel_cases, (36, 128),
                                  time_all=("tapconv_3d", "packconv_3d", "tapconv_3d+f32",
                                            "packconv_3d+f32", "tapconv_wgrad_3d")))
-    results.update(phase_kernels(stage_div_kernel_cases, (64, 256)))
+    results.update(phase_kernels(stage_div_kernel_cases, (RAGGED_N, 64, 256)))
     torch.cuda.empty_cache()
     tap_counts = phase_tapconv(128)
     tap_counts["momentum_stage_div_3d"] = phase_unfused_step(256)

@@ -28,8 +28,9 @@
 // of `_msd_hat_kernel` / `_stage_tail` (:692, :972, wrapper
 // `momentum_stage_divhat_3d` :1264), with their steady body-force stream
 // (`bf(a)`, :1037).  The conv-diff is
-// `_convdiff_window` (:129) / `convdiff_roll` term for term (`convdiff`
-// of stencil.cuh, which perop.cu shares).  The TPU
+// `_convdiff_window` (:129) / `convdiff_roll` term for term (`convdiff_r`
+// below: stencil.cuh's `convdiff`, which perop.cu keeps, with every 1/dx
+// a multiply).  The TPU
 // kernels apply the z/y eigen-transforms of q and div in the same pass;
 // here the wrappers run them as plane-transform GEMMs (transforms.cu)
 // before (q) and after (div) this kernel, so q and div each make one
@@ -43,30 +44,57 @@
 // ROADMAP queue 2).  The temperature stream (`tparams` of both TPU
 // kernels, :724-757 and :2372-2406) is the TEMP template flag.
 //
-// What bounds it on an H100: device-memory bytes.  With REBUILD and a
-// stream base it reads ut_prev, q and the tableau streams and writes ut,
-// usnew (and u) and div: 14-17 floats per cell, 0.9-1.1 GB per call at
-// 256^3 (0.28-0.34 ms at 3.35 TB/s).  The stencil reads each velocity
-// about a hundred times per cell (the conv-diff at I and, for the
-// backward divergence, at I - e_a), so those reads must not go to global
-// memory: a block owns a TZ x TY tile of (y, z) and walks XB x-planes,
-// keeping a ring of four x-planes of the (rebuilt) velocity, with a halo
-// of two cells below and one above in y and z, in shared memory.  Each
-// velocity element is rebuilt once per block from three loads (ut_prev
-// and two q values); the stencil then reads only shared memory, z fastest
-// across a warp (conflict-free).  The backward divergence needs ut at
-// I - e_a, which a neighbouring thread also computes; each thread
-// recomputes that one component from the shared tile rather than
-// exchanging it, since the tableau streams at I - e_a are single loads.
-// TEMP adds a second ring, of T, over x-planes x-1 .. x+1 with a one-cell
-// (y, z) halo (5.4 KB beside the velocity ring's 18.5 KB; residency is
-// still bounded by the 2048 threads of an SM), loaded once per block.  The
-// velocity ring already holds what the temperature RHS reads: u_b at I and
-// I - e_b, and for the dissipation the Laplacian of u_b there, which
-// reaches I - 2 e_b, inside the ring's (2, 1) halo.  T, tstart and tacc
-// add one to three floats a cell and temp_out/tempnew one or two (19-22 in
-// all with the velocity streams).  Without TEMP (and without FORCE) the
-// kernel compiles exactly as it did before those streams existed.
+// What bounds it on an H100: device-memory bytes, at best.  With REBUILD
+// and a stream base it reads ut_prev, q and the tableau streams and writes
+// ut, usnew (and u) and div: 14-17 floats per cell, 0.9-1.1 GB per call
+// at 256^3 (0.28-0.34 ms at 3.35 TB/s).  The conv-diff reads each
+// velocity about fifteen times per cell, so those reads come from shared
+// memory; what the kernel must then keep small is its instructions per
+// cell, and it does so four ways:
+//
+// * Each cell's tendency f and tableau value ut are formed once.  A block
+//   owns a (y, z) tile of TY x TZ cells and walks XB x-planes; a warp owns
+//   32 z-columns of RY consecutive y-rows, each thread one z and RY y.  The
+//   backward divergence takes ut_0 at x - 1 from the thread's registers
+//   (the previous plane's value; one warm-up plane at x0 - 1 forms ut_0
+//   alone), ut_1 at y - 1 from the thread's previous row (or, for its
+//   first row, from ut_1 at that row's y - 1, which the warp forms once a
+//   plane) and ut_2 at z - 1 from the next lane down (a warp shuffle; lane
+//   0 takes the value at z0 - 1, which lanes 0 .. RY - 1 form once a plane,
+//   one row each).  The tableau streams and the force are read once a cell,
+//   and once more only at those halo cells.  Under TEMP the dissipation
+//   g_b = u_b * visc * Laplacian(u_b) is formed the same way, once a cell,
+//   with the Laplacian summed from the diffusion terms the conv-diff has
+//   just formed, and g_b(I - e_b) comes from the same registers and
+//   shuffles.
+// * Every 1/dx is a multiply by a reciprocal formed once (an IEEE division
+//   is a call of ~10 instructions, and the stage divides ~30 times a
+//   cell), and visc/dx^2 too.
+// * Staging is asynchronous and has no `%`: each thread's window elements'
+//   wrapped (y, z) offsets are formed once a block (`Window`, ring.cuh),
+//   and the raw ut_prev (or u), q and T planes go into rings of shared
+//   memory by 4-byte cp.async copies a plane ahead of their use, while the
+//   block computes.  A plane of ut_prev is rebuilt in place (u = ut_prev -
+//   grad q from the q ring) one phase after it lands and used in the three
+//   phases after that: five u slots, three q slots, four T slots.  Each
+//   phase issues the next copies, rebuilds a plane, computes one x-plane
+//   and ends with one block barrier.  The pointwise streams (base,
+//   usnew_base, the force, the k streams, tstart, tacc) at the thread's own
+//   cells go the same way into two staged planes, a plane ahead, so their
+//   loads stay off the arithmetic's dependency chain (read directly, they
+//   held the kernel at its old speed).  bf16 streams (S) are widened by
+//   plain loads into the same ring and planes (cp.async copies 4 bytes at
+//   least).
+// * The tile is 16 x 32 cells (the haloed window (16 + 3) x (32 + 3) is
+//   1.30x the tile, against 1.50x for 8 x 32) and a block walks 32
+//   x-planes (35 u planes loaded for 32, against 11 for 8).
+//
+// A block of 256 threads (8 warps of RY = 2 rows; 128 registers a thread)
+// holds 39.9 KB of u ring, 8.6 KB of q ring (REBUILD), 9.8 KB of T ring
+// (TEMP) and two staged planes of 7.2 KB a vector stream and 2 KB a
+// scalar one: two blocks an SM.  Four rows a thread (4 warps) took more
+// registers and ran 10 % slower; more warps a block with one row each,
+// slower still (the halo rows and cells are then a larger share).
 //
 // HALO runs the stage on an x-slab shard block of a 1-D mesh: the port of
 // `_msd_hat_halo_kernel` (:1542, wrapper `momentum_stage_divhat_halo_3d`
@@ -75,14 +103,14 @@
 // ghost arrays from the ring exchange (`parallel/halo.py`): 2 lower and 1
 // upper plane of u (ut_prev), 2 and 2 of q (the rebuild's forward
 // x-difference reaches plane lx + 1) and plane -1 of each tableau stream
-// (the backward divergence reads its component 0 there).  `load_plane`
+// (the backward divergence reads its component 0 there).  `stage_u`
 // reads plane x from the lower ghosts when x < 0, from the upper one when
 // x >= lx and from the block otherwise; y and z still wrap.  The TPU
 // kernels' segmented window DMAs (`_seg_window_copy` :1497) and their
 // slab-size pick have no counterpart: a block reads a ghost plane where it
 // needs it.  Bound at the 4-shard shape (lx = 64, n = 256): the same 14-17
 // floats a cell over 4.2M cells, 0.23-0.29 GB, 0.07-0.09 ms at 3.35 TB/s;
-// the ghost planes add 3-5 %.  Without HALO the kernels compile as before.
+// the ghost planes add 3-5 %.
 //
 // HALO with FORCE is the shard stage's force stream: a steady body force
 // (`bodyforce=` of the JAX halo kernels) or, with their `smag=` option,
@@ -94,8 +122,8 @@
 // upper planes and those of q to 3 and 3 (the force kernel reads them; the
 // stage still reads planes -2 .. lx of u and -2 .. lx + 1 of q), so the
 // FORCE variants take the lower and upper ghost counts as parameters
-// (glo, ghi); the FORCE-less ones keep (2, 1) as constants and compile as
-// before.  The shard stage has no temperature stream (the JAX halo kernels
+// (glo, ghi); the FORCE-less ones keep (2, 1) as constants.
+// The shard stage has no temperature stream (the JAX halo kernels
 // have none).
 //
 // S is the storage type of the velocity-like streams: float, or bf16 for
@@ -116,27 +144,74 @@
 // and coefficients come from a small device table (ktab, kctab) and the
 // tableau loops over p.m at run time.  The TPU kernel folds the streams
 // through one buffer to keep VMEM flat in their count; here each stream
-// is a single load a cell (and one more at I - e_a), so nothing is staged.
+// is a single load a cell, so nothing is staged.
 // It runs without REBUILD and TEMP (the JAX kernel is `_msd_hat_kernel`'s
 // twin); at 256^3 with m = 9 it reads 11 vector fields and writes 3: 2.8
-// GB, 0.84 ms at 3.35 TB/s.  The m <= MAXK kernels keep their unrolled
+// GB, 0.84 ms at 3.35 TB/s.  The m <= MAXK kernels unroll their
 // loop.
 
 #include <type_traits>
 
+#include "ring.cuh"
 #include "stencil.cuh"
 
 namespace {
 
 constexpr int MAXK = 4;
-constexpr int TZ = 32;             // tile extent in z (one warp)
-constexpr int TY = 8;              // tile extent in y
-constexpr int XB = 8;              // x-planes walked per block
-constexpr int HZ = TZ + 3;         // halo: 2 below, 1 above
-constexpr int HY = TY + 3;
-constexpr int RING = 4;            // x-planes x-2 .. x+1
-constexpr int TY2 = TY + 2;        // T halo: one cell each side in y, z
-constexpr int TZ2 = TZ + 2;
+constexpr int TZ = 32;                  // tile extent in z: a warp's lanes
+constexpr int RY = 2;                   // y-rows a thread
+constexpr int NW = 8;                   // warps a block, stacked in y
+constexpr int TY = RY * NW;             // tile extent in y
+constexpr int NT = 32 * NW;             // threads a block
+constexpr int XB = 32;                  // x-planes walked per block
+constexpr int HY = TY + 3, HZ = TZ + 3;  // u window: 2 cells below, 1 above
+constexpr int HW = HY * HZ;
+constexpr int QY = HY + 1, QZ = HZ + 1;  // q window: one more above
+constexpr int TWY = TY + 2, TWZ = TZ + 2;  // T window: one cell each side
+constexpr int UPL = 3 * HW;             // floats of a u plane (3 components)
+constexpr int QPL = QY * QZ;
+constexpr int TPL = TWY * TWZ;
+
+// Ring slots: a plane is copied a phase before the phase that first reads
+// it (copies two phases ahead needed deeper rings, left room for fewer
+// blocks an SM and ran slower: PERF.md).
+constexpr int UR = 5;  // u: copied, rebuilt, then read by three planes
+constexpr int QR = 3;  // q
+constexpr int TR = 4;  // T
+constexpr int SR = 2;  // staged stream planes
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TTW = TY * TZ;            // floats of a tile plane
+// floats of a staged vector stream's plane: the tile's three components,
+// then component 1 on each warp's y-halo row and component 2 on its
+// z-halo cells
+constexpr int VSZ = 3 * TTW + NW * TZ + NW * RY;
+
+// Offsets (floats) of the staged pointwise streams in a plane's buffer,
+// -1 where a stream is absent: base, usnew_base, the force and the m k
+// streams (VSZ each), then tstart and tacc (TTW each); size: the buffer.
+struct Layout {
+    int base, usnew, force, k, tstart, tacc, size;
+};
+
+__host__ __device__ inline Layout layout(bool base, bool usnew, bool force, int mk, bool tstart,
+                                         bool tacc) {
+    Layout L;
+    int o = 0;
+    L.base = base ? o : -1;
+    o += base ? VSZ : 0;
+    L.usnew = usnew ? o : -1;
+    o += usnew ? VSZ : 0;
+    L.force = force ? o : -1;
+    o += force ? VSZ : 0;
+    L.k = o;
+    o += mk * VSZ;
+    L.tstart = tstart ? o : -1;
+    o += tstart ? TTW : 0;
+    L.tacc = tacc ? o : -1;
+    o += tacc ? TTW : 0;
+    L.size = o;
+    return L;
+}
 
 struct StageParams {
     const float* u;           // velocity, or ut_prev when REBUILD
@@ -168,13 +243,12 @@ struct StageParams {
     int gdir;
     float alpha2, alpha4, dis;
     int with_dis;
-    // the x-slab shard block (HALO only; appended, so the cube kernels'
-    // parameter offsets are as before)
+    // the x-slab shard block (HALO only)
     int lx;                   // x extent of the block (n: the cube)
-    const float* u_lo;        // (3, 2, n, n): planes -2, -1 of u (ut_prev)
-    const float* u_hi;        // (3, 1, n, n): plane lx
-    const float* q_lo;        // (2, n, n): q planes -2, -1 (REBUILD)
-    const float* q_hi;        // (2, n, n): q planes lx, lx + 1 (REBUILD)
+    const float* u_lo;        // (3, glo, n, n): planes -glo .. -1 of u (ut_prev)
+    const float* u_hi;        // (3, ghi, n, n): planes lx .. lx + ghi - 1
+    const float* q_lo;        // (glo, n, n): q planes -glo .. -1 (REBUILD)
+    const float* q_hi;        // (ghi + 1, n, n): q planes lx .. (REBUILD)
     const float* base_lo;     // (3, 1, n, n): plane -1 of base (with base)
     const float* k_lo[MAXK];  // (3, 1, n, n): plane -1 of each k stream
     // the shard stage's force stream (HALO with FORCE only)
@@ -184,6 +258,40 @@ struct StageParams {
     // the k-stream table (STREAMS only): m pointers, then m coefficients
     const unsigned long long* ktab;
     const float* kctab;
+};
+
+// 1/dx_b and visc/dx_b^2, formed once a thread
+struct Consts {
+    float rdx[3];
+    float cd[3];
+};
+
+__device__ __forceinline__ Consts consts(const StageParams& p) {
+    Consts c;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        c.rdx[b] = 1.0f / p.dx[b];
+        c.cd[b] = p.visc * (c.rdx[b] * c.rdx[b]);
+    }
+    return c;
+}
+
+// The staged streams of a launch (the k streams only when unrolled).
+template <bool FORCE, bool TEMP, bool STREAMS>
+__host__ __device__ inline Layout layout_of(const StageParams& p) {
+    return layout(p.base != nullptr, p.with_usnew && p.usnew_base != nullptr, FORCE,
+                  STREAMS ? 0 : p.m, TEMP && p.tstart != nullptr,
+                  TEMP && p.with_usnew && p.tacc != nullptr);
+}
+
+// A thread's cells, the same on every x-plane: in-plane offsets y n + z of
+// its RY rows (clamped to the box), of its warp's y-halo cell and (lanes <
+// RY) z-halo cell, and their elements in a staged plane.
+struct Cells {
+    int row[RY];
+    int yrow, zrow;
+    int cp0, yhs, zhs;
+    bool zlane;
 };
 
 // A velocity-like stream stored as S, read and written through the
@@ -197,128 +305,62 @@ __device__ __forceinline__ void st(float* p, size_t i, float v) {
     st_f(reinterpret_cast<S*>(p), i, v);
 }
 
-using Ring = float[RING][3][HY][HZ];
-using TRing = float[RING][TY2][TZ2];  // slot pattern of Ring; x-2 unused
-
-// Plane x (-2 <= x <= lx + 1) of q on a shard block: the lower ghosts
-// (glo of them), the block or the upper ghosts (HALO).
-__device__ __forceinline__ const float* halo_qplane(const StageParams& p, int x, int glo) {
-    const size_t n2 = (size_t)p.n * p.n;
-    if (x < 0) return p.q_lo + (size_t)(x + glo) * n2;
-    if (x >= p.lx) return p.q_hi + (size_t)(x - p.lx) * n2;
-    return p.q + (size_t)x * n2;
-}
-
-// `load_plane` on a shard block: plane xp (-2 <= xp <= lx) comes from the
-// lower ghosts, the block or the upper ghosts, and q's planes xp and
-// xp + 1 likewise (lx + 1 is the second upper q ghost).  The ghost counts
-// are (2, 1) without FORCE and parameters with it.
-template <bool REBUILD, bool FORCE>
-__device__ __forceinline__ void load_plane_halo(const StageParams& p, Ring& s, int slot,
-                                                int xp, int y0, int z0) {
-    const int n = p.n;
-    const size_t n2 = (size_t)n * n;
-    const int glo = FORCE ? p.glo : 2, ghi = FORCE ? p.ghi : 1;
-    const float* up;  // component 0 of plane xp; the components lie cs apart
-    size_t cs;
-    if (xp < 0) {
-        up = p.u_lo + (size_t)(xp + glo) * n2;
-        cs = (size_t)glo * n2;
-    } else if (xp >= p.lx) {
-        up = p.u_hi + (size_t)(xp - p.lx) * n2;
-        cs = (size_t)ghi * n2;
-    } else {
-        up = p.u + (size_t)xp * n2;
-        cs = (size_t)p.lx * n2;
-    }
-    const float* qp = REBUILD ? halo_qplane(p, xp, glo) : nullptr;
-    const float* qn = REBUILD ? halo_qplane(p, xp + 1, glo) : nullptr;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthreads = blockDim.x * blockDim.y;
-    for (int e = tid; e < HY * HZ; e += nthreads) {
-        const int ly = e / HZ, lz = e - ly * HZ;
-        const int y = wrap(y0 - 2 + ly, n), z = wrap(z0 - 2 + lz, n);
-        const size_t i = (size_t)y * n + z;
-        float u0 = __ldg(up + i), u1 = __ldg(up + cs + i), u2 = __ldg(up + 2 * cs + i);
-        if constexpr (REBUILD) {
-            const float qc = __ldg(qp + i);
-            const int yn = y + 1 == n ? 0 : y + 1, zn = z + 1 == n ? 0 : z + 1;
-            u0 -= (__ldg(qn + i) - qc) / p.dx[0];
-            u1 -= (__ldg(qp + (size_t)yn * n + z) - qc) / p.dx[1];
-            u2 -= (__ldg(qp + (size_t)y * n + zn) - qc) / p.dx[2];
-        }
-        s[slot][0][ly][lz] = u0;
-        s[slot][1][ly][lz] = u1;
-        s[slot][2][ly][lz] = u2;
-    }
-}
-
-// Fill ring slot `slot` with x-plane `xp` of the (rebuilt) velocity over
-// the tile's haloed (y, z) window starting at (y0 - 2, z0 - 2).
-template <bool REBUILD, bool FORCE, bool HALO, class S>
-__device__ __forceinline__ void load_plane(const StageParams& p, Ring& s, int slot,
-                                           int xp, int y0, int z0) {
-    if constexpr (HALO) {
-        load_plane_halo<REBUILD, FORCE>(p, s, slot, xp, y0, z0);
-        return;
-    }
-    const int n = p.n;
-    const size_t n3 = (size_t)n * n * n;
-    const int x = wrap(xp, n);
-    const int xn = x + 1 == n ? 0 : x + 1;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthreads = blockDim.x * blockDim.y;
-    for (int e = tid; e < HY * HZ; e += nthreads) {
-        const int ly = e / HZ, lz = e - ly * HZ;
-        const int y = wrap(y0 - 2 + ly, n), z = wrap(z0 - 2 + lz, n);
-        const size_t i = ((size_t)x * n + y) * n + z;
-        const S* up = reinterpret_cast<const S*>(p.u);
-        float u0 = ldg_f(up, i), u1 = ldg_f(up + n3, i), u2 = ldg_f(up + 2 * n3, i);
-        if constexpr (REBUILD) {
-            const float qc = __ldg(p.q + i);
-            const int yn = y + 1 == n ? 0 : y + 1, zn = z + 1 == n ? 0 : z + 1;
-            u0 -= (__ldg(p.q + ((size_t)xn * n + y) * n + z) - qc) / p.dx[0];
-            u1 -= (__ldg(p.q + ((size_t)x * n + yn) * n + z) - qc) / p.dx[1];
-            u2 -= (__ldg(p.q + ((size_t)x * n + y) * n + zn) - qc) / p.dx[2];
-        }
-        s[slot][0][ly][lz] = u0;
-        s[slot][1][ly][lz] = u1;
-        s[slot][2][ly][lz] = u2;
-    }
-}
-
-// Fill T-ring slot `slot` with x-plane `xp` of T over the tile's haloed
-// (y, z) window starting at (y0 - 1, z0 - 1).
-__device__ __forceinline__ void load_tplane(const StageParams& p, TRing& s, int slot,
-                                            int xp, int y0, int z0) {
-    const int n = p.n;
-    const int x = wrap(xp, n);
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthreads = blockDim.x * blockDim.y;
-    for (int e = tid; e < TY2 * TZ2; e += nthreads) {
-        const int ly = e / TZ2, lz = e - ly * TZ2;
-        const int y = wrap(y0 - 1 + ly, n), z = wrap(z0 - 1 + lz, n);
-        s[slot][ly][lz] = __ldg(p.T + ((size_t)x * n + y) * n + z);
-    }
-}
-
-// The thread's view of the ring at step i: u(c, I + (ox, oy, oz)).
+// A cell's view of the u ring: u(c, I + (ox, oy, oz)), with b the slots'
+// offsets (floats) of planes x - 1, x, x + 1 and e the cell's window
+// element.
 struct View {
-    const Ring* s;
-    int i, ly, lz;
+    const float* s;
+    int b[3];
+    int e;
     __device__ __forceinline__ float operator()(int c, int ox, int oy, int oz) const {
-        return (*s)[(i + 2 + ox) & 3][c][ly + oy][lz + oz];
+        return s[b[ox + 1] + c * HW + e + oy * HZ + oz];
     }
 };
 
-// The thread's view of the T ring at step i: T(I + (ox, oy, oz)).
+// The same view of the T ring: T(I + (ox, oy, oz)).
 struct TView {
-    const TRing* s;
-    int i, ly, lz;
+    const float* s;
+    int b[3];
+    int e;
     __device__ __forceinline__ float operator()(int ox, int oy, int oz) const {
-        return (*s)[(i + 2 + ox) & 3][ly + oy][lz + oz];
+        return s[b[ox + 1] + e + oy * TWZ + oz];
     }
 };
+
+// Conv-diff of component A at the view's cell (`convdiff` of stencil.cuh
+// term for term, every 1/dx a multiply); lap = visc * Laplacian(u_A), the
+// sum of its diffusion terms.
+template <int A>
+__device__ __forceinline__ float convdiff_r(const Consts& k, const View& u, float& lap) {
+    const float ua = u(A, 0, 0, 0);
+    float f = 0.0f, l = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        const int ex = b == 0, ey = b == 1, ez = b == 2;
+        const float upb = u(A, ex, ey, ez);
+        const float umb = u(A, -ex, -ey, -ez);
+        const float fd = k.cd[b] * (upb - 2.0f * ua + umb);
+        l = l + fd;
+        const float uab1 = 0.5f * (umb + ua);
+        const float uab2 = 0.5f * (ua + upb);
+        float uba1, uba2;
+        if (A == b) {
+            uba1 = uab1;
+            uba2 = uab2;
+        } else {
+            const int ax = A == 0, ay = A == 1, az = A == 2;
+            const float ub = u(b, 0, 0, 0);
+            const float ub_pa = u(b, ax, ay, az);
+            const float ub_mb = u(b, -ex, -ey, -ez);
+            const float ub_pa_mb = u(b, ax - ex, ay - ey, az - ez);
+            uba1 = 0.5f * (ub_mb + ub_pa_mb);
+            uba2 = 0.5f * (ub + ub_pa);
+        }
+        f = f + (fd - (uab2 * uba2 - uab1 * uba1) * k.rdx[b]);
+    }
+    lap = l;
+    return f;
+}
 
 // Tableau value base + sum_j ck_j k_j + cnew f at flat index idx.
 template <class S, bool STREAMS>
@@ -337,101 +379,52 @@ __device__ __forceinline__ float tableau(const StageParams& p, size_t idx, float
     return ut + p.cnew * f;
 }
 
-// `tableau` at plane -1 of a shard block (HALO): the streams' lower
-// ghosts, offset il in their component-0 plane.
-__device__ __forceinline__ float tableau_lo(const StageParams& p, size_t il, float b0,
-                                            float f) {
-    float ut = b0;
-#pragma unroll
-    for (int j = 0; j < MAXK; ++j)
-        if (j < p.m) ut = ut + p.ck[j] * __ldg(p.k_lo[j] + il);
-    return ut + p.cnew * f;
-}
-
-// Outputs of component A at I; returns its term of the divergence.
-template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, class S, bool STREAMS, int A>
-__device__ __forceinline__ float component(const StageParams& p, const View& u,
-                                           const TView& T, int x, int y, int z) {
-    static_assert(!(HALO && TEMP), "the shard stage has no T stream");
-    static_assert(!HALO || (std::is_same<S, float>::value && !STREAMS),
-                  "the shard stage stores float and takes at most MAXK k streams");
-    const int n = p.n;
-    const size_t n3 = (size_t)(HALO ? p.lx : n) * n * n;
-    const size_t idx = A * n3 + ((size_t)x * n + y) * n + z;
-    float f = convdiff<A, 0, 0, 0>(p.visc, p.dx, u);
+// ut_A at a cell (stream index idx = A n3 + cell); with `store` (a tile
+// cell inside the box) also its outputs k, ut, usnew and u.  lap: visc *
+// Laplacian(u_A) there.  STG: the pointwise streams come from the staged
+// plane (sv: the cell's element there, L: the streams' offsets), else
+// from device memory.
+template <bool REBUILD, bool FORCE, bool TEMP, class S, bool STREAMS, int A, bool STG>
+__device__ __forceinline__ float cell_ut(const StageParams& p, const Consts& k, const View& u,
+                                         const TView& T, size_t idx, bool store, float& lap,
+                                         const float* sv, const Layout& L) {
+    float f = convdiff_r<A>(k, u, lap);
     if constexpr (TEMP) {
         if (A == p.gdir) f = f + p.alpha2 * (0.5f * (T(0, 0, 0) + T(A == 0, A == 1, A == 2)));
     }
-    // the float stage reads and stores as it did before S existed: its
-    // stores through `st` compile to other SASS in the stages without the
-    // rebuild (sass_diff.py against the parent)
-    constexpr bool F32 = std::is_same<S, float>::value;
-    if constexpr (FORCE) f = f + (F32 ? __ldg(p.force + idx) : ld<S>(p.force, idx));
+    if constexpr (FORCE) f = f + (STG ? sv[L.force] : ld<S>(p.force, idx));
     const float ua = u(A, 0, 0, 0);
-    const float b0 = p.base ? (F32 ? __ldg(p.base + idx) : ld<S>(p.base, idx)) : ua;
-    const float ut = tableau<S, STREAMS>(p, idx, b0, f);
-    if constexpr (F32) {
-        if (p.k_out) p.k_out[idx] = f;
-        p.ut_out[idx] = ut;
-        if (p.with_usnew) {
-            const float ub = p.usnew_base ? __ldg(p.usnew_base + idx) : b0;
-            p.usnew_out[idx] = ub + p.cusnew * f;
-        }
-        if (REBUILD && p.u_out) p.u_out[idx] = ua;
+    const float b0 = p.base ? (STG ? sv[L.base] : ld<S>(p.base, idx)) : ua;
+    float ut;
+    if constexpr (STG && !STREAMS) {
+        ut = b0;
+#pragma unroll
+        for (int j = 0; j < MAXK; ++j)
+            if (j < p.m) ut = ut + p.ck[j] * sv[L.k + j * VSZ];
+        ut = ut + p.cnew * f;
     } else {
+        ut = tableau<S, STREAMS>(p, idx, b0, f);
+    }
+    if (store) {
         if (p.k_out) st<S>(p.k_out, idx, f);
         st<S>(p.ut_out, idx, ut);
         if (p.with_usnew) {
-            const float ub = p.usnew_base ? ld<S>(p.usnew_base, idx) : b0;
+            const float ub =
+                p.usnew_base ? (STG ? sv[L.usnew] : ld<S>(p.usnew_base, idx)) : b0;
             st<S>(p.usnew_out, idx, ub + p.cusnew * f);
         }
         if (REBUILD && p.u_out) st<S>(p.u_out, idx, ua);
     }
-    // ut_A at I - e_A (owned by a neighbour; recomputed from the tile)
-    constexpr int MX = -(A == 0), MY = -(A == 1), MZ = -(A == 2);
-    const int xm = A == 0 ? (x == 0 ? n - 1 : x - 1) : x;
-    const int ym = A == 1 ? (y == 0 ? n - 1 : y - 1) : y;
-    const int zm = A == 2 ? (z == 0 ? n - 1 : z - 1) : z;
-    const size_t idxm = A * n3 + ((size_t)xm * n + ym) * n + zm;
-    float fm = convdiff<A, MX, MY, MZ>(p.visc, p.dx, u);
-    // the buoyancy at I - e_A too, or the backward divergence misses it
-    if constexpr (TEMP) {
-        if (A == p.gdir) fm = fm + p.alpha2 * (0.5f * (T(MX, MY, MZ) + T(0, 0, 0)));
-    }
-    if constexpr (FORCE) {
-        if (HALO && A == 0 && x == 0)  // plane -1: the force's lower plane
-            fm = fm + __ldg(p.force_lo + (size_t)y * n + z);
-        else
-            fm = fm + (F32 ? __ldg(p.force + idxm) : ld<S>(p.force, idxm));
-    }
-    if constexpr (HALO) {
-        if (A == 0 && x == 0) {  // plane -1: the tableau streams' lower ghosts
-            const size_t il = (size_t)y * n + z;
-            const float bl = p.base ? __ldg(p.base_lo + il) : u(A, MX, MY, MZ);
-            return (ut - tableau_lo(p, il, bl, fm)) / p.dx[A];
-        }
-    }
-    const float bm = p.base ? (F32 ? __ldg(p.base + idxm) : ld<S>(p.base, idxm))
-                            : u(A, MX, MY, MZ);
-    const float utm = tableau<S, STREAMS>(p, idxm, bm, fm);
-    return (ut - utm) / p.dx[A];
+    return ut;
 }
 
-// visc-free Laplacian of u_b at I + (ox, oy, oz)
-__device__ __forceinline__ float laplacian(const StageParams& p, const View& u, int b,
-                                           int ox, int oy, int oz) {
-    const float c = u(b, ox, oy, oz);
-    float l = (u(b, ox + 1, oy, oz) - 2.0f * c + u(b, ox - 1, oy, oz)) / (p.dx[0] * p.dx[0]);
-    l = l + (u(b, ox, oy + 1, oz) - 2.0f * c + u(b, ox, oy - 1, oz)) / (p.dx[1] * p.dx[1]);
-    l = l + (u(b, ox, oy, oz + 1) - 2.0f * c + u(b, ox, oy, oz - 1)) / (p.dx[2] * p.dx[2]);
-    return l;
-}
-
-// The temperature outputs at I (TEMP).
-__device__ __forceinline__ void temperature(const StageParams& p, const View& u,
-                                            const TView& T, int x, int y, int z) {
-    const int n = p.n;
-    const size_t idx = ((size_t)x * n + y) * n + z;
+// The temperature outputs at cell c (TEMP), with g = u_b visc Lap(u_b) at
+// I and gm at I - e_b; tstart and tacc from the staged plane (sv: the
+// cell's element there).
+__device__ __forceinline__ void temperature(const StageParams& p, const Consts& k,
+                                            const View& u, const TView& T, size_t c,
+                                            const float (&g)[3], const float (&gm)[3],
+                                            const float* sv, const Layout& L) {
     const float tc = T(0, 0, 0);
     float kt = 0.0f;
 #pragma unroll
@@ -440,78 +433,357 @@ __device__ __forceinline__ void temperature(const StageParams& p, const View& u,
         const float tp = T(ex, ey, ez), tm = T(-ex, -ey, -ez);
         const float uT2 = u(b, 0, 0, 0) * (0.5f * (tc + tp));
         const float uT1 = u(b, -ex, -ey, -ez) * (0.5f * (tm + tc));
-        const float dT2 = (tp - tc) / p.dx[b];
-        const float dT1 = (tc - tm) / p.dx[b];
-        kt = kt + (-(uT2 - uT1) + p.alpha4 * (dT2 - dT1)) / p.dx[b];
+        const float dT2 = (tp - tc) * k.rdx[b];
+        const float dT1 = (tc - tm) * k.rdx[b];
+        kt = kt + (-(uT2 - uT1) + p.alpha4 * (dT2 - dT1)) * k.rdx[b];
     }
     if (p.with_dis) {
         float dacc = 0.0f;
 #pragma unroll
-        for (int b = 0; b < 3; ++b) {
-            const int ex = b == 0, ey = b == 1, ez = b == 2;
-            const float g2 = u(b, 0, 0, 0) * (p.visc * laplacian(p, u, b, 0, 0, 0));
-            const float g1 = u(b, -ex, -ey, -ez) * (p.visc * laplacian(p, u, b, -ex, -ey, -ez));
-            dacc = dacc + 0.5f * (g2 + g1);
-        }
+        for (int b = 0; b < 3; ++b) dacc = dacc + 0.5f * (g[b] + gm[b]);
         kt = kt + p.dis * dacc;
     }
-    const float tb = p.tstart ? __ldg(p.tstart + idx) : tc;
-    p.temp_out[idx] = tb + p.cnew * kt;
+    const float tb = p.tstart ? sv[L.tstart] : tc;
+    p.temp_out[c] = tb + p.cnew * kt;
     if (p.with_usnew) {
-        const float ta = p.tacc ? __ldg(p.tacc + idx) : tb;
-        p.tempnew_out[idx] = ta + p.cusnew * kt;
+        const float ta = p.tacc ? sv[L.tacc] : tb;
+        p.tempnew_out[c] = ta + p.cusnew * kt;
     }
 }
 
-// The T ring, which exists only in the TEMP kernels.
-template <bool TEMP>
-__device__ __forceinline__ TRing* temp_ring() {
-    if constexpr (TEMP) {
-        __shared__ TRing ts;
-        return &ts;
+using UWin = Window<HY, HZ, NT>;
+using QWin = Window<QY, QZ, NT>;
+using TWin = Window<TWY, TWZ, NT>;
+
+// Plane x (-2 <= x <= lx + 1) of q on a shard block: the lower ghosts
+// (glo of them), the block or the upper ghosts (HALO).
+__device__ __forceinline__ const float* halo_qplane(const StageParams& p, int x, int glo) {
+    const size_t n2 = (size_t)p.n * p.n;
+    if (x < 0) return p.q_lo + (size_t)(x + glo) * n2;
+    if (x >= p.lx) return p.q_hi + (size_t)(x - p.lx) * n2;
+    return p.q + (size_t)x * n2;
+}
+
+// Copy x-plane xp of u (ut_prev) over the window into the u slot `slot`
+// ([3][HY][HZ]): on a shard block from the lower ghosts, the block or the
+// upper ghost (HALO); bf16 storage by plain loads, widened.
+template <bool FORCE, bool HALO, class S>
+__device__ __forceinline__ void stage_u(const StageParams& p, float* slot, int xp,
+                                        const UWin& w, int tid) {
+    const int n = p.n;
+    const size_t n2 = (size_t)n * n;
+    const float* src;
+    size_t cs;  // component stride
+    if constexpr (HALO) {
+        const int glo = FORCE ? p.glo : 2, ghi = FORCE ? p.ghi : 1;
+        if (xp < 0) {
+            src = p.u_lo;
+            cs = (size_t)glo * n2;
+            xp += glo;
+        } else if (xp >= p.lx) {
+            src = p.u_hi;
+            cs = (size_t)ghi * n2;
+            xp -= p.lx;
+        } else {
+            src = p.u;
+            cs = (size_t)p.lx * n2;
+        }
     } else {
-        return nullptr;
+        src = p.u;
+        cs = n2 * n;
+        xp = wrap(xp, n);
     }
+    const S* sp = reinterpret_cast<const S*>(src) + (size_t)xp * n2;
+#pragma unroll
+    for (int kk = 0; kk < UWin::K; ++kk) {
+        const int e = tid + kk * NT;
+        if (e < HW) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                if constexpr (std::is_same<S, float>::value)
+                    cp_async4(slot + c * HW + e, sp + c * cs + w.off[kk]);
+                else
+                    slot[c * HW + e] = ldg_f(sp + c * cs, w.off[kk]);
+            }
+        }
+    }
+}
+
+// Copy x-plane xp of q over its window into the q slot `slot`.
+template <bool FORCE, bool HALO>
+__device__ __forceinline__ void stage_q(const StageParams& p, float* slot, int xp,
+                                        const QWin& w, int tid) {
+    const float* qp = HALO ? halo_qplane(p, xp, FORCE ? p.glo : 2)
+                           : p.q + (size_t)wrap(xp, p.n) * p.n * p.n;
+#pragma unroll
+    for (int kk = 0; kk < QWin::K; ++kk) {
+        const int e = tid + kk * NT;
+        if (e < QPL) cp_async4(slot + e, qp + w.off[kk]);
+    }
+}
+
+// Copy x-plane xp of T over its window into the T slot `slot`.
+__device__ __forceinline__ void stage_t(const StageParams& p, float* slot, int xp,
+                                        const TWin& w, int tid) {
+    const float* tp = p.T + (size_t)wrap(xp, p.n) * p.n * p.n;
+#pragma unroll
+    for (int kk = 0; kk < TWin::K; ++kk) {
+        const int e = tid + kk * NT;
+        if (e < TPL) cp_async4(slot + e, tp + w.off[kk]);
+    }
+}
+
+// u = ut_prev - grad q in place on the u slot `us`, with qa and qb the q
+// slots of the same plane and the next.
+__device__ __forceinline__ void rebuild(float* us, const float* qa, const float* qb,
+                                        const Consts& k, int tid) {
+#pragma unroll
+    for (int kk = 0; kk < UWin::K; ++kk) {
+        const int e = tid + kk * NT;
+        if (e < HW) {
+            const int ly = e / HZ, lz = e - ly * HZ;
+            const int qe = ly * QZ + lz;
+            const float qc = qa[qe];
+            us[e] -= (qb[qe] - qc) * k.rdx[0];
+            us[HW + e] -= (qa[qe + QZ] - qc) * k.rdx[1];
+            us[2 * HW + e] -= (qa[qe + 1] - qc) * k.rdx[2];
+        }
+    }
+}
+
+// One element of a stream stored as S into a staged plane: a cp.async
+// copy for float; a bf16 element (2 bytes, below cp.async's 4) is loaded
+// and widened.
+template <class S>
+__device__ __forceinline__ void stage_one(float* d, const float* src, size_t i) {
+    if constexpr (std::is_same<S, float>::value)
+        cp_async4(d, src + i);
+    else
+        *d = ld<S>(src, i);
+}
+
+// Copy the pointwise streams of the x-plane at offset pl (x n^2) at the
+// thread's cells into the staged plane `buf` (layout L).
+template <bool FORCE, bool TEMP, class S, bool STREAMS>
+__device__ __forceinline__ void stage_streams(const StageParams& p, float* buf, const Layout& L,
+                                              size_t pl, size_t n3, const Cells& cl) {
+    const auto vec = [&](float* d, const float* src) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int r = 0; r < RY; ++r)
+                stage_one<S>(d + a * TTW + cl.cp0 + r * TZ, src, a * n3 + pl + cl.row[r]);
+        stage_one<S>(d + cl.yhs, src, n3 + pl + cl.yrow);
+        if (cl.zlane) stage_one<S>(d + cl.zhs, src, 2 * n3 + pl + cl.zrow);
+    };
+    const auto sca = [&](float* d, const float* src) {
+#pragma unroll
+        for (int r = 0; r < RY; ++r) stage_one<float>(d + cl.cp0 + r * TZ, src, pl + cl.row[r]);
+    };
+    if (L.base >= 0) vec(buf + L.base, p.base);
+    if (L.usnew >= 0) vec(buf + L.usnew, p.usnew_base);
+    if constexpr (FORCE) vec(buf + L.force, p.force);
+    if constexpr (!STREAMS) {
+#pragma unroll
+        for (int j = 0; j < MAXK; ++j)
+            if (j < p.m) vec(buf + L.k + j * VSZ, p.k[j]);
+    }
+    if constexpr (TEMP) {
+        if (L.tstart >= 0) sca(buf + L.tstart, p.tstart);
+        if (L.tacc >= 0) sca(buf + L.tacc, p.tacc);
+    }
+}
+
+// the rings' shared memory (the staged planes come after them)
+template <bool REBUILD, bool TEMP>
+__host__ __device__ constexpr int ring_floats() {
+    return UR * UPL + (REBUILD ? QR * QPL : 0) + (TEMP ? TR * TPL : 0);
 }
 
 template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, class S = float,
           bool STREAMS = false>
-__global__ void __launch_bounds__(TZ * TY)
+__global__ void __launch_bounds__(NT, 2)
 stage_kernel(const __grid_constant__ StageParams p) {
-    __shared__ Ring s;
-    TRing* const ts = temp_ring<TEMP>();
+    static_assert(!(HALO && TEMP), "the shard stage has no T stream");
+    static_assert(!HALO || (std::is_same<S, float>::value && !STREAMS),
+                  "the shard stage stores float and takes at most MAXK k streams");
+    static_assert(!TEMP || std::is_same<S, float>::value, "the T stream is float");
+    float* const sm = dynamic_smem();
+    constexpr int QOFF = UR * UPL;                            // the q ring
+    constexpr int TOFF = QOFF + (REBUILD ? QR * QPL : 0);    // the T ring
+    constexpr int SOFF = ring_floats<REBUILD, TEMP>();       // two staged planes
+    const Layout L = layout_of<FORCE, TEMP, STREAMS>(p);
     const int n = p.n;
+    const int lane = threadIdx.x, w = threadIdx.y, tid = w * 32 + lane;
     const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.z * XB;
-    const int z = z0 + threadIdx.x, y = y0 + threadIdx.y;
-    const bool active = z < n && y < n;  // ragged tiles still load and sync
     const int nx = min(XB, (HALO ? p.lx : n) - x0);
-    for (int r = 0; r < 3; ++r)
-        load_plane<REBUILD, FORCE, HALO, S>(p, s, r, x0 - 2 + r, y0, z0);
-    if constexpr (TEMP) {
-        for (int r = 1; r < 3; ++r) load_tplane(p, *ts, r, x0 - 2 + r, y0, z0);
-    }
-    const View u{&s, 0, (int)threadIdx.y + 2, (int)threadIdx.x + 2};
-    const TView tv{ts, 0, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
-    for (int i = 0; i < nx; ++i) {
-        // ring slot (i + 3) & 3 takes plane x + 1; the others hold x-2..x
-        load_plane<REBUILD, FORCE, HALO, S>(p, s, (i + 3) & 3, x0 + i + 1, y0, z0);
-        if constexpr (TEMP) load_tplane(p, *ts, (i + 3) & 3, x0 + i + 1, y0, z0);
-        __syncthreads();
-        if (active) {
-            View v = u;
-            v.i = i;
-            TView t = tv;
-            t.i = i;
-            const int x = x0 + i;
-            float d = component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 0>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 1>(p, v, t, x, y, z);
-            d += component<REBUILD, FORCE, TEMP, HALO, S, STREAMS, 2>(p, v, t, x, y, z);
-            p.div_out[((size_t)x * n + y) * n + z] = d * p.vol;
-            if constexpr (TEMP) temperature(p, v, t, x, y, z);
+    const Consts k = consts(p);
+    UWin wu;
+    wu.init(tid, y0 - 2, z0 - 2, n, n);
+    QWin wq;
+    if constexpr (REBUILD) wq.init(tid, y0 - 2, z0 - 2, n, n);
+    TWin wt;
+    if constexpr (TEMP) wt.init(tid, y0 - 1, z0 - 1, n, n);
+    // the thread's cells: z = z0 + lane, y = yb + r (r < RY); cells past
+    // the box's edge compute on clamped indices and store nothing
+    const int z = z0 + lane, zc = min(z, n - 1);
+    const int yb = y0 + w * RY;
+    Cells cl;
+#pragma unroll
+    for (int r = 0; r < RY; ++r) cl.row[r] = min(yb + r, n - 1) * n + zc;
+    cl.yrow = (yb == 0 ? n - 1 : min(yb, n) - 1) * n + zc;               // y-halo row
+    cl.zrow = min(yb + lane, n - 1) * n + (z0 == 0 ? n - 1 : z0 - 1);    // z-halo column
+    cl.cp0 = w * RY * TZ + lane;
+    cl.yhs = 3 * TTW + w * TZ + lane;
+    cl.zhs = 3 * TTW + NW * TZ + w * RY + lane;
+    cl.zlane = lane < RY;
+    const size_t n2 = (size_t)n * n;
+    const size_t n3 = (size_t)(HALO ? p.lx : n) * n2;
+    const int e0 = (w * RY + 2) * HZ + lane + 2;         // row 0's window elements
+    const int et0 = (w * RY + 1) * TWZ + lane + 1;
+    float ut0m[RY], g0m[RY];                             // ut_0, g_0 at x - 1
+    // Plane x0 - 2 + l (local index l) lives in u slot l % UR, q slot
+    // l % QR, T slot l % TR and staged stream plane l % SR.  Phase t copies
+    // u plane l = t, q plane t + 1 (0 too at t = 0), T plane t - 1 and the
+    // pointwise streams of plane t - 2; rebuilds u plane t - 1 (its copies
+    // landed at the end of phase t - 1) and computes plane lc = t - 3
+    // (lc = 1: the warm-up plane x0 - 1, then x0 .. x0 + nx - 1).
+    for (int t = 0; t < nx + 5; ++t) {
+        if (t <= nx + 2) stage_u<FORCE, HALO, S>(p, sm + (t % UR) * UPL, x0 - 2 + t, wu, tid);
+        if constexpr (REBUILD) {
+            if (t == 0) stage_q<FORCE, HALO>(p, sm + QOFF, x0 - 2, wq, tid);
+            if (t <= nx + 2)
+                stage_q<FORCE, HALO>(p, sm + QOFF + ((t + 1) % QR) * QPL, x0 - 1 + t, wq, tid);
         }
-        __syncthreads();  // plane x-2's slot is refilled next step
+        if constexpr (TEMP) {
+            if (t >= 2 && t <= nx + 3)
+                stage_t(p, sm + TOFF + ((t - 1) % TR) * TPL, x0 - 3 + t, wt, tid);
+        }
+        if (t >= 4 && t <= nx + 3)
+            stage_streams<FORCE, TEMP, S, STREAMS>(p, sm + SOFF + ((t - 2) % SR) * L.size, L,
+                                                   (size_t)(x0 - 4 + t) * n2, n3, cl);
+        cp_async_commit_group();
+        if constexpr (REBUILD) {
+            if (t >= 1 && t <= nx + 3)
+                rebuild(sm + ((t - 1) % UR) * UPL, sm + QOFF + ((t - 1) % QR) * QPL,
+                        sm + QOFF + (t % QR) * QPL, k, tid);
+        }
+        const int lc = t - 3;
+        if (lc >= 1) {
+            const View u{sm, {((lc - 1) % UR) * UPL, (lc % UR) * UPL, ((lc + 1) % UR) * UPL},
+                         e0};
+            const TView tv{sm + TOFF, {((lc - 1) % TR) * TPL, (lc % TR) * TPL,
+                                       ((lc + 1) % TR) * TPL},
+                           et0};
+            const int x = x0 - 2 + lc;
+            if (lc == 1) {  // the warm-up plane x0 - 1: ut_0 and g_0 only
+                // on a shard block's plane -1 the streams' lower planes,
+                // through the same code as every other plane's
+                StageParams wp = p;
+                int xw = x < 0 ? x + n : x;
+                if (HALO && x < 0) {
+                    wp.base = p.base_lo;
+                    wp.force = p.force_lo;
+#pragma unroll
+                    for (int j = 0; j < MAXK; ++j) wp.k[j] = p.k_lo[j];
+                    xw = 0;
+                }
+#pragma unroll
+                for (int r = 0; r < RY; ++r) {
+                    View v = u;
+                    v.e += r * HZ;
+                    TView T = tv;
+                    T.e += r * TWZ;
+                    float lap;
+                    ut0m[r] = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 0, false>(
+                        wp, k, v, T, (size_t)xw * n2 + cl.row[r], false, lap, nullptr, L);
+                    g0m[r] = v(0, 0, 0, 0) * lap;
+                }
+            } else {
+                const size_t pl = (size_t)x * n2;
+                const float* sb = sm + SOFF + (lc % SR) * L.size;  // this plane's streams
+                float lap;
+                // the y-halo row: ut_1 and g_1 at (x, y - 1) of row 0
+                View vh = u;
+                vh.e -= HZ;
+                TView th = tv;
+                th.e -= TWZ;
+                float ut1m = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 1, true>(
+                    p, k, vh, th, n3 + pl + cl.yrow, false, lap, sb + cl.yhs, L);
+                float g1m = vh(1, 0, 0, 0) * lap;
+                // the z-halo column: ut_2 and g_2 at (x, yb + lane, z0 - 1), lanes < RY
+                float hut = 0.0f, hg = 0.0f;
+                if (cl.zlane) {
+                    View vz = u;
+                    vz.e += lane * HZ - lane - 1;
+                    TView tz = tv;
+                    tz.e += lane * TWZ - lane - 1;
+                    hut = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 2, true>(
+                        p, k, vz, tz, 2 * n3 + pl + cl.zrow, false, lap, sb + cl.zhs, L);
+                    hg = vz(2, 0, 0, 0) * lap;
+                }
+#pragma unroll
+                for (int r = 0; r < RY; ++r) {
+                    View v = u;
+                    v.e += r * HZ;
+                    TView T = tv;
+                    T.e += r * TWZ;
+                    const bool act = yb + r < n && z < n;
+                    const size_t c = pl + cl.row[r];
+                    const float* sc = sb + cl.cp0 + r * TZ;
+                    float l0, l1, l2;
+                    const float ut0 = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 0, true>(
+                        p, k, v, T, c, act, l0, sc, L);
+                    const float ut1 = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 1, true>(
+                        p, k, v, T, n3 + c, act, l1, sc + TTW, L);
+                    const float ut2 = cell_ut<REBUILD, FORCE, TEMP, S, STREAMS, 2, true>(
+                        p, k, v, T, 2 * n3 + c, act, l2, sc + 2 * TTW, L);
+                    float ut2m = __shfl_up_sync(FULL, ut2, 1);
+                    const float h2 = __shfl_sync(FULL, hut, r);
+                    if (lane == 0) ut2m = h2;
+                    const float d = (ut0 - ut0m[r]) * k.rdx[0] + (ut1 - ut1m) * k.rdx[1] +
+                                    (ut2 - ut2m) * k.rdx[2];
+                    if (act) p.div_out[c] = d * p.vol;
+                    if constexpr (TEMP) {
+                        const float g[3] = {v(0, 0, 0, 0) * l0, v(1, 0, 0, 0) * l1,
+                                            v(2, 0, 0, 0) * l2};
+                        float g2m = __shfl_up_sync(FULL, g[2], 1);
+                        const float hg2 = __shfl_sync(FULL, hg, r);
+                        if (lane == 0) g2m = hg2;
+                        const float gm[3] = {g0m[r], g1m, g2m};
+                        if (act) temperature(p, k, v, T, c, g, gm, sc, L);
+                        g0m[r] = g[0];
+                        g1m = g[1];
+                    }
+                    ut0m[r] = ut0;
+                    ut1m = ut1;
+                }
+            }
+        }
+        cp_async_wait_all();
+        __syncthreads();
     }
 }
+
+// Launch one instantiation on the cube (or the shard block's) grid.
+template <bool REBUILD, bool FORCE, bool TEMP, bool HALO, class S = float,
+          bool STREAMS = false>
+cudaError_t launch(const StageParams& p, int nx, cudaStream_t stream) {
+    const auto kernel = stage_kernel<REBUILD, FORCE, TEMP, HALO, S, STREAMS>;
+    const size_t smem = sizeof(float) * (ring_floats<REBUILD, TEMP>() +
+                                         SR * layout_of<FORCE, TEMP, STREAMS>(p).size);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    const int n = p.n;
+    const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (nx + XB - 1) / XB);
+    kernel<<<grid, dim3(32, NW), smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const StageParams&, int, cudaStream_t);
 
 }  // namespace
 
@@ -531,7 +803,7 @@ static int launch_stage(const float* u, const float* q, const float* base,
                         const void* ktable, cudaStream_t stream) {
     constexpr bool F32 = std::is_same<S, float>::value;
     const bool many = m > MAXK;
-    if (m < 0 || (many && (!ktable || q || T))) return (int)cudaErrorInvalidValue;
+    if (n < 1 || m < 0 || (many && (!ktable || q || T))) return (int)cudaErrorInvalidValue;
     if (T && (!F32 || gdir < 0 || gdir > 2 || !temp_out || (with_usnew && !tempnew_out) ||
               m != 0))
         return (int)cudaErrorInvalidValue;
@@ -575,35 +847,26 @@ static int launch_stage(const float* u, const float* q, const float* base,
     p.alpha4 = alpha4;
     p.dis = dis;
     p.with_dis = with_dis;
-    const dim3 block(TZ, TY);
-    const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (n + XB - 1) / XB);
-    // the force and temperature streams, the storage type and the many
-    // streams are template flags, so the float stage without them
-    // compiles exactly as before they existed
-    using Kernel = void (*)(const StageParams);
-    Kernel kernel;
+    Launch run;
     if (many) {
-        kernel = force ? stage_kernel<false, true, false, false, S, true>
-                       : stage_kernel<false, false, false, false, S, true>;
+        run = force ? launch<false, true, false, false, S, true>
+                    : launch<false, false, false, false, S, true>;
     } else if constexpr (F32) {
-        const Kernel kernels[2][2][2] = {
-            {{stage_kernel<false, false, false, false>, stage_kernel<false, false, true, false>},
-             {stage_kernel<false, true, false, false>, stage_kernel<false, true, true, false>}},
-            {{stage_kernel<true, false, false, false>, stage_kernel<true, false, true, false>},
-             {stage_kernel<true, true, false, false>, stage_kernel<true, true, true, false>}},
+        const Launch runs[2][2][2] = {
+            {{launch<false, false, false, false>, launch<false, false, true, false>},
+             {launch<false, true, false, false>, launch<false, true, true, false>}},
+            {{launch<true, false, false, false>, launch<true, false, true, false>},
+             {launch<true, true, false, false>, launch<true, true, true, false>}},
         };
-        kernel = kernels[q != nullptr][force != nullptr][T != nullptr];
+        run = runs[q != nullptr][force != nullptr][T != nullptr];
     } else {
-        const Kernel kernels[2][2] = {
-            {stage_kernel<false, false, false, false, S>,
-             stage_kernel<false, true, false, false, S>},
-            {stage_kernel<true, false, false, false, S>,
-             stage_kernel<true, true, false, false, S>},
+        const Launch runs[2][2] = {
+            {launch<false, false, false, false, S>, launch<false, true, false, false, S>},
+            {launch<true, false, false, false, S>, launch<true, true, false, false, S>},
         };
-        kernel = kernels[q != nullptr][force != nullptr];
+        run = runs[q != nullptr][force != nullptr];
     }
-    kernel<<<grid, block, 0, stream>>>(p);
-    return (int)cudaGetLastError();
+    return (int)run(p, n, stream);
 }
 
 #define INS_STAGE_ARGS                                                                      \
@@ -646,7 +909,7 @@ extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float
                                   float* div_out, int lx, int n, float visc, float dx0,
                                   float dx1, float dx2, float vol, const float* force,
                                   const float* force_lo, int glo, int ghi, void* stream) {
-    if (m < 0 || m > MAXK || lx < 1 || !u_lo || !u_hi) return (int)cudaErrorInvalidValue;
+    if (n < 1 || m < 0 || m > MAXK || lx < 1 || !u_lo || !u_hi) return (int)cudaErrorInvalidValue;
     if (q && (!q_lo || !q_hi)) return (int)cudaErrorInvalidValue;
     if (base && !base_lo) return (int)cudaErrorInvalidValue;
     if (!force != !force_lo) return (int)cudaErrorInvalidValue;
@@ -688,13 +951,9 @@ extern "C" int ins_stage_halo_f32(const float* u, const float* u_lo, const float
     p.force_lo = force_lo;
     p.glo = glo;
     p.ghi = ghi;
-    const dim3 block(TZ, TY);
-    const dim3 grid((n + TZ - 1) / TZ, (n + TY - 1) / TY, (lx + XB - 1) / XB);
-    using Kernel = void (*)(const StageParams);
-    const Kernel kernels[2][2] = {
-        {stage_kernel<false, false, false, true>, stage_kernel<false, true, false, true>},
-        {stage_kernel<true, false, false, true>, stage_kernel<true, true, false, true>},
+    const Launch runs[2][2] = {
+        {launch<false, false, false, true>, launch<false, true, false, true>},
+        {launch<true, false, false, true>, launch<true, true, false, true>},
     };
-    kernels[q != nullptr][force != nullptr]<<<grid, block, 0, (cudaStream_t)stream>>>(p);
-    return (int)cudaGetLastError();
+    return (int)runs[q != nullptr][force != nullptr](p, lx, (cudaStream_t)stream);
 }
