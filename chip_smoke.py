@@ -12,6 +12,16 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # LES and Boussinesq chains'
                                       # ms/step, the package of the tree
                                       # DIR and this one's, in turns
+    python3 chip_smoke.py --train-turns DIR   # only phase 3's 128³
+                                      # gradient step with float32 convs
+                                      # (s/step, conv share), the package
+                                      # of the tree DIR and this one's,
+                                      # in turns
+    python3 chip_smoke.py --conv-turns DIR    # only the fused conv
+                                      # layer's float32 kernels at 128³
+                                      # (three layers: forward, dh, dw),
+                                      # the package of the tree DIR and
+                                      # this one's, in turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -45,18 +55,24 @@ Phases, each raising on failure (exit code != 0, no result line):
    run's 3-pass Poisson solve `make_poisson_pallas` are held against
    their plain versions at 64³ and 128³ the same way, and timed at
    128³, the solve also against `make_poisson_mm`'s contractions.  The
-   fused conv layer runs on the tensor cores for bf16 operands
-   (`fusedconv_3d`, `fusedconv_wgrad_3d`) and on the FP32 FMA kernels for
-   float32 ones (`+f32`): the closure's three layers and the three
-   input-gradient forms (flipped, transposed taps) at k = 5 on the cube
-   in both routes, and on the tensor cores also at k = 3, 5 and 7 on the
-   ragged box (n/2, n - 24, n + 8), with two wider layers there (40 -> 40
-   at k = 3: two input chunks and two output blocks; 16 -> 13 at k = 5),
-   each with a bf16 and a float32 output, against the plain version in
-   float64 (the kernels differ from the plain version on the same
-   rounded operands only in summation order: 1e-4 relative, one bf16 ulp
-   for a bf16 output); the weight gradients against the plain version in
-   float64, and two calls of the bf16 one bit-identical.  The
+   fused conv layer runs on the tensor cores in both routes: bf16 operands
+   (`fusedconv_3d`, `fusedconv_wgrad_3d`) in bf16, float32 ones (`+f32`)
+   in 3xTF32: the closure's three layers and the three input-gradient
+   forms (flipped, transposed taps) at k = 5 on the cube, and at k = 3, 5
+   and 7 on the ragged box (n/2, n - 24, n + 8), with two wider layers
+   there (40 -> 40 at k = 3: two input chunks and two output blocks; 16
+   -> 13 at k = 5), each with a bf16 and a float32 output, against the
+   plain version in float64 (bf16 operands: the kernels differ from the
+   plain version on the same rounded operands only in summation order:
+   1e-4 relative, one bf16 ulp for a bf16 output; float32 operands: a
+   float32 output within 1e-5 of the float64 version and 1e-4 of the
+   float32 one, which is cuDNN with TF32 off, a bf16 output one bf16 ulp
+   and, near zero, 1e-5 of its largest value);
+   the weight gradients against the plain version in float64 (float32
+   operands: 1e-5, and 1e-4 of the float32 plain version), and two calls
+   of either route bit-identical.  Every cube case is timed beside its
+   bound (float32 operands: three TF32 products a multiply-add at the
+   TF32 peak) and cuDNN (float32 operands: with TF32 off and on).  The
    solve gate: `make_poisson_pallas` against `make_poisson_mm` at 64³,
    128³ and 256³ (held against each other; wall ms per solve in turns and
    device ms per solve from torch.profiler), printed beside the solve the
@@ -75,12 +91,15 @@ Phases, each raising on failure (exit code != 0, no result line):
    respect to the CNN parameters.  With float32 convs the kernel run's
    loss and gradient agree with the plain run on the card (loss
    relative <= 1e-5, each leaf's gradient relative L2 <= 1e-3) and its
-   convolutions take the FMA kernels alone (`fusedconv_3d+f32`,
-   `fusedconv_wgrad_3d+f32`); with the default bf16 convs the run is
-   finite, launches every training kernel (the tensor-core convs, none
-   of the `+f32` ones) and no plain version on the card, and its
-   gradient agrees with the plain bf16 run to relative L2 <= 1e-2.  Then seconds per
-   gradient step (kernels and plain in turns) and peak memory, three
+   convolutions take the 3xTF32 kernels alone (`fusedconv_3d+f32`,
+   `fusedconv_wgrad_3d+f32`); then its seconds per gradient step
+   (kernels and plain in turns) and peak memory.  With the default bf16
+   convs the run is finite, launches every training kernel (the bf16
+   tensor-core convs, none of the `+f32` ones) and no plain version on
+   the card, and its gradient agrees with the plain bf16 run to relative
+   L2 <= 1e-2.  Then seconds per gradient step (kernels and plain in
+   turns) and peak memory; with --profile the kernel-time breakdown of
+   one step with each route's convs.  Then three
    Adam `train` iterations (finite losses) and a 10-step
    `solve_unsteady` with the closure attached (finite, divergence-free
    under phase 2's bounds, the 3-pass Poisson solve launched 4 times a
@@ -273,6 +292,9 @@ HALO_RAGGED_N = 52
 # the plane transform (3xTF32) against the float64 product: the float32
 # class, max|Δ| <= 1e-6·max|ref| (one TF32 pass is ~3e-4 off)
 TF32_CLASS_TOL = 1e-6
+# the fused conv layer's 3xTF32 kernels against the float64 plain version
+# (sums of up to 3000 split products a cell; ~2e-6 at 128³ on an H100)
+CONV_TF32_TOL = 1e-5
 SEED = 20261016
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
@@ -346,11 +368,12 @@ def abs_err(got, ref):
     return (got - ref).abs().max().item()
 
 
-def ulp_ratio(got, ref):
-    """max |got - ref| / (2^-7·|ref| + 1e-6·max|ref|) elementwise: <= 1
-    where a bf16 output is within one bf16 ulp of its reference."""
+def ulp_ratio(got, ref, floor=1e-6):
+    """max |got - ref| / (2^-7·|ref| + floor·max|ref|) elementwise: <= 1
+    where a bf16 output is within one bf16 ulp of its reference (and,
+    near zero, within `floor` of its largest value)."""
     ref = ref.float()
-    bound = BF16_ULP * ref.abs() + 1e-6 * ref.abs().max()
+    bound = BF16_ULP * ref.abs() + floor * ref.abs().max()
     return ((got.float() - ref).abs() / bound.clamp_min(1e-30)).max().item()
 
 
@@ -386,8 +409,10 @@ class Case(NamedTuple):
     ``time=False`` leaves the case out of the timings.  ``tol`` bounds a
     float output's relative error against ``ref`` (or the plain version);
     ``plain_tol``, where given with ``ref``, also bounds the kernel against
-    the plain version; ``library_tf32`` is ``library`` with TF32 matmuls
-    allowed (PyTorch's "high" precision), timed beside it."""
+    the plain version; ``ulp_floor`` is the absolute part of a bf16
+    output's one-ulp bound, relative to its largest value (`ulp_ratio`);
+    ``library_tf32`` is ``library`` with TF32 allowed (PyTorch's "high"
+    matmul precision, cuDNN's TF32 convolutions), timed beside it."""
 
     label: str
     kfn: Any
@@ -401,6 +426,7 @@ class Case(NamedTuple):
     time: bool = True
     tol: float = REL_TOL
     plain_tol: Any = None
+    ulp_floor: float = 1e-6
     library_tf32: Any = None
 
 
@@ -646,15 +672,16 @@ def kernel_cases(n):
 
 
 def with_tf32(fn):
-    """fn with TF32 matmuls allowed (PyTorch's "high" float32 precision)."""
+    """fn with TF32 allowed in matmuls (PyTorch's "high" float32
+    precision) and in cuDNN's convolutions."""
     import torch
 
     def run():
-        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
         try:
             return fn()
         finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 
     return run
 
@@ -790,35 +817,51 @@ def training_kernel_cases(n):
              library=lambda: solve_mm(f)),
     ]
     # the closure's layers: (cin, cout, act, bias); k = 5.  bf16 operands
-    # run the tensor-core kernels, float32 ones the FMA kernels ("+f32")
+    # run the bf16 tensor-core kernels, float32 ones the 3xTF32 kernels
+    # ("+f32"), bound by three TF32 products a multiply-add; those are held
+    # against the plain version in float64 (the float32 class) and within
+    # 1e-4 of the float32 one (cuDNN, TF32 off), and cuDNN is timed with
+    # TF32 off and on
     for dtype in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        peak = "bf16" if dtype == torch.bfloat16 else "fp32"
-        sfx = "" if dtype == torch.bfloat16 else "+f32"
+        f32 = dtype == torch.float32
+        tag, sfx = ("f32", "+f32") if f32 else ("bf16", "")
+        peak, tf32_ops = ("tf32", 3) if f32 else ("bf16", 1)
         for cin, cout, act, has_bias in CONV_LAYERS:
             h = field(n, n, n, cin).to(dtype)
             w = field(5, 5, 5, cin, cout, scale=(125 * cin) ** -0.5)
             b = field(cout, scale=0.1) if has_bias else None
             d = field(n, n, n, cout).to(dtype)
-            conv_ops = 2 * 125 * cin * cout * cells
+            wf = ck.flip_taps(w)
+            ops = tf32_ops * 2 * 125 * cin * cout * cells
 
             # the library yardsticks: cuDNN on the circularly padded input in
-            # the operands' dtype (the pad made once, outside the timing)
-            hp = F.pad(h.permute(3, 0, 1, 2).unsqueeze(0), (2,) * 6, mode="circular")
-            wt = w.permute(4, 3, 0, 1, 2).to(dtype).contiguous()
+            # the operands' dtype (the pads made once, outside the timing)
+            hp, dp = (F.pad(t.permute(3, 0, 1, 2).unsqueeze(0), (2,) * 6, mode="circular")
+                      for t in (h, d))
+            wt, wft = (t.permute(4, 3, 0, 1, 2).to(dtype).contiguous() for t in (w, wf))
             bt = None if b is None else b.to(dtype)
             dt_ = d.permute(3, 0, 1, 2).unsqueeze(0)
+
+            def lib(fn):
+                return dict(library=fn, library_tf32=with_tf32(fn) if f32 else None)
+
+            def exact(fn):  # the float64 reference of a float32 case
+                return dict(ref=fn, tol=CONV_TF32_TOL, plain_tol=REL_TOL) if f32 else {}
 
             cases["fusedconv_3d" + sfx] += [
                 Case(f"{cin}->{cout} {act}{'+bias' if has_bias else ''} {tag}",
                      conv_fwd(ck.fusedconv_3d, h, w, b, act),
                      conv_fwd(ck.fusedconv_3d_plain, h, w, b, act),
-                     inputs=(h, w, b), ops=conv_ops, peak=peak,
-                     library=lambda hp=hp, wt=wt, bt=bt: F.conv3d(hp, wt, bt)),
+                     inputs=(h, w, b), ops=ops, peak=peak,
+                     **lib(lambda hp=hp, wt=wt, bt=bt: F.conv3d(hp, wt, bt)),
+                     **exact(conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, exact=True))),
                 # the input gradient the backward pass takes
                 Case(f"dh {cout}->{cin} flipped taps {tag}",
-                     conv_fwd(ck.fusedconv_3d, d, ck.flip_taps(w)),
-                     conv_fwd(ck.fusedconv_3d_plain, d, ck.flip_taps(w))),
+                     conv_fwd(ck.fusedconv_3d, d, wf),
+                     conv_fwd(ck.fusedconv_3d_plain, d, wf),
+                     inputs=(d, wf), ops=ops, peak=peak,
+                     **lib(lambda dp=dp, wft=wft: F.conv3d(dp, wft)),
+                     **exact(conv_fwd(ck.fusedconv_3d_plain, d, wf, exact=True))),
             ]
             # cuDNN's float32 weight gradient (the plain version's) is itself
             # ~7e-5 off the float64 sum at 128³, so the kernel is held
@@ -827,42 +870,53 @@ def training_kernel_cases(n):
                 Case(f"dw {cin}x{cout} {tag}", conv_wgrad(ck.fusedconv_wgrad_3d, h, d, 5),
                      conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, 5),
                      ref=conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, 5, exact=True),
-                     inputs=(h, d), ops=conv_ops, peak=peak,
-                     library=lambda hp=hp, dt_=dt_, cin=cin, cout=cout:
-                         torch.nn.grad.conv3d_weight(hp, (cout, cin, 5, 5, 5), dt_)),
+                     inputs=(h, d), ops=ops, peak=peak,
+                     **lib(lambda hp=hp, dt_=dt_, cin=cin, cout=cout:
+                           torch.nn.grad.conv3d_weight(hp, (cout, cin, 5, 5, 5), dt_)),
+                     **(dict(tol=CONV_TF32_TOL, plain_tol=REL_TOL) if f32 else {})),
             ]
-    # the tensor-core kernels at every k on the ragged box, the three layers
-    # and their input-gradient forms (and wider layers: two input chunks and
-    # two output blocks; 16-channel chunks and two n8 tiles), with a bf16 and
-    # a float32 output, held against the plain version in float64 (rounded
+    # both routes at every k on the ragged box, the three layers and their
+    # input-gradient forms (and wider layers: two input chunks and two
+    # output blocks; 16-channel chunks and two n8 tiles), with a bf16 and a
+    # float32 output, held against the plain version in float64 (rounded
     # to the output's dtype): cuDNN's float32 sum is itself off by more than
-    # a bf16 ulp of the small outputs at k = 5 and 7
+    # a bf16 ulp of the small outputs at k = 5 and 7.  Float32 operands: a
+    # float32 output within 1e-5 of it and 1e-4 of the float32 plain
+    # version; a bf16 output within one bf16 ulp plus 1e-5 of max|ref| (the
+    # float32 class: near zero a sum of 8232 products at k = 7 rounds either
+    # way, as the float32 plain version's does)
     ragged = [(k, layer) for k in (3, 5, 7) for layer in CONV_LAYERS] + [
         (3, (40, 40, "tanh", True)), (5, (16, 13, "id", False))]
-    for k, (cin, cout, act, has_bias) in ragged:
-        h, w, b, d = conv_operands(field, box, cin, cout, k, has_bias)
-        wf = ck.flip_taps(w)
-        for odt in (torch.bfloat16, torch.float32):
-            otag = "bf16" if odt == torch.bfloat16 else "f32"
-            cases["fusedconv_3d"] += [
-                Case(f"{cin}->{cout} k={k} box {box} out {otag}",
-                     conv_fwd(ck.fusedconv_3d, h, w, b, act, odt),
-                     conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt),
-                     ref=conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt, exact=True),
-                     time=False),
-                Case(f"dh {cout}->{cin} k={k} box {box} out {otag}",
-                     conv_fwd(ck.fusedconv_3d, d, wf, out_dtype=odt),
-                     conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt),
-                     ref=conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt, exact=True),
-                     time=False),
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "+f32" if dtype == torch.float32 else ""
+        for k, (cin, cout, act, has_bias) in ragged:
+            h, w, b, d = conv_operands(field, box, cin, cout, k, has_bias, dtype)
+            wf = ck.flip_taps(w)
+            for odt in (torch.bfloat16, torch.float32):
+                otag = "bf16" if odt == torch.bfloat16 else "f32"
+                tols = {} if not sfx else (dict(tol=CONV_TF32_TOL, plain_tol=REL_TOL)
+                                           if odt == torch.float32
+                                           else dict(ulp_floor=CONV_TF32_TOL))
+                cases["fusedconv_3d" + sfx] += [
+                    Case(f"{cin}->{cout} k={k} box {box} out {otag}",
+                         conv_fwd(ck.fusedconv_3d, h, w, b, act, odt),
+                         conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt),
+                         ref=conv_fwd(ck.fusedconv_3d_plain, h, w, b, act, odt, exact=True),
+                         time=False, **tols),
+                    Case(f"dh {cout}->{cin} k={k} box {box} out {otag}",
+                         conv_fwd(ck.fusedconv_3d, d, wf, out_dtype=odt),
+                         conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt),
+                         ref=conv_fwd(ck.fusedconv_3d_plain, d, wf, out_dtype=odt, exact=True),
+                         time=False, **tols),
+                ]
+            cases["fusedconv_wgrad_3d" + sfx] += [
+                Case(f"dw {cin}x{cout} k={k} box {box}",
+                     conv_wgrad(ck.fusedconv_wgrad_3d, h, d, k),
+                     conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k),
+                     ref=conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k, exact=True),
+                     time=False,
+                     **(dict(tol=CONV_TF32_TOL, plain_tol=REL_TOL) if sfx else {})),
             ]
-        cases["fusedconv_wgrad_3d"] += [
-            Case(f"dw {cin}x{cout} k={k} box {box}",
-                 conv_wgrad(ck.fusedconv_wgrad_3d, h, d, k),
-                 conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k),
-                 ref=conv_wgrad(ck.fusedconv_wgrad_3d_plain, h, d, k, exact=True),
-                 time=False),
-        ]
     return cases
 
 
@@ -870,15 +924,17 @@ def training_kernel_cases(n):
 CONV_LAYERS = ((24, 24, "tanh", True), (3, 24, "tanh", True), (24, 3, "id", False))
 
 
-def conv_operands(field, box, cin, cout, k, has_bias):
-    """(h, w, b, d) of a (cin -> cout, k) layer on `box`: h and d bf16, w
-    and b float32, w scaled by 1/sqrt(fan-in)."""
+def conv_operands(field, box, cin, cout, k, has_bias, dtype=None):
+    """(h, w, b, d) of a (cin -> cout, k) layer on `box`: h and d in
+    `dtype` (bf16 by default), w and b float32, w scaled by
+    1/sqrt(fan-in)."""
     import torch
 
-    h = field(*box, cin).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    h = field(*box, cin).to(dtype)
     w = field(k, k, k, cin, cout, scale=(k**3 * cin) ** -0.5)
     b = field(cout, scale=0.1) if has_bias else None
-    return h, w, b, field(*box, cout).to(torch.bfloat16)
+    return h, w, b, field(*box, cout).to(dtype)
 
 
 def conv_fwd(impl, h, w, b=None, act=None, out_dtype=None, exact=False):
@@ -902,8 +958,9 @@ def conv_wgrad(impl, h, d, k, exact=False):
 
 
 def check_wgrad_repeatable(n):
-    """Two calls of the bf16 weight-gradient kernel give the same bits, on
-    the cube at k = 5 and on the ragged box at k = 3, 5 and 7."""
+    """Two calls of the weight-gradient kernel give the same bits, for bf16
+    and float32 operands, on the cube at k = 5 and on the ragged box at k =
+    3, 5 and 7."""
     import torch
 
     from ins_tpu_torch.ops import conv_kernels as ck
@@ -915,18 +972,19 @@ def check_wgrad_repeatable(n):
         return torch.from_numpy(a).to(DEVICE)
 
     box = (n // 2, n - 24, n + 8)
-    for shape, ks in (((n, n, n), (5,)), (box, (3, 5, 7))):
-        for k in ks:
-            for cin, cout, _, _ in CONV_LAYERS:
-                h, _, _, d = conv_operands(field, shape, cin, cout, k, False)
-                first = ck.fusedconv_wgrad_3d(h, d, k)
-                second = ck.fusedconv_wgrad_3d(h, d, k)
-                if not torch.equal(first, second):
-                    diff = (first - second).abs().max().item()
-                    fail(f"fusedconv_wgrad_3d {cin}x{cout} k={k} on {shape}: two calls differ "
-                         f"by {diff:.3e}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, ks in (((n, n, n), (5,)), (box, (3, 5, 7))):
+            for k in ks:
+                for cin, cout, _, _ in CONV_LAYERS:
+                    h, _, _, d = conv_operands(field, shape, cin, cout, k, False, dtype)
+                    first = ck.fusedconv_wgrad_3d(h, d, k)
+                    second = ck.fusedconv_wgrad_3d(h, d, k)
+                    if not torch.equal(first, second):
+                        diff = (first - second).abs().max().item()
+                        fail(f"fusedconv_wgrad_3d {cin}x{cout} k={k} {dtype} on {shape}: two "
+                             f"calls differ by {diff:.3e}")
     print(f"[kernels] n={n} fusedconv_wgrad_3d: two calls bit-identical on {(n,) * 3} (k=5) "
-          f"and on {box} (k=3, 5, 7), each layer")
+          f"and on {box} (k=3, 5, 7), each layer, bf16 and float32 operands")
 
 
 def conv_gflop(label, n):
@@ -960,7 +1018,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                          f"gives {[p.dtype for p in ref]}")
                 # a bf16 output: within one bf16 ulp elementwise (ratio to it <= 1)
                 bf = [g.dtype == torch.bfloat16 for g in got]
-                errs = [ulp_ratio(g, p) if b else rel_err(g.to(p.dtype), p)
+                errs = [ulp_ratio(g, p, c.ulp_floor) if b else rel_err(g.to(p.dtype), p)
                         for g, p, b in zip(got, ref, bf)]
                 if c.derived:
                     errs += [rel_err(g, p) for g, p in zip(c.derived(got), c.derived(ref))]
@@ -975,7 +1033,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
 
                     def off(a, p):  # bf16 ulps for a bf16 output, else relative
                         if p.dtype == torch.bfloat16:
-                            return f"{ulp_ratio(a, p):.3f} bf16 ulp"
+                            return f"{ulp_ratio(a, p, c.ulp_floor):.3f} bf16 ulp"
                         return f"{rel_err(a.to(p.dtype), p):.3e}"
 
                     extra = ("; the float32 plain version is off that reference by "
@@ -1268,6 +1326,65 @@ def value_and_grad(loss, data, theta):
     return value.detach(), dict(zip(theta, grads))
 
 
+def training_data(setup, nunroll):
+    """Phase 3's trajectory: `random_field(kp=5)` from a fixed seed, scaled
+    down 1 % a step over nunroll + 1 snapshots."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
+    return u0, [{"u": torch.stack([u0 * (1.0 - 0.01 * i) for i in range(nunroll + 1)]),
+                 "t": torch.arange(nunroll + 1, dtype=torch.float64) * 5e-4}]
+
+
+def step_turns(tag, runs, data):
+    """Seconds per gradient step and peak memory of the `runs` {name:
+    (loss, theta)} in turns (a, b, b, a); prints them, returns {name: s}."""
+    import torch
+
+    names = list(runs)
+    times, peak = {k: [] for k in names}, {}
+    for which in names + names[::-1]:
+        lo, th = runs[which]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value_and_grad(lo, data, th)
+        times[which].append(time.perf_counter() - t0)
+        peak[which] = torch.cuda.max_memory_allocated() / 2**30
+    mean = {k: sum(v) / 2 for k, v in times.items()}
+    print(f"[train] {card_line()}: s/gradient step, {tag}: " + ", ".join(
+        f"{k} {mean[k]:.4f} ({times[k][0]:.4f}, {times[k][1]:.4f})" for k in names)
+        + "; peak memory " + ", ".join(f"{k} {peak[k]:.2f} GiB" for k in names))
+    return mean
+
+
+# the fused conv layer's kernels (forward and dh, weight gradient and its
+# fixed-order sum of partials) by name, both routes and the FP32 FMA
+# kernels of trees before the 3xTF32 route
+CONV_KERNEL_NAMES = ("conv_fwd", "wgrad_kernel", "wgrad_mma", "wgrad_tf32", "reduce_partials")
+
+
+def profile_step(loss, data, theta):
+    """(unprofiled wall s, kernel s, fused-conv kernel s, key_averages) of
+    one gradient step, after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    value_and_grad(loss, data, theta)
+    t0 = time.perf_counter()
+    value_and_grad(loss, data, theta)
+    wall = time.perf_counter() - t0  # without the profiler's host overhead
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        value_and_grad(loss, data, theta)
+    events = prof.key_averages()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in cuda) / 1e6
+    conv = sum(e.self_device_time_total for e in cuda
+               if any(s in e.key for s in CONV_KERNEL_NAMES)) / 1e6
+    return wall, dev, conv, events
+
+
 def phase_training(n, nunroll):
     import torch
 
@@ -1277,17 +1394,16 @@ def phase_training(n, nunroll):
     from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N, strip_ghosts
 
     setup = training_setup(n)
-    u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
-    data = [{"u": torch.stack([u0 * (1.0 - 0.01 * i) for i in range(nunroll + 1)]),
-             "t": torch.arange(nunroll + 1, dtype=torch.float64) * 5e-4}]
+    u0, data = training_data(setup, nunroll)
     print(f"[train] {n}^3 RK44 Re=2000, CNN (2,2,2)/(24,24,3), {nunroll} unrolled "
           f"steps with remat")
 
-    # 1. float32 convs (the FMA kernels, "+f32"): kernel run against the
+    # 1. float32 convs (the 3xTF32 kernels, "+f32"): kernel run against the
     # plain run on the card
-    runs = {}
+    runs, f32_runs = {}, {}
     for plain in (False, True):
         _, theta, loss = build_training(setup, compute_dtype=torch.float32, plain=plain)
+        f32_runs["plain" if plain else "kernels"] = (loss, theta)
         launches.reset_counts()
         t0 = time.perf_counter()
         runs[plain] = value_and_grad(loss, data, theta)
@@ -1298,7 +1414,7 @@ def phase_training(n, nunroll):
     print(f"[train] f32 convs, kernels: conv launches {f32_counts}")
     if any(f32_counts[k] <= 0 for k in F32_CONV_KERNELS) or any(
             f32_counts[k] for k in CONV_KEYS if k not in F32_CONV_KERNELS):
-        fail(f"the float32 run did not take the FMA conv kernels alone: {f32_counts}")
+        fail(f"the float32 run did not take the 3xTF32 conv kernels alone: {f32_counts}")
     (lk, gk), (lp, gp) = runs[False], runs[True]
     lrel = abs(lk.item() - lp.item()) / abs(lp.item())
     grel = {k: rel_l2(gk[k], gp[k]) for k in gk}
@@ -1309,6 +1425,8 @@ def phase_training(n, nunroll):
         fail(f"f32 loss: kernels vs plain {lrel:.3e} > {LOSS_TOL_F32}")
     if not all(math.isfinite(v) and v <= GRAD_TOL_F32 for v in grel.values()):
         fail(f"f32 gradient: kernels vs plain {grel} > {GRAD_TOL_F32}")
+    step_turns("f32 convs", f32_runs, data)
+    del runs, f32_runs
 
     # 2. the default bf16 convs: the slice's main path
     _, theta, loss = build_training(setup)
@@ -1339,21 +1457,7 @@ def phase_training(n, nunroll):
         fail(f"bf16 gradient: kernels vs plain {grel} > {GRAD_TOL_BF16}")
 
     # 3. seconds per gradient step, in turns, and peak memory
-    times = {"plain": [], "kernels": []}
-    peak = {}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        lo, th = (loss_p, theta_p) if which == "plain" else (loss, theta)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        value_and_grad(lo, data, th)
-        times[which].append(time.perf_counter() - t0)
-        peak[which] = torch.cuda.max_memory_allocated() / 2**30
-    sk = sum(times["kernels"]) / 2
-    sp = sum(times["plain"]) / 2
-    print(f"[train] s/gradient step, bf16 convs: kernels {sk:.4f} "
-          f"({times['kernels'][0]:.4f}, {times['kernels'][1]:.4f}), plain {sp:.4f} "
-          f"({times['plain'][0]:.4f}, {times['plain'][1]:.4f}); peak memory kernels "
-          f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
+    step_turns("bf16 convs", {"plain": (loss_p, theta_p), "kernels": (loss, theta)}, data)
 
     # 4. three Adam iterations
     dataloader = nc.create_dataloader_post(data, ntrajectory=1, nunroll=nunroll)
@@ -1399,35 +1503,22 @@ def phase_training(n, nunroll):
 
 
 def phase_profile_training(n, nunroll):
-    """Kernel-time breakdown of one bf16 gradient step (torch.profiler)."""
+    """Kernel-time breakdown of one gradient step with bf16 convs and one
+    with float32 convs (torch.profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import ins_tpu_torch as it
 
     setup = training_setup(n)
-    u0 = it.random_field(setup, kp=5, generator=torch.Generator(device=DEVICE).manual_seed(3))
-    data = [{"u": torch.stack([u0 * (1.0 - 0.01 * i) for i in range(nunroll + 1)]),
-             "t": torch.arange(nunroll + 1, dtype=torch.float64) * 5e-4}]
-    _, theta, loss = build_training(setup)
-    value_and_grad(loss, data, theta)
-    t0 = time.perf_counter()
-    value_and_grad(loss, data, theta)
-    wall = time.perf_counter() - t0  # without the profiler's host overhead
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        value_and_grad(loss, data, theta)
-    events = prof.key_averages()
-    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in cuda) / 1e6
-    # the fused conv layer's kernels: forward (also dh), weight gradient and
-    # its fixed-order sum of partials
-    conv = sum(e.self_device_time_total for e in cuda
-               if any(s in e.key for s in ("conv_fwd", "wgrad_kernel", "wgrad_mma",
-                                           "reduce_partials"))) / 1e6
-    print(f"[profile] one bf16 gradient step: {wall:.3f} s wall (unprofiled), "
-          f"{dev:.3f} s of kernel time (profiled); idle share {max(0.0, 1 - dev / wall):.3f}; "
-          f"fused conv kernels {conv:.3f} s ({conv / dev:.3f} of the kernel time)")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=20))
+    _, data = training_data(setup, nunroll)
+    for tag, cdt in (("bf16", None), ("f32", torch.float32)):
+        _, theta, loss = build_training(setup, compute_dtype=cdt)
+        wall, dev, conv, events = profile_step(loss, data, theta)
+        print(f"[profile] one {tag} gradient step: {wall:.3f} s wall (unprofiled), "
+              f"{dev:.3f} s of kernel time (profiled); idle share "
+              f"{max(0.0, 1 - dev / wall):.3f}; fused conv kernels {conv:.3f} s "
+              f"({conv / dev:.3f} of the kernel time)")
+        print(events.table(sort_by="self_cuda_time_total", row_limit=20))
+        del theta, loss, events
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -3437,14 +3528,7 @@ def stack_turns(parent):
     """The stack's ms and peak memory (`tap_stack_times`, pack and tap
     forms, bf16 and float32 convs, at 128³) of the package in the tree `parent` and of this tree's,
     each in its own process, in turns: parent, this, this, parent."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    for root in (parent, here, here, parent):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--stack-time", root],
-                             capture_output=True, text=True, timeout=900)
-        lines = out.stdout.strip().splitlines()
-        print(f"[turns] {os.path.abspath(root)}: " + (lines[-1] if lines else "no output"))
-        if out.returncode:
-            fail(f"--stack-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+    run_turns("--stack-time", parent)
 
 
 def chain_time(n=256, steps=10):
@@ -3498,19 +3582,88 @@ def chain_time(n=256, steps=10):
     return out
 
 
-def chain_turns(parent):
-    """ms/step of the 256³ RK44 hat, LES and Boussinesq chains
-    (`chain_time`) of the package in the tree `parent` and of this tree's,
-    each in its own process, in turns: parent, this, this, parent."""
+def conv_time(n=128):
+    """One turn of `conv_turns`: ms of the fused layer's float32 kernels in
+    this process at n³, k = 5 (CUDA events, mean of two runs of 10): each
+    closure layer's forward, its input gradient (flipped taps) and its
+    weight gradient.  {label: ms}."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(DEVICE)
+
+    out = {}
+    for cin, cout, act, has_bias in CONV_LAYERS:
+        h, d = field(n, n, n, cin), field(n, n, n, cout)
+        w = field(5, 5, 5, cin, cout, scale=(125 * cin) ** -0.5)
+        b = field(cout, scale=0.1) if has_bias else None
+        wf = ck.flip_taps(w)
+        for label, fn in ((f"{cin}->{cout}", lambda: ck.fusedconv_3d(h, w, b, act)),
+                          (f"dh {cout}->{cin}", lambda: ck.fusedconv_3d(d, wf)),
+                          (f"dw {cin}x{cout}", lambda: ck.fusedconv_wgrad_3d(h, d, 5))):
+            out[label] = (cuda_ms(fn) + cuda_ms(fn)) / 2
+        del h, d
+        torch.cuda.empty_cache()
+    return out
+
+
+def conv_turns(parent):
+    """ms of the fused layer's float32 kernels (`conv_time`) of the package
+    in the tree `parent` and of this tree's, each in its own process, in
+    turns: parent, this, this, parent."""
+    run_turns("--conv-time", parent)
+
+
+def run_turns(flag, parent):
+    """Run this script with `flag ROOT` for ROOT = parent, this tree, this
+    tree, parent (each in its own process); print each one's last line."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(card_line())
     for root in (parent, here, here, parent):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--chain-time", root],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, root],
                              capture_output=True, text=True, timeout=900)
         lines = out.stdout.strip().splitlines()
         print(f"[turns] {os.path.abspath(root)}: " + (lines[-1] if lines else "no output"))
         if out.returncode:
-            fail(f"--chain-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+            fail(f"{flag} {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+
+
+def train_time(n=128, nunroll=5):
+    """One turn of `train_turns`: phase 3's gradient step with float32
+    convs in this process, two timed steps after a warm-up, then one
+    profiled: {"s_per_step": [s, s], "device_s", "conv_s"}."""
+    import torch
+
+    setup = training_setup(n)
+    _, data = training_data(setup, nunroll)
+    _, theta, loss = build_training(setup, compute_dtype=torch.float32)
+    value_and_grad(loss, data, theta)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        value_and_grad(loss, data, theta)
+        times.append(time.perf_counter() - t0)
+    _, dev, conv, _ = profile_step(loss, data, theta)
+    return {"s_per_step": times, "device_s": dev, "conv_s": conv}
+
+
+def train_turns(parent):
+    """s/step and conv share of phase 3's 128³ gradient step with float32
+    convs (`train_time`) of the package in the tree `parent` and of this
+    tree's, each in its own process, in turns: parent, this, this, parent."""
+    run_turns("--train-time", parent)
+
+
+def chain_turns(parent):
+    """ms/step of the 256³ RK44 hat, LES and Boussinesq chains
+    (`chain_time`) of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent."""
+    run_turns("--chain-time", parent)
 
 
 def phase_unfused_step(n):
@@ -3665,9 +3818,20 @@ def main():
                          "(ms/step) of the package in the tree PARENT and of this tree's, "
                          "in turns")
     ap.add_argument("--chain-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--train-turns", metavar="PARENT",
+                    help="only time phase 3's 128³ gradient step with float32 convs "
+                         "(s/step, conv share) of the package in the tree PARENT and of "
+                         "this tree's, in turns")
+    ap.add_argument("--train-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--conv-turns", metavar="PARENT",
+                    help="only time the fused conv layer's float32 kernels (each closure "
+                         "layer's forward, input gradient and weight gradient at 128³) of "
+                         "the package in the tree PARENT and of this tree's, in turns")
+    ap.add_argument("--conv-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
-                         "of one gradient step, of 3 channel steps, of 3 LES, "
+                         "of one gradient step with bf16 and with float32 convs, "
+                         "of 3 channel steps, of 3 LES, "
                          "Boussinesq, LMWray3, halo and halo LES steps, of the "
                          "halo kernels at the 4-shard shapes, and of 3 SSP33 "
                          "unmerged steps and 3 bf16-stream steps; and split each "
@@ -3684,7 +3848,13 @@ def main():
     if args.chain_turns:
         chain_turns(args.chain_turns)
         return
-    root = args.stack_time or args.chain_time
+    if args.train_turns:
+        train_turns(args.train_turns)
+        return
+    if args.conv_turns:
+        conv_turns(args.conv_turns)
+        return
+    root = args.stack_time or args.chain_time or args.train_time or args.conv_time
     sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3694,6 +3864,11 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         times = chain_time()
         print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
+        return
+    if args.train_time or args.conv_time:  # one turn of --train-turns / --conv-turns
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        times = train_time() if args.train_time else conv_time()
+        print(json.dumps({**times, "root": os.path.abspath(root)}))
         return
     if args.stack_time:  # one turn of --stack-turns
         torch.backends.cudnn.allow_tf32 = False

@@ -107,21 +107,21 @@ _SIGNATURES = {
         [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 3 + [_c_ptr],
         _c_int,
     ),
-    "ins_conv_fwd": (
-        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 6 + [_c_ptr],
-        _c_int,
-    ),
-    "ins_conv_wgrad_chunks": ([_c_int] * 3, _c_int),
-    "ins_conv_wgrad": (
-        [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr],
-        _c_int,
-    ),
     "ins_conv_fwd_mma": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 11 + [_c_ptr],
         _c_int,
     ),
     "ins_conv_wgrad_mma_chunks": ([_c_int] * 6, _c_int),
     "ins_conv_wgrad_mma": (
+        [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_conv_fwd_tf32": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 11 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_conv_wgrad_tf32_chunks": ([_c_int] * 7, _c_int),
+    "ins_conv_wgrad_tf32": (
         [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
         _c_int,
     ),

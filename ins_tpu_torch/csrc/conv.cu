@@ -7,54 +7,37 @@
 //
 // on a periodic (nx, ny, nz) box (indices wrap), channels last: h is
 // (nx, ny, nz, cin), d (nx, ny, nz, cout), out (nx, ny, nz, cout) in
-// float32 or bfloat16.  Every sum is taken in float32; bf16 operands are
-// exact in float32, so their products are exact and a kernel differs from
-// a float32 reference on the same rounded operands only in the order of
-// its sums.  The input gradient of a layer is the forward kernel on d with
-// the taps flipped and transposed (w'[dx, dy, dz, o, c] =
-// w[k-1-dx, k-1-dy, k-1-dz, c, o]).
+// float32 or bfloat16.  Every sum is taken in float32.  The input gradient
+// of a layer is the forward kernel on d with the taps flipped and
+// transposed (w'[dx, dy, dz, o, c] = w[k-1-dx, k-1-dy, k-1-dz, c, o]).
 //
 // Replaces: `_fusedconv_kernel` (ins_tpu/ops/convkernels.py:687, wrapper
 // `fusedconv_3d` :780, forward and input gradient) and
 // `_fused_wgrad_kernel` (:840, wrapper `fusedconv_wgrad_3d` :918).
 //
-// Two routes, picked by the operands' dtype:
+// Both routes run on the tensor cores with the z taps folded into the
+// contraction, as in the TPU kernel: in channels-last order the folded row
+// of cell (x, y, z) for tap (dx, dy) is the contiguous slice
+// row[z*CW : z*CW + KP] of the wrap-padded input row (x+dx-r, y+dy-r), its
+// channels padded to CW (wider inputs are cut into nch chunks of CW
+// channels) and KP = k*CW rounded up to the mma's step.  So
+//   forward  out[cells, o] = sum_{dx,dy,chunk} A[cells, (dz,c)] W[(dz,c), o]
+//   wgrad    dW[(dz,c), o] = sum_cells A[cell, (dz,c)]^T d[cell, o]
+// with A the overlapping windows of one staged row and W the packed
+// weights (k, k, nch*KP, np): zero past k*CW rows and cout columns, np =
+// nblk * 8*NT output channels in blocks of NT <= 3 n8 tiles.  A staged
+// row carries KP - k*CW zeros past its last cell, which the last window
+// reads (times zero weights, or into gradient rows nobody reads: they
+// must be finite).  The operands' dtype picks the route:
 //
-// * float32 operands (`ins_conv_fwd`, `ins_conv_wgrad`).  What bounds it on
-//   an H100: FP32 FMA issue (a 24 -> 24 layer at 128^3 with k = 5 is 302
-//   GFLOP against 0.2 GB of compulsory traffic), so the kernels keep the
-//   FMA pipes fed from registers.  w is canonical (k, k, k, cin, cout)
-//   float32.
-//   - forward: a block of 32 (z) x 4 (y) threads owns a 32 x 16 output tile
-//     of one x-plane and a tile of COT output channels.  For each x-tap and
-//     each chunk of 8 input channels it stages the input window (tile plus
-//     halo, channel-major, conflict-free for the reads) and that x-tap's
-//     weights in shared memory.  A thread holds CY = 4 y-rows x COT channels
-//     of accumulators, loads a column of CY + k - 1 inputs once per
-//     (z-tap, channel) and reuses it across the k y-taps: 8 + 2k shared
-//     loads per 32k FMA at COT = 8.
-//   - weight gradient: a block owns one x-tap, a tile of COT output channels
-//     and a chunk of cells (8 y x 16 z over a run of x-planes); each thread
-//     owns RPT = 8 rows (dy, dz, c) of dw for those COT channels and walks
-//     the staged cells: 8 + 2 shared loads per 64 FMA.
-//
-// * bf16 operands (`ins_conv_fwd_mma`, `ins_conv_wgrad_mma`): the tensor
-//   cores, `mma.sync.m16n8k16` bf16 x bf16 -> float32.  The z taps fold
-//   into the contraction, as in the TPU kernel: in channels-last order the
-//   folded row of cell (x, y, z) for tap (dx, dy) is the contiguous slice
-//   row[z*CW : z*CW + KP] of the wrap-padded input row (x+dx-r, y+dy-r), its
-//   channels padded to CW (a multiple of 8, at most 24; wider inputs are cut
-//   into nch chunks of CW channels) and KP = k*CW rounded up to 16.  The
-//   wrapper pads h and d with zero channels to a multiple of 8, so every
-//   staged unit is one 16-byte cp.async.  So
-//     forward  out[cells, o] = sum_{dx,dy,chunk} A[cells, (dz,c)] W[(dz,c), o]
-//     wgrad    dW[(dz,c), o] = sum_cells A[cell, (dz,c)]^T d[cell, o]
-//   with A the overlapping windows of one staged row (ldmatrix on rows
-//   CW*2 bytes apart: 48 bytes at CW = 24, conflict-free) and W the packed
-//   weights (k, k, nch*KP, np): zero past k*CW rows and cout columns, np =
-//   nblk * 8*NT output channels in blocks of NT <= 3 n8 tiles.  A staged
-//   row carries KP - k*CW zeros past its last cell, which the last window
-//   reads (times zero weights: they must be finite).
+// * bf16 operands (`ins_conv_fwd_mma`, `ins_conv_wgrad_mma`):
+//   `mma.sync.m16n8k16` bf16 x bf16 -> float32.  CW is a multiple of 8, at
+//   most 24, and KP a multiple of 16; the wrapper pads h and d with zero
+//   channels to a multiple of 8, so every staged unit is one 16-byte
+//   cp.async.  bf16 operands are exact in float32, so their products are
+//   exact and a kernel differs from a float32 reference on the same
+//   rounded operands only in the order of its sums.  A is ldmatrix on rows
+//   CW*2 bytes apart (48 bytes at CW = 24, conflict-free).
 //   - forward: a block of 16 warps owns one x-plane's 8 (y) x 64 (z) cells
 //     and one block of 8*NT output channels; a warp owns 2 rows of one m16
 //     tile of cells.  The block walks stages (chunk, dx): the input plane's
@@ -82,312 +65,63 @@
 //   (at N = 24 an A fragment of the weight gradient feeds 3 mma), and the
 //   staging of each stage's window and weights from L2.
 //
-// Both weight gradients write one partial sum per block; a second kernel
+// * float32 operands (`ins_conv_fwd_tf32`, `ins_conv_wgrad_tf32`): 3xTF32,
+//   `mma.sync.m16n8k8` with TF32 operands and float32 sums (tf32.cuh):
+//   each operand split into big = rna(x) and small = rna(x - big), a
+//   product small*big + big*small + big*big, about 2^-21 relative against
+//   2^-11 for one TF32 pass, so the kernels stay in the float32 class.  The
+//   wrapper pads h and d with zero channels to a multiple of 4 (16-byte
+//   cp.async units).  There is no transposing load for 32-bit elements, so
+//   each kernel's geometry (`ops/conv_kernels.py` `tf32_geometry`) picks
+//   CW for its own fragment loads:
+//   - forward: A fragments by ldmatrix.x4 on the staged window, a float32
+//     read as two b16 values of one row (tf32.cuh `load_split`), rows CW
+//     floats apart: CW is an odd number of 16-byte units (4, 12, 20 or 28
+//     channels), so an ldmatrix's 8 rows hit distinct banks, and KP = k*CW
+//     rounded up to 8.  B comes split from the host in fragment order
+//     (`pack_conv_weights_tf32`: per (dx, dy, k8 step, n8 tile) 32 lanes x
+//     (big b0, big b1, small b0, small b1)), one 16-byte load a lane.  A
+//     block of 16 warps owns one x-plane's 16 (y) x 32 (z) output cells
+//     (32 x 32 with a single n8 tile) and one block of output channels, a
+//     warp 2 rows (4 with a single n8 tile: few accumulators, and each A
+//     fragment then feeds more products) of one m16 tile of cells.  Per k8
+//     step the warp walks the dy taps with its current window rows split in
+//     registers, one new row a tap, each B fragment feeding all its rows;
+//     a chain holds two taps' products.  Stages (chunk, dx) hold the
+//     window and the k taps' split fragments, two or three deep in one
+//     block an SM (192 KB at 24 -> 24, k = 5, CW = 12: the split weights
+//     are 4x the bf16 ones, so the geometry narrows CW where two stages
+//     would not fit).
+//   - weight gradient: A = windows^T and B = d both come from 32-bit
+//     shared loads in the m16n8k8 fragment pattern (a0 = (g, t), a1 = (g +
+//     8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4) at window offset t*CW +
+//     g; b0 = (t, g), b1 = (t + 4, g)) and are split in registers.  The
+//     32 lanes hit distinct banks where t*CW is 0, 8, 16, 24 mod 32 (CW = 8
+//     or 24) or the lanes' words overlap (CW = 4), and the d tile's pitch is
+//     8 or 24 floats; KP = k*CW rounded up to 16 (m16 tiles).  A block of 8
+//     warps owns one dx, one chunk and block of output channels, a group of
+//     mc m16 tiles (mc dividing 8, mc * k <= 40: warp w takes tile w % mc
+//     and every (8/mc)-th dy from w / mc, at most 5 (tile, dy) items of NT
+//     accumulator tiles) and a chunk of cells (8 y x 16 z over a run of
+//     x-planes); per x-plane it stages the window and the d tile, two or
+//     three deep, two blocks an SM.  Per k8 step of cells a warp loads and
+//     splits the NT B fragments once, then each item's A fragment; each
+//     step's three products are one chain, added to the item's float32
+//     accumulators.
+//   What bounds it on an H100: a 24 -> 24 layer at 128^3 with k = 5 is 302
+//   GFLOP, 906 GFLOP of TF32 mma (1.83 ms at the 495 TFLOP/s dense TF32
+//   peak) against 0.2 GB of compulsory traffic; mma.sync issue, the
+//   fragment loads and splits beside it, and the restaging of windows and
+//   weights from L2 hold it below that peak.
+//
+// The weight gradients write one partial sum per block; a second kernel
 // adds the partials of every weight in a fixed order, so the result is the
 // same on every run (no atomics).
 
 #include <cstdint>
 
-#include "convio.cuh"   // load_val, load_vec, reduce_partials_kernel
-#include "stencil.cuh"  // wrap
-
-namespace {
-
-constexpr int BZ = 32;         // forward: threads along z (one warp)
-constexpr int BY = 4;          // forward: threads along y
-constexpr int CY = 4;          // forward: y-rows per thread
-constexpr int TYO = BY * CY;   // forward: output tile extent in y
-constexpr int CC = 8;          // forward: input channels staged per pass
-constexpr int WTY = 8;         // wgrad: cell tile extent in y
-constexpr int WTZ = 16;        // wgrad: cell tile extent in z
-constexpr int RPT = 8;         // wgrad: dw rows per thread
-constexpr int WCHUNKS = 256;   // wgrad: target number of cell chunks
-constexpr int WMAXT = 256;     // wgrad: most threads per block
-
-struct ConvParams {
-    const void* h;
-    int h_bf16;
-    const float* w;
-    const float* bias;  // may be null
-    int act;            // 0 identity, 1 tanh
-    void* out;
-    int out_bf16;
-    int nx, ny, nz, cin, cout;
-};
-
-template <int K>
-__host__ __device__ constexpr int fwd_stride() {  // channel stride of the staged window (odd)
-    return (TYO + K - 1) * (BZ + K - 1) + 1;
-}
-
-template <int K, int COT>
-constexpr size_t fwd_smem() {
-    return sizeof(float) * (CC * fwd_stride<K>() + K * K * CC * COT);
-}
-
-template <int K, int COT>
-__global__ void __launch_bounds__(BZ * BY)
-conv_fwd_kernel(const __grid_constant__ ConvParams p) {
-    extern __shared__ float4 smem4[];
-    constexpr int R = K / 2;
-    constexpr int TYH = TYO + K - 1, TZH = BZ + K - 1;
-    constexpr int CS = fwd_stride<K>();
-    float* s_in = reinterpret_cast<float*>(smem4);
-    float* s_w = s_in + CC * CS;  // 16-byte aligned: CC * CS * 4 = 32 * CS
-    const int nx = p.nx, ny = p.ny, nz = p.nz, cin = p.cin, cout = p.cout;
-    const int ncot = (cout + COT - 1) / COT;
-    const int x = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
-    const int z0 = blockIdx.x * BZ, y0 = blockIdx.y * TYO;
-    const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * BZ + tz;
-
-    float acc[CY][COT];
-#pragma unroll
-    for (int j = 0; j < CY; ++j)
-#pragma unroll
-        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
-
-    for (int dx = 0; dx < K; ++dx) {
-        const size_t plane = (size_t)wrap(x + dx - R, nx) * ny;
-        for (int c0 = 0; c0 < cin; c0 += CC) {
-            const int cc = min(CC, cin - c0);
-            __syncthreads();  // the previous pass is done with shared memory
-            for (int e = tid; e < TYH * TZH * cc; e += BZ * BY) {
-                const int c = e % cc, rest = e / cc;
-                const int lz = rest % TZH, ly = rest / TZH;
-                const int yy = wrap(y0 - R + ly, ny), zz = wrap(z0 - R + lz, nz);
-                s_in[c * CS + ly * TZH + lz] =
-                    load_val(p.h, ((plane + yy) * nz + zz) * cin + c0 + c, p.h_bf16);
-            }
-            for (int e = tid; e < K * K * CC * COT; e += BZ * BY) {
-                const int o = e % COT, rest = e / COT;
-                const int ci = rest % CC, t = rest / CC;  // t = dy * K + dz
-                float v = 0.0f;
-                if (ci < cc && co0 + o < cout)
-                    v = __ldg(p.w + ((size_t)(dx * K * K + t) * cin + c0 + ci) * cout + co0 + o);
-                s_w[e] = v;
-            }
-            __syncthreads();
-            for (int dz = 0; dz < K; ++dz) {
-                for (int ci = 0; ci < cc; ++ci) {
-                    const float* src = s_in + ci * CS + ty * CY * TZH + tz + dz;
-                    float col[CY + K - 1];
-#pragma unroll
-                    for (int j = 0; j < CY + K - 1; ++j) col[j] = src[j * TZH];
-#pragma unroll
-                    for (int dy = 0; dy < K; ++dy) {
-                        float wr[COT];
-                        load_vec<COT>(s_w + ((dy * K + dz) * CC + ci) * COT, wr);
-#pragma unroll
-                        for (int j = 0; j < CY; ++j)
-#pragma unroll
-                            for (int o = 0; o < COT; ++o)
-                                acc[j][o] = fmaf(col[j + dy], wr[o], acc[j][o]);
-                    }
-                }
-            }
-        }
-    }
-
-    const int z = z0 + tz;
-    if (z >= nz) return;
-#pragma unroll
-    for (int j = 0; j < CY; ++j) {
-        const int y = y0 + ty * CY + j;
-        if (y >= ny) continue;
-        const size_t cell = (((size_t)x * ny + y) * nz + z) * cout;
-#pragma unroll
-        for (int o = 0; o < COT; ++o) {
-            const int co = co0 + o;
-            if (co >= cout) break;
-            float v = acc[j][o];
-            if (p.bias) v += __ldg(p.bias + co);
-            if (p.act == 1) v = tanhf(v);
-            if (p.out_bf16)
-                static_cast<__nv_bfloat16*>(p.out)[cell + co] = __float2bfloat16(v);
-            else
-                static_cast<float*>(p.out)[cell + co] = v;
-        }
-    }
-}
-
-struct WgradParams {
-    const void* h;
-    int h_bf16;
-    const void* d;
-    int d_bf16;
-    float* partial;  // (nchunk, k^3 * cin * cout)
-    int nx, ny, nz, cin, cout;
-    int xb;          // x-planes per cell chunk
-};
-
-__host__ __device__ inline void wgrad_chunks(int nx, int ny, int nz, int* xb, int* nchunk) {
-    const int yz = ((ny + WTY - 1) / WTY) * ((nz + WTZ - 1) / WTZ);
-    int groups = (WCHUNKS + yz - 1) / yz;
-    groups = groups < 1 ? 1 : (groups > nx ? nx : groups);
-    *xb = (nx + groups - 1) / groups;
-    *nchunk = ((nx + *xb - 1) / *xb) * yz;
-}
-
-template <int K>
-__host__ __device__ constexpr int wgrad_tzh() {
-    return WTZ + K - 1;
-}
-
-template <int K, int COT>
-__global__ void __launch_bounds__(WMAXT)
-wgrad_kernel(const __grid_constant__ WgradParams p) {
-    extern __shared__ float4 smem4[];
-    constexpr int R = K / 2;
-    constexpr int TYH = WTY + K - 1, TZH = wgrad_tzh<K>();
-    const int nx = p.nx, ny = p.ny, nz = p.nz, cin = p.cin, cout = p.cout;
-    float* s_d = reinterpret_cast<float*>(smem4);  // (WTY, WTZ, COT)
-    float* s_h = s_d + WTY * WTZ * COT;             // (TYH, TZH, cin)
-    const int nrow = K * K * cin;
-    const int ncot = (cout + COT - 1) / COT;
-    const int dx = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
-    const int ytiles = (ny + WTY - 1) / WTY, ztiles = (nz + WTZ - 1) / WTZ;
-    const int chunk = blockIdx.x;
-    const int zt = chunk % ztiles, yt = (chunk / ztiles) % ytiles, xg = chunk / (ztiles * ytiles);
-    const int y0 = yt * WTY, z0 = zt * WTZ;
-    const int x0 = xg * p.xb, x1 = min(nx, x0 + p.xb);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int row0 = blockIdx.y * nthr * RPT + tid;
-
-    int off[RPT];  // offset of row j's input relative to the cell, in s_h
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-        const int r = row0 + j * nthr;
-        if (r < nrow) {
-            const int ci = r % cin, t = r / cin;
-            off[j] = ((t / K) * TZH + t % K) * cin + ci;
-        } else {
-            off[j] = 0;  // computed and discarded
-        }
-    }
-    float acc[RPT][COT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j)
-#pragma unroll
-        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
-
-    for (int x = x0; x < x1; ++x) {
-        const size_t hplane = (size_t)wrap(x + dx - R, nx) * ny;
-        __syncthreads();
-        for (int e = tid; e < TYH * TZH * cin; e += nthr) {
-            const int c = e % cin, rest = e / cin;
-            const int lz = rest % TZH, ly = rest / TZH;
-            const int yy = wrap(y0 - R + ly, ny), zz = wrap(z0 - R + lz, nz);
-            s_h[e] = load_val(p.h, ((hplane + yy) * nz + zz) * cin + c, p.h_bf16);
-        }
-        for (int e = tid; e < WTY * WTZ * COT; e += nthr) {
-            const int o = e % COT, rest = e / COT;
-            const int lz = rest % WTZ, ly = rest / WTZ;
-            const int y = y0 + ly, z = z0 + lz, co = co0 + o;
-            float v = 0.0f;  // cells outside the box and channels past cout add 0
-            if (y < ny && z < nz && co < cout)
-                v = load_val(p.d, (((size_t)x * ny + y) * nz + z) * cout + co, p.d_bf16);
-            s_d[e] = v;
-        }
-        __syncthreads();
-        for (int ly = 0; ly < WTY; ++ly) {
-            for (int lz = 0; lz < WTZ; ++lz) {
-                float dv[COT];
-                load_vec<COT>(s_d + (ly * WTZ + lz) * COT, dv);
-                const float* hc = s_h + (ly * TZH + lz) * cin;
-#pragma unroll
-                for (int j = 0; j < RPT; ++j) {
-                    const float hv = hc[off[j]];
-#pragma unroll
-                    for (int o = 0; o < COT; ++o) acc[j][o] = fmaf(hv, dv[o], acc[j][o]);
-                }
-            }
-        }
-    }
-
-    const size_t nw = (size_t)K * nrow * cout;
-    float* part = p.partial + (size_t)chunk * nw;
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-        const int r = row0 + j * nthr;
-        if (r >= nrow) continue;
-        const size_t base = ((size_t)dx * nrow + r) * cout;
-#pragma unroll
-        for (int o = 0; o < COT; ++o)
-            if (co0 + o < cout) part[base + co0 + o] = acc[j][o];
-    }
-}
-
-template <int K, int COT>
-cudaError_t launch_fwd(const ConvParams& p, cudaStream_t stream) {
-    const int ncot = (p.cout + COT - 1) / COT;
-    const dim3 block(BZ, BY);
-    const dim3 grid((p.nz + BZ - 1) / BZ, (p.ny + TYO - 1) / TYO, p.nx * ncot);
-    conv_fwd_kernel<K, COT><<<grid, block, fwd_smem<K, COT>(), stream>>>(p);
-    return cudaGetLastError();
-}
-
-template <int K, int COT>
-cudaError_t launch_wgrad(const WgradParams& p, int nchunk, cudaStream_t stream) {
-    const int nrow = K * K * p.cin;
-    int nthr = (nrow + RPT - 1) / RPT;
-    nthr = nthr > WMAXT ? WMAXT : ((nthr + 31) / 32) * 32;
-    const int nrowchunk = (nrow + nthr * RPT - 1) / (nthr * RPT);
-    const size_t smem = sizeof(float) * (WTY * WTZ * COT +
-                                         (size_t)(WTY + K - 1) * wgrad_tzh<K>() * p.cin);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            wgrad_kernel<K, COT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    const int ncot = (p.cout + COT - 1) / COT;
-    const dim3 grid(nchunk, nrowchunk, K * ncot);
-    wgrad_kernel<K, COT><<<grid, nthr, smem, stream>>>(p);
-    return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int ins_conv_fwd(const void* h, int h_bf16, const float* w, const float* bias,
-                            int act, void* out, int out_bf16, int nx, int ny, int nz,
-                            int cin, int cout, int k, void* stream) {
-    const ConvParams p{h, h_bf16, w, bias, act, out, out_bf16, nx, ny, nz, cin, cout};
-    const cudaStream_t s = (cudaStream_t)stream;
-    const bool small = cout <= 4;
-    switch (k) {
-        case 3: return (int)(small ? launch_fwd<3, 4>(p, s) : launch_fwd<3, 8>(p, s));
-        case 5: return (int)(small ? launch_fwd<5, 4>(p, s) : launch_fwd<5, 8>(p, s));
-        case 7: return (int)(small ? launch_fwd<7, 4>(p, s) : launch_fwd<7, 8>(p, s));
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
-// Number of cell chunks (rows of the partial-sum buffer) of a wgrad call.
-extern "C" int ins_conv_wgrad_chunks(int nx, int ny, int nz) {
-    int xb, nchunk;
-    wgrad_chunks(nx, ny, nz, &xb, &nchunk);
-    return nchunk;
-}
-
-extern "C" int ins_conv_wgrad(const void* h, int h_bf16, const void* d, int d_bf16,
-                              float* partial, float* dw, int nx, int ny, int nz, int cin,
-                              int cout, int k, void* stream) {
-    int xb, nchunk;
-    wgrad_chunks(nx, ny, nz, &xb, &nchunk);
-    const WgradParams p{h, h_bf16, d, d_bf16, partial, nx, ny, nz, cin, cout, xb};
-    const cudaStream_t s = (cudaStream_t)stream;
-    const bool small = cout <= 4;
-    cudaError_t e;
-    switch (k) {
-        case 3: e = small ? launch_wgrad<3, 4>(p, nchunk, s) : launch_wgrad<3, 8>(p, nchunk, s); break;
-        case 5: e = small ? launch_wgrad<5, 4>(p, nchunk, s) : launch_wgrad<5, 8>(p, nchunk, s); break;
-        case 7: e = small ? launch_wgrad<7, 4>(p, nchunk, s) : launch_wgrad<7, 8>(p, nchunk, s); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    if (e != cudaSuccess) return (int)e;
-    const size_t nw = (size_t)k * k * k * cin * cout;
-    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, s>>>(partial, dw, nchunk, nw);
-    return (int)cudaGetLastError();
-}
+#include "convio.cuh"  // cp.async, ldmatrix, mma_bf16, ring_wait, reduce_partials_kernel
+#include "tf32.cuh"    // FRAG, TAPS_CHAINED, tf32_rna, mma_tf32, load_split, row_products
 
 // --------------------------------------------------------------------------
 // The bf16 route: tensor-core kernels on z-folded windows
@@ -482,6 +216,41 @@ __device__ __forceinline__ void zero_row_tails(bf16* s, int tid) {
     if (TAIL == 0) return;
     for (int r = tid; r < ROWS; r += blockDim.x)
         *reinterpret_cast<uint4*>(s + r * ROWLEN + CELLS * CW) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The forwards' epilogue: bias, activation and the store of a warp's RW
+// output rows (from y) of one m16 tile of cells (from z) x 8*NT channels
+// (from n0) of accumulators in mma.sync's C layout; rows and cells past the
+// box and channels past cout are dropped.
+template <int RW, int NT, class Params>
+__device__ __forceinline__ void store_rows(const float (&acc)[RW][NT][4], const Params& p, int x,
+                                           int y, int z, int n0, int lane) {
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+        if (y + r >= p.ny) break;
+        const size_t row = ((size_t)x * p.ny + y + r) * p.nz;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int zc = z + (lane >> 2) + 8 * half;
+            if (zc >= p.nz) continue;
+            const size_t cell = (row + zc) * p.cout;
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int co = n0 + 8 * t + 2 * (lane & 3) + e;
+                    if (co >= p.cout) continue;
+                    float v = acc[r][t][2 * half + e];
+                    if (p.bias) v += __ldg(p.bias + co);
+                    if (p.act == 1) v = tanhf(v);
+                    if (p.out_bf16)
+                        static_cast<bf16*>(p.out)[cell + co] = __float2bfloat16(v);
+                    else
+                        static_cast<float*>(p.out)[cell + co] = v;
+                }
+            }
+        }
+    }
 }
 
 struct MmaConvParams {
@@ -596,33 +365,7 @@ conv_fwd_mma_kernel(const __grid_constant__ MmaConvParams p) {
         __syncthreads();  // the buffer is refilled nbuf - 1 stages on
     }
 
-#pragma unroll
-    for (int r = 0; r < FRW; ++r) {
-        const int y = y0 + wy0 + r;
-        if (y >= p.ny) break;
-        const size_t row = ((size_t)x * p.ny + y) * p.nz;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int z = z0 + 16 * wm + (lane >> 2) + 8 * half;
-            if (z >= p.nz) continue;
-            const size_t cell = (row + z) * p.cout;
-#pragma unroll
-            for (int t = 0; t < NT; ++t) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int co = n0 + 8 * t + 2 * (lane & 3) + e;
-                    if (co >= p.cout) continue;
-                    float v = acc[r][t][2 * half + e];
-                    if (p.bias) v += __ldg(p.bias + co);
-                    if (p.act == 1) v = tanhf(v);
-                    if (p.out_bf16)
-                        static_cast<bf16*>(p.out)[cell + co] = __float2bfloat16(v);
-                    else
-                        static_cast<float*>(p.out)[cell + co] = v;
-                }
-            }
-        }
-    }
+    store_rows(acc, p, x, y0 + wy0, z0 + 16 * wm, n0, lane);
 }
 
 struct MmaWgradParams {
@@ -864,6 +607,505 @@ extern "C" int ins_conv_wgrad_mma(const void* h, const void* d, float* partial, 
                            nx, ny, nz, cin, cout, nch, np, xb};
     const cudaStream_t s = (cudaStream_t)stream;
     const cudaError_t e = wgrad_mma(k, cw, nt, p, nchunk, s);
+    if (e != cudaSuccess) return (int)e;
+    const size_t nw = (size_t)k * k * nch * kp * np;
+    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, s>>>(partial, dwp, nchunk, nw);
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// The float32 route: 3xTF32 tensor-core kernels on z-folded windows
+// --------------------------------------------------------------------------
+
+namespace {
+
+constexpr int SM_SMEM = 227 * 1024;  // an SM's shared memory for blocks (and a block's most)
+constexpr int TF_FWD_THREADS = 512;  // forward: 16 warps
+constexpr int TFZ = 32;              // forward: output cells (z) a row (two m16 tiles)
+constexpr int TW_THREADS = 256;      // wgrad: 8 warps
+constexpr int TW_WARPS = TW_THREADS / 32;
+constexpr int TWY = 8;               // wgrad: cell rows (y) a block
+constexpr int TWZ = 16;              // wgrad: cells (z) a row (two k8 steps)
+constexpr int TW_IPW = 5;            // wgrad: (m16 tile, dy) items a warp, at most
+constexpr int TW_SM_BLOCKS = 2;      // wgrad: blocks an SM (128 registers a thread)
+constexpr int TW_BLOCKS = 1024;      // wgrad: target number of blocks
+
+// floats of a staged window row of `cells` cells of cw channels: the cells,
+// then the kp - k*cw zeros the last window reads past them
+__host__ __device__ inline int tf32_rowlen(int k, int cw, int kp, int cells) {
+    return cells * cw + kp - k * cw;
+}
+
+// output rows a forward warp owns (of one m16 tile of cells): two, four
+// with a single n8 tile (few accumulators; an A fragment then feeds more
+// products), and a block's rows: the 16 warps tile 8 row groups x 2 m16
+// tiles
+__host__ __device__ constexpr int fwd_rows(int nt) { return nt == 1 ? 4 : 2; }
+__host__ __device__ constexpr int fwd_block_rows(int rw) { return TF_FWD_THREADS / 32 / (TFZ / 16) * rw; }
+
+// floats of a forward stage: the window, then the k taps' split fragments
+// of the chunk's kp/8 k8 steps
+__host__ __device__ inline int fwd_tf32_stage(int k, int cw, int kp, int nt, int rw) {
+    return (fwd_block_rows(rw) + k - 1) * tf32_rowlen(k, cw, kp, TFZ + k - 1) +
+           k * (kp / 8) * nt * FRAG;
+}
+
+// pitch (floats) of the wgrad's staged d tile: 8 or 24 mod 32, so that a B
+// fragment's 32 lanes (t * pitch + g) hit distinct banks
+__host__ __device__ constexpr int tw_dpitch(int nt) { return nt == 2 ? 24 : 8 * nt; }
+
+// floats of a wgrad stage: the window, then the d tile
+__host__ __device__ inline int wgrad_tf32_stage(int k, int cw, int kp, int nt) {
+    return (TWY + k - 1) * tf32_rowlen(k, cw, kp, TWZ + k - 1) + TWY * TWZ * tw_dpitch(nt);
+}
+
+// The thread's index, read afresh where it is called: what a stage derives
+// from it is recomputed at each stage, not held in registers across the
+// product loops (the weight gradient's accumulators need them all).
+__device__ __forceinline__ int fresh_tid() {
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+}
+
+__device__ __forceinline__ void zero16(float* dst) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The staging of an input window (ROWS rows x CELLS cells of one chunk of
+// cw float32 channels, row pitch rowlen) by one thread: it owns one (cell,
+// 4-channel unit) and stages it in every rstep-th row, so its z offset and
+// shared-memory offset are computed once a block.
+struct Tf32WindowStager {
+    int r0, rstep, soff, c0, z;
+
+    __device__ Tf32WindowStager(int tid, int nthr, int cells, int cw, int z0, int nz) {
+        const int upc = cw / 4, upr = cells * upc, u = tid % upr;
+        r0 = tid / upr;
+        rstep = nthr / upr;
+        soff = (u / upc) * cw + 4 * (u % upc);
+        c0 = 4 * (u % upc);
+        z = wrap_near(z0 + u / upc, nz);
+    }
+
+    // rows y0 .. y0 + rows - 1 (wrapped) of plane xp, channels ch*cw + ...
+    // (zeros past cin)
+    __device__ __forceinline__ void stage(float* s, const float* h, int xp, int y0, int rows,
+                                          int rowlen, int ny, int nz, int cin, int c) const {
+        if (r0 >= rstep) return;
+        c += c0;
+        for (int r = r0; r < rows; r += rstep) {
+            float* dst = s + r * rowlen + soff;
+            if (c < cin)
+                cp_async16(dst, h + (((size_t)xp * ny + wrap_near(y0 + r, ny)) * nz + z) * cin + c);
+            else
+                zero16(dst);
+        }
+    }
+};
+
+// Zero the kp - k*cw floats past the cells of each window row (never
+// written by a stage) of every buffer.
+__device__ __forceinline__ void zero_tf32_tails(float* smem, int nbuf, int stage, int rows,
+                                                int rowlen, int cells_floats, int tid, int nthr) {
+    const int tail4 = (rowlen - cells_floats) / 4;
+    for (int i = tid; i < nbuf * rows * tail4; i += nthr) {
+        const int b = i / (rows * tail4), r = (i / tail4) % rows, q = i % tail4;
+        zero16(smem + b * stage + r * rowlen + cells_floats + 4 * q);
+    }
+}
+
+struct Tf32ConvParams {
+    const float* h;     // (nx, ny, nz, cin), cin a multiple of 4
+    const float* w;     // split B fragments (k, k, nch * kp/8, np/8, 32, 4)
+    const float* bias;  // may be null
+    int act;            // 0 identity, 1 tanh
+    void* out;
+    int out_bf16;
+    int nx, ny, nz, cin, cout;
+    int cw, nch, kp, np;
+    int nbuf;           // stages in the ring
+};
+
+template <int K, int NT, int RW>
+__global__ void __launch_bounds__(TF_FWD_THREADS, 1)
+conv_fwd_tf32_kernel(const __grid_constant__ Tf32ConvParams p) {
+    constexpr int R = K / 2, TFY = fwd_block_rows(RW), ROWS = TFY + K - 1, CELLS = TFZ + K - 1;
+    constexpr int UNROLL = RW == 2 ? 2 : K;  // fully unrolled, RW = 2 spills (as tapconv_tf32.cu)
+    extern __shared__ float4 smem_f4[];
+    float* smem = reinterpret_cast<float*>(smem_f4);
+    const int cw = p.cw, kp = p.kp, nks = kp / 8, nbuf = p.nbuf;
+    const int rowlen = tf32_rowlen(K, cw, kp, CELLS), in = ROWS * rowlen;
+    const int stage = fwd_tf32_stage(K, cw, kp, NT, RW);
+    const int ntiles = p.np / 8, nblk = ntiles / NT;
+    const int x = blockIdx.z / nblk, blk = blockIdx.z % nblk, n0 = blk * 8 * NT;
+    const int y0 = blockIdx.y * TFY, z0 = blockIdx.x * TFZ;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // warp: output rows wy0 .. wy0 + RW - 1, cells 16 * wm .. 16 * wm + 15
+    const int wy0 = (warp / (TFZ / 16)) * RW, wm = warp % (TFZ / 16);
+    const int nstage = p.nch * K;  // (chunk, dx)
+
+    zero_tf32_tails(smem, nbuf, stage, ROWS, rowlen, CELLS * cw, tid, TF_FWD_THREADS);
+    const Tf32WindowStager window(tid, TF_FWD_THREADS, CELLS, cw, z0 - R, p.nz);
+    auto issue = [&](int s) {
+        if (s < nstage) {
+            const int ch = s / K, dx = s % K;
+            float* s_in = smem + (s % nbuf) * stage;
+            float* s_w = s_in + in;
+            window.stage(s_in, p.h, wrap_near(x + dx - R, p.nx), y0 - R, ROWS, rowlen, p.ny, p.nz,
+                         p.cin, ch * cw);
+            // rows (dy, k8 step) of tap (dx, dy), chunk ch: this block's NT
+            // fragments, contiguous in the packed weights
+            const float* w = p.w + (((size_t)dx * K * p.nch + ch) * nks * ntiles + blk * NT) * FRAG;
+            for (int u = tid; u < K * nks * NT * 32; u += TF_FWD_THREADS) {
+                const int l = u % (NT * 32), row = u / (NT * 32);
+                const int dy = row / nks, ks = row % nks;
+                cp_async16(s_w + row * NT * FRAG + 4 * l,
+                           w + ((size_t)dy * p.nch * nks + ks) * ntiles * FRAG + 4 * l);
+            }
+        }
+        cp_async_commit();
+    };
+
+    // acc: the sum (float32 adds); part: a chain of at most TAPS_CHAINED
+    // taps' products in the tensor cores
+    float acc[RW][NT][4], part[RW][NT][4];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][t][e] = 0.0f;
+
+    // ldmatrix row addresses: rows are cells (lanes 0-15: the k8 step's
+    // elements 0-3, 16-31: 4-7)
+    const int a_lane = wy0 * rowlen + (16 * wm + (lane & 15)) * cw + (lane >> 4) * 4;
+    for (int s = 0; s < nbuf - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+        issue(s + nbuf - 1);
+        ring_wait(nbuf);
+        const float* s_in = smem + (s % nbuf) * stage + a_lane;
+        const float* s_w = smem + (s % nbuf) * stage + in + 4 * lane;
+#pragma unroll 1
+        for (int ks = 0; ks < nks; ++ks) {
+            // tap dy feeds output row ro from window row dy + ro: the warp
+            // holds its RW current window rows split, one new row a tap
+            const float* arow = s_in + ks * 8;
+            const float* brow = s_w + ks * NT * FRAG;
+            uint32_t big[RW][4], small[RW][4];
+#pragma unroll
+            for (int r = 0; r + 1 < RW; ++r) load_split(arow + r * rowlen, big[r], small[r]);
+#pragma unroll UNROLL
+            for (int dy = 0; dy < K; ++dy) {
+                load_split(arow + (dy + RW - 1) * rowlen, big[RW - 1], small[RW - 1]);
+                const float* b = brow + dy * nks * NT * FRAG;
+                if (dy % TAPS_CHAINED == 0)
+                    row_products<NT, RW, true>(part, big, small, b);
+                else
+                    row_products<NT, RW, false>(part, big, small, b);
+                if ((dy + 1) % TAPS_CHAINED == 0 || dy == K - 1) {
+#pragma unroll
+                    for (int ro = 0; ro < RW; ++ro)
+#pragma unroll
+                        for (int t = 0; t < NT; ++t)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) acc[ro][t][e] += part[ro][t][e];
+                }
+#pragma unroll
+                for (int r = 0; r + 1 < RW; ++r)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        big[r][i] = big[r + 1][i];
+                        small[r][i] = small[r + 1][i];
+                    }
+            }
+        }
+        __syncthreads();  // the buffer is refilled nbuf - 1 stages on
+    }
+
+    store_rows(acc, p, x, y0 + wy0, z0 + 16 * wm, n0, lane);
+}
+
+struct Tf32WgradParams {
+    const float* h;  // (nx, ny, nz, cin), cin a multiple of 4
+    const float* d;  // (nx, ny, nz, cout), cout a multiple of 4
+    float* partial;  // (nchunk, k, k, nch * kp, np)
+    int nx, ny, nz, cin, cout;
+    int cw, nch, kp, np;
+    int mc;          // m16 tiles of kp a block (dividing the warps)
+    int xb;          // x-planes a cell chunk
+    int nbuf;        // stages in the ring
+};
+
+// m16 tiles of kp a wgrad block takes: warp w owns tile w % mc and every
+// (TW_WARPS / mc)-th dy from w / mc, so mc divides the warps; the largest
+// such mc whose items fit the warps' TW_IPW each
+__host__ __device__ inline int wgrad_tf32_mc(int k, int kp) {
+    int mc = TW_WARPS;
+    while (mc > 1 && (mc > kp / 16 || mc * k > TW_WARPS * TW_IPW)) mc /= 2;
+    return mc;
+}
+
+inline void wgrad_tf32_chunks(int nx, int ny, int nz, int k, int nch, int nblk, int kp, int* xb,
+                              int* nchunk) {
+    const int mc = wgrad_tf32_mc(k, kp), groups = (kp / 16 + mc - 1) / mc;
+    const int yz = ((ny + TWY - 1) / TWY) * ((nz + TWZ - 1) / TWZ);
+    const int per_group = yz * k * nch * nblk * groups;
+    int g = (TW_BLOCKS + per_group - 1) / per_group;
+    g = g < 1 ? 1 : (g > nx ? nx : g);
+    *xb = (nx + g - 1) / g;
+    *nchunk = ((nx + *xb - 1) / *xb) * yz;
+}
+
+template <int K, int NT>
+__global__ void __launch_bounds__(TW_THREADS, TW_SM_BLOCKS)
+wgrad_tf32_kernel(const __grid_constant__ Tf32WgradParams p) {
+    constexpr int R = K / 2, ROWS = TWY + K - 1, CELLS = TWZ + K - 1, DP = tw_dpitch(NT);
+    // the k8 steps of a cell row one at a time with three n8 tiles (two
+    // steps' B fragments at once would spill), else both at once
+    constexpr int KS_UNROLL = NT == 3 ? 1 : TWZ / 8;
+    extern __shared__ float4 smem_f4[];
+    float* smem = reinterpret_cast<float*>(smem_f4);
+    const int cw = p.cw, kp = p.kp, nbuf = p.nbuf;
+    const int rowlen = tf32_rowlen(K, cw, kp, CELLS), in = ROWS * rowlen;
+    const int stage = wgrad_tf32_stage(K, cw, kp, NT);
+    const int nblk = p.np / (8 * NT), ngroups = (kp / 16 + p.mc - 1) / p.mc;
+    const int grp = blockIdx.y % ngroups, blk = (blockIdx.y / ngroups) % nblk;
+    const int ch = blockIdx.y / (ngroups * nblk), n0 = blk * 8 * NT, dx = blockIdx.z;
+    const int mt0 = grp * p.mc, mc = min(p.mc, kp / 16 - mt0);
+    const int ytiles = (p.ny + TWY - 1) / TWY, ztiles = (p.nz + TWZ - 1) / TWZ;
+    const int chunk = blockIdx.x;
+    const int zt = chunk % ztiles, yt = (chunk / ztiles) % ytiles, xg = chunk / (ztiles * ytiles);
+    const int y0 = yt * TWY, z0 = zt * TWZ;
+    const int x0 = xg * p.xb, x1 = min(p.nx, x0 + p.xb);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int nstage = x1 - x0;
+
+    zero_tf32_tails(smem, nbuf, stage, ROWS, rowlen, CELLS * cw, tid, TW_THREADS);
+    auto issue = [&](int s) {
+        if (s < nstage) {
+            const int x = x0 + s, ftid = fresh_tid();
+            float* s_in = smem + (s % nbuf) * stage;
+            float* s_d = s_in + in;
+            const Tf32WindowStager window(ftid, TW_THREADS, CELLS, cw, z0 - R, p.nz);
+            window.stage(s_in, p.h, wrap_near(x + dx - R, p.nx), y0 - R, ROWS, rowlen, p.ny, p.nz,
+                         p.cin, ch * cw);
+            // the d tile: 8*NT channels a cell, 2*NT 16-byte units
+            for (int v = ftid; v < TWY * TWZ * 2 * NT; v += TW_THREADS) {
+                const int q = v % (2 * NT), u = v / (2 * NT);
+                const int y = y0 + u / TWZ, z = z0 + u % TWZ, c = n0 + 4 * q;
+                float* dst = s_d + u * DP + 4 * q;
+                if (y < p.ny && z < p.nz && c < p.cout)  // cells past the box add 0
+                    cp_async16(dst, p.d + (((size_t)x * p.ny + y) * p.nz + z) * p.cout + c);
+                else
+                    zero16(dst);
+            }
+        }
+        cp_async_commit();
+    };
+
+    float acc[TW_IPW][NT][4];
+#pragma unroll
+    for (int q = 0; q < TW_IPW; ++q)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[q][n][e] = 0.0f;
+
+    // the warp's items: m16 tile mt0 + mtl and dy = dy0 + q * dstep for q <
+    // nq, window rows dy * rowlen + 16 * tile in the staged plane
+    const int dstep = TW_WARPS / p.mc, mtl = warp % p.mc, dy0 = warp / p.mc;
+    const int nq = mtl < mc && dy0 < K ? (K - dy0 + dstep - 1) / dstep : 0;
+    const int a_item = dy0 * rowlen + (mt0 + mtl) * 16, a_qstep = dstep * rowlen;
+    // fragment element offsets: A (rows (dz, c) of the window, columns
+    // cells) at t*cw + g, B (rows cells, columns d's channels) at t*DP + g
+    const int a_lane = t * cw + g + a_item, b_lane = t * DP + g;
+    for (int s = 0; s < nbuf - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+        issue(s + nbuf - 1);
+        ring_wait(nbuf);
+        const float* s_in = smem + (s % nbuf) * stage + a_lane;
+        const float* s_d = smem + (s % nbuf) * stage + in + b_lane;
+#pragma unroll 1
+        for (int ly = 0; ly < TWY; ++ly) {
+#pragma unroll KS_UNROLL
+            for (int ks = 0; ks < TWZ / 8; ++ks) {
+                // the k8 step's B fragments, split once for all the items
+                uint32_t bb[NT][2], bs[NT][2];
+                const float* brow = s_d + (ly * TWZ + 8 * ks) * DP;
+#pragma unroll
+                for (int n = 0; n < NT; ++n)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const float v = brow[i * 4 * DP + 8 * n];
+                        bb[n][i] = tf32_rna(v);
+                        bs[n][i] = tf32_rna(v - __uint_as_float(bb[n][i]));
+                    }
+                const float* arow = s_in + ly * rowlen + 8 * ks * cw;
+#pragma unroll
+                for (int q = 0; q < TW_IPW; ++q) {
+                    if (q >= nq) break;
+                    const float* a = arow + q * a_qstep;
+                    const uint32_t raw[4] = {__float_as_uint(a[0]), __float_as_uint(a[8]),
+                                             __float_as_uint(a[4 * cw]),
+                                             __float_as_uint(a[4 * cw + 8])};
+                    uint32_t ab[4], as[4];
+                    split_tf32(raw, ab, as);
+                    // one chain: the step's three products
+                    float part[NT][4];
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        mma_tf32_first(part[n], as, bb[n][0], bb[n][1]);
+                        mma_tf32(part[n], ab, bs[n][0], bs[n][1]);
+                        mma_tf32(part[n], ab, bb[n][0], bb[n][1]);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) acc[q][n][e] += part[n][e];
+                    }
+                }
+            }
+        }
+        __syncthreads();  // the buffer is refilled nbuf - 1 stages on
+    }
+
+    const size_t nw = (size_t)K * K * p.nch * kp * p.np;
+    float* out = p.partial + (size_t)chunk * nw;
+#pragma unroll
+    for (int q = 0; q < TW_IPW; ++q) {
+        if (q >= nq) break;
+        const int dy = dy0 + q * dstep, j = (mt0 + mtl) * 16 + g;
+        const size_t base = (((size_t)dx * K + dy) * p.nch + ch) * kp;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const int o = n0 + 8 * n + 2 * t;
+            *reinterpret_cast<float2*>(out + (base + j) * p.np + o) =
+                make_float2(acc[q][n][0], acc[q][n][1]);
+            *reinterpret_cast<float2*>(out + (base + j + 8) * p.np + o) =
+                make_float2(acc[q][n][2], acc[q][n][3]);
+        }
+    }
+}
+
+// The checks both float32 entry points make of the chunk/tile geometry the
+// wrapper computed (`ops/conv_kernels.py` `tf32_geometry`): kp = k*cw
+// rounded up to `step` (8 forward, 16 wgrad).
+bool tf32_geometry_ok(int cin, int cout, int k, int cw, int nch, int kp, int nt, int np,
+                      int step) {
+    return cw >= 4 && cw % 4 == 0 && cw <= 28 && nch >= 1 &&
+           nch * cw >= cin && (nch - 1) * cw < cin && kp == (k * cw + step - 1) / step * step &&
+           nt >= 1 && nt <= MAXNT && np % (8 * nt) == 0 && np >= cout && np - 8 * nt < cout;
+}
+
+// a float32 field the kernels stage 16 bytes a copy
+inline bool stageable_f32(const void* p, int c) { return c % 4 == 0 && ((uintptr_t)p & 15) == 0; }
+
+// nbuf stages of `stage` floats, three where `blocks` blocks of them fit an
+// SM, else two; 0 where two do not fit
+inline size_t tf32_ring(int stage, int blocks, int* nbuf) {
+    const size_t bytes = sizeof(float) * (size_t)stage;
+    *nbuf = 3 * bytes * blocks <= SM_SMEM ? 3 : 2;
+    return 2 * bytes * blocks <= SM_SMEM ? *nbuf * bytes : 0;
+}
+
+template <int K, int NT, int RW>
+cudaError_t launch_fwd_tf32_rows(Tf32ConvParams p, cudaStream_t stream) {
+    const size_t smem = tf32_ring(fwd_tf32_stage(K, p.cw, p.kp, NT, RW), 1, &p.nbuf);
+    if (smem == 0) return cudaErrorInvalidValue;
+    const cudaError_t e = set_smem((const void*)conv_fwd_tf32_kernel<K, NT, RW>, smem);
+    if (e != cudaSuccess) return e;
+    const int ty = fwd_block_rows(RW);
+    const dim3 grid((p.nz + TFZ - 1) / TFZ, (p.ny + ty - 1) / ty, p.nx * (p.np / (8 * NT)));
+    conv_fwd_tf32_kernel<K, NT, RW><<<grid, TF_FWD_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int K, int NT>
+cudaError_t launch_fwd_tf32(Tf32ConvParams p, cudaStream_t stream) {
+    return launch_fwd_tf32_rows<K, NT, fwd_rows(NT)>(p, stream);
+}
+
+template <int K, int NT>
+cudaError_t launch_wgrad_tf32(Tf32WgradParams p, int nchunk, cudaStream_t stream) {
+    const size_t smem = tf32_ring(wgrad_tf32_stage(K, p.cw, p.kp, NT), TW_SM_BLOCKS, &p.nbuf);
+    if (smem == 0) return cudaErrorInvalidValue;
+    const cudaError_t e = set_smem((const void*)wgrad_tf32_kernel<K, NT>, smem);
+    if (e != cudaSuccess) return e;
+    const int groups = (p.kp / 16 + p.mc - 1) / p.mc;
+    const dim3 grid(nchunk, p.nch * (p.np / (8 * NT)) * groups, K);
+    wgrad_tf32_kernel<K, NT><<<grid, TW_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+// (k, nt) -> the kernel instantiation
+#define INS_TF32_NT(LAUNCH, K, ...)                                                     \
+    switch (nt) {                                                                       \
+        case 1: return LAUNCH<K, 1>(__VA_ARGS__);                                       \
+        case 2: return LAUNCH<K, 2>(__VA_ARGS__);                                       \
+        case 3: return LAUNCH<K, 3>(__VA_ARGS__);                                       \
+        default: return cudaErrorInvalidValue;                                          \
+    }
+#define INS_TF32_DISPATCH(LAUNCH, ...)                                                  \
+    switch (k) {                                                                        \
+        case 3: INS_TF32_NT(LAUNCH, 3, __VA_ARGS__)                                     \
+        case 5: INS_TF32_NT(LAUNCH, 5, __VA_ARGS__)                                     \
+        case 7: INS_TF32_NT(LAUNCH, 7, __VA_ARGS__)                                     \
+        default: return cudaErrorInvalidValue;                                          \
+    }
+
+cudaError_t fwd_tf32(int k, int nt, const Tf32ConvParams& p, cudaStream_t s) {
+    INS_TF32_DISPATCH(launch_fwd_tf32, p, s)
+}
+
+cudaError_t wgrad_tf32(int k, int nt, const Tf32WgradParams& p, int nchunk, cudaStream_t s) {
+    INS_TF32_DISPATCH(launch_wgrad_tf32, p, nchunk, s)
+}
+
+#undef INS_TF32_DISPATCH
+#undef INS_TF32_NT
+
+}  // namespace
+
+// float32 forward on the tensor cores in 3xTF32: h (nx, ny, nz, cin)
+// float32 (cin a multiple of 4: the wrapper pads it with zero channels),
+// wp the split B fragments (k, k, nch * kp/8, np/8, 32, 4) float32, out
+// (nx, ny, nz, cout) in float32 or bf16; (cw, nch, kp, nt, np) as
+// `ops/conv_kernels.py` `tf32_geometry` computes them.
+extern "C" int ins_conv_fwd_tf32(const void* h, const void* wp, const float* bias, int act,
+                                 void* out, int out_bf16, int nx, int ny, int nz, int cin,
+                                 int cout, int k, int cw, int nch, int kp, int nt, int np,
+                                 void* stream) {
+    if (!tf32_geometry_ok(cin, cout, k, cw, nch, kp, nt, np, 8) ||
+        !stageable_f32(h, cin) || ((uintptr_t)wp & 15))
+        return (int)cudaErrorInvalidValue;
+    const Tf32ConvParams p{static_cast<const float*>(h), static_cast<const float*>(wp), bias, act,
+                           out, out_bf16, nx, ny, nz, cin, cout, cw, nch, kp, np};
+    return (int)fwd_tf32(k, nt, p, (cudaStream_t)stream);
+}
+
+// Number of cell chunks (rows of the partial-sum buffer) of a float32 wgrad call.
+extern "C" int ins_conv_wgrad_tf32_chunks(int nx, int ny, int nz, int k, int nch, int nblk,
+                                          int kp) {
+    int xb, nchunk;
+    wgrad_tf32_chunks(nx, ny, nz, k, nch, nblk, kp, &xb, &nchunk);
+    return nchunk;
+}
+
+// float32 weight gradient on the tensor cores in 3xTF32: h (nx, ny, nz,
+// cin) and d (nx, ny, nz, cout) float32 (cin and cout multiples of 4: the
+// wrapper pads); dwp the packed float32 gradient (k, k, nch * kp, np),
+// partial (nchunk, k, k, nch * kp, np) float32 scratch.
+extern "C" int ins_conv_wgrad_tf32(const void* h, const void* d, float* partial, float* dwp,
+                                   int nx, int ny, int nz, int cin, int cout, int k, int cw,
+                                   int nch, int kp, int nt, int np, void* stream) {
+    if (!tf32_geometry_ok(cin, cout, k, cw, nch, kp, nt, np, 16) || !stageable_f32(h, cin) ||
+        !stageable_f32(d, cout))
+        return (int)cudaErrorInvalidValue;
+    int xb, nchunk;
+    wgrad_tf32_chunks(nx, ny, nz, k, nch, np / (8 * nt), kp, &xb, &nchunk);
+    const Tf32WgradParams p{static_cast<const float*>(h), static_cast<const float*>(d), partial,
+                            nx, ny, nz, cin, cout, cw, nch, kp, np, wgrad_tf32_mc(k, kp), xb};
+    const cudaStream_t s = (cudaStream_t)stream;
+    const cudaError_t e = wgrad_tf32(k, nt, p, nchunk, s);
     if (e != cudaSuccess) return (int)e;
     const size_t nw = (size_t)k * k * nch * kp * np;
     reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, s>>>(partial, dwp, nchunk, nw);

@@ -60,7 +60,7 @@
 #include <cstdint>
 
 #include "convio.cuh"  // bf16, CHAIN, cp.async, ring_wait, set_smem
-#include "tf32.cuh"    // split_tf32, mma_tf32, mma_tf32_first, load_split
+#include "tf32.cuh"    // FRAG, TAPS_CHAINED, load_split, row_products
 
 namespace {
 
@@ -73,10 +73,7 @@ constexpr int TMAXNT = 3;        // n8 tiles of output channels a block, at most
 constexpr int FCH = 16;          // channels a stage (two k8 steps)
 constexpr int FKS = FCH / 8;     // k8 steps a stage
 constexpr int FCHP = FCH + 4;    // their staged pitch in floats: 5 16-byte units (odd)
-constexpr int FRAG = 128;        // floats of one packed B fragment: 32 lanes x 4
 constexpr int TF_SM_BLOCKS = 2;  // blocks an SM the launch bounds ask for (128 registers)
-constexpr int TAPS_CHAINED = CHAIN / 3;  // taps in one tensor-core chain (3 mma a tap)
-static_assert(TAPS_CHAINED >= 1, "a chain holds one tap's three products");
 
 // floats of one stage: the window, then the ky taps' fragments of its two k8 steps
 template <int KY, int NT>
@@ -93,31 +90,6 @@ __device__ __forceinline__ void stage_g4(float* dst, const float* g, int plane, 
         cp_async16(dst, g + (((size_t)plane * nyp + y) * nz + z) * kc + c);
     else
         *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// One tap's products for a warp's two output rows (lo: row 0's window
-// row, hi: row 1's): per n8 tile the lane's split B fragment (big b0, big
-// b1, small b0, small b1; b: this lane's at tile 0) and small*big +
-// big*small + big*big into part, FIRST starting a chain.
-template <int NT, bool FIRST>
-__device__ __forceinline__ void tap_products(float (&part)[2][NT][4], const uint32_t (&lo_b)[4],
-                                             const uint32_t (&lo_s)[4], const uint32_t (&hi_b)[4],
-                                             const uint32_t (&hi_s)[4], const float* b) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-        const uint4 v = *reinterpret_cast<const uint4*>(b + t * FRAG);
-        if (FIRST) {
-            mma_tf32_first(part[0][t], lo_s, v.x, v.y);
-            mma_tf32_first(part[1][t], hi_s, v.x, v.y);
-        } else {
-            mma_tf32(part[0][t], lo_s, v.x, v.y);
-            mma_tf32(part[1][t], hi_s, v.x, v.y);
-        }
-        mma_tf32(part[0][t], lo_b, v.z, v.w);
-        mma_tf32(part[1][t], hi_b, v.z, v.w);
-        mma_tf32(part[0][t], lo_b, v.x, v.y);
-        mma_tf32(part[1][t], hi_b, v.x, v.y);
-    }
 }
 
 __device__ __forceinline__ float epilogue(float v, const float* bias, int co, int act) {
@@ -213,16 +185,16 @@ tap_tf32_kernel(const __grid_constant__ TapTf32Params p) {
         for (int ks = 0; ks < nsteps; ++ks) {
             const float* arow = s_in + ks * 8;
             const float* brow = s_w + ks * NT * FRAG;
-            uint32_t lo_b[4], lo_s[4], hi_b[4], hi_s[4];
-            load_split(arow, lo_b, lo_s);
+            uint32_t big[TRW][4], small[TRW][4];  // window rows dy and dy + 1
+            load_split(arow, big[0], small[0]);
 #pragma unroll 2
             for (int dy = 0; dy < KY; ++dy) {
-                load_split(arow + (dy + 1) * TTZ * FCHP, hi_b, hi_s);
+                load_split(arow + (dy + 1) * TTZ * FCHP, big[1], small[1]);
                 const float* b = brow + dy * FKS * NT * FRAG;
                 if (dy % TAPS_CHAINED == 0)
-                    tap_products<NT, true>(part, lo_b, lo_s, hi_b, hi_s, b);
+                    row_products<NT, TRW, true>(part, big, small, b);
                 else
-                    tap_products<NT, false>(part, lo_b, lo_s, hi_b, hi_s, b);
+                    row_products<NT, TRW, false>(part, big, small, b);
                 if ((dy + 1) % TAPS_CHAINED == 0 || dy == KY - 1) {
 #pragma unroll
                     for (int ro = 0; ro < TRW; ++ro)
@@ -233,8 +205,8 @@ tap_tf32_kernel(const __grid_constant__ TapTf32Params p) {
                 }
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
-                    lo_b[i] = hi_b[i];
-                    lo_s[i] = hi_s[i];
+                    big[0][i] = big[1][i];
+                    small[0][i] = small[1][i];
                 }
             }
         }

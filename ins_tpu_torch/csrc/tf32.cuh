@@ -1,5 +1,5 @@
-// The 3xTF32 pieces of the float32 tensor-core kernels (tapconv_tf32.cu,
-// transforms.cu): a float32 x split into a TF32 big part rna(x) and a
+// The 3xTF32 pieces of the float32 tensor-core kernels (conv.cu,
+// tapconv_tf32.cu, transforms.cu): a float32 x split into a TF32 big part rna(x) and a
 // TF32 small part rna(x - big) (round to nearest, ties away, 10-bit
 // mantissa), and mma.sync m16n8k8 with TF32 operands and float32 sums.
 // A product is small*big + big*small + big*big, the small*small term
@@ -10,9 +10,13 @@
 
 #include <cstdint>
 
-#include "convio.cuh"  // ldsm_x4
+#include "convio.cuh"  // CHAIN, ldsm_x4
 
 namespace {
+
+constexpr int FRAG = 128;  // floats of one packed, split B fragment: 32 lanes x 4
+constexpr int TAPS_CHAINED = CHAIN / 3;  // taps in one tensor-core chain (3 mma a tap)
+static_assert(TAPS_CHAINED >= 1, "a chain holds one tap's three products");
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
     uint32_t r;
@@ -61,6 +65,31 @@ __device__ __forceinline__ void load_split(const float* p, uint32_t (&big)[4],
     uint32_t a[4];
     ldsm_x4(a, reinterpret_cast<const bf16*>(p));
     split_tf32(a, big, small);
+}
+
+// One tap's products for a warp's RW output rows (row r from its split
+// window row big[r], small[r]): per n8 tile the lane's split B fragment
+// (big b0, big b1, small b0, small b1; b: this lane's at tile 0, tiles
+// FRAG floats apart) and small*big + big*small + big*big into part, FIRST
+// starting a chain.
+template <int NT, int RW, bool FIRST>
+__device__ __forceinline__ void row_products(float (&part)[RW][NT][4], const uint32_t (&big)[RW][4],
+                                             const uint32_t (&small)[RW][4], const float* b) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+        const uint4 v = *reinterpret_cast<const uint4*>(b + t * FRAG);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+            if (FIRST)
+                mma_tf32_first(part[r][t], small[r], v.x, v.y);
+            else
+                mma_tf32(part[r][t], small[r], v.x, v.y);
+        }
+#pragma unroll
+        for (int r = 0; r < RW; ++r) mma_tf32(part[r][t], big[r], v.z, v.w);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) mma_tf32(part[r][t], big[r], v.x, v.y);
+    }
 }
 
 }  // namespace

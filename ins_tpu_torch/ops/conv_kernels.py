@@ -20,14 +20,18 @@ card), tanh or identity, float32 or bfloat16.
 Each wrapper runs its hand-written CUDA kernel (`csrc/conv.cu`) for CUDA
 tensors and raises on what the kernel does not take; for CPU tensors it
 runs its plain version beside it (circular pad and ``F.conv3d`` on the
-rounded operands).  On the card the operands' dtype picks the kernel:
-bfloat16 operands (the CNN's default ``compute_dtype``) run the
-tensor-core kernels, whose z taps fold into the contraction over the
-packed weights of `pack_conv_weights` (`mma_geometry` gives the shapes;
-the weight gradient comes back packed and `unpack_conv_wgrad` restores
-the canonical layout); float32 operands run the FP32 FMA kernels (launch
-keys ``"fusedconv_3d+f32"``, ``"fusedconv_wgrad_3d+f32"``).  Nothing
-falls back from one to the other.  `make_fused_layer` wraps both kernels as a
+rounded operands).  On the card both routes run on the tensor cores with
+the z taps folded into the contraction, and the operands' dtype picks the
+kernel: bfloat16 operands (the CNN's default ``compute_dtype``) run the
+bf16 kernels over the packed weights of `pack_conv_weights`
+(`mma_geometry` gives the shapes; the weight gradient comes back packed
+and `unpack_conv_wgrad` restores the canonical layout); float32 operands
+run the 3xTF32 kernels (each operand split into TF32 big and small
+parts, the float32 class; launch keys ``"fusedconv_3d+f32"``,
+``"fusedconv_wgrad_3d+f32"``) over the split fragments of
+`pack_conv_weights_tf32`, with the shapes of `tf32_geometry` (its own for
+each kernel).  Nothing falls back from one to the other.
+`make_fused_layer` wraps both kernels as a
 `torch.autograd.Function`: forward kernel; backward ``dpre = dact(y, ct)``
 in float32 cast to h's dtype, the wgrad kernel for dw, the float32 sum of
 dpre for the bias and the forward kernel on dpre with flipped,
@@ -92,7 +96,9 @@ __all__ = [
     "fusedconv_wgrad_3d_plain",
     "flip_taps",
     "mma_geometry",
+    "tf32_geometry",
     "pack_conv_weights",
+    "pack_conv_weights_tf32",
     "unpack_conv_wgrad",
     "make_fused_layer",
     "lanes",
@@ -195,16 +201,62 @@ def _col_blocks(cout, maxnt):
     return nblk, -(-n8 // nblk)
 
 
-def pack_conv_weights(w):
+# the float32 (3xTF32) kernels' chunks of cw channels.  The forward loads
+# A by ldmatrix on rows cw floats apart: an odd number of 16-byte units puts
+# an ldmatrix's 8 rows on distinct banks.  The weight gradient loads A by
+# 32-bit loads at window offsets t·cw + g (t < 4, g < 8): distinct banks
+# where t·cw is 0, 8, 16, 24 mod 32, or the lanes' words overlap (cw = 4).
+_TF32_FWD_CW = (4, 12, 20, 28)
+_TF32_WGRAD_CW = (4, 8, 24)
+_FRAG = 128  # floats of one packed, split B fragment: 32 lanes x 4
+
+
+def _fwd_tf32_smem(k, cw, kp, nt):
+    """Bytes of a float32 forward stage (csrc/conv.cu `fwd_tf32_stage`): the
+    window of (ty + k − 1) rows of 32 + k − 1 cells and its row tails (ty
+    = 16 output rows, 32 with a single n8 tile), then the k taps' split
+    fragments."""
+    ty = 32 if nt == 1 else 16
+    return 4 * ((ty + k - 1) * ((32 + k - 1) * cw + kp - k * cw) + k * (kp // 8) * nt * _FRAG)
+
+
+def tf32_geometry(cin, cout, k, wgrad=False):
+    """`MmaGeometry` of the float32 (3xTF32) kernels for a (cin -> cout, k)
+    layer: cin padded to a multiple of 4, in ``nch`` chunks of ``cw`` (the
+    forward's 4, 12, 20 or 28, the weight gradient's 4, 8 or 24: the
+    conflict-free pitches of each kernel's fragment loads), a chunk's
+    ``k·cw`` padded to ``kp`` (a multiple of 8, of 16 for the weight
+    gradient's m16 tiles), output channels as `mma_geometry`.  The chunk
+    width is the one with the fewest contraction rows ``nch·kp`` (ties:
+    the fewest chunks) whose forward stage fits twice in a block's shared
+    memory: (12, 2, 64, 3, 24) for 24 -> 24 at k = 5, (4, 1, 24, 3, 24)
+    for 3 -> 24; the weight gradient (24, 1, 128, 3, 24) and (4, 1, 32, 3,
+    24)."""
+    c4 = -(-cin // 4) * 4
+    nblk, nt = _col_blocks(cout, 3)
+    step = 16 if wgrad else 8
+    best = None
+    for cw in _TF32_WGRAD_CW if wgrad else _TF32_FWD_CW:
+        kp = -(-k * cw // step) * step
+        if not wgrad and 2 * _fwd_tf32_smem(k, cw, kp, nt) > _SMEM_MAX:
+            continue
+        nch = -(-c4 // cw)
+        cand = (nch * kp, nch, MmaGeometry(cw, nch, kp, nt, nblk * nt * 8))
+        best = cand if best is None else min(best, cand)
+    return best[2]
+
+
+def pack_conv_weights(w, geometry=None):
     """Canonical ``(k, k, k, cin, cout)`` weights -> the tensor-core
     kernels' ``(k, k, nch·kp, np)``: row ``ch·kp + dz·cw + c`` of tap
     (dx, dy) holds ``w[dx, dy, dz, ch·cw + c]``, zero past cin, past
-    ``k·cw`` rows of a chunk and past cout columns (`mma_geometry`).  The
-    forward over it is, for each (dx, dy, chunk), the window
-    ``row[z·cw : z·cw + kp]`` of the wrap-padded, channel-padded input row
-    (x + dx − r, y + dy − r) times that tap's (kp, np) block."""
+    ``k·cw`` rows of a chunk and past cout columns (``geometry``, by
+    default `mma_geometry`).  The forward over it is, for each (dx, dy,
+    chunk), the window ``row[z·cw : z·cw + kp]`` of the wrap-padded,
+    channel-padded input row (x + dx − r, y + dy − r) times that tap's
+    (kp, np) block."""
     k, cin, cout = w.shape[0], w.shape[3], w.shape[4]
-    g = mma_geometry(cin, cout, k)
+    g = geometry or mma_geometry(cin, cout, k)
     wc = F.pad(w, (0, g.np - cout, 0, g.nch * g.cw - cin))
     wc = wc.reshape(k, k, k, g.nch, g.cw, g.np).permute(0, 1, 3, 2, 4, 5)
     wc = wc.reshape(k, k, g.nch, k * g.cw, g.np)
@@ -221,11 +273,23 @@ def _stageable(t, mult=8):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def unpack_conv_wgrad(dwp, k, cin, cout):
+def pack_conv_weights_tf32(w):
+    """Canonical float32 ``(k, k, k, cin, cout)`` weights -> the 3xTF32
+    forward kernel's ``(k, k, nch·kp/8, np/8, 32, 4)``: the rows of
+    `pack_conv_weights` for `tf32_geometry`, per (dx, dy, k8 step of
+    chunk ch at step ``ch·kp/8 + ks``, n8 tile) the 32 lanes' split B
+    fragments of ``mma.m16n8k8`` as `pack_tap_weights_tf32` lays them out
+    (big b0, big b1, small b0, small b1)."""
+    k, cin, cout = w.shape[0], w.shape[3], w.shape[4]
+    rows = pack_conv_weights(w.to(torch.float32), tf32_geometry(cin, cout, k))
+    return pack_tap_weights_tf32(rows[..., :cout])
+
+
+def unpack_conv_wgrad(dwp, k, cin, cout, geometry=None):
     """The packed ``(k, k, nch·kp, np)`` weight gradient -> canonical
     ``(k, k, k, cin, cout)`` (the inverse of `pack_conv_weights` on the
-    rows and columns it fills)."""
-    g = mma_geometry(cin, cout, k)
+    rows and columns it fills; ``geometry`` by default `mma_geometry`)."""
+    g = geometry or mma_geometry(cin, cout, k)
     d = dwp.reshape(k, k, g.nch, g.kp, g.np)[:, :, :, : k * g.cw, :cout]
     d = d.reshape(k, k, g.nch, k, g.cw, cout).permute(0, 1, 3, 2, 4, 5)
     return d.reshape(k, k, k, g.nch * g.cw, cout)[..., :cin, :].contiguous()
@@ -297,17 +361,16 @@ def fusedconv_3d(h, w, bias=None, act=None, *, out_dtype=None):
         lib = _build.load()
         common = (int(act == "tanh"), out.data_ptr(), int(out_dtype == torch.bfloat16), *box)
         stream = current_stream(device)
+        wk = w.detach().to(device=device, dtype=h.dtype)
         if h.dtype == torch.bfloat16:
-            wp = pack_conv_weights(w.detach().to(device=device, dtype=h.dtype)).contiguous()
-            hs = _stageable(h)
-            err = lib.ins_conv_fwd_mma(hs.data_ptr(), wp.data_ptr(), ptr(bk), *common,
-                                       hs.shape[-1], cout, k, *mma_geometry(cin, cout, k), stream)
-            key = "fusedconv_3d"
+            geo, wp, hs = mma_geometry(cin, cout, k), pack_conv_weights(wk), _stageable(h)
+            launch, key = lib.ins_conv_fwd_mma, "fusedconv_3d"
         else:
-            wk = w.detach().to(device=device, dtype=h.dtype).contiguous()
-            err = lib.ins_conv_fwd(h.data_ptr(), 0, wk.data_ptr(), ptr(bk), *common, cin, cout,
-                                   k, stream)
-            key = "fusedconv_3d+f32"
+            geo, wp, hs = tf32_geometry(cin, cout, k), pack_conv_weights_tf32(wk), _stageable(h, 4)
+            launch, key = lib.ins_conv_fwd_tf32, "fusedconv_3d+f32"
+        wp = wp.contiguous()
+        err = launch(hs.data_ptr(), wp.data_ptr(), ptr(bk), *common, hs.shape[-1], cout, k, *geo,
+                     stream)
         _build.check(err, key)
         LAUNCHES[key] += 1
     return out
@@ -319,8 +382,8 @@ def fusedconv_wgrad_3d(h, d, k):
     for ``h (nx, ny, nz, cin)`` and the pre-activation cotangent
     ``d (nx, ny, nz, cout)``, d rounded to h's dtype first (as the JAX
     kernel does); float32 ``(k, k, k, cin, cout)``, the same on every run.
-    On the card h's dtype picks the kernel (bfloat16: the tensor-core
-    kernel; float32: the FMA kernel)."""
+    On the card h's dtype picks the tensor-core kernel (bfloat16: bf16
+    products; float32: 3xTF32, launch key ``"fusedconv_wgrad_3d+f32"``)."""
     if h.device.type == "cpu":
         return fusedconv_wgrad_3d_plain(h, d, k)
     _check_shapes("fusedconv_wgrad_3d", h, k, h.shape[-1])
@@ -334,24 +397,21 @@ def fusedconv_wgrad_3d(h, d, k):
         if h.dtype == torch.bfloat16:
             g = mma_geometry(cin, cout, k)
             nchunk = lib.ins_conv_wgrad_mma_chunks(*box, k, g.nch, g.np // (8 * g.nt))
-            shape = (k, k, g.nch * g.kp, g.np)
-            partial = torch.empty((nchunk, *shape), dtype=torch.float32, device=device)
-            dwp = torch.empty(shape, dtype=torch.float32, device=device)
             hs, ds = _stageable(h), _stageable(d)
-            err = lib.ins_conv_wgrad_mma(hs.data_ptr(), ds.data_ptr(), partial.data_ptr(),
-                                         dwp.data_ptr(), *box, hs.shape[-1], ds.shape[-1], k,
-                                         *g, current_stream(device))
-            _build.check(err, "fusedconv_wgrad_3d")
-            LAUNCHES["fusedconv_wgrad_3d"] += 1
-            return unpack_conv_wgrad(dwp, k, cin, cout)
-        nchunk = lib.ins_conv_wgrad_chunks(*box)
-        partial = torch.empty((nchunk, k, k, k, cin, cout), dtype=torch.float32, device=device)
-        dw = torch.empty((k, k, k, cin, cout), dtype=torch.float32, device=device)
-        err = lib.ins_conv_wgrad(h.data_ptr(), 0, d.data_ptr(), 0, partial.data_ptr(),
-                                 dw.data_ptr(), *box, cin, cout, k, current_stream(device))
-        _build.check(err, "fusedconv_wgrad_3d+f32")
-        LAUNCHES["fusedconv_wgrad_3d+f32"] += 1
-    return dw
+            launch, key = lib.ins_conv_wgrad_mma, "fusedconv_wgrad_3d"
+        else:
+            g = tf32_geometry(cin, cout, k, wgrad=True)
+            nchunk = lib.ins_conv_wgrad_tf32_chunks(*box, k, g.nch, g.np // (8 * g.nt), g.kp)
+            hs, ds = _stageable(h, 4), _stageable(d, 4)
+            launch, key = lib.ins_conv_wgrad_tf32, "fusedconv_wgrad_3d+f32"
+        shape = (k, k, g.nch * g.kp, g.np)
+        partial = torch.empty((nchunk, *shape), dtype=torch.float32, device=device)
+        dwp = torch.empty(shape, dtype=torch.float32, device=device)
+        err = launch(hs.data_ptr(), ds.data_ptr(), partial.data_ptr(), dwp.data_ptr(), *box,
+                     hs.shape[-1], ds.shape[-1], k, *g, current_stream(device))
+        _build.check(err, key)
+        LAUNCHES[key] += 1
+    return unpack_conv_wgrad(dwp, k, cin, cout, g)
 
 
 class _FusedLayerFn(torch.autograd.Function):
