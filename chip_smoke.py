@@ -22,6 +22,11 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # (three layers: forward, dh, dw),
                                       # the package of the tree DIR and
                                       # this one's, in turns
+    python3 chip_smoke.py --fold-turns DIR    # only the folded pass B's
+                                      # cases (`FOLD_CASES`: ms and error
+                                      # against float64), the package of
+                                      # the tree DIR and this one's, in
+                                      # turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -33,8 +38,12 @@ Phases, each raising on failure (exit code != 0, no result line):
    at 64³ and 256³ on inputs made by numpy from a seed: the RECON stage
    with emit_u and usnew, a stream-base stage, the unmerged stage (with
    and without k streams), each also with the Smagorinsky force and a
-   body force, pass B dense and folded (one level, and two), the
-   correction and the plane transforms; the stage kernels' temperature
+   body force, pass B dense and folded (the fused kernel, `fold_case`:
+   one level and two, and with the 256³ cases 128³, the ragged n = 100
+   and 512³ at two levels and one, each also against the plain version
+   in float64, within twice the distance of the eight-launch route it
+   replaced), the correction and
+   the plane transforms; the stage kernels' temperature
    stream (`momentum_stage_divhat_3d` with T elided, usnew, gdir 0 and
    the dissipation; `pcmsd_hat_3d` as on the Boussinesq path's stages 1-2,
    with a RECON base, emit_u, usnew and T elided, and with a stream base,
@@ -159,7 +168,11 @@ Phases, each raising on failure (exit code != 0, no result line):
    `pcmsd_hat_halo_3d`, `pressure_correct_qhat_halo_3d`, the sharded
    pass B) at the shard shapes of a 4-way x-slab of 64³ and 256³ (lx =
    n/4, ghost planes cut from the neighbours' planes of the global field)
-   against their plain versions, timed at 256³; then on every one of the
+   against their plain versions (the sharded pass B also at the ragged
+   (100, 25, 100) at yoff 50 and at a 4-way shard of 1024³, (1024, 256,
+   1024) at yoff 512 (two levels) and 256 (one), and against float64 as
+   in phase 1), timed at 256³ (the sharded pass B in every case); then on
+   every one of the
    four slabs against the matching x-rows of the single-device kernels on
    the whole cube, and the sharded pass B on y-columns [ly·r, ly·r + ly)
    of the full-x divhat at yoff = ly·r against the same columns of the
@@ -295,6 +308,31 @@ TF32_CLASS_TOL = 1e-6
 # the fused conv layer's 3xTF32 kernels against the float64 plain version
 # (sums of up to 3000 split products a cell; ~2e-6 at 128³ on an H100)
 CONV_TF32_TOL = 1e-5
+# the folded pass B's cases (`fold_case`): (n, fold levels, ly, yoff); ly
+# = n is the cube (`passB_fold`), else an x-slab shard's y-slice
+# (`passB_sharded`).  Phase 1 holds the cubes at 64³ and 256³ (one level,
+# then two) and, with the 256³ ones, 128³, the ragged n = 100 (halves of
+# 50) and 512³ at two levels and one (stages of 16 of K); phase 8 the
+# shards of the halo path's 4-way cut (at 52³, 64³ and 256³) and, with
+# the 256³ one, the ragged shard and a 4-way shard of 1024³ at two levels
+# (1024's default) and one (32-column panels, stages of 8 of K).
+# `--fold-turns` runs them all.
+FOLD_EXTRA_CUBES = ((128, 1, 128, 0), (100, 1, 100, 0), (512, 2, 512, 0), (512, 1, 512, 0))
+FOLD_EXTRA_SHARDS = ((100, 1, 25, 50), (1024, 2, 256, 512), (1024, 1, 256, 256))
+FOLD_CASES = ((256, 1, 256, 0), (256, 2, 256, 0), *FOLD_EXTRA_CUBES, (64, 1, 64, 0),
+              (64, 2, 64, 0), (256, 1, 64, 64), (64, 1, 16, 16), (52, 1, 13, 13),
+              *FOLD_EXTRA_SHARDS)
+# each folded pass B case's max|Δ|/max|ref| against its plain version in
+# float64 by the route before the fused kernel (eight launches around the
+# plane GEMM; `--fold-turns` on the same inputs, NVIDIA H100 80GB HBM3, 700
+# W), keyed (n, levels, ly): the fused kernel is held within twice it
+FOLD_PARENT_F64 = {
+    (256, 1, 256): 5.858e-07, (256, 2, 256): 6.212e-07, (128, 1, 128): 9.626e-07,
+    (100, 1, 100): 7.946e-07, (64, 1, 64): 6.586e-07, (64, 2, 64): 7.660e-07,
+    (256, 1, 64): 5.002e-07, (64, 1, 16): 5.178e-07, (52, 1, 13): 7.944e-07,
+    (100, 1, 25): 4.893e-07, (512, 2, 512): 8.258e-07, (512, 1, 512): 8.481e-07,
+    (1024, 2, 256): 5.343e-07, (1024, 1, 256): 5.859e-07,
+}
 SEED = 20261016
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
@@ -452,6 +490,45 @@ def fold_ops(n, L):
             + OPS_PER_CELL["eigen_scale"] * cells + L * 2 * OPS_PER_CELL["fold_split"] * cells)
 
 
+def fold_case(n, levels, ly, yoff):
+    """A `Case` of the folded pass B (`FOLD_CASES`' terms) on an input made
+    from a seed: the kernel and its float32 plain version, held against
+    the plain version in float64 (float64 fold matrices) within twice
+    `FOLD_PARENT_F64`, and within `REL_TOL` of the float32 plain
+    version."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import (
+        make_fused_projection, make_passB_sharded, passB_fold, passB_fold_plain, passB_sharded,
+        passB_sharded_plain, poisson_fold_consts,
+    )
+
+    dev = torch.device(DEVICE)
+    dxs = (2 * np.pi / n,) * 3
+    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, device=dev) if ly == n
+            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=dev))
+    if levels != proj["fold_levels"]:
+        mats, _, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=levels, device=dev)
+        proj = dict(proj, fold_mats=mats, fold_levels=levels)
+    mats64, _, _ = poisson_fold_consts((n,) * 3, dxs, torch.float64, levels=levels, device=dev)
+    p64 = {k: proj[k] for k in ("dxs", "vol", "eps")}
+    p64.update(fold_mats=mats64, fold_levels=levels)
+    rng = np.random.default_rng(SEED + 31 * n + 7 * ly + levels)
+    h = torch.from_numpy(rng.standard_normal((n, ly, n), dtype=np.float32)).to(dev)
+    if ly == n:
+        label = f"{n}³, {levels} level{'s' if levels > 1 else ''}"
+        kfn, pfn = lambda: (passB_fold(h, proj),), lambda: (passB_fold_plain(h, proj),)
+        ref = lambda: (passB_fold_plain(h.double(), p64),)  # noqa: E731
+    else:
+        label = f"({n}, {ly}, {n}) at yoff {yoff}, {levels} level{'s' if levels > 1 else ''}"
+        kfn = lambda: (passB_sharded(h, proj, yoff),)  # noqa: E731
+        pfn = lambda: (passB_sharded_plain(h, proj, yoff),)  # noqa: E731
+        ref = lambda: (passB_sharded_plain(h.double(), p64, yoff),)  # noqa: E731
+    return Case(label, kfn, pfn, ref=ref, inputs=(h, *proj["fold_mats"]),
+                ops=fold_ops(n, levels) * ly / n, tol=2 * FOLD_PARENT_F64[n, levels, ly],
+                plain_tol=REL_TOL)
+
+
 def card_line(query="name,power.limit"):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -473,10 +550,7 @@ def kernel_cases(n):
     import torch
 
     from ins_tpu_torch.ops import stage_kernels as sk
-    from ins_tpu_torch.ops.poisson_kernels import (
-        make_fused_projection, passB, passB_fold, passB_fold_plain, passB_plain,
-        poisson_fold_consts,
-    )
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, passB, passB_plain
 
     rng = np.random.default_rng(SEED + n)
     dev = torch.device(DEVICE)
@@ -639,8 +713,6 @@ def kernel_cases(n):
     }
     if n % 4:  # a ragged cube (RAGGED_N): the stage cases only
         return cases
-    mats2, levels2, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=2, device=dev)
-    proj2 = dict(proj, fold_mats=mats2, fold_levels=levels2)
     return {
         **cases,
         "passB": [
@@ -649,16 +721,9 @@ def kernel_cases(n):
                  inputs=(divhat, proj["Vinv"], proj["V"]),
                  ops=OPS_PER_CELL["eigen_scale"] * cells + 2 * gemm),
         ],
-        "passB_fold": [
-            Case(f"divhat -> qhat, {proj['fold_levels']} level",
-                 lambda: (passB_fold(divhat, proj),),
-                 lambda: (passB_fold_plain(divhat, proj),),
-                 inputs=(divhat, *proj["fold_mats"]), ops=fold_ops(n, proj["fold_levels"])),
-            Case("divhat -> qhat, 2 levels",
-                 lambda: (passB_fold(divhat, proj2),),
-                 lambda: (passB_fold_plain(divhat, proj2),),
-                 inputs=(divhat, *mats2), ops=fold_ops(n, 2)),
-        ],
+        # one level first (the main path's), two; with 256³ the other cubes
+        "passB_fold": [fold_case(n, 1, n, 0), fold_case(n, 2, n, 0)]
+        + ([fold_case(*c) for c in FOLD_EXTRA_CUBES] if n == 256 else []),
         "pressure_correct_qhat_3d": [
             Case("ut, qhat -> u",
                  lambda: (sk.pressure_correct_qhat_3d(ut_prev, qhat, dxs, proj["V"], proj["VT"]),),
@@ -1963,8 +2028,8 @@ def phase_profile_split(tag, setup, method, u0, dt, theta=None, temp0=None, chai
         key = ("collectives" if "nccl" in e.key.lower() else
                "smag" if "smag_kernel" in e.key else
                "stage" if "stage_kernel" in e.key else
+               "pass B" if ("eigen_scale" in e.key or "passb_fold" in e.key) else
                "GEMM" if "gemm" in e.key.lower() else
-               "pass B" if ("eigen_scale" in e.key or "fold_" in e.key) else
                "correct" if "correct" in e.key else "glue")
         split[key] += e.self_device_time_total / 1e3 / 3
     dev = sum(split.values())
@@ -2406,14 +2471,9 @@ def halo_kernel_cases(n, rank=1):
                  inputs=(L["u"], L["qhat"], L["qhat_hi1"], proj["V"], proj["VT"]),
                  ops=OPS_PER_CELL["correct"] * cells + 2 * gemm(lx) + 2 * gemm(1)),
         ],
-        "passB_sharded": [
-            Case(f"(n, ly, n) y-slice at yoff {rank * ly} -> qhat, "
-                 f"{proj['fold_levels']} fold level",
-                 lambda: (proj["passB"](L["h"], rank * ly),),
-                 lambda: (proj["passB_plain"](L["h"], rank * ly),),
-                 inputs=(L["h"], *proj["fold_mats"]),
-                 ops=fold_ops(n, proj["fold_levels"]) * ly / n),
-        ],
+        # the halo path's y-slice, then at the largest size the ragged shard
+        "passB_sharded": [fold_case(n, proj["fold_levels"], ly, rank * ly)]
+        + ([fold_case(*c) for c in FOLD_EXTRA_SHARDS] if n == 256 else []),
     }
 
 
@@ -3619,6 +3679,30 @@ def conv_turns(parent):
     run_turns("--conv-time", parent)
 
 
+def fold_time():
+    """One turn of `fold_turns`: each of `FOLD_CASES` in this process, its
+    ms (CUDA events, mean of two runs of 10) and its max relative error
+    against the plain version in float64.  {label: [ms, err]}."""
+    import torch
+
+    out = {}
+    for c in FOLD_CASES:
+        case = fold_case(*c)
+        got, ref = case.kfn()[0], case.ref()[0]
+        out[case.label] = [(cuda_ms(case.kfn) + cuda_ms(case.kfn)) / 2,
+                           rel_err(got.double(), ref)]
+        del case, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def fold_turns(parent):
+    """ms and float64 error of the folded pass B's cases (`fold_time`) of
+    the package in the tree `parent` and of this tree's, each in its own
+    process, in turns: parent, this, this, parent."""
+    run_turns("--fold-time", parent)
+
+
 def run_turns(flag, parent):
     """Run this script with `flag ROOT` for ROOT = parent, this tree, this
     tree, parent (each in its own process); print each one's last line."""
@@ -3730,7 +3814,8 @@ HAT_KERNELS = (
 )
 LES_KERNELS = ("smagorinsky_force_3d", "pcmsd_hat_3d+smag")
 # the cube wrappers that run plane-transform GEMMs around a stage or
-# correction kernel (split by `profile_cases` under --profile)
+# correction kernel (split by `profile_cases` under --profile), and the
+# folded pass B (one kernel: its device time alone)
 STAGE_WRAPPERS = ("pcmsd_hat_3d", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
                   "momentum_stage_divhat_3d", "momentum_stage_divhat_3d+temp",
                   "pressure_correct_qhat_3d", "passB_fold")
@@ -3758,7 +3843,7 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pcmsd_hat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
     "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
     "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:451"),
-    "passB_fold": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:432"),
+    "passB_fold": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:432"),
     "smagorinsky_force_3d": ("ins_tpu_torch/csrc/smag.cu", "ins_tpu/ops/pallas_kernels.py:2292"),
     "pcmsd_hat_3d+smag": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2639"),
     "pcmsd_hat_3d+temp": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2645"),
@@ -3782,7 +3867,7 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pcmsd_hat_halo_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:3183"),
     "pressure_correct_qhat_halo_3d": ("ins_tpu_torch/csrc/correct.cu",
                                       "ins_tpu/ops/pallas_kernels.py:1937"),
-    "passB_sharded": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:480"),
+    "passB_sharded": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:480"),
     "smagorinsky_force_halo_3d": ("ins_tpu_torch/csrc/smag.cu",
                                   "ins_tpu/ops/pallas_kernels.py:2243"),
     "momentum_stage_divhat_halo_3d+smag": ("ins_tpu_torch/csrc/stage.cu",
@@ -3828,6 +3913,11 @@ def main():
                          "layer's forward, input gradient and weight gradient at 128³) of "
                          "the package in the tree PARENT and of this tree's, in turns")
     ap.add_argument("--conv-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--fold-turns", metavar="PARENT",
+                    help="only time the folded pass B's cases (and their error against "
+                         "float64) of the package in the tree PARENT and of this tree's, "
+                         "in turns")
+    ap.add_argument("--fold-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -3854,7 +3944,11 @@ def main():
     if args.conv_turns:
         conv_turns(args.conv_turns)
         return
-    root = args.stack_time or args.chain_time or args.train_time or args.conv_time
+    if args.fold_turns:
+        fold_turns(args.fold_turns)
+        return
+    root = (args.stack_time or args.chain_time or args.train_time or args.conv_time
+            or args.fold_time)
     sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3865,9 +3959,10 @@ def main():
         times = chain_time()
         print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
         return
-    if args.train_time or args.conv_time:  # one turn of --train-turns / --conv-turns
+    if args.train_time or args.conv_time or args.fold_time:  # one turn of --*-turns
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        times = train_time() if args.train_time else conv_time()
+        times = (train_time() if args.train_time else conv_time() if args.conv_time
+                 else fold_time())
         print(json.dumps({**times, "root": os.path.abspath(root)}))
         return
     if args.stack_time:  # one turn of --stack-turns
@@ -3951,7 +4046,8 @@ def main():
     del setup
     phase_done("phase 7 (LMWray3)")
     results.update(phase_kernels(halo_kernel_cases, (HALO_RAGGED_N, 64, 256),
-                                 time_all=("pcmsd_hat_halo_3d",) + HALO_LES_KERNELS))
+                                 time_all=("pcmsd_hat_halo_3d", "passB_sharded")
+                                 + HALO_LES_KERNELS))
     if args.profile:
         profile_cases(halo_kernel_cases(256))
     for n in (64, 256):

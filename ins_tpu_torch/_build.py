@@ -73,8 +73,7 @@ _SIGNATURES = {
         [_c_ptr] + [_c_int] * 6 + [_c_f32] * 5 + [_c_ptr],
         _c_int,
     ),
-    "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
-    "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
+    "ins_passb_fold_f32": ([_c_ptr] * 8 + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr], _c_int),
     "ins_smag_f32": (
         [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
         _c_int,

@@ -121,10 +121,11 @@ class HatState(NamedTuple):
 # The per-op chain's Poisson solve on the card: the 3-pass kernels
 # (`make_poisson_pallas`) on cubes from this extent up, `make_poisson_mm`'s
 # contractions below it.  `chip_smoke.py`'s `solve_gate_times` measured the
-# device time per solve on an H100 (PERF.md §6): the contractions faster
-# at 64³ and 128³ (0.044 against 0.087 ms, 0.189 against 0.213), the
-# 3-pass kernels at 256³ (1.820 against 1.830).
-POISSON_PALLAS_MIN_N = 256
+# device time per solve on an H100 with the fused folded pass B (PERF.md
+# §6): the contractions faster at 64³ (0.0436 against 0.0488 ms), the
+# 3-pass kernels at 128³ (0.1043 against 0.1900) and 256³ (0.8814 against
+# 1.8105).
+POISSON_PALLAS_MIN_N = 128
 
 
 def fastpath_applicable(setup, method, psolver):

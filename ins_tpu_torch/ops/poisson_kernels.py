@@ -19,9 +19,13 @@ the odd frequencies solve as ``S_o · scale(R_o · o)`` and the even ones
 recurse on e (the even half-basis is the n/2-point basis scaled by
 1/√2), then ``qhat = [q_e/2 + q_o; q_e/2 − q_o]``; the leaf is dense.
 
-On CUDA tensors each runs as GEMMs (`csrc/transforms.cu`) around the
-eigen-scale, split and combine kernels of `csrc/poisson.cu`; on CPU
-tensors as the plain versions `passB_plain` and `passB_fold_plain`.
+On CUDA tensors the folded pass B is one launch of `csrc/fold.cu`'s
+fused kernel (split, half-size 3xTF32 x-products, eigen-scale and combine
+on a panel of columns in shared memory; the C entry picks the panel width
+and the ring depth from n, and refuses n > 1024), and the dense one runs
+as GEMMs (`csrc/transforms.cu`) around the eigen-scale kernel of
+`csrc/poisson.cu`; on CPU tensors both run as the plain versions
+`passB_plain` and `passB_fold_plain`.
 
 `make_passB_sharded` is the same pass B on a shard's (n, ly, n) y-slice
 of an x-slab mesh (`parallel/halo.py`), whose eigen-scale takes the
@@ -200,10 +204,11 @@ def passB_fold_plain(h, proj):
     return _fold_plain(h, proj, 0, 1)
 
 
-def _scale(g, kmul, odd, proj, yoff=0):
+def _scale(g, proj, yoff=0):
+    """The dense pass B's eigen-scale, in place."""
     dx0, dx1, dx2 = proj["dxs"]
     err = _build.load().ins_eigen_scale_f32(
-        g.data_ptr(), g.shape[0], g.shape[2], g.shape[1], yoff, kmul, int(odd), dx0, dx1,
+        g.data_ptr(), g.shape[0], g.shape[2], g.shape[1], yoff, 1, 0, dx0, dx1,
         dx2, proj["vol"], proj["eps"], current_stream(g.device),
     )
     _build.check(err, "pass B eigen-scale")
@@ -211,31 +216,38 @@ def _scale(g, kmul, odd, proj, yoff=0):
 
 def _dense(h, proj, yoff=0):
     g = x_transform(proj["Vinv"], h)
-    _scale(g, 1, False, proj, yoff)
+    _scale(g, proj, yoff)
     return x_transform(proj["V"], g)
 
 
-def _fold(hb, proj, lvl, kmul, yoff=0):
-    mats, levels = proj["fold_mats"], proj["fold_levels"]
-    if lvl == levels:
-        g = x_transform(mats[2 * levels], hb)
-        _scale(g, kmul, False, proj, yoff)
-        return x_transform(mats[2 * levels + 1], g)
-    lib = _build.load()
-    stream = current_stream(hb.device)
-    n2 = hb.shape[0] // 2
-    half = hb[:n2].numel()
-    e, o = torch.empty_like(hb[:n2]), torch.empty_like(hb[:n2])
-    _build.check(lib.ins_fold_split_f32(hb.data_ptr(), e.data_ptr(), o.data_ptr(), half,
-                                        stream), "passB_fold")
-    go = x_transform(mats[2 * lvl], o)
-    _scale(go, kmul, True, proj, yoff)
-    qo = x_transform(mats[2 * lvl + 1], go)
-    qe = _fold(e, proj, lvl + 1, 2 * kmul, yoff)
-    out = torch.empty_like(hb)
-    _build.check(lib.ins_fold_combine_f32(qe.data_ptr(), qo.data_ptr(), out.data_ptr(),
-                                          half, stream), "passB_fold")
+def _fold(h, proj, yoff, ly):
+    """One launch of the fused folded pass B on an (n, ly, n) block (n <=
+    1024: above it no panel of all n x-rows fits a block, and the launch
+    is refused)."""
+    n, levels = h.shape[0], proj["fold_levels"]
+    mats = [split_basis(w, "a") for w in proj["fold_mats"]]
+    ptrs = [m.data_ptr() for m in mats] + [None] * (6 - len(mats))
+    out = torch.empty_like(h)
+    dx0, dx1, dx2 = proj["dxs"]
+    err = _build.load().ins_passb_fold_f32(
+        h.data_ptr(), out.data_ptr(), *ptrs, n, ly, yoff, levels, dx0, dx1, dx2, proj["vol"],
+        proj["eps"], current_stream(h.device),
+    )
+    _build.check(err, "passB_fold")
     return out
+
+
+def _check_fold(name, h, proj, ly):
+    """Raise unless h is an (n, ly, n) float32 CUDA tensor and the fold
+    matrices lie on its device at their levels' sizes; returns the
+    device."""
+    n, levels = proj["V"].shape[0], proj["fold_levels"]
+    sizes = [n >> (lv + 1) for lv in range(levels) for _ in range(2)] + [n >> levels] * 2
+    return check_cuda_tensors(
+        name, (torch.float32,), h=(h, (n, ly, n)),
+        **{f"fold_mats[{i}]": (w, (m, m))
+           for i, (w, m) in enumerate(zip(proj["fold_mats"], sizes))},
+    )
 
 
 def passB(h, proj):
@@ -254,16 +266,17 @@ def passB(h, proj):
 
 def passB_fold(h, proj):
     """Radix-2 folded pass B (``proj["fold_levels"]`` levels, matrices
-    ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field."""
+    ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field; on
+    the card n <= 1024 (the fused kernel refuses larger n)."""
     if h.device.type == "cpu":
         return passB_fold_plain(h, proj)
     n = h.shape[0]
     levels = proj["fold_levels"]
     if levels is None or n % 2 ** (levels + 1):
         raise ValueError(f"passB_fold: no {levels}-level fold at n = {n}")
-    device = check_cuda_operands("passB_fold", n, h=(h, "sca"))
+    device = _check_fold("passB_fold", h, proj, n)
     with torch.cuda.device(device):
-        out = _fold(h, proj, 0, 1)
+        out = _fold(h, proj, 0, n)
         LAUNCHES["passB_fold"] += 1
     return out
 
@@ -273,7 +286,8 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
     folded pass B where n % 4 == 0, else the dense one; ``passB_plain``
     the same choice's plain version) and the transform matrices (Vinv,
     VinvT, V, VT) the stage and correction kernels take, each split once
-    here into the TF32 fragments the plane-transform kernel reads
+    here, like the fold matrices, into the TF32 fragments the
+    plane-transform and fused pass B kernels read
     (`transforms.split_basis`).  ``precision`` is accepted for parity with
     the JAX package; both names run in the float32 class here (3xTF32 on
     the card, within ~1e-6 of float64: the JAX "highest" class), and the
@@ -303,7 +317,8 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
         proj["passB"] = lambda h: passB(h, proj)
         proj["passB_plain"] = lambda h: passB_plain(h, proj)
     # the basis operands of the transforms: V_z^T as B (the field as A),
-    # V_y and every x matrix as A (the field as B)
+    # V_y and every x matrix as A (the field as B: the plane GEMM's and the
+    # fused pass B's)
     for w in (proj["VT"], proj["VinvT"]):
         split_basis(w, "b")
     for w in (proj["V"], proj["Vinv"], *(proj["fold_mats"] or ())):
@@ -346,19 +361,19 @@ def passB_sharded_plain(h, proj, yoff):
 def passB_sharded(h, proj, yoff):
     """Pass B of an x-slab-sharded projection on a shard's (n, ly, n)
     y-slice with full x, whose first y-mode is ``yoff``: the folded pass B
-    where n % 4 == 0, else the dense one (the projection's choice)."""
+    where n % 4 == 0 (on the card n <= 1024), else the dense one (the
+    projection's choice)."""
     if h.device.type == "cpu":
         return passB_sharded_plain(h, proj, yoff)
     n, ly = proj["V"].shape[0], proj["ly"]
     yoff = int(yoff)
     if not 0 <= yoff <= n - ly:
         raise ValueError(f"passB_sharded: yoff {yoff} outside [0, {n - ly}]")
-    device = check_cuda_tensors("passB_sharded", (torch.float32,), h=(h, (n, ly, n)))
+    fold = proj["fold_levels"]
+    device = (_check_fold("passB_sharded", h, proj, ly) if fold
+              else check_cuda_tensors("passB_sharded", (torch.float32,), h=(h, (n, ly, n))))
     with torch.cuda.device(device):
-        if proj["fold_levels"]:
-            out = _fold(h, proj, 0, 1, yoff)
-        else:
-            out = _dense(h, proj, yoff)
+        out = _fold(h, proj, yoff, ly) if fold else _dense(h, proj, yoff)
         LAUNCHES["passB_sharded"] += 1
     return out
 
