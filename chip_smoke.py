@@ -23,10 +23,20 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # the package of the tree DIR and
                                       # this one's, in turns
     python3 chip_smoke.py --fold-turns DIR    # only the folded pass B's
-                                      # cases (`FOLD_CASES`: ms and error
-                                      # against float64), the package of
-                                      # the tree DIR and this one's, in
-                                      # turns
+                                      # cases (`FOLD_CASES`, the level
+                                      # route's `FOLD_BIG_CASES`: ms and
+                                      # error against float64; this
+                                      # tree's gate cases, both routes),
+                                      # the package of the tree DIR and
+                                      # this one's, in turns
+    python3 chip_smoke.py --channel-turns DIR # only the channel: its stage
+                                      # kernel in every mode on the
+                                      # ragged boxes and 256×128×128
+                                      # against the plain version, the
+                                      # hat modes' ms, the chain's
+                                      # ms/step and device split, the
+                                      # package of the tree DIR and this
+                                      # one's, in turns
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -42,7 +52,10 @@ Phases, each raising on failure (exit code != 0, no result line):
    one level and two, and with the 256³ cases 128³, the ragged n = 100
    and 512³ at two levels and one, each also against the plain version
    in float64, within twice the distance of the eight-launch route it
-   replaced), the correction and
+   replaced; above `FOLD_FUSED_MAX_N` the level route, the 1152³ cube
+   at two levels, against the float32 plain version taken by y-chunks
+   and, on a slab of y-columns, the float64 one; both routes timed in
+   turns at the gate's cases, `fold_gate_times`), the correction and
    the plane transforms; the stage kernels' temperature
    stream (`momentum_stage_divhat_3d` with T elided, usnew, gdir 0 and
    the dissipation; `pcmsd_hat_3d` as on the Boussinesq path's stages 1-2,
@@ -115,7 +128,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    step where the gate picks it, else never: at 128³ the chain solves
    with `make_poisson_mm`).
 4. The wall-bounded channel: both channel kernels against their plain
-   versions at a ragged (40, 26, 20) box and at 256×128×128, in every
+   versions at ragged (40, 26, 20), (32, 20, 36) and (48, 24, 40) boxes
+   (no multiple of the stage kernel's 16 x 32 tile) and at 256×128×128, in every
    `channel_msd_3d` mode the per-stage step and the hat chain use (with
    and without the force) and the correction, each timed against its
    plain version beside its byte bound.  Then `bench.py`'s `make_channel`
@@ -171,7 +185,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    against their plain versions (the sharded pass B also at the ragged
    (100, 25, 100) at yoff 50 and at a 4-way shard of 1024³, (1024, 256,
    1024) at yoff 512 (two levels) and 256 (one), and against float64 as
-   in phase 1), timed at 256³ (the sharded pass B in every case); then on
+   in phase 1; the level route on a 4-way shard of 2048³, (2048, 512,
+   2048) at yoff 0 and 1536, as phase 1's 1152³), timed at 256³ (the
+   sharded pass B in every case); then on
    every one of the
    four slabs against the matching x-rows of the single-device kernels on
    the whole cube, and the sharded pass B on y-columns [ly·r, ly·r + ly)
@@ -276,10 +292,13 @@ Phases, each raising on failure (exit code != 0, no result line):
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
    same function where there is one) and, last, the result line
-   ``{"ok": true, "device": {...}}``.  The dense pass B stays in the
-   table; no main path runs it (every cube here has n % 4 == 0, where
-   the projection folds, as the JAX package does).  Each phase prints
-   its seconds.
+   ``{"ok": true, "device": {...}}``.  The dense pass B and the folded
+   pass B's level route (`passB_fold+levels`, `passB_sharded+levels`,
+   timed at 1152³ and (2048, 512, 2048)) stay in the table with 0
+   launches; no main path runs them (every cube here has n % 4 == 0,
+   where the projection folds, as the JAX package does, and n <=
+   `FOLD_FUSED_MAX_N`, where the fused kernel runs: phases 2 and 8 fail
+   on a level-route launch).  Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -333,6 +352,23 @@ FOLD_PARENT_F64 = {
     (100, 1, 25): 4.893e-07, (512, 2, 512): 8.258e-07, (512, 1, 512): 8.481e-07,
     (1024, 2, 256): 5.343e-07, (1024, 1, 256): 5.859e-07,
 }
+# The level route's cases (above `poisson_kernels.FOLD_FUSED_MAX_N`, where
+# no panel of all n x-rows fits the fused kernel's block): the 1152³ cube
+# at two levels (leaf 288) and a 4-way shard of 2048³ (8.6 GB a field) at
+# yoff 0 and 1536.  Held against the float32 plain version, taken
+# FOLD_CHUNK_FLOATS of the block at a time along y (the columns are
+# independent), and on a slab of FOLD_F64_ROWS y-columns against the
+# float64 one, within FOLD_BIG_F64_TOL (the float32 class: the 1024 cases
+# are ~5e-7 off).
+FOLD_BIG_CUBES = ((1152, 2, 1152, 0),)
+FOLD_BIG_SHARDS = ((2048, 2, 512, 0), (2048, 2, 512, 1536))
+FOLD_BIG_CASES = FOLD_BIG_CUBES + FOLD_BIG_SHARDS
+FOLD_CHUNK_FLOATS = 1 << 27
+FOLD_F64_ROWS = 8
+FOLD_BIG_F64_TOL = 1e-5
+# the gate's cases (`fold_gate_times`): both routes in turns at 512³,
+# 768³ (two levels each) and the (1024, 256, 1024) shard
+FOLD_GATE_CASES = ((512, 2, 512, 0), (768, 2, 768, 0), (1024, 2, 256, 512))
 SEED = 20261016
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
@@ -490,17 +526,28 @@ def fold_ops(n, L):
             + OPS_PER_CELL["eigen_scale"] * cells + L * 2 * OPS_PER_CELL["fold_split"] * cells)
 
 
-def fold_case(n, levels, ly, yoff):
-    """A `Case` of the folded pass B (`FOLD_CASES`' terms) on an input made
-    from a seed: the kernel and its float32 plain version, held against
-    the plain version in float64 (float64 fold matrices) within twice
-    `FOLD_PARENT_F64`, and within `REL_TOL` of the float32 plain
-    version."""
+def fold_p64(n, levels):
+    """The float64 projection of the folded pass B at n³ (float64 fold
+    matrices, `levels` levels), the plain version's in float64."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import poisson_fold_consts
+
+    dxs = (2 * np.pi / n,) * 3
+    mats64, _, eps = poisson_fold_consts((n,) * 3, dxs, torch.float64, levels=levels,
+                                         device=torch.device(DEVICE))
+    return {"dxs": tuple(float(d) for d in dxs), "vol": float(np.prod(dxs)), "eps": eps,
+            "fold_mats": mats64, "fold_levels": levels}
+
+
+def fold_setup(n, levels, ly, yoff):
+    """The folded pass B's input (made from a seed), projection (float32,
+    `levels` levels) and the float64 projection of `fold_case(n, levels,
+    ly, yoff)`: (h, proj, p64, label)."""
     import torch
 
     from ins_tpu_torch.ops.poisson_kernels import (
-        make_fused_projection, make_passB_sharded, passB_fold, passB_fold_plain, passB_sharded,
-        passB_sharded_plain, poisson_fold_consts,
+        make_fused_projection, make_passB_sharded, poisson_fold_consts,
     )
 
     dev = torch.device(DEVICE)
@@ -510,23 +557,144 @@ def fold_case(n, levels, ly, yoff):
     if levels != proj["fold_levels"]:
         mats, _, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=levels, device=dev)
         proj = dict(proj, fold_mats=mats, fold_levels=levels)
-    mats64, _, _ = poisson_fold_consts((n,) * 3, dxs, torch.float64, levels=levels, device=dev)
-    p64 = {k: proj[k] for k in ("dxs", "vol", "eps")}
-    p64.update(fold_mats=mats64, fold_levels=levels)
-    rng = np.random.default_rng(SEED + 31 * n + 7 * ly + levels)
-    h = torch.from_numpy(rng.standard_normal((n, ly, n), dtype=np.float32)).to(dev)
+    seed = SEED + 31 * n + 7 * ly + levels
+    if n * ly * n <= 1 << 28:  # up to the (1024, 256, 1024) shard: numpy, as before
+        rng = np.random.default_rng(seed)
+        h = torch.from_numpy(rng.standard_normal((n, ly, n), dtype=np.float32)).to(dev)
+    else:  # larger fields (up to 2^31 floats) are drawn on the card
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        h = torch.randn((n, ly, n), generator=gen, dtype=torch.float32, device=dev)
+    lv = f"{levels} level{'s' if levels > 1 else ''}"
+    label = f"{n}³, {lv}" if ly == n else f"({n}, {ly}, {n}) at yoff {yoff}, {lv}"
+    return h, proj, fold_p64(n, levels), label
+
+
+def fold_chunked_plain(h, proj, yoff):
+    """The float32 plain pass B of an (n, ly, n) block whose first y-mode
+    is yoff, `FOLD_CHUNK_FLOATS` of it at a time along y (each column's
+    solve is its own)."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import passB_sharded_plain
+
+    n, ly = h.shape[0], h.shape[1]
+    step = max(1, FOLD_CHUNK_FLOATS // (n * n))
+    out = torch.empty_like(h)
+    for a in range(0, ly, step):
+        out[:, a:a + step] = passB_sharded_plain(h[:, a:a + step], proj, yoff + a)
+    return out
+
+
+def fold_kernel(h, proj, yoff):
+    """The wrapper the main paths call: `passB_fold` on a cube,
+    `passB_sharded` on a y-slice."""
+    from ins_tpu_torch.ops.poisson_kernels import passB_fold, passB_sharded
+
+    return passB_fold(h, proj) if h.shape[1] == h.shape[0] else passB_sharded(h, proj, yoff)
+
+
+def fold_case(n, levels, ly, yoff):
+    """A `Case` of the folded pass B (`FOLD_CASES`' terms) on an input made
+    from a seed: the kernel and its float32 plain version, held against
+    the plain version in float64 (float64 fold matrices) within twice
+    `FOLD_PARENT_F64`, and within `REL_TOL` of the float32 plain
+    version.  A case `FOLD_PARENT_F64` lacks (the level route's, above
+    the fused kernel's range) is held within `REL_TOL` of the float32
+    plain version taken by y-chunks (`fold_chunked_plain`), and its
+    float64 error on a slab of columns is `fold_f64_sample`'s."""
+    from ins_tpu_torch.ops.poisson_kernels import passB_fold_plain, passB_sharded_plain
+
+    h, proj, p64, label = fold_setup(n, levels, ly, yoff)
+    kfn = lambda: (fold_kernel(h, proj, yoff),)  # noqa: E731
+    common = dict(inputs=(h, *proj["fold_mats"]), ops=fold_ops(n, levels) * ly / n)
+    if (n, levels, ly) not in FOLD_PARENT_F64:
+        return Case(label, kfn, lambda: (fold_chunked_plain(h, proj, yoff),), **common)
     if ly == n:
-        label = f"{n}³, {levels} level{'s' if levels > 1 else ''}"
-        kfn, pfn = lambda: (passB_fold(h, proj),), lambda: (passB_fold_plain(h, proj),)
+        pfn = lambda: (passB_fold_plain(h, proj),)  # noqa: E731
         ref = lambda: (passB_fold_plain(h.double(), p64),)  # noqa: E731
     else:
-        label = f"({n}, {ly}, {n}) at yoff {yoff}, {levels} level{'s' if levels > 1 else ''}"
-        kfn = lambda: (passB_sharded(h, proj, yoff),)  # noqa: E731
         pfn = lambda: (passB_sharded_plain(h, proj, yoff),)  # noqa: E731
         ref = lambda: (passB_sharded_plain(h.double(), p64, yoff),)  # noqa: E731
-    return Case(label, kfn, pfn, ref=ref, inputs=(h, *proj["fold_mats"]),
-                ops=fold_ops(n, levels) * ly / n, tol=2 * FOLD_PARENT_F64[n, levels, ly],
-                plain_tol=REL_TOL)
+    return Case(label, kfn, pfn, ref=ref, tol=2 * FOLD_PARENT_F64[n, levels, ly],
+                plain_tol=REL_TOL, **common)
+
+
+def fold_f64_sample(h, p64, yoff, got):
+    """max|Δ|/max|ref| of the kernel's output ``got`` on input ``h`` on
+    the `FOLD_F64_ROWS` y-columns from ly/2 on, against the plain version
+    in float64 (``p64``: float64 fold matrices) there."""
+    from ins_tpu_torch.ops.poisson_kernels import passB_sharded_plain
+
+    ly = h.shape[1]
+    a = ly // 2
+    b = min(ly, a + FOLD_F64_ROWS)
+    ref = passB_sharded_plain(h[:, a:b].double(), p64, yoff + a)
+    return rel_err(got[:, a:b].double(), ref)
+
+
+def fold_big_cases(_n):
+    """{kernel name: [Case]} of the level route's cube (phase 1)."""
+    return {"passB_fold+levels": [fold_case(*c) for c in FOLD_BIG_CUBES]}
+
+
+def fold_big_shard_cases(_n):
+    """{kernel name: [Case, ...]} of the level route's shards (phase 8)."""
+    return {"passB_sharded+levels": [fold_case(*c) for c in FOLD_BIG_SHARDS]}
+
+
+def check_fold_f64(cases):
+    """Each case's float64 error on its slab (`fold_f64_sample`), held
+    within `FOLD_BIG_F64_TOL`."""
+    import torch
+
+    for c in cases:
+        n, levels, ly, yoff = c
+        h, proj, p64, label = fold_setup(*c)
+        err = fold_f64_sample(h, p64, yoff, fold_kernel(h, proj, yoff))
+        print(f"[kernels] level route {label}: max rel err on y-columns [{ly // 2}, "
+              f"{min(ly, ly // 2 + FOLD_F64_ROWS)}) against the plain version in float64 "
+              f"{err:.3e} (bound {FOLD_BIG_F64_TOL})")
+        if not err <= FOLD_BIG_F64_TOL:
+            fail(f"the level route at {label}: {err:.3e} from float64, above "
+                 f"{FOLD_BIG_F64_TOL}")
+        del h, proj, p64
+        torch.cuda.empty_cache()
+
+
+def fold_gate_times(cases=FOLD_GATE_CASES):
+    """Both routes of the folded pass B in turns (CUDA events, 10 calls a
+    turn: fused, levels, levels, fused) at each case, the float32 relative
+    difference between them, and the route `fold_route` picks: the gate
+    (`FOLD_FUSED_MAX_N`) must pick the faster route, or one within 5 %
+    of it.  {label: {"fused": ms, "levels": ms}}."""
+    import torch
+
+    from ins_tpu_torch.ops import poisson_kernels as pk
+
+    out = {}
+    for c in cases:
+        n, levels, ly, yoff = c
+        h, proj, _, label = fold_setup(*c)
+        fns = {"fused": lambda: pk._fold(h, proj, yoff, ly),
+               "levels": lambda: pk._fold_levels(h, proj, 0, 1, yoff)}
+        diff = rel_err(fns["levels"](), fns["fused"]())
+        t = {"fused": [], "levels": []}
+        for which in ("fused", "levels", "levels", "fused"):
+            t[which].append(cuda_ms(fns[which]))
+        ms = {k: sum(v) / 2 for k, v in t.items()}
+        pick = pk.fold_route(n)
+        out[label] = ms
+        print(f"[fold gate] {card_line()}: {label}: fused {ms['fused']:.4f} ms "
+              f"({t['fused'][0]:.4f}, {t['fused'][1]:.4f}), level route {ms['levels']:.4f} ms "
+              f"({t['levels'][0]:.4f}, {t['levels'][1]:.4f}); routes differ by {diff:.3e}; "
+              f"the gate (n <= {pk.FOLD_FUSED_MAX_N} fused) picks {pick}")
+        if not diff <= REL_TOL:
+            fail(f"the folded pass B's routes differ by {diff:.3e} at {label}")
+        if ms[pick] > 1.05 * min(ms.values()):
+            fail(f"the gate picks the {pick} route at {label}, slower than the other: {ms}")
+        del h, proj, fns
+        torch.cuda.empty_cache()
+    return out
 
 
 def card_line(query="name,power.limit"):
@@ -1302,6 +1470,8 @@ def phase_main_path(n, nsteps, chunk):
     missing = [k for k in HAT_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    if counts["passB_fold+levels"]:
+        fail(f"pass B took the level route at {n}³ (the fused kernel's range)")
     if any(plain.values()):
         fail(f"plain versions ran on CUDA tensors in the kernel run: {plain}")
 
@@ -1591,6 +1761,9 @@ def phase_profile_training(n, nunroll):
 # --------------------------------------------------------------------------
 
 CHANNEL_BOX = (256, 128, 128)
+# boxes whose ny and nz are no multiple of the stage kernel's 16 x 32 (y,
+# z) tile (nz % 4 == 0: its 16-byte staging; nz = 20 with ny = 26 too)
+CHANNEL_RAGGED_BOXES = ((40, 26, 20), (32, 20, 36), (48, 24, 40))
 
 
 def channel_setup(box):
@@ -1812,8 +1985,11 @@ def phase_channel(nsteps, chunk):
     return counts, setup, u0, dt
 
 
-def phase_profile_channel(setup, u0, dt):
-    """Kernel / FDM-GEMM / glue split of 3 channel hat steps (torch.profiler)."""
+def phase_profile_channel(setup, u0, dt, table=True):
+    """Kernel / FDM-GEMM / glue split of 3 channel hat steps (torch.profiler):
+    prints it (and, with ``table``, the kernels by time) and returns
+    {"wall": ms, split..., "idle": share}, or None where the trace holds no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1844,11 +2020,14 @@ def phase_profile_channel(setup, u0, dt):
     dev = sum(split.values())
     if dev <= 0.0:
         print("[profile] the trace holds no device time; no split")
-        return
+        return None
+    idle = max(0.0, 1 - dev / wall)
     print(f"[profile] channel step: {wall:.3f} ms wall (unprofiled), {dev:.3f} ms of "
           f"device time: " + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
-          + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+          + f"; idle share {idle:.3f}")
+    if table:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+    return {"wall": wall, **split, "idle": idle}
 
 
 # --------------------------------------------------------------------------
@@ -2477,6 +2656,26 @@ def halo_kernel_cases(n, rank=1):
     }
 
 
+def profile_split(fn, reps=10):
+    """{kernel name: device ms a call} of `reps` calls of fn under one
+    torch.profiler context, after a call outside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+            key = e.key[:48]
+            split[key] = split.get(key, 0.0) + e.self_device_time_total / 1e3 / reps
+    return split
+
+
 def profile_cases(cases, names=None):
     """Device-time split by kernel of 10 calls of each kernel's first case
     (torch.profiler; ``names``: only those kernels), and for a wrapper
@@ -2484,9 +2683,11 @@ def profile_cases(cases, names=None):
     (its stage or correction kernel and glue), the rest beside the bytes
     bound of the wrapper's inputs and outputs (the stage kernel reads q and
     writes div where the wrapper reads qhat and writes divhat: the same
-    bytes)."""
+    bytes).  Each split is the fuller of two profiled windows in a row: a
+    window after a run of other work can hold part or none of its
+    kernels' activity (phase 8's force and pass B read 0 in a first window
+    and their time in a second; PERF.md §7)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for name, cs in cases.items():
         if names is not None and name not in names:
@@ -2494,17 +2695,12 @@ def profile_cases(cases, names=None):
         fn = cs[0].kfn
         out_bytes = nbytes(fn())
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        split = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
-                split[e.key[:48]] = e.self_device_time_total / 1e3 / 10
-        print(f"[profile] {name} [{cs[0].label}]: {sum(split.values()):.4f} ms of device "
-              "time a call: " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                         sorted(split.items(), key=lambda kv: -kv[1])))
+        splits = [profile_split(fn) for _ in range(2)]
+        totals = [sum(sp.values()) for sp in splits]
+        split = splits[int(totals[1] >= totals[0])]
+        print(f"[profile] {name} [{cs[0].label}]: {max(totals):.4f} ms of device time a call "
+              f"(windows {totals[0]:.4f}, {totals[1]:.4f}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
         gemm = sum(v for k, v in split.items() if "gemm" in k.lower())
         if gemm and name != "plane_transform":
             rest = sum(split.values()) - gemm
@@ -2709,7 +2905,8 @@ def phase_halo(n, nsteps, chunk, u0, profile=False):
         fail("non-finite velocity after the halo run")
     nchunk = nsteps // chunk
     expect = {"momentum_stage_divhat_halo_3d": nchunk, "pcmsd_hat_halo_3d": 4 * nsteps - nchunk,
-              "passB_sharded": 4 * nsteps, "pressure_correct_qhat_halo_3d": nchunk}
+              "passB_sharded": 4 * nsteps, "passB_sharded+levels": 0,
+              "pressure_correct_qhat_halo_3d": nchunk}
     got = {k: counts[k] for k in expect}
     if got != expect:
         fail(f"halo launches {got}, expected {expect}")
@@ -3679,37 +3876,115 @@ def conv_turns(parent):
     run_turns("--conv-time", parent)
 
 
-def fold_time():
-    """One turn of `fold_turns`: each of `FOLD_CASES` in this process, its
-    ms (CUDA events, mean of two runs of 10) and its max relative error
-    against the plain version in float64.  {label: [ms, err]}."""
+def fold_time(max_n=None):
+    """One turn of `fold_turns`: each of `FOLD_CASES` and `FOLD_BIG_CASES`
+    in this process (with ``max_n``, only the cases of `FOLD_CASES` with n
+    <= max_n), its ms (CUDA events, mean of two runs of 10) and its max
+    relative error against the plain version in float64 (on a slab of
+    columns for the big cases, `fold_f64_sample`), or "refused" where a
+    tree without the level route raises (n > 1024); and, where the tree
+    has the gate, both routes at its cases (`fold_gate_times`).  {label:
+    [ms, err] or "refused: ...", "gate": {...}}."""
     import torch
 
+    from ins_tpu_torch.ops import poisson_kernels as pk
+
+    routed = hasattr(pk, "fold_route")
+    cases = FOLD_CASES + FOLD_BIG_CASES if max_n is None else [
+        c for c in FOLD_CASES if c[0] <= max_n]
     out = {}
-    for c in FOLD_CASES:
+    for c in cases:
         case = fold_case(*c)
-        got, ref = case.kfn()[0], case.ref()[0]
-        out[case.label] = [(cuda_ms(case.kfn) + cuda_ms(case.kfn)) / 2,
-                           rel_err(got.double(), ref)]
-        del case, got, ref
+        try:
+            got = case.kfn()[0]
+        except (RuntimeError, ValueError) as e:
+            if routed:
+                raise
+            out[case.label] = f"refused: {str(e)[:80]}"
+            del case
+            continue
+        ms = (cuda_ms(case.kfn) + cuda_ms(case.kfn)) / 2
+        if c in FOLD_BIG_CASES:
+            err = fold_f64_sample(case.inputs[0], fold_p64(c[0], c[1]), c[3], got)
+        else:
+            err = rel_err(got.double(), case.ref()[0])
+        out[case.label] = [ms, err]
+        del case, got
         torch.cuda.empty_cache()
+    if routed and max_n is None:
+        out["gate"] = fold_gate_times()
     return out
 
 
-def fold_turns(parent):
+def fold_turns(parent, rounds=1, max_n=None):
     """ms and float64 error of the folded pass B's cases (`fold_time`) of
     the package in the tree `parent` and of this tree's, each in its own
-    process, in turns: parent, this, this, parent."""
-    run_turns("--fold-time", parent)
+    process, in turns: parent, this, this, parent, `rounds` times."""
+    extra = () if max_n is None else ("--fold-max-n", str(max_n))
+    run_turns("--fold-time", parent, rounds, extra)
 
 
-def run_turns(flag, parent):
-    """Run this script with `flag ROOT` for ROOT = parent, this tree, this
-    tree, parent (each in its own process); print each one's last line."""
+def channel_time(steps=20):
+    """One turn of `channel_turns` in this process: the stage kernel in
+    every `channel_msd_3d` mode (`channel_kernel_cases`) on the ragged
+    boxes and 256×128×128 against its plain version (max relative error
+    over the modes and outputs, held within `REL_TOL`); the ms of the hat
+    chain's four modes at 256×128×128 (CUDA events, mean of two runs of
+    10); the hat chain's ms/step (four runs of `steps` after a warm-up of
+    two: the host's clock on a shared machine spreads) and its device
+    split (3 profiled steps).  {...}."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.channelpath import make_channel_timestep_hat, strip_channel
+
+    out = {"max_rel_err": 0.0}
+    for box in CHANNEL_RAGGED_BOXES + (CHANNEL_BOX,):
+        cases = channel_kernel_cases(box)["channel_msd_3d"]
+        for c in cases:
+            got, ref = c.kfn(), c.pfn()
+            err = max(rel_err(g, r) for g, r in zip(got, ref))
+            if not err <= REL_TOL:
+                fail(f"channel_msd_3d [{c.label}] at {box}: {err:.3e} from the plain version")
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+        if box == CHANNEL_BOX:
+            out["ms"] = {c.label: (cuda_ms(c.kfn) + cuda_ms(c.kfn)) / 2 for c in cases[:4]}
+        del cases
+        torch.cuda.empty_cache()
+    setup = channel_setup(CHANNEL_BOX)
+    u0 = channel_u0(setup, it.default_psolver(setup))
+    dt, method = 1e-3, it.RKMethods.RK44()
+    to_h, step_h, _ = make_channel_timestep_hat(setup, method)
+    h = step_h(step_h(to_h(it.create_stepper(method, setup=setup, u=strip_channel(u0))), dt), dt)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            h = step_h(h, dt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    out["ms_per_step"] = times
+    out["profile"] = phase_profile_channel(setup, u0, dt, table=False)
+    return out
+
+
+def channel_turns(parent):
+    """The channel stage kernel's errors and ms and the channel chain's
+    ms/step (`channel_time`) of the package in the tree `parent` and of
+    this tree's, each in its own process, in turns: parent, this, this,
+    parent."""
+    run_turns("--channel-time", parent)
+
+
+def run_turns(flag, parent, rounds=1, extra=()):
+    """Run this script with `flag ROOT` (and the arguments ``extra``) for
+    ROOT = parent, this tree, this tree, parent, `rounds` times (each in
+    its own process); print each one's last line."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(card_line())
-    for root in (parent, here, here, parent):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, root],
+    for root in (parent, here, here, parent) * rounds:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, root, *extra],
                              capture_output=True, text=True, timeout=900)
         lines = out.stdout.strip().splitlines()
         print(f"[turns] {os.path.abspath(root)}: " + (lines[-1] if lines else "no output"))
@@ -3844,6 +4119,9 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
     "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:451"),
     "passB_fold": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:432"),
+    # the folded pass B's level route above the fused kernel's range (its
+    # x products are plane GEMMs, transforms.cu)
+    "passB_fold+levels": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:432"),
     "smagorinsky_force_3d": ("ins_tpu_torch/csrc/smag.cu", "ins_tpu/ops/pallas_kernels.py:2292"),
     "pcmsd_hat_3d+smag": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2639"),
     "pcmsd_hat_3d+temp": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2645"),
@@ -3868,6 +4146,8 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pressure_correct_qhat_halo_3d": ("ins_tpu_torch/csrc/correct.cu",
                                       "ins_tpu/ops/pallas_kernels.py:1937"),
     "passB_sharded": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:480"),
+    "passB_sharded+levels": ("ins_tpu_torch/csrc/poisson.cu",
+                             "ins_tpu/ops/poisson_pallas.py:480"),
     "smagorinsky_force_halo_3d": ("ins_tpu_torch/csrc/smag.cu",
                                   "ins_tpu/ops/pallas_kernels.py:2243"),
     "momentum_stage_divhat_halo_3d+smag": ("ins_tpu_torch/csrc/stage.cu",
@@ -3918,6 +4198,17 @@ def main():
                          "float64) of the package in the tree PARENT and of this tree's, "
                          "in turns")
     ap.add_argument("--fold-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--fold-max-n", type=int, metavar="N",
+                    help="with --fold-turns: only the cases of size n <= N (no level "
+                         "route, no gate)")
+    ap.add_argument("--rounds", type=int, default=1, metavar="R",
+                    help="with --fold-turns: R rounds of the four turns")
+    ap.add_argument("--channel-turns", metavar="PARENT",
+                    help="only the channel: the stage kernel in every mode against its "
+                         "plain version, its ms and the 256×128×128 chain's ms/step and "
+                         "device split, of the package in the tree PARENT and of this "
+                         "tree's, in turns")
+    ap.add_argument("--channel-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -3945,10 +4236,13 @@ def main():
         conv_turns(args.conv_turns)
         return
     if args.fold_turns:
-        fold_turns(args.fold_turns)
+        fold_turns(args.fold_turns, args.rounds, args.fold_max_n)
+        return
+    if args.channel_turns:
+        channel_turns(args.channel_turns)
         return
     root = (args.stack_time or args.chain_time or args.train_time or args.conv_time
-            or args.fold_time)
+            or args.fold_time or args.channel_time)
     sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -3959,10 +4253,11 @@ def main():
         times = chain_time()
         print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
         return
-    if args.train_time or args.conv_time or args.fold_time:  # one turn of --*-turns
+    if args.train_time or args.conv_time or args.fold_time or args.channel_time:
+        # one turn of --*-turns
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         times = (train_time() if args.train_time else conv_time() if args.conv_time
-                 else fold_time())
+                 else fold_time(args.fold_max_n) if args.fold_time else channel_time())
         print(json.dumps({**times, "root": os.path.abspath(root)}))
         return
     if args.stack_time:  # one turn of --stack-turns
@@ -3994,6 +4289,10 @@ def main():
     results = phase_kernels(kernel_cases, (RAGGED_N, 64, 256),
                             time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
                                       "plane_transform"))
+    results.update(phase_kernels(fold_big_cases, (FOLD_BIG_CUBES[0][0],),
+                                 time_all=("passB_fold+levels",)))
+    check_fold_f64(FOLD_BIG_CUBES)
+    fold_gate_times()
     solve_gate_times()
     if args.profile:
         profile_cases(kernel_cases(256), names=STAGE_WRAPPERS)
@@ -4013,7 +4312,7 @@ def main():
         phase_profile_training(128, nunroll=5)
     torch.cuda.empty_cache()
     phase_done("phase 3 (training)")
-    results.update(phase_kernels(channel_kernel_cases, ((40, 26, 20), CHANNEL_BOX),
+    results.update(phase_kernels(channel_kernel_cases, CHANNEL_RAGGED_BOXES + (CHANNEL_BOX,),
                                  time_all=CHANNEL_KERNELS))
     channel_counts, setup, u0, dt = phase_channel(nsteps=20, chunk=10)
     if args.profile:
@@ -4048,6 +4347,9 @@ def main():
     results.update(phase_kernels(halo_kernel_cases, (HALO_RAGGED_N, 64, 256),
                                  time_all=("pcmsd_hat_halo_3d", "passB_sharded")
                                  + HALO_LES_KERNELS))
+    results.update(phase_kernels(fold_big_shard_cases, (FOLD_BIG_SHARDS[0][0],),
+                                 time_all=("passB_sharded+levels",)))
+    check_fold_f64(FOLD_BIG_SHARDS)
     if args.profile:
         profile_cases(halo_kernel_cases(256))
     for n in (64, 256):
@@ -4071,13 +4373,13 @@ def main():
     tap_counts = phase_tapconv(128)
     tap_counts["momentum_stage_div_3d"] = phase_unfused_step(256)
     phase_done("phase 11 (tap conv layer and unfused stage)")
-    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB",)},
+    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB", "passB_fold+levels")},
               **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
-              **{k: halo_counts[k] for k in HALO_KERNELS},
+              **{k: halo_counts[k] for k in HALO_KERNELS + ("passB_sharded+levels",)},
               **{k: halo_les_counts[k] for k in HALO_LES_KERNELS},
               **{k: unmerged_counts[k] for k in UNMERGED_KERNELS},
               **{k: tap_counts[k] for k in TAP_KERNELS}}

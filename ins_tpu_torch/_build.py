@@ -73,6 +73,8 @@ _SIGNATURES = {
         [_c_ptr] + [_c_int] * 6 + [_c_f32] * 5 + [_c_ptr],
         _c_int,
     ),
+    "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
+    "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_passb_fold_f32": ([_c_ptr] * 8 + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr], _c_int),
     "ins_smag_f32": (
         [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
@@ -148,7 +150,7 @@ _SIGNATURES = {
         _c_int,
     ),
     "ins_channel_msd_f32": (
-        [_c_ptr] * 10 + [_c_int] * 3 + [_c_f32] * 9 + [_c_int] * 2 + [_c_ptr],
+        [_c_ptr] * 10 + [_c_int] * 3 + [_c_f32] * 11 + [_c_int] * 2 + [_c_ptr],
         _c_int,
     ),
     "ins_channel_correct_f32": (

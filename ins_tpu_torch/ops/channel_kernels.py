@@ -13,7 +13,10 @@ contract, on the interior channel layout (``(3, nx, ny, nz)`` velocity,
 Each wrapper launches its hand-written CUDA kernel (`csrc/channel.cu`)
 for float32 CUDA tensors and raises on anything else on the card; for
 CPU tensors it runs its plain PyTorch version, beside it here: the roll
-functions of `ops/channelpath.py` composed, in the tensors' dtype.
+functions of `ops/channelpath.py` composed, in the tensors' dtype.  The
+stage kernel takes 1/dx, 1/dy, 1/dx², 1/dy² from the host
+(`channel_recips`) and walks 16 x-planes a block (`CH_XB`,
+`csrc/channel_geometry.cuh`).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .launches import LAUNCHES, check_cuda_tensors, current_stream, note_plain, 
 from .perop_kernels import _box
 
 __all__ = [
+    "channel_recips",
     "pack_zmet",
     "channel_msd_3d",
     "channel_msd_3d_plain",
@@ -49,6 +53,14 @@ def pack_zmet(met):
     """The 12 z-metric vectors of `met` packed into one ``(12, nz)`` tensor
     (dtype and device of the vectors)."""
     return torch.stack([getattr(met, name) for name in _ZVECS]).contiguous()
+
+
+def channel_recips(met):
+    """(1/dx, 1/dy, 1/dx², 1/dy²) of the uniform transverse spacings, in
+    float64: the stage kernel multiplies by them (in float32) where the
+    roll functions divide."""
+    dx, dy = float(met.dx), float(met.dy)
+    return 1.0 / dx, 1.0 / dy, 1.0 / (dx * dx), 1.0 / (dy * dy)
 
 
 def _check_modes(ustart, qrecon, emit_urec):
@@ -115,8 +127,8 @@ def channel_msd_3d(u, ustart, acc, met, *, visc, ca, cb, dt, force=None,
         div = torch.empty(box, dtype=u.dtype, device=device)
         err = _build.load().ins_channel_msd_f32(
             u.data_ptr(), ptr(qrecon), ptr(ustart), ptr(acc), ptr(force), met.zmet.data_ptr(),
-            ptr(urec), ptr(us), acc_out.data_ptr(), div.data_ptr(), *box, float(visc),
-            float(met.dx), float(met.dy), float(met.gb[0]), float(met.gb[1]),
+            ptr(urec), ptr(us), acc_out.data_ptr(), div.data_ptr(), *box,
+            float(visc), *channel_recips(met), float(met.gb[0]), float(met.gb[1]),
             float(met.gt[0]), float(met.gt[1]), float(dt * ca), float(dt * cb),
             int(cb != 0.0), int(div_of_acc), current_stream(device),
         )

@@ -31,6 +31,9 @@ KERNELS = (
     "momentum_stage_divhat_3d",
     "passB",
     "passB_fold",
+    # the folded pass B's level route above `FOLD_FUSED_MAX_N` (cube, shard)
+    "passB_fold+levels",
+    "passB_sharded+levels",
     "pressure_correct_qhat_3d",
     # the same with bf16 stream storage, and the stage with more than 4 k
     # streams (the unmerged chain's deep tableau rows)

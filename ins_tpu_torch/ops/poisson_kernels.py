@@ -19,13 +19,20 @@ the odd frequencies solve as ``S_o · scale(R_o · o)`` and the even ones
 recurse on e (the even half-basis is the n/2-point basis scaled by
 1/√2), then ``qhat = [q_e/2 + q_o; q_e/2 − q_o]``; the leaf is dense.
 
-On CUDA tensors the folded pass B is one launch of `csrc/fold.cu`'s
-fused kernel (split, half-size 3xTF32 x-products, eigen-scale and combine
-on a panel of columns in shared memory; the C entry picks the panel width
-and the ring depth from n, and refuses n > 1024), and the dense one runs
-as GEMMs (`csrc/transforms.cu`) around the eigen-scale kernel of
-`csrc/poisson.cu`; on CPU tensors both run as the plain versions
-`passB_plain` and `passB_fold_plain`.
+On CUDA tensors the folded pass B takes one of two routes, chosen from n
+before any launch (`fold_route`): up to `FOLD_FUSED_MAX_N` one launch of
+`csrc/fold.cu`'s fused kernel (split, half-size 3xTF32 x-products,
+eigen-scale and combine on a panel of columns in shared memory; the C
+entry picks the panel width and the ring depth from n, and refuses n >
+1024), above it the level route (launch keys ``+levels``): the
+recursion `_fold_levels` of x-products (`csrc/transforms.cu`) around
+`csrc/poisson.cu`'s split, eigen-scale and combine kernels, which has no
+size limit.  The dense pass B runs as GEMMs around the same eigen-scale
+kernel.  On CPU tensors the wrappers run the plain versions `passB_plain`
+and `passB_fold_plain`.  The level route's pieces (`_fold_split`,
+`_eigen_scale`, `_fold_combine`, `x_transform`) run their plain versions
+on CPU tensors too: no wrapper sends them one, but the CPU tests drive
+the route itself (`_fold_levels`) through them against the JAX package.
 
 `make_passB_sharded` is the same pass B on a shard's (n, ly, n) y-slice
 of an x-slab mesh (`parallel/halo.py`), whose eigen-scale takes the
@@ -59,6 +66,8 @@ from .transforms import (
 )
 
 __all__ = [
+    "FOLD_FUSED_MAX_N",
+    "fold_route",
     "poisson_eigen_consts",
     "fold_levels_default",
     "poisson_fold_consts",
@@ -72,6 +81,26 @@ __all__ = [
     "passB_sharded",
     "passB_sharded_plain",
 ]
+
+
+# The largest n whose folded pass B runs as one fused kernel (`fold.cu`);
+# above it the level route runs.  Set from both routes timed in turns
+# (`chip_smoke.py --fold-turns`, `fold_gate_times`; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6), ms a call, fused | level route: 512³ two
+# levels 3.672, 3.662 | 3.843, 3.834; 768³ two levels 28.109, 28.096 |
+# 15.986, 15.985; the (1024, 256, 1024) shard 16.510, 16.472 | 10.490,
+# 10.474.  Above 512 the fused kernel's panels narrow from 64 columns to
+# 32 (`fold_geometry.cuh`), which doubles its basis traffic a FLOP.  The
+# kernel keeps that geometry (up to n = 1024) so that every
+# `chip_smoke.py` run times both routes above the gate and fails if the
+# gate picks the slower one (ROADMAP.md queue 2 item 20).
+FOLD_FUSED_MAX_N = 512
+
+
+def fold_route(n):
+    """The folded pass B's route on the card at x extent n: ``"fused"``
+    (one `fold.cu` launch) up to `FOLD_FUSED_MAX_N`, else ``"levels"``."""
+    return "fused" if n <= FOLD_FUSED_MAX_N else "levels"
 
 
 def _pin_eps(Np, dxs):
@@ -166,6 +195,11 @@ def _ceil_half(r):
     return torch.div(r + 1, 2, rounding_mode="floor")
 
 
+def _odd_rows(r):
+    """x-frequency of a fold level's odd-half row r, before kmul."""
+    return 2 * torch.div(r, 2, rounding_mode="floor") + 1
+
+
 def _dense_plain(h, proj, yoff=0):
     r = torch.arange(h.shape[0], device=h.device)
     g = _scale_plain(x_transform_plain(proj["Vinv"], h), _ceil_half(r), proj, yoff)
@@ -191,8 +225,7 @@ def _fold_plain(hb, proj, lvl, kmul, yoff=0):
     e = hb[:n2] + hb[n2:]
     o = hb[:n2] - hb[n2:]
     ro = r[:n2]
-    go = _scale_plain(x_transform_plain(mats[2 * lvl], o),
-                      kmul * (2 * torch.div(ro, 2, rounding_mode="floor") + 1), proj, yoff)
+    go = _scale_plain(x_transform_plain(mats[2 * lvl], o), kmul * _odd_rows(ro), proj, yoff)
     qo = x_transform_plain(mats[2 * lvl + 1], go)
     qe = 0.5 * _fold_plain(e, proj, lvl + 1, 2 * kmul, yoff)
     return torch.cat([qe + qo, qe - qo], dim=0)
@@ -204,19 +237,86 @@ def passB_fold_plain(h, proj):
     return _fold_plain(h, proj, 0, 1)
 
 
-def _scale(g, proj, yoff=0):
-    """The dense pass B's eigen-scale, in place."""
+def _eigen_scale_plain(g, kmul, odd, proj, yoff=0):
+    r = torch.arange(g.shape[0], device=g.device)
+    return _scale_plain(g, kmul * (_odd_rows(r) if odd else _ceil_half(r)), proj, yoff)
+
+
+def _eigen_scale(g, kmul, odd, proj, yoff=0):
+    """g *= 1/den with row r at x-frequency kmul·ceil(r/2) (kmul·(2⌊r/2⌋+1)
+    on a level's odd half): in place on the card (`poisson.cu`); the plain
+    version on CPU tensors, which only the tests of the level route pass."""
+    if g.device.type == "cpu":
+        return _eigen_scale_plain(g, kmul, odd, proj, yoff)
     dx0, dx1, dx2 = proj["dxs"]
     err = _build.load().ins_eigen_scale_f32(
-        g.data_ptr(), g.shape[0], g.shape[2], g.shape[1], yoff, 1, 0, dx0, dx1,
+        g.data_ptr(), g.shape[0], g.shape[2], g.shape[1], yoff, kmul, int(odd), dx0, dx1,
         dx2, proj["vol"], proj["eps"], current_stream(g.device),
     )
     _build.check(err, "pass B eigen-scale")
+    return g
+
+
+def _fold_split_plain(hb):
+    n2 = hb.shape[0] // 2
+    return hb[:n2] + hb[n2:], hb[:n2] - hb[n2:]
+
+
+def _fold_split(hb):
+    """(e, o) = (h0 + h1, h0 − h1) of hb's two x-halves (the plain
+    version on CPU tensors, which only the tests of the level route
+    pass)."""
+    if hb.device.type == "cpu":
+        return _fold_split_plain(hb)
+    n2 = hb.shape[0] // 2
+    e, o = torch.empty_like(hb[:n2]), torch.empty_like(hb[:n2])
+    err = _build.load().ins_fold_split_f32(hb.data_ptr(), e.data_ptr(), o.data_ptr(),
+                                           e.numel(), current_stream(hb.device))
+    _build.check(err, "pass B fold split")
+    return e, o
+
+
+def _fold_combine_plain(qe, qo):
+    qe = 0.5 * qe
+    return torch.cat([qe + qo, qe - qo], dim=0)
+
+
+def _fold_combine(qe, qo):
+    """[qe/2 + qo; qe/2 − qo] (the plain version on CPU tensors, which
+    only the tests of the level route pass)."""
+    if qe.device.type == "cpu":
+        return _fold_combine_plain(qe, qo)
+    out = torch.empty((2 * qe.shape[0], *qe.shape[1:]), dtype=qe.dtype, device=qe.device)
+    err = _build.load().ins_fold_combine_f32(qe.data_ptr(), qo.data_ptr(), out.data_ptr(),
+                                             qe.numel(), current_stream(qe.device))
+    _build.check(err, "pass B fold combine")
+    return out
+
+
+def _fold_levels(hb, proj, lvl, kmul, yoff=0):
+    """The level route of the folded pass B from level ``lvl`` down (the
+    recursion of `_fold_plain`): split, the odd half's x-products around
+    its eigen-scale, the even half one level down with kmul doubled, the
+    combine; the leaf dense.  Each piece is a kernel on the card (and its
+    plain version on the CPU); intermediates are dropped as soon as they
+    are used, so a (2048, 512, 2048) shard's solve peaks near four times
+    its input."""
+    mats, levels = proj["fold_mats"], proj["fold_levels"]
+    if lvl == levels:
+        g = _eigen_scale(x_transform(mats[2 * levels], hb), kmul, False, proj, yoff)
+        return x_transform(mats[2 * levels + 1], g)
+    e, o = _fold_split(hb)
+    go = _eigen_scale(x_transform(mats[2 * lvl], o), kmul, True, proj, yoff)
+    del o
+    qo = x_transform(mats[2 * lvl + 1], go)
+    del go
+    qe = _fold_levels(e, proj, lvl + 1, 2 * kmul, yoff)
+    del e
+    return _fold_combine(qe, qo)
 
 
 def _dense(h, proj, yoff=0):
-    g = x_transform(proj["Vinv"], h)
-    _scale(g, proj, yoff)
+    g = _eigen_scale(x_transform(proj["Vinv"], h), 1, False, proj, yoff)
     return x_transform(proj["V"], g)
 
 
@@ -235,6 +335,14 @@ def _fold(h, proj, yoff, ly):
     )
     _build.check(err, "passB_fold")
     return out
+
+
+def _fold_run(h, proj, yoff, ly):
+    """The folded pass B on an (n, ly, n) block by ``fold_route(n)``:
+    (qhat, the launch key's suffix: "" fused, "+levels")."""
+    if fold_route(h.shape[0]) == "fused":
+        return _fold(h, proj, yoff, ly), ""
+    return _fold_levels(h, proj, 0, 1, yoff), "+levels"
 
 
 def _check_fold(name, h, proj, ly):
@@ -266,8 +374,9 @@ def passB(h, proj):
 
 def passB_fold(h, proj):
     """Radix-2 folded pass B (``proj["fold_levels"]`` levels, matrices
-    ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field; on
-    the card n <= 1024 (the fused kernel refuses larger n)."""
+    ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field, by
+    the route `fold_route` picks on the card (launch key ``passB_fold``
+    fused, ``passB_fold+levels`` the level route)."""
     if h.device.type == "cpu":
         return passB_fold_plain(h, proj)
     n = h.shape[0]
@@ -276,8 +385,8 @@ def passB_fold(h, proj):
         raise ValueError(f"passB_fold: no {levels}-level fold at n = {n}")
     device = _check_fold("passB_fold", h, proj, n)
     with torch.cuda.device(device):
-        out = _fold(h, proj, 0, n)
-        LAUNCHES["passB_fold"] += 1
+        out, route = _fold_run(h, proj, 0, n)
+        LAUNCHES["passB_fold" + route] += 1
     return out
 
 
@@ -361,8 +470,9 @@ def passB_sharded_plain(h, proj, yoff):
 def passB_sharded(h, proj, yoff):
     """Pass B of an x-slab-sharded projection on a shard's (n, ly, n)
     y-slice with full x, whose first y-mode is ``yoff``: the folded pass B
-    where n % 4 == 0 (on the card n <= 1024), else the dense one (the
-    projection's choice)."""
+    where n % 4 == 0 (on the card by `fold_route`'s route: launch key
+    ``passB_sharded`` fused, ``passB_sharded+levels`` the level route),
+    else the dense one (the projection's choice)."""
     if h.device.type == "cpu":
         return passB_sharded_plain(h, proj, yoff)
     n, ly = proj["V"].shape[0], proj["ly"]
@@ -373,8 +483,8 @@ def passB_sharded(h, proj, yoff):
     device = (_check_fold("passB_sharded", h, proj, ly) if fold
               else check_cuda_tensors("passB_sharded", (torch.float32,), h=(h, (n, ly, n))))
     with torch.cuda.device(device):
-        out = _fold(h, proj, yoff, ly) if fold else _dense(h, proj, yoff)
-        LAUNCHES["passB_sharded"] += 1
+        out, route = _fold_run(h, proj, yoff, ly) if fold else (_dense(h, proj, yoff), "")
+        LAUNCHES["passB_sharded" + route] += 1
     return out
 
 

@@ -27,7 +27,6 @@ import contextlib
 import shutil
 import subprocess
 import types
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -150,7 +149,11 @@ def _call(n, levels, ly, yoff):
 
 
 @pytest.mark.parametrize("n,levels,ly,yoff", LAUNCH_CASES)
-def test_one_fused_launch(fake_card, n, levels, ly, yoff):
+def test_one_fused_launch(fake_card, monkeypatch, n, levels, ly, yoff):
+    """One launch of the fused entry, with the gate raised where n lies
+    above it (the kernel takes any n % 4 == 0 up to 1024; the wrappers
+    route n above the gate to the level route, tests/test_torch_passb_route.py)."""
+    monkeypatch.setattr(pk, "FOLD_FUSED_MAX_N", max(pk.FOLD_FUSED_MAX_N, n))
     proj, out, key = _call(n, levels, ly, yoff)
     assert out.shape == (n, ly, n) and out.dtype == torch.float32
     (name, args), = fake_card.calls
@@ -177,14 +180,18 @@ def test_refused_launch_raises(fake_card, n, levels, ly, yoff):
     assert len(fake_card.calls) == 1 and not any(launches.LAUNCHES.values())
 
 
-def test_parent_route_is_gone():
-    """The split and combine kernels went with the eight-launch route; the
-    dense pass B keeps its eigen-scale."""
+def test_parent_route_is_gone(fake_card):
+    """The eight-launch route is gone from the fused kernel's range: up to
+    the gate the wrappers launch only the fused entry (the route's split
+    and combine kernels serve the level route above the gate alone)."""
     assert "ins_passb_fold_f32" in _build._SIGNATURES
     assert "ins_eigen_scale_f32" in _build._SIGNATURES
-    assert not {"ins_fold_split_f32", "ins_fold_combine_f32"} & set(_build._SIGNATURES)
-    src = (Path(_build.CSRC) / "poisson.cu").read_text()
-    assert "fold_split" not in src and "fold_combine" not in src
+    for n, levels, ly, yoff in LAUNCH_CASES:
+        if n > pk.FOLD_FUSED_MAX_N:
+            continue
+        fake_card.calls.clear()
+        _call(n, levels, ly, yoff)
+        assert [name for name, _ in fake_card.calls] == ["ins_passb_fold_f32"]
 
 
 # --------------------------------------------------------------------------
