@@ -37,6 +37,22 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # ms/step and device split, the
                                       # package of the tree DIR and this
                                       # one's, in turns
+    python3 chip_smoke.py --perop-turns DIR   # only the conv-diff kernel
+                                      # (128³ and its ragged box, error
+                                      # against float64, ms), the float32
+                                      # tap weight gradient at the
+                                      # stack's three shapes (error, ms)
+                                      # and phase 3's bf16 gradient step
+                                      # (s/step, per-op launches), the
+                                      # package of the tree DIR and this
+                                      # one's, in turns; with
+                                      # --perop-variant 'LABEL|FILE|
+                                      # REGEX|REPL' (repeatable) this
+                                      # tree with an edit, in turns (the
+                                      # CD_XB sweep of
+                                      # perop_geometry.cuh); then ptxas
+                                      # registers and spills and the
+                                      # HMMA count of the new kernels
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -76,7 +92,10 @@ Phases, each raising on failure (exit code != 0, no result line):
    The per-op and conv kernels of the training path and the closure
    run's 3-pass Poisson solve `make_poisson_pallas` are held against
    their plain versions at 64³ and 128³ the same way, and timed at
-   128³, the solve also against `make_poisson_mm`'s contractions.  The
+   128³, the solve also against `make_poisson_mm`'s contractions; the
+   conv-diff also on the ragged box (n/2 − 3, n − 27, n − 21) (nz % 4 !=
+   0: its 4-byte staging), each conv-diff case against the plain version
+   in float64 (1e-4) and within 1e-4 of the float32 one.  The
    fused conv layer runs on the tensor cores in both routes: bf16 operands
    (`fusedconv_3d`, `fusedconv_wgrad_3d`) in bf16, float32 ones (`+f32`)
    in 3xTF32: the closure's three layers and the three input-gradient
@@ -117,8 +136,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    `fusedconv_wgrad_3d+f32`); then its seconds per gradient step
    (kernels and plain in turns) and peak memory.  With the default bf16
    convs the run is finite, launches every training kernel (the bf16
-   tensor-core convs, none of the `+f32` ones) and no plain version on
-   the card, and its gradient agrees with the plain bf16 run to relative
+   tensor-core convs, none of the `+f32` ones; the per-op kernels
+   `convdiff_interior_3d`, `stage_div_3d`, `pressure_correct_3d` 40, 40
+   and 35 times) and no plain version on the card, and its gradient agrees with the plain bf16 run to relative
    L2 <= 1e-2.  Then seconds per gradient step (kernels and plain in
    turns) and peak memory; with --profile the kernel-time breakdown of
    one step with each route's convs.  Then three
@@ -260,15 +280,18 @@ Phases, each raising on failure (exit code != 0, no result line):
    version; the weight gradients of the plain one in float64), each timed
    beside its bound and cuDNN's conv3d / conv3d_weight with a (5, 5, 1)
    kernel; bf16 operands run the bf16 tensor-core kernels, float32
-   operands the `+f32` ones (the tap forward in 3xTF32 on the tensor
-   cores, bound by three TF32 products a multiply-add; the pack forward
-   and the 120 x 24 weight gradient on the FMA units); at 36³ also, on the
+   operands the `+f32` ones (the tap forward and the weight gradients of
+   the stack's three shapes, on operands with full float32 mantissas, in
+   3xTF32 on the tensor cores, bound by three TF32 products a
+   multiply-add, the weight gradients within 1e-5 of float64 and 1e-4 of
+   the float32 plain version; the pack forward on the FMA units); two
+   calls of either weight gradient bit-identical; at 36³ also, on the
    ragged box (8, 37, 67) at ky = kx = 3, 5, 7, the bf16 forwards and the
    3xTF32 tap forward for the stack's three forwards (the first with kc =
    15), a 120 -> 13 layer and the input-gradient shapes (24 -> 120, 24 ->
-   16, 3 -> 120), bf16 and float32 outputs, and the bf16 weight gradients
-   of the stack's three layers, against the plain version in float64 (one
-   bf16 ulp; 1e-4); `momentum_stage_div_3d` (stage.cu's float32 stage)
+   16, 3 -> 120), bf16 and float32 outputs, and the bf16 and 3xTF32
+   weight gradients of the stack's three layers, against the plain version
+   in float64 (one bf16 ulp; 1e-4; 3xTF32 1e-5); `momentum_stage_div_3d` (stage.cu's float32 stage)
    at 64³ and 256³.  (b) The closure stack (3 -> 24 -> 24 -> 3, radius 2,
    tanh/tanh/identity, phase 3's CNN weights) through
    `models.cnn._pallas_conv_layer` at 128³: forward and the gradient of
@@ -380,12 +403,14 @@ PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # take 3 F / 495e12 s at the bound, the time of 3·67/495 F FP32 operations
 GEMM_AS_FP32 = 3 * PEAK_OPS["fp32"] / PEAK_OPS["tf32"]
 # operations per cell of the stencil kernels, counted from their arithmetic
-# (each add, multiply and divide one): the conv-diff of three components,
+# (each add, multiply and divide one): the conv-diff of three components
+# (each face flux once: per component and direction the diffusion's 4, the
+# flux's 5 (3 along its own axis) and its difference's 4),
 # the stage kernels' conv-diff at I and I - e_a plus the tableau and the
 # divergence, the channel stage's stretched conv-diff plus rebuild,
 # tableau and divergence, and the elementwise passes
 OPS_PER_CELL = {
-    "convdiff": 168, "stage": 373, "stage_norebuild": 364, "stage_div": 22,
+    "convdiff": 111, "stage": 373, "stage_norebuild": 364, "stage_div": 22,
     "correct": 9, "eigen_scale": 15, "channel_msd": 215,
     # the Smagorinsky force as the JAX package's `_smag_body` forms it, each
     # quantity once per cell: 6 strains (24), the eddy viscosity from their
@@ -1007,13 +1032,24 @@ def training_kernel_cases(n):
     ub, kb, qb = field(3, *box), field(3, *box), field(*box, scale=1e-3)
     dxb = (1.0 / box[0], 1.0 / box[1], 1.0 / box[2])
     cells = n**3
+    # the conv-diff also on `convdiff_box(n)` (nz % 4 != 0: its 4-byte
+    # staging, ragged y), each case against the plain version in float64
+    cbox = convdiff_box(n)
+    uc = field(3, *cbox)
+    dxc = tuple(1.0 / v for v in cbox)
+
+    def convdiff(uu, dd, label):
+        return Case(label, lambda: (pk.convdiff_interior_3d(uu, visc, dd),),
+                    lambda: (pk.convdiff_interior_3d_plain(uu, visc, dd),),
+                    ref=lambda: (pk.convdiff_interior_3d_plain(uu.double(), visc, dd),),
+                    plain_tol=REL_TOL, inputs=(uu,),
+                    ops=OPS_PER_CELL["convdiff"] * uu[0].numel())
+
     cases = {
         "convdiff_interior_3d": [
-            Case("u", lambda: (pk.convdiff_interior_3d(u, visc, dxs),),
-                 lambda: (pk.convdiff_interior_3d_plain(u, visc, dxs),),
-                 inputs=(u,), ops=OPS_PER_CELL["convdiff"] * cells),
-            Case(f"box {box}", lambda: (pk.convdiff_interior_3d(ub, visc, dxb),),
-                 lambda: (pk.convdiff_interior_3d_plain(ub, visc, dxb),)),
+            convdiff(u, dxs, "u"),
+            convdiff(ub, dxb, f"box {box}"),
+            convdiff(uc, dxc, f"box {cbox} (nz % 4 != 0)"),
         ],
         "stage_div_3d": [
             Case("base + dt/2 k", lambda: pk.stage_div_3d(u, k1, dt / 2, dxs),
@@ -1151,6 +1187,12 @@ def training_kernel_cases(n):
                      **(dict(tol=CONV_TF32_TOL, plain_tol=REL_TOL) if sfx else {})),
             ]
     return cases
+
+
+def convdiff_box(n):
+    """The conv-diff's ragged box at n: nz % 4 == 3 (the kernel's 4-byte
+    staging) and ny a multiple of its 16-row tile plus 5."""
+    return (n // 2 - 3, n - 27, n - 21)
 
 
 # the closure's conv layers: (cin, cout, act, bias)
@@ -1315,6 +1357,13 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                             r["library_tf32_ms"] = lib_tf32
                     if i == 0:
                         r.update(bound_ms=bms, bound_by=by, library_ms=lib)
+                how = ""
+                if name in DEVICE_TIMED:
+                    # back-to-back launches of a kernel this short run at the
+                    # host's launch rate: its own time is the profiler's
+                    dms = device_ms(c.kfn)
+                    if dms:
+                        ms, how = dms, "device (profiler); events "
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
                 if name == "plane_transform":
@@ -1328,7 +1377,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                     extra += (f"; {gf:.1f} GFLOP: {gf / ms:.2f} TFLOP/s kernel, "
                               f"{gf / plain_ms:.2f} plain")
                 print(f"[kernels] n={n} {name} [{c.label}]: kernel {ms:.4f} ms "
-                      f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})"
+                      f"({how}{k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})"
                       + extra)
         torch.cuda.empty_cache()
     return results
@@ -1677,6 +1726,10 @@ def phase_training(n, nunroll):
     missing = [k for k in TRAINING_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"training kernels never launched: {missing}")
+    perop = {k: counts[k] for k in PEROP_STEP_LAUNCHES}
+    if perop != PEROP_STEP_LAUNCHES:
+        fail(f"the per-op kernels' launches in a gradient step: {perop}, expected "
+             f"{PEROP_STEP_LAUNCHES}")
     if any(counts[k] for k in F32_CONV_KERNELS):
         fail(f"the bf16 run launched the float32 conv kernels: "
              f"{ {k: counts[k] for k in F32_CONV_KERNELS} }")
@@ -3455,8 +3508,10 @@ def tap_kernel_cases(n):
     gradient's shape (the cotangent padded to (n + 8, n + 8, n, 24), taps
     (5, 5, 24, 120)) and the weight gradient on (g, dpre (n, n, n, 24));
     float32 outputs, the weight gradient held against the plain version in
-    float64; the same forwards on float32 operands (the FMA kernels,
-    ``+f32``).  Then the tensor-core kernels on `TAP_RAGGED_BOX` for each of
+    float64; the same forwards on float32 operands (``+f32``: the tap
+    forward in 3xTF32, the pack forward on the FMA units) and the float32
+    weight gradients (3xTF32) of the stack's three shapes on operands with
+    full float32 mantissas.  Then the tensor-core kernels on `TAP_RAGGED_BOX` for each of
     `TAP_RAGGED` at ky = kx = 3, 5 and 7, bf16 and float32 outputs, against
     the plain version in float64.  The library yardsticks are cuDNN's
     conv3d with a (5, 5, 1) kernel and its conv3d_weight on the same
@@ -3482,7 +3537,7 @@ def tap_kernel_cases(n):
     ctp = field(n + 8, n + 8, n, 24, dtype=bf)
     wback = field(5, 5, 24, kc, scale=(25 * 24) ** -0.5)
     dpre, dpre3 = field(n, n, n, 24, dtype=bf), field(n, n, n, 3, dtype=bf)
-    f32 = torch.float32
+    f32 = f32_ = torch.float32
 
     def fwd(impl, g, w, b, act):
         return lambda: (impl(g, w, b, act, out_dtype=f32),)
@@ -3490,13 +3545,20 @@ def tap_kernel_cases(n):
     def conv_ops(nx, ny, nz, kc, cout):
         return 2.0 * nx * ny * nz * 25 * kc * cout
 
-    def wgrad(gg, dd, label, peak="bf16"):  # the weight gradient against float64
+    def wgrad(gg, dd, label):  # the weight gradient against float64
+        def lib():
+            return torch.nn.grad.conv3d_weight(planes(gg), (dd.shape[-1], gg.shape[-1], 5, 5, 1),
+                                               planes(dd))
+
+        ops = conv_ops(n, n, n, gg.shape[-1], dd.shape[-1])
+        # float32 operands: 3xTF32, three TF32 products a multiply-add, bound
+        # at the TF32 peak; within 1e-5 of float64 and 1e-4 of the plain version
+        f32 = dict(peak="tf32", tol=CONV_TF32_TOL, plain_tol=REL_TOL,
+                   library_tf32=with_tf32(lib)) if gg.dtype == f32_ else dict(peak="bf16")
         return Case(label, lambda: (ck.tapconv_wgrad_3d(gg, dd, 5, 5),),
                     lambda: (ck.tapconv_wgrad_3d_plain(gg, dd, 5, 5),),
                     ref=lambda: (ck.tapconv_wgrad_3d_plain(gg.double(), dd.double(), 5, 5),),
-                    inputs=(gg, dd), ops=conv_ops(n, n, n, gg.shape[-1], dd.shape[-1]), peak=peak,
-                    library=lambda: torch.nn.grad.conv3d_weight(
-                        planes(gg), (dd.shape[-1], gg.shape[-1], 5, 5, 1), planes(dd)))
+                    inputs=(gg, dd), ops=ops * (3 if gg.dtype == f32_ else 1), library=lib, **f32)
 
     def planes(t):  # (nx, ny, nz, c) -> (1, c, nx, ny, nz)
         return t.permute(3, 0, 1, 2).unsqueeze(0)
@@ -3531,7 +3593,14 @@ def tap_kernel_cases(n):
         # the stack's three weight gradients (tensor cores, bf16)
         "tapconv_wgrad_3d": [wgrad(g, dpre, "dw 120x24 bf16"), wgrad(g16, dpre, "dw 16x24 bf16"),
                              wgrad(g, dpre3, "dw 120x3 bf16")],
-        "tapconv_wgrad_3d+f32": [wgrad(g.float(), dpre.float(), "dw 120x24 f32", peak="fp32")],
+        # the float32 stack's three weight gradients (3xTF32) on operands
+        # with full float32 mantissas
+        "tapconv_wgrad_3d+f32": [wgrad(field(n + 4, n + 4, n, kc), field(n, n, n, 24),
+                                       "dw 120x24 f32"),
+                                 wgrad(field(n + 4, n + 4, n, 15), field(n, n, n, 24),
+                                       "dw 15x24 f32"),
+                                 wgrad(field(n + 4, n + 4, n, kc), field(n, n, n, 3),
+                                       "dw 120x3 f32")],
         # 3xTF32: three TF32 products a multiply-add, bound at the TF32 peak
         "tapconv_3d+f32": [
             Case("24->24 tanh+bias f32", fwd(ck.tapconv_3d, g32, w24, b24, "tanh"),
@@ -3587,14 +3656,17 @@ def tap_kernel_cases(n):
                         time=False))
             if label.startswith("dG") or label == "120->13":
                 continue
-            dr = field(nx, ny, nz, cout, dtype=bf)
-            cases["tapconv_wgrad_3d"].append(Case(
-                f"dw {label} k={k} box {TAP_RAGGED_BOX}",
-                lambda gr=gr, dr=dr, k=k: (ck.tapconv_wgrad_3d(gr, dr, k, k),),
-                lambda gr=gr, dr=dr, k=k: (ck.tapconv_wgrad_3d_plain(gr, dr, k, k),),
-                ref=lambda gr=gr, dr=dr, k=k: (
-                    ck.tapconv_wgrad_3d_plain(gr.double(), dr.double(), k, k),),
-                time=False))
+            dr, dr32 = field(nx, ny, nz, cout, dtype=bf), field(nx, ny, nz, cout)
+            for name, gg, dd, tols in (("tapconv_wgrad_3d", gr, dr, {}),
+                                       ("tapconv_wgrad_3d+f32", g32r, dr32,
+                                        dict(tol=CONV_TF32_TOL, plain_tol=REL_TOL))):
+                cases[name].append(Case(
+                    f"dw {label} k={k} box {TAP_RAGGED_BOX}",
+                    lambda gg=gg, dd=dd, k=k: (ck.tapconv_wgrad_3d(gg, dd, k, k),),
+                    lambda gg=gg, dd=dd, k=k: (ck.tapconv_wgrad_3d_plain(gg, dd, k, k),),
+                    ref=lambda gg=gg, dd=dd, k=k: (
+                        ck.tapconv_wgrad_3d_plain(gg.double(), dd.double(), k, k),),
+                    time=False, **tols))
     return cases
 
 
@@ -3618,6 +3690,27 @@ def stage_div_kernel_cases(n):
                  inputs=(u, base), ops=OPS_PER_CELL["stage_norebuild"] * n**3),
         ],
     }
+
+
+def check_tap_wgrad_repeatable(n):
+    """Two calls of the tap layer's weight gradient give the same bits, for
+    bf16 and float32 operands, at the stack's three shapes at n³ (k = 5)."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+
+    rng = np.random.default_rng(SEED + 17 * n)
+    for dtype in (torch.bfloat16, torch.float32):
+        for kc, cout in ((120, 24), (15, 24), (120, 3)):
+            g, d = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(DEVICE)
+                    .to(dtype) for s in ((n + 4, n + 4, n, kc), (n, n, n, cout)))
+            first = ck.tapconv_wgrad_3d(g, d, 5, 5)
+            second = ck.tapconv_wgrad_3d(g, d, 5, 5)
+            if not torch.equal(first, second):
+                fail(f"tapconv_wgrad_3d {kc}x{cout} {dtype} at n={n}: two calls differ by "
+                     f"{(first - second).abs().max().item():.3e}")
+    print(f"[kernels] n={n} tapconv_wgrad_3d: two calls bit-identical at 120x24, 15x24 and "
+          "120x3, bf16 and float32 operands")
 
 
 def tap_stack(theta, h0, cdt, *, form, pack=None):
@@ -3734,8 +3827,9 @@ def phase_tapconv(n):
             torch.cuda.synchronize()
             bwd = dict(launches.LAUNCHES)
             # bf16 convs run the bf16 tensor-core kernels, float32 ones the
-            # "+f32" kernels (the tap forward in 3xTF32, the pack forward and
-            # the weight gradient on the FMA units), never the other route's
+            # "+f32" kernels (the tap forward and the weight gradient in
+            # 3xTF32, the pack forward on the FMA units), never the other
+            # route's
             sfx = "" if cdt == torch.bfloat16 else "+f32"
             other = "+f32" if cdt == torch.bfloat16 else ""
             want_fwd = {"packconv_3d" + sfx: 3 if pack is None else 0,
@@ -3977,6 +4071,153 @@ def channel_turns(parent):
     run_turns("--channel-time", parent)
 
 
+# the kernels `--perop-turns` reports ptxas registers and spills of
+PEROP_PTXAS = ("convdiff_kernel", "tap_wgrad_tf32_kernel")
+
+
+def ptxas_report(names=PEROP_PTXAS):
+    """Print ptxas's registers, spills and shared memory of each kernel
+    whose mangled name holds one of `names`, from this tree's build.log."""
+    from ins_tpu_torch import _build
+
+    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or not any(k in line for k in names):
+            continue
+        fn = line.split("'")[1]
+        props = [ln.strip() for ln in lines[i + 1:i + 5]
+                 if "spill" in ln or "registers" in ln]
+        print(f"[ptxas] {fn}: " + "; ".join(props))
+
+
+def perop_time(with_step=True, steps=2, n=128):
+    """One turn of `perop_turns` in this process: the float32 tap weight
+    gradient at the stack's three shapes at n³ (error against float64,
+    held within `CONV_TF32_TOL`), then the conv-diff kernel at n³ and on
+    `convdiff_box(n)` (max relative error against the plain version in
+    float64, held within `REL_TOL`), each as [ms (CUDA events, mean of two
+    runs of 10), device ms (`device_ms` over 50 calls: the kernels' own
+    time, which a back-to-back run of short kernels hides behind the
+    host's launch work), error]; with ``with_step`` phase 3's n³
+    gradient step with bf16 convs: its per-op launches and seconds per
+    step (`steps` runs after a warm-up).  {...}."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops import perop_kernels as pk
+
+    rng = np.random.default_rng(SEED + 19)
+
+    def field(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEVICE)
+
+    def timed(fn, err):
+        return [(cuda_ms(fn) + cuda_ms(fn)) / 2, device_ms(fn, reps=50), err]
+
+    # the weight gradients first: seconds of tensor-core work bring the
+    # card to its clocks before the conv-diff's microseconds are timed
+    out = {}
+    for kc, cout in ((120, 24), (15, 24), (120, 3)):
+        g, d = field(n + 4, n + 4, n, kc), field(n, n, n, cout)
+        got = ck.tapconv_wgrad_3d(g, d, 5, 5)
+        err = rel_err(got.double(), ck.tapconv_wgrad_3d_plain(g.double(), d.double(), 5, 5))
+        if not err <= CONV_TF32_TOL:
+            fail(f"tapconv_wgrad_3d {kc}x{cout} float32: {err:.3e} from the float64 plain "
+                 "version")
+        out[f"wgrad f32 {kc}x{cout}"] = timed(lambda g=g, d=d: ck.tapconv_wgrad_3d(g, d, 5, 5),
+                                              err)
+        del g, d, got
+        torch.cuda.empty_cache()
+    visc = 1.0 / 2000.0
+    for box in ((n,) * 3, convdiff_box(n)):
+        u = field(3, *box)
+        dx = tuple(1.0 / v for v in box)
+        err = rel_err(pk.convdiff_interior_3d(u, visc, dx).double(),
+                      pk.convdiff_interior_3d_plain(u.double(), visc, dx))
+        if not err <= REL_TOL:
+            fail(f"convdiff_interior_3d at {box}: {err:.3e} from the float64 plain version")
+        out[f"convdiff {box}"] = timed(lambda u=u, dx=dx: pk.convdiff_interior_3d(u, visc, dx),
+                                       err)
+        del u
+    if not with_step:
+        return out
+    setup = training_setup(n)
+    _, data = training_data(setup, 5)
+    _, theta, loss = build_training(setup)
+    launches.reset_counts()
+    value_and_grad(loss, data, theta)
+    out["step launches"] = {k: launches.LAUNCHES[k] for k in PEROP_STEP_LAUNCHES}
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        value_and_grad(loss, data, theta)
+        times.append(time.perf_counter() - t0)
+    out["bf16 step s"] = times
+    return out
+
+
+def perop_variant_tree(here, label, edits):
+    """A copy of this tree's package in `build/perop_<label>` with each
+    edit (file under the repository, regex, replacement) applied once;
+    returns its root."""
+    import re
+    import shutil
+
+    root = os.path.join(here, "build", f"perop_{label}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(here, "ins_tpu_torch"), os.path.join(root, "ins_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for path, pattern, repl in edits:
+        target = os.path.join(root, path)
+        with open(target) as f:
+            text, count = re.subn(pattern, repl, f.read())
+        if count != 1:
+            fail(f"variant {label}: {pattern!r} matched {count} times in {path}")
+        with open(target, "w") as f:
+            f.write(text)
+    return root
+
+
+def perop_turns(parent, variants=()):
+    """`perop_time` of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent.  Then
+    each of ``variants``, "label|file|regex|replacement[|file|regex|
+    replacement...]", this tree with those edits copied into
+    `build/perop_<label>` (`perop_variant_tree`), timed without the
+    gradient step in turns (the list, then the list reversed).  Then
+    ptxas's report of the new kernels and their HMMA count (`sass_diff.py
+    --opcode HMMA`)."""
+    run_turns("--perop-time", parent)
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = []
+    for v in variants:
+        label, *rest = v.split("|")
+        if not rest or len(rest) % 3:
+            fail(f"--perop-variant {v!r}: expected label|file|regex|replacement[|...]")
+        specs.append((label, [tuple(rest[i:i + 3]) for i in range(0, len(rest), 3)]))
+    roots = [perop_variant_tree(here, label, edits) for label, edits in specs]
+    for root in roots + roots[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--perop-time", root,
+                              "--perop-no-step"], capture_output=True, text=True, timeout=900)
+        lines = out.stdout.strip().splitlines()
+        print(f"[turns] {root}: " + (lines[-1] if lines else "no output"))
+        if out.returncode:
+            fail(f"--perop-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+    from ins_tpu_torch import _build
+
+    _build.load()
+    ptxas_report()
+    empty = os.path.join(here, "build", "empty_csrc")
+    os.makedirs(empty, exist_ok=True)
+    sass = subprocess.run([sys.executable, os.path.join(here, "sass_diff.py"), "--opcode", "HMMA",
+                           empty, os.path.join(here, "ins_tpu_torch", "csrc"),
+                           "tapwgrad_tf32.cu"], capture_output=True, text=True, timeout=600)
+    print(sass.stdout.strip())
+    if sass.returncode:
+        fail(f"sass_diff.py: exit {sass.returncode}: {sass.stderr[-2000:]}")
+
+
 def run_turns(flag, parent, rounds=1, extra=()):
     """Run this script with `flag ROOT` (and the arguments ``extra``) for
     ROOT = parent, this tree, this tree, parent, `rounds` times (each in
@@ -4098,6 +4339,12 @@ TRAINING_KERNELS = (
     "convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d",
     "fusedconv_3d", "fusedconv_wgrad_3d",
 )
+# kernels whose table time is their device time (`device_ms`): tens of
+# microseconds, below the host's time to launch them back to back
+DEVICE_TIMED = ("convdiff_interior_3d", "stage_div_3d", "pressure_correct_3d")
+# the per-op kernels' launches in phase 3's bf16 gradient step (5 unrolled
+# RK44 steps with remat)
+PEROP_STEP_LAUNCHES = {"convdiff_interior_3d": 40, "stage_div_3d": 40, "pressure_correct_3d": 35}
 # the fused conv layer's float32 route (phase 3's float32 run)
 F32_CONV_KERNELS = ("fusedconv_3d+f32", "fusedconv_wgrad_3d+f32")
 CONV_KEYS = ("fusedconv_3d", "fusedconv_wgrad_3d") + F32_CONV_KERNELS
@@ -4167,7 +4414,8 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "momentum_stage_div_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:631"),
     "tapconv_3d+f32": ("ins_tpu_torch/csrc/tapconv_tf32.cu", "ins_tpu/ops/convkernels.py:130"),
     "packconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
-    "tapconv_wgrad_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:249"),
+    "tapconv_wgrad_3d+f32": ("ins_tpu_torch/csrc/tapwgrad_tf32.cu",
+                             "ins_tpu/ops/convkernels.py:249"),
 }
 
 
@@ -4209,6 +4457,17 @@ def main():
                          "device split, of the package in the tree PARENT and of this "
                          "tree's, in turns")
     ap.add_argument("--channel-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--perop-turns", metavar="PARENT",
+                    help="only the conv-diff kernel, the float32 tap weight gradient and "
+                         "phase 3's bf16 gradient step (errors, ms, s/step) of the package "
+                         "in the tree PARENT and of this tree's, in turns; then ptxas's "
+                         "report and the HMMA count of the new kernels")
+    ap.add_argument("--perop-variant", action="append", default=[],
+                    metavar="LABEL|FILE|REGEX|REPL",
+                    help="with --perop-turns: also this tree with REGEX replaced by REPL in "
+                         "FILE (more FILE|REGEX|REPL triples may follow), in turns")
+    ap.add_argument("--perop-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--perop-no-step", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -4241,8 +4500,12 @@ def main():
     if args.channel_turns:
         channel_turns(args.channel_turns)
         return
+    if args.perop_turns:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        perop_turns(args.perop_turns, args.perop_variant)
+        return
     root = (args.stack_time or args.chain_time or args.train_time or args.conv_time
-            or args.fold_time or args.channel_time)
+            or args.fold_time or args.channel_time or args.perop_time)
     sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -4253,11 +4516,14 @@ def main():
         times = chain_time()
         print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
         return
-    if args.train_time or args.conv_time or args.fold_time or args.channel_time:
+    if (args.train_time or args.conv_time or args.fold_time or args.channel_time
+            or args.perop_time):
         # one turn of --*-turns
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         times = (train_time() if args.train_time else conv_time() if args.conv_time
-                 else fold_time(args.fold_max_n) if args.fold_time else channel_time())
+                 else fold_time(args.fold_max_n) if args.fold_time
+                 else perop_time(not args.perop_no_step) if args.perop_time
+                 else channel_time())
         print(json.dumps({**times, "root": os.path.abspath(root)}))
         return
     if args.stack_time:  # one turn of --stack-turns
@@ -4278,6 +4544,7 @@ def main():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s); "
           f"ptxas report in {_build.BUILD_DIR / 'build.log'}")
+    ptxas_report()
 
     clock = {"t": time.perf_counter()}
 
@@ -4304,7 +4571,8 @@ def main():
     del setup
     torch.cuda.empty_cache()
     phase_done("phase 2 (main path)")
-    results.update(phase_kernels(training_kernel_cases, (64, 128), time_all=CONV_KEYS))
+    results.update(phase_kernels(training_kernel_cases, (64, 128),
+                                 time_all=CONV_KEYS + ("convdiff_interior_3d",)))
     for n in (64, 128):
         check_wgrad_repeatable(n)
     train_counts = phase_training(128, nunroll=5)
@@ -4367,7 +4635,10 @@ def main():
     phase_done("phase 10 (unmerged chain and bf16 streams)")
     results.update(phase_kernels(tap_kernel_cases, (36, 128),
                                  time_all=("tapconv_3d", "packconv_3d", "tapconv_3d+f32",
-                                           "packconv_3d+f32", "tapconv_wgrad_3d")))
+                                           "packconv_3d+f32", "tapconv_wgrad_3d",
+                                           "tapconv_wgrad_3d+f32")))
+    for n in (36, 128):
+        check_tap_wgrad_repeatable(n)
     results.update(phase_kernels(stage_div_kernel_cases, (RAGGED_N, 64, 256)))
     torch.cuda.empty_cache()
     tap_counts = phase_tapconv(128)

@@ -97,7 +97,7 @@ _SIGNATURES = {
         _c_int,
     ),
     "ins_convdiff_f32": (
-        [_c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
+        [_c_ptr, _c_ptr] + [_c_int] * 3 + [_c_f32] * 6 + [_c_ptr],
         _c_int,
     ),
     "ins_stage_div_f32": (
@@ -126,8 +126,6 @@ _SIGNATURES = {
         [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
         _c_int,
     ),
-    "ins_tapconv_wgrad_chunks": ([_c_int] * 3, _c_int),
-    "ins_tapconv_wgrad": ([_c_ptr] * 4 + [_c_int] * 7 + [_c_ptr], _c_int),
     "ins_packconv": (
         [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
         + [_c_int] * 7 + [_c_ptr],
@@ -143,6 +141,10 @@ _SIGNATURES = {
     ),
     "ins_tapconv_wgrad_mma": (
         [_c_ptr] * 4 + [_c_int] * 14 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_tapconv_wgrad_tf32": (
+        [_c_ptr] * 4 + [_c_int] * 15 + [_c_ptr],
         _c_int,
     ),
     "ins_packconv_mma": (

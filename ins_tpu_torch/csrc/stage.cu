@@ -29,8 +29,7 @@
 // `momentum_stage_divhat_3d` :1264), with their steady body-force stream
 // (`bf(a)`, :1037).  The conv-diff is
 // `_convdiff_window` (:129) / `convdiff_roll` term for term (`convdiff_r`
-// below: stencil.cuh's `convdiff`, which perop.cu keeps, with every 1/dx
-// a multiply).  The TPU
+// below, with every 1/dx a multiply).  The TPU
 // kernels apply the z/y eigen-transforms of q and div in the same pass;
 // here the wrappers run them as plane-transform GEMMs (transforms.cu)
 // before (q) and after (div) this kernel, so q and div each make one
@@ -327,8 +326,8 @@ struct TView {
     }
 };
 
-// Conv-diff of component A at the view's cell (`convdiff` of stencil.cuh
-// term for term, every 1/dx a multiply); lap = visc * Laplacian(u_A), the
+// Conv-diff of component A at the view's cell (`convdiff_roll` term for
+// term, every 1/dx a multiply); lap = visc * Laplacian(u_A), the
 // sum of its diffusion terms.
 template <int A>
 __device__ __forceinline__ float convdiff_r(const Consts& k, const View& u, float& lap) {

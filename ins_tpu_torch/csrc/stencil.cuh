@@ -1,13 +1,6 @@
-// Periodic staggered-grid stencils shared by the stage, per-op and
-// correction kernels (stage.cu, perop.cu, correct.cu).
-//
-// The conv-diff is `convdiff_roll` (ins_tpu/ops/diffkernels.py) term for
-// term: second-order diffusion plus the energy-conserving face-averaged
-// convection, all interpolation weights 1/2.  A kernel hands it a view
-// `u(c, ox, oy, oz)` that reads velocity component c at I + (ox, oy, oz)
-// from wherever it staged the field (a shared-memory ring, in both
-// kernels that use it); the arithmetic and its order are the same for
-// every caller.
+// Periodic staggered-grid helpers shared by the stage, per-op and
+// correction kernels (stage.cu, perop.cu, correct.cu, channel.cu): the
+// wrap of an index and the correction kernel.
 //
 // Velocity-like fields may be stored in bf16 (the opt-in stream storage
 // of the fast path): `ldg_f` widens a stored value to float (exactly: a
@@ -35,38 +28,6 @@ __device__ __forceinline__ void st_f(__nv_bfloat16* p, size_t i, float v) {
 __device__ __forceinline__ int wrap(int v, int n) {
     v %= n;
     return v < 0 ? v + n : v;
-}
-
-// Conv-diff of component A at I + (OX, OY, OZ).
-template <int A, int OX, int OY, int OZ, class View>
-__device__ __forceinline__ float convdiff(float visc, const float (&dx)[3], const View& u) {
-    const float ua = u(A, OX, OY, OZ);
-    float f = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-        const int ex = b == 0, ey = b == 1, ez = b == 2;
-        const float dxb = dx[b];
-        const float upb = u(A, OX + ex, OY + ey, OZ + ez);
-        const float umb = u(A, OX - ex, OY - ey, OZ - ez);
-        const float fd = (visc / (dxb * dxb)) * (upb - 2.0f * ua + umb);
-        const float uab1 = 0.5f * (umb + ua);
-        const float uab2 = 0.5f * (ua + upb);
-        float uba1, uba2;
-        if (A == b) {
-            uba1 = uab1;
-            uba2 = uab2;
-        } else {
-            const int ax = A == 0, ay = A == 1, az = A == 2;
-            const float ub = u(b, OX, OY, OZ);
-            const float ub_pa = u(b, OX + ax, OY + ay, OZ + az);
-            const float ub_mb = u(b, OX - ex, OY - ey, OZ - ez);
-            const float ub_pa_mb = u(b, OX + ax - ex, OY + ay - ey, OZ + az - ez);
-            uba1 = 0.5f * (ub_mb + ub_pa_mb);
-            uba2 = 0.5f * (ub + ub_pa);
-        }
-        f = f + (fd - (uab2 * uba2 - uab1 * uba1) / dxb);
-    }
-    return f;
 }
 
 // u_a(I) = ut_a(I) - (q(I + e_a) - q(I)) / dx_a on a periodic

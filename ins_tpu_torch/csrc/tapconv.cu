@@ -1,71 +1,53 @@
 // The pack-tile convolution of the CNN closure's z-folded layer on
-// float32 operands, forward (with bias and tanh/identity fused in), and the
-// layer's weight gradient on float32 operands:
+// float32 operands, forward (with bias and tanh/identity fused in):
 //
 //   out[x, y, z, o] = act(b[o] + sum_{dx<kx, dy<ky, c<kc} g[x+dx, y+dy, z, c]
 //                                                         * w2[dx, dy, c, o])
-//   dW[dx, dy, c, o] = sum_{x, y, z} g[x+dx, y+dy, z, c] * ct[x, y, z, o]
 //
 // g is (nxp, nyp, nz, kc) channels last with the z taps already folded
 // into kc and x, y padded by kx-1, ky-1: a VALID correlation over (x, y)
-// with z a batch axis; out is (nxp-kx+1, nyp-ky+1, nz, cout), ct likewise.
-// g, ct, w2 and dW are float32 (the pack forward's loads also widen a bf16
-// g exactly), out float32 or bfloat16.  Every sum is taken in float32.
-// The other routes: the tap forward on float32 operands is tapconv_tf32.cu
-// (3xTF32 on the tensor cores); bf16 operands run tapconv_mma.cu
-// (forwards) and tapwgrad_mma.cu (weight gradient).
+// with z a batch axis; out is (nxp-kx+1, nyp-ky+1, nz, cout).  g and w2
+// are float32 (the loads also widen a bf16 g exactly), out float32 or
+// bfloat16.  Every sum is taken in float32.  The other routes: the tap
+// forward and the weight gradient on float32 operands are tapconv_tf32.cu
+// and tapwgrad_tf32.cu (3xTF32 on the tensor cores); bf16 operands run
+// tapconv_mma.cu (forwards) and tapwgrad_mma.cu (weight gradient).
 //
-// Replaces: for float32 operands, `_wgrad_kernel`
-// (ins_tpu/ops/convkernels.py:191, wrapper `tapconv_wgrad_3d` :249) and
-// `_packconv_kernel` (:387, wrapper `packconv_3d` :471).  The TPU kernels
-// need kc and nz in 128-lane multiples, emit lane-padded outputs, carry a
-// ring of g planes (and, for the pack form, of product planes) across the
-// sequential x grid and collapse the packed tap lanes with a block-sum
-// matmul; none of that carries over: these kernels take any kc, nz and
-// cout and emit cout channels.
+// Replaces: for float32 operands, `_packconv_kernel`
+// (ins_tpu/ops/convkernels.py:387, wrapper `packconv_3d` :471).  The TPU
+// kernel needs kc and nz in 128-lane multiples, emits lane-padded outputs,
+// carries a ring of g planes and of product planes across the sequential
+// x grid and collapses the packed tap lanes with a block-sum matmul; none
+// of that carries over: this kernel takes any kc, nz and cout and emits
+// cout channels.
 //
 // What bounds it on an H100: FP32 FMA issue, as in conv.cu's float32
 // route.  The 24 -> 24 layer at 128^3 is 2 * 25 * 120 * 24 * 128^3 = 302
 // GFLOP (4.5 ms at the 67 TFLOP/s FP32 peak) against 0.3 GB of compulsory
-// traffic.
-//
-// - pack forward, weight-first as the TPU kernel: phase 1 forms every
-//   input plane's products with all taps once, P[p, (y, z), (dx, dy, o)] =
-//   sum_c g[p, y, z, c] w2[dx, dy, c, o], a dense product (M = nyp nz rows,
-//   K = kc, N = kx ky cout) by a 128 x 128 shared-memory tiled FP32 GEMM
-//   into a float32 scratch ring of S planes (the TPU kernel keeps its
-//   partials in float32 too: bf16 ones measured 5e-2 off); phase 2 forms
-//   out[x, y] = act(b + sum_{dx,dy} P[x+dx, (y+dy, z), (dx, dy, o)]), a
-//   plane's products serving the kx output planes that read it.  The host
-//   walks x in chunks of S - kx + 1 output planes, two launches each; the
-//   ring slot of plane p is p % S, so the kx - 1 planes a chunk shares
-//   with the next are kept, not recomputed.
-// - weight gradient: a block owns one dx, COT output channels and a chunk
-//   of cells (4 y x 16 z over a run of x-planes) split between two groups
-//   of threads; each thread owns RPT = 8 rows (dy, c) of dW for those
-//   channels and walks its group's staged cells.  Each group writes its
-//   partial sums and a second kernel adds them in a fixed order (no
-//   atomics), as in conv.cu: the same result every run.
-// Where kc % 8 == 0 (and g is 16-byte aligned), g is staged eight values
-// a load; the scalar loads of the other shapes cost several times more.
+// traffic.  Weight-first, as the TPU kernel: phase 1 forms every input
+// plane's products with all taps once, P[p, (y, z), (dx, dy, o)] = sum_c
+// g[p, y, z, c] w2[dx, dy, c, o], a dense product (M = nyp nz rows, K =
+// kc, N = kx ky cout) by a 128 x 128 shared-memory tiled FP32 GEMM into a
+// float32 scratch ring of S planes (the TPU kernel keeps its partials in
+// float32 too: bf16 ones measured 5e-2 off); phase 2 forms out[x, y] =
+// act(b + sum_{dx,dy} P[x+dx, (y+dy, z), (dx, dy, o)]), a plane's products
+// serving the kx output planes that read it.  The host walks x in chunks
+// of S - kx + 1 output planes, two launches each; the ring slot of plane p
+// is p % S, so the kx - 1 planes a chunk shares with the next are kept,
+// not recomputed.  Where kc % 8 == 0 (and g is 16-byte aligned), g is
+// staged eight values a load; the scalar loads of the other shapes cost
+// several times more.
 
 #include <cstdint>
 
-#include "convio.cuh"  // load_val, load_vec, reduce_partials_kernel
+#include "convio.cuh"  // load_val
 
 namespace {
 
-constexpr int WTY = 4;           // wgrad: cell tile extent in y
-constexpr int WTZ = 16;          // wgrad: cell tile extent in z
-constexpr int RPT = 8;           // wgrad: dW rows per thread
-constexpr int WG = 2;            // wgrad: cell groups per block (each its own partial)
-constexpr int WCHUNKS = 256;     // wgrad: target number of cell chunks
-constexpr int WMAXT = 128;       // wgrad: most threads of a cell group
 constexpr int PM = 128;          // pack products: rows per block
 constexpr int PN = 128;          // pack products: columns per block
 constexpr int PK = 8;            // pack products: depth staged per pass
 constexpr int PPAD = PM + 4;     // its shared row stride (conflict-free stores)
-constexpr int SMEM_MAX = 232448; // shared memory a block may use
 
 // p[i .. i + 8) widened; i a multiple of 8 and p 16-byte aligned
 __device__ __forceinline__ void load8(const void* p, size_t i, int bf16, float (&v)[8]) {
@@ -91,120 +73,6 @@ __device__ __forceinline__ void store_val(void* p, size_t i, float v, int bf16) 
         static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
     else
         static_cast<float*>(p)[i] = v;
-}
-
-struct WgradParams {
-    const float* g;
-    int vec;         // 8-value loads of g: kc % 8 == 0 and g 16-byte aligned
-    const float* d;  // (nx, ny, nz, cout)
-    float* partial;  // (nchunk * WG, kx * ky * kc * cout)
-    int nxp, nyp, nz, kc, kx, cout;
-    int xb;          // x-planes per cell chunk
-};
-
-__host__ __device__ inline void wgrad_chunks(int nx, int ny, int nz, int* xb, int* nchunk) {
-    const int yz = ((ny + WTY - 1) / WTY) * ((nz + WTZ - 1) / WTZ);
-    int groups = (WCHUNKS + yz - 1) / yz;
-    groups = groups < 1 ? 1 : (groups > nx ? nx : groups);
-    *xb = (nx + groups - 1) / groups;
-    *nchunk = ((nx + *xb - 1) / *xb) * yz;  // cell chunks of WG groups each
-}
-
-template <int KY>
-size_t wgrad_smem(int kc, int cot) {
-    return sizeof(float) * ((size_t)WTY * WTZ * cot + (size_t)(WTY + KY - 1) * WTZ * kc);
-}
-
-template <int KY, int COT>
-__global__ void __launch_bounds__(WMAXT * WG)
-tap_wgrad_kernel(const __grid_constant__ WgradParams p) {
-    extern __shared__ float4 smem4[];
-    constexpr int TYH = WTY + KY - 1;
-    const int nyp = p.nyp, nz = p.nz, kc = p.kc, cout = p.cout;
-    const int nx = p.nxp - p.kx + 1, ny = nyp - KY + 1;
-    float* s_d = reinterpret_cast<float*>(smem4);  // (WTY, WTZ, COT)
-    float* s_g = s_d + WTY * WTZ * COT;             // (TYH, WTZ, kc)
-    const int nrow = KY * kc;                       // rows (dy, c) of one dx
-    const int ncot = (cout + COT - 1) / COT;
-    const int dx = blockIdx.z / ncot, co0 = (blockIdx.z % ncot) * COT;
-    const int ytiles = (ny + WTY - 1) / WTY, ztiles = (nz + WTZ - 1) / WTZ;
-    const int chunk = blockIdx.x;
-    const int zt = chunk % ztiles, yt = (chunk / ztiles) % ytiles, xg = chunk / (ztiles * ytiles);
-    const int y0 = yt * WTY, z0 = zt * WTZ;
-    const int x0 = xg * p.xb, x1 = min(nx, x0 + p.xb);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int grp = threadIdx.y, btid = grp * nthr + tid, bthr = WG * nthr;
-    const int row0 = blockIdx.y * nthr * RPT + tid;
-
-    int off[RPT];  // offset of row j's input relative to the cell, in s_g
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-        const int r = row0 + j * nthr;
-        off[j] = r < nrow ? (r / kc) * WTZ * kc + r % kc : 0;  // else computed and discarded
-    }
-    float acc[RPT][COT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j)
-#pragma unroll
-        for (int o = 0; o < COT; ++o) acc[j][o] = 0.0f;
-
-    for (int x = x0; x < x1; ++x) {
-        const size_t gplane = (size_t)(x + dx) * nyp;
-        __syncthreads();
-        // a row of the window, (z0 .. z0 + WTZ) x kc, is contiguous in g
-        for (int ly = 0; ly < TYH; ++ly) {
-            const int yy = y0 + ly;
-            const int len = yy < nyp ? min(WTZ, nz - z0) * kc : 0;  // the rest adds 0
-            const size_t row = ((gplane + yy) * nz + z0) * kc;
-            float* dst = s_g + ly * WTZ * kc;
-            if (p.vec) {
-                for (int i = btid * 8; i < WTZ * kc; i += bthr * 8) {
-                    float v[8] = {};
-                    if (i < len) load8(p.g, row + i, 0, v);
-                    *reinterpret_cast<float4*>(dst + i) = make_float4(v[0], v[1], v[2], v[3]);
-                    *reinterpret_cast<float4*>(dst + i + 4) = make_float4(v[4], v[5], v[6], v[7]);
-                }
-            } else {
-                for (int i = btid; i < WTZ * kc; i += bthr)
-                    dst[i] = i < len ? p.g[row + i] : 0.0f;
-            }
-        }
-        for (int e = btid; e < WTY * WTZ * COT; e += bthr) {
-            const int o = e % COT, rest = e / COT;
-            const int lz = rest % WTZ, ly = rest / WTZ;
-            const int y = y0 + ly, z = z0 + lz, co = co0 + o;
-            float v = 0.0f;  // cells outside the box and channels past cout add 0
-            if (y < ny && z < nz && co < cout)
-                v = p.d[(((size_t)x * ny + y) * nz + z) * cout + co];
-            s_d[e] = v;
-        }
-        __syncthreads();
-        for (int ly = grp * (WTY / WG); ly < (grp + 1) * (WTY / WG); ++ly) {
-            for (int lz = 0; lz < WTZ; ++lz) {
-                float dv[COT];
-                load_vec<COT>(s_d + (ly * WTZ + lz) * COT, dv);
-                const float* gc = s_g + (ly * WTZ + lz) * kc;
-#pragma unroll
-                for (int j = 0; j < RPT; ++j) {
-                    const float gv = gc[off[j]];
-#pragma unroll
-                    for (int o = 0; o < COT; ++o) acc[j][o] = fmaf(gv, dv[o], acc[j][o]);
-                }
-            }
-        }
-    }
-
-    const size_t nw = (size_t)p.kx * nrow * cout;
-    float* part = p.partial + ((size_t)chunk * WG + grp) * nw;
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-        const int r = row0 + j * nthr;
-        if (r >= nrow) continue;
-        const size_t base = ((size_t)dx * nrow + r) * cout;
-#pragma unroll
-        for (int o = 0; o < COT; ++o)
-            if (co0 + o < cout) part[base + co0 + o] = acc[j][o];
-    }
 }
 
 struct PackParams {
@@ -333,63 +201,7 @@ int aligned8(const void* g, int kc) {
     return kc % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
 }
 
-template <int KY, int COT>
-cudaError_t launch_wgrad(const WgradParams& p, int nchunk, cudaStream_t stream) {
-    const int nrow = KY * p.kc;
-    int nthr = (nrow + RPT - 1) / RPT;
-    nthr = nthr > WMAXT ? WMAXT : ((nthr + 31) / 32) * 32;
-    const int nrowchunk = (nrow + nthr * RPT - 1) / (nthr * RPT);
-    const size_t smem = wgrad_smem<KY>(p.kc, COT);
-    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            tap_wgrad_kernel<KY, COT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    const int ncot = (p.cout + COT - 1) / COT;
-    const dim3 grid(nchunk, nrowchunk, p.kx * ncot);
-    tap_wgrad_kernel<KY, COT><<<grid, dim3(nthr, WG), smem, stream>>>(p);
-    return cudaGetLastError();
-}
-
 }  // namespace
-
-// Number of cell chunks (rows of the partial-sum buffer) of a wgrad call
-// on a cotangent of (nx, ny, nz) cells.
-extern "C" int ins_tapconv_wgrad_chunks(int nx, int ny, int nz) {
-    int xb, nchunk;
-    wgrad_chunks(nx, ny, nz, &xb, &nchunk);
-    return nchunk * WG;
-}
-
-// dW (kx, ky, kc, cout) of g (nxp, nyp, nz, kc) and ct (nxp-kx+1, nyp-ky+1,
-// nz, cout), all float32; partial holds ins_tapconv_wgrad_chunks rows of
-// kx * ky * kc * cout floats.  ky in (1, 3, 5, 7); the staged g window
-// bounds kc (about 290 channels at ky = 5).
-extern "C" int ins_tapconv_wgrad(const float* g, const float* d, float* partial, float* dw,
-                                 int nxp, int nyp, int nz, int kc, int kx, int ky, int cout,
-                                 void* stream) {
-    if (kx < 1 || nxp < kx || nyp < ky || kc < 1 || cout < 1) return (int)cudaErrorInvalidValue;
-    int xb, nchunk;
-    wgrad_chunks(nxp - kx + 1, nyp - ky + 1, nz, &xb, &nchunk);
-    const WgradParams p{g, aligned8(g, kc), d, partial,
-                        nxp, nyp, nz, kc, kx, cout, xb};
-    const cudaStream_t s = (cudaStream_t)stream;
-    const bool small = cout <= 4;
-    cudaError_t e;
-    switch (ky) {
-        case 1: e = small ? launch_wgrad<1, 4>(p, nchunk, s) : launch_wgrad<1, 8>(p, nchunk, s); break;
-        case 3: e = small ? launch_wgrad<3, 4>(p, nchunk, s) : launch_wgrad<3, 8>(p, nchunk, s); break;
-        case 5: e = small ? launch_wgrad<5, 4>(p, nchunk, s) : launch_wgrad<5, 8>(p, nchunk, s); break;
-        case 7: e = small ? launch_wgrad<7, 4>(p, nchunk, s) : launch_wgrad<7, 8>(p, nchunk, s); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    if (e != cudaSuccess) return (int)e;
-    const size_t nw = (size_t)kx * ky * kc * cout;
-    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, s>>>(partial, dw, nchunk * WG,
-                                                                      nw);
-    return (int)cudaGetLastError();
-}
 
 // The pack forward: out (nxp-kx+1, nyp-ky+1, nz, cout); ws the packed
 // weights (kc, kx * ky * cout); P a float32 scratch of `slots` planes of

@@ -65,11 +65,13 @@ routes: bfloat16 g runs the tensor-core kernels of `csrc/tapconv_mma.cu`
 `pack_all_taps` where `pack_mma_takes`, else the tap kernel) and, for the
 weight gradient, of `csrc/tapwgrad_mma.cu` (`tap_wgrad_plan`), on g's and
 the cotangent's channels padded to a multiple of 8 (`stage_channels`;
-`models.cnn` makes them so); float32 g runs the tap forward in 3xTF32 on
-the tensor cores (`csrc/tapconv_tf32.cu` over `pack_tap_weights_tf32`,
-launch key ``"tapconv_3d+f32"``) and the FMA kernels of
-`csrc/tapconv.cu` for the pack forward and the weight gradient (launch
-keys ``"packconv_3d+f32"``, ``"tapconv_wgrad_3d+f32"``).  The plain
+`models.cnn` makes them so); float32 g runs the tap forward and the
+weight gradient in 3xTF32 on the tensor cores (`csrc/tapconv_tf32.cu`
+over `pack_tap_weights_tf32`, launch key ``"tapconv_3d+f32"``;
+`csrc/tapwgrad_tf32.cu` by `tap_wgrad_tf32_plan`, launch key
+``"tapconv_wgrad_3d+f32"``; g's and the cotangent's channels padded to a
+multiple of 4) and the FMA kernels of `csrc/tapconv.cu` for the pack
+forward (launch key ``"packconv_3d+f32"``).  The plain
 versions are ``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
 ``conv3d_weight``.  `make_conv_layer` selects `packconv_3d` where
 ``ky·cout <= 128`` (the JAX rule, so both packages run the same
@@ -109,6 +111,7 @@ __all__ = [
     "tap_tf32_geometry",
     "pack_tap_weights_tf32",
     "tap_wgrad_plan",
+    "tap_wgrad_tf32_plan",
     "pack_all_taps",
     "pack_mma_takes",
     "tapconv_3d",
@@ -482,6 +485,14 @@ _WGRAD_ITEMS = 8 * 7
 _WGRAD_MAXMC = 8
 _WGRAD_MAXNT = 3
 _WGRAD_BLOCKS = 528
+# the float32 (3xTF32) weight gradient (csrc/tapwgrad_tf32.cu): a block's 8
+# (y) x 8 (z) cells, the same items, channel tiles and n8 tiles, the blocks
+# an SM its launch bounds ask for (`WT_SM_BLOCKS`); an SM's shared memory
+# (228 KB, 1 KB of it reserved a block) and a block's static s_item table
+_WGRAD_TF32_TILE = (8, 8)
+_WGRAD_TF32_SM_BLOCKS = 2
+_SM_SMEM_TOTAL = 228 * 1024
+_WGRAD_TF32_STATIC = 4 * 8 * 7
 
 
 def lanes(c):
@@ -627,6 +638,76 @@ def tap_wgrad_plan(box, kc, cout, kx, ky):
     groups = min(nx, max(1, -(-_WGRAD_BLOCKS // (yz * -(-mt // mc) * nblk))))
     xb = -(-nx // groups)
     return TapWgradPlan(kp, nt, nblk * nt * 8, mc, nbuf, xb, -(-nx // xb) * yz)
+
+
+class TapWgradTf32Plan(NamedTuple):
+    """How the float32 (3xTF32) weight-gradient kernel tiles a call: the
+    channels kc (a multiple of 4) padded to ``kp`` (m16 tiles, ``mc`` of
+    them a block), the cotangent's columns padded to ``np`` in blocks of
+    ``nt`` n8 tiles (``nt <= 3``), ``kxb`` dx taps a block, ``nbuf``
+    cotangent planes in its ring, ``xb`` output planes a cell chunk of 8
+    (y) x 8 (z) cells, ``nchunk`` cell chunks (rows of the partial
+    sums)."""
+
+    kp: int
+    nt: int
+    np: int
+    mc: int
+    kxb: int
+    nbuf: int
+    xb: int
+    nchunk: int
+
+
+def _wgrad_tf32_smem(kxb, ky, mc, nt, nbuf):
+    """Dynamic shared memory of a float32 wgrad block (csrc/tapwgrad_tf32.cu
+    `wgrad_tf32_smem`): a ring of kxb + nbuf − 1 g planes of (8 + ky − 1)
+    x 8 cells, 16·mc + 8 floats a cell, and nbuf cotangent planes of 8 x 8
+    cells, `_wt_dpitch` floats a cell."""
+    ty, tz = _WGRAD_TF32_TILE
+    return 4 * ((kxb + nbuf - 1) * (ty + ky - 1) * tz * (16 * mc + 8)
+                + nbuf * ty * tz * _wt_dpitch(nt))
+
+
+def _wt_dpitch(nt):  # csrc/tapwgrad_tf32.cu wt_dpitch: 8 or 24 mod 32
+    return 24 if nt == 2 else 8 * nt
+
+
+def tap_wgrad_tf32_plan(box, kc, cout, kx, ky):
+    """`TapWgradTf32Plan` of the float32 weight gradient on a cotangent of
+    ``box = (nx, ny, nz)`` cells, kc and cout channels (multiples of 4).
+    The dx taps go in the fewest balanced groups whose ``kxb·ky`` items fit
+    a block's 8 warps of 7 (one group up to 56 taps); the channel chunk is
+    the largest whose ``kxb·ky·mc`` items fit (balanced over the chunks)
+    and whose block, with three cotangent buffers or else two, fits the
+    kernel's blocks an SM (`_WGRAD_TF32_SM_BLOCKS`); failing that, the
+    largest that fits one block.  Any kc, cout and kx are taken.  The 24
+    -> 24 layer at 128³: (128, 3, 24, 2, 5, 2, 128, 256)."""
+    nx, ny, nz = box
+    kp = _round16(kc)
+    nblk, nt = _col_blocks(cout, _WGRAD_MAXNT)
+    mt = kp // 16
+    ndx = -(-kx // (_WGRAD_ITEMS // ky))
+    kxb = -(-kx // ndx)
+    mcmax = min(mt, _WGRAD_MAXMC, _WGRAD_ITEMS // (kxb * ky))
+
+    def pick(nblocks):
+        for nch in range(-(-mt // mcmax), mt + 1):
+            mc = -(-mt // nch)
+            for nbuf in (3, 2):
+                smem = _wgrad_tf32_smem(kxb, ky, mc, nt, nbuf) + _WGRAD_TF32_STATIC
+                if (smem <= _SMEM_MAX if nblocks == 1
+                        else nblocks * (smem + 1024) <= _SM_SMEM_TOTAL):
+                    return mc, nbuf
+        return None
+
+    # one m16 tile with two buffers always fits a block (109 KB at 8 x 7 taps)
+    mc, nbuf = pick(_WGRAD_TF32_SM_BLOCKS) or pick(1)
+    ty, tz = _WGRAD_TF32_TILE
+    yz = -(-ny // ty) * -(-nz // tz)
+    groups = min(nx, max(1, -(-_WGRAD_BLOCKS // (yz * -(-mt // mc) * ndx * nblk))))
+    xb = -(-nx // groups)
+    return TapWgradTf32Plan(kp, nt, nblk * nt * 8, mc, kxb, nbuf, xb, -(-nx // xb) * yz)
 
 
 def _mma_pitch(nt):  # csrc/convio.cuh mma_pitch
@@ -875,9 +956,9 @@ def tapconv_wgrad_3d(g, ct, kx, ky):
     Σ_{x,y,z} g[x+dx, y+dy, z, c]·ct[x, y, z, o]`` with ct rounded to g's
     dtype first; float32 ``(kx, ky, kc, cout)``, the same on every run.
     On the card bfloat16 g runs the tensor-core kernel (`tap_wgrad_plan`;
-    at most 56 taps kx·ky), float32 g the FMA kernel (launch key
-    ``"tapconv_wgrad_3d+f32"``; its staged g window bounds kc, about 290
-    channels at ky = 5)."""
+    at most 56 taps kx·ky), float32 g the tensor-core kernel in 3xTF32
+    (split operands, float32 class; `tap_wgrad_tf32_plan`, any kc, cout
+    and kx; launch key ``"tapconv_wgrad_3d+f32"``)."""
     if g.device.type == "cpu":
         return tapconv_wgrad_3d_plain(g, ct, kx, ky)
     box = _ct_shape("tapconv_wgrad_3d", g, ct, kx, ky)
@@ -888,7 +969,7 @@ def tapconv_wgrad_3d(g, ct, kx, ky):
                                 ct=(ct, (*box, cout)))
     bf16 = g.dtype == torch.bfloat16
     key = "tapconv_wgrad_3d" if bf16 else "tapconv_wgrad_3d+f32"
-    launch = _launch_wgrad_mma if bf16 else _launch_wgrad_fma
+    launch = _launch_wgrad_mma if bf16 else _launch_wgrad_tf32
     with torch.cuda.device(device):
         err, dw = launch(g, ct.to(g.dtype), kx, ky, box, device)
         _build.check(err, key)
@@ -912,16 +993,19 @@ def _launch_wgrad_mma(g, ct, kx, ky, box, device):
     return err, dw
 
 
-def _launch_wgrad_fma(g, ct, kx, ky, box, device):
-    """The weight gradient's FP32 FMA kernel (float32 g and ct); returns
-    (its error code, dW)."""
-    kc, cout = g.shape[-1], ct.shape[-1]
-    lib = _build.load()
-    partial = torch.empty((lib.ins_tapconv_wgrad_chunks(*box), kx, ky, kc, cout),
-                          dtype=torch.float32, device=device)
-    dw = torch.empty((kx, ky, kc, cout), dtype=torch.float32, device=device)
-    err = lib.ins_tapconv_wgrad(g.data_ptr(), ct.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                                *g.shape, kx, ky, cout, current_stream(device))
+def _launch_wgrad_tf32(g, ct, kx, ky, box, device):
+    """The weight gradient in 3xTF32 on the tensor cores (float32 g and ct,
+    their channels padded to multiples of 4); returns (its error code, dW
+    with the plan's padded rows and columns)."""
+    gs, cs = _stageable(g, 4), _stageable(ct, 4)
+    plan = tap_wgrad_tf32_plan(box, gs.shape[-1], cs.shape[-1], kx, ky)
+    shape = (kx, ky, plan.kp, plan.np)
+    partial = torch.empty((plan.nchunk, *shape), dtype=torch.float32, device=device)
+    dw = torch.empty(shape, dtype=torch.float32, device=device)
+    err = _build.load().ins_tapconv_wgrad_tf32(
+        gs.data_ptr(), cs.data_ptr(), partial.data_ptr(), dw.data_ptr(), *gs.shape,
+        cs.shape[-1], kx, ky, *plan, current_stream(device),
+    )
     return err, dw
 
 

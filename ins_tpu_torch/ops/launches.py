@@ -61,11 +61,11 @@ KERNELS = (
     # the unfused projection step's stage (ops/perop_kernels.py)
     "momentum_stage_div_3d",
     # the closure convolutions (ops/conv_kernels.py): the fused layer (bf16
-    # operands on the tensor cores; "+f32": float32 operands on the FMA
-    # kernels) and the tap-matmul / pack-tile layer on z-folded channels
-    # (likewise: bf16 on the tensor cores; "+f32" on float32 operands: the
-    # tap forward in 3xTF32 on the tensor cores, the pack forward and the
-    # weight gradient on the FMA kernels)
+    # operands on the tensor cores; "+f32": float32 operands in 3xTF32 on
+    # the tensor cores) and the tap-matmul / pack-tile layer on z-folded
+    # channels (likewise: bf16 on the tensor cores; "+f32" on float32
+    # operands: the tap forward and the weight gradient in 3xTF32 on the
+    # tensor cores, the pack forward on the FMA kernels)
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
     "fusedconv_3d+f32",

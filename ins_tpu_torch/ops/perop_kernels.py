@@ -13,6 +13,9 @@ periodic box, scalars ``(nx, ny, nz)``, physical pressure):
 Each wrapper runs its hand-written CUDA kernel (`csrc/perop.cu`) for
 float32 CUDA tensors and raises on anything else on the card; for CPU
 tensors it runs its plain PyTorch version, beside it here.  The
+conv-diff kernel multiplies by the reciprocals `convdiff_recips` hands
+it (1/dx_b and visc/dx_b², formed in float64) and forms each face flux
+once a cell, as the JAX kernel's shifted-flux identity does.  The
 differentiable wrappers around them are in `ops/diffkernels.py`.
 
 The stage of the unfused projection step (`momentum_stage_div_3d` →
@@ -43,6 +46,7 @@ from .stage_kernels import _check_cube, _launch_stage, _stage_plain
 __all__ = [
     "convdiff_interior_3d",
     "convdiff_interior_3d_plain",
+    "convdiff_recips",
     "stage_div_3d",
     "stage_div_3d_plain",
     "pressure_correct_3d",
@@ -86,6 +90,14 @@ def pressure_correct_3d_plain(ut_int, q_int, dxs):
     return ut_int - torch.stack([(roll_p(q_int, a) - q_int) / dxs[a] for a in range(3)])
 
 
+def convdiff_recips(visc, dx):
+    """``(1/dx_0, 1/dx_1, 1/dx_2, visc/dx_0², visc/dx_1², visc/dx_2²)`` in
+    float64: the conv-diff kernel multiplies by them (rounded to float32)
+    where `convdiff_roll` divides."""
+    rdx = tuple(1.0 / float(d) for d in dx)
+    return rdx + tuple(float(visc) / (float(d) * float(d)) for d in dx)
+
+
 def convdiff_interior_3d(u_int, visc, dx):
     """Convection + diffusion on the ghost-free periodic interior field
     ``(3, nx, ny, nz)``; returns F of the same shape."""
@@ -96,8 +108,8 @@ def convdiff_interior_3d(u_int, visc, dx):
     with torch.cuda.device(device):
         f = torch.empty_like(u_int)
         err = _build.load().ins_convdiff_f32(
-            u_int.data_ptr(), f.data_ptr(), *box, float(visc),
-            float(dx[0]), float(dx[1]), float(dx[2]), current_stream(device),
+            u_int.data_ptr(), f.data_ptr(), *box, *convdiff_recips(visc, dx),
+            current_stream(device),
         )
         _build.check(err, "convdiff_interior_3d")
         LAUNCHES["convdiff_interior_3d"] += 1

@@ -243,7 +243,7 @@ def test_kernel_sources_carry_their_notes():
     assert {p.name for p in srcs} == {
         "transforms.cu", "stage.cu", "poisson.cu", "correct.cu", "perop.cu", "conv.cu",
         "channel.cu", "smag.cu", "tapconv.cu", "tapconv_mma.cu", "tapconv_tf32.cu",
-        "tapwgrad_mma.cu", "fold.cu",
+        "tapwgrad_mma.cu", "tapwgrad_tf32.cu", "fold.cu",
     }
     for p in srcs:
         text = p.read_text()

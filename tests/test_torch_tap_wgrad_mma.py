@@ -266,8 +266,8 @@ def test_3xtf32_is_float32_class(kc, cout, label):
 
 class _FakeLib:
     """Stands in for the kernel library: records each entry point called
-    with its arguments and returns success (one cell chunk for the FMA
-    wgrad's chunk count)."""
+    with its arguments and returns success (one cell chunk for a chunk
+    count)."""
 
     def __init__(self):
         self.calls = []
@@ -326,10 +326,13 @@ def test_wgrad_route_by_dtype(fake_card, dtype):
         assert args[4:10] == (12, 13, 9, 16, 8, kx)
         assert args[10:18] == (ky, *ck.tap_wgrad_plan((8, 9, 9), 16, 8, kx, ky))
     else:
-        assert fake_card.names() == ["ins_tapconv_wgrad_chunks", "ins_tapconv_wgrad"]
+        assert fake_card.names() == ["ins_tapconv_wgrad_tf32"]
         assert counts == {"tapconv_wgrad_3d": 0, "tapconv_wgrad_3d+f32": 1}
-        # g's and ct's channels as they are (no padding): kc 15, cout 3
-        assert fake_card.calls[1][1][4:11] == (12, 13, 9, 15, kx, ky, 3)
+        # the 3xTF32 kernel pads kc 15 -> 16 and the 3 cotangent channels
+        # -> 4 (16-byte units of 4 floats)
+        args = fake_card.calls[0][1]
+        assert args[4:11] == (12, 13, 9, 16, 4, kx, ky)
+        assert args[11:19] == tuple(ck.tap_wgrad_tf32_plan((8, 9, 9), 16, 4, kx, ky))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
