@@ -45,14 +45,24 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # and phase 3's bf16 gradient step
                                       # (s/step, per-op launches), the
                                       # package of the tree DIR and this
-                                      # one's, in turns; with
-                                      # --perop-variant 'LABEL|FILE|
-                                      # REGEX|REPL' (repeatable) this
-                                      # tree with an edit, in turns (the
-                                      # CD_XB sweep of
-                                      # perop_geometry.cuh); then ptxas
-                                      # registers and spills and the
-                                      # HMMA count of the new kernels
+                                      # one's, in turns; with --variant
+                                      # 'LABEL|FILE|REGEX|REPL'
+                                      # (repeatable) this tree with an
+                                      # edit, in turns (the CD_XB sweep
+                                      # of perop_geometry.cuh); then
+                                      # ptxas registers and spills and
+                                      # the HMMA count of the new kernels
+    python3 chip_smoke.py --pack-turns DIR    # only the float32 pack
+                                      # forward at 128³ (the closure's
+                                      # three layers) and the dense pass
+                                      # B's cases (256³ with the dense
+                                      # route forced, 250³, the (250,
+                                      # 125, 250) shard), ms and error
+                                      # against float64, the package of
+                                      # the tree DIR and this one's, in
+                                      # turns; --variant as above; then
+                                      # ptxas and the HMMA count of
+                                      # tapconv_tf32.cu and fold.cu
 
 Phases, each raising on failure (exit code != 0, no result line):
 
@@ -64,7 +74,13 @@ Phases, each raising on failure (exit code != 0, no result line):
    at 64³ and 256³ on inputs made by numpy from a seed: the RECON stage
    with emit_u and usnew, a stream-base stage, the unmerged stage (with
    and without k streams), each also with the Smagorinsky force and a
-   body force, pass B dense and folded (the fused kernel, `fold_case`:
+   body force, pass B dense (`dense_case`: at 64³ and at 256³ with the
+   dense route forced, and with the 256³ case its own shapes, the 250³
+   cube and the 2-way shard (250, 125, 250) at yoff 125, whose columns
+   are no multiple of 4; each also against the plain version in float64
+   within `DENSE_F64_TOL`, the float32 class; both routes, the fused
+   kernel and the GEMM route, timed in turns at the gate's cases,
+   `dense_gate_times`) and folded (the fused kernel, `fold_case`:
    one level and two, and with the 256³ cases 128³, the ragged n = 100
    and 512³ at two levels and one, each also against the plain version
    in float64, within twice the distance of the eight-launch route it
@@ -280,14 +296,16 @@ Phases, each raising on failure (exit code != 0, no result line):
    version; the weight gradients of the plain one in float64), each timed
    beside its bound and cuDNN's conv3d / conv3d_weight with a (5, 5, 1)
    kernel; bf16 operands run the bf16 tensor-core kernels, float32
-   operands the `+f32` ones (the tap forward and the weight gradients of
-   the stack's three shapes, on operands with full float32 mantissas, in
-   3xTF32 on the tensor cores, bound by three TF32 products a
-   multiply-add, the weight gradients within 1e-5 of float64 and 1e-4 of
-   the float32 plain version; the pack forward on the FMA units); two
-   calls of either weight gradient bit-identical; at 36³ also, on the
-   ragged box (8, 37, 67) at ky = kx = 3, 5, 7, the bf16 forwards and the
-   3xTF32 tap forward for the stack's three forwards (the first with kc =
+   operands the `+f32` ones (the tap forward, the pack forward of the
+   stack's three layers and the weight gradients of the stack's three
+   shapes, the pack forward and the weight gradients on operands with
+   full float32 mantissas, in 3xTF32 on the tensor cores, bound by three
+   TF32 products a multiply-add, the pack forward and the weight
+   gradients within 1e-5 of float64 and 1e-4 of the float32 plain
+   version); two calls of either weight gradient bit-identical; at 36³
+   also, on the ragged box (8, 37, 67) at ky = kx = 3, 5, 7, the bf16
+   forwards and the 3xTF32 tap and pack forwards for the stack's three
+   forwards (the first with kc =
    15), a 120 -> 13 layer and the input-gradient shapes (24 -> 120, 24 ->
    16, 3 -> 120), bf16 and float32 outputs, and the bf16 and 3xTF32
    weight gradients of the stack's three layers, against the plain version
@@ -310,18 +328,25 @@ Phases, each raising on failure (exit code != 0, no result line):
    (`momentum_stage_divhat_3d` -> pass B -> `pressure_correct_qhat_3d`) on
    the same u, base and coeff: k and ut within 1e-4 relative, u_new within
    1e-4 of max|u_new|; ms of both in turns.
-12. Print the kernel table (JSON: per kernel its launches on the main
+12. The dense pass B on a path: phase 2's run at 250³ (n % 4 != 0, where
+   the projection's pass B is dense, as the JAX package's; dt =
+   1e-3·128/250), 20 steps in chunks of 10.  Checks: finite; divergence
+   and energy as in phase 2; the fused dense pass B launched 4 times a
+   step and no fold, no GEMM route and no plain version; the plain chain
+   on the card agrees to <= 1e-4 relative.  Then ms/step of both chains
+   in turns.
+13. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
    same function where there is one) and, last, the result line
-   ``{"ok": true, "device": {...}}``.  The dense pass B and the folded
-   pass B's level route (`passB_fold+levels`, `passB_sharded+levels`,
-   timed at 1152³ and (2048, 512, 2048)) stay in the table with 0
-   launches; no main path runs them (every cube here has n % 4 == 0,
-   where the projection folds, as the JAX package does, and n <=
-   `FOLD_FUSED_MAX_N`, where the fused kernel runs: phases 2 and 8 fail
-   on a level-route launch).  Each phase prints its seconds.
+   ``{"ok": true, "device": {...}}``.  The folded pass B's level route
+   (`passB_fold+levels`, `passB_sharded+levels`, timed at 1152³ and
+   (2048, 512, 2048)) stays in the table with 0 launches; no main path
+   runs it (every folded cube here has n <= `FOLD_FUSED_MAX_N`, where the
+   fused kernel runs: phases 2 and 8 fail on a level-route launch).  The
+   dense pass B's launches are phase 12's.  Each phase prints its
+   seconds.
 """
 
 from __future__ import annotations
@@ -392,6 +417,24 @@ FOLD_BIG_F64_TOL = 1e-5
 # the gate's cases (`fold_gate_times`): both routes in turns at 512³,
 # 768³ (two levels each) and the (1024, 256, 1024) shard
 FOLD_GATE_CASES = ((512, 2, 512, 0), (768, 2, 768, 0), (1024, 2, 256, 512))
+# the dense pass B's cases (`dense_case`): (n, ly, yoff); ly = n the cube
+# (`passB`), else an x-slab shard's y-slice (`passB_sharded`).  With the
+# 256³ cube (the dense route forced on a cube that folds) phase 1 holds
+# the route's own shapes: the 250³ cube (n % 4 == 2) and its 2-way shard
+# at yoff 125 (31250 columns: 4-byte staging).  Each within
+# DENSE_F64_TOL of the plain version in float64 (the float32 class: the
+# three-launch route is ~1e-6 off at 256³, the float32 plain version
+# ~1.4e-6).
+DENSE_EXTRA = ((250, 250, 0), (250, 125, 125))
+DENSE_F64_TOL = 2e-6
+# the dense gate's cases (`dense_gate_times`): both routes in turns on
+# either side of `poisson_kernels.DENSE_FUSED_MAX_N`, up to the fused
+# kernel's reach (n = 512)
+DENSE_GATE_CASES = ((250, 250, 0), (250, 125, 125), (258, 258, 0), (258, 129, 129),
+                    (322, 322, 0), (382, 382, 0), (510, 510, 0))
+# the dense pass B's chain (phase 12): the cube of phase 2's setup at this
+# n % 4 != 0
+DENSE_CHAIN_N = 250
 SEED = 20261016
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): device-memory
@@ -722,6 +765,87 @@ def fold_gate_times(cases=FOLD_GATE_CASES):
     return out
 
 
+def dense_setup(n, ly, yoff):
+    """The dense pass B's input (made from a seed), projection (float32;
+    a shard's where ly < n), the float64 projection and the label of
+    `dense_case(n, ly, yoff)`: (h, proj, p64, label)."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_passB_sharded
+
+    dev = torch.device(DEVICE)
+    dxs = (2 * np.pi / n,) * 3
+    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, device=dev) if ly == n
+            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=dev))
+    p64 = make_fused_projection((n,) * 3, dxs, torch.float64, device=dev)
+    rng = np.random.default_rng(SEED + 37 * n + ly)
+    h = torch.from_numpy(rng.standard_normal((n, ly, n), dtype=np.float32)).to(dev)
+    label = f"{n}³" if ly == n else f"({n}, {ly}, {n}) at yoff {yoff}"
+    if ly == n and n % 4 == 0:
+        label += ", the dense route forced"
+    return h, proj, p64, label
+
+
+def dense_case(n, ly, yoff):
+    """A `Case` of the dense pass B (`passB` on a cube, `passB_sharded` on a
+    y-slice) on an input made from a seed: held against the plain version
+    in float64 within `DENSE_F64_TOL` and within `REL_TOL` of the float32
+    plain version; its bound counts the two x products (3xTF32, as
+    `GEMM_AS_FP32`) and the eigen-scale."""
+    from ins_tpu_torch.ops.poisson_kernels import (
+        passB, passB_plain, passB_sharded, passB_sharded_plain,
+    )
+
+    h, proj, p64, label = dense_setup(n, ly, yoff)
+    if ly == n:
+        kfn = lambda: (passB(h, proj),)  # noqa: E731
+        pfn = lambda: (passB_plain(h, proj),)  # noqa: E731
+        ref = lambda: (passB_plain(h.double(), p64),)  # noqa: E731
+    else:
+        kfn = lambda: (passB_sharded(h, proj, yoff),)  # noqa: E731
+        pfn = lambda: (passB_sharded_plain(h, proj, yoff),)  # noqa: E731
+        ref = lambda: (passB_sharded_plain(h.double(), p64, yoff),)  # noqa: E731
+    ops = (OPS_PER_CELL["eigen_scale"] * n**3 + 4.0 * n**4 * GEMM_AS_FP32) * ly / n
+    return Case(label, kfn, pfn, ref=ref, tol=DENSE_F64_TOL, plain_tol=REL_TOL,
+                inputs=(h, proj["Vinv"], proj["V"]), ops=ops)
+
+
+def dense_gate_times(cases=DENSE_GATE_CASES):
+    """Both routes of the dense pass B in turns (CUDA events, 10 calls a
+    turn: fused, GEMM, GEMM, fused) at each case, the float32 relative
+    difference between them, and the route `dense_route` picks: the gate
+    (`DENSE_FUSED_MAX_N`) must pick the faster route, or one within 5 %
+    of it.  {label: {"fused": ms, "gemm": ms}}."""
+    import torch
+
+    from ins_tpu_torch.ops import poisson_kernels as pk
+
+    out = {}
+    for c in cases:
+        n, ly, yoff = c
+        h, proj, _, label = dense_setup(*c)
+        fns = {"fused": lambda: pk._dense_fused(h, proj, yoff, ly),
+               "gemm": lambda: pk._dense_gemm(h, proj, yoff)}
+        diff = rel_err(fns["gemm"](), fns["fused"]())
+        t = {"fused": [], "gemm": []}
+        for which in ("fused", "gemm", "gemm", "fused"):
+            t[which].append(cuda_ms(fns[which]))
+        ms = {k: sum(v) / 2 for k, v in t.items()}
+        pick = pk.dense_route(n)
+        out[label] = ms
+        print(f"[dense gate] {card_line()}: {label}: fused {ms['fused']:.4f} ms "
+              f"({t['fused'][0]:.4f}, {t['fused'][1]:.4f}), GEMM route {ms['gemm']:.4f} ms "
+              f"({t['gemm'][0]:.4f}, {t['gemm'][1]:.4f}); routes differ by {diff:.3e}; "
+              f"the gate (n <= {pk.DENSE_FUSED_MAX_N} fused) picks {pick}")
+        if not diff <= REL_TOL:
+            fail(f"the dense pass B's routes differ by {diff:.3e} at {label}")
+        if ms[pick] > 1.05 * min(ms.values()):
+            fail(f"the dense gate picks the {pick} route at {label}, slower than the other: {ms}")
+        del h, proj, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def card_line(query="name,power.limit"):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -743,7 +867,7 @@ def kernel_cases(n):
     import torch
 
     from ins_tpu_torch.ops import stage_kernels as sk
-    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, passB, passB_plain
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection
 
     rng = np.random.default_rng(SEED + n)
     dev = torch.device(DEVICE)
@@ -908,12 +1032,10 @@ def kernel_cases(n):
         return cases
     return {
         **cases,
-        "passB": [
-            Case("divhat -> qhat",
-                 lambda: (passB(divhat, proj),), lambda: (passB_plain(divhat, proj),),
-                 inputs=(divhat, proj["Vinv"], proj["V"]),
-                 ops=OPS_PER_CELL["eigen_scale"] * cells + 2 * gemm),
-        ],
+        # the cube with the dense route forced first; with 256³ the dense
+        # route's own shapes
+        "passB": [dense_case(n, n, 0)]
+        + ([dense_case(*c) for c in DENSE_EXTRA] if n == 256 else []),
         # one level first (the main path's), two; with 256³ the other cubes
         "passB_fold": [fold_case(n, 1, n, 0), fold_case(n, 2, n, 0)]
         + ([fold_case(*c) for c in FOLD_EXTRA_CUBES] if n == 256 else []),
@@ -1543,6 +1665,64 @@ def phase_main_path(n, nsteps, chunk):
 
     print_ms_per_step("main", f"{n}^3 RK44 f32", n, hat_ms_per_step(setup, method, s0, dt))
     return counts, setup, u0, dt, e1
+
+
+def phase_dense_chain(n=DENSE_CHAIN_N, nsteps=20, chunk=10):
+    """12: phase 2's run at n³ (n % 4 != 0: the dense pass B), through
+    `solve_unsteady`; its launches (the fused dense pass B 4 a step, no
+    fold, no GEMM route), divergence, energy, the plain chain's agreement
+    and ms/step of both chains in turns.  Returns the launch counts."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import strip_ghosts, strip_state
+
+    setup = headline_setup(n)
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    dt = 1e-3 * 128 / n
+    method = it.RKMethods.RK44()
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    state, _ = it.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
+        psolver=it.psolver_spectral(setup),
+        processors={"log": it.timelogger(nupdate=chunk)},
+    )
+    torch.cuda.synchronize()
+    counts = dict(launches.LAUNCHES)
+    plain = dict(launches.PLAIN_ON_CUDA)
+    print(f"[dense] solve_unsteady {n}^3 RK44 f32: {nsteps} steps in chunks of {chunk}; "
+          f"launches {counts}; plain calls on CUDA {plain}")
+    if state.n != nsteps:
+        fail(f"the {n}³ run ran {state.n} steps, expected {nsteps}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail(f"non-finite velocity after the {n}³ run")
+    fold = {k: v for k, v in counts.items() if k.startswith("passB_") or k.endswith("+gemm")}
+    want = {k: 0 for k in fold}
+    if counts["passB"] != 4 * nsteps or fold != want:
+        fail(f"the {n}³ run launched pass B {counts['passB']} times (expected {4 * nsteps}), "
+             f"other pass B routes {fold}")
+    missing = [k for k in HAT_KERNELS if k != "passB_fold" and counts[k] <= 0]
+    if missing or any(plain.values()):
+        fail(f"the {n}³ run: kernels never launched {missing}, plain versions on CUDA {plain}")
+    check_divergence(u, float(setup.grid.delta[0][0]), "dense")
+    e0 = it.total_kinetic_energy(u0, setup).item()
+    e1 = it.total_kinetic_energy(state.u, setup).item()
+    print(f"[dense] kinetic energy {e0:.9e} -> {e1:.9e}")
+    if not e1 <= e0:
+        fail(f"the {n}³ run's kinetic energy increased")
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk)
+    agree = rel_err(u, s.u)
+    print(f"[dense] kernel chain vs plain chain after {nsteps} steps: max rel diff {agree:.3e}")
+    if not agree <= REL_TOL:
+        fail(f"the {n}³ kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
+    del s
+    print_ms_per_step("dense", f"{n}^3 RK44 f32 (dense pass B)", n,
+                      hat_ms_per_step(setup, method, s0, dt))
+    return counts
 
 
 def phase_profile(setup, u0, dt):
@@ -3508,12 +3688,15 @@ def tap_kernel_cases(n):
     gradient's shape (the cotangent padded to (n + 8, n + 8, n, 24), taps
     (5, 5, 24, 120)) and the weight gradient on (g, dpre (n, n, n, 24));
     float32 outputs, the weight gradient held against the plain version in
-    float64; the same forwards on float32 operands (``+f32``: the tap
-    forward in 3xTF32, the pack forward on the FMA units) and the float32
-    weight gradients (3xTF32) of the stack's three shapes on operands with
-    full float32 mantissas.  Then the tensor-core kernels on `TAP_RAGGED_BOX` for each of
-    `TAP_RAGGED` at ky = kx = 3, 5 and 7, bf16 and float32 outputs, against
-    the plain version in float64.  The library yardsticks are cuDNN's
+    float64; the same forwards on float32 operands (``+f32``, 3xTF32: the
+    tap forward; the pack forward of the stack's three layers, the pack
+    kernel at 24 -> 3 and the tap kernel at 24 -> 24 and 3 -> 24, on
+    operands with full float32 mantissas, held against the plain version
+    in float64) and the float32 weight gradients (3xTF32) of the stack's
+    three shapes on operands with full float32 mantissas.  Then the
+    tensor-core kernels on `TAP_RAGGED_BOX` for each of `TAP_RAGGED` at
+    ky = kx = 3, 5 and 7, bf16 and float32 outputs, against the plain
+    version in float64.  The library yardsticks are cuDNN's
     conv3d with a (5, 5, 1) kernel and its conv3d_weight on the same
     operands."""
     import torch
@@ -3562,6 +3745,23 @@ def tap_kernel_cases(n):
 
     def planes(t):  # (nx, ny, nz, c) -> (1, c, nx, ny, nz)
         return t.permute(3, 0, 1, 2).unsqueeze(0)
+
+    def pack32(label, gg, w, b, act):
+        """`packconv_3d` on float32 operands: 3xTF32, bound at the TF32
+        peak; within 1e-5 of float64 and 1e-4 of the float32 plain
+        version; cuDNN's conv3d with TF32 off and allowed beside it."""
+        def lib():
+            return F.conv3d(planes(gg), w.permute(3, 2, 0, 1).unsqueeze(-1).contiguous(), b)
+
+        b64 = None if b is None else b.double()
+        return Case(label, fwd(ck.packconv_3d, gg, w, b, act),
+                    fwd(ck.packconv_3d_plain, gg, w, b, act),
+                    ref=lambda: (ck.packconv_3d_plain(gg.double(), w.double(), b64, act,
+                                                      out_dtype=torch.float64),),
+                    inputs=(gg, w) + (() if b is None else (b,)),
+                    ops=3 * conv_ops(n, n, n, gg.shape[-1], w.shape[-1]), peak="tf32",
+                    tol=CONV_TF32_TOL, plain_tol=REL_TOL, library=lib,
+                    library_tf32=with_tf32(lib))
 
     def taps(w):  # (5, 5, kc, cout) -> (cout, kc, 5, 5, 1) in bf16
         return w.permute(3, 2, 0, 1).unsqueeze(-1).to(bf).contiguous()
@@ -3612,13 +3812,15 @@ def tap_kernel_cases(n):
                  ops=3 * conv_ops(n + 4, n + 4, n, 24, kc), peak="tf32",
                  library=lambda: F.conv3d(ctpp32, tb.float())),
         ],
+        # the stack's three layers on operands with full float32 mantissas:
+        # the tap kernel (24 -> 24, 3 -> 24) and the pack kernel (24 -> 3)
         "packconv_3d+f32": [
-            Case("24->24 tanh+bias f32", fwd(ck.packconv_3d, g32, w24, b24, "tanh"),
-                 fwd(ck.packconv_3d_plain, g32, w24, b24, "tanh"), inputs=(g32, w24, b24),
-                 ops=ops24, library=lambda: F.conv3d(gp32, taps(w24).float(), b24)),
-            Case("24->3 id, all 25 taps packed f32", fwd(ck.packconv_3d, g32, w3, None, None),
-                 fwd(ck.packconv_3d_plain, g32, w3, None, None), inputs=(g32, w3),
-                 ops=conv_ops(n, n, n, kc, 3), library=lambda: F.conv3d(gp32, t3.float())),
+            pack32("24->24 tanh+bias f32 (tap kernel)", field(n + 4, n + 4, n, kc), w24, b24,
+                   "tanh"),
+            pack32("24->3 id, all 25 taps packed f32 (pack kernel)", field(n + 4, n + 4, n, kc),
+                   w3, None, None),
+            pack32("3->24 tanh+bias f32 (tap kernel)", field(n + 4, n + 4, n, 15),
+                   field(5, 5, 15, 24, scale=(25 * 15) ** -0.5), b24, "tanh"),
         ],
     }
     del g32, ctp32
@@ -3639,11 +3841,15 @@ def tap_kernel_cases(n):
                 for name, impl, plain, gg, ww in (
                         ("tapconv_3d", ck.tapconv_3d, ck.tapconv_3d_plain, gr, wr),
                         ("packconv_3d", ck.packconv_3d, ck.packconv_3d_plain, gr, wr),
-                        ("tapconv_3d+f32", ck.tapconv_3d, ck.tapconv_3d_plain, g32r, wr)):
-                    if name == "packconv_3d" and label.startswith("dG"):
+                        ("tapconv_3d+f32", ck.tapconv_3d, ck.tapconv_3d_plain, g32r, wr),
+                        ("packconv_3d+f32", ck.packconv_3d, ck.packconv_3d_plain, g32r, wr)):
+                    if name.startswith("packconv_3d") and label.startswith("dG"):
                         continue  # the input gradient runs the tap form only
-                    route = (" (pack kernel)" if ck.pack_mma_takes(k, k, -(-kcr // 8) * 8, cout)
-                             else " (tap kernel)") if name == "packconv_3d" else ""
+                    takes = (ck.pack_mma_takes(k, k, -(-kcr // 8) * 8, cout)
+                             if name == "packconv_3d"
+                             else ck.pack_tf32_takes(k, k, -(-kcr // 4) * 4, cout))
+                    route = ((" (pack kernel)" if takes else " (tap kernel)")
+                             if name.startswith("packconv_3d") else "")
                     cases[name].append(Case(
                         f"{label} k={k} box {TAP_RAGGED_BOX} out {otag}{route}",
                         lambda impl=impl, gg=gg, ww=ww, br=br, act=act, odt=odt:
@@ -3827,9 +4033,8 @@ def phase_tapconv(n):
             torch.cuda.synchronize()
             bwd = dict(launches.LAUNCHES)
             # bf16 convs run the bf16 tensor-core kernels, float32 ones the
-            # "+f32" kernels (the tap forward and the weight gradient in
-            # 3xTF32, the pack forward on the FMA units), never the other
-            # route's
+            # "+f32" kernels (the tap and pack forwards and the weight
+            # gradient in 3xTF32), never the other route's
             sfx = "" if cdt == torch.bfloat16 else "+f32"
             other = "+f32" if cdt == torch.bfloat16 else ""
             want_fwd = {"packconv_3d" + sfx: 3 if pack is None else 0,
@@ -4157,14 +4362,14 @@ def perop_time(with_step=True, steps=2, n=128):
     return out
 
 
-def perop_variant_tree(here, label, edits):
-    """A copy of this tree's package in `build/perop_<label>` with each
+def variant_tree(here, label, edits):
+    """A copy of this tree's package in `build/variant_<label>` with each
     edit (file under the repository, regex, replacement) applied once;
     returns its root."""
     import re
     import shutil
 
-    root = os.path.join(here, "build", f"perop_{label}")
+    root = os.path.join(here, "build", f"variant_{label}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(here, "ins_tpu_torch"), os.path.join(root, "ins_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -4179,43 +4384,131 @@ def perop_variant_tree(here, label, edits):
     return root
 
 
-def perop_turns(parent, variants=()):
-    """`perop_time` of the package in the tree `parent` and of this tree's,
-    each in its own process, in turns: parent, this, this, parent.  Then
-    each of ``variants``, "label|file|regex|replacement[|file|regex|
+def variant_turns(flag, variants, extra=()):
+    """Each of ``variants``, "label|file|regex|replacement[|file|regex|
     replacement...]", this tree with those edits copied into
-    `build/perop_<label>` (`perop_variant_tree`), timed without the
-    gradient step in turns (the list, then the list reversed).  Then
-    ptxas's report of the new kernels and their HMMA count (`sass_diff.py
-    --opcode HMMA`)."""
-    run_turns("--perop-time", parent)
+    `build/variant_<label>` (`variant_tree`), run with `flag ROOT` (and
+    ``extra``) in turns: the list, then the list reversed."""
     here = os.path.dirname(os.path.abspath(__file__))
     specs = []
     for v in variants:
         label, *rest = v.split("|")
         if not rest or len(rest) % 3:
-            fail(f"--perop-variant {v!r}: expected label|file|regex|replacement[|...]")
+            fail(f"--variant {v!r}: expected label|file|regex|replacement[|...]")
         specs.append((label, [tuple(rest[i:i + 3]) for i in range(0, len(rest), 3)]))
-    roots = [perop_variant_tree(here, label, edits) for label, edits in specs]
+    roots = [variant_tree(here, label, edits) for label, edits in specs]
     for root in roots + roots[::-1]:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--perop-time", root,
-                              "--perop-no-step"], capture_output=True, text=True, timeout=900)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, root, *extra],
+                             capture_output=True, text=True, timeout=900)
         lines = out.stdout.strip().splitlines()
         print(f"[turns] {root}: " + (lines[-1] if lines else "no output"))
         if out.returncode:
-            fail(f"--perop-time {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+            fail(f"{flag} {root}: exit {out.returncode}: {out.stderr[-2000:]}")
+
+
+def hmma_count(old_csrc, *sources):
+    """`sass_diff.py --opcode HMMA` of ``sources`` between the csrc
+    directory ``old_csrc`` and this tree's: each kernel's tensor-core
+    instructions; fails where a kernel of the old tree changed or went."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sass = subprocess.run([sys.executable, os.path.join(here, "sass_diff.py"), "--opcode", "HMMA",
+                           old_csrc, os.path.join(here, "ins_tpu_torch", "csrc"), *sources],
+                          capture_output=True, text=True, timeout=600)
+    print(sass.stdout.strip())
+    if sass.returncode:
+        fail(f"sass_diff.py: exit {sass.returncode}: {sass.stderr[-2000:]}")
+
+
+def perop_turns(parent, variants=()):
+    """`perop_time` of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent.  Then
+    ``variants`` (`variant_turns`), timed without the gradient step.  Then
+    ptxas's report of the new kernels and their HMMA count (`sass_diff.py
+    --opcode HMMA`)."""
+    run_turns("--perop-time", parent)
+    variant_turns("--perop-time", variants, ("--perop-no-step",))
     from ins_tpu_torch import _build
 
     _build.load()
     ptxas_report()
+    here = os.path.dirname(os.path.abspath(__file__))
     empty = os.path.join(here, "build", "empty_csrc")
     os.makedirs(empty, exist_ok=True)
-    sass = subprocess.run([sys.executable, os.path.join(here, "sass_diff.py"), "--opcode", "HMMA",
-                           empty, os.path.join(here, "ins_tpu_torch", "csrc"),
-                           "tapwgrad_tf32.cu"], capture_output=True, text=True, timeout=600)
-    print(sass.stdout.strip())
-    if sass.returncode:
-        fail(f"sass_diff.py: exit {sass.returncode}: {sass.stderr[-2000:]}")
+    hmma_count(empty, "tapwgrad_tf32.cu")
+
+
+# the float32 pack forward's cases at 128³ (`pack_time`): (label, kc, cout,
+# activation, bias)
+PACK_LAYERS = (("24->24", 120, 24, "tanh", True), ("24->3", 120, 3, None, False),
+               ("3->24", 15, 24, "tanh", True))
+# the kernels whose registers and spills `--pack-turns` reports, and the
+# FMA kernels the build must no longer hold
+PACK_PTXAS = ("pack_tf32_kernel", "passb_fold_kernelILi0E")
+FMA_CONV_KERNELS = ("pack_products_kernel", "pack_combine_kernel")
+
+
+def pack_time(n=128):
+    """One turn of `pack_turns` in this process: `packconv_3d` on float32
+    operands with full mantissas at n³ for each of `PACK_LAYERS`, and the
+    dense pass B (`passB`, `passB_sharded`) at 256³ with the dense route
+    forced and at `DENSE_EXTRA`: each [ms (CUDA events, mean of two runs
+    of 10), max relative error against the plain version in float64].
+    {label: [ms, err]}."""
+    import torch
+
+    from ins_tpu_torch.ops import conv_kernels as ck
+
+    rng = np.random.default_rng(SEED + 23)
+
+    def field(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(DEVICE)
+
+    out = {}
+    for label, kc, cout, act, has_bias in PACK_LAYERS:
+        g = field(n + 4, n + 4, n, kc)
+        w = field(5, 5, kc, cout, scale=(25 * kc) ** -0.5)
+        b = field(cout, scale=0.1) if has_bias else None
+        got = ck.packconv_3d(g, w, b, act)
+        ref = ck.packconv_3d_plain(g.double(), w.double(), None if b is None else b.double(),
+                                   act, out_dtype=torch.float64)
+        err = rel_err(got.double(), ref)
+        if not err <= CONV_TF32_TOL:
+            fail(f"packconv_3d {label} float32: {err:.3e} from the float64 plain version")
+        fn = lambda g=g, w=w, b=b, act=act: ck.packconv_3d(g, w, b, act)  # noqa: E731
+        out[f"pack f32 {label}"] = [(cuda_ms(fn) + cuda_ms(fn)) / 2, err]
+        del g, got, ref
+        torch.cuda.empty_cache()
+    for c in ((256, 256, 0),) + DENSE_EXTRA:
+        case = dense_case(*c)
+        err = rel_err(case.kfn()[0].double(), case.ref()[0])
+        if not err <= DENSE_F64_TOL:
+            fail(f"the dense pass B at {case.label}: {err:.3e} from the float64 plain version")
+        out[f"dense {case.label}"] = [(cuda_ms(case.kfn) + cuda_ms(case.kfn)) / 2, err]
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def pack_turns(parent, variants=()):
+    """`pack_time` of the package in the tree `parent` and of this tree's,
+    each in its own process, in turns: parent, this, this, parent; then
+    ``variants`` (`variant_turns`); then ptxas's report of the new kernels,
+    a check that the build holds no FMA convolution kernel, and the HMMA
+    count of `tapconv_tf32.cu` and `fold.cu` against the parent's."""
+    run_turns("--pack-time", parent)
+    variant_turns("--pack-time", variants)
+    from ins_tpu_torch import _build
+
+    _build.load()
+    ptxas_report(PACK_PTXAS)
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    fma = [k for k in FMA_CONV_KERNELS if k in log]
+    print(f"[pack] FMA convolution kernels in the build: {fma or 'none'}")
+    if fma:
+        fail(f"the build still holds the FMA convolution kernels {fma}")
+    hmma_count(os.path.join(os.path.abspath(parent), "ins_tpu_torch", "csrc"),
+               "tapconv_tf32.cu", "fold.cu")
 
 
 def run_turns(flag, parent, rounds=1, extra=()):
@@ -4364,7 +4657,7 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "plane_transform": ("ins_tpu_torch/csrc/transforms.cu", "ins_tpu/ops/pallas_kernels.py:87"),
     "pcmsd_hat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:2694"),
     "momentum_stage_divhat_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:1264"),
-    "passB": ("ins_tpu_torch/csrc/poisson.cu", "ins_tpu/ops/poisson_pallas.py:451"),
+    "passB": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:451"),
     "passB_fold": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:432"),
     # the folded pass B's level route above the fused kernel's range (its
     # x products are plane GEMMs, transforms.cu)
@@ -4413,7 +4706,7 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "tapconv_wgrad_3d": ("ins_tpu_torch/csrc/tapwgrad_mma.cu", "ins_tpu/ops/convkernels.py:249"),
     "momentum_stage_div_3d": ("ins_tpu_torch/csrc/stage.cu", "ins_tpu/ops/pallas_kernels.py:631"),
     "tapconv_3d+f32": ("ins_tpu_torch/csrc/tapconv_tf32.cu", "ins_tpu/ops/convkernels.py:130"),
-    "packconv_3d+f32": ("ins_tpu_torch/csrc/tapconv.cu", "ins_tpu/ops/convkernels.py:471"),
+    "packconv_3d+f32": ("ins_tpu_torch/csrc/tapconv_tf32.cu", "ins_tpu/ops/convkernels.py:471"),
     "tapconv_wgrad_3d+f32": ("ins_tpu_torch/csrc/tapwgrad_tf32.cu",
                              "ins_tpu/ops/convkernels.py:249"),
 }
@@ -4462,10 +4755,17 @@ def main():
                          "phase 3's bf16 gradient step (errors, ms, s/step) of the package "
                          "in the tree PARENT and of this tree's, in turns; then ptxas's "
                          "report and the HMMA count of the new kernels")
-    ap.add_argument("--perop-variant", action="append", default=[],
+    ap.add_argument("--pack-turns", metavar="PARENT",
+                    help="only the float32 pack forward at 128³ (the closure's three layers) "
+                         "and the dense pass B's cases (errors against float64, ms) of the "
+                         "package in the tree PARENT and of this tree's, in turns; then "
+                         "ptxas's report and the HMMA count of tapconv_tf32.cu and fold.cu")
+    ap.add_argument("--pack-time", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--variant", action="append", default=[],
                     metavar="LABEL|FILE|REGEX|REPL",
-                    help="with --perop-turns: also this tree with REGEX replaced by REPL in "
-                         "FILE (more FILE|REGEX|REPL triples may follow), in turns")
+                    help="with --perop-turns or --pack-turns: also this tree with REGEX "
+                         "replaced by REPL in FILE (more FILE|REGEX|REPL triples may follow), "
+                         "in turns")
     ap.add_argument("--perop-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--perop-no-step", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
@@ -4502,10 +4802,14 @@ def main():
         return
     if args.perop_turns:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        perop_turns(args.perop_turns, args.perop_variant)
+        perop_turns(args.perop_turns, args.variant)
+        return
+    if args.pack_turns:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        pack_turns(args.pack_turns, args.variant)
         return
     root = (args.stack_time or args.chain_time or args.train_time or args.conv_time
-            or args.fold_time or args.channel_time or args.perop_time)
+            or args.fold_time or args.channel_time or args.perop_time or args.pack_time)
     sys.path.insert(0, os.path.abspath(root) if root
                     else os.path.dirname(os.path.abspath(__file__)))
     import ins_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -4517,12 +4821,13 @@ def main():
         print(json.dumps({"ms_per_step": times, "root": os.path.abspath(args.chain_time)}))
         return
     if (args.train_time or args.conv_time or args.fold_time or args.channel_time
-            or args.perop_time):
+            or args.perop_time or args.pack_time):
         # one turn of --*-turns
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         times = (train_time() if args.train_time else conv_time() if args.conv_time
                  else fold_time(args.fold_max_n) if args.fold_time
                  else perop_time(not args.perop_no_step) if args.perop_time
+                 else pack_time() if args.pack_time
                  else channel_time())
         print(json.dumps({**times, "root": os.path.abspath(root)}))
         return
@@ -4554,12 +4859,13 @@ def main():
         clock["t"] = now
 
     results = phase_kernels(kernel_cases, (RAGGED_N, 64, 256),
-                            time_all=("passB_fold", "pcmsd_hat_3d+smag", "pcmsd_hat_3d+temp",
-                                      "plane_transform"))
+                            time_all=("passB", "passB_fold", "pcmsd_hat_3d+smag",
+                                      "pcmsd_hat_3d+temp", "plane_transform"))
     results.update(phase_kernels(fold_big_cases, (FOLD_BIG_CUBES[0][0],),
                                  time_all=("passB_fold+levels",)))
     check_fold_f64(FOLD_BIG_CUBES)
     fold_gate_times()
+    dense_gate_times()
     solve_gate_times()
     if args.profile:
         profile_cases(kernel_cases(256), names=STAGE_WRAPPERS)
@@ -4644,7 +4950,11 @@ def main():
     tap_counts = phase_tapconv(128)
     tap_counts["momentum_stage_div_3d"] = phase_unfused_step(256)
     phase_done("phase 11 (tap conv layer and unfused stage)")
-    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB", "passB_fold+levels")},
+    dense_counts = phase_dense_chain()
+    torch.cuda.empty_cache()
+    phase_done("phase 12 (the dense pass B's chain)")
+    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB_fold+levels",)},
+              "passB": dense_counts["passB"],
               **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},
               "make_poisson_pallas": train_counts["poisson_pallas"],
               **{k: channel_counts[k] for k in CHANNEL_KERNELS},

@@ -76,6 +76,7 @@ _SIGNATURES = {
     "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_passb_fold_f32": ([_c_ptr] * 8 + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr], _c_int),
+    "ins_passb_dense_f32": ([_c_ptr] * 4 + [_c_int] * 3 + [_c_f32] * 5 + [_c_ptr], _c_int),
     "ins_smag_f32": (
         [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
         _c_int,
@@ -126,11 +127,6 @@ _SIGNATURES = {
         [_c_ptr] * 4 + [_c_int] * 11 + [_c_ptr],
         _c_int,
     ),
-    "ins_packconv": (
-        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
-        + [_c_int] * 7 + [_c_ptr],
-        _c_int,
-    ),
     "ins_tapconv_fwd_mma": (
         [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 10 + [_c_ptr],
         _c_int,
@@ -145,6 +141,10 @@ _SIGNATURES = {
     ),
     "ins_tapconv_wgrad_tf32": (
         [_c_ptr] * 4 + [_c_int] * 15 + [_c_ptr],
+        _c_int,
+    ),
+    "ins_packconv_tf32": (
+        [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int] + [_c_int] * 9 + [_c_ptr],
         _c_int,
     ),
     "ins_packconv_mma": (

@@ -1,10 +1,9 @@
-// Helpers of the closure's conv kernels (conv.cu, tapconv.cu,
-// tapconv_mma.cu): widening loads of float32 or bf16 operands, the
-// fixed-order sum of the weight-gradient kernels' block partials (no
-// atomics: the same result on every run), and the pieces of the bf16
-// tensor-core kernels: 16-byte cp.async staging into a ring of shared
-// buffers, ldmatrix fragment loads and mma.sync m16n8k16 (bf16 operands,
-// float32 sums).
+// Helpers of the closure's conv kernels (conv.cu, the tap layer's
+// kernels) and of fold.cu: the fixed-order sum of the weight-gradient
+// kernels' block partials (no atomics: the same result on every run), and
+// the pieces of the tensor-core kernels: 16-byte cp.async staging into a
+// ring of shared buffers, ldmatrix fragment loads and mma.sync m16n8k16
+// (bf16 operands, float32 sums).
 
 #pragma once
 
@@ -20,11 +19,6 @@ using bf16 = __nv_bfloat16;
 // accumulator, at most: the tensor cores' float32 sums truncate, and
 // chains of at most 8 keep their error at a few float32 ulps
 constexpr int CHAIN = 8;
-
-__device__ __forceinline__ float load_val(const void* p, size_t i, int bf16) {
-    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                : static_cast<const float*>(p)[i];
-}
 
 template <int COT>
 __device__ __forceinline__ void load_vec(const float* s, float (&v)[COT]) {

@@ -1,7 +1,8 @@
-// Radix-2 folded pass B in one kernel: divhat -> qhat on an (n, ly, n)
-// block (the cube, ly = n, yoff = 0, or an x-slab shard's y-slice after
-// the x<->y transpose, whose first y-mode is yoff), one pass over device
-// memory.  With h = [h0; h1] the two x-halves of a column c = y n + z,
+// Pass B of the fused projection in one kernel: divhat -> qhat on an
+// (n, ly, n) block (the cube, ly = n, yoff = 0, or an x-slab shard's
+// y-slice after the x<->y transpose, whose first y-mode is yoff), one pass
+// over device memory.  Two forms share it.  The radix-2 folded pass B
+// (n % 4 == 0; with h = [h0; h1] the two x-halves of a column c = y n + z):
 //
 //   e = h0 + h1,  o = h0 - h1                          (fold split)
 //   g_o = R_o . o,  g_o *= 1 / den(kx_odd(r), c)        (odd frequencies)
@@ -10,32 +11,42 @@
 //         two levels; at the leaf g = Vinv_L . e, scaled, q = V_L . g)
 //   out = [q_e / 2 + q_o; q_e / 2 - q_o]                (combine)
 //
+// and the dense pass B (LEVELS = 0, any n; the projection's choice where
+// n % 4 != 0): the leaf alone at full size,
+//
+//   g = Vinv . h,  g *= 1 / den(ceil(r / 2), c),  out = V . g
+//
 // den = vol (lam_x(kx) + lam_y(yoff + y) + lam_z(z)) from the closed form,
 // lam(k) = -4 sin^2(pi k / n) / dx^2 with k = ceil(i / 2) in y and z, kx =
 // kmul (2 floor(r / 2) + 1) on a level's odd half and kmul ceil(r / 2) at
-// the leaf (kmul 1, 2, 4 down the levels); 0 where |den| < eps (the
-// zero-mean pressure), formed exactly as `poisson.cu`'s eigen-scale does.
+// the leaf (kmul 1, 2, 4 down the levels; 1 dense); 0 where |den| < eps
+// (the zero-mean pressure), formed exactly as `poisson.cu`'s eigen-scale
+// does.
 //
 // Replaces: `_passB_fold_kernel` / `_passB_fold_body`
 // (ins_tpu/ops/poisson_pallas.py:214, :136; the cube, from
 // `make_fused_projection` :411 wherever n % 4 == 0, :429-449) and
 // `_passB_fold_yoff_kernel` (:223; the shard's y-slice, from
-// `make_passB_sharded` :480, fold form :504).  The TPU kernel keeps a
-// whole (n, by, n) slab in VMEM and does split, products, scale,
-// recursion and combine there; this kernel computes the same function
-// with a block's panel of columns in shared memory.
+// `make_passB_sharded` :480, fold form :504); and `_passB_kernel` /
+// `_passB_body` (dense, :198, :110; `make_fused_projection` :451 where
+// n % 4 != 0) and `_passB_yoff_kernel` (:205; the shard's dense form,
+// :534).  The TPU kernels keep a whole (n, by, n) slab in VMEM and do
+// split, products, scale, recursion and combine there; this kernel
+// computes the same functions with a block's panel of columns in shared
+// memory.
 //
-// What bounds it on an H100: the half-size x products, 2 n^4 FLOP at one
-// level (n^4 for the odd pair, n^4 for the leaf pair; 1.5 n^4 at two
-// levels: n^4, then n^4 / 4 each for the second odd pair and the leaf
-// pair), as 3xTF32: three TF32 products a multiply-add, 25.8 GFLOP of
-// TF32 mma at 256^3, 0.052 ms at the 495 TFLOP/s dense peak (0.0568 ms
-// with the elementwise work counted at the FP32 peak, as `chip_smoke.py`
-// `fold_ops` counts it; 0.0448 ms at two levels), against 134 MB of
-// compulsory traffic (h read once, qhat written once: 0.040 ms at 3.35
-// TB/s), where separate split, product, scale and combine launches would
-// move every intermediate (e, o, g_o, q_o, g_e, q_e) through device
-// memory, ~10 field sizes.
+// What bounds it on an H100: the x products, as 3xTF32 (three TF32
+// products a multiply-add).  Folded: 2 n^4 FLOP at one level (n^4 for the
+// odd pair, n^4 for the leaf pair; 1.5 n^4 at two levels: n^4, then n^4 /
+// 4 each for the second odd pair and the leaf pair), 25.8 GFLOP of TF32
+// mma at 256^3, 0.052 ms at the 495 TFLOP/s dense peak (0.0568 ms with the
+// elementwise work counted at the FP32 peak, as `chip_smoke.py` `fold_ops`
+// counts it; 0.0448 ms at two levels).  Dense: 4 n^4 FLOP, 51.5 GFLOP of
+// TF32 mma at 256^3 (0.104 ms; 0.1079 ms as `chip_smoke.py` counts it).
+// Against them 134 MB of compulsory traffic at 256^3 (h read once, qhat
+// written once: 0.040 ms at 3.35 TB/s), where separate launches would move
+// every intermediate (the folded e, o, g_o, q_o, g_e, q_e; the dense g
+// twice) through device memory.
 //
 // Design: a block owns a panel of nc consecutive columns over all n
 // x-rows, in shared memory for the whole solve, so device memory sees h
@@ -44,6 +55,7 @@
 // product reads its operand rows and, after a barrier, its epilogue
 // writes its output over them:
 //
+//   dense:       g = Vinv h (scale), out = V g -> device memory
 //   one level:   g_o = R_o o (scale), g_e = Vinv_L e (scale), q_e = V_L g_e,
 //                q_o = S_o g_o, out = [q_e/2 + q_o; q_e/2 - q_o] -> device memory
 //   two levels:  g_o = R_o^0 o (scale), then e -> [e' | o'];
@@ -51,47 +63,54 @@
 //                q_e' = V_L g_e', q_o' = S_o^1 g_o', e-rows = [q_e'/2 +- q_o'];
 //                q_o = S_o^0 g_o, out = [q_e/2 + q_o; q_e/2 - q_o]
 //
-// The fold split happens on load: h arrives in chunks of x-rows of both
-// halves with the first product's stages (a chunk a stage ahead of its
-// use), and each chunk is split in place just before the stage that
-// reads it.  The products are the plane GEMM's (`transforms.cu`): 3xTF32
-// `mma.sync.m16n8k8`, the panel as B (32-bit fragment loads, rows nc + 8
-// floats apart: the 32 lanes hit distinct banks), split into TF32 big and
-// small parts in registers; the basis as A, split on the host in fragment
-// order (`ops/transforms.py` `pack_basis_a`, kept on the matrix by
-// `split_basis`), streamed from L2 through a ring of stages (cp.async, 16
-// bytes a copy) that runs on across the products, so the next product's
-// first stage is in flight while one ends.  A chain holds one stage's K
-// (at most 32) before its float32 add (the tensor cores' float32 sums
-// truncate, transforms.cu); every output element sums its K in the same
-// order whatever the panel, ly or yoff (no split-K; the geometry depends
-// on n alone); with stages of 32 of K it sums exactly as the plane GEMM
-// does.
+// h arrives in chunks of x-rows (of both halves when folded) with the
+// first product's stages (a chunk a stage ahead of its use); folded, each
+// chunk is split in place just before the stage that reads it.  Where the
+// columns are no multiple of 4 (a dense shard such as (250, 125, 250)) or
+// h and out are not 16-byte aligned, h is staged by 4-byte copies and
+// qhat stored a float at a time.  The products are the plane GEMM's
+// (`transforms.cu`): 3xTF32 `mma.sync.m16n8k8`, the panel as B (32-bit
+// fragment loads, rows nc + 8 floats apart: the 32 lanes hit distinct
+// banks), split into TF32 big and small parts in registers; the basis as
+// A, split on the host in fragment order (`ops/transforms.py`
+// `pack_basis_a`, kept on the matrix by `split_basis`), streamed from L2
+// through a ring of stages (cp.async, 16 bytes a copy) that runs on
+// across the products, so the next product's first stage is in flight
+// while one ends.  A chain holds one stage's K (at most 32) before its
+// float32 add (the tensor cores' float32 sums truncate, transforms.cu);
+// every output element sums its K in the same order whatever the panel,
+// ly or yoff (no split-K; the geometry depends on n alone); with stages
+// of 32 of K it sums exactly as the plane GEMM does.
 //
 // Geometry (`fold_geometry.cuh`, chosen by the entry from n): 8 warps,
 // each a 64 x 32 output tile (4 m16 x 4 n8 tiles, 64 accumulators), nc /
 // 32 across the panel and 8 / (nc / 32) down its rows, so a product's
-// rows (at most n / 2) fit one pass of the warps: nc = 256 at n <= 128,
-// 128 at n <= 256, 64 at n <= 512, 32 at n <= 1024; stages of 32 of K in
-// a ring of two where they fit beside the panel, else of 16 (n = 512) or
-// 8 (n = 1024).  Above n = 1024 no panel of all n rows fits a block and
-// the entry refuses.  At 256^3: a 128-column panel (136 KB), two 32 KB
-// stages, 206 KB, one block an SM, 512 blocks; the split basis is 512 KB
-// a panel, ~256 MB a call from L2; 203 registers, no spills.  At 1024
-// (32-column panels) the basis is 6.3 MB a panel at two levels, 4x the
-// L2 traffic a FLOP of 256^3.  64-column panels of 32 x 32 warp tiles
-// (4x the basis traffic a FLOP), 16 warps of 32 x 32 tiles, and rings of
-// four 16-K stages ran slower at 256^3 on an H100 (PERF.md).  The basis
-// is zero-padded to whole tiles on the host and the panel's rows below
-// each operand hold finite values (the next slot, or a zero tail where n
-// / 2 is no multiple of the stage's K), so ragged n (n = 100: halves of
-// 50) needs no masks in the products; ragged panels are zero-filled and
-// masked on store.
+// rows (at most n / 2 folded, n dense) fit one pass of the warps: folded
+// nc = 256 at n <= 128, 128 at n <= 256, 64 at n <= 512, 32 at n <= 1024;
+// dense nc = 256 at n <= 64, 128 at n <= 128, 64 at n <= 256, 32 at n <=
+// 512; stages of 32 of K in a ring of two where they fit beside the
+// panel, else of 16 (folded n = 512, dense above 256) or 8 (folded n =
+// 1024).  Above that no panel of all n rows whose warps cover a product
+// fits a block and the entries refuse.  Folded at 256^3: a 128-column
+// panel (136 KB), two 32 KB stages, 206 KB, one block an SM, 512 blocks;
+// the split basis is 512 KB a panel, ~256 MB a call from L2; 203
+// registers, no spills.  Dense at 256^3: a 64-column panel (72 KB), two 64
+// KB stages, 1024 blocks, 1 MB of split basis a panel (~1 GB a call from
+// L2).  At 1024 (32-column panels) the folded basis is 6.3 MB a panel at
+// two levels, 4x the L2 traffic a FLOP of 256^3.  64-column panels of 32
+// x 32 warp tiles (4x the basis traffic a FLOP), 16 warps of 32 x 32
+// tiles, and rings of four 16-K stages ran slower at 256^3 on an H100
+// (PERF.md).  The basis is zero-padded to whole tiles on the host and the
+// panel's rows below each operand hold finite values (the next slot, or a
+// zero tail where the operand is no multiple of the stage's K), so ragged
+// n (n = 100: halves of 50; dense n = 250) needs no masks in the
+// products; ragged panels are zero-filled and masked on store.
 
 #include <cstdint>
 
 #include "convio.cuh"         // cp_async16, cp_async_commit, cp_async_wait, set_smem
-#include "fold_geometry.cuh"  // FP_*, fold_rows .. fold_smem, fold_geometry
+#include "fold_geometry.cuh"  // FP_*, fold_rows .. fold_smem, fold_geometry, dense_geometry
+#include "ring.cuh"           // cp_async4
 #include "tf32.cuh"           // tf32_rna, split_tf32, mma_tf32, mma_tf32_first
 
 namespace {
@@ -100,9 +119,11 @@ struct FoldParams {
     const float* h;        // (n, cols) rows, x leading
     float* out;            // (n, cols)
     const float* mats[6];  // pack_basis_a: R_o^0, S_o^0, [R_o^1, S_o^1,] Vinv_L, V_L
+                           // (dense: Vinv, V)
     int cols;              // ly n
     int n, ly, yoff, nc;   // nc: a panel's columns
     float dx0, dx1, dx2, vol, eps;
+    int vec;               // cols % 4 == 0, h and out 16-byte aligned: 16-byte copies
 };
 
 // what a product's epilogue does with its output rows r < size
@@ -112,6 +133,7 @@ enum Epilogue {
     EPI_STORE, // back over its operand rows
     EPI_HALF,  // combine with the even rows 0.. into rows r and row0 + r
     EPI_OUT,   // the same combine into device memory
+    EPI_DENSE, // into device memory
 };
 
 struct Gemm {
@@ -126,6 +148,7 @@ struct Gemm {
 template <int LEVELS>
 __device__ __forceinline__ Gemm fold_gemm(int i, int n) {
     const int s0 = n / 2, s1 = n / 4;
+    if (LEVELS == 0) return i == 0 ? Gemm{0, n, 0, EPI_LEAF, 1} : Gemm{1, n, 0, EPI_DENSE, 0};
     if (LEVELS == 1) {
         switch (i) {
             case 0: return {0, s0, s0, EPI_ODD, 1};
@@ -170,9 +193,12 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
     constexpr int BK = 8 * KS;          // K a stage: one chain
     extern __shared__ float4 smem_f4[];
     float* F = reinterpret_cast<float*>(smem_f4);  // the panel
-    const int n = p.n, nc = p.nc, pitch = nc + 8, s0 = n / 2;
+    constexpr int HALVES = LEVELS ? 2 : 1;  // x-halves of h the first product's stages bring
+    // s0: the first product's size, its operand rows per half (the
+    // largest product: the geometry's m)
+    const int n = p.n, nc = p.nc, pitch = nc + 8, s0 = LEVELS ? n / 2 : n;
     const int stage_floats = fold_stage_floats(nc, KS);
-    float* ring = F + fold_panel_floats(n, nc, KS);
+    float* ring = F + fold_panel_floats(n, s0, nc, KS);
     float* lx = ring + FP_NBUF * stage_floats;  // lam_x(k), k <= n / 2
     float* lyc = lx + n / 2 + 1;             // lam_y, lam_z of the panel's columns
     float* lzc = lyc + nc;
@@ -191,7 +217,7 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
         lyc[c] = fold_lam((y + p.yoff + 1) / 2, n, p.dx1);
         lzc[c] = fold_lam((z + 1) / 2, n, p.dx2);
     }
-    for (int r = n + rq; r < n + fold_tail(n, KS); r += rstep)
+    for (int r = n + rq; r < n + fold_tail(s0, KS); r += rstep)
         *reinterpret_cast<float4*>(F + r * pitch + cq) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
     // e, o = h0 + h1, h0 - h1 on panel rows r_lo + r and s + r_lo + r, r < nr
@@ -208,7 +234,8 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
     // the stage ring: ig, is the next stage to issue (product, stage of
     // it), qi the stages issued; each issue commits one cp.async group
     int ig = 0, is = 0, qi = 0;
-    const bool col_ok = c0 + cq < p.cols;  // cols % 4 == 0: all four or none
+    const bool col_ok = c0 + cq < p.cols;  // vec: cols % 4 == 0, all four or none
+    const bool vec = LEVELS > 0 || p.vec;  // the folded pass B: n % 4 == 0, aligned
     auto issue = [&]() {
         if (ig < NG) {
             const Gemm G = fold_gemm<LEVELS>(ig, n);
@@ -223,19 +250,31 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
                 for (int u = tid; u < per_ks; u += FP_THREADS)
                     cp_async16(slot + ks * per_ks * 4 + 4 * u,
                                base + (size_t)ks * tps * FP_ATILE + 4 * u);
-            // the first product's stages bring h: x-rows BK is.. of both halves
+            // the first product's stages bring h: x-rows BK is.. (of both
+            // halves when folded)
             if (ig == 0) {
                 const int r_lo = is * BK, nr = min(BK, s0 - r_lo);
                 for (int r = rq; r < nr; r += rstep)
 #pragma unroll
-                    for (int half = 0; half < 2; ++half) {
+                    for (int half = 0; half < HALVES; ++half) {
                         const int row = half * s0 + r_lo + r;
                         float* d = F + row * pitch + cq;
                         const float* src = p.h + (size_t)row * p.cols + c0 + cq;
-                        if (col_ok)
-                            cp_async16(d, src);
-                        else
-                            *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                        if (vec) {
+                            if (col_ok)
+                                cp_async16(d, src);
+                            else
+                                *reinterpret_cast<float4*>(d) =
+                                    make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                        } else {
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                if (c0 + cq + e < p.cols)
+                                    cp_async4(d + e, src + e);
+                                else
+                                    d[e] = 0.0f;
+                            }
+                        }
                     }
             }
             ++qi;
@@ -262,7 +301,7 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
             issue();
             cp_async_wait<FP_NBUF - 1>();  // this stage's copies have landed
             __syncthreads();
-            if (gi == 0) {  // the fold split of the chunk this stage reads
+            if (LEVELS > 0 && gi == 0) {  // the fold split of the chunk this stage reads
                 split(s * BK, min(BK, s0 - s * BK), s0);
                 __syncthreads();
             }
@@ -328,7 +367,15 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
                     const int c = wn * 32 + j * 8 + 2 * t;
                     float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
                     float2* own = reinterpret_cast<float2*>(F + (G.row0 + r) * pitch + c);
-                    if (G.epi == EPI_ODD || G.epi == EPI_LEAF) {
+                    if (LEVELS == 0 && G.epi == EPI_DENSE) {
+                        float* o = p.out + (size_t)r * p.cols + c0 + c;
+                        if (vec) {  // cols even: both columns or none
+                            if (c0 + c < p.cols) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+                        } else {
+                            if (c0 + c < p.cols) o[0] = v0;
+                            if (c0 + c + 1 < p.cols) o[1] = v1;
+                        }
+                    } else if (G.epi == EPI_ODD || G.epi == EPI_LEAF) {
                         const float d0 = p.vol * (lxr + lyc[c] + lzc[c]);
                         const float d1 = p.vol * (lxr + lyc[c + 1] + lzc[c + 1]);
                         v0 = v0 * (fabsf(d0) < p.eps ? 0.0f : 1.0f / d0);
@@ -391,7 +438,7 @@ extern "C" int ins_passb_fold_f32(const float* h, float* out, const float* m0, c
         if (mats[i] == nullptr || ((uintptr_t)mats[i] & 15)) return (int)cudaErrorInvalidValue;
     if (((uintptr_t)h & 15) || ((uintptr_t)out & 15)) return (int)cudaErrorInvalidValue;
     FoldParams p{h, out, {m0, m1, m2, m3, m4, m5}, ly * n, n, ly, yoff, geo.nc,
-                 dx0, dx1, dx2, vol, eps};
+                 dx0, dx1, dx2, vol, eps, 1};
     cudaStream_t s = (cudaStream_t)stream;
     if (levels == 1)
         return (int)(geo.ks == 4   ? launch_fold<1, 4>(p, geo.smem, s)
@@ -400,4 +447,25 @@ extern "C" int ins_passb_fold_f32(const float* h, float* out, const float* m0, c
     return (int)(geo.ks == 4   ? launch_fold<2, 4>(p, geo.smem, s)
                  : geo.ks == 2 ? launch_fold<2, 2>(p, geo.smem, s)
                                : launch_fold<2, 1>(p, geo.smem, s));
+}
+
+// qhat = the dense pass B of h: (n, ly, n) float32 rows, out the same;
+// vinv and v the x eigenbasis pair split as `pack_basis_a` lays them out,
+// each 16-byte aligned (h and out need not be: where they or the columns
+// ly n are not, h is staged a float at a time).  cudaErrorInvalidValue
+// where no geometry fits (n > 512).
+extern "C" int ins_passb_dense_f32(const float* h, float* out, const float* vinv,
+                                   const float* v, int n, int ly, int yoff, float dx0,
+                                   float dx1, float dx2, float vol, float eps, void* stream) {
+    const FoldGeometry geo = dense_geometry(n);
+    if (n < 1 || ly < 1 || yoff < 0 || yoff + ly > n || geo.ks < 2 || vinv == nullptr ||
+        v == nullptr || ((uintptr_t)vinv & 15) || ((uintptr_t)v & 15) || ((uintptr_t)h & 3) ||
+        ((uintptr_t)out & 3))
+        return (int)cudaErrorInvalidValue;
+    const int cols = ly * n;
+    const int vec = cols % 4 == 0 && ((uintptr_t)h & 15) == 0 && ((uintptr_t)out & 15) == 0;
+    FoldParams p{h, out, {vinv, v, nullptr, nullptr, nullptr, nullptr}, cols, n, ly, yoff,
+                 geo.nc, dx0, dx1, dx2, vol, eps, vec};
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)(geo.ks == 4 ? launch_fold<0, 4>(p, geo.smem, s) : launch_fold<0, 2>(p, geo.smem, s));
 }

@@ -1,8 +1,10 @@
 // Pass B of the fused projection as GEMMs (transforms.cu) around the
-// kernels here: the dense pass B (n % 4 != 0), and the radix-2 folded one
-// above `ops/poisson_kernels.FOLD_FUSED_MAX_N` (the level route).  Up to
-// that gate the folded pass B is one kernel (fold.cu), whose panel of all
-// n x-rows fits a block only up to n = 1024.
+// kernels here: the dense pass B (n % 4 != 0) above
+// `ops/poisson_kernels.DENSE_FUSED_MAX_N` (the GEMM route), and the
+// radix-2 folded one above `ops/poisson_kernels.FOLD_FUSED_MAX_N` (the
+// level route).  Up to those gates each is one kernel (fold.cu), whose
+// panel of all n x-rows fits a block only up to n = 512 dense, 1024
+// folded.
 //
 // Eigen-scale: g(r, y, z) *= 1 / den(r, y, z) on an (nr, n, n) block,
 //
@@ -25,9 +27,9 @@
 // q_o = S_o . g_o (GEMMs) and the recursion on e (kmul doubled): eight
 // launches at one level, twelve at two.
 //
-// Replaces: `_passB_kernel` / `_passB_body` (dense,
-// ins_tpu/ops/poisson_pallas.py:198, :110) and, above the gate,
-// `_passB_fold_kernel` / `_passB_fold_body` (radix-2 folded, :214, :136),
+// Replaces: above the gates, `_passB_kernel` / `_passB_body` (dense,
+// ins_tpu/ops/poisson_pallas.py:198, :110) and `_passB_fold_kernel` /
+// `_passB_fold_body` (radix-2 folded, :214, :136),
 // both called from `make_fused_projection` (:411; the fold wherever
 // n % 4 == 0, :429-449), with `den` generated in-kernel from the closed
 // form `_lam` (:101) as there, never read from memory.  The sharded pass B

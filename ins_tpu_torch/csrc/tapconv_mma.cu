@@ -9,10 +9,10 @@
 // into kc (a multiple of 8: the wrapper pads with zero channels) and x, y
 // padded by kx-1, ky-1; out is (nxp-kx+1, nyp-ky+1, nz, cout) in float32
 // or bf16.  The layer's input gradient is the same function on the
-// zero-padded cotangent with flipped, transposed taps.  The float32 routes
-// are tapconv_tf32.cu (the tap forward, 3xTF32 on the tensor cores) and
-// tapconv.cu (the pack forward, FP32 FMA); the weight gradient is
-// tapwgrad_mma.cu (bf16) and tapconv.cu (float32).
+// zero-padded cotangent with flipped, transposed taps.  The float32 route
+// of both forwards is tapconv_tf32.cu (3xTF32 on the tensor cores, these
+// two kernels' plan); the weight gradient is tapwgrad_mma.cu (bf16) and
+// tapwgrad_tf32.cu (float32).
 //
 // Replaces: for bf16 operands, `_tapconv_kernel` (ins_tpu/ops/convkernels.py:78,
 // wrapper `tapconv_3d` :130) and `_packconv_kernel` (:387, wrapper

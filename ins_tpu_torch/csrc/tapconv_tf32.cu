@@ -1,7 +1,7 @@
-// The tap-matmul convolution of the CNN closure's z-folded layer on
-// float32 operands, on the tensor cores in 3xTF32 (`mma.sync.m16n8k8`,
-// TF32 operands, float32 sums), forward with bias and tanh/identity
-// fused in:
+// The tap-matmul and pack-tile convolutions of the CNN closure's z-folded
+// layer on float32 operands, on the tensor cores in 3xTF32
+// (`mma.sync.m16n8k8`, TF32 operands, float32 sums), forward with bias and
+// tanh/identity fused in:
 //
 //   out[x, y, z, o] = act(b[o] + sum_{dx<kx, dy<ky} sum_c g[x+dx, y+dy, z, c]
 //                                                         * w2[dx, dy, c, o])
@@ -11,10 +11,14 @@
 // and x, y padded by kx-1, ky-1; out is (nxp-kx+1, nyp-ky+1, nz, cout) in
 // float32 or bf16.  The layer's input gradient is the same function on the
 // zero-padded cotangent with flipped, transposed taps.  The bf16 route is
-// tapconv_mma.cu.
+// tapconv_mma.cu, whose two kernels these follow: the output-first tap
+// kernel (`tapconv_3d`, and `packconv_3d` where the taps do not all pack
+// into one tile) and the weight-first pack kernel (`packconv_3d` where
+// they do, `pack_tf32_takes`: the 24 -> 3 layer).
 //
 // Replaces: for float32 operands, `_tapconv_kernel`
-// (ins_tpu/ops/convkernels.py:78, wrapper `tapconv_3d` :130).
+// (ins_tpu/ops/convkernels.py:78, wrapper `tapconv_3d` :130) and
+// `_packconv_kernel` (:387, wrapper `packconv_3d` :471).
 //
 // Accuracy: each operand is split into a TF32 big part and a TF32 small
 // part, big = rna(x) and small = rna(x - big) (round to nearest, ties away,
@@ -34,7 +38,13 @@
 // rate and L2 hold it; two blocks an SM (16 warps) hide the latencies, so
 // registers (128 a thread) bound the design.
 //
-// Design: tapconv_mma.cu's output-first `tap_mma_kernel` with float32
+// The pack kernel at 24 -> 3 (75 packed columns, 80 with padding) is
+// 37.7 GFLOP, 121 GFLOP of TF32 mma with the padding (0.24 ms at the
+// peak), against 1.07 GB of g read once (0.32 ms): there the bytes bound
+// it, and a block reads its 16 input rows for 12 output rows (ky = 5), the
+// 4 overlapping rows mostly from L2.
+//
+// Design of the tap kernel: tapconv_mma.cu's output-first `tap_mma_kernel` with float32
 // stages: an implicit GEMM with M = the cells of an output row, K = kc and
 // N = cout in blocks of 8*NT columns (NT <= 3 n8 tiles: a warp's
 // accumulators and its tensor-core chains, 16*NT registers, then fit two
@@ -56,11 +66,45 @@
 // (one new row a tap, so each row is loaded and split once), and each B
 // fragment feeds both rows as it is loaded, so an A fragment feeds up to
 // 3*2*NT mma and one B fragment is live.
+//
+// Design of the pack kernel: tapconv_mma.cu's weight-first
+// `pack_mma_kernel` with float32 stages: each input plane's products with
+// every tap once, P[(y, z), (dx, dy, o)] = sum_c g[p, y, z, c] ws[c, (dx,
+// dy, o)], then the shifted tap sums in float32 and in the order (dx, dy):
+// out[x, y] = sum_{dx, dy} P[x + dx][(y + dy, z), (dx, dy, o)].  A block
+// of 16 warps owns 16 input rows (16 - ky + 1 output rows) x 16 cells and
+// walks a run of x-planes (`pack_geometry.cuh`); two warps share a pair of
+// input rows, each forming half the packed columns' products, so that the
+// products and chains of a warp fit 128 registers and 16 warps share an
+// SM (8 warps of all the columns took 253 registers and the same shared
+// memory, one block of 8 warps an SM, and ran slower).  g arrives by
+// 16-byte cp.async in stages of (input plane, 32 channels) through a ring
+// (pitch 36 floats: 9 16-byte units, so an ldmatrix's 8 rows hit distinct
+// banks), each stage with the chunk's split B fragments of every tap
+// (`pack_all_taps_tf32`: per k8 step and n8 tile 32 lanes x (big b0, big
+// b1, small b0, small b1); 20 KB a stage at 24 -> 3, from L2), in a ring
+// of as many stages as fit (two at 24 -> 3), one barrier a stage (each
+// thread's copies of g are the same cells every stage: their offsets are
+// formed once a block).  Per k8 step each of a warp's two rows has its A
+// fragment from one `ldmatrix.x4` split in registers, and each of its n8
+// tiles' B fragment is one 16-byte shared load feeding both rows' three
+// products (small*big, big*small, big*big); two k8 steps are one
+// tensor-core chain (6 mma) added to the products' float32 sums.  When a
+// plane's last stage is in, the block writes its products to shared
+// memory (float32) and adds their column groups into a ring of kx
+// output-plane accumulators in shared memory; an output plane leaves when
+// its last tap is in.  The products never go through device memory.  At
+// 24 -> 3 (kc 120, nt 10) the block takes 207 KB (two 56 KB stages, 84 KB
+// of products, 11 KB of accumulators): one block an SM.  Stages of 16
+// channels (four in the ring) ran 8 % slower, the tap sums deferred past
+// the next stage's barrier no faster (PERF.md).
 
 #include <cstdint>
+#include <utility>
 
-#include "convio.cuh"  // bf16, CHAIN, cp.async, ring_wait, set_smem
-#include "tf32.cuh"    // FRAG, TAPS_CHAINED, load_split, row_products
+#include "convio.cuh"         // bf16, CHAIN, cp.async, ring_wait, set_smem
+#include "pack_geometry.cuh"  // PF_*, pack_tf32_smem, pack_tf32_takes, pack_tf32_nbuf
+#include "tf32.cuh"           // FRAG, TAPS_CHAINED, load_split, row_products
 
 namespace {
 
@@ -277,6 +321,197 @@ tap_tf32_kernel(const __grid_constant__ TapTf32Params p) {
     }
 }
 
+struct PackTf32Params {
+    const float* g;     // (nxp, nyp, nz, kc)
+    const float* w;     // (kp/8, nt, 32, 4): every tap's split B fragments, column
+                        // (dx * ky + dy) * cout + o; zero past kc rows and kx * ky *
+                        // cout columns
+    const float* bias;  // may be null
+    int act;
+    void* out;
+    int out_bf16;
+    int nxp, nyp, nz, kc, kx, ky, cout, kp, nt;
+    int xb;             // output planes a block walks
+    int nbuf;           // stages in the ring
+};
+
+template <int NTW>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+pack_tf32_kernel(const __grid_constant__ PackTf32Params p) {
+    constexpr int NTP = PF_COLG * NTW;  // n8 tiles staged and formed (p.nt and a zero pad)
+    constexpr int PP = 8 * NTP + 4;     // the products' pitch
+    constexpr int IN = PF_ROWS * PF_TZ * PF_CHP;
+    constexpr int STAGE = pack_tf32_stage_floats(NTP);
+    // g's 16-byte copies a thread a stage
+    constexpr int COPIES = PF_ROWS * PF_TZ * (PF_CH / 4) / PF_THREADS;
+    static_assert(COPIES * PF_THREADS == PF_ROWS * PF_TZ * (PF_CH / 4), "whole copies");
+    extern __shared__ float4 smem_f4[];
+    const int nbuf = p.nbuf, kx = p.kx, ky = p.ky, cout = p.cout, nt = p.nt;
+    // nbuf staged (plane, chunk)s: the window, then the chunk's fragments
+    float* s_ring = reinterpret_cast<float*>(smem_f4);
+    float* s_p = s_ring + nbuf * STAGE;                  // (PF_ROWS * PF_TZ, PP) products
+    float* s_acc = s_p + PF_ROWS * PF_TZ * PP;           // (kx, ty * PF_TZ * cout) accumulators
+    const int ty = PF_ROWS - ky + 1;                     // output rows a block
+    const int nx = p.nxp - kx + 1, ny = p.nyp - ky + 1;
+    const int z0 = blockIdx.x * PF_TZ, y0 = blockIdx.y * ty;
+    const int x0 = blockIdx.z * p.xb, x1 = min(nx, x0 + p.xb);
+    const int nchunk = (p.kp + PF_CH - 1) / PF_CH;
+    const int nstage = (x1 - x0 + kx - 1) * nchunk;  // (input plane, chunk)
+    const int nacc = ty * PF_TZ * cout;              // an output plane's accumulators
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // warp: input rows 2 rp and 2 rp + 1, n8 tiles NTW cg ..
+    const int rp = warp % (PF_ROWS / 2), cg = warp / (PF_ROWS / 2);
+
+    for (int i = tid; i < kx * nacc; i += PF_THREADS) s_acc[i] = 0.0f;
+    // the pad tiles' fragments, zero in every buffer (no copy writes them)
+    for (int i = tid; i < nbuf * 2 * (NTP - nt) * PF_FRAG; i += PF_THREADS) {
+        const int f = i % ((NTP - nt) * PF_FRAG), j = i / ((NTP - nt) * PF_FRAG);
+        s_ring[(j / 2) * STAGE + IN + ((j % 2) * NTP + nt) * PF_FRAG + f] = 0.0f;
+    }
+    // this thread's copies of g: the same cells and channel quad each stage
+    int dst[COPIES], quad[COPIES];
+    size_t src[COPIES];
+    bool inside[COPIES];
+#pragma unroll
+    for (int k = 0; k < COPIES; ++k) {
+        const int u = tid + k * PF_THREADS;
+        const int q = u % (PF_CH / 4), cell = (u / (PF_CH / 4)) % PF_TZ;
+        const int r = u / (PF_CH / 4 * PF_TZ);
+        dst[k] = (r * PF_TZ + cell) * PF_CHP + 4 * q;
+        quad[k] = 4 * q;
+        src[k] = ((size_t)(y0 + r) * p.nz + z0 + cell) * p.kc + 4 * q;
+        inside[k] = y0 + r < p.nyp && z0 + cell < p.nz;
+    }
+    const size_t plane_floats = (size_t)p.nyp * p.nz * p.kc;
+    auto issue = [&](int s) {
+        if (s < nstage) {
+            const int plane = x0 + s / nchunk, c0 = (s % nchunk) * PF_CH;
+            float* s_in = s_ring + (s % nbuf) * STAGE;
+            const float* g = p.g + plane * plane_floats + c0;
+#pragma unroll
+            for (int k = 0; k < COPIES; ++k) {
+                if (inside[k] && c0 + quad[k] < p.kc)
+                    cp_async16(s_in + dst[k], g + src[k]);
+                else
+                    *reinterpret_cast<float4*>(s_in + dst[k]) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+            // the chunk's k8 steps of every tap's fragments (nt tiles a step)
+            const int nks = min(PF_CH, p.kp - c0) / 8;
+            for (int j = 0; j < nks; ++j) {
+                const float* w = p.w + (size_t)(c0 / 8 + j) * nt * PF_FRAG;
+                for (int u = tid; u < nt * PF_FRAG / 4; u += PF_THREADS)
+                    cp_async16(s_in + IN + j * NTP * PF_FRAG + 4 * u, w + 4 * u);
+            }
+        }
+        cp_async_commit();
+    };
+
+    // acc: the products of the warp's rows and tiles (float32 adds); part:
+    // a chain of two k8 steps in the tensor cores
+    float acc[2][NTW][4], part[2][NTW][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int t = 0; t < NTW; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][t][e] = 0.0f;
+
+    // ldmatrix row addresses: rows are cells (lanes 0-15: channels 0-3,
+    // 16-31: channels 4-7 of the k8 step)
+    const int a_lane = (2 * rp * PF_TZ + (lane & 15)) * PF_CHP + (lane >> 4) * 4;
+    const int b_lane = IN + cg * NTW * PF_FRAG + 4 * lane;
+    for (int s = 0; s < nbuf - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+        // this stage's copies have landed (all but the newest nbuf - 2
+        // groups), and every warp is done with stage s - 1, whose buffer
+        // the next issue refills: one barrier a stage
+        if (nbuf == 4)
+            cp_async_wait<2>();
+        else if (nbuf == 3)
+            cp_async_wait<1>();
+        else
+            cp_async_wait<0>();
+        __syncthreads();
+        issue(s + nbuf - 1);
+        const int chunk = s % nchunk, c0 = chunk * PF_CH;
+        const int nks = min(PF_CH, p.kp - c0) / 8;
+        const float* s_in = s_ring + (s % nbuf) * STAGE + a_lane;
+        const float* b = s_ring + (s % nbuf) * STAGE + b_lane;
+        // the stage's k8 steps in chains of two, each added to the products
+#pragma unroll 1
+        for (int j = 0; j < nks; j += 2) {
+            uint32_t big[2][4], small[2][4];
+            load_split(s_in + 8 * j, big[0], small[0]);
+            load_split(s_in + PF_TZ * PF_CHP + 8 * j, big[1], small[1]);
+            row_products<NTW, 2, true>(part, big, small, b + j * NTP * PF_FRAG);
+            if (j + 1 < nks) {
+                load_split(s_in + 8 * (j + 1), big[0], small[0]);
+                load_split(s_in + PF_TZ * PF_CHP + 8 * (j + 1), big[1], small[1]);
+                row_products<NTW, 2, false>(part, big, small, b + (j + 1) * NTP * PF_FRAG);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int t = 0; t < NTW; ++t)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[r][t][e] += part[r][t][e];
+        }
+        if (chunk == nchunk - 1) {
+            // the input plane's products are complete: to shared memory
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int t = 0; t < NTW; ++t)
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const int row = (2 * rp + r) * PF_TZ + (lane >> 2) + 8 * half;
+                        const int col = 8 * (cg * NTW + t) + 2 * (lane & 3);
+                        *reinterpret_cast<float2*>(s_p + row * PP + col) =
+                            make_float2(acc[r][t][2 * half], acc[r][t][2 * half + 1]);
+                        acc[r][t][2 * half] = acc[r][t][2 * half + 1] = 0.0f;
+                    }
+            __syncthreads();
+            // the tap sums: output plane x = plane - dx takes column group
+            // (dx, dy) of input row y + dy; each output value is one thread's,
+            // its taps added in the order (dx, dy)
+            const int plane = x0 + s / nchunk;
+            for (int e = tid; e < nacc; e += PF_THREADS) {
+                const int o = e % cout, cz = e / cout;
+                const int z = cz % PF_TZ, y = cz / PF_TZ;
+                const float* pr = s_p + (y * PF_TZ + z) * PP + o;
+                for (int dx = 0; dx < kx; ++dx) {
+                    const int x = plane - dx;
+                    if (x < x0 || x >= x1) continue;
+                    float col[PF_MAXKY];  // the column groups, read together, added in order
+#pragma unroll
+                    for (int dy = 0; dy < PF_MAXKY; ++dy)
+                        col[dy] = dy < ky ? pr[dy * PF_TZ * PP + (dx * ky + dy) * cout] : 0.0f;
+                    float* a = s_acc + (x % kx) * nacc + e;
+                    float v = *a;
+#pragma unroll
+                    for (int dy = 0; dy < PF_MAXKY; ++dy)
+                        if (dy < ky) v += col[dy];
+                    *a = v;
+                }
+                const int x = plane - kx + 1;  // its last tap is in
+                if (x < x0) continue;
+                float* a = s_acc + (x % kx) * nacc + e;
+                const float v = epilogue(*a, p.bias, o, p.act);
+                *a = 0.0f;
+                const int yy = y0 + y, zz = z0 + z;
+                if (yy >= ny || zz >= p.nz) continue;
+                const size_t off = (((size_t)x * ny + yy) * p.nz + zz) * cout + o;
+                if (p.out_bf16)
+                    static_cast<bf16*>(p.out)[off] = __float2bfloat16(v);
+                else
+                    static_cast<float*>(p.out)[off] = v;
+            }
+            // the products and the accumulators are next touched after the
+            // next stage's barrier
+        }
+    }
+}
+
 // kc rounded up to 8 and the padded output columns, as the wrapper packs them
 bool tf32_geometry_ok(int kc, int cout, int kp, int nt, int np) {
     return kc >= 4 && kc % 4 == 0 && kp == (kc + 7) / 8 * 8 && nt >= 1 && nt <= TMAXNT &&
@@ -319,6 +554,30 @@ cudaError_t tap_tf32(int ky, int nt, const TapTf32Params& p, cudaStream_t s) {
 
 #undef INS_TF32_NT
 
+template <int NTW>
+cudaError_t launch_pack_tf32(PackTf32Params p, cudaStream_t stream) {
+    p.nbuf = pack_tf32_nbuf(p.nt, p.kx, p.ky, p.cout);
+    const size_t smem = pack_tf32_smem(p.nbuf, p.nt, p.kx, p.ky, p.cout);  // `pack_tf32_takes`
+    const cudaError_t e = set_smem((const void*)pack_tf32_kernel<NTW>, smem);
+    if (e != cudaSuccess) return e;
+    const int nx = p.nxp - p.kx + 1, ny = p.nyp - p.ky + 1, ty = PF_ROWS - p.ky + 1;
+    const int zs = (p.nz + PF_TZ - 1) / PF_TZ, ys = (ny + ty - 1) / ty;
+    int groups = (PF_BLOCKS + zs * ys - 1) / (zs * ys);
+    groups = groups > nx ? nx : groups;
+    p.xb = (nx + groups - 1) / groups;
+    const dim3 grid(zs, ys, (nx + p.xb - 1) / p.xb);
+    pack_tf32_kernel<NTW><<<grid, PF_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int... NTWS>
+cudaError_t pack_tf32_dispatch(int ntw, const PackTf32Params& p, cudaStream_t s,
+                               std::integer_sequence<int, NTWS...>) {
+    cudaError_t e = cudaErrorInvalidValue;
+    ((ntw == NTWS + 1 ? (void)(e = launch_pack_tf32<NTWS + 1>(p, s)) : (void)0), ...);
+    return e;
+}
+
 }  // namespace
 
 // The tap forward on float32 operands, 3xTF32 on the tensor cores: g (nxp,
@@ -338,4 +597,23 @@ extern "C" int ins_tapconv_fwd_tf32(const void* g, const void* wp, const float* 
                           out, out_bf16, cout % 8 == 0 && ((uintptr_t)out & 15) == 0,
                           nxp, nyp, nz, kc, kx, cout, kp, np};
     return (int)tap_tf32(ky, nt, p, (cudaStream_t)stream);
+}
+
+// The pack forward on float32 operands, 3xTF32 on the tensor cores: g as
+// `ins_tapconv_fwd_tf32`, ws every tap's split B fragments (kp/8, nt, 32,
+// 4) float32 (`ops/conv_kernels.py` `pack_all_taps_tf32`), out
+// (nxp-kx+1, nyp-ky+1, nz, cout) float32 or bf16; only layers that
+// `pack_tf32_takes`.
+extern "C" int ins_packconv_tf32(const void* g, const void* ws, const float* bias, int act,
+                                 void* out, int out_bf16, int nxp, int nyp, int nz, int kc,
+                                 int kx, int ky, int cout, int kp, int nt, void* stream) {
+    if (nxp < kx || nyp < ky || nz < 1 || !pack_tf32_takes(kc, kx, ky, cout) ||
+        kp != (kc + 7) / 8 * 8 || nt != (kx * ky * cout + 7) / 8 || ((uintptr_t)g & 15) ||
+        ((uintptr_t)ws & 15))
+        return (int)cudaErrorInvalidValue;
+    const PackTf32Params p{static_cast<const float*>(g), static_cast<const float*>(ws), bias, act,
+                           out, out_bf16, nxp, nyp, nz, kc, kx, ky, cout, kp, nt};
+    return (int)pack_tf32_dispatch(
+        pack_tf32_warp_tiles(nt), p, (cudaStream_t)stream,
+        std::make_integer_sequence<int, pack_tf32_warp_tiles(PF_MAXNT)>{});
 }

@@ -7,7 +7,7 @@
 // of 8: the wrapper pads with zero channels) and x, y padded by kx-1, ky-1;
 // d, the pre-activation cotangent rounded to bf16, is (nxp-kx+1, nyp-ky+1,
 // nz, cd) (cd a multiple of 8, likewise).  dW is float32.  The float32
-// route is tapconv.cu's FMA kernel.
+// route is tapwgrad_tf32.cu (3xTF32 on the tensor cores).
 //
 // Replaces: for bf16 operands, `_wgrad_kernel` (ins_tpu/ops/convkernels.py:191,
 // wrapper `tapconv_wgrad_3d` :249).

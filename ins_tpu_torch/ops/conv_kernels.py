@@ -66,12 +66,13 @@ routes: bfloat16 g runs the tensor-core kernels of `csrc/tapconv_mma.cu`
 weight gradient, of `csrc/tapwgrad_mma.cu` (`tap_wgrad_plan`), on g's and
 the cotangent's channels padded to a multiple of 8 (`stage_channels`;
 `models.cnn` makes them so); float32 g runs the tap forward and the
-weight gradient in 3xTF32 on the tensor cores (`csrc/tapconv_tf32.cu`
-over `pack_tap_weights_tf32`, launch key ``"tapconv_3d+f32"``;
-`csrc/tapwgrad_tf32.cu` by `tap_wgrad_tf32_plan`, launch key
-``"tapconv_wgrad_3d+f32"``; g's and the cotangent's channels padded to a
-multiple of 4) and the FMA kernels of `csrc/tapconv.cu` for the pack
-forward (launch key ``"packconv_3d+f32"``).  The plain
+weight gradient in 3xTF32 on the tensor cores (`csrc/tapconv_tf32.cu`:
+the tap kernel over `pack_tap_weights_tf32`, launch key
+``"tapconv_3d+f32"``, and for `packconv_3d` the pack kernel over
+`pack_all_taps_tf32` where `pack_tf32_takes`, else the tap kernel,
+launch key ``"packconv_3d+f32"``; `csrc/tapwgrad_tf32.cu` by
+`tap_wgrad_tf32_plan`, launch key ``"tapconv_wgrad_3d+f32"``; g's and
+the cotangent's channels padded to a multiple of 4).  The plain
 versions are ``F.conv3d`` with a (kx, ky, 1) kernel, an einsum and
 ``conv3d_weight``.  `make_conv_layer` selects `packconv_3d` where
 ``ky·cout <= 128`` (the JAX rule, so both packages run the same
@@ -114,6 +115,8 @@ __all__ = [
     "tap_wgrad_tf32_plan",
     "pack_all_taps",
     "pack_mma_takes",
+    "pack_all_taps_tf32",
+    "pack_tf32_takes",
     "tapconv_3d",
     "tapconv_3d_plain",
     "packconv_3d",
@@ -467,13 +470,20 @@ def make_fused_layer(actname, has_bias, *, cin, cout, k, plain=False):
 # --------------------------------------------------------------------------
 
 _TAP_KY = (1, 3, 5, 7)  # y-tap counts compiled into the tap layer's kernels
-# bytes of the float32 pack kernel's ring of plane products (at least kx
-# planes whatever this says): the kernel walks x in chunks that fit it
-_PACK_SCRATCH_BYTES = 1 << 30
 _TAP_MMA_MAXNT = 5  # n8 tiles of output channels a tap-kernel block, at most
 _TAP_TF32_MAXNT = 3  # the float32 tap kernel's (its registers fit two blocks an SM)
 _PACK_MMA_MAXN = 128  # packed columns of the pack kernel (every tap), at most
 _PACK_MMA_MAXKP = 128  # its contraction: one chain of 8 k16 steps, at most
+# the float32 pack kernel (csrc/pack_geometry.cuh): a block's 16 input rows
+# x 16 cells, the channels of a stage and their staged pitch (floats), the
+# column groups its n8 tiles are shared over, its n8 tiles of packed
+# columns and y-taps at most
+_PACK_TF32_TILE = (16, 16)
+_PACK_TF32_CH = 32
+_PACK_TF32_CHP = 36
+_PACK_TF32_COLG = 2
+_PACK_TF32_MAXNT = 10
+_PACK_TF32_MAXKY = 7
 _SMEM_MAX = 232448  # shared memory a block may use on the H100
 _SM_SMEM = 227 * 1024  # an SM's shared memory for blocks (csrc/convio.cuh ring_smem)
 # the bf16 weight gradient (csrc/tapwgrad_mma.cu): a block's 8 (y) x 16
@@ -569,10 +579,20 @@ def pack_tap_weights_tf32(w2):
     tf32_round(w − big)``: (big b0, big b1, small b0, small b1)."""
     kx, ky, kc, cout = w2.shape
     geo = tap_tf32_geometry(kc, cout)
-    w = F.pad(w2.to(torch.float32), (0, geo.np - cout, 0, geo.kp - kc))
+    return _b_fragments_tf32(F.pad(w2.to(torch.float32), (0, geo.np - cout, 0, geo.kp - kc)))
+
+
+def _b_fragments_tf32(w):
+    """``(..., kp, np)`` float32 (multiples of 8) -> ``(..., kp/8, np/8,
+    32, 4)``: per k8 step and n8 tile the 32 lanes' split B fragments of
+    ``mma.m16n8k8`` in TF32 (lane 4·g + t holds rows t and t + 4 of column
+    g), (big b0, big b1, small b0, small b1)."""
+    *lead, kp, np_ = w.shape
+    d = len(lead)
     # row 8·step + 4·j + t, column 8·tile + g -> (step, tile, lane 4·g + t, j)
-    w = w.reshape(kx, ky, geo.kp // 8, 2, 4, geo.np // 8, 8).permute(0, 1, 2, 5, 6, 4, 3)
-    w = w.reshape(kx, ky, geo.kp // 8, geo.np // 8, 32, 2)
+    w = w.reshape(*lead, kp // 8, 2, 4, np_ // 8, 8)
+    w = w.permute(*range(d), d, d + 3, d + 4, d + 2, d + 1)
+    w = w.reshape(*lead, kp // 8, np_ // 8, 32, 2)
     big = tf32_round(w)
     return torch.cat([big, tf32_round(w - big)], dim=-1).contiguous()
 
@@ -734,6 +754,42 @@ def pack_mma_takes(kx, ky, kc, cout):
             and _pack_mma_smem(kx, ky, kp, cout) <= _SMEM_MAX)
 
 
+def _pack_tf32_smem(kx, ky, nt, cout, nbuf=2):
+    """Shared memory of the float32 pack kernel (csrc/pack_geometry.cuh
+    `pack_tf32_smem`): the ring of stages (a 32-channel chunk of 16 rows x
+    16 cells and its k8 steps of every tap's split B fragments), one
+    plane's float32 products and the kx output-plane accumulators; the n8
+    tiles padded to whole shares of the column groups."""
+    ty, tz = _PACK_TF32_TILE
+    ntp = -(-nt // _PACK_TF32_COLG) * _PACK_TF32_COLG
+    return 4 * (nbuf * (ty * tz * _PACK_TF32_CHP + _PACK_TF32_CH // 8 * ntp * 128)
+                + ty * tz * (8 * ntp + 4) + kx * (ty - ky + 1) * tz * cout)
+
+
+def pack_tf32_takes(kx, ky, kc, cout):
+    """Whether `packconv_3d` on float32 runs the weight-first 3xTF32 pack
+    kernel (kc staged channels, a multiple of 4; every tap packs into one
+    tile of at most 80 columns, whose products and chains a warp keeps in
+    registers, at most 7 y-taps, and a ring of two stages fits a block
+    beside the rest: the 24 -> 3 layer) rather than the 3xTF32 tap kernel
+    (the 3 -> 24 and 24 -> 24 layers); csrc/pack_geometry.cuh
+    `pack_tf32_takes` is the same rule."""
+    nt = -(-kx * ky * cout // 8)
+    return (kc >= 4 and kc % 4 == 0 and kx >= 1 and 1 <= ky <= _PACK_TF32_MAXKY
+            and cout >= 1 and nt <= _PACK_TF32_MAXNT
+            and _pack_tf32_smem(kx, ky, nt, cout) <= _SMEM_MAX)
+
+
+def pack_all_taps_tf32(w2):
+    """``(kx, ky, kc, cout)`` float32 taps -> the float32 pack kernel's
+    ``(kp/8, nt, 32, 4)``: `pack_all_taps`'s every tap side by side (column
+    ``(dx·ky + dy)·cout + o``), kc padded to ``kp``, a multiple of 8, and
+    the columns to ``8·nt``, as split B fragments (`_b_fragments_tf32`)."""
+    ws = _pack_weights(w2.to(torch.float32))
+    kc, n = ws.shape
+    return _b_fragments_tf32(F.pad(ws, (0, -n % 8, 0, -kc % 8)))
+
+
 def pack_all_taps(w2):
     """``(kx, ky, kc, cout)`` taps -> the pack kernel's ``(kp, np)``:
     every tap's weights side by side (column ``(dx·ky + dy)·cout + o``),
@@ -885,12 +941,18 @@ def _launch_tap_mma(g, w2, bk, act, out, device):
     )
 
 
+def _f32_operands(g, w2, device):
+    """g as the 3xTF32 kernels stage it (channels a multiple of 4, 16-byte
+    aligned) and w2 in float32 with zero rows for g's added channels."""
+    gs = _stageable(g, 4)
+    wk = w2.detach().to(device=device, dtype=torch.float32)
+    return gs, F.pad(wk, (0, 0, 0, gs.shape[-1] - wk.shape[2]))
+
+
 def _launch_tap_tf32(g, w2, bk, act, out, device):
     """The tap kernel in 3xTF32 on the tensor cores (float32 g, its
     channels padded to a multiple of 4); returns its error code."""
-    gs = _stageable(g, 4)
-    wk = w2.detach().to(device=device, dtype=torch.float32)
-    wk = F.pad(wk, (0, 0, 0, gs.shape[-1] - wk.shape[2]))
+    gs, wk = _f32_operands(g, w2, device)
     kx, ky, kc, cout = wk.shape
     wp = pack_tap_weights_tf32(wk)
     return _build.load().ins_tapconv_fwd_tf32(
@@ -909,29 +971,19 @@ def packconv_3d(g, w2, bias=None, act=None, *, out_dtype=None, nys=None):
     (the products of a plane's 16-row strip kept in shared memory, the
     tap sums into a ring of kx output planes), else the tensor-core tap
     kernel, whose y-tap reuse of each A fragment is the per-dx pack's;
-    float32 g runs the FMA kernels (a float32 ring of plane products in
-    device memory of at most ~1 GiB, two launches an x-chunk; launch key
-    ``"packconv_3d+f32"``)."""
+    float32 g the same two forms in 3xTF32 (split operands, float32
+    class): the pack kernel where `pack_tf32_takes`, else the tap kernel
+    (launch key ``"packconv_3d+f32"`` either way)."""
     if g.device.type == "cpu":
         return packconv_3d_plain(g, w2, bias, act, out_dtype=out_dtype, nys=nys)
     act, out_dtype = _actname(act), out_dtype or g.dtype
-    device, (kx, ky, _, cout), bk, out = _tap_kernel_prep("packconv_3d", g, w2, bias, out_dtype)
+    device, _, bk, out = _tap_kernel_prep("packconv_3d", g, w2, bias, out_dtype)
     _strip_height(out.shape[1], nys)
-    key = "packconv_3d" if g.dtype == torch.bfloat16 else "packconv_3d+f32"
+    bf16 = g.dtype == torch.bfloat16
+    key = "packconv_3d" if bf16 else "packconv_3d+f32"
+    launch = _launch_pack_mma if bf16 else _launch_pack_tf32
     with torch.cuda.device(device):
-        if key == "packconv_3d":
-            err = _launch_pack_mma(g, w2, bk, act, out, device)
-        else:
-            nxp, nyp, nz, _ = g.shape
-            plane = nyp * nz * kx * ky * cout
-            slots = min(nxp, max(kx, _PACK_SCRATCH_BYTES // (4 * plane)))
-            ws = _pack_weights(w2.detach().to(device=device, dtype=g.dtype)).contiguous()
-            ring = torch.empty((slots, plane), dtype=torch.float32, device=device)
-            err = _build.load().ins_packconv(
-                g.data_ptr(), 0, ws.data_ptr(), ptr(bk), int(act == "tanh"), ring.data_ptr(),
-                slots, out.data_ptr(), int(out_dtype == torch.bfloat16), *g.shape, kx, ky, cout,
-                current_stream(device),
-            )
+        err = launch(g, w2, bk, act, out, device)
         _build.check(err, key)
         LAUNCHES[key] += 1
     return out
@@ -948,6 +1000,21 @@ def _launch_pack_mma(g, w2, bk, act, out, device):
         gs.data_ptr(), ws.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
         int(out.dtype == torch.bfloat16), *gs.shape[:3], kc, kx, ky, cout, _round16(kc),
         ws.shape[1] // 8, current_stream(device),
+    )
+
+
+def _launch_pack_tf32(g, w2, bk, act, out, device):
+    """`packconv_3d` in 3xTF32 on the tensor cores (float32 g, its channels
+    padded to a multiple of 4); returns the error code."""
+    gs, wk = _f32_operands(g, w2, device)
+    kx, ky, kc, cout = wk.shape
+    if not pack_tf32_takes(kx, ky, kc, cout):
+        return _launch_tap_tf32(gs, wk, bk, act, out, device)
+    ws = pack_all_taps_tf32(wk)
+    return _build.load().ins_packconv_tf32(
+        gs.data_ptr(), ws.data_ptr(), ptr(bk), int(act == "tanh"), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), *gs.shape[:3], kc, kx, ky, cout, -(-kc // 8) * 8,
+        ws.shape[1], current_stream(device),
     )
 
 

@@ -34,6 +34,9 @@ KERNELS = (
     # the folded pass B's level route above `FOLD_FUSED_MAX_N` (cube, shard)
     "passB_fold+levels",
     "passB_sharded+levels",
+    # the dense pass B's GEMM route above `DENSE_FUSED_MAX_N` (cube, shard)
+    "passB+gemm",
+    "passB_sharded+gemm",
     "pressure_correct_qhat_3d",
     # the same with bf16 stream storage, and the stage with more than 4 k
     # streams (the unmerged chain's deep tableau rows)
@@ -64,8 +67,8 @@ KERNELS = (
     # operands on the tensor cores; "+f32": float32 operands in 3xTF32 on
     # the tensor cores) and the tap-matmul / pack-tile layer on z-folded
     # channels (likewise: bf16 on the tensor cores; "+f32" on float32
-    # operands: the tap forward and the weight gradient in 3xTF32 on the
-    # tensor cores, the pack forward on the FMA kernels)
+    # operands: the forwards and the weight gradient in 3xTF32 on the
+    # tensor cores)
     "fusedconv_3d",
     "fusedconv_wgrad_3d",
     "fusedconv_3d+f32",

@@ -27,12 +27,17 @@ entry picks the panel width and the ring depth from n, and refuses n >
 1024), above it the level route (launch keys ``+levels``): the
 recursion `_fold_levels` of x-products (`csrc/transforms.cu`) around
 `csrc/poisson.cu`'s split, eigen-scale and combine kernels, which has no
-size limit.  The dense pass B runs as GEMMs around the same eigen-scale
-kernel.  On CPU tensors the wrappers run the plain versions `passB_plain`
-and `passB_fold_plain`.  The level route's pieces (`_fold_split`,
-`_eigen_scale`, `_fold_combine`, `x_transform`) run their plain versions
-on CPU tensors too: no wrapper sends them one, but the CPU tests drive
-the route itself (`_fold_levels`) through them against the JAX package.
+size limit.  The dense pass B (n % 4 != 0) routes the same way
+(`dense_route`): up to `DENSE_FUSED_MAX_N` one launch of the same
+kernel with no fold level (the full-size x-products, the eigen-scale in
+the first one's epilogue), above it the GEMM route (launch keys
+``+gemm``): x-products around the eigen-scale kernel, three launches, no
+size limit.  On CPU tensors the wrappers run the plain versions
+`passB_plain` and `passB_fold_plain`.  The level route's pieces
+(`_fold_split`, `_eigen_scale`, `_fold_combine`, `x_transform`) run their
+plain versions on CPU tensors too: no wrapper sends them one, but the
+CPU tests drive the route itself (`_fold_levels`) through them against
+the JAX package.
 
 `make_passB_sharded` is the same pass B on a shard's (n, ly, n) y-slice
 of an x-slab mesh (`parallel/halo.py`), whose eigen-scale takes the
@@ -68,6 +73,8 @@ from .transforms import (
 __all__ = [
     "FOLD_FUSED_MAX_N",
     "fold_route",
+    "DENSE_FUSED_MAX_N",
+    "dense_route",
     "poisson_eigen_consts",
     "fold_levels_default",
     "poisson_fold_consts",
@@ -101,6 +108,26 @@ def fold_route(n):
     """The folded pass B's route on the card at x extent n: ``"fused"``
     (one `fold.cu` launch) up to `FOLD_FUSED_MAX_N`, else ``"levels"``."""
     return "fused" if n <= FOLD_FUSED_MAX_N else "levels"
+
+
+# The largest n whose dense pass B runs as one fused kernel (`fold.cu`
+# with no fold level); above it the GEMM route runs.  Set from both
+# routes timed in turns (`chip_smoke.py` `dense_gate_times`; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md §6), ms a call, fused | GEMM route: 250³
+# 0.3962, 0.3949 | 0.4448, 0.4422; the (250, 125, 250) shard 0.2376,
+# 0.2374 | 0.2680, 0.2682; 258³ 0.7645, 0.7627 | 0.6581, 0.6573; the
+# (258, 129, 258) shard 0.4158, 0.4179 | 0.3899, 0.3894.  Above 256
+# the kernel's panels narrow from 64 columns to 32 (`dense_geometry`),
+# which doubles its basis traffic a FLOP.  The kernel keeps that geometry
+# (up to n = 512) so that every `chip_smoke.py` run times both routes
+# above the gate and fails if the gate picks the slower one.
+DENSE_FUSED_MAX_N = 256
+
+
+def dense_route(n):
+    """The dense pass B's route on the card at x extent n: ``"fused"``
+    (one `fold.cu` launch) up to `DENSE_FUSED_MAX_N`, else ``"gemm"``."""
+    return "fused" if n <= DENSE_FUSED_MAX_N else "gemm"
 
 
 def _pin_eps(Np, dxs):
@@ -315,9 +342,35 @@ def _fold_levels(hb, proj, lvl, kmul, yoff=0):
     return _fold_combine(qe, qo)
 
 
-def _dense(h, proj, yoff=0):
+def _dense_gemm(h, proj, yoff=0):
+    """The GEMM route of the dense pass B: x-product, eigen-scale,
+    x-product (three launches)."""
     g = _eigen_scale(x_transform(proj["Vinv"], h), 1, False, proj, yoff)
     return x_transform(proj["V"], g)
+
+
+def _dense_fused(h, proj, yoff, ly):
+    """One launch of the fused dense pass B on an (n, ly, n) block (n <=
+    512: above it no panel of all n x-rows fits a block, and the launch is
+    refused)."""
+    n = h.shape[0]
+    out = torch.empty_like(h)
+    dx0, dx1, dx2 = proj["dxs"]
+    err = _build.load().ins_passb_dense_f32(
+        h.data_ptr(), out.data_ptr(), split_basis(proj["Vinv"], "a").data_ptr(),
+        split_basis(proj["V"], "a").data_ptr(), n, ly, yoff, dx0, dx1, dx2, proj["vol"],
+        proj["eps"], current_stream(h.device),
+    )
+    _build.check(err, "passB")
+    return out
+
+
+def _dense_run(h, proj, yoff, ly):
+    """The dense pass B on an (n, ly, n) block by ``dense_route(n)``:
+    (qhat, the launch key's suffix: "" fused, "+gemm")."""
+    if dense_route(h.shape[0]) == "fused":
+        return _dense_fused(h, proj, yoff, ly), ""
+    return _dense_gemm(h, proj, yoff), "+gemm"
 
 
 def _fold(h, proj, yoff, ly):
@@ -359,7 +412,9 @@ def _check_fold(name, h, proj, ly):
 
 
 def passB(h, proj):
-    """Dense pass B: ``divhat -> qhat`` on an (n, n, n) field."""
+    """Dense pass B: ``divhat -> qhat`` on an (n, n, n) field, by the route
+    `dense_route` picks on the card (launch key ``passB`` fused,
+    ``passB+gemm`` the GEMM route)."""
     if h.device.type == "cpu":
         return passB_plain(h, proj)
     n = h.shape[0]
@@ -367,8 +422,8 @@ def passB(h, proj):
         "passB", n, h=(h, "sca"), Vinv=(proj["Vinv"], "mat"), V=(proj["V"], "mat")
     )
     with torch.cuda.device(device):
-        out = _dense(h, proj)
-        LAUNCHES["passB"] += 1
+        out, route = _dense_run(h, proj, 0, n)
+        LAUNCHES["passB" + route] += 1
     return out
 
 
@@ -472,7 +527,9 @@ def passB_sharded(h, proj, yoff):
     y-slice with full x, whose first y-mode is ``yoff``: the folded pass B
     where n % 4 == 0 (on the card by `fold_route`'s route: launch key
     ``passB_sharded`` fused, ``passB_sharded+levels`` the level route),
-    else the dense one (the projection's choice)."""
+    else the dense one (the projection's choice; by `dense_route`'s
+    route: ``passB_sharded`` fused, ``passB_sharded+gemm`` the GEMM
+    route)."""
     if h.device.type == "cpu":
         return passB_sharded_plain(h, proj, yoff)
     n, ly = proj["V"].shape[0], proj["ly"]
@@ -483,7 +540,7 @@ def passB_sharded(h, proj, yoff):
     device = (_check_fold("passB_sharded", h, proj, ly) if fold
               else check_cuda_tensors("passB_sharded", (torch.float32,), h=(h, (n, ly, n))))
     with torch.cuda.device(device):
-        out, route = _fold_run(h, proj, yoff, ly) if fold else (_dense(h, proj, yoff), "")
+        out, route = (_fold_run if fold else _dense_run)(h, proj, yoff, ly)
         LAUNCHES["passB_sharded" + route] += 1
     return out
 

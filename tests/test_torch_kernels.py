@@ -242,7 +242,7 @@ def test_kernel_sources_carry_their_notes():
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {
         "transforms.cu", "stage.cu", "poisson.cu", "correct.cu", "perop.cu", "conv.cu",
-        "channel.cu", "smag.cu", "tapconv.cu", "tapconv_mma.cu", "tapconv_tf32.cu",
+        "channel.cu", "smag.cu", "tapconv_mma.cu", "tapconv_tf32.cu",
         "tapwgrad_mma.cu", "tapwgrad_tf32.cu", "fold.cu",
     }
     for p in srcs:

@@ -374,10 +374,14 @@ def test_entry_matches_its_ctypes_signature():
 
 
 def test_no_fma_wgrad_is_left():
-    """The FP32 FMA weight gradient is gone: no binding, no exported entry,
-    no kernel in `csrc/tapconv.cu` (its pack forward stays)."""
-    for name in ("ins_tapconv_wgrad", "ins_tapconv_wgrad_chunks"):
+    """No FP32 FMA convolution entry remains: neither the weight gradient's
+    nor the pack forward's has a binding, and no source exports or defines
+    one (`csrc/tapconv.cu`, which held them, is gone)."""
+    for name in ("ins_tapconv_wgrad", "ins_tapconv_wgrad_chunks", "ins_packconv"):
         assert name not in _build._SIGNATURES
-    src = (_build.CSRC / "tapconv.cu").read_text()
-    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == {"ins_packconv"}
-    assert not re.search(r"\btap_wgrad_kernel\b", src)
+    assert not (_build.CSRC / "tapconv.cu").exists()
+    for p in _build.CSRC.glob("*.cu"):
+        src = p.read_text()
+        assert not {"ins_tapconv_wgrad", "ins_packconv"} & set(
+            re.findall(r'extern "C" int (\w+)\(', src)), p.name
+        assert not re.search(r"\btap_wgrad_kernel\b", src), p.name
