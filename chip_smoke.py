@@ -5,6 +5,9 @@ Run from the repository root on a machine with a Hopper card (H100):
 
     python3 chip_smoke.py             # the full check (one card)
     python3 chip_smoke.py --profile   # also print kernel-time breakdowns
+    python3 chip_smoke.py --ghosted   # only phase 13, the general ghosted
+                                      # path (no kernel build); with
+                                      # --profile its device-time splits
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
@@ -335,7 +338,33 @@ Phases, each raising on failure (exit code != 0, no result line):
    step and no fold, no GEMM route and no plain version; the plain chain
    on the card agrees to <= 1e-4 relative.  Then ms/step of both chains
    in turns.
-13. Print the kernel table (JSON: per kernel its launches on the main
+13. The general ghosted path (`solve_unsteady`'s general branch, plain
+   PyTorch: no kernel launch, which the phase checks), float32 on the
+   card: `bench.py`'s `make_cavity_cg` (128³ unit cube, no-slip walls, the
+   lid (1, 0, 0) at z = 1, Re 1e3, RK44, dt 1e-3,
+   `psolver_cg(maxiter=8, reltol=1e-4, precond="fdm")`), 10 steps; the
+   same cavity with `psolver_fdm`, 10 steps; `examples/rayleigh_benard_3d.py`
+   at n = 60 (120 × 60 × 60, temperature, symmetric y walls for T), 20
+   steps in chunks of 10.  Each run: the state on the card and finite;
+   every Dirichlet ghost at its wall value (each wall's planes within the
+   other dimensions' ghost layers against the constant, the edges and
+   corners against the state's own ghost fill, exactly); the last
+   projection's residual ||Ω div u|| / ||its right-hand side|| below the
+   CG reltol 1e-4 (CG cavity), `FDM_DIV_TOL` 1e-5 (FDM cavity) or
+   `RB_DIV_TOL` 3e-5 (Rayleigh-Bénard); the CG cavity within
+   `CAVITY_F64_TOL` (1e-4) relative of the same setup stepped on the card
+   in float64.  Rayleigh-Bénard's float32 witness: one projection of a
+   predictor u + dt·F(u) of its last state, solved by `psolver_fdm` with
+   one refinement sweep (the run's), with two, and by the float64 solve
+   rounded to float32; the run's solver must come within
+   `RB_FLOOR_FACTOR` (1.5) of the rounded float64 solution's residual
+   (float32's floor), so a refinement that has not converged fails.
+   Then ms/step and cell-updates/s of each (`timestep` after a warm-up),
+   the projection's solve timed alone (for CG its iterations), one FDM
+   solve; with --profile each case's device-time split (GEMMs,
+   reductions, copies and fills, other elementwise) and idle share.
+   `--ghosted` runs this phase alone.
+14. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -4617,6 +4646,366 @@ def phase_unfused_step(n):
     return counts["momentum_stage_div_3d"]
 
 
+CAVITY_N = 128
+CAVITY_STEPS = 10
+RB_N = 60
+CAVITY_F64_TOL = 1e-4
+# the last projection's residual relative to its right-hand side with the
+# FDM solve in float32: the cavity's bound, and Rayleigh-Benard's, whose
+# hydrostatic pressure cancels a buoyancy update far larger than the flow
+# (its float32 floor, which the witness of `rb_floor_witness` reads)
+FDM_DIV_TOL = 1e-5
+RB_DIV_TOL = 3e-5
+# the run's FDM solve within this factor of float32's floor
+RB_FLOOR_FACTOR = 1.5
+
+
+def cavity_setup(n, dtype):
+    """`bench.py`'s `make_cavity_cg` setup: the uniform unit cube at n³,
+    no-slip walls and the lid (1, 0, 0) at z = 1, Re 1e3."""
+    import ins_tpu_torch as it
+
+    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
+    d = it.DirichletBC()
+    bc = ((d, d), (d, d), (d, it.DirichletBC((1.0, 0.0, 0.0))))
+    return it.Setup(x=x, boundary_conditions=bc, Re=1e3, dtype=dtype, device=DEVICE)
+
+
+def rb3d_setup(n, dtype=None):
+    """`examples/rayleigh_benard_3d.py` at its full size: 2n × n × n,
+    x periodic, y and z no-slip walls, T = 1 at z = 0 and 0 at z = 1,
+    symmetric in y, Pr 0.71, Ra 1e7, tanh(1.2) in z; float32 unless
+    `dtype` says otherwise."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    temperature = it.temperature_equation(
+        Pr=0.71, Ra=1e7, Ge=1.0, dodissipation=True,
+        boundary_conditions=((it.PeriodicBC(), it.PeriodicBC()),
+                             (it.SymmetricBC(), it.SymmetricBC()),
+                             (it.DirichletBC(1.0), it.DirichletBC(0.0))),
+        gdir=2, dtype=dtype or torch.float32)
+    x = (it.stretched_grid(0.0, 2.0, 2 * n), it.stretched_grid(0.0, 1.0, n),
+         it.tanh_grid(0.0, 1.0, n, 1.2))
+    d = it.DirichletBC()
+    return it.Setup(x=x, boundary_conditions=((it.PeriodicBC(), it.PeriodicBC()), (d, d), (d, d)),
+                    temperature=temperature, dtype=dtype or torch.float32, device=DEVICE)
+
+
+def dirichlet_ghost_error(setup, t, u, temp=None):
+    """Largest distance of a Dirichlet ghost from its (constant) wall
+    value: on every Dirichlet side the plane of each velocity component
+    (and of the temperature) within the other dimensions' ghost layers,
+    where no later side's fill writes; and, for the edges and corners,
+    the whole state against its own ghost fill (`apply_bc_u`,
+    `apply_bc_temp`), which leaves a filled state as it is."""
+    import ins_tpu_torch as it
+    from ins_tpu_torch.boundary_conditions import DirichletBC, boundary_plane
+
+    g = setup.grid
+    inner = tuple(slice(1, n - 1) for n in g.N)
+
+    def plane(f, beta, i):
+        return f[tuple(slice(i, i + 1) if b == beta else inner[b] for b in range(g.dim))]
+
+    err = (it.apply_bc_u(u, t, setup) - u).abs().max().item()
+    if temp is not None:
+        err = max(err, (it.apply_bc_temp(temp, t, setup) - temp).abs().max().item())
+    for beta in range(g.dim):
+        for isright, bc in zip((False, True), setup.boundary_conditions[beta]):
+            if not isinstance(bc, DirichletBC):
+                continue
+            for a in range(g.dim):
+                i = boundary_plane(beta, g.N, g.Iu[a], isright)[beta][0]
+                want = 0.0 if bc.u is None else float(bc.u[a])
+                err = max(err, (plane(u[a], beta, i) - want).abs().max().item())
+        if temp is None:
+            continue
+        for isright, bc in zip((False, True), setup.temperature.boundary_conditions[beta]):
+            if isinstance(bc, DirichletBC):
+                i = boundary_plane(beta, g.N, g.Ip, isright)[beta][0]
+                want = 0.0 if bc.u is None else float(bc.u)
+                err = max(err, (plane(temp, beta, i) - want).abs().max().item())
+    return err
+
+
+def recording(psolver):
+    """`psolver` that keeps the right-hand side of its last call (`last`)."""
+    def rec(f):
+        rec.last = f
+        return psolver(f)
+
+    for k in ("is_cg", "is_fdm", "is_direct"):
+        if hasattr(psolver, k):
+            setattr(rec, k, getattr(psolver, k))
+    rec.last = None
+    return rec
+
+
+def divergence_residual(setup, u, f_last):
+    """||Ω div u||₂ / ||f||₂ over the pressure DOFs, f the last
+    projection's right-hand side (Ω div of the unprojected field): the
+    relative residual the last solve left, the measure CG stops on."""
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops._stencil import slc
+
+    r = it.scalewithvolume(it.divergence(u, setup), setup)[slc(setup.grid.Ip)]
+    return (r.norm() / f_last.norm()).item()
+
+
+def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None):
+    """`solve_unsteady` through the general branch (no kernel launch),
+    then the checks every phase-13 run is held to: the state on the card
+    and finite, the Dirichlet ghosts at their wall values."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.channelpath import channelpath_applicable
+    from ins_tpu_torch.ops.fastpath import fastpath_applicable
+
+    method = it.RKMethods.RK44()
+    if fastpath_applicable(setup, method, psolver) or (
+            getattr(psolver, "is_fdm", False) and channelpath_applicable(setup, method)):
+        fail(f"[{tag}] the setup would not take the general branch")
+    launches.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = it.solve_unsteady(setup=setup, ustart=u0, tempstart=temp0, tlims=(0.0, nsteps * dt),
+                                 dt=dt, method=method, psolver=psolver,
+                                 processors={"log": it.timelogger(nupdate=chunk)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+    if counts or plain:
+        fail(f"[{tag}] the general path launched {counts} / ran plain versions {plain}")
+    if state.n != nsteps:
+        fail(f"[{tag}] ran {state.n} steps, expected {nsteps}")
+    fields = [state.u] + ([state.temp] if temp0 is not None else [])
+    for f in fields:
+        if f.device.type != "cuda":
+            fail(f"[{tag}] the state is on {f.device}")
+        if not bool(torch.isfinite(f).all()):
+            fail(f"[{tag}] non-finite state after {nsteps} steps")
+    ghost = dirichlet_ghost_error(setup, state.t, state.u,
+                                  state.temp if temp0 is not None else None)
+    if ghost != 0.0:
+        fail(f"[{tag}] a Dirichlet ghost is {ghost:.3e} from its wall value")
+    div = divergence_residual(setup, state.u, psolver.last)
+    print(f"[{tag}] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s wall "
+          f"(first call included); max|u| {state.u.abs().max().item():.6f}; divergence "
+          f"||Ω div u|| / ||last right-hand side|| {div:.3e}; Dirichlet ghosts exact; "
+          f"kinetic energy {it.total_kinetic_energy(state.u, setup).item():.9e}")
+    return state, div
+
+
+def ghosted_ms_per_step(setup, psolver, state, dt, steps=5):
+    """ms/step of `timestep` on the card after one warm-up step, and the
+    projection's share: one psolver call on a stage's right-hand side
+    (four a step) timed alone, and for CG its iterations and the FDM
+    solve it applies once an iteration."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops._stencil import slc
+
+    method = it.RKMethods.RK44()
+
+    def step(s):
+        return it.timestep(method, s, dt, setup=setup, psolver=psolver)
+
+    s = step(state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        s = step(s)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    g = setup.grid
+    f = it.scalewithvolume(it.divergence(it.apply_bc_u(
+        s.u + dt * it.momentum(s.u, s.temp, s.t, setup), s.t, setup), setup), setup)[slc(g.Ip)]
+    solve_ms = cuda_ms(lambda: psolver(f), reps=5, warmup=1)
+    return ms, solve_ms, f
+
+
+def profile_ghosted(tag, setup, psolver, state, dt, steps=2):
+    """Device-time split of `steps` general-path steps (torch.profiler):
+    GEMMs (the FDM contractions), reductions (CG's inner products and
+    norms), copies and fills (ghost fills, clones, box writes) and the
+    other elementwise kernels (the stencil arithmetic), with the idle
+    share against the unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ins_tpu_torch as it
+
+    method = it.RKMethods.RK44()
+
+    def run(s):
+        for _ in range(steps):
+            s = it.timestep(method, s, dt, setup=setup, psolver=psolver)
+        return s
+
+    s = run(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = run(s)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = run(s)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    split = {"GEMM": 0.0, "reductions": 0.0, "copies and fills": 0.0, "elementwise": 0.0}
+    launches = 0
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = e.key.lower()
+        key = ("GEMM" if ("gemm" in k or "xmma" in k or "cutlass" in k) else
+               "reductions" if "reduce" in k else
+               "copies and fills" if ("copy" in k or "fill" in k or "cat" in k
+                                      or "memset" in k or "memcpy" in k) else "elementwise")
+        split[key] += e.self_device_time_total / 1e3 / steps
+        launches += e.count
+    dev = sum(split.values())
+    if dev <= 0.0:
+        print(f"[profile] {tag}: the trace holds no device time; no split")
+        return
+    print(f"[profile] {tag}: {wall:.3f} ms/step wall (unprofiled), {dev:.3f} ms of device "
+          f"time a step in {launches / steps:.0f} kernels: "
+          + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
+          + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=60))
+
+
+def rb_floor_witness(setup, state, dt):
+    """Rayleigh-Bénard's float32 witness: the divergence residual (as
+    `divergence_residual`, after the stepper's ghost fill) of one float32
+    projection of the predictor u + dt·F(u) of `state`, solved by
+    `psolver_fdm` with one refinement sweep (the run's solver), with two,
+    and by the float64 FDM solve rounded to float32.  Fails unless the
+    run's solver comes within `RB_FLOOR_FACTOR` of the last: the floor
+    float32 puts on the projection where the hydrostatic pressure
+    cancels the buoyancy update."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops._stencil import slc
+
+    u, t = state.u, state.t
+    ustar = it.apply_bc_u(u + dt * it.momentum(u, state.temp, t, setup), t, setup)
+    f = it.scalewithvolume(it.divergence(ustar, setup), setup)[slc(setup.grid.Ip)]
+    solve64 = it.psolver_fdm(rb3d_setup(RB_N, torch.float64))
+    solvers = {
+        "nrefine 1": it.psolver_fdm(setup, nrefine=1),
+        "nrefine 2": it.psolver_fdm(setup, nrefine=2),
+        "float64 rounded": lambda rhs: solve64(rhs.double()).float(),
+    }
+    res = {}
+    for k, solve in solvers.items():
+        v = it.apply_bc_u(it.project(ustar, setup, psolver=solve), t, setup)
+        res[k] = divergence_residual(setup, v, f)
+    print(f"[rb3d_{RB_N}] float32 witness, one projection of u + dt F(u): residual "
+          + ", ".join(f"{k} {v:.3e}" for k, v in res.items())
+          + f" (the run's solver within {RB_FLOOR_FACTOR}x of the float64 solution rounded)")
+    if not res["nrefine 1"] <= RB_FLOOR_FACTOR * res["float64 rounded"]:
+        fail(f"[rb3d_{RB_N}] the FDM solve's residual {res['nrefine 1']:.3e} is above "
+             f"{RB_FLOOR_FACTOR}x float32's floor {res['float64 rounded']:.3e}")
+
+
+def phase_ghosted(profile=False):
+    """Phase 13: the general ghosted path on the card (see the docstring);
+    ``profile`` adds each case's device-time split."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.fdm import fdm_solve_box
+
+    dt = 1e-3
+    cells = CAVITY_N**3
+    out = {}
+    # the 128³ lid-driven cavity with FDM-preconditioned CG (bench.py:252-266)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        setup = cavity_setup(CAVITY_N, dtype)
+        cg = it.psolver_cg(setup, maxiter=8, reltol=1e-4, precond="fdm")
+        psolver = recording(cg)
+        u0 = it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=psolver)
+        tag = f"cavity_cg{CAVITY_N} {str(dtype)[6:]}"
+        state, div = ghosted_run(tag, setup, psolver, u0, CAVITY_STEPS, CAVITY_STEPS // 2, dt)
+        if not div <= 1e-4:
+            fail(f"[{tag}] relative divergence {div:.3e} above the CG reltol 1e-4")
+        runs[dtype] = (setup, cg, state)
+    (setup, psolver, s32), (_, _, s64) = runs[torch.float32], runs[torch.float64]
+    agree = rel_err(s32.u.double(), s64.u)
+    print(f"[cavity_cg{CAVITY_N}] float32 vs float64 on the card after {CAVITY_STEPS} steps: "
+          f"max rel diff {agree:.3e} (bound {CAVITY_F64_TOL})")
+    if not agree <= CAVITY_F64_TOL:
+        fail(f"the float32 CG cavity is {agree:.3e} from its float64 run")
+    del runs
+    ms, solve_ms, f = ghosted_ms_per_step(setup, psolver, s32, dt)
+    iters = int(psolver.iterations)
+    if profile:
+        profile_ghosted(f"cavity_cg{CAVITY_N}", setup, psolver, s32, dt)
+    fdm = fdm_solve_box(setup)
+    fdm_ms = cuda_ms(lambda: fdm(f), reps=5, warmup=1)
+    out["cavity_cg"] = ms
+    print(f"[cavity_cg{CAVITY_N}] RK44 f32: {ms:.3f} ms/step, {cells / (ms * 1e-3):.4e} "
+          f"cell-updates/s; a projection's CG solve {solve_ms:.4f} ms ({iters} iterations), "
+          f"4 a step: {4 * solve_ms / ms:.1%} of the step; one FDM solve {fdm_ms:.4f} ms; "
+          f"the rest (stencils, ghost fills, glue) {ms - 4 * solve_ms:.3f} ms; {card_line()}")
+    del setup, psolver, s32, s64
+    torch.cuda.empty_cache()
+
+    # the same cavity with the FDM direct solve (VERDICT item 7's cavity_fdm128)
+    setup = cavity_setup(CAVITY_N, torch.float32)
+    psolver = recording(it.psolver_fdm(setup))
+    u0 = it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=psolver)
+    tag = f"cavity_fdm{CAVITY_N}"
+    state, div = ghosted_run(tag, setup, psolver, u0, CAVITY_STEPS, CAVITY_STEPS // 2, dt)
+    if not div <= FDM_DIV_TOL:
+        fail(f"[{tag}] relative divergence {div:.3e} above {FDM_DIV_TOL}")
+    ms, solve_ms, _ = ghosted_ms_per_step(setup, psolver, state, dt)
+    if profile:
+        profile_ghosted(tag, setup, psolver, state, dt)
+    out["cavity_fdm"] = ms
+    print(f"[{tag}] RK44 f32: {ms:.3f} ms/step, {cells / (ms * 1e-3):.4e} cell-updates/s; "
+          f"a projection's FDM solve (one refinement sweep) {solve_ms:.4f} ms, 4 a step: "
+          f"{4 * solve_ms / ms:.1%} of the step; the rest {ms - 4 * solve_ms:.3f} ms; "
+          f"{card_line()}")
+    del setup, psolver, state
+    torch.cuda.empty_cache()
+
+    # Rayleigh-Bénard 3-D at its full size: temperature, symmetric walls
+    setup = rb3d_setup(RB_N)
+    psolver = recording(it.default_psolver(setup))
+    if not psolver.is_fdm:
+        fail("default_psolver did not give the FDM solve on the Rayleigh-Benard box")
+    u0 = it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=psolver)
+    temp0 = it.temperaturefield(
+        setup, lambda xx, yy, zz: 1 - zz + 0.001 * torch.sin(10 * np.pi * xx))
+    tag = f"rb3d_{RB_N}"
+    state, div = ghosted_run(tag, setup, psolver, u0, 20, 10, dt, temp0=temp0)
+    if not div <= RB_DIV_TOL:
+        fail(f"[{tag}] relative divergence {div:.3e} above {RB_DIV_TOL}")
+    rb_floor_witness(setup, state, dt)
+    nu = it.observe_nusselt(setup).initialize(dict(u=state.u, temp=state.temp, t=state.t))["Nu"][0]
+    ms, solve_ms, _ = ghosted_ms_per_step(setup, psolver, state, dt)
+    if profile:
+        profile_ghosted(tag, setup, psolver, state, dt)
+    rb_cells = int(np.prod(setup.grid.Np))
+    out["rb3d"] = ms
+    print(f"[{tag}] {setup.grid.Np} RK44 f32 with temperature: Nu {nu:.6f}; {ms:.3f} ms/step, "
+          f"{rb_cells / (ms * 1e-3):.4e} cell-updates/s; a projection's FDM solve "
+          f"{solve_ms:.4f} ms, 4 a step: {4 * solve_ms / ms:.1%}; {card_line()}")
+    del setup, psolver, state
+    torch.cuda.empty_cache()
+    return out
+
+
 HAT_KERNELS = (
     "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
     "pressure_correct_qhat_3d",
@@ -4768,6 +5157,10 @@ def main():
                          "in turns")
     ap.add_argument("--perop-time", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--perop-no-step", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--ghosted", action="store_true",
+                    help="only phase 13 (the general ghosted path: the 128³ cavity with "
+                         "FDM-CG and with psolver_fdm, Rayleigh-Benard 3-D), no kernel build; "
+                         "with --profile each case's device-time split")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -4844,6 +5237,9 @@ def main():
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ghosted:
+        phase_ghosted(args.profile)
+        return
     t0 = time.perf_counter()
     _build.load()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -4953,6 +5349,8 @@ def main():
     dense_counts = phase_dense_chain()
     torch.cuda.empty_cache()
     phase_done("phase 12 (the dense pass B's chain)")
+    phase_ghosted(args.profile)
+    phase_done("phase 13 (the general ghosted path)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB_fold+levels",)},
               "passB": dense_counts["passB"],
               **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},

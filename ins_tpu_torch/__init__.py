@@ -17,7 +17,12 @@ hand-written CUDA for `sm_90a` (`csrc/`, built at first use by
 `_build.py`); so are the JAX package's remaining kernels: the CNN
 layer's tap-matmul / pack-tile form (`make_conv_layer`, `tapconv_3d`,
 `packconv_3d`, `tapconv_wgrad_3d`) and the unfused projection step's
-stage (`momentum_stage_div_3d`). Every tensor of a run lives on `Setup(device=...)`, the
+stage (`momentum_stage_div_3d`). Every other setup — walls, lids,
+inflow and outflow, symmetric sides, stretched grids, non-periodic
+temperature, the ghosted Smagorinsky closures, `psolver_cg` — steps the
+general ghosted path in plain PyTorch (`apply_bc_*`, `ops/operators.py`,
+`project`, `timestep`), as `ins_tpu`'s is plain JAX.
+Every tensor of a run lives on `Setup(device=...)`, the
 card by default; with ``device="cpu"`` each kernel wrapper runs its
 plain PyTorch version. It imports torch and never jax.
 """
@@ -28,6 +33,9 @@ from .boundary_conditions import (  # noqa: F401
     PeriodicBC,
     PressureBC,
     SymmetricBC,
+    apply_bc_p,
+    apply_bc_temp,
+    apply_bc_u,
 )
 from .grid import (  # noqa: F401
     cosine_grid,
@@ -54,6 +62,7 @@ from .time_steppers import (  # noqa: F401
     RKMethods,
     create_stepper,
     runge_kutta_method,
+    timestep,
 )
 
 __version__ = "0.1.0"

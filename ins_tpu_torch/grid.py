@@ -26,6 +26,8 @@ from .boundary_conditions import (
 
 __all__ = [
     "Grid",
+    "DeviceGrid",
+    "device_grid",
     "make_grid",
     "stretched_grid",
     "cosine_grid",
@@ -212,4 +214,47 @@ def make_grid(*, x, boundary_conditions, dtype=torch.float32) -> Grid:
         A=cast(tuple(A)),
         lap_c=cast(tuple(lap_c)),
         plap_diag=cast(tuple(plap_diag)),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGrid:
+    """The grid's 1-D vectors as tensors on a device, nested as in `Grid`,
+    each shaped to broadcast along the dimension it runs along (``x[d]``,
+    ``delta[d]``, ``lap_c[d]``: `d`; ``xu[alpha][beta]`` and
+    ``A[alpha][beta]``: `beta`).  The general ghosted path's operators
+    read their segments from it (`ops._stencil.dseg`)."""
+
+    x: tuple
+    xu: tuple
+    xp: tuple
+    delta: tuple
+    delta_u: tuple
+    A: tuple
+    lap_c: tuple
+    plap_diag: tuple
+
+
+def device_grid(grid, device) -> DeviceGrid:
+    """`DeviceGrid` of `grid` on `device` (one copy of each vector)."""
+    D = grid.dim
+
+    def along(v, d):
+        shape = [1] * D
+        shape[d] = -1
+        return torch.as_tensor(v).to(device).reshape(shape)
+
+    def per_dim(vs):
+        return tuple(along(vs[d], d) for d in range(D))
+
+    return DeviceGrid(
+        x=per_dim(grid.x),
+        xu=tuple(per_dim(grid.xu[a]) for a in range(D)),
+        xp=per_dim(grid.xp),
+        delta=per_dim(grid.delta),
+        delta_u=per_dim(grid.delta_u),
+        A=tuple(tuple(tuple(along(w, b) for w in grid.A[a][b]) for b in range(D))
+                for a in range(D)),
+        lap_c=tuple(tuple(along(c, d) for c in grid.lap_c[d]) for d in range(D)),
+        plap_diag=per_dim(grid.plap_diag),
     )

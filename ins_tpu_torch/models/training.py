@@ -117,8 +117,8 @@ def _unrolled_errors(u, t, theta, *, setup, method, psolver, nsubstep, sqrt_each
     if not fastpath_applicable(setup, method, psolver):
         raise NotImplementedError(
             "a-posteriori training runs on the periodic fast path only (explicit "
-            "RK, spectral solver, uniform periodic grid); the ghosted path is "
-            "ROADMAP queue 1 item 7"
+            "RK, spectral solver, uniform periodic grid); training off it is "
+            "ROADMAP queue 1 item 9"
         )
     ts = [float(v) for v in (t.tolist() if torch.is_tensor(t) else np.asarray(t))]
     step = make_fast_timestep(setup, method, differentiable=True, plain=plain)

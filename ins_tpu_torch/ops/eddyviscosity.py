@@ -1,24 +1,46 @@
-"""The natural-form Smagorinsky closure on uniform periodic grids.
+"""Smagorinsky eddy-viscosity closures.
 
-Port of `smagorinsky_natural_interior` and `smagorinsky_closure_natural`
-from `ins_tpu/ops/eddyviscosity.py`.  Strain components live at their
-natural staggered positions; the eddy viscosity ``θ² d² √(2 S:S)`` (with
-the off-diagonal strains averaged from their four edges) multiplies the
-strain into the stress ``σ = 2 ν S`` (viscosity averaged to the edges),
-and the closure force is the stress divergence.  On a uniform periodic
-grid every stencil shift is a circular roll (the interior form); the
-fast path runs the same force through `ops/smag_kernels.py`.  The ghosted
-pipeline for other grids (`strain_natural`, `divoftensor_natural`) waits
-for ROADMAP queue 1 item 7.
+Port of `ins_tpu/ops/eddyviscosity.py`, in its two forms:
+
+- **Natural-position form** (`smagorinsky_closure_natural`): the strain
+  components live at their natural staggered positions
+  (`strain_natural`); the eddy viscosity ``θ² d² √(2 S:S)``
+  (`smagorinsky_viscosity`, the off-diagonal strains averaged from their
+  four edges) multiplies the strain into the stress ``σ = 2 ν S``
+  (`apply_eddy_viscosity`, the viscosity averaged to the edges), and the
+  force is the stress divergence (`divoftensor_natural`).  The ghosts of
+  the intermediate fields are wrapped on periodic dimensions.  On a
+  uniform periodic grid every stencil shift is a circular roll (the
+  interior form, `smagorinsky_natural_interior`), which the fast path
+  runs through its force kernel (`ops/smag_kernels.py`); on any other
+  grid the closure runs the ghosted pipeline on the general path.
+- **Pressure-point form** (`smagorinsky_closure`): the full D×D stress at
+  the pressure points (`_smagtensor`), ghost-filled by `apply_bc_p`, and
+  its interpolated divergence (`divoftensor`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..boundary_conditions import apply_bc_p
+from ._stencil import dseg, slc, take, take2
 from .diffkernels import roll_m, roll_p
+from .operators import _gradient_tensor, _on_box, wrap_periodic_ghosts
 
-__all__ = ["smagorinsky_natural_interior", "smagorinsky_closure_natural"]
+__all__ = [
+    "strain_natural",
+    "smagorinsky_viscosity",
+    "apply_eddy_viscosity",
+    "divoftensor_natural",
+    "smagorinsky_natural_interior",
+    "smagorinsky_closure_natural",
+    "smagorinsky_closure",
+    "divoftensor",
+]
+
+# natural strain component order: 2-D (xx, yy, xy); 3-D (xx, yy, zz, xy, xz, yz)
+_PAIRS = {2: [(0, 0), (1, 1), (0, 1)], 3: [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]}
 
 
 def theta_tensor(theta, dtype, device):
@@ -83,24 +105,178 @@ def smagorinsky_natural_interior(u, theta, dxs):
     return _natural_interior(u, theta, dxs, sum(dx * dx for dx in dxs))
 
 
+def strain_natural(u, setup):
+    """Strain-rate components at their natural staggered positions: a dict
+    keyed by (a, b), a <= b, of full-N fields written on ``Ip``."""
+    g = setup.grid
+    box = g.Ip
+
+    def ddiag(a):
+        return (take(u[a], box) - take(u[a], box, a, -1)) / dseg(setup.dgrid.delta_u[a], box, a)
+
+    def doff(a, b):
+        dab = (take(u[a], box, b, +1) - take(u[a], box)) / dseg(setup.dgrid.delta[b], box, b)
+        dba = (take(u[b], box, a, +1) - take(u[b], box)) / dseg(setup.dgrid.delta[a], box, a)
+        return (dab + dba) / 2
+
+    return {(a, b): _on_box(setup, box, ddiag(a) if a == b else doff(a, b))
+            for (a, b) in _PAIRS[g.dim]}
+
+
+def smagorinsky_viscosity(S, theta, setup):
+    """Eddy viscosity θ²d²√(2 S:S), the off-diagonal components averaged
+    from the four surrounding edges."""
+    g = setup.grid
+    box = g.Ip
+    d2 = 0.0
+    for d in range(g.dim):
+        d2 = d2 + dseg(setup.dgrid.delta[d], box, d) ** 2
+    acc = 0.0
+    for (a, b) in _PAIRS[g.dim]:
+        sab = S[(a, b)]
+        if a == b:
+            acc = acc + 2 * take(sab, box) ** 2
+        else:
+            avg4 = (
+                take(sab, box) ** 2
+                + take(sab, box, a, -1) ** 2
+                + take(sab, box, b, -1) ** 2
+                + take2(sab, box, a, -1, b, -1) ** 2
+            ) / 4
+            acc = acc + 4 * avg4
+    return _on_box(setup, box, theta**2 * d2 * torch.sqrt(acc))
+
+
+def apply_eddy_viscosity(S, visc, setup):
+    """σ = 2 ν_t S, the viscosity averaged to the edge positions."""
+    g = setup.grid
+    box = g.Ip
+    out = {}
+    for (a, b) in _PAIRS[g.dim]:
+        if a == b:
+            v = take(visc, box)
+        else:
+            v = (
+                take(visc, box)
+                + take(visc, box, a, +1)
+                + take(visc, box, b, +1)
+                + take2(visc, box, a, +1, b, +1)
+            ) / 4
+        out[(a, b)] = _on_box(setup, box, 2 * v * take(S[(a, b)], box))
+    return out
+
+
+def divoftensor_natural(sigma, setup):
+    """Divergence of a natural-position symmetric tensor at the velocity
+    points (written on ``Ip``)."""
+    g = setup.grid
+    box = g.Ip
+    ref = sigma[(0, 0)]
+    c = torch.zeros((g.dim, *g.N), dtype=ref.dtype, device=ref.device)
+    for a in range(g.dim):
+        acc = 0.0
+        for b in range(g.dim):
+            s = sigma[(min(a, b), max(a, b))]
+            if a == b:
+                acc = acc + (take(s, box, a, +1) - take(s, box)) / dseg(setup.dgrid.delta_u[a], box, a)
+            else:
+                acc = acc + (take(s, box) - take(s, box, b, -1)) / dseg(setup.dgrid.delta[b], box, b)
+        c[(a,) + slc(box)] = acc
+    return c
+
+
 def smagorinsky_closure_natural(setup):
     """The natural-form Smagorinsky closure ``m(u, θ)`` on the ghosted
     layout, tagged ``kind = "smagorinsky_natural"`` so the periodic fast
-    path runs its force kernel instead.  Uniform periodic grids only."""
+    path runs its force kernel instead.  ``theta`` is a float or a 0-d
+    tensor.  On a uniform periodic grid the closure is the interior roll
+    form, on any other the ghosted pipeline with the intermediate ghosts
+    wrapped on periodic dimensions."""
     g = setup.grid
-    if not (all(g.periodic) and all(g.uniform)):
-        raise NotImplementedError(
-            "the natural-form Smagorinsky closure is ported for uniform periodic "
-            "grids; other grids need the ghosted strain_natural / "
-            "divoftensor_natural pipeline (ROADMAP queue 1 item 7)"
-        )
-    from .fastpath import reghost, strip_ghosts
-    from .pressure import uniform_dxs
+    if all(g.periodic) and all(g.uniform):
+        from .fastpath import reghost, strip_ghosts
+        from .pressure import uniform_dxs
 
-    dxs = uniform_dxs(setup)
+        dxs = uniform_dxs(setup)
 
-    def closure(u, theta):
-        return reghost(smagorinsky_natural_interior(strip_ghosts(u), theta, dxs))
+        def closure(u, theta):
+            return reghost(smagorinsky_natural_interior(strip_ghosts(u), theta, dxs))
+    else:
+
+        def closure(u, theta):
+            if theta is None:
+                raise ValueError("the Smagorinsky closure needs theta (its constant)")
+            S = {k: wrap_periodic_ghosts(v, setup) for k, v in strain_natural(u, setup).items()}
+            visc = wrap_periodic_ghosts(smagorinsky_viscosity(S, theta, setup), setup)
+            sigma = {k: wrap_periodic_ghosts(v, setup)
+                     for k, v in apply_eddy_viscosity(S, visc, setup).items()}
+            return divoftensor_natural(sigma, setup)
 
     closure.kind = "smagorinsky_natural"
+    return closure
+
+
+# --------------------------------------------------------------------------
+# Pressure-point (full-tensor) form
+# --------------------------------------------------------------------------
+
+
+def _smagtensor(u, theta, setup):
+    """Stress tensor σ = 2 ν_t S at the pressure points, ``(*N, D, D)``."""
+    g = setup.grid
+    D = g.dim
+    box = g.Ip
+    gu = _gradient_tensor(u, setup, box)
+    G = torch.stack([torch.stack(row, -1) for row in gu], -2)
+    S = (G + G.transpose(-1, -2)) / 2
+    d2 = 0.0
+    for d in range(D):
+        d2 = d2 + dseg(setup.dgrid.delta[d], box, d) ** 2
+    eddyvisc = theta**2 * d2 * torch.sqrt(2 * torch.sum(S * S, dim=(-2, -1)))
+    full = torch.zeros((*g.N, D, D), dtype=u.dtype, device=u.device)
+    full[slc(box)] = 2 * eddyvisc[..., None, None] * S
+    return full
+
+
+def divoftensor(sigma, setup):
+    """Divergence of a pressure-point tensor field at the velocity points."""
+    g = setup.grid
+    D = g.dim
+    out = torch.zeros((D, *g.N), dtype=sigma.dtype, device=sigma.device)
+    for a in range(D):
+        box = g.Iu[a]
+        acc = 0.0
+        for b in range(D):
+            sab = sigma[..., a, b]
+            if a == b:
+                s2 = take(sab, box, b, +1)
+                s1 = take(sab, box)
+                dl = dseg(setup.dgrid.delta_u[b], box, b)
+            else:
+                s2 = (
+                    take(sab, box)
+                    + take(sab, box, b, +1)
+                    + take2(sab, box, a, +1, b, +1)
+                    + take(sab, box, a, +1)
+                ) / 4
+                s1 = (
+                    take(sab, box, b, -1)
+                    + take(sab, box)
+                    + take2(sab, box, a, +1, b, -1)
+                    + take(sab, box, a, +1)
+                ) / 4
+                dl = dseg(setup.dgrid.delta[b], box, b)
+            acc = acc + (s2 - s1) / dl
+        out[(a,) + slc(box)] = acc
+    return out
+
+
+def smagorinsky_closure(setup):
+    """Pressure-point Smagorinsky closure ``m(u, θ)``: the stress tensor,
+    its ghosts filled by `apply_bc_p`, and its divergence."""
+
+    def closure(u, theta):
+        sigma = apply_bc_p(_smagtensor(u, theta, setup), 0.0, setup)
+        return divoftensor(sigma, setup)
+
     return closure

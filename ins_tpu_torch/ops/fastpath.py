@@ -73,6 +73,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..boundary_conditions import PeriodicBC
 from ..time_steppers.methods import ExplicitRungeKuttaMethod, LMWray3
 from ..time_steppers.step import StepperState
 from . import stage_kernels as sk
@@ -130,12 +131,17 @@ POISSON_PALLAS_MIN_N = 128
 
 def fastpath_applicable(setup, method, psolver):
     """The port's fast path: 2-D/3-D uniform periodic grid, an explicit
-    RK tableau or LMWray3 and the spectral pressure solver (`Setup`
-    accepts periodic temperature BCs only)."""
+    RK tableau or LMWray3, the spectral pressure solver and, with a
+    temperature equation, periodic temperature BCs."""
     g = setup.grid
+    tq = setup.temperature
+    temp_ok = tq is None or all(
+        isinstance(b, PeriodicBC) for bcs in tq.boundary_conditions for b in bcs
+    )
     return (
         all(g.periodic)
         and all(g.uniform)
+        and temp_ok
         and isinstance(method, (ExplicitRungeKuttaMethod, LMWray3))
         and getattr(psolver, "is_spectral", False)
     )

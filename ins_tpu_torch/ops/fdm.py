@@ -15,12 +15,14 @@ the card they run in full FP32 as long as
 `torch.backends.cuda.matmul.allow_tf32` stays False (PyTorch's default),
 which is at least as accurate as the TPU's 3-pass-bf16 "high".
 
-Like the port's `psolver_spectral`, `psolver_fdm` solves on the interior
-(ghost-free) box: ``psolve(f) -> p`` with f the volume-scaled right-hand
-side.  Its iterative refinement applies the box Laplacian from the
-grid's `lap_c` rows, which equals the ghosted Laplacian for periodic,
-Dirichlet and pressure boundaries; a `SymmetricBC` (whose ghost copies
-the interior) waits for the general path, ROADMAP queue 1 item 7.
+Like every psolver of the port (`ops/pressure.py`), `psolver_fdm` solves
+on the interior (ghost-free) box: ``psolve(f) -> p`` with f the
+volume-scaled right-hand side.  Its iterative refinement applies
+`laplacian_box`, the interior rows of the ghosted Laplacian after
+`apply_bc_p` (the JAX package refines against that): periodic
+neighbours wrap, a `SymmetricBC` side reads its own boundary cell (the
+ghost copies it), and Dirichlet / pressure sides have zero ghost
+coefficients in `lap_c`.
 """
 
 from __future__ import annotations
@@ -162,11 +164,31 @@ def om_box(setup):
     return om
 
 
+def _shift_m(q, d, mirror):
+    """q[I - e_d]; at the low edge q's first plane where the side is
+    symmetric (`mirror`), else the wrapped last plane."""
+    if not mirror:
+        return roll_m(q, d)
+    n = q.shape[d]
+    return torch.cat([q.narrow(d, 0, 1), q.narrow(d, 0, n - 1)], dim=d)
+
+
+def _shift_p(q, d, mirror):
+    """q[I + e_d]; at the high edge q's last plane where the side is
+    symmetric, else the wrapped first plane."""
+    if not mirror:
+        return roll_p(q, d)
+    n = q.shape[d]
+    return torch.cat([q.narrow(d, 1, n - 1), q.narrow(d, n - 1, 1)], dim=d)
+
+
 def laplacian_box(setup):
     """``lap(q)``: the volume-scaled pressure Laplacian on the interior box
-    from the BC-aware `lap_c` rows.  Periodic rolls wrap correctly; the
-    Dirichlet/pressure rows have zero ghost coefficients, which kill the
-    wrapped values (`ins_tpu/ops/channelpath.py` `channel_laplacian_box`)."""
+    from the BC-aware `lap_c` rows, equal to the interior rows of the
+    ghosted Laplacian after `apply_bc_p`.  Periodic rolls wrap correctly;
+    a symmetric side reads its boundary cell; the Dirichlet/pressure rows
+    have zero ghost coefficients, which kill the wrapped values
+    (`ins_tpu/ops/channelpath.py` `channel_laplacian_box`)."""
     g = setup.grid
     dtype, device = setup.dtype, setup.device
     rows = []
@@ -176,13 +198,15 @@ def laplacian_box(setup):
         cl, cc, cr = (torch.as_tensor(v, dtype=dtype, device=device).reshape(shape)
                       for v in g.lap_c[d])
         delta_d = seg(g.delta[d], g.Ip, d, device=device).to(dtype)
-        rows.append((cl, cc, cr, delta_d))
+        bcl, bcr = setup.boundary_conditions[d]
+        rows.append((cl, cc, cr, delta_d, isinstance(bcl, SymmetricBC),
+                     isinstance(bcr, SymmetricBC)))
     om = om_box(setup)
 
     def lap(q):
         acc = 0.0
-        for d, (cl, cc, cr, delta_d) in enumerate(rows):
-            part = cr * roll_p(q, d) + cc * q + cl * roll_m(q, d)
+        for d, (cl, cc, cr, delta_d, sym_l, sym_r) in enumerate(rows):
+            part = cr * _shift_p(q, d, sym_r) + cc * q + cl * _shift_m(q, d, sym_l)
             acc = acc + part / delta_d
         return om * acc
 
@@ -193,12 +217,6 @@ def psolver_fdm(setup, *, nrefine=None):
     """Direct Poisson solver by fast diagonalization on the interior box
     (see module docs).  ``nrefine``: iterative-refinement sweeps
     ``p += L~^-1 (f - L p)`` (default 1 in float32, 0 in float64)."""
-    for bcs in setup.boundary_conditions:
-        if any(isinstance(bc, SymmetricBC) for bc in bcs):
-            raise NotImplementedError(
-                "psolver_fdm with a SymmetricBC needs the ghosted Laplacian "
-                "(ROADMAP queue 1 item 7)"
-            )
     if nrefine is None:
         nrefine = 1 if setup.dtype == torch.float32 else 0
     solve_box = fdm_solve_box(setup)

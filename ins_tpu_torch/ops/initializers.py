@@ -1,11 +1,14 @@
 """Initial fields.
 
-Port of `scalarfield`, `velocityfield`, `temperaturefield`,
-`create_spectrum` and `random_field` from `ins_tpu/ops/initializers.py`.
-`velocityfield` evaluates a function at the staggered velocity points and
-projects it, on a uniform periodic grid or a channel; `temperaturefield`
-evaluates one at the pressure points and fills the ghosts by the
-periodic wrap (the only temperature BC the port takes).  `random_field` builds synthetic turbulence on a
+Port of `scalarfield`, `vectorfield`, `velocityfield`,
+`temperaturefield`, `create_spectrum` and `random_field` from
+`ins_tpu/ops/initializers.py`.  `velocityfield` evaluates a function at
+the staggered velocity points and projects it: on a uniform periodic
+grid or a channel with the path's own ghost-free projection, on any
+other grid through the ghosted path (the ghost fill, `project`, the
+ghost fill again, as the JAX package does); `temperaturefield` evaluates
+one at the pressure points and fills the ghosts with `apply_bc_temp`.
+`random_field` builds synthetic turbulence on a
 uniform periodic grid: the Orlandi-style energy spectrum peaked at `kp`,
 random phases and unit vectors, a spectral Leray projection, an inverse
 FFT and a final discrete projection.  Randomness comes from an explicit
@@ -18,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._stencil import seg
+from ..boundary_conditions import apply_bc_temp, apply_bc_u
+from ._stencil import seg, slc
 from .channelpath import (
     channel_correct_roll,
     channel_divergence_roll,
@@ -26,12 +30,13 @@ from .channelpath import (
     make_channel_metrics,
     reghost_channel,
 )
-from .fastpath import reghost, reghost_scalar
+from .fastpath import reghost
 from .fdm import om_box
-from .pressure import default_psolver, project_periodic, psolver_spectral, uniform_dxs
+from .pressure import default_psolver, project, project_periodic, psolver_spectral, uniform_dxs
 
 __all__ = [
     "scalarfield",
+    "vectorfield",
     "velocityfield",
     "temperaturefield",
     "create_spectrum",
@@ -45,33 +50,48 @@ def scalarfield(setup):
     return torch.zeros(setup.grid.N, dtype=setup.dtype, device=setup.device)
 
 
+def vectorfield(setup):
+    """Empty velocity field, component first ``(D, *N)``, on `setup.device`."""
+    g = setup.grid
+    return torch.zeros((g.dim, *g.N), dtype=setup.dtype, device=setup.device)
+
+
+def _box_values(setup, func, coords_1d, box, *args):
+    """``func(*args, *x)`` on `box`'s points, as a tensor of the box's shape."""
+    D = setup.grid.dim
+    coords = [seg(coords_1d[b], box, b, device=setup.device) for b in range(D)]
+    return func(*args, *coords) * torch.ones(tuple(e - s for s, e in box), dtype=setup.dtype,
+                                             device=setup.device)
+
+
 def velocityfield(setup, ufunc, t=0.0, *, psolver=None, doproject=True):
     """Velocity field from ``ufunc(alpha, *x)`` (a torch function; ``alpha``
     a Python int, the coordinates broadcastable tensors) at the staggered
-    velocity points, projected onto its divergence-free part with the
-    path's own projection, in the public ghosted layout on
-    `setup.device`.  Uniform periodic grids and channels (static z walls;
-    w's top-wall slot stays 0); ``t`` is accepted for parity (static walls
-    do not depend on it)."""
+    velocity points, projected onto its divergence-free part, in the
+    public ghosted layout on `setup.device`.  Uniform periodic grids and
+    channels (static z walls; w's top-wall slot stays 0) take their
+    path's own projection; any other grid the ghosted one, its ghosts
+    filled at time ``t`` before and after."""
     g = setup.grid
     D = g.dim
     periodic = all(g.periodic) and all(g.uniform)
+    if doproject and psolver is None:
+        psolver = default_psolver(setup)
     if not (periodic or channelpath_applicable(setup)):
-        raise NotImplementedError(
-            "velocityfield is ported for uniform periodic grids and channels; "
-            "other boundaries need the ghost fills (ROADMAP queue 1 item 7)"
-        )
+        u = vectorfield(setup)
+        for a in range(D):
+            u[(a,) + slc(g.Iu[a])] = _box_values(setup, ufunc, g.xu[a], g.Iu[a], a)
+        u = apply_bc_u(u, t, setup)
+        if doproject:
+            u = apply_bc_u(project(u, setup, psolver=psolver), t, setup)
+        return u
     dtype, device = setup.dtype, setup.device
     u = torch.zeros((D, *(n - 2 for n in g.N)), dtype=dtype, device=device)
     for a in range(D):
         box = g.Iu[a]
-        coords = [seg(g.xu[a][b], box, b, device=device) for b in range(D)]
-        val = ufunc(a, *coords) * torch.ones(tuple(e - s for s, e in box), dtype=dtype,
-                                             device=device)
-        u[(a,) + tuple(slice(s - 1, e - 1) for s, e in box)] = val
+        u[(a,) + tuple(slice(s - 1, e - 1) for s, e in box)] = _box_values(
+            setup, ufunc, g.xu[a], box, a)
     if doproject:
-        if psolver is None:
-            psolver = default_psolver(setup)
         if periodic:
             u = project_periodic(u, uniform_dxs(setup), psolver)
         else:
@@ -84,17 +104,13 @@ def velocityfield(setup, ufunc, t=0.0, *, psolver=None, doproject=True):
 def temperaturefield(setup, tempfunc, t=0.0):
     """Temperature field from ``tempfunc(*x)`` (a torch function of
     broadcastable coordinate tensors) at the pressure points, in the
-    public ghosted layout with the periodic ghost wrap.  ``t`` is accepted
-    for parity (periodic BCs do not depend on it)."""
+    public ghosted layout, its ghosts filled at time ``t``."""
     if setup.temperature is None:
         raise ValueError("temperaturefield requires a setup with a temperature equation")
     g = setup.grid
-    box = g.Ip
-    coords = [seg(g.xp[d], box, d, device=setup.device) for d in range(g.dim)]
-    val = tempfunc(*coords) * torch.ones(
-        tuple(e - s for s, e in box), dtype=setup.dtype, device=setup.device
-    )
-    return reghost_scalar(val.to(setup.dtype))
+    temp = scalarfield(setup)
+    temp[slc(g.Ip)] = _box_values(setup, tempfunc, g.xp, g.Ip)
+    return apply_bc_temp(temp, t, setup)
 
 
 def spectrum_draw_shapes(setup):

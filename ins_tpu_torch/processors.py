@@ -1,9 +1,8 @@
 """Processors: in-loop observability.
 
 Port of the protocol, `timelogger`, `fieldsaver`, `observefield`,
-`observespectrum` and `observe_nusselt` (uniform periodic grids) of
-`ins_tpu/processors.py`, plus `total_kinetic_energy` on periodic grids
-and channels.  A processor is ``(initialize, update,
+`observespectrum` and `observe_nusselt` of `ins_tpu/processors.py`, plus
+`total_kinetic_energy` (`ops/operators.py`), on any grid.  A processor is ``(initialize, update,
 finalize)`` over snapshots of the solver state taken at chunk
 boundaries; ``nupdate`` decimation also sets the chunk size, so no step
 forces a device-to-host sync.  The other observers wait for ROADMAP
@@ -20,7 +19,7 @@ import numpy as np
 import torch
 
 from .ops._stencil import seg
-from .ops.channelpath import channelpath_applicable
+from .ops.operators import total_kinetic_energy
 from .utils.spectrum import observe_spectrum, spectral_stuff
 
 __all__ = [
@@ -150,27 +149,31 @@ def observespectrum(setup, *, nupdate=1, npoint=100):
     return Processor(initialize, update, lambda ps, s: ps, nupdate)
 
 
+def _interior_volume_weights(setup):
+    """Cell volumes over the interior pressure box (volume averages on
+    stretched grids)."""
+    g = setup.grid
+    w = torch.ones(tuple(e - s for s, e in g.Ip), dtype=setup.dtype, device=setup.device)
+    for d in range(g.dim):
+        w = w * seg(g.delta[d], g.Ip, d, device=setup.device).to(setup.dtype)
+    return w
+
+
 def observe_nusselt(setup, *, nupdate=1):
     """Processor recording the volume-averaged Nusselt number
     ``Nu = 1 + <u_g θ>/α4`` (`ins_tpu.processors.observe_nusselt`): u_g,
     the velocity in the gravity direction averaged to the pressure points
     from I and I − e_g, times the temperature, volume-weighted over the
-    interior.  Uniform periodic grids (other grids need the ghosted
-    operators, ROADMAP queue 1 item 7).  Returns dict(t, Nu)."""
+    interior (`_interior_volume_weights`), on any grid.  Returns
+    dict(t, Nu)."""
     te = setup.temperature
     if te is None:
         raise ValueError("observe_nusselt requires a temperature equation")
     g = setup.grid
-    if not (all(g.periodic) and all(g.uniform)):
-        raise NotImplementedError(
-            "observe_nusselt is ported for uniform periodic grids (ROADMAP queue 1 item 7)"
-        )
     gdir = te.gdir
     ip = tuple(slice(s, e) for s, e in g.Ip)
     left = tuple(slice(s - (d == gdir), e - (d == gdir)) for d, (s, e) in enumerate(g.Ip))
-    w = torch.ones(tuple(e - s for s, e in g.Ip), dtype=setup.dtype, device=setup.device)
-    for d in range(g.dim):
-        w = w * seg(g.delta[d], g.Ip, d, device=setup.device).to(setup.dtype)
+    w = _interior_volume_weights(setup)
     wsum = torch.sum(w)
 
     def nu_of(u, temp):
@@ -186,29 +189,3 @@ def observe_nusselt(setup, *, nupdate=1):
         return update(dict(t=[], Nu=[]), state)
 
     return Processor(initialize, update, lambda ps, s: ps, nupdate)
-
-
-def total_kinetic_energy(u, setup):
-    """Volume-integrated kinetic energy of a ghosted velocity field: at
-    each pressure point the mean of the squared face velocities on both
-    sides, scaled by the cell volume and summed
-    (`ins_tpu.ops.operators.total_kinetic_energy`).  Uniform periodic
-    grids and channels (whose ghosts hold the walls).  Returns a 0-d
-    tensor on the field's device."""
-    g = setup.grid
-    if not ((all(g.periodic) and all(g.uniform)) or channelpath_applicable(setup)):
-        raise NotImplementedError(
-            "total_kinetic_energy is ported for uniform periodic grids and "
-            "channels (ROADMAP queue 1 item 3)"
-        )
-    D = g.dim
-    box = g.Ip
-    acc = 0.0
-    for a in range(D):
-        here = tuple(slice(s, e) for s, e in box)
-        left = tuple(slice(s - (d == a), e - (d == a)) for d, (s, e) in enumerate(box))
-        acc = acc + u[a][here] ** 2 + u[a][left] ** 2
-    k = acc / 4
-    for d in range(D):
-        k = k * seg(g.delta[d], box, d, device=u.device).to(u.dtype)
-    return torch.sum(k)

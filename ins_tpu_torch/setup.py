@@ -12,22 +12,23 @@ fast path recognises by its tag).  A steady body force is a torch
 function ``bodyforce(dim, *x, t)`` (``dim`` a Python int, the coordinates
 broadcastable tensors), evaluated once here on the full staggered
 coordinates as `bodyforce_field`.  `temperature_equation` gives the
-temperature coefficients of the three non-dimensionalisations; the port
-steps temperature with periodic boundary conditions only (the JAX fast
-path's rule), and raises for any other until the ghosted path (ROADMAP
-queue 1 item 7).  Unsteady body forces wait for item 6.
+temperature coefficients of the three non-dimensionalisations, with any
+of the four BC families (periodic ones ride the fast path, others the
+general ghosted path).  Unsteady body forces wait for ROADMAP queue 1
+item 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from .boundary_conditions import PeriodicBC
-from .grid import Grid, make_grid
+from .grid import DeviceGrid, Grid, device_grid, make_grid
 from .ops._stencil import seg
 
 __all__ = ["Setup", "SetupData", "Temperature", "temperature_equation", "resolve_device"]
@@ -98,6 +99,13 @@ class SetupData:
     bodyforce_field: object = None  # steady force (D, *N) on `device`, or None
     temperature: Temperature | None = None
 
+    @functools.cached_property
+    def dgrid(self) -> DeviceGrid:
+        """The grid's vectors on `device`, copied at the first use by the
+        general path's operators and kept with this setup (a setup made
+        by `dataclasses.replace` makes its own)."""
+        return device_grid(self.grid, self.device)
+
     @property
     def dim(self):
         return self.grid.dim
@@ -144,13 +152,6 @@ def Setup(
     """Build a problem setup (keyword-compatible with `ins_tpu.Setup`,
     plus `device`).  With a temperature equation Re defaults to
     1/alpha1."""
-    if temperature is not None and not all(
-        isinstance(b, PeriodicBC) for bcs in temperature.boundary_conditions for b in bcs
-    ):
-        raise NotImplementedError(
-            "temperature is ported with periodic boundary conditions only; "
-            "other temperature BCs need the ghosted path (ROADMAP queue 1 item 7)"
-        )
     if closure_model is not None and not callable(closure_model):
         raise TypeError("closure_model must be a callable closure(u, theta)")
     if bodyforce is not None and not issteadybodyforce:

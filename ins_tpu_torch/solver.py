@@ -19,7 +19,12 @@ setup's dtype.  On a wall-bounded channel (x/y
 periodic, static z walls, the FDM solver) a chunk carries a `ChannelHat`
 of the channel path (`ops/channelpath.py`) the same way, crossing to and
 from the public ghosted layout with `strip_channel`/`reghost_channel`.
-The run is not differentiated (it
+Every other setup (walls, symmetric and pressure boundaries, stretched
+grids, non-periodic temperature, the ghosted Smagorinsky closure,
+`psolver_cg`, or the channel without `psolver_fdm`) steps the general
+ghosted path: `time_steppers.step.timestep` on the ghosted state (ghost
+fills, the staggered operators, `ops.pressure.project`), as the JAX
+package's `else` branch does.  The run is not differentiated (it
 runs under `torch.no_grad`; training unrolls go through
 `models.training`).  The step is an eager Python loop of
 kernel launches; dt and the tableau coefficients reach the kernels as
@@ -33,9 +38,9 @@ process group calls `solve_unsteady` with the same global ghosted
 its constant, and a steady body force ride its stage kernels' force
 stream), and at chunk ends the NaN guard and the processors see the
 global field (`all_gather`), which is also what every rank returns.
-Adaptive (CFL) stepping, the ghosted general path, the GSPMD mesh path
-(``mesh`` without ``halo``) and the halo path's other options wait for
-ROADMAP queue 1 items 6, 7 and 11.
+Adaptive (CFL) stepping, the GSPMD mesh path (``mesh`` without
+``halo``) and the halo path's other options wait for ROADMAP queue 1
+items 6 and 11.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ from .ops.fastpath import (
 )
 from .ops.pressure import default_psolver
 from .time_steppers.rk_methods import RK44
-from .time_steppers.step import StepperState, create_stepper
+from .time_steppers.step import StepperState, create_stepper, timestep
 
 __all__ = ["solve_unsteady", "get_state", "SolverDivergedError"]
 
@@ -149,23 +154,23 @@ def solve_unsteady(
         and getattr(psolver, "is_fdm", False)
         and channelpath_applicable(setup, method)
     )
-    if not (use_fast or use_channel):
-        raise NotImplementedError(
-            "the port runs the periodic fast path (explicit RK or LMWray3, spectral "
-            "solver, uniform periodic grid) and the channel path (classic-row "
-            "explicit RK, psolver_fdm, x/y periodic uniform with static z walls, "
-            "no temperature); the general ghosted path, which runs the rest, is "
-            "ROADMAP queue 1 item 7"
-        )
-    # the chain never writes into its inputs, so the caller's field needs
-    # no defensive copy
+    # no path writes into its inputs, so the caller's field needs no
+    # defensive copy
     ustart = torch.as_tensor(ustart, dtype=setup.dtype, device=setup.device)
     if tempstart is not None:
         tempstart = torch.as_tensor(tempstart, dtype=setup.dtype, device=setup.device)
     precision = projection_precision or "manualhigh"
 
     step = None
-    if use_channel:
+    hat_fns = None
+    if not (use_fast or use_channel):
+        # the general ghosted path: the state stays in the public layout
+
+        def step(s, dt, theta):
+            return timestep(method, s, dt, setup=setup, psolver=psolver, theta=theta)
+
+        strip = reghost_s = _same
+    elif use_channel:
         hat_fns = make_channel_timestep_hat(setup, method)
 
         def strip(s):

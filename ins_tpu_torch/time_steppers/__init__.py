@@ -5,4 +5,4 @@ from .methods import (  # noqa: F401
     LMWray3,
     runge_kutta_method,
 )
-from .step import StepperState, create_stepper  # noqa: F401
+from .step import StepperState, create_stepper, timestep  # noqa: F401

@@ -341,21 +341,33 @@ def test_unported_cases_raise(what):
                      issteadybodyforce=False, device="cpu")
         return
     if what == "symmetric_fdm":
-        s = it.Setup(x=(np.linspace(0, 1, 5),) * 2, dtype=torch.float64, device="cpu",
+        # ported: the refinement applies the ghosted Laplacian's interior
+        # rows (a symmetric side reads its boundary cell), as JAX's does
+        x = (ins.tanh_grid(0, 1, 6, 1.2), np.linspace(0, 1, 5))
+        s = it.Setup(x=x, dtype=torch.float64, device="cpu",
                      boundary_conditions=((it.SymmetricBC(), it.SymmetricBC()),
                                           (it.DirichletBC(), it.DirichletBC())))
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            fdm.psolver_fdm(s)
+        js = ins.Setup(x=x, dtype=jnp.float64,
+                       boundary_conditions=((ins.SymmetricBC(), ins.SymmetricBC()),
+                                            (ins.DirichletBC(), ins.DirichletBC())))
+        f = np.zeros(js.grid.N)
+        f[1:-1, 1:-1] = np.random.default_rng(6).standard_normal(js.grid.Np)
+        ref = ins.psolver_fdm(js, nrefine=1)(jnp.asarray(f))
+        got = fdm.psolver_fdm(s, nrefine=1)(_t(f[1:-1, 1:-1]))
+        assert _rel(got.numpy(), np.asarray(ref)[1:-1, 1:-1]) < TOL_SOLVE
         return
     # the periodic path steps LMWray3 with a steady force now (its hat
     # chain and its per-step chain, held here against the JAX roll twin);
-    # the channel path, as in the JAX package, still raises for it
+    # the channel path, as in the JAX package, does not take it, and the
+    # general ghosted path steps it (held against the JAX solver's)
     method = it.LMWray3()
     if what == "solve_unsteady":
-        _, tset = _setups(force=True)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            it.solve_unsteady(setup=tset, ustart=torch.zeros(3, 14, 12, 10, dtype=torch.float64),
-                              tlims=(0.0, 0.02), dt=1e-2, method=method)
+        jset, tset = _setups(force=True)
+        jst, _ = ins.solve_unsteady(setup=jset, ustart=jnp.zeros((3, 14, 12, 10)),
+                                    tlims=(0.0, 0.02), dt=1e-2, method=ins.LMWray3())
+        st, _ = it.solve_unsteady(setup=tset, ustart=torch.zeros(3, 14, 12, 10, dtype=torch.float64),
+                                  tlims=(0.0, 0.02), dt=1e-2, method=method)
+        assert st.n == 2 and _rel(st.u.numpy(), np.asarray(jst.u)) < TOL_SOLVE
         return
     s = _periodic_with_force()
     jset = ins.Setup(x=(np.linspace(0, 2 * np.pi, 9),) * 3, bodyforce=_jforce,

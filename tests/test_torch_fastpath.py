@@ -217,32 +217,54 @@ def test_reghost_is_periodic_wrap():
     assert torch.equal(strip_ghosts(reghost(u)), u)
 
 
+def _general_case(pk, what, u0):
+    """(setup, ustart, tempstart, method) of a case the general ghosted
+    path steps, in package `pk` (f64)."""
+    kw = dict(device="cpu") if pk is it else {}
+    dtype = torch.float64 if pk is it else jnp.float64
+    arr = (lambda a: torch.from_numpy(np.array(a))) if pk is it else jnp.asarray
+    wall = pk.DirichletBC()
+    if what == "lmwray3":  # LMWray3 on a channel (the channel path takes classic rows)
+        s = pk.Setup(x=(*_x(4, 2), ins.tanh_grid(0, 1, 4)), dtype=dtype,
+                     boundary_conditions=((pk.PeriodicBC(), pk.PeriodicBC()),) * 2
+                     + ((wall, pk.DirichletBC((1.0, 0.0, 0.0))),), **kw)
+        return s, arr(np.zeros((3, 6, 6, 6))), None, pk.LMWray3()
+    if what == "tempstart":  # temperature walls on a periodic velocity box
+        walls = ((wall, wall),) * 3
+        te = pk.temperature_equation(Pr=0.71, Ra=1e6, Ge=1.0, boundary_conditions=walls,
+                                     dtype=dtype)
+        s = pk.Setup(x=_x(8, 3), temperature=te, dtype=dtype, **kw)
+        return s, arr(u0), arr(u0[0]), pk.RKMethods.RK44()
+    # stretched wall-bounded 2-D box with a lid
+    s = pk.Setup(x=(ins.tanh_grid(0, 1, 8),) * 2, dtype=dtype,
+                 boundary_conditions=((wall, wall), (wall, pk.DirichletBC((1.0, 0.0)))), **kw)
+    return s, arr(np.zeros((2, 10, 10))), None, pk.RKMethods.RK44()
+
+
 @pytest.mark.parametrize(
     "what", ["lmwray3", "adaptive", "tempstart", "stretched"],
 )
 def test_unported_paths_raise(what):
-    """What the port still does not run: LMWray3 off the periodic fast
-    path (here a channel), adaptive dt, temperature with wall BCs and
-    stretched wall-bounded grids."""
+    """What the port still does not run: adaptive dt.  LMWray3 off the
+    periodic fast path (here a channel), temperature with wall BCs and
+    stretched wall-bounded grids step the general ghosted path, held
+    against the JAX solver (which steps its own there)."""
     _, tset = _setups(8, 3)
     u0 = it.random_field(tset, kp=2, generator=torch.Generator().manual_seed(7))
-    kw = dict(setup=tset, ustart=u0, tlims=(0.0, 0.02), dt=1e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "lmwray3":
-            wall = it.DirichletBC()
-            channel = it.Setup(device="cpu", x=(*_x(4, 2), it.tanh_grid(0, 1, 4)),
-                               boundary_conditions=((it.PeriodicBC(), it.PeriodicBC()),) * 2
-                               + ((wall, wall),))
-            kw.update(setup=channel, ustart=torch.zeros(3, 6, 6, 6), method=it.LMWray3())
-        elif what == "adaptive":
-            kw["dt"] = None
-        elif what == "tempstart":
-            walls = ((it.DirichletBC(), it.DirichletBC()),) * 3
-            te = it.temperature_equation(Pr=0.71, Ra=1e6, Ge=1.0, boundary_conditions=walls)
-            kw["setup"] = it.Setup(device="cpu", x=_x(8, 3), temperature=te)
-            kw["tempstart"] = u0[0]
-        else:
-            s2 = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 8),) * 2,
-                          boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
-            kw.update(setup=s2, ustart=torch.zeros(2, 10, 10), psolver=None)
-        it.solve_unsteady(**kw)
+    if what == "adaptive":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            it.solve_unsteady(setup=tset, ustart=u0, tlims=(0.0, 0.02), dt=None)
+        return
+    u0 = u0.numpy()
+    js, ju, jT, jm = _general_case(ins, what, u0)
+    ts, tu, tT, tm = _general_case(it, what, u0)
+    jst, _ = ins.solve_unsteady(setup=js, ustart=ju, tempstart=jT, tlims=(0.0, 0.02), dt=1e-2,
+                                method=jm)
+    launches.reset_counts()
+    st, _ = it.solve_unsteady(setup=ts, ustart=tu, tempstart=tT, tlims=(0.0, 0.02), dt=1e-2,
+                              method=tm)
+    assert not any(launches.LAUNCHES.values())
+    assert st.n == 2 and _rel(st.u.numpy(), jst.u) < TOL
+    assert float(np.abs(np.asarray(jst.u)).max()) > 0
+    if tT is not None:
+        assert _rel(st.temp.numpy(), jst.temp) < TOL

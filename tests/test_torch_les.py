@@ -159,13 +159,23 @@ def test_smagorinsky_closure_natural_matches_jax(D):
 
 
 def test_smagorinsky_closure_raises_off_periodic_grids():
-    """A wall-bounded setup needs the ghosted pipeline (not ported)."""
+    """A wall-bounded setup runs the ghosted pipeline (`strain_natural` ...
+    `divoftensor_natural`, the intermediate ghosts wrapped on the periodic
+    dimensions), held against the JAX closure."""
     wall = (it.DirichletBC(), it.DirichletBC())
     per = (it.PeriodicBC(), it.PeriodicBC())
-    s = it.Setup(device="cpu", x=(np.linspace(0, 1, 9),) * 2 + (it.tanh_grid(0, 2, 8),),
-                 boundary_conditions=(per, per, wall), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        it.smagorinsky_closure_natural(s)
+    x = (np.linspace(0, 1, 9),) * 2 + (it.tanh_grid(0, 2, 8),)
+    s = it.Setup(device="cpu", x=x, boundary_conditions=(per, per, wall), dtype=torch.float64)
+    jwall = (ins.DirichletBC(), ins.DirichletBC())
+    jper = (ins.PeriodicBC(), ins.PeriodicBC())
+    js = ins.Setup(x=x, boundary_conditions=(jper, jper, jwall), dtype=jnp.float64)
+    m = it.smagorinsky_closure_natural(s)
+    assert m.kind == "smagorinsky_natural"
+    u = np.random.default_rng(8).standard_normal((3, *s.grid.N))
+    u = np.asarray(ins.apply_bc_u(jnp.asarray(u), jnp.asarray(0.0), js))
+    ref = ins.smagorinsky_closure_natural(js)(jnp.asarray(u), 0.17)
+    got = m(torch.from_numpy(np.array(u)), 0.17)
+    assert _rel(got.numpy(), np.asarray(ref)) < TOL_KERNEL
 
 
 def test_smag_force_vjp_matches_jax():

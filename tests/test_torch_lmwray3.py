@@ -191,13 +191,22 @@ def test_solve_unsteady_lmwray3_matches_jax():
 
 def test_lmwray3_on_the_channel_raises():
     """The channel path steps classic-row explicit RK only, as in the JAX
-    package (`channelpath_applicable`); LMWray3 there needs the ghosted
-    path."""
+    package (`channelpath_applicable`); LMWray3 there steps the general
+    ghosted path, held against the JAX solver (which does the same)."""
     x = (np.linspace(0, 1, 5), np.linspace(0, 1, 5), it.tanh_grid(0.0, 1.0, 4))
     wall = it.DirichletBC()
     s = it.Setup(x=x, device="cpu", dtype=torch.float64,
                  boundary_conditions=((it.PeriodicBC(), it.PeriodicBC()),
                                       (it.PeriodicBC(), it.PeriodicBC()), (wall, wall)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        it.solve_unsteady(setup=s, ustart=torch.zeros(3, 6, 6, 6, dtype=torch.float64),
-                          tlims=(0.0, 0.02), dt=1e-2, method=it.LMWray3())
+    js = ins.Setup(x=x, dtype=jnp.float64,
+                   boundary_conditions=((ins.PeriodicBC(), ins.PeriodicBC()),
+                                        (ins.PeriodicBC(), ins.PeriodicBC()),
+                                        (ins.DirichletBC(), ins.DirichletBC())))
+    ju0 = ins.velocityfield(js, lambda d, x, y, z: jnp.sin(2 * np.pi * (x + d * y)) * z * (1 - z))
+    tu0 = it.velocityfield(s, lambda d, x, y, z: torch.sin(2 * np.pi * (x + d * y)) * z * (1 - z))
+    assert _rel(tu0.numpy(), ju0) < TOL_REL
+    jst, _ = ins.solve_unsteady(setup=js, ustart=ju0, tlims=(0.0, 0.02), dt=1e-2,
+                                method=ins.LMWray3())
+    st, _ = it.solve_unsteady(setup=s, ustart=tu0, tlims=(0.0, 0.02), dt=1e-2,
+                              method=it.LMWray3())
+    assert st.n == 2 and _rel(st.u.numpy(), jst.u) < TOL_REL

@@ -88,16 +88,15 @@ def test_setup_matches_jax_and_keeps_its_device():
 
 
 def _nonperiodic_smagorinsky():
-    """The natural-form Smagorinsky closure of a wall-bounded setup: its
-    ghosted pipeline is not ported."""
+    """The natural-form Smagorinsky closure of a wall-bounded setup: the
+    ghosted pipeline."""
     s = it.Setup(device="cpu", x=(it.tanh_grid(0, 1, 4),) * 2,
                  boundary_conditions=((it.DirichletBC(), it.DirichletBC()),) * 2)
     return it.smagorinsky_closure_natural(s)
 
 
 def _nonperiodic_temperature():
-    """A temperature equation with wall BCs: the port steps periodic
-    temperature only."""
+    """A temperature equation with wall BCs (the general ghosted path)."""
     walls = ((it.DirichletBC(), it.DirichletBC()),) * 2
     return it.temperature_equation(Pr=0.71, Ra=1e6, Ge=1.0, boundary_conditions=walls)
 
@@ -108,14 +107,23 @@ def _nonperiodic_temperature():
     ids=["temperature", "closure", "bodyforce"],
 )
 def test_setup_unported_options_raise(kw):
-    """Unsteady forces (ROADMAP queue 1 item 6), and temperature with
+    """Unsteady forces (ROADMAP queue 1 item 6) raise.  Temperature with
     non-periodic BCs and the Smagorinsky closure off uniform periodic
-    grids (item 7), raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [67]"):
-        if callable(kw):
-            made = kw()
-            kw = made if isinstance(made, dict) else dict(closure_model=made)
-        it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
+    grids run on the general ghosted path: the setup builds, and its
+    closure gives a force on the ghosted layout."""
+    if isinstance(kw, dict):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+            it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
+        return
+    made = kw()
+    kw = made if isinstance(made, dict) else dict(closure_model=made)
+    s = it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
+    if s.closure_model is not None:
+        u = torch.randn((2, *s.grid.N), dtype=torch.float32)
+        f = s.closure_model(it.apply_bc_u(u, 0.0, s), 0.17)
+        assert f.shape == u.shape and bool(torch.isfinite(f).all())
+    else:
+        assert s.temperature.boundary_conditions == kw["temperature"].boundary_conditions
 
 
 def test_setup_defaults_to_the_card(monkeypatch):
