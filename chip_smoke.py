@@ -8,6 +8,10 @@ Run from the repository root on a machine with a Hopper card (H100):
     python3 chip_smoke.py --ghosted   # only phase 13, the general ghosted
                                       # path (no kernel build); with
                                       # --profile its device-time splits
+    python3 chip_smoke.py --general2  # only phase 14, the rest of the
+                                      # general path (IMEX and implicit
+                                      # RK steppers, the matrix solvers,
+                                      # the observers)
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
@@ -364,7 +368,41 @@ Phases, each raising on failure (exit code != 0, no result line):
    solve; with --profile each case's device-time split (GEMMs,
    reductions, copies and fills, other elementwise) and idle share.
    `--ghosted` runs this phase alone.
-14. Print the kernel table (JSON: per kernel its launches on the main
+14. The rest of the general path (`phase_general2`; plain PyTorch but for
+   the channel's kernels), float32 on the card: the 128³ cavity of phase
+   13 with `psolver_fdm` stepped 10 steps by AB-CN (`cavity_abcn128`) and
+   by one-leg (`cavity_oneleg128`), each also in float64: the float32 run
+   within `CAVITY_F64_TOL` of the float64 one, the divergence max|div
+   u|·h / max|u| (h each cell's smallest spacing) below `F32_DIV_TOL`
+   (1e-5) and `F64_DIV_TOL` (1e-12),
+   the diffusion CG's iterations a step; `cavity_irk128`: GL1
+   by full Newton and SDIRK34 by the approximate Newton, 2 steps each in
+   both dtypes (`IRK_N`), the Newton iterations and the final |G|/|G0| a
+   step, the same bounds; `cavity_cgmatrix128`: RK44 with
+   `psolver_cg_matrix` (Jacobi, reltol `CGMATRIX_RELTOL` 1e-4; the last
+   projection's relative residual within `CGMATRIX_DIV_FACTOR` of it),
+   within that reltol of the `psolver_fdm` run, iterations and ms a
+   solve;
+   `ldc2d_direct512`: `examples/lid_driven_cavity_2d.py` at 512², RK44
+   for 10 steps at the diffusive limit of its smallest cell with
+   `psolver_direct` (the host LU's factor time apart) and with
+   `psolver_fdm`, both runs' divergence below `F32_DIV_TOL`; on the last
+   right-hand side an independent float64 solution (Jacobi `psolver_cg`
+   on the matrix-free Laplacian, residual below `DIRECT_REF_RES` 1e-10)
+   and the float32 direct solve within `DIRECT_TOL` (2e-3: the float32
+   entries of the assembled matrix the LU factors) of it, printed beside
+   the FDM solve's distance and the two runs' difference (the fast
+   diagonalization loses accuracy on this grid, as the JAX package's
+   does);
+   every 3-D `fieldobserver` name on the AB-CN state against its float64
+   evaluation (`OBSERVER_TOL`; the D-field where float32 resolves ∇²p,
+   λ₂ before its log); `observe_wallshear` on both walls of the
+   256×128×128 channel path over 20 steps against its float64 evaluation
+   (`WALLSHEAR_TOL`); the streamfunction of a 512² periodic field
+   against float64 (`STREAM_TOL`).  Each case: ms/step (the unprofiled
+   wall of `profile_ghosted`) and its idle share.  `--general2` runs this
+   phase alone, after the kernel build.
+15. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -4731,7 +4769,8 @@ def dirichlet_ghost_error(setup, t, u, temp=None):
 
 
 def recording(psolver):
-    """`psolver` that keeps the right-hand side of its last call (`last`)."""
+    """`psolver` that keeps the right-hand side of its last call
+    (`last`)."""
     def rec(f):
         rec.last = f
         return psolver(f)
@@ -4754,10 +4793,14 @@ def divergence_residual(setup, u, f_last):
     return (r.norm() / f_last.norm()).item()
 
 
-def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None):
-    """`solve_unsteady` through the general branch (no kernel launch),
-    then the checks every phase-13 run is held to: the state on the card
-    and finite, the Dirichlet ghosts at their wall values."""
+def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None, method=None,
+                divergence_of=None):
+    """`solve_unsteady` of `method` (RK44 where None) through the general
+    branch (no kernel launch), then the checks every phase-13 and
+    phase-14 run is held to: the state on the card and finite, the
+    Dirichlet ghosts at their wall values.  Returns the state and its
+    divergence: ``divergence_of(u)`` (`scaled_divergence`) where given,
+    else `divergence_residual` of the last solve's right-hand side."""
     import torch
 
     import ins_tpu_torch as it
@@ -4765,7 +4808,7 @@ def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None):
     from ins_tpu_torch.ops.channelpath import channelpath_applicable
     from ins_tpu_torch.ops.fastpath import fastpath_applicable
 
-    method = it.RKMethods.RK44()
+    method = method or it.RKMethods.RK44()
     if fastpath_applicable(setup, method, psolver) or (
             getattr(psolver, "is_fdm", False) and channelpath_applicable(setup, method)):
         fail(f"[{tag}] the setup would not take the general branch")
@@ -4793,25 +4836,29 @@ def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None):
                                   state.temp if temp0 is not None else None)
     if ghost != 0.0:
         fail(f"[{tag}] a Dirichlet ghost is {ghost:.3e} from its wall value")
-    div = divergence_residual(setup, state.u, psolver.last)
+    if divergence_of is not None:
+        div, measure = divergence_of(state.u), "max|div u| h / max|u|"
+    else:
+        div = divergence_residual(setup, state.u, psolver.last)
+        measure = "||Ω div u|| / ||last right-hand side||"
     print(f"[{tag}] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s wall "
           f"(first call included); max|u| {state.u.abs().max().item():.6f}; divergence "
-          f"||Ω div u|| / ||last right-hand side|| {div:.3e}; Dirichlet ghosts exact; "
+          f"{measure} {div:.3e}; Dirichlet ghosts exact; "
           f"kinetic energy {it.total_kinetic_energy(state.u, setup).item():.9e}")
     return state, div
 
 
-def ghosted_ms_per_step(setup, psolver, state, dt, steps=5):
-    """ms/step of `timestep` on the card after one warm-up step, and the
-    projection's share: one psolver call on a stage's right-hand side
-    (four a step) timed alone, and for CG its iterations and the FDM
-    solve it applies once an iteration."""
+def ghosted_ms_per_step(setup, psolver, state, dt, steps=5, method=None):
+    """ms/step of `timestep` of `method` (RK44 where None) on the card
+    after one warm-up step, and the projection's share: one psolver call
+    on a stage's right-hand side (four an RK44 step) timed alone, and for
+    CG its iterations and the FDM solve it applies once an iteration."""
     import torch
 
     import ins_tpu_torch as it
     from ins_tpu_torch.ops._stencil import slc
 
-    method = it.RKMethods.RK44()
+    method = method or it.RKMethods.RK44()
 
     def step(s):
         return it.timestep(method, s, dt, setup=setup, psolver=psolver)
@@ -4830,18 +4877,20 @@ def ghosted_ms_per_step(setup, psolver, state, dt, steps=5):
     return ms, solve_ms, f
 
 
-def profile_ghosted(tag, setup, psolver, state, dt, steps=2):
-    """Device-time split of `steps` general-path steps (torch.profiler):
-    GEMMs (the FDM contractions), reductions (CG's inner products and
-    norms), copies and fills (ghost fills, clones, box writes) and the
-    other elementwise kernels (the stencil arithmetic), with the idle
-    share against the unprofiled wall."""
+def profile_ghosted(tag, setup, psolver, state, dt, steps=2, method=None):
+    """Device-time split of `steps` general-path steps of `method` (RK44
+    where None; torch.profiler): GEMMs (the FDM contractions), reductions
+    (CG's inner products and norms), copies and fills (ghost fills,
+    clones, box writes) and the other elementwise kernels (the stencil
+    arithmetic), with the idle share against the unprofiled wall.
+    Returns (the unprofiled ms/step, the idle share or None where the
+    trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import ins_tpu_torch as it
 
-    method = it.RKMethods.RK44()
+    method = method or it.RKMethods.RK44()
 
     def run(s):
         for _ in range(steps):
@@ -4854,7 +4903,10 @@ def profile_ghosted(tag, setup, psolver, state, dt, steps=2):
     s = run(s)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the split reads no host events, and recording
+    # every host op of an implicit RK step (~50,000 kernels) costs far
+    # more than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s = run(s)
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -4873,12 +4925,14 @@ def profile_ghosted(tag, setup, psolver, state, dt, steps=2):
     dev = sum(split.values())
     if dev <= 0.0:
         print(f"[profile] {tag}: the trace holds no device time; no split")
-        return
+        return wall, None
+    idle = max(0.0, 1 - dev / wall)
     print(f"[profile] {tag}: {wall:.3f} ms/step wall (unprofiled), {dev:.3f} ms of device "
           f"time a step in {launches / steps:.0f} kernels: "
           + ", ".join(f"{k} {v:.3f} ms ({v / dev:.1%})" for k, v in split.items())
-          + f"; idle share {max(0.0, 1 - dev / wall):.3f}")
+          + f"; idle share {idle:.3f}; {card_line()}")
     print(events.table(sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=60))
+    return wall, idle
 
 
 def rb_floor_witness(setup, state, dt):
@@ -5003,6 +5057,438 @@ def phase_ghosted(profile=False):
           f"{solve_ms:.4f} ms, 4 a step: {4 * solve_ms / ms:.1%}; {card_line()}")
     del setup, psolver, state
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 14: the rest of the general path (IMEX and implicit RK steppers,
+# the matrix solvers, the observers)
+# --------------------------------------------------------------------------
+
+# the implicit RK cube and its steps (64 if a 128³ case ran over ~60 s)
+IRK_N = CAVITY_N
+IRK_STEPS = 2
+# a phase-14 cavity's divergence, max|div u|·h / max|u| with h each
+# cell's smallest spacing (`scaled_divergence`): float32 below
+# `F32_DIV_TOL` (the FDM solve's, as `FDM_DIV_TOL`), float64 below
+# `F64_DIV_TOL`.  A relative residual against the last solve's right-hand side, phase 13's measure,
+# is ill-posed here: AB-CN and one-leg subtract the last pressure's
+# gradient before the correction and implicit RK projects every stage,
+# so what a step's last solve corrects is already nearly divergence-free
+F32_DIV_TOL = 1e-5
+F64_DIV_TOL = 1e-12
+CGMATRIX_RELTOL = 1e-4
+# the Jacobi CG stops on its recursively updated residual; in float32 the
+# true residual, which the divergence reads, drifts from it (1.18x at
+# 128³ in this PR's first run): the divergence is held to 2x the reltol
+CGMATRIX_DIV_FACTOR = 2.0
+LDC2D_N = 512
+# the 2-D cavity's direct solve is held to an independent float64
+# solution of its last right-hand side: Jacobi `psolver_cg` on the
+# float64 setup, whose Laplacian is the matrix-free
+# `ops/fdm.laplacian_box` (not the assembled matrix the LU factors), to
+# `DIRECT_REF_RELTOL`, its own float64 residual below `DIRECT_REF_RES`.
+# The float32 setup assembles `laplacian_mat` with float32 entries,
+# which the host LU factors in float64, as the JAX package's
+# `psolver_direct` does; on this grid (smallest cell ~1e-5, largest
+# ~3e-3) that rounding moves a random right-hand side's solution by
+# 5.25e-4 in both packages (`tests/torch_floor_checks.py --case
+# ldc2d`), so `DIRECT_TOL` is 2e-3;
+# the fast diagonalization is 0.79 off there, a wrong solve O(1)
+DIRECT_REF_RELTOL = 1e-12
+DIRECT_REF_RES = 1e-10
+DIRECT_TOL = 2e-3
+# a float32 observer against its float64 evaluation of the same field,
+# relative to the field's scale: its largest value, and for a tensor-basis
+# channel of degree k in the velocity gradient max|∇u|^k (a difference of
+# products, such as B11 = R S² R² − R² S² R, cancels far below the size
+# of its terms, whose rounding it keeps).  The logged vortex criteria are
+# read where float32 resolves them (the PR's first card run read the
+# D-field 17 % and λ₂ 2.4e-3 off over the whole cavity): λ₂ before the
+# log against max|∇u|², its scale (the closed form's arccos keeps
+# sqrt(eps) near a double eigenvalue); the D-field |∇p| / (2 ∇²p) on the
+# points where float64's ∇²p is 100x the float32 run's largest error in
+# it, so that its log moves by < 1 %
+OBSERVER_TOL = 1e-3
+DFIELD_RESOLVED = 100.0
+# each tensor-basis channel's degree in the velocity gradient
+TB_DEGREE = {"B1": 0, "B2": 1, "B3": 2, "B4": 2, "B5": 2, "B6": 3, "B7": 3, "B8": 4, "B9": 4,
+             "B10": 4, "B11": 5, "V1": 2, "V2": 2, "V3": 3, "V4": 3, "V5": 4}
+WALLSHEAR_TOL = 1e-5
+STREAM_N = 512
+STREAM_TOL = 1e-5
+
+
+class LoopLog:
+    """Wraps `module.device_while` (the CG and Newton loops of
+    `time_steppers.imex` / `implicit_rk`) to keep, for each loop, its
+    iterations and the residual norm (the carry's last entry) at its
+    start and end; `take()` returns them as numbers and clears the
+    list, `close()` restores the module."""
+
+    def __init__(self, module):
+        self.module, self.orig, self.calls = module, module.device_while, []
+
+        def wrapped(cond, body, carry, maxiter, **kw):
+            out, iters = self.orig(cond, body, carry, maxiter, **kw)
+            self.calls.append((iters, carry[-1], out[-1]))
+            return out, iters
+
+        module.device_while = wrapped
+
+    def take(self):
+        calls = [(int(i), float(r0), float(r1)) for i, r0, r1 in self.calls]
+        self.calls = []
+        return calls
+
+    def close(self):
+        self.module.device_while = self.orig
+
+
+def scaled_divergence(setup, u):
+    """max|div u|·h / max|u| over the pressure DOFs, h each cell's own
+    smallest spacing: the divergence in units of the velocity's own
+    gradient scale at that cell."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops._stencil import slc
+
+    g = setup.grid
+    h = None
+    for d, (s, e) in enumerate(g.Ip):
+        shape = [1] * g.dim
+        shape[d] = e - s
+        hd = torch.as_tensor(np.asarray(g.delta[d][s:e]), dtype=u.dtype,
+                             device=u.device).reshape(shape)
+        h = hd if h is None else torch.minimum(h, hd)
+    div = it.divergence(u, setup)[slc(g.Ip)]
+    return ((div.abs() * h).max() / u.abs().max()).item()
+
+
+def ldc2d_setup(n, dtype):
+    """`examples/lid_driven_cavity_2d.py` at n²: cosine grids on the unit
+    square, no-slip walls, the lid (1, 0) at y = 1, Re 1e3."""
+    import ins_tpu_torch as it
+
+    x = (it.cosine_grid(0.0, 1.0, n), it.cosine_grid(0.0, 1.0, n))
+    d = it.DirichletBC()
+    return it.Setup(x=x, boundary_conditions=((d, d), (d, it.DirichletBC((1.0, 0.0)))), Re=1e3,
+                    dtype=dtype, device=DEVICE)
+
+
+def general2_pair(tag, method, n, nsteps, dt, log=None):
+    """The 3-D cavity at n³ stepped by `method` with `psolver_fdm` in
+    float32 and float64 (`ghosted_run`'s checks), the float32 run held to
+    the float64 one within `CAVITY_F64_TOL`, the `scaled_divergence`
+    below `F32_DIV_TOL` and `F64_DIV_TOL`; with `log`, each run's loops.
+    Returns {dtype: (setup, psolver, state, loops)}."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    runs = {}
+    for dtype, bound in ((torch.float32, F32_DIV_TOL), (torch.float64, F64_DIV_TOL)):
+        setup = cavity_setup(n, dtype)
+        psolver = recording(it.psolver_fdm(setup))
+        u0 = it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=psolver)
+        name = f"{tag} {str(dtype)[6:]}"
+        if log is not None:
+            log.take()
+        state, div = ghosted_run(name, setup, psolver, u0, nsteps, nsteps // 2 or 1, dt,
+                                 method=method,
+                                 divergence_of=lambda u, setup=setup: scaled_divergence(setup, u))
+        if not div <= bound:
+            fail(f"[{name}] divergence max|div u| h / max|u| {div:.3e} above {bound}")
+        runs[dtype] = (setup, psolver, state, log.take() if log is not None else [])
+    agree = rel_err(runs[torch.float32][2].u.double(), runs[torch.float64][2].u)
+    print(f"[{tag}] float32 vs float64 on the card after {nsteps} steps: max rel diff "
+          f"{agree:.3e} (bound {CAVITY_F64_TOL})")
+    if not agree <= CAVITY_F64_TOL:
+        fail(f"[{tag}] the float32 run is {agree:.3e} from its float64 run")
+    return runs
+
+
+def phase_general2():
+    """Phase 14: the rest of the general path on the card (see the
+    docstring).  Returns {case: ms/step}."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops._stencil import slc
+    from ins_tpu_torch.ops.channelpath import channelpath_applicable
+    from ins_tpu_torch.ops.fdm import laplacian_box
+    from ins_tpu_torch.time_steppers import imex, implicit_rk
+
+    f32, f64 = torch.float32, torch.float64
+    dt = 1e-3
+    cells = CAVITY_N**3
+    out = {}
+
+    # AB-CN and one-leg on the 128³ cavity
+    ts = it.time_steppers
+    for name, method in (("abcn", ts.AdamsBashforthCrankNicolsonMethod()),
+                         ("oneleg", ts.OneLegMethod())):
+        tag = f"cavity_{name}{CAVITY_N}"
+        log = LoopLog(imex)
+        try:
+            runs = general2_pair(tag, method, CAVITY_N, CAVITY_STEPS, dt, log=log)
+        finally:
+            log.close()
+        setup, psolver, state, loops = runs[f32]
+        cg = ", ".join(f"{i}" for i, _, _ in loops) or "none (explicit)"
+        wall, idle = profile_ghosted(tag, setup, psolver, state, dt, steps=2, method=method)
+        out[tag] = wall
+        print(f"[{tag}] f32: {wall:.3f} ms/step, {cells / (wall * 1e-3):.4e} cell-updates/s, "
+              f"idle share {idle}; diffusion-CG iterations a step (steps 2-{CAVITY_STEPS}; step 1 "
+              f"the RK44 startup): {cg}; {card_line()}")
+        if name == "abcn":
+            observer_state = (setup, state)
+        del runs, psolver
+        torch.cuda.empty_cache()
+
+    # implicit RK on the cavity: GL1 by full Newton, SDIRK34 by the approximate
+    for mname, nt in (("GL1", "full"), ("SDIRK34", "approximate")):
+        method = getattr(it.RKMethods, mname)(newton_type=nt)
+        tag = f"cavity_irk{IRK_N} {mname}-{nt}"
+        log = LoopLog(implicit_rk)
+        t0 = time.perf_counter()
+        try:
+            runs = general2_pair(tag, method, IRK_N, IRK_STEPS, dt, log=log)
+        finally:
+            log.close()
+        for dtype, (_, _, _, loops) in runs.items():
+            print(f"[{tag}] {str(dtype)[6:]} Newton iterations a step "
+                  + ", ".join(f"{i} (|G|/|G0| {r1 / max(r0, 1e-300):.3e})" for i, r0, r1 in loops))
+        setup, psolver, state, _ = runs[f32]
+        wall, idle = profile_ghosted(tag, setup, psolver, state, dt, steps=1, method=method)
+        out[tag] = wall
+        print(f"[{tag}] f32: {wall:.3f} ms/step, {IRK_N**3 / (wall * 1e-3):.4e} cell-updates/s, "
+              f"idle share {idle}; both dtypes' runs and the profile "
+              f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+        del runs, psolver, state
+        torch.cuda.empty_cache()
+
+    # RK44 with the assembled Laplacian's Jacobi CG, against psolver_fdm
+    tag = f"cavity_cgmatrix{CAVITY_N}"
+    setup = cavity_setup(CAVITY_N, f32)
+    t0 = time.perf_counter()
+    cgm = it.psolver_cg_matrix(setup, reltol=CGMATRIX_RELTOL)
+    build_s = time.perf_counter() - t0
+    iters = []
+
+    def counted(f):
+        p = cgm(f)
+        iters.append(cgm.iterations)
+        return p
+
+    counted.is_cg = True
+    psolver = recording(counted)
+    u0 = it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=psolver)
+    iters.clear()
+    state, div = ghosted_run(tag, setup, psolver, u0, CAVITY_STEPS, CAVITY_STEPS // 2, dt)
+    if not div <= CGMATRIX_DIV_FACTOR * CGMATRIX_RELTOL:
+        fail(f"[{tag}] relative divergence {div:.3e} above {CGMATRIX_DIV_FACTOR}x the CG "
+             f"reltol {CGMATRIX_RELTOL}")
+    counts = [int(i) for i in iters]
+    fdm = recording(it.psolver_fdm(setup))
+    ref, _ = ghosted_run(f"{tag} (psolver_fdm)", setup, fdm,
+                         it.velocityfield(setup, lambda dim, xx, yy, zz: 0.0 * xx, psolver=fdm),
+                         CAVITY_STEPS, CAVITY_STEPS // 2, dt)
+    agree = rel_err(state.u, ref.u)
+    print(f"[{tag}] vs psolver_fdm after {CAVITY_STEPS} steps: max rel diff {agree:.3e} "
+          f"(bound: the CG's reltol {CGMATRIX_RELTOL})")
+    if not agree <= CGMATRIX_RELTOL:
+        fail(f"[{tag}] {agree:.3e} from the psolver_fdm run")
+    f = it.scalewithvolume(it.divergence(it.apply_bc_u(
+        state.u + dt * it.momentum(state.u, None, state.t, setup), state.t, setup), setup),
+        setup)[slc(setup.grid.Ip)]
+    solve_ms = cuda_ms(lambda: cgm(f), reps=3, warmup=1)
+    wall, idle = profile_ghosted(tag, setup, psolver, state, dt, steps=1)
+    out[tag] = wall
+    print(f"[{tag}] RK44 f32: {wall:.3f} ms/step, idle share {idle}; Jacobi CG iterations a "
+          f"solve min {min(counts)} mean {sum(counts) / len(counts):.1f} max {max(counts)} over "
+          f"{len(counts)} solves; one solve {solve_ms:.3f} ms ({int(cgm.iterations)} iterations); "
+          f"CSR built in {build_s:.3f} s; {card_line()}")
+    del setup, cgm, psolver, state, ref, fdm, f
+    torch.cuda.empty_cache()
+
+    # the 2-D lid-driven cavity at 512² with psolver_direct, beside psolver_fdm
+    tag = f"ldc2d_direct{LDC2D_N}"
+    setup = ldc2d_setup(LDC2D_N, f32)
+    # RK44 within its diffusive limit on the cosine grid's smallest cell
+    dt2 = 0.25 * setup.Re * float(np.min(setup.grid.delta[0][1:-1])) ** 2
+    t0 = time.perf_counter()
+    direct = it.psolver_direct(setup)
+    factor_s = time.perf_counter() - t0
+    states = {}
+    for label, solver in (("direct", direct), ("fdm", it.psolver_fdm(setup))):
+        rec = recording(solver)
+        u0 = it.velocityfield(setup, lambda dim, xx, yy: 0.0 * xx, psolver=rec)
+        states[label], div = ghosted_run(
+            f"{tag} ({label})", setup, rec, u0, CAVITY_STEPS, CAVITY_STEPS // 2, dt2,
+            divergence_of=lambda u: scaled_divergence(setup, u))
+        if not div <= F32_DIV_TOL:
+            fail(f"[{tag} ({label})] divergence max|div u| h / max|u| {div:.3e} above "
+                 f"{F32_DIV_TOL}")
+        if label == "direct":
+            rec_direct = rec
+    g = setup.grid
+    agree = max(rel_err(states["direct"].u[(a,) + slc(g.Iu[a])],
+                        states["fdm"].u[(a,) + slc(g.Iu[a])]) for a in range(2))
+    # each float32 solve of the direct run's last right-hand side against
+    # the independent float64 solution (means removed: the gauge),
+    # ||p − p_ref|| / ||p_ref||
+    setup64 = ldc2d_setup(LDC2D_N, f64)
+    f = rec_direct.last
+    f0 = f.double() - f.double().mean()
+    refcg = it.psolver_cg(setup64, reltol=DIRECT_REF_RELTOL, precond="jacobi")
+    t0 = time.perf_counter()
+    p_ref = refcg(f.double())
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_res = ((laplacian_box(setup64)(p_ref) - f0).norm() / f0.norm()).item()
+    q_ref = p_ref - p_ref.mean()
+
+    def solve_err(p):
+        d = p.double() - p_ref
+        return ((d - d.mean()).norm() / q_ref.norm()).item()
+
+    errs = {"direct": solve_err(direct(f)), "fdm": solve_err(it.psolver_fdm(setup)(f))}
+    print(f"[{tag}] after {CAVITY_STEPS} steps (dt {dt2:.4e}): psolver_direct vs psolver_fdm on "
+          f"the velocity DOFs max rel diff {agree:.3e}; the last right-hand side's float64 "
+          f"reference (Jacobi CG on laplacian_box, {int(refcg.iterations)} iterations, "
+          f"{ref_s:.2f} s) has residual {ref_res:.3e} (bound {DIRECT_REF_RES}); each float32 "
+          f"solve against it: direct {errs['direct']:.3e} (bound {DIRECT_TOL}), fdm "
+          f"{errs['fdm']:.3e} (the fast diagonalization on this {LDC2D_N}² cosine grid, as the "
+          f"JAX package's: tests/torch_floor_checks.py)")
+    if not ref_res <= DIRECT_REF_RES:
+        fail(f"[{tag}] the float64 reference's residual {ref_res:.3e} above {DIRECT_REF_RES}")
+    if not errs["direct"] <= DIRECT_TOL:
+        fail(f"[{tag}] the direct solve is {errs['direct']:.3e} from the float64 reference")
+    fvec = torch.randn(g.Np, device=DEVICE)
+    solve_ms = cuda_ms(lambda: direct(fvec), reps=3, warmup=1)
+    wall, idle = profile_ghosted(tag, setup, rec_direct, states["direct"], dt2, steps=2)
+    out[tag] = wall
+    print(f"[{tag}] RK44 f32: {wall:.3f} ms/step, {LDC2D_N**2 / (wall * 1e-3):.4e} "
+          f"cell-updates/s, idle share {idle}; the host LU's factor {factor_s:.2f} s (once), a "
+          f"solve {solve_ms:.3f} ms with its two copies; {card_line()}")
+    del setup, setup64, direct, states, rec_direct, fvec, refcg, p_ref, q_ref, f, f0
+    torch.cuda.empty_cache()
+
+    # fieldobserver: every 3-D name on the AB-CN cavity's float32 state,
+    # held to its float64 evaluation of the same field
+    setup, state = observer_state
+    setup64 = cavity_setup(CAVITY_N, f64)
+    p32, p64 = it.psolver_fdm(setup), it.psolver_fdm(setup64)
+    s32 = dict(u=state.u, temp=None, t=state.t, n=state.n)
+    s64 = dict(u=state.u.double(), temp=None, t=state.t, n=state.n)
+    logtol = float(np.finfo(np.float32).eps)
+    names = [0, 1, 2, "velocity", "velocitynorm", "vorticity", "pressure", "Dfield", "Qfield",
+             "eig2field"] + [f"B{i}" for i in range(1, 12)] + [f"V{i}" for i in range(1, 6)]
+    gmax = max(v.abs().max().item() for row in it.ops.operators._gradient_tensor(
+        s64["u"], setup64, setup64.grid.Ip) for v in row)
+    ip = slc(setup.grid.Ip)
+    # the D-field's resolved points: where float64's ∇²p is 100x the
+    # float32 run's error in it (the D-field's own ∇²p, from each
+    # dtype's pressure)
+    def lap_p(st, s, ps):
+        G = it.pressuregradient(it.pressure(st["u"], None, st["t"], s, psolver=ps), s)
+        return sum((G[a][ip] - G[a][slc(s.grid.Ip, **{f"d{a}": -1})])
+                   / it.ops._stencil.dseg(s.dgrid.delta[a], s.grid.Ip, a) for a in range(3))
+
+    lap64 = lap_p(s64, setup64, p64)
+    lap_err = (lap_p(s32, setup, p32).double() - lap64).abs().max().item()
+    resolved = lap64.abs() >= DFIELD_RESOLVED * lap_err
+    errs, shares = {}, {}
+    for name in names:
+        a = it.fieldobserver(setup, name, psolver=p32, logtol=logtol)
+        b = it.fieldobserver(setup64, name, psolver=p64, logtol=logtol)
+        got, ref = a(s32), b(s64)
+        if got.device.type != "cuda" or not bool(torch.isfinite(got).all()):
+            fail(f"[fieldobserver] {name}: not a finite field on the card")
+        diff = (got.double() - ref).abs()
+        scale = gmax ** TB_DEGREE[name] if name in TB_DEGREE else ref.abs().max().item()
+        if name == "Dfield":
+            shares[name] = resolved.double().mean().item()
+            diff = diff[resolved]
+        elif name == "eig2field":  # λ₂ itself against max|∇u|²
+            lam32 = it.eig2field(s32["u"], setup)[ip]
+            lam64 = it.eig2field(s64["u"], setup64)[ip]
+            shares["eig2field (logged)"] = diff.max().item() / scale
+            diff, scale = (lam32.double() - lam64).abs(), gmax**2
+        errs[name] = diff.max().item() / max(scale, 1e-30) if diff.numel() else 0.0
+    ms = cuda_ms(lambda: it.fieldobserver(setup, "eig2field")(s32), reps=3, warmup=1)
+    print(f"[fieldobserver] {CAVITY_N}³ AB-CN cavity state (max|∇u| {gmax:.4e}), float32 vs "
+          f"its float64 evaluation, max diff over the field's scale (bound {OBSERVER_TOL}; "
+          f"Dfield on the {shares['Dfield']:.1%} of points where float32 resolves ∇²p, "
+          f"eig2field as λ₂ over max|∇u|², its logged output "
+          f"{shares['eig2field (logged)']:.2e}; "
+          f"no temperature equation, so no 'temperature'): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; eig2field {ms:.3f} ms; {card_line()}")
+    bad = {k: v for k, v in errs.items() if not v <= OBSERVER_TOL}
+    if bad:
+        fail(f"[fieldobserver] above the bound: {bad}")
+    del observer_state, setup, setup64, state, s32, s64, p32, p64
+    torch.cuda.empty_cache()
+
+    # observe_wallshear on both walls of the 256×128×128 channel path
+    setup = channel_setup(CHANNEL_BOX)
+    psolver = it.psolver_fdm(setup)
+    if not channelpath_applicable(setup, it.RKMethods.RK44()):
+        fail("the channel setup would not take the channel path")
+    u0 = channel_u0(setup, psolver)
+    procs = {f"tau{k}": it.observe_wallshear(setup, dim=2, side=k, component=0, nupdate=10)
+             for k in (0, 1)}
+    # the float64 evaluation of the same field on the same (float32) grid:
+    # the wall-normal distance from the run's own coordinates
+    xp = np.asarray(setup.grid.xp[2], np.float64)
+    nz = setup.grid.N[2]
+
+    def tau64(u, side):
+        i_in, i_gh = (1, 0) if side == 0 else (nz - 2, nz - 1)
+        du = u[0, 1:-1, 1:-1, i_in].double() - u[0, 1:-1, 1:-1, i_gh].double()
+        return (du / (xp[i_in] - xp[i_gh])).mean().item() / setup.Re
+
+    procs["tau64"] = it.observefield(lambda s: [tau64(s["u"], k) for k in (0, 1)], nupdate=10)
+    launches.reset_counts()
+    state, outs = it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, 20 * dt), dt=dt,
+                                    psolver=psolver, processors=procs)
+    if not launches.LAUNCHES.get("channel_msd_3d"):
+        fail("[channel wallshear] the run did not take the channel path")
+    errs = []
+    for k in (0, 1):
+        taus = outs[f"tau{k}"]["tau"]
+        if len(taus) != len(outs["tau64"]) + 1:  # observefield keeps no initial reading
+            fail("[channel wallshear] the readings do not pair up")
+        for tau, ref in zip(taus[1:], outs["tau64"]):
+            errs.append(abs(tau - ref[k]) / abs(ref[k]))
+    taus = [outs[f"tau{k}"]["tau"][-1] for k in (0, 1)]
+    ms = cuda_ms(lambda: procs["tau0"].update(dict(t=[], tau=[]), dict(u=state.u, t=state.t)),
+                 reps=3, warmup=1)
+    print(f"[channel wallshear] {CHANNEL_BOX} after 20 channel-path steps: tau_w {taus[0]:.6e} "
+          f"(z = 0), {taus[1]:.6e} (z = 2); float32 vs its float64 evaluation max rel diff "
+          f"{max(errs):.3e} over {len(errs)} readings (bound {WALLSHEAR_TOL}); {ms:.3f} ms a "
+          f"reading; {card_line()}")
+    if not max(errs) <= WALLSHEAR_TOL:
+        fail(f"[channel wallshear] {max(errs):.3e} from the float64 evaluation")
+    del setup, psolver, state, u0
+    torch.cuda.empty_cache()
+
+    # the streamfunction of a 512² periodic field
+    x = (np.linspace(0.0, 2 * np.pi, STREAM_N + 1),) * 2
+    s32, s64 = (it.Setup(x=x, Re=1e3, dtype=d, device=DEVICE) for d in (f32, f64))
+    u = it.random_field(s32, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    got = it.get_streamfunction(u, s32)
+    ref = it.get_streamfunction(u.double(), s64)
+    err = rel_err(got.double(), ref)
+    ms = cuda_ms(lambda: it.get_streamfunction(u, s32), reps=5)
+    print(f"[streamfunction] {STREAM_N}² periodic field: float32 vs float64 max rel diff "
+          f"{err:.3e} (bound {STREAM_TOL}); {ms:.3f} ms; {card_line()}")
+    if not (bool(torch.isfinite(got).all()) and err <= STREAM_TOL):
+        fail(f"[streamfunction] {err:.3e} from float64")
     return out
 
 
@@ -5161,6 +5647,11 @@ def main():
                     help="only phase 13 (the general ghosted path: the 128³ cavity with "
                          "FDM-CG and with psolver_fdm, Rayleigh-Benard 3-D), no kernel build; "
                          "with --profile each case's device-time split")
+    ap.add_argument("--general2", action="store_true",
+                    help="only phase 14 (the rest of the general path: AB-CN, one-leg and "
+                         "implicit RK on the 128³ cavity, psolver_cg_matrix, psolver_direct on "
+                         "the 512² 2-D cavity, the observers); builds the kernels for the "
+                         "channel's wall shear")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -5245,6 +5736,11 @@ def main():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s); "
           f"ptxas report in {_build.BUILD_DIR / 'build.log'}")
+    if args.general2:
+        t0 = time.perf_counter()
+        phase_general2()
+        print(f"[time] phase 14 (the rest of the general path): {time.perf_counter() - t0:.1f} s")
+        return
     ptxas_report()
 
     clock = {"t": time.perf_counter()}
@@ -5351,6 +5847,8 @@ def main():
     phase_done("phase 12 (the dense pass B's chain)")
     phase_ghosted(args.profile)
     phase_done("phase 13 (the general ghosted path)")
+    phase_general2()
+    phase_done("phase 14 (the rest of the general path)")
     counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB_fold+levels",)},
               "passB": dense_counts["passB"],
               **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},

@@ -19,9 +19,14 @@ layer's tap-matmul / pack-tile form (`make_conv_layer`, `tapconv_3d`,
 `packconv_3d`, `tapconv_wgrad_3d`) and the unfused projection step's
 stage (`momentum_stage_div_3d`). Every other setup — walls, lids,
 inflow and outflow, symmetric sides, stretched grids, non-periodic
-temperature, the ghosted Smagorinsky closures, `psolver_cg` — steps the
-general ghosted path in plain PyTorch (`apply_bc_*`, `ops/operators.py`,
-`project`, `timestep`), as `ins_tpu`'s is plain JAX.
+temperature, the ghosted Smagorinsky closures, `psolver_cg`,
+`psolver_cg_matrix` and the host `psolver_direct` (on
+`ops/matrices.py`), the IMEX AB-CN and one-leg steppers and the
+Newton-Krylov implicit Runge-Kutta tableaus — steps the general ghosted
+path in plain PyTorch (`apply_bc_*`, `ops/operators.py`, `project`,
+`timestep`), as `ins_tpu`'s is plain JAX; its observers
+(`fieldobserver`, `observe_wallshear`, `get_streamfunction`) and the
+tensor basis (`tensorbasis`) too.
 Every tensor of a run lives on `Setup(device=...)`, the
 card by default; with ``device="cpu"`` each kernel wrapper runs its
 plain PyTorch version. It imports torch and never jax.
@@ -47,8 +52,11 @@ from .grid import (  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from .processors import (  # noqa: F401
     Processor,
+    fieldobserver,
     fieldsaver,
+    get_streamfunction,
     observe_nusselt,
+    observe_wallshear,
     observefield,
     observespectrum,
     processor,

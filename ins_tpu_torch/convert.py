@@ -3,13 +3,16 @@
 Both sides use the same layouts (component-first velocity, eigen-basis
 ``qhat``, the interior channel layout), so a state crosses as numpy
 arrays: `state_from_numpy` takes anything with the fields of `ins_tpu`'s
-`StepperState` (u, temp, t, n), `HatState` (ut, qhat, temp, t, n) or the
-channel path's `ChannelHat` (state, q) — JAX arrays convert through
-``numpy.asarray`` — and returns the port's on `device` (the card by
-default); `state_to_numpy` returns the field dict from which the caller
-rebuilds the JAX NamedTuple (``ins_tpu.time_steppers.step.StepperState(**d)``;
-for a `ChannelHat`, ``ChannelHat(state=StepperState(**d["state"]),
-q=d["q"])``).  This module never imports JAX.  `check_setup_constants`
+`StepperState` (u, temp, t, n), `ABCNState` (with c_prev, p),
+`OneLegState` (with u_prev, p, p_prev), `HatState` (ut, qhat, temp, t,
+n) or the channel path's `ChannelHat` (state, q) — JAX arrays convert
+through ``numpy.asarray`` — and returns the port's on `device` (the card
+by default); `state_to_numpy` returns the field dict from which the
+caller rebuilds the JAX NamedTuple
+(``ins_tpu.time_steppers.step.StepperState(**d)``,
+``ins_tpu.time_steppers.imex.ABCNState(**d)``; for a `ChannelHat`,
+``ChannelHat(state=StepperState(**d["state"]), q=d["q"])``).  This
+module never imports JAX.  `check_setup_constants`
 holds the port's setup-time constants — the fused projection's
 eigen-matrices and grid spacings, the channel's z-metric vectors, the
 steady body force, Re and the temperature coefficients — equal to the
@@ -32,6 +35,7 @@ from .ops.fastpath import HatState
 from .ops.poisson_kernels import make_fused_projection
 from .ops.pressure import uniform_dxs
 from .setup import resolve_device
+from .time_steppers.imex import ABCNState, OneLegState
 from .time_steppers.step import StepperState
 
 __all__ = [
@@ -75,7 +79,14 @@ def state_from_numpy(state, *, dtype=torch.float32, device="cuda"):
             qhat=_tensor(fields["qhat"], dtype, device),
             temp=temp, t=t, n=n,
         )
-    return StepperState(u=_tensor(fields["u"], dtype, device), temp=temp, t=t, n=n)
+    u = _tensor(fields["u"], dtype, device)
+    if "c_prev" in fields:
+        return ABCNState(u=u, temp=temp, t=t, n=n, c_prev=_tensor(fields["c_prev"], dtype, device),
+                         p=_tensor(fields["p"], dtype, device))
+    if "u_prev" in fields:
+        return OneLegState(u=u, temp=temp, t=t, n=n, **{
+            k: _tensor(fields[k], dtype, device) for k in ("u_prev", "p", "p_prev")})
+    return StepperState(u=u, temp=temp, t=t, n=n)
 
 
 def _arr(x):
@@ -84,7 +95,8 @@ def _arr(x):
 
 def state_to_numpy(state):
     """The port's state as a dict of numpy fields named as in the JAX
-    NamedTuple.  A `HatState` whose ``qhat`` is None (u materialised)
+    NamedTuple (a `StepperState`, `ABCNState` or `OneLegState` field by
+    field).  A `HatState` whose ``qhat`` is None (u materialised)
     gets ``qhat = 0``, the JAX package's identity carry."""
     if isinstance(state, ChannelHat):
         return dict(state=state_to_numpy(state.state), q=_arr(state.q))
@@ -94,7 +106,7 @@ def state_to_numpy(state):
         if qhat is None:
             qhat = np.zeros(ut.shape[1:], ut.dtype)
         return dict(ut=ut, qhat=qhat, temp=_arr(state.temp), t=state.t, n=state.n)
-    return dict(u=_arr(state.u), temp=_arr(state.temp), t=state.t, n=state.n)
+    return {k: v if k in ("t", "n") else _arr(v) for k, v in state._asdict().items()}
 
 
 def _rel_diff(name, mine, theirs):

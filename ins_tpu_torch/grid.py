@@ -36,10 +36,14 @@ __all__ = [
 ]
 
 
+_NP_FLOATS = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+
+
 def _numpy_dtype(dtype) -> np.dtype:
-    """numpy dtype of a torch floating dtype (or of a numpy dtype)."""
+    """numpy dtype of a torch floating dtype (or of a numpy dtype); a
+    table, so that it also holds inside a `torch.func` transform."""
     if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).numpy().dtype
+        return np.dtype(_NP_FLOATS[dtype])
     return np.dtype(dtype)
 
 

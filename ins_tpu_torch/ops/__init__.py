@@ -36,6 +36,9 @@ from .pressure import (  # noqa: F401
     pressure,
     project,
     psolver_cg,
+    psolver_cg_matrix,
+    psolver_direct,
     psolver_spectral,
 )
+from .tensorbasis import lastdimcontract, monitor, tensorbasis  # noqa: F401
 from .smag_kernels import smagorinsky_force_3d, smagorinsky_force_halo_3d  # noqa: F401

@@ -254,10 +254,11 @@ def _kernel_ops(plain):
 
 def _check_method(setup, method):
     if not isinstance(method, (ExplicitRungeKuttaMethod, LMWray3)):
-        raise NotImplementedError(
-            f"{type(method).__name__} is not ported yet: the port's fast "
-            "path steps explicit RK tableaus and LMWray3 (IMEX/implicit "
-            "steppers are ROADMAP queue 1 item 7)"
+        raise ValueError(
+            f"{type(method).__name__} on the fast path: it steps explicit RK "
+            "tableaus and LMWray3, as the JAX package's; AB-CN, one-leg and "
+            "implicit RK methods step the general ghosted path "
+            "(`time_steppers.step.timestep`, which `solve_unsteady` picks for them)"
         )
 
 

@@ -9,8 +9,9 @@ ghosts included.  Operators write only the DOF boxes ``Iu[alpha]`` /
 separately by `apply_bc_*`.  The grid's 1-D metadata is read from its
 copy on the setup's device (`setup.dgrid`, through `_stencil.dseg`).
 
-`Dfield`, `Qfield`, `eig2field` and `get_scale_numbers` wait for ROADMAP
-queue 1 item 10, unsteady body forces for item 6.
+The derived fields `Dfield`, `Qfield` and `eig2field` (vortex criteria)
+and `get_scale_numbers` (turbulence scales) serve the processors.
+Unsteady body forces wait for ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ __all__ = [
     "interpolate_omega_p",
     "kinetic_energy",
     "total_kinetic_energy",
+    "Dfield",
+    "Qfield",
+    "eig2field",
+    "get_scale_numbers",
 ]
 
 
@@ -409,3 +414,122 @@ def total_kinetic_energy(u, setup, **kwargs):
     """Volume-integrated kinetic energy (a 0-d tensor on u's device)."""
     k = scalewithvolume(kinetic_energy(u, setup, **kwargs), setup)
     return torch.sum(k[slc(setup.grid.Ip)])
+
+
+def Dfield(p, setup, *, eps=None):
+    """Low-pressure vortex criterion D = |∇p| / (2 ∇²p) at the pressure
+    points, the Laplacian kept at least `eps` (the dtype's) from zero."""
+    g = setup.grid
+    if eps is None:
+        eps = float(np.finfo(_numpy_dtype(setup.dtype)).eps)
+    G = pressuregradient(p, setup)
+    box = g.Ip
+    gsum = 0.0
+    lap = 0.0
+    for a in range(g.dim):
+        gc = take(G[a], box)
+        gm = take(G[a], box, a, -1)
+        gsum = gsum + (gm + gc) ** 2
+        lap = lap + (gc - gm) / dseg(setup.dgrid.delta[a], box, a)
+    lap = torch.where(lap > 0, torch.clamp(lap, min=eps), torch.clamp(lap, max=-eps))
+    return _on_box(setup, box, torch.sqrt(gsum) / 2 / lap)
+
+
+def Qfield(u, setup):
+    """Q-criterion at the pressure points."""
+    g = setup.grid
+    box = g.Ip
+    q = 0.0
+    for a in range(g.dim):
+        for b in range(g.dim):
+            q = q - (
+                (take(u[a], box) - take(u[a], box, b, -1))
+                / dseg(setup.dgrid.delta[b], box, b)
+                * (take(u[b], box) - take(u[b], box, a, -1))
+                / dseg(setup.dgrid.delta[a], box, a)
+                / 2
+            )
+    return _on_box(setup, box, q)
+
+
+def _gradient_matrix(u, setup, box):
+    """∇u at the pressure points of `box` as ``(*box, D, D)`` matrices."""
+    gu = _gradient_tensor(u, setup, box)
+    return torch.stack([torch.stack(row, -1) for row in gu], -2)
+
+
+def _eigvals2_sym3(M):
+    """Middle eigenvalue of batched symmetric 3x3 matrices by the
+    closed-form trigonometric formula (robust for degenerate spectra)."""
+    a00, a01, a02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    a11, a12, a22 = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]
+    q = (a00 + a11 + a22) / 3
+    p1 = a01**2 + a02**2 + a12**2
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2 * p1
+    p = torch.sqrt(torch.clamp(p2 / 6, min=0.0))
+    psafe = torch.where(p > 0, p, 1.0)
+    b00, b11, b22 = (a00 - q) / psafe, (a11 - q) / psafe, (a22 - q) / psafe
+    b01, b02, b12 = a01 / psafe, a02 / psafe, a12 / psafe
+    detb = (
+        b00 * (b11 * b22 - b12 * b12)
+        - b01 * (b01 * b22 - b12 * b02)
+        + b02 * (b01 * b12 - b11 * b02)
+    )
+    phi = torch.arccos(torch.clamp(detb / 2, -1.0, 1.0)) / 3
+    e1 = q + 2 * p * torch.cos(phi)  # largest
+    e3 = q + 2 * p * torch.cos(phi + 2 * np.pi / 3)  # smallest
+    return torch.where(p > 0, 3 * q - e1 - e3, q)
+
+
+def eig2field(u, setup):
+    """λ₂ vortex criterion: the middle eigenvalue of S² + R² (3-D only)."""
+    g = setup.grid
+    if g.dim != 3:
+        raise ValueError("eig2field is defined in 3-D only")
+    G = _gradient_matrix(u, setup, g.Ip)
+    S = (G + G.mT) / 2
+    R = (G - G.mT) / 2
+    return _on_box(setup, g.Ip, _eigvals2_sym3(S @ S + R @ R))
+
+
+def get_scale_numbers(u, setup):
+    """Dimensional turbulence scale numbers: a dict of 0-d tensors uavg,
+    eps (dissipation), eta, lam, Re_lam, L (integral scale, from the
+    energy spectrum: a uniform periodic grid), tau and Re_int.  Every
+    velocity component is averaged over the first component's box
+    ``Iu[0]``, as in the JAX package."""
+    g = setup.grid
+    D = g.dim
+    visc = 1 / setup.Re
+    full = tuple((0, n) for n in g.N)
+    dg = setup.dgrid
+
+    uavg_sq = 0.0
+    for a in range(D):
+        om = 1.0
+        for b in range(D):
+            om = om * dseg(dg.delta_u[b] if a == b else dg.delta[b], full, b)
+        om = om * torch.ones(g.N, dtype=u.dtype, device=u.device)
+        sl = slc(g.Iu[0])
+        uavg_sq = uavg_sq + torch.sum((u[a] ** 2 * om)[sl]) / torch.sum(om[sl])
+    uavg = torch.sqrt(uavg_sq)
+
+    ip = slc(g.Ip)
+    om = scalewithvolume(torch.ones(g.N, dtype=u.dtype, device=u.device), setup)
+    eps_ = torch.sum((om * dissipation_from_strain(u, setup))[ip]) / torch.sum(om[ip])
+    eta = (visc**3 / eps_) ** 0.25
+    lam = torch.sqrt(5 * visc / eps_) * uavg
+    re_lam = lam * uavg / np.sqrt(3.0) / visc
+
+    K = tuple(n // 2 for n in g.Np)
+    uhat = torch.fft.fftn(torch.stack([u[a][ip] for a in range(D)]), dim=tuple(range(1, D + 1)))
+    uhat = uhat[(slice(None),) + tuple(slice(0, k) for k in K)]
+    e = uhat.abs() ** 2 / (2 * float(np.prod(g.Np)) ** 2)
+    kk = sum(np.reshape(np.arange(K[d], dtype=np.float64) ** 2,
+                        tuple(K[d] if i == d else 1 for i in range(D))) for d in range(D))
+    inv_knorm = 1.0 / np.sqrt(np.where(kk == 0, 1.0, kk))
+    inv_knorm[(0,) * D] = 0.0
+    e = torch.sum(e, 0) * torch.as_tensor(inv_knorm, dtype=u.dtype, device=u.device)
+    L = 3 * np.pi / 2 / uavg_sq * torch.sum(e)
+    return dict(uavg=uavg, eps=eps_, eta=eta, lam=lam, Re_lam=re_lam, L=L, tau=L / uavg,
+                Re_int=L * uavg / visc)

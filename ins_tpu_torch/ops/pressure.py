@@ -22,8 +22,14 @@ The spectral solve is the volume-scaled periodic Laplacian, diagonal in
 Fourier space with eigenvalues ``-4 vol sin²(πk/N)/Δx²`` summed over
 dimensions; the k = 0 mode (zero-mean pressure) is pinned to 0.
 `default_psolver` picks the FDM solve (`ops/fdm.py`) on other grids.
-The assembled-matrix CG and the host direct solver (`psolver_cg_matrix`,
-`psolver_direct`) wait for ROADMAP queue 1 item 7.
+`psolver_cg_matrix` runs Jacobi CG on the assembled Laplacian
+(`ops/matrices.laplacian_mat`) as a sparse CSR tensor on the setup's
+device; `psolver_direct` factors the same matrix once on the host and
+solves there, one copy to the host and one back a solve.
+
+The loops that stop on a residual (`psolver_cg`, `psolver_cg_matrix`,
+and the implicit steppers' CG and Newton loops) keep their stop flag on
+the device through one driver, `device_while`.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
 from ..boundary_conditions import PressureBC, apply_bc_p, apply_bc_u
@@ -38,11 +46,14 @@ from ..grid import _numpy_dtype
 from ._stencil import dseg, slc
 from .diffkernels import roll_m, roll_p
 from .fdm import fdm_solve_box, laplacian_box, psolver_fdm
+from .matrices import laplacian_mat
 from .operators import _on_box, applypressure, divergence, momentum, scalewithvolume
 
 __all__ = [
     "psolver_spectral",
     "psolver_cg",
+    "psolver_cg_matrix",
+    "psolver_direct",
     "default_psolver",
     "poisson",
     "pressure",
@@ -115,6 +126,68 @@ def project_periodic(u, dxs, solve):
 
 
 # --------------------------------------------------------------------------
+# Loops with their stop flag on the device
+# --------------------------------------------------------------------------
+
+
+def device_while(cond, body, carry, maxiter, poll=None):
+    """``lax.while_loop(cond, body, carry)`` of at most `maxiter`
+    iterations, its stop flag kept on the device.  `carry` is a tuple of
+    tensors, ``body(carry)`` returns the next one and ``cond(carry)`` a
+    0-d bool tensor.  Each iteration is computed, and the carry is
+    frozen by `torch.where` once `cond` fails (or from the start where
+    it fails on the initial carry), so the result equals a loop that
+    stops at the same iteration.  To end the loop early the host reads
+    the flag (a device sync) after the first iteration and then every
+    `poll` iterations; the iterations run between two reads after the
+    stop are frozen.  The CG loops, whose iterations are a few kernels,
+    read every `CG_POLL` (``poll=None``, read at the call); the Newton
+    loop, whose iteration is a GMRES solve of hundreds of kernels, every
+    iteration (``poll=1``).  Returns the final carry and the number of
+    iterations run unfrozen (a 0-d int32 tensor on the device)."""
+    if poll is None:
+        poll = CG_POLL
+    active = cond(carry)
+    iters = torch.zeros((), dtype=torch.int32, device=active.device)
+    for it in range(maxiter):
+        carry = tuple(torch.where(active, new, old) for new, old in zip(body(carry), carry))
+        iters = iters + active.to(torch.int32)
+        active = active & cond(carry)
+        done = it + 1
+        if done < maxiter and (done == 1 or done % poll == 0) and not bool(active):
+            break
+    return carry, iters
+
+
+def _default_reltol(dtype):
+    return math.sqrt(float(np.finfo(_numpy_dtype(dtype)).eps))
+
+
+def _pcg(f, matvec, precond, reltol, abstol, maxiter):
+    """Preconditioned CG from p = 0 on ``matvec p = f``: stops where the
+    residual is at or below ``max(reltol·|f|, abstol)``.  Returns the
+    solution and the iteration count."""
+    residual = torch.sqrt(torch.sum(f * f))
+    tolerance = torch.clamp(reltol * residual, min=abstol)
+    zero = torch.zeros_like(f)
+    one = torch.ones((), dtype=f.dtype, device=f.device)
+
+    def body(c):
+        p, r, q, rho_prev, _ = c
+        z = precond(r)
+        rho = torch.sum(z * r)
+        q = z + (rho / rho_prev) * q
+        Lq = matvec(q)
+        alpha = rho / torch.sum(q * Lq)
+        r = r - alpha * Lq
+        return p + alpha * q, r, q, rho, torch.sqrt(torch.sum(r * r))
+
+    (p, *_), iters = device_while(lambda c: c[4] > tolerance, body,
+                                  (zero, f, zero, one, residual), maxiter)
+    return p, iters
+
+
+# --------------------------------------------------------------------------
 # Matrix-free preconditioned CG
 # --------------------------------------------------------------------------
 
@@ -122,6 +195,17 @@ def project_periodic(u, dxs, solve):
 def _is_singular(setup):
     """Without a PressureBC the Laplacian has the constants as nullspace."""
     return not any(isinstance(bc, PressureBC) for bcs in setup.boundary_conditions for bc in bcs)
+
+
+def _centering(setup):
+    """Where the Laplacian is singular, the map onto the zero-sum fields
+    (applied to the right-hand side and to the solution: the solve map
+    is then P0 L+ P0, symmetric, so the self-adjoint `poisson` VJP is
+    exact); else the identity."""
+    if not _is_singular(setup):
+        return lambda x: x
+    npoints = float(np.prod(setup.grid.Np))
+    return lambda x: x - torch.sum(x) / npoints
 
 
 def psolver_cg(setup, *, abstol=0.0, reltol=None, maxiter=None, precond="jacobi"):
@@ -136,20 +220,14 @@ def psolver_cg(setup, *, abstol=0.0, reltol=None, maxiter=None, precond="jacobi"
     zero-sum fields and the solution's mean is pinned to zero, which keeps
     the solve map symmetric (the self-adjoint `poisson` VJP is exact).
 
-    The loop keeps its stop condition on the device: each iteration is
-    computed, and p, r, q, ρ and the residual are frozen by `torch.where`
-    once the residual is at or below ``max(reltol·|f|, abstol)`` (or from
-    the start where |f| is), so the result equals a loop that stops at
-    the same iteration as the JAX `lax.while_loop`.  To end the loop
-    early the host reads the flag (a device sync) after the first
-    iteration and then every `CG_POLL` iterations; the iterations run
-    between two reads after convergence are frozen.  The iteration count
-    of the last call is ``psolve.iterations`` (a 0-d tensor on the
-    device)."""
+    The loop is `device_while`: its result equals the JAX
+    `lax.while_loop`'s at the same stopping iteration, and the host reads
+    the stop flag after the first iteration and every `CG_POLL`.  The
+    iteration count of the last call is ``psolve.iterations`` (a 0-d
+    tensor on the device)."""
     g = setup.grid
-    dtype, device = setup.dtype, setup.device
     if reltol is None:
-        reltol = math.sqrt(float(np.finfo(_numpy_dtype(dtype)).eps))
+        reltol = _default_reltol(setup.dtype)
     if maxiter is None:
         maxiter = int(np.prod(g.Np))
     lap = laplacian_box(setup)
@@ -170,44 +248,91 @@ def psolver_cg(setup, *, abstol=0.0, reltol=None, maxiter=None, precond="jacobi"
     else:
         raise ValueError(f"unknown precond {precond!r}")
 
-    issingular = _is_singular(setup)
-    npoints = float(np.prod(g.Np))
+    center = _centering(setup)
 
     def psolve(f):
-        if issingular:
-            f = f - torch.sum(f) / npoints
-        r = f
-        residual = torch.sqrt(torch.sum(r * r))
-        tolerance = torch.clamp(reltol * residual, min=abstol)
-        p = torch.zeros_like(f)
-        q = torch.zeros_like(f)
-        rho_prev = torch.ones((), dtype=f.dtype, device=f.device)
-        active = residual > tolerance
-        iters = torch.zeros((), dtype=torch.int32, device=f.device)
-        for it in range(maxiter):
-            z = apply_precond(r)
-            rho = torch.sum(z * r)
-            q_new = z + (rho / rho_prev) * q
-            Lq = lap(q_new)
-            alpha = rho / torch.sum(q_new * Lq)
-            p = torch.where(active, p + alpha * q_new, p)
-            r = torch.where(active, r - alpha * Lq, r)
-            q = torch.where(active, q_new, q)
-            rho_prev = torch.where(active, rho, rho_prev)
-            residual = torch.where(active, torch.sqrt(torch.sum(r * r)), residual)
-            iters = iters + active.to(torch.int32)
-            active = active & (residual > tolerance)
-            done = it + 1
-            if done < maxiter and (done == 1 or done % CG_POLL == 0) and not bool(active):
-                break
-        if issingular:
-            # zero-mean gauge: the solve map is P0 L+ P0, symmetric
-            p = p - torch.sum(p) / npoints
-        psolve.iterations = iters
-        return p
+        p, psolve.iterations = _pcg(center(f), lap, apply_precond, reltol, abstol, maxiter)
+        return center(p)
 
     psolve.is_cg = True
     psolve.iterations = None
+    return psolve
+
+
+# --------------------------------------------------------------------------
+# The assembled Laplacian: CG on the card, a direct solve on the host
+# --------------------------------------------------------------------------
+
+
+def psolver_cg_matrix(setup, *, abstol=0.0, reltol=None, maxiter=None):
+    """Jacobi CG on the assembled pressure Laplacian
+    (`ins_tpu.psolver_cg_matrix`): `ops.matrices.laplacian_mat`, built
+    once on the host at the setup's dtype, becomes a sparse CSR tensor on
+    the setup's device, and the CG (`device_while`, as `psolver_cg`) runs
+    on the flat pressure DOFs with its product.  The singular case is
+    handled by the zero-mean projection.  Prefer `psolver_cg` (the
+    matrix-free stencil) or `psolver_fdm` for speed; this one serves an
+    operator inspected or modified as a matrix.  The iteration count of
+    the last call is ``psolve.iterations``."""
+    g = setup.grid
+    if reltol is None:
+        reltol = _default_reltol(setup.dtype)
+    if maxiter is None:
+        maxiter = int(np.prod(g.Np))
+    L = laplacian_mat(setup)
+    diag = L.diagonal()
+    diag = np.where(np.abs(diag) > 0, diag, 1.0)
+    kw = dict(dtype=setup.dtype, device=setup.device)
+    Lt = torch.sparse_csr_tensor(
+        torch.as_tensor(L.indptr, dtype=torch.int64), torch.as_tensor(L.indices, dtype=torch.int64),
+        torch.as_tensor(L.data), size=L.shape, **kw)
+    invdiag = torch.as_tensor(1.0 / diag, **kw)
+
+    center = _centering(setup)
+
+    def psolve(f):
+        x, psolve.iterations = _pcg(center(f.reshape(-1)), lambda q: Lt @ q,
+                                    lambda r: r * invdiag, reltol, abstol, maxiter)
+        return center(x).reshape(f.shape)
+
+    psolve.is_cg = True
+    psolve.iterations = None
+    return psolve
+
+
+def psolver_direct(setup):
+    """Direct solve by a sparse LU of `ops.matrices.laplacian_mat`
+    (`ins_tpu.psolver_direct`), factored once in float64 on the host by
+    SuperLU (`scipy.sparse.linalg.splu`) under a minimum-degree ordering
+    of A' + A, the Laplacian's structure being symmetric (less fill than
+    the default column ordering, so a cheaper solve); where no
+    `PressureBC` makes the Laplacian definite, the
+    bordered system ``[L e; e' 0]`` pins the constant.  Every solve is a
+    host solve: the right-hand side is copied to the host and the
+    solution back to its device (rounded to its dtype), so on the card it
+    costs two copies and a wait, and does not belong in a hot loop (nor
+    does JAX's, a host callback).  It is never swapped for another
+    solver."""
+    L = laplacian_mat(setup)
+    n = L.shape[0]
+    if _is_singular(setup):
+        e = np.ones((n, 1))
+        A = sp.bmat([[L, e], [e.T, None]], format="csc")
+    else:
+        A = sp.csc_matrix(L)
+    lu = spla.splu(A.astype(np.float64), permc_spec="MMD_AT_PLUS_A")
+
+    def host_solve(fvec):
+        if A.shape[0] == n:
+            return lu.solve(fvec)
+        return lu.solve(np.concatenate([fvec, [0.0]]))[:n]
+
+    def psolve(f):
+        fvec = f.detach().reshape(-1).to(device="cpu", dtype=torch.float64).numpy()
+        x = torch.from_numpy(host_solve(fvec)).to(f.dtype)
+        return x.to(f.device).reshape(f.shape)
+
+    psolve.is_direct = True
     return psolve
 
 

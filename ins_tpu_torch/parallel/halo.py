@@ -128,9 +128,9 @@ def _check(setup, method, mesh, psolver, merge, fused):
     if g.dim != 3 or not (all(g.periodic) and all(g.uniform)):
         raise ValueError("the halo path steps a 3-D uniform periodic grid")
     if not isinstance(method, (ExplicitRungeKuttaMethod, LMWray3)):
-        raise NotImplementedError(
-            f"{type(method).__name__} on the halo path: the port steps explicit RK "
-            "tableaus and LMWray3 (IMEX/implicit steppers are ROADMAP queue 1 item 7)"
+        raise ValueError(
+            f"{type(method).__name__} on the halo path: it steps explicit RK "
+            "tableaus and LMWray3, as the JAX package's"
         )
     if psolver == "cg":
         raise NotImplementedError(f"halo_psolver='cg' is not ported yet ({_ITEM})")

@@ -21,9 +21,12 @@ of the channel path (`ops/channelpath.py`) the same way, crossing to and
 from the public ghosted layout with `strip_channel`/`reghost_channel`.
 Every other setup (walls, symmetric and pressure boundaries, stretched
 grids, non-periodic temperature, the ghosted Smagorinsky closure,
-`psolver_cg`, or the channel without `psolver_fdm`) steps the general
-ghosted path: `time_steppers.step.timestep` on the ghosted state (ghost
-fills, the staggered operators, `ops.pressure.project`), as the JAX
+`psolver_cg`, `psolver_cg_matrix`, `psolver_direct`, or the channel
+without `psolver_fdm`) and every other method (AB-CN, one-leg, implicit
+RK tableaus) steps the general ghosted path: `time_steppers.step.timestep`
+on the ghosted state (ghost fills, the staggered operators,
+`ops.pressure.project`; AB-CN and one-leg carry their own states, whose
+``u`` and ``temp`` the NaN guard and the processors see), as the JAX
 package's `else` branch does.  The run is not differentiated (it
 runs under `torch.no_grad`; training unrolls go through
 `models.training`).  The step is an eager Python loop of
@@ -198,7 +201,8 @@ def solve_unsteady(
             s = step(s, dt, theta)
         return s
 
-    state = strip(create_stepper(method, setup=setup, u=ustart, temp=tempstart, t=tlims[0]))
+    state = strip(create_stepper(method, setup=setup, psolver=psolver, u=ustart, temp=tempstart,
+                                 t=tlims[0]))
     return _drive(state, run_chunk, reghost_s, tlims, dt, processors, max_chunk, nan_guard)
 
 

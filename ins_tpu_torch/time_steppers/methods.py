@@ -2,8 +2,10 @@
 
 Port of `ins_tpu/time_steppers/methods.py`: frozen dataclasses holding
 Butcher tableaus as nested tuples of Python floats, so stage coefficients
-reach the kernels as plain float arguments.  The IMEX and one-leg
-methods wait for the general stepper (ROADMAP queue 1 item 7).
+reach the kernels as plain float arguments, and the coefficients of the
+IMEX Adams-Bashforth/Crank-Nicolson and one-leg methods.  The steppers
+are `time_steppers/step.py` (explicit RK, LMWray3), `imex.py` and
+`implicit_rk.py`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ __all__ = [
     "ExplicitRungeKuttaMethod",
     "ImplicitRungeKuttaMethod",
     "LMWray3",
+    "AdamsBashforthCrankNicolsonMethod",
+    "OneLegMethod",
     "runge_kutta_method",
 ]
 
@@ -38,7 +42,10 @@ class ExplicitRungeKuttaMethod:
 
 @dataclasses.dataclass(frozen=True)
 class ImplicitRungeKuttaMethod:
-    """Implicit RK tableau (data only: no stepper in the port yet)."""
+    """Implicit RK tableau, stepped by `implicit_rk.timestep_irk`: the
+    stage system solved by Picard iteration or Newton-Krylov
+    (``newton_type`` "picard", "approximate" or "full"), at most
+    ``maxiter`` iterations, to ``abstol + reltol·|G_0|``."""
 
     A: tuple
     b: tuple
@@ -64,6 +71,31 @@ class LMWray3:
     a: tuple = (8 / 15, 5 / 12, 3 / 4)
     b: tuple = (1 / 4, 0.0)
     c: tuple = (0.0, 8 / 15, 2 / 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamsBashforthCrankNicolsonMethod:
+    """IMEX: Adams-Bashforth convection, Crank-Nicolson diffusion (the
+    implicit diffusion by CG, `imex._solve_implicit_diffusion`).  The
+    first step runs ``method_startup`` to build the history at full
+    order: None means RK44, False the first-order ``c_{-1} = c_0``."""
+
+    alpha1: float = 1.5
+    alpha2: float = -0.5
+    theta: float = 0.5
+    p_add_solve: bool = True
+    method_startup: object = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OneLegMethod:
+    """Verstappen's symmetry-preserving one-leg beta method.  The first
+    step runs ``method_startup``: None means RK44, False the first-order
+    ``u_{-1} = u_0``."""
+
+    beta: float = 0.5
+    p_add_solve: bool = True
+    method_startup: object = None
 
 
 def _tup(m):

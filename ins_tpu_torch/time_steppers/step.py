@@ -5,11 +5,11 @@ Port of `ins_tpu/time_steppers/step.py`: the stepper state, and one
 (`_timestep_erk`) and the low-storage Wray RK3 (`_timestep_lmwray3`),
 each stage a ghost fill, the momentum right-hand side (with the
 buoyancy, the closure model and the temperature right-hand side), the
-stage update, a ghost fill and the projection.  The fast and channel
-paths step their own ghost-free carries (`ops/fastpath.py`,
-`ops/channelpath.py`); `solve_unsteady` calls `timestep` where neither
-applies.  The IMEX (AB-CN, one-leg) and implicit RK steppers wait for
-ROADMAP queue 1 item 7.
+stage update, a ghost fill and the projection; the IMEX AB-CN and
+one-leg methods (`imex.py`, with states of their own) and implicit RK
+tableaus (`implicit_rk.py`).  The fast and channel paths step their own
+ghost-free carries (`ops/fastpath.py`, `ops/channelpath.py`);
+`solve_unsteady` calls `timestep` where neither applies.
 """
 
 from __future__ import annotations
@@ -19,7 +19,13 @@ from typing import Any, NamedTuple
 from ..boundary_conditions import apply_bc_temp, apply_bc_u
 from ..ops.operators import convection_diffusion_temp, dissipation, momentum
 from ..ops.pressure import project
-from .methods import ExplicitRungeKuttaMethod, LMWray3
+from .methods import (
+    AdamsBashforthCrankNicolsonMethod,
+    ExplicitRungeKuttaMethod,
+    ImplicitRungeKuttaMethod,
+    LMWray3,
+    OneLegMethod,
+)
 
 __all__ = ["StepperState", "create_stepper", "timestep"]
 
@@ -36,28 +42,41 @@ class StepperState(NamedTuple):
     n: int
 
 
-def _check_method(method):
-    if not isinstance(method, (ExplicitRungeKuttaMethod, LMWray3)):
-        raise NotImplementedError(
-            f"{type(method).__name__} is not ported yet: the port steps "
-            "explicit RK tableaus and LMWray3 (the IMEX and implicit RK "
-            "steppers are ROADMAP queue 1 item 7)"
-        )
+def create_stepper(method, *, setup, psolver=None, u, temp=None, t=0.0, n=0):
+    """Initial state of `method`: a `StepperState`, or for AB-CN and
+    one-leg their own state, whose initial pressure is solved by
+    `psolver` (`default_psolver(setup)` where None)."""
+    if isinstance(method, AdamsBashforthCrankNicolsonMethod):
+        from .imex import create_stepper_abcn
 
+        return create_stepper_abcn(method, setup=setup, psolver=psolver, u=u, temp=temp, t=t)
+    if isinstance(method, OneLegMethod):
+        from .imex import create_stepper_oneleg
 
-def create_stepper(method, *, setup, u, temp=None, t=0.0, n=0):
-    """Initial state for an explicit RK method or LMWray3."""
-    _check_method(method)
+        return create_stepper_oneleg(method, setup=setup, psolver=psolver, u=u, temp=temp, t=t)
     return StepperState(u=u, temp=temp, t=float(t), n=int(n))
 
 
 def timestep(method, state, dt, *, setup, psolver, theta=None):
     """Advance a ghosted state one step (a new state; the input's tensors
     are not written).  ``theta`` goes to the setup's closure model."""
-    _check_method(method)
     if isinstance(method, ExplicitRungeKuttaMethod):
         return _timestep_erk(method, state, dt, setup=setup, psolver=psolver, theta=theta)
-    return _timestep_lmwray3(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+    if isinstance(method, LMWray3):
+        return _timestep_lmwray3(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+    if isinstance(method, AdamsBashforthCrankNicolsonMethod):
+        from .imex import timestep_abcn
+
+        return timestep_abcn(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+    if isinstance(method, OneLegMethod):
+        from .imex import timestep_oneleg
+
+        return timestep_oneleg(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+    if isinstance(method, ImplicitRungeKuttaMethod):
+        from .implicit_rk import timestep_irk
+
+        return timestep_irk(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+    raise TypeError(f"timestep is not defined for {type(method).__name__}")
 
 
 def _temp_rhs(u, temp, setup):

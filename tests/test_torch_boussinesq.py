@@ -126,7 +126,7 @@ def test_temperaturefield_matches_jax(D):
     def f(pkg):
         return lambda *x: 0.5 + 0.1 * pkg.sin(2 * np.pi * x[0]) * pkg.cos(2 * np.pi * x[-1])
 
-    ref = np.asarray(ins.temperaturefield(sj, f(jnp)))
+    ref = np.asarray(jax.jit(lambda: ins.temperaturefield(sj, f(jnp)))())
     got = it.temperaturefield(st, f(torch))
     assert got.shape == ref.shape and got.dtype == torch.float64
     assert _abs(got.numpy(), ref) < 1e-15
@@ -367,7 +367,7 @@ def test_solve_unsteady_with_temperature_matches_jax(method, capsys):
     def t0(lib):
         return lambda x, y, z: 0.5 + 0.1 * lib.sin(2 * np.pi * x) + 0.05 * lib.cos(2 * np.pi * z)
 
-    T0j = ins.temperaturefield(jset, t0(jnp))
+    T0j = jax.jit(lambda: ins.temperaturefield(jset, t0(jnp)))()
     T0t = it.temperaturefield(tset, t0(torch))
     assert _abs(T0t.numpy(), T0j) < 1e-15
     kw = dict(tlims=(0.0, 4e-3), dt=1e-3)
@@ -396,7 +396,8 @@ def test_observe_nusselt_matches_jax_and_needs_temperature():
     jset, tset = _setups(8, D=2, gdir=1)
     rng = np.random.default_rng(6)
     u = rng.standard_normal((2, 10, 10))
-    T = np.asarray(ins.temperaturefield(jset, lambda x, y: 0.5 + 0.2 * jnp.sin(2 * np.pi * y)))
+    T = np.asarray(jax.jit(lambda: ins.temperaturefield(
+        jset, lambda x, y: 0.5 + 0.2 * jnp.sin(2 * np.pi * y)))())
     st = {"u": u, "temp": T, "t": 0.0, "n": 0}
     ref = ins.processors.observe_nusselt(jset).initialize(
         dict(st, u=jnp.asarray(u), temp=jnp.asarray(T)))

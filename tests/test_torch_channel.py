@@ -246,7 +246,8 @@ def _tufunc(dim, xx, yy, zz):
 def _u0(stretched=True, lid=False, force=False):
     """`ins_tpu.velocityfield` of the parabola plus a perturbation."""
     jset, _ = _setups(stretched=stretched, lid=lid, force=force)
-    return np.asarray(ins.velocityfield(jset, _jufunc, psolver=jfdm.psolver_fdm(jset)))
+    psolver = jfdm.psolver_fdm(jset)
+    return np.asarray(jax.jit(lambda: ins.velocityfield(jset, _jufunc, psolver=psolver))())
 
 
 @pytest.mark.parametrize("stretched,lid", [(True, False), (False, True)])

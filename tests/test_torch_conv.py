@@ -18,8 +18,9 @@ import pytest
 import torch
 
 import ins_tpu as ins
-import ins_tpu.models as jnc
 from ins_tpu.ops import convkernels as jck
+
+from torch_jax_oracles import jax_cnn
 
 import ins_tpu_torch as it
 from ins_tpu_torch import models as nc
@@ -100,7 +101,8 @@ def test_fused_layer_gradient_matches_pallas(actname, has_bias):
     def f_jax(h, w, b):
         return jnp.sum(jnp.sin(jlayer(h, w, b)[..., :cout]))
 
-    vr, gr = jax.value_and_grad(f_jax, argnums=(0, 1, 2))(_lanes(h), jnp.asarray(w), jnp.asarray(b))
+    vr, gr = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1, 2)))(_lanes(h), jnp.asarray(w),
+                                                                    jnp.asarray(b))
     layer = ck.make_fused_layer(actname, has_bias, cin=cin, cout=cout, k=k)
     args = [torch.from_numpy(a).requires_grad_() for a in (h, w, b)]
     v = torch.sum(torch.sin(layer(*args)))
@@ -135,7 +137,7 @@ def cnns(request):
     f64 = request.param == "f64"
     js, ts = _setups(8, torch.float64 if f64 else torch.float32)
     kw = dict(radii=[1, 1], channels=[4, 3], use_bias=[True, False])
-    jcl, jth = jnc.cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
+    jcl, jth = jax_cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
                        rng=jax.random.PRNGKey(0), compute_dtype=jnp.float64 if f64 else None,
                        **kw)
     tcl, _ = nc.cnn(setup=ts, activations=[torch.tanh, lambda v: v],
@@ -147,7 +149,7 @@ def cnns(request):
 def test_cnn_matches_jax(cnns):
     x = np.random.default_rng(11).standard_normal((2, 8, 8, 8, 3))
     x = x.astype(np.float64 if cnns.prec == "f64" else np.float32)
-    ref = cnns.jcl(jnp.asarray(x), cnns.jth)
+    ref = jax.jit(cnns.jcl)(jnp.asarray(x), cnns.jth)
     got = cnns.tcl(torch.from_numpy(x), cnns.tth)
     assert got.dtype == torch.from_numpy(x).dtype and got.shape == x.shape
     assert _rel(got.detach().numpy(), ref) < (TOL_F64 if cnns.prec == "f64" else TOL_BF16)

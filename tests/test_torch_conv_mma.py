@@ -191,7 +191,7 @@ def test_window_products_match_jax_fused_layer(cin, cout, act, has_bias):
         y = jlayer(hl, w_, None if b is None else jnp.asarray(b.numpy()))[..., :cout]
         return jnp.sum(y * jnp.asarray(ct.numpy())), y
 
-    (_, yj), gw = jax.value_and_grad(f_jax, has_aux=True)(jnp.asarray(w.numpy()))
+    (_, yj), gw = jax.jit(jax.value_and_grad(f_jax, has_aux=True))(jnp.asarray(w.numpy()))
     y = _window_forward(h, ck.pack_conv_weights(w), k, cout, b, act)
     assert _rel(y.numpy(), yj) < TOL_F32
     dpre = ct * (1.0 - y * y) if act == "tanh" else ct

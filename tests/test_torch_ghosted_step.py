@@ -109,8 +109,8 @@ def test_timestep_matches_jax(case, method):
         T0 = None
         theta = 0.17
     u0 = rng.standard_normal((js.grid.dim, *js.grid.N))
-    u0 = np.asarray(ins.project(ins.apply_bc_u(jnp.asarray(u0), jnp.asarray(0.0), js), js,
-                                psolver=jp))
+    u0 = np.asarray(jax.jit(lambda a: ins.project(ins.apply_bc_u(a, jnp.asarray(0.0), js), js,
+                                                  psolver=jp))(jnp.asarray(u0)))
     jstep = jax.jit(lambda s: ins.timestep(jm, s, jnp.asarray(0.01), setup=js, psolver=jp,
                                            theta=theta))
     sj = ins.create_stepper(jm, setup=js, psolver=jp, u=jnp.asarray(u0),
@@ -203,12 +203,12 @@ def test_solve_unsteady_general_branch_matches_jax(case):
         _, _, tuf, _, _ = _bfs(it)
     else:
         tuf = uf
-    ju0 = ins.velocityfield(js, uf, psolver=jp)
+    ju0 = jax.jit(lambda: ins.velocityfield(js, uf, psolver=jp))()
     tu0 = it.velocityfield(ts, tuf, psolver=tp)
     assert _rel(tu0, ju0) <= TOL
     jT0 = tT0 = None
     if case == "rayleigh_taylor":
-        jT0 = ins.temperaturefield(js, _rt_temp(jnp))
+        jT0 = jax.jit(lambda: ins.temperaturefield(js, _rt_temp(jnp)))()
         tT0 = it.temperaturefield(ts, _rt_temp(torch))
         assert _rel(tT0, jT0) <= TOL
     jst, jout = ins.solve_unsteady(setup=js, ustart=ju0, tempstart=jT0, tlims=tlims, dt=dt,

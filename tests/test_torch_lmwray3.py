@@ -202,7 +202,8 @@ def test_lmwray3_on_the_channel_raises():
                    boundary_conditions=((ins.PeriodicBC(), ins.PeriodicBC()),
                                         (ins.PeriodicBC(), ins.PeriodicBC()),
                                         (ins.DirichletBC(), ins.DirichletBC())))
-    ju0 = ins.velocityfield(js, lambda d, x, y, z: jnp.sin(2 * np.pi * (x + d * y)) * z * (1 - z))
+    ju0 = jax.jit(lambda: ins.velocityfield(
+        js, lambda d, x, y, z: jnp.sin(2 * np.pi * (x + d * y)) * z * (1 - z)))()
     tu0 = it.velocityfield(s, lambda d, x, y, z: torch.sin(2 * np.pi * (x + d * y)) * z * (1 - z))
     assert _rel(tu0.numpy(), ju0) < TOL_REL
     jst, _ = ins.solve_unsteady(setup=js, ustart=ju0, tlims=(0.0, 0.02), dt=1e-2,

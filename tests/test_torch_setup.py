@@ -256,11 +256,28 @@ def test_port_imports_without_jax():
 
 
 def test_create_stepper_rejects_unported_methods():
-    """Explicit RK and LMWray3 (with a temperature) make a state; the
-    implicit tableaus wait for the general path (ROADMAP queue 1 item 7)."""
+    """Explicit RK and LMWray3 (with a temperature) make a state, and so
+    do the implicit tableaus, whose steps now run: one BE11 step by
+    Picard iteration (a 4² periodic box, f64) equals the JAX package's
+    to 1e-9 relative."""
     tset = it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2)
     u, T = torch.zeros(2, 6, 6), torch.ones(6, 6)
     s = it.create_stepper(it.LMWray3(), setup=tset, u=u, temp=T, t=0.5)
     assert s.temp is T and s.t == 0.5 and s.n == 0
-    with pytest.raises(NotImplementedError, match="ImplicitRungeKuttaMethod.*item 7"):
-        it.create_stepper(it.RKMethods.GL1(), setup=tset, u=u)
+    x = (np.linspace(0, 1, 5),) * 2
+    js = ins.Setup(x=x, Re=10.0, dtype=jnp.float64)
+    ts = it.Setup(device="cpu", x=x, Re=10.0, dtype=torch.float64)
+    jm, tm = ins.RKMethods.BE11(newton_type="picard"), it.RKMethods.BE11(newton_type="picard")
+    xx, yy = np.meshgrid(ts.grid.xp[0], ts.grid.xp[1], indexing="ij")
+    u0 = np.stack([np.sin(2 * np.pi * yy), np.cos(2 * np.pi * xx) + 0.3 * np.sin(2 * np.pi * yy)])
+    jp, tp = ins.psolver_spectral(js), it.psolver_spectral(ts)
+    u0 = np.asarray(jax.jit(lambda a: ins.project(a, js, psolver=jp))(jnp.asarray(u0)))
+    sj = jax.jit(lambda s: ins.timestep(jm, s, 0.05, setup=js, psolver=jp))(
+        ins.create_stepper(jm, setup=js, psolver=jp, u=jnp.asarray(u0)))
+    st = it.create_stepper(tm, setup=ts, psolver=tp, u=torch.from_numpy(u0))
+    assert isinstance(st, it.time_steppers.StepperState)
+    with torch.no_grad():
+        st = it.timestep(tm, st, 0.05, setup=ts, psolver=tp)
+    ref = np.asarray(sj.u)
+    assert st.n == 1 and np.max(np.abs(st.u.numpy() - ref)) <= 1e-9 * np.max(np.abs(ref))
+    assert np.max(np.abs(st.u.numpy() - u0)) > 1e-3

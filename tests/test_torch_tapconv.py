@@ -127,7 +127,7 @@ def test_conv_layer_vjp_matches_jax(actname, has_bias, pack):
     def f_jax(g, w2, b):
         return jnp.sum(jnp.sin(jlayer(g, w2, b)[..., :cout]))
 
-    v_ref, grads_ref = jax.value_and_grad(f_jax, argnums=(0, 1, 2))(
+    v_ref, grads_ref = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1, 2)))(
         jnp.asarray(g), jnp.asarray(w2), jnp.asarray(b))
     layer = ck.make_conv_layer(actname, has_bias, pack=pack)
     leaves = (_t(g, True), _t(w2, True), _t(b, True))
@@ -174,8 +174,8 @@ def test_pallas_conv_layer_stack_matches_jax(dtype, tol):
         y = jax_conv_layer(y, w2, None, 1, True, "id", cdt, True)
         return jnp.sum(y * y), y
 
-    (v_ref, y_ref), grads_ref = jax.value_and_grad(f_jax, argnums=(0, 1, 2, 3), has_aux=True)(
-        *map(jnp.asarray, (h, w1, b1, w2)))
+    (v_ref, y_ref), grads_ref = jax.jit(jax.value_and_grad(
+        f_jax, argnums=(0, 1, 2, 3), has_aux=True))(*map(jnp.asarray, (h, w1, b1, w2)))
     leaves = tuple(_t(a, True) for a in (h, w1, b1, w2))
     cdt = getattr(torch, dtype)
     y = _pallas_conv_layer(leaves[0], leaves[1], leaves[2], 1, True, "tanh", cdt)

@@ -4,7 +4,9 @@ A CNN closure (radii (1, 1), channels (4, 3), float64 convs) with the
 JAX package's parameters carried by `convert`, an RK44 unroll on a 16³
 periodic box: the loss and its gradient with respect to the CNN
 parameters, with and without remat, two Adam `train` iterations against
-`optax.adam`, and `solve_unsteady` with the closure attached.  On CPU
+the JAX package's `train`, and `solve_unsteady` with the closure
+attached.  The JAX loss's value and gradient (with and without remat)
+and its relative error are compiled once for the module.  On CPU
 tensors the per-op chain runs the kernels' plain versions and their
 custom VJPs; the card runs the same chain through the CUDA kernels
 (`chip_smoke.py`).
@@ -20,6 +22,8 @@ import torch
 
 import ins_tpu as ins
 import ins_tpu.models as jnc
+
+from torch_jax_oracles import jax_cnn
 
 import ins_tpu_torch as it
 from ins_tpu_torch import models as nc
@@ -51,7 +55,7 @@ def case():
     js = ins.Setup(x=x, Re=2000.0, dtype=jnp.float64)
     ts = it.Setup(device="cpu", x=x, Re=2000.0, dtype=torch.float64)
     kw = dict(radii=[1, 1], channels=[4, 3], use_bias=[True, False])
-    jcl, jth = jnc.cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
+    jcl, jth = jax_cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
                        rng=jax.random.PRNGKey(0), compute_dtype=jnp.float64, **kw)
     tcl, _ = nc.cnn(setup=ts, activations=[torch.tanh, lambda v: v],
                     compute_dtype=torch.float64, **kw)
@@ -62,6 +66,30 @@ def case():
         x=x, js=js, ts=ts, jth=jth, jm=jnc.wrappedclosure(jcl, js),
         tm=nc.wrappedclosure(tcl, ts), u0=u0, us=us, tt=tt,
     )
+
+
+@pytest.fixture(scope="module")
+def jref(case):
+    """The module's JAX oracles, each compiled once: the RK44 loss's value
+    and gradient with respect to the CNN parameters at the case's
+    parameters, with and without remat (``grads[remat]``), and the
+    relative error of the same unroll (``relerr``, compiled with the
+    gradient without remat)."""
+    us, tt = jnp.asarray(case.us), jnp.asarray(case.tt)
+    relerr = jnc.create_relerr_post(
+        data={"u": case.us, "t": case.tt}, setup=case.js, method=ins.RKMethods.RK44(),
+        psolver=ins.psolver_spectral(case.js), closure_model=case.jm,
+    )
+    grads = {}
+    for remat in (False, True):
+        jl, _ = _losses(case, remat)
+        vg = jax.value_and_grad(lambda th, u, t, jl=jl: jl([{"u": u, "t": t}], th))
+        if remat:
+            grads[remat] = jax.jit(vg)(case.jth, us, tt)
+        else:
+            grads[remat], err = jax.jit(lambda th, u, t: (vg(th, u, t), relerr(th)))(
+                case.jth, us, tt)
+    return types.SimpleNamespace(grads=grads, relerr=err)
 
 
 def _losses(c, remat):
@@ -75,10 +103,9 @@ def _losses(c, remat):
 
 
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
-def test_loss_post_and_gradient_match_jax(case, remat):
-    jl, tl = _losses(case, remat)
-    f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
-    jv, jg = f(case.jth, jnp.asarray(case.us), jnp.asarray(case.tt))
+def test_loss_post_and_gradient_match_jax(case, jref, remat):
+    _, tl = _losses(case, remat)
+    jv, jg = jref.grads[remat]
     theta = cnn_params_from_numpy(case.jth, device="cpu")
     launches.reset_counts()
     tv = tl([{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}], theta)
@@ -115,18 +142,15 @@ def test_train_matches_optax_adam(case):
         assert _rel(t.detach().numpy(), jnew[name]) < TOL, name
 
 
-def test_relerr_post_matches_jax(case):
-    jref = jnc.create_relerr_post(
-        data={"u": case.us, "t": case.tt}, setup=case.js, method=ins.RKMethods.RK44(),
-        psolver=ins.psolver_spectral(case.js), closure_model=case.jm,
-    )(case.jth)
+def test_relerr_post_matches_jax(case, jref):
+    ref = jref.relerr
     got = nc.create_relerr_post(
         data={"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)},
         setup=case.ts, method=it.RKMethods.RK44(), psolver=it.psolver_spectral(case.ts),
         closure_model=case.tm,
     )(cnn_params_from_numpy(case.jth, device="cpu"))
     assert not got.requires_grad
-    assert abs(got.item() - float(jref)) < TOL * abs(float(jref))
+    assert abs(got.item() - float(ref)) < TOL * abs(float(ref))
 
 
 def test_solve_unsteady_with_closure_matches_jax(case):
@@ -207,33 +231,22 @@ def test_prior_losses():
 
 def test_training_off_the_fast_path_raises(case):
     """LMWray3 trains through the per-op chain (loss and gradient equal
-    `jax.grad`'s, 8³); off the periodic fast path (here without the
-    spectral solver) training still raises."""
-    n = 8
-    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
-    js = ins.Setup(x=x, Re=2000.0, dtype=jnp.float64)
-    ts = it.Setup(device="cpu", x=x, Re=2000.0, dtype=torch.float64)
-    kw = dict(radii=[1, 1], channels=[4, 3], use_bias=[True, False])
-    jcl, jth = jnc.cnn(setup=js, activations=[jax.nn.tanh, lambda v: v],
-                       rng=jax.random.PRNGKey(1), compute_dtype=jnp.float64, **kw)
-    tcl, _ = nc.cnn(setup=ts, activations=[torch.tanh, lambda v: v],
-                    compute_dtype=torch.float64, **kw)
-    u0 = np.array(jax.jit(lambda k: ins.random_field(js, kp=2, rng=k))(jax.random.PRNGKey(4)))
-    us = np.stack([u0 * (1.0 - 0.01 * i) for i in range(NUNROLL + 1)])
-    tt = np.arange(NUNROLL + 1) * DT
-    jl = jnc.create_loss_post(setup=js, method=ins.LMWray3(), psolver=ins.psolver_spectral(js),
-                              closure_model=jnc.wrappedclosure(jcl, js))
+    `jax.grad`'s, the module's 16³ case); off the periodic fast path
+    (here without the spectral solver) training still raises."""
+    jl = jnc.create_loss_post(setup=case.js, method=ins.LMWray3(),
+                              psolver=ins.psolver_spectral(case.js), closure_model=case.jm)
     f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
-    jv, jg = f(jth, jnp.asarray(us), jnp.asarray(tt))
-    tm = nc.wrappedclosure(tcl, ts)
-    data = [{"u": torch.from_numpy(us), "t": torch.from_numpy(tt)}]
-    theta = cnn_params_from_numpy(jth, device="cpu")
-    tv = nc.create_loss_post(setup=ts, method=it.LMWray3(), psolver=it.psolver_spectral(ts),
-                             closure_model=tm)(data, theta)
+    jv, jg = f(case.jth, jnp.asarray(case.us), jnp.asarray(case.tt))
+    data = [{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}]
+    theta = cnn_params_from_numpy(case.jth, device="cpu")
+    tv = nc.create_loss_post(setup=case.ts, method=it.LMWray3(),
+                             psolver=it.psolver_spectral(case.ts),
+                             closure_model=case.tm)(data, theta)
     tg = torch.autograd.grad(tv, list(theta.values()))
     assert abs(tv.item() - float(jv)) < TOL * abs(float(jv))
     for name, g in zip(theta, tg):
         assert _rel(g.numpy(), jg[name]) < TOL, name
-    off = nc.create_loss_post(setup=ts, method=it.LMWray3(), psolver=None, closure_model=tm)
+    off = nc.create_loss_post(setup=case.ts, method=it.LMWray3(), psolver=None,
+                              closure_model=case.tm)
     with pytest.raises(NotImplementedError, match="fast path"):
         off(data, theta)
