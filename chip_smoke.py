@@ -12,6 +12,8 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # general path (IMEX and implicit
                                       # RK steppers, the matrix solvers,
                                       # the observers)
+    python3 chip_smoke.py --adaptive  # only phase 15, adaptive (CFL)
+                                      # stepping and unsteady forces
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
@@ -402,7 +404,36 @@ Phases, each raising on failure (exit code != 0, no result line):
    against float64 (`STREAM_TOL`).  Each case: ms/step (the unprofiled
    wall of `profile_ghosted`) and its idle share.  `--general2` runs this
    phase alone, after the kernel build.
-15. Print the kernel table (JSON: per kernel its launches on the main
+15. Adaptive (CFL) time stepping and unsteady body forces
+   (`phase_adaptive`), float32 on the card.  `adaptive_hat256`: phase 2's
+   256³ RK44 hat chain from its random field, `solve_unsteady(dt=None,
+   cfl=0.9)` to 20 seed dt's, with the CFL limit recomputed every step
+   and every 10th (`n_adapt_dt` 1 and 10); `adaptive_channel`: phase 4's
+   256×128×128 channel, the same; `adaptive_cavity128`: phase 13's cavity
+   from rest with a time-periodic body force on the general path, the
+   same.  Each run: exactly the launches the chain makes (the hat chain:
+   `momentum_stage_divhat_3d` once, `pcmsd_hat_3d` 4n − 1, `passB_fold`
+   4n, `pressure_correct_qhat_3d` once a recompute on a carry plus the
+   chunk end; the channel: `channel_msd_3d` 4n and its correction once a
+   recompute plus the end; the cavity none), no plain version on CUDA,
+   finite, every recomputed dt within `ADAPTIVE_DT_TOL` (1e-6) of 0.9 ×
+   the float64 CFL limit of the same corrected u on the same grid
+   (`cfl_twin`; the distance from the float64 grid's limit is printed
+   beside it: the float32 grid's spacings carry their coordinates'
+   rounding), and the run bit for
+   bit the chain stepped by hand with that dt sequence.  Then each
+   chain's ms/step at a fixed dt and with the recompute every step and
+   every 10th, in turns, and their idle shares under the profiler.
+   `unsteady_periodic256`: the 256³ roll route (the fused chains decline
+   the force) with a time-periodic force, 5 RK44 steps through
+   `solve_unsteady`: its 3-pass Poisson solve (`make_poisson_pallas`,
+   its folded pass B) launched 4 times a step, no plain version, within
+   `REL_TOL` of the float64 run of the plain versions, and moved by the
+   force (against the run without it); ms/step.  Last, the fast
+   diagonalization's null-mode counts (the port's per-axis test and the
+   JAX package's sum test) on the script's FDM grids.  `--adaptive` runs
+   this phase alone, after the kernel build.
+16. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -412,8 +443,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    (2048, 512, 2048)) stays in the table with 0 launches; no main path
    runs it (every folded cube here has n <= `FOLD_FUSED_MAX_N`, where the
    fused kernel runs: phases 2 and 8 fail on a level-route launch).  The
-   dense pass B's launches are phase 12's.  Each phase prints its
-   seconds.
+   dense pass B's launches are phase 12's; the hat, channel and 3-pass
+   solve kernels' include phase 15's.  Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -1577,15 +1608,15 @@ def phase_kernels(cases_fn, sizes, time_all=()):
 # --------------------------------------------------------------------------
 
 
-def headline_setup(n, bodyforce=None):
+def headline_setup(n, bodyforce=None, dtype=None, steady=True):
     import torch
 
     import ins_tpu_torch as it
 
     x = tuple(np.linspace(0.0, 2 * np.pi, n + 1) for _ in range(3))
     bc = ((it.PeriodicBC(), it.PeriodicBC()),) * 3
-    return it.Setup(x=x, boundary_conditions=bc, Re=4000.0, dtype=torch.float32,
-                    device=DEVICE, bodyforce=bodyforce)
+    return it.Setup(x=x, boundary_conditions=bc, Re=4000.0, dtype=dtype or torch.float32,
+                    device=DEVICE, bodyforce=bodyforce, issteadybodyforce=steady)
 
 
 def check_divergence(u, dx, tag, unscaled_tol=1e-3):
@@ -2066,10 +2097,10 @@ CHANNEL_BOX = (256, 128, 128)
 CHANNEL_RAGGED_BOXES = ((40, 26, 20), (32, 20, 36), (48, 24, 40))
 
 
-def channel_setup(box):
+def channel_setup(box, dtype=None):
     """`bench.py`'s `make_channel` configuration on `box`, through the
     port's `Setup`: x/y periodic, no-slip z walls on a tanh(1.2) grid,
-    Re = 1e3, steady body force (1, 0, 0), f32."""
+    Re = 1e3, steady body force (1, 0, 0), f32 (or `dtype`)."""
     import torch
 
     import ins_tpu_torch as it
@@ -2080,7 +2111,7 @@ def channel_setup(box):
     wall = it.DirichletBC()
     bc = ((it.PeriodicBC(), it.PeriodicBC()), (it.PeriodicBC(), it.PeriodicBC()), (wall, wall))
     return it.Setup(
-        x=x, boundary_conditions=bc, Re=1e3, dtype=torch.float32, device=DEVICE,
+        x=x, boundary_conditions=bc, Re=1e3, dtype=dtype or torch.float32, device=DEVICE,
         bodyforce=lambda dim, xx, yy, zz, t: (1.0 if dim == 0 else 0.0) + 0.0 * xx,
     )
 
@@ -5587,6 +5618,370 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
 }
 
 
+# --------------------------------------------------------------------------
+# phase 15: adaptive (CFL) time stepping and unsteady body forces
+# --------------------------------------------------------------------------
+
+ADAPTIVE_CFL = 0.9
+ADAPTIVE_STEPS = 20  # about this many steps a run: tend is this many seed dt's
+ADAPTIVE_N_ADAPT = (1, 10)
+# each step's dt against ADAPTIVE_CFL times the float64 CFL limit of the
+# corrected u on the same grid (`cfl_twin`: the float32 limit rounds its
+# division once, the product once)
+ADAPTIVE_DT_TOL = 1e-6
+ADAPTIVE_CAVITY_N = 128
+UNSTEADY_N = 256
+UNSTEADY_STEPS = 5
+
+
+def unsteady_force(dim, x, y, z, t):
+    """A time-periodic force on the 2π-periodic cube: (0.5 sin(y) cos(200 t),
+    0.25 cos(x) sin(200 t), 0); one period is ~63 steps of 5e-4."""
+    import torch
+
+    if dim == 0:
+        return 0.5 * torch.sin(y) * torch.cos(200 * t)
+    if dim == 1:
+        return 0.25 * torch.cos(x) * torch.sin(200 * t)
+    return 0.0 * z
+
+
+def cavity_force(dim, x, y, z, t):
+    """A time-periodic force in the unit cavity: (0.5 sin(πz) cos(20 t),
+    0.25 sin(πx) sin(20 t), 0)."""
+    import torch
+
+    if dim == 0:
+        return 0.5 * torch.sin(np.pi * z) * torch.cos(20 * t)
+    if dim == 1:
+        return 0.25 * torch.sin(np.pi * x) * torch.sin(20 * t)
+    return 0.0 * z
+
+
+def adaptive_cavity_setup(n, dtype):
+    """Phase 13's cavity (`cavity_setup`) with the unsteady `cavity_force`."""
+    import ins_tpu_torch as it
+
+    base = cavity_setup(n, dtype)
+    x = tuple(np.linspace(0.0, 1.0, n + 1) for _ in range(3))
+    return it.Setup(x=x, boundary_conditions=base.boundary_conditions, Re=base.Re, dtype=dtype,
+                    device=DEVICE, bodyforce=cavity_force, issteadybodyforce=False)
+
+
+def cfl_twin(setup):
+    """The float32 ``setup`` as float64 with its grid's pressure-point
+    distances widened, not recomputed: `get_cfl_timestep` of it is the
+    float32 setup's limit in float64 arithmetic.  (A float64 grid's own
+    distances differ from the float32 grid's by its coordinates'
+    rounding: up to ~8e-6 of a spacing on the 2π cube at 256, more on
+    longer boxes.)"""
+    import dataclasses
+
+    import torch
+
+    g = setup.grid
+    grid = dataclasses.replace(g, delta_u=tuple(np.asarray(d, np.float64) for d in g.delta_u))
+    return dataclasses.replace(setup, grid=grid, dtype=torch.float64)
+
+
+def adaptive_by_hand(setup, setup64, fns, state, tend, n_adapt, max_steps=None):
+    """The chain ``fns`` (to, step, from) stepped as `solve_unsteady(dt=None,
+    cfl=ADAPTIVE_CFL)` steps it in one chunk, written out: every
+    ``n_adapt`` steps dt = cfl × `get_cfl_timestep` of the corrected u,
+    cut to what is left to ``tend``, t and dt in the setup's dtype.
+    Returns the final state, the dt list and the largest relative
+    distances of a recomputed dt from cfl × the CFL limit of the same u in
+    float64, on the same grid (`cfl_twin`) and on the float64 grid
+    ``setup64``.  ``max_steps`` stops it early (a pilot run)."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    fdt = np.float32 if setup.dtype == torch.float32 else np.float64
+    to, step, frm = fns
+    cfl, tend_ = fdt(ADAPTIVE_CFL), fdt(tend)
+    margin = fdt(1e-14) * max(fdt(1.0), abs(tend_))
+    dtc = cfl * fdt(it.get_cfl_timestep(state.u, setup).item())
+    c = to(state._replace(t=fdt(state.t)))
+    twin = cfl_twin(setup)
+    dts, worst = [], [0.0, 0.0]
+    while c.t < tend_ - margin and (max_steps is None or len(dts) < max_steps):
+        if c.n % n_adapt == 0:
+            u = frm(c).u
+            dtc = cfl * fdt(it.get_cfl_timestep(u, setup).item())
+            for i, s64 in enumerate((twin, setup64)):
+                ref = ADAPTIVE_CFL * it.get_cfl_timestep(u.double(), s64).item()
+                worst[i] = max(worst[i], abs(float(dtc) - ref) / ref)
+        dt = fdt(min(dtc, tend_ - c.t))
+        dts.append(dt)
+        c = step(c, dt)
+    return frm(c), dts, worst
+
+
+def timed_idle(fn):
+    """(wall ms, device ms, idle share) of one fn() call after a warm-up
+    call, under torch.profiler (device ms None where the trace holds no
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, (dev if dev > 0 else None), (1.0 - dev / wall if dev > 0 else None)
+
+
+def adaptive_costs(tag, setup, fns, state, steps=10):
+    """ms/step of the chain at a fixed dt (the seed's) and with the CFL
+    limit recomputed every n_adapt steps (each recompute: `from` of the
+    carry, `get_cfl_timestep`, its host read), in turns (fixed, every
+    step, every 10th, every 10th, every step, fixed), each after two
+    warm-up steps; then each mode's idle share under the profiler."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    fdt = np.float32 if setup.dtype == torch.float32 else np.float64
+    to, step, frm = fns
+    dt0 = fdt(ADAPTIVE_CFL) * fdt(it.get_cfl_timestep(state.u, setup).item())
+
+    def run(n_adapt):
+        c = step(step(to(state), dt0), dt0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dt = dt0
+        for i in range(steps):
+            if n_adapt and i % n_adapt == 0:
+                dt = fdt(ADAPTIVE_CFL) * fdt(it.get_cfl_timestep(frm(c).u, setup).item())
+            c = step(c, dt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    modes = {"fixed": 0, "every step": 1, "every 10th": 10}
+    times = {k: [] for k in modes}
+    for k in ("fixed", "every step", "every 10th", "every 10th", "every step", "fixed"):
+        times[k].append(run(modes[k]))
+    idle = {k: timed_idle(lambda v=v: run(v)) for k, v in modes.items()}
+    print(f"[{tag}] ms/step in turns: " + "; ".join(
+        f"{k} {sum(v) / len(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})" for k, v in times.items())
+        + f"; the recompute every step costs "
+        f"{(sum(times['every step']) - sum(times['fixed'])) / sum(times['fixed']) * 100:.2f} %")
+    print(f"[{tag}] under the profiler, {steps} steps (wall ms, device ms, idle share): "
+          + "; ".join(f"{k} {w:.3f}, {d if d is None else f'{d:.3f}'}, "
+                      f"{i if i is None else f'{i:.4f}'}" for k, (w, d, i) in idle.items())
+          + f"; card {card_line('clocks.sm,power.draw,temperature.gpu')}")
+    return times, idle
+
+
+def adaptive_case(tag, setup, setup64, fns, state0, ustart, method, psolver, strip, expect):
+    """`solve_unsteady(dt=None, cfl=ADAPTIVE_CFL, n_adapt_dt=k)` for each k
+    of `ADAPTIVE_N_ADAPT` from ``ustart`` (``state0`` in the chain's
+    layout) to the t that a pilot of the chain stepped by hand reaches in
+    `ADAPTIVE_STEPS` steps: its launches are ``expect(n, k)`` exactly (no
+    other kernel but the plane transforms, no plain version on CUDA), the
+    state finite, every recomputed dt within `ADAPTIVE_DT_TOL` of cfl ×
+    the float64 CFL limit of its u, the run bit for bit the chain ``fns``
+    stepped by hand (`adaptive_by_hand`).  Returns the launches summed
+    over the runs, and the last run's state."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+
+    pilot, _, _ = adaptive_by_hand(setup, setup64, fns, state0, 1e30, 1, ADAPTIVE_STEPS)
+    tend = float(pilot.t)
+    del pilot
+    total = {}
+    for k in ADAPTIVE_N_ADAPT:
+        launches.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = it.solve_unsteady(setup=setup, ustart=ustart, tlims=(0.0, tend), dt=None,
+                                     cfl=ADAPTIVE_CFL, n_adapt_dt=k, method=method,
+                                     psolver=psolver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: v for n, v in launches.LAUNCHES.items() if v}
+        plain = {n: v for n, v in launches.PLAIN_ON_CUDA.items() if v}
+        u = strip(state.u)
+        if plain:
+            fail(f"[{tag}] plain versions ran on CUDA tensors: {plain}")
+        if not bool(torch.isfinite(u).all()):
+            fail(f"[{tag}] non-finite velocity after the adaptive run")
+        hand, dts, worst = adaptive_by_hand(setup, setup64, fns, state0, tend, k)
+        want = expect(state.n, k)
+        got = {n: v for n, v in counts.items() if n != "plane_transform"}
+        print(f"[{tag}] solve_unsteady(dt=None, cfl={ADAPTIVE_CFL}, n_adapt_dt={k}) to t = "
+              f"{tend:.6e}: {state.n} steps, {wall:.3f} s wall (first call included), t = "
+              f"{float(state.t):.9e}; dt from {float(min(dts)):.6e} to {float(max(dts)):.6e}; "
+              f"launches {counts}; each recomputed dt within {worst[0]:.3e} of cfl x the "
+              f"float64 CFL limit on the same grid ({worst[1]:.3e} on the float64 grid); the "
+              f"chain stepped by hand: {len(dts)} steps, "
+              f"{'bit-identical' if torch.equal(u, hand.u) else 'DIFFERENT'}")
+        if state.n != len(dts) or not torch.equal(u, hand.u) or float(state.t) != float(hand.t):
+            fail(f"[{tag}] the adaptive run differs from its chain stepped by hand")
+        if not worst[0] <= ADAPTIVE_DT_TOL:
+            fail(f"[{tag}] a dt is {worst[0]:.3e} from cfl x the float64 CFL limit")
+        if got != want:
+            fail(f"[{tag}] launches {got}, expected {want}")
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+    return total, state
+
+
+def phase_adaptive(n=256, channel_box=None, cavity_n=ADAPTIVE_CAVITY_N, unsteady_n=UNSTEADY_N):
+    """15: adaptive (CFL) stepping on the hat chain, the channel and the
+    general path, and an unsteady force on the roll route; returns the
+    kernels' launches of its runs."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.channelpath import make_channel_timestep_hat, strip_channel
+    from ins_tpu_torch.ops.fastpath import (
+        hat_chain_applicable,
+        make_fast_timestep,
+        make_fast_timestep_hat,
+        strip_ghosts,
+        strip_state,
+    )
+    from ins_tpu_torch.ops.fdm import fdm_null_modes
+
+    f64 = torch.float64
+    method = it.RKMethods.RK44()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # adaptive_hat256: the main path's chain from its random field
+    setup, setup64 = headline_setup(n), headline_setup(n, dtype=f64)
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+    fns = make_fast_timestep_hat(setup, method)
+    counts, _ = adaptive_case(
+        f"adaptive_hat{n}", setup, setup64, fns, s0, u0, method, it.psolver_spectral(setup),
+        strip_ghosts,
+        lambda m, k: {"momentum_stage_divhat_3d": 1, "pcmsd_hat_3d": 4 * m - 1,
+                      "passB_fold": 4 * m, "pressure_correct_qhat_3d": -(-m // k)})
+    add(counts)
+    adaptive_costs(f"adaptive_hat{n}", setup, fns, s0)
+    del setup, setup64, u0, s0, fns
+    torch.cuda.empty_cache()
+
+    # adaptive_channel: phase 4's channel
+    box = channel_box or CHANNEL_BOX
+    setup, setup64 = channel_setup(box), channel_setup(box, dtype=f64)
+    psolver = it.default_psolver(setup)
+    u0 = channel_u0(setup, psolver)
+    s0 = it.create_stepper(method, setup=setup, u=strip_channel(u0))
+    fns = make_channel_timestep_hat(setup, method)
+    counts, _ = adaptive_case(
+        "adaptive_channel", setup, setup64, fns, s0, u0, method, psolver, strip_channel,
+        lambda m, k: {"channel_msd_3d": 4 * m, "channel_pressure_correct_3d": -(-m // k) + 1})
+    add(counts)
+    adaptive_costs("adaptive_channel", setup, fns, s0)
+    del setup, setup64, u0, s0, fns, psolver
+    torch.cuda.empty_cache()
+
+    # adaptive_cavity128: the general path with a time-periodic force, from
+    # the flow 10 adaptive steps after rest (the lid's start, where dt
+    # falls ten-fold, is no state to hold a dt over 10 steps from)
+    setup = adaptive_cavity_setup(cavity_n, torch.float32)
+    setup64 = adaptive_cavity_setup(cavity_n, f64)
+    psolver = it.default_psolver(setup)
+
+    def general_step(s, dt):
+        return it.timestep(method, s, dt, setup=setup, psolver=psolver)
+
+    fns = (_same, general_step, _same)
+    rest = torch.zeros((3, *setup.grid.N), dtype=torch.float32, device=DEVICE)
+    warm, _, _ = adaptive_by_hand(setup, setup64, fns,
+                                  it.create_stepper(method, setup=setup, u=rest), 1e30, 1, 10)
+    u0 = warm.u
+    s0 = it.create_stepper(method, setup=setup, psolver=psolver, u=u0)
+    del rest, warm
+    _, state = adaptive_case(f"adaptive_cavity{cavity_n}", setup, setup64, fns, s0, u0, method,
+                             psolver, _same, lambda m, k: {})
+    ghost = dirichlet_ghost_error(setup, state.t, state.u)
+    print(f"[adaptive_cavity{cavity_n}] Dirichlet ghosts {ghost:.3e} from their wall values; "
+          f"max|u| {state.u.abs().max().item():.6f}")
+    if ghost != 0.0:
+        fail(f"[adaptive_cavity{cavity_n}] a Dirichlet ghost is {ghost:.3e} from its wall value")
+    adaptive_costs(f"adaptive_cavity{cavity_n}", setup, fns, s0, steps=5)
+    del setup, setup64, u0, s0, fns, psolver, state
+    torch.cuda.empty_cache()
+
+    # unsteady_periodic256: the roll route with a time-periodic force; its
+    # 3-pass Poisson solve on the card against a float64 run of the plain
+    # versions
+    setup = headline_setup(unsteady_n, bodyforce=unsteady_force, steady=False)
+    if hat_chain_applicable(setup, method) or make_fast_timestep_hat(setup, method) is not None:
+        fail("the fused chains took an unsteady body force")
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(2))
+    dt = 1e-3 * 128 / unsteady_n
+    tlims = (0.01, 0.01 + UNSTEADY_STEPS * dt)
+    launches.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = it.solve_unsteady(setup=setup, ustart=u0, tlims=tlims, dt=dt, method=method,
+                                 psolver=it.psolver_spectral(setup))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+    want = {"poisson_pallas": 4 * UNSTEADY_STEPS, "passB_fold": 4 * UNSTEADY_STEPS}
+    if plain or {k: v for k, v in counts.items() if k != "plane_transform"} != want:
+        fail(f"[unsteady_periodic{unsteady_n}] launches {counts} (plain {plain}), "
+             f"expected {want} and the plane transforms")
+    add(counts)
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail(f"[unsteady_periodic{unsteady_n}] non-finite velocity")
+    setup64 = headline_setup(unsteady_n, bodyforce=unsteady_force, dtype=f64, steady=False)
+    step64 = make_fast_timestep(setup64, method, plain=True)
+    s = strip_state(it.create_stepper(method, setup=setup64, u=u0.double(), t=tlims[0]))
+    for _ in range(UNSTEADY_STEPS):
+        s = step64(s, dt)
+    err = rel_err(u, s.u)
+    kept = headline_setup(unsteady_n)
+    s_steady = strip_state(it.create_stepper(method, setup=kept, u=u0, t=tlims[0]))
+    step_nf = make_fast_timestep(kept, method, _force_roll=True)
+    for _ in range(UNSTEADY_STEPS):
+        s_steady = step_nf(s_steady, dt)
+    moved = rel_err(u, s_steady.u)
+    step32 = make_fast_timestep(setup, method)
+    s32 = strip_state(it.create_stepper(method, setup=setup, u=u0, t=tlims[0]))
+    ms = cuda_ms(lambda: step32(s32, dt), reps=5, warmup=1)
+    print(f"[unsteady_periodic{unsteady_n}] solve_unsteady, RK44 f32 roll route with the "
+          f"time-periodic force, {UNSTEADY_STEPS} steps of {dt:.3e} from t = {tlims[0]}: "
+          f"{wall:.3f} s wall (first call included); launches {counts}; against the float64 "
+          f"run of the plain versions: max rel diff {err:.3e} (bound {REL_TOL:.0e}); against "
+          f"the same run without the force: {moved:.3e}; {ms:.3f} ms/step")
+    if not err <= REL_TOL:
+        fail(f"[unsteady_periodic{unsteady_n}] {err:.3e} from the float64 run")
+    if not moved > 10 * err:
+        fail(f"[unsteady_periodic{unsteady_n}] the force did not move the run")
+    del setup, setup64, kept, u0, u, state, s, s_steady, s32
+    torch.cuda.empty_cache()
+
+    # the fast diagonalization's null modes on the FDM grids this script
+    # builds: the port's per-axis test and the JAX package's sum test
+    for tag, st in (("channel", channel_setup(box)), (f"cavity{cavity_n}",
+                                                      cavity_setup(cavity_n, torch.float32)),
+                    (f"rb3d{RB_N}", rb3d_setup(RB_N)), ("ldc2d512", ldc2d_setup(512, f64))):
+        per_axis, by_sum = fdm_null_modes(st)
+        print(f"[adaptive] fdm null modes on {tag} {tuple(st.grid.Np)}: {per_axis} by the "
+              f"per-axis test, {by_sum} by the JAX package's sum test")
+    return totals
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stack-turns", metavar="PARENT",
@@ -5652,6 +6047,10 @@ def main():
                          "implicit RK on the 128³ cavity, psolver_cg_matrix, psolver_direct on "
                          "the 512² 2-D cavity, the observers); builds the kernels for the "
                          "channel's wall shear")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="only phase 15 (adaptive CFL stepping on the 256³ hat chain, the "
+                         "channel and the 128³ cavity's general path, an unsteady force on "
+                         "the 256³ roll route), after the kernel build")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -5740,6 +6139,12 @@ def main():
         t0 = time.perf_counter()
         phase_general2()
         print(f"[time] phase 14 (the rest of the general path): {time.perf_counter() - t0:.1f} s")
+        return
+    if args.adaptive:
+        t0 = time.perf_counter()
+        launched = phase_adaptive()
+        print(f"[adaptive] launches of the phase's runs: {launched}")
+        print(f"[time] phase 15 (adaptive dt, unsteady forces): {time.perf_counter() - t0:.1f} s")
         return
     ptxas_report()
 
@@ -5849,11 +6254,17 @@ def main():
     phase_done("phase 13 (the general ghosted path)")
     phase_general2()
     phase_done("phase 14 (the rest of the general path)")
-    counts = {**{k: hat_counts[k] for k in HAT_KERNELS + ("passB_fold+levels",)},
+    adaptive_counts = phase_adaptive()
+    phase_done("phase 15 (adaptive dt, unsteady forces)")
+
+    def with_adaptive(k, v):
+        return v + adaptive_counts.get(k, 0)
+
+    counts = {**{k: with_adaptive(k, hat_counts[k]) for k in HAT_KERNELS + ("passB_fold+levels",)},
               "passB": dense_counts["passB"],
               **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},
-              "make_poisson_pallas": train_counts["poisson_pallas"],
-              **{k: channel_counts[k] for k in CHANNEL_KERNELS},
+              "make_poisson_pallas": with_adaptive("poisson_pallas", train_counts["poisson_pallas"]),
+              **{k: with_adaptive(k, channel_counts[k]) for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
               **{k: halo_counts[k] for k in HALO_KERNELS + ("passB_sharded+levels",)},

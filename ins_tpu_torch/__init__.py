@@ -64,7 +64,12 @@ from .processors import (  # noqa: F401
     total_kinetic_energy,
 )
 from .setup import Setup, Temperature, temperature_equation  # noqa: F401
-from .solver import SolverDivergedError, get_state, solve_unsteady  # noqa: F401
+from .solver import (  # noqa: F401
+    SolverDivergedError,
+    get_cfl_timestep,
+    get_state,
+    solve_unsteady,
+)
 from .time_steppers import (  # noqa: F401
     LMWray3,
     RKMethods,

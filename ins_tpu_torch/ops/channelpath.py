@@ -68,9 +68,14 @@ def channelpath_applicable(setup, method=None):
     """Channel topology: 3-D, x/y periodic uniform, z Dirichlet walls with
     static wall velocities whose normal component is zero, no closure, no
     temperature, steady (or no) body force; with `method`, an explicit RK
-    tableau with classic rows (or one stage)."""
+    tableau with classic rows (or one stage).  An unsteady (callable) body
+    force steps the general ghosted path: the channel kernels' force
+    stream is steady (the JAX package's gate lets it through and then
+    ignores the force)."""
     g = setup.grid
     if g.dim != 3 or setup.closure_model is not None or setup.temperature is not None:
+        return False
+    if setup.unsteady_bodyforce is not None:
         return False
     for d in (0, 1):
         if not (g.periodic[d] and g.uniform[d]):

@@ -50,9 +50,12 @@ Four chains:
   and the projection as roll-graph divergence and gradient around the
   solve; the Smagorinsky force as `smagorinsky_natural_interior`.
 
-Every chain adds a steady body force to the momentum.  The per-op chain
-and the roll twin carry the temperature as roll graphs
-(`ops/temperature.py`).
+Every chain adds a steady body force to the momentum.  An unsteady
+(callable) body force rides only the per-op chain and the roll twin,
+evaluated at each stage's time on the full staggered coordinates
+(`ops.operators.applybodyforce`), as in the JAX package, whose fused
+stage declines it.  The per-op chain and the roll twin carry the
+temperature as roll graphs (`ops/temperature.py`).
 
 Opt-in bf16 stream storage (``make_fast_timestep_hat(stream_dtype=
 torch.bfloat16)``, as in the JAX package): the hat chain stores its ``ut``
@@ -88,6 +91,7 @@ from .diffkernels import (
 from .eddyviscosity import smagorinsky_natural_interior, theta_tensor
 from .poisson_kernels import make_fused_projection, make_poisson_pallas
 from .pressure import _spectral_solve, project_periodic, uniform_dxs
+from .operators import applybodyforce
 from .temperature import add_buoyancy, temp_rhs_roll
 
 __all__ = [
@@ -206,9 +210,11 @@ def _is_smag(setup):
 def hat_chain_applicable(setup, method):
     """Whether the fused hat chain runs this setup: 3-D cube, a
     classic-row tableau or LMWray3 (so the stage kernels' single tableau
-    and accumulator streams hold each field, temperature included) and no
+    and accumulator streams hold each field, temperature included), no
     closure model but the natural-form Smagorinsky one (another closure
-    rides the per-op chain, as in the JAX package's `use_fused_stage`)."""
+    rides the per-op chain, as in the JAX package's `use_fused_stage`)
+    and no unsteady body force (the stage kernels' force stream is
+    steady; the JAX package's fused stage declines it too)."""
     g = setup.grid
     return (
         g.dim == 3
@@ -216,14 +222,15 @@ def hat_chain_applicable(setup, method):
         and isinstance(method, (ExplicitRungeKuttaMethod, LMWray3))
         and _classic_lowstorage_rows(method)
         and (setup.closure_model is None or _is_smag(setup))
+        and setup.unsteady_bodyforce is None
     )
 
 
 def unmerged_chain_applicable(setup, method):
     """Whether the fused unmerged chain runs this setup: 3-D cube, an
-    explicit RK tableau the hat chain does not take, no temperature and no
-    closure model but the natural-form Smagorinsky one (the JAX package's
-    `use_fused_stage` on such a tableau)."""
+    explicit RK tableau the hat chain does not take, no temperature, no
+    closure model but the natural-form Smagorinsky one and no unsteady
+    body force (the JAX package's `use_fused_stage` on such a tableau)."""
     g = setup.grid
     return (
         g.dim == 3
@@ -232,6 +239,7 @@ def unmerged_chain_applicable(setup, method):
         and not _classic_lowstorage_rows(method)
         and setup.temperature is None
         and (setup.closure_model is None or _is_smag(setup))
+        and setup.unsteady_bodyforce is None
     )
 
 
@@ -552,6 +560,7 @@ def make_fast_timestep(setup, method, *, differentiable=False,
         solve_p = _spectral_solve(g.Np, dxs, setup.dtype, setup.device)
     closure = setup.closure_model
     force = _bodyforce_interior(setup)
+    unsteady = setup.unsteady_bodyforce is not None
     tc = _temp_consts(setup)
     kernels = per_op and D == 3
     if kernels:
@@ -561,12 +570,16 @@ def make_fast_timestep(setup, method, *, differentiable=False,
         if smag:
             smag_force = make_smag_force_vjp(dxs, plain=plain)
 
-    def momentum(u, temp, theta):
+    def momentum(u, temp, t, theta):
         F = convdiff(u) if kernels else convdiff_roll(u, visc, dxs)
         if temp is not None:
             F = add_buoyancy(F, temp, tc.gdir, tc.alpha2)
         if force is not None:
             F = F + force
+        elif unsteady:
+            # the JAX package's roll route: the force on the full staggered
+            # coordinates at the stage's time, stripped
+            F = F + strip_ghosts(applybodyforce(None, t, setup))
         if smag:
             F = F + (smag_force(u, theta) if kernels
                      else smagorinsky_natural_interior(u, theta, dxs))
@@ -586,16 +599,17 @@ def make_fast_timestep(setup, method, *, differentiable=False,
         return project_periodic(base + coeff * k, dxs, solve_p)
 
     if isinstance(method, LMWray3):
-        a, b = method.a, method.b
+        a, b, c = method.a, method.b, method.c
 
         def step(state, dt, theta=None):
-            """The JAX package's LMWray3 `step_unmerged` per-op branch."""
+            """The JAX package's LMWray3 `step_unmerged` per-op branch;
+            stage i's force is at ``tstart + c_i·dt``."""
             u, temp, tstart, n = state
             if smag:
                 theta = theta_tensor(theta, setup.dtype, setup.device)
             ustart, tempstart = u, temp
             for i in range(len(a)):
-                du = momentum(u, temp, theta)
+                du = momentum(u, temp, tstart + c[i] * dt, theta)
                 dtemp = temp_rhs(u, temp) if temp is not None else None
                 u = stage_project(ustart, du, dt * a[i])
                 if temp is not None:
@@ -611,7 +625,9 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     A, c, ns = method.A, method.c, method.nstage
 
     def step(state, dt, theta=None):
-        """The JAX package's `step_unmerged` per-op branch."""
+        """The JAX package's `step_unmerged` per-op branch; stage i's
+        force is at the time its u holds (tstart, then the previous
+        row's ``tstart + c·dt``)."""
         u, temp, tstart, n = state
         if smag:
             theta = theta_tensor(theta, setup.dtype, setup.device)
@@ -623,7 +639,7 @@ def make_fast_timestep(setup, method, *, differentiable=False,
             for j in range(i):
                 if A[i][j] != 0.0:
                     base = base + (dt * A[i][j]) * ku[j]
-            ku.append(momentum(u, temp, theta))
+            ku.append(momentum(u, temp, t, theta))
             if temp is not None:
                 kt.append(temp_rhs(u, temp))
             t = tstart + c[i] * dt

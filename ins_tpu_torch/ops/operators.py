@@ -317,10 +317,25 @@ def dissipation_from_strain(u, setup):
     return _on_box(setup, box, 2 / setup.Re * acc)
 
 
+def bodyforce_on_grid(bodyforce, xu, t, shape, dtype, device):
+    """``bodyforce`` at time ``t`` on the full staggered coordinates
+    (``xu[a]``: component a's coordinate vectors, each shaped to
+    broadcast along its dimension), as `ins_tpu.ops.operators.
+    applybodyforce` evaluates it: a ``(D, *shape)`` field."""
+    t = torch.full((), t, dtype=dtype, device=device)
+    ones = torch.ones(shape, dtype=dtype, device=device)
+    return torch.stack([bodyforce(a, *xu[a], t) * ones for a in range(len(xu))])
+
+
 def applybodyforce(u, t, setup):
-    """The steady body force field `Setup` evaluated once (unsteady
-    forces are ROADMAP queue 1 item 6)."""
-    return setup.bodyforce_field
+    """The body force at time ``t``: the steady field `Setup` evaluated
+    once, or the unsteady callable on the full staggered coordinates (the
+    JAX package's `applybodyforce`)."""
+    f = setup.unsteady_bodyforce
+    if f is None:
+        return setup.bodyforce_field
+    g = setup.grid
+    return bodyforce_on_grid(f, setup.dgrid.xu, t, g.N, setup.dtype, setup.device)
 
 
 def gravity(temp, setup):
@@ -338,7 +353,7 @@ def momentum(u, temp, t, setup):
     """Right-hand side of the momentum equation without the pressure
     gradient: convection-diffusion, the body force and the buoyancy."""
     F = convectiondiffusion(u, setup)
-    if setup.bodyforce_field is not None:
+    if setup.bodyforce_field is not None or setup.unsteady_bodyforce is not None:
         F = F + applybodyforce(u, t, setup)
     if temp is not None:
         F = F + gravity(temp, setup)

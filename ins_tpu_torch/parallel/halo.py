@@ -149,7 +149,9 @@ def _check(setup, method, mesh, psolver, merge, fused):
         )
     if setup.temperature is not None:
         raise NotImplementedError(f"temperature on the halo path is not ported yet ({_ITEM})")
-    if setup.bodyforce_field is not None and not torch.is_tensor(setup.bodyforce_field):
+    if setup.unsteady_bodyforce is not None or (
+        setup.bodyforce_field is not None and not torch.is_tensor(setup.bodyforce_field)
+    ):
         raise ValueError(
             "halo fast path: unsteady callable body forces are not supported; "
             "precompute a steady field (issteadybodyforce)"

@@ -8,14 +8,19 @@ raises unless the caller passes ``device="cpu"``.  A closure model is a
 callable ``closure(u, theta)`` on the ghosted ``(D, *N)`` velocity (for
 example `models.wrappedclosure` around a CNN, or the natural-form
 Smagorinsky closure `smagorinsky_closure_natural`, which the periodic
-fast path recognises by its tag).  A steady body force is a torch
-function ``bodyforce(dim, *x, t)`` (``dim`` a Python int, the coordinates
-broadcastable tensors), evaluated once here on the full staggered
-coordinates as `bodyforce_field`.  `temperature_equation` gives the
-temperature coefficients of the three non-dimensionalisations, with any
-of the four BC families (periodic ones ride the fast path, others the
-general ghosted path).  Unsteady body forces wait for ROADMAP queue 1
-item 6.
+fast path recognises by its tag).  A body force is a torch function
+``bodyforce(dim, *x, t)``: ``dim`` a Python int, the coordinates
+broadcastable tensors of the setup's dtype on its device (the full
+staggered coordinates of component ``dim``), ``t`` a 0-d tensor of that
+dtype on that device.  A steady one (``issteadybodyforce=True``) is
+evaluated once here, at t = 0, as `bodyforce_field`; an unsteady one is
+kept and evaluated at each stage's time (`ops.operators.applybodyforce`):
+the roll twin and the per-op chain of the periodic fast path and the
+general ghosted path take it, the fused chains, the channel path and the
+halo path do not (as in the JAX package).  `temperature_equation` gives
+the temperature coefficients of the three non-dimensionalisations, with
+any of the four BC families (periodic ones ride the fast path, others the
+general ghosted path).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from .boundary_conditions import PeriodicBC
 from .grid import DeviceGrid, Grid, device_grid, make_grid
 from .ops._stencil import seg
+from .ops.operators import bodyforce_on_grid
 
 __all__ = ["Setup", "SetupData", "Temperature", "temperature_equation", "resolve_device"]
 
@@ -98,6 +104,13 @@ class SetupData:
     closure_model: object = None
     bodyforce_field: object = None  # steady force (D, *N) on `device`, or None
     temperature: Temperature | None = None
+    bodyforce: object = None  # the force callable, steady or not, or None
+    issteadybodyforce: bool = True
+
+    @property
+    def unsteady_bodyforce(self):
+        """The time-dependent force callable, or None."""
+        return None if self.issteadybodyforce else self.bodyforce
 
     @functools.cached_property
     def dgrid(self) -> DeviceGrid:
@@ -124,17 +137,11 @@ def resolve_device(device):
 
 
 def _bodyforce_field(bodyforce, grid, dtype, device):
-    """The steady force on the full staggered coordinates, as
-    `ins_tpu.ops.operators.applybodyforce` evaluates it."""
-    D = grid.dim
+    """The steady force, evaluated once at t = 0."""
     full = tuple((0, n) for n in grid.N)
-    t = torch.zeros((), dtype=dtype, device=device)
-    comps = []
-    for a in range(D):
-        coords = [seg(grid.xu[a][b], full, b, device=device) for b in range(D)]
-        val = bodyforce(a, *coords, t)
-        comps.append(val * torch.ones(grid.N, dtype=dtype, device=device))
-    return torch.stack(comps)
+    xu = [[seg(grid.xu[a][b], full, b, device=device) for b in range(grid.dim)]
+          for a in range(grid.dim)]
+    return bodyforce_on_grid(bodyforce, xu, 0.0, grid.N, dtype, device)
 
 
 def Setup(
@@ -151,13 +158,10 @@ def Setup(
 ):
     """Build a problem setup (keyword-compatible with `ins_tpu.Setup`,
     plus `device`).  With a temperature equation Re defaults to
-    1/alpha1."""
+    1/alpha1.  ``bodyforce(dim, *x, t)`` gets ``t`` as a 0-d tensor of
+    ``dtype`` on ``device`` (see the module docstring)."""
     if closure_model is not None and not callable(closure_model):
         raise TypeError("closure_model must be a callable closure(u, theta)")
-    if bodyforce is not None and not issteadybodyforce:
-        raise NotImplementedError(
-            "unsteady body forces are not ported yet (ROADMAP queue 1 item 6)"
-        )
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     device = resolve_device(device)
@@ -169,7 +173,7 @@ def Setup(
         Re = 1000.0 if temperature is None else 1.0 / temperature.alpha1
     grid = make_grid(x=x, boundary_conditions=boundary_conditions, dtype=dtype)
     field = None
-    if bodyforce is not None:
+    if bodyforce is not None and issteadybodyforce:
         field = _bodyforce_field(bodyforce, grid, dtype, device)
     return SetupData(
         grid=grid,
@@ -180,4 +184,6 @@ def Setup(
         closure_model=closure_model,
         bodyforce_field=field,
         temperature=temperature,
+        bodyforce=bodyforce,
+        issteadybodyforce=bool(issteadybodyforce),
     )

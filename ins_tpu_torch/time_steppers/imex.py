@@ -181,7 +181,7 @@ def _timestep_abcn_inner(method, state, dt, *, setup, psolver, theta=None):
     c0 = convection(ub, setup)
     d0 = diffusion(ub, setup)
     rhs = ub / dt + th * d0 - (a1 * c0 + a2 * c_prev)
-    if setup.bodyforce_field is not None:
+    if setup.bodyforce_field is not None or setup.unsteady_bodyforce is not None:
         f0 = applybodyforce(ub, t0, setup)
         f1 = applybodyforce(ub, t1, setup)
         rhs = rhs + th * f0 + (1 - th) * f1

@@ -11,6 +11,7 @@ order only: 1e-12 relative for single operators and a few steps, 1e-10
 where a projection's solve and several steps compound it.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -337,9 +338,26 @@ def _periodic_with_force():
 def test_unported_cases_raise(what):
     method = it.RKMethods.RK44()
     if what == "unsteady_force":
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            it.Setup(x=(np.linspace(0, 1, 5),) * 3, bodyforce=_tforce,
-                     issteadybodyforce=False, device="cpu")
+        # runs now: the channel path declines an unsteady force (its force
+        # stream is steady) and the general ghosted path steps it, held
+        # against the JAX package's general path (a solver without the FDM
+        # tag keeps the JAX package off its channel path, which would drop
+        # the force)
+        jset, tset = _setups(force=True)
+        jst = dataclasses.replace(jset, bodyforce=lambda d, *xt: _jforce(d, *xt) * jnp.cos(xt[-1]),
+                                  issteadybodyforce=False, bodyforce_field=None)
+        tst = it.Setup(x=tuple(np.asarray(v)[1:-1] for v in tset.grid.x),
+                       boundary_conditions=tset.boundary_conditions, Re=700.0,
+                       dtype=torch.float64, device="cpu", issteadybodyforce=False,
+                       bodyforce=lambda d, *xt: _tforce(d, *xt) * torch.cos(xt[-1]))
+        assert tst.bodyforce_field is None and not cp.channelpath_applicable(tst, method)
+        jsolve = ins.psolver_fdm(jst)
+        u0 = _u0(True, False, True)
+        kw = dict(tlims=(0.5, 0.52), dt=1e-2)
+        ref, _ = ins.solve_unsteady(setup=jst, ustart=jnp.asarray(u0), psolver=lambda f: jsolve(f),
+                                    **kw)
+        st, _ = it.solve_unsteady(setup=tst, ustart=_t(u0), **kw)
+        assert st.n == 2 and _rel(st.u.numpy(), ref.u) < TOL_SOLVE
         return
     if what == "symmetric_fdm":
         # ported: the refinement applies the ghosted Laplacian's interior

@@ -245,15 +245,19 @@ def _general_case(pk, what, u0):
     "what", ["lmwray3", "adaptive", "tempstart", "stretched"],
 )
 def test_unported_paths_raise(what):
-    """What the port still does not run: adaptive dt.  LMWray3 off the
-    periodic fast path (here a channel), temperature with wall BCs and
-    stretched wall-bounded grids step the general ghosted path, held
-    against the JAX solver (which steps its own there)."""
-    _, tset = _setups(8, 3)
+    """What once raised and now runs, held against the JAX solver: adaptive
+    dt (the hat chain with the CFL limit every step: the same steps, t
+    and u); LMWray3 off the periodic fast path (here a channel),
+    temperature with wall BCs and stretched wall-bounded grids step the
+    general ghosted path (the JAX solver steps its own there)."""
+    jset, tset = _setups(8, 3)
     u0 = it.random_field(tset, kp=2, generator=torch.Generator().manual_seed(7))
     if what == "adaptive":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            it.solve_unsteady(setup=tset, ustart=u0, tlims=(0.0, 0.02), dt=None)
+        ref, _ = ins.solve_unsteady(setup=jset, ustart=jnp.asarray(u0.numpy()), tlims=(0.0, 0.2),
+                                    dt=None)
+        st, _ = it.solve_unsteady(setup=tset, ustart=u0, tlims=(0.0, 0.2), dt=None)
+        assert st.n == int(ref.n) > 1 and abs(float(st.t) - float(ref.t)) < 1e-14
+        assert _rel(st.u.numpy(), ref.u) < TOL
         return
     u0 = u0.numpy()
     js, ju, jT, jm = _general_case(ins, what, u0)

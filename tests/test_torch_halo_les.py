@@ -425,8 +425,10 @@ def test_halo_les_setups_that_raise(one_rank):
     unsteady = dataclasses.replace(_les_cube(), bodyforce_field=worker.bodyforce)
     with pytest.raises(ValueError, match="unsteady callable"):
         make_halo_fast_step(unsteady, rk, one_rank)
-    with pytest.raises(NotImplementedError, match="unsteady body forces"):
-        _les_cube(bodyforce=worker.bodyforce, issteadybodyforce=False)
+    # an unsteady force builds a setup now; the halo path declines it
+    with pytest.raises(ValueError, match="unsteady callable"):
+        make_halo_fast_step(_les_cube(bodyforce=worker.bodyforce, issteadybodyforce=False),
+                            rk, one_rank)
     other = dataclasses.replace(_les_cube(), closure_model=lambda u, theta: u)
     with pytest.raises(ValueError, match="natural-form Smagorinsky"):
         make_halo_fast_step(other, rk, one_rank)

@@ -103,17 +103,27 @@ def _nonperiodic_temperature():
 
 @pytest.mark.parametrize(
     "kw", [lambda: dict(temperature=_nonperiodic_temperature()), _nonperiodic_smagorinsky,
-           dict(bodyforce=lambda *a: 0.0, issteadybodyforce=False)],
+           dict(bodyforce=lambda dim, x, y, t: (dim + 1) * torch.sin(x - t) * y,
+                issteadybodyforce=False)],
     ids=["temperature", "closure", "bodyforce"],
 )
 def test_setup_unported_options_raise(kw):
-    """Unsteady forces (ROADMAP queue 1 item 6) raise.  Temperature with
-    non-periodic BCs and the Smagorinsky closure off uniform periodic
-    grids run on the general ghosted path: the setup builds, and its
-    closure gives a force on the ghosted layout."""
+    """What once raised and now builds: an unsteady force is kept as its
+    callable (no steady field) and evaluated at a time, as the JAX
+    package's; temperature with non-periodic BCs and the Smagorinsky
+    closure off uniform periodic grids run on the general ghosted path:
+    the setup builds, and its closure gives a force on the ghosted
+    layout."""
     if isinstance(kw, dict):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, **kw)
+        s = it.Setup(device="cpu", x=(np.linspace(0, 1, 5),) * 2, dtype=torch.float64, **kw)
+        js = ins.Setup(x=(np.linspace(0, 1, 5),) * 2, dtype=jnp.float64,
+                       bodyforce=lambda dim, x, y, t: (dim + 1) * jnp.sin(x - t) * y,
+                       issteadybodyforce=False)
+        assert s.bodyforce_field is None and s.unsteady_bodyforce is kw["bodyforce"]
+        got = it.applybodyforce(None, 0.3, s)
+        assert got.shape == (2, 6, 6)
+        assert torch.allclose(got, torch.from_numpy(np.asarray(
+            ins.applybodyforce(None, jnp.asarray(0.3), js))), rtol=1e-15, atol=0.0)
         return
     made = kw()
     kw = made if isinstance(made, dict) else dict(closure_model=made)

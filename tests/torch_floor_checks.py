@@ -19,9 +19,10 @@ relative residual ||L p − f|| / ||f|| (L the port's `laplacian_box`) of
 a zero-sum random right-hand side solved by JAX's `psolver_fdm`, the
 port's, and the port's `psolver_direct`; then both packages'
 `psolver_direct` on float32 setups (float32 matrix entries, a float64
-factorization) against the float64 setup's solution; the FDM's
-null-mode cut against the 1-D spectrum at 128², 256² and n², and
-`psolver_cg` with the FDM preconditioner in both packages.
+factorization) against the float64 setup's solution; the FDM's null
+modes (the port's per-axis test, the JAX package's sum test) against
+the 1-D spectrum at 128², 256² and n², both packages' float32 FDM
+solves, and `psolver_cg` with the FDM preconditioner in both packages.
 
     JAX_PLATFORMS=cpu python tests/torch_floor_checks.py --case rb3d [--n 60] [--steps 20]
     JAX_PLATFORMS=cpu python tests/torch_floor_checks.py --case ldc2d [--n 512]
@@ -112,7 +113,12 @@ def run_port(n, steps, dt):
 def ldc2d(n):
     import scipy.linalg
 
-    from ins_tpu_torch.ops.fdm import _box_delta, _one_dim_operator, laplacian_box
+    from ins_tpu_torch.ops.fdm import (
+        _box_delta,
+        _one_dim_operator,
+        fdm_null_modes,
+        laplacian_box,
+    )
 
     def setup_of(pk, dtype, x=(ins.cosine_grid(0.0, 1.0, n),) * 2, **kw):
         d = pk.DirichletBC()
@@ -150,17 +156,24 @@ def ldc2d(n):
 
     print(f"float32 setups, the same f: ||p32 - p64|| / ||p64||: "
           + ", ".join(f"{k} {dist(v):.4e}" for k, v in p32.items()))
-    # the FDM's null-mode cut (`fdm_solve_box`: |λ_i + λ_j| below 1e-8 of
-    # the largest) against the 1-D spectrum, and CG with the FDM as its
-    # preconditioner, in both packages
+    # the FDM's null modes (the port's per-axis test, the JAX package's
+    # test |λ_i + λ_j| below 1e-8 of the largest) against the 1-D
+    # spectrum; both packages' float32 FDM solves of f; CG with the FDM
+    # as its preconditioner, in both packages
     for m in sorted({128, 256, n}):
         sm = setup_of(it, torch.float64, x=(ins.cosine_grid(0.0, 1.0, m),) * 2, device="cpu")
         lam, _ = scipy.linalg.eigh(_one_dim_operator(sm, 0), np.diag(_box_delta(sm.grid, 0)))
-        pair = np.abs(np.add.outer(lam, lam))
-        cut = 1e-8 * pair.max()
         low = np.sort(np.abs(lam))
-        print(f"{m}²: the FDM's null cut {cut:.4e}, the 1-D spectrum's lowest |λ| {low[0]:.3e} "
-              f"(the null mode), {low[1]:.4e}; modes cut {int((pair < cut).sum())}")
+        per_axis, by_sum = fdm_null_modes(sm)
+        print(f"{m}²: the 1-D spectrum's lowest |λ| {low[0]:.3e} (the null mode), "
+              f"{low[1]:.4e}; modes cut by the port's per-axis test {per_axis}, by the JAX "
+              f"package's sum test {by_sum}")
+    f32 = {"JAX psolver_fdm": torch.from_numpy(np.array(
+        jax.jit(ins.psolver_fdm(js32))(jnp.asarray(fj, jnp.float32)))[ip]),
+        "port psolver_fdm": it.psolver_fdm(ts32)(ft.float())}
+    print(f"float32 setups, the same f: relative residual ||L p - f|| / ||f|| (L float64): "
+          + ", ".join(f"{k} {((lap(v.double()) - ft).norm() / ft.norm()).item():.4e}"
+                      for k, v in f32.items()))
     cg = it.psolver_cg(ts, reltol=1e-10, precond="fdm", maxiter=100)
     pc = cg(ft)
     jcg = np.array(jax.jit(ins.psolver_cg(js, reltol=1e-10, precond="fdm", maxiter=100))(

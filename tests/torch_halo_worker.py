@@ -10,9 +10,11 @@ the global velocity after 3 steps of the per-step merged chain and of
 the hat carry, for RK44 and LMWray3 (``{tag}_{method}_{form}_r{rank}``).
 Then it runs `solve_unsteady(halo=True, theta=)` of the setup ``solve``
 (4 RK44 steps in chunks of 2, with kinetic-energy and spectrum
-processors) and writes its field and records (``solve*_r{rank}``).  It
-imports torch and the port only, never jax: a spawned process starts
-from this module.
+processors) and writes its field and records (``solve*_r{rank}``).
+`run_adaptive(rank, world, store, data)` runs the "dns" setup's
+`solve_unsteady(halo=True, dt=None, **ADAPTIVE)` and writes its field,
+step count and t (``adaptive*_r{rank}``).  It imports torch and the port
+only, never jax: a spawned process starts from this module.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ THETA = 0.17
 # tag: (the Smagorinsky closure, a steady body force)
 CASES = {"dns": (False, False), "les": (True, False), "les_bf": (True, True),
          "bf": (False, True)}
+# the adaptive run: the CFL limit every second step, processors at every
+# third (chunks of 3)
+ADAPTIVE = dict(tlims=(0.0, 0.25), cfl=0.6, n_adapt_dt=2)
 
 
 def bodyforce(dim, *xt):
@@ -60,6 +65,29 @@ def run(rank, world, store, data, cases, solve):
                             world_size=world)
     try:
         _run(rank, data, cases, solve)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_adaptive(rank, world, store, data):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        import ins_tpu_torch as it
+        from ins_tpu_torch.parallel import make_mesh
+
+        setup = setup_f64("dns")
+        u0 = torch.from_numpy(np.load(os.path.join(data, "u0.npy")))
+        state, _ = it.solve_unsteady(
+            setup=setup, ustart=u0, dt=None, mesh=make_mesh(device="cpu"), halo=True,
+            processors={"e": it.observefield(
+                lambda st: it.total_kinetic_energy(st["u"], setup), nupdate=3)},
+            **ADAPTIVE,
+        )
+        np.save(os.path.join(data, f"adaptive_r{rank}.npy"), state.u.numpy())
+        np.save(os.path.join(data, f"adaptive_nt_r{rank}.npy"),
+                np.array([state.n, state.t], np.float64))
     finally:
         dist.destroy_process_group()
 
