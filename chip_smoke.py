@@ -14,6 +14,10 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # the observers)
     python3 chip_smoke.py --adaptive  # only phase 15, adaptive (CFL)
                                       # stepping and unsteady forces
+    python3 chip_smoke.py --closure   # only phase 16, the NeuralClosure
+                                      # pipeline (filtered DNS, a-priori
+                                      # and a-posteriori training, the
+                                      # 2-D example, FNO and G-CNN)
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
@@ -433,7 +437,33 @@ Phases, each raising on failure (exit code != 0, no result line):
    diagonalization's null-mode counts (the port's per-axis test and the
    JAX package's sum test) on the script's FDM grids.  `--adaptive` runs
    this phase alone, after the kernel build.
-16. Print the kernel table (JSON: per kernel its launches on the main
+16. The NeuralClosure pipeline (`phase_closure`), float32 on the card,
+   through the port's entry points.  (a) `create_les_data` at 256³ (Re
+   2e3 on the unit cube, phase 2's initial field and dt 5e-4, 20 burn-in
+   steps, then 40 with a `filtersaver` every 5) onto 64³ and 128³ with
+   `FaceAverage` and `VolumeAverage`: the DNS on the hat chain's kernels
+   alone (launches counted, no plain version), every pair's ``c`` finite
+   and nonzero, and the first two snapshots of every pair (u and c)
+   within `REL_TOL` (relative L2) of the same pipeline with the plain
+   chain's DNS; the DNS ms/step between snapshots and one snapshot's
+   cost.  (b) The CNN of `BASELINE.json` configs[4] (radii (2,2,2),
+   channels (24,24,3)) trained a-priori by `trainepoch` (batch 3) on the
+   128³ `FaceAverage` pairs from `create_io_arrays`, with bf16 and with
+   float32 convs: on one batch loss and gradients within phase 3's
+   tolerances of the plain layers, `fusedconv_3d` / `fusedconv_wgrad_3d`
+   (`+f32`) launched, `create_relerr_prior` falling over the epochs;
+   s/epoch.  (c) `create_loss_post` on the 128³ trajectory
+   (`create_dataloader_post`, nunroll 3, 5 substeps of 5e-4, remat)
+   through the per-op chain: the first batch's loss and gradient within
+   phase 3's bf16 tolerance of the plain run, then two gradient steps;
+   s/step.  (d) `ins_tpu_torch/examples/neural_closure_training.py` at
+   its full sizes (256² DNS, 64² LES, 500 a-priori and 100 a-posteriori
+   iterations), then an FNO (kmax (16,16,16,8), channels (32,)*4, gelu)
+   and a G-CNN (radii (2,2,2), channels (4,4,1)) trained a-priori on its
+   data (relative error falling); the G-CNN's prior and post symmetry
+   errors within `SYMMETRY_TOL` (1e-5), the CNN's above it; seconds per
+   stage.  `--closure` runs this phase alone, after the kernel build.
+17. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
@@ -443,8 +473,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    (2048, 512, 2048)) stays in the table with 0 launches; no main path
    runs it (every folded cube here has n <= `FOLD_FUSED_MAX_N`, where the
    fused kernel runs: phases 2 and 8 fail on a level-route launch).  The
-   dense pass B's launches are phase 12's; the hat, channel and 3-pass
-   solve kernels' include phase 15's.  Each phase prints its seconds.
+   dense pass B's launches are phase 12's; the hat, channel, training and
+   3-pass solve kernels' include phases 15 and 16's.  Each phase prints
+   its seconds.
 """
 
 from __future__ import annotations
@@ -1860,17 +1891,10 @@ def training_setup(n, closure_model=None):
 def build_training(setup, *, compute_dtype=None, plain=False):
     """(closure model, theta, loss) of `bench.py`'s grad-step case, the
     CNN's weights drawn from a fixed seed."""
-    import torch
-
     import ins_tpu_torch as it
     from ins_tpu_torch import models as nc
 
-    closure, theta = nc.cnn(
-        setup=setup, radii=[2, 2, 2], channels=[24, 24, 3],
-        activations=[torch.tanh, torch.tanh, lambda v: v], use_bias=[True, True, False],
-        generator=torch.Generator().manual_seed(0), compute_dtype=compute_dtype,
-        plain=plain,
-    )
+    closure, theta = closure_cnn(setup, compute_dtype, plain)
     m = nc.wrappedclosure(closure, setup)
     loss = nc.create_loss_post(
         setup=setup, method=it.RKMethods.RK44(), psolver=it.psolver_spectral(setup),
@@ -5982,6 +6006,430 @@ def phase_adaptive(n=256, channel_box=None, cavity_n=ADAPTIVE_CAVITY_N, unsteady
               f"per-axis test, {by_sum} by the JAX package's sum test")
     return totals
 
+# --------------------------------------------------------------------------
+# phase 16: the NeuralClosure pipeline
+# --------------------------------------------------------------------------
+
+CLOSURE_NDNS = 256
+CLOSURE_NLES = (64, 128)
+CLOSURE_DT = 5e-4  # phase 2's dt at 256³
+CLOSURE_BURN = 20  # burn-in steps (cut this first if the script nears its limit)
+CLOSURE_STEPS = 40
+CLOSURE_SAVEFREQ = 5
+CLOSURE_EPOCHS = 4  # a-priori epochs per conv dtype
+CLOSURE_BATCH = 3
+# the 2-D reference workflow's FNO and G-CNN, trained a-priori on its data
+CLOSURE_FNO = dict(kmax=(16, 16, 16, 8), c=(32, 32, 32, 32))
+CLOSURE_GCNN = dict(radii=(2, 2, 2), channels=(4, 4, 1))
+CLOSURE_ITERS_2D = 200
+CLOSURE_QUICK_2D = False  # the example at its full sizes
+SYMMETRY_TOL = 1e-5
+# the hat chain's c may differ from the plain chain's by at most this
+# many times the plain chain's own spread under an ulp change of its
+# initial field (the unit-cube flow amplifies rounding: see phase 16)
+CLOSURE_FLOW_FACTOR = 10.0
+
+
+def closure_pairs(data):
+    """(label, pair) of `create_les_data`'s output (LES grids outer,
+    filters inner)."""
+    labels = [f"{n}^3 {f}" for n in CLOSURE_NLES for f in ("FaceAverage", "VolumeAverage")]
+    return list(zip(labels, data))
+
+
+def closure_les_setup(n, closure_model=None):
+    import torch
+
+    import ins_tpu_torch as it
+
+    return it.Setup(x=(np.linspace(0.0, 1.0, n + 1),) * 3, Re=2e3, dtype=torch.float32,
+                    device=DEVICE, closure_model=closure_model)
+
+
+def closure_ic(dns, psolver, rng):
+    """Phase 2's initial field: `random_field(kp=10)` from the card's
+    generator seeded 1."""
+    import torch
+
+    import ins_tpu_torch as it
+
+    return it.random_field(dns, kp=10, psolver=psolver,
+                           generator=torch.Generator(device=DEVICE).manual_seed(1))
+
+
+def closure_dns_data(add):
+    """16a: `create_les_data` at 256³ (64³ and 128³ LES, both filters) on
+    the hat chain; its first two snapshots of every pair against the
+    same pipeline with the plain chain's DNS."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import hat_chain_applicable, reghost, strip_state
+
+    method = it.RKMethods.RK44()
+    filters = (nc.FaceAverage(), nc.VolumeAverage())
+    ticks, saver_start = [], []
+
+    def start(state):
+        # the last run's first state: the saver's start
+        saver_start[:] = [state["u"].clone()]
+        tick(state)
+
+    def tick(state):
+        torch.cuda.synchronize()
+        ticks.append((int(state["n"]), time.perf_counter()))
+
+    clock = it.processor(lambda p, s: tick(s), initialize=start, nupdate=CLOSURE_SAVEFREQ)
+    launches.reset_counts()
+    t0 = time.perf_counter()
+    data = nc.create_les_data(
+        D=3, Re=2e3, lims=(0.0, 1.0), nles=list(CLOSURE_NLES), ndns=CLOSURE_NDNS,
+        filters=filters, tburn=CLOSURE_BURN * CLOSURE_DT, tsim=CLOSURE_STEPS * CLOSURE_DT,
+        savefreq=CLOSURE_SAVEFREQ, dt=CLOSURE_DT, icfunc=closure_ic, dtype=torch.float32,
+        device=DEVICE, processors={"clock": clock},
+    )
+    wall = time.perf_counter() - t0
+    counts = add()
+    plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+    # burn-in ticks: n = 0, 5, ..., 20; the saver run's: 0, 5, ..., 40
+    nb = CLOSURE_BURN // CLOSURE_SAVEFREQ + 1
+    burn = sorted(b - a for (_, a), (_, b) in zip(ticks[:nb - 1], ticks[1:nb]))
+    saver = sorted(b - a for (_, a), (_, b) in zip(ticks[nb:-1], ticks[nb + 1:]))
+    ms_step = burn[len(burn) // 2] * 1e3 / CLOSURE_SAVEFREQ
+    nsnap = CLOSURE_STEPS // CLOSURE_SAVEFREQ + 1
+    print(f"[closure] create_les_data {CLOSURE_NDNS}^3 -> {list(CLOSURE_NLES)}^3, both filters, "
+          f"RK44 f32 dt {CLOSURE_DT}, {CLOSURE_BURN} burn-in + {CLOSURE_STEPS} steps, a "
+          f"snapshot every {CLOSURE_SAVEFREQ}: {wall:.3f} s wall; DNS {ms_step:.3f} ms/step "
+          f"between snapshots (median of {len(burn)} burn-in chunks of {CLOSURE_SAVEFREQ}); a "
+          f"saver chunk ({CLOSURE_SAVEFREQ} steps and a snapshot) "
+          f"{saver[len(saver) // 2] * 1e3:.1f} ms (median of {len(saver)}); {card_line()}; "
+          f"launches {counts}; plain calls on CUDA {plain}")
+    dns = closure_les_setup(CLOSURE_NDNS)
+    if not hat_chain_applicable(dns, method):
+        fail("[closure] the 256³ DNS is not on the hat chain")
+    missing = [k for k in HAT_KERNELS if counts.get(k, 0) <= 0]
+    if missing or plain:
+        fail(f"[closure] the DNS did not run on the hat kernels alone: missing {missing}, "
+             f"plain {plain}")
+    if len(data) != 4 or any(d["u"].shape[0] != nsnap for d in data):
+        fail(f"[closure] expected 4 pairs of {nsnap} snapshots")
+    for label, d in closure_pairs(data):
+        if not (np.all(np.isfinite(d["u"])) and np.all(np.isfinite(d["c"]))
+                and np.max(np.abs(d["c"])) > 0):
+            fail(f"[closure] {label}: c is not finite and nonzero")
+
+    # the same pipeline on the plain chain: (A) from the same field, the
+    # burn-in and the saver's first two snapshots; (B) the same from the
+    # field scaled by 1 + 2^-23 (a change of at most an ulp a value: what
+    # the flow makes of rounding alone); (C) from the hat run's own state
+    # at the saver's start, its second snapshot (5 steps apart)
+    psolver = it.psolver_spectral(dns)
+    les = [closure_les_setup(n) for n in CLOSURE_NLES]
+
+    def plain_pipeline(u_start, burn):
+        fs = nc.filtersaver(dns, les, filters, [CLOSURE_NDNS // n for n in CLOSURE_NLES],
+                            psolver, [it.psolver_spectral(s) for s in les],
+                            nupdate=CLOSURE_SAVEFREQ)
+        s = strip_state(it.create_stepper(method, setup=dns, u=u_start))
+        s = run_plain_chain(dns, method, s, CLOSURE_DT, burn, CLOSURE_SAVEFREQ)._replace(t=0.0, n=0)
+        pst = fs.initialize(dict(u=reghost(s.u), t=s.t, n=s.n))
+        s = run_plain_chain(dns, method, s, CLOSURE_DT, CLOSURE_SAVEFREQ, CLOSURE_SAVEFREQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pst = fs.update(pst, dict(u=reghost(s.u), t=s.t, n=CLOSURE_SAVEFREQ))
+        return fs.finalize(pst, None), (time.perf_counter() - t0) * 1e3
+
+    u0 = closure_ic(dns, psolver, None)
+    umax = u0.abs().max().item()
+    print(f"[closure] initial max|u| {umax:.4f}: CFL max|u|·dt/dx {umax * CLOSURE_DT * CLOSURE_NDNS:.3f}")
+    ref, snap_ms = plain_pipeline(u0, CLOSURE_BURN)
+    print(f"[closure] one snapshot (the DNS force, 4 pairs filtered, their commutator errors, "
+          f"to the host as numpy): {snap_ms:.1f} ms")
+    ulp, _ = plain_pipeline(u0 * (1 + 2.0**-23), CLOSURE_BURN)
+    same, _ = plain_pipeline(saver_start[0], 0)
+
+    def gap(a, b, k, i):
+        return rel_l2(torch.from_numpy(a[k][i]), torch.from_numpy(b[k][i]))
+
+    worst_u = worst_c5 = 0.0
+    ratio = []
+    for (label, d), r, p, q in zip(closure_pairs(data), ref, ulp, same):
+        for k in "uc":
+            ours = [gap(d, r, k, i) for i in (0, 1)]
+            flow = [gap(p, r, k, i) for i in (0, 1)]
+            five = gap(d, q, k, 1)
+            print(f"[closure] {label} {k}: hat vs plain chain, snapshots 0 and 1 (after "
+                  f"{CLOSURE_BURN} and {CLOSURE_BURN + CLOSURE_SAVEFREQ} steps): rel L2 "
+                  f"{ours[0]:.3e}, {ours[1]:.3e}; the plain chain against itself from the "
+                  f"ulp-scaled field {flow[0]:.3e}, {flow[1]:.3e}; from the same state, "
+                  f"{CLOSURE_SAVEFREQ} steps: {five:.3e}")
+            if k == "u":
+                worst_u = max(worst_u, *ours)
+            else:
+                worst_c5 = max(worst_c5, five)
+                ratio.append(max(ours) / max(max(flow), 1e-30))
+    print(f"[closure] bounds: u {worst_u:.3e} <= {REL_TOL}; c from the same state "
+          f"{worst_c5:.3e} <= {REL_TOL}; c against the flow's own ulp spread: at most "
+          f"{max(ratio):.2f}x (bound {CLOSURE_FLOW_FACTOR})")
+    if not worst_u <= REL_TOL:
+        fail(f"[closure] the filtered DNS velocities differ from the plain chain's by {worst_u:.3e}")
+    if not worst_c5 <= REL_TOL:
+        fail(f"[closure] c differs from the plain chain's from the same state by {worst_c5:.3e}")
+    if not max(ratio) <= CLOSURE_FLOW_FACTOR:
+        fail(f"[closure] c differs from the plain chain's by {max(ratio):.2f}x the flow's own "
+             f"spread under an ulp")
+    del ref, ulp, same, saver_start
+    torch.cuda.empty_cache()
+    return data
+
+
+def closure_cnn(setup, compute_dtype=None, plain=False):
+    """`BASELINE.json` configs[4]'s CNN (`bench.py`'s grad-step case), its
+    weights drawn from a fixed seed: ``(closure, theta)``."""
+    import torch
+
+    from ins_tpu_torch import models as nc
+
+    return nc.cnn(setup=setup, radii=[2, 2, 2], channels=[24, 24, 3],
+                  activations=[torch.tanh, torch.tanh, lambda v: v], use_bias=[True, True, False],
+                  generator=torch.Generator().manual_seed(0), compute_dtype=compute_dtype,
+                  plain=plain)
+
+
+def closure_prior(data, add):
+    """16b: the 3-D CNN trained a-priori on the 128³ FaceAverage pairs by
+    `trainepoch`, with bf16 and float32 convs; one batch against the
+    plain layers.  Returns the bf16-trained theta."""
+    import torch
+
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.ops import launches
+
+    les = closure_les_setup(CLOSURE_NLES[-1])
+    io = nc.create_io_arrays([data[2]], les)
+    x, y = (torch.as_tensor(io[k], device=DEVICE) for k in ("u", "c"))
+    batch = (x[:CLOSURE_BATCH], y[:CLOSURE_BATCH])
+    print(f"[closure] a-priori: CNN (2,2,2)/(24,24,3) on the 128^3 FaceAverage pairs "
+          f"{tuple(x.shape)}, trainepoch batch {CLOSURE_BATCH}, Adam lr 1e-3")
+    trained = None
+    for tag, cdt, loss_tol, grad_tol in (("bf16", None, GRAD_TOL_BF16, GRAD_TOL_BF16),
+                                         ("f32", torch.float32, LOSS_TOL_F32, GRAD_TOL_F32)):
+        closure, theta = closure_cnn(les, cdt)
+        plain, theta_p = closure_cnn(les, cdt, plain=True)
+        lk = nc.create_loss_prior(closure)(batch, theta)
+        gk = torch.autograd.grad(lk, list(theta.values()))
+        lp = nc.create_loss_prior(plain)(batch, theta_p)
+        gp = torch.autograd.grad(lp, list(theta_p.values()))
+        lrel = abs(lk.item() - lp.item()) / abs(lp.item())
+        grel = {k: rel_l2(a, b) for k, a, b in zip(theta, gk, gp)}
+        print(f"[closure] a-priori {tag} convs, one batch, kernels vs plain: loss "
+              f"{lk.item():.9e} vs {lp.item():.9e} (rel {lrel:.3e}, bound {loss_tol}); grad rel L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in grel.items()) + f" (bound {grad_tol})")
+        if not (math.isfinite(lk.item()) and lrel <= loss_tol):
+            fail(f"[closure] a-priori {tag} loss: kernels vs plain {lrel:.3e}")
+        if not all(math.isfinite(v) and v <= grad_tol for v in grel.values()):
+            fail(f"[closure] a-priori {tag} gradient: kernels vs plain {grel}")
+        del plain, theta_p, gp, gk
+        relerr = nc.create_relerr_prior(closure, x, y)
+        errs = [relerr(theta).item()]
+        state = nc.create_trainstate(theta, lr=1e-3, rng=np.random.default_rng(SEED))
+        secs = []
+        launches.reset_counts()
+        for _ in range(CLOSURE_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = nc.trainepoch(data=(io["u"], io["c"]), batchsize=CLOSURE_BATCH,
+                                  loss=nc.create_loss_prior(closure), trainstate=state)["trainstate"]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            errs.append(relerr(theta).item())
+        counts = add()
+        plain_calls = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+        print(f"[closure] a-priori {tag} convs: {CLOSURE_EPOCHS} epochs of "
+              f"{x.shape[0] // CLOSURE_BATCH} batches, s/epoch "
+              + ", ".join(f"{v:.3f}" for v in secs) + "; relerr_prior "
+              + " -> ".join(f"{e:.5f}" for e in errs) + f"; launches {counts}; {card_line()}")
+        keys = ("fusedconv_3d", "fusedconv_wgrad_3d")
+        keys = tuple(k + "+f32" for k in keys) if cdt is not None else keys
+        if any(counts.get(k, 0) <= 0 for k in keys) or plain_calls:
+            fail(f"[closure] a-priori {tag}: the conv kernels did not run alone ({counts}, "
+                 f"plain {plain_calls})")
+        if not (all(math.isfinite(e) for e in errs) and errs[-1] < errs[0]):
+            fail(f"[closure] a-priori {tag}: relerr_prior did not fall: {errs}")
+        if trained is None:
+            trained = theta
+    del x, y
+    torch.cuda.empty_cache()
+    return trained
+
+
+def closure_post(data, theta, add):
+    """16c: an a-posteriori fine-tune of the a-priori CNN on the 128³
+    FaceAverage trajectory (nunroll 3, 5 substeps, remat) through the
+    per-op chain; the first batch's loss and gradient against the plain
+    run."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.ops import launches
+
+    les = closure_les_setup(CLOSURE_NLES[-1])
+    traj = [dict(u=data[2]["u"], t=data[2]["t"])]
+    dl = nc.create_dataloader_post(traj, ntrajectory=1, nunroll=3)
+    batch, _ = dl(np.random.default_rng(SEED))
+    runs = {}
+    for plain in (False, True):
+        closure, th = closure_cnn(les, plain=plain)
+        with torch.no_grad():
+            for k in th:
+                th[k].copy_(theta[k])
+        loss = nc.create_loss_post(setup=les, method=it.RKMethods.RK44(),
+                                   psolver=it.psolver_spectral(les),
+                                   closure_model=nc.wrappedclosure(closure, les), nsubstep=5,
+                                   remat=True, plain=plain)
+        launches.reset_counts()
+        t0 = time.perf_counter()
+        runs[plain] = (loss, th) + value_and_grad(loss, batch, th)
+        wall = time.perf_counter() - t0
+        if not plain:
+            counts = add()
+            plain_calls = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+        print(f"[closure] a-posteriori, {'plain' if plain else 'kernels'}: loss "
+              f"{runs[plain][2].item():.9e} ({wall:.3f} s)")
+    (loss, th, lk, gk), (_, _, lp, gp) = runs[False], runs[True]
+    lrel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grel = {k: rel_l2(gk[k], gp[k]) for k in gk}
+    print(f"[closure] a-posteriori (bf16 convs) kernels vs plain: loss rel {lrel:.3e}; grad rel "
+          "L2 " + ", ".join(f"{k} {v:.3e}" for k, v in grel.items())
+          + f" (bound {GRAD_TOL_BF16}); launches {counts}")
+    if not (math.isfinite(lk.item()) and lrel <= GRAD_TOL_BF16):
+        fail(f"[closure] a-posteriori loss: kernels vs plain {lrel:.3e}")
+    if not all(math.isfinite(v) and v <= GRAD_TOL_BF16 for v in grel.values()):
+        fail(f"[closure] a-posteriori gradient: kernels vs plain {grel}")
+    if any(counts.get(k, 0) <= 0 for k in TRAINING_KERNELS) or plain_calls:
+        fail(f"[closure] a-posteriori: the per-op and conv kernels did not run alone ({counts}, "
+             f"plain {plain_calls})")
+    del runs
+    state = nc.create_trainstate(th, lr=1e-5, rng=np.random.default_rng(SEED + 1))
+    secs = []
+    launches.reset_counts()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = nc.train(dataloader=dl, loss=loss, trainstate=state, niter=1)["trainstate"]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = add()
+    print(f"[closure] a-posteriori: 2 gradient steps (15 RK44 steps each, remat): s/step "
+          + ", ".join(f"{v:.3f}" for v in secs) + f"; loss {state['loss'].item():.9e}; "
+          f"launches {counts}; {card_line()}")
+    if not math.isfinite(state["loss"].item()):
+        fail("[closure] a-posteriori: non-finite loss")
+    torch.cuda.empty_cache()
+
+
+def closure_2d():
+    """16d: the ported 2-D example at its full sizes, then an FNO and a
+    G-CNN trained a-priori on its data; the symmetry errors."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch import models as nc
+    from ins_tpu_torch.examples import neural_closure_training as ex
+
+    t0 = time.perf_counter()
+    out = ex.run(quick=CLOSURE_QUICK_2D, device=DEVICE)
+    secs = {k: round(v, 3) for k, v in out["seconds"].items()}
+    print(f"[closure] 2-D example (256^2 DNS -> 64^2, 500 a-priori and 100 a-posteriori "
+          f"iterations): {time.perf_counter() - t0:.3f} s; seconds per stage {secs}; "
+          f"relerr {out['relerr_init']:.5f} -> {out['relerr_prior']:.5f}; loss_post "
+          f"{out['loss_post']:.6e}; {card_line()}")
+    if not (all(math.isfinite(out[k]) for k in ("relerr_init", "relerr_prior", "loss_post"))
+            and out["relerr_prior"] < out["relerr_init"]):
+        fail("[closure] the 2-D example did not train")
+    io = out["io"]
+    les = ex.les_setup(io["u"].shape[1], DEVICE)
+    x, y = (torch.as_tensor(io[k], device=DEVICE) for k in ("u", "c"))
+    dl = nc.create_dataloader_prior((io["u"], io["c"]), batchsize=8, device=DEVICE)
+
+    def gelu(v):
+        return F.gelu(v, approximate="tanh")
+
+    models = {
+        "fno": nc.fno(setup=les, sigma=(gelu,) * 4, psi=gelu,
+                      generator=torch.Generator().manual_seed(0), **CLOSURE_FNO),
+        "gcnn": nc.gcnn(setup=les, activations=(torch.tanh, torch.tanh, lambda v: v),
+                        use_bias=(True, True, False), generator=torch.Generator().manual_seed(0),
+                        **CLOSURE_GCNN),
+        "cnn": (out["closure"], out["theta"]),
+    }
+    u = out["data"][0]["u"]
+    sym = {}
+    for name, (closure, theta) in models.items():
+        if name != "cnn":
+            relerr = nc.create_relerr_prior(closure, x, y)
+            e0 = relerr(theta).item()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = nc.train(dataloader=dl, loss=nc.create_loss_prior(closure),
+                          trainstate=nc.create_trainstate(theta, lr=1e-3,
+                                                          rng=np.random.default_rng(SEED)),
+                          niter=CLOSURE_ITERS_2D)
+            e1 = relerr(theta).item()
+            print(f"[closure] 2-D {name} a-priori: {CLOSURE_ITERS_2D} iterations in "
+                  f"{time.perf_counter() - t0:.3f} s; relerr {e0:.5f} -> {e1:.5f}")
+            if not (math.isfinite(e1) and e1 < e0 and math.isfinite(st["trainstate"]["loss"].item())):
+                fail(f"[closure] 2-D {name}: relerr_prior did not fall")
+        setup_c = dataclasses.replace(les, closure_model=nc.wrappedclosure(closure, les))
+        prior = nc.create_relerr_symmetry_prior(u=u[:4], setup=setup_c)(theta).item()
+        post = nc.create_relerr_symmetry_post(u=u[0], setup=setup_c,
+                                              psolver=it.psolver_spectral(les), dt=1e-3,
+                                              nstep=4)(theta).item()
+        sym[name] = (prior, post)
+        print(f"[closure] 2-D {name}: symmetry error prior {prior:.3e}, post {post:.3e}")
+    if not all(v <= SYMMETRY_TOL for v in sym["gcnn"]):
+        fail(f"[closure] the G-CNN's symmetry errors {sym['gcnn']} exceed {SYMMETRY_TOL}")
+    if not all(v > SYMMETRY_TOL for v in sym["cnn"]):
+        fail(f"[closure] the CNN's symmetry errors {sym['cnn']} are not above {SYMMETRY_TOL}")
+
+
+def phase_closure():
+    """16: the NeuralClosure pipeline through the port's entry points;
+    returns the kernels' launches of its kernel runs."""
+    from ins_tpu_torch.ops import launches
+
+    totals = {}
+
+    def add():
+        """Add the launches since the last reset to the totals; return
+        the nonzero ones."""
+        counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return counts
+
+    clock = time.perf_counter()
+    data = closure_dns_data(add)
+    print(f"[time] 16a (filtered DNS): {time.perf_counter() - clock:.1f} s")
+    clock = time.perf_counter()
+    theta = closure_prior(data, add)
+    print(f"[time] 16b (a-priori 3-D): {time.perf_counter() - clock:.1f} s")
+    clock = time.perf_counter()
+    closure_post(data, theta, add)
+    print(f"[time] 16c (a-posteriori 3-D): {time.perf_counter() - clock:.1f} s")
+    del data, theta
+    clock = time.perf_counter()
+    closure_2d()
+    print(f"[time] 16d (the 2-D workflow): {time.perf_counter() - clock:.1f} s")
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stack-turns", metavar="PARENT",
@@ -6051,6 +6499,10 @@ def main():
                     help="only phase 15 (adaptive CFL stepping on the 256³ hat chain, the "
                          "channel and the 128³ cavity's general path, an unsteady force on "
                          "the 256³ roll route), after the kernel build")
+    ap.add_argument("--closure", action="store_true",
+                    help="only phase 16 (the NeuralClosure pipeline: filtered DNS at 256³, "
+                         "a-priori and a-posteriori training of the 3-D CNN, the 2-D "
+                         "example with an FNO and a G-CNN), after the kernel build")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -6145,6 +6597,12 @@ def main():
         launched = phase_adaptive()
         print(f"[adaptive] launches of the phase's runs: {launched}")
         print(f"[time] phase 15 (adaptive dt, unsteady forces): {time.perf_counter() - t0:.1f} s")
+        return
+    if args.closure:
+        t0 = time.perf_counter()
+        launched = phase_closure()
+        print(f"[closure] launches of the phase's runs: {launched}")
+        print(f"[time] phase 16 (the NeuralClosure pipeline): {time.perf_counter() - t0:.1f} s")
         return
     ptxas_report()
 
@@ -6256,15 +6714,18 @@ def main():
     phase_done("phase 14 (the rest of the general path)")
     adaptive_counts = phase_adaptive()
     phase_done("phase 15 (adaptive dt, unsteady forces)")
+    closure_counts = phase_closure()
+    phase_done("phase 16 (the NeuralClosure pipeline)")
 
-    def with_adaptive(k, v):
-        return v + adaptive_counts.get(k, 0)
+    def with_later(k, v):
+        """v plus the launches of phases 15 and 16."""
+        return v + adaptive_counts.get(k, 0) + closure_counts.get(k, 0)
 
-    counts = {**{k: with_adaptive(k, hat_counts[k]) for k in HAT_KERNELS + ("passB_fold+levels",)},
+    counts = {**{k: with_later(k, hat_counts[k]) for k in HAT_KERNELS + ("passB_fold+levels",)},
               "passB": dense_counts["passB"],
-              **{k: train_counts[k] for k in TRAINING_KERNELS + F32_CONV_KERNELS},
-              "make_poisson_pallas": with_adaptive("poisson_pallas", train_counts["poisson_pallas"]),
-              **{k: with_adaptive(k, channel_counts[k]) for k in CHANNEL_KERNELS},
+              **{k: with_later(k, train_counts[k]) for k in TRAINING_KERNELS + F32_CONV_KERNELS},
+              "make_poisson_pallas": with_later("poisson_pallas", train_counts["poisson_pallas"]),
+              **{k: with_later(k, channel_counts[k]) for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
               **{k: halo_counts[k] for k in HALO_KERNELS + ("passB_sharded+levels",)},

@@ -17,10 +17,12 @@ holds the port's setup-time constants — the fused projection's
 eigen-matrices and grid spacings, the channel's z-metric vectors, the
 steady body force, Re and the temperature coefficients — equal to the
 JAX package's.
-`cnn_params_from_numpy` / `cnn_params_to_numpy` carry a CNN closure's
-parameters (flax's ``params`` dict, e.g. the ``theta`` of
-`ins_tpu.models.cnn`) to the port's ``theta`` and back; both use
-canonical ``(k, k, k, cin, cout)`` kernels, so the two packages then
+`flax_params_from_numpy` / `flax_params_to_numpy` carry a closure's
+parameters (flax's ``params`` tree, e.g. the ``theta`` of
+`ins_tpu.models.cnn`, `fno` or `gcnn`) to the port's flat ``theta`` and
+back (``cnn_``, ``fno_`` and ``gcnn_params_from_numpy`` / ``_to_numpy``
+are the same pair); the port's models keep flax's names and layouts
+(canonical ``(k,) * D + (cin, cout)`` kernels), so the two packages then
 compute the same closure.
 """
 
@@ -42,8 +44,14 @@ __all__ = [
     "state_from_numpy",
     "state_to_numpy",
     "check_setup_constants",
+    "flax_params_from_numpy",
+    "flax_params_to_numpy",
     "cnn_params_from_numpy",
     "cnn_params_to_numpy",
+    "fno_params_from_numpy",
+    "fno_params_to_numpy",
+    "gcnn_params_from_numpy",
+    "gcnn_params_to_numpy",
 ]
 
 # the channel metric vectors `check_setup_constants` compares
@@ -168,17 +176,42 @@ def check_setup_constants(setup, jax_consts, *, rtol=None):
     return worst
 
 
-def cnn_params_from_numpy(theta, *, device="cuda"):
-    """A flax CNN ``params`` mapping (``conv{i}_kernel``, ``conv{i}_bias``
-    -> arrays) as the port's ``theta``: a dict of leaf tensors on
-    `device`, in the arrays' dtypes, that require grad."""
+def flax_params_from_numpy(params, *, device="cuda"):
+    """A flax ``params`` tree (nested mappings of arrays, e.g. the ``theta``
+    of `ins_tpu.models.cnn`, `fno` or `gcnn`) as the port's ``theta``: a
+    flat dict of leaf tensors on `device`, in the arrays' dtypes, that
+    require grad, keyed by the paths joined with dots
+    (``FourierLayer_0.spatial_weight``; a CNN's flat ``conv{i}_kernel``
+    as it is)."""
     device = resolve_device(device)
-    return {
-        name: torch.as_tensor(np.array(a), device=device).requires_grad_(True)
-        for name, a in dict(theta).items()
-    }
+    theta = {}
+
+    def walk(tree, prefix):
+        for name, a in dict(tree).items():
+            if hasattr(a, "items"):
+                walk(a, f"{prefix}{name}.")
+            else:
+                theta[prefix + name] = torch.as_tensor(np.array(a), device=device).requires_grad_(True)
+
+    walk(params, "")
+    return theta
 
 
-def cnn_params_to_numpy(theta):
-    """The port's ``theta`` as a dict of numpy arrays (flax's layout)."""
-    return {name: t.detach().cpu().numpy() for name, t in theta.items()}
+def flax_params_to_numpy(theta):
+    """The port's ``theta`` as flax's nested ``params`` dict of numpy
+    arrays (the inverse of `flax_params_from_numpy`)."""
+    tree = {}
+    for name, t in theta.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().numpy()
+    return tree
+
+
+# the CNN (2-D or 3-D, canonical (k,) * D + (cin, cout) kernels), the FNO
+# and the G-CNN name their parameters as flax does, so one pair of
+# functions carries all three
+cnn_params_from_numpy = fno_params_from_numpy = gcnn_params_from_numpy = flax_params_from_numpy
+cnn_params_to_numpy = fno_params_to_numpy = gcnn_params_to_numpy = flax_params_to_numpy

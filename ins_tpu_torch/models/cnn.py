@@ -1,19 +1,30 @@
 """CNN closure model.
 
-Port of `ins_tpu/models/cnn.py`: a stack of circular-padded k³
+Port of `ins_tpu/models/cnn.py`: a stack of circular-padded k^D
 convolutions on the collocated velocity, its output interpolated back to
-the staggered faces.  Every layer is the fused conv layer of
+the staggered faces.  A 3-D stack whose activations are all tanh or the
+identity runs every layer as the fused conv layer of
 `ops/conv_kernels.py` (conv + bias + tanh/identity): the hand-written
 CUDA kernels for tensors on the card, their plain versions on the CPU.
 As in the JAX package's kernel path, the input is cast to the compute
 dtype once and each layer stores its output in it (float32 sums, bias
 and activation in between); ``compute_dtype=None`` means bfloat16 for a
-float32 model.  The JAX package's XLA tap-folding path and its x-chunking
-are TPU memory devices and have no counterpart.
+float32 model.
+
+Any other stack (every 2-D CNN, and a 3-D one with another activation)
+runs as the JAX package runs it outside its Pallas kernels
+(`_fold_conv`, a ``lax.conv`` per layer): each layer a circular pad and
+``F.conv2d`` / ``F.conv3d`` on operands rounded to the compute dtype,
+its output cast back to the model's dtype, then the bias and the
+activation.  The rule is all or nothing, as in the JAX package: a 3-D
+tanh/identity stack never takes the library convolution.  The JAX
+package's tap folding and x-chunking of that path are TPU devices (the
+MXU's contraction fill, and its HBM at 128³); 80 GB holds a 128³ stack
+unchunked, so neither has a counterpart.
 
 Parameters live in a plain dict ``theta`` of leaf tensors named as
 flax names them (``conv{i}_kernel`` with canonical shape
-``(k, k, k, cin, cout)``, ``conv{i}_bias``), so `convert` carries them
+``(k,) * D + (cin, cout)``, ``conv{i}_bias``), so `convert` carries them
 between the two packages.
 
 `_pallas_conv_layer` is the JAX package's other form of one layer (its
@@ -39,7 +50,7 @@ __all__ = ["cnn", "CNN"]
 
 def _actname(act):
     """Map an activation callable to a kernel activation name: "tanh"
-    or "id" (probed on a small tensor); raise for anything else."""
+    or "id" (probed on a small tensor); None for anything else."""
     if act in (torch.tanh, torch.nn.functional.tanh):
         return "tanh"
     probe = torch.tensor([[0.625, -1.5]], dtype=torch.float32)
@@ -49,10 +60,7 @@ def _actname(act):
         return "id"
     if torch.allclose(out, torch.tanh(probe)):
         return "tanh"
-    raise NotImplementedError(
-        f"activation {act!r} is not tanh or the identity: the port's conv "
-        "layers fuse only those two (ROADMAP queue 1 item 9)"
-    )
+    return None
 
 
 def lecun_normal_(w, generator=None):
@@ -61,6 +69,16 @@ def lecun_normal_(w, generator=None):
     fan_in = math.prod(w.shape[:-1])
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def glorot_uniform_(w, in_axis=-2, out_axis=-1, generator=None):
+    """flax's ``glorot_uniform(in_axis, out_axis)``: uniform on ±√(6 /
+    (fan_in + fan_out)), each fan its axis's size times the receptive
+    field (the product of the other axes)."""
+    shape = w.shape
+    receptive = math.prod(shape) // (shape[in_axis] * shape[out_axis])
+    limit = math.sqrt(6.0 / ((shape[in_axis] + shape[out_axis]) * receptive))
+    return nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
 def _zfold(h, r):
@@ -147,25 +165,44 @@ def _pallas_conv_layer(h, w, b, r, pad_x, actname, compute_dtype, *, plain=False
     return layer(g, _fold_w(w, compute_dtype), b).to(h.dtype)
 
 
+def _conv_layer(h, w, b, act, compute_dtype):
+    """One layer off the kernel path (the JAX package's `_fold_conv`, bias
+    and activation): h (nsample, *spatial, cin) circularly padded by r,
+    a VALID ``F.conv{D}d`` on operands in ``compute_dtype``, the output
+    cast back to h's dtype, then ``act(out + b)``."""
+    D = h.dim() - 2
+    r = w.shape[0] // 2
+    x = torch.movedim(h.to(compute_dtype), -1, 1)
+    if r:
+        x = F.pad(x, (r,) * (2 * D), mode="circular")
+    wt = torch.movedim(w.to(compute_dtype), (-1, -2), (0, 1))  # (cout, cin, *taps)
+    y = torch.movedim((F.conv2d if D == 2 else F.conv3d)(x, wt), 1, -1).to(h.dtype)
+    if b is not None:
+        y = y + b
+    return act(y)
+
+
 class CNN(nn.Module):
-    """Conv stack on ``(nsample, nx, ny, nz, 3)`` staggered velocities."""
+    """Conv stack on ``(nsample, *n, D)`` staggered velocities, D = 2 or 3."""
 
     def __init__(self, *, radii, channels, activations, use_bias, D=3,
                  dtype=torch.float32, compute_dtype=None, plain=False):
         super().__init__()
-        if D != 3:
-            raise NotImplementedError(
-                "the port's CNN closure is 3-D (its conv layers are 3-D kernels)"
-            )
+        if D not in (2, 3):
+            raise ValueError(f"the CNN closure is 2-D or 3-D, not {D}-D")
         if channels[-1] != D:
             raise ValueError("the last layer must output D force channels")
         self.radii = tuple(radii)
         self.channels = tuple(channels)
         self.use_bias = tuple(use_bias)
+        self.activations = tuple(activations)
         self.dtype = dtype
         self.compute_dtype = compute_dtype or (
             torch.bfloat16 if dtype == torch.float32 else dtype
         )
+        actnames = [_actname(a) for a in self.activations]
+        # all or nothing: the kernel layers take 3-D tanh/identity stacks
+        self.on_kernels = D == 3 and None not in actnames
         self.layers = []
         cin = D
         for i, (r, cout) in enumerate(zip(self.radii, self.channels)):
@@ -177,10 +214,10 @@ class CNN(nn.Module):
                 self.register_parameter(
                     f"conv{i}_bias", nn.Parameter(torch.zeros(cout, dtype=dtype))
                 )
-            self.layers.append(make_fused_layer(
-                _actname(activations[i]), self.use_bias[i], cin=cin, cout=cout, k=k,
-                plain=plain,
-            ))
+            if self.on_kernels:
+                self.layers.append(make_fused_layer(
+                    actnames[i], self.use_bias[i], cin=cin, cout=cout, k=k, plain=plain,
+                ))
             cin = cout
 
     def reset_parameters(self, generator=None):
@@ -190,15 +227,21 @@ class CNN(nn.Module):
                 if self.use_bias[i]:
                     getattr(self, f"conv{i}_bias").zero_()
 
+    def _weights(self, i):
+        return getattr(self, f"conv{i}_kernel"), getattr(self, f"conv{i}_bias", None)
+
     def forward(self, x):
         in_dtype = x.dtype
         x = collocate(x.to(self.dtype))
+        if not self.on_kernels:
+            for i, act in enumerate(self.activations):
+                x = _conv_layer(x, *self._weights(i), act, self.compute_dtype)
+            return decollocate(x.to(in_dtype))
         outs = []
         for s in range(x.shape[0]):
             h = x[s].to(self.compute_dtype).contiguous()
             for i, layer in enumerate(self.layers):
-                h = layer(h, getattr(self, f"conv{i}_kernel"),
-                          getattr(self, f"conv{i}_bias", None))
+                h = layer(h, *self._weights(i))
             outs.append(h)
         return decollocate(torch.stack(outs).to(in_dtype))
 
@@ -206,13 +249,13 @@ class CNN(nn.Module):
 def cnn(*, setup, radii, channels, activations, use_bias, generator=None,
         compute_dtype=None, plain=False):
     """Build ``(closure, theta)``: ``closure(x, theta)`` on
-    ``(nsample, nx, ny, nz, 3)`` and theta, the dict of its parameters
+    ``(nsample, *n, D)`` and theta, the dict of its parameters
     (lecun-normal kernels drawn on the CPU from `generator`, a CPU
     `torch.Generator`; zero biases) on ``setup.device``.
     ``compute_dtype``: the conv operand dtype — None is bfloat16 for a
     float32 setup; pass ``torch.float32`` for float32 convs.
-    ``plain=True`` runs the layers' plain versions on any device (the
-    reference closure on the card)."""
+    ``plain=True`` runs the kernel layers' plain versions on any device
+    (the reference closure on the card)."""
     model = CNN(
         radii=radii, channels=channels, activations=activations, use_bias=use_bias,
         D=setup.grid.dim, dtype=setup.dtype, compute_dtype=compute_dtype, plain=plain,

@@ -1,36 +1,71 @@
-"""Closure-model training: dataloaders, losses, metrics, train loop.
+"""Closure-model training: dataloaders, losses, metrics, train loops.
 
-Port of the a-posteriori part of `ins_tpu/models/training.py` (and its
-two a-priori losses) on `torch.autograd` and `torch.optim`.  The
-a-posteriori loss backpropagates through the unrolled solver: each step
-is `make_fast_timestep(..., differentiable=True)`, the per-op chain with
+Port of `ins_tpu/models/training.py` on `torch.autograd` and
+`torch.optim`.  The a-posteriori loss backpropagates through the
+unrolled solver.  On the periodic fast path each step is
+`make_fast_timestep(..., differentiable=True)`, the per-op chain with
 custom-VJP kernels (`ops/diffkernels.py`) and the CNN's kernel layers;
-``remat=True`` checkpoints each step (`torch.utils.checkpoint`,
-non-reentrant), so the backward pass recomputes one step's forward at a
-time instead of keeping every stage's activations.  Random draws come
-from a numpy `Generator` in place of `jax.random` keys.
+anywhere else it is the general path's `timestep` on the ghosted layout
+(ghost fills, the staggered operators, `ops.pressure.project`), whose
+Poisson solve is its own adjoint (`ops.pressure.poisson`, the JAX
+package's custom VJP), so no solver's iterations are taped: the CG's
+`device_while` and `psolver_direct`'s host solve run in the solve's
+forward, and the backward pass solves once more.  ``remat=True``
+checkpoints each step (`torch.utils.checkpoint`, non-reentrant), so the
+backward pass recomputes one step's forward at a time instead of keeping
+every stage's activations.  Random draws come from a numpy `Generator`
+in place of `jax.random` keys; batches go where the parameters are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.fastpath import fastpath_applicable, make_fast_timestep, strip_ghosts
-from ..time_steppers.step import StepperState
+from ..setup import resolve_device
+from ..time_steppers.rk_methods import RK44
+from ..time_steppers.step import StepperState, timestep
+from .groupconv import rot2stag
 
 __all__ = [
+    "create_dataloader_prior",
     "create_dataloader_post",
     "create_trainstate",
     "train",
+    "trainepoch",
     "create_loss_prior",
     "create_relerr_prior",
     "create_loss_post",
     "create_relerr_post",
+    "create_relerr_symmetry_prior",
+    "create_relerr_symmetry_post",
+    "create_callback",
 ]
+
+
+def _rows(a, i, device):
+    """Rows ``i`` of a numpy array or tensor, as a tensor on `device`."""
+    return torch.as_tensor(a[i]).to(device)
+
+
+def create_dataloader_prior(data, *, batchsize=50, device="cuda"):
+    """Random-batch dataloader over the (x, y) arrays (numpy or tensors):
+    ``batchsize`` rows drawn without replacement, in sorted order.
+    Returns ``dataloader(rng) -> ((x, y), rng)`` for a numpy Generator,
+    the batch on ``device``."""
+    x, y = data
+    device = resolve_device(device)
+
+    def dataloader(rng):
+        i = np.sort(rng.choice(x.shape[0], size=batchsize, replace=False))
+        return (_rows(x, i, device), _rows(y, i, device)), rng
+
+    return dataloader
 
 
 def create_dataloader_post(trajectories, *, ntrajectory, nunroll):
@@ -67,6 +102,18 @@ def create_trainstate(theta, *, opt=None, lr=1e-3, rng=None):
     return dict(opt=opt, theta=theta, rng=rng)
 
 
+def _update(opt, theta, value, lam):
+    """One optimizer step on the gradient of ``value`` plus ``lam`` times
+    the parameters (weight decay)."""
+    opt.zero_grad(set_to_none=True)
+    value.backward()
+    if lam is not None:
+        with torch.no_grad():
+            for p in theta.values():
+                p.grad.add_(p, alpha=lam)
+    opt.step()
+
+
 def train(*, dataloader, loss, trainstate, niter, callback=None, callbackstate=None,
           lam=None):
     """Gradient loop: grad of ``loss(batch, theta)``, optional weight
@@ -75,14 +122,33 @@ def train(*, dataloader, loss, trainstate, niter, callback=None, callbackstate=N
     opt, theta = trainstate["opt"], trainstate["theta"]
     for _ in range(niter):
         batch, rng = dataloader(trainstate["rng"])
-        opt.zero_grad(set_to_none=True)
         value = loss(batch, theta)
-        value.backward()
-        if lam is not None:
-            with torch.no_grad():
-                for p in theta.values():
-                    p.grad.add_(p, alpha=lam)
-        opt.step()
+        _update(opt, theta, value, lam)
+        trainstate = dict(trainstate, rng=rng, loss=value.detach())
+        if callback is not None:
+            callbackstate = callback(callbackstate, trainstate)
+    return dict(trainstate=trainstate, callbackstate=callbackstate)
+
+
+def trainepoch(*, data, batchsize, loss, trainstate, callback=None, callbackstate=None,
+               noiselevel=None, lam=None):
+    """One pass over the whole (x, y) dataset in shuffled minibatches of
+    ``batchsize`` (each in sorted order; the last partial one dropped),
+    with optional input noise ``noiselevel`` times a standard normal
+    draw, and weight decay ``lam``.  The order and the noise come from
+    the trainstate's numpy Generator."""
+    x, y = data
+    opt, theta, rng = trainstate["opt"], trainstate["theta"], trainstate["rng"]
+    device = next(iter(theta.values())).device
+    order = rng.permutation(x.shape[0])
+    for b in range(x.shape[0] // batchsize):
+        i = np.sort(order[b * batchsize : (b + 1) * batchsize])
+        xb, yb = _rows(x, i, device), _rows(y, i, device)
+        if noiselevel is not None:
+            noise = torch.as_tensor(rng.standard_normal(tuple(xb.shape)))
+            xb = xb + noiselevel * noise.to(dtype=xb.dtype, device=device)
+        value = loss((xb, yb), theta)
+        _update(opt, theta, value, lam)
         trainstate = dict(trainstate, rng=rng, loss=value.detach())
         if callback is not None:
             callbackstate = callback(callbackstate, trainstate)
@@ -109,32 +175,47 @@ def create_relerr_prior(f, x, y):
     return relerr
 
 
+def _dof_slice(setup):
+    """Every component sliced by ``Iu[0]``, the first component's DOF box
+    (the JAX package's slice; on a wall-bounded grid the components'
+    boxes differ, see ROADMAP queue 3)."""
+    return (slice(None),) + tuple(slice(s, e) for (s, e) in setup.grid.Iu[0])
+
+
 def _unrolled_errors(u, t, theta, *, setup, method, psolver, nsubstep, sqrt_each,
                      remat=False, plain=False):
     """Step the LES solver with its closure from u[0] along the stored
-    time stamps and average the relative errors of the interior field.
-    ``remat=True`` checkpoints each solver step."""
-    if not fastpath_applicable(setup, method, psolver):
-        raise NotImplementedError(
-            "a-posteriori training runs on the periodic fast path only (explicit "
-            "RK, spectral solver, uniform periodic grid); training off it is "
-            "ROADMAP queue 1 item 9"
-        )
+    time stamps and average the relative errors on the DOF box.
+    ``remat=True`` checkpoints each solver step; ``plain=True`` runs the
+    per-op kernels' plain versions (fast path)."""
+    u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
     ts = [float(v) for v in (t.tolist() if torch.is_tensor(t) else np.asarray(t))]
-    step = make_fast_timestep(setup, method, differentiable=True, plain=plain)
+    sl = _dof_slice(setup)
+    if fastpath_applicable(setup, method, psolver):
+        step = make_fast_timestep(setup, method, differentiable=True, plain=plain)
+        # the interior layout: the ghosted DOF box shifts down by the
+        # one-cell ghost border
+        sl_state = (slice(None),) + tuple(slice(s.start - 1, s.stop - 1) for s in sl[1:])
+        ustart = strip_ghosts(u[0])
+    else:
+        def step(state, dt, theta):
+            return timestep(method, state, dt, setup=setup, psolver=psolver, theta=theta)
+
+        sl_state = sl
+        ustart = u[0]
     if remat:
         def one_step(state, dt, theta):
             return checkpoint(step, state, dt, theta, use_reentrant=False)
     else:
         one_step = step
-    state = StepperState(u=strip_ghosts(u[0]), temp=None, t=ts[0], n=0)
+    state = StepperState(u=ustart, temp=None, t=ts[0], n=0)
     total = 0.0
     for it in range(1, len(ts)):
         dt = (ts[it] - ts[it - 1]) / nsubstep
         for _ in range(nsubstep):
             state = one_step(state, dt, theta)
-        ref = strip_ghosts(u[it])
-        err = torch.sum((state.u - ref) ** 2) / torch.sum(ref**2)
+        ref = u[it][sl]
+        err = torch.sum((state.u[sl_state] - ref) ** 2) / torch.sum(ref**2)
         total = total + (torch.sqrt(err) if sqrt_each else err)
     return total / (len(ts) - 1)
 
@@ -147,9 +228,10 @@ def create_loss_post(*, setup, method, psolver, closure_model, nsubstep=1, remat
                      plain=False):
     """A-posteriori loss: the relative trajectory error of the unrolled
     solver with ``closure_model``.  ``loss(data, theta)`` takes a list of
-    dicts (u: ``(nt, D, *N)`` ghosted fields, t: ``(nt,)`` times).
-    ``remat=True`` checkpoints each step (long unrolls); ``plain=True``
-    runs the per-op kernels' plain versions on any device."""
+    dicts (u: ``(nt, D, *N)`` ghosted fields, numpy or tensors; t:
+    ``(nt,)`` times).  ``remat=True`` checkpoints each step (long
+    unrolls); ``plain=True`` runs the per-op kernels' plain versions on
+    any device."""
     setup_c = _with_closure(setup, closure_model)
 
     def loss_post(data, theta):
@@ -177,3 +259,78 @@ def create_relerr_post(*, data, setup, method, psolver, closure_model, nsubstep=
             )
 
     return relerr_post
+
+
+def _relerr(got, ref, sl):
+    return torch.sqrt(torch.sum((got[sl] - ref[sl]) ** 2) / torch.sum(ref[sl] ** 2))
+
+
+def create_relerr_symmetry_prior(*, u, setup, g=1):
+    """A-priori rotation-equivariance error of the setup's closure:
+    closure-then-rotate against rotate-then-closure (`rot2stag` by ``g``
+    quarter turns), averaged over the ghosted fields ``u``
+    ``(nsample, 2, *N)``."""
+    closure = setup.closure_model
+    sl = _dof_slice(setup)
+    u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
+
+    def err(theta):
+        with torch.no_grad():
+            total = 0.0
+            for ui in u:
+                cr = closure(rot2stag(ui, g), theta)
+                total = total + _relerr(rot2stag(closure(ui, theta), g), cr, sl)
+            return total / u.shape[0]
+
+    return err
+
+
+def create_relerr_symmetry_post(*, u, setup, psolver, method=None, dt, nstep, g=1):
+    """A-posteriori symmetry error: ``nstep`` steps of the general path's
+    `timestep` from ``u`` and from its rotation, the first run rotated
+    after each step against the second, averaged over the steps."""
+    if method is None:
+        method = RK44()
+    sl = _dof_slice(setup)
+    u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
+
+    def err(theta):
+        with torch.no_grad():
+            s1 = StepperState(u=u, temp=None, t=0.0, n=0)
+            s2 = StepperState(u=rot2stag(u, g), temp=None, t=0.0, n=0)
+            total = 0.0
+            for _ in range(nstep):
+                s1 = timestep(method, s1, dt, setup=setup, psolver=psolver, theta=theta)
+                s2 = timestep(method, s2, dt, setup=setup, psolver=psolver, theta=theta)
+                total = total + _relerr(s2.u, rot2stag(s1.u, g), sl)
+            return total / nstep
+
+    return err
+
+
+def create_callback(err, *, theta, nupdate=1, displayupdates=False):
+    """Track the best parameters and the error history: returns
+    ``(state, callback)``; every ``nupdate`` calls the callback
+    evaluates ``err(theta)``, prints it and keeps a copy of the
+    parameters with the lowest error so far (``theta_min``).
+    ``displayupdates`` is accepted for parity (the JAX package has no
+    plot either)."""
+    state = dict(n=0, theta_min=theta, emin=float("inf"), hist=[], ctime=time.time())
+
+    def callback(callbackstate, trainstate):
+        cs = dict(callbackstate)
+        if cs["n"] % nupdate == 0:
+            e = float(err(trainstate["theta"]))
+            now = time.time()
+            itertime = (now - cs["ctime"]) / max(1, nupdate)
+            cs["ctime"] = now
+            print(f"Iteration {cs['n']}\trelative error: {e:.4g}\tsec/iter: {itertime:.4g}")
+            cs["hist"] = cs["hist"] + [(cs["n"], e)]
+            if e < cs["emin"]:
+                # the optimizer updates theta in place: keep a copy
+                cs["theta_min"] = {k: v.detach().clone() for k, v in trainstate["theta"].items()}
+                cs["emin"] = e
+        cs["n"] += 1
+        return cs
+
+    return state, callback

@@ -187,9 +187,20 @@ def test_cnn_runs_plain_layers_on_cpu():
 
 
 def test_cnn_rejects_activations_without_a_kernel():
-    _, ts = _setups(8, torch.float32)
-    with pytest.raises(NotImplementedError, match="tanh or the identity"):
-        nc.cnn(setup=ts, radii=[1], channels=[3], activations=[torch.relu], use_bias=[True])
+    """A relu layer has no kernel: the kernel layers reject the stack,
+    which runs on the library convolution instead (all or nothing, as the
+    JAX package leaves Pallas for ``lax.conv``) and equals the JAX
+    package's CNN at float64; a tanh stack stays on the kernel layers."""
+    js, ts = _setups(8, torch.float64)
+    kw = dict(radii=[1], channels=[3], use_bias=[True])
+    jcl, jth = jax_cnn(setup=js, activations=[jax.nn.relu], rng=jax.random.PRNGKey(4),
+                       compute_dtype=jnp.float64, **kw)
+    closure, _ = nc.cnn(setup=ts, activations=[torch.relu], **kw)
+    assert not nc.CNN(activations=[torch.relu], **kw).on_kernels
+    x = np.random.default_rng(12).standard_normal((2, 8, 8, 8, 3))
+    got = closure(torch.from_numpy(x), cnn_params_from_numpy(jth, device="cpu"))
+    assert _rel(got.detach().numpy(), jax.jit(jcl)(jnp.asarray(x), jth)) < TOL_F64
+    assert nc.CNN(activations=[torch.tanh], **kw).on_kernels
 
 
 def test_conv_gate_rejects_even_taps():

@@ -232,21 +232,21 @@ def test_prior_losses():
 def test_training_off_the_fast_path_raises(case):
     """LMWray3 trains through the per-op chain (loss and gradient equal
     `jax.grad`'s, the module's 16³ case); off the periodic fast path
-    (here without the spectral solver) training still raises."""
-    jl = jnc.create_loss_post(setup=case.js, method=ins.LMWray3(),
-                              psolver=ins.psolver_spectral(case.js), closure_model=case.jm)
-    f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
-    jv, jg = f(case.jth, jnp.asarray(case.us), jnp.asarray(case.tt))
+    (here with the direct solver in place of the spectral one) it trains
+    through the general path's `timestep`, and its loss and gradient
+    equal the JAX package's off its fast path too."""
     data = [{"u": torch.from_numpy(case.us), "t": torch.from_numpy(case.tt)}]
-    theta = cnn_params_from_numpy(case.jth, device="cpu")
-    tv = nc.create_loss_post(setup=case.ts, method=it.LMWray3(),
-                             psolver=it.psolver_spectral(case.ts),
-                             closure_model=case.tm)(data, theta)
-    tg = torch.autograd.grad(tv, list(theta.values()))
-    assert abs(tv.item() - float(jv)) < TOL * abs(float(jv))
-    for name, g in zip(theta, tg):
-        assert _rel(g.numpy(), jg[name]) < TOL, name
-    off = nc.create_loss_post(setup=case.ts, method=it.LMWray3(), psolver=None,
-                              closure_model=case.tm)
-    with pytest.raises(NotImplementedError, match="fast path"):
-        off(data, theta)
+    for jps, tps in ((ins.psolver_spectral(case.js), it.psolver_spectral(case.ts)),
+                     (ins.psolver_direct(case.js), it.psolver_direct(case.ts))):
+        jl = jnc.create_loss_post(setup=case.js, method=ins.LMWray3(), psolver=jps,
+                                  closure_model=case.jm)
+        f = jax.jit(jax.value_and_grad(lambda th, u, t: jl([{"u": u, "t": t}], th)))
+        jv, jg = f(case.jth, jnp.asarray(case.us), jnp.asarray(case.tt))
+        theta = cnn_params_from_numpy(case.jth, device="cpu")
+        tl = nc.create_loss_post(setup=case.ts, method=it.LMWray3(), psolver=tps,
+                                 closure_model=case.tm)
+        tv = tl(data, theta)
+        tg = torch.autograd.grad(tv, list(theta.values()))
+        assert abs(tv.item() - float(jv)) < TOL * abs(float(jv))
+        for name, g in zip(theta, tg):
+            assert _rel(g.numpy(), jg[name]) < TOL, name
