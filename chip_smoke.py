@@ -18,6 +18,12 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # pipeline (filtered DNS, a-priori
                                       # and a-posteriori training, the
                                       # 2-D example, FNO and G-CNN)
+    python3 chip_smoke.py --precision # only the default precision's
+                                      # checks (phase 1's bf16x3 forms,
+                                      # both classes, the gates in each
+                                      # precision) and phase 17, the 512³
+                                      # RK44 and LMWray3 cells in both
+                                      # precisions
     python3 chip_smoke.py --stack-turns DIR   # only phase 11's stack
                                       # timings: the package of the tree
                                       # DIR and this one's, in turns
@@ -78,6 +84,12 @@ Run from the repository root on a machine with a Hopper card (H100):
                                       # tapconv_tf32.cu and fold.cu
 
 Phases, each raising on failure (exit code != 0, no result line):
+
+The paths run at `projection_precision="manualhigh"`, the default as in
+the JAX package: the plane GEMM and the fused pass B in their bf16x3
+forms, counted under their own launch keys (`form_keys`: ``+bf16x3``);
+`run_counts` reads every path run's launches and fails where a run
+launched the other precision's form.
 
 0. Print the card's name and power limit (nvidia-smi), switch TF32 off
    for matmuls and cuDNN, build the CUDA kernels from
@@ -146,7 +158,22 @@ Phases, each raising on failure (exit code != 0, no result line):
    solve gate: `make_poisson_pallas` against `make_poisson_mm` at 64³,
    128³ and 256³ (held against each other; wall ms per solve in turns and
    device ms per solve from torch.profiler), printed beside the solve the
-   per-op chain's gate (`fastpath.POISSON_PALLAS_MIN_N`) picks there.
+   per-op chain's gate (`fastpath.poisson_pallas_min_n`) picks there.
+   The cases above that name no precision hold the 3xTF32 forms
+   ("highest"); the default precision's (`phase_precision_kernels`):
+   the bf16x3 plane transform (`plane_transform+bf16x3`, the shapes of
+   `transform_cases` with the inverse z/y transform, at 64³, 256³ and
+   512³ and each ragged n − 6; timed at 256³) and the bf16x3 fused pass
+   B (folded at 256³ one level and 512³ two, dense at 250³, the 4-way
+   shard (256, 64, 256) at yoff 64 and 192), each within
+   `BF16X3_PLAIN_TOL` (1e-5) of its plain version and `BF16X3_CLASS_TOL`
+   of float64, timed beside its bound (three bf16 products a
+   multiply-add at the bf16 peak); `precision_classes` prints each
+   form's float64 error beside the other's (transforms at 256³ and 512³,
+   those pass B cases, the 3-pass solve at 128³) and fails unless the
+   3xTF32 form keeps the float32 class and the bf16x3 form sits
+   `CLASS_APART` (4×) above it; then the three gates (`fold_gate_times`,
+   `dense_gate_times`, `solve_gate_times`) in each precision.
 2. The main path: `solve_unsteady` on 256³ decaying turbulence (RK44,
    f32, Re = 4000, `random_field(kp=10)`, dt = 1e-3·128/256) for 20
    steps in chunks of 10, with a timelogger.  Checks: finite; every
@@ -463,11 +490,27 @@ Phases, each raising on failure (exit code != 0, no result line):
    data (relative error falling); the G-CNN's prior and post symmetry
    errors within `SYMMETRY_TOL` (1e-5), the CNN's above it; seconds per
    stage.  `--closure` runs this phase alone, after the kernel build.
-17. Print the kernel table (JSON: per kernel its launches on the main
+17. The 512³ cells (`phase_precision`; `bench.py`'s `512` and
+   `512_lmwray3`, `run_case(512, 2, 5)`): the periodic box, Re 4000,
+   float32, `psolver_spectral`, dt = 1e-3·128/512, `random_field(kp=10)`
+   from phase 2's seed; RK44 and LMWray3 through `solve_unsteady` on the
+   hat chain for the bench's 7 steps in each precision: peak memory,
+   launches (the fused pass B 4 or 3 a step, only the precision's form),
+   finite, divergence as in phase 2, energy not increasing; the two hat
+   chains' ms/step and cell-updates/s in turns (manualhigh, highest,
+   highest, manualhigh; 2 warm-up steps and 5 timed ones); then the
+   plain chain against the kernels for 2 steps in each precision
+   (`REL_TOL`).  Then `highest_paths`: phase 12's 250³ chain and phase
+   8's one-rank x-slab chain at 256³ in "highest" for 4 steps (the dense
+   and the sharded pass B's 3xTF32 forms on their paths).
+18. Print the kernel table (JSON: per kernel its launches on the main
    path, error, ms, plain ms, the bound — the larger of the bytes it
    moves at 3.35 TB/s and the operations it does at the dense peak of
    their type — and the time of one PyTorch library call computing the
-   same function where there is one) and, last, the result line
+   same function where there is one; the plane GEMM and the fused pass B
+   once in each form: the bf16x3 forms with the default paths' launches,
+   the 3xTF32 forms with those of phase 17's "highest" runs) and, last,
+   the result line
    ``{"ok": true, "device": {...}}``.  The folded pass B's level route
    (`passB_fold+levels`, `passB_sharded+levels`, timed at 1152³ and
    (2048, 512, 2048)) stays in the table with 0 launches; no main path
@@ -501,6 +544,18 @@ HALO_RAGGED_N = 52
 # the plane transform (3xTF32) against the float64 product: the float32
 # class, max|Δ| <= 1e-6·max|ref| (one TF32 pass is ~3e-4 off)
 TF32_CLASS_TOL = 1e-6
+# projection_precision "manualhigh" (the default, as in the JAX package):
+# the bf16x3 forms of the plane GEMM and the fused pass B (three bf16
+# products hi·hi + hi·lo + lo·hi of a bf16 hi/lo split, float32 sums).
+# Against float64 the 3-pass bf16 class (lo·lo dropped and lo rounded to 8
+# bits: ~2^-16 a product; 5e-6 to 2.5e-5 on the CPU at K <= 512, and the
+# JAX package documents a projection residual of ~4e-5); against its plain
+# version (the same three products, float32 sums in another order) 1e-5;
+# its float64 error at least CLASS_APART times the 3xTF32 form's on the
+# same inputs, so the two classes show apart
+BF16X3_CLASS_TOL = 1e-4
+BF16X3_PLAIN_TOL = 1e-5
+CLASS_APART = 4.0
 # the fused conv layer's 3xTF32 kernels against the float64 plain version
 # (sums of up to 3000 split products a cell; ~2e-6 at 128³ on an H100)
 CONV_TF32_TOL = 1e-5
@@ -574,6 +629,10 @@ PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # they run three TF32 products a multiply-add at the TF32 peak, so F FLOP
 # take 3 F / 495e12 s at the bound, the time of 3·67/495 F FP32 operations
 GEMM_AS_FP32 = 3 * PEAK_OPS["fp32"] / PEAK_OPS["tf32"]
+# the same for the bf16x3 form ("manualhigh", the paths' default): three
+# bf16 products a multiply-add at the bf16 peak
+GEMM_BF16X3_AS_FP32 = 3 * PEAK_OPS["fp32"] / PEAK_OPS["bf16"]
+GEMM_FP32 = {"highest": GEMM_AS_FP32, "manualhigh": GEMM_BF16X3_AS_FP32}
 # operations per cell of the stencil kernels, counted from their arithmetic
 # (each add, multiply and divide one): the conv-diff of three components
 # (each face flux once: per component and direction the diffusion's 4, the
@@ -628,6 +687,46 @@ BF16_DIV_TOL = 12 * 2.0**-8
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def form_keys(precision="manualhigh"):
+    """The launch keys that the plane GEMM and the fused pass B count
+    under in ``precision`` (`transforms.plane_key`,
+    `poisson_kernels.fused_key`), by kernel."""
+    from ins_tpu_torch.ops import poisson_kernels as pk
+    from ins_tpu_torch.ops import transforms
+
+    return {"plane_transform": transforms.plane_key(precision),
+            **{k: pk.fused_key(k, precision) for k in ("passB", "passB_fold", "passB_sharded")}}
+
+
+def hat_kernels(precision="manualhigh"):
+    """The hat chain's kernels' launch keys in ``precision``."""
+    keys = form_keys(precision)
+    return (keys["plane_transform"], "pcmsd_hat_3d", "momentum_stage_divhat_3d",
+            keys["passB_fold"], "pressure_correct_qhat_3d")
+
+
+def run_counts(precision="manualhigh"):
+    """The launch counts of the run just driven (read right after it,
+    the counts set to 0 just before it).  Fails where the plane GEMM or the
+    fused pass B launched in the form of the precision other than
+    ``precision`` (no path falls back to the other form)."""
+    from ins_tpu_torch.ops import launches
+
+    counts = dict(launches.LAUNCHES)
+    other = "highest" if precision == "manualhigh" else "manualhigh"
+    wrong = {k: counts[k] for k in form_keys(other).values() if counts[k]}
+    if wrong:
+        fail(f"a {precision!r} run launched the other form's kernels: {wrong}")
+    return counts
+
+
+def add_counts(total, counts):
+    """Adds ``counts`` into ``total`` key by key; returns ``total``."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def rel_err(got, ref):
@@ -713,13 +812,15 @@ def bound(case, out_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fold_ops(n, L):
+def fold_ops(n, L, precision="highest"):
     """Operations of the folded pass B at n³ with L levels: (n / 2^l)^2 n^2
     for level l's two half GEMMs, the leaf's two GEMMs 4 (n / 2^L)^2 n^2
-    (2 n^4 in all at one level, half the dense 4 n^4; as `GEMM_AS_FP32`
-    counts them), the scale, split and combine elementwise."""
+    (2 n^4 in all at one level, half the dense 4 n^4; as `GEMM_FP32`
+    counts them for the precision's form), the scale, split and combine
+    elementwise."""
     cells = n**3
-    return ((sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2) * GEMM_AS_FP32
+    return ((sum(n**4 / 4**lv for lv in range(L)) + 4 * (n / 2**L) ** 2 * n**2)
+            * GEMM_FP32[precision]
             + OPS_PER_CELL["eigen_scale"] * cells + L * 2 * OPS_PER_CELL["fold_split"] * cells)
 
 
@@ -737,10 +838,10 @@ def fold_p64(n, levels):
             "fold_mats": mats64, "fold_levels": levels}
 
 
-def fold_setup(n, levels, ly, yoff):
+def fold_setup(n, levels, ly, yoff, precision="highest"):
     """The folded pass B's input (made from a seed), projection (float32,
-    `levels` levels) and the float64 projection of `fold_case(n, levels,
-    ly, yoff)`: (h, proj, p64, label)."""
+    `levels` levels, ``precision``'s form) and the float64 projection of
+    `fold_case(n, levels, ly, yoff, precision)`: (h, proj, p64, label)."""
     import torch
 
     from ins_tpu_torch.ops.poisson_kernels import (
@@ -749,8 +850,9 @@ def fold_setup(n, levels, ly, yoff):
 
     dev = torch.device(DEVICE)
     dxs = (2 * np.pi / n,) * 3
-    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, device=dev) if ly == n
-            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=dev))
+    kw = dict(precision=precision, device=dev)
+    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, **kw) if ly == n
+            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, **kw))
     if levels != proj["fold_levels"]:
         mats, _, _ = poisson_fold_consts((n,) * 3, dxs, torch.float32, levels=levels, device=dev)
         proj = dict(proj, fold_mats=mats, fold_levels=levels)
@@ -763,6 +865,8 @@ def fold_setup(n, levels, ly, yoff):
         h = torch.randn((n, ly, n), generator=gen, dtype=torch.float32, device=dev)
     lv = f"{levels} level{'s' if levels > 1 else ''}"
     label = f"{n}³, {lv}" if ly == n else f"({n}, {ly}, {n}) at yoff {yoff}, {lv}"
+    if precision == "manualhigh":
+        label += ", bf16x3"
     return h, proj, fold_p64(n, levels), label
 
 
@@ -790,7 +894,7 @@ def fold_kernel(h, proj, yoff):
     return passB_fold(h, proj) if h.shape[1] == h.shape[0] else passB_sharded(h, proj, yoff)
 
 
-def fold_case(n, levels, ly, yoff):
+def fold_case(n, levels, ly, yoff, precision="highest"):
     """A `Case` of the folded pass B (`FOLD_CASES`' terms) on an input made
     from a seed: the kernel and its float32 plain version, held against
     the plain version in float64 (float64 fold matrices) within twice
@@ -798,13 +902,16 @@ def fold_case(n, levels, ly, yoff):
     version.  A case `FOLD_PARENT_F64` lacks (the level route's, above
     the fused kernel's range) is held within `REL_TOL` of the float32
     plain version taken by y-chunks (`fold_chunked_plain`), and its
-    float64 error on a slab of columns is `fold_f64_sample`'s."""
+    float64 error on a slab of columns is `fold_f64_sample`'s.  With
+    ``precision="manualhigh"`` the bf16x3 form: within `BF16X3_CLASS_TOL`
+    of float64 and `BF16X3_PLAIN_TOL` of its plain version."""
     from ins_tpu_torch.ops.poisson_kernels import passB_fold_plain, passB_sharded_plain
 
-    h, proj, p64, label = fold_setup(n, levels, ly, yoff)
+    h, proj, p64, label = fold_setup(n, levels, ly, yoff, precision)
     kfn = lambda: (fold_kernel(h, proj, yoff),)  # noqa: E731
-    common = dict(inputs=(h, *proj["fold_mats"]), ops=fold_ops(n, levels) * ly / n)
-    if (n, levels, ly) not in FOLD_PARENT_F64:
+    common = dict(inputs=(h, *proj["fold_mats"]), ops=fold_ops(n, levels, precision) * ly / n)
+    bf = precision == "manualhigh"
+    if not bf and (n, levels, ly) not in FOLD_PARENT_F64:
         return Case(label, kfn, lambda: (fold_chunked_plain(h, proj, yoff),), **common)
     if ly == n:
         pfn = lambda: (passB_fold_plain(h, proj),)  # noqa: E731
@@ -812,6 +919,9 @@ def fold_case(n, levels, ly, yoff):
     else:
         pfn = lambda: (passB_sharded_plain(h, proj, yoff),)  # noqa: E731
         ref = lambda: (passB_sharded_plain(h.double(), p64, yoff),)  # noqa: E731
+    if bf:
+        return Case(label, kfn, pfn, ref=ref, tol=BF16X3_CLASS_TOL, plain_tol=BF16X3_PLAIN_TOL,
+                    **common)
     return Case(label, kfn, pfn, ref=ref, tol=2 * FOLD_PARENT_F64[n, levels, ly],
                 plain_tol=REL_TOL, **common)
 
@@ -858,12 +968,13 @@ def check_fold_f64(cases):
         torch.cuda.empty_cache()
 
 
-def fold_gate_times(cases=FOLD_GATE_CASES):
-    """Both routes of the folded pass B in turns (CUDA events, 10 calls a
-    turn: fused, levels, levels, fused) at each case, the float32 relative
-    difference between them, and the route `fold_route` picks: the gate
-    (`FOLD_FUSED_MAX_N`) must pick the faster route, or one within 5 %
-    of it.  {label: {"fused": ms, "levels": ms}}."""
+def fold_gate_times(cases=FOLD_GATE_CASES, precision="highest"):
+    """Both routes of the folded pass B in ``precision``'s form in turns
+    (CUDA events, 10 calls a turn: fused, levels, levels, fused) at each
+    case, the float32 relative difference between them, and the route
+    `fold_route` picks: the gate (`FOLD_FUSED_MAX_N`) must pick the faster
+    route, or one within 5 % of it.  {label: {"fused": ms, "levels":
+    ms}}."""
     import torch
 
     from ins_tpu_torch.ops import poisson_kernels as pk
@@ -871,7 +982,7 @@ def fold_gate_times(cases=FOLD_GATE_CASES):
     out = {}
     for c in cases:
         n, levels, ly, yoff = c
-        h, proj, _, label = fold_setup(*c)
+        h, proj, _, label = fold_setup(*c, precision)
         fns = {"fused": lambda: pk._fold(h, proj, yoff, ly),
                "levels": lambda: pk._fold_levels(h, proj, 0, 1, yoff)}
         diff = rel_err(fns["levels"](), fns["fused"]())
@@ -894,38 +1005,44 @@ def fold_gate_times(cases=FOLD_GATE_CASES):
     return out
 
 
-def dense_setup(n, ly, yoff):
-    """The dense pass B's input (made from a seed), projection (float32;
-    a shard's where ly < n), the float64 projection and the label of
-    `dense_case(n, ly, yoff)`: (h, proj, p64, label)."""
+def dense_setup(n, ly, yoff, precision="highest"):
+    """The dense pass B's input (made from a seed), projection (float32,
+    ``precision``'s form; a shard's where ly < n), the float64 projection
+    and the label of `dense_case(n, ly, yoff, precision)`: (h, proj, p64,
+    label)."""
     import torch
 
     from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_passB_sharded
 
     dev = torch.device(DEVICE)
     dxs = (2 * np.pi / n,) * 3
-    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, device=dev) if ly == n
-            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, device=dev))
+    kw = dict(precision=precision, device=dev)
+    proj = (make_fused_projection((n,) * 3, dxs, torch.float32, **kw) if ly == n
+            else make_passB_sharded((n,) * 3, dxs, torch.float32, ly, **kw))
     p64 = make_fused_projection((n,) * 3, dxs, torch.float64, device=dev)
     rng = np.random.default_rng(SEED + 37 * n + ly)
     h = torch.from_numpy(rng.standard_normal((n, ly, n), dtype=np.float32)).to(dev)
     label = f"{n}³" if ly == n else f"({n}, {ly}, {n}) at yoff {yoff}"
     if ly == n and n % 4 == 0:
         label += ", the dense route forced"
+    if precision == "manualhigh":
+        label += ", bf16x3"
     return h, proj, p64, label
 
 
-def dense_case(n, ly, yoff):
+def dense_case(n, ly, yoff, precision="highest"):
     """A `Case` of the dense pass B (`passB` on a cube, `passB_sharded` on a
     y-slice) on an input made from a seed: held against the plain version
     in float64 within `DENSE_F64_TOL` and within `REL_TOL` of the float32
-    plain version; its bound counts the two x products (3xTF32, as
-    `GEMM_AS_FP32`) and the eigen-scale."""
+    plain version; its bound counts the two x products (as `GEMM_FP32`
+    counts the precision's form) and the eigen-scale.  With
+    ``precision="manualhigh"`` the bf16x3 form: within `BF16X3_CLASS_TOL`
+    of float64 and `BF16X3_PLAIN_TOL` of its plain version."""
     from ins_tpu_torch.ops.poisson_kernels import (
         passB, passB_plain, passB_sharded, passB_sharded_plain,
     )
 
-    h, proj, p64, label = dense_setup(n, ly, yoff)
+    h, proj, p64, label = dense_setup(n, ly, yoff, precision)
     if ly == n:
         kfn = lambda: (passB(h, proj),)  # noqa: E731
         pfn = lambda: (passB_plain(h, proj),)  # noqa: E731
@@ -934,17 +1051,20 @@ def dense_case(n, ly, yoff):
         kfn = lambda: (passB_sharded(h, proj, yoff),)  # noqa: E731
         pfn = lambda: (passB_sharded_plain(h, proj, yoff),)  # noqa: E731
         ref = lambda: (passB_sharded_plain(h.double(), p64, yoff),)  # noqa: E731
-    ops = (OPS_PER_CELL["eigen_scale"] * n**3 + 4.0 * n**4 * GEMM_AS_FP32) * ly / n
-    return Case(label, kfn, pfn, ref=ref, tol=DENSE_F64_TOL, plain_tol=REL_TOL,
+    ops = (OPS_PER_CELL["eigen_scale"] * n**3 + 4.0 * n**4 * GEMM_FP32[precision]) * ly / n
+    bf = precision == "manualhigh"
+    return Case(label, kfn, pfn, ref=ref, tol=BF16X3_CLASS_TOL if bf else DENSE_F64_TOL,
+                plain_tol=BF16X3_PLAIN_TOL if bf else REL_TOL,
                 inputs=(h, proj["Vinv"], proj["V"]), ops=ops)
 
 
-def dense_gate_times(cases=DENSE_GATE_CASES):
-    """Both routes of the dense pass B in turns (CUDA events, 10 calls a
-    turn: fused, GEMM, GEMM, fused) at each case, the float32 relative
-    difference between them, and the route `dense_route` picks: the gate
-    (`DENSE_FUSED_MAX_N`) must pick the faster route, or one within 5 %
-    of it.  {label: {"fused": ms, "gemm": ms}}."""
+def dense_gate_times(cases=DENSE_GATE_CASES, precision="highest"):
+    """Both routes of the dense pass B in ``precision``'s form in turns
+    (CUDA events, 10 calls a turn: fused, GEMM, GEMM, fused) at each case,
+    the float32 relative difference between them, and the route
+    `dense_route` picks: the gate (`DENSE_FUSED_MAX_N`) must pick the
+    faster route, or one within 5 % of it.  {label: {"fused": ms, "gemm":
+    ms}}."""
     import torch
 
     from ins_tpu_torch.ops import poisson_kernels as pk
@@ -952,7 +1072,7 @@ def dense_gate_times(cases=DENSE_GATE_CASES):
     out = {}
     for c in cases:
         n, ly, yoff = c
-        h, proj, _, label = dense_setup(*c)
+        h, proj, _, label = dense_setup(*c, precision)
         fns = {"fused": lambda: pk._dense_fused(h, proj, yoff, ly),
                "gemm": lambda: pk._dense_gemm(h, proj, yoff)}
         diff = rel_err(fns["gemm"](), fns["fused"]())
@@ -960,12 +1080,13 @@ def dense_gate_times(cases=DENSE_GATE_CASES):
         for which in ("fused", "gemm", "gemm", "fused"):
             t[which].append(cuda_ms(fns[which]))
         ms = {k: sum(v) / 2 for k, v in t.items()}
-        pick = pk.dense_route(n)
+        pick = pk.dense_route(n, precision)
+        gate = pk.DENSE_FUSED_MAX_N_BF16X3 if precision == "manualhigh" else pk.DENSE_FUSED_MAX_N
         out[label] = ms
         print(f"[dense gate] {card_line()}: {label}: fused {ms['fused']:.4f} ms "
               f"({t['fused'][0]:.4f}, {t['fused'][1]:.4f}), GEMM route {ms['gemm']:.4f} ms "
               f"({t['gemm'][0]:.4f}, {t['gemm'][1]:.4f}); routes differ by {diff:.3e}; "
-              f"the gate (n <= {pk.DENSE_FUSED_MAX_N} fused) picks {pick}")
+              f"the gate (n <= {gate} fused) picks {pick}")
         if not diff <= REL_TOL:
             fail(f"the dense pass B's routes differ by {diff:.3e} at {label}")
         if ms[pick] > 1.05 * min(ms.values()):
@@ -1022,8 +1143,9 @@ def kernel_cases(n):
 
     recon = dict(emit_k=False, usnew_coeff=dt / 6, emit_u=True)
     based = dict(emit_k=False, usnew_coeff=dt / 3, usnew_base=accb)
-    # one plane-transform GEMM pass: 2 n^4 FLOP (as `GEMM_AS_FP32` counts them)
-    cells, gemm = n**3, 2.0 * n**4 * GEMM_AS_FP32
+    # one plane-transform GEMM pass: 2 n^4 FLOP (the stages' default
+    # bf16x3 form, as `GEMM_BF16X3_AS_FP32` counts them)
+    cells, gemm = n**3, 2.0 * n**4 * GEMM_BF16X3_AS_FP32
     mats = (Vinv, VinvT, proj["V"], proj["VT"])
     # the LES stage: the force of a theta on the card, and a body force
     theta = torch.full((1,), LES_THETA, device=dev)
@@ -1195,15 +1317,17 @@ def with_tf32(fn):
     return run
 
 
-def transform_cases(n, f, proj):
-    """The plane transform (3xTF32 on the tensor cores) at the shapes the
-    paths give it: the z+y and x products on the cube (f, the projection
-    proj), on a 4-way x-slab shard's block (r = n/4) and its pass B's
-    (n, n/4, n) y-slice, at the first fold level (R_o, n/2 x n/2, on an
-    (n/2, n, n) block) and at a ragged n - 6 (n % 4 = 2: 4-byte staging).
-    Each is held against the float64 product (the float32 class, 1e-6)
-    and its plain version (1e-4), beside one FP32 einsum/matmul and the
-    same call with TF32 allowed."""
+def transform_cases(n, f, proj, precision="highest"):
+    """The plane transform at the shapes the paths give it: the z+y and x
+    products on the cube (f, the projection proj), the inverse z/y
+    transform (y first in bf16x3), on a 4-way x-slab shard's block (r =
+    n/4) and its pass B's (n, n/4, n) y-slice, at the first fold level
+    (R_o, n/2 x n/2, on an (n/2, n, n) block) and at a ragged n - 6 (n % 4
+    = 2: 4-byte staging).  "highest" (3xTF32 on the tensor cores): each is
+    held against the float64 product (the float32 class, 1e-6) and its
+    plain version (1e-4); "manualhigh" (bf16x3): `BF16X3_CLASS_TOL` and
+    `BF16X3_PLAIN_TOL`.  Each beside one FP32 einsum/matmul and the same
+    call with TF32 allowed."""
     import torch
 
     from ins_tpu_torch.ops.poisson_kernels import make_fused_projection
@@ -1216,32 +1340,37 @@ def transform_cases(n, f, proj):
     def field(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(f.device)
 
-    def yz(label, g, my, mzT):
+    p = precision
+    bf = p == "manualhigh"
+    tol = dict(tol=BF16X3_CLASS_TOL if bf else TF32_CLASS_TOL,
+               plain_tol=BF16X3_PLAIN_TOL if bf else REL_TOL, peak="bf16" if bf else "tf32")
+
+    def yz(label, g, my, mzT, inverse=False):
         r, m = g.shape[0], g.shape[-1]
         lib = lambda: torch.einsum("yj,xjk,kl->xyl", my, g, mzT)  # noqa: E731
-        return Case(label, lambda: (yz_transform(g, my, mzT),),
-                    lambda: (yz_transform_plain(g, my, mzT),),
+        return Case(label, lambda: (yz_transform(g, my, mzT, p, inverse),),
+                    lambda: (yz_transform_plain(g, my, mzT, p, inverse),),
                     ref=lambda: (yz_transform_plain(g.double(), my.double(), mzT.double()),),
-                    inputs=(g, my, mzT), ops=3 * 4.0 * r * m**3, peak="tf32",
-                    tol=TF32_CLASS_TOL, plain_tol=REL_TOL, library=lib,
-                    library_tf32=with_tf32(lib))
+                    inputs=(g, my, mzT), ops=3 * 4.0 * r * m**3, library=lib,
+                    library_tf32=with_tf32(lib), **tol)
 
     def x(label, mx, h):
         r, a, b = h.shape
         lib = lambda: torch.matmul(mx, h.view(r, a * b))  # noqa: E731
-        return Case(label, lambda: (x_transform(mx, h),), lambda: (x_transform_plain(mx, h),),
+        return Case(label, lambda: (x_transform(mx, h, p),),
+                    lambda: (x_transform_plain(mx, h, p),),
                     ref=lambda: (x_transform_plain(mx.double(), h.double()),),
-                    inputs=(mx, h), ops=3 * 2.0 * mx.shape[0] * r * a * b, peak="tf32",
-                    tol=TF32_CLASS_TOL, plain_tol=REL_TOL, library=lib,
-                    library_tf32=with_tf32(lib))
+                    inputs=(mx, h), ops=3 * 2.0 * mx.shape[0] * r * a * b, library=lib,
+                    library_tf32=with_tf32(lib), **tol)
 
     m = n - 6
-    ragged = make_fused_projection((m,) * 3, (2 * np.pi / m,) * 3, torch.float32,
+    ragged = make_fused_projection((m,) * 3, (2 * np.pi / m,) * 3, torch.float32, precision=p,
                                    device=f.device)
     fr = field(m, m, m)
     return [
         yz("Vinv_y . f . Vinv_z^T", f, proj["Vinv"], proj["VinvT"]),
         x("V_x . f", proj["V"], f),
+        yz("V_y . qhat . V_z^T (inverse)", f, proj["V"], proj["VT"], inverse=True),
         yz(f"shard block (r = {n // 4})", f[:n // 4], proj["V"], proj["VT"]),
         x(f"shard y-slice ({n}, {n // 4}, {n})", proj["Vinv"], field(n, n // 4, n)),
         x(f"fold level 0: R_o ({n // 2} x {n // 2}) on ({n // 2}, {n}, {n})",
@@ -1329,11 +1458,12 @@ def training_kernel_cases(n):
     solve_mm = make_poisson_mm((n,) * 3, dxs, torch.float32, dev)
     f = field(n, n, n)
     cases["make_poisson_pallas"] = [
-        Case(f"f -> p, pass B folded {proj['fold_levels']} level",
+        Case(f"f -> p, pass B folded {proj['fold_levels']} level, bf16x3 (the default)",
              lambda: (solve[False](f),), lambda: (solve[True](f),),
              inputs=(f, proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"],
                      *proj["fold_mats"]),
-             ops=4 * 2.0 * n**4 * GEMM_AS_FP32 + fold_ops(n, proj["fold_levels"]),
+             ops=4 * 2.0 * n**4 * GEMM_BF16X3_AS_FP32
+             + fold_ops(n, proj["fold_levels"], "manualhigh"),
              library=lambda: solve_mm(f)),
     ]
     # the closure's layers: (cin, cout, act, bias); k = 5.  bf16 operands
@@ -1521,11 +1651,12 @@ def conv_gflop(label, n):
     return 2 * 125 * cin * cout * n**3 / 1e9
 
 
-def phase_kernels(cases_fn, sizes, time_all=()):
+def phase_kernels(cases_fn, sizes, time_all=(), time_at=None):
     """Hold every case of `cases_fn(n)` against its plain version at each
     size; time the first case of each kernel (every case of the kernels
-    in `time_all`) at the largest size, kernel and plain in turns, beside
-    its bound and its library yardstick where it has them."""
+    in `time_all`) at the largest size (or ``time_at``), kernel and plain
+    in turns, beside its bound and its library yardstick where it has
+    them."""
     import torch
 
     results = {}
@@ -1579,7 +1710,7 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                 if not all(math.isfinite(e) and e <= b for e, b in zip(errs, bounds)):
                     fail(f"{name} [{c.label}] at n={n}: errors {errs} above {bounds}")
                 del got, ref
-            if n != max(sizes):
+            if n != (time_at or max(sizes)):
                 continue
             for i, c in enumerate(cases):
                 if i and name not in time_all:
@@ -1617,8 +1748,8 @@ def phase_kernels(cases_fn, sizes, time_all=()):
                         ms, how = dms, "device (profiler); events "
                 if i == 0:
                     r["ms"], r["plain_ms"] = ms, plain_ms
-                if name == "plane_transform":
-                    gf = c.ops / 3e9  # the GEMMs' FLOP (three TF32 products each)
+                if name.startswith("plane_transform"):
+                    gf = c.ops / 3e9  # the GEMMs' FLOP (three TF32 or bf16 products each)
                     extra += f"; {gf:.2f} GFLOP: {gf / ms:.2f} TFLOP/s"
                 if name.startswith("fusedconv") or ("conv" in name and c.ops):
                     # GFLOP of the convolution (3xTF32 does three TF32 products a
@@ -1670,14 +1801,15 @@ def check_divergence(u, dx, tag, unscaled_tol=1e-3):
 
 
 def run_plain_chain(setup, method, state, dt, nsteps, chunk, at_chunk_end=None, theta=None,
-                    fns=None):
-    """The hat chain of the plain versions on the card (or the chain
-    ``fns``, a (to, step, from) triple), chunk by chunk as
+                    fns=None, precision="manualhigh"):
+    """The hat chain of the plain versions on the card in ``precision`` (or
+    the chain ``fns``, a (to, step, from) triple), chunk by chunk as
     `solve_unsteady` runs it; ``at_chunk_end(state)`` sees each chunk's
     interior state."""
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
 
-    to_hat, step_hat, from_hat = fns or make_fast_timestep_hat(setup, method, plain=True)
+    to_hat, step_hat, from_hat = fns or make_fast_timestep_hat(
+        setup, method, plain=True, projection_precision=precision)
     left = nsteps
     while left:
         c = min(chunk, left)
@@ -1691,13 +1823,14 @@ def run_plain_chain(setup, method, state, dt, nsteps, chunk, at_chunk_end=None, 
     return state
 
 
-def hat_ms_per_step(setup, method, s0, dt, steps=10, theta=None):
-    """ms/step of the kernel and the plain hat chains, in turns (plain,
-    kernels, kernels, plain), each after a warm-up of two steps (the
-    second one on a rebuilding carry)."""
+def hat_ms_per_step(setup, method, s0, dt, steps=10, theta=None, precision="manualhigh"):
+    """ms/step of the kernel and the plain hat chains in ``precision``, in
+    turns (plain, kernels, kernels, plain), each after a warm-up of two
+    steps (the second one on a rebuilding carry)."""
     from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat
 
-    return chains_ms_per_step({k: make_fast_timestep_hat(setup, method, plain=k == "plain")
+    return chains_ms_per_step({k: make_fast_timestep_hat(setup, method, plain=k == "plain",
+                                                         projection_precision=precision)
                                for k in ("plain", "kernels")}, s0, dt, steps, theta)
 
 
@@ -1757,7 +1890,7 @@ def phase_main_path(n, nsteps, chunk):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[main] solve_unsteady {n}^3 RK44 f32: {nsteps} steps in chunks of {chunk}, "
           f"{wall:.3f} s wall (first call included); launches {counts}; "
@@ -1767,7 +1900,7 @@ def phase_main_path(n, nsteps, chunk):
     u = strip_ghosts(state.u)
     if not bool(torch.isfinite(u).all()):
         fail("non-finite velocity after the run")
-    missing = [k for k in HAT_KERNELS if counts[k] <= 0]
+    missing = [k for k in hat_kernels() if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if counts["passB_fold+levels"]:
@@ -1796,11 +1929,12 @@ def phase_main_path(n, nsteps, chunk):
     return counts, setup, u0, dt, e1
 
 
-def phase_dense_chain(n=DENSE_CHAIN_N, nsteps=20, chunk=10):
+def phase_dense_chain(n=DENSE_CHAIN_N, nsteps=20, chunk=10, precision="manualhigh"):
     """12: phase 2's run at n³ (n % 4 != 0: the dense pass B), through
-    `solve_unsteady`; its launches (the fused dense pass B 4 a step, no
-    fold, no GEMM route), divergence, energy, the plain chain's agreement
-    and ms/step of both chains in turns.  Returns the launch counts."""
+    `solve_unsteady` in ``precision``; its launches (the fused dense pass
+    B 4 a step, no fold, no GEMM route), divergence, energy, the plain
+    chain's agreement and ms/step of both chains in turns.  Returns the
+    launch counts."""
     import torch
 
     import ins_tpu_torch as it
@@ -1815,25 +1949,27 @@ def phase_dense_chain(n=DENSE_CHAIN_N, nsteps=20, chunk=10):
     launches.reset_counts()
     state, _ = it.solve_unsteady(
         setup=setup, ustart=u0, tlims=(0.0, nsteps * dt), dt=dt, method=method,
-        psolver=it.psolver_spectral(setup),
+        psolver=it.psolver_spectral(setup), projection_precision=precision,
         processors={"log": it.timelogger(nupdate=chunk)},
     )
     torch.cuda.synchronize()
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts(precision)
     plain = dict(launches.PLAIN_ON_CUDA)
-    print(f"[dense] solve_unsteady {n}^3 RK44 f32: {nsteps} steps in chunks of {chunk}; "
-          f"launches {counts}; plain calls on CUDA {plain}")
+    print(f"[dense] solve_unsteady {n}^3 RK44 f32, {precision}: {nsteps} steps in chunks of "
+          f"{chunk}; launches { {k: v for k, v in counts.items() if v} }; plain calls on CUDA "
+          f"{ {k: v for k, v in plain.items() if v} }")
     if state.n != nsteps:
         fail(f"the {n}³ run ran {state.n} steps, expected {nsteps}")
     u = strip_ghosts(state.u)
     if not bool(torch.isfinite(u).all()):
         fail(f"non-finite velocity after the {n}³ run")
+    keys = form_keys(precision)
     fold = {k: v for k, v in counts.items() if k.startswith("passB_") or k.endswith("+gemm")}
     want = {k: 0 for k in fold}
-    if counts["passB"] != 4 * nsteps or fold != want:
-        fail(f"the {n}³ run launched pass B {counts['passB']} times (expected {4 * nsteps}), "
-             f"other pass B routes {fold}")
-    missing = [k for k in HAT_KERNELS if k != "passB_fold" and counts[k] <= 0]
+    if counts[keys["passB"]] != 4 * nsteps or fold != want:
+        fail(f"the {n}³ run launched pass B {counts[keys['passB']]} times (expected "
+             f"{4 * nsteps}), other pass B routes {fold}")
+    missing = [k for k in hat_kernels(precision) if k != keys["passB_fold"] and counts[k] <= 0]
     if missing or any(plain.values()):
         fail(f"the {n}³ run: kernels never launched {missing}, plain versions on CUDA {plain}")
     check_divergence(u, float(setup.grid.delta[0][0]), "dense")
@@ -1843,14 +1979,14 @@ def phase_dense_chain(n=DENSE_CHAIN_N, nsteps=20, chunk=10):
     if not e1 <= e0:
         fail(f"the {n}³ run's kinetic energy increased")
     s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
-    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk)
+    s = run_plain_chain(setup, method, s0, dt, nsteps, chunk, precision=precision)
     agree = rel_err(u, s.u)
     print(f"[dense] kernel chain vs plain chain after {nsteps} steps: max rel diff {agree:.3e}")
     if not agree <= REL_TOL:
         fail(f"the {n}³ kernel and plain chains disagree by {agree:.3e} > {REL_TOL}")
     del s
-    print_ms_per_step("dense", f"{n}^3 RK44 f32 (dense pass B)", n,
-                      hat_ms_per_step(setup, method, s0, dt))
+    print_ms_per_step("dense", f"{n}^3 RK44 f32 (dense pass B), {precision}", n,
+                      hat_ms_per_step(setup, method, s0, dt, precision=precision))
     return counts
 
 
@@ -1977,7 +2113,7 @@ def phase_training(n, nunroll):
     import ins_tpu_torch as it
     from ins_tpu_torch import models as nc
     from ins_tpu_torch.ops import launches
-    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N, strip_ghosts
+    from ins_tpu_torch.ops.fastpath import poisson_pallas_min_n, strip_ghosts
 
     setup = training_setup(n)
     u0, data = training_data(setup, nunroll)
@@ -2018,7 +2154,7 @@ def phase_training(n, nunroll):
     _, theta, loss = build_training(setup)
     launches.reset_counts()
     lb, gb = value_and_grad(loss, data, theta)
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain_calls = dict(launches.PLAIN_ON_CUDA)
     print(f"[train] bf16 convs, kernels: loss {lb.item():.9e}; launches {counts}; "
           f"plain calls on CUDA {plain_calls}")
@@ -2072,7 +2208,7 @@ def phase_training(n, nunroll):
                                theta=state["theta"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fcounts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    fcounts = {k: v for k, v in run_counts().items() if v}
     print(f"[train] solve_unsteady with the closure, {nsteps} steps: {wall:.3f} s wall; "
           f"launches {fcounts}; plain calls on CUDA "
           f"{ {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v} }")
@@ -2081,11 +2217,11 @@ def phase_training(n, nunroll):
         fail("the closure run did not finish with finite fields")
     if any(launches.PLAIN_ON_CUDA.values()):
         fail("plain versions ran on CUDA tensors in the closure run")
-    expect = 4 * nsteps if n >= POISSON_PALLAS_MIN_N else 0
+    gate = poisson_pallas_min_n("manualhigh")
+    expect = 4 * nsteps if n >= gate else 0
     if launches.LAUNCHES["poisson_pallas"] != expect:
         fail(f"the closure run solved Poisson {launches.LAUNCHES['poisson_pallas']} times "
-             f"with the 3-pass kernels, expected {expect} (the gate: n >= "
-             f"{POISSON_PALLAS_MIN_N})")
+             f"with the 3-pass kernels, expected {expect} (the gate: n >= {gate})")
     check_divergence(u, float(csetup.grid.delta[0][0]), "closure run")
     counts["poisson_pallas"] = launches.LAUNCHES["poisson_pallas"]
     counts.update({k: f32_counts[k] for k in F32_CONV_KERNELS})
@@ -2255,7 +2391,7 @@ def phase_channel(nsteps, chunk):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[channel] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s "
           f"wall (first call included); launches "
@@ -2471,7 +2607,7 @@ def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[les] solve_unsteady {n}^3 RK44 f32 Re=4000, Smagorinsky theta={LES_THETA}: "
           f"{nsteps} steps in chunks of {chunk}, {wall:.3f} s wall (first call included); "
@@ -2479,12 +2615,13 @@ def phase_les(n, nsteps, chunk, u0_ref, e_no_closure):
           f"{ {k: v for k, v in plain.items() if v} }")
     if state.n != nsteps:
         fail(f"the LES ran {state.n} steps, expected {nsteps}")
+    keys = form_keys()
     per_step = {"smagorinsky_force_3d": counts["smagorinsky_force_3d"],
                 "stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
-                "passB_fold": counts["passB_fold"]}
+                keys["passB_fold"]: counts[keys["passB_fold"]]}
     if any(v != 4 * nsteps for v in per_step.values()):
         fail(f"LES launches {per_step}, expected {4 * nsteps} each (4 per step)")
-    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts[keys["passB"]]:
         fail(f"LES launches {counts}: one correction per chunk, no dense pass B expected")
     if any(plain.values()):
         fail(f"plain versions ran on CUDA tensors in the LES run: {plain}")
@@ -2627,18 +2764,19 @@ def phase_boussinesq(n, nsteps, chunk):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[boussinesq] solve_unsteady: {nsteps} steps in chunks of {chunk}, {wall:.3f} s "
           f"wall (first call included); launches { {k: v for k, v in counts.items() if v} }; "
           f"plain calls on CUDA { {k: v for k, v in plain.items() if v} }")
     if state.n != nsteps:
         fail(f"the Boussinesq run ran {state.n} steps, expected {nsteps}")
+    keys = form_keys()
     per_step = {"stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
-                "passB_fold": counts["passB_fold"]}
+                keys["passB_fold"]: counts[keys["passB_fold"]]}
     if any(v != 4 * nsteps for v in per_step.values()):
         fail(f"Boussinesq launches {per_step}, expected {4 * nsteps} each (4 per step)")
-    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts[keys["passB"]]:
         fail(f"Boussinesq launches {counts}: one correction per chunk, no dense pass B")
     if any(plain.values()):
         fail(f"plain versions ran on CUDA tensors in the Boussinesq run: {plain}")
@@ -2711,7 +2849,7 @@ def phase_lmwray3(n, nsteps, chunk, u0):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[lmwray3] solve_unsteady {n}^3 LMWray3 f32 Re=4000: {nsteps} steps in chunks of "
           f"{chunk}, {wall:.3f} s wall (first call included); launches "
@@ -2719,11 +2857,12 @@ def phase_lmwray3(n, nsteps, chunk, u0):
           f"{ {k: v for k, v in plain.items() if v} }")
     if state.n != nsteps:
         fail(f"the LMWray3 run ran {state.n} steps, expected {nsteps}")
+    keys = form_keys()
     per_step = {"stage kernel": counts["pcmsd_hat_3d"] + counts["momentum_stage_divhat_3d"],
-                "passB_fold": counts["passB_fold"]}
+                keys["passB_fold"]: counts[keys["passB_fold"]]}
     if any(v != 3 * nsteps for v in per_step.values()):
         fail(f"LMWray3 launches {per_step}, expected {3 * nsteps} each (3 per step)")
-    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts["passB"]:
+    if counts["pressure_correct_qhat_3d"] != nsteps // chunk or counts[keys["passB"]]:
         fail(f"LMWray3 launches {counts}: one correction per chunk, no dense pass B")
     if any(plain.values()):
         fail(f"plain versions ran on CUDA tensors in the LMWray3 run: {plain}")
@@ -2776,18 +2915,19 @@ def device_ms(fn, reps=10):
     return total / 1e3 / reps if total > 0 else None
 
 
-def solve_gate_times(sizes=(64, 128, 256)):
-    """The 3-pass solve `make_poisson_pallas` against `make_poisson_mm`'s
+def solve_gate_times(sizes=(64, 128, 256), precision="manualhigh"):
+    """The 3-pass solve `make_poisson_pallas` in ``precision`` against
+    `make_poisson_mm`'s
     contractions at each n, held against each other: wall ms per solve
     (CUDA events around 20 solves, turns pallas, mm, mm, pallas) and
     device ms per solve (torch.profiler).  On the per-op chain the solve
     sits behind the closure's convolutions in the device queue, so its
-    device time is what the gate (`fastpath.POISSON_PALLAS_MIN_N`)
-    follows; prints which solve the gate picks."""
+    device time is what the gate (`fastpath.poisson_pallas_min_n`)
+    follows; prints which solve the gate picks in ``precision``."""
     import torch
 
     from ins_tpu_torch.ops.dft import make_poisson_mm
-    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N
+    from ins_tpu_torch.ops.fastpath import poisson_pallas_min_n
     from ins_tpu_torch.ops.poisson_kernels import make_poisson_pallas
 
     out = {}
@@ -2795,7 +2935,8 @@ def solve_gate_times(sizes=(64, 128, 256)):
         dxs = (1.0 / n,) * 3
         f = torch.from_numpy(np.random.default_rng(SEED + n).standard_normal(
             (n, n, n), dtype=np.float32)).to(DEVICE)
-        pallas = make_poisson_pallas((n,) * 3, dxs, torch.float32, device=DEVICE)
+        pallas = make_poisson_pallas((n,) * 3, dxs, torch.float32, precision=precision,
+                                     device=DEVICE)
         mm = make_poisson_mm((n,) * 3, dxs, torch.float32, DEVICE)
         err = rel_err(pallas(f), mm(f))
         if not err <= REL_TOL:
@@ -2806,14 +2947,15 @@ def solve_gate_times(sizes=(64, 128, 256)):
             wall[which].append(cuda_ms(fns[which], reps=20))
         dev = {k: device_ms(fn) for k, fn in fns.items()}
         out[n] = {"wall": {k: sum(v) / 2 for k, v in wall.items()}, "device": dev}
-        pick = "make_poisson_pallas" if n >= POISSON_PALLAS_MIN_N else "make_poisson_mm"
-        print(f"[solve gate] n={n}: wall per solve make_poisson_pallas "
+        gate = poisson_pallas_min_n(precision)
+        pick = "make_poisson_pallas" if n >= gate else "make_poisson_mm"
+        print(f"[solve gate] {card_line()}: n={n}, {precision}: wall per solve make_poisson_pallas "
               f"{out[n]['wall']['pallas']:.4f} ms ({wall['pallas'][0]:.4f}, "
               f"{wall['pallas'][1]:.4f}), make_poisson_mm {out[n]['wall']['mm']:.4f} ms "
               f"({wall['mm'][0]:.4f}, {wall['mm'][1]:.4f}); device per solve "
               + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
                           for k, v in dev.items())
-              + f"; rel diff {err:.3e}; the gate (n >= {POISSON_PALLAS_MIN_N}) picks {pick}")
+              + f"; rel diff {err:.3e}; the gate (n >= {gate}) picks {pick}")
         del f
     torch.cuda.empty_cache()
     return out
@@ -2877,8 +3019,8 @@ def halo_kernel_cases(n, rank=1):
     cells = lx * n * n
     mats = (proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"])
 
-    def gemm(k):  # one plane-transform product over k planes (`GEMM_AS_FP32`)
-        return 2.0 * k * n**3 * GEMM_AS_FP32
+    def gemm(k):  # one plane-transform product over k planes (the default bf16x3 form)
+        return 2.0 * k * n**3 * GEMM_BF16X3_AS_FP32
 
     def msd(impl, **kw):
         return lambda: impl(L["u"], L["u_lo2"], L["u_hi1"], (L["u"],), (L["u_lo1"],),
@@ -3247,7 +3389,7 @@ def phase_halo(n, nsteps, chunk, u0, profile=False):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[halo] solve_unsteady(mesh=make_mesh(), halo=True) {n}^3 RK44 f32: {nsteps} "
           f"steps in chunks of {chunk}, {wall:.3f} s wall (first call included); launches "
@@ -3259,13 +3401,14 @@ def phase_halo(n, nsteps, chunk, u0, profile=False):
     if not bool(torch.isfinite(u).all()):
         fail("non-finite velocity after the halo run")
     nchunk = nsteps // chunk
+    keys = form_keys()
     expect = {"momentum_stage_divhat_halo_3d": nchunk, "pcmsd_hat_halo_3d": 4 * nsteps - nchunk,
-              "passB_sharded": 4 * nsteps, "passB_sharded+levels": 0,
+              keys["passB_sharded"]: 4 * nsteps, "passB_sharded+levels": 0,
               "pressure_correct_qhat_halo_3d": nchunk}
     got = {k: counts[k] for k in expect}
     if got != expect:
         fail(f"halo launches {got}, expected {expect}")
-    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
+    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", keys["passB_fold"],
                           "pressure_correct_qhat_3d") if counts[k]]
     if single or any(plain.values()):
         fail(f"the halo run launched single-device kernels {single} or plain versions {plain}")
@@ -3348,7 +3491,7 @@ def phase_halo_les(n, nsteps, chunk, u0, e_halo, profile=False):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(launches.LAUNCHES)
+    counts = run_counts()
     plain = dict(launches.PLAIN_ON_CUDA)
     print(f"[halo les] solve_unsteady(mesh=make_mesh(), halo=True, theta={LES_THETA}) {n}^3 "
           f"RK44 f32 Re=4000: {nsteps} steps in chunks of {chunk}, {wall:.3f} s wall (first "
@@ -3360,15 +3503,16 @@ def phase_halo_les(n, nsteps, chunk, u0, e_halo, profile=False):
     if not bool(torch.isfinite(u).all()):
         fail("non-finite velocity after the halo LES run")
     nchunk = nsteps // chunk
+    keys = form_keys()
     expect = {"smagorinsky_force_halo_3d": 4 * nsteps,
               "momentum_stage_divhat_halo_3d+force": nchunk,
               "pcmsd_hat_halo_3d+force": 4 * nsteps - nchunk,
-              "passB_sharded": 4 * nsteps, "pressure_correct_qhat_halo_3d": nchunk,
+              keys["passB_sharded"]: 4 * nsteps, "pressure_correct_qhat_halo_3d": nchunk,
               "momentum_stage_divhat_halo_3d": 0, "pcmsd_hat_halo_3d": 0}
     got = {k: counts[k] for k in expect}
     if got != expect:
         fail(f"halo LES launches {got}, expected {expect}")
-    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
+    single = [k for k in ("pcmsd_hat_3d", "momentum_stage_divhat_3d", keys["passB_fold"],
                           "pressure_correct_qhat_3d", "smagorinsky_force_3d") if counts[k]]
     if single or any(plain.values()):
         fail(f"the halo LES launched single-device kernels {single} or plain versions {plain}")
@@ -3434,7 +3578,7 @@ def phase_halo_les(n, nsteps, chunk, u0, e_halo, profile=False):
                   method=method, theta=th, processors={"log": it.timelogger(nupdate=chunk)})
         launches.reset_counts()
         hs, _ = it.solve_unsteady(mesh=mesh, halo=True, **kw)
-        bcounts = dict(launches.LAUNCHES)
+        bcounts = run_counts()
         bplain = dict(launches.PLAIN_ON_CUDA)
         ss, _ = it.solve_unsteady(psolver=it.psolver_spectral(bsetup), **kw)
         bu = strip_ghosts(hs.u)
@@ -3491,7 +3635,7 @@ def unmerged_kernel_cases(n):
     proj = make_fused_projection((n,) * 3, dxs, torch.float32, device=dev)
     Vinv, VinvT, V, VT = proj["Vinv"], proj["VinvT"], proj["V"], proj["VT"]
     mats = (Vinv, VinvT, V, VT)
-    cells, gemm = n**3, 2.0 * n**4 * GEMM_AS_FP32
+    cells, gemm = n**3, 2.0 * n**4 * GEMM_BF16X3_AS_FP32
     qhat = field(n, n, n, scale=1e-3)
     bf = field(3, n, n, n)  # a float32 body force: the wrappers round it
     # bf16 storage: u (ut_prev), the base, the accumulator, k streams
@@ -3639,6 +3783,7 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
     dt = 1e-3 * 128 / n
     bf16 = torch.bfloat16
     rk44, ssp33, ssp104 = it.RKMethods.RK44(), it.RKMethods.SSP33(), it.RKMethods.SSP104()
+    keys = form_keys()
 
     def solve(tag, method, steps, ck, want=None, **kw):
         """`solve_unsteady` from u0 with a timelogger and the energy at chunk
@@ -3656,7 +3801,7 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
             **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+        counts = {k: v for k, v in run_counts().items() if v}
         plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
         print(f"[{tag}] solve_unsteady {n}^3: {steps} steps in chunks of {ck}, {wall:.3f} s "
               f"wall (first call included); launches {counts}; plain calls on CUDA {plain}")
@@ -3664,8 +3809,8 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
             fail(f"{tag}: ran {state.n} steps, expected {steps}")
         if plain:
             fail(f"{tag}: plain versions ran on CUDA tensors: {plain}")
-        got = {k: v for k, v in counts.items() if k != "plane_transform"}
-        if want is not None and (got != want or not counts.get("plane_transform")):
+        got = {k: v for k, v in counts.items() if k != keys["plane_transform"]}
+        if want is not None and (got != want or not counts.get(keys["plane_transform"])):
             fail(f"{tag}: launches {counts}, expected {want} and the plane transforms")
         u = strip_ghosts(state.u)
         if u.dtype != torch.float32 or not bool(torch.isfinite(u).all()):
@@ -3721,7 +3866,7 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
     per = nsteps // chunk
     # path A: SSP33 on the fused unmerged chain
     u_a, _, hist = solve("unmerged", ssp33, nsteps, chunk, want={
-        "momentum_stage_divhat_3d": 3 * nsteps, "passB_fold": 3 * nsteps,
+        "momentum_stage_divhat_3d": 3 * nsteps, keys["passB_fold"]: 3 * nsteps,
         "pressure_correct_qhat_3d": 3 * nsteps})
     check_divergence(u_a, dx, "unmerged")
     if not energies("unmerged", hist):
@@ -3742,9 +3887,9 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
     for name, method, u32, want in (
         ("RK44 hat chain", rk44, u_rk, {
             "momentum_stage_divhat_3d+bf16": per, "pcmsd_hat_3d+bf16": 4 * nsteps - per,
-            "passB_fold": 4 * nsteps, "pressure_correct_qhat_3d+bf16": per}),
+            keys["passB_fold"]: 4 * nsteps, "pressure_correct_qhat_3d+bf16": per}),
         ("SSP33 unmerged chain", ssp33, u_a, {
-            "momentum_stage_divhat_3d+bf16": 3 * nsteps, "passB_fold": 3 * nsteps,
+            "momentum_stage_divhat_3d+bf16": 3 * nsteps, keys["passB_fold"]: 3 * nsteps,
             "pressure_correct_qhat_3d+bf16": 3 * nsteps}),
     ):
         tag = f"bf16 {name}"
@@ -3772,7 +3917,7 @@ def phase_unmerged(n, nsteps, chunk, u0, profile=False):
     # path C: SSP104, 5 of its 10 stages with more than 4 k streams
     u_c, c_counts, _ = solve("streams", ssp104, 4, 2, want={
         "momentum_stage_divhat_3d": 20, "momentum_stage_divhat_3d+streams": 20,
-        "passB_fold": 40, "pressure_correct_qhat_3d": 40})
+        keys["passB_fold"]: 40, "pressure_correct_qhat_3d": 40})
     check_divergence(u_c, dx, "streams")
     agree("streams", u_c, (_same, make_fast_timestep(setup, ssp104, plain=True), _same), 4, 2,
           REL_TOL)
@@ -4148,12 +4293,12 @@ def phase_tapconv(n):
             launches.reset_counts()
             out = tap_stack(theta, h0, cdt, form="tap", pack=pack)
             torch.cuda.synchronize()
-            fwd = dict(launches.LAUNCHES)
+            fwd = run_counts()
             launches.reset_counts()
             grads = dict(zip(["input", *theta],
                              torch.autograd.grad((out * out).sum(), [h0, *theta.values()])))
             torch.cuda.synchronize()
-            bwd = dict(launches.LAUNCHES)
+            bwd = run_counts()
             # bf16 convs run the bf16 tensor-core kernels, float32 ones the
             # "+f32" kernels (the tap and pack forwards and the weight
             # gradient in 3xTF32), never the other route's
@@ -4693,7 +4838,7 @@ def phase_unfused_step(n):
     from ins_tpu_torch.ops import perop_kernels as pk
     from ins_tpu_torch.ops import stage_kernels as sk
     from ins_tpu_torch.ops.dft import make_poisson_mm
-    from ins_tpu_torch.ops.fastpath import POISSON_PALLAS_MIN_N
+    from ins_tpu_torch.ops.fastpath import poisson_pallas_min_n
     from ins_tpu_torch.ops.poisson_kernels import make_fused_projection, make_poisson_pallas
 
     rng = np.random.default_rng(SEED + 19)
@@ -4703,7 +4848,8 @@ def phase_unfused_step(n):
     visc, coeff = 1.0 / 4000.0, 0.13
     f32 = torch.float32
     proj = make_fused_projection((n,) * 3, dxs, f32, device=DEVICE)
-    solve = (make_poisson_pallas((n,) * 3, dxs, f32, device=DEVICE) if n >= POISSON_PALLAS_MIN_N
+    pallas = n >= poisson_pallas_min_n("manualhigh")
+    solve = (make_poisson_pallas((n,) * 3, dxs, f32, device=DEVICE) if pallas
              else make_poisson_mm((n,) * 3, dxs, f32, DEVICE))
 
     def unfused():
@@ -4719,9 +4865,9 @@ def phase_unfused_step(n):
     launches.reset_counts()
     got = unfused()
     torch.cuda.synchronize()
-    print(f"[unfused] {n}^3: launches {({k: v for k, v in launches.LAUNCHES.items() if v})}")
+    print(f"[unfused] {n}^3: launches {({k: v for k, v in run_counts().items() if v})}")
     want = {"momentum_stage_div_3d": 1, "pressure_correct_3d": 1,
-            "poisson_pallas": int(n >= POISSON_PALLAS_MIN_N)}
+            "poisson_pallas": int(pallas)}
     counts = {k: launches.LAUNCHES[k] for k in want}
     if counts != want or any(launches.PLAIN_ON_CUDA.values()):
         fail(f"unfused step launches {counts} (plain on CUDA "
@@ -4875,7 +5021,7 @@ def ghosted_run(tag, setup, psolver, u0, nsteps, chunk, dt, temp0=None, method=N
                                  processors={"log": it.timelogger(nupdate=chunk)})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    counts = {k: v for k, v in run_counts().items() if v}
     plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
     if counts or plain:
         fail(f"[{tag}] the general path launched {counts} / ran plain versions {plain}")
@@ -5547,10 +5693,315 @@ def phase_general2():
     return out
 
 
-HAT_KERNELS = (
-    "plane_transform", "pcmsd_hat_3d", "momentum_stage_divhat_3d", "passB_fold",
-    "pressure_correct_qhat_3d",
-)
+# --------------------------------------------------------------------------
+# phase 1, the default precision: the bf16x3 forms ("manualhigh")
+# --------------------------------------------------------------------------
+
+# the bf16x3 plane transform's sizes (each with its ragged n - 6; timed at
+# 256³, the main path's) and the fused pass B's cases: the folded cube at
+# 256³ (one level, the main path's) and 512³ (two levels), the dense 250³
+# cube, the 4-way shard of 256³ at two y offsets; the 3-pass solve's n
+BF16X3_TRANSFORM_SIZES = (64, 512, 256)
+BF16X3_FOLD_CASES = ((256, 1, 256, 0), (512, 2, 512, 0))
+BF16X3_DENSE_CASES = ((250, 250, 0),)
+BF16X3_SHARD_CASES = ((256, 1, 64, 64), (256, 1, 64, 192))
+BF16X3_SOLVE_N = 128
+
+
+def bf16x3_transform_cases(n):
+    """{"plane_transform+bf16x3": `transform_cases` in the bf16x3 form at
+    n}, on an input made from a seed."""
+    import torch
+
+    from ins_tpu_torch.ops.poisson_kernels import make_fused_projection
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 11 * n)
+    f = torch.from_numpy(rng.standard_normal((n, n, n), dtype=np.float32)).to(dev)
+    proj = make_fused_projection((n,) * 3, (2 * np.pi / n,) * 3, torch.float32, device=dev)
+    return {"plane_transform+bf16x3": transform_cases(n, f, proj, "manualhigh")}
+
+
+def bf16x3_passb_cases(_n):
+    """{kernel name: [Case, ...]} of the fused pass B in bf16x3 (the main
+    paths' shapes first), each within `BF16X3_CLASS_TOL` of float64 and
+    `BF16X3_PLAIN_TOL` of its plain version."""
+    return {
+        "passB_fold+bf16x3": [fold_case(*c, "manualhigh") for c in BF16X3_FOLD_CASES],
+        "passB+bf16x3": [dense_case(*c, "manualhigh") for c in BF16X3_DENSE_CASES],
+        "passB_sharded+bf16x3": [fold_case(*c, "manualhigh") for c in BF16X3_SHARD_CASES],
+    }
+
+
+def precision_classes():
+    """Each form's distance from float64 on the same inputs, printed side
+    by side: the z+y and x transforms at 256³ and 512³, the fused pass B's
+    bf16x3 cases and the 3-pass solve at `BF16X3_SOLVE_N`³ (also held,
+    kernels against plain, within `BF16X3_PLAIN_TOL`).  Fails where the
+    3xTF32 form leaves the float32 class (`TF32_CLASS_TOL` for a
+    transform, `DENSE_F64_TOL` for pass B and the solve), the bf16x3 form
+    leaves `BF16X3_CLASS_TOL`, or the two are less than `CLASS_APART`
+    apart.  {label: (bf16x3 error, 3xTF32 error)}."""
+    import torch
+
+    from ins_tpu_torch.ops import poisson_kernels as pk
+    from ins_tpu_torch.ops.transforms import (
+        PRECISIONS, x_transform, x_transform_plain, yz_transform, yz_transform_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    out = {}
+
+    def check(label, run, ref, tf32_tol):
+        err = {p: rel_err(run(p).double(), ref) for p in PRECISIONS}
+        bf, tf = err["manualhigh"], err["highest"]
+        print(f"[precision] {card_line()}: {label}: max rel err against float64, bf16x3 "
+              f"(manualhigh) {bf:.3e}, 3xTF32 (highest) {tf:.3e}: {bf / max(tf, 1e-30):.1f}x")
+        if not (tf <= tf32_tol and bf <= BF16X3_CLASS_TOL and bf >= CLASS_APART * tf):
+            fail(f"[precision] {label}: bf16x3 {bf:.3e} (bound {BF16X3_CLASS_TOL}), 3xTF32 "
+                 f"{tf:.3e} (bound {tf32_tol}), not {CLASS_APART}x apart")
+        out[label] = (bf, tf)
+
+    for n in (256, 512):
+        dxs = (2 * np.pi / n,) * 3
+        rng = np.random.default_rng(SEED + 13 * n)
+        f = torch.from_numpy(rng.standard_normal((n, n, n), dtype=np.float32)).to(dev)
+        proj = pk.make_fused_projection((n,) * 3, dxs, torch.float32, device=dev)
+        p64 = pk.make_fused_projection((n,) * 3, dxs, torch.float64, device=dev)
+        ref = yz_transform_plain(f.double(), p64["Vinv"], p64["VinvT"])
+        check(f"Vinv_y . f . Vinv_z^T at {n}³",
+              lambda p: yz_transform(f, proj["Vinv"], proj["VinvT"], p), ref, TF32_CLASS_TOL)
+        ref = x_transform_plain(p64["V"], f.double())
+        check(f"V_x . f at {n}³", lambda p: x_transform(proj["V"], f, p), ref, TF32_CLASS_TOL)
+        del f, proj, p64, ref
+        torch.cuda.empty_cache()
+    for c in BF16X3_FOLD_CASES + BF16X3_SHARD_CASES:
+        n, levels, ly, yoff = c
+        runs = {p: fold_setup(*c, p) for p in PRECISIONS}
+        h, _, p64, label = runs["highest"]
+        check(f"pass B {label}", lambda p: fold_kernel(runs[p][0], runs[p][1], yoff),
+              pk.passB_sharded_plain(h.double(), p64, yoff), DENSE_F64_TOL)
+        del runs, h, p64
+    for c in BF16X3_DENSE_CASES:
+        runs = {p: dense_setup(*c, p) for p in PRECISIONS}
+        h, _, p64, label = runs["highest"]
+        check(f"pass B {label}", lambda p: pk.passB(runs[p][0], runs[p][1]),
+              pk.passB_plain(h.double(), p64), DENSE_F64_TOL)
+        del runs, h, p64
+    n = BF16X3_SOLVE_N
+    dxs = (1.0 / n,) * 3
+    f = torch.from_numpy(np.random.default_rng(SEED + n).standard_normal(
+        (n, n, n), dtype=np.float32)).to(dev)
+    solve = {(p, plain): pk.make_poisson_pallas((n,) * 3, dxs, torch.float32, precision=p,
+                                                 device=dev, plain=plain)
+             for p in PRECISIONS for plain in (False, True)}
+    ref = pk.make_poisson_pallas((n,) * 3, dxs, torch.float64, device=dev, plain=True)(
+        f.double())
+    check(f"the 3-pass solve at {n}³", lambda p: solve[p, False](f), ref, DENSE_F64_TOL)
+    err = rel_err(solve["manualhigh", False](f), solve["manualhigh", True](f))
+    print(f"[precision] the 3-pass solve at {n}³ in bf16x3: kernels against the plain "
+          f"version {err:.3e} (bound {BF16X3_PLAIN_TOL})")
+    if not err <= BF16X3_PLAIN_TOL:
+        fail(f"the bf16x3 3-pass solve at {n}³ is {err:.3e} from its plain version")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision_kernels():
+    """Phase 1's checks of the default precision's kernels: the bf16x3
+    forms against their plain versions and float64 (`bf16x3_*_cases`,
+    timed beside their bounds), both classes side by side
+    (`precision_classes`), and the three gates measured in each precision
+    in turns.  Returns the kernel results."""
+    results = phase_kernels(bf16x3_transform_cases, BF16X3_TRANSFORM_SIZES, time_at=256,
+                            time_all=("plane_transform+bf16x3",))
+    results.update(phase_kernels(bf16x3_passb_cases, (256,),
+                                 time_all=("passB_fold+bf16x3", "passB_sharded+bf16x3")))
+    precision_classes()
+    for p in ("manualhigh", "highest"):
+        fold_gate_times(precision=p)
+        dense_gate_times(precision=p)
+        solve_gate_times(precision=p)
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 17: the 512³ RK44 and LMWray3 cells in both precisions
+# --------------------------------------------------------------------------
+
+# `bench.py`'s `run_case(512, 2, 5)` (`512`, `512_lmwray3`): the periodic
+# box [0, 2π]³, Re 4000, float32, `psolver_spectral`, dt = 1e-3·128/512,
+# 2 warm-up steps and 5 timed ones; the plain chain against the kernels for
+# PRECISION_PLAIN_STEPS steps in each precision, within REL_TOL (the
+# 3-pass bf16 class moves a transform by ~1e-5 of float64; the kernels and
+# the plain version share its products)
+PRECISION_N = 512
+PRECISION_WARMUP = 2
+PRECISION_STEPS = 5
+PRECISION_PLAIN_STEPS = 2
+# the x-slab chain's and the dense chain's 3xTF32 runs ("highest"): steps
+HIGHEST_PATH_STEPS = 4
+
+
+def precision_turn(setup, name, method, u0, dt, precision, e0):
+    """`solve_unsteady` for the bench's warm-up and timed steps in
+    ``precision``, the launch counts set to 0 before and read after;
+    checks finite, divergence (phase 2's bounds), energy not increasing
+    and the launches.  Returns (the final velocity, peak GiB, counts)."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import strip_ghosts
+
+    steps = PRECISION_WARMUP + PRECISION_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_counts()
+    state, _ = it.solve_unsteady(setup=setup, ustart=u0, tlims=(0.0, steps * dt), dt=dt,
+                                 method=method, psolver=it.psolver_spectral(setup),
+                                 projection_precision=precision)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in run_counts(precision).items() if v}
+    plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = setup.grid.Np[0]
+    keys = form_keys(precision)
+    per = 3 if name == "LMWray3" else 4
+    print(f"[{n}^3 {name}] {precision}: solve_unsteady, {steps} steps: peak memory "
+          f"{peak:.2f} GiB; launches {counts}")
+    if (plain or counts.get(keys["passB_fold"]) != per * steps
+            or counts.get("passB_fold+levels")):
+        fail(f"[{n}^3 {name}] {precision}: launches {counts}, plain {plain}; expected "
+             f"{keys['passB_fold']} {per * steps} (the fused kernel at n = {n})")
+    missing = [k for k in (keys["plane_transform"], "pcmsd_hat_3d") if not counts.get(k)]
+    if missing:
+        fail(f"[{n}^3 {name}] {precision}: never launched {missing}")
+    u = strip_ghosts(state.u)
+    if not bool(torch.isfinite(u).all()):
+        fail(f"[{n}^3 {name}] {precision}: non-finite velocity")
+    check_divergence(u, float(setup.grid.delta[0][0]), f"{n}^3 {name} {precision}")
+    e1 = it.total_kinetic_energy(state.u, setup).item()
+    print(f"[{n}^3 {name}] {precision}: kinetic energy {e0:.9e} -> {e1:.9e}")
+    if not e1 <= e0:
+        fail(f"[{n}^3 {name}] {precision}: kinetic energy increased")
+    return u, peak, counts
+
+
+def phase_precision(n=PRECISION_N):
+    """17: `bench.py`'s 512³ RK44 and LMWray3 cells on the hat chain in
+    each precision: `solve_unsteady` for the bench's steps
+    (`precision_turn`: launches, divergence, energy, peak memory), the
+    hat chains' ms/step in turns (manualhigh, highest, highest,
+    manualhigh; `chains_ms_per_step`, the bench's 2 warm-up steps and 5
+    timed ones), then the plain chain against the kernels for
+    `PRECISION_PLAIN_STEPS` steps in each; then `highest_paths`.
+    Returns ({cell: {precision: [ms, ms]}}, the "highest" runs' launch
+    counts summed)."""
+    import torch
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops.fastpath import make_fast_timestep_hat, strip_state
+    from ins_tpu_torch.ops.transforms import PRECISIONS
+
+    field_gb = 3 * n**3 * 4 / 1e9
+    print(f"[{n}^3] memory reckoned: one velocity field 3·{n}³·4 B = {field_gb:.2f} GB; the "
+          f"hat chain holds about eight fields ({8 * field_gb:.1f} GB), the plain chain's "
+          f"temporaries a few more; the card has "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    setup = headline_setup(n)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    u0 = it.random_field(setup, kp=10, generator=gen)
+    dt = 1e-3 * 128 / n
+    e0 = it.total_kinetic_energy(u0, setup).item()
+    times, highest = {}, {}
+    for name, method in (("RK44", it.RKMethods.RK44()), ("LMWray3", it.LMWray3())):
+        last, peak = {}, {}
+        for p in PRECISIONS:
+            last[p], peak[p], counts = precision_turn(setup, name, method, u0, dt, p, e0)
+            if p == "highest":
+                add_counts(highest, counts)
+        gap = rel_err(last["manualhigh"], last["highest"])
+        del last
+        torch.cuda.empty_cache()
+        s0 = strip_state(it.create_stepper(method, setup=setup, u=u0))
+        chains = {p: make_fast_timestep_hat(setup, method, projection_precision=p)
+                  for p in ("manualhigh", "highest")}
+        ms = chains_ms_per_step(chains, s0, dt, steps=PRECISION_STEPS)
+        for p in ("manualhigh", "highest"):
+            m = sum(ms[p]) / 2
+            print(f"[{n}^3 {name}] {p}: hat chain {m:.3f} ms/step ({ms[p][0]:.3f}, "
+                  f"{ms[p][1]:.3f}; {PRECISION_WARMUP} warm-up steps, {PRECISION_STEPS} timed, "
+                  f"in turns with the other precision), {n**3 / (m * 1e-3):.4e} "
+                  f"cell-updates/s; solve_unsteady's peak memory {peak[p]:.2f} GiB; "
+                  f"{card_line()}")
+        print(f"[{n}^3 {name}] after {PRECISION_WARMUP + PRECISION_STEPS} steps the two "
+              f"precisions differ by {gap:.3e} (max rel)")
+        for p in ("manualhigh", "highest"):
+            k = run_plain_chain(setup, method, s0, dt, PRECISION_PLAIN_STEPS,
+                                PRECISION_PLAIN_STEPS, fns=chains[p])
+            q = run_plain_chain(setup, method, s0, dt, PRECISION_PLAIN_STEPS,
+                                PRECISION_PLAIN_STEPS, precision=p)
+            agree = rel_err(k.u, q.u)
+            print(f"[{n}^3 {name}] {p}: kernel chain vs plain chain after "
+                  f"{PRECISION_PLAIN_STEPS} steps: max rel diff {agree:.3e} (bound {REL_TOL})")
+            if not agree <= REL_TOL:
+                fail(f"[{n}^3 {name}] {p}: kernel and plain chains disagree by {agree:.3e}")
+            del k, q
+            torch.cuda.empty_cache()
+        times[f"{n}^3 {name}"] = ms
+        del chains, s0
+    del u0, setup
+    torch.cuda.empty_cache()
+    add_counts(highest, highest_paths())
+    return times, highest
+
+
+def highest_paths(steps=HIGHEST_PATH_STEPS):
+    """The 3xTF32 forms of the dense and the sharded pass B on their paths:
+    phase 12's 250³ chain and phase 8's one-rank x-slab chain at 256³, each
+    in "highest" for ``steps`` steps through `solve_unsteady` (launches,
+    finite, divergence; the dense chain against its plain chain, the
+    x-slab chain within `REL_TOL` of the single-device chain in the same
+    precision).  Returns the two runs' launch counts summed."""
+    import torch
+    import torch.distributed as dist
+
+    import ins_tpu_torch as it
+    from ins_tpu_torch.ops import launches
+    from ins_tpu_torch.ops.fastpath import strip_ghosts
+    from ins_tpu_torch.parallel import make_mesh
+
+    total = {k: v for k, v in phase_dense_chain(nsteps=steps, chunk=steps // 2,
+                                                 precision="highest").items() if v}
+    n = 256
+    setup = headline_setup(n)
+    u0 = it.random_field(setup, kp=10, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    dt = 1e-3 * 128 / n
+    kw = dict(setup=setup, ustart=u0, tlims=(0.0, steps * dt), dt=dt,
+              method=it.RKMethods.RK44(), projection_precision="highest")
+    launches.reset_counts()
+    hs, _ = it.solve_unsteady(mesh=make_mesh(), halo=True, **kw)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    counts = {k: v for k, v in run_counts("highest").items() if v}
+    plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
+    ss, _ = it.solve_unsteady(psolver=it.psolver_spectral(setup), **kw)
+    u = strip_ghosts(hs.u)
+    agree = rel_err(u, strip_ghosts(ss.u))
+    print(f"[halo] {n}^3 RK44, highest, {steps} steps: launches {counts}; vs the single-device "
+          f"chain {agree:.3e}")
+    key = form_keys("highest")["passB_sharded"]
+    if plain or counts.get(key) != 4 * steps or not bool(torch.isfinite(u).all()):
+        fail(f"the highest x-slab run: launches {counts}, plain {plain}, expected {key} "
+             f"{4 * steps}, finite")
+    check_divergence(u, float(setup.grid.delta[0][0]), "halo highest")
+    if not agree <= REL_TOL:
+        fail(f"the highest x-slab run is {agree:.3e} from the single-device chain")
+    del hs, ss, u, u0
+    torch.cuda.empty_cache()
+    return add_counts(total, counts)
+
+
 LES_KERNELS = ("smagorinsky_force_3d", "pcmsd_hat_3d+smag")
 # the cube wrappers that run plane-transform GEMMs around a stage or
 # correction kernel (split by `profile_cases` under --profile), and the
@@ -5574,7 +6025,7 @@ CONV_KEYS = ("fusedconv_3d", "fusedconv_wgrad_3d") + F32_CONV_KERNELS
 CHANNEL_KERNELS = ("channel_msd_3d", "channel_pressure_correct_3d")
 TEMP_KERNELS = ("pcmsd_hat_3d+temp", "momentum_stage_divhat_3d+temp")
 HALO_KERNELS = ("momentum_stage_divhat_halo_3d", "pcmsd_hat_halo_3d",
-                "pressure_correct_qhat_halo_3d", "passB_sharded")
+                "pressure_correct_qhat_halo_3d")
 HALO_LES_KERNELS = ("smagorinsky_force_halo_3d", "momentum_stage_divhat_halo_3d+smag",
                     "pcmsd_hat_halo_3d+smag")
 UNMERGED_KERNELS = ("momentum_stage_divhat_3d+bf16", "pcmsd_hat_3d+bf16",
@@ -5616,6 +6067,14 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "pressure_correct_qhat_halo_3d": ("ins_tpu_torch/csrc/correct.cu",
                                       "ins_tpu/ops/pallas_kernels.py:1937"),
     "passB_sharded": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:480"),
+    # the default precision ("manualhigh"): the bf16x3 forms of the plane
+    # GEMM (`_mm_h` / `_mm_h_left` with manualhigh) and the fused pass B
+    # (`_passB_body` / `_passB_fold_body` with prec None, `_dot_h` :68)
+    "plane_transform+bf16x3": ("ins_tpu_torch/csrc/transforms.cu",
+                               "ins_tpu/ops/pallas_kernels.py:87"),
+    "passB_fold+bf16x3": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:432"),
+    "passB+bf16x3": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:451"),
+    "passB_sharded+bf16x3": ("ins_tpu_torch/csrc/fold.cu", "ins_tpu/ops/poisson_pallas.py:480"),
     "passB_sharded+levels": ("ins_tpu_torch/csrc/poisson.cu",
                              "ins_tpu/ops/poisson_pallas.py:480"),
     "smagorinsky_force_halo_3d": ("ins_tpu_torch/csrc/smag.cu",
@@ -5831,7 +6290,7 @@ def adaptive_case(tag, setup, setup64, fns, state0, ustart, method, psolver, str
                                      psolver=psolver)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: v for n, v in launches.LAUNCHES.items() if v}
+        counts = {n: v for n, v in run_counts().items() if v}
         plain = {n: v for n, v in launches.PLAIN_ON_CUDA.items() if v}
         u = strip(state.u)
         if plain:
@@ -5840,7 +6299,7 @@ def adaptive_case(tag, setup, setup64, fns, state0, ustart, method, psolver, str
             fail(f"[{tag}] non-finite velocity after the adaptive run")
         hand, dts, worst = adaptive_by_hand(setup, setup64, fns, state0, tend, k)
         want = expect(state.n, k)
-        got = {n: v for n, v in counts.items() if n != "plane_transform"}
+        got = {n: v for n, v in counts.items() if n != form_keys()["plane_transform"]}
         print(f"[{tag}] solve_unsteady(dt=None, cfl={ADAPTIVE_CFL}, n_adapt_dt={k}) to t = "
               f"{tend:.6e}: {state.n} steps, {wall:.3f} s wall (first call included), t = "
               f"{float(state.t):.9e}; dt from {float(min(dts)):.6e} to {float(max(dts)):.6e}; "
@@ -5879,6 +6338,7 @@ def phase_adaptive(n=256, channel_box=None, cavity_n=ADAPTIVE_CAVITY_N, unsteady
 
     f64 = torch.float64
     method = it.RKMethods.RK44()
+    keys = form_keys()
     totals = {}
 
     def add(counts):
@@ -5894,7 +6354,7 @@ def phase_adaptive(n=256, channel_box=None, cavity_n=ADAPTIVE_CAVITY_N, unsteady
         f"adaptive_hat{n}", setup, setup64, fns, s0, u0, method, it.psolver_spectral(setup),
         strip_ghosts,
         lambda m, k: {"momentum_stage_divhat_3d": 1, "pcmsd_hat_3d": 4 * m - 1,
-                      "passB_fold": 4 * m, "pressure_correct_qhat_3d": -(-m // k)})
+                      keys["passB_fold"]: 4 * m, "pressure_correct_qhat_3d": -(-m // k)})
     add(counts)
     adaptive_costs(f"adaptive_hat{n}", setup, fns, s0)
     del setup, setup64, u0, s0, fns
@@ -5959,10 +6419,10 @@ def phase_adaptive(n=256, channel_box=None, cavity_n=ADAPTIVE_CAVITY_N, unsteady
                                  psolver=it.psolver_spectral(setup))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+    counts = {k: v for k, v in run_counts().items() if v}
     plain = {k: v for k, v in launches.PLAIN_ON_CUDA.items() if v}
-    want = {"poisson_pallas": 4 * UNSTEADY_STEPS, "passB_fold": 4 * UNSTEADY_STEPS}
-    if plain or {k: v for k, v in counts.items() if k != "plane_transform"} != want:
+    want = {"poisson_pallas": 4 * UNSTEADY_STEPS, keys["passB_fold"]: 4 * UNSTEADY_STEPS}
+    if plain or {k: v for k, v in counts.items() if k != keys["plane_transform"]} != want:
         fail(f"[unsteady_periodic{unsteady_n}] launches {counts} (plain {plain}), "
              f"expected {want} and the plane transforms")
     add(counts)
@@ -6109,7 +6569,7 @@ def closure_dns_data(add):
     dns = closure_les_setup(CLOSURE_NDNS)
     if not hat_chain_applicable(dns, method):
         fail("[closure] the 256³ DNS is not on the hat chain")
-    missing = [k for k in HAT_KERNELS if counts.get(k, 0) <= 0]
+    missing = [k for k in hat_kernels() if counts.get(k, 0) <= 0]
     if missing or plain:
         fail(f"[closure] the DNS did not run on the hat kernels alone: missing {missing}, "
              f"plain {plain}")
@@ -6409,7 +6869,7 @@ def phase_closure():
     def add():
         """Add the launches since the last reset to the totals; return
         the nonzero ones."""
-        counts = {k: v for k, v in launches.LAUNCHES.items() if v}
+        counts = {k: v for k, v in run_counts().items() if v}
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         return counts
@@ -6503,6 +6963,12 @@ def main():
                     help="only phase 16 (the NeuralClosure pipeline: filtered DNS at 256³, "
                          "a-priori and a-posteriori training of the 3-D CNN, the 2-D "
                          "example with an FNO and a G-CNN), after the kernel build")
+    ap.add_argument("--precision", action="store_true",
+                    help="only the default precision's checks: the bf16x3 forms of the plane "
+                         "GEMM and the fused pass B against their plain versions and float64, "
+                         "both classes side by side, the gates in each precision, and phase "
+                         "17 (the 512³ RK44 and LMWray3 cells in both precisions), after the "
+                         "kernel build")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel breakdowns of 3 hat steps, "
                          "of one gradient step with bf16 and with float32 convs, "
@@ -6598,6 +7064,17 @@ def main():
         print(f"[adaptive] launches of the phase's runs: {launched}")
         print(f"[time] phase 15 (adaptive dt, unsteady forces): {time.perf_counter() - t0:.1f} s")
         return
+    if args.precision:
+        t0 = time.perf_counter()
+        phase_precision_kernels()
+        print(f"[time] phase 1, the default precision's kernels and gates: "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _, highest = phase_precision()
+        print(f"[precision] launches of the \"highest\" runs: {highest}")
+        print(f"[time] phase 17 (the 512³ cells in both precisions): "
+              f"{time.perf_counter() - t0:.1f} s")
+        return
     if args.closure:
         t0 = time.perf_counter()
         launched = phase_closure()
@@ -6619,9 +7096,7 @@ def main():
     results.update(phase_kernels(fold_big_cases, (FOLD_BIG_CUBES[0][0],),
                                  time_all=("passB_fold+levels",)))
     check_fold_f64(FOLD_BIG_CUBES)
-    fold_gate_times()
-    dense_gate_times()
-    solve_gate_times()
+    results.update(phase_precision_kernels())
     if args.profile:
         profile_cases(kernel_cases(256), names=STAGE_WRAPPERS)
     phase_done("phase 1 (hat kernels)")
@@ -6716,22 +7191,29 @@ def main():
     phase_done("phase 15 (adaptive dt, unsteady forces)")
     closure_counts = phase_closure()
     phase_done("phase 16 (the NeuralClosure pipeline)")
+    _, highest_counts = phase_precision()
+    phase_done("phase 17 (the 512³ cells in both precisions)")
 
     def with_later(k, v):
         """v plus the launches of phases 15 and 16."""
         return v + adaptive_counts.get(k, 0) + closure_counts.get(k, 0)
 
-    counts = {**{k: with_later(k, hat_counts[k]) for k in HAT_KERNELS + ("passB_fold+levels",)},
-              "passB": dense_counts["passB"],
+    bf, tf = form_keys("manualhigh"), form_keys("highest")
+    counts = {**{k: with_later(k, hat_counts[k]) for k in hat_kernels() + ("passB_fold+levels",)},
+              bf["passB"]: dense_counts[bf["passB"]],
               **{k: with_later(k, train_counts[k]) for k in TRAINING_KERNELS + F32_CONV_KERNELS},
               "make_poisson_pallas": with_later("poisson_pallas", train_counts["poisson_pallas"]),
               **{k: with_later(k, channel_counts[k]) for k in CHANNEL_KERNELS},
               **{k: les_counts[k] for k in LES_KERNELS},
               **{k: bous_counts[k] for k in TEMP_KERNELS},
-              **{k: halo_counts[k] for k in HALO_KERNELS + ("passB_sharded+levels",)},
+              **{k: halo_counts[k] for k in HALO_KERNELS + (bf["passB_sharded"],
+                                                            "passB_sharded+levels")},
               **{k: halo_les_counts[k] for k in HALO_LES_KERNELS},
               **{k: unmerged_counts[k] for k in UNMERGED_KERNELS},
-              **{k: tap_counts[k] for k in TAP_KERNELS}}
+              **{k: tap_counts[k] for k in TAP_KERNELS},
+              # the 3xTF32 forms of the plane GEMM and the fused pass B: the
+              # "highest" runs of phase 17
+              **{k: highest_counts.get(k, 0) for k in tf.values()}}
 
     table = {"kernels": []}
     for name, (source, replaces) in KERNEL_META.items():

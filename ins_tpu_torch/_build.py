@@ -60,6 +60,10 @@ _SIGNATURES = {
         [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_i64] + [_c_int] * 5 + [_c_ptr],
         _c_int,
     ),
+    "ins_plane_gemm_bf16x3": (
+        [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_i64] + [_c_int] * 5 + [_c_ptr],
+        _c_int,
+    ),
     "ins_stage_f32": _STAGE,
     "ins_stage_bf16": _STAGE,
     "ins_stage_halo_f32": (
@@ -76,7 +80,9 @@ _SIGNATURES = {
     "ins_fold_split_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_fold_combine_f32": ([_c_ptr] * 3 + [_c_i64, _c_ptr], _c_int),
     "ins_passb_fold_f32": ([_c_ptr] * 8 + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr], _c_int),
+    "ins_passb_fold_bf16x3": ([_c_ptr] * 8 + [_c_int] * 4 + [_c_f32] * 5 + [_c_ptr], _c_int),
     "ins_passb_dense_f32": ([_c_ptr] * 4 + [_c_int] * 3 + [_c_f32] * 5 + [_c_ptr], _c_int),
+    "ins_passb_dense_bf16x3": ([_c_ptr] * 4 + [_c_int] * 3 + [_c_f32] * 5 + [_c_ptr], _c_int),
     "ins_smag_f32": (
         [_c_ptr] * 5 + [_c_int] * 3 + [_c_f32] * 4 + [_c_ptr],
         _c_int,

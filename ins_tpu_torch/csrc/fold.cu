@@ -35,9 +35,24 @@
 // computes the same functions with a block's panel of columns in shared
 // memory.
 //
+// Two precision forms (BF): 3xTF32 (the "highest" projection precision)
+// and bf16x3 ("manualhigh", the JAX package's default: `_dot_h` with prec
+// None, poisson_pallas.py:68, three bf16 products hi*hi + hi*lo + lo*hi
+// of a bf16 hi/lo split, float32 sums; bf16x3.cuh).  The bf16x3 form
+// splits the panel in registers where each product reads it (so g is split
+// again before the second product, as `_dot_h` splits both operands of
+// every product), takes the basis split on the host
+// (`pack_basis_a_bf16`), runs `mma.sync.m16n8k16`, a stage's k16 steps
+// (KS / 2 of them) one chain, and keeps the eigen-scale and the combine
+// in the float32 epilogues.  Its k16 step pairs the 3xTF32 form's two k8
+// fragments, so both forms read the panel in the same pattern; its stages
+// hold half the basis bytes of K (`fold_geometry.cuh`, bf).
+//
 // What bounds it on an H100: the x products, as 3xTF32 (three TF32
-// products a multiply-add).  Folded: 2 n^4 FLOP at one level (n^4 for the
-// odd pair, n^4 for the leaf pair; 1.5 n^4 at two levels: n^4, then n^4 /
+// products a multiply-add; bf16x3: three bf16 products at the 989
+// TFLOP/s bf16 peak, so a third of the 3xTF32 form's bound there).
+// Folded: 2 n^4 FLOP at one level (n^4 for the odd pair, n^4 for the leaf
+// pair; 1.5 n^4 at two levels: n^4, then n^4 /
 // 4 each for the second odd pair and the leaf pair), 25.8 GFLOP of TF32
 // mma at 256^3, 0.052 ms at the 495 TFLOP/s dense peak (0.0568 ms with the
 // elementwise work counted at the FP32 peak, as `chip_smoke.py` `fold_ops`
@@ -108,6 +123,7 @@
 
 #include <cstdint>
 
+#include "bf16x3.cuh"         // products_bf16x3, load_split_b
 #include "convio.cuh"         // cp_async16, cp_async_commit, cp_async_wait, set_smem
 #include "fold_geometry.cuh"  // FP_*, fold_rows .. fold_smem, fold_geometry, dense_geometry
 #include "ring.cuh"           // cp_async4
@@ -185,19 +201,21 @@ __device__ __forceinline__ void fold_products(float (&part)[4], const uint32_t (
     mma_tf32(part, a_big, b[0], b[1]);
 }
 
-template <int LEVELS, int KS>
+template <int LEVELS, int KS, bool BF>
 __global__ void __launch_bounds__(FP_THREADS, 1)
 passb_fold_kernel(const __grid_constant__ FoldParams p) {
     constexpr int MT = 4;  // m16 tiles a warp
     constexpr int NG = 2 + 2 * LEVELS;  // products
     constexpr int BK = 8 * KS;          // K a stage: one chain
+    static_assert(!BF || KS % 2 == 0, "a bf16x3 stage is whole k16 steps");
+    constexpr int STEPS = BF ? KS / 2 : KS;  // k steps a stage: k8 (3xTF32) or k16 (bf16x3)
     extern __shared__ float4 smem_f4[];
     float* F = reinterpret_cast<float*>(smem_f4);  // the panel
     constexpr int HALVES = LEVELS ? 2 : 1;  // x-halves of h the first product's stages bring
     // s0: the first product's size, its operand rows per half (the
     // largest product: the geometry's m)
     const int n = p.n, nc = p.nc, pitch = nc + 8, s0 = LEVELS ? n / 2 : n;
-    const int stage_floats = fold_stage_floats(nc, KS);
+    const int stage_floats = fold_stage_floats(nc, KS, BF);
     float* ring = F + fold_panel_floats(n, s0, nc, KS);
     float* lx = ring + FP_NBUF * stage_floats;  // lam_x(k), k <= n / 2
     float* lyc = lx + n / 2 + 1;             // lam_y, lam_z of the panel's columns
@@ -240,13 +258,13 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
         if (ig < NG) {
             const Gemm G = fold_gemm<LEVELS>(ig, n);
             float* slot = ring + (qi % FP_NBUF) * stage_floats;
-            // the basis: k8 steps KS is.. of the product's m16 tiles
+            // the basis: k steps STEPS is.. of the product's m16 tiles
             // (pack_basis_a: per step ceil(size / 128) * 8 tiles, contiguous)
             const int per_ks = (G.size + 15) / 16 * (FP_ATILE / 4);  // 16-byte copies
             const int tps = (G.size + 127) / 128 * 8;
-            const float* base = p.mats[G.mat] + (size_t)is * KS * tps * FP_ATILE;
+            const float* base = p.mats[G.mat] + (size_t)is * STEPS * tps * FP_ATILE;
 #pragma unroll
-            for (int ks = 0; ks < KS; ++ks)
+            for (int ks = 0; ks < STEPS; ++ks)
                 for (int u = tid; u < per_ks; u += FP_THREADS)
                     cp_async16(slot + ks * per_ks * 4 + 4 * u,
                                base + (size_t)ks * tps * FP_ATILE + 4 * u);
@@ -305,7 +323,43 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
                 split(s * BK, min(BK, s0 - s * BK), s0);
                 __syncthreads();
             }
-            if (tv > 0) {
+            if (BF && tv > 0) {
+                const float* slot = ring + (q % FP_NBUF) * stage_floats;
+                const int k0 = G.row0 + s * BK;
+                // the panel's B fragments of every k16 step, split: (hi b0,
+                // b1, lo b0, b1) per n8 tile and step
+                uint32_t bf[4][STEPS][4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int kk = 0; kk < STEPS; ++kk)
+                        load_split_b(F + (k0 + kk * 16 + t) * pitch + wn * 32 + j * 8 + g, pitch,
+                                     bf[j][kk]);
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    if (i >= tv) break;
+                    // the basis's split A fragments of every k16 step
+                    uint32_t ah[STEPS][4], al[STEPS][4];
+#pragma unroll
+                    for (int kk = 0; kk < STEPS; ++kk) {
+                        const float* a = slot + (kk * mt + MT * wm + i) * FP_ATILE + 4 * lane;
+                        const uint4 hi = *reinterpret_cast<const uint4*>(a);
+                        const uint4 lo = *reinterpret_cast<const uint4*>(a + FP_ATILE / 2);
+                        ah[kk][0] = hi.x, ah[kk][1] = hi.y, ah[kk][2] = hi.z, ah[kk][3] = hi.w;
+                        al[kk][0] = lo.x, al[kk][1] = lo.y, al[kk][2] = lo.z, al[kk][3] = lo.w;
+                    }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        float part[4];
+                        products_bf16x3<true>(part, ah[0], al[0], bf[j][0]);
+#pragma unroll
+                        for (int kk = 1; kk < STEPS; ++kk)
+                            products_bf16x3<false>(part, ah[kk], al[kk], bf[j][kk]);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+                    }
+                }
+            } else if (tv > 0) {
                 const float* slot = ring + (q % FP_NBUF) * stage_floats;
                 const int k0 = G.row0 + s * BK;
                 // the panel's B fragments of every step, split: (big b0,
@@ -408,13 +462,60 @@ passb_fold_kernel(const __grid_constant__ FoldParams p) {
     }
 }
 
-template <int LEVELS, int KS>
+template <int LEVELS, int KS, bool BF>
 cudaError_t launch_fold(const FoldParams& p, size_t smem, cudaStream_t stream) {
-    const void* k = (const void*)passb_fold_kernel<LEVELS, KS>;
+    const void* k = (const void*)passb_fold_kernel<LEVELS, KS, BF>;
     const cudaError_t e = set_smem(k, smem);
     if (e != cudaSuccess) return e;
-    passb_fold_kernel<LEVELS, KS><<<(p.cols + p.nc - 1) / p.nc, FP_THREADS, smem, stream>>>(p);
+    passb_fold_kernel<LEVELS, KS, BF><<<(p.cols + p.nc - 1) / p.nc, FP_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <bool BF>
+int passb_fold(const float* h, float* out, const float* const (&mats)[6], int n, int ly,
+               int yoff, int levels, float dx0, float dx1, float dx2, float vol, float eps,
+               void* stream) {
+    const FoldGeometry geo = fold_geometry(n, BF);
+    if (levels < 1 || levels > 2 || n < 4 || n % (2 << levels) || ly < 1 || yoff < 0 ||
+        yoff + ly > n || geo.nc == 0)
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < 2 + 2 * levels; ++i)
+        if (mats[i] == nullptr || ((uintptr_t)mats[i] & 15)) return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)h & 15) || ((uintptr_t)out & 15)) return (int)cudaErrorInvalidValue;
+    FoldParams p{h, out, {mats[0], mats[1], mats[2], mats[3], mats[4], mats[5]}, ly * n, n, ly,
+                 yoff, geo.nc, dx0, dx1, dx2, vol, eps, 1};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (BF) {  // ks 4 or 2 (fold_geometry)
+        if (levels == 1)
+            return (int)(geo.ks == 4 ? launch_fold<1, 4, true>(p, geo.smem, s)
+                                     : launch_fold<1, 2, true>(p, geo.smem, s));
+        return (int)(geo.ks == 4 ? launch_fold<2, 4, true>(p, geo.smem, s)
+                                 : launch_fold<2, 2, true>(p, geo.smem, s));
+    }
+    if (levels == 1)
+        return (int)(geo.ks == 4   ? launch_fold<1, 4, false>(p, geo.smem, s)
+                     : geo.ks == 2 ? launch_fold<1, 2, false>(p, geo.smem, s)
+                                   : launch_fold<1, 1, false>(p, geo.smem, s));
+    return (int)(geo.ks == 4   ? launch_fold<2, 4, false>(p, geo.smem, s)
+                 : geo.ks == 2 ? launch_fold<2, 2, false>(p, geo.smem, s)
+                               : launch_fold<2, 1, false>(p, geo.smem, s));
+}
+
+template <bool BF>
+int passb_dense(const float* h, float* out, const float* vinv, const float* v, int n, int ly,
+                int yoff, float dx0, float dx1, float dx2, float vol, float eps, void* stream) {
+    const FoldGeometry geo = dense_geometry(n, BF);
+    if (n < 1 || ly < 1 || yoff < 0 || yoff + ly > n || geo.ks < 2 || vinv == nullptr ||
+        v == nullptr || ((uintptr_t)vinv & 15) || ((uintptr_t)v & 15) || ((uintptr_t)h & 3) ||
+        ((uintptr_t)out & 3))
+        return (int)cudaErrorInvalidValue;
+    const int cols = ly * n;
+    const int vec = cols % 4 == 0 && ((uintptr_t)h & 15) == 0 && ((uintptr_t)out & 15) == 0;
+    FoldParams p{h, out, {vinv, v, nullptr, nullptr, nullptr, nullptr}, cols, n, ly, yoff,
+                 geo.nc, dx0, dx1, dx2, vol, eps, vec};
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)(geo.ks == 4 ? launch_fold<0, 4, BF>(p, geo.smem, s)
+                             : launch_fold<0, 2, BF>(p, geo.smem, s));
 }
 
 }  // namespace
@@ -429,24 +530,19 @@ extern "C" int ins_passb_fold_f32(const float* h, float* out, const float* m0, c
                                   const float* m5, int n, int ly, int yoff, int levels,
                                   float dx0, float dx1, float dx2, float vol, float eps,
                                   void* stream) {
-    const float* mats[6] = {m0, m1, m2, m3, m4, m5};
-    const FoldGeometry geo = fold_geometry(n);
-    if (levels < 1 || levels > 2 || n < 4 || n % (2 << levels) || ly < 1 || yoff < 0 ||
-        yoff + ly > n || geo.nc == 0)
-        return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < 2 + 2 * levels; ++i)
-        if (mats[i] == nullptr || ((uintptr_t)mats[i] & 15)) return (int)cudaErrorInvalidValue;
-    if (((uintptr_t)h & 15) || ((uintptr_t)out & 15)) return (int)cudaErrorInvalidValue;
-    FoldParams p{h, out, {m0, m1, m2, m3, m4, m5}, ly * n, n, ly, yoff, geo.nc,
-                 dx0, dx1, dx2, vol, eps, 1};
-    cudaStream_t s = (cudaStream_t)stream;
-    if (levels == 1)
-        return (int)(geo.ks == 4   ? launch_fold<1, 4>(p, geo.smem, s)
-                     : geo.ks == 2 ? launch_fold<1, 2>(p, geo.smem, s)
-                                   : launch_fold<1, 1>(p, geo.smem, s));
-    return (int)(geo.ks == 4   ? launch_fold<2, 4>(p, geo.smem, s)
-                 : geo.ks == 2 ? launch_fold<2, 2>(p, geo.smem, s)
-                               : launch_fold<2, 1>(p, geo.smem, s));
+    const float* const mats[6] = {m0, m1, m2, m3, m4, m5};
+    return passb_fold<false>(h, out, mats, n, ly, yoff, levels, dx0, dx1, dx2, vol, eps, stream);
+}
+
+// The same in bf16x3 (the "manualhigh" precision): the fold matrices split
+// as `pack_basis_a_bf16` lays them out.
+extern "C" int ins_passb_fold_bf16x3(const float* h, float* out, const float* m0,
+                                     const float* m1, const float* m2, const float* m3,
+                                     const float* m4, const float* m5, int n, int ly, int yoff,
+                                     int levels, float dx0, float dx1, float dx2, float vol,
+                                     float eps, void* stream) {
+    const float* const mats[6] = {m0, m1, m2, m3, m4, m5};
+    return passb_fold<true>(h, out, mats, n, ly, yoff, levels, dx0, dx1, dx2, vol, eps, stream);
 }
 
 // qhat = the dense pass B of h: (n, ly, n) float32 rows, out the same;
@@ -457,15 +553,13 @@ extern "C" int ins_passb_fold_f32(const float* h, float* out, const float* m0, c
 extern "C" int ins_passb_dense_f32(const float* h, float* out, const float* vinv,
                                    const float* v, int n, int ly, int yoff, float dx0,
                                    float dx1, float dx2, float vol, float eps, void* stream) {
-    const FoldGeometry geo = dense_geometry(n);
-    if (n < 1 || ly < 1 || yoff < 0 || yoff + ly > n || geo.ks < 2 || vinv == nullptr ||
-        v == nullptr || ((uintptr_t)vinv & 15) || ((uintptr_t)v & 15) || ((uintptr_t)h & 3) ||
-        ((uintptr_t)out & 3))
-        return (int)cudaErrorInvalidValue;
-    const int cols = ly * n;
-    const int vec = cols % 4 == 0 && ((uintptr_t)h & 15) == 0 && ((uintptr_t)out & 15) == 0;
-    FoldParams p{h, out, {vinv, v, nullptr, nullptr, nullptr, nullptr}, cols, n, ly, yoff,
-                 geo.nc, dx0, dx1, dx2, vol, eps, vec};
-    cudaStream_t s = (cudaStream_t)stream;
-    return (int)(geo.ks == 4 ? launch_fold<0, 4>(p, geo.smem, s) : launch_fold<0, 2>(p, geo.smem, s));
+    return passb_dense<false>(h, out, vinv, v, n, ly, yoff, dx0, dx1, dx2, vol, eps, stream);
+}
+
+// The same in bf16x3 (the "manualhigh" precision): vinv and v split as
+// `pack_basis_a_bf16` lays them out.
+extern "C" int ins_passb_dense_bf16x3(const float* h, float* out, const float* vinv,
+                                      const float* v, int n, int ly, int yoff, float dx0,
+                                      float dx1, float dx2, float vol, float eps, void* stream) {
+    return passb_dense<true>(h, out, vinv, v, n, ly, yoff, dx0, dx1, dx2, vol, eps, stream);
 }

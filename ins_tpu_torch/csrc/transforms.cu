@@ -1,6 +1,8 @@
 // Plane-transform GEMM: one strided, batched float32 matrix product on the
-// tensor cores in 3xTF32 (`mma.sync.m16n8k8`, TF32 operands, float32
-// sums), between a field and an eigen-basis matrix:
+// tensor cores, between a field and an eigen-basis matrix, in one of two
+// forms: 3xTF32 (`mma.sync.m16n8k8`, TF32 operands, float32 sums; the
+// "highest" projection precision) or bf16x3 (`mma.sync.m16n8k16`, bf16
+// operands, float32 sums; "manualhigh", the JAX package's default):
 //
 //     field as A:   C[b] = F[b] @ W    (F: M x K, W: K x N)
 //     field as B:   C[b] = W @ F[b]    (W: M x K, F: K x N)
@@ -17,20 +19,29 @@
 // `_dot_h`, ins_tpu/ops/poisson_pallas.py:68) that `pcmsd_hat_3d`,
 // `momentum_stage_divhat_3d`, `pressure_correct_qhat_3d` and pass B run
 // on the MXU.  There "highest" is f32 via six bf16 passes and
-// "manualhigh" three; here both precision names get the float32 class.
+// "manualhigh" three bf16 passes (hi*hi + hi*lo + lo*hi of a bf16 hi/lo
+// split, float32 sums); here "highest" is the 3xTF32 form (the float32
+// class) and "manualhigh" the bf16x3 form, the same three bf16 products
+// (bf16x3.cuh).
 //
-// Accuracy: each operand is split into a TF32 big and small part and a
-// product is small*big + big*small + big*big (tf32.cuh).  The basis is
+// Accuracy (3xTF32): each operand is split into a TF32 big and small part
+// and a product is small*big + big*small + big*big (tf32.cuh).  The basis is
 // constant per projection, so it comes split from the host, in fragment
 // order (`ops/transforms.py` `pack_basis_a` / `pack_basis_b`); the field
 // is split in registers after its fragments are read.  The tensor cores'
 // float32 sums truncate, so a chain holds one stage's four k8 steps
 // (twelve mma, 32 of K) before it is added to a float32 accumulator (a CPU
 // emulation of truncating chains, tests/test_torch_transforms_tf32.py,
-// keeps that within the float32 class at K = 256; one chain over all of
-// K is not).  Every output element sums its K in the same order whatever
-// M, N or the batch (no split-K), so a shard's rows come out as the
-// cube's.
+// keeps that within the float32 class at K = 256 and 512; one chain over
+// all of K is not).  The bf16x3 form splits the same way into bf16 hi and
+// lo parts (the basis on the host, `pack_basis_a_bf16` /
+// `pack_basis_b_bf16`, the field in registers) and runs a stage's two k16
+// steps (six mma, 32 of K) as one chain (the same emulation keeps that
+// within 1e-6 of the exact sum of its products at K = 512); its k16 step
+// pairs the 3xTF32 form's two k8 fragments (bf16x3.cuh), so it stages,
+// loads and stores as that form does, with half the basis bytes a stage.
+// Every output element sums its K in the same order whatever M, N or the
+// batch (no split-K), so a shard's rows come out as the cube's.
 //
 // What bounds it on an H100: at n = 256 each transform is 2 n^4 = 8.6
 // GFLOP, so 25.8 GFLOP of TF32 mma (0.052 ms at the 495 TFLOP/s dense TF32
@@ -61,8 +72,9 @@
 
 #include <cstdint>
 
-#include "convio.cuh"  // cp.async, set_smem
-#include "tf32.cuh"    // tf32_rna, mma_tf32, mma_tf32_first, load_split
+#include "bf16x3.cuh"  // split_bf16x2, products_bf16x3, pair_split_a, load_split_b
+#include "convio.cuh"   // cp.async, set_smem, ldsm_x4
+#include "tf32.cuh"     // tf32_rna, mma_tf32, mma_tf32_first, load_split
 
 namespace {
 
@@ -76,7 +88,8 @@ constexpr int FA_PITCH = PT_BK + 4;  // field as A: (128 rows, 32 k), rows 36 fl
 constexpr int FB_PITCH = PT_BN + 8;  // field as B: (32 k, 128 columns), rows 136 floats apart
 // a stage's split basis fragments: as B, 4 k8 steps x 16 n8 tiles x 32
 // lanes x (big b0, b1, small b0, b1); as A, 4 k8 steps x 8 m16 tiles x
-// (32 lanes x big a0..a3, 32 lanes x small a0..a3)
+// (32 lanes x big a0..a3, 32 lanes x small a0..a3); bf16x3: the same per
+// k16 step (2 a stage), each word two bf16 values
 constexpr int B_TILE = 128;          // floats of a split B fragment
 constexpr int A_TILE = 256;          // floats of a split A fragment
 constexpr int BASIS_KS = PT_BN / 8 * B_TILE;  // floats a k8 step
@@ -87,9 +100,15 @@ __host__ __device__ constexpr int pt_field_floats() {
     return FA ? PT_BM * FA_PITCH : PT_BK * FB_PITCH;
 }
 
-template <bool FA>
+// k steps a stage: 4 k8 (3xTF32) or 2 k16 (bf16x3)
+template <bool BF>
+__host__ __device__ constexpr int pt_steps() {
+    return BF ? PT_KS / 2 : PT_KS;
+}
+
+template <bool FA, bool BF>
 __host__ __device__ constexpr int pt_stage_floats() {
-    return pt_field_floats<FA>() + PT_KS * BASIS_KS;
+    return pt_field_floats<FA>() + pt_steps<BF>() * BASIS_KS;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -99,6 +118,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 struct PlaneGemmParams {
     const float* field;  // field as A: (M, K); as B: (K, N); batch stride sf
     const float* basis;  // split fragments: as B (Kp/8, Np/8, 32, 4), as A (Kp/8, Mp/16, 2, 32, 4)
+                         // (bf16x3: Kp/16 steps of the same, two bf16 a word)
     float* c;            // (M, N), batch stride sc
     long long sf, sc;
     int M, N, K;
@@ -119,11 +139,12 @@ __device__ __forceinline__ void products(float (&part)[4], const uint32_t (&a_bi
     mma_tf32(part, a_big, bb0, bb1);
 }
 
-template <bool FA, bool VEC>
+template <bool FA, bool VEC, bool BF>
 __global__ void __launch_bounds__(PT_THREADS, 1)
 plane_gemm_tf32_kernel(const __grid_constant__ PlaneGemmParams p) {
     constexpr int FIELD = pt_field_floats<FA>();
-    constexpr int STAGE = pt_stage_floats<FA>();
+    constexpr int STAGE = pt_stage_floats<FA, BF>();
+    constexpr int STEPS = pt_steps<BF>();
     constexpr int MT = FA ? 2 : 4;  // m16 tiles a warp
     constexpr int NT = FA ? 8 : 4;  // n8 tiles a warp
     extern __shared__ float4 smem_f4[];
@@ -170,13 +191,13 @@ plane_gemm_tf32_kernel(const __grid_constant__ PlaneGemmParams p) {
                     *d = 0.0f;
                 }
             }
-            // the basis fragments of the stage's k8 steps (zero-padded on
+            // the basis fragments of the stage's k steps (zero-padded on
             // the host): per step the block's tiles, contiguous
             constexpr int PER = BASIS_KS / 4 / PT_THREADS;  // 16-byte copies a step a thread
-            const float* b = p.basis + ((size_t)s * PT_KS * p.tiles + tile0) * TILE + 4 * tid;
+            const float* b = p.basis + ((size_t)s * STEPS * p.tiles + tile0) * TILE + 4 * tid;
             const size_t kstep = (size_t)p.tiles * TILE;
 #pragma unroll
-            for (int i = 0; i < PT_KS * PER; ++i)
+            for (int i = 0; i < STEPS * PER; ++i)
                 cp_async16(s_b + (i / PER) * BASIS_KS + (i % PER) * 4 * PT_THREADS + 4 * tid,
                            b + (i / PER) * kstep + (i % PER) * 4 * PT_THREADS);
         }
@@ -204,7 +225,74 @@ plane_gemm_tf32_kernel(const __grid_constant__ PlaneGemmParams p) {
         const float* s_b = s_f + FIELD;
         // a chain: one tile's products over the stage's PT_KS k8 steps,
         // then one float32 add into its accumulator
-        if (FA) {
+        if (FA && BF) {
+            // the field's A fragments of every k16 step (the k8 steps'
+            // ldmatrix loads, paired), split into bf16 hi and lo
+            uint32_t ah[MT][STEPS][4], al[MT][STEPS][4];
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int kk = 0; kk < STEPS; ++kk) {
+                    uint32_t s0[4], s1[4];
+                    const float* a = s_f + (wm * 32 + i * 16 + (lane & 15)) * FA_PITCH +
+                                     kk * 16 + (lane >> 4) * 4;
+                    ldsm_x4(s0, reinterpret_cast<const bf16*>(a));
+                    ldsm_x4(s1, reinterpret_cast<const bf16*>(a + 8));
+                    pair_split_a(s0, s1, ah[i][kk], al[i][kk]);
+                }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                uint32_t v[STEPS][4];
+#pragma unroll
+                for (int kk = 0; kk < STEPS; ++kk) {
+                    const uint4 w = *reinterpret_cast<const uint4*>(
+                        s_b + kk * BASIS_KS + (wn * NT + j) * B_TILE + 4 * lane);
+                    v[kk][0] = w.x, v[kk][1] = w.y, v[kk][2] = w.z, v[kk][3] = w.w;
+                }
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    float part[4];
+                    products_bf16x3<true>(part, ah[i][0], al[i][0], v[0]);
+#pragma unroll
+                    for (int kk = 1; kk < STEPS; ++kk)
+                        products_bf16x3<false>(part, ah[i][kk], al[i][kk], v[kk]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+                }
+            }
+        } else if (BF) {
+            // the field's B fragments of every k16 step, split: (hi b0,
+            // b1, lo b0, b1) per n8 tile and step
+            uint32_t bf[NT][STEPS][4];
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int kk = 0; kk < STEPS; ++kk)
+                    load_split_b(s_f + (kk * 16 + t) * FB_PITCH + wn * 32 + j * 8 + g, FB_PITCH,
+                                 bf[j][kk]);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                uint32_t ah[STEPS][4], al[STEPS][4];
+#pragma unroll
+                for (int kk = 0; kk < STEPS; ++kk) {
+                    const float* a = s_b + kk * BASIS_KS + (wm * MT + i) * A_TILE + 4 * lane;
+                    const uint4 hi = *reinterpret_cast<const uint4*>(a);
+                    const uint4 lo = *reinterpret_cast<const uint4*>(a + A_TILE / 2);
+                    ah[kk][0] = hi.x, ah[kk][1] = hi.y, ah[kk][2] = hi.z, ah[kk][3] = hi.w;
+                    al[kk][0] = lo.x, al[kk][1] = lo.y, al[kk][2] = lo.z, al[kk][3] = lo.w;
+                }
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    float part[4];
+                    products_bf16x3<true>(part, ah[0], al[0], bf[j][0]);
+#pragma unroll
+                    for (int kk = 1; kk < STEPS; ++kk)
+                        products_bf16x3<false>(part, ah[kk], al[kk], bf[j][kk]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+                }
+            }
+        } else if (FA) {
             // the field's A fragments of every step, split
             uint32_t ab[MT][PT_KS][4], as[MT][PT_KS][4];
 #pragma unroll
@@ -298,14 +386,34 @@ plane_gemm_tf32_kernel(const __grid_constant__ PlaneGemmParams p) {
         }
 }
 
-template <bool FA, bool VEC>
+template <bool FA, bool VEC, bool BF>
 cudaError_t launch_plane_gemm(const PlaneGemmParams& p, int batch, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * PT_NBUF * pt_stage_floats<FA>();
-    const cudaError_t e = set_smem((const void*)plane_gemm_tf32_kernel<FA, VEC>, smem);
+    const size_t smem = sizeof(float) * PT_NBUF * pt_stage_floats<FA, BF>();
+    const cudaError_t e = set_smem((const void*)plane_gemm_tf32_kernel<FA, VEC, BF>, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((p.N + PT_BN - 1) / PT_BN, (p.M + PT_BM - 1) / PT_BM, batch);
-    plane_gemm_tf32_kernel<FA, VEC><<<grid, PT_THREADS, smem, stream>>>(p);
+    plane_gemm_tf32_kernel<FA, VEC, BF><<<grid, PT_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <bool BF>
+int plane_gemm(const float* field, long long sf, const float* basis, float* c, long long sc,
+               int M, int N, int K, int field_is_a, int batch, void* stream) {
+    if (M < 1 || N < 1 || K < 1 || batch < 1 || batch > 65535 ||
+        (M + PT_BM - 1) / PT_BM > 65535 || ((uintptr_t)basis & 15))
+        return (int)cudaErrorInvalidValue;
+    const PlaneGemmParams p{
+        field, basis, c, sf, sc, M, N, K,
+        field_is_a ? (N + PT_BN - 1) / PT_BN * (PT_BN / 8) : (M + PT_BM - 1) / PT_BM * (PT_BM / 16),
+        N % 2 == 0 && sc % 2 == 0 && ((uintptr_t)c & 7) == 0};
+    // 16-byte copies where every row of the field starts 16-byte aligned
+    const bool vec = (field_is_a ? K : N) % 4 == 0 && sf % 4 == 0 && ((uintptr_t)field & 15) == 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (field_is_a)
+        return (int)(vec ? launch_plane_gemm<true, true, BF>(p, batch, s)
+                         : launch_plane_gemm<true, false, BF>(p, batch, s));
+    return (int)(vec ? launch_plane_gemm<false, true, BF>(p, batch, s)
+                     : launch_plane_gemm<false, false, BF>(p, batch, s));
 }
 
 }  // namespace
@@ -319,21 +427,17 @@ cudaError_t launch_plane_gemm(const PlaneGemmParams& p, int batch, cudaStream_t 
 extern "C" int ins_plane_gemm_tf32(const float* field, long long sf, const float* basis,
                                    float* c, long long sc, int M, int N, int K, int field_is_a,
                                    int batch, void* stream) {
-    if (M < 1 || N < 1 || K < 1 || batch < 1 || batch > 65535 ||
-        (M + PT_BM - 1) / PT_BM > 65535 || ((uintptr_t)basis & 15))
-        return (int)cudaErrorInvalidValue;
-    const PlaneGemmParams p{
-        field, basis, c, sf, sc, M, N, K,
-        field_is_a ? (N + PT_BN - 1) / PT_BN * (PT_BN / 8) : (M + PT_BM - 1) / PT_BM * (PT_BM / 16),
-        N % 2 == 0 && sc % 2 == 0 && ((uintptr_t)c & 7) == 0};
-    // 16-byte copies where every row of the field starts 16-byte aligned
-    const bool vec = (field_is_a ? K : N) % 4 == 0 && sf % 4 == 0 && ((uintptr_t)field & 15) == 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (field_is_a)
-        return (int)(vec ? launch_plane_gemm<true, true>(p, batch, s)
-                         : launch_plane_gemm<true, false>(p, batch, s));
-    return (int)(vec ? launch_plane_gemm<false, true>(p, batch, s)
-                     : launch_plane_gemm<false, false>(p, batch, s));
+    return plane_gemm<false>(field, sf, basis, c, sc, M, N, K, field_is_a, batch, stream);
+}
+
+// The same product in bf16x3 (the "manualhigh" precision): W split into
+// bf16 hi and lo fragments as `ops/transforms.py` `pack_basis_b_bf16`
+// (field as A: (Kp/16, Np/8, 32, 4) words) or `pack_basis_a_bf16` (field
+// as B: (Kp/16, Mp/16, 2, 32, 4)) lays it out, each word two bf16 values.
+extern "C" int ins_plane_gemm_bf16x3(const float* field, long long sf, const float* basis,
+                                     float* c, long long sc, int M, int N, int K, int field_is_a,
+                                     int batch, void* stream) {
+    return plane_gemm<true>(field, sf, basis, c, sc, M, N, K, field_is_a, batch, stream);
 }
 
 extern "C" const char* ins_error_string(int err) {

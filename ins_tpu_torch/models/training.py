@@ -175,11 +175,30 @@ def create_relerr_prior(f, x, y):
     return relerr
 
 
-def _dof_slice(setup):
-    """Every component sliced by ``Iu[0]``, the first component's DOF box
-    (the JAX package's slice; on a wall-bounded grid the components'
-    boxes differ, see ROADMAP queue 3)."""
-    return (slice(None),) + tuple(slice(s, e) for (s, e) in setup.grid.Iu[0])
+def _dof_boxes(setup, shift=0):
+    """Each component's DOF box ``Iu[a]`` (shifted by ``shift``: -1 in the
+    interior layout), or one box for all components where they are equal
+    (periodic grids): ``[(a, slices)]`` with a None for all components.
+    The JAX package slices every component by ``Iu[0]``, which on a
+    wall-bounded grid cuts u_y with u_x's box (ROADMAP queue 3); where the
+    boxes are equal this is its slice, bit for bit."""
+    boxes = [tuple(slice(s + shift, e + shift) for (s, e) in box) for box in setup.grid.Iu]
+    if all(b == boxes[0] for b in boxes):
+        return [(slice(None), boxes[0])]
+    return list(enumerate(boxes))
+
+
+def _boxed_sq(x, boxes):
+    """The sum of squares of ``x`` over the DOF boxes (`_dof_boxes`)."""
+    return sum(torch.sum(x[(a, *b)] ** 2) for a, b in boxes)
+
+
+def _boxed_err(got, got_boxes, ref, boxes):
+    """sum |got - ref|² / sum |ref|² over the DOF boxes, got's own (its
+    layout) beside ref's."""
+    num = sum(torch.sum((got[(a, *gb)] - ref[(a, *b)]) ** 2)
+              for (a, gb), (_, b) in zip(got_boxes, boxes))
+    return num / _boxed_sq(ref, boxes)
 
 
 def _unrolled_errors(u, t, theta, *, setup, method, psolver, nsubstep, sqrt_each,
@@ -190,18 +209,18 @@ def _unrolled_errors(u, t, theta, *, setup, method, psolver, nsubstep, sqrt_each
     per-op kernels' plain versions (fast path)."""
     u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
     ts = [float(v) for v in (t.tolist() if torch.is_tensor(t) else np.asarray(t))]
-    sl = _dof_slice(setup)
+    boxes = _dof_boxes(setup)
     if fastpath_applicable(setup, method, psolver):
         step = make_fast_timestep(setup, method, differentiable=True, plain=plain)
         # the interior layout: the ghosted DOF box shifts down by the
         # one-cell ghost border
-        sl_state = (slice(None),) + tuple(slice(s.start - 1, s.stop - 1) for s in sl[1:])
+        boxes_state = _dof_boxes(setup, -1)
         ustart = strip_ghosts(u[0])
     else:
         def step(state, dt, theta):
             return timestep(method, state, dt, setup=setup, psolver=psolver, theta=theta)
 
-        sl_state = sl
+        boxes_state = boxes
         ustart = u[0]
     if remat:
         def one_step(state, dt, theta):
@@ -214,8 +233,7 @@ def _unrolled_errors(u, t, theta, *, setup, method, psolver, nsubstep, sqrt_each
         dt = (ts[it] - ts[it - 1]) / nsubstep
         for _ in range(nsubstep):
             state = one_step(state, dt, theta)
-        ref = u[it][sl]
-        err = torch.sum((state.u[sl_state] - ref) ** 2) / torch.sum(ref**2)
+        err = _boxed_err(state.u, boxes_state, u[it], boxes)
         total = total + (torch.sqrt(err) if sqrt_each else err)
     return total / (len(ts) - 1)
 
@@ -261,8 +279,8 @@ def create_relerr_post(*, data, setup, method, psolver, closure_model, nsubstep=
     return relerr_post
 
 
-def _relerr(got, ref, sl):
-    return torch.sqrt(torch.sum((got[sl] - ref[sl]) ** 2) / torch.sum(ref[sl] ** 2))
+def _relerr(got, ref, boxes):
+    return torch.sqrt(_boxed_err(got, boxes, ref, boxes))
 
 
 def create_relerr_symmetry_prior(*, u, setup, g=1):
@@ -271,7 +289,7 @@ def create_relerr_symmetry_prior(*, u, setup, g=1):
     quarter turns), averaged over the ghosted fields ``u``
     ``(nsample, 2, *N)``."""
     closure = setup.closure_model
-    sl = _dof_slice(setup)
+    boxes = _dof_boxes(setup)
     u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
 
     def err(theta):
@@ -279,7 +297,7 @@ def create_relerr_symmetry_prior(*, u, setup, g=1):
             total = 0.0
             for ui in u:
                 cr = closure(rot2stag(ui, g), theta)
-                total = total + _relerr(rot2stag(closure(ui, theta), g), cr, sl)
+                total = total + _relerr(rot2stag(closure(ui, theta), g), cr, boxes)
             return total / u.shape[0]
 
     return err
@@ -291,7 +309,7 @@ def create_relerr_symmetry_post(*, u, setup, psolver, method=None, dt, nstep, g=
     after each step against the second, averaged over the steps."""
     if method is None:
         method = RK44()
-    sl = _dof_slice(setup)
+    boxes = _dof_boxes(setup)
     u = torch.as_tensor(u, dtype=setup.dtype, device=setup.device)
 
     def err(theta):
@@ -302,7 +320,7 @@ def create_relerr_symmetry_post(*, u, setup, psolver, method=None, dt, nstep, g=
             for _ in range(nstep):
                 s1 = timestep(method, s1, dt, setup=setup, psolver=psolver, theta=theta)
                 s2 = timestep(method, s2, dt, setup=setup, psolver=psolver, theta=theta)
-                total = total + _relerr(s2.u, rot2stag(s1.u, g), sl)
+                total = total + _relerr(s2.u, rot2stag(s1.u, g), boxes)
             return total / nstep
 
     return err

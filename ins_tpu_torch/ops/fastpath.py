@@ -41,8 +41,9 @@ Four chains:
   forward, roll-graph adjoint backward); the Smagorinsky force goes
   through `make_smag_force_vjp`, differentiable in u and θ.  On the card
   the Poisson solve is the 3-pass `make_poisson_pallas` on a cube of at
-  least `POISSON_PALLAS_MIN_N` cells a side when the chain is not
-  differentiated, else the eigen-matmul `make_poisson_mm` (autograd
+  least `poisson_pallas_min_n(projection_precision)` cells a side
+  (`POISSON_PALLAS_MIN_N`, `POISSON_PALLAS_MIN_N_BF16X3`) when the chain
+  is not differentiated, else the eigen-matmul `make_poisson_mm` (autograd
   differentiates it natively); on the CPU it is `torch.fft`.
 - **The roll twin** (2-D, non-cubes, 2-D with a closure, and a tableau
   the two fused chains do not take: one whose rows read earlier k's, with
@@ -91,6 +92,7 @@ from .diffkernels import (
 from .eddyviscosity import smagorinsky_natural_interior, theta_tensor
 from .poisson_kernels import make_fused_projection, make_poisson_pallas
 from .pressure import _spectral_solve, project_periodic, uniform_dxs
+from .transforms import check_precision
 from .operators import applybodyforce
 from .temperature import add_buoyancy, temp_rhs_roll
 
@@ -131,6 +133,19 @@ class HatState(NamedTuple):
 # 3-pass kernels at 128³ (0.1043 against 0.1900) and 256³ (0.8814 against
 # 1.8105).
 POISSON_PALLAS_MIN_N = 128
+# The same gate for the bf16x3 form ("manualhigh"), from `solve_gate_times`
+# in that form (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6), device ms a
+# solve, 3-pass kernels | contractions: 64³ 0.0384 | 0.0439, 128³ 0.0744 |
+# 0.1905, 256³ 0.6086 | 1.8301 (3xTF32 in the same run: 64³ 0.0458 |
+# 0.0427).  Below 64³ not measured.
+POISSON_PALLAS_MIN_N_BF16X3 = 64
+
+
+def poisson_pallas_min_n(projection_precision):
+    """The smallest cube extent whose per-op chain solves Poisson with the
+    3-pass kernels on the card, in ``projection_precision``'s form."""
+    return (POISSON_PALLAS_MIN_N_BF16X3 if check_precision(projection_precision) == "manualhigh"
+            else POISSON_PALLAS_MIN_N)
 
 
 def fastpath_applicable(setup, method, psolver):
@@ -550,7 +565,8 @@ def make_fast_timestep(setup, method, *, differentiable=False,
     if setup.device.type == "cuda":
         # the 3-pass solve of hand kernels has no adjoint: a differentiated
         # chain contracts with the eigen-matrices, as the JAX package does
-        if (D == 3 and len(set(g.Np)) == 1 and g.Np[0] >= POISSON_PALLAS_MIN_N
+        if (D == 3 and len(set(g.Np)) == 1
+                and g.Np[0] >= poisson_pallas_min_n(projection_precision)
                 and not differentiable):
             solve_p = make_poisson_pallas(g.Np, dxs, setup.dtype, precision=projection_precision,
                                           device=setup.device, plain=plain)

@@ -31,6 +31,14 @@ KERNELS = (
     "momentum_stage_divhat_3d",
     "passB",
     "passB_fold",
+    # the same under projection_precision "manualhigh" (the JAX package's
+    # default): the plane GEMM and the fused pass B in bf16x3 (three bf16
+    # products a multiply-add); the keys above are their 3xTF32 forms
+    # ("highest")
+    "plane_transform+bf16x3",
+    "passB+bf16x3",
+    "passB_fold+bf16x3",
+    "passB_sharded+bf16x3",
     # the folded pass B's level route above `FOLD_FUSED_MAX_N` (cube, shard)
     "passB_fold+levels",
     "passB_sharded+levels",

@@ -28,7 +28,8 @@ entry picks the panel width and the ring depth from n, and refuses n >
 recursion `_fold_levels` of x-products (`csrc/transforms.cu`) around
 `csrc/poisson.cu`'s split, eigen-scale and combine kernels, which has no
 size limit.  The dense pass B (n % 4 != 0) routes the same way
-(`dense_route`): up to `DENSE_FUSED_MAX_N` one launch of the same
+(`dense_route`): up to `DENSE_FUSED_MAX_N` (`DENSE_FUSED_MAX_N_BF16X3`
+in the bf16x3 form) one launch of the same
 kernel with no fold level (the full-size x-products, the eigen-scale in
 the first one's epilogue), above it the GEMM route (launch keys
 ``+gemm``): x-products around the eigen-scale kernel, three launches, no
@@ -38,6 +39,19 @@ size limit.  On CPU tensors the wrappers run the plain versions
 plain versions on CPU tensors too: no wrapper sends them one, but the
 CPU tests drive the route itself (`_fold_levels`) through them against
 the JAX package.
+
+The precision contract is `transforms.py`'s: the projection's
+``precision`` ("manualhigh", the default as in the JAX package, or
+"highest") picks the form of every x product (pass B's and the 3-pass
+solve's z/y ones): on float32 operands "manualhigh" is the JAX package's
+3-pass bf16 class (`_dot_h` with prec None: hi·hi + hi·lo + lo·hi of a
+bf16 hi/lo split, float32 sums; on the card the bf16x3 forms of
+`fold.cu` and `transforms.cu`, launch keys ``+bf16x3``) and "highest" the
+float32 class (3xTF32 on the card, the keys without it); float64
+operands get the exact product under both names.  The eigen-scale, the
+split and the combine are float32 elementwise under both.  The
+projection splits its basis matrices once, for its precision, when it is
+built (`transforms.split_basis`).
 
 `make_passB_sharded` is the same pass B on a shard's (n, ly, n) y-slice
 of an x-slab mesh (`parallel/halo.py`), whose eigen-scale takes the
@@ -67,13 +81,16 @@ from .launches import (
     note_plain,
 )
 from .transforms import (
-    split_basis, x_transform, x_transform_plain, yz_transform, yz_transform_plain,
+    check_precision, split_basis, x_transform, x_transform_plain, yz_transform,
+    yz_transform_plain,
 )
 
 __all__ = [
     "FOLD_FUSED_MAX_N",
+    "fused_key",
     "fold_route",
     "DENSE_FUSED_MAX_N",
+    "DENSE_FUSED_MAX_N_BF16X3",
     "dense_route",
     "poisson_eigen_consts",
     "fold_levels_default",
@@ -104,6 +121,18 @@ __all__ = [
 FOLD_FUSED_MAX_N = 512
 
 
+def _prec(proj):
+    """A projection dict's precision ("manualhigh" where a hand-built dict
+    names none, as `make_fused_projection`'s default)."""
+    return proj.get("precision", "manualhigh")
+
+
+def fused_key(name, precision):
+    """The launch key of the fused pass B ``name`` ("passB", "passB_fold",
+    "passB_sharded") under ``precision``: "+bf16x3" for "manualhigh"."""
+    return name + ("+bf16x3" if check_precision(precision) == "manualhigh" else "")
+
+
 def fold_route(n):
     """The folded pass B's route on the card at x extent n: ``"fused"``
     (one `fold.cu` launch) up to `FOLD_FUSED_MAX_N`, else ``"levels"``."""
@@ -122,12 +151,30 @@ def fold_route(n):
 # (up to n = 512) so that every `chip_smoke.py` run times both routes
 # above the gate and fails if the gate picks the slower one.
 DENSE_FUSED_MAX_N = 256
+# The same gate for the bf16x3 form ("manualhigh"), set from both routes
+# timed in turns in that form (`chip_smoke.py` `dense_gate_times`, NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6), ms a call, fused | GEMM route: 250³
+# 0.2752 | 0.3488; (250, 125, 250) 0.1762 | 0.2189; 258³ 0.4805 | 0.4990;
+# (258, 129, 258) 0.2758 | 0.3058; 322³ 1.0275 | 0.9118; (322, 161, 322)
+# 0.5790 | 0.5601; 382³ 1.5764 | 1.4055; (382, 191, 382) 0.8777 | 0.8332;
+# 510³ 3.7738 | 3.9148; (510, 255, 510) 2.0971 | 2.3274.  Its stages hold
+# half the basis bytes of K, so above 256 it keeps stages of 32 of K
+# (`dense_geometry(n, true)`) where the 3xTF32 form drops to 16, and it
+# still wins at 258; from 322 the GEMM route wins, until it loses again
+# at 510 (3.6 % on the cube, within the check's 5 %; 10 % on the shard).
+# One threshold cannot follow that; this one is where the fused kernel
+# first stops winning.
+DENSE_FUSED_MAX_N_BF16X3 = 258
 
 
-def dense_route(n):
-    """The dense pass B's route on the card at x extent n: ``"fused"``
-    (one `fold.cu` launch) up to `DENSE_FUSED_MAX_N`, else ``"gemm"``."""
-    return "fused" if n <= DENSE_FUSED_MAX_N else "gemm"
+def dense_route(n, precision="highest"):
+    """The dense pass B's route on the card at x extent n in
+    ``precision``'s form: ``"fused"`` (one `fold.cu` launch) up to
+    `DENSE_FUSED_MAX_N` (3xTF32, "highest") or `DENSE_FUSED_MAX_N_BF16X3`
+    (bf16x3, "manualhigh"), else ``"gemm"``."""
+    gate = (DENSE_FUSED_MAX_N_BF16X3 if check_precision(precision) == "manualhigh"
+            else DENSE_FUSED_MAX_N)
+    return "fused" if n <= gate else "gemm"
 
 
 def _pin_eps(Np, dxs):
@@ -228,39 +275,42 @@ def _odd_rows(r):
 
 
 def _dense_plain(h, proj, yoff=0):
+    prec = _prec(proj)
     r = torch.arange(h.shape[0], device=h.device)
-    g = _scale_plain(x_transform_plain(proj["Vinv"], h), _ceil_half(r), proj, yoff)
-    return x_transform_plain(proj["V"], g)
+    g = _scale_plain(x_transform_plain(proj["Vinv"], h, prec), _ceil_half(r), proj, yoff)
+    return x_transform_plain(proj["V"], g, prec)
 
 
 def passB_plain(h, proj):
-    """Plain PyTorch pass B: einsum x-transforms and the closed-form scale."""
-    note_plain("passB", h)
+    """Plain PyTorch pass B: the x-transforms in the projection's precision
+    and the closed-form scale."""
+    note_plain(fused_key("passB", _prec(proj)), h)
     return _dense_plain(h, proj)
 
 
 def _fold_plain(hb, proj, lvl, kmul, yoff=0):
     """The recursion of `_passB_fold_body` (poisson_pallas.py:136)."""
-    mats, levels = proj["fold_mats"], proj["fold_levels"]
+    mats, levels, prec = proj["fold_mats"], proj["fold_levels"], _prec(proj)
     nn = hb.shape[0]
     r = torch.arange(nn, device=hb.device)
     if lvl == levels:
-        g = _scale_plain(x_transform_plain(mats[2 * levels], hb), kmul * _ceil_half(r), proj,
-                         yoff)
-        return x_transform_plain(mats[2 * levels + 1], g)
+        g = _scale_plain(x_transform_plain(mats[2 * levels], hb, prec), kmul * _ceil_half(r),
+                         proj, yoff)
+        return x_transform_plain(mats[2 * levels + 1], g, prec)
     n2 = nn // 2
     e = hb[:n2] + hb[n2:]
     o = hb[:n2] - hb[n2:]
     ro = r[:n2]
-    go = _scale_plain(x_transform_plain(mats[2 * lvl], o), kmul * _odd_rows(ro), proj, yoff)
-    qo = x_transform_plain(mats[2 * lvl + 1], go)
+    go = _scale_plain(x_transform_plain(mats[2 * lvl], o, prec), kmul * _odd_rows(ro), proj,
+                      yoff)
+    qo = x_transform_plain(mats[2 * lvl + 1], go, prec)
     qe = 0.5 * _fold_plain(e, proj, lvl + 1, 2 * kmul, yoff)
     return torch.cat([qe + qo, qe - qo], dim=0)
 
 
 def passB_fold_plain(h, proj):
     """Plain PyTorch folded pass B (the same qhat as `passB_plain`)."""
-    note_plain("passB_fold", h)
+    note_plain(fused_key("passB_fold", _prec(proj)), h)
     return _fold_plain(h, proj, 0, 1)
 
 
@@ -328,14 +378,14 @@ def _fold_levels(hb, proj, lvl, kmul, yoff=0):
     plain version on the CPU); intermediates are dropped as soon as they
     are used, so a (2048, 512, 2048) shard's solve peaks near four times
     its input."""
-    mats, levels = proj["fold_mats"], proj["fold_levels"]
+    mats, levels, prec = proj["fold_mats"], proj["fold_levels"], _prec(proj)
     if lvl == levels:
-        g = _eigen_scale(x_transform(mats[2 * levels], hb), kmul, False, proj, yoff)
-        return x_transform(mats[2 * levels + 1], g)
+        g = _eigen_scale(x_transform(mats[2 * levels], hb, prec), kmul, False, proj, yoff)
+        return x_transform(mats[2 * levels + 1], g, prec)
     e, o = _fold_split(hb)
-    go = _eigen_scale(x_transform(mats[2 * lvl], o), kmul, True, proj, yoff)
+    go = _eigen_scale(x_transform(mats[2 * lvl], o, prec), kmul, True, proj, yoff)
     del o
-    qo = x_transform(mats[2 * lvl + 1], go)
+    qo = x_transform(mats[2 * lvl + 1], go, prec)
     del go
     qe = _fold_levels(e, proj, lvl + 1, 2 * kmul, yoff)
     del e
@@ -344,32 +394,38 @@ def _fold_levels(hb, proj, lvl, kmul, yoff=0):
 
 def _dense_gemm(h, proj, yoff=0):
     """The GEMM route of the dense pass B: x-product, eigen-scale,
-    x-product (three launches)."""
-    g = _eigen_scale(x_transform(proj["Vinv"], h), 1, False, proj, yoff)
-    return x_transform(proj["V"], g)
+    x-product (three launches; the x-products in the projection's
+    precision)."""
+    prec = _prec(proj)
+    g = _eigen_scale(x_transform(proj["Vinv"], h, prec), 1, False, proj, yoff)
+    return x_transform(proj["V"], g, prec)
 
 
 def _dense_fused(h, proj, yoff, ly):
     """One launch of the fused dense pass B on an (n, ly, n) block (n <=
     512: above it no panel of all n x-rows fits a block, and the launch is
     refused)."""
-    n = h.shape[0]
+    n, prec = h.shape[0], _prec(proj)
     out = torch.empty_like(h)
     dx0, dx1, dx2 = proj["dxs"]
-    err = _build.load().ins_passb_dense_f32(
-        h.data_ptr(), out.data_ptr(), split_basis(proj["Vinv"], "a").data_ptr(),
-        split_basis(proj["V"], "a").data_ptr(), n, ly, yoff, dx0, dx1, dx2, proj["vol"],
+    lib = _build.load()
+    entry = lib.ins_passb_dense_bf16x3 if prec == "manualhigh" else lib.ins_passb_dense_f32
+    err = entry(
+        h.data_ptr(), out.data_ptr(), split_basis(proj["Vinv"], "a", prec).data_ptr(),
+        split_basis(proj["V"], "a", prec).data_ptr(), n, ly, yoff, dx0, dx1, dx2, proj["vol"],
         proj["eps"], current_stream(h.device),
     )
-    _build.check(err, "passB")
+    _build.check(err, fused_key("passB", prec))
     return out
 
 
 def _dense_run(h, proj, yoff, ly):
-    """The dense pass B on an (n, ly, n) block by ``dense_route(n)``:
-    (qhat, the launch key's suffix: "" fused, "+gemm")."""
-    if dense_route(h.shape[0]) == "fused":
-        return _dense_fused(h, proj, yoff, ly), ""
+    """The dense pass B on an (n, ly, n) block by ``dense_route(n,
+    precision)``:
+    (qhat, the launch key's suffix: "" fused in 3xTF32, "+bf16x3" fused in
+    bf16x3, "+gemm" the GEMM route)."""
+    if dense_route(h.shape[0], _prec(proj)) == "fused":
+        return _dense_fused(h, proj, yoff, ly), fused_key("", _prec(proj))
     return _dense_gemm(h, proj, yoff), "+gemm"
 
 
@@ -377,24 +433,27 @@ def _fold(h, proj, yoff, ly):
     """One launch of the fused folded pass B on an (n, ly, n) block (n <=
     1024: above it no panel of all n x-rows fits a block, and the launch
     is refused)."""
-    n, levels = h.shape[0], proj["fold_levels"]
-    mats = [split_basis(w, "a") for w in proj["fold_mats"]]
+    n, levels, prec = h.shape[0], proj["fold_levels"], _prec(proj)
+    mats = [split_basis(w, "a", prec) for w in proj["fold_mats"]]
     ptrs = [m.data_ptr() for m in mats] + [None] * (6 - len(mats))
     out = torch.empty_like(h)
     dx0, dx1, dx2 = proj["dxs"]
-    err = _build.load().ins_passb_fold_f32(
+    lib = _build.load()
+    entry = lib.ins_passb_fold_bf16x3 if prec == "manualhigh" else lib.ins_passb_fold_f32
+    err = entry(
         h.data_ptr(), out.data_ptr(), *ptrs, n, ly, yoff, levels, dx0, dx1, dx2, proj["vol"],
         proj["eps"], current_stream(h.device),
     )
-    _build.check(err, "passB_fold")
+    _build.check(err, fused_key("passB_fold", prec))
     return out
 
 
 def _fold_run(h, proj, yoff, ly):
     """The folded pass B on an (n, ly, n) block by ``fold_route(n)``:
-    (qhat, the launch key's suffix: "" fused, "+levels")."""
+    (qhat, the launch key's suffix: "" fused in 3xTF32, "+bf16x3" fused in
+    bf16x3, "+levels" the level route)."""
     if fold_route(h.shape[0]) == "fused":
-        return _fold(h, proj, yoff, ly), ""
+        return _fold(h, proj, yoff, ly), fused_key("", _prec(proj))
     return _fold_levels(h, proj, 0, 1, yoff), "+levels"
 
 
@@ -413,8 +472,8 @@ def _check_fold(name, h, proj, ly):
 
 def passB(h, proj):
     """Dense pass B: ``divhat -> qhat`` on an (n, n, n) field, by the route
-    `dense_route` picks on the card (launch key ``passB`` fused,
-    ``passB+gemm`` the GEMM route)."""
+    `dense_route` picks on the card (launch key ``passB`` fused in 3xTF32,
+    ``passB+bf16x3`` fused in bf16x3, ``passB+gemm`` the GEMM route)."""
     if h.device.type == "cpu":
         return passB_plain(h, proj)
     n = h.shape[0]
@@ -431,7 +490,8 @@ def passB_fold(h, proj):
     """Radix-2 folded pass B (``proj["fold_levels"]`` levels, matrices
     ``proj["fold_mats"]``): ``divhat -> qhat`` on an (n, n, n) field, by
     the route `fold_route` picks on the card (launch key ``passB_fold``
-    fused, ``passB_fold+levels`` the level route)."""
+    fused in 3xTF32, ``passB_fold+bf16x3`` fused in bf16x3,
+    ``passB_fold+levels`` the level route)."""
     if h.device.type == "cpu":
         return passB_fold_plain(h, proj)
     n = h.shape[0]
@@ -450,15 +510,15 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
     folded pass B where n % 4 == 0, else the dense one; ``passB_plain``
     the same choice's plain version) and the transform matrices (Vinv,
     VinvT, V, VT) the stage and correction kernels take, each split once
-    here, like the fold matrices, into the TF32 fragments the
-    plane-transform and fused pass B kernels read
-    (`transforms.split_basis`).  ``precision`` is accepted for parity with
-    the JAX package; both names run in the float32 class here (3xTF32 on
-    the card, within ~1e-6 of float64: the JAX "highest" class), and the
-    JAX package's 3-pass bf16 "manualhigh" class waits in ROADMAP queue 1
-    item 6."""
-    if precision not in ("manualhigh", "highest"):
-        raise ValueError(f"unknown projection precision {precision!r}")
+    here, like the fold matrices, into the fragments of ``precision``'s
+    form of the plane-transform and fused pass B kernels
+    (`transforms.split_basis`: bf16 hi/lo parts for "manualhigh", TF32
+    big/small parts for "highest").  ``precision`` is the module
+    docstring's contract: "manualhigh" (the default) the JAX package's
+    3-pass bf16 class on float32 operands, "highest" the float32 class;
+    float64 operands exact under both.  The dict keeps it as
+    ``_prec(proj)``: pass B takes its form from it."""
+    check_precision(precision)
     if not (len(Np) == 3 and Np[0] == Np[1] == Np[2]):
         raise ValueError(f"the fused projection needs a cube, got {Np}")
     V, Vinv, eps = poisson_eigen_consts(Np, dxs, dtype, device)
@@ -470,6 +530,7 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
         "eps": eps,
         "dxs": tuple(float(d) for d in dxs),
         "vol": float(np.prod(dxs)),
+        "precision": precision,
     }
     if Np[0] % 4 == 0:
         mats, levels, _ = poisson_fold_consts(Np, dxs, dtype, device=device)
@@ -484,9 +545,9 @@ def make_fused_projection(Np, dxs, dtype, *, precision="manualhigh", device="cud
     # V_y and every x matrix as A (the field as B: the plane GEMM's and the
     # fused pass B's)
     for w in (proj["VT"], proj["VinvT"]):
-        split_basis(w, "b")
+        split_basis(w, "b", precision)
     for w in (proj["V"], proj["Vinv"], *(proj["fold_mats"] or ())):
-        split_basis(w, "a")
+        split_basis(w, "a", precision)
     return proj
 
 
@@ -494,7 +555,9 @@ def make_poisson_pallas(Np, dxs, dtype, *, precision="manualhigh", device="cuda"
                         plain=False):
     """``solve(f) -> p`` of the volume-scaled periodic Laplacian on a cube
     (the zero-mean mode pinned to 0): the same solve as `make_poisson_mm`
-    in three passes, ``V_y·(passB(Vinv_y·f·Vinv_zᵀ))·V_zᵀ``.  On CUDA
+    in three passes, ``V_y·(passB(Vinv_y·f·Vinv_zᵀ))·V_zᵀ``, every product
+    in ``precision``'s form (the module docstring's contract; the JAX
+    package passes its ``precision`` to all three passes).  On CUDA
     tensors each pass is its hand-written kernels (counted once per solve
     under ``"poisson_pallas"``); on CPU tensors, or with ``plain=True`` on
     any device, the plain versions."""
@@ -504,10 +567,11 @@ def make_poisson_pallas(Np, dxs, dtype, *, precision="manualhigh", device="cuda"
 
     def solve(f):
         if plain or f.device.type == "cpu":
-            h = passB_fn(yz_transform_plain(f, Vinv, VinvT))
-            return yz_transform_plain(h, V, VT)
+            h = passB_fn(yz_transform_plain(f, Vinv, VinvT, precision))
+            return yz_transform_plain(h, V, VT, precision, inverse=True)
         with torch.cuda.device(f.device):
-            p = yz_transform(passB_fn(yz_transform(f, Vinv, VinvT)), V, VT)
+            p = yz_transform(passB_fn(yz_transform(f, Vinv, VinvT, precision)), V, VT,
+                             precision, inverse=True)
             LAUNCHES["poisson_pallas"] += 1
         return p
 
@@ -516,7 +580,7 @@ def make_poisson_pallas(Np, dxs, dtype, *, precision="manualhigh", device="cuda"
 
 def passB_sharded_plain(h, proj, yoff):
     """Plain PyTorch version of `passB_sharded`."""
-    note_plain("passB_sharded", h)
+    note_plain(fused_key("passB_sharded", _prec(proj)), h)
     if proj["fold_levels"]:
         return _fold_plain(h, proj, 0, 1, int(yoff))
     return _dense_plain(h, proj, int(yoff))
@@ -526,9 +590,10 @@ def passB_sharded(h, proj, yoff):
     """Pass B of an x-slab-sharded projection on a shard's (n, ly, n)
     y-slice with full x, whose first y-mode is ``yoff``: the folded pass B
     where n % 4 == 0 (on the card by `fold_route`'s route: launch key
-    ``passB_sharded`` fused, ``passB_sharded+levels`` the level route),
-    else the dense one (the projection's choice; by `dense_route`'s
-    route: ``passB_sharded`` fused, ``passB_sharded+gemm`` the GEMM
+    ``passB_sharded`` fused in 3xTF32, ``passB_sharded+bf16x3`` fused in
+    bf16x3, ``passB_sharded+levels`` the level route), else the dense one
+    (the projection's choice; by `dense_route`'s route: ``passB_sharded``
+    or ``passB_sharded+bf16x3`` fused, ``passB_sharded+gemm`` the GEMM
     route)."""
     if h.device.type == "cpu":
         return passB_sharded_plain(h, proj, yoff)

@@ -22,6 +22,11 @@ with the body force folded in and feeds its output to the same stream.
 The plain versions add both where the JAX package's `_stage_tail` does:
 f = convdiff + smag + buoyancy + bodyforce.
 
+``precision`` ("manualhigh", the default, or "highest") is the form of
+the z/y transforms (`ops/transforms.py`'s contract: the JAX package's
+3-pass bf16 class or the float32 class on float32 operands, exact on
+float64), in the kernel runs and the plain versions alike.
+
 ``temperature=(T, tstart, tacc, gdir, alpha2, alpha4, dis)`` rides the
 Boussinesq temperature on the same pass, as in the JAX wrappers: the
 buoyancy ``alpha2·½(T + T[I + e_gdir])`` joins component gdir of the
@@ -285,7 +290,7 @@ def momentum_stage_divhat_3d_plain(
         cnew, visc, dxs, usnew_coeff, _stored(usnew_base, sdt, cdt),
         _stored(bodyforce, sdt, cdt), smag, temp,
     )
-    divhat = yz_transform_plain(div, vinvy, vinvzT)
+    divhat = yz_transform_plain(div, vinvy, vinvzT, precision)
     temps = _temp_plain(u_int, temp, cnew, usnew_coeff, visc, dxs) if temp else None
     return _pack(emit_k, f.to(sdt), ut.to(sdt), divhat, _as(usnew, sdt), temps=temps)
 
@@ -301,7 +306,7 @@ def pcmsd_hat_3d_plain(
     temp = _split_temperature(temperature, streams, usnew_coeff)
     base, ks, cks, cnew = _split_streams(streams, coeffs)
     note_plain(_stage_key("pcmsd_hat_3d", sdt, 0), ut_prev)
-    q = yz_transform_plain(qhat, proj["V"], proj["VT"])
+    q = yz_transform_plain(qhat, proj["V"], proj["VT"], precision, inverse=True)
     u = ut_prev.to(cdt) - _grad(q, dxs)
     if base is RECON:
         if ks:
@@ -315,7 +320,7 @@ def pcmsd_hat_3d_plain(
         u, base, [_stored(k, sdt, cdt) for k in ks], cks, cnew, visc, dxs, usnew_coeff,
         _stored(usnew_base, sdt, cdt), _stored(bodyforce, sdt, cdt), smag, temp,
     )
-    divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"])
+    divhat = yz_transform_plain(div, proj["Vinv"], proj["VinvT"], precision)
     temps = _temp_plain(u, temp, cnew, usnew_coeff, visc, dxs) if temp else None
     return _pack(emit_k, f.to(sdt), ut.to(sdt), divhat, _as(usnew, sdt),
                  u.to(sdt) if emit_u else None, temps)
@@ -327,7 +332,7 @@ def pressure_correct_qhat_3d_plain(
     """Plain PyTorch version of `pressure_correct_qhat_3d`."""
     note_plain(_correct_key(ut_int.dtype, out_dtype), ut_int)
     _check_cube("pressure_correct_qhat_3d", ut_int, qhat)
-    q = yz_transform_plain(qhat, vy, vzT)
+    q = yz_transform_plain(qhat, vy, vzT, precision, inverse=True)
     u = ut_int.to(qhat.dtype) - _grad(q, dxs)
     return u if out_dtype is None else u.to(out_dtype)
 
@@ -442,7 +447,7 @@ def momentum_stage_divhat_3d(
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
         emit_u=False, force=_stage_force(u_int, None, dxs, bodyforce, smag), temp=temp,
     )
-    divhat = yz_transform(div, vinvy, vinvzT)
+    divhat = yz_transform(div, vinvy, vinvzT, precision)
     return _pack(emit_k, k, ut, divhat, usnew, temps=temps)
 
 
@@ -482,13 +487,13 @@ def pcmsd_hat_3d(
     )
     # q and div each make one scalar round trip through device memory
     # here (the TPU kernel transforms them in the same pass)
-    q = yz_transform(qhat, proj["V"], proj["VT"])
+    q = yz_transform(qhat, proj["V"], proj["VT"], precision, inverse=True)
     k, ut, div, usnew, u, temps = _launch_stage(
         "pcmsd_hat_3d", ut_prev, q, base, ks, cks, cnew, visc, dxs,
         emit_k=emit_k, usnew_coeff=usnew_coeff, usnew_base=usnew_base,
         emit_u=emit_u, force=_stage_force(ut_prev, q, dxs, bodyforce, smag), temp=temp,
     )
-    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
+    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"], precision)
     return _pack(emit_k, k, ut, divhat, usnew, u, temps)
 
 
@@ -514,7 +519,7 @@ def pressure_correct_qhat_3d(
                         f"bfloat16, not {odt}")
     key = _correct_key(sdt, odt)
     with torch.cuda.device(device):
-        q = yz_transform(qhat, vy, vzT)
+        q = yz_transform(qhat, vy, vzT, precision, inverse=True)
         u = torch.empty(ut_int.shape, dtype=odt, device=device)
         lib, dx = _build.load(), (float(dxs[0]), float(dxs[1]), float(dxs[2]))
         if key == "pressure_correct_qhat_3d":
@@ -578,7 +583,8 @@ def _halo_force(u, u_lo, u_hi, dxs, bodyforce, bodyforce_lo, smag, rebuild_q=Non
 
 
 def _stage_halo_plain(u_ext, lx, streams, streams_lo, coeffs, visc, dxs, vinvy,
-                      vinvzT, emit_k, usnew_coeff, usnew_base, base_is_u, force, force_lo):
+                      vinvzT, emit_k, usnew_coeff, usnew_base, base_is_u, force, force_lo,
+                      precision):
     """The cube's plain stage on the ghost-extended block u_ext (x planes
     −2 .. lx) with the force stream on planes −1 .. lx − 1; returns the
     outputs on planes 0 .. lx − 1."""
@@ -594,7 +600,7 @@ def _stage_halo_plain(u_ext, lx, streams, streams_lo, coeffs, visc, dxs, vinvy,
     f, ut, div, usnew = _stage_plain(u_ext, base_ext, ks_ext, cks, cnew, visc, dxs,
                                      usnew_coeff, ub_ext, f_ext, None)
     keep = slice(2, 2 + lx)
-    divhat = yz_transform_plain(div[keep], vinvy, vinvzT)
+    divhat = yz_transform_plain(div[keep], vinvy, vinvzT, precision)
     usnew = None if usnew is None else usnew[:, keep]
     return f[:, keep], ut[:, keep], divhat, usnew
 
@@ -623,7 +629,7 @@ def momentum_stage_divhat_halo_3d_plain(
     k, ut, divhat, usnew = _stage_halo_plain(
         u_ext, lx, streams, streams_lo, coeffs, visc, dxs,
         vinvy, vinvzT, emit_k, usnew_coeff, usnew_base,
-        len(streams) == 1 and streams[0] is u_loc, force, force_lo,
+        len(streams) == 1 and streams[0] is u_loc, force, force_lo, precision,
     )
     return _pack(emit_k, k, ut, divhat, usnew)
 
@@ -645,7 +651,8 @@ def pcmsd_hat_halo_3d_plain(
     lx = ut_loc.shape[1]
     # q on planes -glo .. lx + ghi; u = ut - grad q on planes -glo .. lx + ghi
     # - 1 (the x-roll's wrap at the last q plane falls on the dropped plane)
-    q_ext = yz_transform_plain(_xcat(qhat_lo, qhat_loc, qhat_hi), proj["V"], proj["VT"])
+    q_ext = yz_transform_plain(_xcat(qhat_lo, qhat_loc, qhat_hi), proj["V"], proj["VT"],
+                               precision, inverse=True)
     u_full = _xcat(ut_lo, ut_loc, ut_hi) - _grad(q_ext, dxs)[:, : lx + glo + ghi]
     q3 = (q_ext[glo:glo + lx], q_ext[:glo], q_ext[glo + lx:])
     force, force_lo = _halo_force(ut_loc, ut_lo, ut_hi, dxs, bodyforce, bodyforce_lo, smag,
@@ -653,7 +660,7 @@ def pcmsd_hat_halo_3d_plain(
     k, ut, divhat, usnew = _stage_halo_plain(
         u_full[:, glo - 2: glo + lx + 1], lx, streams, streams_lo, coeffs, visc, dxs,
         proj["Vinv"], proj["VinvT"], emit_k, usnew_coeff, usnew_base, recon, force,
-        force_lo,
+        force_lo, precision,
     )
     return _pack(emit_k, k, ut, divhat, usnew, u_full[:, glo:glo + lx] if emit_u else None)
 
@@ -663,7 +670,7 @@ def pressure_correct_qhat_halo_3d_plain(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
     """Plain PyTorch version of `pressure_correct_qhat_halo_3d`."""
     note_plain("pressure_correct_qhat_halo_3d", ut_loc)
     lx = ut_loc.shape[1]
-    q_ext = yz_transform_plain(_xcat(qhat_loc, qhat_hi), vy, vzT)
+    q_ext = yz_transform_plain(_xcat(qhat_loc, qhat_hi), vy, vzT, precision, inverse=True)
     return ut_loc - _grad(q_ext, dxs)[:, :lx]
 
 
@@ -757,7 +764,7 @@ def momentum_stage_divhat_halo_3d(
         usnew_coeff=usnew_coeff, usnew_base=usnew_base, emit_u=False, force=force,
         force_lo=force_lo, glo=glo, ghi=ghi,
     )
-    return _pack(emit_k, k, ut, yz_transform(div, vinvy, vinvzT), usnew)
+    return _pack(emit_k, k, ut, yz_transform(div, vinvy, vinvzT, precision), usnew)
 
 
 def pcmsd_hat_halo_3d(
@@ -791,8 +798,9 @@ def pcmsd_hat_halo_3d(
     _check_halo(name, n, lx, glo, ghi, qhat=(qhat_loc, "sca"), qhat_lo=(qhat_lo, "qlo"),
                 qhat_hi=(qhat_hi, "qhi"))
     # q of the block and of its exchanged ghost planes (one transform)
-    q = yz_transform(qhat_loc, proj["V"], proj["VT"])
-    q_g = yz_transform(torch.cat([qhat_lo, qhat_hi]), proj["V"], proj["VT"])
+    q = yz_transform(qhat_loc, proj["V"], proj["VT"], precision, inverse=True)
+    q_g = yz_transform(torch.cat([qhat_lo, qhat_hi]), proj["V"], proj["VT"], precision,
+                       inverse=True)
     q_lo, q_hi = q_g[:glo], q_g[glo:]
     force, force_lo = _halo_force(ut_loc, ut_lo, ut_hi, dxs, bodyforce, bodyforce_lo, smag,
                                   rebuild_q=(q, q_lo, q_hi))
@@ -802,7 +810,7 @@ def pcmsd_hat_halo_3d(
         usnew_base=usnew_base, emit_u=emit_u, force=force, force_lo=force_lo, glo=glo,
         ghi=ghi,
     )
-    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"])
+    divhat = yz_transform(div, proj["Vinv"], proj["VinvT"], precision)
     return _pack(emit_k, k, ut, divhat, usnew, u)
 
 
@@ -820,8 +828,8 @@ def pressure_correct_qhat_halo_3d(ut_loc, qhat_loc, qhat_hi, dxs, vy, vzT,
     device = _check_halo(name, n, lx, ut=(ut_loc, "vec"), qhat=(qhat_loc, "sca"),
                          qhat_hi=(qhat_hi, "qhi1"), vy=(vy, "mat"), vzT=(vzT, "mat"))
     with torch.cuda.device(device):
-        q = yz_transform(qhat_loc, vy, vzT)
-        q_hi = yz_transform(qhat_hi, vy, vzT)
+        q = yz_transform(qhat_loc, vy, vzT, precision, inverse=True)
+        q_hi = yz_transform(qhat_hi, vy, vzT, precision, inverse=True)
         u = torch.empty_like(ut_loc)
         err = _build.load().ins_correct_halo_f32(
             ut_loc.data_ptr(), q.data_ptr(), q_hi.data_ptr(), u.data_ptr(), lx, n,

@@ -180,7 +180,8 @@ def test_pressure_correct_qhat_3d_bf16_matches_pallas(projs, out):
     got = sk.pressure_correct_qhat_3d_plain(tut, tq, DXS, tp["V"], tp["VT"],
                                             precision="highest", out_dtype=odt[0])
     _assert_close(got, ref, "u")
-    wrapped = sk.pressure_correct_qhat_3d(tut, tq, DXS, tp["V"], tp["VT"], out_dtype=odt[0])
+    wrapped = sk.pressure_correct_qhat_3d(tut, tq, DXS, tp["V"], tp["VT"], precision="highest",
+                                          out_dtype=odt[0])
     assert torch.equal(wrapped, got)
 
 
@@ -238,13 +239,15 @@ def test_hat_chain_bf16_matches_jax():
     u0 = _u0_int()
     ref = _jax_bf16_chain(jset, ins.RKMethods.RK44(), u0, 3)
     method = it.RKMethods.RK44()
-    s, carries = _run(make_fast_timestep_hat(tset, method, stream_dtype=BF16), u0, 3)
+    hat = make_fast_timestep_hat(tset, method, stream_dtype=BF16,
+                                 projection_precision="highest")
+    s, carries = _run(hat, u0, 3)
     assert all(h.ut.dtype == BF16 for h in carries)
     assert carries[0].qhat is None
     assert all(h.qhat.dtype == torch.float32 for h in carries[1:])
     assert s.u.dtype == torch.float32
     assert _rel(s.u, ref) < TOL_CHAIN
-    f32, _ = _run(make_fast_timestep_hat(tset, method), u0, 3)
+    f32, _ = _run(make_fast_timestep_hat(tset, method, projection_precision="highest"), u0, 3)
     assert _rel(s.u, f32.u) < TOL_OWN_F32
 
 
@@ -256,11 +259,13 @@ def test_unmerged_bf16_fallback_matches_jax():
     u0 = _u0_int()
     ref = _jax_bf16_chain(jset, ins.RKMethods.SSP33(), u0, 2)
     method = it.RKMethods.SSP33()
-    s, carries = _run(make_fast_timestep_hat(tset, method, stream_dtype=BF16), u0, 2)
+    hat = make_fast_timestep_hat(tset, method, stream_dtype=BF16,
+                                 projection_precision="highest")
+    s, carries = _run(hat, u0, 2)
     assert all(h.u.dtype == BF16 for h in carries)
     assert s.u.dtype == torch.float32
     assert _rel(s.u, ref) < TOL_CHAIN
-    step = make_fast_timestep(tset, method)
+    step = make_fast_timestep(tset, method, projection_precision="highest")
     f32 = StepperState(u=torch.from_numpy(u0), temp=None, t=0.0, n=0)
     for _ in range(2):
         f32 = step(f32, DT)

@@ -74,10 +74,11 @@ def _dxs(n):
 
 def _proj(n, ly, dtype=torch.float32):
     """The fused projection (ly = n) or a shard's (ly < n); dense at
-    n % 4 != 0."""
+    n % 4 != 0; in the 3xTF32 form ("highest")."""
     dxs = _dxs(n)
-    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, device="cpu") if ly == n
-            else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, device="cpu"))
+    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, precision="highest", device="cpu")
+            if ly == n else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, precision="highest",
+                                                  device="cpu"))
     assert proj["fold_levels"] is None
     return proj
 
@@ -232,7 +233,7 @@ def fake_card(monkeypatch):
             assert t.dtype == torch.float32 and t.shape[-1] == n
         return torch.device("meta")
 
-    def split_basis(w, side):
+    def split_basis(w, side, precision="highest"):
         splits.setdefault(id(w), (side, 0x1000 * (len(splits) + 1)))
         return types.SimpleNamespace(data_ptr=lambda: splits[id(w)][1])
 

@@ -67,10 +67,11 @@ def _dxs(n):
 
 def _proj(n, levels, ly, dtype=torch.float32):
     """The fused projection (ly = n) or a shard's (ly < n), with the
-    fold's level count set."""
+    fold's level count set, in the 3xTF32 form ("highest")."""
     dxs = _dxs(n)
-    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, device="cpu") if ly == n
-            else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, device="cpu"))
+    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, precision="highest", device="cpu")
+            if ly == n else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, precision="highest",
+                                                  device="cpu"))
     if levels != proj["fold_levels"]:
         mats, _, _ = pk.poisson_fold_consts((n,) * 3, dxs, dtype, levels=levels, device="cpu")
         proj = dict(proj, fold_mats=mats, fold_levels=levels)
@@ -117,7 +118,7 @@ def fake_card(monkeypatch):
             assert t.dtype in dtypes and tuple(t.shape) == tuple(shape)
         return torch.device("meta")
 
-    def split_basis(w, side):
+    def split_basis(w, side, precision="highest"):
         splits.setdefault(id(w), (side, 0x1000 * (len(splits) + 1)))
         return types.SimpleNamespace(data_ptr=lambda: splits[id(w)][1])
 

@@ -58,9 +58,12 @@ def _dxs(n):
 
 
 def _proj(n, levels, ly, dtype=torch.float64, device="cpu"):
+    """The projection in the 3xTF32 form ("highest"; float64 is exact
+    under either name)."""
     dxs = _dxs(n)
-    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, device=device) if ly == n
-            else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, device=device))
+    proj = (pk.make_fused_projection((n,) * 3, dxs, dtype, precision="highest", device=device)
+            if ly == n else pk.make_passB_sharded((n,) * 3, dxs, dtype, ly, precision="highest",
+                                                  device=device))
     if levels != proj["fold_levels"]:
         mats, _, _ = pk.poisson_fold_consts((n,) * 3, dxs, dtype, levels=levels, device=device)
         proj = dict(proj, fold_mats=mats, fold_levels=levels)
@@ -202,7 +205,7 @@ def fake_card(monkeypatch):
     for mod in (pk, transforms):
         monkeypatch.setattr(mod, "check_cuda_tensors", check)
         monkeypatch.setattr(mod, "current_stream", lambda device: 0)
-        monkeypatch.setattr(mod, "split_basis", lambda w, side: split)
+        monkeypatch.setattr(mod, "split_basis", lambda w, side, precision="highest": split)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     launches.reset_counts()
     yield lib

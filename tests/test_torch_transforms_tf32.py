@@ -19,8 +19,11 @@ product with the field as B) on the cube, a ragged n, a shard's block
 and the first fold level: within 1e-6 of the float64 product and of the
 JAX package's `_dot_h` at Precision.HIGHEST, while one TF32 pass is
 outside 1e-4.  A stand-in kernel library and meta tensors take the
-wrappers' card branch, so the arguments of each launch can be seen.  The
-kernel itself runs only on the card: `chip_smoke.py` holds it against
+wrappers' card branch, so the arguments of each launch can be seen (the
+3xTF32 form: ``precision="highest"``; the bf16x3 form's host split and
+launches are `tests/test_torch_precision.py`'s).  The tensor cores'
+truncating sums are emulated at K = 256 and 512 for both forms' chains.
+The kernel itself runs only on the card: `chip_smoke.py` holds it against
 float64 and the plain version there.
 """
 
@@ -148,16 +151,19 @@ def test_split_basis_is_kept_on_the_matrix():
         wi = _matrix((16, 16), 4).clone()
         pi = tr.split_basis(wi, "b")
         assert tr.split_basis(wi, "b") is pi and torch.equal(pi, tr.pack_basis_b(wi))
-        proj = make_fused_projection((8,) * 3, (0.1,) * 3, torch.float32, device="cpu")
+        proj = make_fused_projection((8,) * 3, (0.1,) * 3, torch.float32, precision="highest",
+                                     device="cpu")
         assert torch.equal(proj["VT"]._tf32_split["b"][1], tr.pack_basis_b(proj["VT"]))
 
 
 def test_projections_split_their_matrices():
     """The factories split the basis once, for the side each product
-    reads: V_z^T as B, V_y and the x matrices (dense and folded) as A."""
-    for proj in (make_fused_projection((16,) * 3, (0.3, 0.2, 0.1), torch.float32, device="cpu"),
-                 make_passB_sharded((16,) * 3, (0.3, 0.2, 0.1), torch.float32, 4, device="cpu"),
-                 make_fused_projection((18,) * 3, (0.3,) * 3, torch.float32, device="cpu")):
+    reads: V_z^T as B, V_y and the x matrices (dense and folded) as A (the
+    3xTF32 form's split: "highest")."""
+    kw = dict(precision="highest", device="cpu")
+    for proj in (make_fused_projection((16,) * 3, (0.3, 0.2, 0.1), torch.float32, **kw),
+                 make_passB_sharded((16,) * 3, (0.3, 0.2, 0.1), torch.float32, 4, **kw),
+                 make_fused_projection((18,) * 3, (0.3,) * 3, torch.float32, **kw)):
         for name, side in (("VT", "b"), ("VinvT", "b"), ("V", "a"), ("Vinv", "a")):
             w = proj[name]
             assert torch.equal(w._tf32_split[side][1], tr.pack_basis_a(w) if side == "a"
@@ -322,7 +328,7 @@ def _meta(*shape):
 @pytest.mark.parametrize("n,r", [(256, 256), (256, 64), (250, 2)])
 def test_yz_transform_launches(fake_card, n, r):
     my, mzT = _meta(n, n), _meta(n, n)
-    out = tr.yz_transform(_meta(r, n, n), my, mzT)
+    out = tr.yz_transform(_meta(r, n, n), my, mzT, "highest")
     assert out.shape == (r, n, n)
     assert [c[0] for c in fake_card.calls] == ["ins_plane_gemm_tf32"] * 2
     for (_, args), plan in zip(fake_card.calls, tr.yz_launches(r, n)):
@@ -339,7 +345,7 @@ def test_yz_transform_launches(fake_card, n, r):
                                      (256, 256, 64, 256), (30, 30, 30, 30)])
 def test_x_transform_launch(fake_card, m, r, a, b):
     mx = _meta(m, r)
-    out = tr.x_transform(mx, _meta(r, a, b))
+    out = tr.x_transform(mx, _meta(r, a, b), "highest")
     assert out.shape == (m, a, b)
     (name, args), = fake_card.calls
     assert name == "ins_plane_gemm_tf32"
@@ -398,3 +404,61 @@ def test_a_stage_long_chain_stays_float32_class():
     whole = _rel(_chained(a, w, 0), ref)
     assert stage <= TOL_3XTF32 / 2, stage
     assert whole > TOL_3XTF32, whole
+
+
+def _orthonormal(n, seed):
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((n, n)))
+    return torch.from_numpy(q.astype(np.float32))
+
+
+def test_a_stage_long_chain_stays_float32_class_at_512():
+    """K = 512 (the 512³ cells' transforms): the 3xTF32 kernel's chains of
+    one stage stay within 1e-6 of float64 with every tensor-core sum
+    truncated (4.7e-7); one chain over all of K drifts outside it."""
+    n = 512
+    w, a = _orthonormal(n, 11), _matrix((256, n), 12)
+    ref = a.double() @ w.double()
+    assert _rel(_chained(a, w, 4), ref) <= TOL_3XTF32
+    assert _rel(_chained(a, w, 0), ref) > TOL_3XTF32
+
+
+def _chained_bf16x3(a, w, chain_k16):
+    """a @ w as the bf16x3 kernel sums it (`csrc/bf16x3.cuh`), with every
+    mma's float32 sum truncated (toward zero): per k16 step lo·hi, hi·lo,
+    hi·hi of the bf16 parts into the chain, the chain added (rounded to
+    nearest) into a float32 accumulator every ``chain_k16`` steps (0: one
+    chain over all of K)."""
+    ah, al = (t.double().numpy() for t in tr.bf16_parts(a))
+    wh, wl = (t.double().numpy() for t in tr.bf16_parts(w))
+    acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    part = None
+    for step, k in enumerate(range(0, a.shape[1], 16)):
+        sl = slice(k, k + 16)
+        for x, y in ((al, wh), (ah, wl), (ah, wh)):
+            t = x[:, sl] @ y[sl]
+            part = _rz32(t) if part is None else _rz32(part.astype(np.float64) + t)
+        if chain_k16 and (step + 1) % chain_k16 == 0:
+            acc, part = (acc + part).astype(np.float32), None
+    if part is not None:
+        acc = (acc + part).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_bf16x3_stage_chains_keep_the_split_products(n):
+    """The bf16x3 form's chains of one stage (two k16 steps, six mma, 32 of
+    K) at K = 256 and 512: with every tensor-core sum truncated they stay
+    within 1e-6 of the same three products summed exactly (2.6e-7 at 512;
+    the kernel's check against its plain version on the card is 1e-5), in
+    the 3-pass bf16 class against float64 (4.7e-6: bf16x3 drops lo·lo and
+    rounds lo to 8 bits); one chain over all of K drifts outside 1e-6 of
+    the exact sum at K = 512 (2.8e-6)."""
+    w, a = _orthonormal(n, 11), _matrix((256, n), 12)
+    ah, al = (t.double() for t in tr.bf16_parts(a))
+    wh, wl = (t.double() for t in tr.bf16_parts(w))
+    exact = al @ wh + ah @ wl + ah @ wh
+    stage = _chained_bf16x3(a, w, 2)
+    assert _rel(stage, exact) <= TOL_3XTF32
+    assert TOL_3XTF32 < _rel(stage, a.double() @ w.double()) <= 1e-4
+    if n == 512:
+        assert _rel(_chained_bf16x3(a, w, 0), exact) > TOL_3XTF32

@@ -24,16 +24,8 @@ modes (the port's per-axis test, the JAX package's sum test) against
 the 1-D spectrum at 128², 256² and n², both packages' float32 FDM
 solves, and `psolver_cg` with the FDM preconditioner in both packages.
 
-``--case dofbox``: the a-posteriori loss on a 2-D lid-driven cavity at
-n² in float64 (no closure; the flow 10 RK44 steps of 2e-3 after rest,
-targets scaled 1 % a stored step, 2 stored steps of 2 substeps,
-`psolver_direct`): both packages' `create_loss_post`, which slice every
-component by the first component's DOF box ``Iu[0]``, against the same
-relative errors with each component on its own box.
-
     JAX_PLATFORMS=cpu python tests/torch_floor_checks.py --case rb3d [--n 60] [--steps 20]
     JAX_PLATFORMS=cpu python tests/torch_floor_checks.py --case ldc2d [--n 512]
-    JAX_PLATFORMS=cpu python tests/torch_floor_checks.py --case dofbox [--n 16]
 """
 
 from __future__ import annotations
@@ -193,66 +185,14 @@ def ldc2d(n):
           f"{ft.norm().item():.4e}")
 
 
-def dofbox(n):
-    """The a-posteriori loss's slice on a wall-bounded grid (see the
-    module docstring)."""
-    from ins_tpu.models import create_loss_post as jloss_post
-
-    from ins_tpu_torch.models import create_loss_post
-    from ins_tpu_torch.time_steppers.step import StepperState, timestep
-
-    def cavity(pk):
-        kw = dict(device="cpu") if pk is it else {}
-        d = pk.DirichletBC()
-        return pk.Setup(x=(np.linspace(0.0, 1.0, n + 1),) * 2, boundary_conditions=(
-            (d, d), (d, pk.DirichletBC((1.0, 0.0)))), Re=1e3,
-            dtype=torch.float64 if pk is it else jnp.float64, **kw)
-
-    js, ts = cavity(ins), cavity(it)
-    ps = it.psolver_direct(ts)
-    with torch.no_grad():
-        st, _ = it.solve_unsteady(setup=ts, ustart=it.vectorfield(ts), tlims=(0.0, 0.02),
-                                  dt=2e-3, psolver=ps)
-    us = np.stack([st.u.numpy() * (1 - 0.01 * i) for i in range(3)])
-    tt = np.arange(3) * 2e-3
-    method = it.RKMethods.RK44()
-    zero = {"a": 0.0}
-
-    def closure(u, theta):
-        return theta["a"] * u
-
-    port = create_loss_post(setup=ts, method=method, psolver=ps, closure_model=closure,
-                            nsubstep=2)([{"u": us, "t": tt}], zero).item()
-    ref = float(jloss_post(setup=js, method=ins.RKMethods.RK44(), psolver=ins.psolver_direct(js),
-                           closure_model=closure, nsubstep=2)(
-        [{"u": jnp.asarray(us), "t": jnp.asarray(tt)}], zero))
-    g = ts.grid
-    s = StepperState(u=torch.from_numpy(us[0]), temp=None, t=0.0, n=0)
-    own = 0.0
-    with torch.no_grad():
-        for k in (1, 2):
-            for _ in range(2):
-                s = timestep(method, s, 1e-3, setup=ts, psolver=ps)
-            boxes = [tuple(slice(lo, hi) for lo, hi in g.Iu[a]) for a in range(2)]
-            ref_k = torch.from_numpy(us[k])
-            own += (sum(torch.sum((s.u[a][b] - ref_k[a][b]) ** 2) for a, b in enumerate(boxes))
-                    / sum(torch.sum(ref_k[a][b] ** 2) for a, b in enumerate(boxes))).item() / 2
-    print(f"2-D cavity {n}², DOF boxes {g.Iu}: the a-posteriori loss sliced by Iu[0]: JAX "
-          f"package {ref:.9e}, port {port:.9e}; each component on its own box {own:.9e} "
-          f"(relative gap {abs(ref - own) / own:.3e})")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("rb3d", "ldc2d", "dofbox"), default="rb3d")
+    ap.add_argument("--case", choices=("rb3d", "ldc2d"), default="rb3d")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--steps", type=int, default=20)
     args = ap.parse_args()
     if args.case == "ldc2d":
         ldc2d(args.n or 512)
-        return
-    if args.case == "dofbox":
-        dofbox(args.n or 16)
         return
     args.n = args.n or 60
     dt = 1e-3
